@@ -1,0 +1,1 @@
+"""worker of the PyTorch port (see the package docstring)."""

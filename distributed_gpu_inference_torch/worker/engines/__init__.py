@@ -1,0 +1,1 @@
+"""engines of the PyTorch port (see the package docstring)."""
