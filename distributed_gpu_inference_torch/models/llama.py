@@ -31,12 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from distributed_gpu_inference_torch.models.configs import ModelConfig
-from distributed_gpu_inference_torch.ops.attention import (
-    paged_attention,
-    write_kv_pages,
-)
+from distributed_gpu_inference_torch.ops.attention import write_kv_pages
 from distributed_gpu_inference_torch.ops.paged_attention import (
     paged_decode_attention_fused,
+    ragged_paged_attention,
 )
 
 Params = Dict[str, Any]
@@ -229,7 +227,7 @@ def _layer_step(
     else:
         write_kv_pages(k_pool[layer], k, block_tables, positions, block_size)
         write_kv_pages(v_pool[layer], v, block_tables, positions, block_size)
-        attn = paged_attention(
+        attn = ragged_paged_attention(
             q, k_pool[layer], v_pool[layer], block_tables, positions, kv_lens,
             block_size, window=cfg.sliding_window,
         )

@@ -1,5 +1,5 @@
 """Attention over paged KV: the plain PyTorch version (gather + einsum) that
-every kernel is held to, the paged write, and the dispatch.
+every kernel is held to, and the paged write.
 
 Semantics shared by every implementation (the JAX package's
 ``ops/attention.py`` contract):
@@ -17,9 +17,10 @@ Semantics shared by every implementation (the JAX package's
 - A query with no visible key (pad query, or a window that excludes
   everything) outputs exact zeros.
 
-The dispatch carries none of the TPU's crossovers: on a CUDA tensor
-:func:`paged_attention` launches the hand-written ragged kernel, on a CPU
-tensor it takes :func:`paged_attention_ref`.
+The dispatch is the ragged wrapper itself
+(``ops.paged_attention.ragged_paged_attention``) and carries none of the
+TPU's crossovers: on a CUDA tensor it launches the hand-written kernel, on
+a CPU tensor it takes :func:`paged_attention_ref`.
 """
 
 from __future__ import annotations
@@ -29,29 +30,6 @@ from typing import Optional
 import torch
 
 _NEG_INF = -1e30
-
-
-def paged_attention(
-    q: torch.Tensor,             # [B, S, Nh, D]
-    k_pool: torch.Tensor,        # [N, Hkv, Bk, D] (single layer)
-    v_pool: torch.Tensor,        # [N, Hkv, Bk, D]
-    block_tables: torch.Tensor,  # [B, M] int32
-    positions: torch.Tensor,     # [B, S] int32, -1 = pad
-    kv_lens: torch.Tensor,       # [B] int32
-    block_size: int = 16,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """Attention of a chunk of queries against paged context → [B, S, Nh, D].
-    Rows may carry spans of any length (decode rows, prefill chunks, pad
-    rows) in one call."""
-    from distributed_gpu_inference_torch.ops.paged_attention import (
-        ragged_paged_attention,
-    )
-
-    return ragged_paged_attention(
-        q, k_pool, v_pool, block_tables, positions, kv_lens, block_size,
-        window=window,
-    )
 
 
 def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -88,18 +88,6 @@ def _raise_on_error(name: str, err: int) -> None:
 # --------------------------------------------------------------------------
 
 
-def ragged_paged_attention_plain(
-    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-    block_tables: torch.Tensor, positions: torch.Tensor,
-    kv_lens: torch.Tensor, block_size: int = 16,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """The ragged kernel's plain version: gather + einsum over the whole
-    table (``ops.attention.paged_attention_ref``)."""
-    return paged_attention_ref(q, k_pool, v_pool, block_tables, positions,
-                               kv_lens, block_size, window=window)
-
-
 def ragged_paged_attention(
     q: torch.Tensor,             # [B, S, Nh, D] — per-row spans padded to S
     k_pool: torch.Tensor,        # [N, Hkv, Bk, D] one layer's pool
@@ -113,9 +101,10 @@ def ragged_paged_attention(
     """Ragged paged attention → [B, S, Nh, D] in q's dtype. Each row
     carries its own query span, block-table row and kv length; a query
     sees keys j < kv_len, j <= pos (and j > pos - window); queries with no
-    visible key give exact zeros."""
+    visible key give exact zeros. Its plain version is
+    ``ops.attention.paged_attention_ref``."""
     if q.device.type == "cpu":
-        return ragged_paged_attention_plain(
+        return paged_attention_ref(
             q, k_pool, v_pool, block_tables, positions, kv_lens, block_size,
             window=window,
         )

@@ -126,24 +126,6 @@ class BatcherConfig:
     # full ``ragged_chunk`` slice per round — byte-identical outputs either way; the budget only shapes
     # WHEN prefill work lands). Live-pushable (serving.prefill_budget).
     prefill_budget: int = 0
-    # hopeless-work abandonment: when ON, the serving
-    # loop drops work whose deadline has ALREADY passed and whose projected
-    # remaining decode (tokens_left × observed ITL) still cannot land
-    # within ``deadline_grace_s`` — resolving the future with a typed
-    # ``deadline_abandoned`` error and freeing the blocks at the next step
-    # boundary, so a degraded worker stops burning rounds on answers nobody
-    # will read. NEVER fires for deadline-less requests (deadline_s=None);
-    # OFF (the default) never abandons.
-    abandon_deadlines: bool = False
-    deadline_grace_s: float = 0.5
-    # predictive abandonment: when ON (requires
-    # abandon_deadlines too), the projection fires BEFORE the deadline
-    # passes — a job whose remaining decode (tokens_left × observed ITL)
-    # already overruns deadline + grace stops burning ragged-round slots
-    # now instead of limping to the deadline first. Same typed
-    # ``deadline_abandoned`` error, counted separately
-    # (stats["abandoned_predictive"]); OFF keeps reactive-only behavior.
-    predictive_abandon: bool = False
 
     @property
     def horizon_levels(self) -> Tuple[int, ...]:
@@ -275,7 +257,6 @@ class ContinuousBatcher:
             "preemptions": 0, "resumes": 0, "preemption_block_pressure": 0,
             "preempted_too_often": 0,
             "cancelled": 0, "migrated": 0,
-            "abandoned": 0, "abandoned_predictive": 0,
         }
 
     @property
@@ -981,7 +962,7 @@ class ContinuousBatcher:
                 # its slot + staged blocks) and either resolve with an
                 # empty abort or migrate with a synthesized zero-token
                 # checkpoint — burning the remaining prefill rounds on an
-                # abandoned/draining request would stall everyone else
+                # cancelled/draining request would stall everyone else
                 self._chunked = None
                 try:
                     await loop.run_in_executor(
@@ -1066,151 +1047,6 @@ class ContinuousBatcher:
                 if not item.future.done():
                     item.future.set_exception(RequestMigrated(pre))
                     self.stats["migrated"] += 1
-
-    def _deadline_hopeless(self, request: InferenceRequest,
-                           tokens_left: int, now: float) -> bool:
-        """True when ``request`` missed its deadline AND its projected
-        remaining decode (``tokens_left`` × observed ITL) cannot land even
-        within the grace window — the typed-abandonment trigger. Guarded
-        three ways: the feature flag, an explicit ``deadline_s is None``
-        check (deadline-less requests must NEVER abandon — asserted by
-        tests, not merely implied by the +inf deadline_at), and
-        ``tokens_left > 0`` (a sequence about to finish frees nothing by
-        aborting)."""
-        if not self.cfg.abandon_deadlines:
-            return False
-        if request.deadline_s is None:
-            return False
-        if tokens_left <= 0:
-            return False
-        deadline_at = request.deadline_at
-        if now <= deadline_at and not self.cfg.predictive_abandon:
-            # reactive mode waits for the deadline to actually pass;
-            # predictive mode lets the ITL projection below
-            # fire EARLY — the projection test is identical either way,
-            # so a request reactive mode would carry to its deadline and
-            # then drop is dropped now, before burning the rounds
-            return False
-        # observed inter-token latency; floor at 1ms so a cold EMA (no
-        # rounds yet) still projects SOME forward progress instead of 0
-        itl_s = max(float(self.stats["step_latency_ema_ms"]), 1.0) / 1000.0
-        return now + tokens_left * itl_s > \
-            deadline_at + self.cfg.deadline_grace_s
-
-    def _count_abandon(self, request: InferenceRequest, now: float) -> None:
-        """Bump the abandonment counters: every abandonment lands in
-        ``abandoned``; one that fired BEFORE the deadline passed (only
-        possible with ``predictive_abandon``) also lands in
-        ``abandoned_predictive`` — the A/B-visible split."""
-        self.stats["completed"] += 1
-        self.stats["abandoned"] += 1
-        if now <= request.deadline_at:
-            self.stats["abandoned_predictive"] += 1
-
-    def _abandon_response(self, request: InferenceRequest,
-                          token_ids: List[int],
-                          prompt_tokens: int) -> InferenceResponse:
-        return InferenceResponse(
-            request_id=request.request_id,
-            token_ids=list(token_ids),
-            finish_reason="abort",
-            prompt_tokens=prompt_tokens,
-            completion_tokens=len(token_ids),
-            error=f"deadline exceeded by {self.cfg.deadline_grace_s:.1f}s "
-                  "grace and projected remaining decode cannot land",
-            # machine-readable: the WORK was dropped (vs request_timeout,
-            # where only the caller's wait budget elapsed and the request
-            # may still be generating). Callers must not silently retry a
-            # deadline-abandoned request — its deadline already passed.
-            error_code="deadline_abandoned",
-        )
-
-    async def _scan_deadlines(self) -> None:
-        """Abandon hopeless deadline-carrying work at the step boundary —
-        queued items resolve immediately; mid-prefill admissions abort
-        their staged blocks; active slots free their KV at this quiescent
-        point via the same abort path cancels use. No-op (not even a
-        clock read) unless ``cfg.abandon_deadlines`` is on."""
-        if not self.cfg.abandon_deadlines:
-            return
-        loop = asyncio.get_running_loop()
-        now = time.time()
-        changed = False
-        for item in list(self._heap):
-            if item.future.done():
-                continue
-            req = item.request
-            pre = item.preempted
-            tokens_left = max(0, int(req.sampling.max_new_tokens)
-                              - (len(pre.generated) if pre else 0))
-            if not self._deadline_hopeless(req, tokens_left, now):
-                continue
-            self._heap.remove(item)
-            changed = True
-            item.future.set_result(self._abandon_response(
-                req, list(pre.generated) if pre else [],
-                pre.prompt_len if pre
-                else len(req.prompt_token_ids or []),
-            ))
-            self._count_abandon(req, now)
-        if changed:
-            heapq.heapify(self._heap)
-        if self._chunked is not None:
-            adm, item = self._chunked
-            if not item.future.done() and self._deadline_hopeless(
-                    item.request,
-                    int(item.request.sampling.max_new_tokens), now):
-                self._chunked = None
-                try:
-                    await loop.run_in_executor(
-                        self._exec, self.engine.abort_chunked, adm
-                    )
-                except Exception:  # noqa: BLE001 — abort is best-effort
-                    pass
-                if not item.future.done():
-                    item.future.set_result(self._abandon_response(
-                        item.request, [],
-                        len(item.request.prompt_token_ids or []),
-                    ))
-                    self._count_abandon(item.request, now)
-        for adm, item in list(self._ragged):
-            if item.future.done() or not self._deadline_hopeless(
-                    item.request,
-                    int(item.request.sampling.max_new_tokens), now):
-                continue
-            self._ragged.remove((adm, item))
-            try:
-                await loop.run_in_executor(
-                    self._exec, self.engine.abort_chunked, adm
-                )
-            except Exception:  # noqa: BLE001 — abort is best-effort
-                pass
-            if not item.future.done():
-                item.future.set_result(self._abandon_response(
-                    item.request, [],
-                    len(item.request.prompt_token_ids or []),
-                ))
-                self._count_abandon(item.request, now)
-        for slot, item in list(self._slot_items.items()):
-            s = self.engine.slots[slot]
-            if s is None or s.finish_reason is not None:
-                continue  # the round loop resolves finished slots
-            req = item.request
-            tokens_left = max(
-                0, int(req.sampling.max_new_tokens) - len(s.generated))
-            if not self._deadline_hopeless(req, tokens_left, now):
-                continue
-            try:
-                resp = await loop.run_in_executor(
-                    self._exec, self._abort_slot, slot
-                )
-            except Exception:
-                continue  # finished/changed under us — next pass
-            self._slot_items.pop(slot, None)
-            if resp is not None and not item.future.done():
-                item.future.set_result(self._abandon_response(
-                    req, list(resp.token_ids), resp.prompt_tokens))
-                self._count_abandon(req, now)
 
     def _notify_observers(self) -> None:
         """Push per-round progress to streaming observers (loop thread;
@@ -1328,9 +1164,6 @@ class ContinuousBatcher:
             # aborted requests release their slots BEFORE admission so the
             # freed capacity admits waiting work this very pass
             await self._scan_signals()
-            # hopeless deadline work drops at the same boundary, so its
-            # freed blocks admit waiting on-time work this very pass
-            await self._scan_deadlines()
             await self._admit()
             # admission-sourced KV pressure: deferred requests wait, or a
             # higher-priority arrival preempts the lowest-priority victim

@@ -54,9 +54,6 @@ SERVING_DEFAULTS: Dict[str, Any] = {
     "ragged": None,
     "prefill_budget": 0,
     "ragged_chunk": None,
-    "abandon_deadlines": False,
-    "deadline_grace_s": 0.5,
-    "predictive_abandon": False,
 }
 
 
@@ -179,9 +176,6 @@ class TorchLLMEngine(LLMBaseEngine):
             ragged=(None if sv.get("ragged") is None
                     else bool(sv["ragged"])),
             prefill_budget=int(sv.get("prefill_budget") or 0),
-            abandon_deadlines=bool(sv.get("abandon_deadlines") or False),
-            deadline_grace_s=float(sv.get("deadline_grace_s") or 0.5),
-            predictive_abandon=bool(sv.get("predictive_abandon") or False),
         )
 
     def serving_stats(self) -> Optional[Dict[str, Any]]:

@@ -97,8 +97,8 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
     q = t(rng.standard_normal((b, s, nh, d)))
     got = tpa.ragged_paged_attention(q, kp[1], vp[1], tables, pos, lens, bk)
     want = paged_attention_ref(q, kp[1], vp[1], tables, pos, lens, bk)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-    q1 = t(rng.standard_normal((b, 1, nh, d)))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+    q1 =t(rng.standard_normal((b, 1, nh, d)))
     nk = t(rng.standard_normal((b, 1, hkv, d)))
     nv = t(rng.standard_normal((b, 1, hkv, d)))
     p1 = (lens - 1).clamp(min=-1)[:, None].to(torch.int32)
@@ -107,5 +107,5 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
                                                  p1, lens, bk)
     want, _, _ = tpa.paged_decode_attention_fused_plain(q1, nk, nv, kp2, vp2, 0,
                                                         tables, p1, lens, bk)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)

@@ -17,7 +17,6 @@ import jax.numpy as jnp  # noqa: E402
 from distributed_gpu_inference_torch.ops import paged_attention as tpa  # noqa: E402
 from distributed_gpu_inference_torch.ops.attention import (  # noqa: E402
     dense_causal_attention,
-    paged_attention,
     paged_attention_ref,
     write_kv_pages,
 )
@@ -49,7 +48,7 @@ def _ragged(rows, nh, hkv, d, block, m, seed=0):
 
 def _port(args, block, window=None):
     t = [torch.from_numpy(a) for a in args]
-    return paged_attention(*t, block_size=block, window=window).numpy()
+    return tpa.ragged_paged_attention(*t, block_size=block, window=window).numpy()
 
 
 CASES = {
@@ -199,7 +198,7 @@ def test_fused_write_is_visible_to_its_own_query():
 def test_cpu_tensors_take_the_plain_version_without_launching():
     tpa.reset_launch_counts()
     args = [torch.from_numpy(a) for a in _ragged([(2, 9)], 4, 2, 64, 16, 2)]
-    paged_attention(*args, block_size=16)
+    tpa.ragged_paged_attention(*args, block_size=16)
     assert tpa.launch_counts() == {
         "ragged_paged_attention": 0, "paged_decode_attention_fused": 0,
     }
