@@ -1,4 +1,5 @@
-// Ragged paged attention for Hopper (sm_90a), bf16 in and out.
+// Ragged paged attention for Hopper (sm_90a): bf16 queries and output over
+// a bf16, int8 or fp8 (e4m3) paged pool.
 //
 // Replaces the Pallas TPU kernel `_ragged_kernel`, reached through
 // `ragged_paged_attention` in distributed_gpu_inference_tpu/ops/
@@ -25,6 +26,16 @@
 // accumulator lives in shared memory so that its rows can be rescaled by
 // the softmax correction without relying on the fragment layout.
 //
+// Quantized pools. The pool element type is a template parameter; only the
+// staging differs. An int8 pool carries one bf16 scale per (page, token)
+// ([N, Bk] per layer, shared by the kv heads): staging turns each code into
+// bf16(code * scale) — the exact product of ops/attention.py dequantize_kv
+// rounded to nearest even for the bf16 tensor cores, as the Pallas kernel
+// rounds it for the MXU. An fp8 pool stages by a plain upcast (e4m3 -> bf16
+// is exact). Everything after
+// staging is the same for all three. A byte pool halves the bytes of K/V
+// pages the kernel reads.
+//
 // What bounds it on the card: a prefill chunk of 256 queries against a few
 // hundred keys is compute-light (about 4 * D flops per visible query-key
 // pair), and the whole round reads each row's pages once per query tile,
@@ -34,6 +45,8 @@
 // not overlap. Faster variants are later work; PERF.md keeps the times.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -64,6 +77,41 @@ struct Layout {
   static constexpr size_t bytes = red + sizeof(int) * 2;
 };
 
+using fp8 = __nv_fp8_e4m3;
+
+// 8 consecutive pool elements at p + off -> 8 bf16 (one 16-byte vector);
+// `s` is the token's int8 scale (unused for bf16 and fp8 pools)
+__device__ __forceinline__ uint4 stage8(const bf16* p, size_t off, float) {
+  return *reinterpret_cast<const uint4*>(p + off);
+}
+
+__device__ __forceinline__ uint4 stage8(const int8_t* p, size_t off, float s) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p + off);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // code * scale is exact in f32 (8-bit by 8-bit significands): one
+    // rounding, to the bf16 the tensor cores take
+    o[i] = __floats2bfloat162_rn(static_cast<float>(c[2 * i]) * s,
+                                 static_cast<float>(c[2 * i + 1]) * s);
+  }
+  return out;
+}
+
+__device__ __forceinline__ uint4 stage8(const fp8* p, size_t off, float) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p + off);
+  const __nv_fp8x2_storage_t* c = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = __float22bfloat162_rn(__half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(c[i], __NV_E4M3))));
+  }
+  return out;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -76,11 +124,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D, int KC>
+template <int D, int KC, typename T>
 __global__ void __launch_bounds__(kThreads)
 ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
-              const bf16* __restrict__ kpool,      // [N, Hkv, Bk, D] (one layer)
-              const bf16* __restrict__ vpool,
+              const T* __restrict__ kpool,         // [N, Hkv, Bk, D] (one layer)
+              const T* __restrict__ vpool,
+              const bf16* __restrict__ kscale,     // [N, Bk] (int8 pools only)
+              const bf16* __restrict__ vscale,
               const int* __restrict__ tables,      // [B, M]
               const int* __restrict__ positions,   // [B, S]
               const int* __restrict__ kv_lens,     // [B]
@@ -162,9 +212,14 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
         uint4 vval = kval;
         if (j >= lo && j < hi) {
           const int page = tables[b * M + min(j / Bk, M - 1)];
-          const size_t off = (((size_t)page * Hkv + g) * Bk + j % Bk) * D;
-          kval = reinterpret_cast<const uint4*>(kpool + off)[dv];
-          vval = reinterpret_cast<const uint4*>(vpool + off)[dv];
+          const size_t off = (((size_t)page * Hkv + g) * Bk + j % Bk) * D + dv * 8;
+          float ks = 1.f, vs = 1.f;
+          if (kscale != nullptr) {
+            ks = __bfloat162float(kscale[(size_t)page * Bk + j % Bk]);
+            vs = __bfloat162float(vscale[(size_t)page * Bk + j % Bk]);
+          }
+          kval = stage8(kpool, off, ks);
+          vval = stage8(vpool, off, vs);
         }
         reinterpret_cast<uint4*>(sK + c * D)[dv] = kval;
         reinterpret_cast<uint4*>(sV + c * D)[dv] = vval;
@@ -265,52 +320,75 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
   }
 }
 
-template <int D, int KC>
-int launch(const bf16* q, const bf16* kpool, const bf16* vpool, const int* tables,
-           const int* positions, const int* kv_lens, bf16* out, int B, int S, int Nh,
-           int Hkv, int Bk, int M, int window, float scale, cudaStream_t stream) {
+template <int D, int KC, typename T>
+int launch(const bf16* q, const T* kpool, const T* vpool, const bf16* kscale,
+           const bf16* vscale, const int* tables, const int* positions, const int* kv_lens,
+           bf16* out, int B, int S, int Nh, int Hkv, int Bk, int M, int window, float scale,
+           cudaStream_t stream) {
   const int qpk = Nh / Hkv;
   const int Tq = kQRows / qpk;
   const int qtiles = (S + Tq - 1) / Tq;
   const size_t smem = Layout<D, KC>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel<D, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ragged_kernel<D, KC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * qtiles, Hkv);
-  ragged_kernel<D, KC><<<grid, kThreads, smem, stream>>>(
-      q, kpool, vpool, tables, positions, kv_lens, out, S, Nh, Hkv, Bk, M, qtiles, Tq,
-      window, scale);
+  ragged_kernel<D, KC, T><<<grid, kThreads, smem, stream>>>(
+      q, kpool, vpool, kscale, vscale, tables, positions, kv_lens, out, S, Nh, Hkv, Bk, M,
+      qtiles, Tq, window, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point (loaded with ctypes). All tensors contiguous on the current
-// device; `window` <= 0 means full causal attention. Returns the CUDA error
-// code of the launch (0 = success); the kernel runs on `stream` and does not
-// synchronise.
-extern "C" int ragged_paged_attention_bf16(
-    const void* q, const void* k_pool, const void* v_pool, const int32_t* tables,
-    const int32_t* positions, const int32_t* kv_lens, void* out, int B, int S, int Nh,
-    int Hkv, int D, int Bk, int M, int window, float scale, void* stream) {
+template <typename T>
+int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+             const void* v_scale, const int32_t* tables, const int32_t* positions,
+             const int32_t* kv_lens, void* out, int B, int S, int Nh, int Hkv, int D, int Bk,
+             int M, int window, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || Nh % Hkv != 0 || Nh / Hkv > kQRows) return (int)cudaErrorInvalidValue;
   const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k_pool);
-  const bf16* vp = static_cast<const bf16*>(v_pool);
+  const T* kp = static_cast<const T*>(k_pool);
+  const T* vp = static_cast<const T*>(v_pool);
+  const bf16* ks = static_cast<const bf16*>(k_scale);
+  const bf16* vs = static_cast<const bf16*>(v_scale);
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64, 64>(qq, kp, vp, tables, positions, kv_lens, o, B, S, Nh, Hkv, Bk,
-                            M, window, scale, st);
+      return launch<64, 64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh,
+                               Hkv, Bk, M, window, scale, st);
     case 128:
-      return launch<128, 64>(qq, kp, vp, tables, positions, kv_lens, o, B, S, Nh, Hkv, Bk,
-                             M, window, scale, st);
+      return launch<128, 64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh,
+                                Hkv, Bk, M, window, scale, st);
     case 256:
-      return launch<256, 32>(qq, kp, vp, tables, positions, kv_lens, o, B, S, Nh, Hkv, Bk,
-                             M, window, scale, st);
+      return launch<256, 32, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh,
+                                Hkv, Bk, M, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+// C entry points (loaded with ctypes), one per pool element type. All
+// tensors contiguous on the current device; `k_scale`/`v_scale` are the
+// layer's [N, Bk] bf16 scale pools of an int8 pool and null otherwise;
+// `window` <= 0 means full causal attention. Returns the CUDA error code of
+// the launch (0 = success); the kernel runs on `stream` and does not
+// synchronise.
+#define RAGGED_ENTRY(NAME, T, NEEDS_SCALE)                                                     \
+  extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool,                 \
+                      const void* k_scale, const void* v_scale, const int32_t* tables,       \
+                      const int32_t* positions, const int32_t* kv_lens, void* out, int B,    \
+                      int S, int Nh, int Hkv, int D, int Bk, int M, int window, float scale, \
+                      void* stream) {                                                        \
+    if (NEEDS_SCALE != (k_scale != nullptr && v_scale != nullptr)) {                         \
+      return (int)cudaErrorInvalidValue;                                                     \
+    }                                                                                        \
+    return dispatch<T>(q, k_pool, v_pool, k_scale, v_scale, tables, positions, kv_lens, out, \
+                       B, S, Nh, Hkv, D, Bk, M, window, scale, stream);                      \
+  }
+
+RAGGED_ENTRY(ragged_paged_attention_bf16, bf16, false)
+RAGGED_ENTRY(ragged_paged_attention_int8, int8_t, true)
+RAGGED_ENTRY(ragged_paged_attention_fp8, fp8, false)

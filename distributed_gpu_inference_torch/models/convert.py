@@ -10,7 +10,16 @@ so the port's ``forward_chunk`` reads the same leaves.
 bf16 arrives as ``ml_dtypes.bfloat16`` arrays (what ``np.asarray`` of a
 JAX bf16 array gives). It moves as raw 16-bit words — ``.view(np.uint16)``
 into ``torch.from_numpy(...).view(torch.bfloat16)`` — never through f32,
-so every weight is bit-identical on both sides.
+so every weight is bit-identical on both sides. Quantized weights
+(``{"qw", "scale"}`` leaves of ``ops/quantization.py``) move the same way:
+int8 codes as they are, ``float8_e4m3fn`` codes as raw bytes, f32 scales.
+
+KV pools: ``kv_from_numpy`` takes the JAX pools ``{"k", "v"}`` and, for
+int8 pools, their scale pools ``{"k_scale", "v_scale"}`` ``[L, N, Bk, D]``
+— the JAX package repeats each (page, token) scale over the D lanes. The
+port keeps one scale per token (``[L, N, Bk]``): lane 0, after checking
+that every lane agrees. ``kv_to_numpy`` expands it back, so wire formats
+built from the port's pools stay byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ def array_to_tensor(arr: Any, device: Any = "cuda") -> torch.Tensor:
         # torch.from_numpy has no uint16; int16 has the same width, so the
         # view carries the words unchanged
         t = torch.from_numpy(words.view(np.int16)).view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
     elif arr.dtype in _PLAIN_DTYPES:
         t = torch.from_numpy(arr)
     else:
@@ -48,35 +59,65 @@ def array_to_tensor(arr: Any, device: Any = "cuda") -> torch.Tensor:
 
 
 def tensor_to_words(t: torch.Tensor) -> np.ndarray:
-    """A tensor's raw bits as numpy (bf16 as ``uint16`` words) — the
-    inverse direction, for checking a round trip bit for bit."""
+    """A tensor's raw bits as numpy (bf16 as ``uint16`` words, fp8 as
+    ``uint8`` bytes) — the inverse direction, for checking a round trip bit
+    for bit."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
     return t.numpy()
 
 
 def params_from_numpy(tree: Mapping[str, Any], device: Any = "cuda") -> Dict[str, Any]:
-    """The JAX params pytree (numpy leaves) → the same tree of tensors.
-    Quantized ``{"qw", "scale"}`` weight leaves are not served by this
-    slice of the port and are refused."""
+    """The JAX params pytree (numpy leaves) → the same tree of tensors,
+    quantized ``{"qw", "scale"}`` leaves included."""
     out: Dict[str, Any] = {}
     for name, leaf in tree.items():
         if isinstance(leaf, Mapping):
-            if "qw" in leaf and "scale" in leaf:
-                raise NotImplementedError(
-                    f"quantized weight {name!r}: int8/fp8 weights are not "
-                    "ported yet"
-                )
             out[name] = params_from_numpy(leaf, device)
         else:
             out[name] = array_to_tensor(leaf, device)
     return out
 
 
+def params_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`, leaves as raw bits
+    (:func:`tensor_to_words`)."""
+    return {name: (params_to_numpy(leaf) if isinstance(leaf, Mapping)
+                   else tensor_to_words(leaf))
+            for name, leaf in tree.items()}
+
+
 def kv_from_numpy(pools: Mapping[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:
     """KV pools ``{"k": [L, N, Hkv, Bk, D], "v": ...}`` (numpy) → tensors.
-    int8 pools with scale pools are not served by this slice."""
-    if "k_scale" in pools or "v_scale" in pools:
-        raise NotImplementedError("int8 KV pools are not ported yet")
-    return {name: array_to_tensor(pools[name], device) for name in ("k", "v")}
+    int8 pools bring ``k_scale``/``v_scale`` ``[L, N, Bk, D]``; the port
+    keeps lane 0 (``[L, N, Bk]``) after checking every lane carries the
+    same scale."""
+    out = {name: array_to_tensor(pools[name], device) for name in ("k", "v")}
+    if ("k_scale" in pools) != ("v_scale" in pools):
+        raise ValueError("int8 KV pools need both k_scale and v_scale")
+    for name in ("k_scale", "v_scale"):
+        if name not in pools:
+            continue
+        scale = np.asarray(pools[name])
+        words = scale.view(np.uint16) if scale.dtype.itemsize == 2 else scale
+        if not (words == words[..., :1]).all():
+            raise ValueError(f"{name}: the lanes of a (page, token) scale differ")
+        out[name] = array_to_tensor(scale[..., 0], device)
+    return out
+
+
+def kv_to_numpy(kv: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`kv_from_numpy` as raw bits: pools as they
+    are, scale pools expanded over the head_dim lanes to ``[L, N, Bk,
+    D]`` (the JAX package's layout)."""
+    out = {name: tensor_to_words(kv[name]) for name in ("k", "v")}
+    d = kv["k"].shape[-1]
+    for name in ("k_scale", "v_scale"):
+        if name in kv:
+            words = tensor_to_words(kv[name])
+            out[name] = np.ascontiguousarray(
+                np.broadcast_to(words[..., None], (*words.shape, d)))
+    return out

@@ -16,10 +16,19 @@ take their plain PyTorch versions. The KV pools are updated IN PLACE
 (the JAX package donated them and got new arrays back); the returned
 ``ChunkOutput.kv`` is the same dict.
 
+Quantization. Every projection goes through ``ops.quantization.matmul``:
+a weight leaf may be a quantized dict ``{"qw": [L, K, N], "scale": [L,
+1, N]}`` (int8 or fp8 codes), sliced per layer as a view. The KV pools may
+be bf16/f32, fp8 (e4m3, written with JAX's cast) or int8 with scale pools
+``k_scale``/``v_scale`` ``[L, N, Bk]`` bf16 (one scale per page and token,
+``ops.attention.quantize_token_rows``): a chunk's rows are quantized on
+write before the ragged read, and the fused decode kernel quantizes the
+step's row itself.
+
 Dense-family switches covered: Qwen QKV bias, Mistral sliding window,
 Gemma ``(1 + w)`` norm, tanh-GeGLU, sqrt(H) embedding scale and final logit
-softcap, tied and untied heads. MoE layers and quantized weights are not
-ported in this slice and raise ``NotImplementedError``.
+softcap, tied and untied heads. MoE layers are not ported in this slice
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,14 +40,20 @@ import torch
 import torch.nn.functional as F
 
 from distributed_gpu_inference_torch.models.configs import ModelConfig
-from distributed_gpu_inference_torch.ops.attention import write_kv_pages
+from distributed_gpu_inference_torch.ops.attention import (
+    write_kv_pages,
+    write_quantized_kv,
+)
 from distributed_gpu_inference_torch.ops.paged_attention import (
     paged_decode_attention_fused,
     ragged_paged_attention,
 )
+from distributed_gpu_inference_torch.ops.quantization import is_quantized, matmul
 
 Params = Dict[str, Any]
-KVPools = Dict[str, torch.Tensor]  # {"k": [L,N,Hkv,Bk,D], "v": [L,N,Hkv,Bk,D]}
+# {"k": [L,N,Hkv,Bk,D], "v": ...} plus, for int8 pools, {"k_scale":
+# [L,N,Bk], "v_scale": ...}
+KVPools = Dict[str, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
@@ -52,7 +67,9 @@ def torch_dtype(dtype: Any) -> torch.dtype:
         return dtype
     return {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
             "float32": torch.float32, "f32": torch.float32,
-            "float16": torch.float16}[str(dtype)]
+            "float16": torch.float16, "int8": torch.int8,
+            "fp8": torch.float8_e4m3fn,
+            "float8_e4m3fn": torch.float8_e4m3fn}[str(dtype)]
 
 
 def init_params(
@@ -123,13 +140,24 @@ def init_kv_pools(
 ) -> KVPools:
     """Paged KV pools ``[L, N, Hkv, Bk, D]`` (head-major pages: a (page,
     head) slice is one contiguous [Bk, D] tile). Block 0 is the pad block:
-    pad table entries point at it and reads mask it out."""
+    pad table entries point at it and reads mask it out.
+
+    ``dtype=int8``: the dict also carries ``k_scale``/``v_scale`` ``[L, N,
+    Bk]`` bf16, one scale per (page, token) shared by the KV heads (the
+    JAX package repeats it over D: ``[L, N, Bk, D]``). ``fp8``: e4m3 pools,
+    no scales."""
     dtype = torch_dtype(dtype or cfg.dtype)
-    if dtype not in (torch.bfloat16, torch.float32, torch.float16):
-        raise NotImplementedError(f"KV pool dtype {dtype} is not ported yet")
+    if dtype not in (torch.bfloat16, torch.float32, torch.float16, torch.int8,
+                     torch.float8_e4m3fn):
+        raise ValueError(f"unsupported KV pool dtype {dtype}")
     shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_size, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    pools = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        sshape = (cfg.num_layers, num_blocks, block_size)
+        pools["k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16, device=device)
+        pools["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16, device=device)
+    return pools
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +197,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, lp: Dict[str, torch.Tensor], activation: str) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: Dict[str, Any], activation: str) -> torch.Tensor:
     if activation == "silu":
-        gate = F.silu(x @ lp["w_gate"])
+        gate = F.silu(matmul(x, lp["w_gate"]))
     else:  # Gemma GeGLU (gelu_pytorch_tanh)
-        gate = F.gelu(x @ lp["w_gate"], approximate="tanh")
-    return ((gate * (x @ lp["w_up"])) @ lp["w_down"]).to(x.dtype)
+        gate = F.gelu(matmul(x, lp["w_gate"]), approximate="tanh")
+    return matmul(gate * matmul(x, lp["w_up"]), lp["w_down"]).to(x.dtype)
 
 
 class ChunkOutput(NamedTuple):
@@ -190,7 +218,7 @@ def _layer_step(
     hidden: torch.Tensor,
     kv: KVPools,
     layer: int,
-    lp: Dict[str, torch.Tensor],
+    lp: Dict[str, Any],
     *,
     block_tables: torch.Tensor,
     positions: torch.Tensor,
@@ -206,9 +234,9 @@ def _layer_step(
     b, s, _ = hidden.shape
     nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
+    q = matmul(x, lp["wq"])
+    k = matmul(x, lp["wk"])
+    v = matmul(x, lp["wv"])
     if "bq" in lp:  # Qwen2-style attention biases
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -218,21 +246,34 @@ def _layer_step(
     v = v.reshape(b, s, nkv, d)
 
     k_pool, v_pool = kv["k"], kv["v"]
+    k_scale, v_scale = kv.get("k_scale"), kv.get("v_scale")
     if fused_decode:
+        if k_pool.dtype in (torch.int8, torch.float8_e4m3fn):
+            # the op quantizes (int8, the shared contract) or casts (fp8)
+            # the activation-dtype rows itself
+            new_k, new_v = k, v
+        else:
+            new_k, new_v = k.to(k_pool.dtype), v.to(v_pool.dtype)
         attn, _, _ = paged_decode_attention_fused(
-            q, k.to(k_pool.dtype), v.to(v_pool.dtype), k_pool, v_pool, layer,
+            q, new_k, new_v, k_pool, v_pool, layer,
             block_tables, positions, kv_lens, block_size,
-            window=cfg.sliding_window,
+            window=cfg.sliding_window, k_scale=k_scale, v_scale=v_scale,
         )
     else:
-        write_kv_pages(k_pool[layer], k, block_tables, positions, block_size)
-        write_kv_pages(v_pool[layer], v, block_tables, positions, block_size)
+        ks = vs = None
+        if k_scale is not None:
+            ks, vs = k_scale[layer], v_scale[layer]
+            write_quantized_kv(k_pool[layer], ks, k, block_tables, positions, block_size)
+            write_quantized_kv(v_pool[layer], vs, v, block_tables, positions, block_size)
+        else:
+            write_kv_pages(k_pool[layer], k, block_tables, positions, block_size)
+            write_kv_pages(v_pool[layer], v, block_tables, positions, block_size)
         attn = ragged_paged_attention(
             q, k_pool[layer], v_pool[layer], block_tables, positions, kv_lens,
-            block_size, window=cfg.sliding_window,
+            block_size, window=cfg.sliding_window, k_scale=ks, v_scale=vs,
         )
 
-    hidden = hidden + (attn.reshape(b, s, nh * d) @ lp["wo"]).to(hidden.dtype)
+    hidden = hidden + matmul(attn.reshape(b, s, nh * d), lp["wo"]).to(hidden.dtype)
     mlp_in = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     return hidden + _mlp(mlp_in, lp, cfg.activation)
 
@@ -262,12 +303,6 @@ def forward_chunk(
     for name in ("w_router", "we_gate"):
         if name in layers:
             raise NotImplementedError("MoE layers are not ported yet")
-    for name, leaf in layers.items():
-        if not torch.is_tensor(leaf):
-            raise NotImplementedError(
-                f"weight {name!r} is not a plain tensor: quantized weights "
-                "are not ported yet"
-            )
     b, s = token_ids.shape
     positions = positions.to(torch.int32)
     kv_lens = kv_lens.to(torch.int32)
@@ -276,7 +311,10 @@ def forward_chunk(
     cos, sin = rope_angles(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta)
     fused = allow_fused and s == 1
     for layer in range(cfg.num_layers):
-        lp = {name: leaf[layer] for name, leaf in layers.items()}
+        # one layer's leaves as views; a quantized leaf slices both parts
+        lp = {name: ({"qw": leaf["qw"][layer], "scale": leaf["scale"][layer]}
+                     if is_quantized(leaf) else leaf[layer])
+              for name, leaf in layers.items()}
         hidden = _layer_step(
             cfg, block_size, hidden, kv, layer, lp,
             block_tables=block_tables, positions=positions, kv_lens=kv_lens,

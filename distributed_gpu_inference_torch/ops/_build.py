@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("ragged_paged_attention", "paged_decode_fused")
+KERNEL_SOURCES = ("ragged_paged_attention", "paged_decode_fused", "qmm_w8a16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

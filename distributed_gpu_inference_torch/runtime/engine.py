@@ -2,7 +2,10 @@
 
 The port of ``distributed_gpu_inference_tpu/runtime/engine.py`` ``TPUEngine``
 (plain engine only: no speculative decoding, no mesh, no sequence-sharded
-pools, no weight quantization, no int8/fp8 pools, no spill tiers). It owns
+pools, no spill tiers). Weights may be quantized on load
+(``EngineConfig.quantization`` int8 / fp8, ``ops/quantization.py``) and the
+KV pools stored as int8 with scale pools or as fp8
+(``EngineConfig.kv_cache_dtype``). It owns
 
 - the paged KV pools (``models.llama.init_kv_pools``), updated IN PLACE by
   the forward passes and the copy-on-write page copies,
@@ -42,6 +45,10 @@ from distributed_gpu_inference_torch.models.configs import (
     ModelConfig,
     get_model_config,
 )
+from distributed_gpu_inference_torch.ops.quantization import (
+    QUANT_MODES,
+    quantize_params,
+)
 from distributed_gpu_inference_torch.ops.sampling import (
     greedy_tokens,
     sample_tokens_per_slot,
@@ -60,6 +67,26 @@ MAX_STOP_IDS = 4
 _BIG_BUDGET = 1 << 30
 
 
+def _resolve_kv_dtype(kv_cache_dtype: Optional[str],
+                      activation_dtype: torch.dtype) -> torch.dtype:
+    """KV pool storage dtype (the JAX package's rules). ``fp8`` = e4m3 with
+    no scales; ``int8`` pools carry per-(page, token) scale pools."""
+    if kv_cache_dtype is None:
+        return activation_dtype
+    alias = {
+        "fp8": torch.float8_e4m3fn,
+        "float8_e4m3fn": torch.float8_e4m3fn,
+        "bf16": torch.bfloat16,
+        "bfloat16": torch.bfloat16,
+        "int8": torch.int8,
+    }
+    if kv_cache_dtype not in alias:
+        raise ValueError(
+            f"unknown kv_cache_dtype {kv_cache_dtype!r}; use {sorted(alias)}"
+        )
+    return alias[kv_cache_dtype]
+
+
 @dataclass
 class EngineConfig:
     max_batch_size: int = 8
@@ -74,6 +101,11 @@ class EngineConfig:
     # ragged_round(); clamped to the largest prefill bucket, widths bucket
     # through prefill_buckets
     ragged_chunk: int = 256
+    # weight-only quantization on load: "int8" | "fp8" | None
+    quantization: Optional[str] = None
+    # KV pool storage: None = activation dtype, "int8" (with scale pools)
+    # or "fp8" (e4m3)
+    kv_cache_dtype: Optional[str] = None
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -270,7 +302,11 @@ class TorchEngine:
     ) -> None:
         """``params``: a params tree in the JAX package's layout, already
         on ``device`` (``models.convert.params_from_numpy`` builds one);
-        random init from ``seed`` when absent."""
+        random init from ``seed`` when absent. With
+        ``EngineConfig.quantization`` the matmul weights are quantized on
+        load: a random init is consumed leaf by leaf (the peak is the
+        full-precision tree plus one quantized leaf); a caller's tree is
+        left as it was."""
         self.device = resolve_device(device)
         self.model_cfg = (
             get_model_config(model_cfg) if isinstance(model_cfg, str) else model_cfg
@@ -279,14 +315,23 @@ class TorchEngine:
         if self.model_cfg.num_experts:
             raise NotImplementedError("MoE models are not ported yet")
         self.dtype = llama.torch_dtype(self.cfg.dtype)
+        self.kv_dtype = _resolve_kv_dtype(self.cfg.kv_cache_dtype, self.dtype)
+        mode = self.cfg.quantization
+        if mode is not None and mode not in QUANT_MODES:
+            raise ValueError(f"unknown quantization {mode!r}; use {QUANT_MODES}")
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = llama.init_params(self.model_cfg, gen, self.dtype, self.device)
+            params = quantize_params(
+                llama.init_params(self.model_cfg, gen, self.dtype, self.device),
+                mode, consume=True,
+            )
+        else:
+            params = quantize_params(params, mode)
         self.params = params
         self.num_blocks = self.cfg.resolved_num_blocks()
         self.kv = llama.init_kv_pools(
-            self.model_cfg, self.num_blocks, self.cfg.block_size, self.dtype,
+            self.model_cfg, self.num_blocks, self.cfg.block_size, self.kv_dtype,
             self.device,
         )
         self.manager = PagedKVCacheManager(
@@ -380,7 +425,8 @@ class TorchEngine:
 
     def _apply_pending(self) -> None:
         """Apply the block manager's queued copy-on-write page copies (all
-        layers, K and V) before the next forward reads the pages."""
+        layers, K and V, and the scale pages of int8 pools — a page without
+        its scale is garbage) before the next forward reads the pages."""
         ops = self.manager.take_pending_ops()
         if ops.empty:
             return
@@ -389,8 +435,7 @@ class TorchEngine:
         dst = torch.tensor([d for _, d in ops.copies], dtype=torch.long,
                            device=self.device)
         with self._device_work():
-            for name in ("k", "v"):
-                pool = self.kv[name]
+            for pool in self.kv.values():
                 pool[:, dst] = pool[:, src]
 
     def _bucket_len(self, n: int) -> int:

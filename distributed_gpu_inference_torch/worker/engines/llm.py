@@ -98,7 +98,9 @@ class ByteTokenizer:
 class TorchLLMEngine(LLMBaseEngine):
     """config keys: model (name in the models/configs registry), tokenizer,
     max_batch_size, max_seq_len, multi_step, enable_prefix_cache,
-    prefill_buckets, num_blocks, dtype, device (default ``cuda``), seed,
+    prefill_buckets, num_blocks, dtype, quantization (int8 | fp8 weight-only,
+    ``ops/quantization.py``), kv_cache_dtype (int8 | fp8 | None = dtype),
+    device (default ``cuda``), seed,
     params (a params tree already on the device, e.g. from
     ``models.convert.params_from_numpy``; random init from ``seed`` when
     absent) and the ``serving`` knobs of :data:`SERVING_DEFAULTS`."""
@@ -126,6 +128,8 @@ class TorchLLMEngine(LLMBaseEngine):
                 self.config.get("enable_prefix_cache", True)
             ),
             dtype=str(self.config.get("dtype", "bfloat16")),
+            quantization=self.config.get("quantization"),
+            kv_cache_dtype=self.config.get("kv_cache_dtype"),
             num_blocks=(int(self.config["num_blocks"])
                         if self.config.get("num_blocks") else None),
         )

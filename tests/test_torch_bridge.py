@@ -81,8 +81,21 @@ def test_registry_matches_jax_package():
 
 
 def test_quantized_and_int8_pools_are_refused():
+    # quantized weights and int8 pools are served now; what the bridge
+    # still refuses is a malformed int8 pool: scale lanes that disagree
+    # (the compact [L, N, Bk] layout would drop information) or one scale
+    # pool without the other
     leaf = np.zeros((2, 4, 4), np.int8)
-    with pytest.raises(NotImplementedError):
-        params_from_numpy({"layers": {"wq": {"qw": leaf, "scale": leaf}}}, "cpu")
-    with pytest.raises(NotImplementedError):
-        kv_from_numpy({"k": leaf, "v": leaf, "k_scale": leaf, "v_scale": leaf}, "cpu")
+    got = params_from_numpy({"layers": {"wq": {"qw": leaf, "scale": leaf.astype(np.float32)}}},
+                            "cpu")
+    assert got["layers"]["wq"]["qw"].dtype == torch.int8
+    pool = np.zeros((1, 2, 1, 4, 8), np.int8)
+    scale = np.ones((1, 2, 4, 8), np.float32)
+    bad = scale.copy()
+    bad[0, 1, 2, 5] = 2.0
+    with pytest.raises(ValueError, match="lanes"):
+        kv_from_numpy({"k": pool, "v": pool, "k_scale": bad, "v_scale": scale}, "cpu")
+    with pytest.raises(ValueError, match="both"):
+        kv_from_numpy({"k": pool, "v": pool, "k_scale": scale}, "cpu")
+    ok = kv_from_numpy({"k": pool, "v": pool, "k_scale": scale, "v_scale": scale}, "cpu")
+    assert tuple(ok["k_scale"].shape) == (1, 2, 4)

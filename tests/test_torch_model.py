@@ -96,10 +96,20 @@ def test_moe_and_quantized_weights_raise():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
         tllama.init_params(cfg, gen, torch.float32, "cpu")
+    # MoE still raises; a quantized weight leaf is served now and gives the
+    # forward of its dequantized weight (f32: the same products, exact
+    # code conversion; 1e-5 covers the summation order)
+    from distributed_gpu_inference_torch.ops.quantization import dequantize, quantize_weight
+
     dense = tget("llama3-tiny", dtype="float32")
     params = tllama.init_params(dense, gen, torch.float32, "cpu")
-    params["layers"]["wq"] = {"qw": params["layers"]["wq"], "scale": None}
-    kv = tllama.init_kv_pools(dense, 5, BS, torch.float32, "cpu")
+    q = quantize_weight(params["layers"]["wq"], "int8")
+    deq = dict(params, layers=dict(params["layers"], wq=dequantize(q)))
+    params["layers"]["wq"] = q
     z = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tllama.forward_chunk(dense, params, z, z, kv, z, torch.ones(1, dtype=torch.int32))
+    outs = [tllama.forward_chunk(dense, p, z, z,
+                                 tllama.init_kv_pools(dense, 5, BS, torch.float32, "cpu"),
+                                 torch.ones((1, 1), dtype=torch.int32),
+                                 torch.ones(1, dtype=torch.int32)).logits
+            for p in (params, deq)]
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)

@@ -199,6 +199,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     tpa.reset_launch_counts()
     args = [torch.from_numpy(a) for a in _ragged([(2, 9)], 4, 2, 64, 16, 2)]
     tpa.ragged_paged_attention(*args, block_size=16)
+    tpa.qmm_w8a16(torch.ones((2, 16), dtype=torch.bfloat16),
+                  torch.ones((16, 16), dtype=torch.int8), torch.ones((1, 16)))
     assert tpa.launch_counts() == {
         "ragged_paged_attention": 0, "paged_decode_attention_fused": 0,
+        "qmm_w8a16": 0,
     }
