@@ -22,9 +22,12 @@ non-zero):
    ``forward_chunk`` prefill and decode step run through the kernels and
    through the plain versions and their logits are compared;
 5. times — each kernel at the serving shapes (CUDA events, median of 30
-   calls, L2 flushed before each), its bound on the card, its plain
-   version and ``scaled_dot_product_attention`` on the same context
-   gathered contiguous (a yardstick only; the port never calls it).
+   calls, L2 flushed before each; and the same call replayed as a captured
+   CUDA graph, device time without the host's launch gap — capture also
+   proves the wrapper never synchronises), its bound on the card and its
+   share of it, its plain version and ``scaled_dot_product_attention`` on
+   the same context gathered contiguous (a yardstick only; the port never
+   calls it), timed both ways too.
 
 Quantized serving (int8 / fp8 weights through the W8A16 kernel, int8 / fp8
 KV pools through both attention kernels):
@@ -47,9 +50,21 @@ KV pools through both attention kernels):
    against its plain version and ``torch.matmul`` on the pre-dequantized
    bf16 weights; the kernel against the library route at M in {8, ...,
    256}, which sets the dispatch bound; the int8 and fp8 attention variants
-   at the phase-5 shapes.
+   at the phase-5 shapes (events and CUDA graph).
 
-The last three lines are the kernels JSON, the nvidia-smi line and
+10. long shapes at llama3-8b widths with 4096-key rows (block tables of
+    width 256), for bf16, int8 and fp8 pools: a ragged 8 x 256 round (2
+    chunk rows at positions 3840-4095, 6 decode rows) and a decode step of
+    8 active rows, each held to its plain version with the phase-3/6
+    tolerances, two calls bitwise equal, the fused write's code and scale
+    pools bit-identical to the plain write; then both times, the plain
+    version's, SDPA's and the bound. In bf16 the ragged kernel also runs
+    with its keys split by the decode kernel's plan, checked and timed
+    against the shipped setting, and the fused kernel is timed with half
+    and twice the plan's keys a split.
+
+The last three lines are the kernels JSON (every entry with ``ms`` and
+``graph_ms``; ``@long`` entries for phase 10), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -96,6 +111,7 @@ LAYER_PROJ = (("wq", HIDDEN, NH * D), ("wk", HIDDEN, HKV * D), ("wv", HIDDEN, HK
 PROJ_SHAPES = ((HIDDEN, HIDDEN), (HIDDEN, HKV * D), (HIDDEN, FFN), (FFN, HIDDEN))
 BOUND_ROWS = (8, 16, 32, 64, 128, 256)
 SERVE_BATCH = 8
+LONG_M = 256                # table width of the long shapes: 4096 keys a row
 
 
 def smi_line() -> str:
@@ -222,17 +238,55 @@ def ragged_cost(tables, pos, lens, window, kv_bytes=2, scale_bytes=0):
     keys = np.unique(np.concatenate(slots)).size if slots else 0
     live_q = int((pos >= 0).sum())
     nbytes = ((live_q + b * s) * NH * D * 2 + keys * (HKV * D * kv_bytes + scale_bytes) * 2
-              + (b * M + b * s + b) * 4)
+              + (b * tables.shape[1] + b * s + b) * 4)
     return nbytes, 4 * D * NH * pairs
 
 
-def decode_cost(lens, kv_bytes=2, scale_bytes=0):
+def long_ragged_case(torch, dev):
+    """The long round at llama3-8b widths, M = 256: 8 rows x 256 bucket,
+    2 chunk rows at positions 3840-4095 and 6 decode rows at position 4095,
+    every row at kv 4096 over its own pages."""
+    rng = np.random.default_rng(6)
+    b, s, m = 8, 256, LONG_M
+    n = 1 + b * m
+    kp = torch.tensor(rng.standard_normal((n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
+    vp = torch.tensor(rng.standard_normal((n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
+    q = torch.tensor(rng.standard_normal((b, s, NH, D)), dtype=torch.bfloat16, device=dev)
+    tables = np.arange(1, n, dtype=np.int32).reshape(b, m)
+    keys = m * BK
+    pos = np.full((b, s), -1, np.int32)
+    pos[:2] = np.arange(keys - s, keys)
+    pos[2:, 0] = keys - 1
+    lens = np.full((b,), keys, np.int32)
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    return q, kp, vp, t(tables), t(pos), t(lens), (tables, pos, lens)
+
+
+def long_decode_case(torch, dev):
+    """One decode step of 8 active rows at kv 4096 (M = 256), one layer."""
+    rng = np.random.default_rng(7)
+    b, m = 8, LONG_M
+    n = 1 + b * m
+    kp = torch.tensor(rng.standard_normal((1, n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
+    vp = torch.tensor(rng.standard_normal((1, n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
+    q = torch.tensor(rng.standard_normal((b, 1, NH, D)), dtype=torch.bfloat16, device=dev)
+    nk = torch.tensor(rng.standard_normal((b, 1, HKV, D)), dtype=torch.bfloat16, device=dev)
+    nv = torch.tensor(rng.standard_normal((b, 1, HKV, D)), dtype=torch.bfloat16, device=dev)
+    tables = np.arange(1, n, dtype=np.int32).reshape(b, m)
+    lens = np.full((b,), m * BK, np.int32)
+    pos = (lens - 1).astype(np.int32)[:, None]
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    return q, nk, nv, kp, vp, 0, t(tables), t(pos), t(lens), lens
+
+
+def decode_cost(lens, kv_bytes=2, scale_bytes=0, m=None):
     """(bytes, flops) of one fused decode step: the active rows' q once,
     every row's out once, the active rows' new K/V read once (bf16) and
     written once (``kv_bytes`` per element, ``scale_bytes`` per token of
     each pool), the context already in the pool (kv_len - 1 keys per active
-    row) read once, tables/positions/lengths once; 4*D flops per (query
-    head, key) pair over the whole context, the new key included."""
+    row) read once, tables ([B, m], m = M unless given)/positions/lengths
+    once; 4*D flops per (query head, key) pair over the whole context, the
+    new key included."""
     b = len(lens)
     active = lens[lens > 0]
     a, ctx = len(active), int(active.sum())
@@ -240,7 +294,7 @@ def decode_cost(lens, kv_bytes=2, scale_bytes=0):
     nbytes = (a * NH * D * 2 + b * NH * D * 2
               + a * (HKV * D * 2 + token) * 2
               + (ctx - a) * token * 2
-              + (b * M + 2 * b) * 4)
+              + (b * (M if m is None else m) + 2 * b) * 4)
     return nbytes, 4 * D * NH * ctx
 
 
@@ -439,6 +493,149 @@ def compare_forward(torch, tag, cfg, params, kv_dtype, dev):
             raise AssertionError(f"{tag} {name} logits drift beyond the bound: {rel}")
 
 
+def long_shapes(torch, pa, paged_attention_ref, dev, flush, kv_kind, main_launches, src,
+                pallas):
+    """Phase 10 for one pool type: both attention kernels at the long
+    shapes — parity against the plain versions, two calls bitwise equal,
+    the fused write's pools bit-identical to the plain write — then their
+    times (events and CUDA graph), the plain versions', SDPA's and the
+    bounds. In bf16 the ragged kernel is also run and timed with its keys
+    split by the decode plan, and the fused kernel with other split sizes.
+    → the kernels-JSON entries."""
+    suffix = "" if kv_kind == "bf16" else f"[{kv_kind}]"
+    kv_bytes, scale_bytes = {"bf16": (2, 0), "int8": (1, 2), "fp8": (1, 0)}[kv_kind]
+
+    def pools(kp, vp):
+        return (kp, vp, None, None) if kv_kind == "bf16" else quantized_pools(torch, kp, vp,
+                                                                              kv_kind)
+
+    # ---- ragged: 2 chunk rows at 3840-4095 + 6 decode rows, kv 4096
+    q, kp, vp, tables, pos, lens, host = long_ragged_case(torch, dev)
+    kq, vq, ks, vs = pools(kp, vp)
+    del kp, vp
+    fn = lambda: pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK,  # noqa: E731
+                                           k_scale=ks, v_scale=vs)
+    want = paged_attention_ref(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
+    atol = RAGGED_ATOL
+    if kv_kind == "int8":
+        atol += BF16_HALF_ULP * float(torch.maximum(
+            dequantized(torch, kq, ks).abs().max(), dequantized(torch, vq, vs).abs().max()).item())
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    ok, r_err, r_vec = errors(torch, got, want, atol)
+    same = bool(torch.equal(raw(torch, got), raw(torch, again)))
+    pad_zero = bool((got[pos < 0] == 0).all().item())
+    print(f"[long] ragged {kv_kind} 8x256 round at kv 4096 (M {LONG_M}): max_abs_err "
+          f"{r_err:.3e} max_vector_rel_err {r_vec:.3e} (bound atol {atol:.3e} rtol {RTOL}, "
+          f"vector {VEC_REL}); two calls bitwise equal: {same}; pad queries exact zero: "
+          f"{pad_zero}", flush=True)
+    if not (ok and same and pad_zero):
+        raise AssertionError(f"ragged {kv_kind} kernel disagrees at the long shape")
+    r_ms, r_graph = time_ms(torch, fn, flush), graph_ms(torch, fn, flush)
+    r_plain = time_ms(torch, lambda: paged_attention_ref(q, kq, vq, tables, pos, lens, BK,
+                                                         k_scale=ks, v_scale=vs),
+                      flush, iters=5, warmup=1)
+    del want, got, again
+    lib_fn = sdpa_call(torch, q, gathered(torch, dequantized(torch, kq, ks), tables),
+                       gathered(torch, dequantized(torch, vq, vs), tables), pos, lens)
+    r_lib, r_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
+    del lib_fn
+    rb, rf = ragged_cost(*host, None, kv_bytes, scale_bytes)
+    r_bound, r_by = bound(rb, rf)
+    print(f"[long] ragged {kv_kind}: kernel {r_ms:.4f} ms (as a CUDA graph {r_graph:.4f} ms, "
+          f"{r_bound / r_graph:.1%} of the bound), plain {r_plain:.4f} ms, sdpa {r_lib:.4f} ms "
+          f"(graph {r_lib_graph:.4f} ms), bound {r_bound:.4f} ms ({r_by}: {rb} B, {rf} flop)",
+          flush=True)
+    if kv_kind == "bf16":
+        saved = pa.RAGGED_SPLIT_KEYS
+        pa.RAGGED_SPLIT_KEYS = not saved
+        try:
+            flipped = fn()
+            torch.cuda.synchronize()
+            f_ok = errors(torch, flipped, paged_attention_ref(q, kq, vq, tables, pos, lens, BK),
+                          atol)[0]
+            f_graph = graph_ms(torch, fn, flush)
+        finally:
+            pa.RAGGED_SPLIT_KEYS = saved
+        del flipped
+        plan = pa.kv_split_plan(LONG_M, BK)
+        print(f"[long] ragged bf16 with its keys split by the decode plan {plan} "
+              f"({'on' if not saved else 'off'}): graph {f_graph:.4f} ms, parity {f_ok}; "
+              f"as shipped (RAGGED_SPLIT_KEYS={saved}): graph {r_graph:.4f} ms", flush=True)
+        if not f_ok:
+            raise AssertionError("the split ragged kernel disagrees at the long shape")
+    entries = [{"name": f"ragged_paged_attention{suffix}@long", "route": "cuda",
+                "source": src + "ragged_paged_attention.cu", "replaces": pallas + ":932",
+                "launches": main_launches["ragged_paged_attention"], "max_abs_err": r_err,
+                "ms": r_ms, "graph_ms": r_graph, "plain_ms": r_plain, "bound_ms": r_bound,
+                "bound_by": r_by, "library_ms": r_lib, "library_graph_ms": r_lib_graph}]
+    del q, kq, vq, ks, vs
+    torch.cuda.empty_cache()
+
+    # ---- fused decode: 8 active rows at kv 4096
+    q, nk, nv, kp, vp, layer, tables, pos, lens, lens_np = long_decode_case(torch, dev)
+    kq, vq, ks, vs = pools(kp, vp)
+    del kp, vp
+    kq2, vq2 = kq.clone(), vq.clone()
+    sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    sc2 = {} if ks is None else dict(k_scale=ks.clone(), v_scale=vs.clone())
+    fn = lambda: pa.paged_decode_attention_fused(q, nk, nv, kq, vq, layer, tables,  # noqa: E731
+                                                 pos, lens, BK, **sc)
+    got = fn()[0]
+    want = pa.paged_decode_attention_fused_plain(q, nk, nv, kq2, vq2, layer, tables, pos, lens,
+                                                 BK, **sc2)[0]
+    again = fn()[0]
+    torch.cuda.synchronize()
+    ok, d_err, d_vec = errors(torch, got, want, FUSED_ATOL)
+    same = bool(torch.equal(raw(torch, got), raw(torch, again)))
+    pools_equal = bool(torch.equal(raw(torch, kq), raw(torch, kq2))
+                       and torch.equal(raw(torch, vq), raw(torch, vq2)))
+    scales_equal = ks is None or bool(torch.equal(raw(torch, ks), raw(torch, sc2["k_scale"]))
+                                      and torch.equal(raw(torch, vs), raw(torch, sc2["v_scale"])))
+    print(f"[long] fused decode {kv_kind} 8 rows at kv 4096 (M {LONG_M}, split plan "
+          f"{pa.kv_split_plan(LONG_M, BK)}): max_abs_err {d_err:.3e} max_vector_rel_err "
+          f"{d_vec:.3e} (bound atol {FUSED_ATOL} rtol {RTOL}, vector {VEC_REL}); two calls "
+          f"bitwise equal: {same}; code pools bit-identical after the write: {pools_equal}; "
+          f"scale pools bit-identical: {scales_equal}", flush=True)
+    if not (ok and same and pools_equal and scales_equal):
+        raise AssertionError(f"fused decode {kv_kind} kernel disagrees at the long shape")
+    d_ms, d_graph = time_ms(torch, fn, flush), graph_ms(torch, fn, flush)
+    d_plain = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(
+        q, nk, nv, kq2, vq2, layer, tables, pos, lens, BK, **sc2), flush, iters=10, warmup=1)
+    lk = dequantized(torch, kq[layer], None if ks is None else ks[layer])
+    lv = dequantized(torch, vq[layer], None if vs is None else vs[layer])
+    lib_fn = sdpa_call(torch, q, gathered(torch, lk, tables), gathered(torch, lv, tables),
+                       pos, lens)
+    del lk, lv
+    d_lib, d_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
+    del lib_fn
+    db, df = decode_cost(lens_np, kv_bytes, scale_bytes, m=LONG_M)
+    d_bound, d_by = bound(db, df)
+    print(f"[long] fused decode {kv_kind}: kernel {d_ms:.4f} ms (as a CUDA graph {d_graph:.4f} "
+          f"ms, {d_bound / d_graph:.1%} of the bound), plain {d_plain:.4f} ms, sdpa "
+          f"{d_lib:.4f} ms (graph {d_lib_graph:.4f} ms), bound {d_bound:.4f} ms ({d_by}: {db} "
+          f"B, {df} flop)", flush=True)
+    if kv_kind == "bf16":
+        # the split size of the plan, against half and twice the keys
+        saved, alt = pa.SPLIT_TARGET_KEYS, {}
+        try:
+            for keys in (saved // 2, saved * 2):
+                pa.SPLIT_TARGET_KEYS = keys
+                alt[keys] = graph_ms(torch, fn, flush)
+        finally:
+            pa.SPLIT_TARGET_KEYS = saved
+        print(f"[long] fused decode bf16 split size: {saved} keys a split (shipped) graph "
+              f"{d_graph:.4f} ms; " + ", ".join(f"{k} keys {v:.4f} ms" for k, v in alt.items()),
+              flush=True)
+    entries.append({"name": f"paged_decode_attention_fused{suffix}@long", "route": "cuda",
+                    "source": src + "paged_decode_fused.cu", "replaces": pallas + ":469",
+                    "launches": main_launches["paged_decode_attention_fused"],
+                    "max_abs_err": d_err, "ms": d_ms, "graph_ms": d_graph,
+                    "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by,
+                    "library_ms": d_lib, "library_graph_ms": d_lib_graph})
+    return entries
+
+
 # ---------------------------------------------------------------- phases
 
 def main() -> int:
@@ -553,29 +750,38 @@ def main() -> int:
     # ---- 5. times at the serving shapes
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     q, kp, vp, tables, pos, lens, host = ragged_round_case(torch, dev)
-    ragged_ms = time_ms(torch, lambda: pa.ragged_paged_attention(q, kp, vp, tables, pos, lens, BK), flush)
+    ragged_fn = lambda: pa.ragged_paged_attention(q, kp, vp, tables, pos, lens, BK)  # noqa: E731
+    ragged_ms = time_ms(torch, ragged_fn, flush)
+    ragged_graph = graph_ms(torch, ragged_fn, flush)
     ragged_plain = time_ms(torch, lambda: paged_attention_ref(q, kp, vp, tables, pos, lens, BK), flush, iters=20)
-    ragged_lib = time_ms(torch, sdpa_call(torch, q, gathered(torch, kp, tables),
-                                          gathered(torch, vp, tables), pos, lens), flush)
+    lib_fn = sdpa_call(torch, q, gathered(torch, kp, tables), gathered(torch, vp, tables), pos, lens)
+    ragged_lib = time_ms(torch, lib_fn, flush)
+    ragged_lib_graph = graph_ms(torch, lib_fn, flush)
     r_bytes, r_flops = ragged_cost(*host, None)
     r_bound, r_by = bound(r_bytes, r_flops)
 
     q, nk, nv, kp, vp, layer, tables, pos, lens, lens_np = decode_case(torch, dev)
     kp2, vp2 = kp.clone(), vp.clone()
-    dec_ms = time_ms(torch, lambda: pa.paged_decode_attention_fused(
-        q, nk, nv, kp, vp, layer, tables, pos, lens, BK), flush)
+    dec_fn = lambda: pa.paged_decode_attention_fused(  # noqa: E731
+        q, nk, nv, kp, vp, layer, tables, pos, lens, BK)
+    dec_ms = time_ms(torch, dec_fn, flush)
+    dec_graph = graph_ms(torch, dec_fn, flush)
     dec_plain = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(
         q, nk, nv, kp2, vp2, layer, tables, pos, lens, BK), flush, iters=20)
-    dec_lib = time_ms(torch, sdpa_call(torch, q, gathered(torch, kp[layer], tables),
-                                       gathered(torch, vp[layer], tables), pos, lens), flush)
+    lib_fn = sdpa_call(torch, q, gathered(torch, kp[layer], tables),
+                       gathered(torch, vp[layer], tables), pos, lens)
+    dec_lib = time_ms(torch, lib_fn, flush)
+    dec_lib_graph = graph_ms(torch, lib_fn, flush)
     d_bytes, d_flops = decode_cost(lens_np)
     d_bound, d_by = bound(d_bytes, d_flops)
-    print(f"[times] ragged round 8x256 (Nh 32, Hkv 8, D 128): kernel {ragged_ms:.4f} ms, "
-          f"plain {ragged_plain:.4f} ms, sdpa {ragged_lib:.4f} ms, bound {r_bound:.4f} ms "
-          f"({r_by}: {r_bytes} B, {r_flops} flop)", flush=True)
-    print(f"[times] fused decode 8 rows (kv {lens_np.tolist()}): kernel {dec_ms:.4f} ms, "
-          f"plain {dec_plain:.4f} ms, sdpa {dec_lib:.4f} ms, bound {d_bound:.4f} ms "
-          f"({d_by}: {d_bytes} B, {d_flops} flop)", flush=True)
+    print(f"[times] ragged round 8x256 (Nh 32, Hkv 8, D 128): kernel {ragged_ms:.4f} ms "
+          f"(as a CUDA graph {ragged_graph:.4f} ms, {r_bound / ragged_graph:.1%} of the bound), "
+          f"plain {ragged_plain:.4f} ms, sdpa {ragged_lib:.4f} ms (graph {ragged_lib_graph:.4f} "
+          f"ms), bound {r_bound:.4f} ms ({r_by}: {r_bytes} B, {r_flops} flop)", flush=True)
+    print(f"[times] fused decode 8 rows (kv {lens_np.tolist()}): kernel {dec_ms:.4f} ms "
+          f"(as a CUDA graph {dec_graph:.4f} ms, {d_bound / dec_graph:.1%} of the bound), "
+          f"plain {dec_plain:.4f} ms, sdpa {dec_lib:.4f} ms (graph {dec_lib_graph:.4f} ms), "
+          f"bound {d_bound:.4f} ms ({d_by}: {d_bytes} B, {d_flops} flop)", flush=True)
 
     src = "distributed_gpu_inference_torch/csrc/"
     pallas = "distributed_gpu_inference_tpu/ops/paged_attention_pallas.py"
@@ -584,14 +790,14 @@ def main() -> int:
          "source": src + "ragged_paged_attention.cu", "replaces": pallas + ":932",
          "launches": launches["ragged_paged_attention"],
          "max_abs_err": parity["ragged_paged_attention"], "ms": ragged_ms,
-         "plain_ms": ragged_plain, "bound_ms": r_bound, "bound_by": r_by,
-         "library_ms": ragged_lib},
+         "graph_ms": ragged_graph, "plain_ms": ragged_plain, "bound_ms": r_bound,
+         "bound_by": r_by, "library_ms": ragged_lib, "library_graph_ms": ragged_lib_graph},
         {"name": "paged_decode_attention_fused", "route": "cuda",
          "source": src + "paged_decode_fused.cu", "replaces": pallas + ":469",
          "launches": launches["paged_decode_attention_fused"],
          "max_abs_err": parity["paged_decode_attention_fused"], "ms": dec_ms,
-         "plain_ms": dec_plain, "bound_ms": d_bound, "bound_by": d_by,
-         "library_ms": dec_lib},
+         "graph_ms": dec_graph, "plain_ms": dec_plain, "bound_ms": d_bound, "bound_by": d_by,
+         "library_ms": dec_lib, "library_graph_ms": dec_lib_graph},
     ]
     del flush, q, kp, vp, kp2, vp2
     torch.cuda.empty_cache()
@@ -827,7 +1033,7 @@ def main() -> int:
         print(f"[qtimes] qmm {mode}: the kernel is at least as fast as the library route up "
               f"to M={measured}; the dispatch bound MAX_KERNEL_ROWS is {qmm.MAX_KERNEL_ROWS} "
               f"(max_batch_size {SERVE_BATCH})", flush=True)
-        qtimes[f"qmm_w8a16[{mode}]"] = (k_ms, p_ms, q_bound, q_by, l_ms)
+        qtimes[f"qmm_w8a16[{mode}]"] = (k_ms, kg_ms, p_ms, q_bound, q_by, l_ms, lg_ms)
         del weights, deq, xs
     if qmm.MAX_KERNEL_ROWS < SERVE_BATCH:
         raise AssertionError("the qmm row bound is below max_batch_size")
@@ -836,40 +1042,49 @@ def main() -> int:
         kv_bytes, scale_bytes = 1, (2 if kv_kind == "int8" else 0)
         q, kp, vp, tables, pos, lens, host = ragged_round_case(torch, dev)
         kq, vq, ks, vs = quantized_pools(torch, kp, vp, kv_kind)
-        r_ms = time_ms(torch, lambda: pa.ragged_paged_attention(
-            q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs), flush)
+        r_fn = lambda: pa.ragged_paged_attention(  # noqa: E731
+            q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
+        r_ms, r_graph = time_ms(torch, r_fn, flush), graph_ms(torch, r_fn, flush)
         r_plain = time_ms(torch, lambda: paged_attention_ref(
             q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs), flush, iters=20)
-        r_lib = time_ms(torch, sdpa_call(torch, q, gathered(torch, dequantized(torch, kq, ks), tables),
-                                         gathered(torch, dequantized(torch, vq, vs), tables),
-                                         pos, lens), flush)
+        lib_fn = sdpa_call(torch, q, gathered(torch, dequantized(torch, kq, ks), tables),
+                           gathered(torch, dequantized(torch, vq, vs), tables), pos, lens)
+        r_lib, r_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
         rb, rf = ragged_cost(*host, None, kv_bytes, scale_bytes)
         r_b, r_by_q = bound(rb, rf)
-        qtimes[f"ragged_paged_attention[{kv_kind}]"] = (r_ms, r_plain, r_b, r_by_q, r_lib)
-        print(f"[qtimes] ragged round 8x256 {kv_kind} pools: kernel {r_ms:.4f} ms, plain "
-              f"{r_plain:.4f} ms, sdpa on dequantized context {r_lib:.4f} ms, bound {r_b:.4f} ms "
-              f"({r_by_q}: {rb} B, {rf} flop)", flush=True)
+        qtimes[f"ragged_paged_attention[{kv_kind}]"] = (r_ms, r_graph, r_plain, r_b, r_by_q,
+                                                        r_lib, r_lib_graph)
+        print(f"[qtimes] ragged round 8x256 {kv_kind} pools: kernel {r_ms:.4f} ms (as a CUDA "
+              f"graph {r_graph:.4f} ms, {r_b / r_graph:.1%} of the bound), plain "
+              f"{r_plain:.4f} ms, sdpa on dequantized context {r_lib:.4f} ms (graph "
+              f"{r_lib_graph:.4f} ms), bound {r_b:.4f} ms ({r_by_q}: {rb} B, {rf} flop)",
+              flush=True)
         q, nk, nv, kp, vp, layer, tables, pos, lens, lens_np = decode_case(torch, dev)
         kq, vq, ks, vs = quantized_pools(torch, kp, vp, kv_kind)
         kq2, vq2 = kq.clone(), vq.clone()
         ks2 = vs2 = None
         if ks is not None:
             ks2, vs2 = ks.clone(), vs.clone()
-        d_ms = time_ms(torch, lambda: pa.paged_decode_attention_fused(
-            q, nk, nv, kq, vq, layer, tables, pos, lens, BK, k_scale=ks, v_scale=vs), flush)
+        d_fn = lambda: pa.paged_decode_attention_fused(  # noqa: E731
+            q, nk, nv, kq, vq, layer, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
+        d_ms, d_graph = time_ms(torch, d_fn, flush), graph_ms(torch, d_fn, flush)
         d_plain = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(
             q, nk, nv, kq2, vq2, layer, tables, pos, lens, BK, k_scale=ks2, v_scale=vs2),
             flush, iters=20)
         lk = dequantized(torch, kq[layer], None if ks is None else ks[layer])
         lv = dequantized(torch, vq[layer], None if vs is None else vs[layer])
-        d_lib = time_ms(torch, sdpa_call(torch, q, gathered(torch, lk, tables),
-                                         gathered(torch, lv, tables), pos, lens), flush)
+        lib_fn = sdpa_call(torch, q, gathered(torch, lk, tables), gathered(torch, lv, tables),
+                           pos, lens)
+        d_lib, d_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
         db, df = decode_cost(lens_np, kv_bytes, scale_bytes)
         d_b, d_by_q = bound(db, df)
-        qtimes[f"paged_decode_attention_fused[{kv_kind}]"] = (d_ms, d_plain, d_b, d_by_q, d_lib)
-        print(f"[qtimes] fused decode 8 rows {kv_kind} pools: kernel {d_ms:.4f} ms, plain "
-              f"{d_plain:.4f} ms, sdpa on dequantized context {d_lib:.4f} ms, bound "
-              f"{d_b:.4f} ms ({d_by_q}: {db} B, {df} flop)", flush=True)
+        qtimes[f"paged_decode_attention_fused[{kv_kind}]"] = (d_ms, d_graph, d_plain, d_b,
+                                                              d_by_q, d_lib, d_lib_graph)
+        print(f"[qtimes] fused decode 8 rows {kv_kind} pools: kernel {d_ms:.4f} ms (as a CUDA "
+              f"graph {d_graph:.4f} ms, {d_b / d_graph:.1%} of the bound), plain "
+              f"{d_plain:.4f} ms, sdpa on dequantized context {d_lib:.4f} ms (graph "
+              f"{d_lib_graph:.4f} ms), bound {d_b:.4f} ms ({d_by_q}: {db} B, {df} flop)",
+              flush=True)
 
     qpallas = "distributed_gpu_inference_tpu/ops/qmm_pallas.py"
     meta = {"qmm_w8a16": ("qmm_w8a16", "qmm_w8a16.cu", qpallas + ":88"),
@@ -877,15 +1092,24 @@ def main() -> int:
                                        pallas + ":932"),
             "paged_decode_attention_fused": ("paged_decode_attention_fused",
                                              "paged_decode_fused.cu", pallas + ":469")}
-    for variant, (ms, plain_ms, bound_ms, bound_by, lib_ms) in qtimes.items():
+    for variant, (ms, g_ms, plain_ms, bound_ms, bound_by, lib_ms, lib_g_ms) in qtimes.items():
         base, mode = variant.split("[")
         mode = mode.rstrip("]")
         counter, source, replaces = meta[base]
         main_launches = (i8_launches if mode == "int8" else f8_launches)[counter]
         kernels.append({"name": variant, "route": "cuda", "source": src + source,
                         "replaces": replaces, "launches": main_launches,
-                        "max_abs_err": qparity[variant], "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+                        "max_abs_err": qparity[variant], "ms": ms, "graph_ms": g_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms, "library_graph_ms": lib_g_ms})
+    # ---- 10. both attention kernels at the long shapes, every pool type
+    main_launches = {"bf16": launches, "int8": i8_launches, "fp8": f8_launches}
+    for kv_kind in ("bf16", "int8", "fp8"):
+        kernels += long_shapes(torch, pa, paged_attention_ref, dev, flush, kv_kind,
+                               main_launches[kv_kind], src, pallas)
+    del flush
+    torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,117 +14,96 @@
 // the online softmax run in f32 with scale D^-0.5; a query with no visible
 // key outputs exact zeros.
 //
-// Design. Grid = (row x query tile, kv head). A block holds the qpk * Tq
-// queries that share kv head g (query head h reads kv head h / qpk) as a
-// 64 x D bf16 tile in shared memory: row r is query position t0 + r / qpk of
-// head g * qpk + r % qpk. It walks the row's context from the window start
-// to min(max query position + 1, kv_len) in chunks of KC key positions,
-// gathering each key from its page (page = table[b, j / Bk], slot j % Bk, so
-// the block size is a runtime value), and keeps an online softmax per query
-// row. Both products (Q K^T and P V) are bf16 wmma 16x16x16 fragments with
-// f32 accumulation; each of the 4 warps owns 16 query rows. The f32 output
-// accumulator lives in shared memory so that its rows can be rescaled by
-// the softmax correction without relying on the fragment layout.
+// Design. Grid = (row x query tile, kv head, key split). A block holds the
+// qpk * Tq queries that share kv head g (query head h reads kv head h / qpk)
+// as a 64 x D bf16 tile: row r is query position t0 + r / qpk of head
+// g * qpk + r % qpk; each of the 4 warps owns 16 rows. A tile whose queries
+// are all pads exits at once (its outputs are written as zeros), and a warp
+// whose 16 rows are all pads (a decode row's tile holds qpk live rows) only
+// takes part in the copies and barriers. The block walks its keys [lo, hi)
+// — from the window start of its first query to min(last query + 1,
+// kv_len) — in chunks of KC = 32 keys:
+// - Staging: a cp.async ring of page-slice copies, 3 stages (2 at D = 256),
+//   16 bytes a thread and one table lookup per (key row, thread) for both
+//   K and V, so the block size is a runtime value. The copies of the next
+//   chunks are in flight while this one is computed; one __syncthreads a
+//   chunk (two over an int8/fp8 pool). Codes of an int8/fp8 pool travel as
+//   codes and are turned into bf16 after they arrive: int8 as
+//   bf16(code * scale) rounded to nearest even — the product of
+//   ops/attention.py dequantize_kv rounded for the tensor cores, as the
+//   Pallas kernel rounds it for the MXU — and fp8 by its exact upcast. Rows
+//   in shared memory are padded by 16 bytes so that ldmatrix reads them
+//   without bank conflicts.
+// - Both products are mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by
+//   ldmatrix, in the FlashAttention-2 register layout: S = Q K^T stays in
+//   registers, the online softmax runs per row in registers with quad
+//   shuffles (a chunk every row of the warp sees whole skips the mask; O is
+//   rescaled only when some row's maximum moved), P is repacked from the S
+//   accumulators into A fragments (rounded to bf16), and the output
+//   accumulator O stays in registers for the whole walk. At D <= 128 the
+//   queries' A fragments are loaded once into registers; at D = 256 they
+//   are re-read from shared memory.
+// - Key splits: with n_splits > 1 (ops/paged_attention.py
+//   RAGGED_SPLIT_KEYS), split s covers keys [s * P * Bk, (s + 1) * P * Bk)
+//   of the decode kernel's plan; each block writes its partial (m, l, O) in
+//   f32 and paged::merge_splits combines them in split order (bitwise
+//   repeatable). Off: at the long round (8 x 256, 4096-key rows) the split
+//   is slower (0.4189 against 0.4059 ms as CUDA graphs, chip_smoke.py
+//   phase 10, H100 80GB HBM3 at 700 W), the f32 partial states of every
+//   64-row tile costing more than the extra parallelism gains.
+// Why mma.sync and not wgmma: at the timed serving round the work is
+// ~2.9 GFLOP (3 us at 989 TFLOP/s) against a 9.3 us byte bound; at the long
+// round 34 GFLOP (0.034 ms) against a 0.046 ms byte bound. wgmma's 64-row
+// warpgroup tile would put a whole query group's softmax across 4 warps;
+// what holds this kernel back on the card is instruction issue around the
+// mma (copies, masks, the softmax), not the mma rate (PERF.md).
 //
-// Quantized pools. The pool element type is a template parameter; only the
-// staging differs. An int8 pool carries one bf16 scale per (page, token)
-// ([N, Bk] per layer, shared by the kv heads): staging turns each code into
-// bf16(code * scale) — the exact product of ops/attention.py dequantize_kv
-// rounded to nearest even for the bf16 tensor cores, as the Pallas kernel
-// rounds it for the MXU. An fp8 pool stages by a plain upcast (e4m3 -> bf16
-// is exact). Everything after
-// staging is the same for all three. A byte pool halves the bytes of K/V
-// pages the kernel reads.
-//
-// What bounds it on the card: a prefill chunk of 256 queries against a few
-// hundred keys is compute-light (about 4 * D flops per visible query-key
-// pair), and the whole round reads each row's pages once per query tile,
-// so at serving shapes it is bound by the bytes of K/V pages and of q/out.
-// This first version stages K and V through shared memory synchronously
-// (no cp.async/TMA pipeline, no wgmma): each chunk's load and compute do
-// not overlap. Faster variants are later work; PERF.md keeps the times.
+// What bounds it on the card: the bytes of the K/V pages each tile reads
+// (a prefill chunk's tiles re-read the same pages, mostly from L2) and of
+// q/out; at long contexts the tensor-core work of the chunk rows comes
+// close. Resources (`nvcc -Xptxas -v`, sm_90a, CUDA 12.8; the smoke run
+// prints them): at D = 128, 164-167 registers and 70,784 bytes of shared
+// memory per block over a bf16 pool (queries 17,408 + a 3-stage K/V ring
+// 52,224 + scales and positions), 60,544 over an int8/fp8 pool (a 3-stage
+// ring of codes 24,576 + one bf16 K/V buffer 17,408): 3 blocks an SM, no
+// spills.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "paged_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using paged::bf16;
+using paged::fp8;
+using paged::kNegInf;
 
 constexpr int kQRows = 64;              // query rows per block
 constexpr int kWarps = 4;               // each warp owns 16 query rows
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
+constexpr int KC = 32;                  // keys per chunk
 
-template <int D, int KC>
+template <int D, typename T>
 struct Layout {
-  static constexpr size_t q = 0;                                   // bf16 [64, D]
-  static constexpr size_t k = q + sizeof(bf16) * kQRows * D;       // bf16 [KC, D]
-  static constexpr size_t v = k + sizeof(bf16) * KC * D;           // bf16 [KC, D]
-  static constexpr size_t p = v + sizeof(bf16) * KC * D;           // bf16 [64, KC]
-  static constexpr size_t s = p + sizeof(bf16) * kQRows * KC;      // f32 [64, KC]
-  static constexpr size_t acc = s + sizeof(float) * kQRows * KC;   // f32 [64, D]
-  static constexpr size_t m = acc + sizeof(float) * kQRows * D;    // f32 [64]
-  static constexpr size_t l = m + sizeof(float) * kQRows;          // f32 [64]
-  static constexpr size_t alpha = l + sizeof(float) * kQRows;      // f32 [64]
-  static constexpr size_t pos = alpha + sizeof(float) * kQRows;    // i32 [64]
-  static constexpr size_t red = pos + sizeof(int) * kQRows;        // i32 [2]
-  static constexpr size_t bytes = red + sizeof(int) * 2;
+  static constexpr int DP = D + 8;                         // padded bf16 row stride
+  static constexpr bool kConv = !std::is_same<T, bf16>::value;
+  static constexpr int kStages = D > 128 ? 2 : 3;           // cp.async ring depth
+  static constexpr int kBufs = kConv ? 1 : kStages;         // bf16 K/V buffers
+  static constexpr size_t q = 0;                                         // bf16 [64][DP]
+  static constexpr size_t k = q + sizeof(bf16) * kQRows * DP;            // bf16 [kBufs][KC][DP]
+  static constexpr size_t v = k + sizeof(bf16) * kBufs * KC * DP;
+  static constexpr size_t rk = v + sizeof(bf16) * kBufs * KC * DP;       // T [kStages][KC][D]
+  static constexpr size_t rv = rk + (kConv ? sizeof(T) * kStages * KC * D : 0);
+  static constexpr size_t sc = rv + (kConv ? sizeof(T) * kStages * KC * D : 0);
+  static constexpr size_t pos = sc + sizeof(float) * kStages * 2 * KC;   // f32 sc [kStages][2][KC]
+  static constexpr size_t red = pos + sizeof(int) * kQRows;              // i32 [2]
+  static constexpr size_t bytes = (red + sizeof(int) * 4 + 127) / 128 * 128;
 };
 
-using fp8 = __nv_fp8_e4m3;
+using paged::ldsm_x4;
+using paged::ldsm_x4_t;
+using paged::mma16816;
+using paged::pack_bf16;
 
-// 8 consecutive pool elements at p + off -> 8 bf16 (one 16-byte vector);
-// `s` is the token's int8 scale (unused for bf16 and fp8 pools)
-__device__ __forceinline__ uint4 stage8(const bf16* p, size_t off, float) {
-  return *reinterpret_cast<const uint4*>(p + off);
-}
-
-__device__ __forceinline__ uint4 stage8(const int8_t* p, size_t off, float s) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p + off);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-  uint4 out;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // code * scale is exact in f32 (8-bit by 8-bit significands): one
-    // rounding, to the bf16 the tensor cores take
-    o[i] = __floats2bfloat162_rn(static_cast<float>(c[2 * i]) * s,
-                                 static_cast<float>(c[2 * i + 1]) * s);
-  }
-  return out;
-}
-
-__device__ __forceinline__ uint4 stage8(const fp8* p, size_t off, float) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p + off);
-  const __nv_fp8x2_storage_t* c = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
-  uint4 out;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[i] = __float22bfloat162_rn(__half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(c[i], __NV_E4M3))));
-  }
-  return out;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D, int KC, typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
               const T* __restrict__ kpool,         // [N, Hkv, Bk, D] (one layer)
@@ -134,20 +113,24 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
               const int* __restrict__ tables,      // [B, M]
               const int* __restrict__ positions,   // [B, S]
               const int* __restrict__ kv_lens,     // [B]
-              bf16* __restrict__ out,              // [B, S, Nh, D]
-              int S, int Nh, int Hkv, int Bk, int M, int qtiles, int Tq,
-              int window, float scale) {
-  using L = Layout<D, KC>;
+              bf16* __restrict__ out,              // [B, S, Nh, D] (n_splits == 1)
+              float* __restrict__ ws_o,            // [B * S, Nh, n_splits, D] (n_splits > 1)
+              float* __restrict__ ws_ml,           // [B * S, Nh, n_splits, 2]
+              int S, int Nh, int Hkv, int Bk, int M, int qtiles, int Tq, int window,
+              int pages_per_split, int n_splits, float scale_log2) {
+  using L = Layout<D, T>;
+  constexpr int DP = L::DP;
+  constexpr bool kConv = L::kConv;
+  constexpr int kStages = L::kStages;
+  constexpr bool kInt8 = paged::kIsInt8<T>;
+  constexpr bool kQReg = D <= 128;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sAcc = reinterpret_cast<float*>(smem + L::acc);
-  float* sM = reinterpret_cast<float*>(smem + L::m);
-  float* sL = reinterpret_cast<float*>(smem + L::l);
-  float* sAlpha = reinterpret_cast<float*>(smem + L::alpha);
+  T* rK = reinterpret_cast<T*>(smem + L::rk);
+  T* rV = reinterpret_cast<T*>(smem + L::rv);
+  float* sSc = reinterpret_cast<float*>(smem + L::sc);   // [stage][k|v][KC]
   int* sPos = reinterpret_cast<int*>(smem + L::pos);
   int* sRed = reinterpret_cast<int*>(smem + L::red);
 
@@ -155,11 +138,13 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
   const int b = blockIdx.x / qtiles;
   const int t0 = (blockIdx.x % qtiles) * Tq;
   const int g = blockIdx.y;
+  const int split = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int kv_len = kv_lens[b];
-  constexpr int kVecD = D / 8;   // 16-byte vectors per row
+  const int* table = tables + (size_t)b * M;
+  const bool split_mode = n_splits > 1;
 
   if (tid == 0) {
     sRed[0] = 0x7fffffff;   // min valid query position
@@ -171,8 +156,6 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
     int p = -1;
     if (t < Tq && t0 + t < S) p = positions[b * S + t0 + t];
     sPos[tid] = p;
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
     if (p >= 0) {
       atomicMin(&sRed[0], p);
       atomicMax(&sRed[1], p);
@@ -183,186 +166,324 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
   const int qmax = sRed[1];
   const int lo = (window > 0) ? max(0, qmin - window + 1) : 0;
   const int hi = min(qmax + 1, kv_len);
+  const int split_keys = pages_per_split * Bk;
+  const int klo = max(lo, split * split_keys);
+  const int khi = (split == n_splits - 1) ? hi : min(hi, (split + 1) * split_keys);
 
-  if (qmax >= 0 && hi > lo) {
-    // ---- stage the tile's queries (pad rows as zeros) and clear the acc
-    for (int i = tid; i < kQRows * kVecD; i += kThreads) {
-      const int r = i / kVecD;
-      const int dv = i % kVecD;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (sPos[r] >= 0) {
+  if (qmax < 0 || khi <= klo) {
+    // no key of this split for the tile: with splits the merge reads no
+    // state of it; without, every real query row of the tile is zero
+    if (!split_mode) {
+      for (int i = tid; i < kQRows * D; i += kThreads) {
+        const int r = i / D;
         const int t = r / qpk;
-        const int h = g * qpk + r % qpk;
-        val = reinterpret_cast<const uint4*>(
-            q + ((size_t)(b * S + t0 + t) * Nh + h) * D)[dv];
-      }
-      reinterpret_cast<uint4*>(sQ + r * D)[dv] = val;
-    }
-    for (int i = tid; i < kQRows * D; i += kThreads) sAcc[i] = 0.f;
-
-    for (int kc0 = (lo / KC) * KC; kc0 < hi; kc0 += KC) {
-      __syncthreads();   // previous chunk's products are done with sK/sV
-      // ---- gather KC keys from their pages (outside [lo, hi) → zeros, so
-      // masked columns never carry non-finite values into P V)
-      for (int i = tid; i < KC * kVecD; i += kThreads) {
-        const int c = i / kVecD;
-        const int dv = i % kVecD;
-        const int j = kc0 + c;
-        uint4 kval = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vval = kval;
-        if (j >= lo && j < hi) {
-          const int page = tables[b * M + min(j / Bk, M - 1)];
-          const size_t off = (((size_t)page * Hkv + g) * Bk + j % Bk) * D + dv * 8;
-          float ks = 1.f, vs = 1.f;
-          if (kscale != nullptr) {
-            ks = __bfloat162float(kscale[(size_t)page * Bk + j % Bk]);
-            vs = __bfloat162float(vscale[(size_t)page * Bk + j % Bk]);
-          }
-          kval = stage8(kpool, off, ks);
-          vval = stage8(vpool, off, vs);
-        }
-        reinterpret_cast<uint4*>(sK + c * D)[dv] = kval;
-        reinterpret_cast<uint4*>(sV + c * D)[dv] = vval;
-      }
-      __syncthreads();
-
-      // ---- S = Q K^T for this warp's 16 query rows
-      const int r0 = warp * 16;
-#pragma unroll
-      for (int n = 0; n < KC / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c_frag;
-        wmma::fill_fragment(c_frag, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a_frag;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b_frag;
-          wmma::load_matrix_sync(a_frag, sQ + r0 * D + kk * 16, D);
-          wmma::load_matrix_sync(b_frag, sK + n * 16 * D + kk * 16, D);
-          wmma::mma_sync(c_frag, a_frag, b_frag, c_frag);
-        }
-        wmma::store_matrix_sync(sS + r0 * KC + n * 16, c_frag, KC, wmma::mem_row_major);
-      }
-      __syncwarp();
-
-      // ---- online softmax over the chunk, one query row at a time
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = r0 + rr;
-        const int p = sPos[r];
-        const float m_old = sM[r];
-        float sv[KC / 32];
-        bool ok[KC / 32];
-        float mx = kNegInf;
-#pragma unroll
-        for (int i = 0; i < KC / 32; ++i) {
-          const int c = lane + 32 * i;
-          const int j = kc0 + c;
-          ok[i] = p >= 0 && j < kv_len && j <= p && (window <= 0 || j > p - window);
-          sv[i] = ok[i] ? sS[r * KC + c] * scale : kNegInf;
-          mx = fmaxf(mx, sv[i]);
-        }
-        mx = warp_max(mx);
-        const float m_new = fmaxf(m_old, mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < KC / 32; ++i) {
-          const float pr = ok[i] ? expf(sv[i] - m_new) : 0.f;
-          sP[r * KC + lane + 32 * i] = __float2bfloat16(pr);
-          sum += pr;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float alpha = expf(m_old - m_new);
-          sAlpha[r] = alpha;
-          sL[r] = sL[r] * alpha + sum;
-          sM[r] = m_new;
-        }
-      }
-      __syncwarp();
-
-      // ---- rescale this warp's accumulator rows, then acc += P V
-      for (int i = lane; i < 16 * D; i += 32) {
-        const int r = r0 + i / D;
-        sAcc[r * D + i % D] *= sAlpha[r];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_frag;
-        wmma::load_matrix_sync(o_frag, sAcc + r0 * D + n * 16, D, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < KC / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a_frag;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b_frag;
-          wmma::load_matrix_sync(a_frag, sP + r0 * KC + kk * 16, KC);
-          wmma::load_matrix_sync(b_frag, sV + kk * 16 * D + n * 16, D);
-          wmma::mma_sync(o_frag, a_frag, b_frag, o_frag);
-        }
-        wmma::store_matrix_sync(sAcc + r0 * D + n * 16, o_frag, D, wmma::mem_row_major);
+        if (t >= Tq || t0 + t >= S) continue;
+        out[((size_t)(b * S + t0 + t) * Nh + g * qpk + r % qpk) * D + i % D] =
+            __float2bfloat16(0.f);
       }
     }
-    __syncthreads();
-  } else {
-    for (int i = tid; i < kQRows * D; i += kThreads) sAcc[i] = 0.f;
-    __syncthreads();
+    return;
   }
 
-  // ---- normalize and emit every real query row of the tile (l == 0 →
-  // exact zeros: pad queries and windows that exclude every key)
-  for (int i = tid; i < kQRows * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i % D;
+  // ---- stage the tile's queries (pad rows as zeros) with chunk 0's keys
+  constexpr int kVq = D / 8;
+  for (int i = tid; i < kQRows * kVq; i += kThreads) {
+    const int r = i / kVq;
+    const int dv = i % kVq;
+    const bool ok = sPos[r] >= 0;
+    const bf16* src = q;
+    if (ok) src = q + ((size_t)(b * S + t0 + r / qpk) * Nh + g * qpk + r % qpk) * D + dv * 8;
+    paged::cp_async16(sQ + r * DP + dv * 8, src, ok);
+  }
+  auto issue = [&](int i) {
+    const int c0 = klo + i * KC;
+    const int st = i % kStages;
+    if constexpr (kConv) {
+      paged::issue_kv<kThreads, D, T>(rK + st * KC * D, rV + st * KC * D, D, kpool, vpool, c0,
+                                      KC, klo, khi, -1, table, M, Hkv, g, Bk);
+    } else {
+      paged::issue_kv<kThreads, D, T>(sK + st * KC * DP, sV + st * KC * DP, DP, kpool, vpool,
+                                      c0, KC, klo, khi, -1, table, M, Hkv, g, Bk);
+    }
+  };
+  // int8: the scales of key klo + i * KC + tid (0 outside [klo, khi))
+  auto scales = [&](int i, float* ks, float* vs) {
+    *ks = 0.f;
+    *vs = 0.f;
+    const int j = klo + i * KC + tid;
+    if (!kInt8 || tid >= KC || j >= khi) return;
+    const size_t at = paged::page_slot(table, j, M, Bk);
+    *ks = __bfloat162float(kscale[at]);
+    *vs = __bfloat162float(vscale[at]);
+  };
+
+  const int gq = lane >> 2;   // this thread's rows: r0 + gq and r0 + gq + 8
+  const int t4 = lane & 3;    // and columns 2 * t4, 2 * t4 + 1 of each 8-wide tile
+  const int r0 = warp * 16;
+  const int prow[2] = {sPos[r0 + gq], sPos[r0 + gq + 8]};
+  // warp-uniform facts about the warp's 16 query rows: a warp of pad rows
+  // only takes part in the copies and barriers; a chunk that every row
+  // sees in full skips the per-element mask
+  int pmin = min(prow[0], prow[1]);
+  int pmax = max(prow[0], prow[1]);
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    pmin = min(pmin, __shfl_xor_sync(0xffffffffu, pmin, o));
+    pmax = max(pmax, __shfl_xor_sync(0xffffffffu, pmax, o));
+  }
+  const bool warp_live = pmax >= 0;
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  uint32_t qf[kQReg ? D / 16 : 1][4];
+
+  // the ring: chunks 0 .. kStages - 2 in flight (the queries with chunk 0)
+  // before the first wait; one commit group per chunk slot, empty past the
+  // last chunk
+  const int nchunks = (khi - klo + KC - 1) / KC;
+  float nxt_ks = 0.f, nxt_vs = 0.f;
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < nchunks) {
+      issue(p);
+      if (kInt8 && tid < KC) {
+        scales(p, &nxt_ks, &nxt_vs);
+        sSc[(p * 2) * KC + tid] = nxt_ks;
+        sSc[(p * 2 + 1) * KC + tid] = nxt_vs;
+      }
+    }
+    paged::cp_async_commit();
+  }
+  for (int i = 0; i < nchunks; ++i) {
+    const int st = i % kStages;
+    paged::cp_async_wait<kStages - 2>();
+    __syncthreads();   // chunk i has landed for every thread; chunk i - 1 is consumed
+    if constexpr (kQReg) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          ldsm_x4(qf[kk], sQ + (r0 + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
+        }
+      }
+    }
+    const int nxt = i + kStages - 1;
+    if (nxt < nchunks) {
+      issue(nxt);
+      scales(nxt, &nxt_ks, &nxt_vs);   // stored after this chunk's compute
+    }
+    paged::cp_async_commit();
+    const bf16* kb = sK;
+    const bf16* vb = sV;
+    if constexpr (kConv) {
+      // codes -> bf16 for the tensor cores
+      const T* ck = rK + st * KC * D;
+      const T* cv = rV + st * KC * D;
+      for (int e = tid; e < KC * (D / 8); e += kThreads) {
+        const int c = e / (D / 8);
+        const int dv = e % (D / 8);
+        *reinterpret_cast<uint4*>(sK + c * DP + dv * 8) =
+            paged::to_bf16x8(ck + c * D + dv * 8, sSc[(st * 2) * KC + c]);
+        *reinterpret_cast<uint4*>(sV + c * DP + dv * 8) =
+            paged::to_bf16x8(cv + c * D + dv * 8, sSc[(st * 2 + 1) * KC + c]);
+      }
+      __syncthreads();
+    } else {
+      kb = sK + st * KC * DP;
+      vb = sV + st * KC * DP;
+    }
+    const int c0 = klo + i * KC;
+    if (warp_live) {   // a warp of pad rows only copies and waits
+      const bool full = pmin >= 0 && c0 + KC <= khi && c0 + KC - 1 <= pmin &&
+                        (window <= 0 || c0 > pmax - window);
+
+      // ---- S = Q K^T for this warp's 16 rows x KC keys, in registers
+      float s[KC / 8][4];
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        if constexpr (kQReg) {
+          a[0] = qf[kk][0];
+          a[1] = qf[kk][1];
+          a[2] = qf[kk][2];
+          a[3] = qf[kk][3];
+        } else {
+          ldsm_x4(a, sQ + (r0 + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int np = 0; np < KC / 16; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(bk, kb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * DP + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+          mma16816(s[2 * np], a, bk[0], bk[1]);
+          mma16816(s[2 * np + 1], a, bk[2], bk[3]);
+        }
+      }
+
+      // ---- mask, online softmax per row (quad shuffles), rescale O
+      float alpha[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int p = prow[hf];
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < KC / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = c0 + n * 8 + 2 * t4 + e;
+            const bool vis = full || (p >= 0 && j < khi && j < kv_len && j <= p &&
+                                      (window <= 0 || j > p - window));
+            const float x = vis ? s[n][hf * 2 + e] * scale_log2 : kNegInf;
+            s[n][hf * 2 + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hf], mx);
+        alpha[hf] = exp2f(m[hf] - m_new);
+        m[hf] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < KC / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = s[n][hf * 2 + e];
+            const float pr = (full || x != kNegInf) ? exp2f(x - m_new) : 0.f;
+            s[n][hf * 2 + e] = pr;
+            sum += pr;
+          }
+        }
+        l[hf] = l[hf] * alpha[hf] + sum;
+      }
+      // rescale O only when some row's maximum moved (x 1 is exact)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1];
+          o[n][3] *= alpha[1];
+        }
+      }
+
+      // ---- O += P V (P repacked from the S accumulators as bf16 A fragments)
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
+        a[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
+        a[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+        a[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vb + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DP + dp * 16 +
+                            (lane >> 4) * 8);
+          mma16816(o[2 * dp], a, bv[0], bv[1]);
+          mma16816(o[2 * dp + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+    if (kInt8 && nxt < nchunks && tid < KC) {
+      // chunk nxt's slot was last read converting chunk i - 1, before this
+      // iteration's first barrier; it is next read after chunk nxt's
+      sSc[((nxt % kStages) * 2) * KC + tid] = nxt_ks;
+      sSc[((nxt % kStages) * 2 + 1) * KC + tid] = nxt_vs;
+    }
+  }
+
+  // ---- emit: normalized rows, or this split's partial state
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lf = l[hf];
+    lf += __shfl_xor_sync(0xffffffffu, lf, 1);
+    lf += __shfl_xor_sync(0xffffffffu, lf, 2);
+    const int r = r0 + gq + hf * 8;
     const int t = r / qpk;
     if (t >= Tq || t0 + t >= S) continue;
-    const float l = sL[r];
-    const float o = l > 0.f ? sAcc[i] / l : 0.f;
-    const int h = g * qpk + r % qpk;
-    out[((size_t)(b * S + t0 + t) * Nh + h) * D + d] = __float2bfloat16(o);
+    const size_t row = (size_t)(b * S + t0 + t) * Nh + g * qpk + r % qpk;
+    if (split_mode) {
+      if (prow[hf] < 0) continue;   // the merge writes pad queries' zeros
+      float* wo = ws_o + (row * n_splits + split) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(wo + n * 8 + 2 * t4) =
+            make_float2(o[n][hf * 2], o[n][hf * 2 + 1]);
+      }
+      if (t4 == 0) {
+        ws_ml[(row * n_splits + split) * 2] = m[hf];
+        ws_ml[(row * n_splits + split) * 2 + 1] = lf;
+      }
+    } else {
+      // l == 0: pad queries and windows that exclude every key -> exact zeros
+      const float inv = lf > 0.f ? 1.f / lf : 0.f;
+      bf16* orow = out + row * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
+            __floats2bfloat162_rn(o[n][hf * 2] * inv, o[n][hf * 2 + 1] * inv);
+      }
+    }
   }
 }
 
-template <int D, int KC, typename T>
+template <int D, typename T>
 int launch(const bf16* q, const T* kpool, const T* vpool, const bf16* kscale,
            const bf16* vscale, const int* tables, const int* positions, const int* kv_lens,
-           bf16* out, int B, int S, int Nh, int Hkv, int Bk, int M, int window, float scale,
-           cudaStream_t stream) {
+           bf16* out, float* ws_o, float* ws_ml, int B, int S, int Nh, int Hkv, int Bk, int M,
+           int window, int pages_per_split, int n_splits, float scale, cudaStream_t stream) {
   const int qpk = Nh / Hkv;
   const int Tq = kQRows / qpk;
   const int qtiles = (S + Tq - 1) / Tq;
-  const size_t smem = Layout<D, KC>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel<D, KC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * qtiles, Hkv);
-  ragged_kernel<D, KC, T><<<grid, kThreads, smem, stream>>>(
-      q, kpool, vpool, kscale, vscale, tables, positions, kv_lens, out, S, Nh, Hkv, Bk, M,
-      qtiles, Tq, window, scale);
-  return (int)cudaGetLastError();
+  const size_t smem = Layout<D, T>::bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ragged_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ragged_kernel<D, T><<<dim3(B * qtiles, Hkv, n_splits), kThreads, smem, stream>>>(
+      q, kpool, vpool, kscale, vscale, tables, positions, kv_lens, out, ws_o, ws_ml, S, Nh, Hkv,
+      Bk, M, qtiles, Tq, window, pages_per_split, n_splits, scale * paged::kLog2e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  return paged::launch_merge<D>(ws_o, ws_ml, positions, kv_lens, out, B * S, S, Nh, n_splits,
+                                pages_per_split * Bk, window, stream);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
              const void* v_scale, const int32_t* tables, const int32_t* positions,
              const int32_t* kv_lens, void* out, int B, int S, int Nh, int Hkv, int D, int Bk,
-             int M, int window, float scale, void* stream) {
+             int M, int window, float scale, void* ws_o, void* ws_ml, int pages_per_split,
+             int n_splits, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || Nh % Hkv != 0 || Nh / Hkv > kQRows) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Nh % Hkv != 0 || Nh / Hkv > kQRows || Bk <= 0 || M <= 0 ||
+      pages_per_split <= 0 || n_splits <= 0 || (long)pages_per_split * n_splits < M ||
+      (n_splits > 1 && (ws_o == nullptr || ws_ml == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
   const bf16* qq = static_cast<const bf16*>(q);
   const T* kp = static_cast<const T*>(k_pool);
   const T* vp = static_cast<const T*>(v_pool);
   const bf16* ks = static_cast<const bf16*>(k_scale);
   const bf16* vs = static_cast<const bf16*>(v_scale);
   bf16* o = static_cast<bf16*>(out);
+  float* wo = static_cast<float*>(ws_o);
+  float* wml = static_cast<float*>(ws_ml);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64, 64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh,
-                               Hkv, Bk, M, window, scale, st);
+      return launch<64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B, S, Nh,
+                           Hkv, Bk, M, window, pages_per_split, n_splits, scale, st);
     case 128:
-      return launch<128, 64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh,
-                                Hkv, Bk, M, window, scale, st);
+      return launch<128, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B, S,
+                            Nh, Hkv, Bk, M, window, pages_per_split, n_splits, scale, st);
     case 256:
-      return launch<256, 32, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh,
-                                Hkv, Bk, M, window, scale, st);
+      return launch<256, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B, S,
+                            Nh, Hkv, Bk, M, window, pages_per_split, n_splits, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -373,20 +494,25 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
 // C entry points (loaded with ctypes), one per pool element type. All
 // tensors contiguous on the current device; `k_scale`/`v_scale` are the
 // layer's [N, Bk] bf16 scale pools of an int8 pool and null otherwise;
-// `window` <= 0 means full causal attention. Returns the CUDA error code of
-// the launch (0 = success); the kernel runs on `stream` and does not
-// synchronise.
+// `window` <= 0 means full causal attention. With `n_splits` > 1 the keys
+// are split `pages_per_split` pages a split and `ws_o` ([B * S, Nh,
+// n_splits, D] f32) / `ws_ml` ([B * S, Nh, n_splits, 2] f32) hold the
+// partial states (a second launch merges them); with one split both may be
+// null. Returns the CUDA error code of the launches (0 = success); the
+// kernels run on `stream` and do not synchronise.
 #define RAGGED_ENTRY(NAME, T, NEEDS_SCALE)                                                     \
   extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool,                 \
                       const void* k_scale, const void* v_scale, const int32_t* tables,       \
                       const int32_t* positions, const int32_t* kv_lens, void* out, int B,    \
                       int S, int Nh, int Hkv, int D, int Bk, int M, int window, float scale, \
+                      void* ws_o, void* ws_ml, int pages_per_split, int n_splits,            \
                       void* stream) {                                                        \
     if (NEEDS_SCALE != (k_scale != nullptr && v_scale != nullptr)) {                         \
       return (int)cudaErrorInvalidValue;                                                     \
     }                                                                                        \
     return dispatch<T>(q, k_pool, v_pool, k_scale, v_scale, tables, positions, kv_lens, out, \
-                       B, S, Nh, Hkv, D, Bk, M, window, scale, stream);                      \
+                       B, S, Nh, Hkv, D, Bk, M, window, scale, ws_o, ws_ml, pages_per_split, \
+                       n_splits, stream);                                                    \
   }
 
 RAGGED_ENTRY(ragged_paged_attention_bf16, bf16, false)

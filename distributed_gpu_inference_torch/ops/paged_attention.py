@@ -19,10 +19,18 @@ per (page, token), ``[N, Bk]`` for one layer, ``[L, N, Bk]`` stacked; the
 contract is ``ops.attention.quantize_token_rows``); the fused kernel
 quantizes the new row itself and writes its scale in place.
 
+The fused decode kernel splits each row's keys over blocks by
+:func:`kv_split_plan` (whole pages a split, planned from the table width
+and block size alone) and merges the splits' partial softmax states in
+split order in a second launch; the wrapper allocates that workspace. It
+reads no device tensor on the host, so both wrappers can be captured in a
+CUDA graph.
+
 On a CUDA tensor a wrapper launches its kernel or raises; it takes the
-plain version only because the tensor it was given lies on the CPU. Each wrapper counts its launches in ``<wrapper>.launches`` — one per
-kernel launch and nowhere else — so a run can show that its main path went
-through the kernels.
+plain version only because the tensor it was given lies on the CPU. Each
+wrapper counts its calls that launch in ``<wrapper>.launches`` — one per
+call (a split call's merge launch is part of it) and nowhere else — so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P,                    # q, k, v, k_scale, v_scale
          _P, _P, _P, _P,                        # tables, pos, lens, out
          _I, _I, _I, _I, _I, _I, _I, _I,        # B, S, Nh, Hkv, D, Bk, M, window
-         ctypes.c_float, _P]                    # scale, stream
+         ctypes.c_float, _P, _P, _I, _I,        # scale, ws_o, ws_ml, pages/split, splits
+         _P]                                    # stream
     ),
     "paged_decode_fused": (
         [_P, _P, _P, _P, _P, _P, _P,            # q, new_k, new_v, kpool, vpool,
@@ -58,7 +67,8 @@ _SIGNATURES = {
          _P, _P, _P, _P,                        # tables, pos, lens, out
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, Nh, Hkv, D, L, N, Bk, M,
                                                    # layer, window
-         ctypes.c_float, _P]                    # scale, stream
+         ctypes.c_float, _P, _P, _I, _I,        # scale, ws_o, ws_ml, pages/split, splits
+         _P]                                    # stream
     ),
 }
 _fns: Dict[str, object] = {}
@@ -116,6 +126,35 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 # --------------------------------------------------------------------------
+# Key-split plan
+# --------------------------------------------------------------------------
+
+# keys a split aims at: a 4096-key row gives 16 splits, so the llama3-8b
+# serving batch (8 rows x 8 kv heads) makes 1024 blocks on 132 SMs, and a
+# split still walks 8 chunks of its copy ring (chip_smoke.py phase 10 times
+# half and twice this size at 4096-key rows; PERF.md keeps the numbers)
+SPLIT_TARGET_KEYS = 256
+# whether the ragged kernel splits its keys too (the fused decode kernel
+# always does): timed both ways at the long round by chip_smoke.py phase 10
+# and slower split (PERF.md) — each split writes f32 partial states of all
+# 64 query rows of a tile
+RAGGED_SPLIT_KEYS = False
+
+
+def kv_split_plan(max_blocks: int, block_size: int) -> Tuple[int, int]:
+    """(pages per split, number of splits) for block tables of width
+    ``max_blocks`` and pages of ``block_size`` keys. Split s covers the
+    whole pages [s * P, (s + 1) * P) of every row, i.e. keys [s * P * Bk,
+    (s + 1) * P * Bk); the splits cover all ``max_blocks`` table entries.
+    A function of the two shapes alone: it reads no tensor, so a captured
+    CUDA graph replays the same plan."""
+    if max_blocks < 1 or block_size < 1:
+        raise ValueError(f"kv_split_plan: table width {max_blocks}, block {block_size}")
+    pages = min(max_blocks, -(-SPLIT_TARGET_KEYS // block_size))
+    return pages, -(-max_blocks // pages)
+
+
+# --------------------------------------------------------------------------
 # Ragged paged attention
 # --------------------------------------------------------------------------
 
@@ -167,11 +206,17 @@ def ragged_paged_attention(
                    ("kv_lens", kv_lens)):
         _require(t.dtype == torch.int32, f"{name}: {key} must be int32, got {t.dtype}")
     out = torch.empty_like(q)
+    pages, splits = kv_split_plan(m, bk) if RAGGED_SPLIT_KEYS else (m, 1)
+    ws_o = ws_ml = None
+    if splits > 1:
+        ws_o = torch.empty((b * s, nh, splits, d), dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((b * s, nh, splits, 2), dtype=torch.float32, device=q.device)
     err = _kernel(name, k_pool.dtype)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         block_tables.data_ptr(), positions.data_ptr(), kv_lens.data_ptr(),
         out.data_ptr(), b, s, nh, hkv, d, bk, m,
         int(window) if window is not None else 0, d ** -0.5,
+        _ptr(ws_o), _ptr(ws_ml), pages, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(name, err)
@@ -276,6 +321,9 @@ def paged_decode_attention_fused(
                    ("kv_lens", kv_lens)):
         _require(t.dtype == torch.int32, f"{name}: {key} must be int32, got {t.dtype}")
     out = torch.empty_like(q)
+    pages, splits = kv_split_plan(m, bk)
+    ws_o = torch.empty((b, nh, splits, d), dtype=torch.float32, device=q.device)
+    ws_ml = torch.empty((b, nh, splits, 2), dtype=torch.float32, device=q.device)
     err = _kernel("paged_decode_fused", k_pool.dtype)(
         q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
@@ -283,6 +331,7 @@ def paged_decode_attention_fused(
         positions.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         b, nh, hkv, d, nl, n, bk, m, int(layer_idx),
         int(window) if window is not None else 0, d ** -0.5,
+        ws_o.data_ptr(), ws_ml.data_ptr(), pages, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(name, err)

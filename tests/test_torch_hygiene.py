@@ -219,3 +219,105 @@ def test_seeded_sampling_on_the_card_matches_the_cpu(cuda):
     k = torch.from_numpy(keys.astype(np.int64))
     assert torch.equal(sampling.gumbel(k.to(cuda), 4099).cpu().view(torch.int32),
                        sampling.gumbel(k, 4099).view(torch.int32))
+
+
+def _pools(kind, kf, vf):
+    """bf16 stacked pools [L, N, ...] → (k, v, k_scale, v_scale) in ``kind``."""
+    from distributed_gpu_inference_torch.ops.attention import quantize_kv_pool
+    from distributed_gpu_inference_torch.ops.quantization import to_float8_e4m3
+
+    if kind == "bf16":
+        return kf, vf, None, None
+    if kind == "fp8":
+        return to_float8_e4m3(kf), to_float8_e4m3(vf), None, None
+    pk = [quantize_kv_pool(kf[i]) for i in range(kf.shape[0])]
+    pv = [quantize_kv_pool(vf[i]) for i in range(vf.shape[0])]
+    return (torch.stack([c for c, _ in pk]), torch.stack([c for c, _ in pv]),
+            torch.stack([x for _, x in pk]), torch.stack([x for _, x in pv]))
+
+
+def _bits(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t.view(torch.int16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,bk,kind,nh,window", [
+    (64, 8, "bf16", 8, None), (64, 32, "int8", 8, 300), (128, 16, "bf16", 16, 300),
+    (128, 8, "fp8", 8, None), (128, 32, "int8", 16, None), (256, 32, "bf16", 8, 300),
+    (256, 8, "int8", 8, None), (256, 16, "fp8", 8, 300),
+])
+def test_split_kernels_match_plain_versions_on_the_card(cuda, monkeypatch, d, bk, kind, nh,
+                                                        window):
+    # 2048-key rows over many splits (8 at every Bk), a window that crosses
+    # split boundaries, a decode row whose position is slot 0 of a fresh
+    # page, an inactive row; qpk 8 at D 128 and qpk 4 at D 256 spread a head
+    # group over two blocks of the fused kernel. Tolerances are the smoke
+    # run's (atol 3e-3 ragged / 2e-3 fused, rtol 1e-2; the ragged kernel over
+    # an int8 pool also rounds code*scale to bf16: + 2^-9 max|value|).
+    from distributed_gpu_inference_torch.ops.attention import dequantize_kv, paged_attention_ref
+
+    rng = np.random.default_rng(d + bk)
+    hkv, keys = 2, 2048
+    m = keys // bk
+    b = 4
+    n = 1 + b * m
+    t = lambda a, dt=torch.bfloat16: torch.tensor(a, dtype=dt, device=cuda)  # noqa: E731
+    kp, vp, ks, vs = _pools(kind, t(rng.standard_normal((2, n, hkv, bk, d))),
+                            t(rng.standard_normal((2, n, hkv, bk, d))))
+    tables = np.arange(1, n, dtype=np.int32).reshape(b, m)
+    tables[2] = 0
+    tables = t(tables, torch.int32)
+    pages, splits = tpa.kv_split_plan(m, bk)
+    assert splits >= 8
+    slot0 = 9 * bk                                   # first slot of page 9
+    lens = t([keys, slot0 + 1, 0, 700], torch.int32)
+    atol = 3e-3
+    if kind == "int8":
+        atol += 2.0 ** -9 * float(max(dequantize_kv(kp[1], ks[1][:, None, :, None]).abs().max(),
+                                      dequantize_kv(vp[1], vs[1][:, None, :, None]).abs().max()))
+    sl = {} if ks is None else dict(k_scale=ks[1], v_scale=vs[1])
+
+    # ---- ragged: a 48-wide chunk at the end of a 2048-key row, a decode
+    # row at slot 0, a pad row, a first chunk
+    s = 48
+    pos = np.full((b, s), -1)
+    pos[0] = np.arange(keys - s, keys)
+    pos[1, 0] = slot0
+    pos[3] = np.arange(s)
+    pos = t(pos, torch.int32)
+    lens_r = t([keys, slot0 + 1, 0, s], torch.int32)
+    q = t(rng.standard_normal((b, s, nh, d)))
+    want = paged_attention_ref(q, kp[1], vp[1], tables, pos, lens_r, bk, window=window, **sl)
+    for split_keys in (False, True):
+        monkeypatch.setattr(tpa, "RAGGED_SPLIT_KEYS", split_keys)
+        got = tpa.ragged_paged_attention(q, kp[1], vp[1], tables, pos, lens_r, bk,
+                                         window=window, **sl)
+        again = tpa.ragged_paged_attention(q, kp[1], vp[1], tables, pos, lens_r, bk,
+                                           window=window, **sl)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=1e-2)
+        assert torch.equal(_bits(got), _bits(again))           # bitwise repeatable
+        assert bool((got[pos < 0] == 0).all())
+
+    # ---- fused decode over the same pools
+    q1 = t(rng.standard_normal((b, 1, nh, d)))
+    nk = t(rng.standard_normal((b, 1, hkv, d)) * 3)
+    nv = t(rng.standard_normal((b, 1, hkv, d)))
+    p1 = (lens - 1).clamp(min=-1)[:, None].to(torch.int32)
+    kp2, vp2 = kp.clone(), vp.clone()
+    sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    sc2 = {} if ks is None else dict(k_scale=ks.clone(), v_scale=vs.clone())
+    got, _, _ = tpa.paged_decode_attention_fused(q1, nk, nv, kp, vp, 1, tables, p1, lens, bk,
+                                                 window=window, **sc)
+    want, _, _ = tpa.paged_decode_attention_fused_plain(q1, nk, nv, kp2, vp2, 1, tables, p1,
+                                                        lens, bk, window=window, **sc2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+    assert bool((got[2] == 0).all())                           # inactive row
+    assert torch.equal(_bits(kp), _bits(kp2)) and torch.equal(_bits(vp), _bits(vp2))
+    if ks is not None:
+        assert torch.equal(_bits(sc["k_scale"]), _bits(sc2["k_scale"]))
+        assert torch.equal(_bits(sc["v_scale"]), _bits(sc2["v_scale"]))
+    # the same step again (the rows are already written): the same bits
+    again, _, _ = tpa.paged_decode_attention_fused(q1, nk, nv, kp, vp, 1, tables, p1, lens, bk,
+                                                   window=window, **sc)
+    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(kp), _bits(kp2))

@@ -205,3 +205,121 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
         "ragged_paged_attention": 0, "paged_decode_attention_fused": 0,
         "qmm_w8a16": 0,
     }
+
+
+# --------------------------------------------------------------------------
+# The key-split plan of the fused decode kernel (and of the ragged kernel
+# when it splits), and the merge of per-split partial softmax states
+# --------------------------------------------------------------------------
+
+
+class _RecordTorchCalls(torch.overrides.TorchFunctionMode):
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.calls.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+def _split_of_key(j, pages, block):
+    return j // (pages * block)
+
+
+@pytest.mark.parametrize("max_blocks", [1, 3, 64, 256, 2048])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_split_plan_covers_every_key_once_page_aligned(block, max_blocks):
+    with _RecordTorchCalls() as rec:
+        pages, splits = tpa.kv_split_plan(max_blocks, block)
+    assert rec.calls == []                      # the plan reads no tensor
+    assert isinstance(pages, int) and isinstance(splits, int)
+    # the splits cover the table's pages, none of them empty
+    assert pages >= 1 and pages * splits >= max_blocks > (splits - 1) * pages
+    # each split starts on a page boundary and holds a whole number of pages
+    keys = max_blocks * block
+    starts = [s * pages * block for s in range(splits)]
+    assert all(st % block == 0 for st in starts) and starts[0] == 0
+    rng = np.random.default_rng(block * 10007 + max_blocks)
+    for window in (None, 1, 7, 300):
+        for kv_len in {1, keys, *rng.integers(1, keys + 1, size=6).tolist()}:
+            pos = kv_len - 1
+            lo = max(0, pos - window + 1) if window else 0
+            hi = min(kv_len, pos + 1)
+            # every visible key falls in exactly one split, the splits the
+            # kernel blocks and the merge both take
+            owners = [[s for s in range(splits)
+                       if starts[s] <= j < (starts[s + 1] if s + 1 < splits else 1 << 62)]
+                      for j in range(lo, hi)]
+            assert all(len(o) == 1 for o in owners)
+            assert [o[0] for o in owners] == [_split_of_key(j, pages, block)
+                                              for j in range(lo, hi)]
+            # exactly one split holds the page pos is written to, and every
+            # slot of that page is in the same split
+            page = pos // block
+            holders = [s for s in range(splits) if s * pages <= page < (s + 1) * pages]
+            assert len(holders) == 1
+            assert {_split_of_key(page * block + i, pages, block)
+                    for i in range(block)} == {holders[0]}
+
+
+def _split_states(q, kp, vp, table, lo, hi, pages, block):
+    """Per-split (m, l, acc) of one query row [Nh, D] over keys [lo, hi),
+    in f32 natural-log form — the states a kernel block writes."""
+    nh, d = q.shape
+    hkv = kp.shape[1]
+    qpk = nh // hkv
+    split_keys = pages * block
+    states = []
+    for s in range(lo // split_keys, (hi - 1) // split_keys + 1):
+        j = torch.arange(max(lo, s * split_keys), min(hi, (s + 1) * split_keys))
+        page = table[j // block].long()
+        k = kp[page, :, j % block]                   # [n, Hkv, D]
+        v = vp[page, :, j % block]
+        kh = k.repeat_interleave(qpk, dim=1)         # [n, Nh, D]
+        vh = v.repeat_interleave(qpk, dim=1)
+        sc = torch.einsum("hd,nhd->hn", q, kh) * d ** -0.5
+        m = sc.max(dim=1).values
+        p = torch.exp(sc - m[:, None])
+        states.append((m, p.sum(dim=1), torch.einsum("hn,nhd->hd", p, vh)))
+    return states
+
+
+def _merge(states, nh, d):
+    if not states:
+        return torch.zeros((nh, d))
+    m = torch.stack([s[0] for s in states]).max(dim=0).values
+    l = sum(s[1] * torch.exp(s[0] - m) for s in states)
+    acc = sum(s[2] * torch.exp(s[0] - m)[:, None] for s in states)
+    return acc / l[:, None]
+
+
+@pytest.mark.parametrize("lens,window", [
+    ((1, 17, 0), None), ((256, 257, 1000), None), ((4096, 2049, 513), None),
+    ((4096, 300, 1), 100), ((1000, 4096, 16), 257), ((255, 4096, 3000), 1),
+])
+def test_merged_split_states_match_the_plain_versions(lens, window):
+    # f32 throughout: the split-and-merge order of the sums is the only
+    # difference, so the tolerance stays at the file's f32 one
+    nh, hkv, d, block, m = 4, 2, 64, 16, 256
+    rows = [(1 if kv else 0, kv) for kv in lens]
+    q, kp, vp, tables, positions, klens = _ragged(rows, nh, hkv, d, block, m, seed=7)
+    pages, _ = tpa.kv_split_plan(m, block)
+    want_ref = paged_attention_ref(*map(torch.from_numpy, (q, kp, vp, tables, positions, klens)),
+                                   block, window=window).numpy()
+    want_xla = np.asarray(paged_attention_xla(*map(jnp.asarray, (q, kp, vp, tables, positions,
+                                                                  klens)), block, window=window))
+    tq, tk, tv = map(torch.from_numpy, (q, kp, vp))
+    for b, kv in enumerate(lens):
+        pos = int(positions[b, 0])
+        if pos < 0:
+            states = []
+        else:
+            lo = max(0, pos - window + 1) if window else 0
+            states = _split_states(tq[b, 0], tk, tv, torch.from_numpy(tables[b]), lo,
+                                   min(kv, pos + 1), pages, block)
+        assert len(states) == (0 if pos < 0 else len({
+            j // (pages * block) for j in range(lo, min(kv, pos + 1))}))
+        got = _merge(states, nh, d).numpy()
+        np.testing.assert_allclose(got, want_ref[b, 0], **TOL)
+        np.testing.assert_allclose(got, want_xla[b, 0], **TOL)
