@@ -27,7 +27,8 @@ non-zero):
    proves the wrapper never synchronises), its bound on the card and its
    share of it, its plain version and ``scaled_dot_product_attention`` on
    the same context gathered contiguous (a yardstick only; the port never
-   calls it), timed both ways too.
+   calls it), timed both ways too; the fused decode kernel also as a CUDA
+   graph with 64, 128, 256 and 512 keys a split, its plan's size marked.
 
 Quantized serving (int8 / fp8 weights through the W8A16 kernel, int8 / fp8
 KV pools through both attention kernels):
@@ -50,18 +51,15 @@ KV pools through both attention kernels):
    against its plain version and ``torch.matmul`` on the pre-dequantized
    bf16 weights; the kernel against the library route at M in {8, ...,
    256}, which sets the dispatch bound; the int8 and fp8 attention variants
-   at the phase-5 shapes (events and CUDA graph).
+   timed as in phase 5.
 
 10. long shapes at llama3-8b widths with 4096-key rows (block tables of
     width 256), for bf16, int8 and fp8 pools: a ragged 8 x 256 round (2
     chunk rows at positions 3840-4095, 6 decode rows) and a decode step of
     8 active rows, each held to its plain version with the phase-3/6
     tolerances, two calls bitwise equal, the fused write's code and scale
-    pools bit-identical to the plain write; then both times, the plain
-    version's, SDPA's and the bound. In bf16 the ragged kernel also runs
-    with its keys split by the decode kernel's plan, checked and timed
-    against the shipped setting, and the fused kernel is timed with half
-    and twice the plan's keys a split.
+    pools bit-identical to the plain write; then both kernels timed as in
+    phase 5.
 
 The last three lines are the kernels JSON (every entry with ``ms`` and
 ``graph_ms``; ``@long`` entries for phase 10), the nvidia-smi line and
@@ -112,6 +110,13 @@ PROJ_SHAPES = ((HIDDEN, HIDDEN), (HIDDEN, HKV * D), (HIDDEN, FFN), (FFN, HIDDEN)
 BOUND_ROWS = (8, 16, 32, 64, 128, 256)
 SERVE_BATCH = 8
 LONG_M = 256                # table width of the long shapes: 4096 keys a row
+# (bytes an element, bytes of scale a token) of each KV pool type
+KV_BYTES = {"bf16": (2, 0), "int8": (1, 2), "fp8": (1, 0)}
+# keys a split of the fused decode kernel, timed against its plan's
+SPLIT_SWEEP = (64, 128, 256, 512)
+SRC = "distributed_gpu_inference_torch/csrc/"
+PALLAS = "distributed_gpu_inference_tpu/ops/paged_attention_pallas.py"
+QPALLAS = "distributed_gpu_inference_tpu/ops/qmm_pallas.py"
 
 
 def smi_line() -> str:
@@ -335,19 +340,22 @@ def sdpa_call(torch, q_bshd, kc, vc, pos, lens):
 
 
 def dequantized(torch, pool, scale):
-    """A quantized pool [N, Hkv, Bk, D] as bf16 (int8: code * its token's
-    scale), for the library yardstick."""
+    """A pool [N, Hkv, Bk, D] as bf16 (int8: code * its token's scale), for
+    the library yardstick."""
     if scale is None:
         return pool.to(torch.bfloat16)
     return (pool.float() * scale.float()[:, None, :, None]).to(torch.bfloat16)
 
 
-def quantized_pools(torch, kp, vp, kind):
+def kv_pools(torch, kp, vp, kind):
     """bf16 pools (one layer [N, ...] or stacked [L, N, ...]) → (k, v,
-    k_scale, v_scale) in ``kind`` ("int8" with per-token scales, "fp8")."""
+    k_scale, v_scale) in ``kind``: "bf16" as they are, "int8" with
+    per-token scales, "fp8"."""
     from distributed_gpu_inference_torch.ops.attention import quantize_kv_pool
     from distributed_gpu_inference_torch.ops.quantization import to_float8_e4m3
 
+    if kind == "bf16":
+        return kp, vp, None, None
     if kind == "fp8":
         return to_float8_e4m3(kp), to_float8_e4m3(vp), None, None
     if kp.dim() == 4:
@@ -359,9 +367,91 @@ def quantized_pools(torch, kp, vp, kind):
             torch.stack([x for _, x in ks]), torch.stack([x for _, x in vs]))
 
 
+def ragged_in(torch, case, kind):
+    """A ``*ragged*_case`` with its pools in ``kind`` → (q, k, v, k_scale,
+    v_scale, tables, positions, lens, host arrays)."""
+    q, kp, vp, tables, pos, lens, host = case
+    return (q, *kv_pools(torch, kp, vp, kind), tables, pos, lens, host)
+
+
+def decode_in(torch, case, kind):
+    """A ``*decode_case`` with its pools in ``kind`` → (q, new_k, new_v, k,
+    v, k_scale, v_scale, layer, tables, positions, lens, host lens)."""
+    q, nk, nv, kp, vp, layer, tables, pos, lens, lens_np = case
+    return (q, nk, nv, *kv_pools(torch, kp, vp, kind), layer, tables, pos, lens, lens_np)
+
+
 def raw(torch, t):
     """A tensor's bits, for bit-identity checks (NaN codes included)."""
     return t.view(torch.uint8) if t.element_size() == 1 else t.view(torch.int16)
+
+
+def time_attention(torch, tag, flush, fn, plain_fn, lib_fn, cost):
+    """One attention kernel at one shape: the kernel and the SDPA yardstick
+    call by call (events) and replayed as a CUDA graph, the plain version
+    call by call, the bound of ``cost`` = (bytes, flops) and the kernel's
+    share of it; prints one line. → the kernels-JSON timing keys."""
+    ms, g_ms = time_ms(torch, fn, flush), graph_ms(torch, fn, flush)
+    plain_ms = time_ms(torch, plain_fn, flush, iters=10, warmup=1)
+    lib_ms, lib_g_ms = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
+    nbytes, flops = cost
+    b_ms, by = bound(nbytes, flops)
+    print(f"{tag}: kernel {ms:.4f} ms (as a CUDA graph {g_ms:.4f} ms, {b_ms / g_ms:.1%} of the "
+          f"bound), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (graph {lib_g_ms:.4f} ms), "
+          f"bound {b_ms:.4f} ms ({by}: {nbytes} B, {flops} flop)", flush=True)
+    return {"ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "library_graph_ms": lib_g_ms}
+
+
+def ragged_times(torch, pa, ref, flush, tag, case, kind):
+    """:func:`time_attention` of the ragged kernel on ``ragged_in``'s
+    ``case`` (pools in ``kind``); SDPA runs on the dequantized context."""
+    q, kq, vq, ks, vs, tables, pos, lens, host = case
+    fn = lambda: pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK,  # noqa: E731
+                                           k_scale=ks, v_scale=vs)
+    plain = lambda: ref(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)  # noqa: E731
+    lib = sdpa_call(torch, q, gathered(torch, dequantized(torch, kq, ks), tables),
+                    gathered(torch, dequantized(torch, vq, vs), tables), pos, lens)
+    return time_attention(torch, tag, flush, fn, plain, lib,
+                          ragged_cost(*host, None, *KV_BYTES[kind]))
+
+
+def decode_times(torch, pa, flush, tag, case, kind):
+    """:func:`time_attention` of the fused decode kernel on ``decode_in``'s
+    ``case`` (the plain version writes into copies of the pools), then the
+    kernel as a CUDA graph with each of SPLIT_SWEEP keys a split (one line;
+    the plan the wrapper takes is marked)."""
+    q, nk, nv, kq, vq, ks, vs, layer, tables, pos, lens, lens_np = case
+    sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    kq2, vq2 = kq.clone(), vq.clone()
+    sc2 = {} if ks is None else dict(k_scale=ks.clone(), v_scale=vs.clone())
+    fn = lambda: pa.paged_decode_attention_fused(q, nk, nv, kq, vq, layer, tables,  # noqa: E731
+                                                 pos, lens, BK, **sc)
+    plain = lambda: pa.paged_decode_attention_fused_plain(  # noqa: E731
+        q, nk, nv, kq2, vq2, layer, tables, pos, lens, BK, **sc2)
+    lk = dequantized(torch, kq[layer], None if ks is None else ks[layer])
+    lv = dequantized(torch, vq[layer], None if vs is None else vs[layer])
+    lib = sdpa_call(torch, q, gathered(torch, lk, tables), gathered(torch, lv, tables), pos, lens)
+    del lk, lv
+    m = tables.shape[1]
+    times = time_attention(torch, tag, flush, fn, plain, lib,
+                           decode_cost(lens_np, *KV_BYTES[kind], m=m))
+    del lib, kq2, vq2, sc2
+    plan, sweep = pa.kv_split_plan(m, BK), []
+    for keys in SPLIT_SWEEP:
+        alt = pa.kv_split_plan(m, BK, keys)
+        t = graph_ms(torch, lambda: pa.launch_decode_kernel(
+            q, nk, nv, kq, vq, layer, tables, pos, lens, None, ks, vs, alt), flush)
+        sweep.append(f"{keys} keys {alt} {t:.4f} ms" + (" (the plan)" if alt == plan else ""))
+    print(f"{tag}, keys a split (pages, splits), as a CUDA graph: " + "; ".join(sweep),
+          flush=True)
+    return times
+
+
+def entry(name, source, replaces, launches, max_abs_err, times):
+    """One entry of the kernels JSON line."""
+    return {"name": name, "route": "cuda", "source": SRC + source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, **times}
 
 
 def serving_prompts():
@@ -493,98 +583,39 @@ def compare_forward(torch, tag, cfg, params, kv_dtype, dev):
             raise AssertionError(f"{tag} {name} logits drift beyond the bound: {rel}")
 
 
-def long_shapes(torch, pa, paged_attention_ref, dev, flush, kv_kind, main_launches, src,
-                pallas):
-    """Phase 10 for one pool type: both attention kernels at the long
-    shapes — parity against the plain versions, two calls bitwise equal,
-    the fused write's pools bit-identical to the plain write — then their
-    times (events and CUDA graph), the plain versions', SDPA's and the
-    bounds. In bf16 the ragged kernel is also run and timed with its keys
-    split by the decode plan, and the fused kernel with other split sizes.
-    → the kernels-JSON entries."""
-    suffix = "" if kv_kind == "bf16" else f"[{kv_kind}]"
-    kv_bytes, scale_bytes = {"bf16": (2, 0), "int8": (1, 2), "fp8": (1, 0)}[kv_kind]
-
-    def pools(kp, vp):
-        return (kp, vp, None, None) if kv_kind == "bf16" else quantized_pools(torch, kp, vp,
-                                                                              kv_kind)
-
-    # ---- ragged: 2 chunk rows at 3840-4095 + 6 decode rows, kv 4096
-    q, kp, vp, tables, pos, lens, host = long_ragged_case(torch, dev)
-    kq, vq, ks, vs = pools(kp, vp)
-    del kp, vp
-    fn = lambda: pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK,  # noqa: E731
-                                           k_scale=ks, v_scale=vs)
-    want = paged_attention_ref(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
+def long_parity(torch, pa, ref, kind, rcase, dcase):
+    """Phase 10's checks for one pool type: both kernels at the long shapes
+    against their plain versions with the phase-3/6 tolerances, two calls
+    bitwise equal, pad queries exact zero, the fused write's code and scale
+    pools bit-identical to the plain write. → (ragged, fused) max abs err."""
+    q, kq, vq, ks, vs, tables, pos, lens, _ = rcase
+    want = ref(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
     atol = RAGGED_ATOL
-    if kv_kind == "int8":
+    if kind == "int8":
         atol += BF16_HALF_ULP * float(torch.maximum(
             dequantized(torch, kq, ks).abs().max(), dequantized(torch, vq, vs).abs().max()).item())
-    got, again = fn(), fn()
+    got = pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
+    again = pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     ok, r_err, r_vec = errors(torch, got, want, atol)
     same = bool(torch.equal(raw(torch, got), raw(torch, again)))
     pad_zero = bool((got[pos < 0] == 0).all().item())
-    print(f"[long] ragged {kv_kind} 8x256 round at kv 4096 (M {LONG_M}): max_abs_err "
-          f"{r_err:.3e} max_vector_rel_err {r_vec:.3e} (bound atol {atol:.3e} rtol {RTOL}, "
-          f"vector {VEC_REL}); two calls bitwise equal: {same}; pad queries exact zero: "
-          f"{pad_zero}", flush=True)
-    if not (ok and same and pad_zero):
-        raise AssertionError(f"ragged {kv_kind} kernel disagrees at the long shape")
-    r_ms, r_graph = time_ms(torch, fn, flush), graph_ms(torch, fn, flush)
-    r_plain = time_ms(torch, lambda: paged_attention_ref(q, kq, vq, tables, pos, lens, BK,
-                                                         k_scale=ks, v_scale=vs),
-                      flush, iters=5, warmup=1)
-    del want, got, again
-    lib_fn = sdpa_call(torch, q, gathered(torch, dequantized(torch, kq, ks), tables),
-                       gathered(torch, dequantized(torch, vq, vs), tables), pos, lens)
-    r_lib, r_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
-    del lib_fn
-    rb, rf = ragged_cost(*host, None, kv_bytes, scale_bytes)
-    r_bound, r_by = bound(rb, rf)
-    print(f"[long] ragged {kv_kind}: kernel {r_ms:.4f} ms (as a CUDA graph {r_graph:.4f} ms, "
-          f"{r_bound / r_graph:.1%} of the bound), plain {r_plain:.4f} ms, sdpa {r_lib:.4f} ms "
-          f"(graph {r_lib_graph:.4f} ms), bound {r_bound:.4f} ms ({r_by}: {rb} B, {rf} flop)",
+    print(f"[long] ragged {kind} 8x256 round at kv 4096 (M {LONG_M}): max_abs_err {r_err:.3e} "
+          f"max_vector_rel_err {r_vec:.3e} (bound atol {atol:.3e} rtol {RTOL}, vector "
+          f"{VEC_REL}); two calls bitwise equal: {same}; pad queries exact zero: {pad_zero}",
           flush=True)
-    if kv_kind == "bf16":
-        saved = pa.RAGGED_SPLIT_KEYS
-        pa.RAGGED_SPLIT_KEYS = not saved
-        try:
-            flipped = fn()
-            torch.cuda.synchronize()
-            f_ok = errors(torch, flipped, paged_attention_ref(q, kq, vq, tables, pos, lens, BK),
-                          atol)[0]
-            f_graph = graph_ms(torch, fn, flush)
-        finally:
-            pa.RAGGED_SPLIT_KEYS = saved
-        del flipped
-        plan = pa.kv_split_plan(LONG_M, BK)
-        print(f"[long] ragged bf16 with its keys split by the decode plan {plan} "
-              f"({'on' if not saved else 'off'}): graph {f_graph:.4f} ms, parity {f_ok}; "
-              f"as shipped (RAGGED_SPLIT_KEYS={saved}): graph {r_graph:.4f} ms", flush=True)
-        if not f_ok:
-            raise AssertionError("the split ragged kernel disagrees at the long shape")
-    entries = [{"name": f"ragged_paged_attention{suffix}@long", "route": "cuda",
-                "source": src + "ragged_paged_attention.cu", "replaces": pallas + ":932",
-                "launches": main_launches["ragged_paged_attention"], "max_abs_err": r_err,
-                "ms": r_ms, "graph_ms": r_graph, "plain_ms": r_plain, "bound_ms": r_bound,
-                "bound_by": r_by, "library_ms": r_lib, "library_graph_ms": r_lib_graph}]
-    del q, kq, vq, ks, vs
-    torch.cuda.empty_cache()
+    if not (ok and same and pad_zero):
+        raise AssertionError(f"ragged {kind} kernel disagrees at the long shape")
 
-    # ---- fused decode: 8 active rows at kv 4096
-    q, nk, nv, kp, vp, layer, tables, pos, lens, lens_np = long_decode_case(torch, dev)
-    kq, vq, ks, vs = pools(kp, vp)
-    del kp, vp
+    q, nk, nv, kq, vq, ks, vs, layer, tables, pos, lens, _ = dcase
     kq2, vq2 = kq.clone(), vq.clone()
     sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
     sc2 = {} if ks is None else dict(k_scale=ks.clone(), v_scale=vs.clone())
-    fn = lambda: pa.paged_decode_attention_fused(q, nk, nv, kq, vq, layer, tables,  # noqa: E731
-                                                 pos, lens, BK, **sc)
-    got = fn()[0]
+    got = pa.paged_decode_attention_fused(q, nk, nv, kq, vq, layer, tables, pos, lens, BK, **sc)[0]
     want = pa.paged_decode_attention_fused_plain(q, nk, nv, kq2, vq2, layer, tables, pos, lens,
                                                  BK, **sc2)[0]
-    again = fn()[0]
+    again = pa.paged_decode_attention_fused(q, nk, nv, kq, vq, layer, tables, pos, lens, BK,
+                                            **sc)[0]
     torch.cuda.synchronize()
     ok, d_err, d_vec = errors(torch, got, want, FUSED_ATOL)
     same = bool(torch.equal(raw(torch, got), raw(torch, again)))
@@ -592,48 +623,14 @@ def long_shapes(torch, pa, paged_attention_ref, dev, flush, kv_kind, main_launch
                        and torch.equal(raw(torch, vq), raw(torch, vq2)))
     scales_equal = ks is None or bool(torch.equal(raw(torch, ks), raw(torch, sc2["k_scale"]))
                                       and torch.equal(raw(torch, vs), raw(torch, sc2["v_scale"])))
-    print(f"[long] fused decode {kv_kind} 8 rows at kv 4096 (M {LONG_M}, split plan "
+    print(f"[long] fused decode {kind} 8 rows at kv 4096 (M {LONG_M}, split plan "
           f"{pa.kv_split_plan(LONG_M, BK)}): max_abs_err {d_err:.3e} max_vector_rel_err "
           f"{d_vec:.3e} (bound atol {FUSED_ATOL} rtol {RTOL}, vector {VEC_REL}); two calls "
           f"bitwise equal: {same}; code pools bit-identical after the write: {pools_equal}; "
           f"scale pools bit-identical: {scales_equal}", flush=True)
     if not (ok and same and pools_equal and scales_equal):
-        raise AssertionError(f"fused decode {kv_kind} kernel disagrees at the long shape")
-    d_ms, d_graph = time_ms(torch, fn, flush), graph_ms(torch, fn, flush)
-    d_plain = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(
-        q, nk, nv, kq2, vq2, layer, tables, pos, lens, BK, **sc2), flush, iters=10, warmup=1)
-    lk = dequantized(torch, kq[layer], None if ks is None else ks[layer])
-    lv = dequantized(torch, vq[layer], None if vs is None else vs[layer])
-    lib_fn = sdpa_call(torch, q, gathered(torch, lk, tables), gathered(torch, lv, tables),
-                       pos, lens)
-    del lk, lv
-    d_lib, d_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
-    del lib_fn
-    db, df = decode_cost(lens_np, kv_bytes, scale_bytes, m=LONG_M)
-    d_bound, d_by = bound(db, df)
-    print(f"[long] fused decode {kv_kind}: kernel {d_ms:.4f} ms (as a CUDA graph {d_graph:.4f} "
-          f"ms, {d_bound / d_graph:.1%} of the bound), plain {d_plain:.4f} ms, sdpa "
-          f"{d_lib:.4f} ms (graph {d_lib_graph:.4f} ms), bound {d_bound:.4f} ms ({d_by}: {db} "
-          f"B, {df} flop)", flush=True)
-    if kv_kind == "bf16":
-        # the split size of the plan, against half and twice the keys
-        saved, alt = pa.SPLIT_TARGET_KEYS, {}
-        try:
-            for keys in (saved // 2, saved * 2):
-                pa.SPLIT_TARGET_KEYS = keys
-                alt[keys] = graph_ms(torch, fn, flush)
-        finally:
-            pa.SPLIT_TARGET_KEYS = saved
-        print(f"[long] fused decode bf16 split size: {saved} keys a split (shipped) graph "
-              f"{d_graph:.4f} ms; " + ", ".join(f"{k} keys {v:.4f} ms" for k, v in alt.items()),
-              flush=True)
-    entries.append({"name": f"paged_decode_attention_fused{suffix}@long", "route": "cuda",
-                    "source": src + "paged_decode_fused.cu", "replaces": pallas + ":469",
-                    "launches": main_launches["paged_decode_attention_fused"],
-                    "max_abs_err": d_err, "ms": d_ms, "graph_ms": d_graph,
-                    "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by,
-                    "library_ms": d_lib, "library_graph_ms": d_lib_graph})
-    return entries
+        raise AssertionError(f"fused decode {kind} kernel disagrees at the long shape")
+    return r_err, d_err
 
 
 # ---------------------------------------------------------------- phases
@@ -749,57 +746,20 @@ def main() -> int:
 
     # ---- 5. times at the serving shapes
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    q, kp, vp, tables, pos, lens, host = ragged_round_case(torch, dev)
-    ragged_fn = lambda: pa.ragged_paged_attention(q, kp, vp, tables, pos, lens, BK)  # noqa: E731
-    ragged_ms = time_ms(torch, ragged_fn, flush)
-    ragged_graph = graph_ms(torch, ragged_fn, flush)
-    ragged_plain = time_ms(torch, lambda: paged_attention_ref(q, kp, vp, tables, pos, lens, BK), flush, iters=20)
-    lib_fn = sdpa_call(torch, q, gathered(torch, kp, tables), gathered(torch, vp, tables), pos, lens)
-    ragged_lib = time_ms(torch, lib_fn, flush)
-    ragged_lib_graph = graph_ms(torch, lib_fn, flush)
-    r_bytes, r_flops = ragged_cost(*host, None)
-    r_bound, r_by = bound(r_bytes, r_flops)
-
-    q, nk, nv, kp, vp, layer, tables, pos, lens, lens_np = decode_case(torch, dev)
-    kp2, vp2 = kp.clone(), vp.clone()
-    dec_fn = lambda: pa.paged_decode_attention_fused(  # noqa: E731
-        q, nk, nv, kp, vp, layer, tables, pos, lens, BK)
-    dec_ms = time_ms(torch, dec_fn, flush)
-    dec_graph = graph_ms(torch, dec_fn, flush)
-    dec_plain = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(
-        q, nk, nv, kp2, vp2, layer, tables, pos, lens, BK), flush, iters=20)
-    lib_fn = sdpa_call(torch, q, gathered(torch, kp[layer], tables),
-                       gathered(torch, vp[layer], tables), pos, lens)
-    dec_lib = time_ms(torch, lib_fn, flush)
-    dec_lib_graph = graph_ms(torch, lib_fn, flush)
-    d_bytes, d_flops = decode_cost(lens_np)
-    d_bound, d_by = bound(d_bytes, d_flops)
-    print(f"[times] ragged round 8x256 (Nh 32, Hkv 8, D 128): kernel {ragged_ms:.4f} ms "
-          f"(as a CUDA graph {ragged_graph:.4f} ms, {r_bound / ragged_graph:.1%} of the bound), "
-          f"plain {ragged_plain:.4f} ms, sdpa {ragged_lib:.4f} ms (graph {ragged_lib_graph:.4f} "
-          f"ms), bound {r_bound:.4f} ms ({r_by}: {r_bytes} B, {r_flops} flop)", flush=True)
-    print(f"[times] fused decode 8 rows (kv {lens_np.tolist()}): kernel {dec_ms:.4f} ms "
-          f"(as a CUDA graph {dec_graph:.4f} ms, {d_bound / dec_graph:.1%} of the bound), "
-          f"plain {dec_plain:.4f} ms, sdpa {dec_lib:.4f} ms (graph {dec_lib_graph:.4f} ms), "
-          f"bound {d_bound:.4f} ms ({d_by}: {d_bytes} B, {d_flops} flop)", flush=True)
-
-    src = "distributed_gpu_inference_torch/csrc/"
-    pallas = "distributed_gpu_inference_tpu/ops/paged_attention_pallas.py"
+    rcase = ragged_in(torch, ragged_round_case(torch, dev), "bf16")
+    dcase = decode_in(torch, decode_case(torch, dev), "bf16")
+    r_times = ragged_times(torch, pa, paged_attention_ref, flush,
+                           "[times] ragged round 8x256 (Nh 32, Hkv 8, D 128)", rcase, "bf16")
+    d_times = decode_times(torch, pa, flush,
+                           f"[times] fused decode 8 rows (kv {dcase[-1].tolist()})", dcase, "bf16")
     kernels = [
-        {"name": "ragged_paged_attention", "route": "cuda",
-         "source": src + "ragged_paged_attention.cu", "replaces": pallas + ":932",
-         "launches": launches["ragged_paged_attention"],
-         "max_abs_err": parity["ragged_paged_attention"], "ms": ragged_ms,
-         "graph_ms": ragged_graph, "plain_ms": ragged_plain, "bound_ms": r_bound,
-         "bound_by": r_by, "library_ms": ragged_lib, "library_graph_ms": ragged_lib_graph},
-        {"name": "paged_decode_attention_fused", "route": "cuda",
-         "source": src + "paged_decode_fused.cu", "replaces": pallas + ":469",
-         "launches": launches["paged_decode_attention_fused"],
-         "max_abs_err": parity["paged_decode_attention_fused"], "ms": dec_ms,
-         "graph_ms": dec_graph, "plain_ms": dec_plain, "bound_ms": d_bound, "bound_by": d_by,
-         "library_ms": dec_lib, "library_graph_ms": dec_lib_graph},
+        entry("ragged_paged_attention", "ragged_paged_attention.cu", PALLAS + ":932",
+              launches["ragged_paged_attention"], parity["ragged_paged_attention"], r_times),
+        entry("paged_decode_attention_fused", "paged_decode_fused.cu", PALLAS + ":469",
+              launches["paged_decode_attention_fused"], parity["paged_decode_attention_fused"],
+              d_times),
     ]
-    del flush, q, kp, vp, kp2, vp2
+    del flush, rcase, dcase
     torch.cuda.empty_cache()
 
     # ---- 6. quantized parity at llama3-8b widths
@@ -845,7 +805,7 @@ def main() -> int:
     for kv_kind in ("int8", "fp8"):
         for window in (None, 64):
             q, kp, vp, tables, pos, lens, _ = ragged_round_case(torch, dev, window)
-            kq, vq, ks, vs = quantized_pools(torch, kp, vp, kv_kind)
+            kq, vq, ks, vs = kv_pools(torch, kp, vp, kv_kind)
             got = pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK, window=window,
                                             k_scale=ks, v_scale=vs)
             want = paged_attention_ref(q, kq, vq, tables, pos, lens, BK, window=window,
@@ -887,7 +847,7 @@ def main() -> int:
             nk[0, 0, 0, :4] = torch.tensor([470.0, -500.0, 440.0, 464.0])
         else:
             nk[1, 0, 3, 7] = 60.0                 # one wide value sets row 1's scale
-        kq, vq, ks, vs = quantized_pools(torch, kp, vp, kv_kind)
+        kq, vq, ks, vs = kv_pools(torch, kp, vp, kv_kind)
         kq2, vq2 = kq.clone(), vq.clone()
         ks2 = vs2 = None
         if ks is not None:
@@ -986,7 +946,7 @@ def main() -> int:
 
     # ---- 9. times of the quantized variants
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    qtimes = {}
+    main_launches = {"bf16": launches, "int8": i8_launches, "fp8": f8_launches}
     for mode in ("int8", "fp8"):
         weights = []
         for _, kdim, ndim in LAYER_PROJ:
@@ -1033,80 +993,50 @@ def main() -> int:
         print(f"[qtimes] qmm {mode}: the kernel is at least as fast as the library route up "
               f"to M={measured}; the dispatch bound MAX_KERNEL_ROWS is {qmm.MAX_KERNEL_ROWS} "
               f"(max_batch_size {SERVE_BATCH})", flush=True)
-        qtimes[f"qmm_w8a16[{mode}]"] = (k_ms, kg_ms, p_ms, q_bound, q_by, l_ms, lg_ms)
+        kernels.append(entry(
+            f"qmm_w8a16[{mode}]", "qmm_w8a16.cu", QPALLAS + ":88",
+            main_launches[mode]["qmm_w8a16"], qparity[f"qmm_w8a16[{mode}]"],
+            {"ms": k_ms, "graph_ms": kg_ms, "plain_ms": p_ms, "bound_ms": q_bound,
+             "bound_by": q_by, "library_ms": l_ms, "library_graph_ms": lg_ms}))
         del weights, deq, xs
     if qmm.MAX_KERNEL_ROWS < SERVE_BATCH:
         raise AssertionError("the qmm row bound is below max_batch_size")
 
     for kv_kind in ("int8", "fp8"):
-        kv_bytes, scale_bytes = 1, (2 if kv_kind == "int8" else 0)
-        q, kp, vp, tables, pos, lens, host = ragged_round_case(torch, dev)
-        kq, vq, ks, vs = quantized_pools(torch, kp, vp, kv_kind)
-        r_fn = lambda: pa.ragged_paged_attention(  # noqa: E731
-            q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
-        r_ms, r_graph = time_ms(torch, r_fn, flush), graph_ms(torch, r_fn, flush)
-        r_plain = time_ms(torch, lambda: paged_attention_ref(
-            q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs), flush, iters=20)
-        lib_fn = sdpa_call(torch, q, gathered(torch, dequantized(torch, kq, ks), tables),
-                           gathered(torch, dequantized(torch, vq, vs), tables), pos, lens)
-        r_lib, r_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
-        rb, rf = ragged_cost(*host, None, kv_bytes, scale_bytes)
-        r_b, r_by_q = bound(rb, rf)
-        qtimes[f"ragged_paged_attention[{kv_kind}]"] = (r_ms, r_graph, r_plain, r_b, r_by_q,
-                                                        r_lib, r_lib_graph)
-        print(f"[qtimes] ragged round 8x256 {kv_kind} pools: kernel {r_ms:.4f} ms (as a CUDA "
-              f"graph {r_graph:.4f} ms, {r_b / r_graph:.1%} of the bound), plain "
-              f"{r_plain:.4f} ms, sdpa on dequantized context {r_lib:.4f} ms (graph "
-              f"{r_lib_graph:.4f} ms), bound {r_b:.4f} ms ({r_by_q}: {rb} B, {rf} flop)",
-              flush=True)
-        q, nk, nv, kp, vp, layer, tables, pos, lens, lens_np = decode_case(torch, dev)
-        kq, vq, ks, vs = quantized_pools(torch, kp, vp, kv_kind)
-        kq2, vq2 = kq.clone(), vq.clone()
-        ks2 = vs2 = None
-        if ks is not None:
-            ks2, vs2 = ks.clone(), vs.clone()
-        d_fn = lambda: pa.paged_decode_attention_fused(  # noqa: E731
-            q, nk, nv, kq, vq, layer, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
-        d_ms, d_graph = time_ms(torch, d_fn, flush), graph_ms(torch, d_fn, flush)
-        d_plain = time_ms(torch, lambda: pa.paged_decode_attention_fused_plain(
-            q, nk, nv, kq2, vq2, layer, tables, pos, lens, BK, k_scale=ks2, v_scale=vs2),
-            flush, iters=20)
-        lk = dequantized(torch, kq[layer], None if ks is None else ks[layer])
-        lv = dequantized(torch, vq[layer], None if vs is None else vs[layer])
-        lib_fn = sdpa_call(torch, q, gathered(torch, lk, tables), gathered(torch, lv, tables),
-                           pos, lens)
-        d_lib, d_lib_graph = time_ms(torch, lib_fn, flush), graph_ms(torch, lib_fn, flush)
-        db, df = decode_cost(lens_np, kv_bytes, scale_bytes)
-        d_b, d_by_q = bound(db, df)
-        qtimes[f"paged_decode_attention_fused[{kv_kind}]"] = (d_ms, d_graph, d_plain, d_b,
-                                                              d_by_q, d_lib, d_lib_graph)
-        print(f"[qtimes] fused decode 8 rows {kv_kind} pools: kernel {d_ms:.4f} ms (as a CUDA "
-              f"graph {d_graph:.4f} ms, {d_b / d_graph:.1%} of the bound), plain "
-              f"{d_plain:.4f} ms, sdpa on dequantized context {d_lib:.4f} ms (graph "
-              f"{d_lib_graph:.4f} ms), bound {d_b:.4f} ms ({d_by_q}: {db} B, {df} flop)",
-              flush=True)
+        rcase = ragged_in(torch, ragged_round_case(torch, dev), kv_kind)
+        dcase = decode_in(torch, decode_case(torch, dev), kv_kind)
+        r_times = ragged_times(torch, pa, paged_attention_ref, flush,
+                               f"[qtimes] ragged round 8x256 {kv_kind} pools", rcase, kv_kind)
+        d_times = decode_times(torch, pa, flush, f"[qtimes] fused decode 8 rows {kv_kind} pools",
+                               dcase, kv_kind)
+        for name, source, line, times in (
+                ("ragged_paged_attention", "ragged_paged_attention.cu", ":932", r_times),
+                ("paged_decode_attention_fused", "paged_decode_fused.cu", ":469", d_times)):
+            kernels.append(entry(f"{name}[{kv_kind}]", source, PALLAS + line,
+                                 main_launches[kv_kind][name], qparity[f"{name}[{kv_kind}]"],
+                                 times))
+        del rcase, dcase
 
-    qpallas = "distributed_gpu_inference_tpu/ops/qmm_pallas.py"
-    meta = {"qmm_w8a16": ("qmm_w8a16", "qmm_w8a16.cu", qpallas + ":88"),
-            "ragged_paged_attention": ("ragged_paged_attention", "ragged_paged_attention.cu",
-                                       pallas + ":932"),
-            "paged_decode_attention_fused": ("paged_decode_attention_fused",
-                                             "paged_decode_fused.cu", pallas + ":469")}
-    for variant, (ms, g_ms, plain_ms, bound_ms, bound_by, lib_ms, lib_g_ms) in qtimes.items():
-        base, mode = variant.split("[")
-        mode = mode.rstrip("]")
-        counter, source, replaces = meta[base]
-        main_launches = (i8_launches if mode == "int8" else f8_launches)[counter]
-        kernels.append({"name": variant, "route": "cuda", "source": src + source,
-                        "replaces": replaces, "launches": main_launches,
-                        "max_abs_err": qparity[variant], "ms": ms, "graph_ms": g_ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib_ms, "library_graph_ms": lib_g_ms})
     # ---- 10. both attention kernels at the long shapes, every pool type
-    main_launches = {"bf16": launches, "int8": i8_launches, "fp8": f8_launches}
     for kv_kind in ("bf16", "int8", "fp8"):
-        kernels += long_shapes(torch, pa, paged_attention_ref, dev, flush, kv_kind,
-                               main_launches[kv_kind], src, pallas)
+        suffix = "" if kv_kind == "bf16" else f"[{kv_kind}]"
+        rcase = ragged_in(torch, long_ragged_case(torch, dev), kv_kind)
+        dcase = decode_in(torch, long_decode_case(torch, dev), kv_kind)
+        r_err, d_err = long_parity(torch, pa, paged_attention_ref, kv_kind, rcase, dcase)
+        r_times = ragged_times(torch, pa, paged_attention_ref, flush,
+                               f"[long] ragged {kv_kind} 8x256 round at kv 4096", rcase, kv_kind)
+        d_times = decode_times(torch, pa, flush, f"[long] fused decode {kv_kind} 8 rows at kv 4096",
+                               dcase, kv_kind)
+        kernels += [
+            entry(f"ragged_paged_attention{suffix}@long", "ragged_paged_attention.cu",
+                  PALLAS + ":932", main_launches[kv_kind]["ragged_paged_attention"], r_err,
+                  r_times),
+            entry(f"paged_decode_attention_fused{suffix}@long", "paged_decode_fused.cu",
+                  PALLAS + ":469", main_launches[kv_kind]["paged_decode_attention_fused"], d_err,
+                  d_times),
+        ]
+        del rcase, dcase
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
 

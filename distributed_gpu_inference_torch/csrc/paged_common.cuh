@@ -13,8 +13,8 @@
 // have arrived. int8 scales ([N, Bk] bf16 per layer) are 2 bytes per key and
 // need no alignment: the kernels load them per thread.
 //
-// Partial softmax states. A block that covers only part of a query's keys
-// writes (m, l, acc) in f32: m the running maximum of the scores in the log2
+// Partial softmax states. A block of the fused decode kernel covers one
+// split of a row's keys and writes (m, l, acc) in f32: m the running maximum of the scores in the log2
 // domain (score * D^-0.5 * log2 e), l the sum of exp2(s - m) and acc the
 // unnormalized P.V row. `merge_splits` combines the splits of one (query,
 // head) in split order, so two calls on the same inputs give the same bits.
@@ -191,8 +191,8 @@ __device__ __forceinline__ void visible_range(int p, int kv_len, int window, int
 
 // ------------------------------------------------- merge of partial states
 
-// One block per (query row r, query head h). ws_o is [R, Nh, S, D] and
-// ws_ml [R, Nh, S, 2] (m in the log2 domain, l); split s covers keys
+// One block per (row b, query head h). ws_o is [B, Nh, S, D] and
+// ws_ml [B, Nh, S, 2] (m in the log2 domain, l); split s covers keys
 // [s * split_keys, (s + 1) * split_keys). Only the splits that hold some of
 // the query's visible keys are read — exactly the ones a kernel block wrote
 // for this row — and they are combined in split order. A query with no
@@ -200,15 +200,15 @@ __device__ __forceinline__ void visible_range(int p, int kv_len, int window, int
 template <int D>
 __global__ void __launch_bounds__(128)
 merge_splits(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
-             const int* __restrict__ positions,   // [R] (row r = b * S_q + t)
+             const int* __restrict__ positions,   // [B]
              const int* __restrict__ kv_lens,     // [B]
-             bf16* __restrict__ out,              // [R, Nh, D]
-             int S_q, int Nh, int n_splits, int split_keys, int window) {
+             bf16* __restrict__ out,              // [B, Nh, D]
+             int Nh, int n_splits, int split_keys, int window) {
   const int r = blockIdx.x;
   const int h = blockIdx.y;
   const int p = positions[r];
   int lo = 0, hi = 0;
-  if (p >= 0) visible_range(p, kv_lens[r / S_q], window, &lo, &hi);
+  if (p >= 0) visible_range(p, kv_lens[r], window, &lo, &hi);
   bf16* o = out + ((size_t)r * Nh + h) * D;
   if (p < 0 || hi <= lo) {
     for (int d = threadIdx.x; d < D; d += blockDim.x) o[d] = __float2bfloat16(0.f);
@@ -233,10 +233,10 @@ merge_splits(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
 
 template <int D>
 int launch_merge(const float* ws_o, const float* ws_ml, const int* positions, const int* kv_lens,
-                 bf16* out, int R, int S_q, int Nh, int n_splits, int split_keys, int window,
+                 bf16* out, int B, int Nh, int n_splits, int split_keys, int window,
                  cudaStream_t stream) {
-  merge_splits<D><<<dim3(R, Nh), 128, 0, stream>>>(ws_o, ws_ml, positions, kv_lens, out, S_q,
-                                                    Nh, n_splits, split_keys, window);
+  merge_splits<D><<<dim3(B, Nh), 128, 0, stream>>>(ws_o, ws_ml, positions, kv_lens, out, Nh,
+                                                    n_splits, split_keys, window);
   return (int)cudaGetLastError();
 }
 

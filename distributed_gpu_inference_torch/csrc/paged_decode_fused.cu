@@ -19,10 +19,12 @@
 // combines the splits.
 // - The split plan comes from the host (ops/paged_attention.py
 //   `kv_split_plan`, from the table width M and Bk only): split s covers the
-//   whole pages [s * P, (s + 1) * P), 256 keys at Bk 16. At the llama3-8b
-//   serving batch (8 rows x 8 kv heads) a 4096-key row gives 16 splits:
-//   1024 blocks on 132 SMs. A split outside the row's visible range [lo, hi)
-//   exits at once and the merge never reads it.
+//   whole pages [s * P, (s + 1) * P), 16 splits a row of 64 to 256 keys
+//   each. At the llama3-8b serving batch (8 rows x 8 kv heads) a 4096-key
+//   table gives 16 splits of 256 keys: 1024 blocks on 132 SMs; a 1024-key
+//   table 16 of 64, so that rows of a few hundred keys still spread over
+//   the card. A split outside the row's visible range [lo, hi) exits at
+//   once and the merge never reads it.
 // - A block takes up to 16 query heads of its kv head's group as one m16
 //   row tile (llama3-8b: 4 real rows, the rest zero); a wider group is
 //   spread over grid.y.
@@ -515,7 +517,7 @@ int launch(const bf16* q, const bf16* new_k, const bf16* new_v, T* kpool, T* vpo
       scale * paged::kLog2e);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return paged::launch_merge<D>(ws_o, ws_ml, positions, kv_lens, out, B, 1, Nh, n_splits,
+  return paged::launch_merge<D>(ws_o, ws_ml, positions, kv_lens, out, B, Nh, n_splits,
                                 pages_per_split * Bk, window, stream);
 }
 

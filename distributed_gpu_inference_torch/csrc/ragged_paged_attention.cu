@@ -14,7 +14,7 @@
 // the online softmax run in f32 with scale D^-0.5; a query with no visible
 // key outputs exact zeros.
 //
-// Design. Grid = (row x query tile, kv head, key split). A block holds the
+// Design. Grid = (row x query tile, kv head). A block holds the
 // qpk * Tq queries that share kv head g (query head h reads kv head h / qpk)
 // as a 64 x D bf16 tile: row r is query position t0 + r / qpk of head
 // g * qpk + r % qpk; each of the 4 warps owns 16 rows. A tile whose queries
@@ -43,14 +43,13 @@
 //   accumulator O stays in registers for the whole walk. At D <= 128 the
 //   queries' A fragments are loaded once into registers; at D = 256 they
 //   are re-read from shared memory.
-// - Key splits: with n_splits > 1 (ops/paged_attention.py
-//   RAGGED_SPLIT_KEYS), split s covers keys [s * P * Bk, (s + 1) * P * Bk)
-//   of the decode kernel's plan; each block writes its partial (m, l, O) in
-//   f32 and paged::merge_splits combines them in split order (bitwise
-//   repeatable). Off: at the long round (8 x 256, 4096-key rows) the split
-//   is slower (0.4189 against 0.4059 ms as CUDA graphs, chip_smoke.py
-//   phase 10, H100 80GB HBM3 at 700 W), the f32 partial states of every
-//   64-row tile costing more than the extra parallelism gains.
+// - No key split: a block walks all of its tile's keys. Splitting them by
+//   the decode kernel's plan (16 splits of 256 keys, each block writing its
+//   partial (m, l, O) in f32 for a merge launch) was timed at the long
+//   round (8 x 256, 4096-key rows) and was slower: 0.4189 / 0.4211 against
+//   0.4059 / 0.4058 ms as CUDA graphs (chip_smoke.py phase 10 on that
+//   version, H100 80GB HBM3 at 700 W) — the f32 partial states of every
+//   64-row tile cost more than the extra parallelism gains.
 // Why mma.sync and not wgmma: at the timed serving round the work is
 // ~2.9 GFLOP (3 us at 989 TFLOP/s) against a 9.3 us byte bound; at the long
 // round 34 GFLOP (0.034 ms) against a 0.046 ms byte bound. wgmma's 64-row
@@ -62,7 +61,7 @@
 // (a prefill chunk's tiles re-read the same pages, mostly from L2) and of
 // q/out; at long contexts the tensor-core work of the chunk rows comes
 // close. Resources (`nvcc -Xptxas -v`, sm_90a, CUDA 12.8; the smoke run
-// prints them): at D = 128, 164-167 registers and 70,784 bytes of shared
+// prints them): at D = 128, 166-167 registers and 70,784 bytes of shared
 // memory per block over a bf16 pool (queries 17,408 + a 3-stage K/V ring
 // 52,224 + scales and positions), 60,544 over an int8/fp8 pool (a 3-stage
 // ring of codes 24,576 + one bf16 K/V buffer 17,408): 3 blocks an SM, no
@@ -113,11 +112,9 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
               const int* __restrict__ tables,      // [B, M]
               const int* __restrict__ positions,   // [B, S]
               const int* __restrict__ kv_lens,     // [B]
-              bf16* __restrict__ out,              // [B, S, Nh, D] (n_splits == 1)
-              float* __restrict__ ws_o,            // [B * S, Nh, n_splits, D] (n_splits > 1)
-              float* __restrict__ ws_ml,           // [B * S, Nh, n_splits, 2]
+              bf16* __restrict__ out,              // [B, S, Nh, D]
               int S, int Nh, int Hkv, int Bk, int M, int qtiles, int Tq, int window,
-              int pages_per_split, int n_splits, float scale_log2) {
+              float scale_log2) {
   using L = Layout<D, T>;
   constexpr int DP = L::DP;
   constexpr bool kConv = L::kConv;
@@ -138,13 +135,11 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
   const int b = blockIdx.x / qtiles;
   const int t0 = (blockIdx.x % qtiles) * Tq;
   const int g = blockIdx.y;
-  const int split = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int kv_len = kv_lens[b];
   const int* table = tables + (size_t)b * M;
-  const bool split_mode = n_splits > 1;
 
   if (tid == 0) {
     sRed[0] = 0x7fffffff;   // min valid query position
@@ -164,23 +159,17 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
   __syncthreads();
   const int qmin = sRed[0];
   const int qmax = sRed[1];
-  const int lo = (window > 0) ? max(0, qmin - window + 1) : 0;
-  const int hi = min(qmax + 1, kv_len);
-  const int split_keys = pages_per_split * Bk;
-  const int klo = max(lo, split * split_keys);
-  const int khi = (split == n_splits - 1) ? hi : min(hi, (split + 1) * split_keys);
+  const int klo = (window > 0) ? max(0, qmin - window + 1) : 0;
+  const int khi = min(qmax + 1, kv_len);
 
   if (qmax < 0 || khi <= klo) {
-    // no key of this split for the tile: with splits the merge reads no
-    // state of it; without, every real query row of the tile is zero
-    if (!split_mode) {
-      for (int i = tid; i < kQRows * D; i += kThreads) {
-        const int r = i / D;
-        const int t = r / qpk;
-        if (t >= Tq || t0 + t >= S) continue;
-        out[((size_t)(b * S + t0 + t) * Nh + g * qpk + r % qpk) * D + i % D] =
-            __float2bfloat16(0.f);
-      }
+    // no key for the tile: every real query row of it is zero
+    for (int i = tid; i < kQRows * D; i += kThreads) {
+      const int r = i / D;
+      const int t = r / qpk;
+      if (t >= Tq || t0 + t >= S) continue;
+      out[((size_t)(b * S + t0 + t) * Nh + g * qpk + r % qpk) * D + i % D] =
+          __float2bfloat16(0.f);
     }
     return;
   }
@@ -395,7 +384,7 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
     }
   }
 
-  // ---- emit: normalized rows, or this split's partial state
+  // ---- emit the normalized rows
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float lf = l[hf];
@@ -404,28 +393,13 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
     const int r = r0 + gq + hf * 8;
     const int t = r / qpk;
     if (t >= Tq || t0 + t >= S) continue;
-    const size_t row = (size_t)(b * S + t0 + t) * Nh + g * qpk + r % qpk;
-    if (split_mode) {
-      if (prow[hf] < 0) continue;   // the merge writes pad queries' zeros
-      float* wo = ws_o + (row * n_splits + split) * D;
+    // l == 0: pad queries and windows that exclude every key -> exact zeros
+    const float inv = lf > 0.f ? 1.f / lf : 0.f;
+    bf16* orow = out + ((size_t)(b * S + t0 + t) * Nh + g * qpk + r % qpk) * D;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<float2*>(wo + n * 8 + 2 * t4) =
-            make_float2(o[n][hf * 2], o[n][hf * 2 + 1]);
-      }
-      if (t4 == 0) {
-        ws_ml[(row * n_splits + split) * 2] = m[hf];
-        ws_ml[(row * n_splits + split) * 2 + 1] = lf;
-      }
-    } else {
-      // l == 0: pad queries and windows that exclude every key -> exact zeros
-      const float inv = lf > 0.f ? 1.f / lf : 0.f;
-      bf16* orow = out + row * D;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
-            __floats2bfloat162_rn(o[n][hf * 2] * inv, o[n][hf * 2 + 1] * inv);
-      }
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(o[n][hf * 2] * inv, o[n][hf * 2 + 1] * inv);
     }
   }
 }
@@ -433,8 +407,8 @@ ragged_kernel(const bf16* __restrict__ q,          // [B, S, Nh, D]
 template <int D, typename T>
 int launch(const bf16* q, const T* kpool, const T* vpool, const bf16* kscale,
            const bf16* vscale, const int* tables, const int* positions, const int* kv_lens,
-           bf16* out, float* ws_o, float* ws_ml, int B, int S, int Nh, int Hkv, int Bk, int M,
-           int window, int pages_per_split, int n_splits, float scale, cudaStream_t stream) {
+           bf16* out, int B, int S, int Nh, int Hkv, int Bk, int M, int window, float scale,
+           cudaStream_t stream) {
   const int qpk = Nh / Hkv;
   const int Tq = kQRows / qpk;
   const int qtiles = (S + Tq - 1) / Tq;
@@ -444,25 +418,19 @@ int launch(const bf16* q, const T* kpool, const T* vpool, const bf16* kscale,
         ragged_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  ragged_kernel<D, T><<<dim3(B * qtiles, Hkv, n_splits), kThreads, smem, stream>>>(
-      q, kpool, vpool, kscale, vscale, tables, positions, kv_lens, out, ws_o, ws_ml, S, Nh, Hkv,
-      Bk, M, qtiles, Tq, window, pages_per_split, n_splits, scale * paged::kLog2e);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
-  return paged::launch_merge<D>(ws_o, ws_ml, positions, kv_lens, out, B * S, S, Nh, n_splits,
-                                pages_per_split * Bk, window, stream);
+  ragged_kernel<D, T><<<dim3(B * qtiles, Hkv), kThreads, smem, stream>>>(
+      q, kpool, vpool, kscale, vscale, tables, positions, kv_lens, out, S, Nh, Hkv, Bk, M, qtiles,
+      Tq, window, scale * paged::kLog2e);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
              const void* v_scale, const int32_t* tables, const int32_t* positions,
              const int32_t* kv_lens, void* out, int B, int S, int Nh, int Hkv, int D, int Bk,
-             int M, int window, float scale, void* ws_o, void* ws_ml, int pages_per_split,
-             int n_splits, void* stream) {
+             int M, int window, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || Nh % Hkv != 0 || Nh / Hkv > kQRows || Bk <= 0 || M <= 0 ||
-      pages_per_split <= 0 || n_splits <= 0 || (long)pages_per_split * n_splits < M ||
-      (n_splits > 1 && (ws_o == nullptr || ws_ml == nullptr))) {
+  if (Hkv <= 0 || Nh % Hkv != 0 || Nh / Hkv > kQRows || Bk <= 0 || M <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const bf16* qq = static_cast<const bf16*>(q);
@@ -471,19 +439,17 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
   const bf16* ks = static_cast<const bf16*>(k_scale);
   const bf16* vs = static_cast<const bf16*>(v_scale);
   bf16* o = static_cast<bf16*>(out);
-  float* wo = static_cast<float*>(ws_o);
-  float* wml = static_cast<float*>(ws_ml);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B, S, Nh,
-                           Hkv, Bk, M, window, pages_per_split, n_splits, scale, st);
+      return launch<64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh, Hkv,
+                           Bk, M, window, scale, st);
     case 128:
-      return launch<128, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B, S,
-                            Nh, Hkv, Bk, M, window, pages_per_split, n_splits, scale, st);
+      return launch<128, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh, Hkv,
+                            Bk, M, window, scale, st);
     case 256:
-      return launch<256, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B, S,
-                            Nh, Hkv, Bk, M, window, pages_per_split, n_splits, scale, st);
+      return launch<256, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh, Hkv,
+                            Bk, M, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -494,25 +460,20 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
 // C entry points (loaded with ctypes), one per pool element type. All
 // tensors contiguous on the current device; `k_scale`/`v_scale` are the
 // layer's [N, Bk] bf16 scale pools of an int8 pool and null otherwise;
-// `window` <= 0 means full causal attention. With `n_splits` > 1 the keys
-// are split `pages_per_split` pages a split and `ws_o` ([B * S, Nh,
-// n_splits, D] f32) / `ws_ml` ([B * S, Nh, n_splits, 2] f32) hold the
-// partial states (a second launch merges them); with one split both may be
-// null. Returns the CUDA error code of the launches (0 = success); the
-// kernels run on `stream` and do not synchronise.
+// `window` <= 0 means full causal attention. Returns the CUDA error code of
+// the launch (0 = success); the kernel runs on `stream` and does not
+// synchronise.
 #define RAGGED_ENTRY(NAME, T, NEEDS_SCALE)                                                     \
   extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool,                 \
                       const void* k_scale, const void* v_scale, const int32_t* tables,       \
                       const int32_t* positions, const int32_t* kv_lens, void* out, int B,    \
                       int S, int Nh, int Hkv, int D, int Bk, int M, int window, float scale, \
-                      void* ws_o, void* ws_ml, int pages_per_split, int n_splits,            \
                       void* stream) {                                                        \
     if (NEEDS_SCALE != (k_scale != nullptr && v_scale != nullptr)) {                         \
       return (int)cudaErrorInvalidValue;                                                     \
     }                                                                                        \
     return dispatch<T>(q, k_pool, v_pool, k_scale, v_scale, tables, positions, kv_lens, out, \
-                       B, S, Nh, Hkv, D, Bk, M, window, scale, ws_o, ws_ml, pages_per_split, \
-                       n_splits, stream);                                                    \
+                       B, S, Nh, Hkv, D, Bk, M, window, scale, stream);                      \
   }
 
 RAGGED_ENTRY(ragged_paged_attention_bf16, bf16, false)

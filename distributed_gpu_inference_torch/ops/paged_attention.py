@@ -58,8 +58,7 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P,                    # q, k, v, k_scale, v_scale
          _P, _P, _P, _P,                        # tables, pos, lens, out
          _I, _I, _I, _I, _I, _I, _I, _I,        # B, S, Nh, Hkv, D, Bk, M, window
-         ctypes.c_float, _P, _P, _I, _I,        # scale, ws_o, ws_ml, pages/split, splits
-         _P]                                    # stream
+         ctypes.c_float, _P]                    # scale, stream
     ),
     "paged_decode_fused": (
         [_P, _P, _P, _P, _P, _P, _P,            # q, new_k, new_v, kpool, vpool,
@@ -129,28 +128,34 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 # Key-split plan
 # --------------------------------------------------------------------------
 
-# keys a split aims at: a 4096-key row gives 16 splits, so the llama3-8b
-# serving batch (8 rows x 8 kv heads) makes 1024 blocks on 132 SMs, and a
-# split still walks 8 chunks of its copy ring (chip_smoke.py phase 10 times
-# half and twice this size at 4096-key rows; PERF.md keeps the numbers)
-SPLIT_TARGET_KEYS = 256
-# whether the ragged kernel splits its keys too (the fused decode kernel
-# always does): timed both ways at the long round by chip_smoke.py phase 10
-# and slower split (PERF.md) — each split writes f32 partial states of all
-# 64 query rows of a tile
-RAGGED_SPLIT_KEYS = False
+# splits a row aims at, and the keys a split holds at least and at most: a
+# 4096-key table gives 16 splits of 256 keys (the llama3-8b serving batch,
+# 8 rows x 8 kv heads, makes 1024 blocks on 132 SMs), a 1024-key table 16
+# of 64 keys, and wider tables splits of 256 keys. chip_smoke.py times 64
+# to 512 keys a split at both widths through launch_decode_kernel (PERF.md
+# keeps the numbers: at each width its size here was the fastest or within
+# 4% of it)
+SPLITS_PER_ROW = 16
+SPLIT_KEYS_RANGE = (64, 256)
 
 
-def kv_split_plan(max_blocks: int, block_size: int) -> Tuple[int, int]:
+def kv_split_plan(max_blocks: int, block_size: int,
+                  target_keys: Optional[int] = None) -> Tuple[int, int]:
     """(pages per split, number of splits) for block tables of width
     ``max_blocks`` and pages of ``block_size`` keys. Split s covers the
     whole pages [s * P, (s + 1) * P) of every row, i.e. keys [s * P * Bk,
     (s + 1) * P * Bk); the splits cover all ``max_blocks`` table entries.
+    A split aims at the table's keys over SPLITS_PER_ROW, kept within
+    SPLIT_KEYS_RANGE (``target_keys`` sets another aim, for measurements).
     A function of the two shapes alone: it reads no tensor, so a captured
     CUDA graph replays the same plan."""
-    if max_blocks < 1 or block_size < 1:
-        raise ValueError(f"kv_split_plan: table width {max_blocks}, block {block_size}")
-    pages = min(max_blocks, -(-SPLIT_TARGET_KEYS // block_size))
+    if target_keys is None:
+        lo, hi = SPLIT_KEYS_RANGE
+        target_keys = min(max(max_blocks * block_size // SPLITS_PER_ROW, lo), hi)
+    if max_blocks < 1 or block_size < 1 or target_keys < 1:
+        raise ValueError(f"kv_split_plan: table width {max_blocks}, block {block_size}, "
+                         f"{target_keys} keys a split")
+    pages = min(max_blocks, -(-target_keys // block_size))
     return pages, -(-max_blocks // pages)
 
 
@@ -206,17 +211,11 @@ def ragged_paged_attention(
                    ("kv_lens", kv_lens)):
         _require(t.dtype == torch.int32, f"{name}: {key} must be int32, got {t.dtype}")
     out = torch.empty_like(q)
-    pages, splits = kv_split_plan(m, bk) if RAGGED_SPLIT_KEYS else (m, 1)
-    ws_o = ws_ml = None
-    if splits > 1:
-        ws_o = torch.empty((b * s, nh, splits, d), dtype=torch.float32, device=q.device)
-        ws_ml = torch.empty((b * s, nh, splits, 2), dtype=torch.float32, device=q.device)
     err = _kernel(name, k_pool.dtype)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         block_tables.data_ptr(), positions.data_ptr(), kv_lens.data_ptr(),
         out.data_ptr(), b, s, nh, hkv, d, bk, m,
         int(window) if window is not None else 0, d ** -0.5,
-        _ptr(ws_o), _ptr(ws_ml), pages, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(name, err)
@@ -320,8 +319,27 @@ def paged_decode_attention_fused(
     for key, t in (("block_tables", block_tables), ("positions", positions),
                    ("kv_lens", kv_lens)):
         _require(t.dtype == torch.int32, f"{name}: {key} must be int32, got {t.dtype}")
+    out = launch_decode_kernel(q, new_k, new_v, k_pool, v_pool, layer_idx, block_tables,
+                               positions, kv_lens, window, k_scale, v_scale,
+                               kv_split_plan(m, bk))
+    return out, k_pool, v_pool
+
+
+paged_decode_attention_fused.launches = 0
+
+
+def launch_decode_kernel(q, new_k, new_v, k_pool, v_pool, layer_idx, block_tables, positions,
+                         kv_lens, window, k_scale, v_scale,
+                         plan: Tuple[int, int]) -> torch.Tensor:
+    """Launch ``csrc/paged_decode_fused.cu`` on operands that
+    :func:`paged_decode_attention_fused` has checked, with the split plan
+    ``(pages per split, splits)`` (the wrapper passes :func:`kv_split_plan`;
+    ``chip_smoke.py`` also times other plans). Counts one launch of
+    ``paged_decode_attention_fused``. → attn [B, 1, Nh, D]."""
+    b, _, nh, d = q.shape
+    nl, n, hkv, bk, _ = k_pool.shape
+    pages, splits = plan
     out = torch.empty_like(q)
-    pages, splits = kv_split_plan(m, bk)
     ws_o = torch.empty((b, nh, splits, d), dtype=torch.float32, device=q.device)
     ws_ml = torch.empty((b, nh, splits, 2), dtype=torch.float32, device=q.device)
     err = _kernel("paged_decode_fused", k_pool.dtype)(
@@ -329,17 +347,14 @@ def paged_decode_attention_fused(
         k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         block_tables.data_ptr(),
         positions.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        b, nh, hkv, d, nl, n, bk, m, int(layer_idx),
+        b, nh, hkv, d, nl, n, bk, block_tables.shape[1], int(layer_idx),
         int(window) if window is not None else 0, d ** -0.5,
         ws_o.data_ptr(), ws_ml.data_ptr(), pages, splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on_error(name, err)
+    _raise_on_error("paged_decode_attention_fused", err)
     paged_decode_attention_fused.launches += 1
-    return out, k_pool, v_pool
-
-
-paged_decode_attention_fused.launches = 0
+    return out
 
 
 KERNEL_WRAPPERS = (ragged_paged_attention, paged_decode_attention_fused, qmm_w8a16)

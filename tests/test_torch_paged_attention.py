@@ -263,6 +263,19 @@ def test_split_plan_covers_every_key_once_page_aligned(block, max_blocks):
                     for i in range(block)} == {holders[0]}
 
 
+@pytest.mark.parametrize("max_blocks,block,plan", [
+    (64, 16, (4, 16)),       # 1024-key tables: 16 splits of 64 keys
+    (256, 16, (16, 16)),     # 4096-key tables: 16 splits of 256 keys
+    (2048, 16, (16, 128)),   # wider tables keep 256 keys a split
+    (3, 16, (3, 1)),         # a table narrower than 64 keys is one split
+])
+def test_split_plan_takes_its_size_from_the_table_width(max_blocks, block, plan):
+    assert tpa.kv_split_plan(max_blocks, block) == plan
+    # an explicit aim (chip_smoke.py times other sizes) overrides the width
+    assert tpa.kv_split_plan(max_blocks, block, 512) == (
+        min(max_blocks, 512 // block), -(-max_blocks // min(max_blocks, 512 // block)))
+
+
 def _split_states(q, kp, vp, table, lo, hi, pages, block):
     """Per-split (m, l, acc) of one query row [Nh, D] over keys [lo, hi),
     in f32 natural-log form — the states a kernel block writes."""
