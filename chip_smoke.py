@@ -11,8 +11,9 @@ non-zero):
    gives them;
 2. build — compiles the port's CUDA kernels from
    ``distributed_gpu_inference_torch/csrc`` with nvcc (one process per
-   source, in parallel) and prints the build seconds and ptxas' resource
-   lines;
+   source, and per geometry variant of the quantized matmul that phase 9
+   sweeps, all in parallel) and prints the build seconds and ptxas'
+   resource lines;
 3. kernel parity at llama3-8b widths (Nh 32, Hkv 8, D 128, Bk 16, bf16):
    each kernel against its plain PyTorch version on the card;
 4. serving — ``TorchLLMEngine`` for llama3-8b at full depth in bf16 with
@@ -34,10 +35,11 @@ Quantized serving (int8 / fp8 weights through the W8A16 kernel, int8 / fp8
 KV pools through both attention kernels):
 
 6. quantized parity at llama3-8b widths — the quantized matmul (int8 and
-   fp8 codes) at every projection shape at M = 8 and at the row bound, all
-   32 layers' indexing on one shape; the ragged and fused kernels over int8
-   and fp8 pools, with code and scale pools bit-identical after the fused
-   write and the negative control on the int8 paths;
+   fp8 codes) at every projection shape at M in {1, 8, 40} and at the row
+   bound, all 32 layers' indexing on one shape; the ragged and fused
+   kernels over int8 and fp8 pools, with code and scale pools
+   bit-identical after the fused write and the negative control on the
+   int8 paths;
 7. int8 serving — ``TorchLLMEngine`` loads llama3-8b (full depth) with
    ``quantization="int8"`` and ``kv_cache_dtype="int8"`` and serves the
    same 8 requests plus the prefix hit; the launch counters of all three
@@ -49,9 +51,13 @@ KV pools through both attention kernels):
    before, read after);
 9. times — the quantized matmul for one layer's seven projections at M = 8
    against its plain version and ``torch.matmul`` on the pre-dequantized
-   bf16 weights; the kernel against the library route at M in {8, ...,
-   256}, which sets the dispatch bound; the int8 and fp8 attention variants
-   timed as in phase 5.
+   bf16 weights; each projection call by call and as a CUDA graph with its
+   share of the bound; the seven twice (bitwise equal) and replayed from a
+   graph (bitwise equal to the eager calls); the seven as a graph at each
+   ring depth x stage height of QMM_SWEEP (the build's marked); the kernel
+   against the library route at M in {8, ..., 256}, which sets the
+   dispatch bound; the int8 and fp8 attention variants timed as in phase
+   5.
 
 10. long shapes at llama3-8b widths with 4096-key rows (block tables of
     width 256), for bf16, int8 and fp8 pools: a ragged 8 x 256 round (2
@@ -114,6 +120,10 @@ LONG_M = 256                # table width of the long shapes: 4096 keys a row
 KV_BYTES = {"bf16": (2, 0), "int8": (1, 2), "fp8": (1, 0)}
 # keys a split of the fused decode kernel, timed against its plan's
 SPLIT_SWEEP = (64, 128, 256, 512)
+# compile-time geometry of the quantized matmul timed against its build's
+# (ring stages, K rows a stage): the sweep that chose the defaults
+QMM_SWEEP = ((2, 64), (3, 64), (4, 64), (6, 64), (2, 128), (3, 128))
+QMM_ROWS = (1, 8, 40)       # parity rows below the row bound (which is checked too)
 SRC = "distributed_gpu_inference_torch/csrc/"
 PALLAS = "distributed_gpu_inference_tpu/ops/paged_attention_pallas.py"
 QPALLAS = "distributed_gpu_inference_tpu/ops/qmm_pallas.py"
@@ -448,6 +458,24 @@ def decode_times(torch, pa, flush, tag, case, kind):
     return times
 
 
+def qmm_repeat(torch, qmm, xs, weights):
+    """One layer's projections (``weights`` [(codes, scale)], inputs ``xs``
+    by K) twice, and replayed from a captured CUDA graph: (two calls
+    bitwise equal, the replay bitwise equal to the eager call)."""
+    def run():
+        return [qmm.launch_kernel(xs[qw.shape[1]], qw, sc) for qw, sc in weights]
+
+    first, second = run(), run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = lambda a, b: all(torch.equal(raw(torch, u), raw(torch, v))  # noqa: E731
+                            for u, v in zip(a, b))
+    return same(first, second), same(first, captured)
+
+
 def entry(name, source, replaces, launches, max_abs_err, times):
     """One entry of the kernels JSON line."""
     return {"name": name, "route": "cuda", "source": SRC + source, "replaces": replaces,
@@ -665,8 +693,11 @@ def main() -> int:
           f"nvidia-smi: {smi}", flush=True)
 
     # ---- 2. build
-    secs = _build.build()
-    print(f"[build] kernels built in {secs:.1f} s", flush=True)
+    qmm_variants = [(("QMM_STAGES", st), ("QMM_BK", bk)) for st, bk in QMM_SWEEP
+                    if (st, bk) != qmm.GEOMETRY[:2]]
+    secs = _build.build(list(_build.KERNEL_SOURCES) + [("qmm_w8a16", v) for v in qmm_variants])
+    print(f"[build] kernels built in {secs:.1f} s (with {len(qmm_variants)} geometry variants "
+          f"of qmm_w8a16 for phase 9's sweep)", flush=True)
     for name in _build.KERNEL_SOURCES:
         log = _build.build_log_path(name)
         if log.is_file():
@@ -770,7 +801,7 @@ def main() -> int:
         for kdim, ndim in PROJ_SHAPES:
             w = torch.randn((1, kdim, ndim), generator=g, device=dev) * kdim ** -0.5
             qw = quantize_weight(w, mode)
-            for m in (8, qmm.MAX_KERNEL_ROWS):
+            for m in QMM_ROWS + (qmm.MAX_KERNEL_ROWS,):
                 x = torch.randn((m, kdim), generator=g, device=dev).to(torch.bfloat16)
                 got = qmm.launch_kernel(x, qw["qw"], qw["scale"])
                 want = qmm.qmm_plain(x, qw["qw"], qw["scale"])
@@ -976,12 +1007,29 @@ def main() -> int:
               f"CUDA graph (no host launch gaps): kernel {kg_ms:.4f} ms, torch.matmul "
               f"{lg_ms:.4f} ms", flush=True)
         for (name, kdim, ndim), (qw, sc) in zip(LAYER_PROJ, weights):
-            if name in ("wq", "wk", "w_gate", "w_down"):
-                one = time_ms(torch, lambda: qmm.launch_kernel(xs[SERVE_BATCH][kdim], qw, sc),
-                              flush)
-                b1, f1 = qmm_cost(SERVE_BATCH, [(kdim, ndim)])
-                print(f"[qtimes] qmm {mode} {name} K={kdim} N={ndim} M={SERVE_BATCH}: kernel "
-                      f"{one:.4f} ms, bound {bound(b1, f1)[0]:.4f} ms", flush=True)
+            one = lambda: qmm.launch_kernel(xs[SERVE_BATCH][kdim], qw, sc)  # noqa: E731
+            e1, g1 = time_ms(torch, one, flush), graph_ms(torch, one, flush)
+            b1 = bound(*qmm_cost(SERVE_BATCH, [(kdim, ndim)]))[0]
+            print(f"[qtimes] qmm {mode} {name} K={kdim} N={ndim} M={SERVE_BATCH} (plan "
+                  f"{qmm.split_plan(SERVE_BATCH, kdim, ndim)}): kernel {e1:.4f} ms, as a CUDA "
+                  f"graph {g1:.4f} ms = {b1 / g1:.1%} of the bound {b1:.4f} ms", flush=True)
+        repeat_ok, graph_ok = qmm_repeat(torch, qmm, xs[SERVE_BATCH], weights)
+        print(f"[qtimes] qmm {mode}: one layer's 7 projections at M={SERVE_BATCH} twice: bitwise "
+              f"equal {repeat_ok}; a CUDA-graph replay equal to the eager calls: {graph_ok}",
+              flush=True)
+        if not (repeat_ok and graph_ok):
+            raise AssertionError(f"qmm {mode} is not bitwise repeatable")
+        sweep = []
+        for stages, rows in QMM_SWEEP:
+            variant = () if (stages, rows) == qmm.GEOMETRY[:2] else (
+                ("QMM_STAGES", stages), ("QMM_BK", rows))
+            t = graph_ms(torch, lambda: [qmm.launch_kernel(
+                xs[SERVE_BATCH][qw.shape[1]], qw, sc, variant=variant) for qw, sc in weights],
+                flush)
+            sweep.append(f"{stages} x {rows} rows {t:.4f} ms" + (" (the build)" if not variant
+                                                                 else ""))
+        print(f"[qtimes] qmm {mode}, one layer's 7 projections at M={SERVE_BATCH} as a CUDA graph "
+              f"by ring stages x K rows a stage: " + "; ".join(sweep), flush=True)
         measured = 0
         for m in BOUND_ROWS:
             km = time_ms(torch, layer_calls(qmm.launch_kernel, m), flush)

@@ -5,8 +5,11 @@ into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds, not minutes). Libraries land in ``build/kernels/`` at
 the root of the checkout — a directory ``.gitignore`` lists — under a name
 that carries a hash of the sources and flags, so an edited kernel is
-rebuilt and an unchanged one is reused. Nothing here runs at import time:
-the CPU tests import every module on a machine with no ``nvcc``.
+rebuilt and an unchanged one is reused. A source may also be built as a
+variant with preprocessor defines (``defines=(("QMM_STAGES", 3),)``): its
+own library, for measurements that compare a kernel's compile-time
+choices. Nothing here runs at import time: the CPU tests import every
+module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,8 +33,10 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
+Defines = Tuple[Tuple[str, int], ...]
+
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Defines], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -50,52 +55,62 @@ def nvcc_path() -> str:
     )
 
 
-def _digest(name: str) -> str:
+def _flags(defines: Defines) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in defines)
+
+
+def _digest(name: str, defines: Defines) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     for p in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+def _tag(defines: Defines) -> str:
+    return "".join(f"-{k}{v}" for k, v in defines)
 
 
-def build_log_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}.log"
+def library_path(name: str, defines: Defines = ()) -> Path:
+    return BUILD_DIR / f"lib{name}{_tag(defines)}-{_digest(name, defines)}.so"
 
 
-def _start(name: str, nvcc: str) -> subprocess.Popen:
-    out = library_path(name)
+def build_log_path(name: str, defines: Defines = ()) -> Path:
+    return BUILD_DIR / f"{name}{_tag(defines)}.log"
+
+
+def _start(name: str, defines: Defines, nvcc: str) -> subprocess.Popen:
+    out = library_path(name, defines)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+    cmd = [nvcc, *_flags(defines), "-I", str(CSRC_DIR), "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
+def build(names: Iterable = KERNEL_SOURCES) -> float:
     """Compile every listed kernel that has no up-to-date library yet, one
-    ``nvcc`` per source, all started together. Returns the wall seconds.
-    Raises with the compiler's output when a build fails."""
+    ``nvcc`` per source, all started together. An entry is a source name
+    or a ``(name, defines)`` variant. Returns the wall seconds. Raises with
+    the compiler's output when a build fails."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not library_path(n).is_file()]
+    todo = [(n, ()) if isinstance(n, str) else (n[0], tuple(n[1])) for n in names]
+    todo = [t for t in dict.fromkeys(todo) if not library_path(*t).is_file()]
     if not todo:
         return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {n: _start(n, nvcc) for n in todo}
+    procs = {t: _start(*t, nvcc) for t in todo}
     failed = []
-    for name, proc in procs.items():
+    for (name, defines), proc in procs.items():
         log, _ = proc.communicate()
-        build_log_path(name).write_text(log)
-        out = library_path(name)
+        build_log_path(name, defines).write_text(log)
+        out = library_path(name, defines)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {name}{_tag(defines)} (nvcc exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -103,12 +118,14 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, building it first if needed."""
+def library(name: str, defines: Defines = ()) -> ctypes.CDLL:
+    """The loaded library of one kernel (or of its variant with
+    ``defines``), building it first if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            _loaded[name] = lib
+            build([key])
+            lib = ctypes.CDLL(str(library_path(*key)))
+            _loaded[key] = lib
         return lib

@@ -148,6 +148,61 @@ def test_qmm_kernel_matches_plain_version_on_the_card(cuda, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_qmm_one_deterministic_launch_a_call_on_the_card(cuda, mode):
+    # every row path (M 1, 8: 8-row mma groups; 16 < M: wmma tiles; two row
+    # groups at 128), narrow and wide N, and K = 1408 / 4112, whose plans end
+    # in a short last split (4 x 6 stages ending in 4; 13 x 5 ending in a
+    # 16-row stage); one bf16 ulp against the plain version, as in chip_smoke
+    from distributed_gpu_inference_torch.ops import qmm
+    from distributed_gpu_inference_torch.ops.quantization import quantize_weight
+
+    rng = np.random.default_rng(4)
+    dev_idx = cuda.index if cuda.index is not None else torch.cuda.current_device()
+    shapes = [(1408, 16), (4112, 1024), (4096, 14336)]
+    assert qmm.split_plan(8, 1408, 16) == (4, 384)
+    assert qmm.split_plan(8, 4112, 1024) == (13, 320)
+    for k, n in shapes:
+        w = torch.tensor(rng.standard_normal((2, k, n)) * k ** -0.5, dtype=torch.float32,
+                         device=cuda)
+        q = quantize_weight(w, mode)
+        del w
+        for m in (1, 8, 40, 128):
+            x = torch.tensor(rng.standard_normal((m, k)), dtype=torch.bfloat16, device=cuda)
+            before = qmm.qmm_w8a16.launches
+            got = qmm.qmm_w8a16(x, q["qw"], q["scale"], 1)
+            again = qmm.qmm_w8a16(x, q["qw"], q["scale"], 1)
+            torch.cuda.synchronize()
+            assert qmm.qmm_w8a16.launches == before + 2          # one launch a call
+            want = qmm.qmm_plain(x, q["qw"], q["scale"], 1)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+            assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+            # the arrival counters are all back at zero after every shape
+            scratch = qmm._scratch_by_device.get(dev_idx)
+            if scratch is not None:
+                assert int(scratch.counters.abs().sum()) == 0
+        # a CUDA-graph replay gives the eager call's bits
+        x = torch.tensor(rng.standard_normal((8, k)), dtype=torch.bfloat16, device=cuda)
+        eager = qmm.qmm_w8a16(x, q["qw"], q["scale"], 0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = qmm.qmm_w8a16(x, q["qw"], q["scale"], 0)
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(eager.view(torch.int16), captured.view(torch.int16))
+    assert int(qmm._scratch_by_device[dev_idx].counters.abs().sum()) == 0
+    # above the row bound: the library route, no launch
+    before = qmm.qmm_w8a16.launches
+    x = torch.tensor(rng.standard_normal((qmm.MAX_KERNEL_ROWS + 1, 4096)),
+                     dtype=torch.bfloat16, device=cuda)
+    got = qmm.qmm_w8a16(x, q["qw"], q["scale"], 1)
+    torch.testing.assert_close(got.float(), qmm.qmm_plain(x, q["qw"], q["scale"], 1).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert qmm.qmm_w8a16.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 def test_quantized_attention_kernels_match_plain_versions_on_the_card(cuda, kind):
     from distributed_gpu_inference_torch.ops.attention import (

@@ -170,6 +170,64 @@ def test_qmm_multi_k_stages_accumulate():
         assert per % 64 == 0 and splits * per >= k > (splits - 1) * per
 
 
+# the kernel's default geometry and two others of its sweep (stages, K rows
+# a stage, columns a block)
+_GEOMETRIES = [tqmm.GEOMETRY, (2, 128, 128), (8, 64, 128)]
+
+
+@pytest.mark.parametrize("geometry", _GEOMETRIES)
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (1408, 128), (4112, 1024), (208, 48), (16, 16)])
+@pytest.mark.parametrize("m", [1, 8, 40, 128])
+def test_split_plan_covers_k_once_and_fills_the_ring(m, k, n, geometry):
+    stages, rows, cols = geometry
+    splits, per = tqmm.split_plan(m, k, n, geometry)
+    assert tqmm.split_plan(m, k, n, geometry) == (splits, per)     # a pure function
+    # whole stages, no split empty, K covered exactly once
+    assert per % rows == 0 and splits * per >= k > (splits - 1) * per
+    spans = [min(k, (s + 1) * per) - s * per for s in range(splits)]
+    assert sum(spans) == k and min(spans) > 0
+    # every split, the last one included, holds a full ring where K allows
+    if -(-k // rows) >= stages:
+        assert all(-(-span // rows) >= stages for span in spans)
+    # more splits only where the grid is short of its target and the ring allows
+    tiles = -(-n // cols) * -(-m // tqmm.row_group(m))
+    if splits > 1:
+        assert (splits - 1) * tiles < tqmm.TARGET_BLOCKS
+
+
+def _split_reduce(x, qw, scale, layer=0, geometry=tqmm.GEOMETRY):
+    """The kernel's order of summation in plain PyTorch: each split of the
+    plan sums its K rows in f32, the splits are added in split order, the
+    scale applied once and the sum rounded once."""
+    m, k = x.shape
+    splits, per = tqmm.split_plan(m, k, qw.shape[-1], geometry)
+    total = None
+    for s in range(splits):
+        part = x[:, s * per:(s + 1) * per].float() @ qw[layer, s * per:(s + 1) * per].float()
+        total = part if total is None else total + part
+    return (total * scale[layer].float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("geometry", _GEOMETRIES)
+def test_split_reduce_order_matches_plain_and_pallas(mode, geometry):
+    # K = 1408 is 22 stages of 64: the default plan takes 4 splits of 6, 6,
+    # 6 and 4 stages (a short last split)
+    k, n, m = 1408, 128, 8
+    j, t = _stacked(2, k, n, mode, 10)
+    x = _x(m, k, "bfloat16", 11)
+    splits, per = tqmm.split_plan(m, k, n, geometry)
+    assert splits > 1
+    if geometry == tqmm.GEOMETRY:
+        assert (splits, per) == (4, 384)
+    tx = array_to_tensor(x, "cpu")
+    got = _split_reduce(tx, t["qw"], t["scale"], 1, geometry)
+    _close(got, tqmm.qmm_plain(tx, t["qw"], t["scale"], 1).float(), "bfloat16")
+    _close(got, qmm_stacked_pallas(jnp.asarray(x), j["qw"], j["scale"], jnp.int32(1),
+                                   interpret=True), "bfloat16")
+
+
 def test_qmm_fp8_storage():
     j, t = _stacked(1, 128, 128, "fp8", 6)
     x = _x(16, 128, "bfloat16", 7)
