@@ -67,14 +67,41 @@ KV pools through both attention kernels):
     pools bit-identical to the plain write; then both kernels timed as in
     phase 5.
 
-The last three lines are the kernels JSON (every entry with ``ms`` and
-``graph_ms``; ``@long`` entries for phase 10), the nvidia-smi line and
-``{"ok": true, "device": {...}}``.
+The serving surface (the worker's direct mode):
+
+11. direct server — phase 7's int8 engine, before it is unloaded, behind
+    ``worker/direct_server.py`` ``DirectServer`` on 127.0.0.1 with a small
+    worker object (shared serving claims up to 8, a checkpoint store for
+    ``adopt_stream_checkpoint``); all HTTP through ``http.client`` with
+    socket timeouts. 8 concurrent ``POST /inference/stream`` of 32 greedy
+    tokens (offsets 1..32, ids in vocabulary, text = the tokenizer's decode
+    of the ids, usage); a lone stream and the same request through
+    ``POST /inference`` give the same ids; a 256-token stream whose client
+    hangs up after 4 events is cancelled (batcher ``cancelled`` + 1, no
+    slot left); a hedged 512-token ``/inference`` cancelled through
+    ``/inference/cancel`` ends in ``abort``; a 256-token stream dropped
+    after 8 events resumes at offset 8 from the checkpoint the engine pushed
+    and splices to the ids and text of the same checkpoint resumed with no
+    drop, equal to the undropped run over the checkpoint's tokens (the
+    agreement beyond them is information: on the card a resume recomputes
+    through another prefill route, which rounds differently). The launch
+    counters are zeroed before and
+    read after: all three kernels launched, no plain route. The streams'
+    TTFT and inter-event times as the client sees them are information;
+12. small head dims — ``TorchLLMEngine`` with its default ``llama3-mini``
+    (head_dim 32, which the attention kernels do not take) serves 4
+    requests of 16 tokens through the counted plain route; the llama3-8b
+    phases (4, 7, 8, 11) show that route at 0.
+
+The last four lines are the script's seconds, the kernels JSON (every entry
+with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10), the
+nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import http.client
 import json
 import subprocess
 import sys
@@ -661,6 +688,344 @@ def long_parity(torch, pa, ref, kind, rcase, dcase):
     return r_err, d_err
 
 
+# ---------------------------------------------------------------- serving surface
+
+HTTP_TIMEOUT = 120.0        # socket timeout of every client call of phase 11
+
+
+class SmokeWorker:
+    """The worker surface ``DirectServer`` reads: shared serving claims up
+    to ``cap`` and a checkpoint store fed by the engine's
+    ``checkpoint_sink``, read back by ``adopt_stream_checkpoint``."""
+
+    def __init__(self, engine, cap=8):
+        from distributed_gpu_inference_torch.utils.data_structures import WorkerState
+
+        self.state = WorkerState.IDLE
+        self.engines = {"llm": engine}
+        self.cap, self.active = cap, 0
+        self.lock = threading.Lock()
+        self.checkpoints = {}
+
+    def sink(self, entry):
+        with self.lock:
+            self.checkpoints[entry["key"]] = entry
+
+    def try_begin_serving(self):
+        with self.lock:
+            if self.active >= self.cap:
+                return False
+            self.active += 1
+            return True
+
+    def end_serving(self):
+        with self.lock:
+            self.active -= 1
+
+    def try_begin_job(self):
+        return False            # the batcher-backed engine takes shared claims
+
+    def end_job(self):
+        pass
+
+    def get_status(self):
+        return {"state": self.state.value, "active": self.active}
+
+    def adopt_stream_checkpoint(self, stream_id):
+        with self.lock:
+            entry = self.checkpoints.get(stream_id)
+        return None if entry is None else {"checkpoint": entry["state"],
+                                           "epoch": entry["epoch"]}
+
+
+def http_json(port, path, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+    try:
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def stream_events(port, body, limit=None):
+    """POST /inference/stream and read up to ``limit`` events (all when
+    None), then hang up. → (events, arrival times, send time)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+    events, times = [], []
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/inference/stream", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"stream answered HTTP {resp.status}: {resp.read()!r}")
+        while limit is None or len(events) < limit:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                events.append(json.loads(line[6:]))
+                times.append(time.perf_counter())
+        resp.close()
+    finally:
+        conn.close()
+    return events, times, t0
+
+
+def wait_until(cond, timeout=60.0):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if cond():
+            return True
+        time.sleep(0.01)
+    return False
+
+
+def split_stream(events, first_offset=1):
+    """Token events and the final event of one stream; offsets must run
+    contiguously from ``first_offset``, one token an event."""
+    body, final = events[:-1], events[-1]
+    if not final.get("done") or any("error" in e for e in events):
+        raise AssertionError(f"stream did not end cleanly: {events[-3:]}")
+    offsets = [e["offset"] for e in body]
+    if offsets != list(range(first_offset, first_offset + len(body))):
+        raise AssertionError(f"stream offsets not contiguous: {offsets}")
+    ids = [t for e in body for t in e["token_ids"]]
+    if len(ids) != len(body):
+        raise AssertionError("a stream event carried other than one token")
+    return body, final, ids, "".join(e["text_delta"] for e in body)
+
+
+def pctl(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+
+def direct_server_phase(torch, pa, llm, prompts, smi):
+    """Phase 11 on a loaded llama3-8b int8 engine (see the module
+    docstring); raises on any failed check."""
+    from distributed_gpu_inference_torch.worker.direct_server import DirectServer
+
+    vocab = llm.engine.model_cfg.vocab_size
+    tok = llm.tokenizer
+    worker = SmokeWorker(llm)
+    llm.checkpoint_sink = worker.sink
+    server = DirectServer(worker, host="127.0.0.1", port=0)
+    server.start()
+    port = server.port
+
+    def params(i, n=32, **kw):
+        return dict({"prompt": prompts[i], "max_new_tokens": n, "temperature": 0.0,
+                     "ignore_eos": True}, **kw)
+
+    pa.reset_launch_counts()
+    try:
+        # ---- 8 concurrent streams
+        results = [None] * len(prompts)
+
+        def run(i):
+            results[i] = stream_events(port, {"type": "llm", "params": params(i),
+                                              "stream_id": f"smoke-{i}"})
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or any(r is None for r in results):
+            raise AssertionError("concurrent streams did not finish")
+        ttft, gaps = [], []
+        for i, (events, times, sent) in enumerate(results):
+            body, final, ids, text = split_stream(events)
+            if len(ids) != 32 or not all(0 <= t < vocab for t in ids):
+                raise AssertionError(f"stream {i}: bad ids {ids}")
+            if text != tok.decode(ids):
+                raise AssertionError(f"stream {i}: text is not the decode of its ids")
+            usage = final["usage"]
+            if (usage["completion_tokens"], usage["prompt_tokens"], final["offset"]) != \
+                    (32, len(tok.encode(prompts[i])), 32):
+                raise AssertionError(f"stream {i}: usage {usage} offset {final['offset']}")
+            ttft.append((times[0] - sent) * 1e3)
+            gaps += [(b - a) * 1e3 for a, b in zip(times, times[1:len(body)])]
+        print(f"[direct] 8 concurrent streams of 32 greedy tokens through POST "
+              f"/inference/stream in {wall:.2f} s: offsets 1..32 contiguous, ids in "
+              f"vocabulary, text = decode(ids), usage right; as the client sees them "
+              f"(information): TTFT p50 {pctl(ttft, 0.5):.1f} ms p95 {pctl(ttft, 0.95):.1f} "
+              f"ms, inter-event p50 {pctl(gaps, 0.5):.2f} ms p95 {pctl(gaps, 0.95):.2f} ms "
+              f"({smi})", flush=True)
+
+        # ---- a lone stream and the same request through /inference
+        _, _, lone_ids, _ = split_stream(stream_events(
+            port, {"type": "llm", "params": params(0), "stream_id": "smoke-lone"})[0])
+        seen = []
+        real_submit = llm.serving.submit
+
+        def recording_submit(req, *a, **kw):
+            resp = real_submit(req, *a, **kw)
+            seen.append(list(resp.token_ids))
+            return resp
+
+        llm.serving.submit = recording_submit
+        try:
+            status, out = http_json(port, "/inference", {"type": "llm", "params": params(0)})
+        finally:
+            del llm.serving.submit
+        if status != 200 or seen != [lone_ids]:
+            raise AssertionError(f"lone stream {lone_ids} vs /inference {seen} ({status})")
+        print(f"[direct] a lone stream and the same request through POST /inference: "
+              f"identical {len(lone_ids)} token ids", flush=True)
+
+        # ---- the client hangs up after 4 events
+        before = llm.serving.get_stats()["cancelled"]
+        got, _, _ = stream_events(port, {"type": "llm", "params": params(0, 256)}, limit=4)
+        t_drop = time.perf_counter()
+        quiet = wait_until(lambda: llm.serving.get_stats()["cancelled"] == before + 1
+                           and llm.engine.num_active == 0 and worker.active == 0)
+        print(f"[direct] a 256-token stream whose client hung up after {len(got)} events: "
+              f"batcher cancelled +{llm.serving.get_stats()['cancelled'] - before}, "
+              f"active slots {llm.engine.num_active}, claims {worker.active}, "
+              f"{time.perf_counter() - t_drop:.2f} s after the hang-up", flush=True)
+        if not quiet:
+            raise AssertionError("the hung-up stream was not cancelled")
+
+        # ---- hedged cancel
+        out = {}
+        th = threading.Thread(target=lambda: out.update(r=http_json(
+            port, "/inference", {"type": "llm",
+                                 "params": params(0, 512, hedge_key="smoke-hedge")})))
+        th.start()
+        started = wait_until(lambda: any(s is not None and s.generated
+                                         for s in llm.engine.slots))
+        cancelled = http_json(port, "/inference/cancel", {"hedge_key": "smoke-hedge"})
+        th.join(timeout=600)
+        status, body = out.get("r", (None, {}))
+        result = body.get("result") or {}
+        print(f"[direct] hedged /inference of 512 tokens cancelled once its first tokens "
+              f"were out: cancel answered {cancelled}; finish_reason "
+              f"{result.get('finish_reason')}, {result.get('usage', {}).get('completion_tokens')} "
+              f"tokens", flush=True)
+        if not (started and cancelled == (200, {"cancelled": True}) and status == 200
+                and result["finish_reason"] == "abort"
+                and result["usage"]["completion_tokens"] < 512):
+            raise AssertionError("the hedged cancel did not abort the request")
+
+        # ---- a dropped stream resumes from the pushed checkpoint. On the card a
+        # resumed sequence recomputes its checkpoint through engine.resume's
+        # one-shot prefill where the first run took ragged rounds and decode
+        # steps, and the two round differently: the continuation is held to
+        # the same checkpoint resumed with nothing consumed (no drop), and to
+        # the undropped run over the checkpoint's tokens; beyond them the
+        # agreement with the undropped run is information
+        n = 256
+        _, _, ref_ids, _ = split_stream(stream_events(
+            port, {"type": "llm", "params": params(1, n)})[0])
+        sid = "smoke-resume"
+        first, _, _ = stream_events(port, {"type": "llm", "params": params(1, n),
+                                           "stream_id": sid}, limit=8)
+        if not (wait_until(lambda: llm.engine.num_active == 0 and worker.active == 0)
+                and wait_until(lambda: len(worker.checkpoints[sid]["state"]["generated"])
+                               >= 8)):
+            raise AssertionError("the dropped stream did not end with a checkpoint "
+                                 "past the client's offset")
+        ckpt = worker.checkpoints[sid]
+        k = len(ckpt["state"]["generated"])
+        head_ids = [t for e in first for t in e["token_ids"]]
+        head_text = "".join(e["text_delta"] for e in first)
+        runs = {}
+        for offset, text_offset in ((8, len(head_text)), (0, 0)):
+            worker.checkpoints[sid] = ckpt       # the resumed run pushes its own
+            runs[offset] = split_stream(stream_events(port, {
+                "type": "llm", "params": params(1, n), "resume": {
+                    "stream_id": sid, "offset": offset, "text_offset": text_offset}})[0],
+                first_offset=offset + 1)
+        _, final, tail_ids, tail_text = runs[8]
+        _, _, alone_ids, alone_text = runs[0]
+        spliced = head_ids + tail_ids
+        exact = (spliced == alone_ids and head_text + tail_text == alone_text
+                 and len(spliced) == n and final["offset"] == n)
+        covered = spliced[:k] == ref_ids[:k]
+        agree = next((i for i, (a, b) in enumerate(zip(spliced, ref_ids)) if a != b), n)
+        print(f"[direct] a {n}-token stream dropped after 8 events, resumed at offset 8 "
+              f"from the checkpoint the engine pushed ({k} tokens): offsets 9..{final['offset']} "
+              f"contiguous; ids and text equal to the same checkpoint resumed with no drop: "
+              f"{exact}; equal to the undropped run over the checkpoint's {k} tokens: "
+              f"{covered}; (information) equal to the undropped run for the first {agree} "
+              f"of {n} tokens", flush=True)
+        if not (exact and covered):
+            raise AssertionError(f"resumed {spliced} != {alone_ids} (undropped {ref_ids})")
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+    finally:
+        server.stop()
+        llm.checkpoint_sink = None
+    print(f"[direct] kernel launches over the phase: {counts}", flush=True)
+    check_counts("direct", counts, qmm=True)
+    return ttft, gaps
+
+
+def check_counts(tag, counts, qmm):
+    """The kernels of a llama3-8b path all launched and no call took the
+    plain route."""
+    kernels = ["ragged_paged_attention", "paged_decode_attention_fused"] + (
+        ["qmm_w8a16"] if qmm else [])
+    if not all(counts[k] > 0 for k in kernels):
+        raise AssertionError(f"[{tag}] a kernel of the path never launched: {counts}")
+    plain = {k: v for k, v in counts.items() if k.endswith(".plain") and v}
+    if plain:
+        raise AssertionError(f"[{tag}] llama3-8b took the plain route: {plain}")
+
+
+def small_model_phase(torch, pa):
+    """Phase 12: the worker's default model (llama3-mini, head_dim 32) on
+    the card through the counted plain route."""
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    llm = TorchLLMEngine({"model": "llama3-mini", "max_batch_size": 4, "max_seq_len": 256,
+                          "device": "cuda", "seed": 0})
+    llm.load_model()
+    vocab = llm.engine.model_cfg.vocab_size
+    try:
+        seen = []
+        real_submit = llm.serving.submit
+
+        def recording_submit(req, *a, **kw):
+            resp = real_submit(req, *a, **kw)
+            seen.append(list(resp.token_ids))
+            return resp
+
+        llm.serving.submit = recording_submit
+        pa.reset_launch_counts()
+        outs = [None] * 4
+
+        def call(i):
+            outs[i] = llm.inference({"prompt": f"small model request {i}",
+                                     "max_new_tokens": 16, "ignore_eos": True})
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        del llm.serving.submit
+    finally:
+        llm.unload()
+    print(f"[small] llama3-mini (head_dim 32) on the card: 4 requests x 16 tokens; "
+          f"counts {counts}", flush=True)
+    if any(o is None or o["usage"]["completion_tokens"] != 16 for o in outs) or \
+            len(seen) != 4 or not all(0 <= t < vocab for ids in seen for t in ids):
+        raise AssertionError(f"llama3-mini did not serve: {outs} {seen}")
+    if not (counts["ragged_paged_attention.plain"] > 0
+            and counts["paged_decode_attention_fused.plain"] > 0):
+        raise AssertionError(f"llama3-mini did not take the plain route: {counts}")
+    return counts
+
+
 # ---------------------------------------------------------------- phases
 
 def main() -> int:
@@ -684,6 +1049,7 @@ def main() -> int:
     )
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -765,9 +1131,7 @@ def main() -> int:
     shared, lengths, prompts = serving_prompts()
     bf16_tokens, payloads, hit, wall, launches, stats = serve(torch, pa, llm, prompts, shared)
     print(f"[serving] kernel launches on the main path: {launches}", flush=True)
-    if not (launches["ragged_paged_attention"] > 0
-            and launches["paged_decode_attention_fused"] > 0):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    check_counts("serving", launches, qmm=False)
     report_serving("serving", lengths, payloads, hit, wall, stats)
     compare_forward(torch, "serving", llm.engine.model_cfg, llm.engine.params,
                     torch.bfloat16, dev)
@@ -940,8 +1304,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
     i8_tokens, payloads, hit, wall, i8_launches, stats = serve(torch, pa, llm, prompts, shared)
     print(f"[int8 serving] kernel launches on the main path: {i8_launches}", flush=True)
-    if not all(v > 0 for v in i8_launches.values()):
-        raise AssertionError(f"a kernel of the int8 path never launched: {i8_launches}")
+    check_counts("int8 serving", i8_launches, qmm=True)
     report_serving("int8 serving", lengths, payloads, hit, wall, stats)
     same = sum(a == b for key in bf16_tokens for a, b in zip(bf16_tokens[key], i8_tokens[key]))
     total = sum(len(v) for v in bf16_tokens.values())
@@ -949,6 +1312,9 @@ def main() -> int:
           f"{same}/{total} = {same / total:.3f}", flush=True)
     compare_forward(torch, "int8 serving", llm.engine.model_cfg, llm.engine.params,
                     torch.int8, dev)
+
+    # ---- 11. the direct server on the int8 engine
+    direct_server_phase(torch, pa, llm, prompts, smi)
     llm.unload()
     del llm
     torch.cuda.empty_cache()
@@ -969,8 +1335,7 @@ def main() -> int:
           f"tokens; kernel launches: {f8_launches}", flush=True)
     if any(o.error or len(o.token_ids) != 16 for o in outs):
         raise AssertionError(f"fp8 serving errors: {[(o.error, o.token_ids) for o in outs]}")
-    if not all(v > 0 for v in f8_launches.values()):
-        raise AssertionError(f"a kernel of the fp8 path never launched: {f8_launches}")
+    check_counts("fp8 serving", f8_launches, qmm=True)
     compare_forward(torch, "fp8 serving", cfg4, eng.params, torch.float8_e4m3fn, dev)
     del eng
     torch.cuda.empty_cache()
@@ -1088,6 +1453,10 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
 
+    # ---- 12. a model whose head_dim the attention kernels do not take
+    small_model_phase(torch, pa)
+
+    print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ JAX package so each counterpart is easy to find:
                 token sampling
 - ``runtime/``  KV block manager, the slot engine (``TorchEngine``) and the
                 continuous batcher
-- ``worker/``   the worker's LLM engine API (``TorchLLMEngine``)
+- ``worker/``   the worker's LLM engine API (``TorchLLMEngine``) and its direct
+                HTTP server (``DirectServer``)
 - ``utils/``    request/response dataclasses
 
 Subpackages are imported lazily — ``import distributed_gpu_inference_torch``

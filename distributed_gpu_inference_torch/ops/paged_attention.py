@@ -26,11 +26,16 @@ split order in a second launch; the wrapper allocates that workspace. It
 reads no device tensor on the host, so both wrappers can be captured in a
 CUDA graph.
 
-On a CUDA tensor a wrapper launches its kernel or raises; it takes the
-plain version only because the tensor it was given lies on the CPU. Each
+On a CPU tensor a wrapper takes the plain version. On a CUDA tensor it
+asks :func:`kernel_takes` (head_dim, activation dtype, pool dtype — shapes
+and dtypes only, decided before anything launches): where the kernels take
+the operands it launches its kernel or raises; where they do not (the head
+dims of the small models, float32 activations) it computes the plain
+version on the card, as the JAX package routes such shapes to XLA. Each
 wrapper counts its calls that launch in ``<wrapper>.launches`` — one per
-call (a split call's merge launch is part of it) and nowhere else — so a
-run can show that its main path went through the kernels.
+call (a split call's merge launch is part of it) and nowhere else — and
+its plain routes on the card in ``<wrapper>.plain_routes``, so a run can
+show which way its main path went.
 """
 
 from __future__ import annotations
@@ -83,6 +88,15 @@ def _kernel(source: str, pool_dtype: torch.dtype):
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
+
+
+def kernel_takes(head_dim: int, activation_dtype: torch.dtype,
+                 pool_dtype: torch.dtype) -> bool:
+    """Do the attention kernels take this head_dim, activation dtype and
+    KV pool dtype? The wrappers route what they do not take to the plain
+    version on the card."""
+    return (head_dim in _HEAD_DIMS and activation_dtype == torch.bfloat16
+            and pool_dtype in _POOL_DTYPES)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -192,6 +206,12 @@ def ragged_paged_attention(
     _check_cuda(name, q.device, q=q, k_pool=k_pool, v_pool=v_pool,
                 block_tables=block_tables, positions=positions, kv_lens=kv_lens,
                 **scales)
+    if not kernel_takes(q.shape[-1], q.dtype, k_pool.dtype):
+        ragged_paged_attention.plain_routes += 1
+        return paged_attention_ref(
+            q, k_pool, v_pool, block_tables, positions, kv_lens, block_size,
+            window=window, k_scale=k_scale, v_scale=v_scale,
+        )
     b, s, nh, d = q.shape
     n, hkv, bk, d2 = k_pool.shape
     m = block_tables.shape[1]
@@ -224,6 +244,7 @@ def ragged_paged_attention(
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.plain_routes = 0
 
 
 # --------------------------------------------------------------------------
@@ -295,6 +316,13 @@ def paged_decode_attention_fused(
     _check_cuda(name, q.device, q=q, new_k=new_k, new_v=new_v, k_pool=k_pool,
                 v_pool=v_pool, block_tables=block_tables, positions=positions,
                 kv_lens=kv_lens, **scales)
+    if not kernel_takes(q.shape[-1], q.dtype, k_pool.dtype):
+        paged_decode_attention_fused.plain_routes += 1
+        return paged_decode_attention_fused_plain(
+            q, new_k, new_v, k_pool, v_pool, layer_idx, block_tables,
+            positions, kv_lens, block_size, window=window,
+            k_scale=k_scale, v_scale=v_scale,
+        )
     b, s, nh, d = q.shape
     nl, n, hkv, bk, d2 = k_pool.shape
     m = block_tables.shape[1]
@@ -326,6 +354,7 @@ def paged_decode_attention_fused(
 
 
 paged_decode_attention_fused.launches = 0
+paged_decode_attention_fused.plain_routes = 0
 
 
 def launch_decode_kernel(q, new_k, new_v, k_pool, v_pool, layer_idx, block_tables, positions,
@@ -362,10 +391,15 @@ KERNEL_WRAPPERS = (ragged_paged_attention, paged_decode_attention_fused, qmm_w8a
 
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel wrapper of the port (the quantized matmul
-    of ``ops/qmm.py`` included) since the last reset."""
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    of ``ops/qmm.py`` included) since the last reset, and under
+    ``<wrapper>.plain`` the calls each routed to its plain version on the
+    card."""
+    out = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    out.update({f"{fn.__name__}.plain": fn.plain_routes for fn in KERNEL_WRAPPERS})
+    return out
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        fn.plain_routes = 0

@@ -17,7 +17,8 @@ and exposes the surface the continuous batcher drives: ``submit`` /
 ``submit_batch``, chunk-interleaved admission, ``ragged_round`` (decode rows
 and prefill-chunk rows in one forward), ``decode_multi`` (T decode steps with
 stop/budget masking on the device and one host read at the end),
-``preempt_slot`` / ``resume``, ``finish_slot`` and ``generate``.
+``snapshot_slot`` / ``preempt_slot`` / ``resume``, ``finish_slot`` and
+``generate``.
 
 Failure semantics: the JAX engine's device calls were functional, so a
 failed call left the old pools intact. Here a round updates the pools in
@@ -493,6 +494,36 @@ class TorchEngine:
         p, self._pressure = self._pressure, None
         return p
 
+    def snapshot_slot(self, slot: int) -> PreemptedSequence:
+        """Checkpoint a LIVE slot without disturbing it: the state
+        :meth:`preempt_slot` captures, while the slot keeps decoding — the
+        worker's failover checkpoint, which :meth:`resume` on another
+        engine (or the JAX package's) continues. ``generated`` may hold the
+        pending token (sampled, KV unwritten); resume recomputes the whole
+        list as prompt suffix, so a greedy continuation is the undisturbed
+        one where that recompute rounds as the decode steps did (in f32 on
+        the CPU; on the card the prefill and decode kernels round
+        differently, and a near-tie can resolve the other way). Reads host
+        state only, so it may run beside the engine's own thread: a torn
+        read shows up as another request's id, which callers check."""
+        s = self.slots[slot]
+        if s is None:
+            raise ValueError(f"slot {slot} is empty")
+        if s.prefilling:
+            raise ValueError(f"slot {slot} is mid-prefill")
+        if s.finish_reason is not None:
+            raise ValueError(f"slot {slot} already finished")
+        return PreemptedSequence(
+            request=s.request,
+            prompt_len=s.prompt_len,
+            generated=list(s.generated),
+            slot_key=(int(self._slot_keys[slot, 0]),
+                      int(self._slot_keys[slot, 1])),
+            start_time=s.start_time,
+            first_token_time=s.first_token_time,
+            cached_tokens=s.cached_tokens,
+        )
+
     def preempt_slot(self, slot: int) -> PreemptedSequence:
         """Freeze a RUNNING sequence and release its device blocks; full
         blocks park in the prefix cache for :meth:`resume`. The pending
@@ -517,16 +548,7 @@ class TorchEngine:
         while len(seq) > committed:
             seq.pop()
         self.manager.trim_reserved(s.seq_id)
-        pre = PreemptedSequence(
-            request=s.request,
-            prompt_len=s.prompt_len,
-            generated=list(s.generated),
-            slot_key=(int(self._slot_keys[slot, 0]),
-                      int(self._slot_keys[slot, 1])),
-            start_time=s.start_time,
-            first_token_time=s.first_token_time,
-            cached_tokens=s.cached_tokens,
-        )
+        pre = self.snapshot_slot(slot)
         self.manager.free_sequence(s.seq_id, cache=True)
         self.slots[slot] = None
         self._kv_lens[slot] = 0

@@ -2,8 +2,9 @@
 
 The port's own copy of the parts of
 ``distributed_gpu_inference_tpu/utils/data_structures.py`` that the engine,
-the block manager and the batcher read: sampling controls, requests,
-responses, per-page block metadata and the prefix hash. Pure Python.
+the block manager, the batcher and the direct server read: the worker's
+lifecycle state, sampling controls, requests, responses, per-page block
+metadata and the prefix hash. Pure Python.
 """
 
 from __future__ import annotations
@@ -14,6 +15,17 @@ import uuid
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+
+class WorkerState(str, Enum):
+    """Lifecycle state of a worker."""
+
+    INITIALIZING = "initializing"
+    IDLE = "idle"
+    BUSY = "busy"
+    DRAINING = "draining"       # graceful shutdown: finish running, accept none
+    OFFLINE = "offline"
+    FAILED = "failed"
 
 
 class JobType(str, Enum):

@@ -2,16 +2,17 @@
 
 The port's own copy of the parts of
 ``distributed_gpu_inference_tpu/worker/engines/base.py`` the LLM engine
-uses: the load/inference/unload lifecycle, the per-request
-``GenerationConfig``, the ``GenerationResult`` payload and the two error
-types the worker maps to job outcomes.
+uses: the load/inference/unload lifecycle with its async, batch and stream
+bridges, the per-request ``GenerationConfig``, the ``GenerationResult``
+payload and the error types the worker maps to job outcomes.
 """
 
 from __future__ import annotations
 
 import abc
+import asyncio
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, AsyncIterator, Dict, List, Optional
 
 
 class EngineLoadError(RuntimeError):
@@ -27,6 +28,19 @@ class ServingError(RuntimeError):
                  error_code: Optional[str] = None) -> None:
         super().__init__(message)
         self.error_code = error_code
+
+
+class JobMigrated(Exception):
+    """A generation was interrupted at a step boundary (graceful drain) and
+    frozen into a portable checkpoint instead of finishing. The worker
+    hands ``checkpoint`` (the ``PreemptedSequence`` wire) to the control
+    plane, which requeues the job so the next claimant resumes it — no
+    tokens lost, no retry burned."""
+
+    def __init__(self, checkpoint: Dict[str, Any], tokens: int = 0) -> None:
+        super().__init__(f"job migrated with {tokens} generated tokens")
+        self.checkpoint = checkpoint
+        self.tokens = tokens
 
 
 @dataclass
@@ -116,5 +130,23 @@ class BaseEngine(abc.ABC):
 
 
 class LLMBaseEngine(BaseEngine):
-    """Marker base of the LLM engines (the JAX package's adds async, batch
-    and stream bridges on top; this slice serves the blocking path)."""
+    """Async, batch and stream bridges over the blocking ``inference``."""
+
+    async def inference_async(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, self.inference, params)
+
+    def batch_inference(self, batch: List[Dict[str, Any]]
+                        ) -> List[Dict[str, Any]]:
+        return [self.inference(p) for p in batch]
+
+    async def batch_inference_async(self, batch: List[Dict[str, Any]]
+                                    ) -> List[Dict[str, Any]]:
+        return await asyncio.gather(
+            *[self.inference_async(p) for p in batch]
+        )
+
+    async def stream_inference(self, params: Dict[str, Any]
+                               ) -> AsyncIterator[Dict[str, Any]]:
+        """Default streaming = one final chunk; token-level engines override."""
+        yield await self.inference_async(params)

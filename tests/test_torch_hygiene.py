@@ -1,7 +1,10 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
-package, runs on CUDA unless asked for the CPU, and its kernel wrappers
-never fall back to the plain version for a tensor that is not on the CPU.
-Tests that need the card carry the ``gpu`` marker and skip without one."""
+package (nor aiohttp, httpx or transformers, which the card's machine
+lacks), runs on CUDA unless asked for the CPU, and its kernel wrappers
+never fall back to the plain version for a tensor that is not on the CPU;
+on the card they route only the shapes and dtypes the kernels do not take
+to the plain version, by one rule each. Tests that need the card carry the
+``gpu`` marker and skip without one."""
 
 import ast
 import pathlib
@@ -15,7 +18,8 @@ from distributed_gpu_inference_torch.ops import paged_attention as tpa  # noqa: 
 from distributed_gpu_inference_torch.runtime.engine import TorchEngine  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu")
+FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu", "aiohttp", "httpx",
+             "transformers")
 
 
 def _port_files():
@@ -37,7 +41,7 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10 and all(f.is_file() for f in files)
     # the quantized slice's modules and the kernel loader are among them
     assert {"quantization.py", "qmm.py", "paged_attention.py", "_build.py",
-            "chip_smoke.py"} <= {f.name for f in files}
+            "direct_server.py", "llm.py", "chip_smoke.py"} <= {f.name for f in files}
     offenders = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files
@@ -51,11 +55,10 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
         TorchEngine("llama3-tiny")
 
 
-def test_kernel_wrappers_refuse_non_cpu_tensors_without_cuda():
-    # meta tensors are neither on the CPU nor on a card: the wrappers must
-    # raise instead of quietly computing the plain version
-    q = torch.empty((1, 16, 4, 64), dtype=torch.bfloat16, device="meta")
-    pool = torch.empty((3, 2, 16, 64), dtype=torch.bfloat16, device="meta")
+def _meta_calls(d, dtype):
+    """Each kernel wrapper on meta tensors; each must raise."""
+    q = torch.empty((1, 16, 4, d), dtype=dtype, device="meta")
+    pool = torch.empty((3, 2, 16, d), dtype=dtype, device="meta")
     idx = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     pos = torch.zeros((1, 16), dtype=torch.int32, device="meta")
     lens = torch.zeros((1,), dtype=torch.int32, device="meta")
@@ -65,17 +68,60 @@ def test_kernel_wrappers_refuse_non_cpu_tensors_without_cuda():
     stacked = pool[None]
     with pytest.raises(ValueError, match="CUDA tensor"):
         tpa.paged_decode_attention_fused(
-            q[:, :1], stacked[0, :1, :, :1].reshape(1, 1, 2, 64),
-            stacked[0, :1, :, :1].reshape(1, 1, 2, 64), stacked, stacked, 0,
+            q[:, :1], stacked[0, :1, :, :1].reshape(1, 1, 2, d),
+            stacked[0, :1, :, :1].reshape(1, 1, 2, d), stacked, stacked, 0,
             idx, pos[:, :1], lens, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tpa.qmm_w8a16(torch.empty((4, 64), dtype=torch.bfloat16, device="meta"),
+        tpa.qmm_w8a16(torch.empty((4, 64), dtype=dtype, device="meta"),
                       torch.empty((2, 64, 32), dtype=torch.int8, device="meta"),
                       torch.empty((2, 1, 32), dtype=torch.float32, device="meta"), 1)
+    # no launch, and no plain route either
     assert tpa.launch_counts() == {
         "ragged_paged_attention": 0, "paged_decode_attention_fused": 0,
-        "qmm_w8a16": 0,
+        "qmm_w8a16": 0, "ragged_paged_attention.plain": 0,
+        "paged_decode_attention_fused.plain": 0, "qmm_w8a16.plain": 0,
     }
+
+
+def test_kernel_wrappers_refuse_non_cpu_tensors_without_cuda():
+    # meta tensors are neither on the CPU nor on a card: the wrappers must
+    # raise instead of quietly computing the plain version
+    _meta_calls(64, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,dtype", [(32, torch.bfloat16), (64, torch.float32)])
+def test_kernel_wrappers_refuse_non_cpu_tensors_of_routed_shapes(d, dtype):
+    # shapes and dtypes the kernels do not take still raise off the card:
+    # the plain route is taken on CUDA tensors only
+    _meta_calls(d, dtype)
+
+
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
+def test_attention_routing_rule(head_dim, dtype, pool):
+    # the kernels take bf16 activations at head dims 64/128/256 over bf16,
+    # int8 and fp8 pools; everything else (the tiny and mini models' 16 and
+    # 32, float32 activations) takes the plain version on the card
+    want = head_dim in (64, 128, 256) and dtype == torch.bfloat16
+    assert tpa.kernel_takes(head_dim, dtype, pool) is want
+    assert tpa.kernel_takes(head_dim, dtype, torch.float32) is False
+
+
+@pytest.mark.parametrize("x_dtype,codes,k,n,want", [
+    (torch.bfloat16, torch.int8, 4096, 1024, True),
+    (torch.bfloat16, torch.float8_e4m3fn, 256, 640, True),
+    (torch.float32, torch.int8, 4096, 1024, False),
+    (torch.float16, torch.int8, 4096, 1024, False),
+    (torch.bfloat16, torch.bfloat16, 4096, 1024, False),
+    (torch.bfloat16, torch.int8, 4104, 1024, False),
+    (torch.bfloat16, torch.int8, 4096, 1000, False),
+])
+def test_qmm_routing_rule(x_dtype, codes, k, n, want):
+    from distributed_gpu_inference_torch.ops import qmm
+
+    assert qmm.kernel_takes(x_dtype, codes, torch.float32, k, n) is want
+    assert qmm.kernel_takes(x_dtype, codes, torch.bfloat16, k, n) is False
 
 
 @pytest.fixture
@@ -373,3 +419,28 @@ def test_split_kernels_match_plain_versions_on_the_card(cuda, d, bk, kind, nh, w
                                                    window=window, **sc)
     assert torch.equal(_bits(got), _bits(again))
     assert torch.equal(_bits(kp), _bits(kp2))
+
+
+@pytest.mark.gpu
+def test_small_head_dim_model_serves_through_the_plain_route_on_the_card(cuda):
+    # llama3-mini (head_dim 32, the worker's default model) on the card:
+    # attention takes the counted plain route, no round fails
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    llm = TorchLLMEngine({"model": "llama3-mini", "max_batch_size": 4,
+                          "max_seq_len": 256, "device": "cuda", "seed": 0})
+    llm.load_model()
+    try:
+        tpa.reset_launch_counts()
+        outs = llm.batch_inference([{"prompt": f"request {i}", "max_new_tokens": 16,
+                                     "ignore_eos": True} for i in range(4)])
+        counts = tpa.launch_counts()
+        assert all(o["usage"]["completion_tokens"] == 16 for o in outs)
+        assert counts["ragged_paged_attention.plain"] > 0
+        assert counts["paged_decode_attention_fused.plain"] > 0
+        assert counts["ragged_paged_attention"] == counts["paged_decode_attention_fused"] == 0
+        # the engine is still usable: no round failed part-way
+        assert llm.inference({"prompt": "again", "max_new_tokens": 4})["usage"][
+            "completion_tokens"] >= 1
+    finally:
+        llm.unload()
