@@ -80,18 +80,22 @@ The serving surface (the worker's direct mode):
     hangs up after 4 events is cancelled (batcher ``cancelled`` + 1, no
     slot left); a hedged 512-token ``/inference`` cancelled through
     ``/inference/cancel`` ends in ``abort``; a 256-token stream dropped
-    after 8 events resumes at offset 8 from the checkpoint the engine pushed
-    and splices to the ids and text of the same checkpoint resumed with no
-    drop, equal to the undropped run over the checkpoint's tokens (the
-    agreement beyond them is information: on the card a resume recomputes
-    through another prefill route, which rounds differently). The launch
-    counters are zeroed before and
-    read after: all three kernels launched, no plain route. The streams'
-    TTFT and inter-event times as the client sees them are information;
-12. small head dims — ``TorchLLMEngine`` with its default ``llama3-mini``
-    (head_dim 32, which the attention kernels do not take) serves 4
-    requests of 16 tokens through the counted plain route; the llama3-8b
-    phases (4, 7, 8, 11) show that route at 0.
+    after 8 events resumes at offset 8 from the admission checkpoint the
+    engine pushed and splices to exactly the ids and text of the undropped
+    run (a resume is a ragged admission, so it computes what the first
+    admission computed); resumed from the latest pushed checkpoint (k
+    tokens) it splices to the same checkpoint resumed with no drop and
+    equals the undropped run over the k tokens, and where it later parts
+    from the undropped run the script prints both runs' top-2 logits at
+    that step (the k tokens' KV was computed by decode steps in one run and
+    by a prefill chunk in the other). The launch counters are zeroed before
+    and read after: all three kernels launched. The streams' TTFT and
+    inter-event times as the client sees them are information;
+12. small head dims — both attention kernels at ``llama3-mini``'s head
+    shape (Nh 8, Hkv 4, D 32) against their plain versions with the
+    phase-3 tolerances, then ``TorchLLMEngine`` with its default
+    ``llama3-mini`` serves 4 requests of 16 tokens through both kernels
+    (counters zeroed before, read after).
 
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10), the
@@ -705,11 +709,13 @@ class SmokeWorker:
         self.engines = {"llm": engine}
         self.cap, self.active = cap, 0
         self.lock = threading.Lock()
-        self.checkpoints = {}
+        self.checkpoints = {}        # the latest entry of each key
+        self.history = {}            # every entry of each key, in order
 
     def sink(self, entry):
         with self.lock:
             self.checkpoints[entry["key"]] = entry
+            self.history.setdefault(entry["key"], []).append(entry)
 
     def try_begin_serving(self):
         with self.lock:
@@ -781,6 +787,41 @@ def wait_until(cond, timeout=60.0):
             return True
         time.sleep(0.01)
     return False
+
+
+class LogitTrace:
+    """The top-2 logits of the one live slot at every sample the engine
+    takes during a recorded run (kept on the device, read afterwards)."""
+
+    def __init__(self, engine):
+        self.engine, self.runs = engine, {}
+
+    @contextlib.contextmanager
+    def recording(self, name):
+        eng, rows = self.engine, []
+        real = eng._sample
+
+        def sample(logits, *a, **kw):
+            live = [i for i, s in enumerate(eng.slots)
+                    if s is not None and s.finish_reason is None]
+            if len(live) == 1:
+                rows.append(logits[live[0]].float().topk(2))
+            return real(logits, *a, **kw)
+
+        eng._sample = sample
+        try:
+            yield
+        finally:
+            del eng._sample
+            self.runs[name] = rows
+
+    def at(self, name, step):
+        rows = self.runs[name]
+        if not 0 <= step < len(rows):
+            return "not recorded"
+        vals, ids = rows[step].values.tolist(), rows[step].indices.tolist()
+        return (f"id {ids[0]} {vals[0]:.4f} / id {ids[1]} {vals[1]:.4f} "
+                f"(margin {vals[0] - vals[1]:.4f})")
 
 
 def split_stream(events, first_offset=1):
@@ -913,17 +954,16 @@ def direct_server_phase(torch, pa, llm, prompts, smi):
                 and result["usage"]["completion_tokens"] < 512):
             raise AssertionError("the hedged cancel did not abort the request")
 
-        # ---- a dropped stream resumes from the pushed checkpoint. On the card a
-        # resumed sequence recomputes its checkpoint through engine.resume's
-        # one-shot prefill where the first run took ragged rounds and decode
-        # steps, and the two round differently: the continuation is held to
-        # the same checkpoint resumed with nothing consumed (no drop), and to
-        # the undropped run over the checkpoint's tokens; beyond them the
-        # agreement with the undropped run is information
+        # ---- a dropped stream resumes from a pushed checkpoint: from the
+        # admission checkpoint (no token yet) it must splice to exactly the
+        # undropped run; from the latest (k tokens) to the same checkpoint
+        # resumed with no drop, and to the undropped run over the k tokens
         n = 256
-        _, _, ref_ids, _ = split_stream(stream_events(
-            port, {"type": "llm", "params": params(1, n)})[0])
         sid = "smoke-resume"
+        trace = LogitTrace(llm.engine)
+        with trace.recording("undropped"):
+            _, _, ref_ids, ref_text = split_stream(stream_events(
+                port, {"type": "llm", "params": params(1, n)})[0])
         first, _, _ = stream_events(port, {"type": "llm", "params": params(1, n),
                                            "stream_id": sid}, limit=8)
         if not (wait_until(lambda: llm.engine.num_active == 0 and worker.active == 0)
@@ -931,31 +971,46 @@ def direct_server_phase(torch, pa, llm, prompts, smi):
                                >= 8)):
             raise AssertionError("the dropped stream did not end with a checkpoint "
                                  "past the client's offset")
-        ckpt = worker.checkpoints[sid]
-        k = len(ckpt["state"]["generated"])
+        admission, latest = worker.history[sid][0], worker.checkpoints[sid]
+        k = len(latest["state"]["generated"])
         head_ids = [t for e in first for t in e["token_ids"]]
         head_text = "".join(e["text_delta"] for e in first)
-        runs = {}
-        for offset, text_offset in ((8, len(head_text)), (0, 0)):
-            worker.checkpoints[sid] = ckpt       # the resumed run pushes its own
-            runs[offset] = split_stream(stream_events(port, {
+
+        def resume(entry, offset, text_offset):
+            worker.checkpoints[sid] = entry       # the resumed run pushes its own
+            return split_stream(stream_events(port, {
                 "type": "llm", "params": params(1, n), "resume": {
                     "stream_id": sid, "offset": offset, "text_offset": text_offset}})[0],
                 first_offset=offset + 1)
-        _, final, tail_ids, tail_text = runs[8]
-        _, _, alone_ids, alone_text = runs[0]
+
+        _, final, tail_ids, tail_text = resume(admission, 8, len(head_text))
+        exact0 = (head_ids + tail_ids == ref_ids and head_text + tail_text == ref_text
+                  and final["offset"] == n)
+        print(f"[direct] a {n}-token stream dropped after 8 events, resumed at offset 8 "
+              f"from its admission checkpoint ({len(admission['state']['generated'])} "
+              f"tokens): offsets 9..{final['offset']} contiguous; ids and text equal to the "
+              f"undropped run: {exact0}", flush=True)
+        with trace.recording("resumed"):
+            _, final, tail_ids, tail_text = resume(latest, 8, len(head_text))
+        _, _, alone_ids, alone_text = resume(latest, 0, 0)
         spliced = head_ids + tail_ids
         exact = (spliced == alone_ids and head_text + tail_text == alone_text
                  and len(spliced) == n and final["offset"] == n)
         covered = spliced[:k] == ref_ids[:k]
         agree = next((i for i, (a, b) in enumerate(zip(spliced, ref_ids)) if a != b), n)
-        print(f"[direct] a {n}-token stream dropped after 8 events, resumed at offset 8 "
-              f"from the checkpoint the engine pushed ({k} tokens): offsets 9..{final['offset']} "
-              f"contiguous; ids and text equal to the same checkpoint resumed with no drop: "
-              f"{exact}; equal to the undropped run over the checkpoint's {k} tokens: "
-              f"{covered}; (information) equal to the undropped run for the first {agree} "
-              f"of {n} tokens", flush=True)
-        if not (exact and covered):
+        witness = ""
+        if agree < n:
+            witness = (f"; at token {agree} the top-2 logits were, undropped: "
+                       f"{trace.at('undropped', agree)}, resumed: "
+                       f"{trace.at('resumed', agree - k)}")
+        print(f"[direct] the same stream resumed at offset 8 from the latest checkpoint "
+              f"({k} tokens): offsets 9..{final['offset']} contiguous; ids and text equal "
+              f"to the same checkpoint resumed with no drop: {exact}; equal to the "
+              f"undropped run over the checkpoint's {k} tokens: {covered}; (information) "
+              f"equal to the undropped run for the first {agree} of {n} tokens (its {k} "
+              f"tokens' KV was recomputed as one ragged prefill chunk, where the "
+              f"undropped run wrote it in decode steps){witness}", flush=True)
+        if not (exact0 and exact and covered):
             raise AssertionError(f"resumed {spliced} != {alone_ids} (undropped {ref_ids})")
         torch.cuda.synchronize()
         counts = pa.launch_counts()
@@ -968,27 +1023,69 @@ def direct_server_phase(torch, pa, llm, prompts, smi):
 
 
 def check_counts(tag, counts, qmm):
-    """The kernels of a llama3-8b path all launched and no call took the
-    plain route."""
+    """The kernels of a serving path all launched."""
     kernels = ["ragged_paged_attention", "paged_decode_attention_fused"] + (
         ["qmm_w8a16"] if qmm else [])
     if not all(counts[k] > 0 for k in kernels):
         raise AssertionError(f"[{tag}] a kernel of the path never launched: {counts}")
-    plain = {k: v for k, v in counts.items() if k.endswith(".plain") and v}
-    if plain:
-        raise AssertionError(f"[{tag}] llama3-8b took the plain route: {plain}")
+
+
+def small_parity(torch, pa, dev, nh, hkv, d):
+    """Both attention kernels at a small model's head shape (bf16 pool)
+    against their plain versions, with the phase-3 tolerances: a ragged
+    round of a decode row, two 32-wide chunk rows and an empty row, then a
+    decode step of the same rows. → (ragged, fused) max abs err."""
+    from distributed_gpu_inference_torch.ops.attention import paged_attention_ref
+
+    rng = np.random.default_rng(5)
+    b, s, m = 4, 32, 8
+    n = 1 + b * m
+    t = lambda a, dt=torch.bfloat16: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+    kp = t(rng.standard_normal((2, n, hkv, BK, d)))
+    vp = t(rng.standard_normal((2, n, hkv, BK, d)))
+    tables = t(np.arange(1, n).reshape(b, m), torch.int32)
+    lens = t([40, 90, 0, 128], torch.int32)
+    pos = np.full((b, s), -1)
+    pos[0, :1] = 39
+    pos[1, :32] = np.arange(58, 90)
+    pos[3, :32] = np.arange(96, 128)
+    pos = t(pos, torch.int32)
+    q = t(rng.standard_normal((b, s, nh, d)))
+    got = pa.ragged_paged_attention(q, kp[1], vp[1], tables, pos, lens, BK)
+    want = paged_attention_ref(q, kp[1], vp[1], tables, pos, lens, BK)
+    r_ok, r_err, r_vec = errors(torch, got, want, RAGGED_ATOL)
+    q1 = t(rng.standard_normal((b, 1, nh, d)))
+    nk = t(rng.standard_normal((b, 1, hkv, d)))
+    nv = t(rng.standard_normal((b, 1, hkv, d)))
+    p1 = (lens - 1).clamp(min=-1)[:, None].to(torch.int32)
+    kp2, vp2 = kp.clone(), vp.clone()
+    got, _, _ = pa.paged_decode_attention_fused(q1, nk, nv, kp, vp, 1, tables, p1, lens, BK)
+    want, _, _ = pa.paged_decode_attention_fused_plain(q1, nk, nv, kp2, vp2, 1, tables, p1,
+                                                       lens, BK)
+    d_ok, d_err, d_vec = errors(torch, got, want, FUSED_ATOL)
+    pools = torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    print(f"[small] kernels at Nh {nh}, Hkv {hkv}, D {d}, bf16 pool: ragged max_abs_err "
+          f"{r_err:.3e} max_vector_rel_err {r_vec:.3e} (bound atol {RAGGED_ATOL} rtol {RTOL}, "
+          f"vector {VEC_REL}); fused decode max_abs_err {d_err:.3e} max_vector_rel_err "
+          f"{d_vec:.3e} (bound atol {FUSED_ATOL}); pools bit-identical after the write: "
+          f"{pools}", flush=True)
+    if not (r_ok and d_ok and pools):
+        raise AssertionError(f"an attention kernel disagrees at head_dim {d}")
+    return r_err, d_err
 
 
 def small_model_phase(torch, pa):
     """Phase 12: the worker's default model (llama3-mini, head_dim 32) on
-    the card through the counted plain route."""
+    the card through both attention kernels."""
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
     llm = TorchLLMEngine({"model": "llama3-mini", "max_batch_size": 4, "max_seq_len": 256,
                           "device": "cuda", "seed": 0})
     llm.load_model()
-    vocab = llm.engine.model_cfg.vocab_size
+    mc = llm.engine.model_cfg
     try:
+        errs = small_parity(torch, pa, llm.engine.device, mc.num_heads, mc.num_kv_heads,
+                            mc.head_dim)
         seen = []
         real_submit = llm.serving.submit
 
@@ -1015,15 +1112,13 @@ def small_model_phase(torch, pa):
         del llm.serving.submit
     finally:
         llm.unload()
-    print(f"[small] llama3-mini (head_dim 32) on the card: 4 requests x 16 tokens; "
-          f"counts {counts}", flush=True)
+    print(f"[small] llama3-mini (head_dim {mc.head_dim}) on the card: 4 requests x 16 "
+          f"tokens; launches {counts}", flush=True)
     if any(o is None or o["usage"]["completion_tokens"] != 16 for o in outs) or \
-            len(seen) != 4 or not all(0 <= t < vocab for ids in seen for t in ids):
+            len(seen) != 4 or not all(0 <= t < mc.vocab_size for ids in seen for t in ids):
         raise AssertionError(f"llama3-mini did not serve: {outs} {seen}")
-    if not (counts["ragged_paged_attention.plain"] > 0
-            and counts["paged_decode_attention_fused.plain"] > 0):
-        raise AssertionError(f"llama3-mini did not take the plain route: {counts}")
-    return counts
+    check_counts("small", counts, qmm=False)
+    return errs, counts
 
 
 # ---------------------------------------------------------------- phases
@@ -1453,7 +1548,7 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
 
-    # ---- 12. a model whose head_dim the attention kernels do not take
+    # ---- 12. the worker's default model (head_dim 32) through both kernels
     small_model_phase(torch, pa)
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)

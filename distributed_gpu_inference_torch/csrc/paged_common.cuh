@@ -6,8 +6,8 @@
 //
 // Pool layout: one layer is [N, Hkv, Bk, D], so the slice of one (page, kv
 // head) is Bk contiguous rows of D elements and a key j of a sequence lives
-// at page table[j / Bk], slot j % Bk. A row is D * sizeof(T) bytes (64 to 512
-// at D 64..256, a multiple of 16), so a chunk of keys is copied as 16-byte
+// at page table[j / Bk], slot j % Bk. A row is D * sizeof(T) bytes (32 to 512
+// at D 32..256, a multiple of 16), so a chunk of keys is copied as 16-byte
 // cp.async vectors, one table lookup per key row; codes of an int8/fp8 pool
 // travel as codes (one byte each) and are widened to bf16 only after they
 // have arrived. int8 scales ([N, Bk] bf16 per layer) are 2 bytes per key and

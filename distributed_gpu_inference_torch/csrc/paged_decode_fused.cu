@@ -1,7 +1,8 @@
 // Fused decode step for Hopper (sm_90a): write this step's K/V row into its
 // page slot, then attend the row's single query over the updated paged
 // context — one layer of the stacked pools per call. Queries, new rows and
-// output are bf16; the pools are bf16, int8 (with scale pools) or fp8.
+// output are bf16; the pools are bf16, int8 (with scale pools) or fp8; the
+// head_dim is 32, 64, 128 or 256.
 //
 // Replaces the Pallas TPU kernel `_decode_kernel`, reached through
 // `_call_decode_kernel` (entry `paged_decode_attention_fused`) in
@@ -372,7 +373,8 @@ decode_split_kernel(const bf16* __restrict__ q,        // [B, Nh, D]
       }
     }
 
-    // ---- S = Q K^T: 16 rows x the warp's 8 keys (two accumulation chains)
+    // ---- S = Q K^T: 16 rows x the warp's 8 keys (two accumulation chains;
+    // D is a multiple of 32: one x4 ldmatrix covers 32 columns)
     float s0[4] = {0.f, 0.f, 0.f, 0.f};
     float s1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -544,6 +546,10 @@ int dispatch(const void* q, const void* new_k, const void* new_v, void* k_pool, 
   float* wml = static_cast<float*>(ws_ml);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32:
+      return launch<32, T>(qq, nk, nv, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B,
+                           Nh, Hkv, N, Bk, M, layer, window, pages_per_split, n_splits, scale,
+                           st);
     case 64:
       return launch<64, T>(qq, nk, nv, kp, vp, ks, vs, tables, positions, kv_lens, o, wo, wml, B,
                            Nh, Hkv, N, Bk, M, layer, window, pages_per_split, n_splits, scale,

@@ -1,5 +1,5 @@
 // Ragged paged attention for Hopper (sm_90a): bf16 queries and output over
-// a bf16, int8 or fp8 (e4m3) paged pool.
+// a bf16, int8 or fp8 (e4m3) paged pool, at head_dim 32, 64, 128 or 256.
 //
 // Replaces the Pallas TPU kernel `_ragged_kernel`, reached through
 // `ragged_paged_attention` in distributed_gpu_inference_tpu/ops/
@@ -441,6 +441,9 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32:
+      return launch<32, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh, Hkv,
+                           Bk, M, window, scale, st);
     case 64:
       return launch<64, T>(qq, kp, vp, ks, vs, tables, positions, kv_lens, o, B, S, Nh, Hkv,
                            Bk, M, window, scale, st);

@@ -26,16 +26,14 @@ split order in a second launch; the wrapper allocates that workspace. It
 reads no device tensor on the host, so both wrappers can be captured in a
 CUDA graph.
 
-On a CPU tensor a wrapper takes the plain version. On a CUDA tensor it
-asks :func:`kernel_takes` (head_dim, activation dtype, pool dtype — shapes
-and dtypes only, decided before anything launches): where the kernels take
-the operands it launches its kernel or raises; where they do not (the head
-dims of the small models, float32 activations) it computes the plain
-version on the card, as the JAX package routes such shapes to XLA. Each
+On a CUDA tensor a wrapper launches its kernel or raises; it takes the
+plain version only because the tensor it was given lies on the CPU. What
+the kernels take (:func:`kernel_takes`: head_dim 32/64/128/256, bf16
+activations, bf16/int8/fp8 pools) the engine checks when it loads a model
+on the card, so a model they do not take is refused there. Each
 wrapper counts its calls that launch in ``<wrapper>.launches`` — one per
-call (a split call's merge launch is part of it) and nowhere else — and
-its plain routes on the card in ``<wrapper>.plain_routes``, so a run can
-show which way its main path went.
+call (a split call's merge launch is part of it) and nowhere else — so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -53,7 +51,7 @@ from distributed_gpu_inference_torch.ops.attention import (
     write_quantized_kv,
 )
 
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (32, 64, 128, 256)
 _POOL_DTYPES = {torch.bfloat16: "bf16", torch.int8: "int8",
                 torch.float8_e4m3fn: "fp8"}
 _P = ctypes.c_void_p
@@ -93,8 +91,8 @@ def _kernel(source: str, pool_dtype: torch.dtype):
 def kernel_takes(head_dim: int, activation_dtype: torch.dtype,
                  pool_dtype: torch.dtype) -> bool:
     """Do the attention kernels take this head_dim, activation dtype and
-    KV pool dtype? The wrappers route what they do not take to the plain
-    version on the card."""
+    KV pool dtype? ``TorchEngine`` refuses, on the card, a model they do
+    not take; the wrappers raise on such operands."""
     return (head_dim in _HEAD_DIMS and activation_dtype == torch.bfloat16
             and pool_dtype in _POOL_DTYPES)
 
@@ -206,12 +204,6 @@ def ragged_paged_attention(
     _check_cuda(name, q.device, q=q, k_pool=k_pool, v_pool=v_pool,
                 block_tables=block_tables, positions=positions, kv_lens=kv_lens,
                 **scales)
-    if not kernel_takes(q.shape[-1], q.dtype, k_pool.dtype):
-        ragged_paged_attention.plain_routes += 1
-        return paged_attention_ref(
-            q, k_pool, v_pool, block_tables, positions, kv_lens, block_size,
-            window=window, k_scale=k_scale, v_scale=v_scale,
-        )
     b, s, nh, d = q.shape
     n, hkv, bk, d2 = k_pool.shape
     m = block_tables.shape[1]
@@ -244,7 +236,6 @@ def ragged_paged_attention(
 
 
 ragged_paged_attention.launches = 0
-ragged_paged_attention.plain_routes = 0
 
 
 # --------------------------------------------------------------------------
@@ -316,13 +307,6 @@ def paged_decode_attention_fused(
     _check_cuda(name, q.device, q=q, new_k=new_k, new_v=new_v, k_pool=k_pool,
                 v_pool=v_pool, block_tables=block_tables, positions=positions,
                 kv_lens=kv_lens, **scales)
-    if not kernel_takes(q.shape[-1], q.dtype, k_pool.dtype):
-        paged_decode_attention_fused.plain_routes += 1
-        return paged_decode_attention_fused_plain(
-            q, new_k, new_v, k_pool, v_pool, layer_idx, block_tables,
-            positions, kv_lens, block_size, window=window,
-            k_scale=k_scale, v_scale=v_scale,
-        )
     b, s, nh, d = q.shape
     nl, n, hkv, bk, d2 = k_pool.shape
     m = block_tables.shape[1]
@@ -354,7 +338,6 @@ def paged_decode_attention_fused(
 
 
 paged_decode_attention_fused.launches = 0
-paged_decode_attention_fused.plain_routes = 0
 
 
 def launch_decode_kernel(q, new_k, new_v, k_pool, v_pool, layer_idx, block_tables, positions,
@@ -391,15 +374,10 @@ KERNEL_WRAPPERS = (ragged_paged_attention, paged_decode_attention_fused, qmm_w8a
 
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel wrapper of the port (the quantized matmul
-    of ``ops/qmm.py`` included) since the last reset, and under
-    ``<wrapper>.plain`` the calls each routed to its plain version on the
-    card."""
-    out = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-    out.update({f"{fn.__name__}.plain": fn.plain_routes for fn in KERNEL_WRAPPERS})
-    return out
+    of ``ops/qmm.py`` included) since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-        fn.plain_routes = 0

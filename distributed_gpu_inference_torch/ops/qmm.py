@@ -8,11 +8,7 @@ rounding to x's dtype. CUDA source: ``csrc/qmm_w8a16.cu``; replaces the
 Pallas kernel ``_qmm_kernel`` (JAX package, ``ops/qmm_pallas.py``
 ``qmm_stacked_pallas``).
 
-On a CUDA tensor, operands the kernel does not take (:func:`kernel_takes`:
-activations other than bf16, codes other than int8 / e4m3, K or N not a
-multiple of 16) take :func:`qmm_plain` on the card, counted in
-``qmm_w8a16.plain_routes`` — the JAX package's ``_pallas_qmm_ok`` gate,
-which sends such shapes to XLA. The rest is dispatched by rows:
+Dispatch by rows, on a CUDA tensor:
 
 - ``M <= MAX_KERNEL_ROWS``: the hand-written kernel (every decode step's
   projections: M is the batch). One launch a call: K is split across
@@ -143,10 +139,6 @@ def qmm_w8a16(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     library route; on a CPU tensor, :func:`qmm_plain`."""
     if x.device.type == "cpu":
         return qmm_plain(x, qw, scale, layer)
-    if not kernel_takes(x.dtype, qw.dtype, scale.dtype, qw.shape[-2], qw.shape[-1]):
-        _check_devices("qmm_w8a16", x, qw, scale)
-        qmm_w8a16.plain_routes += 1
-        return qmm_plain(x, qw, scale, layer)
     _check("qmm_w8a16", x, qw, scale, layer)
     if x.shape[0] > MAX_KERNEL_ROWS:
         qw, scale = _as_stacked(qw, scale)
@@ -155,18 +147,12 @@ def qmm_w8a16(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
 
 
 qmm_w8a16.launches = 0
-qmm_w8a16.plain_routes = 0
 
 
-def kernel_takes(x_dtype: torch.dtype, code_dtype: torch.dtype, scale_dtype: torch.dtype,
-                 k: int, n: int) -> bool:
-    """Does the kernel take these dtypes and this ``[K, N]``? What it does
-    not take, ``qmm_w8a16`` routes to the plain version on the card."""
-    return (x_dtype == torch.bfloat16 and code_dtype in _CODE_DTYPES
-            and scale_dtype == torch.float32 and k % 16 == 0 and n % 16 == 0)
-
-
-def _check_devices(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor) -> None:
+def _check(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+           layer: int) -> None:
+    """Refuse what the kernel does not take (it runs on every projection
+    of a decode step, so the common case is tested first, in few steps)."""
     dev = x.device
     if not (x.is_cuda and qw.device == dev and scale.device == dev and x.is_contiguous()
             and qw.is_contiguous() and scale.is_contiguous()):
@@ -175,13 +161,6 @@ def _check_devices(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Te
                 raise ValueError(f"{name}: {key} must be a CUDA tensor on {dev}, got {t.device}")
             if not t.is_contiguous():
                 raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _check(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-           layer: int) -> None:
-    """Refuse what the kernel does not take (it runs on every projection
-    of a decode step, so the common case is tested first, in few steps)."""
-    _check_devices(name, x, qw, scale)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
     if qw.dtype not in _CODE_DTYPES:

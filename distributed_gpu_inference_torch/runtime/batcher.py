@@ -591,12 +591,18 @@ class ContinuousBatcher:
             if item.preempted is not None:
                 # resume a preempted sequence: head-of-line, restores
                 # cached/spilled pages through the normal allocate+prefill
-                # path. Pool still too tight → stop admitting ANYTHING this
-                # pass (new work must not steal the blocks the resume
-                # needs) and retry next loop.
+                # path (in ragged mode as a ragged admission, whose
+                # recompute rides the next rounds as a prompt does). Pool
+                # still too tight → stop admitting ANYTHING this pass (new
+                # work must not steal the blocks the resume needs) and
+                # retry next loop.
+                ragged = self.use_ragged
                 try:
-                    slot = await loop.run_in_executor(
-                        self._exec, self.engine.resume, item.preempted,
+                    got = await loop.run_in_executor(
+                        self._exec,
+                        self.engine.resume_chunked_start if ragged
+                        else self.engine.resume,
+                        item.preempted,
                     )
                 except OutOfBlocksError:
                     if self.engine.num_active == 0 and \
@@ -643,13 +649,21 @@ class ContinuousBatcher:
                         ))
                         self.stats["completed"] += 1
                     continue
-                item.preempted = None
                 item.idle_resume_oob = 0
+                self.stats["resumes"] += 1
+                slot = got.slot if ragged else got
                 if slot in free:
                     free.remove(slot)
+                if ragged:
+                    # ``preempted`` stays set until the first token lands:
+                    # a cancel or drain mid-prefill still hands back the
+                    # checkpoint's tokens
+                    self._ragged.append((got, item))
+                    self.stats["ragged_admissions"] += 1
+                    continue
+                item.preempted = None
                 self._slot_items[slot] = item
                 self._admit_stamp[slot] = next(self._stamp)
-                self.stats["resumes"] += 1
                 admitted += 1
                 continue
             if self.use_ragged:
@@ -1005,16 +1019,20 @@ class ContinuousBatcher:
                 pass
             if item.future.done():
                 continue
+            pre = item.preempted     # a resume mid-prefill keeps its tokens
             if cancelled:
                 item.future.set_result(InferenceResponse(
                     request_id=item.request.request_id,
+                    token_ids=list(pre.generated) if pre else [],
                     finish_reason="abort",
-                    prompt_tokens=len(item.request.prompt_token_ids or []),
+                    prompt_tokens=pre.prompt_len if pre
+                    else len(item.request.prompt_token_ids or []),
+                    completion_tokens=len(pre.generated) if pre else 0,
                 ))
                 self.stats["completed"] += 1
                 self.stats["cancelled"] += 1
             else:
-                pre = synthesize_checkpoint(item.request)
+                pre = pre or synthesize_checkpoint(item.request)
                 pre.preempt_count = item.preempt_count
                 item.future.set_exception(RequestMigrated(pre))
                 self.stats["migrated"] += 1
@@ -1195,6 +1213,7 @@ class ContinuousBatcher:
                 # below then resolves any that immediately hit stop/length)
                 for adm, item in [p for p in self._ragged if p[0].done]:
                     self._ragged.remove((adm, item))
+                    item.preempted = None
                     self._slot_items[adm.slot] = item
                     self._admit_stamp[adm.slot] = next(self._stamp)
                     self.stats["admitted"] += 1

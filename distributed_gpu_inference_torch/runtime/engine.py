@@ -17,8 +17,8 @@ and exposes the surface the continuous batcher drives: ``submit`` /
 ``submit_batch``, chunk-interleaved admission, ``ragged_round`` (decode rows
 and prefill-chunk rows in one forward), ``decode_multi`` (T decode steps with
 stop/budget masking on the device and one host read at the end),
-``snapshot_slot`` / ``preempt_slot`` / ``resume``, ``finish_slot`` and
-``generate``.
+``snapshot_slot`` / ``preempt_slot`` / ``resume`` (or
+``resume_chunked_start``, its ragged form), ``finish_slot`` and ``generate``.
 
 Failure semantics: the JAX engine's device calls were functional, so a
 failed call left the old pools intact. Here a round updates the pools in
@@ -46,6 +46,7 @@ from distributed_gpu_inference_torch.models.configs import (
     ModelConfig,
     get_model_config,
 )
+from distributed_gpu_inference_torch.ops.paged_attention import kernel_takes
 from distributed_gpu_inference_torch.ops.quantization import (
     QUANT_MODES,
     quantize_params,
@@ -86,6 +87,19 @@ def _resolve_kv_dtype(kv_cache_dtype: Optional[str],
             f"unknown kv_cache_dtype {kv_cache_dtype!r}; use {sorted(alias)}"
         )
     return alias[kv_cache_dtype]
+
+
+def check_kernels_take(model_cfg: ModelConfig, dtype: torch.dtype,
+                       kv_dtype: torch.dtype) -> None:
+    """Refuse a model the CUDA attention kernels do not take (head_dim,
+    activation dtype, KV pool dtype): on the card every round runs them,
+    so such a model would fail its first round instead of loading."""
+    if not kernel_takes(model_cfg.head_dim, dtype, kv_dtype):
+        raise ValueError(
+            f"{model_cfg.name}: the CUDA attention kernels take head_dim 32, "
+            f"64, 128 or 256, bf16 activations and bf16/int8/fp8 KV pools; "
+            f"got head_dim {model_cfg.head_dim}, {dtype}, pool {kv_dtype}"
+        )
 
 
 @dataclass
@@ -317,6 +331,8 @@ class TorchEngine:
             raise NotImplementedError("MoE models are not ported yet")
         self.dtype = llama.torch_dtype(self.cfg.dtype)
         self.kv_dtype = _resolve_kv_dtype(self.cfg.kv_cache_dtype, self.dtype)
+        if self.device.type == "cuda":
+            check_kernels_take(self.model_cfg, self.dtype, self.kv_dtype)
         mode = self.cfg.quantization
         if mode is not None and mode not in QUANT_MODES:
             raise ValueError(f"unknown quantization {mode!r}; use {QUANT_MODES}")
@@ -562,6 +578,26 @@ class TorchEngine:
         generated token, the prefix cache restores what it still holds and
         the prefill recomputes the rest. Raises OutOfBlocksError (state
         untouched) when the pool still cannot hold the sequence."""
+        slot = self.submit(self._resume_request(pre), slot=slot)
+        self._restore_resumed(slot, pre)
+        return slot
+
+    def resume_chunked_start(self, pre: PreemptedSequence,
+                             slot: Optional[int] = None) -> ChunkedAdmission:
+        """:meth:`resume` as a chunk-interleaved admission: the recompute
+        rides the next ragged round(s) as a fresh admission's prompt does,
+        so a resume computes what the original admission computed — a
+        zero-token checkpoint resumed on the same engine state reproduces
+        the original run bit for bit."""
+        adm = self.submit_chunked_start(self._resume_request(pre), slot=slot)
+        self._restore_resumed(adm.slot, pre)
+        return adm
+
+    @staticmethod
+    def _resume_request(pre: PreemptedSequence) -> InferenceRequest:
+        """The request that re-admits ``pre``: its prompt plus every
+        generated token as the prompt, the remaining budget, and the
+        checkpoint's key words as the seed."""
         sp = pre.request.sampling
         remaining = sp.max_new_tokens - len(pre.generated)
         if remaining <= 0:
@@ -569,13 +605,16 @@ class TorchEngine:
         token_ids = list(pre.request.prompt_token_ids or []) + \
             list(pre.generated)
         seed = (pre.slot_key[0] << 32) | pre.slot_key[1]
-        derived = replace(
+        return replace(
             pre.request,
             prompt_token_ids=token_ids,
             session_id=None,
             sampling=replace(sp, max_new_tokens=remaining, seed=seed),
         )
-        slot = self.submit(derived, slot=slot)
+
+    def _restore_resumed(self, slot: int, pre: PreemptedSequence) -> None:
+        """Give a re-admitted slot back the checkpoint's request, prompt
+        length, generated tokens and times."""
         s = self.slots[slot]
         assert s is not None
         s.request = pre.request
@@ -587,7 +626,6 @@ class TorchEngine:
             s.first_token_time = pre.first_token_time
         self.stats["requests"] -= 1          # not a new client request
         self.stats["resumes"] += 1
-        return slot
 
     def _validate_request(self, request: InferenceRequest) -> List[int]:
         token_ids = request.prompt_token_ids

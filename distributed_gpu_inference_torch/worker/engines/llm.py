@@ -473,15 +473,14 @@ class TorchLLMEngine(LLMBaseEngine):
                         cached_tokens: int, finish_reason: str,
                         cfg: GenerationConfig, ttft_ms: Optional[float],
                         e2e_s: float) -> Dict[str, Any]:
-        """Result payload: decode + stop-string truncation."""
+        """Result payload: decode + stop-string truncation at the earliest
+        stop string, as the stream cuts it (:class:`_StreamSplicer`)."""
         out_text = self.tokenizer.decode(token_ids) if self.tokenizer else ""
         finish = finish_reason
-        for s in cfg.stop:
-            idx = out_text.find(s)
-            if idx >= 0:
-                out_text = out_text[:idx]
-                finish = "stop"
-                break
+        cuts = [i for i in (out_text.find(s) for s in cfg.stop) if i >= 0]
+        if cuts:
+            out_text = out_text[:min(cuts)]
+            finish = "stop"
         return GenerationResult(
             text=out_text,
             prompt_tokens=prompt_tokens,
@@ -504,52 +503,6 @@ class TorchLLMEngine(LLMBaseEngine):
         if self.serving is None or not self.serving.active:
             raise EngineLoadError("engine not loaded")
         return self._stream_serving(params, cancel=cancel)
-
-    def _stream_checkpoint_tail(self, pre: PreemptedSequence,
-                                cfg: GenerationConfig, stamp: Any,
-                                holdback: int, resume_from: int,
-                                resume_text: int):
-        """Serve the un-consumed tail of a COMPLETE checkpoint (the donor
-        died between its last decode and the final event) straight from
-        it, through the same stop-string/holdback rules the live loop
-        uses — the client must receive exactly the text an undropped run
-        would have (incl. the held-back chars and the stop-truncated
-        finish)."""
-        gen = list(pre.generated)
-        m = min(resume_from, len(gen))
-        full = self.tokenizer.decode(gen)
-        stop_idx = -1
-        for st_ in cfg.stop:
-            idx = full.find(st_)
-            if idx >= 0 and (stop_idx < 0 or idx < stop_idx):
-                stop_idx = idx
-        finish = "length"
-        target = full
-        if stop_idx >= 0:
-            target = full[:stop_idx]
-            finish = "stop"
-        raw_prev = self.tokenizer.decode(gen[:m])
-        prev = raw_prev
-        if holdback:
-            prev = prev[:max(len(prev) - holdback, 0)]
-        if resume_text > len(prev):
-            # the client already received part of the held-back tail (a
-            # flush crossed before the drop) — never re-deliver those
-            # characters
-            prev = target[:resume_text]
-        delta = target[len(prev):] if len(prev) < len(target) else ""
-        tail = [] if stop_idx >= 0 else gen[m:]
-        if delta or tail:
-            yield stamp({"text_delta": delta, "token_ids": tail}, len(gen))
-        yield stamp({
-            "done": True, "finish_reason": finish,
-            "usage": {
-                "prompt_tokens": pre.prompt_len,
-                "completion_tokens": len(gen),
-                "total_tokens": pre.prompt_len + len(gen),
-                "cached_tokens": pre.cached_tokens,
-            },
-        }, len(gen))
 
     def _stream_serving(self, params: Dict[str, Any],
                         cancel: Optional[Any] = None):
@@ -583,9 +536,26 @@ class TorchLLMEngine(LLMBaseEngine):
             remaining = (pre.request.sampling.max_new_tokens
                          - len(pre.generated))
             if remaining <= 0:
-                yield from self._stream_checkpoint_tail(
-                    pre, cfg, stamp, holdback, resume_from, resume_text
-                )
+                # the checkpoint holds the whole generation (the donor died
+                # between its last decode and the final event): serve its
+                # unconsumed tail straight from it, through the live
+                # loop's splice, stop and holdback rules
+                sp = _StreamSplicer(self.tokenizer, cfg, holdback,
+                                    resume_from, resume_text)
+                gen = list(pre.generated)
+                chunk, _ = sp.advance(gen, finished=True)
+                if chunk is not None:
+                    yield stamp(chunk, sp.sent_tokens)
+                yield stamp({
+                    "done": True,
+                    "finish_reason": sp.finish_override or "length",
+                    "usage": {
+                        "prompt_tokens": pre.prompt_len,
+                        "completion_tokens": len(gen),
+                        "total_tokens": pre.prompt_len + len(gen),
+                        "cached_tokens": pre.cached_tokens,
+                    },
+                }, sp.sent_tokens)
                 return
             req = pre.request
         else:
@@ -874,33 +844,25 @@ class TorchLLMEngine(LLMBaseEngine):
     def batch_inference(self, batch: List[Dict[str, Any]]
                         ) -> List[Dict[str, Any]]:
         """Every request of the batch submitted at once to the batcher (the
-        engine's one caller), so they share rounds; payloads in
-        order, stop strings cut as in the JAX package's batch path."""
+        engine's one caller), so they share rounds; payloads in order, built
+        as the blocking path builds them."""
         if self.serving is None or not self.serving.active:
             raise EngineLoadError("engine not loaded")
         cfgs = [GenerationConfig.from_params(p) for p in batch]
         reqs = [self._build_request(p.get("messages") or p.get("prompt") or "", c)
                 for p, c in zip(batch, cfgs)]
+        t0 = time.perf_counter()
         futs = [self.serving.submit_async(r) for r in reqs]
         out = []
         for fut, cfg in zip(futs, cfgs):
             resp = fut.result()
             if resp.error is not None:
                 _raise_serving(resp)
-            text = self.tokenizer.decode(resp.token_ids)
-            for s in cfg.stop:
-                idx = text.find(s)
-                if idx >= 0:
-                    text = text[:idx]
-                    break
-            out.append(GenerationResult(
-                text=text,
-                prompt_tokens=resp.prompt_tokens,
-                completion_tokens=resp.completion_tokens,
-                cached_tokens=resp.cached_tokens,
-                finish_reason=resp.finish_reason or "stop",
-                ttft_ms=resp.ttft_ms,
-            ).to_result_payload())
+            out.append(self._finish_payload(
+                list(resp.token_ids), resp.prompt_tokens, resp.cached_tokens,
+                resp.finish_reason or "stop", cfg, resp.ttft_ms,
+                time.perf_counter() - t0,
+            ))
         return out
 
     def health(self) -> Dict[str, Any]:

@@ -4,7 +4,8 @@ JAX ``TPUEngine.snapshot_slot`` resumes in the port's ``_job_inference``,
 one taken by ``TorchEngine.snapshot_slot`` resumes in the JAX engine and
 the JAX worker, and a drain (``interrupt_live``) raises ``JobMigrated`` with
 a checkpoint that resumes in either — each with greedy tokens identical to
-an uninterrupted JAX run. Also the edges: a complete checkpoint is served
+an uninterrupted JAX run. A resume is a ragged admission, and a drain
+that lands mid-prefill keeps its tokens. Also the edges: a complete checkpoint is served
 without the engine, a corrupt one degrades to a fresh run, and
 ``checkpoint_live`` never checkpoints a slot reused by another request."""
 
@@ -225,6 +226,43 @@ def test_drain_raises_job_migrated_with_a_resumable_checkpoint(
         del worker.serving.submit
     assert seen == [reference]
     assert out["usage"]["completion_tokens"] == NEW
+
+
+def test_resume_rides_a_ragged_round_and_a_drain_mid_prefill_keeps_its_tokens(
+        weights, port, reference, monkeypatch):
+    # a resume is admitted as a ragged admission: its recompute rides the
+    # next ragged round as a prompt does
+    t = _port_engine(weights)
+    slot = t.submit(_req(tds))
+    while len(t.slots[slot].generated) < 9:
+        t.decode_multi(1)
+    wire = t.snapshot_slot(slot).to_wire()
+    ragged = port.serving.get_stats()["ragged_admissions"]
+    seen = _recording(port)
+    try:
+        port._job_inference(_params(), {"key": "rr", "checkpoint": wire})
+    finally:
+        del port.serving.submit
+    assert seen == [reference]
+    assert port.serving.get_stats()["ragged_admissions"] == ragged + 1
+    # a drain that lands while the resume is still mid-prefill (its round
+    # gave it no chunk) hands back the checkpoint's tokens, not a fresh
+    # zero-token checkpoint
+    eng = port.engine
+
+    def chunkless_round(adms, caps=None):
+        port.interrupt_live()
+        return {}
+
+    monkeypatch.setattr(eng, "ragged_round", chunkless_round)
+    try:
+        with pytest.raises(JobMigrated) as ei:
+            port._job_inference(_params(), {"key": "rr2", "checkpoint": wire})
+    finally:
+        port._interrupt.clear()
+        monkeypatch.undo()
+    assert ei.value.checkpoint["generated"] == reference[:9] == wire["generated"]
+    assert eng.num_active == 0 and port._live == {}
 
 
 def test_complete_checkpoint_is_delivered_without_the_engine(weights, port, reference):

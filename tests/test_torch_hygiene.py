@@ -1,10 +1,9 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
 package (nor aiohttp, httpx or transformers, which the card's machine
-lacks), runs on CUDA unless asked for the CPU, and its kernel wrappers
-never fall back to the plain version for a tensor that is not on the CPU;
-on the card they route only the shapes and dtypes the kernels do not take
-to the plain version, by one rule each. Tests that need the card carry the
-``gpu`` marker and skip without one."""
+lacks), runs on CUDA unless asked for the CPU, its kernel wrappers never
+fall back to the plain version for a tensor that is not on the CPU, and
+the engine refuses on the card a model the kernels do not take. Tests
+that need the card carry the ``gpu`` marker and skip without one."""
 
 import ast
 import pathlib
@@ -75,11 +74,9 @@ def _meta_calls(d, dtype):
         tpa.qmm_w8a16(torch.empty((4, 64), dtype=dtype, device="meta"),
                       torch.empty((2, 64, 32), dtype=torch.int8, device="meta"),
                       torch.empty((2, 1, 32), dtype=torch.float32, device="meta"), 1)
-    # no launch, and no plain route either
     assert tpa.launch_counts() == {
         "ragged_paged_attention": 0, "paged_decode_attention_fused": 0,
-        "qmm_w8a16": 0, "ragged_paged_attention.plain": 0,
-        "paged_decode_attention_fused.plain": 0, "qmm_w8a16.plain": 0,
+        "qmm_w8a16": 0,
     }
 
 
@@ -89,10 +86,10 @@ def test_kernel_wrappers_refuse_non_cpu_tensors_without_cuda():
     _meta_calls(64, torch.bfloat16)
 
 
-@pytest.mark.parametrize("d,dtype", [(32, torch.bfloat16), (64, torch.float32)])
+@pytest.mark.parametrize("d,dtype", [(16, torch.bfloat16), (64, torch.float32)])
 def test_kernel_wrappers_refuse_non_cpu_tensors_of_routed_shapes(d, dtype):
-    # shapes and dtypes the kernels do not take still raise off the card:
-    # the plain route is taken on CUDA tensors only
+    # shapes and dtypes the kernels do not take raise too: no wrapper
+    # computes the plain version for a tensor that is not on the CPU
     _meta_calls(d, dtype)
 
 
@@ -100,28 +97,33 @@ def test_kernel_wrappers_refuse_non_cpu_tensors_of_routed_shapes(d, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
 def test_attention_routing_rule(head_dim, dtype, pool):
-    # the kernels take bf16 activations at head dims 64/128/256 over bf16,
-    # int8 and fp8 pools; everything else (the tiny and mini models' 16 and
-    # 32, float32 activations) takes the plain version on the card
-    want = head_dim in (64, 128, 256) and dtype == torch.bfloat16
+    # the kernels take bf16 activations at head dims 32/64/128/256 over
+    # bf16, int8 and fp8 pools; not the tiny models' 16, nor float32
+    want = head_dim in (32, 64, 128, 256) and dtype == torch.bfloat16
     assert tpa.kernel_takes(head_dim, dtype, pool) is want
     assert tpa.kernel_takes(head_dim, dtype, torch.float32) is False
 
 
-@pytest.mark.parametrize("x_dtype,codes,k,n,want", [
-    (torch.bfloat16, torch.int8, 4096, 1024, True),
-    (torch.bfloat16, torch.float8_e4m3fn, 256, 640, True),
-    (torch.float32, torch.int8, 4096, 1024, False),
-    (torch.float16, torch.int8, 4096, 1024, False),
-    (torch.bfloat16, torch.bfloat16, 4096, 1024, False),
-    (torch.bfloat16, torch.int8, 4104, 1024, False),
-    (torch.bfloat16, torch.int8, 4096, 1000, False),
+@pytest.mark.parametrize("model,dtype,kv,takes", [
+    ("llama3-mini", torch.bfloat16, torch.bfloat16, True),   # head_dim 32
+    ("llama3-mini", torch.bfloat16, torch.int8, True),
+    ("llama3-8b", torch.bfloat16, torch.float8_e4m3fn, True),
+    ("qwen2.5-0.5b", torch.bfloat16, torch.bfloat16, True),  # head_dim 64
+    ("llama3-tiny", torch.bfloat16, torch.bfloat16, False),  # head_dim 16
+    ("llama3-mini", torch.float32, torch.float32, False),
+    ("llama3-8b", torch.float16, torch.float16, False),
 ])
-def test_qmm_routing_rule(x_dtype, codes, k, n, want):
-    from distributed_gpu_inference_torch.ops import qmm
+def test_engine_refuses_on_the_card_a_model_the_kernels_do_not_take(model, dtype, kv,
+                                                                    takes):
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.runtime.engine import check_kernels_take
 
-    assert qmm.kernel_takes(x_dtype, codes, torch.float32, k, n) is want
-    assert qmm.kernel_takes(x_dtype, codes, torch.bfloat16, k, n) is False
+    cfg = get_model_config(model)
+    if takes:
+        check_kernels_take(cfg, dtype, kv)
+    else:
+        with pytest.raises(ValueError, match="CUDA attention kernels take"):
+            check_kernels_take(cfg, dtype, kv)
 
 
 @pytest.fixture
@@ -343,6 +345,7 @@ def _bits(t):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,bk,kind,nh,window", [
+    (32, 16, "bf16", 8, None), (32, 16, "int8", 8, 300),
     (64, 8, "bf16", 8, None), (64, 32, "int8", 8, 300), (128, 16, "bf16", 48, 300),
     (128, 8, "fp8", 8, None), (128, 32, "int8", 40, None), (256, 32, "bf16", 8, 300),
     (256, 8, "int8", 8, None), (256, 16, "fp8", 8, 300),
@@ -422,9 +425,9 @@ def test_split_kernels_match_plain_versions_on_the_card(cuda, d, bk, kind, nh, w
 
 
 @pytest.mark.gpu
-def test_small_head_dim_model_serves_through_the_plain_route_on_the_card(cuda):
+def test_small_head_dim_model_serves_through_the_kernels_on_the_card(cuda):
     # llama3-mini (head_dim 32, the worker's default model) on the card:
-    # attention takes the counted plain route, no round fails
+    # both attention kernels launch, no round fails
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
     llm = TorchLLMEngine({"model": "llama3-mini", "max_batch_size": 4,
@@ -436,9 +439,8 @@ def test_small_head_dim_model_serves_through_the_plain_route_on_the_card(cuda):
                                      "ignore_eos": True} for i in range(4)])
         counts = tpa.launch_counts()
         assert all(o["usage"]["completion_tokens"] == 16 for o in outs)
-        assert counts["ragged_paged_attention.plain"] > 0
-        assert counts["paged_decode_attention_fused.plain"] > 0
-        assert counts["ragged_paged_attention"] == counts["paged_decode_attention_fused"] == 0
+        assert counts["ragged_paged_attention"] > 0
+        assert counts["paged_decode_attention_fused"] > 0
         # the engine is still usable: no round failed part-way
         assert llm.inference({"prompt": "again", "max_new_tokens": 4})["usage"][
             "completion_tokens"] >= 1

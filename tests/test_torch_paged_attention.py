@@ -201,11 +201,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     tpa.ragged_paged_attention(*args, block_size=16)
     tpa.qmm_w8a16(torch.ones((2, 16), dtype=torch.bfloat16),
                   torch.ones((16, 16), dtype=torch.int8), torch.ones((1, 16)))
-    # the CPU's plain version is not the counted plain route of the card
     assert tpa.launch_counts() == {
         "ragged_paged_attention": 0, "paged_decode_attention_fused": 0,
-        "qmm_w8a16": 0, "ragged_paged_attention.plain": 0,
-        "paged_decode_attention_fused.plain": 0, "qmm_w8a16.plain": 0,
+        "qmm_w8a16": 0,
     }
 
 
