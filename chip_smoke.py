@@ -95,10 +95,37 @@ The serving surface (the worker's direct mode):
     shape (Nh 8, Hkv 4, D 32) against their plain versions with the
     phase-3 tolerances, then ``TorchLLMEngine`` with its default
     ``llama3-mini`` serves 4 requests of 16 tokens through both kernels
-    (counters zeroed before, read after).
+    (counters zeroed before, read after), then both kernels timed at that
+    head shape on phase 5's round and decode step, as phase 5 times them
+    (``@d32`` entries).
+
+The worker process:
+
+13. worker — ``worker/cli.py`` ``cmd_start`` on a thread starts worker A
+    from a JSON config in a temp dir (``engines.llm``: llama3-8b with int8
+    weights and the default bf16 KV pool; the direct server on port 0;
+    polls every 0.05 s, heartbeats every 0.5 s; 8 concurrent jobs) against
+    :class:`StandInPlane`, the plane's worker routes on ``http.server``
+    (HMAC-checked, epoch-fenced). It registers with a topology naming the
+    card; one direct ``POST /inference/stream`` and the 8 serving prompts
+    as polled jobs of 32 greedy tokens complete (ids in vocabulary, text =
+    decode(ids), usage right); a ``serving.target_step_ms`` pushed through
+    the plane's config reaches the live batcher; a 256-token job is
+    drained once a heartbeat checkpoint holds 8 tokens
+    (``request_shutdown``): it migrates with its checkpoint, worker A goes
+    offline, unloads and hands the card's memory back; its heartbeats
+    carried the batcher's ``capacity``, a prefix summary, a job checkpoint
+    and more than one active slot. Worker B, started from the same file,
+    keeps the worker id through the persisted credentials, claims the
+    requeued job and completes it with the checkpoint's tokens first; where
+    it parts from an undropped run of the same job the script prints both
+    runs' top-2 logits. Counters zeroed before, read after: all three
+    kernels launched. Job latency from queue to completion and the
+    heartbeat round trip are information.
 
 The last four lines are the script's seconds, the kernels JSON (every entry
-with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10), the
+with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
+entries for phase 12), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -215,17 +242,18 @@ def errors(torch, got, want, atol):
 
 # ---------------------------------------------------------------- inputs
 
-def ragged_round_case(torch, dev, window=None):
+def ragged_round_case(torch, dev, window=None, hs=(NH, HKV, D)):
     """One ragged round at serving shapes: 8 rows x 256-wide bucket mixing
     decode rows, 256-wide chunk rows (first and continuing), a pad row, a
     row over a cached prefix (its table shares another row's first 8
-    pages) and a short chunk with a padded tail."""
+    pages) and a short chunk with a padded tail; heads (Nh, Hkv, D) ``hs``."""
+    nh, hkv, d = hs
     rng = np.random.default_rng(1)
     b, s = 8, 256
     n = 1 + b * M
-    kp = torch.tensor(rng.standard_normal((n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
-    vp = torch.tensor(rng.standard_normal((n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
-    q = torch.tensor(rng.standard_normal((b, s, NH, D)), dtype=torch.bfloat16, device=dev)
+    kp = torch.tensor(rng.standard_normal((n, hkv, BK, d)), dtype=torch.bfloat16, device=dev)
+    vp = torch.tensor(rng.standard_normal((n, hkv, BK, d)), dtype=torch.bfloat16, device=dev)
+    q = torch.tensor(rng.standard_normal((b, s, nh, d)), dtype=torch.bfloat16, device=dev)
     tables = np.arange(1, n, dtype=np.int32).reshape(b, M)
     tables[5, :8] = tables[2, :8]            # row 5 reuses row 2's prefix
     tables[4] = 0                            # pad row
@@ -242,17 +270,18 @@ def ragged_round_case(torch, dev, window=None):
     return q, kp, vp, t(tables), t(pos), t(lens), (tables, pos, lens)
 
 
-def decode_case(torch, dev):
+def decode_case(torch, dev, hs=(NH, HKV, D)):
     """One decode step of 8 rows of different lengths, one inactive, on
-    two-layer stacked pools (layer 1 addressed)."""
+    two-layer stacked pools (layer 1 addressed); heads (Nh, Hkv, D) ``hs``."""
+    nh, hkv, d = hs
     rng = np.random.default_rng(2)
     b, L = 8, 2
     n = 1 + b * M
-    kp = torch.tensor(rng.standard_normal((L, n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
-    vp = torch.tensor(rng.standard_normal((L, n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
-    q = torch.tensor(rng.standard_normal((b, 1, NH, D)), dtype=torch.bfloat16, device=dev)
-    nk = torch.tensor(rng.standard_normal((b, 1, HKV, D)), dtype=torch.bfloat16, device=dev)
-    nv = torch.tensor(rng.standard_normal((b, 1, HKV, D)), dtype=torch.bfloat16, device=dev)
+    kp = torch.tensor(rng.standard_normal((L, n, hkv, BK, d)), dtype=torch.bfloat16, device=dev)
+    vp = torch.tensor(rng.standard_normal((L, n, hkv, BK, d)), dtype=torch.bfloat16, device=dev)
+    q = torch.tensor(rng.standard_normal((b, 1, nh, d)), dtype=torch.bfloat16, device=dev)
+    nk = torch.tensor(rng.standard_normal((b, 1, hkv, d)), dtype=torch.bfloat16, device=dev)
+    nv = torch.tensor(rng.standard_normal((b, 1, hkv, d)), dtype=torch.bfloat16, device=dev)
     tables = np.arange(1, n, dtype=np.int32).reshape(b, M)
     lens = np.array([1, 17, 96, 129, 300, 513, 0, 632], np.int32)   # row 6 inactive
     tables[6] = 0
@@ -261,13 +290,14 @@ def decode_case(torch, dev):
     return q, nk, nv, kp, vp, 1, t(tables), t(pos), t(lens), lens
 
 
-def ragged_cost(tables, pos, lens, window, kv_bytes=2, scale_bytes=0):
+def ragged_cost(tables, pos, lens, window, kv_bytes=2, scale_bytes=0, hs=(NH, HKV, D)):
     """(bytes, flops) the ragged round needs: q of the live positions once,
     out of every position once (pad outputs are written as zeros), K and V
     of each distinct (page, slot) that some row's visible key range covers
     once (a prefix two rows share is read once; ``kv_bytes`` per element
     and ``scale_bytes`` per token of each pool), tables/positions/lengths
-    once; 4*D flops per visible (query head, key) pair."""
+    once; 4*D flops per visible (query head, key) pair; heads ``hs``."""
+    nh, hkv, d = hs
     b, s = pos.shape
     pairs, slots = 0, []
     for i in range(b):
@@ -283,9 +313,9 @@ def ragged_cost(tables, pos, lens, window, kv_bytes=2, scale_bytes=0):
             pairs += max(min(int(p) + 1, int(lens[i])) - first, 0)
     keys = np.unique(np.concatenate(slots)).size if slots else 0
     live_q = int((pos >= 0).sum())
-    nbytes = ((live_q + b * s) * NH * D * 2 + keys * (HKV * D * kv_bytes + scale_bytes) * 2
+    nbytes = ((live_q + b * s) * nh * d * 2 + keys * (hkv * d * kv_bytes + scale_bytes) * 2
               + (b * tables.shape[1] + b * s + b) * 4)
-    return nbytes, 4 * D * NH * pairs
+    return nbytes, 4 * d * nh * pairs
 
 
 def long_ragged_case(torch, dev):
@@ -325,23 +355,24 @@ def long_decode_case(torch, dev):
     return q, nk, nv, kp, vp, 0, t(tables), t(pos), t(lens), lens
 
 
-def decode_cost(lens, kv_bytes=2, scale_bytes=0, m=None):
+def decode_cost(lens, kv_bytes=2, scale_bytes=0, m=None, hs=(NH, HKV, D)):
     """(bytes, flops) of one fused decode step: the active rows' q once,
     every row's out once, the active rows' new K/V read once (bf16) and
     written once (``kv_bytes`` per element, ``scale_bytes`` per token of
     each pool), the context already in the pool (kv_len - 1 keys per active
     row) read once, tables ([B, m], m = M unless given)/positions/lengths
     once; 4*D flops per (query head, key) pair over the whole context, the
-    new key included."""
+    new key included; heads ``hs``."""
+    nh, hkv, d = hs
     b = len(lens)
     active = lens[lens > 0]
     a, ctx = len(active), int(active.sum())
-    token = HKV * D * kv_bytes + scale_bytes
-    nbytes = (a * NH * D * 2 + b * NH * D * 2
-              + a * (HKV * D * 2 + token) * 2
+    token = hkv * d * kv_bytes + scale_bytes
+    nbytes = (a * nh * d * 2 + b * nh * d * 2
+              + a * (hkv * d * 2 + token) * 2
               + (ctx - a) * token * 2
               + (b * (M if m is None else m) + 2 * b) * 4)
-    return nbytes, 4 * D * NH * ctx
+    return nbytes, 4 * d * nh * ctx
 
 
 def qmm_cost(m, shapes):
@@ -360,7 +391,8 @@ def bound(nbytes, flops):
 def gathered(torch, pool, tables):
     """[N, Hkv, Bk, D] pages gathered by [B, M] tables → [B, Hkv, J, D]."""
     b, m = tables.shape
-    return pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, HKV, m * BK, D)
+    hkv, d = pool.shape[1], pool.shape[3]
+    return pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, m * BK, d)
 
 
 def sdpa_call(torch, q_bshd, kc, vc, pos, lens):
@@ -373,7 +405,7 @@ def sdpa_call(torch, q_bshd, kc, vc, pos, lens):
     key = torch.arange(j, device=q_bshd.device)
     mask = (key[None, None, :] <= pos[:, :, None]) & (key[None, None, :] < lens[:, None, None])
     qh = q_bshd.transpose(1, 2).contiguous()
-    rep = NH // HKV
+    rep = q_bshd.shape[2] // kc.shape[1]
     kx = kc.repeat_interleave(rep, dim=1).contiguous()
     vx = vc.repeat_interleave(rep, dim=1).contiguous()
     m4 = mask[:, None].contiguous()
@@ -444,9 +476,10 @@ def time_attention(torch, tag, flush, fn, plain_fn, lib_fn, cost):
             "library_ms": lib_ms, "library_graph_ms": lib_g_ms}
 
 
-def ragged_times(torch, pa, ref, flush, tag, case, kind):
+def ragged_times(torch, pa, ref, flush, tag, case, kind, hs=(NH, HKV, D)):
     """:func:`time_attention` of the ragged kernel on ``ragged_in``'s
-    ``case`` (pools in ``kind``); SDPA runs on the dequantized context."""
+    ``case`` (pools in ``kind``, heads ``hs``); SDPA runs on the
+    dequantized context."""
     q, kq, vq, ks, vs, tables, pos, lens, host = case
     fn = lambda: pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK,  # noqa: E731
                                            k_scale=ks, v_scale=vs)
@@ -454,14 +487,14 @@ def ragged_times(torch, pa, ref, flush, tag, case, kind):
     lib = sdpa_call(torch, q, gathered(torch, dequantized(torch, kq, ks), tables),
                     gathered(torch, dequantized(torch, vq, vs), tables), pos, lens)
     return time_attention(torch, tag, flush, fn, plain, lib,
-                          ragged_cost(*host, None, *KV_BYTES[kind]))
+                          ragged_cost(*host, None, *KV_BYTES[kind], hs=hs))
 
 
-def decode_times(torch, pa, flush, tag, case, kind):
+def decode_times(torch, pa, flush, tag, case, kind, hs=(NH, HKV, D)):
     """:func:`time_attention` of the fused decode kernel on ``decode_in``'s
     ``case`` (the plain version writes into copies of the pools), then the
     kernel as a CUDA graph with each of SPLIT_SWEEP keys a split (one line;
-    the plan the wrapper takes is marked)."""
+    the plan the wrapper takes is marked); heads ``hs``."""
     q, nk, nv, kq, vq, ks, vs, layer, tables, pos, lens, lens_np = case
     sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
     kq2, vq2 = kq.clone(), vq.clone()
@@ -476,7 +509,7 @@ def decode_times(torch, pa, flush, tag, case, kind):
     del lk, lv
     m = tables.shape[1]
     times = time_attention(torch, tag, flush, fn, plain, lib,
-                           decode_cost(lens_np, *KV_BYTES[kind], m=m))
+                           decode_cost(lens_np, *KV_BYTES[kind], m=m, hs=hs))
     del lib, kq2, vq2, sc2
     plan, sweep = pa.kv_split_plan(m, BK), []
     for keys in SPLIT_SWEEP:
@@ -1076,7 +1109,10 @@ def small_parity(torch, pa, dev, nh, hkv, d):
 
 def small_model_phase(torch, pa):
     """Phase 12: the worker's default model (llama3-mini, head_dim 32) on
-    the card through both attention kernels."""
+    the card through both attention kernels, then both kernels timed at its
+    head shape as phase 5 times llama3-8b's. → ((ragged, fused) max abs
+    err, launches, (ragged, fused) times)."""
+    from distributed_gpu_inference_torch.ops.attention import paged_attention_ref
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
     llm = TorchLLMEngine({"model": "llama3-mini", "max_batch_size": 4, "max_seq_len": 256,
@@ -1118,7 +1154,517 @@ def small_model_phase(torch, pa):
             len(seen) != 4 or not all(0 <= t < mc.vocab_size for ids in seen for t in ids):
         raise AssertionError(f"llama3-mini did not serve: {outs} {seen}")
     check_counts("small", counts, qmm=False)
-    return errs, counts
+    hs, dev = (mc.num_heads, mc.num_kv_heads, mc.head_dim), torch.device("cuda")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rcase = ragged_in(torch, ragged_round_case(torch, dev, hs=hs), "bf16")
+    dcase = decode_in(torch, decode_case(torch, dev, hs=hs), "bf16")
+    tag = f"[small times] Nh {hs[0]}, Hkv {hs[1]}, D {hs[2]}:"
+    times = (ragged_times(torch, pa, paged_attention_ref, flush, f"{tag} ragged round 8x256",
+                          rcase, "bf16", hs=hs),
+             decode_times(torch, pa, flush, f"{tag} fused decode 8 rows", dcase, "bf16",
+                          hs=hs))
+    del flush, rcase, dcase
+    torch.cuda.empty_cache()
+    return errs, counts, times
+
+
+# ---------------------------------------------------------------- the worker process
+
+class StandInPlane:
+    """The control plane's worker routes, as the JAX package's
+    ``server/app.py`` handlers answer them, on ``http.server`` (127.0.0.1,
+    port 0), keeping only the state those routes touch: register, verify,
+    refresh-token, config, heartbeat, next-job, complete, release, job and
+    stream checkpoints, going-offline and offline. Every
+    request after registration must carry the worker's bearer token and an
+    HMAC-SHA256 signature over METHOD:PATH:sha256(BODY):TIMESTAMP, checked
+    here with ``hmac``/``hashlib``. Completions and checkpoints are fenced by
+    ``assignment_epoch``; a checkpoint with ``migrate`` requeues the job
+    with it and leaves its retry count alone. Its remote config is the
+    plane's ``WorkerRemoteConfig`` with a fleet default of 8 concurrent
+    jobs; :meth:`push_serving` bumps its version as ``PUT .../config``
+    does. :meth:`hold` makes next-job answer 204 (no job)."""
+
+    def __init__(self):
+        import secrets
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self._secrets = secrets
+        self.lock = threading.Lock()
+        self.workers, self.jobs, self.streams = {}, {}, {}
+        self.registrations, self.heartbeats, self.migrations = [], [], []
+        self.rejected = []              # (path, reason) of refused requests
+        self.config = {"version": 1, "load_control": {
+            "acceptance_rate": 1.0, "max_concurrent_jobs": 8, "max_jobs_per_hour": 0,
+            "max_hbm_utilization": 0.9, "working_hours": None, "task_type_weights": {},
+            "cooldown_seconds": 0.0, "max_queue_depth": 0, "tier_queue_fractions": {}},
+            "security": {"require_signing": True, "token_ttl_hours": 168.0,
+                         "allowed_ips": None},
+            "model_configs": {}, "serving": {}, "updated_at": time.time()}
+        self.held = False
+        plane = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _answer(self, status, body=None):
+                data = b"" if body is None else json.dumps(body).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _handle(self, method):
+                raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                try:
+                    status, body = plane.route(method, self.path, raw, self.headers)
+                except Exception as exc:  # noqa: BLE001 — a 500, as aiohttp answers
+                    status, body = 500, {"detail": f"{type(exc).__name__}: {exc}"}
+                self._answer(status, body)
+
+            def do_GET(self):
+                self._handle("GET")
+
+            def do_POST(self):
+                self._handle("POST")
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+    # -- the smoke's own side
+    def queue_job(self, params):
+        with self.lock:
+            jid = f"job-{len(self.jobs)}"
+            self.jobs[jid] = {"id": jid, "type": "llm", "params": params, "priority": 0,
+                              "status": "queued", "worker_id": None, "assignment_epoch": 0,
+                              "checkpoint": None, "result": None, "error": None,
+                              "retry_count": 0, "created_at": time.time(),
+                              "started_at": None, "completed_at": None}
+            return jid
+
+    def push_serving(self, **serving):
+        with self.lock:
+            self.config["serving"] = {**self.config["serving"], **serving}
+            self.config["version"] += 1
+            self.config["updated_at"] = time.time()
+
+    def job(self, jid):
+        with self.lock:
+            return json.loads(json.dumps(self.jobs[jid]))
+
+    def hold(self, held):
+        self.held = held
+
+    # -- the routes
+    def _issue(self, w):
+        for key in ("auth_token", "refresh_token", "signing_secret"):
+            w[key] = self._secrets.token_hex(16)
+        return {"auth_token": w["auth_token"], "refresh_token": w["refresh_token"],
+                "signing_secret": w["signing_secret"]}
+
+    def _authorized(self, w, method, path, raw, headers):
+        import hashlib
+        import hmac
+
+        if headers.get("Authorization", "") != f"Bearer {w['auth_token']}":
+            return "invalid token"
+        ts = headers.get("X-Timestamp", "")
+        msg = f"{method}:{path}:{hashlib.sha256(raw).hexdigest()}:{ts}"
+        want = hmac.new(w["signing_secret"].encode(), msg.encode(),
+                        hashlib.sha256).hexdigest()
+        try:
+            fresh = abs(time.time() - float(ts)) <= 300
+        except ValueError:
+            fresh = False
+        if not (fresh and hmac.compare_digest(want, headers.get("X-Signature", ""))):
+            return "invalid signature"
+        return None
+
+    def _requeue(self, job):
+        job.update(status="queued", worker_id=None, started_at=None)
+
+    def route(self, method, path, raw, headers):
+        body = json.loads(raw) if raw else {}
+        parts = path.split("?")[0].strip("/").split("/")
+        if path == "/health":
+            return 200, {"status": "ok"}
+        if parts[:3] != ["api", "v1", "workers"] or len(parts) < 4:
+            return 404, {"detail": "not found"}
+        with self.lock:
+            if parts[3] == "register" and method == "POST":
+                return self._register(body)
+            w = self.workers.get(parts[3])
+            if w is None:
+                return 404, {"detail": "worker not found"}
+            rest = parts[4:]
+            if rest == ["refresh-token"]:
+                if body.get("refresh_token") != w["refresh_token"]:
+                    return 401, {"detail": "invalid refresh token"}
+                return 200, {"worker_id": w["id"], **self._issue(w)}
+            why = self._authorized(w, method, path.split("?")[0], raw, headers)
+            if why is not None:
+                self.rejected.append((path, why))
+                return 401, {"detail": why}
+            return self._worker_route(w, method, rest, body)
+
+    def _register(self, body):
+        fp = body.get("machine_fingerprint")
+        wid = body.get("worker_id") or next(
+            (w["id"] for w in self.workers.values() if fp and w["fingerprint"] == fp),
+            f"worker-{len(self.workers)}")
+        w = {"id": wid, "fingerprint": fp, "boot_id": body.get("boot_id"),
+             "topology": body.get("topology"), "status": "idle", "current_job_id": None}
+        bundle = self._issue(w)
+        self.workers[wid] = w
+        self.registrations.append(body)
+        return 200, {"worker_id": wid, **bundle, "config": self.config,
+                     "heartbeat_interval_s": 30}
+
+    def _worker_route(self, w, method, rest, body):
+        if rest == ["verify"]:
+            return 200, {"ok": True, "worker_id": w["id"]}
+        if rest == ["config"] and method == "GET":
+            return 200, json.loads(json.dumps(self.config))
+        if rest == ["heartbeat"]:
+            return self._heartbeat(w, body)
+        if rest == ["next-job"]:
+            if self.held:
+                return 204, None
+            job = next((j for j in self.jobs.values() if j["status"] == "queued"), None)
+            if job is None:
+                return 204, None
+            job.update(status="running", worker_id=w["id"], started_at=time.time(),
+                       assignment_epoch=job["assignment_epoch"] + 1)
+            w.update(status="busy", current_job_id=job["id"])
+            return 200, {"job": json.loads(json.dumps(job))}
+        if rest == ["going-offline"]:
+            w["status"] = "draining"
+            return 200, {"ok": True, "drain": True}
+        if rest == ["offline"]:
+            w["status"] = "offline"
+            requeued = []
+            for job in self.jobs.values():
+                if job["status"] == "running" and job["worker_id"] == w["id"]:
+                    self._requeue(job)
+                    requeued.append(job["id"])
+            return 200, {"ok": True, "requeued_jobs": requeued}
+        if len(rest) == 3 and rest[0] == "jobs":
+            job = self.jobs.get(rest[1])
+            if job is None or job["worker_id"] != w["id"]:
+                return 404, {"detail": "job not assigned to this worker"}
+            return self._job_route(w, job, rest[2], body)
+        if len(rest) == 3 and rest[0] == "streams" and rest[2] == "checkpoint":
+            sid = rest[1]
+            if body.get("done"):
+                self.streams.pop(sid, None)
+                return 200, {"ok": True, "deleted": True}
+            cur = self.streams.get(sid)
+            if cur is not None and int(body.get("epoch") or 0) < cur["epoch"]:
+                return 409, {"detail": f"stale stream epoch for {sid}"}
+            self.streams[sid] = {"epoch": int(body.get("epoch") or 0),
+                                 "state": body.get("state"), "worker_id": w["id"]}
+            return 200, {"ok": True}
+        return 404, {"detail": "not found"}
+
+    def _heartbeat(self, w, body):
+        self.heartbeats.append({"t": time.time(), "worker": w["id"], **body})
+        w["status"] = body.get("status", w["status"])
+        for cp in (body.get("checkpoints") or [])[:32]:
+            job = self.jobs.get(str(cp.get("key")))
+            if cp.get("kind") == "job" and job is not None and job["worker_id"] == w["id"] \
+                    and job["status"] == "running" \
+                    and int(cp.get("epoch") or 0) == job["assignment_epoch"]:
+                job["checkpoint"] = cp.get("state")
+        stale = [jid for jid in (body.get("active_job_ids") or [])
+                 if self.jobs.get(jid, {}).get("worker_id") != w["id"]]
+        out = {"ok": True, "config_changed":
+               self.config["version"] > int(body.get("config_version") or 0),
+               "stale_job": bool(body.get("current_job_id")) and self.jobs.get(
+                   body["current_job_id"], {}).get("worker_id") != w["id"]}
+        if stale:
+            out["stale_jobs"] = stale
+        ps = (body.get("engine_stats") or {}).get("prefix_summary")
+        if ps is not None:
+            # a full snapshot always applies; a delta only on the base it
+            # was diffed against, else the worker resends in full
+            base = w.get("summary_seq")
+            ok = "full" in ps or ps.get("base_seq") == base
+            if ok:
+                w["summary_seq"] = ps.get("seq")
+            out["prefix_summary_resync"] = not ok
+        return 200, out
+
+    def _job_route(self, w, job, action, body):
+        if action == "release":
+            if job["status"] == "running":
+                self._requeue(job)
+            return 200, {"status": "released"}
+        epoch = body.get("assignment_epoch")
+        if epoch is not None and int(epoch) != job["assignment_epoch"]:
+            return 409, {"detail": f"stale assignment epoch {epoch} "
+                                   f"(job is at {job['assignment_epoch']})"}
+        if action == "complete":
+            if job["status"] != "running":
+                done = "completed" if body.get("success", True) else "failed"
+                return (200, {"ok": True, "duplicate": True}) if job["status"] == done \
+                    else (409, {"detail": f"job is {job['status']}, not running"})
+            job.update(status="completed" if body.get("success", True) else "failed",
+                       result=body.get("result"), error=body.get("error"),
+                       completed_at=time.time())
+            w.update(status="idle", current_job_id=None)
+            return 200, {"ok": True}
+        if action == "checkpoint":
+            if job["status"] != "running":
+                return 409, {"detail": f"job is {job['status']}, not running"}
+            if body.get("state") is not None:
+                job["checkpoint"] = body["state"]
+            if body.get("migrate"):
+                self.migrations.append({"job": job["id"], "state": body.get("state")})
+                self._requeue(job)
+            return 200, {"ok": True, "requeued": bool(body.get("migrate"))}
+        return 404, {"detail": "not found"}
+
+
+WORKER_JOB_TOKENS = 32       # greedy tokens of each polled job of phase 13
+DRAIN_TOKENS = 256           # the job drained mid-run and resumed elsewhere
+
+
+class RecordedIds:
+    """The token ids of every response an engine's batcher returns (the
+    job result payload carries text, not ids)."""
+
+    def __init__(self, llm):
+        self.serving, self.ids = llm.serving, []
+        real = llm.serving.submit
+
+        def submit(req, *a, **kw):
+            resp = real(req, *a, **kw)
+            self.ids.append((tuple(req.prompt_token_ids), list(resp.token_ids)))
+            return resp
+
+        llm.serving.submit = submit
+
+    def close(self):
+        # neither the wrapper nor this object may keep the engine alive
+        del self.serving.submit
+        self.serving = None
+
+
+def start_cli_worker(config_path):
+    """``worker/cli.py`` ``cmd_start`` on a thread (no signal handlers);
+    → (thread, worker once its llm engine is loaded)."""
+    import argparse
+
+    from distributed_gpu_inference_torch.worker import cli
+
+    box = []
+    args = argparse.Namespace(config=str(config_path), log_level="WARNING")
+    th = threading.Thread(target=cli.cmd_start, args=(args,),
+                          kwargs={"on_worker": box.append}, daemon=True)
+    th.start()
+    if not wait_until(lambda: box and box[0].state.value == "idle"
+                      and "llm" in box[0].engines, timeout=600):
+        raise AssertionError("the CLI-started worker did not come up")
+    return th, box[0]
+
+
+def worker_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8"):
+    """Phase 13 (see the module docstring): the worker process started
+    through its CLI against the stand-in plane; raises on any failed check.
+    → the phase's information (job latencies, heartbeat round trips)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    plane = StandInPlane()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_worker_")
+    workers = []
+    try:
+        path = f"{tmp.name}/worker.json"
+        with open(path, "w") as f:
+            json.dump({
+                "name": "chip-smoke", "server": {"url": plane.url},
+                "engines": {"llm": {"model": model, "quantization": quantization}},
+                "direct": {"enabled": True, "host": "127.0.0.1", "port": 0},
+                "poll_interval_s": 0.05, "heartbeat_interval_s": 0.5,
+                "load_control": {"max_concurrent_jobs": 8},
+            }, f)
+        pa.reset_launch_counts()
+        mem0 = torch.cuda.memory_allocated()
+        th_a, wa = start_cli_worker(path)
+        workers.append((th_a, wa))
+        llm = wa.engines["llm"]
+        vocab = llm.engine.model_cfg.vocab_size
+        tok = llm.tokenizer
+        reg = plane.registrations[-1]
+        card = torch.cuda.get_device_name(0)
+        print(f"[worker] worker A up through the CLI ({model}, {quantization} weights): "
+              f"registered as {wa.api.worker_id}, topology {reg['topology']}", flush=True)
+        if reg["topology"]["chip_type"] != card:
+            raise AssertionError(f"registered topology does not name the card {card}")
+
+        # ---- 8 polled jobs and one direct stream
+        rec = RecordedIds(llm)
+        stream = {}
+        th_s = threading.Thread(target=lambda: stream.update(r=stream_events(
+            wa._direct.port, {"type": "llm", "stream_id": "worker-stream", "params": {
+                "prompt": prompts[0], "max_new_tokens": WORKER_JOB_TOKENS,
+                "temperature": 0.0, "ignore_eos": True}})))
+        th_s.start()
+        wait_until(lambda: llm.engine.num_active > 0, timeout=60)
+        jids = [plane.queue_job({"prompt": p, "max_new_tokens": WORKER_JOB_TOKENS,
+                                 "temperature": 0.0, "ignore_eos": True}) for p in prompts]
+        done = wait_until(lambda: all(plane.job(j)["status"] in ("completed", "failed")
+                                      for j in jids), timeout=600)
+        th_s.join(timeout=600)
+        rec.close()
+        jobs = [plane.job(j) for j in jids]
+        if not done or any(j["status"] != "completed" for j in jobs):
+            raise AssertionError(f"polled jobs: {[(j['status'], j['error']) for j in jobs]}")
+        by_prompt = dict(rec.ids)
+        for p, j in zip(prompts, jobs):
+            ids = by_prompt.get(tuple(tok.encode(p)))
+            usage = j["result"]["usage"]
+            if ids is None or len(ids) != WORKER_JOB_TOKENS \
+                    or not all(0 <= t < vocab for t in ids) \
+                    or (usage["prompt_tokens"], usage["completion_tokens"]) != \
+                    (len(tok.encode(p)), WORKER_JOB_TOKENS) \
+                    or j["result"]["text"] != tok.decode(ids):
+                raise AssertionError(f"job {j['id']}: ids {ids} result {j['result']}")
+        _, final, s_ids, _ = split_stream(stream["r"][0])
+        if len(s_ids) != WORKER_JOB_TOKENS or final["offset"] != WORKER_JOB_TOKENS:
+            raise AssertionError(f"direct stream: {final}")
+        latency = [(j["completed_at"] - j["created_at"]) * 1e3 for j in jobs]
+        print(f"[worker] 8 polled jobs of {WORKER_JOB_TOKENS} greedy tokens completed with ids "
+              f"in vocabulary, text = decode(ids), usage right; a direct stream of "
+              f"{len(s_ids)} tokens beside them; queue-to-completion latency (information) "
+              f"p50 {pctl(latency, 0.5):.1f} ms p95 {pctl(latency, 0.95):.1f} ms ({smi})",
+              flush=True)
+
+        # ---- a pushed serving knob reaches the live batcher
+        plane.push_serving(target_step_ms=50.0)
+        pushed = wait_until(
+            lambda: llm.serving.batcher.cfg.target_step_latency_ms == 50.0, timeout=30)
+        print(f"[worker] serving.target_step_ms 50 pushed through the plane's config: "
+              f"live batcher target {llm.serving.batcher.cfg.target_step_latency_ms} ms",
+              flush=True)
+        if not pushed:
+            raise AssertionError("the pushed serving config did not reach the batcher")
+
+        # ---- drain: a long job migrates once a heartbeat checkpoints it
+        before = wa.stats["jobs_migrated"]
+        drain_params = {"prompt": prompts[1], "max_new_tokens": DRAIN_TOKENS,
+                        "temperature": 0.0, "ignore_eos": True}
+        jd = plane.queue_job(drain_params)
+        if not wait_until(lambda: len((plane.job(jd)["checkpoint"] or {}).get(
+                "generated", [])) >= 8, timeout=300):
+            raise AssertionError("no heartbeat checkpoint of 8 tokens for the long job")
+        hb_k = len(plane.job(jd)["checkpoint"]["generated"])
+        mem_loaded = torch.cuda.memory_allocated()
+        wa.request_shutdown()
+        th_a.join(timeout=300)
+        mig = [m for m in plane.migrations if m["job"] == jd]
+        k = len(mig[0]["state"]["generated"]) if mig else 0
+        # the card's memory handed back: no more than 256 MiB above where
+        # the phase began
+        unloaded = (llm.engine is None and llm.serving is None and not llm.loaded
+                    and torch.cuda.memory_allocated() <= mem0 + (256 << 20))
+        print(f"[worker] drain: heartbeat checkpoint of {hb_k} tokens, then request_shutdown: "
+              f"jobs_migrated +{wa.stats['jobs_migrated'] - before}, plane got migrate=True "
+              f"with a {k}-token checkpoint; job {plane.job(jd)['status']}; worker A "
+              f"{plane.workers[wa.api.worker_id]['status']} and unloaded: {unloaded}; "
+              f"device memory {mem_loaded / 2**30:.1f} -> "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+        if th_a.is_alive() or wa.stats["jobs_migrated"] != before + 1 or len(mig) != 1 \
+                or k < 8 or plane.job(jd)["status"] != "queued" \
+                or plane.job(jd)["checkpoint"] != mig[0]["state"] \
+                or plane.workers[wa.api.worker_id]["status"] != "offline" or not unloaded:
+            raise AssertionError("the drained job did not migrate cleanly")
+        hbs = [h for h in plane.heartbeats if h["worker"] == wa.api.worker_id]
+        es = [h.get("engine_stats") or {} for h in hbs]
+        checks = {
+            "capacity": any((e.get("batcher") or {}).get("capacity") == 8 for e in es),
+            "prefix_summary": any(e.get("prefix_summary") for e in es),
+            "checkpoints": any(any(c.get("kind") == "job" for c in h.get("checkpoints") or [])
+                               for h in hbs),
+            "batched": any(max((e.get("batcher") or {}).get("active_slots", 0),
+                               (e.get("batcher") or {}).get("avg_occupancy", 0)) > 1
+                           for e in es),
+        }
+        rtt = [h["hb_rtt_ms"] for h in hbs if "hb_rtt_ms" in h]
+        print(f"[worker] worker A's {len(hbs)} heartbeats: {checks}; round trip (information) "
+              f"p50 {pctl(rtt, 0.5):.2f} ms p95 {pctl(rtt, 0.95):.2f} ms ({smi})", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"heartbeats lack a part: {checks}")
+
+        # ---- worker B: same config file, persisted credentials
+        plane.hold(True)
+        th_b, wb = start_cli_worker(path)
+        workers.append((th_b, wb))
+        llm_b = wb.engines["llm"]
+        trace = LogitTrace(llm_b.engine)
+        rec_b = RecordedIds(llm_b)
+        with trace.recording("resumed"):
+            plane.hold(False)
+            if not wait_until(lambda: plane.job(jd)["status"] == "completed", timeout=600):
+                raise AssertionError(f"worker B did not complete the migrated job: "
+                                     f"{plane.job(jd)}")
+        with trace.recording("undropped"):
+            ju = plane.queue_job(drain_params)
+            if not wait_until(lambda: plane.job(ju)["status"] == "completed", timeout=600):
+                raise AssertionError("worker B did not complete the undropped run")
+        rec_b.close()
+        (_, resumed), (_, undropped) = rec_b.ids
+        ckpt = mig[0]["state"]["generated"]
+        same_id = wb.api.worker_id == wa.api.worker_id and wb.boot_id != wa.boot_id
+        usage = plane.job(jd)["result"]["usage"]
+        agree = next((i for i, (a, b) in enumerate(zip(resumed, undropped)) if a != b),
+                     DRAIN_TOKENS)
+        witness = ""
+        if agree < DRAIN_TOKENS:
+            witness = (f"; at token {agree} the top-2 logits were, undropped: "
+                       f"{trace.at('undropped', agree)}, resumed: "
+                       f"{trace.at('resumed', agree - k)}")
+        print(f"[worker] worker B from the same config: worker id kept {same_id} (new boot_id, "
+              f"{len(plane.registrations)} registration in all); it claimed the requeued job "
+              f"with its {k}-token checkpoint and completed it: {usage['completion_tokens']} "
+              f"tokens, the first {k} equal to the checkpoint's: {resumed[:k] == ckpt}; "
+              f"(information) equal to an undropped run of the same job for the first "
+              f"{agree} of {DRAIN_TOKENS} tokens{witness}", flush=True)
+        if not (same_id and len(plane.registrations) == 1 and resumed[:k] == ckpt
+                and usage["completion_tokens"] == DRAIN_TOKENS
+                and len(resumed) == DRAIN_TOKENS
+                and all(0 <= t < vocab for t in resumed)):
+            raise AssertionError("worker B did not resume the migrated job")
+        wb.request_shutdown()
+        th_b.join(timeout=300)
+        if th_b.is_alive() or plane.rejected:
+            raise AssertionError(f"worker B did not stop, or requests were refused: "
+                                 f"{plane.rejected}")
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+    finally:
+        for th, w in workers:
+            if th.is_alive():
+                w.request_shutdown()
+                th.join(timeout=120)
+        plane.stop()
+        tmp.cleanup()
+    print(f"[worker] kernel launches over the phase: {counts}; phase ran in "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    check_counts("worker", counts, qmm=quantization is not None)
+    return latency, rtt, counts
 
 
 # ---------------------------------------------------------------- phases
@@ -1549,7 +2095,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 12. the worker's default model (head_dim 32) through both kernels
-    small_model_phase(torch, pa)
+    (r_err, d_err), small_launches, (r_times, d_times) = small_model_phase(torch, pa)
+    kernels += [
+        entry("ragged_paged_attention@d32", "ragged_paged_attention.cu", PALLAS + ":932",
+              small_launches["ragged_paged_attention"], r_err, r_times),
+        entry("paged_decode_attention_fused@d32", "paged_decode_fused.cu", PALLAS + ":469",
+              small_launches["paged_decode_attention_fused"], d_err, d_times),
+    ]
+
+    # ---- 13. the worker process against a stand-in control plane
+    worker_phase(torch, pa, smi, prompts)
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 
 The port's own copy of the parts of
 ``distributed_gpu_inference_tpu/utils/data_structures.py`` that the engine,
-the block manager, the batcher and the direct server read: the worker's
-lifecycle state, sampling controls, requests, responses, per-page block
+the block manager, the batcher and the worker read: the worker's lifecycle
+state and topology record, sampling controls, requests, responses, per-page block
 metadata and the prefix hash. Pure Python.
 """
 
@@ -34,6 +34,37 @@ class JobType(str, Enum):
     VISION = "vision"
     ASR = "asr"
     IMAGE_GEN = "image_gen"
+
+
+@dataclass
+class TpuTopology:
+    """A worker's accelerators as registration reports them. Named after
+    the JAX package's record, with the same ``to_dict`` keys, because the
+    control plane stores ``topology`` as sent; the port fills it from
+    ``torch.cuda`` (``worker/main.py`` ``probe_topology``): ``chip_type`` is
+    the device name, ``ici_bandwidth_gbps`` the card's NVLink rate and
+    ``peak_bf16_tflops`` its published dense bf16 rate."""
+
+    chip_type: str = "cpu"
+    num_chips: int = 1
+    hbm_gb_per_chip: float = 0.0
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axis_names: Tuple[str, ...] = ("data",)
+    ici_bandwidth_gbps: float = 0.0
+    dcn_bandwidth_gbps: float = 25.0
+    peak_bf16_tflops: float = 0.0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "chip_type": self.chip_type,
+            "num_chips": self.num_chips,
+            "hbm_gb_per_chip": self.hbm_gb_per_chip,
+            "mesh_shape": list(self.mesh_shape),
+            "mesh_axis_names": list(self.mesh_axis_names),
+            "ici_bandwidth_gbps": self.ici_bandwidth_gbps,
+            "dcn_bandwidth_gbps": self.dcn_bandwidth_gbps,
+            "peak_bf16_tflops": self.peak_bf16_tflops,
+        }
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 the continuous batcher.
 
 The port of ``distributed_gpu_inference_tpu/worker/engines/llm.py``
-``TPULLMEngine`` for the serving paths the direct server drives.
-``load_model`` builds a :class:`TorchEngine` and a :class:`BatcherServing`
-front end; every request goes through the batcher, so concurrent callers
-share engine rounds through slot-level continuous batching:
+``TPULLMEngine`` for the paths the worker process and the direct server
+drive. ``load_model`` builds a :class:`TorchEngine` and a
+:class:`BatcherServing` front end; every request goes through the batcher,
+so concurrent callers share engine rounds through slot-level continuous
+batching:
 
 - ``inference(params)`` — the blocking result payload of the JAX engine;
   a server-minted ``_cancel_evt`` (hedged dispatch) aborts it at the next
@@ -19,13 +20,18 @@ share engine rounds through slot-level continuous batching:
   ``TorchEngine.snapshot_slot``, wire-identical to the JAX package's),
   pushes stream checkpoints to ``checkpoint_sink``, resumes from a
   checkpoint either package wrote, and turns a drain (``interrupt_live``)
-  into :class:`JobMigrated`.
+  into :class:`JobMigrated`;
+- the worker's heartbeat channels — ``serving_stats``, the radix prefix
+  summary (``prefix_hot``, ``prefix_summary_wire`` / ``_ack`` /
+  ``_resync`` / ``_disable``, wire-identical to the JAX engine's for the
+  same prompts) and the live serving-config push
+  (``apply_serving_config``).
 
-Not in this slice: ``tokenizer_id`` (needs ``transformers``),
-prefill/decode hand-off stages, KV migration, the flight recorder,
-speculative decoding, spill tiers, tensor parallelism, and the JAX
-package's per-step stream loop for engines without a batcher (the port
-always serves through its batcher).
+``load_model`` refuses, with :class:`EngineLoadError` naming the key, what
+this port does not serve rather than ignoring it: ``tokenizer_id`` (needs
+``transformers``), the speculative engines, deadline abandonment, tensor
+parallelism, spill tiers and the per-step ``serving.mode: direct`` driver.
+Prefill/decode hand-off stages are refused per request.
 """
 
 from __future__ import annotations
@@ -47,9 +53,19 @@ from distributed_gpu_inference_torch.runtime.engine import (
     PreemptedSequence,
     TorchEngine,
 )
+from distributed_gpu_inference_torch.runtime.prefix_summary import PrefixHotSet
+from distributed_gpu_inference_torch.utils.config import (
+    ServingConfig,
+    config_dict,
+    warn_deprecated_serving_key,
+)
 from distributed_gpu_inference_torch.utils.data_structures import (
     InferenceRequest,
     SamplingParams,
+)
+from distributed_gpu_inference_torch.utils.prefixes import (
+    canonical_prompt_text,
+    prefix_fingerprints,
 )
 from distributed_gpu_inference_torch.worker.engines.base import (
     EngineLoadError,
@@ -60,22 +76,57 @@ from distributed_gpu_inference_torch.worker.engines.base import (
     ServingError,
 )
 
-# the serving knobs the JAX worker reads from ``engines.llm.serving.*``
-# (its ServingConfig defaults), limited to the ones this slice uses
-SERVING_DEFAULTS: Dict[str, Any] = {
-    "target_step_ms": 100.0,
-    "max_horizon": 64,
-    "min_horizon": 1,
-    "multi_step": 8,
-    "adaptive": True,
-    "max_wait_ms": 5.0,
-    "queue_limit": 1024,
-    "default_timeout_s": 300.0,
-    "max_preemptions": 3,
-    "ragged": None,
-    "prefill_budget": 0,
-    "ragged_chunk": None,
+# Worker-config / remote-config serving knobs (``engines.llm.serving.*``):
+# keys and defaults derived from ``utils.config.ServingConfig``, as the JAX
+# engine derives its own, so plain-dict construction cannot drift from a
+# configured worker.
+SERVING_DEFAULTS: Dict[str, Any] = config_dict(ServingConfig())
+
+# remote-config ``serving`` keys that may retune a LIVE batcher (a copy of
+# the JAX engine's map: remote key → batcher config field). Knobs of paths
+# the port does not run (the speculative batch caps, the abandonment
+# grace) name no field of the port's batcher and change nothing, as on a
+# JAX worker without those paths; turning abandonment on is refused.
+SERVING_REMOTE_KEYS: Dict[str, str] = {
+    "target_step_ms": "target_step_latency_ms",
+    "max_horizon": "max_multi_step",
+    "min_horizon": "min_multi_step",
+    "multi_step": "multi_step",
+    "adaptive": "adaptive",
+    "max_wait_ms": "max_wait_ms",
+    "queue_limit": "queue_limit",
+    "default_timeout_s": "default_timeout_s",
+    "max_preemptions": "max_preemptions",
+    "spec_max_batch": "spec_max_batch",
+    "spec_max_active": "spec_max_active",
+    "ragged": "ragged",
+    "prefill_budget": "prefill_budget",
+    "ragged_chunk": "ragged_chunk",
+    "abandon_deadlines": "abandon_deadlines",
+    "deadline_grace_s": "deadline_grace_s",
+    "predictive_abandon": "predictive_abandon",
 }
+
+# serving knobs whose path is not ported: refused at load and in a push
+# when turned on (ROADMAP: deadline abandonment waits for its slice)
+_UNPORTED_SERVING = ("abandon_deadlines", "predictive_abandon")
+
+# engine config keys of paths the port does not have: refused at load when
+# set, naming the key, never ignored
+_UNPORTED_CONFIG = {
+    "tokenizer_id": "a tokenizer loaded through transformers",
+    "speculative_decode": "engine-integrated speculative decoding",
+    "kv_spill_host_blocks": "the host-RAM KV spill tier",
+    "kv_remote_url": "the remote KV spill tier",
+}
+
+
+def _truthy(value: Any) -> bool:
+    """A pushed or configured flag: strings by content (bool("false") is
+    True)."""
+    if isinstance(value, str):
+        return value.strip().lower() in ("1", "true", "yes", "on", "t", "y")
+    return bool(value)
 
 
 def _raise_serving(resp: Any) -> None:
@@ -256,8 +307,10 @@ class TorchLLMEngine(LLMBaseEngine):
     params (a params tree already on the device, e.g. from
     ``models.convert.params_from_numpy``; random init from ``seed`` when
     absent), checkpoint_interval_tokens (the stream checkpoint cadence, 0 =
-    the admission checkpoint only) and the ``serving`` knobs of
-    :data:`SERVING_DEFAULTS`."""
+    the admission checkpoint only), prefix_summary_top_n (the radix
+    summary's size, 0 = no summary), the ``serving`` knobs of
+    :data:`SERVING_DEFAULTS` (also under ``extra``, which wins), and the
+    worker's ``engine`` and ``extra.tp_size``."""
 
     task_type = "llm"
     # the caller injects a ``_failover_ctx`` (job or stream key, assignment
@@ -288,14 +341,56 @@ class TorchLLMEngine(LLMBaseEngine):
         self._ckpt_interval = int(
             self.config.get("checkpoint_interval_tokens", 8) or 0
         )
+        # cache-aware routing: bounded hot set of prefix boundary
+        # fingerprints (runtime/prefix_summary.py) — rides heartbeats as
+        # this worker's radix summary so the control plane can route
+        # prefix-sharing requests back here; 0 disables the channel
+        top_n = int(self.config.get("prefix_summary_top_n", 128) or 0)
+        self.prefix_hot: Optional[PrefixHotSet] = (
+            PrefixHotSet(top_n) if top_n > 0 else None
+        )
+        self._prefix_evictions_seen = 0
 
     # -- lifecycle -----------------------------------------------------------
 
+    def _refuse_unported(self, sv: Dict[str, Any]) -> None:
+        """EngineLoadError naming each configured key whose path this port
+        does not have."""
+        if self.config.get("engine") in ("jax-speculative", "speculative"):
+            raise EngineLoadError(
+                f"engine: {self.config.get('engine')} (the standalone "
+                "speculative tree decoder) is not in the PyTorch port"
+            )
+        for key, what in _UNPORTED_CONFIG.items():
+            if self.config.get(key):
+                raise EngineLoadError(
+                    f"{key} ({what}) is not in the PyTorch port"
+                )
+        tp = int(self.config.get("tp_size")
+                 or (self.config.get("extra") or {}).get("tp_size") or 1)
+        if tp > 1:
+            raise EngineLoadError(
+                f"extra.tp_size={tp}: tensor parallelism is not in the "
+                "PyTorch port (one card)"
+            )
+        for key in _UNPORTED_SERVING:
+            if _truthy(sv.get(key)):
+                raise EngineLoadError(
+                    f"serving.{key}: deadline abandonment is not in the "
+                    "PyTorch port"
+                )
+        if sv.get("mode") != "batcher":
+            raise EngineLoadError(
+                f"serving.mode: {sv.get('mode')!r}: the PyTorch port serves "
+                "through its batcher only (mode: batcher)"
+            )
+
     def load_model(self) -> None:
         model_name = self.config.get("model", "llama3-mini")
+        sv = self._serving_config()
+        self._refuse_unported(sv)
         if self.tokenizer is None:
             self.tokenizer = ByteTokenizer()
-        sv = self._serving_config()
         eng_cfg = EngineConfig(
             max_batch_size=int(self.config.get("max_batch_size", 8)),
             max_seq_len=int(self.config.get("max_seq_len", 2048)),
@@ -334,11 +429,19 @@ class TorchLLMEngine(LLMBaseEngine):
         self.loaded = True
 
     def _serving_config(self) -> Dict[str, Any]:
-        """Merged serving knobs: defaults < ``config['serving']``."""
+        """Merged serving knobs: defaults < ``config['serving']`` (worker
+        config ``engines.llm.serving.*``) < ``extra['serving']``."""
         out = dict(SERVING_DEFAULTS)
-        src = self.config.get("serving")
-        if isinstance(src, dict):
-            out.update({k: v for k, v in src.items() if v is not None})
+        for src in (self.config.get("serving"),
+                    (self.config.get("extra") or {}).get("serving")):
+            if isinstance(src, dict):
+                # plain-dict construction bypasses the config loader, so
+                # the obsoleted-knob warning fires here too — only for
+                # values that differ from the defaults
+                for k, v in src.items():
+                    if v is not None and v != SERVING_DEFAULTS.get(k):
+                        warn_deprecated_serving_key(k, "engine serving config")
+                out.update({k: v for k, v in src.items() if v is not None})
         return out
 
     @staticmethod
@@ -358,17 +461,85 @@ class TorchLLMEngine(LLMBaseEngine):
             prefill_budget=int(sv.get("prefill_budget") or 0),
         )
 
+    def apply_serving_config(self, updates: Optional[Dict[str, Any]]) -> None:
+        """Server-pushed SLO retune (remote config ``serving`` section),
+        applied to the LIVE batcher between rounds. Load-time knobs
+        (``mode``, ``subwave``, ``interleave``) are not remote keys; turning
+        on a path the port does not have raises ValueError (the worker logs
+        the push as rejected)."""
+        if self.serving is None or not updates:
+            return
+        for key in _UNPORTED_SERVING:
+            if _truthy(updates.get(key)):
+                raise ValueError(
+                    f"serving.{key}: deadline abandonment is not in the "
+                    "PyTorch port"
+                )
+        kw = {
+            SERVING_REMOTE_KEYS[k]: v
+            for k, v in updates.items()
+            if k in SERVING_REMOTE_KEYS and v is not None
+        }
+        if kw:
+            self.serving.reconfigure(**kw)
+
     def serving_stats(self) -> Optional[Dict[str, Any]]:
+        """Live batcher stats (occupancy, queue depth, counters) — ride the
+        worker heartbeat. None when no batcher is serving."""
         if self.serving is None or not self.serving.active:
             return None
         return self.serving.get_stats()
 
+    def prefix_summary_wire(self) -> Optional[Dict[str, Any]]:
+        """Next heartbeat radix-summary payload (full snapshot or delta —
+        ``runtime/prefix_summary.py`` wire format), or None when the control
+        plane is up to date. The port has no spill tier, so blocks the pool
+        evicted since the last wire are gone: the coldest entries are
+        dropped in proportion, rather than advertised."""
+        hot = self.prefix_hot   # snapshot vs a concurrent disable()
+        if hot is None:
+            return None
+        eng = self.engine
+        if eng is not None:
+            ev = int(eng.manager.stats.evictions or 0)
+            delta = ev - self._prefix_evictions_seen
+            if delta > 0 and len(hot):
+                hot.drop(min(1.0, delta / len(hot)))
+            self._prefix_evictions_seen = ev
+        return hot.wire()
+
+    def prefix_summary_ack(self) -> None:
+        hot = self.prefix_hot
+        if hot is not None:
+            hot.ack()
+
+    def prefix_summary_resync(self) -> None:
+        hot = self.prefix_hot
+        if hot is not None:
+            hot.resync()
+
+    def prefix_summary_disable(self) -> None:
+        """The control plane statically rejected our summaries (wire
+        version / fingerprint-basis skew): stop shipping them."""
+        self.prefix_hot = None
+
     def unload(self) -> None:
+        """Stop serving and hand the device memory back (a worker restarted
+        in the same process loads its engine again)."""
         if self.serving is not None:
             self.serving.stop(drain=False)
             self.serving = None
+        device = self.engine.device if self.engine is not None else None
         self.engine = None
+        self._prefix_evictions_seen = 0
         super().unload()
+        if device is not None and device.type == "cuda":
+            import gc
+
+            import torch
+
+            gc.collect()
+            torch.cuda.empty_cache()
 
     # -- requests -------------------------------------------------------------
 
@@ -419,6 +590,16 @@ class TorchLLMEngine(LLMBaseEngine):
                        cfg: GenerationConfig) -> InferenceRequest:
         if not self.loaded or self.engine is None:
             raise EngineLoadError("engine not loaded")
+        hot = self.prefix_hot   # snapshot: the heartbeat thread may
+        if hot is not None and \
+                self.engine.cfg.enable_prefix_cache:  # disable() to None
+            # every built request's prefix is radix-cached on completion:
+            # note its boundary fingerprints for the heartbeat summary
+            # (advisory; one pass over the prefix)
+            hot.note_fingerprints(prefix_fingerprints(
+                canonical_prompt_text(prompt_or_messages),
+                hot.block_chars, hot.max_blocks,
+            ))
         return InferenceRequest(
             prompt_token_ids=self._encode_prompt(prompt_or_messages, cfg),
             sampling=self._sampling_from(cfg),

@@ -1,6 +1,7 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
-package (nor aiohttp, httpx or transformers, which the card's machine
-lacks), runs on CUDA unless asked for the CPU, its kernel wrappers never
+package (nor aiohttp, httpx, pydantic or transformers, which the card's
+machine lacks; PyYAML only lazily, behind an error naming it), runs on CUDA
+unless asked for the CPU, its kernel wrappers never
 fall back to the plain version for a tensor that is not on the CPU, and
 the engine refuses on the card a model the kernels do not take. Tests
 that need the card carry the ``gpu`` marker and skip without one."""
@@ -18,7 +19,7 @@ from distributed_gpu_inference_torch.runtime.engine import TorchEngine  # noqa: 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu", "aiohttp", "httpx",
-             "transformers")
+             "pydantic", "transformers")
 
 
 def _port_files():
@@ -40,12 +41,60 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10 and all(f.is_file() for f in files)
     # the quantized slice's modules and the kernel loader are among them
     assert {"quantization.py", "qmm.py", "paged_attention.py", "_build.py",
-            "direct_server.py", "llm.py", "chip_smoke.py"} <= {f.name for f in files}
+            "direct_server.py", "llm.py", "chip_smoke.py", "main.py", "api_client.py",
+            "cli.py", "machine_id.py", "config.py", "backoff.py", "prefixes.py",
+            "prefix_summary.py", "io_guard.py"} <= {f.name for f in files}
+    assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files
     offenders = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files
     }
     assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def _import_sites(path, root):
+    """(enclosing function name or None, line) of each import of ``root``."""
+    out = []
+
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            name = child.name if isinstance(child, (ast.FunctionDef,
+                                                    ast.AsyncFunctionDef)) else fn
+            if isinstance(child, ast.Import) and any(
+                    a.name.split(".")[0] == root for a in child.names):
+                out.append((fn, child.lineno))
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and \
+                    (child.module or "").split(".")[0] == root:
+                out.append((fn, child.lineno))
+            walk(child, name)
+
+    walk(ast.parse(path.read_text()), None)
+    return out
+
+
+def test_yaml_is_imported_only_lazily_behind_its_error():
+    # PyYAML may be missing on the card: one import, inside the function
+    # that turns its absence into an error naming it
+    sites = {str(f.relative_to(ROOT)): _import_sites(f, "yaml") for f in _port_files()}
+    sites = {k: v for k, v in sites.items() if v}
+    assert list(sites) == ["distributed_gpu_inference_torch/utils/config.py"]
+    assert [fn for fn, _ in sites["distributed_gpu_inference_torch/utils/config.py"]] == [
+        "_yaml"]
+
+
+def test_yaml_config_without_pyyaml_raises_naming_it(tmp_path, monkeypatch):
+    import sys
+
+    from distributed_gpu_inference_torch.utils.config import ConfigError, load_worker_config
+
+    monkeypatch.setitem(sys.modules, "yaml", None)       # import yaml → ImportError
+    p = tmp_path / "config.yaml"
+    p.write_text("region: eu-west\n")
+    with pytest.raises(ConfigError, match="PyYAML"):
+        load_worker_config(p, environ={})
+    # a JSON file needs no PyYAML, whatever its suffix
+    p.write_text('{"region": "eu-west"}')
+    assert load_worker_config(p, environ={}).region == "eu-west"
 
 
 def test_engine_default_device_raises_without_cuda(monkeypatch):
@@ -446,3 +495,19 @@ def test_small_head_dim_model_serves_through_the_kernels_on_the_card(cuda):
             "completion_tokens"] >= 1
     finally:
         llm.unload()
+
+
+@pytest.mark.gpu
+def test_worker_process_serves_drains_and_resumes_on_the_card(cuda):
+    # chip_smoke.py phase 13 at llama3-mini (int8 weights): the CLI-started
+    # worker against the stand-in plane serves polled jobs and a direct
+    # stream, drains a job that a restarted worker resumes, and all three
+    # kernels launch
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _, _, prompts = smoke.serving_prompts()
+    _, _, counts = smoke.worker_phase(torch, tpa, "gpu test", prompts, model="llama3-mini")
+    assert all(n > 0 for n in counts.values()), counts
