@@ -123,6 +123,34 @@ The worker process:
     kernels launched. Job latency from queue to completion and the
     heartbeat round trip are information.
 
+Serving under pressure:
+
+14. spill tiers, fault seams, deadlines and the flight recorder — for the
+    default bf16 KV pool and then the int8 pool, ``TorchLLMEngine`` loads
+    llama3-8b (full depth, int8 weights) with a budget of 64 blocks, an L2
+    tier (``kv_spill_host_blocks``) and an L3 tier
+    (``kv_remote_url=redis://127.0.0.1:<port>``) against
+    :class:`RespStandIn`, a RESP store on loopback. (a) Prompt A (192
+    tokens) is served, then again: the L1-hit reference. (b) Fillers evict
+    A: ``spills`` rises, and every batched download equals the pool page it
+    came from, bit for bit. (c) A is served from L2: its 11 restorable
+    blocks come back, the restored pool pages equal the spilled ones bit
+    for bit, and the greedy stream equals the reference. (d) The same from
+    L3 over RESP, with L1 and L2 cleared. (e) One L3 entry corrupted: it is
+    quarantined (and deleted), and A is recomputed to the cold run's
+    stream. (f) With an ``io.spill.host.put`` fault plan the host breaker
+    trips, serving completes, and the worker's ``kv_spill`` heartbeat block
+    reports both. (g) ``serving.abandon_deadlines`` pushed live; of 8
+    concurrent requests one has a deadline it cannot meet: it ends with the
+    typed ``deadline_abandoned`` error, ``abandoned`` is 1, the other seven
+    finish their 32 tokens in vocabulary, and the reclaimable block count
+    returns to its value before. Counters zeroed before, read after: all
+    three kernels launched. Information: the batched download and upload
+    of one page and of A's 11 pages (CUDA events around the call, median
+    of 30) against 64 GB/s. (h) Phase 13's polled jobs carried a ``trace_id``: each result's
+    timeline has the batcher's events in causal order, and the plane's
+    heartbeats carried ``engine_stats["flight"]``.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12), the
@@ -1524,7 +1552,9 @@ def worker_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8"
         th_s.start()
         wait_until(lambda: llm.engine.num_active > 0, timeout=60)
         jids = [plane.queue_job({"prompt": p, "max_new_tokens": WORKER_JOB_TOKENS,
-                                 "temperature": 0.0, "ignore_eos": True}) for p in prompts]
+                                 "temperature": 0.0, "ignore_eos": True,
+                                 "trace_id": f"smoke-job-{i}"})
+                for i, p in enumerate(prompts)]
         done = wait_until(lambda: all(plane.job(j)["status"] in ("completed", "failed")
                                       for j in jids), timeout=600)
         th_s.join(timeout=600)
@@ -1593,6 +1623,10 @@ def worker_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8"
             raise AssertionError("the drained job did not migrate cleanly")
         hbs = [h for h in plane.heartbeats if h["worker"] == wa.api.worker_id]
         es = [h.get("engine_stats") or {} for h in hbs]
+        # the flight recorder's record of the traced jobs, for phase 14 (h)
+        flight = {"timelines": [(f"smoke-job-{i}", j["result"].get("timeline"))
+                                for i, j in enumerate(jobs)],
+                  "beats": [e["flight"] for e in es if "flight" in e]}
         checks = {
             "capacity": any((e.get("batcher") or {}).get("capacity") == 8 for e in es),
             "prefix_summary": any(e.get("prefix_summary") for e in es),
@@ -1664,7 +1698,432 @@ def worker_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8"
     print(f"[worker] kernel launches over the phase: {counts}; phase ran in "
           f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
     check_counts("worker", counts, qmm=quantization is not None)
-    return latency, rtt, counts
+    return latency, rtt, counts, flight
+
+
+# ---------------------------------------------------------------- serving under pressure
+
+SPILL_POOL_BLOCKS = 64      # the engine's block budget (63 usable, 16 tokens a block)
+SPILL_PROMPT_TOKENS = 192   # prompt A: 12 full blocks, 11 restorable (one stays fresh)
+SPILL_RESTORED = SPILL_PROMPT_TOKENS // BK - 1
+SPILL_TOKENS = 16           # greedy tokens of each run of A and of each filler
+SPILL_FILLERS = 24          # at most this many fillers to evict A
+SPILL_HOST_BLOCKS = 64      # the L2 tier's blocks
+DEADLINE_JOBS, DEADLINE_TOKENS, DEADLINE_HOPELESS = 8, 32, 128
+PCIE_BYTES = 64e9           # PCIe Gen5 x16, one direction (bytes/s)
+
+
+class RespStandIn:
+    """A RESP2 store on 127.0.0.1 (port 0): GET, SET (PX accepted, not
+    enforced), DEL, PING, SELECT and AUTH, one thread a connection — what
+    the L3 tier's client (``runtime/redis_kv.py``) speaks. The card's
+    machine has no redis server."""
+
+    def __init__(self):
+        import socket
+
+        self.data = {}
+        self.lock = threading.Lock()
+        self.sock = socket.socket()
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(16)
+        self.port = self.sock.getsockname()[1]
+        self.conns = []
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        self.sock.close()
+        for conn in self.conns:
+            conn.close()
+        self.thread.join(timeout=10)
+
+    def _serve(self):
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            self.conns.append(conn)
+            threading.Thread(target=self._client, args=(conn,), daemon=True).start()
+
+    def _client(self, conn):
+        f = conn.makefile("rb")
+        try:
+            while True:
+                line = f.readline()
+                if not line:
+                    return
+                args = []
+                for _ in range(int(line[1:])):
+                    n = int(f.readline()[1:])
+                    args.append(f.read(n + 2)[:-2])
+                conn.sendall(self._dispatch(args))
+        except (OSError, ValueError):
+            pass
+        finally:
+            conn.close()
+
+    def _dispatch(self, args):
+        cmd = args[0].upper()
+        with self.lock:
+            if cmd == b"PING":
+                return b"+PONG\r\n"
+            if cmd in (b"AUTH", b"SELECT"):
+                return b"+OK\r\n"
+            if cmd == b"SET":
+                self.data[args[1]] = args[2]
+                return b"+OK\r\n"
+            if cmd == b"GET":
+                v = self.data.get(args[1])
+                return b"$-1\r\n" if v is None else b"$%d\r\n%s\r\n" % (len(v), v)
+            if cmd == b"DEL":
+                return b":%d\r\n" % int(self.data.pop(args[1], None) is not None)
+        return b"-ERR unknown command\r\n"
+
+
+def same_bits(torch, a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+class PageWitness:
+    """Holds the engine's batched spill transfers to the pools: each page
+    the batched download brings to the host is compared with the pool page
+    read by plain indexing (before the block id is reused), and each
+    batched upload is read back from the pools. ``restored`` keeps the read
+    backs of the last upload, in block order."""
+
+    def __init__(self, torch, engine):
+        self.torch, self.engine = torch, engine
+        self.downloaded, self.restored, self.mismatch = 0, [], []
+        pull, push = engine.pull_pages, engine.push_pages
+        kv = engine.kv
+
+        def pull_checked(bids):
+            out = pull(bids)
+            for b, (page, scale) in zip(bids, out):
+                direct = torch.stack((kv["k"][:, b], kv["v"][:, b]), 1).cpu()
+                ok = same_bits(torch, page, direct)
+                if scale is not None:
+                    ok = ok and same_bits(torch, scale, torch.stack(
+                        (kv["k_scale"][:, b], kv["v_scale"][:, b]), 1).cpu())
+                if not ok:
+                    self.mismatch.append(("download", b))
+            self.downloaded += len(bids)
+            return out
+
+        def push_checked(bids, pages, scales):
+            push(bids, pages, scales)
+            back = pull(bids)
+            for b, page, scale, (bp, bs) in zip(bids, pages, scales, back):
+                if not same_bits(torch, page, bp) or (
+                        scale is not None and not same_bits(torch, scale, bs)):
+                    self.mismatch.append(("upload", b))
+            self.restored = back
+
+        engine.pull_pages, engine.push_pages = pull_checked, push_checked
+
+    def close(self):
+        del self.engine.pull_pages, self.engine.push_pages
+        self.engine = None
+
+
+def serve_ids(llm, text, n, **params):
+    """One request through ``TorchLLMEngine.inference`` → (greedy ids, the
+    result payload)."""
+    rec = RecordedIds(llm)
+    try:
+        out = llm.inference({"prompt": text, "max_new_tokens": n, "temperature": 0.0,
+                             "ignore_eos": True, **params})
+    finally:
+        rec.close()
+    (_, ids), = rec.ids
+    return ids, out
+
+
+def spill_text(seed, n=SPILL_PROMPT_TOKENS):
+    rng = np.random.default_rng(seed)
+    return "".join(rng.choice(np.array(list("abcdefghijklmnopqrstuvwxyz ,.")), n))
+
+
+def transfer_times(torch, engine, bids):
+    """Median wall time (CUDA events around the call, 30 calls) of the
+    batched download and upload of the pages of ``bids`` (free blocks: the
+    upload writes back what the download read) → (D2H ms, H2D ms, bytes
+    moved each way, bytes of the same pages on the L3 wire)."""
+    pages = engine.pull_pages(bids)
+    moved = sum(p.numel() * p.element_size()
+                + (0 if s is None else s.numel() * s.element_size()) for p, s in pages)
+    wire = sum(p.numel() * p.element_size()
+               + (0 if s is None else s.numel() * s.element_size() * p.shape[-1])
+               for p, s in pages)
+
+    def timed(fn):
+        out = []
+        for _ in range(30):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            out.append(t0.elapsed_time(t1))
+        return float(np.median(out))
+
+    d2h = timed(lambda: engine.pull_pages(bids))
+    h2d = timed(lambda: engine.push_pages(bids, [p for p, _ in pages], [s for _, s in pages]))
+    return d2h, h2d, moved, wire
+
+
+def spill_restore_check(torch, llm, keys, tag):
+    """Checks (a)-(c) of phase 14 (see the module docstring) on a loaded
+    ``TorchLLMEngine`` with an L2 tier: A served twice (the second run hits
+    the radix: the L1-hit reference), fillers until A's restorable blocks
+    are all spilled (each download bitwise equal to its pool page), then A
+    served from L2 with the restored pool pages bitwise equal to the
+    spilled ones and the stream equal to the reference. → (the cold
+    stream, the reference, ``restore_from(tier, prepare)`` for the later
+    tiers, the witness to close)."""
+    eng, mgr = llm.engine, llm.engine.manager
+    text = spill_text(0)
+    spilled = {}
+    store = mgr.store_spilled
+
+    def record(key, page, scale=None):
+        spilled[key] = (page, scale)
+        store(key, page, scale)
+
+    mgr.store_spilled = record
+    witness = PageWitness(torch, eng)
+
+    def restore_from(tier, prepare):
+        """``prepare()``, then A served again → (hits of ``tier``, restored
+        pages bitwise equal to the spilled ones, ids, payload)."""
+        prepare()
+        witness.restored = []
+        before = mgr.get_stats()[f"{tier}_hits"]
+        ids, out = serve_ids(llm, text, SPILL_TOKENS)
+        hits = mgr.get_stats()[f"{tier}_hits"] - before
+        same = len(witness.restored) == len(keys) and all(
+            same_bits(torch, p, spilled[k][0])
+            and (s is None or same_bits(torch, s, spilled[k][1]))
+            for k, (p, s) in zip(keys, witness.restored))
+        return hits, same and not witness.mismatch, ids, out
+
+    try:
+        cold, _ = serve_ids(llm, text, SPILL_TOKENS)
+        ref, out = serve_ids(llm, text, SPILL_TOKENS)
+        if out["usage"]["cached_tokens"] != SPILL_RESTORED * BK:
+            raise AssertionError(f"[spill] {tag}: the second run of A did not hit the "
+                                 f"radix: {out['usage']}")
+        print(f"[spill] {tag} (a): A ({SPILL_PROMPT_TOKENS} tokens) served, then again as the "
+              f"L1-hit reference ({out['usage']['cached_tokens']} tokens cached)", flush=True)
+        spills0, fillers = mgr.get_stats()["spills"], 0
+        while not set(keys) <= set(spilled) and fillers < SPILL_FILLERS:
+            serve_ids(llm, spill_text(100 + fillers), SPILL_TOKENS)
+            fillers += 1
+        spills = mgr.get_stats()["spills"] - spills0
+        print(f"[spill] {tag} (b): {fillers} fillers evicted A: spills +{spills}, "
+              f"{witness.downloaded} pages downloaded, each bitwise equal to its pool page: "
+              f"{not witness.mismatch}", flush=True)
+        if not set(keys) <= set(spilled) or spills < len(keys) or witness.mismatch:
+            raise AssertionError(f"[spill] {tag}: A's blocks were not all spilled intact: "
+                                 f"{len(set(keys) & set(spilled))} of {len(keys)}, "
+                                 f"{witness.mismatch}")
+        hits, same, ids, out = restore_from("l2", lambda: None)
+        print(f"[spill] {tag} (c): A served from L2: l2_hits +{hits}, restored pool pages "
+              f"bitwise equal to the spilled ones: {same}; greedy stream equal to the L1-hit "
+              f"reference: {ids == ref}", flush=True)
+        if hits != len(keys) or not same or ids != ref \
+                or out["usage"]["cached_tokens"] != SPILL_RESTORED * BK:
+            raise AssertionError(f"[spill] {tag}: the L2 restore failed: hits {hits}, pages "
+                                 f"{same}, stream {ids} vs {ref}")
+    except BaseException:
+        witness.close()
+        raise
+    return cold, ref, restore_from, witness
+
+
+def spill_phase(torch, pa, smi, kv_cache_dtype, resp, model="llama3-8b",
+                quantization="int8", device="cuda"):
+    """Phase 14 (see the module docstring) for one KV pool dtype; raises on
+    any failed check."""
+    import types
+
+    from distributed_gpu_inference_torch.testing import faults
+    from distributed_gpu_inference_torch.utils.data_structures import compute_prefix_hash
+    from distributed_gpu_inference_torch.worker import main as worker_main
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    t_phase = time.perf_counter()
+    tag = f"{model}, {quantization or 'bf16'} weights, {kv_cache_dtype or 'bf16'} pool"
+    llm = TorchLLMEngine({
+        "model": model, "quantization": quantization, "kv_cache_dtype": kv_cache_dtype,
+        "max_batch_size": DEADLINE_JOBS, "max_seq_len": 512,
+        "num_blocks": SPILL_POOL_BLOCKS, "kv_spill_host_blocks": SPILL_HOST_BLOCKS,
+        "kv_remote_url": f"redis://127.0.0.1:{resp.port}", "device": device, "seed": 0,
+        "prefix_summary_top_n": 0})
+    llm.load_model()
+    eng, mgr = llm.engine, llm.engine.manager
+    keys = [compute_prefix_hash(llm.tokenizer.encode(spill_text(0)), (i + 1) * BK)
+            for i in range(SPILL_RESTORED)]
+    witness = None
+    try:
+        pa.reset_launch_counts()
+        cold, ref, restore_from, witness = spill_restore_check(torch, llm, keys, tag)
+
+        # ---- (d) L2 cleared: A from L3 over RESP
+        def drop_l1_and_l2():
+            mgr.remote_store.flush()
+            mgr.clear_cached(spill=False)
+            for k in keys:
+                mgr.host_store.delete(k)
+
+        hits, same, ids, _ = restore_from("l3", drop_l1_and_l2)
+        print(f"[spill] {tag} (d): L2 cleared, A served from L3 over RESP: l3_hits +{hits}, "
+              f"restored pool pages bitwise equal to the spilled ones: {same}; stream equal "
+              f"to the L1-hit reference: {ids == ref}", flush=True)
+        if hits != len(keys) or not same or ids != ref:
+            raise AssertionError(f"[spill] {tag}: the L3 restore failed: hits {hits}, "
+                                 f"pages {same}, stream {ids} vs {ref}")
+
+        # ---- (e) a corrupt L3 entry: quarantined, A recomputed
+        drop_l1_and_l2()
+        stored = resp.data[b"dgi:kv:" + keys[0].encode()]
+        i = len(stored) // 2
+        resp.data[b"dgi:kv:" + keys[0].encode()] = \
+            stored[:i] + bytes([stored[i] ^ 0xFF]) + stored[i + 1:]
+        q0 = mgr.spill_io["remote_quarantined_corrupt"]
+        ids, out = serve_ids(llm, spill_text(0), SPILL_TOKENS)
+        mgr.remote_store.flush()
+        quarantined = mgr.spill_io["remote_quarantined_corrupt"] - q0
+        gone = b"dgi:kv:" + keys[0].encode() not in resp.data
+        print(f"[spill] {tag} (e): one L3 entry corrupted: remote_quarantined_corrupt "
+              f"+{quarantined}, deleted from the store: {gone}; A recomputed "
+              f"({out['usage']['cached_tokens']} tokens restored), stream equal to the cold "
+              f"run: {ids == cold}", flush=True)
+        if quarantined != 1 or not gone or ids != cold or out["usage"]["cached_tokens"]:
+            raise AssertionError(f"[spill] {tag}: the corrupt entry was not quarantined "
+                                 f"cleanly")
+
+        # ---- (f) host-tier puts fail: the breaker trips, serving goes on
+        rule = faults.FaultRule("io.spill.host.put", "error")
+        served = 0
+        with faults.active(faults.FaultPlan(seed=0, rules=[rule])):
+            while served < SPILL_FILLERS and not (
+                    mgr.breakers["host"].trips and mgr.spill_io["host_put_errors"] >= 3):
+                ids, out = serve_ids(llm, spill_text(1000 + served), SPILL_TOKENS)
+                if len(ids) != SPILL_TOKENS:
+                    raise AssertionError(f"[spill] {tag}: serving failed under the fault")
+                served += 1
+        block = worker_main.Worker._kv_spill_engine_stats(
+            types.SimpleNamespace(engines={"llm": llm}))
+        print(f"[spill] {tag} (f): io.spill.host.put failing: {served} requests served in "
+              f"full; heartbeat kv_spill block {block}", flush=True)
+        if not block or block.get("host_put_errors", 0) < 3 \
+                or block.get("breaker_host_trips", 0) < 1 \
+                or "breaker_host_state" not in block:
+            raise AssertionError(f"[spill] {tag}: the kv_spill block lacks the breaker trip")
+
+        # ---- (g) deadlines: one of 8 concurrent requests cannot meet its
+        llm.apply_serving_config({"abandon_deadlines": True, "deadline_grace_s": 0.0})
+        if not wait_until(lambda: llm.serving.batcher.cfg.abandon_deadlines, timeout=30):
+            raise AssertionError("abandon_deadlines did not reach the live batcher")
+        if not wait_until(lambda: eng.num_active == 0, timeout=60):
+            raise AssertionError("the engine did not go idle")
+        reclaim0 = mgr.num_reclaimable
+        abandoned0 = llm.serving_stats()["abandoned"]
+        rec = RecordedIds(llm)
+        results = [None] * DEADLINE_JOBS
+        texts = [spill_text(2000 + i, 48) for i in range(DEADLINE_JOBS)]
+
+        def run(i):
+            params = {"prompt": texts[i], "max_new_tokens": DEADLINE_TOKENS,
+                      "temperature": 0.0, "ignore_eos": True}
+            if i == 3:
+                params.update(max_new_tokens=DEADLINE_HOPELESS, deadline_s=0.05)
+            try:
+                results[i] = llm.inference(params)
+            except Exception as exc:  # noqa: BLE001 — the typed error is the result
+                results[i] = exc
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(DEADLINE_JOBS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        rec.close()
+        idle = wait_until(lambda: eng.num_active == 0, timeout=60)
+        vocab = eng.model_cfg.vocab_size
+        hopeless_prompt = tuple(llm.tokenizer.encode(texts[3]))
+        done = [ids for p, ids in rec.ids
+                if p != hopeless_prompt and len(ids) == DEADLINE_TOKENS]
+        hopeless = results[3]
+        abandoned = llm.serving_stats()["abandoned"] - abandoned0
+        print(f"[spill] {tag} (g): {DEADLINE_JOBS} concurrent requests, one with a 0.05 s "
+              f"deadline for {DEADLINE_HOPELESS} tokens: {type(hopeless).__name__} "
+              f"{getattr(hopeless, 'error_code', None)}; abandoned +{abandoned}; "
+              f"{len(done)} others finished {DEADLINE_TOKENS} tokens in vocabulary: "
+              f"{all(0 <= t < vocab for ids in done for t in ids)}; reclaimable blocks "
+              f"{reclaim0} -> {mgr.num_reclaimable}", flush=True)
+        if getattr(hopeless, "error_code", None) != "deadline_abandoned" or abandoned != 1 \
+                or len(done) != DEADLINE_JOBS - 1 \
+                or not all(isinstance(r, dict) for i, r in enumerate(results) if i != 3) \
+                or not all(0 <= t < vocab for ids in done for t in ids) \
+                or not idle or mgr.num_reclaimable != reclaim0:
+            raise AssertionError(f"[spill] {tag}: deadline abandonment failed: {results}")
+
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        witness.close()
+        witness = None
+        # ---- information: the batched page transfers over PCIe (free
+        # blocks, the engine idle, the cache dropped so that A's 11 fit)
+        if device == "cuda":
+            mgr.clear_cached(spill=False)
+            free = list(mgr.free_list[-SPILL_RESTORED:])
+            for bids in (free[:1], free):
+                d2h, h2d, moved, wire = transfer_times(torch, eng, bids)
+                print(f"[spill] {tag}: {len(bids)} page(s), {moved / 2**20:.3f} MiB moved each "
+                      f"way ({wire / 2**20:.3f} MiB on the L3 wire): D2H {d2h:.4f} ms "
+                      f"({moved / d2h / 1e6:.2f} GB/s), H2D {h2d:.4f} ms "
+                      f"({moved / h2d / 1e6:.2f} GB/s); bound {moved / PCIE_BYTES * 1e3:.4f} ms "
+                      f"at 64 GB/s ({smi})", flush=True)
+    finally:
+        if witness is not None:
+            witness.close()
+        llm.unload()
+    print(f"[spill] {tag}: kernel launches over the phase: {counts}; phase ran in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check_counts("spill", counts, qmm=quantization is not None)
+
+
+def flight_check(flight):
+    """Check (h) of phase 14: phase 13's traced jobs came back with their
+    timelines — the batcher's events present and in causal order — and the
+    plane's heartbeats carried the flight block."""
+    order = ["batcher.enqueued", "batcher.admitted", "batcher.first_token",
+             "batcher.completed", "worker.done"]
+    bad = []
+    for tid, wire in flight["timelines"]:
+        if not wire or wire.get("trace_id") != tid:
+            bad.append((tid, "no timeline"))
+            continue
+        first = {}
+        for name, ts, _ in wire["events"]:
+            first.setdefault(name, ts)
+        if not all(n in first for n in order) \
+                or [first[n] for n in order] != sorted(first[n] for n in order):
+            bad.append((tid, [e[0] for e in wire["events"]]))
+    beats = flight["beats"]
+    timelines = max((b.get("timelines", 0) for b in beats), default=0)
+    print(f"[flight] (h): {len(flight['timelines'])} traced jobs of phase 13 came back with "
+          f"timelines in causal order: {not bad}; the plane got engine_stats['flight'] in "
+          f"{len(beats)} heartbeats ({timelines} timelines)", flush=True)
+    if bad or timelines < len(flight["timelines"]):
+        raise AssertionError(f"[flight] timelines: {bad}, heartbeat counts {timelines}")
 
 
 # ---------------------------------------------------------------- phases
@@ -2104,7 +2563,16 @@ def main() -> int:
     ]
 
     # ---- 13. the worker process against a stand-in control plane
-    worker_phase(torch, pa, smi, prompts)
+    *_, flight = worker_phase(torch, pa, smi, prompts)
+
+    # ---- 14. serving under pressure: spill tiers, fault seams, deadlines, flight
+    resp = RespStandIn()
+    try:
+        for kv in (None, "int8"):
+            spill_phase(torch, pa, smi, kv, resp)
+    finally:
+        resp.stop()
+    flight_check(flight)
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,7 @@
 The port's own copy of ``distributed_gpu_inference_tpu/runtime/batcher.py``
 (``BatcherConfig``, ``split_prefill_budget``, ``ContinuousBatcher`` and
 ``BatcherServing``) over :class:`~distributed_gpu_inference_torch.runtime.engine.TorchEngine`,
-with the speculative-decoding, flight-recorder and prefill/decode
-hand-off hooks left out:
+with the speculative-decoding and prefill/decode hand-off hooks left out:
 
 - requests are admitted into fixed engine **slots** and every round runs
   one forward over all slots (a request joins/leaves the batch between
@@ -13,7 +12,14 @@ hand-off hooks left out:
   rows + prefill-chunk rows), otherwise ``engine.decode_multi`` over a
   quantized horizon the batcher tunes against a step-latency target;
 - prefix grouping orders *admission* so sequences sharing cached prefix
-  blocks land while those pages are hot.
+  blocks land while those pages are hot;
+- a traced request (``flight``, a ``runtime/flight.py`` Timeline) is noted
+  at every boundary the JAX batcher notes: enqueued, admitted, chunk
+  rounds, first token, preempted, resumed, completed;
+- with ``abandon_deadlines`` on, work whose deadline passed (or, with
+  ``predictive_abandon``, will pass) and whose projected remaining decode
+  cannot land within ``deadline_grace_s`` is dropped at the step boundary
+  with the typed ``deadline_abandoned`` response.
 
 Engine calls execute on a single dedicated thread (the engine is not
 thread-safe); the asyncio side only schedules and resolves futures.
@@ -126,6 +132,20 @@ class BatcherConfig:
     # full ``ragged_chunk`` slice per round — byte-identical outputs either way; the budget only shapes
     # WHEN prefill work lands). Live-pushable (serving.prefill_budget).
     prefill_budget: int = 0
+    # hopeless-work abandonment: when ON, the serving loop drops work whose
+    # deadline has ALREADY passed and whose projected remaining decode
+    # (tokens_left × observed step latency) still cannot land within
+    # ``deadline_grace_s`` — resolving the future with a typed
+    # ``deadline_abandoned`` error and freeing its blocks at the next step
+    # boundary. NEVER fires for deadline-less requests (deadline_s=None);
+    # OFF (the default) leaves every request as it was.
+    abandon_deadlines: bool = False
+    deadline_grace_s: float = 0.5
+    # predictive abandonment (requires abandon_deadlines): the projection
+    # fires BEFORE the deadline passes — work whose remaining decode
+    # already overruns deadline + grace stops using round slots now.
+    # Counted apart (stats["abandoned_predictive"]).
+    predictive_abandon: bool = False
 
     @property
     def horizon_levels(self) -> Tuple[int, ...]:
@@ -202,6 +222,10 @@ class _QueueItem:
         field(compare=False, default=None)
     cancel: Optional[Any] = field(compare=False, default=None)
     interrupt: Optional[Any] = field(compare=False, default=None)
+    # flight recorder: the request's Timeline when it carries a trace_id
+    # (noted at its step boundaries); None for untraced requests, which
+    # cost one None check per boundary
+    flight: Optional[Any] = field(compare=False, default=None)
 
 
 class ContinuousBatcher:
@@ -257,6 +281,7 @@ class ContinuousBatcher:
             "preemptions": 0, "resumes": 0, "preemption_block_pressure": 0,
             "preempted_too_often": 0,
             "cancelled": 0, "migrated": 0,
+            "abandoned": 0, "abandoned_predictive": 0,
         }
 
     @property
@@ -305,6 +330,21 @@ class ContinuousBatcher:
 
     # ---------------------------------------------------------------- API
 
+    @staticmethod
+    def _note(item: "_QueueItem", name: str, at: Optional[float] = None,
+              **attrs: Any) -> None:
+        """Flight-recorder boundary note for one request: a None check when
+        untraced, a list append when traced. ``at`` records an
+        engine-observed wall-clock instant (the slot's first-token time)
+        instead of now."""
+        f = item.flight
+        if f is None:
+            return
+        if at is not None:
+            f.note_at(name, at, **attrs)
+        else:
+            f.note(name, **attrs)
+
     async def submit(
         self, request: InferenceRequest, timeout_s: Optional[float] = None,
         *,
@@ -312,6 +352,7 @@ class ContinuousBatcher:
         cancel: Optional[Any] = None,
         interrupt: Optional[Any] = None,
         resume_from: Optional[PreemptedSequence] = None,
+        flight: Optional[Any] = None,
     ) -> InferenceResponse:
         """Enqueue and await completion (the future resolves with the response; queue-full and timeout surface as
         errors in the response).
@@ -323,7 +364,8 @@ class ContinuousBatcher:
         :class:`RequestMigrated` here instead of resolving (graceful
         drain). ``resume_from`` re-admits a server-held checkpoint instead
         of prefilling from scratch — head-of-line, through the same
-        cache/spill-restoring resume path KV-pressure preemptions use."""
+        cache/spill-restoring resume path KV-pressure preemptions use.
+        ``flight`` (a Timeline) is noted at each step boundary."""
         if self._stopping:
             raise RuntimeError("batcher is stopping")
         if len(self._heap) >= self.cfg.queue_limit:
@@ -361,7 +403,9 @@ class ContinuousBatcher:
             cancel=cancel,
             interrupt=interrupt,
             preempted=resume_from,
+            flight=flight,
         )
+        self._note(item, "batcher.enqueued", queue_depth=len(self._heap))
         heapq.heappush(self._heap, item)
         self.stats["submitted"] += 1
         self.stats["queue_peak"] = max(self.stats["queue_peak"], len(self._heap))
@@ -652,6 +696,7 @@ class ContinuousBatcher:
                 item.idle_resume_oob = 0
                 self.stats["resumes"] += 1
                 slot = got.slot if ragged else got
+                self._note(item, "batcher.resumed", slot=slot)
                 if slot in free:
                     free.remove(slot)
                 if ragged:
@@ -695,6 +740,9 @@ class ContinuousBatcher:
                 free.pop(0)
                 self._ragged.append((adm, item))
                 self.stats["ragged_admissions"] += 1
+                self._note(item, "batcher.admitted", slot=adm.slot,
+                           mode="ragged",
+                           tokens=len(item.request.prompt_token_ids or []))
                 continue
             n_prompt = len(item.request.prompt_token_ids or [])
             if n_prompt > max_bucket:
@@ -728,11 +776,17 @@ class ContinuousBatcher:
                 free.pop(0)
                 self._chunked = (adm, item)
                 self.stats["chunked_admissions"] += 1
+                self._note(item, "batcher.admitted", slot=adm.slot,
+                           mode="chunked", tokens=n_prompt)
                 continue
             free.pop(0)
             wave.append(item)
 
         if wave:
+            # admission instant of the whole wave: submit_batch prefills
+            # AND samples the first token before returning, so "admitted"
+            # noted after it would land after first_token
+            t_admit = time.time()
             try:
                 slots = await loop.run_in_executor(
                     self._exec,
@@ -753,6 +807,7 @@ class ContinuousBatcher:
                 # failing request(s) by falling back to per-request admission
                 slots = None
                 for item in wave:
+                    t_admit = time.time()
                     try:
                         slot = await loop.run_in_executor(
                             self._exec, self.engine.submit, item.request
@@ -773,6 +828,11 @@ class ContinuousBatcher:
                         continue
                     self._slot_items[slot] = item
                     self._admit_stamp[slot] = next(self._stamp)
+                    self._note(item, "batcher.admitted", at=t_admit,
+                               slot=slot, mode="wave",
+                               tokens=len(item.request.prompt_token_ids
+                                          or []))
+                    self._note_first_token(item, slot)
                     admitted += 1
             if slots is not None:
                 if slots:
@@ -780,6 +840,11 @@ class ContinuousBatcher:
                 for item, slot in zip(wave, slots):
                     self._slot_items[slot] = item
                     self._admit_stamp[slot] = next(self._stamp)
+                    self._note(item, "batcher.admitted", at=t_admit,
+                               slot=slot, mode="wave",
+                               tokens=len(item.request.prompt_token_ids
+                                          or []))
+                    self._note_first_token(item, slot)
                 admitted += len(slots)
                 # pressure deferred the wave's tail (possibly the whole
                 # wave): requeue without error
@@ -792,6 +857,16 @@ class ContinuousBatcher:
             heapq.heapify(self._heap)
         self.stats["admitted"] += admitted
         return admitted
+
+    def _note_first_token(self, item: "_QueueItem", slot: int) -> None:
+        """Note the first-token boundary at the ENGINE's wall-clock stamp
+        (the slot's ``first_token_time``, when the token was sampled), so
+        ttft on the timeline matches the engine's own ttft_ms."""
+        if item.flight is None:
+            return
+        s = self.engine.slots[slot]
+        t = getattr(s, "first_token_time", None) if s is not None else None
+        self._note(item, "batcher.first_token", at=t)
 
     async def _step_chunked(self) -> None:
         """Advance the in-flight chunk-interleaved admission by ONE chunk."""
@@ -824,6 +899,7 @@ class ContinuousBatcher:
             self._slot_items[adm.slot] = item
             self._chunked = None
             self.stats["admitted"] += 1
+            self._note_first_token(item, adm.slot)
 
     async def _check_pressure(self, after_round: bool = False) -> None:
         """Consume the engine's KV-pressure signal and apply the preemption
@@ -894,6 +970,8 @@ class ContinuousBatcher:
         self.stats["preemptions"] += 1
         item.preempt_count += 1
         pre.preempt_count = item.preempt_count
+        self._note(item, "batcher.preempted", slot=slot,
+                   generated=len(pre.generated))
         if item.preempt_count > self.cfg.max_preemptions:
             self.stats["preempted_too_often"] += 1
             if not item.future.done():
@@ -1066,6 +1144,148 @@ class ContinuousBatcher:
                     item.future.set_exception(RequestMigrated(pre))
                     self.stats["migrated"] += 1
 
+    def _deadline_hopeless(self, request: InferenceRequest,
+                           tokens_left: int, now: float) -> bool:
+        """True when ``request`` missed its deadline (or, predictive, will)
+        AND its projected remaining decode (``tokens_left`` × observed step
+        latency) cannot land even within the grace window. Guarded three
+        ways: the flag, an explicit ``deadline_s is None`` check
+        (deadline-less requests NEVER abandon) and ``tokens_left > 0`` (a
+        sequence about to finish frees nothing by aborting)."""
+        if not self.cfg.abandon_deadlines:
+            return False
+        if request.deadline_s is None:
+            return False
+        if tokens_left <= 0:
+            return False
+        deadline_at = request.deadline_at
+        if now <= deadline_at and not self.cfg.predictive_abandon:
+            # reactive mode waits for the deadline to pass; predictive mode
+            # lets the projection below fire early
+            return False
+        # observed step latency, floored at 1 ms so a cold EMA still
+        # projects some progress
+        itl_s = max(float(self.stats["step_latency_ema_ms"]), 1.0) / 1000.0
+        return now + tokens_left * itl_s > \
+            deadline_at + self.cfg.deadline_grace_s
+
+    def _count_abandon(self, request: InferenceRequest, now: float) -> None:
+        """Every abandonment lands in ``abandoned``; one that fired before
+        the deadline passed (predictive) also in ``abandoned_predictive``."""
+        self.stats["completed"] += 1
+        self.stats["abandoned"] += 1
+        if now <= request.deadline_at:
+            self.stats["abandoned_predictive"] += 1
+
+    def _abandon_response(self, request: InferenceRequest,
+                          token_ids: List[int],
+                          prompt_tokens: int) -> InferenceResponse:
+        return InferenceResponse(
+            request_id=request.request_id,
+            token_ids=list(token_ids),
+            finish_reason="abort",
+            prompt_tokens=prompt_tokens,
+            completion_tokens=len(token_ids),
+            error=f"deadline exceeded by {self.cfg.deadline_grace_s:.1f}s "
+                  "grace and projected remaining decode cannot land",
+            # machine-readable: the WORK was dropped (request_timeout means
+            # only the caller's wait elapsed); a caller must not silently
+            # retry it — its deadline has passed
+            error_code="deadline_abandoned",
+        )
+
+    async def _scan_deadlines(self) -> None:
+        """Abandon hopeless deadline-carrying work at the step boundary:
+        queued items resolve at once; mid-prefill admissions abort their
+        staged blocks; active slots free their KV through the abort path
+        cancels use. No-op (not even a clock read) unless
+        ``cfg.abandon_deadlines`` is on."""
+        if not self.cfg.abandon_deadlines:
+            return
+        loop = asyncio.get_running_loop()
+        now = time.time()
+        changed = False
+        for item in list(self._heap):
+            if item.future.done():
+                continue
+            req = item.request
+            pre = item.preempted
+            tokens_left = max(0, int(req.sampling.max_new_tokens)
+                              - (len(pre.generated) if pre else 0))
+            if not self._deadline_hopeless(req, tokens_left, now):
+                continue
+            self._heap.remove(item)
+            changed = True
+            item.future.set_result(self._abandon_response(
+                req, list(pre.generated) if pre else [],
+                pre.prompt_len if pre
+                else len(req.prompt_token_ids or []),
+            ))
+            self._count_abandon(req, now)
+        if changed:
+            heapq.heapify(self._heap)
+        if self._chunked is not None:
+            adm, item = self._chunked
+            if not item.future.done() and self._deadline_hopeless(
+                    item.request,
+                    int(item.request.sampling.max_new_tokens), now):
+                self._chunked = None
+                try:
+                    await loop.run_in_executor(
+                        self._exec, self.engine.abort_chunked, adm
+                    )
+                except Exception:  # noqa: BLE001 — abort is best-effort
+                    pass
+                if not item.future.done():
+                    item.future.set_result(self._abandon_response(
+                        item.request, [],
+                        len(item.request.prompt_token_ids or []),
+                    ))
+                    self._count_abandon(item.request, now)
+        for adm, item in list(self._ragged):
+            # a resume mid-prefill (ragged here) keeps its tokens
+            pre = item.preempted
+            done_tokens = list(pre.generated) if pre else []
+            if item.future.done() or not self._deadline_hopeless(
+                    item.request,
+                    int(item.request.sampling.max_new_tokens)
+                    - len(done_tokens), now):
+                continue
+            self._ragged.remove((adm, item))
+            try:
+                await loop.run_in_executor(
+                    self._exec, self.engine.abort_chunked, adm
+                )
+            except Exception:  # noqa: BLE001 — abort is best-effort
+                pass
+            if not item.future.done():
+                item.future.set_result(self._abandon_response(
+                    item.request, done_tokens,
+                    pre.prompt_len if pre
+                    else len(item.request.prompt_token_ids or []),
+                ))
+                self._count_abandon(item.request, now)
+        for slot, item in list(self._slot_items.items()):
+            s = self.engine.slots[slot]
+            if s is None or s.finish_reason is not None:
+                continue  # the round loop resolves finished slots
+            req = item.request
+            tokens_left = max(
+                0, int(req.sampling.max_new_tokens) - len(s.generated))
+            if not self._deadline_hopeless(req, tokens_left, now):
+                continue
+            try:
+                resp = await loop.run_in_executor(
+                    self._exec, self._abort_slot, slot
+                )
+            except Exception:  # noqa: BLE001 — finished/changed: next pass
+                continue
+            self._slot_items.pop(slot, None)
+            if resp is not None and not item.future.done():
+                item.future.set_result(self._abandon_response(
+                    req, list(resp.token_ids), resp.prompt_tokens))
+                self._count_abandon(req, now)
+
     def _notify_observers(self) -> None:
         """Push per-round progress to streaming observers (loop thread;
         observers must only enqueue). Finished slots are excluded — their
@@ -1182,6 +1402,9 @@ class ContinuousBatcher:
             # aborted requests release their slots BEFORE admission so the
             # freed capacity admits waiting work this very pass
             await self._scan_signals()
+            # hopeless deadline work drops at the same boundary, so its
+            # freed blocks admit waiting on-time work this very pass
+            await self._scan_deadlines()
             await self._admit()
             # admission-sourced KV pressure: deferred requests wait, or a
             # higher-priority arrival preempts the lowest-priority victim
@@ -1208,15 +1431,25 @@ class ContinuousBatcher:
                 self.stats["decode_rounds"] += 1
                 self.stats["occupancy_sum"] += self.engine.num_active
                 self._retune(latency)
+                # admission-chunk rounds on the timeline: one bounded note
+                # per in-flight traced admission per round
+                for adm, item in self._ragged:
+                    if item.flight is not None:
+                        self._note(item, "batcher.chunk_round", off=adm.off)
                 # ragged admissions whose final chunk sampled its first
                 # token this round join the batch (the finished-slot sweep
                 # below then resolves any that immediately hit stop/length)
                 for adm, item in [p for p in self._ragged if p[0].done]:
                     self._ragged.remove((adm, item))
+                    resumed = item.preempted is not None
                     item.preempted = None
                     self._slot_items[adm.slot] = item
                     self._admit_stamp[adm.slot] = next(self._stamp)
                     self.stats["admitted"] += 1
+                    if not resumed:
+                        # a resume keeps its first token's instant: the
+                        # JAX batcher notes none for it either
+                        self._note_first_token(item, adm.slot)
                 for i, s in enumerate(list(self.engine.slots)):
                     if s is not None and s.finish_reason is not None \
                             and i in self._slot_items:
@@ -1228,6 +1461,9 @@ class ContinuousBatcher:
                         )
                         item = self._slot_items.pop(i, None)
                         if item and not item.future.done():
+                            self._note(item, "batcher.completed",
+                                       finish_reason=resp.finish_reason,
+                                       tokens=resp.completion_tokens)
                             item.future.set_result(resp)
                             self.stats["completed"] += 1
                 # streaming observers see each surviving slot's monotonic
@@ -1325,8 +1561,8 @@ class BatcherServing:
     exposes a thread-safe surface:
 
     - :meth:`submit` — blocking submit from any thread (the batcher's
-      serving hooks — observer / cancel / interrupt / resume_from — pass
-      through), raising :class:`RequestMigrated` on drain.
+      serving hooks — observer / cancel / interrupt / resume_from / flight
+      — pass through), raising :class:`RequestMigrated` on drain.
     - :meth:`reconfigure` — apply server-pushed SLO knobs between rounds.
     """
 

@@ -2,14 +2,19 @@
 
 The port of ``distributed_gpu_inference_tpu/runtime/engine.py`` ``TPUEngine``
 (plain engine only: no speculative decoding, no mesh, no sequence-sharded
-pools, no spill tiers). Weights may be quantized on load
+pools). Weights may be quantized on load
 (``EngineConfig.quantization`` int8 / fp8, ``ops/quantization.py``) and the
 KV pools stored as int8 with scale pools or as fp8
 (``EngineConfig.kv_cache_dtype``). It owns
 
 - the paged KV pools (``models.llama.init_kv_pools``), updated IN PLACE by
   the forward passes and the copy-on-write page copies,
-- a :class:`PagedKVCacheManager` for block accounting, prefix reuse and CoW,
+- a :class:`PagedKVCacheManager` for block accounting, prefix reuse, CoW
+  and the spill tiers (``EngineConfig.spill_host_blocks`` /
+  ``spill_remote_store``): evicted pages go to the host and come back into
+  the pools through ``_apply_pending``, batched over the blocks of a round
+  (one gather and one device-to-host copy, one host-to-device copy and one
+  ``index_copy_`` per pool),
 - fixed-size **slot** state (block tables, lengths, sampling params, stop
   ids) as host numpy mirrors that stay authoritative for scheduling,
 
@@ -56,6 +61,7 @@ from distributed_gpu_inference_torch.ops.sampling import (
     sample_tokens_per_slot,
 )
 from distributed_gpu_inference_torch.runtime.kv_cache import (
+    HostKVStore,
     OutOfBlocksError,
     PagedKVCacheManager,
 )
@@ -121,6 +127,10 @@ class EngineConfig:
     # KV pool storage: None = activation dtype, "int8" (with scale pools)
     # or "fp8" (e4m3)
     kv_cache_dtype: Optional[str] = None
+    # spill tiers: host-RAM blocks of the L2 tier (0 disables it) and an L3
+    # store (``runtime/kv_cache.py`` RemoteKVStore-like, e.g. redis_kv's)
+    spill_host_blocks: int = 0
+    spill_remote_store: Optional[Any] = None
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -351,10 +361,21 @@ class TorchEngine:
             self.model_cfg, self.num_blocks, self.cfg.block_size, self.kv_dtype,
             self.device,
         )
+        host_store = (
+            HostKVStore(self.cfg.spill_host_blocks)
+            if self.cfg.spill_host_blocks > 0 else None
+        )
+        spill = host_store is not None or self.cfg.spill_remote_store is not None
+        k = self.kv["k"]
         self.manager = PagedKVCacheManager(
             self.num_blocks,
             self.cfg.block_size,
             enable_prefix_cache=self.cfg.enable_prefix_cache,
+            host_store=host_store,
+            remote_store=self.cfg.spill_remote_store,
+            spill_on_evict=spill,
+            kv_dtype=self.kv_dtype,
+            page_shape=(k.shape[0], 2, *k.shape[2:]),
         )
         self.eos_token_id = eos_token_id
 
@@ -441,19 +462,112 @@ class TorchEngine:
         return "greedy"
 
     def _apply_pending(self) -> None:
-        """Apply the block manager's queued copy-on-write page copies (all
-        layers, K and V, and the scale pages of int8 pools — a page without
-        its scale is garbage) before the next forward reads the pages."""
+        """Apply the block manager's queued device ops before the next
+        forward reads the pages, in the JAX engine's order: spill
+        DOWNLOADS first (an evicted block's id is about to be reused), then
+        copy-on-write page copies, then spill-restore uploads (all layers,
+        K and V, and the scales of int8 pools — a page without its scales
+        is garbage)."""
         ops = self.manager.take_pending_ops()
         if ops.empty:
             return
-        src = torch.tensor([s for s, _ in ops.copies], dtype=torch.long,
-                           device=self.device)
-        dst = torch.tensor([d for _, d in ops.copies], dtype=torch.long,
-                           device=self.device)
         with self._device_work():
-            for pool in self.kv.values():
-                pool[:, dst] = pool[:, src]
+            if ops.downloads:
+                pages = self.pull_pages([b for b, _ in ops.downloads])
+                for (_, key), (page, scale) in zip(ops.downloads, pages):
+                    self.manager.store_spilled(key, page, scale)
+            if ops.copies:
+                src = torch.tensor([s for s, _ in ops.copies],
+                                   dtype=torch.long, device=self.device)
+                dst = torch.tensor([d for _, d in ops.copies],
+                                   dtype=torch.long, device=self.device)
+                for pool in self.kv.values():
+                    pool[:, dst] = pool[:, src]
+            if ops.uploads:
+                scales = dict(ops.scale_uploads)
+                self.push_pages([b for b, _ in ops.uploads],
+                                [p for _, p in ops.uploads],
+                                [scales.get(b) for b, _ in ops.uploads])
+
+    # -- spill transfers: one page is [L, 2, Hkv, Bk, D] (K, V on axis 1),
+    #    an int8 pool's scales [L, 2, Bk]; both move as the bytes of one
+    #    [n, page + scale bytes] buffer, pinned on the host side
+
+    def _page_layout(self) -> Tuple[Tuple[int, ...], int, Optional[Tuple[int, ...]], int]:
+        """(page shape, page bytes, scale shape or None, scale bytes)."""
+        k = self.kv["k"]
+        shape = (k.shape[0], 2, *k.shape[2:])
+        pbytes = int(np.prod(shape)) * k.element_size()
+        if "k_scale" not in self.kv:
+            return shape, pbytes, None, 0
+        ks = self.kv["k_scale"]
+        sshape = (ks.shape[0], 2, ks.shape[2])
+        return shape, pbytes, sshape, int(np.prod(sshape)) * ks.element_size()
+
+    def _staging(self, n: int, nbytes: int) -> torch.Tensor:
+        """Host staging for n pages: pinned when the pools are on a card
+        (PyTorch's pinned allocator holds a block until the copies that
+        used it have run)."""
+        return torch.empty((n, nbytes), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+
+    def pull_pages(self, bids: Sequence[int]
+                   ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+        """The pages (and int8 scales) of ``bids`` as pageable host tensors
+        in the port's layout: one gather over the pools on the device, one
+        device-to-host copy into pinned staging, one synchronisation, then
+        one host copy per page (the L2 tier keeps them; pinning every entry
+        would pin gigabytes)."""
+        shape, pbytes, sshape, sbytes = self._page_layout()
+        idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
+        n = len(bids)
+        parts = [torch.stack((self.kv["k"].index_select(1, idx),
+                              self.kv["v"].index_select(1, idx)), dim=2)
+                 .movedim(1, 0).reshape(n, -1).view(torch.uint8)]
+        if sshape is not None:
+            parts.append(torch.stack((self.kv["k_scale"].index_select(1, idx),
+                                      self.kv["v_scale"].index_select(1, idx)), dim=2)
+                         .movedim(1, 0).reshape(n, -1).view(torch.uint8))
+        dev = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        host = self._staging(n, pbytes + sbytes)
+        host.copy_(dev, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        out = []
+        for i in range(n):
+            page = host[i, :pbytes].clone().view(self.kv["k"].dtype).reshape(shape)
+            scale = None
+            if sshape is not None:
+                scale = host[i, pbytes:].clone().view(torch.bfloat16).reshape(sshape)
+            out.append((page, scale))
+        return out
+
+    def push_pages(self, bids: Sequence[int], pages: Sequence[torch.Tensor],
+                   scales: Sequence[Optional[torch.Tensor]]) -> None:
+        """Write host pages (and int8 scales) into blocks ``bids`` of the
+        pools: the pages stacked into pinned staging, one host-to-device
+        copy, then one ``index_copy_`` per pool on the engine's stream."""
+        shape, pbytes, sshape, sbytes = self._page_layout()
+        n = len(bids)
+        host = self._staging(n, pbytes + sbytes)
+        for i, page in enumerate(pages):
+            if page.dtype != self.kv["k"].dtype or tuple(page.shape) != shape:
+                raise ValueError(f"restored page {page.dtype} {tuple(page.shape)} "
+                                 f"does not fit the pool's {self.kv['k'].dtype} {shape}")
+            host[i, :pbytes] = page.contiguous().reshape(-1).view(torch.uint8)
+            if sshape is not None:
+                if scales[i] is None:
+                    raise ValueError("an int8 page restored without its scales")
+                host[i, pbytes:] = scales[i].contiguous().reshape(-1).view(torch.uint8)
+        dev = host.to(self.device, non_blocking=True)
+        idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
+        kv = dev[:, :pbytes].contiguous().view(self.kv["k"].dtype).reshape(n, *shape)
+        self.kv["k"].index_copy_(1, idx, kv[:, :, 0].movedim(0, 1))
+        self.kv["v"].index_copy_(1, idx, kv[:, :, 1].movedim(0, 1))
+        if sshape is not None:
+            sc = dev[:, pbytes:].contiguous().view(torch.bfloat16).reshape(n, *sshape)
+            self.kv["k_scale"].index_copy_(1, idx, sc[:, :, 0].movedim(0, 1))
+            self.kv["v_scale"].index_copy_(1, idx, sc[:, :, 1].movedim(0, 1))
 
     def _bucket_len(self, n: int) -> int:
         for b in self.cfg.prefill_buckets:
@@ -694,6 +808,7 @@ class TorchEngine:
                       "generated_tokens")
         }
         mgr_stats_snapshot = dict(self.manager.stats.__dict__)
+        downloads_before = len(self.manager.pending.downloads)
 
         def _rollback() -> None:
             for slot, seq_id in admitted:
@@ -701,12 +816,20 @@ class TorchEngine:
                 self._kv_lens[slot] = 0
                 if seq_id in self.manager.seq_blocks:
                     self.manager.free_sequence(seq_id, cache=False)
-            # staged copies into now-freed blocks must not apply later
+            # staged uploads and copies into now-freed blocks must not
+            # apply later (a freed id gets reallocated). Downloads are kept:
+            # a spill download is the evicted page's only copy.
             alive = self.manager.metas
             p = self.manager.pending
+            p.uploads = [u for u in p.uploads if u[0] in alive]
+            p.scale_uploads = [u for u in p.scale_uploads if u[0] in alive]
             p.copies = [c for c in p.copies if c[0] in alive and c[1] in alive]
+            # counters must not double-count requests a retry re-admits;
+            # spills staged by this wave survive the rollback, so they stay
+            kept_wave_spills = len(p.downloads) - downloads_before
             self.stats.update(stats_snapshot)
             self.manager.stats.__dict__.update(mgr_stats_snapshot)
+            self.manager.stats.spills += max(kept_wave_spills, 0)
 
         try:
             for request, slot in zip(requests, free):
@@ -1306,7 +1429,7 @@ class TorchEngine:
         self._kv_lens[slot] = 0
         self.stats["completed"] += 1
         now = time.time()
-        return InferenceResponse(
+        resp = InferenceResponse(
             request_id=s.request.request_id,
             token_ids=list(s.generated),
             finish_reason=s.finish_reason or "abort",
@@ -1318,6 +1441,13 @@ class TorchEngine:
             else None,
             e2e_ms=(now - s.start_time) * 1000.0,
         )
+        # flight recorder: the engine's own wall-clock boundaries, so
+        # timeline events anchor where the engine observed them
+        if s.start_time is not None:
+            resp.extra["t_start"] = s.start_time
+        if s.first_token_time is not None:
+            resp.extra["t_first_token"] = s.first_token_time
+        return resp
 
     # ---------------------------------------------------------- generate
 

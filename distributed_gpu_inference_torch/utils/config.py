@@ -142,8 +142,9 @@ class ServingConfig:
     JAX package's keys and defaults. ``target_step_ms`` / ``queue_limit`` /
     ``max_wait_ms`` / ``ragged`` and the other keys of
     ``worker/engines/llm.py`` ``SERVING_REMOTE_KEYS`` retune a live batcher;
-    the port refuses at load what it does not serve (``mode: direct``,
-    ``abandon_deadlines``, ``predictive_abandon``)."""
+    ``abandon_deadlines`` / ``deadline_grace_s`` / ``predictive_abandon``
+    turn on the batcher's deadline abandonment; the port refuses at load
+    what it does not serve (``mode: direct``)."""
 
     mode: str = "batcher"
     target_step_ms: float = 100.0

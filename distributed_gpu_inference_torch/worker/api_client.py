@@ -12,7 +12,11 @@ and the same behaviour:
 - a bearer token, and HMAC-SHA256 signatures over
   ``METHOD:PATH:sha256(BODY):TIMESTAMP`` of exactly the path and body bytes
   sent (:class:`RequestSigner`, the plane's canonicalization);
-- 204 from next-job means "no job".
+- 204 from next-job means "no job";
+- the ``worker.api.request`` fault seam (``testing/faults.py``
+  ``wrap_http``) around every exchange, probes included, with the JAX
+  client's match context (method, path, ``worker`` = ``fault_tag``,
+  ``server``).
 
 ``http.client`` connections are not thread-safe, and the heartbeat
 thread, the poll loop, the job pool and the direct server's handler
@@ -31,6 +35,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 from urllib.parse import urlsplit
 
+from distributed_gpu_inference_torch.testing import faults as _faults
 from distributed_gpu_inference_torch.utils.backoff import full_jitter_delay
 
 # timeout of the failover /health probe (seconds)
@@ -156,10 +161,19 @@ class APIClient:
     # -- plane failover ------------------------------------------------------
 
     def _probe_plane(self, index: int) -> bool:
-        """GET /health on a candidate plane."""
+        """GET /health on a candidate plane, through the same fault seam as
+        real requests: a partitioned plane is alive but unreachable from
+        this worker, and the probe must see what the worker sees."""
         try:
-            resp = self._send(index, "GET", self._full_path(index, "/health"),
-                              b"", {}, PROBE_TIMEOUT_S)
+            resp = _faults.wrap_http(
+                "worker.api.request",
+                lambda: self._send(index, "GET",
+                                   self._full_path(index, "/health"),
+                                   b"", {}, PROBE_TIMEOUT_S),
+                method="GET", path="/health",
+                worker=str(getattr(self, "fault_tag", "") or ""),
+                server=self.endpoints[index],
+            )
             return resp.status_code == 200
         except Exception:  # noqa: BLE001 — any failure means unhealthy
             return False
@@ -220,9 +234,17 @@ class APIClient:
             index = self._active
             full = self._full_path(index, path)
             try:
-                resp = self._send(index, method, full, body,
-                                  self._headers(method, full, body),
-                                  self._timeout_s)
+                resp = _faults.wrap_http(
+                    "worker.api.request",
+                    lambda: self._send(index, method, full, body,
+                                       self._headers(method, full, body),
+                                       self._timeout_s),
+                    method=method, path=path,
+                    # per-replica targeting: a rule can cut ONE worker's
+                    # plane traffic, or one plane's (``server``)
+                    worker=str(getattr(self, "fault_tag", "") or ""),
+                    server=self.base_url,
+                )
             except TRANSPORT_ERRORS as exc:
                 last_exc = exc
                 if rotations < max_rotations and self._failover_plane():

@@ -21,21 +21,34 @@ The worker object supplies ``engines`` (task type → engine), ``state``,
 ``get_status()``, the claims ``try_begin_job`` / ``end_job`` and, for
 engines that serve through a batcher, the shared claims
 ``try_begin_serving`` / ``end_serving``; optionally ``should_accept_job``,
-``note_job_done`` and ``adopt_stream_checkpoint``.
+``note_job_done``, ``adopt_stream_checkpoint`` and ``fault_tag``.
+
+Fault seams (``testing/faults.py``, the JAX server's sites):
+``worker.direct.request`` (``http_reject``) answers ``/inference`` with an
+injected status or cuts its connection; ``worker.direct.stream``
+(``stream_cut``) hard-closes a stream at an event, as a crashed worker
+would.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import socket
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from distributed_gpu_inference_torch.testing import faults as _faults
+
 # params keys the server or the worker mints; a client never sets them
 _RESERVED = ("_failover_ctx", "_cancel_evt")
+
+
+class _Cut(Exception):
+    """A fault seam decided to drop the connection without an answer."""
 
 
 class _Reply(Exception):
@@ -96,6 +109,12 @@ class DirectServer:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
+
+    def _fault_tag(self) -> str:
+        """Per-worker context for the fault seams: a rule can target one
+        replica (``match={"worker": "w1"}``); untagged workers match the
+        empty string."""
+        return str(getattr(self.worker, "fault_tag", "") or "")
 
     # -- admission -----------------------------------------------------------
 
@@ -180,7 +199,17 @@ class DirectServer:
     # -- routes --------------------------------------------------------------
 
     def _inference(self, body: Any) -> Tuple[int, Dict[str, Any]]:
-        t0 = time.time()
+        t0 = time.time()   # before the seam: an injected delay is service time
+        reject = _faults.http_reject("worker.direct.request",
+                                     worker=self._fault_tag())
+        if reject == 0:
+            # the worker "dies" on this request: the handler hard-closes
+            raise _Cut("fault injected: request cut")
+        if reject is not None:
+            # a flaky replica: the process is healthy, the answer a 5xx
+            self.stats["rejected"] += 1
+            self._record_sample(error=True)
+            return reject, {"detail": "fault injected: flaky reply"}
         engine, body, release = self._admit(body)
         params = body.get("params") or {}
         hedge_key = None
@@ -315,6 +344,21 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(*route(body))
         except _Reply as reply:
             self._send_json(reply.status, reply.body)
+        except _Cut:
+            self._hard_close()
+
+    def _hard_close(self) -> None:
+        """Drop the connection with nothing more written, as a crashed
+        process would."""
+        self.close_connection = True
+        try:
+            self.wfile.flush()
+        except OSError:
+            pass
+        try:
+            self.connection.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
 
     def _stream(self, engine: Any, params: Dict[str, Any],
                 release: Callable[[float], None], started: float) -> None:
@@ -333,11 +377,19 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Transfer-Encoding", "chunked")
             self.send_header("Connection", "close")
             self.end_headers()
+            stream_id = str((params.get("_failover_ctx") or {}).get("key") or "")
             while True:
                 try:
                     chunk = loop.run_until_complete(agen.__anext__())
                 except StopAsyncIteration:
                     break
+                if _faults.stream_cut("worker.direct.stream",
+                                      stream_id=stream_id,
+                                      worker=self.direct._fault_tag()):
+                    # the worker "dies" mid-stream: an abrupt drop, no
+                    # terminating chunk
+                    self._hard_close()
+                    return
                 evt = sse_event(chunk)
                 self.wfile.write(b"%x\r\n%s\r\n" % (len(evt), evt))
                 self.wfile.flush()

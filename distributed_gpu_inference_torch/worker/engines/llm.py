@@ -24,19 +24,28 @@ batching:
 - the worker's heartbeat channels — ``serving_stats``, the radix prefix
   summary (``prefix_hot``, ``prefix_summary_wire`` / ``_ack`` /
   ``_resync`` / ``_disable``, wire-identical to the JAX engine's for the
-  same prompts) and the live serving-config push
-  (``apply_serving_config``).
+  same prompts; blocks evicted into a spill tier are demoted to that tier),
+  ``kv_spill_wire_stats`` (spill-tier IO errors, quarantines, breakers),
+  ``flight_wire_stats`` (the flight recorder) and the live serving-config
+  push (``apply_serving_config``);
+- the KV spill tiers (``kv_spill_host_blocks``, ``kv_remote_url`` =
+  ``redis://...`` or ``memory://``, ``kv_remote_ttl_s``), deadline
+  abandonment (``serving.abandon_deadlines`` / ``deadline_grace_s`` /
+  ``predictive_abandon``) and the flight recorder (a job or stream whose
+  params carry a ``trace_id`` gets a ``runtime/flight.py`` timeline in its
+  result or final chunk).
 
 ``load_model`` refuses, with :class:`EngineLoadError` naming the key, what
 this port does not serve rather than ignoring it: ``tokenizer_id`` (needs
-``transformers``), the speculative engines, deadline abandonment, tensor
-parallelism, spill tiers and the per-step ``serving.mode: direct`` driver.
-Prefill/decode hand-off stages are refused per request.
+``transformers``), the speculative engines, tensor parallelism and the
+per-step ``serving.mode: direct`` stream loop. Prefill/decode hand-off stages
+are refused per request.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import queue as _queue_mod
 import threading
 import time
@@ -53,7 +62,16 @@ from distributed_gpu_inference_torch.runtime.engine import (
     PreemptedSequence,
     TorchEngine,
 )
-from distributed_gpu_inference_torch.runtime.prefix_summary import PrefixHotSet
+from distributed_gpu_inference_torch.runtime.flight import (
+    NULL_TIMELINE,
+    timeline_for,
+)
+from distributed_gpu_inference_torch.runtime.prefix_summary import (
+    TIER_HOST,
+    TIER_SPILL,
+    PrefixHotSet,
+)
+from distributed_gpu_inference_torch.runtime.redis_kv import remote_store_from_url
 from distributed_gpu_inference_torch.utils.config import (
     ServingConfig,
     config_dict,
@@ -84,9 +102,8 @@ SERVING_DEFAULTS: Dict[str, Any] = config_dict(ServingConfig())
 
 # remote-config ``serving`` keys that may retune a LIVE batcher (a copy of
 # the JAX engine's map: remote key → batcher config field). Knobs of paths
-# the port does not run (the speculative batch caps, the abandonment
-# grace) name no field of the port's batcher and change nothing, as on a
-# JAX worker without those paths; turning abandonment on is refused.
+# the port does not run (the speculative batch caps) name no field of the
+# port's batcher and change nothing, as on a JAX worker without them.
 SERVING_REMOTE_KEYS: Dict[str, str] = {
     "target_step_ms": "target_step_latency_ms",
     "max_horizon": "max_multi_step",
@@ -107,17 +124,11 @@ SERVING_REMOTE_KEYS: Dict[str, str] = {
     "predictive_abandon": "predictive_abandon",
 }
 
-# serving knobs whose path is not ported: refused at load and in a push
-# when turned on (ROADMAP: deadline abandonment waits for its slice)
-_UNPORTED_SERVING = ("abandon_deadlines", "predictive_abandon")
-
 # engine config keys of paths the port does not have: refused at load when
 # set, naming the key, never ignored
 _UNPORTED_CONFIG = {
     "tokenizer_id": "a tokenizer loaded through transformers",
     "speculative_decode": "engine-integrated speculative decoding",
-    "kv_spill_host_blocks": "the host-RAM KV spill tier",
-    "kv_remote_url": "the remote KV spill tier",
 }
 
 
@@ -303,7 +314,9 @@ class TorchLLMEngine(LLMBaseEngine):
     max_batch_size, max_seq_len, multi_step, enable_prefix_cache,
     prefill_buckets, num_blocks, dtype, quantization (int8 | fp8 weight-only,
     ``ops/quantization.py``), kv_cache_dtype (int8 | fp8 | None = dtype),
-    device (default ``cuda``), seed,
+    kv_spill_host_blocks (the host-RAM L2 tier, 0 = none), kv_remote_url
+    (the L3 tier: ``redis://host:port/db`` or ``memory://``),
+    kv_remote_ttl_s, device (default ``cuda``), seed,
     params (a params tree already on the device, e.g. from
     ``models.convert.params_from_numpy``; random init from ``seed`` when
     absent), checkpoint_interval_tokens (the stream checkpoint cadence, 0 =
@@ -350,6 +363,12 @@ class TorchLLMEngine(LLMBaseEngine):
             PrefixHotSet(top_n) if top_n > 0 else None
         )
         self._prefix_evictions_seen = 0
+        # flight recorder: cumulative counters + a bounded ring of recent
+        # timelines (direct streams ship theirs only through the heartbeat)
+        self.flight_stats: Dict[str, int] = {
+            "timelines": 0, "events_dropped": 0,
+        }
+        self._flight_recent: Any = collections.deque(maxlen=8)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -373,12 +392,6 @@ class TorchLLMEngine(LLMBaseEngine):
                 f"extra.tp_size={tp}: tensor parallelism is not in the "
                 "PyTorch port (one card)"
             )
-        for key in _UNPORTED_SERVING:
-            if _truthy(sv.get(key)):
-                raise EngineLoadError(
-                    f"serving.{key}: deadline abandonment is not in the "
-                    "PyTorch port"
-                )
         if sv.get("mode") != "batcher":
             raise EngineLoadError(
                 f"serving.mode: {sv.get('mode')!r}: the PyTorch port serves "
@@ -401,6 +414,14 @@ class TorchLLMEngine(LLMBaseEngine):
             dtype=str(self.config.get("dtype", "bfloat16")),
             quantization=self.config.get("quantization"),
             kv_cache_dtype=self.config.get("kv_cache_dtype"),
+            # the spill tiers: a host-RAM L2 block budget and an optional
+            # L3 store from a URL (redis://host:port/db over
+            # runtime/redis_kv.py, memory:// in process)
+            spill_host_blocks=int(self.config.get("kv_spill_host_blocks") or 0),
+            spill_remote_store=remote_store_from_url(
+                self.config.get("kv_remote_url"),
+                ttl_s=float(self.config.get("kv_remote_ttl_s") or 3600.0),
+            ),
             num_blocks=(int(self.config["num_blocks"])
                         if self.config.get("num_blocks") else None),
         )
@@ -418,8 +439,13 @@ class TorchLLMEngine(LLMBaseEngine):
                 seed=int(self.config.get("seed", 0)),
                 device=self.config.get("device", "cuda"),
             )
-        except (ValueError, KeyError, NotImplementedError) as exc:
-            raise EngineLoadError(str(exc)) from exc
+        except BaseException as exc:
+            store = eng_cfg.spill_remote_store
+            if store is not None and hasattr(store, "close"):
+                store.close()      # its writer thread would outlive the load
+            if isinstance(exc, (ValueError, KeyError, NotImplementedError)):
+                raise EngineLoadError(str(exc)) from exc
+            raise
         try:
             self.serving = BatcherServing(self.engine, self._batcher_config(sv))
         except (ValueError, RuntimeError) as exc:
@@ -459,22 +485,17 @@ class TorchLLMEngine(LLMBaseEngine):
             ragged=(None if sv.get("ragged") is None
                     else bool(sv["ragged"])),
             prefill_budget=int(sv.get("prefill_budget") or 0),
+            abandon_deadlines=_truthy(sv.get("abandon_deadlines")),
+            deadline_grace_s=float(sv.get("deadline_grace_s") or 0.5),
+            predictive_abandon=_truthy(sv.get("predictive_abandon")),
         )
 
     def apply_serving_config(self, updates: Optional[Dict[str, Any]]) -> None:
         """Server-pushed SLO retune (remote config ``serving`` section),
         applied to the LIVE batcher between rounds. Load-time knobs
-        (``mode``, ``subwave``, ``interleave``) are not remote keys; turning
-        on a path the port does not have raises ValueError (the worker logs
-        the push as rejected)."""
+        (``mode``, ``subwave``, ``interleave``) are not remote keys."""
         if self.serving is None or not updates:
             return
-        for key in _UNPORTED_SERVING:
-            if _truthy(updates.get(key)):
-                raise ValueError(
-                    f"serving.{key}: deadline abandonment is not in the "
-                    "PyTorch port"
-                )
         kw = {
             SERVING_REMOTE_KEYS[k]: v
             for k, v in updates.items()
@@ -493,18 +514,26 @@ class TorchLLMEngine(LLMBaseEngine):
     def prefix_summary_wire(self) -> Optional[Dict[str, Any]]:
         """Next heartbeat radix-summary payload (full snapshot or delta —
         ``runtime/prefix_summary.py`` wire format), or None when the control
-        plane is up to date. The port has no spill tier, so blocks the pool
-        evicted since the last wire are gone: the coldest entries are
-        dropped in proportion, rather than advertised."""
+        plane is up to date. Before encoding, cold entries are demoted in
+        proportion to pool evictions since the last wire: to the spill tier
+        the evicted blocks landed in (host first: spills write through L2
+        and probes hit it first), or dropped when there is no spill tier —
+        evicted KV is then gone."""
         hot = self.prefix_hot   # snapshot vs a concurrent disable()
         if hot is None:
             return None
         eng = self.engine
         if eng is not None:
-            ev = int(eng.manager.stats.evictions or 0)
+            mgr = eng.manager
+            ev = int(mgr.stats.evictions or 0)
             delta = ev - self._prefix_evictions_seen
             if delta > 0 and len(hot):
-                hot.drop(min(1.0, delta / len(hot)))
+                frac = min(1.0, delta / len(hot))
+                if mgr.spill_on_evict:
+                    hot.demote(frac, tier=(TIER_HOST if mgr.host_store is not None
+                                           else TIER_SPILL))
+                else:
+                    hot.drop(frac)
             self._prefix_evictions_seen = ev
         return hot.wire()
 
@@ -524,11 +553,16 @@ class TorchLLMEngine(LLMBaseEngine):
         self.prefix_hot = None
 
     def unload(self) -> None:
-        """Stop serving and hand the device memory back (a worker restarted
-        in the same process loads its engine again)."""
+        """Stop serving, close the remote spill store's connections and
+        writer, and hand the device memory back (a worker restarted in the
+        same process loads its engine again)."""
         if self.serving is not None:
             self.serving.stop(drain=False)
             self.serving = None
+        store = (self.engine.cfg.spill_remote_store
+                 if self.engine is not None else None)
+        if store is not None and hasattr(store, "close"):
+            store.close()
         device = self.engine.device if self.engine is not None else None
         self.engine = None
         self._prefix_evictions_seen = 0
@@ -625,6 +659,11 @@ class TorchLLMEngine(LLMBaseEngine):
             )
         if self.serving is None or not self.serving.active:
             raise EngineLoadError("engine not loaded")
+        # flight recorder: the request's Timeline is minted here and rides
+        # params to the serving path that closes it
+        tl = self._flight_timeline(params)
+        if tl.enabled:
+            params["_flight_tl"] = tl
         ctx = params.get("_failover_ctx")
         if isinstance(ctx, dict):
             return self._job_inference(params, ctx)
@@ -634,6 +673,8 @@ class TorchLLMEngine(LLMBaseEngine):
         """Blocking request through the batcher front end: concurrent
         callers share engine rounds via slot-level continuous batching."""
         cfg = GenerationConfig.from_params(params)
+        tl = params.pop("_flight_tl", NULL_TIMELINE)
+        tl.note("worker.start", path="serving")
         req = self._params_request(params, cfg)
         # hedged dispatch: the direct server mints a cancel event for a
         # request that carries a hedge key — the losing racer is aborted at
@@ -641,14 +682,18 @@ class TorchLLMEngine(LLMBaseEngine):
         # finish_reason="abort", never an error)
         cancel = params.pop("_cancel_evt", None)
         t0 = time.perf_counter()
-        resp = self.serving.submit(req, cancel=cancel)
+        resp = self.serving.submit(req, cancel=cancel,
+                                   flight=tl if tl.enabled else None)
         if resp.error is not None:
             _raise_serving(resp)
-        return self._finish_payload(
+        tl.note("worker.done")
+        payload = self._finish_payload(
             list(resp.token_ids), resp.prompt_tokens, resp.cached_tokens,
             resp.finish_reason or "stop", cfg, resp.ttft_ms,
             time.perf_counter() - t0,
         )
+        self._flight_finish(tl, payload)
+        return payload
 
     def _finish_payload(self, token_ids: List[int], prompt_tokens: int,
                         cached_tokens: int, finish_reason: str,
@@ -683,6 +728,9 @@ class TorchLLMEngine(LLMBaseEngine):
         ``cancel`` (an Event) aborts at the next step boundary."""
         if self.serving is None or not self.serving.active:
             raise EngineLoadError("engine not loaded")
+        tl = self._flight_timeline(params)
+        if tl.enabled:
+            params["_flight_tl"] = tl
         return self._stream_serving(params, cancel=cancel)
 
     def _stream_serving(self, params: Dict[str, Any],
@@ -693,6 +741,8 @@ class TorchLLMEngine(LLMBaseEngine):
         exactly-once token offsets and checkpoint/resume hold while the
         sequence shares rounds with other slots."""
         cfg = GenerationConfig.from_params(params)
+        tl = params.pop("_flight_tl", NULL_TIMELINE)
+        tl.note("worker.stream.start")
         ctx = params.get("_failover_ctx")
         ctx = ctx if isinstance(ctx, dict) else {}
         key = str(ctx.get("key") or params.get("stream_id") or "") or None
@@ -751,6 +801,7 @@ class TorchLLMEngine(LLMBaseEngine):
         fut = self.serving.submit_async(
             req, observer=lambda toks: snaps.put(toks),
             cancel=stop_evt, resume_from=pre,
+            flight=tl if tl.enabled else None,
         )
         fut.add_done_callback(lambda f: snaps.put(_DONE))
 
@@ -825,7 +876,8 @@ class TorchLLMEngine(LLMBaseEngine):
             if key is not None:
                 self._unregister_live(key)
         finish = sp.finish_override or final.finish_reason
-        yield stamp({
+        tl.note("worker.stream.done", finish_reason=finish)
+        done_chunk = {
             "done": True,
             "finish_reason": finish,
             "usage": {
@@ -835,7 +887,11 @@ class TorchLLMEngine(LLMBaseEngine):
                 + final.completion_tokens,
                 "cached_tokens": final.cached_tokens,
             },
-        }, sp.sent_tokens)
+        }
+        # the final chunk carries the worker-side timeline (streams never
+        # pass complete_job); the heartbeat ring ships it too
+        self._flight_finish(tl, done_chunk)
+        yield stamp(done_chunk, sp.sent_tokens)
         # the server-held checkpoint is NOT retired on completion: the
         # worker cannot know the final bytes reached the client; the
         # control plane ages stream checkpoints out
@@ -959,6 +1015,75 @@ class TorchLLMEngine(LLMBaseEngine):
         if sink is not None:
             sink(entry)
 
+    def kv_spill_wire_stats(self) -> Optional[Dict[str, int]]:
+        """Cumulative spill-tier IO health counters (put/get errors,
+        corrupt-entry quarantines, breaker states and trips), remote entries
+        this process could not decode (``remote_undecodable``) and refused
+        corrupt checkpoints — heartbeat ``engine_stats["kv_spill"]``. None
+        while every counter is zero and every breaker closed."""
+        eng = self.engine
+        out: Dict[str, int] = {}
+        if eng is not None:
+            ws = eng.manager.spill_wire_stats()
+            out.update({k: int(v) for k, v in ws.items() if v})
+            if out:
+                # once anything has fired, ship breaker states INCLUDING
+                # zeros: a recovered breaker must drive the plane's gauge
+                # back to healthy
+                out.update({k: int(v) for k, v in ws.items()
+                            if k.endswith("_state")})
+            if eng.manager.codec_misses:
+                out["remote_undecodable"] = int(eng.manager.codec_misses)
+        if self.ckpt_corrupt:
+            out["ckpt_corrupt"] = int(self.ckpt_corrupt)
+        return out or None
+
+    # -- request flight recorder ----------------------------------------------
+
+    def _flight_timeline(self, params: Dict[str, Any]) -> Any:
+        """A Timeline for the request iff it carries a ``trace_id`` (the
+        shared no-op NULL_TIMELINE otherwise). Adopts the poll-pickup
+        instant the worker stamped into params before dispatch."""
+        tl = timeline_for(
+            params, source=str(getattr(self, "fault_tag", "") or "")
+        )
+        ts = params.pop("_flight_picked_up_ts", None)
+        if ts is not None and tl.enabled:
+            tl.note_at("worker.picked_up", ts)
+        return tl
+
+    def _flight_finish(self, tl: Any,
+                       payload: Optional[Dict[str, Any]] = None) -> None:
+        """Close one request's timeline: count it, keep it in the bounded
+        heartbeat ring, and attach the wire to the result payload when one
+        is given. Never raises — the recorder is advisory."""
+        try:
+            if not getattr(tl, "enabled", False):
+                return
+            wire = tl.wire(done=True)
+            if wire is None:
+                return
+            self.flight_stats["timelines"] += 1
+            if tl.dropped:
+                self.flight_stats["events_dropped"] += int(tl.dropped)
+            self._flight_recent.append(wire)
+            if payload is not None:
+                payload["timeline"] = wire
+        except Exception:  # noqa: BLE001 — never fail a request for this
+            pass
+
+    def flight_wire_stats(self) -> Optional[Dict[str, Any]]:
+        """Heartbeat ``engine_stats["flight"]``: cumulative counters plus
+        the ring of recently completed timelines (re-shipped every beat; the
+        plane's merge is idempotent). None while nothing was traced."""
+        if not self.flight_stats["timelines"]:
+            return None
+        return {
+            "timelines": int(self.flight_stats["timelines"]),
+            "events_dropped": int(self.flight_stats["events_dropped"]),
+            "recent": list(self._flight_recent),
+        }
+
     def _ckpt_from_wire(self, ckpt: Any) -> Optional[PreemptedSequence]:
         """Parse a server-held checkpoint, degrading corruption (bad crc,
         missing fields, wrong version) to None — a from-scratch run —
@@ -989,24 +1114,31 @@ class TorchLLMEngine(LLMBaseEngine):
                 or not self.serving.active:
             raise EngineLoadError("engine not loaded")
         t0 = time.perf_counter()
+        tl = params.pop("_flight_tl", NULL_TIMELINE)
+        tl.note("worker.start", path="job_serving")
         pre = self._ckpt_from_wire(ctx.get("checkpoint"))
         if pre is not None:
+            tl.note("worker.resume_from_checkpoint",
+                    tokens=len(pre.generated))
             if pre.request.sampling.max_new_tokens - len(pre.generated) <= 0:
                 # the checkpoint already holds the whole generation: the
                 # previous worker died between its last decode and its
                 # completion — deliver without touching the engine
-                return self._finish_payload(
+                payload = self._finish_payload(
                     list(pre.generated), pre.prompt_len,
                     pre.cached_tokens, "length", cfg, None,
                     time.perf_counter() - t0,
                 )
+                self._flight_finish(tl, payload)
+                return payload
             req = pre.request
         else:
             req = self._params_request(params, cfg)
         self._register_live(key, "job", epoch, req.request_id)
         try:
             resp = self.serving.submit(req, resume_from=pre,
-                                       interrupt=self._interrupt)
+                                       interrupt=self._interrupt,
+                                       flight=tl if tl.enabled else None)
         except RequestMigrated as mig:
             raise JobMigrated(mig.pre.to_wire(),
                               tokens=len(mig.pre.generated)) from None
@@ -1014,11 +1146,14 @@ class TorchLLMEngine(LLMBaseEngine):
             self._unregister_live(key)
         if resp.error is not None:
             _raise_serving(resp)
-        return self._finish_payload(
+        tl.note("worker.done")
+        payload = self._finish_payload(
             list(resp.token_ids), resp.prompt_tokens, resp.cached_tokens,
             resp.finish_reason or "stop", cfg, resp.ttft_ms,
             time.perf_counter() - t0,
         )
+        self._flight_finish(tl, payload)
+        return payload
 
     # -- batch path ------------------------------------------------------------
 

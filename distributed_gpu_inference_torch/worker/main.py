@@ -9,7 +9,9 @@ speaking the JAX control plane's wire protocol unchanged:
 - ``load_engines`` — one engine per task type from the registry
   (``worker/engines``); a type whose engine cannot load is dropped;
 - ``_heartbeat_once`` — batcher stats with ``capacity``, KV-pressure
-  counters, the direct server's wire stats, the radix prefix summary
+  counters, spill-tier IO health (``kv_spill``), the flight recorder's
+  counters and recent timelines (``flight``), the direct server's wire
+  stats, the radix prefix summary
   (ack / resync / disable, and a resync when a different plane answers),
   live checkpoints, ``active_job_ids`` and the previous beat's round trip;
   ``config_changed`` refetches the remote config, a 401 refreshes the token
@@ -17,7 +19,8 @@ speaking the JAX control plane's wire protocol unchanged:
 - ``_poll_once`` — load-control gates before claiming, then a shared
   serving claim per job on the batcher-backed engine (several jobs decode
   in one batch) or the exclusive claim;
-- ``process_job`` — reserved keys scrubbed, the failover context handed to
+- ``process_job`` — reserved keys scrubbed, the poll-pickup instant
+  stamped for a traced job (``trace_id``), the failover context handed to
   the engine, ``JobMigrated`` pushed back as ``checkpoint(migrate=True)``,
   completions fenced by the assignment epoch, claims released on shutdown;
 - ``request_shutdown`` — graceful drain: in-flight jobs migrate, the server
@@ -26,9 +29,9 @@ speaking the JAX control plane's wire protocol unchanged:
 The port serves one CUDA card: ``probe_topology`` reads it through
 ``torch.cuda``. It refuses at ``start`` what is not ported: a ``role`` of
 ``prefill`` / ``decode`` and a ``pd_data_plane_url`` (prefill/decode
-disaggregation). The JAX worker's speculation, PD, KV-migration, spill and
-flight-recorder heartbeat blocks are absent because no port engine has
-them — the JAX worker omits each block in that case too.
+disaggregation). The JAX worker's speculation, PD and KV-migration
+heartbeat blocks are absent because no port engine has them — the JAX
+worker omits each block in that case too.
 """
 
 from __future__ import annotations
@@ -287,6 +290,55 @@ class Worker:
             out["capacity"] = self.serving_capacity()
         return out or None
 
+    def _kv_spill_engine_stats(self) -> Optional[Dict[str, Any]]:
+        """Spill-tier IO health of every loaded engine (put/get errors,
+        quarantines, breaker states and trips, refused corrupt
+        checkpoints); breaker states are gauges (the sickest engine wins),
+        the rest sums. None while everything is zero."""
+        out: Dict[str, int] = {}
+        for eng in self.engines.values():
+            fn = getattr(eng, "kv_spill_wire_stats", None)
+            if fn is None:
+                continue
+            try:
+                s = fn()
+            except Exception:  # noqa: BLE001 — never break the heartbeat
+                continue
+            for k, v in (s or {}).items():
+                if k.endswith("_state"):
+                    out[k] = max(out.get(k, 0), int(v))
+                else:
+                    out[k] = out.get(k, 0) + int(v)
+        return out or None
+
+    def _flight_engine_stats(self) -> Optional[Dict[str, Any]]:
+        """Flight-recorder payload of every loaded engine: cumulative
+        timeline/drop counters and the last 16 completed timelines (direct
+        streams reach the plane's timeline store only this way). None when
+        nothing was traced."""
+        out: Dict[str, Any] = {}
+        recent: List[Dict[str, Any]] = []
+        for eng in self.engines.values():
+            fn = getattr(eng, "flight_wire_stats", None)
+            if fn is None:
+                continue
+            try:
+                s = fn()
+            except Exception:  # noqa: BLE001 — never break the heartbeat
+                continue
+            if not s:
+                continue
+            for k in ("timelines", "events_dropped"):
+                out[k] = out.get(k, 0) + int(s.get(k, 0) or 0)
+            r = s.get("recent")
+            if isinstance(r, list):
+                recent.extend(r)
+        if not out:
+            return None
+        if recent:
+            out["recent"] = recent[-16:]
+        return out
+
     def _prefix_summary_payload(self) -> Optional[tuple]:
         """(engine, wire payload) of the first engine with a radix summary
         to ship this beat; None when every engine is in sync."""
@@ -328,6 +380,12 @@ class Worker:
         batcher = self._batcher_stats()
         if batcher:
             engine_stats["batcher"] = batcher
+        kv_spill = self._kv_spill_engine_stats()
+        if kv_spill:
+            engine_stats["kv_spill"] = kv_spill
+        flight = self._flight_engine_stats()
+        if flight:
+            engine_stats["flight"] = flight
         direct = self._direct
         if direct is not None:
             # per-request direct latencies / 5xx / hedge cancels for the
@@ -607,6 +665,10 @@ class Worker:
             # reserved keys the worker mints: never taken from job params
             for key in ("_failover_ctx", "_flight_picked_up_ts", "_flight_tl"):
                 params.pop(key, None)
+            if params.get("trace_id"):
+                # flight recorder: the poll-pickup instant, adopted into the
+                # request's timeline by the engine
+                params["_flight_picked_up_ts"] = time.time()
             if job.get("priority") is not None:
                 # control-plane priority reaches the batcher's admission heap
                 params.setdefault("priority", job.get("priority"))

@@ -1,6 +1,7 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
-package (nor aiohttp, httpx, pydantic or transformers, which the card's
-machine lacks; PyYAML only lazily, behind an error naming it), runs on CUDA
+package (nor aiohttp, httpx, pydantic, transformers, msgpack, ml_dtypes or
+redis, which the card's machine lacks; PyYAML only lazily, behind an error
+naming it, and zstandard only to read a zstd spill frame), runs on CUDA
 unless asked for the CPU, its kernel wrappers never
 fall back to the plain version for a tensor that is not on the CPU, and
 the engine refuses on the card a model the kernels do not take. Tests
@@ -19,7 +20,7 @@ from distributed_gpu_inference_torch.runtime.engine import TorchEngine  # noqa: 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu", "aiohttp", "httpx",
-             "pydantic", "transformers")
+             "pydantic", "transformers", "msgpack", "ml_dtypes", "redis")
 
 
 def _port_files():
@@ -43,7 +44,9 @@ def test_port_imports_nothing_of_jax():
     assert {"quantization.py", "qmm.py", "paged_attention.py", "_build.py",
             "direct_server.py", "llm.py", "chip_smoke.py", "main.py", "api_client.py",
             "cli.py", "machine_id.py", "config.py", "backoff.py", "prefixes.py",
-            "prefix_summary.py", "io_guard.py"} <= {f.name for f in files}
+            "prefix_summary.py", "io_guard.py", "faults.py", "flight.py", "redis_kv.py",
+            "serialization.py", "kv_cache.py"} <= {f.name for f in files}
+    assert (ROOT / "distributed_gpu_inference_torch/testing/faults.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files
     offenders = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
@@ -80,6 +83,16 @@ def test_yaml_is_imported_only_lazily_behind_its_error():
     assert list(sites) == ["distributed_gpu_inference_torch/utils/config.py"]
     assert [fn for fn, _ in sites["distributed_gpu_inference_torch/utils/config.py"]] == [
         "_yaml"]
+
+
+def test_zstandard_is_imported_only_where_a_zstd_frame_is_read():
+    # the card has no zstandard: the spill wire writes uncompressed frames,
+    # and only reading a JAX writer's zstd frame imports it, lazily
+    sites = {str(f.relative_to(ROOT)): _import_sites(f, "zstandard") for f in _port_files()}
+    sites = {k: v for k, v in sites.items() if v}
+    assert list(sites) == ["distributed_gpu_inference_torch/utils/serialization.py"]
+    assert [fn for fn, _ in sites["distributed_gpu_inference_torch/utils/serialization.py"]] \
+        == ["deserialize"]
 
 
 def test_yaml_config_without_pyyaml_raises_naming_it(tmp_path, monkeypatch):
@@ -509,5 +522,38 @@ def test_worker_process_serves_drains_and_resumes_on_the_card(cuda):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     _, _, prompts = smoke.serving_prompts()
-    _, _, counts = smoke.worker_phase(torch, tpa, "gpu test", prompts, model="llama3-mini")
+    _, _, counts, _ = smoke.worker_phase(torch, tpa, "gpu test", prompts, model="llama3-mini")
     assert all(n > 0 for n in counts.values()), counts
+
+
+@pytest.mark.gpu
+def test_spill_and_l2_restore_on_the_card(cuda):
+    # chip_smoke.py phase 14 check (c) at llama3-mini: A's pages spill when
+    # fillers evict them, come back from the host tier bitwise equal, and
+    # the greedy stream equals the L1-hit run through both attention kernels
+    import importlib.util
+
+    from distributed_gpu_inference_torch.utils.data_structures import compute_prefix_hash
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    llm = TorchLLMEngine({"model": "llama3-mini", "max_batch_size": 8, "max_seq_len": 512,
+                          "num_blocks": smoke.SPILL_POOL_BLOCKS, "kv_spill_host_blocks": 64,
+                          "device": "cuda", "seed": 0, "prefix_summary_top_n": 0})
+    llm.load_model()
+    witness = None
+    try:
+        keys = [compute_prefix_hash(llm.tokenizer.encode(smoke.spill_text(0)), (i + 1) * 16)
+                for i in range(smoke.SPILL_RESTORED)]
+        tpa.reset_launch_counts()
+        *_, witness = smoke.spill_restore_check(torch, llm, keys, "gpu test")
+        counts = tpa.launch_counts()
+        assert counts["ragged_paged_attention"] > 0
+        assert counts["paged_decode_attention_fused"] > 0
+        assert llm.engine.manager.get_stats()["l2_hits"] == len(keys)
+    finally:
+        if witness is not None:
+            witness.close()
+        llm.unload()

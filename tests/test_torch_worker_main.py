@@ -621,23 +621,37 @@ def test_serving_config_push_reaches_the_batcher_and_refusals_are_logged(
             time.sleep(0.01)
         assert llm.serving.batcher.cfg.target_step_latency_ms == 40.0
         assert llm.serving.batcher.cfg.queue_limit == 7
-        api.remote_config = {"version": 3, "serving": {"abandon_deadlines": "true"}}
+        # deadline abandonment is served now: the push turns it on live
+        api.remote_config = {"version": 3, "serving": {"abandon_deadlines": "true",
+                                                       "deadline_grace_s": 0.25}}
+        w._fetch_remote_config()
+        deadline = time.time() + 10
+        while not llm.serving.batcher.cfg.abandon_deadlines and time.time() < deadline:
+            time.sleep(0.01)
+        assert llm.serving.batcher.cfg.abandon_deadlines is True
+        assert llm.serving.batcher.cfg.deadline_grace_s == 0.25
+        # a value the batcher rejects is logged as a rejected push
+        api.remote_config = {"version": 4, "serving": {"ragged_chunk": 0}}
         with caplog.at_level(logging.WARNING):
             w._fetch_remote_config()
+            deadline = time.time() + 10
+            while "serving config push rejected" not in caplog.text \
+                    and time.time() < deadline:
+                time.sleep(0.01)
         assert "serving config push rejected" in caplog.text
-        assert "deadline abandonment is not in the PyTorch port" in caplog.text
+        assert "ragged_chunk must be >= 1" in caplog.text
     finally:
         llm.unload()
 
 
 @pytest.mark.parametrize("config,names", [
     ({"engine": "jax-speculative"}, "jax-speculative"),
-    ({"serving": {"abandon_deadlines": True}}, "serving.abandon_deadlines"),
-    ({"serving": {"predictive_abandon": True}}, "serving.predictive_abandon"),
+    ({"engine": "speculative"}, "engine: speculative"),
+    ({"speculative_decode": True}, "speculative_decode"),
     ({"extra": {"tp_size": 2}}, "extra.tp_size=2"),
     ({"serving": {"mode": "direct"}}, "serving.mode"),
     ({"tokenizer_id": "meta-llama/Meta-Llama-3-8B"}, "tokenizer_id"),
-    ({"kv_spill_host_blocks": 64}, "kv_spill_host_blocks"),
+    ({"tp_size": 4}, "extra.tp_size=4"),
 ])
 def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names):
     llm = TorchLLMEngine(dict({"model": "llama3-tiny", "device": "cpu"}, **config))
@@ -646,12 +660,41 @@ def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names):
     assert llm.engine is None
 
 
+@pytest.mark.parametrize("config", [
+    {"serving": {"abandon_deadlines": True}},
+    {"serving": {"abandon_deadlines": True, "predictive_abandon": True}},
+    {"kv_spill_host_blocks": 64},
+    {"kv_spill_host_blocks": 4, "kv_remote_url": "memory://", "kv_remote_ttl_s": 60},
+])
+def test_engine_loads_and_serves_the_lifted_keys(tiny_params, config):
+    llm = TorchLLMEngine(dict({"model": "llama3-tiny", "device": "cpu",
+                               "dtype": "float32", "max_seq_len": 128,
+                               "prefill_buckets": [16, 32, 64],
+                               "params": params_from_numpy(tiny_params, "cpu")},
+                              **config))
+    llm.load_model()
+    try:
+        out = llm.inference({"prompt": "lifted", "max_new_tokens": 4,
+                             "ignore_eos": True})
+        assert out["usage"]["completion_tokens"] == 4
+        bc = llm.serving.batcher.cfg
+        sv = config.get("serving", {})
+        assert bc.abandon_deadlines is bool(sv.get("abandon_deadlines"))
+        assert bc.predictive_abandon is bool(sv.get("predictive_abandon"))
+        mgr = llm.engine.manager
+        assert (mgr.host_store is not None) == bool(config.get("kv_spill_host_blocks"))
+        assert (mgr.remote_store is not None) == bool(config.get("kv_remote_url"))
+        assert mgr.spill_on_evict == bool(config.get("kv_spill_host_blocks"))
+    finally:
+        llm.unload()
+
+
 def test_worker_drops_an_llm_engine_config_the_port_refuses(tiny_params):
     register_engine("llm", _tiny_factory(tiny_params))
     cfg = _config()
     cfg.engines["llm"] = EngineModelConfig(
         engine="jax", model="llama3-tiny",
-        serving=ServingConfig(abandon_deadlines=True))
+        serving=ServingConfig(mode="direct"))
     with pytest.raises(EngineLoadError, match="no engine loaded"):
         Worker(cfg, api=FakeAPI(creds_valid=True), topology=CPU).load_engines()
 

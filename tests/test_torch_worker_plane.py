@@ -11,7 +11,11 @@ weights through each package's ``register_engine`` hook:
   over its tokens and an uninterrupted run over all of them;
 - a plane ``stale_job`` fences the zombie's completion, and a 401 is
   healed by a token refresh or, when that fails, a re-registration;
-- signed requests pass a plane that requires signatures."""
+- signed requests pass a plane that requires signatures;
+- with a host spill tier whose reads fail (a fault plan) and traced jobs,
+  the plane ingests the port worker's ``kv_spill`` and ``flight``
+  heartbeat blocks as it ingests the JAX worker's, and the worker-side
+  timelines carry the same events in the same order."""
 
 import threading
 import time
@@ -25,6 +29,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from distributed_gpu_inference_torch.models.convert import params_from_numpy  # noqa: E402
+from distributed_gpu_inference_torch.testing import faults as tfaults  # noqa: E402
 from distributed_gpu_inference_torch.utils import config as tconfig  # noqa: E402
 from distributed_gpu_inference_torch.utils.data_structures import TpuTopology  # noqa: E402
 from distributed_gpu_inference_torch.worker import api_client as tapi  # noqa: E402
@@ -34,6 +39,7 @@ from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine  #
 from distributed_gpu_inference_tpu.models import llama as jllama  # noqa: E402
 from distributed_gpu_inference_tpu.models.configs import get_model_config  # noqa: E402
 from distributed_gpu_inference_tpu.runtime import engine as jengine  # noqa: E402
+from distributed_gpu_inference_tpu.testing import faults as jfaults  # noqa: E402
 from distributed_gpu_inference_tpu.testing.harness import LiveControlPlane  # noqa: E402
 from distributed_gpu_inference_tpu.utils import config as jconfig  # noqa: E402
 from distributed_gpu_inference_tpu.utils import data_structures as jds  # noqa: E402
@@ -43,9 +49,12 @@ from distributed_gpu_inference_tpu.worker import main as jmain  # noqa: E402
 from distributed_gpu_inference_tpu.worker.engines import llm as jllm  # noqa: E402
 
 MODEL = "llama3-tiny"
-# one token a decode round (horizon 1), so that a paced round paces tokens
+# one token a decode round (horizon 1), so that a paced round paces tokens;
+# a host spill tier (the pool never evicts in these tests, but admissions
+# probe the tier, which a fault plan can fail)
 GEOM = dict(max_batch_size=4, max_seq_len=256, prefill_buckets=[16, 32, 64, 128],
-            checkpoint_interval_tokens=4, serving={"max_horizon": 1})
+            checkpoint_interval_tokens=4, serving={"max_horizon": 1},
+            kv_spill_host_blocks=64)
 TIMEOUT = 120.0
 JOBS = [
     {"prompt": "the plane routes jobs to workers " * 3, "max_new_tokens": 12,
@@ -351,3 +360,46 @@ def test_signed_requests_pass_a_plane_that_requires_them(engines):
             assert ei.value.status == 401
         finally:
             w.stop()
+
+
+def test_the_plane_ingests_both_workers_spill_and_flight_blocks(engines):
+    seen = {}
+    with LiveControlPlane() as cp:
+        for kind, faults in (("port", tfaults), ("jax", jfaults)):
+            rule = faults.FaultRule("io.spill.host.get", "error")
+            with faults.active(faults.FaultPlan(seed=2, rules=[rule])):
+                w = Running(kind, cp)
+                try:
+                    tid = f"trace-{kind}"
+                    jid = _queue(cp, dict(JOBS[0], trace_id=tid))
+                    assert _wait(lambda: cp.job(jid)["status"] == "completed")
+
+                    def both_blocks():
+                        es = [kw.get("engine_stats", {}) for kw, _ in w.beats]
+                        return any("flight" in e and "kv_spill" in e for e in es)
+
+                    assert _wait(both_blocks)
+                    n = len(w.beats)
+                    assert _wait(lambda: len(w.beats) >= n + 1)
+                finally:
+                    w.stop()
+            es = [kw["engine_stats"] for kw, _ in w.beats if "flight" in
+                  kw.get("engine_stats", {})]
+            tl = cp.state.flight.timeline(tid)
+            worker_events = [e["event"] for e in tl["events"] if e["source"] == w.worker_id]
+            seen[kind] = (es[-1]["kv_spill"], sorted(es[-1]["flight"]),
+                          es[-1]["flight"]["recent"][-1]["trace_id"] == tid, worker_events,
+                          cp.state.metrics._kvspill_prev[w.worker_id],
+                          cp.state.metrics._flight_prev[w.worker_id],
+                          sorted(cp.job(jid)["timeline"]["phases"]))
+    assert seen["port"] == seen["jax"]
+    kv_spill, keys, trace, events, spill_prev, flight_prev, phases = seen["port"]
+    assert kv_spill["host_get_errors"] >= 1 and "breaker_host_state" in kv_spill
+    assert keys == ["events_dropped", "recent", "timelines"] and trace
+    assert spill_prev["host_get_errors"] == kv_spill["host_get_errors"]
+    assert flight_prev["timelines"] == 1
+    assert events[:4] == ["worker.picked_up", "worker.start", "batcher.enqueued",
+                          "batcher.admitted"]
+    assert events[-3:] == ["batcher.first_token", "batcher.completed", "worker.done"] \
+        or events[-2:] == ["batcher.completed", "worker.done"]
+    assert {"queue_wait", "ttft", "e2e"} <= set(phases)
