@@ -151,9 +151,44 @@ Serving under pressure:
     timeline has the batcher's events in causal order, and the plane's
     heartbeats carried ``engine_stats["flight"]``.
 
+Speculative decoding:
+
+15. speculative decoding — ``TorchLLMEngine`` loads llama3-8b (full depth,
+    int8 weights) with ``speculative_decode: true`` (K = 4, a random draft
+    head) beside the same engine without speculation on the same weights,
+    first with the bf16 KV pool, then with the int8 pool; each serves the 8
+    serving prompts as greedy requests of 32 tokens in one
+    ``batch_inference`` call, counters zeroed before and read after. (a)
+    Each finished stream is re-scored by one teacher-forced forward: every
+    committed token is the target's argmax except at a near-tie, where its
+    own logit lies less than 0.05 below the argmax's (so that position's
+    top-2 gap is below 0.05; each exception printed with both), a runner-up
+    planted at the widest gap is rejected, and where a
+    stream parts from the run without speculation the first divergence is
+    printed with its gap. (b) After the requests the allocator's free and
+    cached counts, radix nodes, refcounts and each sequence's cached prefix
+    equal the never-speculated engine's. (c) The ragged kernel ran the
+    verify rows (K+1 queries), the quantized matmul's kernel served M =
+    8·(K+1) = 40 rows and its library route never did, the fused decode
+    kernel never launched, ``spec_tokens_per_step`` >= 1. (d) is (a)-(c)
+    with the int8 pool. (e) Oracle rates 0, 0.5 and 1.0 on the live engine
+    (``set_spec_oracle``), 8 requests of 64 tokens with ``ignore_eos``:
+    ``spec_tokens_per_step`` within 0.25 of 1 + rate·K; tok/s beside the
+    engine without speculation (information). (f) CUDA-event medians of 10
+    at batch 8 over the serving contexts: the draft chain, the verify pass,
+    one plain decode step and ``project_logits`` alone. (g) ``engine:
+    jax-speculative`` with widths (4, 2, 2): two short greedy prompts ride
+    one spec wave of the batcher; (a) on their streams, the decoder's
+    stats, and the plain tree verify timed. (h) The worker's
+    ``_spec_engine_stats`` heartbeat block equals the engine's counters.
+    Then the ragged kernel on the verify round (8 x 5 queries, bf16 and
+    int8 pools) and the quantized matmul's seven projections at M = 40 are
+    held to their plain versions and timed as phases 5 and 9 time them
+    (``@verify`` and ``@m40`` entries).
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
-entries for phase 12), the
+entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2126,6 +2161,519 @@ def flight_check(flight):
         raise AssertionError(f"[flight] timelines: {bad}, heartbeat counts {timelines}")
 
 
+# ---------------------------------------------------------------- speculative decoding
+
+SPEC_K = 4                  # draft tokens a verify round (phase 15)
+SPEC_TOKENS = 32            # greedy tokens of each phase-15 request
+SPEC_ORACLE_TOKENS = 64     # tokens of each request at each oracle rate
+SPEC_ORACLE_RATES = (0.0, 0.5, 1.0)
+SPEC_WIDTHS = (4, 2, 2)     # the standalone tree decoder's widths
+# a top-2 logit gap below which bf16 rounding may pick either token: the
+# verify rows run the ragged kernel where plain decode runs the fused one
+NEAR_TIE = 0.05
+SPEC_SAMPLES = 10           # CUDA-event samples of each per-round time
+
+
+class SpecRoutes:
+    """While installed: the row count M of every quantized-matmul call by
+    route (the kernel's launch or the library route) and the query width
+    of every ragged-kernel call of the model. Wraps module functions their
+    callers look up at call time; the kernels count their own launches as
+    before."""
+
+    def __init__(self):
+        from distributed_gpu_inference_torch.models import llama
+        from distributed_gpu_inference_torch.ops import qmm
+
+        self.kernel_m, self.library_m, self.ragged_s = {}, {}, {}
+        self._sites = [(qmm, "_launch", self.kernel_m, lambda a: a[0].shape[0]),
+                       (qmm, "_library_route", self.library_m, lambda a: a[0].shape[0]),
+                       (llama, "ragged_paged_attention", self.ragged_s,
+                        lambda a: a[0].shape[1])]
+        self._real = [getattr(mod, name) for mod, name, _, _ in self._sites]
+        for (mod, name, store, key_of), fn in zip(self._sites, self._real):
+            def counted(*a, _fn=fn, _store=store, _key=key_of, **kw):
+                k = _key(a)
+                _store[k] = _store.get(k, 0) + 1
+                return _fn(*a, **kw)
+
+            setattr(mod, name, counted)
+
+    def close(self):
+        for (mod, name, _, _), fn in zip(self._sites, self._real):
+            setattr(mod, name, fn)
+
+
+def spec_serve(torch, pa, llm, prompts, n):
+    """``prompts`` as one ``TorchLLMEngine.batch_inference`` call (every
+    request in the batcher's first admission) of ``n`` greedy tokens each,
+    the launch counters zeroed just before and read just after. → (rows of
+    (prompt ids, token ids) in prompt order, wall seconds, launches,
+    :class:`SpecRoutes`)."""
+    futs = []
+    real = llm.serving.submit_async
+
+    def submit_async(req, *a, **kw):
+        fut = real(req, *a, **kw)
+        futs.append((tuple(req.prompt_token_ids), fut))
+        return fut
+
+    llm.serving.submit_async = submit_async
+    pa.reset_launch_counts()
+    routes = SpecRoutes()
+    try:
+        t0 = time.perf_counter()
+        outs = llm.batch_inference([{"prompt": p, "max_new_tokens": n, "temperature": 0.0,
+                                     "ignore_eos": True} for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = pa.launch_counts()
+    finally:
+        routes.close()
+        del llm.serving.submit_async     # the wrapper would keep the engine alive
+    ids = {k: list(f.result().token_ids) for k, f in futs}
+    rows = [(list(k), ids[k]) for k in (tuple(llm.tokenizer.encode(p)) for p in prompts)]
+    vocab = llm.engine.model_cfg.vocab_size
+    if any(o["usage"]["completion_tokens"] != n for o in outs) or \
+            any(len(t) != n or not all(0 <= x < vocab for x in t) for _, t in rows):
+        raise AssertionError(f"speculative serving returned bad tokens: {rows}")
+    return rows, wall, counts, routes
+
+
+def rescore(torch, engine, rows, chunk=256):
+    """One teacher-forced pass of each (prompt ids, tokens) row through the
+    engine's model: ``forward_chunk`` over prompt + tokens in chunks of
+    ``chunk`` on a scratch pool of the engine's KV dtype, through the
+    kernels. → per row, per token: (the target's argmax there, its
+    runner-up, the top-2 logit gap, how far the token's own logit lies
+    below the argmax's)."""
+    from distributed_gpu_inference_torch.models import llama
+
+    cfg, dev, bs = engine.model_cfg, engine.device, engine.cfg.block_size
+    seqs = [list(p) + list(t) for p, t in rows]
+    b, longest = len(seqs), max(len(s) for s in seqs)
+    m = -(-longest // bs)
+    kv = llama.init_kv_pools(cfg, 1 + b * m, bs, engine.kv_dtype, dev)
+    tables = torch.arange(1, 1 + b * m, dtype=torch.int32, device=dev).reshape(b, m)
+    lens = np.asarray([len(s) for s in seqs])
+    top = np.zeros((b, longest, 2), np.int64)
+    gap, deficit = np.zeros((b, longest)), np.zeros((b, longest))
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    with torch.no_grad():
+        for c0 in range(0, longest, chunk):
+            toks = np.zeros((b, chunk), np.int32)
+            nxt = np.zeros((b, chunk), np.int64)      # the token each position predicts
+            pos = np.full((b, chunk), -1, np.int32)
+            for i, s in enumerate(seqs):
+                part = s[c0:c0 + chunk]
+                toks[i, :len(part)] = part
+                follow = s[c0 + 1:c0 + chunk + 1]
+                nxt[i, :len(follow)] = follow
+                pos[i, :len(part)] = np.arange(c0, c0 + len(part))
+            out = llama.forward_chunk(cfg, engine.params, t(toks), t(pos), kv, tables,
+                                      t(np.minimum(lens, c0 + chunk)), block_size=bs,
+                                      last_only=False, allow_fused=False)
+            vals, idx = out.logits.topk(2, dim=-1)
+            own = out.logits.gather(-1, torch.from_numpy(nxt).to(dev)[..., None])[..., 0]
+            n = min(chunk, longest - c0)
+            top[:, c0:c0 + n] = idx[:, :n].cpu().numpy()
+            gap[:, c0:c0 + n] = (vals[..., 0] - vals[..., 1])[:, :n].float().cpu().numpy()
+            deficit[:, c0:c0 + n] = (vals[..., 0] - own)[:, :n].float().cpu().numpy()
+            del out, vals, idx, own
+    del kv
+    # the logits at position q predict the token at q + 1
+    return [[(int(top[i, q, 0]), int(top[i, q, 1]), float(gap[i, q]), float(deficit[i, q]))
+             for q in range(len(p) - 1, len(p) - 1 + len(toks_))]
+            for i, (p, toks_) in enumerate(rows)]
+
+
+def greedy_misses(rows, scores):
+    """Tokens that are not the target's greedy choice → (violations, near-tie
+    exceptions), each [(row, index, token, argmax, its logit's deficit)]:
+    an exception is a token whose logit lies less than NEAR_TIE below the
+    argmax's (so that position's top-2 gap is below NEAR_TIE too)."""
+    bad, ties = [], []
+    for r, ((_, toks), sc) in enumerate(zip(rows, scores)):
+        for j, (tok, (first, _, _, short)) in enumerate(zip(toks, sc)):
+            if tok != first:
+                (ties if short < NEAR_TIE else bad).append((r, j, tok, first, short))
+    return bad, ties
+
+
+def check_greedy(torch, tag, engine, rows, plain_rows=None):
+    """Check (a) of phase 15: every committed token is the target's argmax
+    under one teacher-forced re-score, but for near-ties — a token whose
+    logit lies less than NEAR_TIE below the argmax's, which needs a top-2
+    gap below NEAR_TIE there (each printed with both numbers); a
+    runner-up planted at the widest-gap position must be
+    rejected; where a row parts from ``plain_rows`` (the same requests
+    without speculation) the first divergence is printed with its gap."""
+    scores = rescore(torch, engine, rows)
+    bad, ties = greedy_misses(rows, scores)
+    for r, j, tok, first, short in ties:
+        print(f"[{tag}] (a) near-tie exception: request {r} token {j}: committed {tok}, "
+              f"argmax {first}: its logit {short:.4f} below the argmax's (top-2 gap "
+              f"{scores[r][j][2]:.4f})", flush=True)
+    if bad:
+        raise AssertionError(f"[{tag}] committed tokens that are not the target's greedy "
+                             f"choice (row, index, token, argmax, logit deficit): {bad}")
+    r, j = max(((r, j) for r, sc in enumerate(scores) for j in range(len(sc))),
+               key=lambda rj: scores[rj[0]][rj[1]][2])
+    planted = list(rows[r][1])
+    planted[j] = scores[r][j][1]
+    caught, _ = greedy_misses([(rows[r][0], planted)],
+                              rescore(torch, engine, [(rows[r][0], planted)]))
+    print(f"[{tag}] (a) {sum(len(t) for _, t in rows)} committed tokens re-scored: all the "
+          f"target's argmax but {len(ties)} near-tie(s) (gap < {NEAR_TIE}); the runner-up "
+          f"planted at request {r} token {j} (gap {scores[r][j][2]:.4f}) rejected: "
+          f"{any(x[1] == j for x in caught)}", flush=True)
+    if scores[r][j][2] < NEAR_TIE or not any(x[1] == j for x in caught):
+        raise AssertionError(f"[{tag}] the greedy check accepts a planted flip")
+    for i, ((_, toks), (_, want)) in enumerate(zip(rows, plain_rows or [])):
+        d = next((k for k, (a, b) in enumerate(zip(toks, want)) if a != b), None)
+        if d is not None:
+            print(f"[{tag}] (a) request {i} parts from the run without speculation at token "
+                  f"{d}: {toks[d]} vs {want[d]}, top-2 gap there {scores[i][d][2]:.4f}",
+                  flush=True)
+    if plain_rows is not None:
+        same = sum(a == b for (_, t1), (_, t2) in zip(rows, plain_rows) for a, b in zip(t1, t2))
+        print(f"[{tag}] (a) tokens equal to the run without speculation: {same}/"
+              f"{sum(len(t) for _, t in rows)}", flush=True)
+
+
+def allocator_state(engine, rows):
+    """Check (b)'s view of an engine's allocator after its requests: free
+    and cached counts, radix nodes, block metas, live sequences, all
+    refcounts zero, and the cached prefix length of each served sequence."""
+    m = engine.manager
+    return {"free": m.num_free, "cached": len(m.cached_lru), "radix": len(m.radix),
+            "metas": len(m.metas), "live": len(m.seq_blocks),
+            "refcounts_zero": all(meta.ref_count == 0 for meta in m.metas.values()),
+            "prefix": [len(m.radix.match_prefix(p + t)) for p, t in rows]}
+
+
+def check_routes(tag, counts, routes, stats, quantized):
+    """Check (c): the ragged kernel ran the verify rows (K+1 queries), the
+    quantized matmul's kernel served M = 8·(K+1) rows and its library route
+    never did, the fused decode kernel never launched, and every verify
+    round committed at least one token a slot."""
+    m = SERVE_BATCH * (SPEC_K + 1)
+    print(f"[{tag}] (c) launches {counts}; ragged calls by query width "
+          f"{dict(sorted(routes.ragged_s.items()))}; qmm rows by route: kernel "
+          f"{dict(sorted(routes.kernel_m.items()))}, library "
+          f"{dict(sorted(routes.library_m.items()))}; spec_tokens_per_step "
+          f"{stats['spec_tokens_per_step']:.3f}, accept rate {stats['spec_accept_rate']:.4f}",
+          flush=True)
+    ok = (counts["ragged_paged_attention"] > 0 and routes.ragged_s.get(SPEC_K + 1, 0) > 0
+          and counts["paged_decode_attention_fused"] == 0
+          and stats["spec_tokens_per_step"] >= 1.0)
+    if quantized:
+        ok = ok and routes.kernel_m.get(m, 0) > 0 and routes.library_m.get(m, 0) == 0
+    if not ok:
+        raise AssertionError(f"[{tag}] a speculative round took the wrong route")
+
+
+def spec_pass(torch, pa, tag, llm, plain, prompts, quantized):
+    """Checks (a)-(c) and (h) on a speculating ``TorchLLMEngine`` and the
+    same engine without speculation (``plain``, the same weights). → (the
+    spec run's launches, its routes, its rows)."""
+    from types import SimpleNamespace
+
+    from distributed_gpu_inference_torch.worker import main as wmain
+
+    rows, wall, counts, routes = spec_serve(torch, pa, llm, prompts, SPEC_TOKENS)
+    stats = llm.engine.get_stats()
+    n_tok = len(prompts) * SPEC_TOKENS
+    print(f"[{tag}] {len(prompts)} requests x {SPEC_TOKENS} greedy tokens, K={SPEC_K}: "
+          f"{wall:.2f} s = {n_tok / wall:.1f} tok/s end to end (information)", flush=True)
+    check_routes(tag, counts, routes, stats, quantized)
+    prows, pwall, _, _ = spec_serve(torch, pa, plain, prompts, SPEC_TOKENS)
+    print(f"[{tag}] without speculation: {pwall:.2f} s = {n_tok / pwall:.1f} tok/s end to "
+          f"end (information)", flush=True)
+    check_greedy(torch, tag, llm.engine, rows, prows)
+    got, want = allocator_state(llm.engine, rows), allocator_state(plain.engine, prows)
+    print(f"[{tag}] (b) allocator after the requests: speculating {got}, never "
+          f"speculated {want}", flush=True)
+    if got != want or not got["refcounts_zero"] or got["live"]:
+        raise AssertionError(f"[{tag}] speculation left the allocator unlike a "
+                             f"never-speculated engine")
+    # (h) the worker's heartbeat block of this engine
+    block = wmain.Worker._spec_engine_stats(SimpleNamespace(engines={"llm": llm}))
+    keys = ("spec_accepted", "spec_drafted", "spec_slot_steps", "spec_emitted",
+            "spec_accept_rate", "spec_tokens_per_step")
+    print(f"[{tag}] (h) heartbeat block {block}", flush=True)
+    if block is None or any(block[k] != stats[k] for k in keys) or set(block) != set(keys):
+        raise AssertionError(f"[{tag}] the speculation heartbeat block disagrees with the "
+                             f"engine: {block} vs {stats}")
+    return counts, routes, rows
+
+
+def oracle_rates(torch, pa, llm, plain, prompts):
+    """Check (e): at each oracle rate, ``spec_tokens_per_step`` over the
+    rate's requests is within 0.25 of 1 + rate·K; decode tok/s beside the
+    engine without speculation (information)."""
+    n_tok = len(prompts) * SPEC_ORACLE_TOKENS
+    _, pwall, _, _ = spec_serve(torch, pa, plain, prompts, SPEC_ORACLE_TOKENS)
+    for rate in SPEC_ORACLE_RATES:
+        llm.engine.set_spec_oracle(rate)
+        before = dict(llm.engine.stats)
+        _, wall, _, _ = spec_serve(torch, pa, llm, prompts, SPEC_ORACLE_TOKENS)
+        st = llm.engine.stats
+        tps = ((st["spec_emitted"] - before["spec_emitted"])
+               / (st["spec_slot_steps"] - before["spec_slot_steps"]))
+        print(f"[spec oracle] rate {rate}: spec_tokens_per_step {tps:.3f} (expected "
+              f"{1 + rate * SPEC_K:.2f} +- 0.25); {n_tok / wall:.1f} tok/s end to end vs "
+              f"{n_tok / pwall:.1f} without speculation ({len(prompts)} requests x "
+              f"{SPEC_ORACLE_TOKENS} tokens, information)", flush=True)
+        if abs(tps - (1 + rate * SPEC_K)) > 0.25:
+            raise AssertionError(f"oracle rate {rate}: {tps} tokens a step")
+    llm.engine.set_spec_oracle(None)
+
+
+def round_times(torch, engine, flush, ctx):
+    """Check (f): CUDA-event medians of SPEC_SAMPLES calls at batch 8 over
+    contexts ``ctx`` on a scratch pool: the draft chain (K draft-head
+    steps, each with ``project_logits``), the verify pass (one forward of
+    K+1 queries a row + argmax), one plain decode step (one query a row,
+    the fused kernel, + argmax), and ``project_logits`` alone at [8, 1, H]."""
+    from distributed_gpu_inference_torch.models import llama
+
+    cfg, dev, bs = engine.model_cfg, engine.device, engine.cfg.block_size
+    b = len(ctx)
+    m = -(-(int(max(ctx)) + SPEC_K + 2) // bs)
+    kv = llama.init_kv_pools(cfg, 1 + b * m, bs, engine.kv_dtype, dev)
+    tables = torch.arange(1, 1 + b * m, dtype=torch.int32, device=dev).reshape(b, m)
+    g = torch.Generator(device=dev).manual_seed(15)
+    pending = torch.randint(0, cfg.vocab_size, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+    h = torch.randn((b, cfg.hidden_size), generator=g, device=dev).to(engine.dtype)
+    lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    chunk = engine._draft_chain(pending, h)
+    pos = lens[:, None] + torch.arange(SPEC_K + 1, device=dev, dtype=torch.int32)[None, :]
+
+    def verify():
+        out = llama.forward_chunk(cfg, engine.params, chunk, pos, kv, tables,
+                                  lens + SPEC_K + 1, block_size=bs, last_only=False,
+                                  allow_fused=False)
+        return out.logits.argmax(-1)
+
+    def decode():
+        out = llama.forward_chunk(cfg, engine.params, pending[:, None], lens[:, None], kv,
+                                  tables, lens + 1, block_size=bs)
+        return out.logits.argmax(-1)
+
+    hid = h[:, None, :]
+    with torch.no_grad():
+        out = {name: time_ms(torch, fn, flush, iters=SPEC_SAMPLES, warmup=2) for name, fn in (
+            ("draft chain", lambda: engine._draft_chain(pending, h)),
+            ("verify pass", verify), ("plain decode step", decode),
+            ("project_logits", lambda: llama.project_logits(cfg, engine.params, hid)))}
+    del kv
+    print(f"[spec times] batch {b}, K={SPEC_K}, contexts {list(ctx)} (CUDA events, median of "
+          f"{SPEC_SAMPLES}): " + "; ".join(f"{k} {v:.3f} ms" for k, v in out.items())
+          + f"; a round = draft chain + verify pass = "
+          f"{out['draft chain'] + out['verify pass']:.3f} ms vs "
+          f"{out['plain decode step']:.3f} ms a plain step", flush=True)
+
+
+def tree_phase(torch, pa, smi, params, base, prompts):
+    """Check (g): ``engine: jax-speculative`` with widths SPEC_WIDTHS; two
+    short greedy prompts in one ``batch_inference`` call ride one spec
+    wave; check (a) on their streams, the decoder's stats, and the plain
+    tree verify (``forward_tree_chunk``) timed at that wave's shape."""
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.runtime.speculative import TreeTopology
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    # a 50 ms admission latch: the pair forms one admission, so one wave
+    llm = TorchLLMEngine({**base, "engine": "jax-speculative",
+                          "spec_widths": list(SPEC_WIDTHS), "params": params,
+                          "serving": {"max_wait_ms": 50.0}})
+    llm.load_model()
+    try:
+        rows, wall, counts, _ = spec_serve(torch, pa, llm, prompts, SPEC_TOKENS)
+        stats = llm.serving.get_stats()
+        print(f"[spec tree] widths {SPEC_WIDTHS}: {len(prompts)} requests x {SPEC_TOKENS} "
+              f"greedy tokens in {wall:.2f} s; batcher spec_waves {stats['spec_waves']}, "
+              f"spec_completed {stats['spec_completed']}; decoder stats {stats['spec']}; "
+              f"launches {counts}", flush=True)
+        if stats["spec_waves"] < 1 or stats["spec_completed"] != len(prompts):
+            raise AssertionError("the batcher did not route the greedy pair to a spec wave")
+        check_greedy(torch, "spec tree", llm.engine, rows)
+        dec = llm._spec
+        topo = TreeTopology(SPEC_WIDTHS)
+        n = topo.num_nodes
+        dev, cfg, bs = dec.device, dec.model_cfg, dec.block_size
+        prefix = torch.tensor([len(p) + SPEC_TOKENS for p, _ in rows], dtype=torch.int32,
+                              device=dev)
+        b = len(rows)
+        m = -(-(int(prefix.max()) + n + 1) // bs)
+        kv = llama.init_kv_pools(cfg, 1 + b * m, bs, dec.kv_dtype, dev)
+        tables = torch.arange(1, 1 + b * m, dtype=torch.int32, device=dev).reshape(b, m)
+        toks = torch.randint(0, cfg.vocab_size, (b, n), device=dev, dtype=torch.int32)
+        depths = torch.as_tensor(topo.depths, device=dev, dtype=torch.int32)
+        node = torch.arange(n, device=dev, dtype=torch.int32)
+        mask = torch.as_tensor(topo.ancestor_mask, device=dev)
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+        def verify():
+            return llama.forward_tree_chunk(
+                cfg, dec.params, toks, prefix[:, None] + depths[None], prefix[:, None]
+                + node[None], kv, tables, prefix, mask, block_size=bs).logits.argmax(-1)
+
+        with torch.no_grad():
+            ms = time_ms(torch, verify, flush, iters=SPEC_SAMPLES, warmup=2)
+        print(f"[spec tree] plain tree verify (forward_tree_chunk, {b} rows x {n} nodes, "
+              f"paged_tree_attention in plain torch): {ms:.3f} ms (CUDA events, median of "
+              f"{SPEC_SAMPLES}; {smi})", flush=True)
+        del kv, flush
+    finally:
+        llm.unload()
+
+
+def verify_case(torch, dev, ctx):
+    """Phase 15's verify round at llama3-8b widths: 8 rows x K+1 queries at
+    positions ctx..ctx+K (``ctx``: each serving prompt's length plus its
+    32 tokens), each row over its own pages (M = 64)."""
+    rng = np.random.default_rng(9)
+    b, s = len(ctx), SPEC_K + 1
+    n = 1 + b * M
+    kp = torch.tensor(rng.standard_normal((n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
+    vp = torch.tensor(rng.standard_normal((n, HKV, BK, D)), dtype=torch.bfloat16, device=dev)
+    q = torch.tensor(rng.standard_normal((b, s, NH, D)), dtype=torch.bfloat16, device=dev)
+    tables = np.arange(1, n, dtype=np.int32).reshape(b, M)
+    pos = (np.asarray(ctx, np.int32)[:, None] + np.arange(s, dtype=np.int32)[None, :])
+    lens = (np.asarray(ctx, np.int32) + s).astype(np.int32)
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    return q, kp, vp, t(tables), t(pos), t(lens), (tables, pos, lens)
+
+
+def verify_kernel_entries(torch, pa, flush, ctx, launches, qmm_launches):
+    """The kernels-JSON entries of phase 15's new shapes: the ragged kernel
+    on the verify round (bf16 and int8 pools; parity against its plain
+    version with the phase-3/6 tolerances, then timed as phase 5 times it)
+    and the quantized matmul's seven projections at M = 8·(K+1) (int8
+    codes; parity, events, graph, plain and ``torch.matmul`` on the bf16
+    weights)."""
+    from distributed_gpu_inference_torch.ops import qmm
+    from distributed_gpu_inference_torch.ops.attention import paged_attention_ref
+    from distributed_gpu_inference_torch.ops.quantization import quantize_weight
+
+    dev = torch.device("cuda")
+    entries = []
+    for kind in ("bf16", "int8"):
+        case = ragged_in(torch, verify_case(torch, dev, ctx), kind)
+        q, kq, vq, ks, vs, tables, pos, lens, _ = case
+        atol = RAGGED_ATOL
+        if kind == "int8":
+            atol += BF16_HALF_ULP * float(torch.maximum(
+                dequantized(torch, kq, ks).abs().max(), dequantized(torch, vq, vs).abs().max()))
+        ok, err, vec = errors(torch, pa.ragged_paged_attention(
+            q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs), paged_attention_ref(
+            q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs), atol)
+        print(f"[spec parity] ragged {kind} verify round 8x{SPEC_K + 1}: max_abs_err {err:.3e} "
+              f"max_vector_rel_err {vec:.3e} (bound atol {atol:.3e} rtol {RTOL})", flush=True)
+        if not ok:
+            raise AssertionError(f"the ragged kernel disagrees on the verify round ({kind})")
+        times = ragged_times(torch, pa, paged_attention_ref, flush,
+                             f"[spec times] ragged verify round 8x{SPEC_K + 1} {kind} pools",
+                             case, kind)
+        suffix = "" if kind == "bf16" else "[int8]"
+        entries.append(entry(f"ragged_paged_attention{suffix}@verify",
+                             "ragged_paged_attention.cu", PALLAS + ":932", launches[kind],
+                             err, times))
+        del case
+    m = SERVE_BATCH * (SPEC_K + 1)
+    g = torch.Generator(device=dev).manual_seed(40)
+    weights, deq = [], []
+    for _, kdim, ndim in LAYER_PROJ:
+        qw = quantize_weight(torch.randn((1, kdim, ndim), generator=g, device=dev)
+                             * kdim ** -0.5, "int8")
+        weights.append((qw["qw"], qw["scale"]))
+        deq.append((qw["qw"][0].float() * qw["scale"][0]).to(torch.bfloat16))
+    xs = {k: torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+          for k in {kd for _, kd, _ in LAYER_PROJ}}
+    err = 0.0
+    for qw, sc in weights:
+        ok, e, _ = errors(torch, qmm.launch_kernel(xs[qw.shape[1]], qw, sc),
+                          qmm.qmm_plain(xs[qw.shape[1]], qw, sc), QMM_ATOL)
+        if not ok:
+            raise AssertionError(f"qmm disagrees with its plain version at M={m}")
+        err = max(err, e)
+
+    def calls(fn):
+        return lambda: [fn(xs[qw.shape[1]], qw, sc) for qw, sc in weights]
+
+    lib = lambda: [torch.matmul(xs[w.shape[0]], w) for w in deq]  # noqa: E731
+    nbytes, flops = qmm_cost(m, [(k, n) for _, k, n in LAYER_PROJ])
+    b_ms, by = bound(nbytes, flops)
+    times = {"ms": time_ms(torch, calls(qmm.launch_kernel), flush),
+             "graph_ms": graph_ms(torch, calls(qmm.launch_kernel), flush),
+             "plain_ms": time_ms(torch, calls(qmm.qmm_plain), flush, iters=10, warmup=1),
+             "bound_ms": b_ms, "bound_by": by,
+             "library_ms": time_ms(torch, lib, flush),
+             "library_graph_ms": graph_ms(torch, lib, flush)}
+    print(f"[spec times] qmm int8, one layer's 7 projections at M={m} (the verify rows): "
+          f"max_abs_err {err:.3e}; kernel {times['ms']:.4f} ms (as a CUDA graph "
+          f"{times['graph_ms']:.4f} ms, {b_ms / times['graph_ms']:.1%} of the bound), plain "
+          f"{times['plain_ms']:.4f} ms, torch.matmul on bf16 weights {times['library_ms']:.4f} "
+          f"ms (graph {times['library_graph_ms']:.4f} ms), bound {b_ms:.4f} ms ({by}: "
+          f"{nbytes} B, {flops} flop)", flush=True)
+    entries.append(entry(f"qmm_w8a16[int8]@m{m}", "qmm_w8a16.cu", QPALLAS + ":88",
+                         qmm_launches, err, times))
+    return entries
+
+
+def spec_phase(torch, pa, smi, prompts, lengths, model="llama3-8b", quantization="int8",
+               device="cuda"):
+    """Phase 15 (see the module docstring). → the kernels-JSON entries of
+    the verify shapes."""
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    t_phase = time.perf_counter()
+    base = {"model": model, "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ,
+            "enable_prefix_cache": True, "dtype": "bfloat16", "device": device, "seed": 0,
+            "quantization": quantization, "prefix_summary_top_n": 0}
+    spec = {"speculative_decode": True, "spec_num_draft_tokens": SPEC_K}
+    params, launches, qmm_m = None, {}, 0
+    for kv in (None, "int8"):
+        tag = f"spec {kv or 'bf16'} pool"
+        pool = {} if kv is None else {"kv_cache_dtype": kv}
+        shared = {} if params is None else {"params": params}
+        t0 = time.perf_counter()
+        llm = TorchLLMEngine({**base, **pool, **spec, **shared})
+        llm.load_model()
+        params = llm.engine.params
+        plain = TorchLLMEngine({**base, **pool, "params": params})
+        plain.load_model()
+        print(f"[{tag}] {model} ({quantization} weights, {kv or 'bf16'} KV) speculating "
+              f"(K={SPEC_K}, random draft head) and plain engines loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        try:
+            counts, routes, _ = spec_pass(torch, pa, tag, llm, plain, prompts,
+                                          quantized=quantization is not None)
+            launches["int8" if kv else "bf16"] = counts["ragged_paged_attention"]
+            if kv is None:
+                qmm_m = routes.kernel_m.get(SERVE_BATCH * (SPEC_K + 1), 0)
+                oracle_rates(torch, pa, llm, plain, prompts)
+                flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+                round_times(torch, llm.engine, flush, [n + SPEC_TOKENS for n in lengths])
+                del flush
+        finally:
+            plain.unload()
+            llm.unload()
+    tree_phase(torch, pa, smi, params, base, [prompts[0], prompts[1][:100]])
+    del params
+    torch.cuda.empty_cache()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    entries = verify_kernel_entries(torch, pa, flush, [n + SPEC_TOKENS for n in lengths],
+                                    launches, qmm_m)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"[spec] phase ran in {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    return entries
+
+
 # ---------------------------------------------------------------- phases
 
 def main() -> int:
@@ -2573,6 +3121,9 @@ def main() -> int:
     finally:
         resp.stop()
     flight_check(flight)
+
+    # ---- 15. speculative decoding: integrated rounds and the tree decoder
+    kernels += spec_phase(torch, pa, smi, prompts, lengths)
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

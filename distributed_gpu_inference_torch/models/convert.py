@@ -14,6 +14,9 @@ so every weight is bit-identical on both sides. Quantized weights
 (``{"qw", "scale"}`` leaves of ``ops/quantization.py``) move the same way:
 int8 codes as they are, ``float8_e4m3fn`` codes as raw bytes, f32 scales.
 
+The speculative draft head moves the same way
+(``draft_params_from_numpy`` / ``draft_params_to_numpy``).
+
 KV pools: ``kv_from_numpy`` takes the JAX pools ``{"k", "v"}`` and, for
 int8 pools, their scale pools ``{"k_scale", "v_scale"}`` ``[L, N, Bk, D]``
 — the JAX package repeats each (page, token) scale over the D lanes. The
@@ -88,6 +91,25 @@ def params_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
     return {name: (params_to_numpy(leaf) if isinstance(leaf, Mapping)
                    else tensor_to_words(leaf))
             for name, leaf in tree.items()}
+
+
+_DRAFT_KEYS = {"w_fuse", "w_out", "norm", "w_feat"}
+
+
+def draft_params_from_numpy(tree: Mapping[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    """The speculative draft head of the JAX package (``w_fuse [2H, H]``,
+    ``w_out [H, H]``, ``norm [H]``, optional EAGLE-3 ``w_feat [k·H, H]``;
+    numpy leaves) → tensors on ``device``, bit for bit as
+    :func:`params_from_numpy` moves the target's weights."""
+    unknown = set(tree) - _DRAFT_KEYS
+    if unknown or not {"w_fuse", "w_out", "norm"} <= set(tree):
+        raise ValueError(f"not a draft head: keys {sorted(tree)}")
+    return {name: array_to_tensor(leaf, device) for name, leaf in tree.items()}
+
+
+def draft_params_to_numpy(dp: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`draft_params_from_numpy`, leaves as raw bits."""
+    return {name: tensor_to_words(leaf) for name, leaf in dp.items()}
 
 
 def kv_from_numpy(pools: Mapping[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:

@@ -210,6 +210,9 @@ class ChunkOutput(NamedTuple):
     kv: KVPools                      # the pools, updated in place
     logits: Optional[torch.Tensor]   # [B, S, V] ([B, 1, V] if last_only;
                                      # None if with_logits=False)
+    # [B, S, k*H]: the post-layer hiddens of ``collect_layers`` side by
+    # side (EAGLE-3 draft features); None unless requested
+    features: Optional[torch.Tensor] = None
 
 
 def _layer_step(
@@ -226,11 +229,18 @@ def _layer_step(
     cos: torch.Tensor,
     sin: torch.Tensor,
     fused_decode: bool,
+    write_positions: Optional[torch.Tensor] = None,
+    attn_fn: Optional[Any] = None,
 ) -> torch.Tensor:
     """One transformer layer over paged KV. ``fused_decode`` routes the
     whole KV path of a one-query-per-row step through the fused
     write+attention op on the stacked pools; otherwise the chunk's K/V rows
-    are written to the layer's pages and attention reads them back."""
+    are written to the layer's pages and attention reads them back.
+
+    The tree-verify pass writes its rows at ``write_positions`` (node
+    slots; default ``positions``) and reads through ``attn_fn(q, k_pool,
+    v_pool, k_scale, v_scale)`` (one layer's pools) instead of the ragged
+    kernel."""
     b, s, _ = hidden.shape
     nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
@@ -260,18 +270,22 @@ def _layer_step(
             window=cfg.sliding_window, k_scale=k_scale, v_scale=v_scale,
         )
     else:
+        wpos = positions if write_positions is None else write_positions
         ks = vs = None
         if k_scale is not None:
             ks, vs = k_scale[layer], v_scale[layer]
-            write_quantized_kv(k_pool[layer], ks, k, block_tables, positions, block_size)
-            write_quantized_kv(v_pool[layer], vs, v, block_tables, positions, block_size)
+            write_quantized_kv(k_pool[layer], ks, k, block_tables, wpos, block_size)
+            write_quantized_kv(v_pool[layer], vs, v, block_tables, wpos, block_size)
         else:
-            write_kv_pages(k_pool[layer], k, block_tables, positions, block_size)
-            write_kv_pages(v_pool[layer], v, block_tables, positions, block_size)
-        attn = ragged_paged_attention(
-            q, k_pool[layer], v_pool[layer], block_tables, positions, kv_lens,
-            block_size, window=cfg.sliding_window, k_scale=ks, v_scale=vs,
-        )
+            write_kv_pages(k_pool[layer], k, block_tables, wpos, block_size)
+            write_kv_pages(v_pool[layer], v, block_tables, wpos, block_size)
+        if attn_fn is not None:
+            attn = attn_fn(q, k_pool[layer], v_pool[layer], ks, vs)
+        else:
+            attn = ragged_paged_attention(
+                q, k_pool[layer], v_pool[layer], block_tables, positions, kv_lens,
+                block_size, window=cfg.sliding_window, k_scale=ks, v_scale=vs,
+            )
 
     hidden = hidden + matmul(attn.reshape(b, s, nh * d), lp["wo"]).to(hidden.dtype)
     mlp_in = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
@@ -291,6 +305,7 @@ def forward_chunk(
     last_only: bool = True,
     with_logits: bool = True,
     allow_fused: bool = True,
+    collect_layers: Optional[Tuple[int, ...]] = None,
 ) -> ChunkOutput:
     """Run S tokens per sequence through all layers against the paged cache.
 
@@ -298,18 +313,53 @@ def forward_chunk(
     length), ragged rounds (rows with different spans, -1 padded) and
     decode (S = 1, which takes the fused decode op when ``allow_fused``).
     ``with_logits=False`` skips the LM head (an intermediate prefill chunk
-    only needs its KV side effects)."""
-    layers = params["layers"]
-    for name in ("w_router", "we_gate"):
-        if name in layers:
-            raise NotImplementedError("MoE layers are not ported yet")
-    b, s = token_ids.shape
+    only needs its KV side effects). ``collect_layers`` also returns
+    ``ChunkOutput.features``, those layers' post-layer hiddens side by side
+    (the EAGLE-3 draft features)."""
+    _check_dense(params)
     positions = positions.to(torch.int32)
+    hidden, features = _run_layers(
+        cfg, params, token_ids, positions, kv, block_tables, kv_lens,
+        block_size=block_size, fused_decode=allow_fused and token_ids.shape[1] == 1,
+        collect_layers=collect_layers,
+    )
+    if not with_logits:
+        return ChunkOutput(hidden=hidden, kv=kv, logits=None, features=features)
+    if last_only:
+        # last valid token per row = (number of valid positions) - 1
+        n_valid = (positions >= 0).sum(dim=1)
+        last_idx = torch.clamp(n_valid - 1, min=0)
+        logits_in = torch.gather(
+            hidden, 1, last_idx[:, None, None].expand(-1, 1, hidden.shape[-1])
+        )
+    else:
+        logits_in = hidden
+    return ChunkOutput(hidden=hidden, kv=kv,
+                       logits=project_logits(cfg, params, logits_in),
+                       features=features)
+
+
+def _check_dense(params: Params) -> None:
+    for name in ("w_router", "we_gate"):
+        if name in params["layers"]:
+            raise NotImplementedError("MoE layers are not ported yet")
+
+
+def _run_layers(
+    cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
+    rope_positions: torch.Tensor, kv: KVPools, block_tables: torch.Tensor,
+    kv_lens: torch.Tensor, *, block_size: int, fused_decode: bool = False,
+    collect_layers: Optional[Tuple[int, ...]] = None,
+    write_positions: Optional[torch.Tensor] = None, attn_fn: Optional[Any] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Embed ``token_ids`` and run every layer → (final hidden, the
+    ``collect_layers`` features or None)."""
+    layers = params["layers"]
     kv_lens = kv_lens.to(torch.int32)
     block_tables = block_tables.to(torch.int32)
     hidden = embed_tokens(params, token_ids, cfg)
-    cos, sin = rope_angles(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta)
-    fused = allow_fused and s == 1
+    cos, sin = rope_angles(rope_positions.clamp(min=0), cfg.head_dim, cfg.rope_theta)
+    collected = {}
     for layer in range(cfg.num_layers):
         # one layer's leaves as views; a quantized leaf slices both parts
         lp = {name: ({"qw": leaf["qw"][layer], "scale": leaf["scale"][layer]}
@@ -317,22 +367,59 @@ def forward_chunk(
               for name, leaf in layers.items()}
         hidden = _layer_step(
             cfg, block_size, hidden, kv, layer, lp,
-            block_tables=block_tables, positions=positions, kv_lens=kv_lens,
-            cos=cos, sin=sin, fused_decode=fused,
+            block_tables=block_tables, positions=rope_positions, kv_lens=kv_lens,
+            cos=cos, sin=sin, fused_decode=fused_decode,
+            write_positions=write_positions, attn_fn=attn_fn,
         )
-    if not with_logits:
-        return ChunkOutput(hidden=hidden, kv=kv, logits=None)
-    if last_only:
-        # last valid token per row = (number of valid positions) - 1
-        n_valid = (positions >= 0).sum(dim=1)
-        last_idx = torch.clamp(n_valid - 1, min=0)
-        logits_in = torch.gather(
-            hidden, 1, last_idx[:, None, None].expand(b, 1, hidden.shape[-1])
+        if collect_layers is not None and layer in collect_layers:
+            collected[layer] = hidden
+    features = (torch.cat([collected[i] for i in collect_layers], dim=-1)
+                if collect_layers is not None else None)
+    return hidden, features
+
+
+def forward_tree_chunk(
+    cfg: ModelConfig,
+    params: Params,
+    token_ids: torch.Tensor,        # [B, N] tree-node tokens
+    rope_positions: torch.Tensor,   # [B, N] semantic positions (prefix + depth)
+    cache_positions: torch.Tensor,  # [B, N] KV slot positions (prefix + node idx, -1 = none)
+    kv: KVPools,
+    block_tables: torch.Tensor,     # [B, M]
+    prefix_lens: torch.Tensor,      # [B] committed context before the tree
+    tree_mask: torch.Tensor,        # [N, N] ancestor-visibility mask
+    *,
+    block_size: int = 16,
+    collect_layers: Optional[Tuple[int, ...]] = None,
+) -> ChunkOutput:
+    """Target forward over a speculative token tree (the verify pass).
+
+    RoPE uses semantic depth positions; KV rows are written at distinct
+    node-indexed slots so siblings don't collide (int8 pools quantize them
+    through the shared per-token contract), and attention is
+    :func:`ops.attention.paged_tree_attention`: the committed prefix plus
+    each node's ancestors, windowed by semantic position for
+    sliding-window models. Logits for every node."""
+    from distributed_gpu_inference_torch.ops.attention import paged_tree_attention
+
+    _check_dense(params)
+    rope_positions = rope_positions.to(torch.int32)
+    tables = block_tables.to(torch.int32)
+
+    def attn_fn(q, layer_k, layer_v, layer_ks, layer_vs):
+        return paged_tree_attention(
+            q, layer_k, layer_v, tables, prefix_lens, tree_mask, block_size,
+            node_positions=rope_positions, window=cfg.sliding_window,
+            k_scale=layer_ks, v_scale=layer_vs,
         )
-    else:
-        logits_in = hidden
-    return ChunkOutput(hidden=hidden, kv=kv,
-                       logits=project_logits(cfg, params, logits_in))
+
+    hidden, features = _run_layers(
+        cfg, params, token_ids, rope_positions, kv, tables, prefix_lens,
+        block_size=block_size, collect_layers=collect_layers,
+        write_positions=cache_positions.to(torch.int32), attn_fn=attn_fn,
+    )
+    return ChunkOutput(hidden=hidden, kv=kv, logits=project_logits(cfg, params, hidden),
+                       features=features)
 
 
 def embed_tokens(params: Params, token_ids: torch.Tensor,

@@ -148,6 +148,60 @@ def paged_attention_ref(
     return out.reshape(b, s, nh, d).to(q.dtype)
 
 
+def paged_tree_attention(
+    q: torch.Tensor,             # [B, N, Nh, D] — one query per tree node
+    k_pool: torch.Tensor,        # [Nb, Hkv, Bk, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M]
+    prefix_lens: torch.Tensor,   # [B] committed context BEFORE the tree chunk
+    tree_mask: torch.Tensor,     # [N, N] bool — node i may attend node j
+    block_size: int = 16,
+    node_positions: Optional[torch.Tensor] = None,  # [B, N] semantic positions
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,         # [Nb, Bk] — int8 pools
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention of speculative tree verification (the JAX package
+    computes it with XLA, so it stays plain PyTorch on the card too).
+
+    The N tree-node KV rows sit at cache positions ``prefix_len + i``
+    (node index, not depth: siblings share a depth but need their own
+    slots). Every node sees the committed prefix; within the chunk node i
+    sees node j iff ``tree_mask[i, j]`` (its ancestors and itself). With a
+    sliding window, prefix keys drop out by absolute position and
+    in-chunk keys by their SEMANTIC position (prefix + depth): an ancestor
+    more than ``window`` steps up is invisible, as in sequential decode."""
+    b, n, nh, d = q.shape
+    hkv = k_pool.shape[1]
+    qpk = nh // hkv
+    j = block_tables.shape[1] * block_size
+
+    k_ctx = _gather_ctx(k_pool, block_tables, block_size, k_scale)
+    v_ctx = _gather_ctx(v_pool, block_tables, block_size, v_scale)
+    qg = q.reshape(b, n, hkv, qpk, d).float()
+    scores = torch.einsum("bsgqd,bjgd->bgqsj", qg, k_ctx.float()) * (d ** -0.5)
+
+    key_pos = torch.arange(j, dtype=torch.int32, device=q.device)[None, :]   # [1, J]
+    prefix = prefix_lens.to(torch.int32)[:, None, None]
+    is_prefix = key_pos[:, None, :] < prefix                                # [B, 1, J]
+    chunk_idx = key_pos[:, None, :] - prefix                                # [B, 1, J]
+    in_chunk = (chunk_idx >= 0) & (chunk_idx < n)
+    safe_idx = chunk_idx.clamp(0, n - 1).long().expand(b, n, j)
+    # tree_mask lookup per (query node, chunk key)
+    tm = torch.gather(tree_mask.to(q.device)[None].expand(b, n, n), 2, safe_idx)  # [B, N, J]
+    if window is not None and node_positions is not None:
+        node_pos = node_positions.to(torch.int32)
+        is_prefix = is_prefix & (key_pos[:, None, :] > node_pos[:, :, None] - window)
+        key_node_pos = torch.gather(node_pos[:, None, :].expand(b, n, n), 2, safe_idx)
+        tm = tm & (key_node_pos > node_pos[:, :, None] - window)
+    mask = (is_prefix | (in_chunk & tm))[:, None, None, :, :]              # [B,1,1,N,J]
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
+    out = torch.einsum("bgqsj,bjgd->bsgqd", probs, v_ctx.float())
+    return out.reshape(b, n, nh, d).to(q.dtype)
+
+
 def _page_slots(block_tables: torch.Tensor, positions: torch.Tensor,
                 block_size: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(physical page, slot, flat row index) of every non-pad position."""

@@ -3,7 +3,7 @@
 The port's own copy of ``distributed_gpu_inference_tpu/runtime/batcher.py``
 (``BatcherConfig``, ``split_prefill_budget``, ``ContinuousBatcher`` and
 ``BatcherServing``) over :class:`~distributed_gpu_inference_torch.runtime.engine.TorchEngine`,
-with the speculative-decoding and prefill/decode hand-off hooks left out:
+with the prefill/decode hand-off hooks left out:
 
 - requests are admitted into fixed engine **slots** and every round runs
   one forward over all slots (a request joins/leaves the batch between
@@ -19,7 +19,12 @@ with the speculative-decoding and prefill/decode hand-off hooks left out:
 - with ``abandon_deadlines`` on, work whose deadline passed (or, with
   ``predictive_abandon``, will pass) and whose projected remaining decode
   cannot land within ``deadline_grace_s`` is dropped at the step boundary
-  with the typed ``deadline_abandoned`` response.
+  with the typed ``deadline_abandoned`` response;
+- with a standalone ``SpeculativeDecoder`` attached (``spec=``), a
+  low-depth all-greedy queue routes through its spec waves, one bounded
+  dispatch per loop iteration interleaved with the paged rounds; an engine
+  that speculates itself (``EngineConfig.speculative``) needs nothing here
+  — its rounds are verify rounds.
 
 Engine calls execute on a single dedicated thread (the engine is not
 thread-safe); the asyncio side only schedules and resolves futures.
@@ -114,6 +119,15 @@ class BatcherConfig:
     # amortizing host round-trips (decode_step per token would pay one RTT
     # per token)
     busy_multi_step: int = 4
+    # standalone speculation: with a SpeculativeDecoder attached and the
+    # ENTIRE waiting load at most this many greedy requests, they decode
+    # through the spec tree (the low-depth regime where drafting pays);
+    # deeper load decodes paged. 0 = never
+    spec_max_batch: int = 2
+    # a spec wave may START while up to this many paged slots are still
+    # active (spec dispatches and paged rounds interleave); 0 = only on an
+    # idle engine
+    spec_max_active: int = 2
     # RAGGED rounds (the default): admission appends prefill-chunk
     # rows to the next engine round instead of scheduling competing prefill
     # dispatches — the round loop collapses to build-ragged-batch →
@@ -232,10 +246,27 @@ class ContinuousBatcher:
     """Admission queue + decode loop over a :class:`TorchEngine`."""
 
     def __init__(self, engine: TorchEngine,
-                 cfg: Optional[BatcherConfig] = None) -> None:
+                 cfg: Optional[BatcherConfig] = None,
+                 spec: Optional[Any] = None) -> None:
+        """``spec``: a ``runtime.speculative.SpeculativeDecoder`` sharing the
+        engine's target weights (its own KV pool); low-depth all-greedy
+        load routes through its incremental wave API."""
         self.engine = engine
         self.cfg = cfg or BatcherConfig()
+        self.spec = spec
+        if spec is not None and \
+                getattr(engine.cfg, "speculative", None) is not None:
+            raise ValueError(
+                "engine already speculates in-engine "
+                "(EngineConfig.speculative); attaching a standalone "
+                "SpeculativeDecoder would draft twice — pick one"
+            )
         self._check_ragged_supported(self.cfg.ragged)
+        # (wave, items) while a speculative wave is in flight
+        self._spec_wave: Optional[Tuple[Any, List["_QueueItem"]]] = None
+        # True while start_wave runs on the executor: the requests are off
+        # the heap but the wave isn't registered yet — drain must wait
+        self._spec_starting = False
         self._heap: List[_QueueItem] = []
         self._seq = itertools.count()
         self._wake = asyncio.Event()
@@ -278,6 +309,7 @@ class ContinuousBatcher:
             "chunked_admissions": 0, "batched_waves": 0,
             "ragged_admissions": 0, "ragged_rounds": 0,
             "budgeted_rounds": 0, "budget_skipped_admissions": 0,
+            "spec_waves": 0, "spec_completed": 0, "spec_errors": 0,
             "preemptions": 0, "resumes": 0, "preemption_block_pressure": 0,
             "preempted_too_often": 0,
             "cancelled": 0, "migrated": 0,
@@ -327,6 +359,122 @@ class ContinuousBatcher:
         self._horizon = float(levels[self._level])
         if hasattr(self, "stats"):
             self.stats["horizon"] = self._horizon
+
+    # ---------------------------------------------------- speculative routing
+
+    def _spec_eligible(self, item: "_QueueItem") -> bool:
+        """A request may decode through the spec tree iff it is greedy
+        (verify is an argmax match), its prompt fits one spec prefill
+        bucket (and the paged engine's largest, the long-prompt boundary),
+        the generation plus the worst verify tree fits the spec context,
+        it carries no round-granular hook (observer, cancel, interrupt) and
+        it did not opt out (``request.params['speculative'] = False``)."""
+        r = item.request
+        ids = r.prompt_token_ids or []
+        if not ids or r.sampling.temperature > 0.0:
+            return False
+        if r.params.get("speculative") is False:
+            return False
+        if item.observer is not None or item.cancel is not None \
+                or item.interrupt is not None:
+            return False
+        s = self.spec
+        max_bucket = s.prefill_buckets[-1]
+        eng_buckets = getattr(self.engine.cfg, "prefill_buckets", None)
+        if eng_buckets:
+            max_bucket = min(max_bucket, eng_buckets[-1])
+        if len(ids) > max_bucket:
+            return False
+        # headroom for the WORST verify tree: the fits-freeze ends a row at
+        # prefix + nodes + 1 > ctx, which would return fewer tokens than
+        # the paged engine serves for the same request
+        margin = s.worst_case_tree_nodes() + 1
+        return len(ids) + r.sampling.max_new_tokens + margin <= s.max_seq_len
+
+    async def _maybe_start_spec_wave(self) -> bool:
+        """Route the ENTIRE waiting queue through the spec decoder when it
+        is a low-depth all-greedy moment: queue depth <= spec_max_batch,
+        every request eligible, at most spec_max_active paged slots still
+        decoding, no wave in flight."""
+        spec_cap = (
+            min(self.cfg.spec_max_batch, self.spec.max_batch_size)
+            if self.spec is not None else 0
+        )
+        if (
+            self.spec is None
+            or spec_cap <= 0
+            or self._spec_wave is not None
+            or self._chunked is not None
+            or self._ragged
+            or not self._heap
+            or len(self._heap) > spec_cap
+            or self.engine.num_active > self.cfg.spec_max_active
+        ):
+            return False
+        items = [it for it in list(self._heap) if not it.future.cancelled()]
+        if not items or not all(self._spec_eligible(it) for it in items):
+            return False
+        if any(it.preempted is not None for it in items):
+            # a preempted sequence must RESUME its generated context; a
+            # spec wave would regenerate it from token 0
+            return False
+        loop = asyncio.get_running_loop()
+        self._heap.clear()
+        self._spec_starting = True
+        try:
+            wave = await loop.run_in_executor(
+                self._exec, self.spec.start_wave, [it.request for it in items],
+            )
+        except Exception:
+            # fall back to the paged engine (a transient spec failure must
+            # not error a servable request); marked so a persistent spec
+            # fault cannot retry-loop
+            for it in items:
+                it.request.params["speculative"] = False
+                heapq.heappush(self._heap, it)
+            return False
+        finally:
+            self._spec_starting = False
+        self._spec_wave = (wave, items)
+        self.stats["spec_waves"] += 1
+        self.stats["admitted"] += len(items)
+        return True
+
+    async def _step_spec_wave(self) -> None:
+        """Advance the in-flight spec wave by ONE bounded dispatch; finish
+        it and resolve futures when every row is done (or every caller
+        gave up)."""
+        if self._spec_wave is None:
+            return
+        wave, items = self._spec_wave
+        loop = asyncio.get_running_loop()
+        if all(it.future.done() for it in items):
+            self._spec_wave = None
+            await loop.run_in_executor(self._exec, self.spec.abort_wave, wave)
+            return
+        try:
+            done = await loop.run_in_executor(self._exec, self.spec.advance_wave, wave)
+        except Exception as e:
+            self._spec_wave = None
+            await loop.run_in_executor(self._exec, self.spec.abort_wave, wave)
+            for it in items:
+                if not it.future.done():
+                    it.future.set_result(InferenceResponse(
+                        request_id=it.request.request_id,
+                        error=f"speculative engine error: {e}",
+                    ))
+                    self.stats["completed"] += 1
+                    self.stats["spec_errors"] += 1
+            return
+        if done:
+            self._spec_wave = None
+            resps = await loop.run_in_executor(self._exec, self.spec.finish_wave, wave)
+            # completed counts responses actually delivered
+            for it, resp in zip(items, resps):
+                if not it.future.done():
+                    it.future.set_result(resp)
+                    self.stats["completed"] += 1
+                    self.stats["spec_completed"] += 1
 
     # ---------------------------------------------------------------- API
 
@@ -439,7 +587,8 @@ class ContinuousBatcher:
             # drain batcher-OWNED work only: a foreign engine slot is not
             # ours to wait on
             while self._heap or self._slot_items or self._chunked is not None \
-                    or self._ragged:
+                    or self._ragged \
+                    or self._spec_wave is not None or self._spec_starting:
                 await asyncio.sleep(0.01)
         if self._run_task:
             self._run_task.cancel()
@@ -476,6 +625,14 @@ class ContinuousBatcher:
                 pass
             pending.append(rag_item)
         self._ragged = []
+        if self._spec_wave is not None:
+            wave, items = self._spec_wave
+            self._spec_wave = None
+            try:
+                await loop.run_in_executor(self._exec, self.spec.abort_wave, wave)
+            except Exception:  # noqa: BLE001 — shutdown is best-effort
+                pass
+            pending.extend(items)
         for item in pending:
             if item.future.done():
                 continue
@@ -1387,7 +1544,8 @@ class ContinuousBatcher:
             # engine.num_active: a foreign slot must neither keep this loop
             # spinning nor be finished behind its owner's back.
             if not self._heap and not self._slot_items \
-                    and self._chunked is None and not self._ragged:
+                    and self._chunked is None and not self._ragged \
+                    and self._spec_wave is None:
                 self._wake.clear()
                 if self._stopping:
                     return
@@ -1405,6 +1563,10 @@ class ContinuousBatcher:
             # hopeless deadline work drops at the same boundary, so its
             # freed blocks admit waiting on-time work this very pass
             await self._scan_deadlines()
+            # low-depth all-greedy load routes through the spec tree BEFORE
+            # paged admission claims it; requests arriving mid-wave admit to
+            # paged slots below and the two interleave round for round
+            await self._maybe_start_spec_wave()
             await self._admit()
             # admission-sourced KV pressure: deferred requests wait, or a
             # higher-priority arrival preempts the lowest-priority victim
@@ -1413,6 +1575,8 @@ class ContinuousBatcher:
             # iteration — decode rounds below run between chunks, so active
             # slots stall at most one chunk per round
             await self._step_chunked()
+            # one bounded dispatch of the in-flight spec wave
+            await self._step_spec_wave()
             if not self._slot_items and self._chunked is None \
                     and not self._ragged:
                 # no batcher-owned slot decodes: no frozen slot of OURS is
@@ -1547,6 +1711,21 @@ class ContinuousBatcher:
         out["active_slots"] = self.engine.num_active
         out["ragged_mode"] = self.use_ragged
         out["ragged_in_flight"] = len(self._ragged)
+        out["spec_wave_active"] = self._spec_wave is not None
+        if self.spec is not None:
+            out["spec"] = self.spec.get_stats()
+        if getattr(self.engine.cfg, "speculative", None) is not None:
+            # engine-integrated speculation: every round commits 1..K+1
+            # tokens a slot, so these are this batcher's serving-efficiency
+            # numbers
+            es = self.engine.get_stats()
+            out["spec_integrated"] = {
+                "accept_rate": es.get("spec_accept_rate", 0.0),
+                "tokens_per_step": es.get("spec_tokens_per_step", 0.0),
+                "steps": es.get("spec_steps", 0),
+                "accepted": es.get("spec_accepted", 0),
+                "drafted": es.get("spec_drafted", 0),
+            }
         if out["decode_rounds"]:
             out["avg_occupancy"] = out["occupancy_sum"] / out["decode_rounds"]
         return out
@@ -1567,9 +1746,11 @@ class BatcherServing:
     """
 
     def __init__(self, engine: TorchEngine,
-                 cfg: Optional[BatcherConfig] = None) -> None:
+                 cfg: Optional[BatcherConfig] = None,
+                 spec: Optional[Any] = None) -> None:
         self.engine = engine
         self._cfg = cfg
+        self._spec = spec
         self.batcher: Optional[ContinuousBatcher] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._ready = threading.Event()
@@ -1593,7 +1774,8 @@ class BatcherServing:
 
         async def boot() -> None:
             try:
-                self.batcher = ContinuousBatcher(self.engine, self._cfg)
+                self.batcher = ContinuousBatcher(self.engine, self._cfg,
+                                                 spec=self._spec)
                 self.batcher.start()
             except BaseException as exc:  # noqa: BLE001 — surfaced to ctor
                 self._boot_error = exc

@@ -1,8 +1,8 @@
 """Slot-based serving engine over paged KV on one CUDA device.
 
 The port of ``distributed_gpu_inference_tpu/runtime/engine.py`` ``TPUEngine``
-(plain engine only: no speculative decoding, no mesh, no sequence-sharded
-pools). Weights may be quantized on load
+(one device: no mesh, no sequence-sharded pools). Weights may be quantized
+on load
 (``EngineConfig.quantization`` int8 / fp8, ``ops/quantization.py``) and the
 KV pools stored as int8 with scale pools or as fp8
 (``EngineConfig.kv_cache_dtype``). It owns
@@ -25,6 +25,19 @@ stop/budget masking on the device and one host read at the end),
 ``snapshot_slot`` / ``preempt_slot`` / ``resume`` (or
 ``resume_chunked_start``, its ragged form), ``finish_slot`` and ``generate``.
 
+With ``EngineConfig.speculative`` (``runtime/speculative.py``
+``SpecDecodeConfig``) every decode round is a draft→verify→accept round:
+each active slot drafts K tokens with the draft head, one forward verifies
+them (K+1 queries a row, through the ragged kernel on the card) and the
+slot commits its longest matching prefix plus the target's token — 1..K+1
+tokens a round, the greedy stream unchanged. ``decode_multi`` runs up to T
+such rounds as an eager loop with stop/budget masking on the device and the
+per-round record replayed on the host (``_spec_decode_rounds``);
+``ragged_round`` co-dispatches verify rows with admission chunk rows
+(``_spec_ragged_round``). Drafts write their KV ahead into blocks reserved
+for the window; at each step boundary ``trim_reserved`` hands back the
+blocks acceptance never reached.
+
 Failure semantics: the JAX engine's device calls were functional, so a
 failed call left the old pools intact. Here a round updates the pools in
 place, so a failure part-way leaves them half-written: the engine records
@@ -45,6 +58,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from distributed_gpu_inference_torch.models import llama
 from distributed_gpu_inference_torch.models.configs import (
@@ -64,6 +78,13 @@ from distributed_gpu_inference_torch.runtime.kv_cache import (
     HostKVStore,
     OutOfBlocksError,
     PagedKVCacheManager,
+)
+from distributed_gpu_inference_torch.runtime.speculative import (
+    SpecDecodeConfig,
+    draft_apply,
+    init_draft_params,
+    mask_emission,
+    ordered_emission,
 )
 from distributed_gpu_inference_torch.utils.data_structures import (
     InferenceRequest,
@@ -131,6 +152,9 @@ class EngineConfig:
     # store (``runtime/kv_cache.py`` RemoteKVStore-like, e.g. redis_kv's)
     spill_host_blocks: int = 0
     spill_remote_store: Optional[Any] = None
+    # engine-integrated speculative decoding (chain drafts, one verify
+    # pass a round); None = plain decode
+    speculative: Optional[SpecDecodeConfig] = None
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -339,6 +363,8 @@ class TorchEngine:
         self.cfg = engine_cfg or EngineConfig()
         if self.model_cfg.num_experts:
             raise NotImplementedError("MoE models are not ported yet")
+        if self.cfg.speculative is not None:
+            self.cfg.speculative.validate(self.cfg)
         self.dtype = llama.torch_dtype(self.cfg.dtype)
         self.kv_dtype = _resolve_kv_dtype(self.cfg.kv_cache_dtype, self.dtype)
         if self.device.type == "cuda":
@@ -404,6 +430,33 @@ class TorchEngine:
             "preemptions": 0, "resumes": 0, "kv_pressure_events": 0,
             "ragged_rounds": 0,
         }
+        # integrated speculative decoding: the draft head's weights and
+        # each slot's last verified hidden (on the device between rounds;
+        # zeros for a fresh slot — its first round drafts garbage and
+        # accepts ~nothing, which is correct since emission is verified)
+        self._draft_params: Optional[Dict[str, torch.Tensor]] = None
+        self._spec_h: Optional[torch.Tensor] = None
+        self._spec_h_zero: set = set()
+        if self.cfg.speculative is not None:
+            sp = self.cfg.speculative
+            if sp.draft_params is not None:
+                self._draft_params = sp.draft_params
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(sp.draft_seed)
+                self._draft_params = init_draft_params(
+                    self.model_cfg, gen, dtype=self.dtype, device=self.device)
+            # adaptive depth: a per-slot EMA of the accepted length (host
+            # float arithmetic over integer accept counts: same seed → same
+            # K schedule); a fresh slot starts optimistic at K
+            self._spec_k_ema = np.full((b,), float(sp.num_draft_tokens))
+            # the oracle's fractional-rate accumulator, per slot
+            self._spec_oracle_acc = np.zeros((b,))
+            # test hook: a list collects each dispatch's [(slot, k), ...]
+            self.spec_k_trace: Optional[List[Any]] = None
+            self.stats.update({
+                "spec_steps": 0, "spec_slot_steps": 0, "spec_drafted": 0,
+                "spec_accepted": 0, "spec_emitted": 0,
+            })
 
     # ------------------------------------------------------- device helpers
 
@@ -422,6 +475,9 @@ class TorchEngine:
             yield
         except BaseException as exc:
             self._failed = exc
+            # the draft hidden is device state of the failed round too
+            self._spec_h = None
+            self._spec_h_zero.clear()
             raise
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
@@ -612,6 +668,11 @@ class TorchEngine:
         return self._fits_empty_pool(len(request.prompt_token_ids or []) + 1)
 
     def _fits_empty_pool(self, tokens: int) -> bool:
+        """One fit rule for admission and resume: ``tokens`` of context
+        (plus the verify window when the engine speculates) against the
+        whole pool minus the pad block."""
+        if self.cfg.speculative is not None:
+            tokens += self.cfg.speculative.num_draft_tokens + 1
         need = -(-tokens // self.cfg.block_size)
         return need <= self.num_blocks - 1   # block 0 is the reserved pad
 
@@ -682,6 +743,8 @@ class TorchEngine:
         self.manager.free_sequence(s.seq_id, cache=True)
         self.slots[slot] = None
         self._kv_lens[slot] = 0
+        if self.cfg.speculative is not None:
+            self._spec_h_zero.add(slot)
         self.stats["preemptions"] += 1
         return pre
 
@@ -917,6 +980,12 @@ class TorchEngine:
             self._slot_keys[slot] = self._host_rng.integers(
                 0, 2**32, size=2, dtype=np.uint32
             )
+        if self.cfg.speculative is not None:
+            # fresh occupant: its draft feature starts at zeros, its
+            # adaptive-depth EMA restarts at K, its oracle dither resets
+            self._spec_h_zero.add(slot)
+            self._spec_k_ema[slot] = float(self.cfg.speculative.num_draft_tokens)
+            self._spec_oracle_acc[slot] = 0.0
         self.stats["requests"] += 1
 
     def _submit_allocated(self, request: InferenceRequest, slot: int,
@@ -1069,25 +1138,107 @@ class TorchEngine:
         chunk_caps: Optional[Dict[int, int]] = None,
     ) -> Dict[int, List[int]]:
         """ONE forward serving a ragged row batch: every active decode slot
-        advances one token AND every in-flight admission advances one
-        prefill chunk. Decode rows feed their pending token at position
-        ``_kv_lens`` (block pre-reserved; pressure freezes the row at the
-        step boundary); admission rows run their next chunk, the final
-        chunk sampling the first token (a pressured final chunk is NOT
-        consumed and retries next round).
+        advances AND every in-flight admission advances one prefill chunk.
+        Decode rows feed their pending token at position ``_kv_lens``
+        (block pre-reserved; pressure freezes the row at the step boundary)
+        or, when the engine speculates, are verify rows
+        (:meth:`_spec_ragged_round`); admission rows run their next chunk,
+        the final chunk sampling the first token (a pressured final chunk
+        is NOT consumed and retries next round).
 
         ``chunk_caps``: optional per-admission prefill-token caps for THIS
         round, keyed by slot; a cap <= 0 skips the admission this round.
-        Returns {slot: [token]} for every row that sampled; admissions are
+        Returns {slot: [tokens]} for every row that sampled; admissions are
         mutated in place and ``adm.done`` flips when the first token lands."""
+        if self.cfg.speculative is not None:
+            return self._spec_ragged_round(admissions, chunk_caps)
+        return self._plain_ragged_round(admissions, chunk_caps)
+
+    def _live_admissions(self, admissions: Sequence[ChunkedAdmission]
+                         ) -> List[ChunkedAdmission]:
         admissions = [a for a in admissions if not a.done]
         for adm in admissions:
             s = self.slots[adm.slot]
             if s is None or s.seq_id != adm.seq_id:
                 raise RuntimeError("ragged admission slot was freed")
+        return admissions
+
+    def _ragged_admission_rows(
+        self, admissions: Sequence[ChunkedAdmission],
+        chunk_caps: Optional[Dict[int, int]] = None,
+    ) -> Tuple[List[Tuple[ChunkedAdmission, List[int], bool]], int]:
+        """Slice each admission's next chunk row for a ragged round, with
+        the final chunk's pending-block pre-reservation (a pressured final
+        chunk skips this round); shared by the plain and spec rounds.
+        → (ready rows, max chunk width)."""
+        chunk_cap = min(max(int(self.cfg.ragged_chunk), 1), self.cfg.prefill_buckets[-1])
+        ready: List[Tuple[ChunkedAdmission, List[int], bool]] = []
+        width = 1
+        for adm in admissions:
+            s = self.slots[adm.slot]
+            assert s is not None
+            cap = chunk_cap
+            if chunk_caps is not None:
+                cap = min(cap, int(chunk_caps.get(adm.slot, cap)))
+                if cap <= 0:
+                    continue
+            piece = adm.fresh[:cap]
+            is_last = len(adm.fresh) <= cap
+            if is_last:
+                try:
+                    if self.manager.reserve_tokens(s.seq_id, 1):
+                        self._block_tables[adm.slot] = \
+                            self.manager.block_table_for(
+                                s.seq_id, self.cfg.max_blocks_per_seq
+                            )
+                except OutOfBlocksError:
+                    self.manager.trim_reserved(s.seq_id)
+                    self._signal_pressure("admission", requests=1)
+                    continue
+            ready.append((adm, piece, is_last))
+            width = max(width, len(piece))
+        return ready, width
+
+    @staticmethod
+    def _fill_ragged_admission_rows(ready, toks_pos: np.ndarray,
+                                    lens_after: np.ndarray) -> bool:
+        """Write the admission chunk rows into a round's host arrays; True
+        when any admission samples non-greedily."""
+        mixed = False
+        for adm, piece, _ in ready:
+            sl, n = adm.slot, len(piece)
+            toks_pos[0, sl, :n] = piece
+            toks_pos[1, sl, :n] = np.arange(adm.off, adm.off + n)
+            lens_after[sl] = adm.off + n
+            mixed = mixed or adm.mode != "greedy"
+        return mixed
+
+    def _commit_ragged_admissions(self, ready, toks: np.ndarray,
+                                  out: Dict[int, List[int]]) -> None:
+        """After a ragged round: advance chunk offsets, count prefill
+        tokens and record each completed admission's first token."""
+        for adm, piece, is_last in ready:
+            s = self.slots[adm.slot]
+            assert s is not None
+            adm.fresh = adm.fresh[len(piece):]
+            adm.off += len(piece)
+            self.stats["prefill_tokens"] += len(piece)
+            if is_last:
+                s.prefilling = False
+                tok = int(toks[adm.slot])
+                out[adm.slot] = [tok]
+                self._record_token(adm.slot, tok)
+                adm.done = True
+            else:
+                self._release_prefill_window(adm)
+
+    def _plain_ragged_round(
+        self, admissions: Sequence[ChunkedAdmission] = (),
+        chunk_caps: Optional[Dict[int, int]] = None,
+    ) -> Dict[int, List[int]]:
+        """:meth:`ragged_round` with one-token decode rows."""
+        admissions = self._live_admissions(admissions)
         b = len(self.slots)
-        max_bucket = self.cfg.prefill_buckets[-1]
-        chunk_cap = min(max(int(self.cfg.ragged_chunk), 1), max_bucket)
 
         # --- decode rows: pre-reserve each pending token's block
         kept: List[int] = []
@@ -1116,31 +1267,7 @@ class TorchEngine:
             self._signal_pressure("decode", slots=pressured)
 
         # --- admission chunk rows (final chunks pre-reserve their block)
-        ready: List[Tuple[ChunkedAdmission, List[int], bool]] = []
-        width = 1
-        for adm in admissions:
-            s = self.slots[adm.slot]
-            assert s is not None
-            cap = chunk_cap
-            if chunk_caps is not None:
-                cap = min(cap, int(chunk_caps.get(adm.slot, cap)))
-                if cap <= 0:
-                    continue
-            piece = adm.fresh[:cap]
-            is_last = len(adm.fresh) <= cap
-            if is_last:
-                try:
-                    if self.manager.reserve_tokens(s.seq_id, 1):
-                        self._block_tables[adm.slot] = \
-                            self.manager.block_table_for(
-                                s.seq_id, self.cfg.max_blocks_per_seq
-                            )
-                except OutOfBlocksError:
-                    self.manager.trim_reserved(s.seq_id)
-                    self._signal_pressure("admission", requests=1)
-                    continue
-            ready.append((adm, piece, is_last))
-            width = max(width, len(piece))
+        ready, width = self._ragged_admission_rows(admissions, chunk_caps)
         if not kept and not ready:
             return {}
 
@@ -1156,13 +1283,8 @@ class TorchEngine:
             lens_after[i] = self._kv_lens[i] + 1
             if self._temps[i] > 0:
                 mode = "mixed"
-        for adm, piece, _ in ready:
-            sl, n = adm.slot, len(piece)
-            toks_pos[0, sl, :n] = piece
-            toks_pos[1, sl, :n] = np.arange(adm.off, adm.off + n)
-            lens_after[sl] = adm.off + n
-            if adm.mode != "greedy":
-                mode = "mixed"
+        if self._fill_ragged_admission_rows(ready, toks_pos, lens_after):
+            mode = "mixed"
         with self._device_work():
             logits = self._forward(toks_pos, self._block_tables, lens_after,
                                    allow_fused=False)
@@ -1178,20 +1300,7 @@ class TorchEngine:
             tok = int(toks[i])
             out[i] = [tok]
             self._record_token(i, tok)
-        for adm, piece, is_last in ready:
-            s = self.slots[adm.slot]
-            assert s is not None
-            adm.fresh = adm.fresh[len(piece):]
-            adm.off += len(piece)
-            self.stats["prefill_tokens"] += len(piece)
-            if is_last:
-                s.prefilling = False
-                tok = int(toks[adm.slot])
-                out[adm.slot] = [tok]
-                self._record_token(adm.slot, tok)
-                adm.done = True
-            else:
-                self._release_prefill_window(adm)
+        self._commit_ragged_admissions(ready, toks, out)
         return out
 
     # ------------------------------------------------------------- decoding
@@ -1352,8 +1461,12 @@ class TorchEngine:
 
     def decode_multi(self, num_steps: Optional[int] = None) -> Dict[int, List[int]]:
         """Run T decode steps with stop/budget masking on the device; the
-        host sees tokens only at the end."""
+        host sees tokens only at the end. With ``EngineConfig.speculative``
+        the T steps are draft→verify→accept rounds instead, each committing
+        1..K+1 tokens a slot."""
         num_steps = num_steps or self.cfg.multi_step
+        if self.cfg.speculative is not None:
+            return self._spec_decode_rounds(int(num_steps))
         active_mask = np.array(
             [s is not None and s.finish_reason is None and not s.prefilling
              for s in self.slots]
@@ -1419,6 +1532,450 @@ class TorchEngine:
             self.manager.commit_tokens(s.seq_id, commit)
             self._maybe_release_window(i)
         return out
+
+    # ------------------------------------------------ speculative decoding
+
+    def _spec_h_device(self) -> torch.Tensor:
+        """Each slot's last verified hidden for the draft head, on the
+        device between rounds; rebinds and failures zero the affected rows."""
+        if self._spec_h is None:
+            self._spec_h = torch.zeros((len(self.slots), self.model_cfg.hidden_size),
+                                       dtype=self.dtype, device=self.device)
+            self._spec_h_zero.clear()
+        elif self._spec_h_zero:
+            rows = torch.tensor(sorted(self._spec_h_zero), dtype=torch.long,
+                                device=self.device)
+            self._spec_h[rows] = 0
+            self._spec_h_zero.clear()
+        return self._spec_h
+
+    def _select_spec_ks(self, active: Sequence[int]) -> np.ndarray:
+        """Per-slot draft depth for the next dispatch: the configured K, or
+        (adaptive) the smallest choice of ``k_choices`` strictly above the
+        slot's accepted-length EMA, capped at the largest."""
+        sp = self.cfg.speculative
+        assert sp is not None
+        ks = np.full((len(self.slots),), sp.num_draft_tokens, np.int32)
+        if sp.adaptive:
+            choices = sp.k_choices()
+            for i in active:
+                ema = float(self._spec_k_ema[i])
+                sel = choices[-1]
+                for c in choices:
+                    if ema < c:
+                        sel = c
+                        break
+                ks[i] = sel
+        if self.spec_k_trace is not None:
+            self.spec_k_trace.append([(int(i), int(ks[i])) for i in active])
+        return ks
+
+    def _spec_ema_update(self, slot: int, accepted: int) -> None:
+        sp = self.cfg.speculative
+        assert sp is not None
+        a = float(sp.adaptive_ema)
+        self._spec_k_ema[slot] = (
+            a * float(self._spec_k_ema[slot]) + (1.0 - a) * float(accepted)
+        )
+
+    def _spec_forced(self, active: Sequence[int], rounds: int,
+                     ks: np.ndarray) -> np.ndarray:
+        """Oracle-forced accepted lengths [rounds, B] (-1 = real acceptance,
+        also every inactive row). Fractional targets (rate × K) dither
+        through a per-slot accumulator: the mean over rounds hits the rate
+        and the schedule is deterministic."""
+        sp = self.cfg.speculative
+        assert sp is not None
+        out = np.full((rounds, len(self.slots)), -1, np.int32)
+        rate = sp.oracle_accept_rate
+        if rate is None:
+            return out
+        for i in active:
+            target = float(rate) * float(ks[i])
+            for r in range(rounds):
+                self._spec_oracle_acc[i] += target
+                f = int(np.floor(self._spec_oracle_acc[i] + 1e-9))
+                f = max(0, min(f, int(ks[i])))
+                self._spec_oracle_acc[i] -= f
+                out[r, i] = f
+        return out
+
+    def set_spec_oracle(self, rate: Optional[float]) -> None:
+        """Set the oracle draft's forced acceptance rate on a live engine
+        (None restores real acceptance)."""
+        sp = self.cfg.speculative
+        if sp is None:
+            raise ValueError("engine has no speculative config")
+        if rate is not None and not (0.0 <= float(rate) <= 1.0):
+            raise ValueError(f"oracle rate {rate} must be in [0, 1]")
+        sp.oracle_accept_rate = None if rate is None else float(rate)
+        self._spec_oracle_acc[:] = 0.0
+
+    def _draft_chain(self, pending: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The K-token greedy draft chain from each slot's pending token and
+        last verified hidden → [B, K+1] (pending first). Draft logits go
+        through ``project_logits`` (final norm + head), the readout the
+        draft head is trained against."""
+        cfg, params = self.model_cfg, self.params
+        toks = [pending]
+        hh = h
+        for _ in range(self.cfg.speculative.num_draft_tokens):
+            hh = draft_apply(cfg, self._draft_params, hh,
+                             llama.embed_tokens(params, toks[-1], cfg))
+            logits = llama.project_logits(cfg, params, hh[:, None, :])
+            toks.append(greedy_tokens(logits[:, 0, :]))
+        return torch.stack(toks, dim=1)
+
+    @staticmethod
+    def _accept_chain(chunk: torch.Tensor, target_pred: torch.Tensor,
+                      ks: torch.Tensor, forced: torch.Tensor, lens: torch.Tensor,
+                      caps: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+        """Longest matching prefix of the draft (greedy match) within each
+        slot's selected depth; the oracle (forced >= 0) overrides the match.
+        Clamped so committed + pending stays inside the reserved blocks."""
+        match = ((chunk[:, 1:] == target_pred[:, :-1])
+                 & (offs[:, 1:] <= ks[:, None])).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
+        n_acc = torch.where(forced >= 0, torch.minimum(forced, ks), n_acc)
+        return torch.minimum(n_acc, (caps - lens - 2).clamp(min=0))
+
+    def spec_decode_step(self) -> Dict[int, List[int]]:
+        """One speculative round for all active slots (1..K+1 tokens each);
+        the contract of ``decode_multi``."""
+        return self._spec_decode_rounds(1)
+
+    def _spec_decode_rounds(self, num_steps: int) -> Dict[int, List[int]]:
+        """Up to ``num_steps`` draft→verify→accept rounds with stop/budget
+        masking on the device; the per-round records replay on the host so
+        the cache manager's commits and the emission match the per-step
+        path exactly. Rounds per dispatch bucket to a power of two, as the
+        JAX engine's scan lengths do: the reservations, the oracle schedule
+        and the adaptive trace follow the same dispatch structure."""
+        spec = self.cfg.speculative
+        assert spec is not None
+        active = [
+            i for i, s in enumerate(self.slots)
+            if s is not None and s.finish_reason is None and not s.prefilling
+        ]
+        if not active:
+            return {}
+        b = len(self.slots)
+        active_mask = np.zeros(b, dtype=bool)
+        caps = np.zeros(b, dtype=np.int32)
+        budgets = np.zeros(b, dtype=np.int32)
+        for i in active:
+            s = self.slots[i]
+            budgets[i] = max(s.request.sampling.max_new_tokens - len(s.generated), 0)
+        active = [i for i in active if budgets[i] > 0]
+        if not active:
+            return {}
+        rounds = max(1, min(int(num_steps), int(max(budgets[i] for i in active))))
+        rounds = 1 << (rounds.bit_length() - 1)
+        ks_sel = self._select_spec_ks(active)
+        pressured: List[int] = []
+        for i in active:
+            s = self.slots[i]
+            # reserve the dispatch's worst case up front: commits are
+            # bounded by min(rounds*(K+1), budget), plus K+1 so the last
+            # round's full window and the pending token stay covered (K =
+            # the slot's SELECTED depth); near max_seq_len the window
+            # shrinks and the acceptance clamp + freeze honour the cap
+            cur = len(self.manager.seq_tokens[s.seq_id])
+            ki = int(ks_sel[i])
+            want = min(rounds * (ki + 1), int(budgets[i])) + ki + 1
+            n_res = max(min(want, self.cfg.max_seq_len - cur), 0)
+            try:
+                if n_res > 0 and self.manager.reserve_tokens(s.seq_id, n_res):
+                    self._block_tables[i] = self.manager.block_table_for(
+                        s.seq_id, self.cfg.max_blocks_per_seq)
+            except OutOfBlocksError:
+                # the pool cannot hold this slot's verify window: freeze it
+                # for this dispatch (step-boundary pressure)
+                self.manager.trim_reserved(s.seq_id)
+                self._block_tables[i] = self.manager.block_table_for(
+                    s.seq_id, self.cfg.max_blocks_per_seq)
+                pressured.append(i)
+                continue
+            active_mask[i] = True
+            caps[i] = cur + n_res
+        if pressured:
+            self._signal_pressure("decode", slots=pressured)
+        if not active_mask.any():
+            return {}
+        self._apply_pending()
+        forced = self._spec_forced([i for i in active if active_mask[i]], rounds, ks_sel)
+        with self._device_work():
+            rec_emit, rec_nacc, rec_act = self._spec_device_rounds(
+                active_mask, caps, budgets, ks_sel, forced, rounds, self._decode_mode())
+        self.stats["decode_calls"] += rounds
+        out: Dict[int, List[int]] = {}
+        for r in range(rec_act.shape[0]):
+            act = rec_act[r]
+            if not act.any():
+                break
+            self.stats["spec_steps"] += 1
+            for i in active:
+                if not act[i]:
+                    continue
+                if spec.adaptive:
+                    # the EMA sees every round the row was live (sampled
+                    # rows' structural zeros converge them to the floor)
+                    self._spec_ema_update(i, int(rec_nacc[r, i]))
+                s = self.slots[i]
+                if s is None or s.finish_reason is not None:
+                    continue
+                self._commit_spec_row(i, rec_emit[r, i], int(rec_nacc[r, i]),
+                                      int(ks_sel[i]), out)
+        for i in active:
+            s = self.slots[i]
+            if s is None:
+                continue
+            # rollback of the rejected windows: hand back reserved blocks
+            # acceptance never reached (the footprint of a per-step engine)
+            if self.manager.trim_reserved(s.seq_id):
+                self._block_tables[i] = self.manager.block_table_for(
+                    s.seq_id, self.cfg.max_blocks_per_seq)
+            self._maybe_release_window(i)
+        return out
+
+    def _commit_spec_row(self, i: int, emitted: np.ndarray, a: int, k: int,
+                         out: Dict[int, List[int]]) -> None:
+        """Host replay of one slot's round: the verify pass committed the
+        pending token and ``a`` accepted drafts; record the emission up to
+        a stop or the budget and commit what the slot keeps."""
+        s = self.slots[i]
+        assert s is not None
+        self._kv_lens[i] += a + 1
+        if self._temps[i] <= 0.0:
+            # efficiency counters describe SPECULATING slots only: sampled
+            # slots never accept drafts by design
+            self.stats["spec_slot_steps"] += 1
+            self.stats["spec_drafted"] += k
+            self.stats["spec_accepted"] += a
+            self.stats["spec_emitted"] += a + 1
+        commit: List[int] = []
+        for t in emitted:
+            if t < 0 or s.finish_reason is not None:
+                break
+            out.setdefault(i, []).append(int(t))
+            self._record_token(i, int(t), already_committed=True)
+            if s.finish_reason is None:
+                commit.append(int(t))
+        self.manager.commit_tokens(s.seq_id, commit)
+
+    def _spec_device_rounds(self, active_mask: np.ndarray, caps: np.ndarray,
+                            budgets: np.ndarray, ks_sel: np.ndarray,
+                            forced: np.ndarray, rounds: int, mode: str
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The rounds of :meth:`_spec_decode_rounds` on the device: draft
+        chain, one verify forward (K+1 queries a row, never the fused
+        decode op), acceptance, emission record and stop/budget masking,
+        until every row is done. → per-round (emitted [R, B, K+1], accepted
+        counts [R, B], active [R, B])."""
+        k = self.cfg.speculative.num_draft_tokens
+        b = len(self.slots)
+        lens = self._tensor(self._kv_lens)
+        pending = self._tensor(self._last_tokens)
+        h = self._spec_h_device()
+        done = self._tensor(~active_mask)
+        n_emit = torch.zeros_like(lens)
+        tables = self._tensor(self._block_tables)
+        caps_t, budgets_t = self._tensor(caps), self._tensor(budgets)
+        ks_t, forced_t = self._tensor(ks_sel), self._tensor(forced)
+        stops = self._tensor(self._stop_ids)
+        is_sampled = self._tensor(self._temps) > 0.0
+        offs = torch.arange(k + 1, dtype=torch.int32, device=self.device)[None, :]
+        rows = torch.arange(b, device=self.device)
+        recs = []
+        for r in range(rounds):
+            act = ~done
+            chunk = self._draft_chain(pending, h)                        # [B, K+1]
+            # the pending token commits its KV as a plain step would;
+            # drafts write ahead into the reserved window (up to the
+            # slot's selected depth)
+            pos = lens[:, None] + offs
+            pos = torch.where(act[:, None] & (offs <= ks_t[:, None]) & (pos < caps_t[:, None]),
+                              pos, torch.full_like(pos, -1))
+            kv_after = torch.where(act, lens + ks_t + 1, torch.zeros_like(lens))
+            out = llama.forward_chunk(
+                self.model_cfg, self.params, chunk, pos, self.kv, tables, kv_after,
+                block_size=self.cfg.block_size, last_only=False, allow_fused=False)
+            target_pred = greedy_tokens(out.logits)                     # [B, K+1]
+            n_acc = self._accept_chain(chunk, target_pred, ks_t, forced_t[r], lens,
+                                       caps_t, offs)
+            bonus = target_pred[rows, n_acc.long()]
+            if mode == "mixed":
+                # sampled slots ride the round at one token: the pending
+                # token's logits, the key folded at lens + 1 as a plain
+                # step folds it; they never accept drafts
+                sampled0 = self._sample(out.logits[:, 0, :], range(b), lens + 1, mode)
+                n_acc = torch.where(is_sampled, torch.zeros_like(n_acc), n_acc)
+                bonus = torch.where(is_sampled, sampled0, bonus)
+            emitted = ordered_emission(chunk[:, 1:], n_acc, bonus, act)
+            n_emit, stop_hit = mask_emission(emitted, stops, n_emit, budgets_t)
+            recs.append((emitted, n_acc, act))
+            new_h = out.hidden[rows, n_acc.long()]
+            lens = torch.where(act, lens + n_acc + 1, lens)
+            pending = torch.where(act, bonus, pending)
+            h = torch.where(act[:, None], new_h, h)
+            # freeze rows whose next window no longer fits the reservation
+            done = done | (act & (stop_hit | (n_emit >= budgets_t) | (lens + 2 > caps_t)))
+            if r + 1 < rounds and bool(done.all()):
+                break
+        self._spec_h = h
+        return tuple(torch.stack(x).cpu().numpy() for x in zip(*recs))
+
+    def _spec_ragged_round(
+        self, admissions: Sequence[ChunkedAdmission] = (),
+        chunk_caps: Optional[Dict[int, int]] = None,
+    ) -> Dict[int, List[int]]:
+        """The speculating engine's ragged round: ONE forward serving VERIFY
+        rows (per active slot: pending token + draft chain, 2..K+1 queries)
+        beside admission chunk rows. Verify rows reserve their worst-case
+        window and commit 1..K+1 tokens with the ``trim_reserved`` rollback
+        at this same step boundary (``_spec_decode_rounds`` at one round);
+        admission rows keep the plain round's contract. With no verify row
+        the plain round serves."""
+        spec = self.cfg.speculative
+        assert spec is not None
+        k = spec.num_draft_tokens
+        admissions = self._live_admissions(admissions)
+        b = len(self.slots)
+
+        # --- verify rows: depth selection + worst-case reservation (up to
+        # K+1 fed tokens plus the pending one); exhaustion freezes the row
+        budgets = np.zeros((b,), np.int32)
+        cand: List[int] = []
+        for i, s in enumerate(self.slots):
+            if s is None or s.finish_reason is not None or s.prefilling:
+                continue
+            rem = s.request.sampling.max_new_tokens - len(s.generated)
+            if rem <= 0:
+                continue
+            budgets[i] = rem
+            cand.append(i)
+        ks_sel = self._select_spec_ks(cand)
+        caps = np.zeros((b,), np.int32)
+        spec_rows = np.zeros((b,), bool)
+        pressured: List[int] = []
+        for i in cand:
+            s = self.slots[i]
+            assert s is not None
+            cur = len(self.manager.seq_tokens[s.seq_id])
+            ki = int(ks_sel[i])
+            want = min(ki + 1, int(budgets[i])) + ki + 1
+            n_res = max(min(want, self.cfg.max_seq_len - cur), 0)
+            try:
+                if n_res > 0 and self.manager.reserve_tokens(s.seq_id, n_res):
+                    self._block_tables[i] = self.manager.block_table_for(
+                        s.seq_id, self.cfg.max_blocks_per_seq)
+            except OutOfBlocksError:
+                self.manager.trim_reserved(s.seq_id)
+                self._block_tables[i] = self.manager.block_table_for(
+                    s.seq_id, self.cfg.max_blocks_per_seq)
+                pressured.append(i)
+                continue
+            spec_rows[i] = True
+            caps[i] = cur + n_res
+        if pressured:
+            self._signal_pressure("decode", slots=pressured)
+        if not spec_rows.any():
+            # no verify row (admission-only, or every candidate pressured
+            # out of its window): the plain round serves the chunk rows
+            # with the same arithmetic, and a pressured slot may still fit
+            # a one-token step
+            return self._plain_ragged_round(admissions, chunk_caps)
+
+        ready, width = self._ragged_admission_rows(admissions, chunk_caps)
+        self._apply_pending()
+        # a pure-verify round is K+1 wide; wider chunk rows bucket as usual
+        s_w = k + 1 if width <= k + 1 else self._bucket_len(width)
+        toks_pos = np.zeros((2, b, s_w), np.int32)
+        toks_pos[1] = -1
+        lens_after = np.zeros((b,), np.int32)
+        mode = "mixed" if any(self._temps[i] > 0 for i in np.nonzero(spec_rows)[0]) \
+            else "greedy"
+        if self._fill_ragged_admission_rows(ready, toks_pos, lens_after):
+            mode = "mixed"
+        verify = [int(i) for i in np.nonzero(spec_rows)[0]]
+        forced = self._spec_forced(verify, 1, ks_sel)[0]
+        with self._device_work():
+            tok0, emitted, n_acc = self._spec_ragged_device(
+                toks_pos, lens_after, spec_rows, ks_sel, caps, forced, mode)
+        self.stats["ragged_rounds"] += 1
+        self.stats["decode_calls"] += 1
+        self.stats["spec_steps"] += 1
+        if ready:
+            self.stats["prefill_calls"] += 1
+        out: Dict[int, List[int]] = {}
+        for i in verify:
+            if spec.adaptive:
+                self._spec_ema_update(i, int(n_acc[i]))
+            s = self.slots[i]
+            assert s is not None
+            self._commit_spec_row(i, emitted[i], int(n_acc[i]), int(ks_sel[i]), out)
+            # rollback of the rejected window at the same step boundary
+            if self.manager.trim_reserved(s.seq_id):
+                self._block_tables[i] = self.manager.block_table_for(
+                    s.seq_id, self.cfg.max_blocks_per_seq)
+            self._maybe_release_window(i)
+        self._commit_ragged_admissions(ready, tok0, out)
+        return out
+
+    def _spec_ragged_device(self, toks_pos: np.ndarray, lens_after: np.ndarray,
+                            spec_rows: np.ndarray, ks_sel: np.ndarray, caps: np.ndarray,
+                            forced: np.ndarray, mode: str
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The device part of :meth:`_spec_ragged_round`: the draft chain
+        overwrites the verify rows' columns, one forward with no LM head,
+        then the head over a gathered [B, K+1] slice (chain offsets for
+        verify rows, the last valid index for chunk rows). → (each row's
+        first sample [B], emission record [B, K+1], accepted counts [B])."""
+        k = self.cfg.speculative.num_draft_tokens
+        b, s_w = toks_pos.shape[1:]
+        lens = self._tensor(self._kv_lens)
+        spec_t = self._tensor(spec_rows)
+        ks_t, caps_t = self._tensor(ks_sel), self._tensor(caps)
+        lens_after_t = self._tensor(lens_after)
+        offs = torch.arange(k + 1, dtype=torch.int32, device=self.device)[None, :]
+        rows = torch.arange(b, device=self.device)
+        h = self._spec_h_device()
+        chunk = self._draft_chain(self._tensor(self._last_tokens), h)
+        pos_spec = lens[:, None] + offs
+        pos_spec = torch.where(
+            spec_t[:, None] & (offs <= ks_t[:, None]) & (pos_spec < caps_t[:, None]),
+            pos_spec, torch.full_like(pos_spec, -1))
+        pad = s_w - (k + 1)
+        token_ids = torch.where(spec_t[:, None], F.pad(chunk, (0, pad)),
+                                self._tensor(toks_pos[0]))
+        positions = torch.where(spec_t[:, None], F.pad(pos_spec, (0, pad), value=-1),
+                                self._tensor(toks_pos[1]))
+        kv_lens = torch.where(spec_t, lens + ks_t + 1, lens_after_t)
+        out = llama.forward_chunk(
+            self.model_cfg, self.params, token_ids, positions, self.kv,
+            self._tensor(self._block_tables), kv_lens, block_size=self.cfg.block_size,
+            last_only=False, with_logits=False, allow_fused=False)
+        last_idx = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
+        gidx = torch.where(spec_t[:, None], offs.clamp(max=s_w - 1), last_idx[:, None])
+        hsel = torch.gather(out.hidden, 1,
+                            gidx.long()[:, :, None].expand(-1, -1, out.hidden.shape[-1]))
+        logits = llama.project_logits(self.model_cfg, self.params, hsel)
+        target_pred = greedy_tokens(logits)
+        n_acc = self._accept_chain(chunk, target_pred, ks_t, self._tensor(forced), lens,
+                                   caps_t, offs)
+        bonus = target_pred[rows, n_acc.long()]
+        # sample positions: lens + 1 for verify rows, lens_after for chunk
+        # rows — the plain paths' key folds
+        samp_pos = torch.where(spec_t, lens + 1, lens_after_t)
+        tok0 = self._sample(logits[:, 0, :], range(b), samp_pos, mode)
+        if mode == "mixed":
+            is_sampled = self._tensor(self._temps) > 0.0
+            n_acc = torch.where(is_sampled & spec_t, torch.zeros_like(n_acc), n_acc)
+            bonus = torch.where(is_sampled, tok0, bonus)
+        emitted = ordered_emission(chunk[:, 1:], n_acc, bonus, spec_t)
+        new_h = hsel[rows, n_acc.long()]
+        self._spec_h = torch.where(spec_t[:, None], new_h, h)
+        return tok0.cpu().numpy(), emitted.cpu().numpy(), n_acc.cpu().numpy()
 
     def finish_slot(self, slot: int, cache: bool = True) -> InferenceResponse:
         s = self.slots[slot]
@@ -1579,4 +2136,13 @@ class TorchEngine:
         out = dict(self.stats)
         out["kv_cache"] = self.manager.get_stats()
         out["active_slots"] = self.num_active
+        if self.cfg.speculative is not None:
+            drafted = out.get("spec_drafted", 0)
+            slot_steps = out.get("spec_slot_steps", 0)
+            # accepted / drafted, and tokens committed per slot-round (the
+            # weight-stream amortization factor)
+            out["spec_accept_rate"] = (
+                out.get("spec_accepted", 0) / drafted if drafted else 0.0)
+            out["spec_tokens_per_step"] = (
+                out.get("spec_emitted", 0) / slot_steps if slot_steps else 0.0)
         return out

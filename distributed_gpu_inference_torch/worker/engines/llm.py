@@ -35,11 +35,25 @@ batching:
   params carry a ``trace_id`` gets a ``runtime/flight.py`` timeline in its
   result or final chunk).
 
-``load_model`` refuses, with :class:`EngineLoadError` naming the key, what
-this port does not serve rather than ignoring it: ``tokenizer_id`` (needs
-``transformers``), the speculative engines, tensor parallelism and the
-per-step ``serving.mode: direct`` stream loop. Prefill/decode hand-off stages
-are refused per request.
+Speculative decoding, in either of the JAX engine's two modes:
+
+- ``speculative_decode: true`` (with ``spec_num_draft_tokens``,
+  ``spec_adaptive``, ``spec_adaptive_min_k``, ``spec_oracle_accept``) makes
+  every round of the engine a draft→verify→accept round
+  (``EngineConfig.speculative``);
+- ``engine: jax-speculative`` (with ``spec_widths``) attaches a standalone
+  tree decoder (``runtime/speculative.py`` ``SpeculativeDecoder``, sharing
+  the target weights, with its own pool of ``max_batch_size ×
+  blocks_per_seq + 2`` blocks) to which the batcher routes low-depth
+  greedy load; ``params.speculative = False`` opts a request out, and
+  streams always decode through the paged slots.
+
+The two are mutually exclusive. ``load_model`` refuses, with
+:class:`EngineLoadError` naming the key, what this port does not serve
+rather than ignoring it: ``tokenizer_id`` (needs ``transformers``),
+``spec_distill_steps`` (draft distillation is training), tensor parallelism
+and the per-step ``serving.mode: direct`` stream loop. Prefill/decode
+hand-off stages are refused per request.
 """
 
 from __future__ import annotations
@@ -61,6 +75,11 @@ from distributed_gpu_inference_torch.runtime.engine import (
     EngineConfig,
     PreemptedSequence,
     TorchEngine,
+)
+from distributed_gpu_inference_torch.runtime.speculative import (
+    SpecDecodeConfig,
+    SpeculativeConfig,
+    SpeculativeDecoder,
 )
 from distributed_gpu_inference_torch.runtime.flight import (
     NULL_TIMELINE,
@@ -101,9 +120,7 @@ from distributed_gpu_inference_torch.worker.engines.base import (
 SERVING_DEFAULTS: Dict[str, Any] = config_dict(ServingConfig())
 
 # remote-config ``serving`` keys that may retune a LIVE batcher (a copy of
-# the JAX engine's map: remote key → batcher config field). Knobs of paths
-# the port does not run (the speculative batch caps) name no field of the
-# port's batcher and change nothing, as on a JAX worker without them.
+# the JAX engine's map: remote key → batcher config field)
 SERVING_REMOTE_KEYS: Dict[str, str] = {
     "target_step_ms": "target_step_latency_ms",
     "max_horizon": "max_multi_step",
@@ -128,7 +145,6 @@ SERVING_REMOTE_KEYS: Dict[str, str] = {
 # set, naming the key, never ignored
 _UNPORTED_CONFIG = {
     "tokenizer_id": "a tokenizer loaded through transformers",
-    "speculative_decode": "engine-integrated speculative decoding",
 }
 
 
@@ -334,6 +350,8 @@ class TorchLLMEngine(LLMBaseEngine):
         super().__init__(config)
         self.engine: Optional[TorchEngine] = None
         self.serving: Optional[BatcherServing] = None
+        # the standalone tree decoder (engine: jax-speculative), else None
+        self._spec: Optional[SpeculativeDecoder] = None
         self.tokenizer = self.config.get("tokenizer")
         # key → live generation (request_id to find its slot, kind
         # job|stream, assignment epoch); checkpoint_live snapshots these
@@ -375,16 +393,17 @@ class TorchLLMEngine(LLMBaseEngine):
     def _refuse_unported(self, sv: Dict[str, Any]) -> None:
         """EngineLoadError naming each configured key whose path this port
         does not have."""
-        if self.config.get("engine") in ("jax-speculative", "speculative"):
-            raise EngineLoadError(
-                f"engine: {self.config.get('engine')} (the standalone "
-                "speculative tree decoder) is not in the PyTorch port"
-            )
         for key, what in _UNPORTED_CONFIG.items():
             if self.config.get(key):
                 raise EngineLoadError(
                     f"{key} ({what}) is not in the PyTorch port"
                 )
+        if int(self.config.get("spec_distill_steps") or 0) > 0:
+            raise EngineLoadError(
+                f"spec_distill_steps={self.config['spec_distill_steps']}: "
+                "speculative draft distillation (training, with optax) is not "
+                "in the PyTorch port; serve a random or given draft head"
+            )
         tp = int(self.config.get("tp_size")
                  or (self.config.get("extra") or {}).get("tp_size") or 1)
         if tp > 1:
@@ -431,6 +450,29 @@ class TorchLLMEngine(LLMBaseEngine):
             )
         if sv.get("ragged_chunk"):
             eng_cfg.ragged_chunk = int(sv["ragged_chunk"])
+        standalone = self.config.get("engine") in ("jax-speculative", "speculative")
+        if self.config.get("speculative_decode"):
+            # engine-integrated: every round drafts, verifies and commits
+            # 1..K+1 tokens a slot; greedy outputs unchanged
+            try:
+                oracle = self.config.get("spec_oracle_accept")
+                eng_cfg.speculative = SpecDecodeConfig(
+                    num_draft_tokens=int(self.config.get("spec_num_draft_tokens", 4)),
+                    adaptive=bool(self.config.get("spec_adaptive", False)),
+                    adaptive_min_k=int(self.config.get("spec_adaptive_min_k", 1)),
+                    oracle_accept_rate=None if oracle is None else float(oracle),
+                )
+                eng_cfg.speculative.validate(eng_cfg)
+            except (ValueError, TypeError) as exc:
+                raise EngineLoadError(
+                    f"speculative_decode config invalid: {exc}"
+                ) from exc
+            if standalone:
+                raise EngineLoadError(
+                    "speculative_decode (engine-integrated) and "
+                    "engine=jax-speculative (standalone tree decoder) are "
+                    "mutually exclusive — pick one"
+                )
         try:
             self.engine = TorchEngine(
                 model_name,
@@ -446,13 +488,43 @@ class TorchLLMEngine(LLMBaseEngine):
             if isinstance(exc, (ValueError, KeyError, NotImplementedError)):
                 raise EngineLoadError(str(exc)) from exc
             raise
+        if standalone:
+            self._spec = self._standalone_decoder(model_name, eng_cfg)
         try:
-            self.serving = BatcherServing(self.engine, self._batcher_config(sv))
+            self.serving = BatcherServing(self.engine, self._batcher_config(sv),
+                                          spec=self._spec)
         except (ValueError, RuntimeError) as exc:
             raise EngineLoadError(
                 f"batcher serving config invalid: {exc}"
             ) from exc
         self.loaded = True
+
+    def _standalone_decoder(self, model_name: str,
+                            eng_cfg: EngineConfig) -> SpeculativeDecoder:
+        """``engine: jax-speculative``: the tree decoder over the engine's
+        target weights, its pool sized to one batch's worst case."""
+        try:
+            raw_w = self.config.get("spec_widths") or (4, 2, 2)
+            if isinstance(raw_w, str):          # CLI/env: "4,2,2"
+                raw_w = [p for p in raw_w.split(",") if p.strip()]
+            widths = tuple(int(w) for w in raw_w)
+            if not widths or any(w < 1 for w in widths):
+                raise ValueError(f"invalid spec_widths {widths}")
+            blocks_per_seq = -(-eng_cfg.max_seq_len // eng_cfg.block_size)
+            return SpeculativeDecoder(
+                model_name,
+                params=self.engine.params,
+                spec_cfg=SpeculativeConfig(widths=widths),
+                max_batch_size=eng_cfg.max_batch_size,
+                max_seq_len=eng_cfg.max_seq_len,
+                num_blocks=eng_cfg.max_batch_size * blocks_per_seq + 2,
+                prefill_buckets=eng_cfg.prefill_buckets,
+                device=self.engine.device,
+            )
+        except (ValueError, TypeError) as exc:
+            raise EngineLoadError(
+                f"speculative engine config invalid: {exc}"
+            ) from exc
 
     def _serving_config(self) -> Dict[str, Any]:
         """Merged serving knobs: defaults < ``config['serving']`` (worker
@@ -482,6 +554,8 @@ class TorchLLMEngine(LLMBaseEngine):
             queue_limit=int(sv["queue_limit"]),
             default_timeout_s=float(sv["default_timeout_s"]),
             max_preemptions=int(sv["max_preemptions"]),
+            spec_max_batch=int(sv["spec_max_batch"]),
+            spec_max_active=int(sv["spec_max_active"]),
             ragged=(None if sv.get("ragged") is None
                     else bool(sv["ragged"])),
             prefill_budget=int(sv.get("prefill_budget") or 0),
@@ -565,6 +639,7 @@ class TorchLLMEngine(LLMBaseEngine):
             store.close()
         device = self.engine.device if self.engine is not None else None
         self.engine = None
+        self._spec = None
         self._prefix_evictions_seen = 0
         super().unload()
         if device is not None and device.type == "cuda":
@@ -643,12 +718,15 @@ class TorchLLMEngine(LLMBaseEngine):
     def _params_request(self, params: Dict[str, Any],
                         cfg: GenerationConfig) -> InferenceRequest:
         """The request of a job's or a stream's params (prompt or chat
-        messages, priority)."""
+        messages, priority, the ``speculative: false`` opt-out of the
+        standalone tree decoder)."""
         req = self._build_request(
             params.get("messages") or params.get("prompt") or "", cfg,
         )
         if params.get("priority") is not None:
             req.priority = int(params.get("priority") or 0)
+        if params.get("speculative") is False:
+            req.params["speculative"] = False
         return req
 
     def inference(self, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -791,6 +869,9 @@ class TorchLLMEngine(LLMBaseEngine):
             req = pre.request
         else:
             req = self._params_request(params, cfg)
+        # spec waves buffer whole generations: a stream needs per-round
+        # progress, so it always decodes through the paged slots
+        req.params["speculative"] = False
         request_id = req.request_id
         live_info = {"kind": "stream", "epoch": epoch,
                      "request_id": request_id}
@@ -1134,16 +1215,25 @@ class TorchLLMEngine(LLMBaseEngine):
             req = pre.request
         else:
             req = self._params_request(params, cfg)
-        self._register_live(key, "job", epoch, req.request_id)
+        # a FRESH greedy job keeps the standalone tree decoder's speedup by
+        # waiving the failover hooks (a spec wave is neither interruptible
+        # nor checkpointable: a drain finishes it, a crash replays it)
+        spec_fast = (pre is None and self._spec is not None
+                     and cfg.temperature <= 0.0
+                     and params.get("speculative") is not False)
+        if not spec_fast:
+            self._register_live(key, "job", epoch, req.request_id)
         try:
-            resp = self.serving.submit(req, resume_from=pre,
-                                       interrupt=self._interrupt,
-                                       flight=tl if tl.enabled else None)
+            resp = self.serving.submit(
+                req, resume_from=pre,
+                interrupt=None if spec_fast else self._interrupt,
+                flight=tl if tl.enabled else None)
         except RequestMigrated as mig:
             raise JobMigrated(mig.pre.to_wire(),
                               tokens=len(mig.pre.generated)) from None
         finally:
-            self._unregister_live(key)
+            if not spec_fast:
+                self._unregister_live(key)
         if resp.error is not None:
             _raise_serving(resp)
         tl.note("worker.done")

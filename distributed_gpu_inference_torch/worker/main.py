@@ -29,8 +29,9 @@ speaking the JAX control plane's wire protocol unchanged:
 The port serves one CUDA card: ``probe_topology`` reads it through
 ``torch.cuda``. It refuses at ``start`` what is not ported: a ``role`` of
 ``prefill`` / ``decode`` and a ``pd_data_plane_url`` (prefill/decode
-disaggregation). The JAX worker's speculation, PD and KV-migration
-heartbeat blocks are absent because no port engine has them — the JAX
+disaggregation). The heartbeat carries the speculation counters of an
+engine that speculates (``_spec_engine_stats``); the JAX worker's PD and
+KV-migration blocks are absent because no port engine has them — the JAX
 worker omits each block in that case too.
 """
 
@@ -245,6 +246,33 @@ class Worker:
 
     # -- heartbeat -------------------------------------------------------------
 
+    def _spec_engine_stats(self) -> Optional[Dict[str, Any]]:
+        """Speculation counters of every engine running the integrated
+        speculative mode, summed, with the rates derived from the sums (so
+        the gauges agree with the counters when several engines
+        speculate); None when nothing speculates."""
+        out: Dict[str, Any] = {}
+        for eng in self.engines.values():
+            core = getattr(eng, "engine", None)
+            if core is None or \
+                    getattr(getattr(core, "cfg", None), "speculative", None) is None:
+                continue
+            s = core.get_stats()
+            for k in ("spec_accepted", "spec_drafted", "spec_slot_steps",
+                      "spec_emitted"):
+                out[k] = out.get(k, 0) + int(s.get(k, 0) or 0)
+        if not out:
+            return None
+        out["spec_accept_rate"] = (
+            out["spec_accepted"] / out["spec_drafted"]
+            if out.get("spec_drafted") else 0.0
+        )
+        out["spec_tokens_per_step"] = (
+            out["spec_emitted"] / out["spec_slot_steps"]
+            if out.get("spec_slot_steps") else 0.0
+        )
+        return out
+
     def _pressure_engine_stats(self) -> Optional[Dict[str, Any]]:
         """Cumulative preemptions / resumes / pressure events of every
         loaded paged engine; None when no engine has them."""
@@ -374,6 +402,9 @@ class Worker:
         keyword arguments)."""
         extra: Dict[str, Any] = {}
         engine_stats: Dict[str, Any] = {}
+        spec = self._spec_engine_stats()
+        if spec:
+            engine_stats.update(spec)
         pressure = self._pressure_engine_stats()
         if pressure:
             engine_stats.update(pressure)

@@ -45,7 +45,9 @@ def test_port_imports_nothing_of_jax():
             "direct_server.py", "llm.py", "chip_smoke.py", "main.py", "api_client.py",
             "cli.py", "machine_id.py", "config.py", "backoff.py", "prefixes.py",
             "prefix_summary.py", "io_guard.py", "faults.py", "flight.py", "redis_kv.py",
-            "serialization.py", "kv_cache.py"} <= {f.name for f in files}
+            "serialization.py", "kv_cache.py", "speculative.py", "engine.py", "batcher.py",
+            "llama.py", "attention.py", "convert.py"} <= {f.name for f in files}
+    assert (ROOT / "distributed_gpu_inference_torch/runtime/speculative.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/testing/faults.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files
     offenders = {
@@ -557,3 +559,37 @@ def test_spill_and_l2_restore_on_the_card(cuda):
         if witness is not None:
             witness.close()
         llm.unload()
+
+
+@pytest.mark.gpu
+def test_speculative_greedy_streams_on_the_card(cuda):
+    # chip_smoke.py phase 15 checks (a)-(c) and (h) at llama3-mini: the
+    # speculating engine's greedy streams are the target's argmax under a
+    # teacher-forced re-score (near-ties aside), the verify rows ride the
+    # ragged kernel and never the fused one, and the allocator ends as a
+    # never-speculated engine's
+    import importlib.util
+
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _, _, prompts = smoke.serving_prompts()
+    base = {"model": "llama3-mini", "max_batch_size": smoke.SERVE_BATCH,
+            "max_seq_len": smoke.MAX_SEQ, "device": "cuda", "seed": 0,
+            "prefix_summary_top_n": 0}
+    llm = TorchLLMEngine({**base, "speculative_decode": True,
+                          "spec_num_draft_tokens": smoke.SPEC_K})
+    llm.load_model()
+    plain = TorchLLMEngine({**base, "params": llm.engine.params})
+    plain.load_model()
+    try:
+        counts, routes, rows = smoke.spec_pass(torch, tpa, "gpu test", llm, plain, prompts,
+                                               quantized=False)
+    finally:
+        plain.unload()
+        llm.unload()
+    assert counts["paged_decode_attention_fused"] == 0
+    assert routes.ragged_s.get(smoke.SPEC_K + 1, 0) > 0
+    assert all(len(t) == smoke.SPEC_TOKENS for _, t in rows)

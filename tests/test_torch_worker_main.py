@@ -645,9 +645,14 @@ def test_serving_config_push_reaches_the_batcher_and_refusals_are_logged(
 
 
 @pytest.mark.parametrize("config,names", [
-    ({"engine": "jax-speculative"}, "jax-speculative"),
-    ({"engine": "speculative"}, "engine: speculative"),
-    ({"speculative_decode": True}, "speculative_decode"),
+    # the speculative modes load since they were ported; what stays
+    # refused is both at once and draft distillation (ids kept)
+    pytest.param({"engine": "jax-speculative", "speculative_decode": True},
+                 "engine=jax-speculative", id="config0-jax-speculative"),
+    pytest.param({"engine": "speculative", "speculative_decode": True}, "mutually exclusive",
+                 id="config1-engine: speculative"),
+    pytest.param({"speculative_decode": True, "spec_distill_steps": 100},
+                 "spec_distill_steps=100", id="config2-speculative_decode"),
     ({"extra": {"tp_size": 2}}, "extra.tp_size=2"),
     ({"serving": {"mode": "direct"}}, "serving.mode"),
     ({"tokenizer_id": "meta-llama/Meta-Llama-3-8B"}, "tokenizer_id"),
@@ -665,6 +670,8 @@ def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names):
     {"serving": {"abandon_deadlines": True, "predictive_abandon": True}},
     {"kv_spill_host_blocks": 64},
     {"kv_spill_host_blocks": 4, "kv_remote_url": "memory://", "kv_remote_ttl_s": 60},
+    {"speculative_decode": True, "spec_num_draft_tokens": 2},
+    {"engine": "jax-speculative", "spec_widths": [2, 2]},
 ])
 def test_engine_loads_and_serves_the_lifted_keys(tiny_params, config):
     llm = TorchLLMEngine(dict({"model": "llama3-tiny", "device": "cpu",
