@@ -186,6 +186,45 @@ Speculative decoding:
     held to their plain versions and timed as phases 5 and 9 time them
     (``@verify`` and ``@m40`` entries).
 
+Prefill/decode disaggregation:
+
+16. PD — twice, with int8 pools (A is phase 7's engine, after phase 11)
+    and with bf16 pools (A loads llama3-8b with int8 weights): engine B, the
+    same model and weights (seed 0), behind the port's ``DataPlaneServer``
+    on 127.0.0.1 (A runs one too); both prefill in chunks of at most 256
+    tokens. (a) The 600-token prompt through ``pd_stage: prefill`` on A
+    pushed one-shot and streamed to B, then ``pd_stage: decode`` on B: B's
+    adopted pages and scales, read back with ``pull_pages``, bit-identical
+    to the wire, and the greedy ids equal to A alone (A's local-affinity
+    prefill and decode). (b) A serves the 8 serving prompts itself (its
+    hybrid run), then they go PD, streamed (pieces of 4 blocks) and
+    one-shot: prefills one after another on A with no cached block, then
+    all 8 decode together on B; the one-shot streams and the streamed
+    ones past one chunk equal A's exactly (the same prefill arithmetic), a
+    streamed prompt within one chunk prefills as one single-row chunk,
+    so where it parts both runs' top-2 logits (the logits each committed
+    from) are printed with a re-score; pushes of prompts past one chunk
+    sent bytes before the first token. (c) ``migrate_kv_device`` A → B:
+    pages and scales bit-identical, continued on B equal to A alone; a
+    one-layer engine with another KV dtype, and one on the CPU, are
+    refused. (d) B holds the shared 128-token prefix and pulls the rest of
+    a prompt hot on A through A's ``/kv/export`` (a router hint): only the
+    18 missing blocks ship, bit-identical to A's, and B serves it with 416
+    tokens cached. (e) Port fault plans: a piece truncated at
+    ``kv.receiver.message`` aborts the session (B's reclaimable blocks
+    unchanged), a dropped piece push at ``worker.pd.push`` is retried
+    (``piece_retries`` + 1), an injected 409 is not. (f) (bf16 pass) Worker
+    B through ``cmd_start`` with ``role: decode`` and a
+    ``pd_data_plane_url`` against :class:`StandInPlane` registers both, A
+    pushes to its data plane, the decode-stage job ``server/pd_flow.py``
+    writes completes as a polled job, and a push losing every piece shows
+    in its heartbeat ``pd`` block. Counters zeroed before, read after: all
+    three kernels launched; A launched the ragged kernel and qmm, B the
+    fused decode kernel and qmm (the split printed). Information: bytes,
+    export / adopt ms against 64 GB/s, serialize / push / deserialize ms,
+    the device-path migrate against two HBM passes, TTFT, and the pull
+    against a recompute.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15), the
@@ -2676,6 +2715,689 @@ def spec_phase(torch, pa, smi, prompts, lengths, model="llama3-8b", quantization
 
 # ---------------------------------------------------------------- phases
 
+# ---------------------------------------------------------------- PD disaggregation
+
+PD_TOKENS = 32              # greedy tokens of each phase-16 request
+PD_PIECE_BLOCKS = 4         # blocks a streamed piece
+# prefill chunks of 256 tokens on both sides: prompts past 256 tokens span
+# two or more chunks, so a streamed push overlaps the prefill
+PD_BUCKETS = (16, 32, 64, 128, 256)
+PD_SAMPLES = 10             # samples of each phase-16 transfer time
+
+
+def pd_engine_config(model, quantization, kv, device, **over):
+    return {"model": model, "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ,
+            "enable_prefix_cache": True, "dtype": "bfloat16", "device": device, "seed": 0,
+            "quantization": quantization, "kv_cache_dtype": kv,
+            "prefill_buckets": list(PD_BUCKETS), **over}
+
+
+class ThreadSplit:
+    """While installed: calls of the model's two attention wrappers and
+    the quantized matmul's kernel launches (``qmm._launch``) by the thread
+    that made them (each engine's batcher runs its engine work on its own
+    executor thread, so this splits the work between two engines of one
+    process). The kernels count their own launches as before."""
+
+    def __init__(self, names):
+        from distributed_gpu_inference_torch.models import llama
+        from distributed_gpu_inference_torch.ops import qmm
+
+        self.names, self.calls = names, {}
+        self._sites = [(llama, "ragged_paged_attention", "ragged_paged_attention"),
+                       (llama, "paged_decode_attention_fused", "paged_decode_attention_fused"),
+                       (qmm, "_launch", "qmm_w8a16")]
+        self._real = [getattr(mod, f) for mod, f, _ in self._sites]
+        for (mod, f, name), fn in zip(self._sites, self._real):
+            def counted(*a, _fn=fn, _name=name, **kw):
+                key = (self.names.get(threading.get_ident(), "other"), _name)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                return _fn(*a, **kw)
+
+            setattr(mod, f, counted)
+
+    def of(self, who):
+        return {name: self.calls.get((who, name), 0) for _, _, name in self._sites}
+
+    def close(self):
+        for (mod, f, _), fn in zip(self._sites, self._real):
+            setattr(mod, f, fn)
+
+
+class SampleTrace:
+    """While installed on engines: the top-8 logits of every row each
+    sample takes, kept on the device and keyed afterwards by (the row's
+    request ``session_id``, the position sampled) — the PD key and
+    prompt_len + index of the token. The decode-time logits a greedy
+    stream was committed from (a re-score runs other kernels)."""
+
+    def __init__(self, torch, engines, prefix):
+        self.torch, self.engines, self.prefix, self.calls = torch, engines, prefix, []
+        for eng in engines:
+            real = eng._sample
+
+            def sample(logits, rows, positions, mode, _real=real, _eng=eng):
+                rows = list(rows)
+                keys = [(s.request.session_id if (s := _eng.slots[i]) is not None else None)
+                        for i in rows]
+                if any(k and k.startswith(self.prefix) for k in keys):
+                    top = logits.float().topk(8, dim=-1)
+                    pos = positions if isinstance(positions, self.torch.Tensor) else \
+                        self.torch.as_tensor(np.asarray(positions))
+                    self.calls.append((keys, pos.clone(), top.values, top.indices))
+                return _real(logits, rows, positions, mode)
+
+            eng._sample = sample
+
+    def close(self):
+        for eng in self.engines:
+            del eng._sample
+        self.table = {}
+        for keys, pos, vals, idx in self.calls:
+            pos, vals, idx = pos.tolist(), vals.tolist(), idx.tolist()
+            for r, k in enumerate(keys):
+                if k and k.startswith(self.prefix) and pos[r] > 0:
+                    self.table[(k, int(pos[r]))] = (vals[r], idx[r])
+        self.calls = []
+
+    def deficit(self, key, pos, token):
+        """(the sample's top-2 as text, how far ``token``'s logit lay below
+        the argmax's there: a lower bound when it was not in the top 8)."""
+        vals, idx = self.table.get((key, pos), (None, None))
+        if vals is None:
+            return "not recorded", float("inf")
+        top = f"id {idx[0]} {vals[0]:.4f} / id {idx[1]} {vals[1]:.4f}"
+        return top, (vals[0] - vals[idx.index(token)] if token in idx
+                     else vals[0] - vals[-1])
+
+
+class CapturedRx:
+    """The bodies a data plane's ``/kv/transfer`` received, in order."""
+
+    def __init__(self, plane):
+        self.raws, real = [], plane.kv_receiver
+
+        def rx(raw):
+            self.raws.append(raw)
+            return real(raw)
+
+        plane.kv_receiver = rx
+
+    def wire_pages(self, key):
+        """{block index: (page, scales)} of the handoff of ``key`` as it
+        crossed the wire (one blob or stream pieces)."""
+        from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+
+        out = {}
+        for raw in self.raws:
+            if not kh.is_stream_message(raw):
+                h = kh.deserialize_handoff(raw)
+                if (h.request.session_id or h.request.request_id) == key:
+                    for i in range(h.num_blocks):
+                        out[i] = (h.pages[i], None if h.scale_pages is None
+                                  else h.scale_pages[i])
+                continue
+            kind, meta, payload = kh._unpack_stream(raw)
+            if kind != kh._KIND_PIECE or meta.get("key") != key:
+                continue
+            blobs = kh._read_blobs(payload, 2) if meta.get("has_scales") else [payload, None]
+            pages, scales = kh._read_pages(*blobs)
+            for j in range(pages.shape[0]):
+                out[meta["block_lo"] + j] = (pages[j], None if scales is None else scales[j])
+        return out
+
+
+def adopted_equal(torch, b, key, wire):
+    """B's adopted pages and scales for ``key``, read back with
+    ``pull_pages``, bit-identical to the wire's → (blocks compared, ok)."""
+    slot, seq, _ = b._pd_slots[key]
+    blocks = list(b.engine.manager.seq_blocks[seq.seq_id])
+    idx = [i for i in range(len(blocks)) if i in wire]
+    back = b.serving.run_exclusive(lambda: b.engine.pull_pages([blocks[i] for i in idx]))
+    ok = all(same_bits(torch, p, wire[i][0])
+             and (s is None or same_bits(torch, s, wire[i][1]))
+             for i, (p, s) in zip(idx, back))
+    return len(idx), ok and len(idx) > 0
+
+
+def pd_params(text, key, url=None, **over):
+    p = {"pd_stage": "prefill", "prompt": text, "max_new_tokens": PD_TOKENS,
+         "temperature": 0.0, "ignore_eos": True, "kv_cache_key": key,
+         "pd_stream_piece_blocks": PD_PIECE_BLOCKS, **over}
+    if url is not None:
+        p.update(decode_url=url, decode_worker="B", target_worker="A")
+    return p
+
+
+def clear_cached(llm):
+    llm.serving.run_exclusive(llm.engine.manager.clear_cached)
+
+
+def pd_run(a, b, url, text, key, **over):
+    """One request through ``pd_stage: prefill`` on A (pushed to ``url``)
+    and ``pd_stage: decode`` on B → (prefill result, decode result)."""
+    pre = a.inference(pd_params(text, key, url, **over))
+    return pre, b.inference({"pd_stage": "decode", "kv_cache_key": key})
+
+
+def in_turns(n, prefill, decode):
+    """``n`` requests whose prefills run one at a time in order, each on A
+    with no cached block (no prefill takes another's prefix, so its chunks
+    are the same from run to run), then whose decodes all run together
+    (threads), sharing the rounds."""
+    pres = [prefill(i) for i in range(n)]
+    errors = []
+
+    def one(i):
+        try:
+            decode(i, pres[i])
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errors.append(exc)
+
+    ths = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+    if errors or any(th.is_alive() for th in ths):
+        raise AssertionError(f"[pd] decodes failed: {errors}")
+
+
+def timed_ms(torch, fn, n=PD_SAMPLES):
+    """Median of ``n`` calls: CUDA events around the call on the card,
+    the host clock otherwise."""
+    out = []
+    for _ in range(n):
+        if torch.cuda.is_available():
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            out.append(t0.elapsed_time(t1))
+        else:
+            s = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - s) * 1e3)
+    return float(np.median(out))
+
+
+def pd_times(torch, a, b, tag, text, smi):
+    """Phase 16's information times for one request of ``text``: handoff
+    bytes, export (gather + D2H) and adopt (H2D + ``index_copy_``) against
+    PCIe Gen5 x16, serialize / push / deserialize over loopback, and the
+    device-path migrate against two HBM passes."""
+    from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer, post_bytes
+    from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+    from distributed_gpu_inference_torch.worker.engines.base import GenerationConfig
+
+    params = pd_params(text, "t")
+    req = a._pd_request(params, GenerationConfig.from_params(params))
+    clear_cached(a)
+    ea, eb = a.engine, b.engine
+    slot = a.serving.run_exclusive(lambda: ea.submit(req))
+    try:
+        blocks = list(ea.manager.seq_blocks[ea.slots[slot].seq_id])
+        h = a.serving.run_exclusive(lambda: kh.export_slot_kv(ea, slot))
+        nbytes = h.nbytes + (0 if h.scale_pages is None else
+                             h.scale_pages.numel() * h.scale_pages.element_size())
+        export_ms = a.serving.run_exclusive(lambda: timed_ms(torch, lambda: ea.gather_pages(blocks)))
+        free = list(eb.manager.free_list)[-len(blocks):]
+        pages = [h.pages[i] for i in range(len(blocks))]
+        scales = [None if h.scale_pages is None else h.scale_pages[i] for i in range(len(blocks))]
+        adopt_ms = b.serving.run_exclusive(
+            lambda: timed_ms(torch, lambda: eb.push_pages(free, pages, scales)))
+        t0 = time.perf_counter()
+        raw = kh.serialize_handoff(h)
+        ser_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        kh.deserialize_handoff(raw)
+        de_ms = (time.perf_counter() - t0) * 1e3
+        null = DataPlaneServer(kv_receiver=lambda body: {"n": len(body)})
+        null.start()
+        try:
+            push_ms = timed_ms(torch, lambda: post_bytes(null.url + "/kv/transfer", raw, 120.0),
+                               n=3)
+        finally:
+            null.stop()
+
+        def migrate():
+            d = kh.migrate_kv_device(ea, eb, slot)
+            eb.finish_slot(d, cache=False)
+
+        mig_ms = b.serving.run_exclusive(lambda: timed_ms(torch, migrate))
+    finally:
+        a.serving.run_exclusive(lambda: ea.finish_slot(slot, cache=False))
+    pcie = nbytes / PCIE_BYTES * 1e3
+    hbm = 2 * nbytes / PEAK_HBM_BYTES * 1e3
+    print(f"[pd] {tag} times (information) for one {len(req.prompt_token_ids)}-token request: "
+          f"{nbytes} B of pages+scales ({len(raw)} B on the wire, one blob); export (gather + "
+          f"D2H) {export_ms:.3f} ms and adopt (H2D + index_copy_) {adopt_ms:.3f} ms against "
+          f"bytes / 64 GB/s = {pcie:.3f} ms; serialize {ser_ms:.2f} ms, push over loopback "
+          f"{push_ms:.2f} ms, deserialize {de_ms:.2f} ms; device-path migrate_kv_device "
+          f"{mig_ms:.3f} ms against 2 x bytes / 3.35 TB/s = {hbm:.4f} ms ({smi})", flush=True)
+
+
+def pd_worker_check(torch, a, text, smi, model, quantization):
+    """Check (f): worker B through ``cli.cmd_start`` with ``role: decode``
+    and a ``pd_data_plane_url`` against :class:`StandInPlane` (the worker's
+    own engine geometry, the default bf16 KV pool)."""
+    import socket
+    import tempfile
+
+    from distributed_gpu_inference_torch.testing import faults
+
+    plane = StandInPlane()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_pd_")
+    th = wb = None
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        url = f"http://127.0.0.1:{port}"
+        path = f"{tmp.name}/worker.json"
+        with open(path, "w") as f:
+            json.dump({"name": "chip-smoke-decode", "server": {"url": plane.url},
+                       "role": "decode", "pd_data_plane_url": url,
+                       "engines": {"llm": {"model": model, "quantization": quantization}},
+                       "poll_interval_s": 0.05, "heartbeat_interval_s": 0.5}, f)
+        th, wb = start_cli_worker(path)
+        reg = plane.registrations[-1]
+        key = "pd-worker"
+        pre = a.inference(pd_params(text, key, url, decode_worker=wb.api.worker_id,
+                                    target_worker="A"))
+        # the decode stage as server/pd_flow.py writes it, as a polled job
+        params = {k: v for k, v in pd_params(text, key, url).items()
+                  if k not in ("pd_stage", "target_worker", "prompt", "prompt_token_ids",
+                               "messages", "decode_url")}
+        params.update({"pd_stage": "decode", "target_worker": wb.api.worker_id,
+                       "kv_cache_key": key, "pd_prefill_result": {
+                           k: pre.get(k) for k in ("first_token", "ttft_ms", "migration_bytes",
+                                                   "migration_ms")}})
+        jid = plane.queue_job(params)
+        done = wait_until(lambda: plane.job(jid)["status"] in ("completed", "failed"), 300)
+        job = plane.job(jid)
+        # a streamed push that loses every piece: A aborts, B counts it
+        plan = faults.FaultPlan(0, [faults.FaultRule(site="worker.pd.push", kind="flap",
+                                                     times=None, match={"kind": "piece"})])
+        with faults.active(plan):
+            try:
+                a.inference(pd_params(text, "pd-worker-lost", url,
+                                      decode_worker=wb.api.worker_id, target_worker="A"))
+                lost = False
+            except Exception:  # noqa: BLE001 — the push must fail
+                lost = True
+        beat = wait_until(lambda: any(
+            (h.get("engine_stats") or {}).get("pd", {}).get("rx_aborts")
+            for h in plane.heartbeats if h["worker"] == wb.api.worker_id), 30)
+        pd_block = next((h["engine_stats"]["pd"] for h in reversed(plane.heartbeats)
+                         if h["worker"] == wb.api.worker_id
+                         and "pd" in (h.get("engine_stats") or {})), None)
+        ids = (job.get("result") or {}).get("token_ids") or []
+        vocab = a.engine.model_cfg.vocab_size
+        good = (len(ids) == PD_TOKENS and ids[0] == pre["first_token"]
+                and all(0 <= t < vocab for t in ids))
+        print(f"[pd] (f) worker B through cmd_start: registered with role "
+              f"{reg.get('role')!r} and data_plane_url {reg.get('data_plane_url')!r}; A pushed "
+              f"{pre['migration_bytes']} B to its data plane; the decode-stage job (pd_flow's "
+              f"params) polled and {job['status']} with {len(ids)} tokens in vocabulary, the "
+              f"first A's: {good}; a push losing every piece failed on A ({lost}) and B's "
+              f"heartbeat pd block {pd_block} ({smi})", flush=True)
+        if not (done and job["status"] == "completed" and good and lost and beat
+                and reg.get("role") == "decode" and reg.get("data_plane_url") == url
+                and pre["local"] is False):
+            raise AssertionError(f"[pd] (f) failed: {job}")
+        wb.request_shutdown()
+        th.join(timeout=300)
+        if th.is_alive() or plane.rejected:
+            raise AssertionError(f"[pd] (f) worker B did not stop cleanly: {plane.rejected}")
+    finally:
+        if th is not None and th.is_alive():
+            wb.request_shutdown()
+            th.join(timeout=120)
+        plane.stop()
+        tmp.cleanup()
+
+
+def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
+             quantization="int8", device="cuda", worker=False, mismatch=False):
+    """Phase 16 for one KV pool on a loaded prefill-side engine A (see the
+    module docstring); ``hybrid`` = (A's own greedy ids by prompt ids, the
+    payloads of that run). Loads and unloads engine B. Raises on any
+    failed check."""
+    from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
+    from distributed_gpu_inference_torch.testing import faults
+    from distributed_gpu_inference_torch.utils.data_structures import (
+        InferenceRequest,
+        SamplingParams,
+    )
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    tag = f"{kv or 'bf16'} pools"
+    t_phase = time.perf_counter()
+    hyb_ids, hyb_payloads = hybrid
+    a.engine.cfg.prefill_buckets = PD_BUCKETS
+    b = TorchLLMEngine(pd_engine_config(model, quantization, kv, device))
+    b.load_model()
+    tok = a.tokenizer
+    planes, split = [], None
+    try:
+        b_plane = DataPlaneServer(kv_receiver=b.kv_receiver, kv_exporter=b.kv_export)
+        a_plane = DataPlaneServer(kv_receiver=a.kv_receiver, kv_exporter=a.kv_export)
+        for p in (b_plane, a_plane):
+            p.start()
+            planes.append(p)
+        cap = CapturedRx(b_plane)
+        url = b_plane.url
+        names = {a.serving.run_exclusive(threading.get_ident): "A",
+                 b.serving.run_exclusive(threading.get_ident): "B"}
+        pa.reset_launch_counts()
+        split = ThreadSplit(names)
+
+        # ---- (a) one request, one-shot and streamed, against A alone
+        text = prompts[-1]
+        n_tok = len(tok.encode(text))
+        clear_cached(a)
+        a.inference(pd_params(text, "pd-alone"))
+        alone = a.inference({"pd_stage": "decode", "kv_cache_key": "pd-alone"})["token_ids"]
+        results = {}
+        for mode, stream in (("one-shot", False), ("streamed", True)):
+            clear_cached(a)
+            clear_cached(b)
+            key = f"pd-a-{mode}"
+            pre = a.inference(pd_params(text, key, url, pd_stream=stream))
+            n_blocks, same = adopted_equal(torch, b, key, cap.wire_pages(key))
+            dec = b.inference({"pd_stage": "decode", "kv_cache_key": key})
+            results[mode] = (pre, dec)
+            print(f"[pd] {tag} (a) {mode}: {n_tok}-token prompt, {pre['migration_bytes']} B "
+                  f"pushed ({pre.get('pieces', 1)} message(s) of pages, "
+                  f"{pre.get('bytes_before_first_token', 0)} B before the first token); B's "
+                  f"{n_blocks} adopted pages and scales read back bit-identical to the wire: "
+                  f"{same}; greedy ids equal to A alone: {dec['token_ids'] == alone}", flush=True)
+            if not same or dec["token_ids"] != alone or pre["local"] is not False:
+                raise AssertionError(f"[pd] {tag} (a) {mode}: {dec['token_ids']} vs {alone}")
+
+        # ---- (b) the 8 serving prompts, PD and streamed, decoding together on B;
+        # first A's hybrid run of them, traced: A prefills each (the single-row
+        # chunks a PD prefill runs) and decodes all 8 together in its rounds
+        clear_cached(a)
+        hyb_trace = SampleTrace(torch, [a.engine], "pd-h-")
+        hyb_rows = [None] * len(prompts)
+
+        def local_prefill(i):
+            clear_cached(a)
+            return a.inference(pd_params(prompts[i], f"pd-h-{i}"))
+
+        hyb_ttft = [None] * len(prompts)
+
+        def local_decode(i, pre):
+            hyb_ttft[i] = pre["ttft_ms"]
+            hyb_rows[i] = a.inference({"pd_stage": "decode",
+                                       "kv_cache_key": f"pd-h-{i}"})["token_ids"]
+
+        try:
+            in_turns(len(prompts), local_prefill, local_decode)
+        finally:
+            hyb_trace.close()
+        if any(r is None for r in hyb_rows):
+            raise AssertionError(f"[pd] {tag} (b): A's hybrid run did not finish")
+        ttft = {}
+        for mode, stream in (("streamed", True), ("one-shot", False)):
+            clear_cached(a)
+            clear_cached(b)
+            peak = [0]
+            real = b.engine.decode_multi
+
+            def decode_multi(*args, _real=real, **kw):
+                peak[0] = max(peak[0], b.engine.num_active)
+                return _real(*args, **kw)
+
+            b.engine.decode_multi = decode_multi
+            trace = SampleTrace(torch, [a.engine, b.engine], f"pd-b-{mode}-")
+            out = [None] * len(prompts)
+
+            def pd_prefill(i, stream=stream):
+                clear_cached(a)
+                return a.inference(pd_params(prompts[i], f"pd-b-{mode}-{i}", url,
+                                             pd_stream=stream))
+
+            def pd_decode(i, pre):
+                out[i] = (pre, b.inference({"pd_stage": "decode",
+                                            "kv_cache_key": f"pd-b-{mode}-{i}"}))
+
+            try:
+                in_turns(len(prompts), pd_prefill, pd_decode)
+            finally:
+                del b.engine.decode_multi
+                trace.close()
+            if any(o is None for o in out):
+                raise AssertionError(f"[pd] {tag} (b) {mode}: a request did not finish")
+            rows = [(tok.encode(p), o[1]["token_ids"]) for p, o in zip(prompts, out)]
+            ttft[mode] = [o[0]["ttft_ms"] for o in out]
+            # A's hybrid run prefilled each prompt as a one-shot PD prefill
+            # does (one forward over the batch width when the prompt fits a
+            # chunk, single-row chunks beyond), so the one-shot PD streams
+            # and the streamed ones past one chunk must equal it exactly; a
+            # streamed prompt within one chunk prefills as one single-row
+            # chunk, which rounds otherwise: where it parts, both runs'
+            # top-2 are printed with the re-score's, and whether the two
+            # tokens lie within NEAR_TIE in either run's own logits
+            multi = [len(ids) > PD_BUCKETS[-1] for ids, _ in rows]
+            scores = rescore(torch, b.engine, rows) if mode == "streamed" else None
+            parts, unequal = [], []
+            for r, (ids, toks_) in enumerate(rows):
+                want = hyb_rows[r]
+                d = next((k for k, (x, y) in enumerate(zip(toks_, want)) if x != y), None)
+                if d is None:
+                    continue
+                if mode == "one-shot" or multi[r]:
+                    unequal.append((r, d))
+                    continue
+                top_b, short_b = trace.deficit(f"pd-b-{mode}-{r}", len(ids) + d, want[d])
+                top_a, short_a = hyb_trace.deficit(f"pd-h-{r}", len(ids) + d, toks_[d])
+                parts.append(f"request {r} token {d}: PD {toks_[d]} vs hybrid {want[d]}; "
+                             f"PD top-2 {top_b}, the hybrid token {short_b:.4f} below; "
+                             f"hybrid top-2 {top_a}, the PD token {short_a:.4f} below; "
+                             f"within {NEAR_TIE}: {min(short_a, short_b) < NEAR_TIE} "
+                             f"(re-score: top-2 {scores[r][d][0]} / {scores[r][d][1]}, "
+                             f"gap {scores[r][d][2]:.4f})")
+            same = sum(x == y for (_, t), h in zip(rows, hyb_rows) for x, y in zip(t, h))
+            # information: the serving run before this phase admitted the
+            # same prompts together in ragged rounds (other prefill shapes)
+            batched = sum(x == y for (ids, t) in rows
+                          for x, y in zip(t, hyb_ids.get(tuple(ids), [])))
+            line = (f"[pd] {tag} (b) 8 prompts PD {mode}"
+                    + (f" (pieces of {PD_PIECE_BLOCKS} blocks)" if mode == "streamed" else "")
+                    + f", decoding together on B (up to {peak[0]} slots a round): {same}/"
+                    f"{sum(len(t) for _, t in rows)} tokens equal to A's hybrid run, "
+                    f"{sum(multi) if mode == 'streamed' else len(rows)} streams held equal: "
+                    f"{not unequal} {unequal or ''}; {batched} tokens equal to the batched "
+                    f"serving run (information)")
+            if mode == "streamed":
+                bad, ties = greedy_misses(rows, scores)
+                early = [o[0]["bytes_before_first_token"]
+                         for o, m in zip(out, multi) if m]
+                line += (f"; where a one-chunk prompt parts: {parts or 'nowhere'}; re-scored "
+                         f"(information): {len(bad)} tokens not the argmax by {NEAR_TIE} or "
+                         f"more, {len(ties)} near-tie(s); bytes before the first token of the "
+                         f"{len(early)} prompts past one {PD_BUCKETS[-1]}-token chunk: {early}")
+                if not early or not all(x > 0 for x in early):
+                    raise AssertionError(f"[pd] {tag} (b): no bytes before the first token")
+            print(line, flush=True)
+            if unequal or peak[0] < 2:
+                raise AssertionError(f"[pd] {tag} (b) {mode}: streams part from A's hybrid run "
+                                     f"{unequal}, peak {peak[0]}")
+            vocab = a.engine.model_cfg.vocab_size
+            if any(len(t) != PD_TOKENS or not all(0 <= x < vocab for x in t) for _, t in rows):
+                raise AssertionError(f"[pd] {tag} (b) {mode}: bad tokens {rows}")
+        print(f"[pd] {tag} TTFT p50 of the 8 requests prefilled one after another "
+              f"(information): PD "
+              f"streamed {pctl(ttft['streamed'], 0.5):.1f} ms, PD one-shot "
+              f"{pctl(ttft['one-shot'], 0.5):.1f} ms, A hybrid {pctl(hyb_ttft, 0.5):.1f} ms; "
+              f"the batched serving run before the phase (all 8 admitted at once) "
+              f"{pctl([p['ttft_ms'] for p in hyb_payloads], 0.5):.1f} ms ({smi})", flush=True)
+
+        # ---- (c) the device path
+        clear_cached(a)
+        clear_cached(b)
+        req = InferenceRequest(prompt_token_ids=tok.encode(text), sampling=SamplingParams(
+            max_new_tokens=PD_TOKENS, ignore_eos=True), session_id="pd-device")
+        ea, eb = a.engine, b.engine
+        slot = a.serving.run_exclusive(lambda: ea.submit(req))
+        src_blocks = list(ea.manager.seq_blocks[ea.slots[slot].seq_id])
+        dslot = b.serving.run_exclusive(lambda: kh.migrate_kv_device(ea, eb, slot))
+        dst_blocks = list(eb.manager.seq_blocks[eb.slots[dslot].seq_id])
+        raw = lambda t: t.contiguous().view(torch.uint8)  # noqa: E731
+        pages_same = all(torch.equal(raw(ea.kv[k][:, src_blocks]), raw(eb.kv[k][:, dst_blocks]))
+                         for k in ea.kv)
+        a.serving.run_exclusive(lambda: ea.finish_slot(slot, cache=False))
+        moved = b.serving.adopt_slot(dslot).token_ids
+        # one-layer engines of the same model name: another KV dtype on the
+        # card, the same KV dtype on the CPU (skipped when A is on the CPU)
+        refused = []
+        small = get_model_config(model, num_layers=1, vocab_size=256)
+        cases = [("KV dtype", "int8" if kv is None else None, device)]
+        if device != "cpu":
+            cases.append(("device", kv, "cpu"))
+        for what, eng_kv, dev in cases:
+            other = TorchEngine(small, EngineConfig(max_batch_size=1, max_seq_len=MAX_SEQ,
+                                                    num_blocks=64, kv_cache_dtype=eng_kv),
+                                seed=0, device=dev)
+            slot = a.serving.run_exclusive(lambda: ea.submit(req))
+            try:
+                a.serving.run_exclusive(lambda: kh.migrate_kv_device(ea, other, slot))
+                refused.append(False)
+            except ValueError as exc:
+                refused.append(("kv_cache_dtype" in str(exc)) == (what == "KV dtype"))
+            finally:
+                a.serving.run_exclusive(lambda: ea.finish_slot(slot, cache=False))
+            del other
+        print(f"[pd] {tag} (c) migrate_kv_device A -> B on one card: pages and scales "
+              f"bit-identical: {pages_same}; continued on B equal to A alone: "
+              f"{moved == alone}; refused a different KV dtype and a CPU engine: {refused}",
+              flush=True)
+        if not (pages_same and moved == alone and refused and all(refused)):
+            raise AssertionError(f"[pd] {tag} (c) failed")
+
+        # ---- (d) cluster KV migration: B pulls a hot prefix from A's /kv/export
+        shared = prompts[3][:128]
+        t_hot = shared + spill_text(7, 300)
+        t_cold = shared + spill_text(8, 300)
+        clear_cached(b)
+        b.inference({"prompt": shared + "x" * 40, "max_new_tokens": 1, "ignore_eos": True})
+        for t_ in (t_hot, t_cold):
+            a.inference({"prompt": t_, "max_new_tokens": 1, "ignore_eos": True})
+        ids = tok.encode(t_hot)
+        n_full = len(ids) // BK
+        local = len(eb.manager.radix.match_prefix(ids))
+        st = b.kv_migrate_stats
+        before = dict(st)
+        t0 = time.perf_counter()
+        out = b.inference({"prompt": t_hot, "max_new_tokens": 1, "ignore_eos": True,
+                           "kv_migrate_from": {"data_plane_url": a_plane.url,
+                                               "worker_id": "A", "tier": "dev"}})
+        pull_wall = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        b.inference({"prompt": t_cold, "max_new_tokens": 1, "ignore_eos": True})
+        cold_wall = (time.perf_counter() - t0) * 1e3
+        shipped = st["pull_blocks"] - before["pull_blocks"]
+        a_blocks = ea.manager.radix.match_prefix(ids)
+        b_blocks = eb.manager.radix.match_prefix(ids)
+        pulled_same = len(a_blocks) == len(b_blocks) == n_full and all(
+            torch.equal(raw(ea.kv[k][:, a_blocks[local:]]), raw(eb.kv[k][:, b_blocks[local:]]))
+            for k in ea.kv)
+        print(f"[pd] {tag} (d) B held {local} of the {n_full} full blocks and pulled the rest "
+              f"from A's /kv/export: pulled {st['pulled'] - before['pulled']}, "
+              f"{shipped} blocks shipped, {st['pull_bytes'] - before['pull_bytes']} B; pulled "
+              f"pages bit-identical to A's: {pulled_same}; served with "
+              f"{out['usage']['cached_tokens']} tokens cached; wall to the first token "
+              f"(information): with the pull {pull_wall:.1f} ms, recomputed {cold_wall:.1f} ms "
+              f"({smi})", flush=True)
+        if not (st["pulled"] == before["pulled"] + 1 and shipped == n_full - local
+                and pulled_same and out["usage"]["cached_tokens"] >= (n_full - 1) * BK):
+            raise AssertionError(f"[pd] {tag} (d) failed: {st}")
+
+        # ---- (e) faults through a port fault plan
+        def blocks_free():
+            return b.serving.run_exclusive(lambda: eb.manager.num_reclaimable)
+
+        free0 = blocks_free()
+        rx0 = dict(b._handoff_rx.stats)
+        aborted0 = a.pd_stats["handoffs_aborted"]
+        plan = faults.FaultPlan(0, [faults.FaultRule(site="kv.receiver.message",
+                                                     kind="truncate", cut=64, after=1,
+                                                     times=1)])
+        with faults.active(plan):
+            try:
+                a.inference(pd_params(prompts[5], "pd-e-corrupt", url))
+                corrupt_failed = False
+            except Exception:  # noqa: BLE001 — the handoff must fail
+                corrupt_failed = True
+        corrupt_ok = (corrupt_failed and blocks_free() == free0 and not b._handoff_rx._sessions
+                      and a.pd_stats["handoffs_aborted"] == aborted0 + 1)
+        retries0 = a.pd_stats["piece_retries"]
+        plan = faults.FaultPlan(0, [faults.FaultRule(site="worker.pd.push", kind="drop",
+                                                     times=1, match={"kind": "piece"})])
+        with faults.active(plan):
+            pre, dec = pd_run(a, b, url, prompts[5], "pd-e-blip")
+        blip_ok = (a.pd_stats["piece_retries"] == retries0 + 1
+                   and len(dec["token_ids"]) == PD_TOKENS)
+        plan = faults.FaultPlan(0, [faults.FaultRule(site="worker.pd.push", kind="error",
+                                                     status=409, times=1,
+                                                     match={"kind": "begin"})])
+        free1 = blocks_free()
+        with faults.active(plan):
+            try:
+                a.inference(pd_params(prompts[5], "pd-e-4xx", url))
+                rejected = False
+            except Exception as exc:  # noqa: BLE001
+                rejected = "409" in str(exc)
+        reject_ok = (rejected and a.pd_stats["piece_retries"] == retries0 + 1
+                     and blocks_free() == free1)
+        print(f"[pd] {tag} (e) a piece truncated at kv.receiver.message aborted the session "
+              f"(B's reclaimable blocks {free0} -> {blocks_free()}, receiver stats "
+              f"{ {k: v - rx0.get(k, 0) for k, v in b._handoff_rx.stats.items() if v != rx0.get(k, 0)} }): "
+              f"{corrupt_ok}; a dropped piece push retried (piece_retries +"
+              f"{a.pd_stats['piece_retries'] - retries0}) and the request completed: "
+              f"{blip_ok}; an injected 409 on the begin failed the push with no retry: "
+              f"{reject_ok}", flush=True)
+        if not (corrupt_ok and blip_ok and reject_ok):
+            raise AssertionError(f"[pd] {tag} (e) failed")
+
+        # ---- (f) the worker roles
+        if worker:
+            pd_worker_check(torch, a, text, smi, model, quantization)
+
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        sa, sb = split.of("A"), split.of("B")
+        split.close()
+        split = None
+        print(f"[pd] {tag} kernel launches over the phase: {counts}; by engine (attention "
+              f"wrapper calls, qmm kernel launches): A {sa}, B {sb} (B's ragged calls are its "
+              f"admission rounds: (d)'s serving)", flush=True)
+        check_counts(f"pd {tag}", counts, qmm=quantization is not None)
+        # qmm's kernel launches only on the card (its plain version on the CPU)
+        if not (sa["ragged_paged_attention"] > 0 and sb["paged_decode_attention_fused"] > 0
+                and (quantization is None or device == "cpu"
+                     or (sa["qmm_w8a16"] > 0 and sb["qmm_w8a16"] > 0))):
+            raise AssertionError(f"[pd] {tag}: an engine's kernels did not run: A {sa} B {sb}")
+        pd_times(torch, a, b, tag, text, smi)
+        print(f"[pd] {tag} phase ran in {time.perf_counter() - t_phase:.1f} s ({smi})",
+              flush=True)
+    finally:
+        if split is not None:
+            split.close()
+        for p in planes:
+            p.stop()
+        b.unload()
+        del b
+
+
 def main() -> int:
     import torch
 
@@ -2963,6 +3685,21 @@ def main() -> int:
 
     # ---- 11. the direct server on the int8 engine
     direct_server_phase(torch, pa, llm, prompts, smi)
+
+    # ---- 16. PD disaggregation, int8 pools: phase 7's engine is A
+    pd_phase(torch, pa, smi, llm, prompts, (i8_tokens, payloads), "int8")
+    llm.unload()
+    del llm
+    torch.cuda.empty_cache()
+
+    # ---- 16. PD disaggregation, bf16 pools (int8 weights), and the worker roles
+    t0 = time.perf_counter()
+    llm = TorchLLMEngine(pd_engine_config("llama3-8b", "int8", None, "cuda"))
+    llm.load_model()
+    print(f"[pd] A for the bf16 pools (llama3-8b, int8 weights, seed 0) loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pd_tokens, pd_payloads, *_ = serve(torch, pa, llm, prompts, shared)
+    pd_phase(torch, pa, smi, llm, prompts, (pd_tokens, pd_payloads), None, worker=True)
     llm.unload()
     del llm
     torch.cuda.empty_cache()

@@ -2,8 +2,7 @@
 
 The port's own copy of ``distributed_gpu_inference_tpu/runtime/batcher.py``
 (``BatcherConfig``, ``split_prefill_budget``, ``ContinuousBatcher`` and
-``BatcherServing``) over :class:`~distributed_gpu_inference_torch.runtime.engine.TorchEngine`,
-with the prefill/decode hand-off hooks left out:
+``BatcherServing``) over :class:`~distributed_gpu_inference_torch.runtime.engine.TorchEngine`:
 
 - requests are admitted into fixed engine **slots** and every round runs
   one forward over all slots (a request joins/leaves the batch between
@@ -25,6 +24,12 @@ with the prefill/decode hand-off hooks left out:
   dispatch per loop iteration interleaved with the paged rounds; an engine
   that speculates itself (``EngineConfig.speculative``) needs nothing here
   — its rounds are verify rounds.
+
+- the prefill/decode hand-off hooks: ``adopt_slot`` drives a slot that
+  arrived through a KV handoff in the shared rounds (preemptible and
+  resumable like a submitted one), and ``BatcherServing.run_exclusive``
+  runs out-of-band engine work (PD prefill and export, adoption) between
+  rounds.
 
 Engine calls execute on a single dedicated thread (the engine is not
 thread-safe); the asyncio side only schedules and resolves futures.
@@ -314,6 +319,7 @@ class ContinuousBatcher:
             "preempted_too_often": 0,
             "cancelled": 0, "migrated": 0,
             "abandoned": 0, "abandoned_predictive": 0,
+            "adopted": 0,
         }
 
     @property
@@ -570,6 +576,46 @@ class ContinuousBatcher:
                 # elapsed — the request was (or may still be) running
                 error_code="request_timeout",
             )
+
+    async def adopt_slot(self, slot: int,
+                         request: Optional[InferenceRequest] = None,
+                         flight: Optional[Any] = None) -> InferenceResponse:
+        """Drive an ALREADY-ADMITTED engine slot (the PD decode stage: the
+        sequence arrived through a KV handoff, not through submit) inside
+        the shared rounds and await its completion. The slot joins the
+        batch as a submitted request does: it can be preempted, resumed and
+        counted. A sequence that already finished (it decoded in earlier
+        rounds while awaiting its claim) resolves at once."""
+        if self._stopping:
+            # a stop() between the caller's active check and this coroutine
+            # would leave the item with no run task to resolve it
+            raise RuntimeError("batcher is stopping")
+        s = self.engine.slots[slot]
+        if s is None:
+            raise ValueError(f"slot {slot} is empty")
+        self.stats["adopted"] += 1
+        loop = asyncio.get_running_loop()
+        if s.finish_reason is not None:
+            resp = await loop.run_in_executor(self._exec, self.engine.finish_slot, slot)
+            if flight is not None:
+                flight.note("batcher.adopted", slot=slot)
+                flight.note("batcher.completed", finish_reason=resp.finish_reason,
+                            tokens=resp.completion_tokens)
+            return resp
+        req = request or s.request
+        fut: "asyncio.Future[InferenceResponse]" = loop.create_future()
+        item = _QueueItem(
+            sort_key=(-req.priority, req.deadline_at, req.arrival_time,
+                      next(self._seq)),
+            request=req,
+            future=fut,
+            flight=flight,
+        )
+        self._note(item, "batcher.adopted", slot=slot)
+        self._slot_items[slot] = item
+        self._admit_stamp[slot] = next(self._stamp)
+        self._wake.set()
+        return await fut
 
     def start(self) -> None:
         if self._run_task is None:
@@ -1808,6 +1854,26 @@ class BatcherServing:
                timeout_s: Optional[float] = None,
                **hooks: Any) -> InferenceResponse:
         return self.submit_async(request, timeout_s, **hooks).result()
+
+    def adopt_slot(self, slot: int,
+                   request: Optional[InferenceRequest] = None,
+                   flight: Optional[Any] = None) -> InferenceResponse:
+        """Blocking :meth:`ContinuousBatcher.adopt_slot` from any thread."""
+        assert self.batcher is not None and self._loop is not None
+        if self._stopped or not self._thread.is_alive():
+            raise RuntimeError("batcher serving is stopped")
+        return asyncio.run_coroutine_threadsafe(
+            self.batcher.adopt_slot(slot, request, flight=flight), self._loop
+        ).result()
+
+    def run_exclusive(self, fn: Callable[..., Any], *args: Any, **kw: Any) -> Any:
+        """Run ``fn`` on the batcher's engine-executor thread and return its
+        result. Every engine call the batcher makes runs on that one thread,
+        so this serializes out-of-band engine work (PD prefill and export,
+        handoff adoption, releases) with the rounds: it runs between them,
+        and no other thread touches the device."""
+        assert self.batcher is not None
+        return self.batcher._exec.submit(fn, *args, **kw).result()
 
     def reconfigure(self, **updates: Any) -> None:
         """Thread-safe config push: applied on the loop thread between

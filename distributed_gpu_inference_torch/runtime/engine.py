@@ -324,6 +324,25 @@ class PreemptedSequence:
         )
 
 
+@dataclass
+class HostPages:
+    """A batched gather of KV pages on the host (:meth:`TorchEngine.gather_pages`):
+    ``pages`` ``[n, L, 2, Hkv, Bk, D]`` in the pool's dtype (K and V on
+    axis 2, the handoff wire's layout), ``scales`` ``[n, L, 2, Bk]`` bf16
+    for an int8 pool. Pinned when the pools are on a card; ``ready`` is the
+    CUDA event of the copies while they may still run."""
+
+    pages: torch.Tensor
+    scales: Optional[torch.Tensor] = None
+    ready: Optional[Any] = None
+
+    def wait(self) -> "HostPages":
+        if self.ready is not None:
+            self.ready.synchronize()
+            self.ready = None
+        return self
+
+
 def resolve_device(device: Any = "cuda") -> torch.device:
     """The engine's device: CUDA unless the caller asks for the CPU. A CUDA
     request on a machine without CUDA raises — the engine never carries on
@@ -567,36 +586,42 @@ class TorchEngine:
         return torch.empty((n, nbytes), dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
 
+    def gather_pages(self, bids: Sequence[int], wait: bool = True) -> "HostPages":
+        """The pages (and int8 scales) of ``bids`` on the host as one block
+        each: one gather per pool on the device, one device-to-host copy
+        into pinned staging. ``wait=False`` leaves the copies enqueued on
+        the engine's stream behind a CUDA event (:meth:`HostPages.wait`
+        before reading); the default waits on that event only, not on the
+        whole stream."""
+        idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
+
+        def to_host(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+            dev = torch.stack((a.index_select(1, idx), b.index_select(1, idx)),
+                              dim=2).movedim(1, 0).contiguous()
+            if self.device.type != "cuda":
+                return dev
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            return host
+
+        out = HostPages(to_host(self.kv["k"], self.kv["v"]),
+                        to_host(self.kv["k_scale"], self.kv["v_scale"])
+                        if "k_scale" in self.kv else None)
+        if self.device.type == "cuda":
+            out.ready = torch.cuda.Event()
+            out.ready.record(torch.cuda.current_stream(self.device))
+        return out.wait() if wait else out
+
     def pull_pages(self, bids: Sequence[int]
                    ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
         """The pages (and int8 scales) of ``bids`` as pageable host tensors
-        in the port's layout: one gather over the pools on the device, one
-        device-to-host copy into pinned staging, one synchronisation, then
-        one host copy per page (the L2 tier keeps them; pinning every entry
+        in the port's layout, one per block: :meth:`gather_pages`, then one
+        host copy per page (the L2 tier keeps them; pinning every entry
         would pin gigabytes)."""
-        shape, pbytes, sshape, sbytes = self._page_layout()
-        idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
-        n = len(bids)
-        parts = [torch.stack((self.kv["k"].index_select(1, idx),
-                              self.kv["v"].index_select(1, idx)), dim=2)
-                 .movedim(1, 0).reshape(n, -1).view(torch.uint8)]
-        if sshape is not None:
-            parts.append(torch.stack((self.kv["k_scale"].index_select(1, idx),
-                                      self.kv["v_scale"].index_select(1, idx)), dim=2)
-                         .movedim(1, 0).reshape(n, -1).view(torch.uint8))
-        dev = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
-        host = self._staging(n, pbytes + sbytes)
-        host.copy_(dev, non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        out = []
-        for i in range(n):
-            page = host[i, :pbytes].clone().view(self.kv["k"].dtype).reshape(shape)
-            scale = None
-            if sshape is not None:
-                scale = host[i, pbytes:].clone().view(torch.bfloat16).reshape(sshape)
-            out.append((page, scale))
-        return out
+        block = self.gather_pages(bids)
+        return [(block.pages[i].clone(),
+                 None if block.scales is None else block.scales[i].clone())
+                for i in range(len(bids))]
 
     def push_pages(self, bids: Sequence[int], pages: Sequence[torch.Tensor],
                    scales: Sequence[Optional[torch.Tensor]]) -> None:

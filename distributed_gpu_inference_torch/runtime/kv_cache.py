@@ -75,10 +75,25 @@ def _pack_spill(page: torch.Tensor, scale_page: Optional[torch.Tensor]) -> bytes
     pb = serialization.serialize(page)
     body = len(pb).to_bytes(8, "little") + pb
     if scale_page is not None:
-        d = page.shape[-1]
-        body += serialization.serialize(
-            scale_page[..., None].expand(*scale_page.shape, d))
+        body += serialization.serialize(expand_scales(scale_page, page.shape[-1]))
     return _SPILL_MAGIC + zlib.crc32(body).to_bytes(4, "little") + body
+
+
+def expand_scales(scales: torch.Tensor, d: int) -> torch.Tensor:
+    """Compact int8 scales ``[..., Bk]`` → the JAX layout ``[..., Bk, D]``
+    (every lane of a token carries its one scale), a broadcast view."""
+    return scales[..., None].expand(*scales.shape, d)
+
+
+def compact_scales(wide: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`expand_scales` for a wire tensor of either
+    package: ``[..., Bk, D]`` → ``[..., Bk]``, after checking that every
+    lane of each token carries the same scale (bit for bit). Raises
+    ``ValueError`` otherwise."""
+    words = wide.view(torch.int16) if wide.element_size() == 2 else wide
+    if not bool((words == words[..., :1]).all()):
+        raise ValueError("int8 KV scales: the lanes of a token differ")
+    return wide[..., 0].contiguous()
 
 
 def _unpack_spill(raw: bytes) -> SpillEntry:
@@ -111,11 +126,7 @@ def _unpack_spill(raw: bytes) -> SpillEntry:
     page = serialization.deserialize(raw[8:8 + n])
     scale = None
     if len(raw) > 8 + n:
-        wide = serialization.deserialize(raw[8 + n:])
-        words = wide.view(torch.int16) if wide.element_size() == 2 else wide
-        if not bool((words == words[..., :1]).all()):
-            raise ValueError("spill entry scales: the lanes of a token differ")
-        scale = wide[..., 0].contiguous()
+        scale = compact_scales(serialization.deserialize(raw[8 + n:]))
     return page, scale
 
 
@@ -826,6 +837,29 @@ class PagedKVCacheManager:
         if released:
             self.seq_window_front[seq_id] = lb
             self.stats.window_released_blocks += len(released)
+        return released
+
+    def seed_window_front(self, seq_id: str, front_blocks: int) -> List[int]:
+        """Replicate a donor's sliding-window release state on an adopted
+        sequence (KV handoff): force-release the leading ``front_blocks``
+        logical blocks — decref/free the physical blocks, pin the chain
+        entries to pad block 0, and record ``seq_window_front`` so
+        ``free_sequence`` keeps the truncated chain out of the radix index.
+        Returns the released logical indices."""
+        blocks = self.seq_blocks[seq_id]
+        released: List[int] = []
+        lb = self.seq_window_front.get(seq_id, 0)
+        while lb < min(front_blocks, len(blocks)):
+            bid = blocks[lb]
+            if bid != 0:
+                meta = self.metas.get(bid)
+                if meta is not None and meta.decref() == 0:
+                    self._deactivate_block(bid)
+            blocks[lb] = 0
+            released.append(lb)
+            lb += 1
+        if lb > self.seq_window_front.get(seq_id, 0):
+            self.seq_window_front[seq_id] = lb
         return released
 
     def free_sequence(self, seq_id: str, cache: bool = True) -> None:

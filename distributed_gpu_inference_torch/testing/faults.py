@@ -18,8 +18,11 @@ Sites in the port: ``worker.api.request`` (:func:`wrap_http`),
 ``worker.direct.request`` (:func:`http_reject`), ``worker.direct.stream``
 (:func:`stream_cut`), ``kv.block.alloc`` (:func:`kv_pressure`),
 ``io.spill.host.get`` / ``.put`` and ``io.file.write`` (:func:`io_fault`),
-``io.spill.remote.get`` / ``.put`` (:func:`io_bytes`) and
-``io.spill.redis.get`` / ``.put`` (:func:`io_fault`).
+``io.spill.remote.get`` / ``.put`` (:func:`io_bytes`),
+``io.spill.redis.get`` / ``.put`` (:func:`io_fault`), and on the KV
+handoff ``kv.receiver.message`` (:func:`mutate_bytes`),
+``io.handoff.stage`` (:func:`io_bytes`), ``worker.pd.push`` and
+``worker.kv.pull`` (:func:`wrap_http`).
 
 =========  =======================================================
 kind       effect at a seam
@@ -282,6 +285,27 @@ def http_reject(site: str, **ctx: Any) -> Optional[int]:
         time.sleep(rule.delay_s)
         return None
     raise ValueError(f"rule kind {rule.kind!r} unsupported at reject seam")
+
+
+def mutate_bytes(site: str, data: bytes, **ctx: Any) -> bytes:
+    """Byte-message seam (the KV handoff receiver): ``truncate`` keeps the
+    first ``cut`` bytes of the message, ``drop``/``flap`` lose it
+    (:class:`FaultInjected`, which the data plane answers like any receive
+    failure), ``delay`` sleeps and passes."""
+    plan = _ACTIVE
+    if plan is None:
+        return data
+    rule = plan.fire(site, size=len(data), **ctx)
+    if rule is None:
+        return data
+    if rule.kind == "truncate":
+        return data[: rule.cut]
+    if rule.kind in ("drop", "flap"):
+        raise FaultInjected(f"fault injected: {rule.kind} at {site}")
+    if rule.kind == "delay":
+        time.sleep(rule.delay_s)
+        return data
+    raise ValueError(f"rule kind {rule.kind!r} unsupported at byte seam")
 
 
 def io_fault(site: str, **ctx: Any) -> None:

@@ -1,9 +1,11 @@
 """Tensor wire framing: the ``TPUT`` frame of the JAX package's
 ``distributed_gpu_inference_tpu/utils/serialization.py`` ``TensorSerializer``.
 
-The port's own copy of ``serialize`` / ``deserialize`` only, for the spill
-tier's remote entries (``runtime/kv_cache.py`` ``_pack_spill``): a remote
-store shared by JAX and PyTorch workers holds frames either package reads.
+The port's own copy of ``serialize`` / ``deserialize`` and of the msgpack
+header codec, for the spill tier's remote entries (``runtime/kv_cache.py``
+``_pack_spill``) and the KV handoff's wire (``runtime/kv_handoff.py``): a
+remote store or a data plane shared by JAX and PyTorch workers carries
+frames either package reads.
 
 Binary layout (little-endian)::
 
@@ -16,9 +18,12 @@ Binary layout (little-endian)::
 
 The card's machine has no ``msgpack``, ``ml_dtypes`` or ``zstandard``, so:
 
-- the two-key header map is encoded and decoded here by hand (a fixmap of
-  two str keys, a str and an array of unsigned ints), byte-identical to
-  ``msgpack.packb(..., use_bin_type=True)`` of the same dict;
+- msgpack is encoded and decoded here by hand (:func:`packb` /
+  :func:`unpackb`, byte-identical to ``msgpack.packb(obj,
+  use_bin_type=True)`` / ``msgpack.unpackb(raw=False)`` for None, bool,
+  int, float, str, bytes, lists and maps): the frame's two-key header here,
+  and the KV handoff's metadata and stream frames in
+  ``runtime/kv_handoff.py``;
 - ``bfloat16`` and ``float8_e4m3fn`` payloads are the raw bits of the torch
   tensor (numpy has neither dtype without ``ml_dtypes``);
 - frames are written uncompressed (flag 0), which the JAX reader accepts.
@@ -73,37 +78,118 @@ def dtype_from_name(name: str) -> torch.dtype:
 
 # ---------------------------------------------------------------- msgpack
 
-def _pack_str(s: str) -> bytes:
-    b = s.encode("utf-8")
-    n = len(b)
-    if n < 32:
-        return bytes([0xA0 | n]) + b
-    if n < 256:
-        return b"\xd9" + bytes([n]) + b
-    return b"\xda" + struct.pack(">H", n) + b
+def _pack_into(out: List[bytes], obj: Any) -> None:
+    """Append the msgpack encoding of ``obj`` — the choices
+    ``msgpack.packb(obj, use_bin_type=True)`` makes: the smallest int
+    encoding (fixints, then 8/16/32/64-bit, unsigned for positive values),
+    floats as float64, str as fixstr / str8 / str16 / str32, bytes as bin,
+    lists and tuples as arrays, dicts as maps in insertion order."""
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True:
+        out.append(b"\xc3")
+    elif obj is False:
+        out.append(b"\xc2")
+    elif isinstance(obj, int):
+        v = int(obj)
+        if 0 <= v < 128:
+            out.append(bytes([v]))
+        elif v > 0:
+            if v < 1 << 8:
+                out.append(b"\xcc" + bytes([v]))
+            elif v < 1 << 16:
+                out.append(b"\xcd" + struct.pack(">H", v))
+            elif v < 1 << 32:
+                out.append(b"\xce" + struct.pack(">I", v))
+            elif v < 1 << 64:
+                out.append(b"\xcf" + struct.pack(">Q", v))
+            else:
+                raise OverflowError(f"int {v} does not fit msgpack")
+        elif v >= -32:
+            out.append(struct.pack(">b", v))
+        elif v >= -(1 << 7):
+            out.append(b"\xd0" + struct.pack(">b", v))
+        elif v >= -(1 << 15):
+            out.append(b"\xd1" + struct.pack(">h", v))
+        elif v >= -(1 << 31):
+            out.append(b"\xd2" + struct.pack(">i", v))
+        elif v >= -(1 << 63):
+            out.append(b"\xd3" + struct.pack(">q", v))
+        else:
+            raise OverflowError(f"int {v} does not fit msgpack")
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        n = len(b)
+        if n < 32:
+            out.append(bytes([0xA0 | n]))
+        elif n < 1 << 8:
+            out.append(b"\xd9" + bytes([n]))
+        elif n < 1 << 16:
+            out.append(b"\xda" + struct.pack(">H", n))
+        else:
+            out.append(b"\xdb" + struct.pack(">I", n))
+        out.append(b)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        b = bytes(obj)
+        n = len(b)
+        if n < 1 << 8:
+            out.append(b"\xc4" + bytes([n]))
+        elif n < 1 << 16:
+            out.append(b"\xc5" + struct.pack(">H", n))
+        else:
+            out.append(b"\xc6" + struct.pack(">I", n))
+        out.append(b)
+    elif isinstance(obj, (list, tuple)):
+        n = len(obj)
+        if n < 16:
+            out.append(bytes([0x90 | n]))
+        elif n < 1 << 16:
+            out.append(b"\xdc" + struct.pack(">H", n))
+        else:
+            out.append(b"\xdd" + struct.pack(">I", n))
+        for x in obj:
+            _pack_into(out, x)
+    elif isinstance(obj, dict):
+        n = len(obj)
+        if n < 16:
+            out.append(bytes([0x80 | n]))
+        elif n < 1 << 16:
+            out.append(b"\xde" + struct.pack(">H", n))
+        else:
+            out.append(b"\xdf" + struct.pack(">I", n))
+        for k, x in obj.items():
+            _pack_into(out, k)
+            _pack_into(out, x)
+    else:
+        raise TypeError(f"cannot msgpack {type(obj).__name__}")
 
 
-def _pack_uint(v: int) -> bytes:
-    if v < 0:
-        raise ValueError(f"negative shape entry {v}")
-    if v < 128:
-        return bytes([v])
-    if v < 1 << 8:
-        return b"\xcc" + bytes([v])
-    if v < 1 << 16:
-        return b"\xcd" + struct.pack(">H", v)
-    if v < 1 << 32:
-        return b"\xce" + struct.pack(">I", v)
-    return b"\xcf" + struct.pack(">Q", v)
+def packb(obj: Any) -> bytes:
+    """``msgpack.packb(obj, use_bin_type=True)``, byte for byte, for None,
+    bool, int, float, str, bytes, lists/tuples and dicts of these."""
+    out: List[bytes] = []
+    _pack_into(out, obj)
+    return b"".join(out)
 
 
 def pack_header(dtype_name: str, shape: Tuple[int, ...]) -> bytes:
     """``msgpack.packb({"dtype": name, "shape": list(shape)},
     use_bin_type=True)``, byte for byte."""
-    n = len(shape)
-    arr = bytes([0x90 | n]) if n < 16 else b"\xdc" + struct.pack(">H", n)
-    return (b"\x82" + _pack_str("dtype") + _pack_str(dtype_name)
-            + _pack_str("shape") + arr + b"".join(_pack_uint(int(d)) for d in shape))
+    if any(int(d) < 0 for d in shape):
+        raise ValueError(f"negative shape entry in {tuple(shape)}")
+    return packb({"dtype": dtype_name, "shape": [int(d) for d in shape]})
+
+
+# fixed-width scalar type bytes → struct format
+_FIXED = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I",
+          0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+# length-prefixed type bytes → (kind, struct format of the length)
+_SIZED = {0xC4: ("bin", ">B"), 0xC5: ("bin", ">H"), 0xC6: ("bin", ">I"),
+          0xD9: ("str", ">B"), 0xDA: ("str", ">H"), 0xDB: ("str", ">I"),
+          0xDC: ("array", ">H"), 0xDD: ("array", ">I"),
+          0xDE: ("map", ">H"), 0xDF: ("map", ">I")}
 
 
 class _Reader:
@@ -112,35 +198,67 @@ class _Reader:
 
     def take(self, n: int) -> bytes:
         if self.i + n > len(self.data):
-            raise ValueError("truncated TPUT header")
+            raise ValueError("truncated msgpack data")
         out = self.data[self.i:self.i + n]
         self.i += n
+        return out
+
+    def _items(self, kind: str, n: int) -> Any:
+        if kind == "array":
+            return [self.obj() for _ in range(n)]
+        out = {}
+        for _ in range(n):
+            k = self.obj()
+            if not isinstance(k, (str, bytes)):
+                raise ValueError(f"msgpack map key of type {type(k).__name__}")
+            out[k] = self.obj()
         return out
 
     def obj(self) -> Any:
         t = self.take(1)[0]
         if t < 0x80:
             return t
-        if 0xA0 <= t <= 0xBF:
+        if t >= 0xE0:
+            return t - 0x100
+        if t <= 0x8F:
+            return self._items("map", t & 0x0F)
+        if t <= 0x9F:
+            return self._items("array", t & 0x0F)
+        if t <= 0xBF:
             return self.take(t & 0x1F).decode("utf-8")
-        if 0x90 <= t <= 0x9F:
-            return [self.obj() for _ in range(t & 0x0F)]
-        if 0x80 <= t <= 0x8F:
-            return {self.obj(): self.obj() for _ in range(t & 0x0F)}
-        if t == 0xD9:
-            return self.take(self.take(1)[0]).decode("utf-8")
-        if t == 0xDA:
-            return self.take(struct.unpack(">H", self.take(2))[0]).decode("utf-8")
-        if t == 0xDC:
-            return [self.obj() for _ in range(struct.unpack(">H", self.take(2))[0])]
-        fmt = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q"}.get(t)
-        if fmt is None:
-            raise ValueError(f"unexpected msgpack type byte {t:#04x} in a TPUT header")
-        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+        if t in (0xC0, 0xC2, 0xC3):
+            return {0xC0: None, 0xC2: False, 0xC3: True}[t]
+        if t in _FIXED:
+            fmt = _FIXED[t]
+            return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+        if t in _SIZED:
+            kind, fmt = _SIZED[t]
+            n = struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+            if kind == "bin":
+                return bytes(self.take(n))
+            if kind == "str":
+                return self.take(n).decode("utf-8")
+            return self._items(kind, n)
+        raise ValueError(f"unsupported msgpack type byte {t:#04x}")
+
+
+def unpackb(data: bytes) -> Any:
+    """``msgpack.unpackb(data, raw=False)`` for what :func:`packb` writes
+    (and float32): arrays come back as lists, maps as dicts. Raises
+    ``ValueError`` for truncated data, trailing bytes or an unsupported
+    type byte."""
+    r = _Reader(bytes(data))
+    out = r.obj()
+    if r.i != len(r.data):
+        raise ValueError(f"{len(r.data) - r.i} trailing bytes after a msgpack object")
+    return out
 
 
 def unpack_header(data: bytes) -> Tuple[str, List[int]]:
-    hdr = _Reader(data).obj()
+    try:
+        hdr = unpackb(data)
+    except ValueError as exc:
+        raise ValueError(f"malformed TPUT header: {exc}") from None
     if not isinstance(hdr, dict) or not isinstance(hdr.get("dtype"), str) \
             or not isinstance(hdr.get("shape"), list):
         raise ValueError(f"malformed TPUT header {hdr!r}")

@@ -52,8 +52,33 @@ The two are mutually exclusive. ``load_model`` refuses, with
 :class:`EngineLoadError` naming the key, what this port does not serve
 rather than ignoring it: ``tokenizer_id`` (needs ``transformers``),
 ``spec_distill_steps`` (draft distillation is training), tensor parallelism
-and the per-step ``serving.mode: direct`` stream loop. Prefill/decode
-hand-off stages are refused per request.
+and the per-step ``serving.mode: direct`` stream loop.
+
+Prefill/decode disaggregation and cluster KV migration
+(``runtime/kv_handoff.py``, the data plane in ``comm/data_plane.py``):
+
+- ``pd_stage: prefill`` prefills, samples the first token and pushes the
+  KV to ``decode_url``'s ``/kv/transfer`` — streamed by default
+  (``pd_stream``, ``pd_stream_piece_blocks``), one blob otherwise — over
+  ``http.client`` with a per-piece timeout (``pd_push_timeout_s``) and a
+  full-jitter retry ladder (``pd_push_retries``, ``pd_push_backoff_s``;
+  no retry on a 4xx); when this worker is also the decode target the slot
+  is retained under the key;
+- ``kv_receiver`` (the data plane's ``/kv/transfer``) adopts pushed KV;
+  ``pd_stage: decode`` drives the adopted slot through
+  ``BatcherServing.adopt_slot``; adoptions never claimed age out after
+  ``pd_slot_ttl_s`` (``pd_maintain``, on the heartbeat cadence);
+- a router ``kv_migrate_from`` hint pulls a hot prefix from a peer's
+  ``/kv/export`` before admission, and ``kv_replicate`` pulls the
+  heartbeat's hints in the background (``kv_migrate``,
+  ``kv_migrate_max_blocks``, ``kv_migrate_pull_timeout_s``,
+  ``kv_migrate_budget``, ``kv_migrate_backoff_s``); ``kv_export`` serves
+  peers' pulls;
+- ``pd_wire_stats`` / ``kv_migrate_wire_stats`` /
+  ``handoff_sessions_purged`` feed the worker's heartbeat blocks.
+
+All engine work of these paths runs on the batcher's executor
+(``run_exclusive``): a data-plane thread never touches the device.
 """
 
 from __future__ import annotations
@@ -61,10 +86,18 @@ from __future__ import annotations
 import asyncio
 import collections
 import queue as _queue_mod
+import random
 import threading
 import time
-from typing import Any, Dict, List, Optional
+import uuid
+from typing import Any, Callable, Dict, List, Optional
 
+from distributed_gpu_inference_torch.comm.data_plane import (
+    TRANSPORT_ERRORS,
+    HTTPPoster,
+    HTTPStatusError,
+    post_bytes,
+)
 from distributed_gpu_inference_torch.runtime.batcher import (
     BatcherConfig,
     BatcherServing,
@@ -81,6 +114,19 @@ from distributed_gpu_inference_torch.runtime.speculative import (
     SpeculativeConfig,
     SpeculativeDecoder,
 )
+from distributed_gpu_inference_torch.runtime.kv_handoff import (
+    HandoffReceiver,
+    StreamedExport,
+    abort_message,
+    export_prefix_frames,
+    export_slot_kv,
+    message_kind,
+    pack_export_request,
+    serialize_handoff,
+    split_frames,
+    unpack_export_request,
+    _frame_blobs,
+)
 from distributed_gpu_inference_torch.runtime.flight import (
     NULL_TIMELINE,
     timeline_for,
@@ -91,6 +137,8 @@ from distributed_gpu_inference_torch.runtime.prefix_summary import (
     PrefixHotSet,
 )
 from distributed_gpu_inference_torch.runtime.redis_kv import remote_store_from_url
+from distributed_gpu_inference_torch.testing import faults as _faults
+from distributed_gpu_inference_torch.utils.backoff import full_jitter_delay
 from distributed_gpu_inference_torch.utils.config import (
     ServingConfig,
     config_dict,
@@ -338,8 +386,9 @@ class TorchLLMEngine(LLMBaseEngine):
     absent), checkpoint_interval_tokens (the stream checkpoint cadence, 0 =
     the admission checkpoint only), prefix_summary_top_n (the radix
     summary's size, 0 = no summary), the ``serving`` knobs of
-    :data:`SERVING_DEFAULTS` (also under ``extra``, which wins), and the
-    worker's ``engine`` and ``extra.tp_size``."""
+    :data:`SERVING_DEFAULTS` (also under ``extra``, which wins), the
+    worker's ``engine`` and ``extra.tp_size``, and the PD and KV-migration
+    keys of the module docstring (``pd_*``, ``kv_migrate*``)."""
 
     task_type = "llm"
     # the caller injects a ``_failover_ctx`` (job or stream key, assignment
@@ -387,6 +436,60 @@ class TorchLLMEngine(LLMBaseEngine):
             "timelines": 0, "events_dropped": 0,
         }
         self._flight_recent: Any = collections.deque(maxlen=8)
+        # PD disaggregation: kv_cache_key → (slot, seq, adopted_at) of an
+        # adopted (or locally retained) sequence awaiting its decode stage;
+        # ``seq`` identity-guards late frees (slot indices recycle) and
+        # ``adopted_at`` drives the pd_slot_ttl_s purge
+        self._pd_slots: Dict[str, tuple] = {}
+        self.pd_slot_ttl_s = float(self.config.get("pd_slot_ttl_s", 180.0) or 180.0)
+        # sender/receiver handoff lifecycle counters (heartbeat "pd")
+        self.pd_stats: Dict[str, int] = {
+            "handoffs_committed": 0,
+            "handoffs_failed": 0,
+            "handoffs_aborted": 0,
+            "handoffs_local": 0,
+            "handoff_bytes": 0,
+            "piece_retries": 0,
+            "adopted_expired": 0,
+        }
+        # per-piece push: timeout and a full-jitter retry ladder
+        self._pd_push_timeout_s = float(self.config.get("pd_push_timeout_s", 30.0) or 30.0)
+        self._pd_push_retries = int(self.config.get("pd_push_retries", 3) or 0)
+        self._pd_push_backoff_s = float(self.config.get("pd_push_backoff_s", 0.2) or 0.2)
+        self._pd_rng = random.Random(0x9D5)
+        # serializes the PD bookkeeping (adoption index, the receiver's
+        # sessions) between the job path and the data plane's threads; the
+        # engine work itself runs on the batcher's executor
+        self._engine_lock = threading.Lock()
+        self._handoff_rx: Optional[HandoffReceiver] = None
+        # cluster KV migration: pull a hot prefix from a peer's /kv/export
+        # instead of re-prefilling, and serve peers' pulls (radix + spill
+        # tiers); whether a request migrates is the router's decision
+        self.kv_migrate_enabled = bool(self.config.get("kv_migrate", True))
+        self._kvmig_max_blocks = int(self.config.get("kv_migrate_max_blocks", 64) or 64)
+        self._kvmig_timeout_s = float(
+            self.config.get("kv_migrate_pull_timeout_s", 20.0) or 20.0)
+        # concurrent pulls beyond the budget recompute instead
+        self._kvmig_budget = int(self.config.get("kv_migrate_budget", 2) or 2)
+        self._kvmig_backoff_s = float(self.config.get("kv_migrate_backoff_s", 1.0) or 1.0)
+        self._kvmig_lock = threading.Lock()
+        self._kvmig_inflight = 0
+        # peer url → (consecutive failures, monotonic deadline)
+        self._kvmig_backoff: Dict[str, tuple] = {}
+        self._kvmig_rng = random.Random(0x5CAF)
+        # cumulative counters (heartbeat "kv_migrate")
+        self.kv_migrate_stats: Dict[str, int] = {
+            "pulled": 0, "fallback_recompute": 0, "aborted": 0,
+            "local_hits": 0,
+            "pull_bytes": 0, "pull_blocks": 0,
+            "exports": 0, "export_bytes": 0,
+            "replicated": 0, "replicate_miss": 0, "replicate_aborted": 0,
+        }
+        # fingerprint → prompt token ids, for fingerprint-keyed exports (a
+        # plane-hinted puller knows only the fingerprint); bounded LRU
+        self._kvmig_fp_tokens: "collections.OrderedDict[str, List[int]]" = \
+            collections.OrderedDict()
+        self._kvmig_fp_cap = 512
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -640,6 +743,8 @@ class TorchLLMEngine(LLMBaseEngine):
         device = self.engine.device if self.engine is not None else None
         self.engine = None
         self._spec = None
+        self._handoff_rx = None
+        self._pd_slots.clear()
         self._prefix_evictions_seen = 0
         super().unload()
         if device is not None and device.type == "cuda":
@@ -696,7 +801,10 @@ class TorchLLMEngine(LLMBaseEngine):
         return token_ids
 
     def _build_request(self, prompt_or_messages: Any,
-                       cfg: GenerationConfig) -> InferenceRequest:
+                       cfg: GenerationConfig,
+                       token_ids: Optional[List[int]] = None) -> InferenceRequest:
+        """``token_ids``: the prompt already encoded (the KV-migration pull
+        encoded these inputs)."""
         if not self.loaded or self.engine is None:
             raise EngineLoadError("engine not loaded")
         hot = self.prefix_hot   # snapshot: the heartbeat thread may
@@ -705,12 +813,26 @@ class TorchLLMEngine(LLMBaseEngine):
             # every built request's prefix is radix-cached on completion:
             # note its boundary fingerprints for the heartbeat summary
             # (advisory; one pass over the prefix)
-            hot.note_fingerprints(prefix_fingerprints(
+            fps = prefix_fingerprints(
                 canonical_prompt_text(prompt_or_messages),
                 hot.block_chars, hot.max_blocks,
-            ))
+            )
+            hot.note_fingerprints(fps)
+            if fps and self.kv_migrate_enabled:
+                if token_ids is None:
+                    token_ids = self._encode_prompt(prompt_or_messages, cfg)
+                # fingerprint-keyed exports resolve each boundary of this
+                # prompt back to its token ids (one shared list)
+                with self._kvmig_lock:
+                    for fp in fps:
+                        self._kvmig_fp_tokens[fp] = token_ids
+                        self._kvmig_fp_tokens.move_to_end(fp)
+                    while len(self._kvmig_fp_tokens) > self._kvmig_fp_cap:
+                        self._kvmig_fp_tokens.popitem(last=False)
+        if token_ids is None:
+            token_ids = self._encode_prompt(prompt_or_messages, cfg)
         return InferenceRequest(
-            prompt_token_ids=self._encode_prompt(prompt_or_messages, cfg),
+            prompt_token_ids=token_ids,
             sampling=self._sampling_from(cfg),
             deadline_s=cfg.deadline_s,
         )
@@ -722,6 +844,7 @@ class TorchLLMEngine(LLMBaseEngine):
         standalone tree decoder)."""
         req = self._build_request(
             params.get("messages") or params.get("prompt") or "", cfg,
+            token_ids=params.pop("_kvmig_token_ids", None),
         )
         if params.get("priority") is not None:
             req.priority = int(params.get("priority") or 0)
@@ -730,11 +853,11 @@ class TorchLLMEngine(LLMBaseEngine):
         return req
 
     def inference(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        if params.get("pd_stage") is not None:
-            raise ServingError(
-                "prefill/decode hand-off stages are not ported yet",
-                error_code="unsupported",
-            )
+        stage = params.get("pd_stage")
+        if stage == "prefill":
+            return self.pd_prefill(params)
+        if stage == "decode":
+            return self.pd_decode(params)
         if self.serving is None or not self.serving.active:
             raise EngineLoadError("engine not loaded")
         # flight recorder: the request's Timeline is minted here and rides
@@ -742,6 +865,11 @@ class TorchLLMEngine(LLMBaseEngine):
         tl = self._flight_timeline(params)
         if tl.enabled:
             params["_flight_tl"] = tl
+        if stage is None:
+            # router-hinted KV migration: pull the hot prefix from the
+            # named peer before admission (never holding the PD lock: the
+            # peer's export serializes on ITS engine)
+            self._maybe_migrate_kv(params)
         ctx = params.get("_failover_ctx")
         if isinstance(ctx, dict):
             return self._job_inference(params, ctx)
@@ -793,6 +921,680 @@ class TorchLLMEngine(LLMBaseEngine):
             finish_reason=finish,
             ttft_ms=ttft_ms if ttft_ms is not None else e2e_s * 1000.0,
         ).to_result_payload()
+
+    # -- prefill/decode disaggregation (the control plane's pd_flow drives these)
+
+    def _exclusive(self, fn: Callable[[], Any]) -> Any:
+        """Run engine work on the batcher's executor thread, between rounds
+        (the port always serves through its batcher)."""
+        if self.engine is None or self.serving is None or not self.serving.active:
+            raise EngineLoadError("engine not loaded")
+        return self.serving.run_exclusive(fn)
+
+    def _pd_push(self, client: Any, url: str, content: bytes) -> Any:
+        """POST one handoff message with a per-piece timeout and a bounded
+        full-jitter retry ladder (``utils/backoff.py``): a transport error
+        or a 5xx retries, a 4xx (the receiver rejected it) raises
+        :class:`HTTPStatusError` at once. Begin and commit are idempotent on
+        the receiver and re-staging a piece is harmless, so every message
+        kind may retry. Retries are counted (``piece_retries``)."""
+        kind = message_kind(content)
+        attempt = 0
+        while True:
+            try:
+                r = _faults.wrap_http(
+                    "worker.pd.push",
+                    lambda: client.post(
+                        url, content=content,
+                        headers={"content-type": "application/octet-stream"},
+                        timeout=self._pd_push_timeout_s,
+                    ),
+                    worker=str(getattr(self, "fault_tag", "") or ""),
+                    kind=kind,
+                )
+                if r.status_code < 400:
+                    return r
+                if r.status_code < 500:
+                    raise HTTPStatusError(r, f"KV push {kind}")
+                last: Exception = RuntimeError(
+                    f"KV push {kind} answered HTTP {r.status_code}: {r.text[:200]}")
+            except TRANSPORT_ERRORS as exc:
+                last = exc
+            if attempt >= self._pd_push_retries:
+                raise last
+            time.sleep(full_jitter_delay(self._pd_push_backoff_s, attempt,
+                                         self._pd_rng) or 0.0)
+            attempt += 1
+            self.pd_stats["piece_retries"] += 1
+
+    def _purge_stale_pd_slots(self) -> None:
+        """Free adopted or retained PD slots whose decode stage never came
+        within ``pd_slot_ttl_s``. Pop-to-claim: ``pd_decode`` pops without
+        the lock, so the dict pop decides who owns the sequence."""
+        if not self._pd_slots:
+            return
+        now = time.monotonic()
+        eng = self.engine
+        for key, (slot, seq, adopted_at) in list(self._pd_slots.items()):
+            if now - adopted_at <= self.pd_slot_ttl_s:
+                continue
+            if self._pd_slots.pop(key, None) is None:
+                continue
+            self.pd_stats["adopted_expired"] += 1
+            if eng is not None:
+                self._release_adopted_slot(eng, slot, seq)
+
+    def pd_maintain(self) -> None:
+        """PD housekeeping on the heartbeat cadence: age out adoptions
+        whose decode stage never came. A busy lock skips this beat."""
+        if not self._pd_slots or self.engine is None:
+            return
+        if not self._engine_lock.acquire(blocking=False):
+            return
+        try:
+            self._purge_stale_pd_slots()
+        finally:
+            self._engine_lock.release()
+
+    def _pd_request(self, params: Dict[str, Any], cfg: GenerationConfig) -> InferenceRequest:
+        prompt = params.get("prompt_token_ids") or params.get("messages") \
+            or params.get("prompt") or ""
+        if isinstance(prompt, list) and prompt and isinstance(prompt[0], int):
+            return InferenceRequest(prompt_token_ids=[int(t) for t in prompt],
+                                    sampling=self._sampling_from(cfg))
+        return self._build_request(prompt, cfg)
+
+    def pd_prefill(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Prefill stage: run the prompt, sample the first token, export
+        the sequence's KV and push it to the decode worker's data plane
+        (``decode_url`` + ``/kv/transfer``) — streamed by default, one
+        blob for sliding-window models or ``pd_stream: false``. When this
+        worker is the decode target (KV affinity) the slot is retained
+        under the key: no bytes move. The push runs outside any engine
+        work, so two workers pushing to each other cannot deadlock."""
+        if not self.loaded or self.engine is None:
+            raise EngineLoadError("engine not loaded")
+        cfg = GenerationConfig.from_params(params)
+        req = self._pd_request(params, cfg)
+        key = params.get("kv_cache_key") or f"pd-{req.request_id}"
+        # the key rides in the handoff so the receiver indexes the slot
+        req.session_id = key
+        tl = self._flight_timeline(params)
+        tl.note("pd.prefill.start", key=key)
+        decode_url = params.get("decode_url")
+        local = not decode_url or params.get("decode_worker") in (
+            None, params.get("target_worker"))
+        stream_ok = (
+            not local
+            and bool(params.get("pd_stream", self.config.get("pd_stream", True)))
+            and self.engine.model_cfg.sliding_window is None
+        )
+        if stream_ok:
+            return self._pd_prefill_streamed(
+                req, key, decode_url,
+                piece_blocks=int(params.get("pd_stream_piece_blocks")
+                                 or self.config.get("pd_stream_piece_blocks", 4)),
+                tl=tl,
+            )
+
+        def _prefill_and_export():
+            eng = self.engine
+            slot = eng.submit_batch([req])[0]
+            s = eng.slots[slot]
+            first_token = int(eng._last_tokens[slot])
+            ttft_ms = ((s.first_token_time - s.start_time) * 1000.0
+                       if s.first_token_time else None)
+            if local:
+                # a re-run of the same child supersedes its earlier
+                # retained slot: free that one (no TTL entry would)
+                prev = self._pd_slots.get(key)
+                if prev is not None and prev[0] != slot and eng.slots[prev[0]] is prev[1]:
+                    self.pd_stats["adopted_expired"] += 1
+                    eng.finish_slot(prev[0], cache=False)
+                self._pd_slots[key] = (slot, s, time.monotonic())
+                return slot, first_token, ttft_ms, s.prompt_len, None
+            try:
+                return slot, first_token, ttft_ms, s.prompt_len, \
+                    serialize_handoff(export_slot_kv(eng, slot))
+            finally:
+                # the donor is done once the bytes are serialized: a failed
+                # or slow push cannot leak the slot
+                eng.finish_slot(slot)
+
+        with self._engine_lock:
+            slot, first_token, ttft_ms, prompt_tokens, raw = \
+                self._exclusive(_prefill_and_export)
+        tl.note("pd.prefill.done", ttft_ms=ttft_ms)
+        usage = {"prompt_tokens": prompt_tokens, "completion_tokens": 0,
+                 "total_tokens": prompt_tokens}
+        if local:
+            self.pd_stats["handoffs_local"] += 1
+            tl.note("handoff.local")
+            out = {"pd_stage": "prefill", "kv_cache_key": key,
+                   "first_token": first_token, "ttft_ms": ttft_ms,
+                   "migration_bytes": 0, "migration_ms": 0.0,
+                   "decode_slot": slot, "local": True, "usage": usage}
+            self._flight_finish(tl, out)
+            return out
+        t0 = time.perf_counter()
+        tl.note("handoff.begin", bytes=len(raw))
+        try:
+            resp = self._pd_push(HTTPPoster(), decode_url.rstrip("/") + "/kv/transfer", raw)
+        except Exception:
+            self.pd_stats["handoffs_failed"] += 1
+            tl.note("handoff.failed")
+            self._flight_finish(tl)
+            raise
+        migration_ms = (time.perf_counter() - t0) * 1000.0
+        remote = resp.json()
+        self.pd_stats["handoffs_committed"] += 1
+        self.pd_stats["handoff_bytes"] += len(raw)
+        tl.note("handoff.commit", bytes=len(raw))
+        out = {"pd_stage": "prefill", "kv_cache_key": key,
+               "first_token": first_token, "ttft_ms": ttft_ms,
+               "migration_bytes": len(raw), "migration_ms": migration_ms,
+               "decode_slot": remote.get("slot"), "local": False, "usage": usage}
+        self._flight_finish(tl, out)
+        return out
+
+    def _pd_prefill_streamed(self, req: InferenceRequest, key: str, decode_url: str,
+                             piece_blocks: int = 4,
+                             tl: Any = NULL_TIMELINE) -> Dict[str, Any]:
+        """Streamed prefill stage (:class:`StreamedExport`): pieces cross
+        the wire while the prompt is still computing. A sender thread
+        drains the message queue, so no network I/O runs inside engine
+        work; ``migration_ms`` is the decode-ready delay, first token
+        sampled → commit acknowledged."""
+        url = decode_url.rstrip("/") + "/kv/transfer"
+        exp = StreamedExport(self.engine, req, key, piece_blocks=piece_blocks)
+        q: "_queue_mod.SimpleQueue" = _queue_mod.SimpleQueue()
+        state: Dict[str, Any] = {"exc": None, "last": None, "t_ack": None}
+        client = HTTPPoster()
+
+        def _sender() -> None:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if state["exc"] is not None:
+                    continue        # drain after a failure
+                try:
+                    r = self._pd_push(client, url, item)
+                    state["last"] = r.json()
+                    state["t_ack"] = time.perf_counter()
+                except Exception as exc:  # noqa: BLE001 — surfaced below
+                    state["exc"] = exc
+
+        sender = threading.Thread(target=_sender, daemon=True, name="pd-stream-sender")
+        sender.start()
+
+        def _abort_remote() -> None:
+            # direct POST: the sender skips queued items after a failure,
+            # and the receiver's half-built session would pin its blocks.
+            # A failed streamed handoff counts once, as "aborted"
+            self.pd_stats["handoffs_aborted"] += 1
+            try:
+                post_bytes(url, abort_message(key), 10.0)
+            except Exception:  # noqa: BLE001 — the receiver's TTL reclaims it
+                pass
+
+        gen = exp.messages()
+
+        def _drive_export() -> Optional[float]:
+            # the generator's cleanup (abort_chunked / finish_slot) mutates
+            # the engine, so it runs here on the executor, closed explicitly
+            t_end = None
+            try:
+                for msg in gen:
+                    if state["exc"] is not None:
+                        raise state["exc"]      # the push is doomed: stop
+                    if t_end is None and exp.first_token is not None:
+                        t_end = time.perf_counter()
+                    q.put(msg)
+            finally:
+                gen.close()
+            return t_end
+
+        tl.note("handoff.begin", streamed=True)
+        try:
+            with self._engine_lock:
+                t_prefill_end = self._exclusive(_drive_export)
+        except Exception:
+            q.put(None)
+            sender.join(timeout=60.0)
+            _abort_remote()
+            tl.note("handoff.failed")
+            self._flight_finish(tl)
+            raise
+        q.put(None)
+        # wire budget: bytes / ~1 MB/s, floor 120 s; slower counts as failed
+        sender.join(timeout=max(120.0, exp.bytes_sent / 1e6))
+        if sender.is_alive():
+            state["exc"] = state["exc"] or TimeoutError(
+                f"streamed KV push did not finish ({exp.bytes_sent} bytes)")
+        if state["exc"] is not None:
+            _abort_remote()
+            tl.note("handoff.failed")
+            self._flight_finish(tl)
+            raise state["exc"]
+        remote = state["last"] or {}
+        self.pd_stats["handoffs_committed"] += 1
+        self.pd_stats["handoff_bytes"] += exp.bytes_sent
+        migration_ms = ((state["t_ack"] - t_prefill_end) * 1000.0
+                        if state["t_ack"] is not None and t_prefill_end is not None
+                        else None)
+        wall_minus_perf = time.time() - time.perf_counter()
+        if t_prefill_end is not None:
+            tl.note_at("pd.prefill.done", t_prefill_end + wall_minus_perf,
+                       ttft_ms=exp.ttft_ms)
+        else:
+            tl.note("pd.prefill.done", ttft_ms=exp.ttft_ms)
+        if state["t_ack"] is not None:
+            tl.note_at("handoff.commit", state["t_ack"] + wall_minus_perf,
+                       bytes=exp.bytes_sent, pieces=exp.pieces_sent)
+        else:
+            tl.note("handoff.commit", bytes=exp.bytes_sent)
+        out = {
+            "pd_stage": "prefill", "kv_cache_key": key,
+            "first_token": exp.first_token, "ttft_ms": exp.ttft_ms,
+            "migration_bytes": exp.bytes_sent,
+            "migration_ms": migration_ms,
+            "pd_streamed": True,
+            "pieces": exp.pieces_sent,
+            "bytes_before_first_token": exp.bytes_before_first_token,
+            "decode_slot": remote.get("slot"), "local": False,
+            "usage": {"prompt_tokens": exp.prompt_tokens, "completion_tokens": 0,
+                      "total_tokens": exp.prompt_tokens},
+        }
+        self._flight_finish(tl, out)
+        return out
+
+    def pd_decode(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Decode stage: the adopted (or retained) slot joins the batcher's
+        shared rounds (``serving.adopt_slot``) and runs to completion. TTFT
+        and E2E stay end to end: the handoff carried the original times."""
+        if not self.loaded or self.engine is None or self.serving is None:
+            raise EngineLoadError("engine not loaded")
+        key = params.get("kv_cache_key") or ""
+        tl = self._flight_timeline(params)
+        tl.note("pd.decode.start", key=key)
+        if tl.enabled and self._handoff_rx is not None:
+            tl.extend_at(self._handoff_rx.pop_flight(key))
+        entry = self._pd_slots.pop(key, None)
+        if entry is None:
+            raise RuntimeError(f"no adopted KV for key {key!r} — handoff never arrived")
+        slot, seq, _ = entry
+        eng = self.engine
+        if eng.slots[slot] is not seq:
+            # reclaimed (TTL purge) or recycled: fail like a lost handoff
+            # so the flow re-prefills
+            raise RuntimeError(
+                f"adopted KV for key {key!r} was reclaimed before the "
+                "decode stage claimed it")
+        try:
+            resp = self.serving.adopt_slot(slot, flight=tl if tl.enabled else None)
+        except Exception:
+            self._release_adopted_slot(eng, slot, seq)
+            raise
+        if resp.error is not None:
+            self._release_adopted_slot(eng, slot, seq)
+            _raise_serving(resp)
+        text = self.tokenizer.decode(resp.token_ids) if self.tokenizer else ""
+        tl.note("pd.decode.done", tokens=resp.completion_tokens)
+        out = {
+            "pd_stage": "decode", "kv_cache_key": key,
+            "text": text,
+            "token_ids": list(resp.token_ids),
+            "prompt_tokens": resp.prompt_tokens,
+            "completion_tokens": resp.completion_tokens,
+            "finish_reason": resp.finish_reason,
+            "ttft_ms": resp.ttft_ms,
+            "e2e_ms": resp.e2e_ms,
+            # the decode child bills the completion, the prefill child the
+            # prompt: together the non-PD job's total
+            "usage": {"prompt_tokens": 0,
+                      "completion_tokens": resp.completion_tokens,
+                      "total_tokens": resp.completion_tokens},
+        }
+        self._flight_finish(tl, out)
+        return out
+
+    def _release_adopted_slot(self, eng: Any, slot: int, seq: Any) -> None:
+        """Free an adopted slot a failed or expired decode stage leaves
+        behind, on the executor; identity-guarded (the index may have been
+        recycled for another sequence, which is not ours to finish)."""
+        def _free() -> None:
+            if eng.slots[slot] is seq:
+                eng.finish_slot(slot, cache=False)
+
+        try:
+            self._exclusive(_free)
+        except Exception:  # noqa: BLE001 — release is best-effort
+            pass
+
+    def kv_receiver(self, raw: bytes) -> Dict[str, Any]:
+        """Data-plane ``/kv/transfer`` hook: adopt a pushed handoff (one
+        blob, or one begin / piece / commit / abort message) on the
+        executor and index a bound slot by its kv_cache_key."""
+        if not self.loaded or self.engine is None:
+            raise EngineLoadError("engine not loaded")
+        with self._engine_lock:
+            if self._handoff_rx is None or self._handoff_rx.engine is not self.engine:
+                self._handoff_rx = HandoffReceiver(self.engine)
+            self._purge_stale_pd_slots()
+            rx = self._handoff_rx
+            result = self._exclusive(lambda: rx.handle(raw))
+            if result.get("slot") is not None:
+                slot, key = result["slot"], result["kv_cache_key"]
+                prev = self._pd_slots.pop(key, None)
+                if prev is not None and prev[0] != slot:
+                    # a re-run of the same prefill child pushed the key
+                    # again: the new adoption supersedes the old one
+                    self.pd_stats["adopted_expired"] += 1
+                    self._release_adopted_slot(self.engine, prev[0], prev[1])
+                self._pd_slots[key] = (slot, self.engine.slots[slot], time.monotonic())
+        return result
+
+    # -- cluster KV migration
+
+    def kv_export(self, raw: bytes) -> bytes:
+        """Data-plane ``/kv/export`` hook: the longest locally cached
+        full-block prefix of a peer's request as framed prefix-only
+        messages, from the device radix and the spill tiers. An empty body
+        means nothing cached (the peer recomputes); a mismatch raises
+        ``ValueError`` (the plane answers 400)."""
+        if not self.loaded or self.engine is None:
+            raise EngineLoadError("engine not loaded")
+        if not self.kv_migrate_enabled:
+            raise ValueError("kv migration disabled on this worker")
+        req = unpack_export_request(raw)
+        eng = self.engine
+        if req.get("model_name") != eng.model_cfg.name:
+            raise ValueError(f"model mismatch: engine={eng.model_cfg.name} "
+                             f"request={req.get('model_name')}")
+        if int(req.get("block_size") or 0) != eng.cfg.block_size:
+            raise ValueError("block_size mismatch between engines")
+        if bool(req.get("int8_kv")) != ("k_scale" in eng.kv):
+            raise ValueError("kv_cache_dtype mismatch: int8 pools can only export "
+                             "to int8 pools (and vice versa)")
+        max_blocks = min(self._kvmig_max_blocks, int(req.get("max_blocks") or 64))
+        token_ids = req.get("token_ids") or []
+        if not token_ids and req.get("fp"):
+            # a fingerprint-keyed pull: resolve it to our token ids; a miss
+            # answers empty, an honest "nothing cached"
+            with self._kvmig_lock:
+                token_ids = self._kvmig_fp_tokens.get(str(req["fp"])) or []
+        with self._engine_lock:
+            frames, _ = self._exclusive(lambda: export_prefix_frames(
+                eng, token_ids, str(req.get("key") or ""),
+                max_blocks=max_blocks, start_block=int(req.get("start_block") or 0),
+            ))
+        body = _frame_blobs(*frames) if frames else b""
+        if frames:
+            self.kv_migrate_stats["exports"] += 1
+            self.kv_migrate_stats["export_bytes"] += len(body)
+        return body
+
+    def _kvmig_peer_allowed(self, url: str) -> bool:
+        """Budget and per-peer backoff gate, taken together."""
+        with self._kvmig_lock:
+            _, until = self._kvmig_backoff.get(url, (0, 0.0))
+            if time.monotonic() < until or self._kvmig_inflight >= self._kvmig_budget:
+                return False
+            self._kvmig_inflight += 1
+            return True
+
+    # a peer that rejected a pull (4xx) is pinned out this long
+    _KVMIG_REJECT_PIN_S = 600.0
+
+    def _kvmig_peer_result(self, url: str, ok: bool, permanent: bool = False) -> None:
+        with self._kvmig_lock:
+            self._kvmig_inflight = max(0, self._kvmig_inflight - 1)
+            if ok:
+                self._kvmig_backoff.pop(url, None)
+                return
+            fails = self._kvmig_backoff.get(url, (0, 0.0))[0] + 1
+            if permanent:
+                self._kvmig_backoff[url] = (fails, time.monotonic() + self._KVMIG_REJECT_PIN_S)
+                return
+            # the first failure only falls back; repeats arm a jittered
+            # exponential window
+            delay = full_jitter_delay(self._kvmig_backoff_s, fails - 1,
+                                      self._kvmig_rng) if fails > 1 else 0.0
+            self._kvmig_backoff[url] = (fails, time.monotonic() + (delay or 0.0))
+
+    def _pull_prefix(self, url: str, req_raw: bytes,
+                     on_begun: Callable[[], None]) -> Optional[tuple]:
+        """POST a ``/kv/export`` pull and feed every answered frame through
+        our own receiver → (commit result, bytes pulled), or None when the
+        peer has nothing cached. Raises on any failure."""
+        r = _faults.wrap_http(
+            "worker.kv.pull",
+            lambda: post_bytes(url + "/kv/export", req_raw, self._kvmig_timeout_s),
+            worker=str(getattr(self, "fault_tag", "") or ""),
+        )
+        if r.status_code >= 400:
+            raise HTTPStatusError(r, "kv export")
+        frames = split_frames(r.content)
+        if not frames:
+            return None
+        committed = None
+        for frame in frames:
+            on_begun()
+            res = self.kv_receiver(frame)
+            if res.get("state") == "committed":
+                committed = res
+        if committed is None:
+            raise ValueError("kv export response ended without commit")
+        return committed, sum(len(f) for f in frames)
+
+    def _count_pull(self, tier: str, pull_bytes: int, t_pull: float) -> None:
+        # per-tier (bytes, wall-ms) pairs: the plane's bandwidth samples
+        stats = self.kv_migrate_stats
+        stats["pull_bytes"] += pull_bytes
+        pull_ms = max(1, int((time.monotonic() - t_pull) * 1000.0))
+        stats[f"pull_bytes_{tier}"] = stats.get(f"pull_bytes_{tier}", 0) + pull_bytes
+        stats[f"pull_ms_{tier}"] = stats.get(f"pull_ms_{tier}", 0) + pull_ms
+
+    def _abort_pull(self, exc: Exception, url: str, key: str, begun: bool) -> None:
+        # a 4xx is the peer REJECTING the pull: pin it out
+        permanent = (isinstance(exc, HTTPStatusError)
+                     and 400 <= exc.response.status_code < 500)
+        self._kvmig_peer_result(url, ok=False, permanent=permanent)
+        if begun:
+            # drop the half-built session now, not at the receiver's TTL
+            try:
+                self.kv_receiver(abort_message(key))
+            except Exception:  # noqa: BLE001 — abort is best-effort
+                pass
+
+    def _maybe_migrate_kv(self, params: Dict[str, Any]) -> None:
+        """Honour a router ``kv_migrate_from`` hint: pull the hot prefix
+        from the named peer before admission, landing it in our radix so
+        the prefill that follows reuses it. Every failure — peer dead
+        mid-pull, a corrupt piece, budget or backoff, no match — falls back
+        to a plain recompute, counted (pulled / aborted /
+        fallback_recompute) and noted on the timeline."""
+        params.pop("_kvmig_token_ids", None)   # never trust an inbound stash
+        hint = params.get("kv_migrate_from")
+        if not isinstance(hint, dict):
+            return
+        tl = params.get("_flight_tl") or NULL_TIMELINE
+        url = str(hint.get("data_plane_url") or "").rstrip("/")
+        stats = self.kv_migrate_stats
+        if not url or not self.kv_migrate_enabled or not self.loaded \
+                or self.engine is None or not self.engine.cfg.enable_prefix_cache:
+            stats["fallback_recompute"] += 1
+            tl.note("kv_migrate.fallback", reason="disabled")
+            return
+        if not self._kvmig_peer_allowed(url):
+            stats["fallback_recompute"] += 1
+            tl.note("kv_migrate.fallback", reason="budget_or_backoff")
+            return
+        eng = self.engine
+        key = f"kvmig-{uuid.uuid4().hex[:12]}"
+        begun: List[bool] = []
+        try:
+            cfg = GenerationConfig.from_params(params)
+            token_ids = self._encode_prompt(
+                params.get("messages") or params.get("prompt") or "", cfg)
+            # the admission that follows reuses this encode
+            params["_kvmig_token_ids"] = token_ids
+            bs = eng.cfg.block_size
+            if len(token_ids) < bs:
+                stats["fallback_recompute"] += 1
+                tl.note("kv_migrate.fallback", reason="short_prompt")
+                self._kvmig_peer_result(url, ok=True)
+                return
+            # already warm here (the router hints until our summary says
+            # so): skip when the local radix covers the full-block prefix
+            n_full = len(token_ids) // bs
+            local = self._exclusive(lambda: len(eng.manager.radix.match_prefix(token_ids)))
+            if local >= max(1, n_full - 1):
+                stats["local_hits"] += 1
+                tl.note("kv_migrate.local_hit", blocks=local)
+                self._kvmig_peer_result(url, ok=True)
+                return
+            tl.note("kv_migrate.begin", peer=hint.get("worker_id"),
+                    matched_blocks=hint.get("matched_blocks"))
+            tier = hint.get("tier")
+            if tier not in ("dev", "host", "spill"):
+                tier = "dev"
+            t_pull = time.monotonic()
+            req_raw = pack_export_request(
+                key=key, token_ids=token_ids, model_name=eng.model_cfg.name,
+                block_size=bs, int8_kv="k_scale" in eng.kv,
+                max_blocks=self._kvmig_max_blocks,
+                # the peer ships only what we miss
+                start_block=local,
+            )
+            got = self._pull_prefix(url, req_raw, lambda: begun.append(True))
+            if got is None:
+                stats["fallback_recompute"] += 1
+                tl.note("kv_migrate.fallback", reason="peer_miss")
+                self._kvmig_peer_result(url, ok=True)
+                return
+            committed, pull_bytes = got
+            stats["pulled"] += 1
+            # blocks the pull delivered: the chain minus what we held
+            stats["pull_blocks"] += max(
+                0, int(committed.get("blocks") or 0)
+                - int(committed.get("cached_tokens") or 0) // bs)
+            self._count_pull(tier, pull_bytes, t_pull)
+            tl.note("kv_migrate.pulled", blocks=int(committed.get("blocks") or 0),
+                    bytes=pull_bytes)
+            self._kvmig_peer_result(url, ok=True)
+        except Exception as exc:  # noqa: BLE001 — migration is best-effort
+            stats["aborted"] += 1
+            tl.note("kv_migrate.aborted")
+            self._abort_pull(exc, url, key, bool(begun))
+
+    def kv_replicate(self, hints: Any) -> int:
+        """Plane-hinted proactive prefix replication (the heartbeat
+        response's ``kv_replicate``): pull the named hot prefixes now, on a
+        daemon thread, over the same ``/kv/export`` protocol with the same
+        budget, backoff and recompute-on-failure stance. → the number of
+        hints accepted."""
+        if not self.kv_migrate_enabled or not self.loaded or self.engine is None \
+                or not self.engine.cfg.enable_prefix_cache:
+            return 0
+        todo = []
+        for h in hints if isinstance(hints, list) else []:
+            if not isinstance(h, dict):
+                continue
+            fps = h.get("fps")
+            url = str(h.get("data_plane_url") or "").rstrip("/")
+            if not url or not isinstance(fps, list) or not fps \
+                    or not all(isinstance(f, str) for f in fps):
+                continue
+            todo.append((h, url, [str(f) for f in fps]))
+        if not todo:
+            return 0
+        threading.Thread(target=self._kv_replicate_run, args=(todo,),
+                         name="kv-replicate", daemon=True).start()
+        return len(todo)
+
+    def _kv_replicate_run(self, todo: List[tuple]) -> None:
+        for hint, url, fps in todo:
+            try:
+                self._kv_replicate_pull(hint, url, fps)
+            except Exception:  # noqa: BLE001 — prefetch is best-effort
+                pass
+
+    def _kv_replicate_pull(self, hint: Dict[str, Any], url: str, fps: List[str]) -> None:
+        eng = self.engine
+        hot = self.prefix_hot
+        stats = self.kv_migrate_stats
+        if eng is None:
+            return
+        if hot is not None and fps[-1] in hot.snapshot():
+            return      # a racing request already landed it
+        if not self._kvmig_peer_allowed(url):
+            return      # the plane re-hints past its cooldown
+        key = f"kvrep-{uuid.uuid4().hex[:12]}"
+        tier = hint.get("tier")
+        if tier not in ("dev", "host", "spill"):
+            tier = "dev"
+        begun: List[bool] = []
+        try:
+            t_pull = time.monotonic()
+            # fingerprint-keyed: the warm exporter resolves it to its token
+            # ids and the begin frame carries them back
+            req_raw = pack_export_request(
+                key=key, token_ids=[], model_name=eng.model_cfg.name,
+                block_size=eng.cfg.block_size, int8_kv="k_scale" in eng.kv,
+                max_blocks=self._kvmig_max_blocks, fp=fps[-1],
+            )
+            got = self._pull_prefix(url, req_raw, lambda: begun.append(True))
+            if got is None:
+                stats["replicate_miss"] += 1
+                self._kvmig_peer_result(url, ok=True)
+                return
+            stats["replicated"] += 1
+            self._count_pull(tier, got[1], t_pull)
+            if hot is not None:
+                # advertise the adopted prefix so the next summary stops
+                # the hints
+                hot.note_fingerprints(fps)
+            self._kvmig_peer_result(url, ok=True)
+        except Exception as exc:  # noqa: BLE001 — prefetch is best-effort
+            stats["replicate_aborted"] += 1
+            self._abort_pull(exc, url, key, bool(begun))
+
+    def kv_migrate_wire_stats(self) -> Optional[Dict[str, int]]:
+        """Cumulative KV-migration counters (pull outcomes, export service)
+        — heartbeat ``engine_stats["kv_migrate"]``. None when this engine
+        never migrated."""
+        out = {k: int(v) for k, v in self.kv_migrate_stats.items() if v}
+        rx = self._handoff_rx
+        if rx is not None:
+            v = int(rx.stats.get("prefix_commits", 0) or 0)
+            if v:
+                out["prefix_commits"] = v
+        return out or None
+
+    @property
+    def handoff_sessions_purged(self) -> int:
+        """Abandoned streamed-handoff sessions this engine's receiver
+        purged (heartbeat ``kv_handoff_sessions_purged``)."""
+        rx = self._handoff_rx
+        return int(rx.stats.get("sessions_purged", 0)) if rx is not None else 0
+
+    def pd_wire_stats(self) -> Optional[Dict[str, int]]:
+        """Cumulative PD handoff counters (sender outcomes, receiver abort
+        and purge reasons) — heartbeat ``engine_stats["pd"]``. None when
+        this engine never touched a handoff."""
+        out = {k: int(v) for k, v in self.pd_stats.items() if v}
+        rx = self._handoff_rx
+        if rx is not None:
+            for src, dst in (("rx_aborts", "rx_aborts"),
+                             ("purged_ttl", "rx_purged_ttl"),
+                             ("purged_no_progress", "rx_purged_no_progress"),
+                             ("purged_cap", "rx_purged_cap")):
+                v = int(rx.stats.get(src, 0) or 0)
+                if v:
+                    out[dst] = v
+        return out or None
 
     # -- token streaming -----------------------------------------------------
 

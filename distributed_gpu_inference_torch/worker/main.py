@@ -27,12 +27,16 @@ speaking the JAX control plane's wire protocol unchanged:
   is told ``going-offline`` then ``offline``, engines unload.
 
 The port serves one CUDA card: ``probe_topology`` reads it through
-``torch.cuda``. It refuses at ``start`` what is not ported: a ``role`` of
-``prefill`` / ``decode`` and a ``pd_data_plane_url`` (prefill/decode
-disaggregation). The heartbeat carries the speculation counters of an
-engine that speculates (``_spec_engine_stats``); the JAX worker's PD and
-KV-migration blocks are absent because no port engine has them — the JAX
-worker omits each block in that case too.
+``torch.cuda``. Prefill/decode disaggregation: the ``role`` (``hybrid``,
+``prefill`` or ``decode``) and ``pd_data_plane_url`` ride the
+registration; with a ``pd_data_plane_url`` and an llm engine the worker
+runs the KV data plane (``comm/data_plane.py``: ``/kv/transfer`` into the
+engine's ``kv_receiver``, ``/kv/export`` into ``kv_export``) on that URL's
+port. Each heartbeat runs the engines' ``pd_maintain`` first and carries
+the JAX worker's blocks: the speculation counters (``_spec_engine_stats``),
+``engine_stats["pd"]``, ``engine_stats["kv_migrate"]`` and
+``kv_handoff_sessions_purged``; a response's ``kv_replicate`` hints go to
+the first engine that takes them.
 """
 
 from __future__ import annotations
@@ -125,6 +129,8 @@ class Worker:
 
         self._shutdown = threading.Event()
         self._direct: Optional[Any] = None
+        # the KV data plane of a PD worker (pd_data_plane_url)
+        self._pd_plane: Optional[Any] = None
         # round trip of the PREVIOUS heartbeat (ms), shipped on the next
         # beat for the plane's gray-failure health scoring
         self._hb_rtt_ms: Optional[float] = None
@@ -283,6 +289,28 @@ class Worker:
                 for k in ("preemptions", "resumes", "kv_pressure_events"):
                     if k in stats:
                         out[k] = out.get(k, 0) + int(stats.get(k, 0) or 0)
+            # abandoned streamed-handoff sessions the engine's receiver
+            # purged (kv_handoff_sessions_purged_total on the plane)
+            purged = getattr(eng, "handoff_sessions_purged", None)
+            if purged:
+                out["kv_handoff_sessions_purged"] = (
+                    out.get("kv_handoff_sessions_purged", 0) + int(purged))
+        return out or None
+
+    def _summed_engine_stats(self, name: str) -> Optional[Dict[str, Any]]:
+        """The counters every loaded engine's ``name()`` returns, summed;
+        None when none has any (the PD and KV-migration blocks)."""
+        out: Dict[str, int] = {}
+        for eng in self.engines.values():
+            fn = getattr(eng, name, None)
+            if fn is None:
+                continue
+            try:
+                s = fn()
+            except Exception:  # noqa: BLE001 — never break the heartbeat
+                continue
+            for k, v in (s or {}).items():
+                out[k] = out.get(k, 0) + int(v)
         return out or None
 
     def _batcher_stats(self) -> Optional[Dict[str, Any]]:
@@ -411,9 +439,15 @@ class Worker:
         batcher = self._batcher_stats()
         if batcher:
             engine_stats["batcher"] = batcher
+        pd = self._summed_engine_stats("pd_wire_stats")
+        if pd:
+            engine_stats["pd"] = pd
         kv_spill = self._kv_spill_engine_stats()
         if kv_spill:
             engine_stats["kv_spill"] = kv_spill
+        kv_migrate = self._summed_engine_stats("kv_migrate_wire_stats")
+        if kv_migrate:
+            engine_stats["kv_migrate"] = kv_migrate
         flight = self._flight_engine_stats()
         if flight:
             engine_stats["flight"] = flight
@@ -467,6 +501,15 @@ class Worker:
 
     def _heartbeat_once(self) -> None:
         summary_eng = None
+        for eng in self.engines.values():
+            # PD housekeeping on the heartbeat cadence: adoptions whose
+            # decode stage never came age out
+            fn = getattr(eng, "pd_maintain", None)
+            if fn is not None:
+                try:
+                    fn()
+                except Exception:  # noqa: BLE001 — never break the beat
+                    pass
         try:
             summary_eng, kw = self._heartbeat_payload()
             hb_t0 = time.perf_counter()
@@ -499,6 +542,21 @@ class Worker:
                         if fn is not None:
                             fn()
                 self._last_plane_id = plane_id
+            hints = resp.get("kv_replicate")
+            if hints:
+                # proactive prefix replication: the first engine that takes
+                # the hints pulls them on its own thread
+                for eng in self.engines.values():
+                    fn = getattr(eng, "kv_replicate", None)
+                    if fn is None:
+                        continue
+                    try:
+                        if fn(hints):
+                            self.stats["kv_replicate_hints"] = \
+                                self.stats.get("kv_replicate_hints", 0) + len(hints)
+                            break
+                    except Exception:  # noqa: BLE001 — advisory prefetch
+                        pass
             stale = list(resp.get("stale_jobs") or [])
             if resp.get("stale_job") and self.current_job_id:
                 stale.insert(0, self.current_job_id)
@@ -870,22 +928,24 @@ class Worker:
 
     # -- lifecycle -------------------------------------------------------------
 
-    def _refuse_unported(self) -> None:
-        """What this port does not serve, refused before anything registers."""
-        if self.config.role in ("prefill", "decode"):
-            raise ValueError(
-                f"role: {self.config.role}: prefill/decode disaggregation is "
-                "not in the PyTorch port (role: hybrid)"
-            )
-        if self.config.pd_data_plane_url:
-            raise ValueError(
-                "pd_data_plane_url: the prefill/decode KV data plane is not "
-                "in the PyTorch port"
-            )
+    def _start_pd_plane(self) -> None:
+        """A PD worker's KV data plane on its ``pd_data_plane_url``'s port
+        (all interfaces, as the JAX worker binds it)."""
+        from urllib.parse import urlsplit
+
+        from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer
+
+        llm = self.engines["llm"]
+        self._pd_plane = DataPlaneServer(
+            "0.0.0.0", urlsplit(self.config.pd_data_plane_url).port or 8472,
+            health=lambda: {**llm.health(), "pd_kv_receiver": True},
+            kv_receiver=getattr(llm, "kv_receiver", None),
+            kv_exporter=getattr(llm, "kv_export", None),
+        )
+        self._pd_plane.start()
 
     def start(self, install_signal_handlers: bool = True,
               block: bool = True) -> None:
-        self._refuse_unported()
         self.register()
         self.load_engines()
         for eng in self.engines.values():
@@ -902,6 +962,9 @@ class Worker:
                 port=self.config.direct.port,
             )
             self._direct.start()
+        if self.config.pd_data_plane_url and "llm" in self.engines:
+            # a decode-capable PD worker: prefill peers push KV here
+            self._start_pd_plane()
         self.state = WorkerState.IDLE
         if install_signal_handlers:
             try:
@@ -980,6 +1043,8 @@ class Worker:
         self.state = WorkerState.OFFLINE
         if self._direct is not None:
             self._direct.stop()
+        if self._pd_plane is not None:
+            self._pd_plane.stop()
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join(timeout=5.0)
         for eng in self.engines.values():

@@ -57,6 +57,17 @@ def test_port_imports_nothing_of_jax():
     assert {k: v for k, v in offenders.items() if v} == {}
 
 
+def test_pd_modules_import_nothing_of_jax():
+    # the KV handoff, the data plane and chip_smoke.py's phase 16 carry no
+    # JAX, no module of the JAX package and no aiohttp/httpx/msgpack
+    pd = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
+        "comm/__init__.py", "comm/data_plane.py", "runtime/kv_handoff.py")]
+    assert set(pd) <= set(_port_files())
+    for f in pd + [ROOT / "chip_smoke.py"]:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    assert "pd_phase" in (ROOT / "chip_smoke.py").read_text()
+
+
 def _import_sites(path, root):
     """(enclosing function name or None, line) of each import of ``root``."""
     out = []
@@ -593,3 +604,70 @@ def test_speculative_greedy_streams_on_the_card(cuda):
     assert counts["paged_decode_attention_fused"] == 0
     assert routes.ragged_s.get(smoke.SPEC_K + 1, 0) > 0
     assert all(len(t) == smoke.SPEC_TOKENS for _, t in rows)
+
+
+@pytest.mark.gpu
+def test_device_migration_and_streamed_export_bit_identical_on_the_card(cuda):
+    # chip_smoke.py phase 16 (a)/(c) at llama3-mini with bf16 and int8
+    # pools: migrate_kv_device and a streamed export adopted by a second
+    # engine leave pages (and scales) bit-identical to the donor's, and the
+    # continued greedy stream equals the donor's own
+    from distributed_gpu_inference_torch.runtime import kv_handoff as tkh
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig
+    from distributed_gpu_inference_torch.utils.data_structures import (
+        InferenceRequest,
+        SamplingParams,
+    )
+
+    def req():
+        return InferenceRequest(prompt_token_ids=[(i * 7 + 3) % 2000 for i in range(300)],
+                                sampling=SamplingParams(max_new_tokens=16, ignore_eos=True))
+
+    def raw(t):
+        return t.contiguous().view(torch.uint8)
+
+    for kv in (None, "int8"):
+        cfg = dict(max_batch_size=2, max_seq_len=512, kv_cache_dtype=kv,
+                   prefill_buckets=(16, 32, 64, 128))
+        a = TorchEngine("llama3-mini", EngineConfig(**cfg), seed=0, device="cuda")
+        b = TorchEngine("llama3-mini", EngineConfig(**cfg), params=a.params, device="cuda")
+        ref = a.generate([req()], use_multi_step=True)[0].token_ids
+        a.manager.clear_cached()
+        slot = a.submit(req())
+        blocks = list(a.manager.seq_blocks[a.slots[slot].seq_id])
+        dslot = tkh.migrate_kv_device(a, b, slot)
+        dblocks = list(b.manager.seq_blocks[b.slots[dslot].seq_id])
+        for key in a.kv:
+            assert torch.equal(raw(a.kv[key][:, blocks]), raw(b.kv[key][:, dblocks])), key
+        a.finish_slot(slot, cache=False)
+        while b.slots[dslot].finish_reason is None:
+            b.decode_multi()
+        assert b.finish_slot(dslot).token_ids == ref
+        b.manager.clear_cached()
+        a.manager.clear_cached()
+        exp = tkh.StreamedExport(a, req(), "card", piece_blocks=4)
+        rx = tkh.HandoffReceiver(b)
+        gathered = {}
+        real = a.gather_pages
+
+        def gather(bids, wait=True):
+            out = real(bids, wait=wait)
+            gathered.update({bid: None for bid in bids})
+            return out
+
+        a.gather_pages = gather
+        try:
+            out = [rx.handle(m) for m in exp.messages()][-1]
+        finally:
+            del a.gather_pages
+        assert exp.bytes_before_first_token > 0
+        s = b.slots[out["slot"]]
+        for lb, bid in enumerate(b.manager.seq_blocks[s.seq_id][:300 // 16]):
+            src = list(gathered)[lb]
+            for key in a.kv:
+                assert torch.equal(raw(a.kv[key][:, src]), raw(b.kv[key][:, bid])), key
+        while b.slots[out["slot"]].finish_reason is None:
+            b.decode_multi()
+        assert b.finish_slot(out["slot"]).token_ids == ref
+        del a, b
+        torch.cuda.empty_cache()

@@ -492,16 +492,40 @@ def test_full_lifecycle_processes_jobs_then_drains():
 
 
 @pytest.mark.parametrize("field,value,names", [
-    ("role", "prefill", "prefill/decode"),
-    ("role", "decode", "prefill/decode"),
-    ("pd_data_plane_url", "http://10.0.0.7:8472", "pd_data_plane_url"),
+    ("role", "prefill", "role"),
+    ("role", "decode", "role"),
+    ("pd_data_plane_url", "http://127.0.0.1:{port}", "data_plane_url"),
 ])
 def test_start_refuses_what_the_port_does_not_serve(field, value, names):
-    api = FakeAPI(creds_valid=True)
+    """The PD settings the port once refused at start now start the
+    worker: the role and the data-plane URL ride the registration, and the
+    URL's port serves the KV data plane."""
+    import http.client
+    import json
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    value = value.format(port=port)
+    api = FakeAPI()
     w = Worker(_config(**{field: value}), api=api, topology=CPU)
-    with pytest.raises(ValueError, match=names):
-        w.start(install_signal_handlers=False)
-    assert api.calls == []                   # refused before anything registered
+    w.start(install_signal_handlers=False, block=False)
+    try:
+        assert "register" in api.calls
+        assert api.registered_info[names] == value
+        if field == "pd_data_plane_url":
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            conn.request("GET", "/health")
+            r = conn.getresponse()
+            assert r.status == 200 and json.loads(r.read())["pd_kv_receiver"] is True
+            conn.close()
+        else:
+            assert w._pd_plane is None
+    finally:
+        w.request_shutdown()
+        w._finalize_shutdown()
+    assert w._pd_plane is None or w._pd_plane._httpd is None
 
 
 def _fake_cuda(monkeypatch, name="NVIDIA H100 80GB HBM3", count=1, total=85_031_714_816):
