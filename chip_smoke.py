@@ -225,6 +225,31 @@ Prefill/decode disaggregation:
     the device-path migrate against two HBM passes, TTFT, and the pull
     against a recompute.
 
+Weights and tokenizer from local files:
+
+17. local files — (a) a llama3-8b checkpoint at full width and depth in
+    bf16 and HF's layout (HF names, ``[out, in]``, four shard files, an
+    index and a config.json), each tensor drawn from a seeded
+    ``torch.Generator`` on the card, written with :func:`write_safetensors`
+    (the card's machine has no ``safetensors``) into a temp directory
+    after a check of the free space; beside it a Llama 3-style
+    ``tokenizer.json`` (the split regex, the 256 ByteLevel symbols, 2048
+    merges learned from README.md, the vocab filled to 128000, the special
+    tokens from 128000, a BOS template, ``clean_up_tokenization_spaces``)
+    and a chat template. (b) ``TorchLLMEngine`` loads it with
+    ``checkpoint_path``, ``tokenizer_id``, int8 weights and int8 pools: the
+    load's seconds and GB/s of file bytes, and the peak device memory
+    before the KV pools against the int8 tree. (c) Every written tensor,
+    drawn again, is bit-identical to its place in the loaded tree (codes
+    and scales against ``quantize_params``), and so is a bf16 load of the
+    directory. (d) Eight requests (six texts, two chats) of 32 greedy
+    tokens, one at a time with the prefix cache off, through ``inference``
+    and ``stream_inference``: the ids equal those of an engine given the
+    bf16 tree as ``params=``, the stream's ids equal ``inference``'s and
+    its text is the tokenizer's decode of them; counters zeroed before and
+    read after: all three kernels launched. Host encode and decode times
+    are information. The directory is deleted at the end.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15), the
@@ -3398,6 +3423,511 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
         del b
 
 
+# ---- phase 17: weights and tokenizer from local files
+
+CKPT_SEED = 17
+CKPT_SHARDS = 4
+CKPT_MERGES = 2048          # BPE merges learned from the repo's own text
+LOCAL_TOKENS = 32           # greedy tokens of each phase-17 request
+# safetensors dtype names of the dtypes the writer takes
+ST_NAMES = {"torch.bfloat16": "BF16", "torch.float16": "F16", "torch.float32": "F32",
+            "torch.float64": "F64", "torch.int8": "I8", "torch.uint8": "U8",
+            "torch.int16": "I16", "torch.int32": "I32", "torch.int64": "I64",
+            "torch.bool": "BOOL", "torch.float8_e4m3fn": "F8_E4M3",
+            "torch.float8_e5m2": "F8_E5M2"}
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_SPECIALS = (["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+                    "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+                    "<|reserved_special_token_2|>", "<|start_header_id|>",
+                    "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+                   + [f"<|reserved_special_token_{i}|>" for i in range(3, 248)])
+LLAMA3_TEMPLATE = (
+    "{{- bos_token }}\n"
+    "{%- for message in messages %}\n"
+    "{{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\\n\\n' + "
+    "message['content'] | trim + '<|eot_id|>' }}\n"
+    "{%- endfor %}\n"
+    "{%- if add_generation_prompt %}\n"
+    "{{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}\n"
+    "{%- endif %}\n")
+
+
+def write_safetensors(path, entries, metadata=None):
+    """Write one safetensors file: an 8-byte little-endian header length,
+    the JSON header (padded with spaces to 8 bytes), then each tensor's
+    raw bytes in order. ``entries``: (name, dtype, shape, make), where
+    ``make()`` gives the tensor (on any device) when its bytes are due, so
+    a shard never sits whole in memory. → bytes written."""
+    import math
+    import struct
+
+    import torch
+
+    header, off = {}, 0
+    for name, dtype, shape, _ in entries:
+        n = math.prod(shape) * dtype.itemsize
+        header[name] = {"dtype": ST_NAMES[str(dtype)], "shape": list(shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    if metadata is not None:
+        header["__metadata__"] = metadata
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name, dtype, shape, make in entries:
+            t = make()
+            if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+                raise AssertionError(f"{name}: made {t.dtype} {tuple(t.shape)}, "
+                                     f"declared {dtype} {tuple(shape)}")
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
+    return 8 + len(raw) + off
+
+
+def learn_merges(text, n):
+    """Greedy byte-level BPE merges from ``text``: pre-tokenize with Llama
+    3's split regex, then merge the most frequent adjacent pair (the
+    largest pair among ties) ``n`` times, counts kept up to date word by
+    word. → [(a, b), ...] in rank order."""
+    import collections
+    import re
+
+    from distributed_gpu_inference_torch.utils.hf_tokenizer import (
+        _bytes_to_unicode,
+        translate_pattern,
+    )
+
+    table = _bytes_to_unicode()
+    words = collections.Counter(
+        "".join(table[b] for b in m.group(0).encode("utf-8"))
+        for m in re.finditer(translate_pattern(LLAMA3_SPLIT), text))
+    syms = [list(w) for w in words]
+    freq = list(words.values())
+    pairs = collections.Counter()
+    where = collections.defaultdict(set)
+    for i, s in enumerate(syms):
+        for pair in zip(s, s[1:]):
+            pairs[pair] += freq[i]
+            where[pair].add(i)
+    merges = []
+    while len(merges) < n and pairs:
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        if pairs[best] < 2:
+            break
+        merges.append(best)
+        for i in list(where.pop(best, ())):
+            s = syms[i]
+            for pair in zip(s, s[1:]):
+                pairs[pair] -= freq[i]
+                if pairs[pair] <= 0:
+                    del pairs[pair]
+            out, j = [], 0
+            while j < len(s):
+                if j + 1 < len(s) and (s[j], s[j + 1]) == best:
+                    out.append(s[j] + s[j + 1])
+                    j += 2
+                else:
+                    out.append(s[j])
+                    j += 1
+            syms[i] = out
+            for pair in zip(out, out[1:]):
+                pairs[pair] += freq[i]
+                where[pair].add(i)
+    return merges
+
+
+def write_llama3_tokenizer(d, text, n_merges=CKPT_MERGES):
+    """A Llama 3-style ``tokenizer.json`` + ``tokenizer_config.json`` in
+    ``d``: the split regex, the 256 ByteLevel symbols, ``n_merges`` merges
+    learned from ``text`` and unreachable fillers up to id 128000,
+    ``ignore_merges``, the special tokens from id 128000, ``TemplateProcessing`` BOS, ``clean_up_tokenization_spaces``
+    and a chat template. → the number of merges."""
+    import pathlib
+
+    from distributed_gpu_inference_torch.utils.hf_tokenizer import _bytes_to_unicode
+
+    merges = learn_merges(text, n_merges)
+    vocab = {c: i for i, c in enumerate(_bytes_to_unicode().values())}
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    # tokens no merge reaches fill the vocab to Llama 3's 128000, where the
+    # special tokens start (a tokenizer.json numbers its added tokens on
+    # from the vocab's end)
+    while len(vocab) < 128000:
+        vocab[f"<|unused_{len(vocab)}|>"] = len(vocab)
+    bos = LLAMA3_SPECIALS[0]
+    tok = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": 128000 + i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False, "normalized": False,
+                          "special": True} for i, t in enumerate(LLAMA3_SPECIALS)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+             "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [128000], "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [[a, b] for a, b in merges]},
+    }
+    config = {"bos_token": bos, "eos_token": "<|eot_id|>",
+              "clean_up_tokenization_spaces": True, "model_max_length": 131072,
+              "tokenizer_class": "PreTrainedTokenizerFast", "chat_template": LLAMA3_TEMPLATE}
+    d = pathlib.Path(d)
+    (d / "tokenizer.json").write_text(json.dumps(tok, ensure_ascii=False), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps(config, indent=2), encoding="utf-8")
+    return len(merges)
+
+
+def hf_llama_entries(torch, cfg, dev, seed=CKPT_SEED):
+    """The tensors of an HF Llama checkpoint of ``cfg`` in HF's names and
+    layout (``[out, in]``), in HF's order: (name, dtype, shape, make).
+    Tensor i is drawn in f32 from a ``torch.Generator`` on ``dev`` seeded
+    ``seed * 100003 + i`` (norms around 1), scaled by fan_in^-0.5 and cast
+    to bf16, so ``make()`` gives the same bits every call."""
+    h, d, L = cfg.hidden_size, cfg.head_dim, cfg.num_layers
+    nh, nkv, inter, v = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size
+    shapes = [("model.embed_tokens.weight", (v, h))]
+    for li in range(L):
+        p = f"model.layers.{li}."
+        shapes += [(p + "input_layernorm.weight", (h,)),
+                   (p + "self_attn.q_proj.weight", (nh * d, h)),
+                   (p + "self_attn.k_proj.weight", (nkv * d, h)),
+                   (p + "self_attn.v_proj.weight", (nkv * d, h)),
+                   (p + "self_attn.o_proj.weight", (h, nh * d)),
+                   (p + "post_attention_layernorm.weight", (h,)),
+                   (p + "mlp.gate_proj.weight", (inter, h)),
+                   (p + "mlp.up_proj.weight", (inter, h)),
+                   (p + "mlp.down_proj.weight", (h, inter))]
+    shapes += [("model.norm.weight", (h,))]
+    if not cfg.tie_word_embeddings:
+        shapes += [("lm_head.weight", (v, h))]
+
+    def maker(i, shape):
+        def make():
+            g = torch.Generator(device=dev).manual_seed(seed * 100003 + i)
+            x = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+            x = 1.0 + 0.1 * x if len(shape) == 1 else x * shape[-1] ** -0.5
+            return x.to(torch.bfloat16)
+        return make
+
+    return [(name, torch.bfloat16, shape, maker(i, shape))
+            for i, (name, shape) in enumerate(shapes)]
+
+
+def write_hf_checkpoint(torch, d, cfg, entries, shards=CKPT_SHARDS):
+    """``entries`` as ``shards`` files of about equal size, HF's shard
+    names, ``model.safetensors.index.json`` and a ``config.json``. →
+    bytes written."""
+    import math
+    import pathlib
+
+    d = pathlib.Path(d)
+    sizes = [math.prod(shape) * dtype.itemsize for _, dtype, shape, _ in entries]
+    per = sum(sizes) / shards
+    groups, acc = [[] for _ in range(shards)], 0
+    for e, n in zip(entries, sizes):
+        groups[min(shards - 1, int(acc // per))].append(e)
+        acc += n
+    weight_map, total = {}, 0
+    for k, group in enumerate(groups):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        total += write_safetensors(d / fname, group, metadata={"format": "pt"})
+        weight_map.update({name: fname for name, *_ in group})
+    (d / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": sum(sizes)}, "weight_map": weight_map}, indent=2))
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "vocab_size": cfg.vocab_size,
+        "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings, "torch_dtype": "bfloat16"},
+        indent=2))
+    return total
+
+
+# HF layer-tensor suffix → (tree leaf, transposed): phase 17's own map, so
+# its check does not lean on the loader's table
+HF_TO_TREE = {"input_layernorm.weight": ("attn_norm", False),
+              "self_attn.q_proj.weight": ("wq", True), "self_attn.k_proj.weight": ("wk", True),
+              "self_attn.v_proj.weight": ("wv", True), "self_attn.o_proj.weight": ("wo", True),
+              "post_attention_layernorm.weight": ("mlp_norm", False),
+              "mlp.gate_proj.weight": ("w_gate", True), "mlp.up_proj.weight": ("w_up", True),
+              "mlp.down_proj.weight": ("w_down", True)}
+HF_TOP = {"model.embed_tokens.weight": "embedding", "model.norm.weight": "final_norm",
+          "lm_head.weight": "lm_head"}
+
+
+def local_prompts(readme):
+    """Phase 17's requests: six texts and two chats."""
+    texts = ["The quick brown fox jumps over the lazy dog.",
+             "Grüße aus München — 東京 😀 naïve café",
+             readme[:1500],
+             "def f(x):\n    return x * 2\n\nprint(f(21))\n",
+             "12345 67890 3.14159 2.71828",
+             "It's the port's tokenizer; they'll say we've done it ."]
+    chats = [[{"role": "system", "content": "You are brief."},
+              {"role": "user", "content": "What does a paged KV cache hold?"}],
+             [{"role": "user", "content": "Tell me about 東京."},
+              {"role": "assistant", "content": "It is a large city."},
+              {"role": "user", "content": "How large?"}]]
+    return [{"prompt": t} for t in texts] + [{"messages": m} for m in chats]
+
+
+def same_bits_t(torch, a, b):
+    """Two tensors bit for bit (bf16 / f32 / int8 / fp8 alike)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(torch.equal(a.contiguous().view(width), b.contiguous().view(width)))
+
+
+def check_loaded_tree(torch, tree, entries, quantize):
+    """Check (c) of phase 17: every written tensor, made again from its
+    seed, against its place in a loaded tree; with ``quantize`` the matmul
+    weights against ``quantize_params`` of the made slice. → the number of
+    tensors checked."""
+    import re
+
+    from distributed_gpu_inference_torch.ops.quantization import quantize_params
+
+    bad = []
+    for name, _, _, make in entries:
+        w = make()
+        m = re.match(r"^model\.layers\.(\d+)\.(.+)$", name)
+        if m is None:
+            ok = same_bits_t(torch, tree[HF_TOP[name]], w)
+        else:
+            key, transpose = HF_TO_TREE[m.group(2)]
+            li = int(m.group(1))
+            ref = w.t() if transpose else w
+            leaf = tree["layers"][key]
+            if quantize and isinstance(leaf, dict):
+                q = quantize_params({"layers": {key: ref[None].contiguous()}},
+                                    quantize)["layers"][key]
+                ok = (same_bits_t(torch, leaf["qw"][li], q["qw"][0])
+                      and same_bits_t(torch, leaf["scale"][li], q["scale"][0]))
+            else:
+                ok = same_bits_t(torch, leaf[li], ref.contiguous())
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"[local] (c) {len(bad)} tensors differ from the written ones: "
+                             f"{bad[:6]}")
+    return len(entries)
+
+
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def serve_local(torch, llm, requests, stream):
+    """Phase 17's requests one at a time as greedy requests of LOCAL_TOKENS
+    through ``inference``, or through ``stream_inference`` with ``stream``.
+    With the prefix cache off, every run of a request prefills in the same
+    shapes, so runs compute the same bits (a cached prefix would prefill
+    the rest in other chunks, and random-weight logits are full of
+    near-ties). → [(ids, text), ...]."""
+    import asyncio
+
+    recorded = {}
+    real_submit = llm.serving.submit
+
+    def recording_submit(req, *a, **kw):
+        resp = real_submit(req, *a, **kw)
+        recorded["ids"] = list(resp.token_ids)
+        return resp
+
+    async def collect(params):
+        return [c async for c in llm.stream_inference(params)]
+
+    llm.serving.submit = recording_submit
+    out = []
+    try:
+        for i, req in enumerate(requests):
+            params = dict(req, max_new_tokens=LOCAL_TOKENS, temperature=0.0, ignore_eos=True)
+            if stream:
+                chunks = asyncio.run(collect(dict(params, stream_id=f"local-{i}")))
+                body, final = chunks[:-1], chunks[-1]
+                if any("error" in c for c in chunks) or not final.get("done"):
+                    raise AssertionError(f"[local] stream {i} failed: {chunks[-3:]}")
+                ids = [t for c in body for t in c.get("token_ids", [])]
+                if [c["offset"] for c in body] != list(range(1, len(ids) + 1)):
+                    raise AssertionError(f"[local] stream {i}: offsets {[c['offset'] for c in body]}")
+                out.append((ids, "".join(c.get("text_delta", "") for c in body)))
+            else:
+                recorded.clear()
+                payload = llm.inference(params)
+                out.append((recorded["ids"], payload["text"]))
+    finally:
+        del llm.serving.submit
+    for ids, _ in out:
+        if len(ids) != LOCAL_TOKENS:
+            raise AssertionError(f"[local] a request produced {len(ids)} tokens")
+    return out
+
+
+def local_files_phase(torch, pa, smi, cfg=None, device="cuda"):
+    """Phase 17 (see the module docstring): write a checkpoint of ``cfg``
+    (llama3-8b at full depth unless given) and a Llama 3 tokenizer, load
+    both through ``TorchLLMEngine`` with int8 weights and int8 pools, hold
+    the loaded trees to the written tensors and serve. → the kernel
+    launches of the serving run."""
+    import math
+    import pathlib
+    import shutil
+    import tempfile
+
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.models.loader import load_hf_llama
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cfg = cfg or get_model_config("llama3-8b")
+    # the registry's name where the config is the registry's
+    model = cfg.name if cfg == get_model_config(cfg.name) else cfg
+    entries = hf_llama_entries(torch, cfg, dev)
+    need = sum(math.prod(shape) * dtype.itemsize for _, dtype, shape, _ in entries)
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    print(f"[local] {cfg.name}: {cfg.num_layers} layers, checkpoint of {need} bytes of "
+          f"tensors; {free} bytes free under {root}", flush=True)
+    if free < need + (2 << 30):
+        raise AssertionError(f"[local] {free} bytes free under {root}; the checkpoint needs "
+                             f"{need} bytes and 2 GiB to spare")
+    readme = pathlib.Path(__file__).with_name("README.md").read_text(encoding="utf-8")
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root))
+    llm = plain = tree = None
+    try:
+        # ---- (a) write the checkpoint and the tokenizer
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(torch, d, cfg, entries)
+        t_ck = time.perf_counter() - t0
+        n_merges = write_llama3_tokenizer(d, readme)
+        print(f"[local] (a) wrote {written} bytes in {CKPT_SHARDS} shards + index in "
+              f"{t_ck:.1f} s ({written / t_ck / 1e9:.2f} GB/s, drawn on the card); "
+              f"tokenizer.json with {n_merges} merges learned from README.md, the vocab "
+              f"filled to 128000, {len(LLAMA3_SPECIALS)} special tokens from 128000", flush=True)
+
+        # ---- (b) load through TorchLLMEngine: int8 weights, int8 pools
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        at_pools = {}
+        real_pools = llama.init_kv_pools
+
+        def pools_hook(*a, **kw):
+            torch.cuda.synchronize()
+            at_pools.setdefault("t", time.perf_counter())
+            at_pools.setdefault("peak", torch.cuda.max_memory_allocated())
+            return real_pools(*a, **kw)
+
+        llama.init_kv_pools = pools_hook
+        try:
+            t0 = time.perf_counter()
+            llm = TorchLLMEngine({
+                "model": model, "checkpoint_path": str(d),
+                "tokenizer_id": str(d), "quantization": "int8", "kv_cache_dtype": "int8",
+                "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ, "device": device,
+                "prefix_summary_top_n": 0, "enable_prefix_cache": False})
+            llm.load_model()
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+        finally:
+            llama.init_kv_pools = real_pools
+        t_weights = at_pools["t"] - t0
+        qbytes = tree_bytes(llm.engine.params)
+        peak = at_pools["peak"] - base
+        print(f"[local] (b) TorchLLMEngine loaded in {t_load:.2f} s (weights and tokenizer "
+              f"{t_weights:.2f} s = {need / t_weights / 1e9:.2f} GB/s of file bytes); peak "
+              f"device memory before the KV pools {peak} bytes against the int8 tree's "
+              f"{qbytes} bytes (+{peak - qbytes}) ({smi})", flush=True)
+
+        # ---- (c) the loaded trees against the written tensors
+        n = check_loaded_tree(torch, llm.engine.params, entries, "int8")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = load_hf_llama(d, cfg, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        t_bf16 = time.perf_counter() - t0
+        check_loaded_tree(torch, tree, entries, None)
+        print(f"[local] (c) int8 codes and scales of all {n} tensors bit-identical to "
+              f"quantize_params of the drawn tensors; a bf16 load ({t_bf16:.2f} s = "
+              f"{need / t_bf16 / 1e9:.2f} GB/s) bit-identical to the written tensors, leaf "
+              f"by leaf", flush=True)
+
+        # ---- (d) serve, against an engine given the same tree as params=
+        requests = local_prompts(readme)
+        tok = llm.tokenizer
+        t0 = time.perf_counter()
+        encoded = [tok.encode(llm._to_prompt(r.get("messages") or r["prompt"]))
+                   for r in requests]
+        t_enc = time.perf_counter() - t0
+        pa.reset_launch_counts()
+        got = serve_local(torch, llm, requests, stream=False)
+        streamed = serve_local(torch, llm, requests, stream=True)
+        torch.cuda.synchronize()
+        launches = pa.launch_counts()
+        print(f"[local] (d) kernel launches over the serving run: {launches}", flush=True)
+        check_counts("local", launches, qmm=True)
+        plain = TorchLLMEngine({
+            "model": model, "params": tree,
+            "tokenizer_id": str(d), "quantization": "int8", "kv_cache_dtype": "int8",
+            "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ, "device": device,
+            "prefix_summary_top_n": 0, "enable_prefix_cache": False})
+        plain.load_model()
+        want = serve_local(torch, plain, requests, stream=False)
+        t0 = time.perf_counter()
+        decoded = [tok.decode(ids) for ids, _ in got]
+        t_dec = time.perf_counter() - t0
+        for i, ((ids, text), (sids, stext), (pids, _)) in enumerate(zip(got, streamed, want)):
+            if ids != pids:
+                raise AssertionError(f"[local] request {i}: ids {ids} differ from the params= "
+                                     f"engine's {pids}")
+            if sids != ids or stext != tok.decode(sids) or text != decoded[i]:
+                raise AssertionError(f"[local] request {i}: stream ids / text disagree with "
+                                     f"inference ({sids} vs {ids}; {stext!r} vs {text!r})")
+        print(f"[local] (d) {len(requests)} requests ({len(requests) - 2} texts, 2 chats; prompts "
+              f"of {[len(e) for e in encoded]} tokens) x {LOCAL_TOKENS} greedy tokens through "
+              f"inference and stream_inference: ids equal to the params= engine's, stream text "
+              f"= decode(ids); tokenizer on the host: encode {t_enc * 1e3:.2f} ms and decode "
+              f"{t_dec * 1e3:.2f} ms for the 8 (information); e.g. {got[1][1][:60]!r}",
+              flush=True)
+        print(f"[local] phase ran in {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+        return launches
+    finally:
+        for eng in (llm, plain):
+            if eng is not None:
+                eng.unload()
+        del llm, plain, tree
+        torch.cuda.empty_cache()
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3861,6 +4391,9 @@ def main() -> int:
 
     # ---- 15. speculative decoding: integrated rounds and the tree decoder
     kernels += spec_phase(torch, pa, smi, prompts, lengths)
+
+    # ---- 17. weights and tokenizer from local files
+    local_files_phase(torch, pa, smi)
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -65,6 +65,7 @@ from distributed_gpu_inference_torch.models.configs import (
     ModelConfig,
     get_model_config,
 )
+from distributed_gpu_inference_torch.models.loader import load_or_init_params
 from distributed_gpu_inference_torch.ops.paged_attention import kernel_takes
 from distributed_gpu_inference_torch.ops.quantization import (
     QUANT_MODES,
@@ -367,14 +368,19 @@ class TorchEngine:
         seed: int = 0,
         eos_token_id: Optional[int] = None,
         device: Any = "cuda",
+        checkpoint_path: Optional[str] = None,
     ) -> None:
         """``params``: a params tree in the JAX package's layout, already
-        on ``device`` (``models.convert.params_from_numpy`` builds one);
-        random init from ``seed`` when absent. With
+        on ``device`` (``models.convert.params_from_numpy`` builds one).
+        ``checkpoint_path``: an HF safetensors directory, loaded by
+        ``models/loader.py`` straight onto ``device`` (an orbax checkpoint
+        is refused: it is JAX-only). With neither, a random init from
+        ``seed``; giving both is an error. With
         ``EngineConfig.quantization`` the matmul weights are quantized on
-        load: a random init is consumed leaf by leaf (the peak is the
-        full-precision tree plus one quantized leaf); a caller's tree is
-        left as it was."""
+        load: a checkpoint slice by slice as it is read (the full-precision
+        leaf is never built), a random init leaf by leaf as it is consumed
+        (the peak is the full-precision tree plus one quantized leaf); a
+        caller's tree is left as it was."""
         self.device = resolve_device(device)
         self.model_cfg = (
             get_model_config(model_cfg) if isinstance(model_cfg, str) else model_cfg
@@ -392,12 +398,12 @@ class TorchEngine:
         if mode is not None and mode not in QUANT_MODES:
             raise ValueError(f"unknown quantization {mode!r}; use {QUANT_MODES}")
         if params is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            params = quantize_params(
-                llama.init_params(self.model_cfg, gen, self.dtype, self.device),
-                mode, consume=True,
+            params = load_or_init_params(
+                self.model_cfg, checkpoint_path, dtype=self.dtype, seed=seed,
+                device=self.device, quantization=mode,
             )
+        elif checkpoint_path:
+            raise ValueError("give params or checkpoint_path, not both")
         else:
             params = quantize_params(params, mode)
         self.params = params

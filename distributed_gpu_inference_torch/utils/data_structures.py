@@ -3,8 +3,9 @@
 The port's own copy of the parts of
 ``distributed_gpu_inference_tpu/utils/data_structures.py`` that the engine,
 the block manager, the batcher and the worker read: the worker's lifecycle
-state and topology record, sampling controls, requests, responses, per-page block
-metadata and the prefix hash. Pure Python.
+state and topology record, the layer range a checkpoint load takes,
+sampling controls, requests, responses, per-page block metadata and the
+prefix hash. Pure Python.
 """
 
 from __future__ import annotations
@@ -34,6 +35,27 @@ class JobType(str, Enum):
     VISION = "vision"
     ASR = "asr"
     IMAGE_GEN = "image_gen"
+
+
+@dataclass(frozen=True)
+class BlockRange:
+    """A contiguous half-open range of transformer layers ``[start, end)``:
+    the layers a pipeline stage owns, and the layers
+    ``models/loader.py`` ``load_hf_llama`` reads."""
+
+    start: int
+    end: int
+
+    def __post_init__(self) -> None:
+        if self.start < 0 or self.end < self.start:
+            raise ValueError(f"invalid layer range [{self.start}, {self.end})")
+
+    @property
+    def num_layers(self) -> int:
+        return self.end - self.start
+
+    def __contains__(self, layer: int) -> bool:
+        return self.start <= layer < self.end
 
 
 @dataclass

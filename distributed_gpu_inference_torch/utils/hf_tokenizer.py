@@ -1,0 +1,574 @@
+"""Byte-level BPE tokenizers from a local directory (``tokenizer.json`` and
+``tokenizer_config.json``), with their chat templates.
+
+The port's stand-in for what the JAX package's worker gets from
+``transformers.AutoTokenizer.from_pretrained(local_dir)``
+(``distributed_gpu_inference_tpu/worker/engines/llm.py``
+``_load_hf_tokenizer``). The card's machine has no ``tokenizers``,
+``transformers`` or ``regex``, so the pipeline is read from the JSON and run
+here, for the byte-level BPE tokenizers of the families in
+``models/configs.py`` (Llama 3, Qwen 2.5) and GPT-2's:
+
+- added tokens (``special``, ``lstrip``, ``rstrip``, ``single_word``,
+  ``normalized``) are split out first, leftmost-longest, the unnormalized
+  ones on the raw text and the normalized ones after the normalizer;
+- normalizer: none, a Unicode normal form (NFC, ...) or a ``Sequence`` of
+  them;
+- pre-tokenizer: ``Split`` on a regex with the ``Isolated`` behaviour,
+  ``ByteLevel`` (with or without GPT-2's split regex), or a ``Sequence``.
+  The patterns use Oniguruma's ``\\p{L}`` / ``\\p{N}`` classes, which
+  Python's ``re`` lacks: they are rebuilt from ``unicodedata`` as ``re``
+  ranges, and ``\\s`` is spelled out as Unicode's White_Space set (Python's
+  ``\\s`` also takes U+001C-U+001F, Oniguruma's does not);
+- model: BPE over the byte-level alphabet, merges as ``"a b"`` strings or
+  ``[a, b]`` pairs, the lowest-ranked adjacent pair merged first (leftmost
+  among equals), and ``ignore_merges`` (a whole pre-token in the vocab is
+  one id);
+- post-processor: ``TemplateProcessing`` (the BOS of Llama 3),
+  ``ByteLevel`` (ids unchanged) or a ``Sequence``;
+- decoder: ``ByteLevel``. Added tokens are emitted as their text, outside
+  the decoder, and each run of model tokens between them is decoded on its
+  own, invalid UTF-8 becoming U+FFFD (the stream splicer holds a trailing
+  U+FFFD back); ``clean_up_tokenization_spaces`` applies transformers'
+  replacements.
+
+``apply_chat_template`` renders the template as transformers does: a
+sandboxed ``jinja2`` environment with ``trim_blocks`` and ``lstrip_blocks``,
+loop controls, its ``tojson`` filter, ``raise_exception`` and
+``strftime_now``, and the special tokens as variables. The template is
+read from ``chat_template.jinja``, else from ``tokenizer_config.json``
+(a string, or a list of ``{name, template}``). ``jinja2`` is imported when
+a tokenizer with a template loads; without a template the call raises, as
+transformers does.
+
+Anything else (SentencePiece-style pieces: ``byte_fallback``,
+``Metaspace``, ``Prepend`` / ``Replace`` normalizers, Unigram or WordPiece
+models) is refused at load with :class:`TokenizerUnsupported` naming the
+component.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import re
+import unicodedata
+from datetime import datetime
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+
+class TokenizerUnsupported(ValueError):
+    """The directory's tokenizer uses a component this reader does not
+    have."""
+
+
+# Unicode's White_Space property: what Oniguruma's and Rust's \s and
+# is_whitespace match (Python's re \s also takes U+001C-U+001F)
+_WS_CLASS = (r"\t\n\x0b\x0c\r\x20\x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f"
+             r"\u205f\u3000")
+_WS = frozenset("\t\n\x0b\x0c\r \x85\xa0\u1680\u2028\u2029\u202f\u205f\u3000"
+                + "".join(map(chr, range(0x2000, 0x200B))))
+
+# GPT-2's split pattern (ByteLevel with use_regex=true)
+_GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+"
+                 r"|\s+(?!\S)|\s+")
+
+# transformers' clean_up_tokenization, in its order
+_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+            (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+            (" 're", "'re"))
+
+_SPECIAL_ATTRS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
+                  "cls_token", "mask_token")
+
+
+@functools.cache
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's map of the 256 byte values to printable characters."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+@functools.cache
+def _unicode_to_bytes() -> Dict[str, int]:
+    return {c: b for b, c in _bytes_to_unicode().items()}
+
+
+@functools.cache
+def _category_class(name: str) -> str:
+    """``re`` character-class ranges (no brackets) of the code points whose
+    general category is ``name`` (``L``, ``N``) or starts with it."""
+    ranges: List[Tuple[int, int]] = []
+    for cp in range(0x110000):
+        if unicodedata.category(chr(cp)).startswith(name):
+            if ranges and ranges[-1][1] == cp - 1:
+                ranges[-1] = (ranges[-1][0], cp)
+            else:
+                ranges.append((cp, cp))
+    if not ranges:
+        raise TokenizerUnsupported(f"unknown Unicode property \\p{{{name}}}")
+    return "".join(f"\\U{lo:08x}" if lo == hi else f"\\U{lo:08x}-\\U{hi:08x}"
+                   for lo, hi in ranges)
+
+
+def translate_pattern(pattern: str) -> str:
+    """An Oniguruma pattern of a ``tokenizer.json`` → the same pattern for
+    Python's ``re``: ``\\p{X}`` / ``\\P{X}`` become category ranges and
+    ``\\s`` / ``\\S`` the White_Space set, inside and outside classes."""
+    out: List[str] = []
+    in_class = False
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\" and i + 1 < len(pattern):
+            e = pattern[i + 1]
+            if e in "pP":
+                m = re.match(r"\{\^?(\w+)\}", pattern[i + 2:])
+                if not m:
+                    raise TokenizerUnsupported(f"regex escape at {i} of {pattern!r}")
+                rng = _category_class(m.group(1))
+                negated = (e == "P") != m.group(0).startswith("{^")
+                if in_class:
+                    if negated:
+                        raise TokenizerUnsupported(
+                            f"a negated property inside a class in {pattern!r}")
+                    out.append(rng)
+                else:
+                    out.append(f"[{'^' if negated else ''}{rng}]")
+                i += 2 + len(m.group(0))
+                continue
+            if e in "sS":
+                if in_class:
+                    if e == "S":
+                        raise TokenizerUnsupported(f"\\S inside a class in {pattern!r}")
+                    out.append(_WS_CLASS)
+                else:
+                    out.append(f"[{'^' if e == 'S' else ''}{_WS_CLASS}]")
+                i += 2
+                continue
+            out.append(pattern[i:i + 2])
+            i += 2
+            continue
+        if c == "[" and not in_class:
+            in_class = True
+            out.append(c)
+            i += 1
+            if pattern[i:i + 1] == "^":
+                out.append("^")
+                i += 1
+            if pattern[i:i + 1] == "]":       # a leading ] is a literal
+                out.append("\\]")
+                i += 1
+            continue
+        if c == "]" and in_class:
+            in_class = False
+        elif c == "[" and in_class:
+            raise TokenizerUnsupported(f"a nested class in {pattern!r}")
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def _isolated_split(rx: "re.Pattern[str]", piece: str) -> List[str]:
+    """``Split(..., behavior="Isolated")``: every match and every stretch
+    between matches is a piece of its own."""
+    out: List[str] = []
+    last = 0
+    for m in rx.finditer(piece):
+        if m.start() > last:
+            out.append(piece[last:m.start()])
+        if m.end() > m.start():
+            out.append(m.group(0))
+        last = m.end()
+    if last < len(piece):
+        out.append(piece[last:])
+    return out
+
+
+def _normalizer(spec: Optional[Dict[str, Any]]) -> Callable[[str], str]:
+    if spec is None:
+        return lambda s: s
+    kind = spec.get("type")
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
+        return functools.partial(unicodedata.normalize, kind)
+    if kind == "Sequence":
+        steps = [_normalizer(s) for s in spec.get("normalizers", [])]
+        return functools.reduce(lambda f, g: (lambda s: g(f(s))), steps, lambda s: s)
+    raise TokenizerUnsupported(f"normalizer {kind!r}")
+
+
+def _pre_tokenizer(spec: Optional[Dict[str, Any]]) -> List[Callable[[str], List[str]]]:
+    """The pre-tokenizer as a list of steps, each mapping one piece to its
+    pieces; ByteLevel's last step maps the bytes to the BPE alphabet."""
+    if spec is None:
+        return []
+    kind = spec.get("type")
+    if kind == "Sequence":
+        return [step for s in spec.get("pretokenizers", []) for step in _pre_tokenizer(s)]
+    if kind == "Split":
+        if spec.get("behavior") != "Isolated" or spec.get("invert"):
+            raise TokenizerUnsupported(
+                f"Split behavior {spec.get('behavior')!r} (invert={spec.get('invert')})")
+        pat = spec.get("pattern", {})
+        if "Regex" not in pat:
+            raise TokenizerUnsupported(f"Split pattern {pat!r} (a Regex is read)")
+        rx = re.compile(translate_pattern(pat["Regex"]))
+        return [functools.partial(_isolated_split, rx)]
+    if kind == "ByteLevel":
+        steps: List[Callable[[str], List[str]]] = []
+        if spec.get("add_prefix_space"):
+            steps.append(lambda p: [p if p.startswith(" ") else " " + p])
+        if spec.get("use_regex", True):
+            rx = re.compile(translate_pattern(_GPT2_PATTERN))
+            steps.append(functools.partial(_isolated_split, rx))
+        table = _bytes_to_unicode()
+        steps.append(lambda p: ["".join(table[b] for b in p.encode("utf-8"))])
+        return steps
+    raise TokenizerUnsupported(f"pre-tokenizer {kind!r}")
+
+
+def _post_processor(spec: Optional[Dict[str, Any]]) -> Callable[[List[int]], List[int]]:
+    if spec is None:
+        return lambda ids: ids
+    kind = spec.get("type")
+    if kind == "ByteLevel":          # offsets only: the ids are unchanged
+        return lambda ids: ids
+    if kind == "Sequence":
+        steps = [_post_processor(s) for s in spec.get("processors", [])]
+        return functools.reduce(lambda f, g: (lambda ids: g(f(ids))), steps,
+                                lambda ids: ids)
+    if kind == "TemplateProcessing":
+        specials = {k: list(v["ids"]) for k, v in spec.get("special_tokens", {}).items()}
+        parts: List[Optional[List[int]]] = []
+        for item in spec.get("single", []):
+            if "SpecialToken" in item:
+                parts.append(specials[item["SpecialToken"]["id"]])
+            elif item.get("Sequence", {}).get("id") == "A":
+                parts.append(None)
+            else:
+                raise TokenizerUnsupported(f"TemplateProcessing piece {item!r}")
+        return lambda ids: [t for p in parts for t in (ids if p is None else p)]
+    raise TokenizerUnsupported(f"post-processor {kind!r}")
+
+
+def _token_text(value: Any) -> Optional[str]:
+    """A special token of ``tokenizer_config.json``: a string, or an
+    ``AddedToken`` dict with its ``content``."""
+    if isinstance(value, dict):
+        return value.get("content")
+    return value if isinstance(value, str) else None
+
+
+class _AddedToken:
+    __slots__ = ("id", "content", "special", "lstrip", "rstrip", "single_word",
+                 "normalized")
+
+    def __init__(self, spec: Dict[str, Any]) -> None:
+        self.id = int(spec["id"])
+        self.content = spec["content"]
+        self.special = bool(spec.get("special", False))
+        self.lstrip = bool(spec.get("lstrip", False))
+        self.rstrip = bool(spec.get("rstrip", False))
+        self.single_word = bool(spec.get("single_word", False))
+        self.normalized = bool(spec.get("normalized", not self.special))
+
+
+def _is_word_char(c: str) -> bool:
+    return c.isalnum() or c == "_"
+
+
+class HFTokenizer:
+    """A byte-level BPE tokenizer read from a local directory. The surface
+    the LLM engine calls: :meth:`encode` (the post-processor's special
+    tokens added, as transformers' default), :meth:`decode` (special tokens
+    kept), :meth:`apply_chat_template`, ``eos_token_id``, ``bos_token_id``
+    and ``vocab_size`` (the model's vocab without added tokens)."""
+
+    def __init__(self, tokenizer: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
+                 chat_template: Any = None, name: str = "tokenizer") -> None:
+        config = dict(config or {})
+        self.name = name
+        model = tokenizer.get("model") or {}
+        if model.get("type") != "BPE":
+            raise TokenizerUnsupported(f"model {model.get('type')!r} (only BPE is read)")
+        if model.get("byte_fallback"):
+            raise TokenizerUnsupported("BPE byte_fallback (a SentencePiece-style vocab)")
+        for key in ("continuing_subword_prefix", "end_of_word_suffix"):
+            if model.get(key):
+                raise TokenizerUnsupported(f"BPE {key}={model[key]!r}")
+        if model.get("dropout"):
+            raise TokenizerUnsupported(f"BPE dropout={model['dropout']}")
+        decoder = tokenizer.get("decoder") or {}
+        if decoder.get("type") != "ByteLevel":
+            raise TokenizerUnsupported(f"decoder {decoder.get('type')!r}")
+
+        self.vocab: Dict[str, int] = dict(model.get("vocab", {}))
+        self.id_to_token: Dict[int, str] = {i: t for t, i in self.vocab.items()}
+        self.vocab_size = len(self.vocab)
+        self._ranks: Dict[Tuple[str, str], int] = {}
+        for rank, merge in enumerate(model.get("merges", [])):
+            a, b = merge.split(" ") if isinstance(merge, str) else merge
+            if a + b not in self.vocab:
+                raise ValueError(f"{name}: merge {a!r} {b!r} makes a token not in the vocab")
+            self._ranks.setdefault((a, b), rank)
+        self.ignore_merges = bool(model.get("ignore_merges", False))
+        self._unk = model.get("unk_token")
+        self._cache: Dict[str, List[int]] = {}
+
+        self.added = [_AddedToken(t) for t in tokenizer.get("added_tokens", [])]
+        # the `tokenizers` library numbers added tokens itself: a token of
+        # the vocab keeps its id, a new one takes the next id past the
+        # vocab. An id in the file that disagrees would encode differently
+        # here and there, so it is refused.
+        next_id, seen = len(self.vocab), {}
+        for t in self.added:
+            want = self.vocab.get(t.content, seen.get(t.content))
+            if want is None:
+                want = seen[t.content] = next_id
+                next_id += 1
+            if t.id != want:
+                raise ValueError(f"{name}: added token {t.content!r} has id {t.id}, but "
+                                 f"its place in the vocab gives it {want}")
+        self.added_by_id = {t.id: t for t in self.added}
+        self.added_by_text = {t.content: t for t in self.added}
+        self._added_rx = {
+            norm: self._alternation([t for t in self.added if t.normalized == norm])
+            for norm in (False, True)}
+
+        self.normalize = _normalizer(tokenizer.get("normalizer"))
+        pre = tokenizer.get("pre_tokenizer")
+        # transformers resets a top-level add_prefix_space to the config's
+        # (default False) when they differ
+        if isinstance(pre, dict) and "add_prefix_space" in pre:
+            pre = dict(pre, add_prefix_space=bool(config.get("add_prefix_space", False)))
+        self._pre = _pre_tokenizer(pre)
+        self._post = _post_processor(tokenizer.get("post_processor"))
+
+        self.clean_up_tokenization_spaces = bool(config.get("clean_up_tokenization_spaces",
+                                                            False))
+        self.special_tokens: Dict[str, Any] = {}
+        for attr in _SPECIAL_ATTRS:
+            text = _token_text(config.get(attr))
+            if text:
+                self.special_tokens[attr] = text
+        extra = [_token_text(t) for t in config.get("additional_special_tokens") or []]
+        if any(extra):
+            self.special_tokens["additional_special_tokens"] = [t for t in extra if t]
+        self.bos_token_id = self.token_to_id(self.special_tokens.get("bos_token"))
+        self.eos_token_id = self.token_to_id(self.special_tokens.get("eos_token"))
+
+        if isinstance(chat_template, list):
+            chat_template = {t["name"]: t["template"] for t in chat_template}
+        self.chat_template = chat_template
+        self._compiled: Dict[str, Any] = {}
+        if chat_template is not None:
+            _jinja()       # a tokenizer with a template needs jinja2 to load
+
+    @staticmethod
+    def _alternation(tokens: Sequence[_AddedToken]) -> Optional["re.Pattern[str]"]:
+        # longest first: re's leftmost-first alternation is then
+        # leftmost-longest, as the added vocabulary's matcher
+        texts = sorted({t.content for t in tokens if t.content}, key=len, reverse=True)
+        return re.compile("|".join(map(re.escape, texts))) if texts else None
+
+    @classmethod
+    def from_dir(cls, path: str | Path) -> "HFTokenizer":
+        p = Path(path)
+        tok_file = p / "tokenizer.json"
+        if not tok_file.is_file():
+            raise FileNotFoundError(f"no tokenizer.json in {p}")
+        tokenizer = json.loads(tok_file.read_text(encoding="utf-8"))
+        cfg_file = p / "tokenizer_config.json"
+        config = (json.loads(cfg_file.read_text(encoding="utf-8"))
+                  if cfg_file.is_file() else {})
+        legacy = p / "special_tokens_map.json"
+        if legacy.is_file():
+            for key, value in json.loads(legacy.read_text(encoding="utf-8")).items():
+                config.setdefault(key, value)
+        jinja_file = p / "chat_template.jinja"
+        template = (jinja_file.read_text(encoding="utf-8") if jinja_file.is_file()
+                    else config.get("chat_template"))
+        return cls(tokenizer, config, template, name=str(p))
+
+    def token_to_id(self, token: Optional[str]) -> Optional[int]:
+        if token is None:
+            return None
+        if token in self.added_by_text:
+            return self.added_by_text[token].id
+        return self.vocab.get(token)
+
+    # -- encode ---------------------------------------------------------------
+
+    def _split_added(self, text: str, normalized: bool
+                     ) -> List[Tuple[Optional[int], str]]:
+        """``text`` as (added token id or None, piece) in order: the
+        added-vocabulary matcher with its lstrip / rstrip / single_word
+        rules."""
+        rx = self._added_rx[normalized]
+        if rx is None or not text:
+            return [(None, text)]
+        out: List[Tuple[Optional[int], str]] = []
+        start_offset = 0
+        for m in rx.finditer(text):
+            tok = self.added_by_text[m.group(0)]
+            start, stop = m.start(), m.end()
+            if tok.single_word and (
+                    (start > 0 and _is_word_char(text[start - 1]))
+                    or (stop < len(text) and _is_word_char(text[stop]))):
+                continue
+            if tok.lstrip:
+                j = start
+                while j > 0 and text[j - 1] in _WS:
+                    j -= 1
+                start = max(j, start_offset)
+            if tok.rstrip:
+                while stop < len(text) and text[stop] in _WS:
+                    stop += 1
+            if start_offset < start:
+                out.append((None, text[start_offset:start]))
+            out.append((tok.id, text[start:stop]))
+            start_offset = stop
+        if start_offset < len(text):
+            out.append((None, text[start_offset:]))
+        return out
+
+    def _bpe(self, word: str) -> List[int]:
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        hit = self._cache.get(word)
+        if hit is not None:
+            return hit
+        syms: List[str] = []
+        for c in word:
+            if c in self.vocab:
+                syms.append(c)
+            elif self._unk is not None:
+                syms.append(self._unk)
+        while len(syms) > 1:
+            best, at = None, -1
+            for i in range(len(syms) - 1):
+                r = self._ranks.get((syms[i], syms[i + 1]))
+                if r is not None and (best is None or r < best):
+                    best, at = r, i
+            if best is None:
+                break
+            syms[at:at + 2] = [syms[at] + syms[at + 1]]
+        ids = [self.vocab[s] for s in syms if s in self.vocab]
+        if len(self._cache) < 1 << 16:
+            self._cache[word] = ids
+        return ids
+
+    def _encode_piece(self, text: str) -> List[int]:
+        pieces = [text]
+        for step in self._pre:
+            pieces = [q for p in pieces for q in step(p)]
+        return [i for p in pieces for i in self._bpe(p)]
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        ids: List[int] = []
+        for tid, raw in self._split_added(text, normalized=False):
+            if tid is not None:
+                ids.append(tid)
+                continue
+            for nid, piece in self._split_added(self.normalize(raw), normalized=True):
+                if nid is not None:
+                    ids.append(nid)
+                elif piece:
+                    ids.extend(self._encode_piece(piece))
+        return self._post(ids) if add_special_tokens else ids
+
+    # -- decode ---------------------------------------------------------------
+
+    @staticmethod
+    def _byte_level_decode(tokens: List[str]) -> str:
+        table = _unicode_to_bytes()
+        data = bytearray()
+        for t in tokens:
+            if all(c in table for c in t):
+                data.extend(table[c] for c in t)
+            else:
+                data.extend(t.encode("utf-8"))
+        return data.decode("utf-8", errors="replace")
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        out: List[str] = []
+        chunk: List[str] = []
+        for i in ids:
+            i = int(i)
+            added = self.added_by_id.get(i)
+            if added is not None:
+                out.append(self._byte_level_decode(chunk))
+                chunk = []
+                if not (skip_special_tokens and added.special):
+                    out.append(added.content)
+            elif i in self.id_to_token:
+                chunk.append(self.id_to_token[i])
+        out.append(self._byte_level_decode(chunk))
+        text = "".join(out)
+        if self.clean_up_tokenization_spaces:
+            for a, b in _CLEANUP:
+                text = text.replace(a, b)
+        return text
+
+    # -- chat template ----------------------------------------------------------
+
+    def _template(self) -> str:
+        tmpl = self.chat_template
+        if isinstance(tmpl, dict):
+            if "default" not in tmpl:
+                raise ValueError(
+                    "This model has multiple chat templates with no default specified! "
+                    f"Available template names are {sorted(tmpl)}.")
+            return tmpl["default"]
+        if tmpl is None:
+            raise ValueError(
+                "Cannot use chat template functions because tokenizer.chat_template is "
+                f"not set ({self.name} has no chat template)")
+        return tmpl
+
+    def apply_chat_template(self, messages: List[Dict[str, Any]], tokenize: bool = False,
+                            add_generation_prompt: bool = False, **kwargs: Any) -> Any:
+        source = self._template()
+        compiled = self._compiled.get(source)
+        if compiled is None:
+            compiled = self._compiled[source] = _jinja().from_string(source)
+        text = compiled.render(messages=messages, tools=None, documents=None,
+                               add_generation_prompt=add_generation_prompt,
+                               **{**self.special_tokens, **kwargs})
+        return self.encode(text, add_special_tokens=False) if tokenize else text
+
+
+@functools.cache
+def _jinja() -> Any:
+    """transformers' chat-template environment (``jinja2`` is imported
+    here, not with the module)."""
+    try:
+        import jinja2
+        import jinja2.ext
+        from jinja2.sandbox import ImmutableSandboxedEnvironment
+    except ImportError as exc:
+        raise TokenizerUnsupported(f"chat templates need jinja2: {exc}") from None
+
+    def raise_exception(message: str) -> None:
+        raise jinja2.exceptions.TemplateError(message)
+
+    def tojson(x: Any, ensure_ascii: bool = False, indent: Any = None,
+               separators: Any = None, sort_keys: bool = False) -> str:
+        return json.dumps(x, ensure_ascii=ensure_ascii, indent=indent,
+                          separators=separators, sort_keys=sort_keys)
+
+    env = ImmutableSandboxedEnvironment(
+        trim_blocks=True, lstrip_blocks=True, extensions=[jinja2.ext.loopcontrols])
+    env.filters["tojson"] = tojson
+    env.globals["raise_exception"] = raise_exception
+    env.globals["strftime_now"] = lambda fmt: datetime.now().strftime(fmt)
+    return env

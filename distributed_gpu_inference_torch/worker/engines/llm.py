@@ -50,9 +50,21 @@ Speculative decoding, in either of the JAX engine's two modes:
 
 The two are mutually exclusive. ``load_model`` refuses, with
 :class:`EngineLoadError` naming the key, what this port does not serve
-rather than ignoring it: ``tokenizer_id`` (needs ``transformers``),
-``spec_distill_steps`` (draft distillation is training), tensor parallelism
-and the per-step ``serving.mode: direct`` stream loop.
+rather than ignoring it: ``spec_distill_steps`` (draft distillation is
+training), tensor parallelism and the per-step ``serving.mode: direct``
+stream loop.
+
+Weights and tokenizer from local files: ``checkpoint_path`` names an HF
+safetensors directory that ``TorchEngine`` loads onto the card, quantized
+slice by slice as it is read when ``quantization`` is set
+(``models/loader.py``); an orbax directory is JAX-only and refused.
+``tokenizer_id`` names a local directory whose ``tokenizer.json`` /
+``tokenizer_config.json`` / chat template ``utils/hf_tokenizer.py`` reads
+(byte-level BPE: Llama 3, Qwen 2.5, GPT-2); a hub id, or a tokenizer this
+reader does not have, raises :class:`EngineLoadError` naming the key. No
+path falls back: not to ``ByteTokenizer`` (used only when neither
+``tokenizer`` nor ``tokenizer_id`` is given), not to joined messages, not
+to random weights.
 
 Prefill/decode disaggregation and cluster KV migration
 (``runtime/kv_handoff.py``, the data plane in ``comm/data_plane.py``):
@@ -90,6 +102,7 @@ import random
 import threading
 import time
 import uuid
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 from distributed_gpu_inference_torch.comm.data_plane import (
@@ -148,6 +161,7 @@ from distributed_gpu_inference_torch.utils.data_structures import (
     InferenceRequest,
     SamplingParams,
 )
+from distributed_gpu_inference_torch.utils.hf_tokenizer import HFTokenizer
 from distributed_gpu_inference_torch.utils.prefixes import (
     canonical_prompt_text,
     prefix_fingerprints,
@@ -189,19 +203,28 @@ SERVING_REMOTE_KEYS: Dict[str, str] = {
     "predictive_abandon": "predictive_abandon",
 }
 
-# engine config keys of paths the port does not have: refused at load when
-# set, naming the key, never ignored
-_UNPORTED_CONFIG = {
-    "tokenizer_id": "a tokenizer loaded through transformers",
-}
-
-
 def _truthy(value: Any) -> bool:
     """A pushed or configured flag: strings by content (bool("false") is
     True)."""
     if isinstance(value, str):
         return value.strip().lower() in ("1", "true", "yes", "on", "t", "y")
     return bool(value)
+
+
+def _load_hf_tokenizer(tokenizer_id: str) -> HFTokenizer:
+    """The tokenizer of a local directory. The JAX engine calls
+    ``AutoTokenizer.from_pretrained``, which may download; the port reads
+    only local files, and anything it cannot load raises."""
+    if not Path(tokenizer_id).is_dir():
+        raise EngineLoadError(
+            f"cannot load tokenizer {tokenizer_id!r} (tokenizer_id): not a local "
+            "directory; the PyTorch port reads tokenizer.json from a local directory "
+            "and downloads nothing")
+    try:
+        return HFTokenizer.from_dir(tokenizer_id)
+    except (OSError, ValueError, KeyError) as exc:
+        raise EngineLoadError(
+            f"cannot load tokenizer {tokenizer_id!r} (tokenizer_id): {exc}") from exc
 
 
 def _raise_serving(resp: Any) -> None:
@@ -374,18 +397,21 @@ class _CheckpointPusher:
 
 
 class TorchLLMEngine(LLMBaseEngine):
-    """config keys: model (name in the models/configs registry), tokenizer,
-    max_batch_size, max_seq_len, multi_step, enable_prefix_cache,
-    prefill_buckets, num_blocks, dtype, quantization (int8 | fp8 weight-only,
-    ``ops/quantization.py``), kv_cache_dtype (int8 | fp8 | None = dtype),
-    kv_spill_host_blocks (the host-RAM L2 tier, 0 = none), kv_remote_url
-    (the L3 tier: ``redis://host:port/db`` or ``memory://``),
-    kv_remote_ttl_s, device (default ``cuda``), seed,
-    params (a params tree already on the device, e.g. from
-    ``models.convert.params_from_numpy``; random init from ``seed`` when
-    absent), checkpoint_interval_tokens (the stream checkpoint cadence, 0 =
-    the admission checkpoint only), prefix_summary_top_n (the radix
-    summary's size, 0 = no summary), the ``serving`` knobs of
+    """config keys: model (name in the models/configs registry), tokenizer
+    (an object with encode/decode) or tokenizer_id (a local tokenizer
+    directory), checkpoint_path (a local HF safetensors directory; both
+    also under ``extra``, which wins), max_batch_size, max_seq_len,
+    multi_step, enable_prefix_cache, prefill_buckets, num_blocks, dtype,
+    quantization (int8 | fp8 weight-only, ``ops/quantization.py``),
+    kv_cache_dtype (int8 | fp8 | None = dtype), kv_spill_host_blocks (the
+    host-RAM L2 tier, 0 = none), kv_remote_url (the L3 tier:
+    ``redis://host:port/db`` or ``memory://``), kv_remote_ttl_s, device
+    (default ``cuda``), seed, params (a params tree already on the device,
+    e.g. from ``models.convert.params_from_numpy``; random init from
+    ``seed`` when neither it nor checkpoint_path is given),
+    checkpoint_interval_tokens (the stream checkpoint cadence, 0 = the
+    admission checkpoint only), prefix_summary_top_n (the radix summary's
+    size, 0 = no summary), the ``serving`` knobs of
     :data:`SERVING_DEFAULTS` (also under ``extra``, which wins), the
     worker's ``engine`` and ``extra.tp_size``, and the PD and KV-migration
     keys of the module docstring (``pd_*``, ``kv_migrate*``)."""
@@ -495,12 +521,7 @@ class TorchLLMEngine(LLMBaseEngine):
 
     def _refuse_unported(self, sv: Dict[str, Any]) -> None:
         """EngineLoadError naming each configured key whose path this port
-        does not have."""
-        for key, what in _UNPORTED_CONFIG.items():
-            if self.config.get(key):
-                raise EngineLoadError(
-                    f"{key} ({what}) is not in the PyTorch port"
-                )
+        does not have: refused at load when set, never ignored."""
         if int(self.config.get("spec_distill_steps") or 0) > 0:
             raise EngineLoadError(
                 f"spec_distill_steps={self.config['spec_distill_steps']}: "
@@ -520,12 +541,19 @@ class TorchLLMEngine(LLMBaseEngine):
                 "through its batcher only (mode: batcher)"
             )
 
+    def _local_file_key(self, key: str) -> Optional[str]:
+        """``checkpoint_path`` / ``tokenizer_id``: a top-level key, or one
+        under ``extra`` (which wins), where a worker config puts keys its
+        engine section has no field for."""
+        return (self.config.get("extra") or {}).get(key) or self.config.get(key)
+
     def load_model(self) -> None:
         model_name = self.config.get("model", "llama3-mini")
         sv = self._serving_config()
         self._refuse_unported(sv)
         if self.tokenizer is None:
-            self.tokenizer = ByteTokenizer()
+            tok_id = self._local_file_key("tokenizer_id")
+            self.tokenizer = _load_hf_tokenizer(tok_id) if tok_id else ByteTokenizer()
         eng_cfg = EngineConfig(
             max_batch_size=int(self.config.get("max_batch_size", 8)),
             max_seq_len=int(self.config.get("max_seq_len", 2048)),
@@ -583,12 +611,13 @@ class TorchLLMEngine(LLMBaseEngine):
                 params=self.config.get("params"),
                 seed=int(self.config.get("seed", 0)),
                 device=self.config.get("device", "cuda"),
+                checkpoint_path=self._local_file_key("checkpoint_path"),
             )
         except BaseException as exc:
             store = eng_cfg.spill_remote_store
             if store is not None and hasattr(store, "close"):
                 store.close()      # its writer thread would outlive the load
-            if isinstance(exc, (ValueError, KeyError, NotImplementedError)):
+            if isinstance(exc, (ValueError, KeyError, NotImplementedError, OSError)):
                 raise EngineLoadError(str(exc)) from exc
             raise
         if standalone:

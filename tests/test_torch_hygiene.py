@@ -1,8 +1,9 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
-package (nor aiohttp, httpx, pydantic, transformers, msgpack, ml_dtypes or
-redis, which the card's machine lacks; PyYAML only lazily, behind an error
-naming it, and zstandard only to read a zstd spill frame), runs on CUDA
-unless asked for the CPU, its kernel wrappers never
+package (nor aiohttp, httpx, pydantic, transformers, msgpack, ml_dtypes,
+redis, safetensors, tokenizers or regex, which the card's machine lacks;
+PyYAML only lazily, behind an error naming it, jinja2 only where a chat
+template is compiled, and zstandard only to read a zstd spill frame),
+runs on CUDA unless asked for the CPU, its kernel wrappers never
 fall back to the plain version for a tensor that is not on the CPU, and
 the engine refuses on the card a model the kernels do not take. Tests
 that need the card carry the ``gpu`` marker and skip without one."""
@@ -20,7 +21,8 @@ from distributed_gpu_inference_torch.runtime.engine import TorchEngine  # noqa: 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu", "aiohttp", "httpx",
-             "pydantic", "transformers", "msgpack", "ml_dtypes", "redis")
+             "pydantic", "transformers", "msgpack", "ml_dtypes", "redis",
+             "safetensors", "tokenizers", "regex")
 
 
 def _port_files():
@@ -46,7 +48,8 @@ def test_port_imports_nothing_of_jax():
             "cli.py", "machine_id.py", "config.py", "backoff.py", "prefixes.py",
             "prefix_summary.py", "io_guard.py", "faults.py", "flight.py", "redis_kv.py",
             "serialization.py", "kv_cache.py", "speculative.py", "engine.py", "batcher.py",
-            "llama.py", "attention.py", "convert.py"} <= {f.name for f in files}
+            "llama.py", "attention.py", "convert.py", "loader.py", "safetensors.py",
+            "hf_tokenizer.py"} <= {f.name for f in files}
     assert (ROOT / "distributed_gpu_inference_torch/runtime/speculative.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/testing/faults.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files
@@ -106,6 +109,15 @@ def test_zstandard_is_imported_only_where_a_zstd_frame_is_read():
     assert list(sites) == ["distributed_gpu_inference_torch/utils/serialization.py"]
     assert [fn for fn, _ in sites["distributed_gpu_inference_torch/utils/serialization.py"]] \
         == ["deserialize"]
+
+
+def test_jinja2_is_imported_only_where_a_chat_template_is_compiled():
+    # jinja2 comes with PyTorch, but only the chat-template path needs it
+    sites = {str(f.relative_to(ROOT)): _import_sites(f, "jinja2") for f in _port_files()}
+    sites = {k: v for k, v in sites.items() if v}
+    assert list(sites) == ["distributed_gpu_inference_torch/utils/hf_tokenizer.py"]
+    assert {fn for fn, _ in sites["distributed_gpu_inference_torch/utils/hf_tokenizer.py"]} \
+        == {"_jinja"}
 
 
 def test_yaml_config_without_pyyaml_raises_naming_it(tmp_path, monkeypatch):

@@ -1,0 +1,372 @@
+"""The port's tokenizer (``utils/hf_tokenizer.py``) against transformers'
+``AutoTokenizer.from_pretrained`` of the same local directory, which is
+what the JAX package's worker loads for ``tokenizer_id``.
+
+Three byte-level BPE tokenizers are built in a temp directory with the
+``tokenizers`` library (merges trained on the repo's README): a Llama 3-style
+one (its split regex, ``ignore_merges``, a BOS template, specials past a
+vocab small enough for the tiny models, ``clean_up_tokenization_spaces``, the
+template in ``chat_template.jinja``), a Qwen 2.5-style one (NFC, Qwen's
+pattern, a template with a default system message in
+``tokenizer_config.json``) and a GPT-2 one (``ByteLevel(use_regex=true)``,
+added tokens with lstrip / rstrip / single_word / normalized, templates as a
+named list, one calling ``raise_exception``). ``chip_smoke.py``'s Llama 3
+tokenizer is held to the library too. ``encode``, ``decode`` and
+``apply_chat_template`` must be equal on every hypothesis case: text over
+``\\x1c``-``\\x1f``, no-break spaces, combining marks, CJK, emoji, digit runs,
+upper-case contractions, the long s and the Kelvin sign and embedded special
+tokens; id lists with partial UTF-8, ids past the vocab and special ids.
+What the reader lacks (SentencePiece-style pieces) is refused by name."""
+
+import json
+
+import pytest
+
+pytest.importorskip("torch")
+tokenizers = pytest.importorskip("tokenizers")
+transformers = pytest.importorskip("transformers")
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+from tokenizers import (  # noqa: E402
+    AddedToken,
+    Regex,
+    Tokenizer,
+    decoders,
+    models,
+    normalizers,
+    pre_tokenizers,
+    processors,
+    trainers,
+)
+
+import chip_smoke  # noqa: E402
+from distributed_gpu_inference_torch.utils.hf_tokenizer import (  # noqa: E402
+    HFTokenizer,
+    TokenizerUnsupported,
+    translate_pattern,
+)
+from distributed_gpu_inference_torch.worker.engines.base import EngineLoadError  # noqa: E402
+from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine  # noqa: E402
+
+README = (chip_smoke.__file__.rsplit("/", 1)[0] + "/README.md")
+LLAMA3_SPLIT = chip_smoke.LLAMA3_SPLIT
+QWEN_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
+              r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_TEMPLATE = chip_smoke.LLAMA3_TEMPLATE
+QWEN_TEMPLATE = (
+    "{%- if messages[0]['role'] == 'system' %}"
+    "{{- '<|im_start|>system\\n' + messages[0]['content'] + '<|im_end|>\\n' }}"
+    "{%- else %}"
+    "{{- '<|im_start|>system\\nYou are a helpful assistant.<|im_end|>\\n' }}"
+    "{%- endif %}"
+    "{%- for message in messages %}"
+    "{%- if not (loop.first and message['role'] == 'system') %}"
+    "{{- '<|im_start|>' + message['role'] + '\\n' + message['content'] + '<|im_end|>\\n' }}"
+    "{%- endif %}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}{{- '<|im_start|>assistant\\n' }}{%- endif %}")
+GPT2_TEMPLATE = (
+    "{% for m in messages %}"
+    "{% if m['role'] not in ['user', 'assistant'] %}"
+    "{{ raise_exception('Conversation roles must be user or assistant, not ' + m['role']) }}"
+    "{% endif %}"
+    "{{ m['role'] | upper }}: {{ m['content'] }}{{ eos_token }}\n"
+    "{% endfor %}"
+    "{% if add_generation_prompt %}ASSISTANT:{% endif %}")
+GPT2_TOOLS_TEMPLATE = "{{ messages | tojson }}|{{ strftime_now('%Y') | length }}"
+
+
+def _train(pre, size, normalizer=None, ignore_merges=False):
+    tok = Tokenizer(models.BPE(ignore_merges=ignore_merges))
+    if normalizer is not None:
+        tok.normalizer = normalizer
+    tok.pre_tokenizer = pre
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator([open(README, encoding="utf-8").read()], trainers.BpeTrainer(
+        vocab_size=size, initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
+        show_progress=False))
+    return tok
+
+
+def _save(tok, d, **config):
+    from transformers import PreTrainedTokenizerFast
+
+    template = config.pop("chat_template", None)
+    hf = PreTrainedTokenizerFast(tokenizer_object=tok, **config)
+    if isinstance(template, str):
+        hf.chat_template = template        # saved to chat_template.jinja
+    hf.save_pretrained(str(d))
+    if template is not None and not isinstance(template, str):
+        cfg_path = d / "tokenizer_config.json"
+        cfg = json.loads(cfg_path.read_text())
+        cfg["chat_template"] = template    # older checkpoints keep it here
+        cfg_path.write_text(json.dumps(cfg))
+    return d
+
+
+def build_llama3(d):
+    tok = _train(pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(LLAMA3_SPLIT), "isolated"),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)]), 480,
+        ignore_merges=True)
+    tok.add_special_tokens([AddedToken(t, special=True, normalized=False) for t in (
+        "<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>", "<|end_header_id|>",
+        "<|eot_id|>")])
+    tok.post_processor = processors.Sequence([
+        processors.ByteLevel(trim_offsets=False),
+        processors.TemplateProcessing(single="<|begin_of_text|> $A",
+                                      pair="<|begin_of_text|> $A <|begin_of_text|> $B",
+                                      special_tokens=[("<|begin_of_text|>", 480)])])
+    return _save(tok, d, bos_token="<|begin_of_text|>", eos_token="<|eot_id|>",
+                 clean_up_tokenization_spaces=True, chat_template=LLAMA3_TEMPLATE)
+
+
+def build_qwen(d):
+    tok = _train(pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(QWEN_SPLIT), "isolated"),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)]), 500,
+        normalizer=normalizers.NFC())
+    tok.add_special_tokens([AddedToken(t, special=True, normalized=False) for t in (
+        "<|endoftext|>", "<|im_start|>", "<|im_end|>")])
+    tok.post_processor = processors.ByteLevel(trim_offsets=False)
+    d = _save(tok, d, eos_token="<|im_end|>", pad_token="<|endoftext|>",
+              clean_up_tokenization_spaces=False, chat_template=None)
+    cfg_path = d / "tokenizer_config.json"
+    cfg = json.loads(cfg_path.read_text())
+    cfg["chat_template"] = QWEN_TEMPLATE
+    cfg_path.write_text(json.dumps(cfg))
+    return d
+
+
+def build_gpt2(d):
+    tok = _train(pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=True), 450)
+    tok.add_special_tokens([AddedToken("<|endoftext|>", special=True, normalized=False),
+                            AddedToken("<mask>", special=True, lstrip=True, normalized=False)])
+    tok.add_tokens([AddedToken("[SEP]", rstrip=True, normalized=False),
+                    AddedToken("hello world", single_word=True, normalized=True)])
+    tok.post_processor = processors.ByteLevel(trim_offsets=False)
+    return _save(tok, d, eos_token="<|endoftext|>", bos_token="<|endoftext|>",
+                 add_prefix_space=True, chat_template=[
+                     {"name": "default", "template": GPT2_TEMPLATE},
+                     {"name": "tool_use", "template": GPT2_TOOLS_TEMPLATE}])
+
+
+BUILDERS = {"llama3": build_llama3, "qwen": build_qwen, "gpt2": build_gpt2}
+
+
+@pytest.fixture(scope="module")
+def pairs(tmp_path_factory):
+    """{kind: (transformers tokenizer, the port's)} over one directory each,
+    and chip_smoke.py's Llama 3 tokenizer."""
+    from transformers import AutoTokenizer
+
+    root = tmp_path_factory.mktemp("tokenizers")
+    out = {}
+    for kind, build in BUILDERS.items():
+        d = build(root / kind)
+        out[kind] = (AutoTokenizer.from_pretrained(str(d)), HFTokenizer.from_dir(d))
+    smoke = root / "smoke"
+    smoke.mkdir()
+    chip_smoke.write_llama3_tokenizer(smoke, open(README, encoding="utf-8").read(), 300)
+    out["smoke"] = (AutoTokenizer.from_pretrained(str(smoke)), HFTokenizer.from_dir(smoke))
+    return out
+
+
+KINDS = ["llama3", "qwen", "gpt2", "smoke"]
+
+PIECES = ["\x1c", "\x1d", "\x1e", "\x1f", "\xa0", " ", "\u3000", "\u2009", "  ", "\t",
+          "\n", "\r\n", "\n\n ", "\xe9", "e\u0301", "\u0308a", "\u4e2d", "\u6587\u5b57",
+          "\ud55c\uad6d\uc5b4", "\U0001f600", "\U0001f44d\U0001f3fd",
+          "\U0001f1fa\U0001f1f3", "0", "12", "345", "67890", "\u0661\u0662", "'S", "'LL",
+          "'Ve", "'re", "'d", "\u017f", "'\u017f", "\u212a", "K", "<|eot_id|>",
+          "<|begin_of_text|>", "<|im_end|>", "<|endoftext|>", "<mask>", " <mask>", "[SEP]",
+          "[SEP]  x", "hello world", "xhello world", "hello worldx", "_hello world", "Hello",
+          "world", "\xc9COLE", "na\xefve", "caf\xe9", ",", " .", " ,", " !", " ?", " n't",
+          " 's", "' ", "...", "\u2014", "\xab\xbb", "#", "$", "\\", "_"]
+
+texts = st.one_of(
+    st.lists(st.sampled_from(PIECES), max_size=24).map("".join),
+    st.text(alphabet=st.characters(blacklist_categories=("Cs",), max_codepoint=0x1FFFF),
+            max_size=40),
+    st.lists(st.one_of(st.sampled_from(PIECES), st.text(max_size=3, alphabet=st.characters(
+        blacklist_categories=("Cs",)))), max_size=16).map("".join))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@settings(max_examples=150, deadline=None, derandomize=True)
+@given(text=texts)
+def test_encode_equals_transformers(pairs, kind, text):
+    hf, ours = pairs[kind]
+    assert ours.encode(text) == hf.encode(text)
+    assert ours.encode(text, add_special_tokens=False) == hf.encode(text, add_special_tokens=False)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@settings(max_examples=150, deadline=None, derandomize=True)
+@given(data=st.data())
+def test_decode_equals_transformers(pairs, kind, data):
+    hf, ours = pairs[kind]
+    top = len(hf) + 20 if kind != "smoke" else 128300
+    specials = sorted(set(hf.all_special_ids) | set(ours.added_by_id))
+    ids = data.draw(st.lists(st.one_of(
+        st.integers(0, 255),                        # single bytes: partial UTF-8
+        st.integers(0, top),                        # past the vocab too
+        st.sampled_from(specials)), max_size=40))
+    assert ours.decode(ids) == hf.decode(ids)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_round_trip_of_the_readme_and_the_attributes(pairs, kind):
+    hf, ours = pairs[kind]
+    text = open(README, encoding="utf-8").read()
+    ids = ours.encode(text)
+    assert ids == hf.encode(text)
+    assert ours.decode(ids) == hf.decode(ids)
+    assert (ours.eos_token_id, ours.bos_token_id, ours.vocab_size) == (
+        hf.eos_token_id, hf.bos_token_id, hf.vocab_size)
+    # multi-byte characters split across tokens decode to U+FFFD until
+    # complete, as the library's decode does (the stream splicer's cue)
+    cjk = ours.encode("東京", add_special_tokens=False)
+    for n in range(len(cjk) + 1):
+        assert ours.decode(cjk[:n]) == hf.decode(cjk[:n])
+
+
+MESSAGES = [
+    [{"role": "user", "content": "Hello there"}],
+    [{"role": "system", "content": "  Be brief.  "}, {"role": "user", "content": "2+2?"},
+     {"role": "assistant", "content": "4"}, {"role": "user", "content": "Grüße 東京 😀"}],
+    [{"role": "assistant", "content": "<|eot_id|> <mask>"}, {"role": "user", "content": ""}],
+]
+
+
+@pytest.mark.parametrize("gen", [True, False])
+@pytest.mark.parametrize("conv", range(len(MESSAGES)))
+@pytest.mark.parametrize("kind", KINDS)
+def test_chat_template_equals_transformers(pairs, kind, conv, gen):
+    import jinja2
+
+    hf, ours = pairs[kind]
+    msgs = MESSAGES[conv]
+    try:
+        want = hf.apply_chat_template(msgs, tokenize=False, add_generation_prompt=gen)
+    except jinja2.exceptions.TemplateError as exc:     # the gpt2 template's refusal
+        with pytest.raises(jinja2.exceptions.TemplateError, match=str(exc)):
+            ours.apply_chat_template(msgs, tokenize=False, add_generation_prompt=gen)
+        return
+    assert ours.apply_chat_template(msgs, tokenize=False, add_generation_prompt=gen) == want
+    assert ours.apply_chat_template(msgs, tokenize=True, add_generation_prompt=gen) == \
+        hf.apply_chat_template(msgs, tokenize=True, add_generation_prompt=gen)
+
+
+def test_qwen_template_adds_its_default_system_message(pairs):
+    hf, ours = pairs["qwen"]
+    text = ours.apply_chat_template([{"role": "user", "content": "hi"}],
+                                    add_generation_prompt=True)
+    assert text.startswith("<|im_start|>system\nYou are a helpful assistant.<|im_end|>")
+    assert text == hf.apply_chat_template([{"role": "user", "content": "hi"}],
+                                          tokenize=False, add_generation_prompt=True)
+
+
+def test_raise_exception_in_a_template_raises_as_in_transformers(pairs):
+    import jinja2
+
+    hf, ours = pairs["gpt2"]
+    msgs = [{"role": "system", "content": "x"}]
+    with pytest.raises(jinja2.exceptions.TemplateError) as want:
+        hf.apply_chat_template(msgs, tokenize=False)
+    with pytest.raises(jinja2.exceptions.TemplateError) as got:
+        ours.apply_chat_template(msgs)
+    assert str(got.value) == str(want.value) == \
+        "Conversation roles must be user or assistant, not system"
+    # a named list: transformers takes its "default" entry
+    assert set(ours.chat_template) == {"default", "tool_use"}
+
+
+def test_a_tokenizer_without_a_template_raises_instead_of_joining(tmp_path):
+    from transformers import AutoTokenizer
+
+    d = build_llama3(tmp_path / "t")
+    (d / "chat_template.jinja").unlink()
+    hf, ours = AutoTokenizer.from_pretrained(str(d)), HFTokenizer.from_dir(d)
+    msgs = [{"role": "user", "content": "hi"}]
+    with pytest.raises(ValueError, match="chat_template is not set"):
+        hf.apply_chat_template(msgs, tokenize=False)
+    with pytest.raises(ValueError, match="chat_template is not set"):
+        ours.apply_chat_template(msgs)
+
+
+def test_the_gpt2_pattern_translates_whitespace_as_oniguruma():
+    import re
+
+    rx = re.compile(translate_pattern(r"\s+|\S+"))
+    # \x1c-\x1f are not White_Space: they stay with the word
+    assert rx.findall("a\x1cb c\xa0d") == ["a\x1cb", " ", "c", "\xa0", "d"]
+    assert re.fullmatch(translate_pattern(r"[^\s\p{L}\p{N}]+"), "\x1c\x1f#")
+    assert re.fullmatch(translate_pattern(r"\p{N}{1,3}"), "١٢٣")          # Arabic-Indic digits
+    assert re.fullmatch(translate_pattern(r"(?i:'s)"), "'ſ")
+
+
+def _sentencepiece_like(kind):
+    """tokenizer.json specs the reader refuses, each naming its piece."""
+    base = Tokenizer(models.BPE(vocab={"a": 0, "b": 1, "ab": 2}, merges=[("a", "b")]))
+    base.decoder = decoders.ByteLevel()
+    if kind == "byte_fallback":
+        base = Tokenizer(models.BPE(vocab={"<0x61>": 0, "b": 1}, merges=[], byte_fallback=True))
+        base.decoder = decoders.ByteFallback()
+    elif kind == "metaspace":
+        base.pre_tokenizer = pre_tokenizers.Metaspace()
+    elif kind == "prepend":
+        base.normalizer = normalizers.Sequence([normalizers.Prepend("▁"),
+                                                normalizers.Replace(" ", "▁")])
+    elif kind == "unigram":
+        base = Tokenizer(models.Unigram([("a", -1.0), ("b", -2.0)], 0, byte_fallback=False))
+        base.decoder = decoders.Metaspace()
+    elif kind == "wordpiece":
+        base = Tokenizer(models.WordPiece({"[UNK]": 0, "a": 1}, unk_token="[UNK]"))
+        base.decoder = decoders.WordPiece()
+    return json.loads(base.to_str())
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("byte_fallback", "byte_fallback"),
+    ("metaspace", "pre-tokenizer 'Metaspace'"),
+    ("prepend", "normalizer 'Prepend'"),
+    ("unigram", "model 'Unigram'"),
+    ("wordpiece", "model 'WordPiece'"),
+])
+def test_sentencepiece_style_tokenizers_are_refused_naming_the_piece(tmp_path, kind, match):
+    spec = _sentencepiece_like(kind)
+    with pytest.raises(TokenizerUnsupported, match=match):
+        HFTokenizer(spec)
+    d = tmp_path / kind
+    d.mkdir()
+    (d / "tokenizer.json").write_text(json.dumps(spec))
+    llm = TorchLLMEngine({"model": "llama3-tiny", "device": "cpu", "tokenizer_id": str(d)})
+    with pytest.raises(EngineLoadError, match=f"tokenizer_id.*{match}"):
+        llm.load_model()
+    assert llm.engine is None
+
+
+def test_added_token_ids_the_library_would_renumber_are_refused(tmp_path):
+    spec = json.loads((build_llama3(tmp_path / "t") / "tokenizer.json").read_text())
+    spec["added_tokens"][1]["id"] = 128001      # a gap after the vocab
+    with pytest.raises(ValueError, match="has id 128001"):
+        HFTokenizer(spec)
+
+
+def test_a_template_needs_jinja2_at_load(tmp_path, monkeypatch):
+    import sys
+
+    from distributed_gpu_inference_torch.utils import hf_tokenizer
+
+    d = build_llama3(tmp_path / "t")
+    hf_tokenizer._jinja.cache_clear()
+    monkeypatch.setitem(sys.modules, "jinja2", None)      # import jinja2 → ImportError
+    try:
+        llm = TorchLLMEngine({"model": "llama3-tiny", "device": "cpu",
+                              "tokenizer_id": str(d)})
+        with pytest.raises(EngineLoadError, match="jinja2"):
+            llm.load_model()
+    finally:
+        hf_tokenizer._jinja.cache_clear()

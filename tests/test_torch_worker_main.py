@@ -679,10 +679,22 @@ def test_serving_config_push_reaches_the_batcher_and_refusals_are_logged(
                  "spec_distill_steps=100", id="config2-speculative_decode"),
     ({"extra": {"tp_size": 2}}, "extra.tp_size=2"),
     ({"serving": {"mode": "direct"}}, "serving.mode"),
+    # a local tokenizer directory loads; a hub id (not a local directory)
+    # is refused, since the port downloads nothing
     ({"tokenizer_id": "meta-llama/Meta-Llama-3-8B"}, "tokenizer_id"),
     ({"tp_size": 4}, "extra.tp_size=4"),
+    # an HF directory loads; an orbax one is JAX-only
+    pytest.param({"checkpoint_path": "<orbax>"}, "orbax checkpoints are JAX-only",
+                 id="checkpoint_path-orbax"),
 ])
-def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names):
+def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names, tmp_path):
+    if config.get("checkpoint_path") == "<orbax>":
+        # the layout orbax's StandardCheckpointer writes: no config.json and
+        # no *.safetensors at the top
+        (tmp_path / "params").mkdir()
+        (tmp_path / "params" / "_CHECKPOINT_METADATA").write_text("{}")
+        (tmp_path / "model_config.json").write_text("{}")
+        config = {"checkpoint_path": str(tmp_path)}
     llm = TorchLLMEngine(dict({"model": "llama3-tiny", "device": "cpu"}, **config))
     with pytest.raises(EngineLoadError, match=names):
         llm.load_model()
