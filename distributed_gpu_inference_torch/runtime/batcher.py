@@ -1931,3 +1931,7 @@ class BatcherServing:
         except RuntimeError:   # loop already closed (boot failed earlier)
             pass
         self._thread.join(timeout=5.0)
+        # the engine call in flight on the executor (a round, an export)
+        # ends before stop returns, and none queued behind it starts: once
+        # stopped, nothing touches the engine or its device memory
+        self.batcher._exec.shutdown(wait=True, cancel_futures=True)

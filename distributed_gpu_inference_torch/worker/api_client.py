@@ -128,6 +128,7 @@ class APIClient:
         self._timeout_s = timeout_s
         # how often this worker changed planes
         self.plane_failovers = 0
+        self._closed = False
 
     @property
     def base_url(self) -> str:
@@ -135,7 +136,10 @@ class APIClient:
         return self.endpoints[self._active]
 
     def close(self) -> None:
-        """Nothing to release: every call closes its own connection."""
+        """Every call closes its own connection, so nothing is released;
+        a call made after ``close`` fails as a refused connection would
+        (APIError 599), so nothing reaches the plane from a closed client."""
+        self._closed = True
 
     # -- transport -----------------------------------------------------------
 
@@ -220,6 +224,8 @@ class APIClient:
     def _request(self, method: str, path: str,
                  payload: Optional[Dict[str, Any]] = None,
                  retries: Optional[int] = None) -> Response:
+        if self._closed:
+            raise APIError(599, "client closed")
         body = json.dumps(payload).encode() if payload is not None else b""
         attempts = (self._max_retries if retries is None else retries) + 1
         budget = self._retry_budget_s

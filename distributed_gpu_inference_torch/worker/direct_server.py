@@ -81,6 +81,9 @@ class DirectServer:
         # hedged dispatch: in-flight requests that registered a hedge key,
         # cancellable at the next step boundary via POST /inference/cancel
         self._cancels: Dict[str, threading.Event] = {}
+        # sockets of the streams in flight: stop() cuts them, as the death
+        # of the process would
+        self._streams: set = set()
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -102,10 +105,20 @@ class DirectServer:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop listening and cut every stream in flight: its client sees
+        the connection drop with no terminating event and resumes from its
+        offset elsewhere."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        with self._stats_lock:
+            live = list(self._streams)
+        for conn in live:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
@@ -367,6 +380,8 @@ class _Handler(BaseHTTPRequestHandler):
         the stream's cancel and WAITS for the engine to go quiet, so the
         claim is released only when the engine is idle."""
         self.close_connection = True
+        with self.direct._stats_lock:
+            self.direct._streams.add(self.connection)
         loop = asyncio.new_event_loop()
         agen = engine.stream_inference(params)
         try:
@@ -398,6 +413,8 @@ class _Handler(BaseHTTPRequestHandler):
         except OSError:
             pass    # the client went away mid-stream: aclose() aborts the run
         finally:
+            with self.direct._stats_lock:
+                self.direct._streams.discard(self.connection)
             loop.run_until_complete(agen.aclose())
             loop.run_until_complete(loop.shutdown_default_executor())
             loop.close()

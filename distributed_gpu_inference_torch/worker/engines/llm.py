@@ -761,7 +761,9 @@ class TorchLLMEngine(LLMBaseEngine):
     def unload(self) -> None:
         """Stop serving, close the remote spill store's connections and
         writer, and hand the device memory back (a worker restarted in the
-        same process loads its engine again)."""
+        same process loads its engine again). The batcher's stop waits out
+        the round in flight, and the card is synchronized before the
+        engine's tensors are dropped, so no device work outlives it."""
         if self.serving is not None:
             self.serving.stop(drain=False)
             self.serving = None
@@ -781,6 +783,7 @@ class TorchLLMEngine(LLMBaseEngine):
 
             import torch
 
+            torch.cuda.synchronize(device)
             gc.collect()
             torch.cuda.empty_cache()
 

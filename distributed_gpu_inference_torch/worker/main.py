@@ -930,14 +930,16 @@ class Worker:
 
     def _start_pd_plane(self) -> None:
         """A PD worker's KV data plane on its ``pd_data_plane_url``'s port
-        (all interfaces, as the JAX worker binds it)."""
+        (all interfaces, as the JAX worker binds it; port 0 binds a free
+        one, read back from ``_pd_plane.port``)."""
         from urllib.parse import urlsplit
 
         from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer
 
         llm = self.engines["llm"]
+        port = urlsplit(self.config.pd_data_plane_url).port
         self._pd_plane = DataPlaneServer(
-            "0.0.0.0", urlsplit(self.config.pd_data_plane_url).port or 8472,
+            "0.0.0.0", 8472 if port is None else port,
             health=lambda: {**llm.health(), "pd_kv_receiver": True},
             kv_receiver=getattr(llm, "kv_receiver", None),
             kv_exporter=getattr(llm, "kv_export", None),

@@ -71,6 +71,18 @@ def test_pd_modules_import_nothing_of_jax():
     assert "pd_phase" in (ROOT / "chip_smoke.py").read_text()
 
 
+def test_fleet_harness_imports_nothing_of_jax():
+    # the fleet harness and the fakes take the plane from outside: no JAX,
+    # no module of the JAX package, no aiohttp/httpx; chip_smoke.py's
+    # phase 18 drives the fleet on the card
+    fleet = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
+        "testing/harness.py", "testing/fakes.py", "testing/faults.py")]
+    assert set(fleet) <= set(_port_files())
+    for f in fleet + [ROOT / "chip_smoke.py"]:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    assert "def fleet_phase(" in (ROOT / "chip_smoke.py").read_text()
+
+
 def _import_sites(path, root):
     """(enclosing function name or None, line) of each import of ``root``."""
     out = []
