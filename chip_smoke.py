@@ -261,9 +261,16 @@ The fleet harness:
     direct stream read with ``http.client`` from member 0, the rest
     polled jobs. Once member 0 holds its streams' first tokens and a job,
     a ``FleetFaultPlan`` with explicit events runs: member 0 is killed
-    (connections cut, engine unloaded), member 1 is blacked out (no
-    heartbeats) for 1.2 s, member 0 restarts. Checks: every job completes
-    exactly once; every stream, resumed at its last offset on member 1,
+    (connections cut, engine unloaded); 1 s in, member 1 stalls for 3 s,
+    longer than the timeout (no heartbeats and no engine rounds, as a
+    paused host; its polls go on, so it may claim member 0's requeued
+    jobs before its own sweep); 4.5 s in, member 0 restarts. The sweep
+    takes member 1 offline and requeues its stalled jobs; when the stall
+    ends their runs finish as zombie work and post completions the plane
+    must fence, and only then do member 1's heartbeats return. Checks:
+    every job completes exactly once; member 1's stalled jobs were swept
+    and at least one of its stale completions was fenced; every stream,
+    resumed at its last offset on member 1,
     ends with ``done`` and offsets 1..32; ids in vocabulary and text =
     decode(ids); each run resumed from a checkpoint starts with its
     tokens; after the kill the card's memory falls back to one engine's
@@ -274,9 +281,12 @@ The fleet harness:
     deficits printed: the near-tie rule of phases 11, 13 and 15, since a
     resume recomputes its checkpoint's tokens as a prefill chunk and the
     batches differ); all three kernels launched (counters zeroed before
-    the phase, read after). Information: kill → requeue seconds, requeue
-    → first token on member 1, the restart's cold start, and job latency
-    from queue to completion.
+    the phase, read after the calm replay and before the re-score).
+    Information: kill → requeue seconds, requeue → first token on the
+    member that resumed the job (member 1 once its stall ends, or the
+    restarted member 0), the restart's cold start, the kill's offset from
+    the start of the traffic, job latency from queue to completion, and
+    the ms a token of the resumed jobs against the calm replay's.
 
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
@@ -1343,9 +1353,10 @@ class StandInPlane:
     What a fleet needs (phase 18), as the plane's guarantee sweeps and
     registration handle it: with ``heartbeat_timeout_s``, :meth:`sweep`
     marks a worker whose last heartbeat is older than that offline and
-    requeues its RUNNING jobs with their last checkpoint (a heartbeat
-    revives it); a registration with a known fingerprint lands on the same
-    row, and one with a new ``boot_id`` there requeues the dead
+    requeues its RUNNING jobs with their last checkpoint (an offline or
+    draining worker claims nothing; a heartbeat revives it); a
+    registration with a known fingerprint lands on the same row, and one
+    with a new ``boot_id`` there requeues the dead
     incarnation's RUNNING jobs at once; a stream checkpoint is adopted by
     another worker through ``streams/<id>/adopt``, which bumps its epoch
     and so fences the old owner's later writes out. Every claim, requeue
@@ -1552,7 +1563,9 @@ class StandInPlane:
         if rest == ["heartbeat"]:
             return self._heartbeat(w, body)
         if rest == ["next-job"]:
-            if self.held:
+            if self.held or w["status"] in ("offline", "draining"):
+                # an offline or draining worker claims nothing (the
+                # scheduler's atomic_assign_job); a heartbeat revives it
                 return 204, None
             job = next((j for j in self.jobs.values() if j["status"] == "queued"), None)
             if job is None:
@@ -4033,6 +4046,7 @@ def local_files_phase(torch, pa, smi, cfg=None, device="cuda"):
 
 FLEET_TOKENS = 32           # greedy tokens of each phase-18 request
 FLEET_HB_TIMEOUT_S = 2.0    # the stand-in plane's heartbeat timeout in phase 18
+FLEET_STALL_S = 3.0         # member 1's stall: longer than the timeout and one beat and sweep
 FLEET_MEM_SLACK = 512 << 20  # the survivor's activations while the dead member's memory returns
 
 
@@ -4148,8 +4162,10 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
 
     class Member(FleetWorker):
         """A fleet member whose every incarnation's responses are recorded,
-        that takes 8 shared claims (the batch) and whose kill waits for the
-        card's memory to come back."""
+        that takes 8 shared claims (the batch), whose kill waits for the
+        card's memory to come back, and whose blackout is a stall: its
+        engine rounds wait as its heartbeats do. When the stall ends, the
+        runs it held finish as zombie work before its heartbeats return."""
 
         def start(self):
             t0 = time.perf_counter()
@@ -4158,9 +4174,31 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
             self.worker.config.load_control.max_concurrent_jobs = SERVE_BATCH
             records.wrap(self.index, self.llm)
             mem.setdefault(f"loaded{self.index}", torch.cuda.memory_allocated())
+            self.awake = threading.Event()
+            self.awake.set()
+            eng = self.llm.engine
+            for name in ("ragged_round", "decode_multi"):
+                def gated(*a, _real=getattr(eng, name), **kw):
+                    self.awake.wait()
+                    return _real(*a, **kw)
+
+                setattr(eng, name, gated)
+
+        def blackout(self, on):
+            if on:
+                super().blackout(True)
+                self.awake.clear()
+                log["stall"] = [time.time(), None]
+                return
+            self.awake.set()
+            # held off the plane until its zombie runs have posted
+            wait_until(lambda: not self.worker._active_jobs, timeout=120)
+            log["stall"][1] = time.time()
+            super().blackout(False)
 
         def kill(self):
             log["kill_t"] = time.time()
+            self.awake.set()
             super().kill()
             target = mem["loaded0"] + FLEET_MEM_SLACK
             deadline = time.perf_counter() + 20.0
@@ -4204,6 +4242,7 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
                 errors.append(exc)
 
         threads = [threading.Thread(target=run_stream, args=sp, daemon=True) for sp in streams]
+        t_traffic = time.time()
         for t in threads:
             t.start()
         jids = {i: plane.queue_job({"prompt": p, "max_new_tokens": FLEET_TOKENS,
@@ -4219,9 +4258,14 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
 
         if not wait_until(member0_busy, timeout=300):
             raise AssertionError("member 0 never held its streams' first tokens and a job")
+        # the stall starts 1 s in (the kill's own time included), so member
+        # 0's jobs requeue at most 2.25 s in and member 1 is swept at least
+        # 2.75 s in: member 1 holds stalled claims at its sweep, its own or
+        # member 0's, whichever way the traffic fell
         plan = FleetFaultPlan(18, n_workers=2, duration_s=6.0)
-        plan.events = [FleetEvent(0.0, "kill", 0), FleetEvent(0.1, "blackout", 1, duration_s=1.2),
-                       FleetEvent(2.5, "restart", 0)]
+        plan.events = [FleetEvent(0.0, "kill", 0),
+                       FleetEvent(1.0, "blackout", 1, duration_s=FLEET_STALL_S),
+                       FleetEvent(4.5, "restart", 0)]
         fleet.run_chaos(plan)
         for t in threads:
             t.join(timeout=600)
@@ -4256,11 +4300,21 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
                         jobs[i]["result"]["text"] for r in records.of("fleet", tuple(tok.encode(p))))
                     and jobs[i]["result"]["usage"]["completion_tokens"] == FLEET_TOKENS
                     for i, p in jobs_in)
-        print(f"[fleet] every job completed exactly once: {once} (fenced completions "
-              f"{len(plane.fenced)}); {len(out)} streams gapless 1..{FLEET_TOKENS} with done, "
+        swept = {jid for _, jid, wid, why, _ in plane.requeues
+                 if wid == ids0[1] and why == "heartbeat_stale"}
+        fenced = {jid for _, jid, wid, _ in plane.fenced if wid == ids0[1]}
+        zombies = bool(fenced) and fenced <= swept
+        print(f"[fleet] member 1's stall {log['stall'][1] - log['stall'][0]:.2f} s: swept "
+              f"offline with {len(swept)} running jobs requeued {sorted(swept)}; its zombie "
+              f"completions fenced for {sorted(fenced)} ({len(plane.fenced)} fenced posts in "
+              f"all): {zombies}", flush=True)
+        print(f"[fleet] every job completed exactly once: {once}; "
+              f"{len(out)} streams gapless 1..{FLEET_TOKENS} with done, "
               f"{resumed_streams} resumed on member 1 at their last offset; ids in vocabulary "
               f"{in_vocab}; job text = decode(ids) {texts}; {len(resumed)} runs resumed from "
               f"a checkpoint, each starting with its checkpoint's tokens: {prefixed}", flush=True)
+        if not zombies:
+            raise AssertionError("member 1's stall left no fenced zombie completion")
         if not (once and in_vocab and texts and prefixed and resumed_streams == len(streams)):
             raise AssertionError("fleet outputs break exactly-once or the checkpoint prefix")
 
@@ -4295,6 +4349,8 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
                     + (f" resumed from {len(r['ckpt'])} tokens" if r["ckpt"] else ""))
                    for r in rows + records.of("restarted")]
         outputs += [(tuple(tok.encode(p)), stream_ids[i], f"stream {i}") for i, p in streams]
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()    # the fleet's own launches: not the re-score's
         parted = []
         for prompt, ids, what in outputs:
             want = calm[prompt]
@@ -4325,23 +4381,33 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
         firsts = []
         for t_rq, jid, k in requeued:
             prompt = tuple(tok.encode(by_job[jid])) if jid in by_job else None
-            cand = [r["t_first"] for r in rows if r["prompt"] == prompt and r["member"] == 1
+            cand = [r["t_first"] for r in rows if r["prompt"] == prompt
                     and r["t_submit"] >= t_rq and r["t_first"] is not None]
             if cand:
                 firsts.append(min(cand) - t_rq)
         latency = [(j["completed_at"] - j["created_at"]) * 1e3 for j in jobs.values()]
         restart = [s for i, s in log["cold_start_s"] if i == 0][-1]
-        torch.cuda.synchronize()
-        counts = pa.launch_counts()
         print(f"[fleet] (information) kill -> requeue "
               f"{[round(t - kill_t, 3) for t, _, _ in requeued]} s ({len(requeued)} jobs); "
-              f"requeue -> first token on the survivor {[round(f, 3) for f in firsts]} s; the "
-              f"restart's cold start {restart:.2f} s; job latency queue -> completion p50 "
+              f"requeue -> first token where it resumed {[round(f, 3) for f in firsts]} s; the "
+              f"restart's cold start {restart:.2f} s; the kill {kill_t - t_traffic:.2f} s after "
+              f"the traffic began; job latency queue -> completion p50 "
               f"{pctl(latency, 0.5):.1f} ms p95 {pctl(latency, 0.95):.1f} ms ({smi})", flush=True)
+        # the pace of decoding: the resumed jobs shared the card and the
+        # process with the other member and the streams; the calm replay
+        # ran on one member alone
+        pace = {tag: [(r["t_done"] - r["t_first"]) * 1e3 / (len(r["ids"]) - len(r["ckpt"]) - 1)
+                      for r in records.of(tag) if r["t_first"] and (tag == "calm" or r["ckpt"])]
+                for tag in ("fleet", "calm")}
+        p50 = {tag: pctl(v, 0.5) if v else float("nan") for tag, v in pace.items()}
+        print(f"[fleet] (information) ms a token after the first, p50: resumed jobs "
+              f"{p50['fleet']:.1f} ({len(pace['fleet'])} runs), calm replay "
+              f"{p50['calm']:.1f} ({len(pace['calm'])} runs) ({smi})", flush=True)
         if not requeued:
             raise AssertionError("member 0's running jobs were never requeued")
     plane.stop()
-    print(f"[fleet] kernel launches over the phase: {counts}; phase ran in "
+    print(f"[fleet] kernel launches of the fleet (its traffic, the restarted member's request "
+          f"and the calm replay; not the re-score): {counts}; phase ran in "
           f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
     check_counts("fleet", counts, qmm=quantization is not None)
     return counts

@@ -68,10 +68,10 @@ class FleetWorker:
     cold restart-with-reregistration that lands on the same worker row.
 
     The engine runs on the card unless ``engine_config`` says
-    ``device: "cpu"``. ``weights`` gives every (re)start the same weights:
+    ``device: "cpu"``. ``weights`` gives every (re)start the same weights,
     a JAX params tree as numpy (``models/convert.py``
-    ``params_from_numpy``) or a local HF checkpoint directory
-    (``checkpoint_path``); None draws them from the engine's seed."""
+    ``params_from_numpy``); None draws them from the engine's seed, or
+    loads the ``checkpoint_path`` that ``engine_config`` names."""
 
     def __init__(self, index: int, plane_url: Any,
                  engine_config: Optional[Dict[str, Any]] = None,
@@ -80,7 +80,7 @@ class FleetWorker:
                  role: Optional[str] = None,
                  pd_data_plane: bool = False,
                  region: str = "us-west",
-                 weights: Union[None, str, Dict[str, Any]] = None) -> None:
+                 weights: Optional[Dict[str, Any]] = None) -> None:
         self.index = index
         self.plane_url = plane_url
         self.engine_config = dict(engine_config or DEFAULT_FLEET_ENGINE)
@@ -113,9 +113,7 @@ class FleetWorker:
 
     def _engine_config(self) -> Dict[str, Any]:
         cfg = dict(self.engine_config)
-        if isinstance(self.weights, str):
-            cfg["checkpoint_path"] = self.weights
-        elif self.weights is not None:
+        if self.weights is not None:
             from ..models.convert import params_from_numpy
 
             cfg["params"] = params_from_numpy(self.weights, self.device)

@@ -35,6 +35,7 @@ from distributed_gpu_inference_torch.testing.faults import (  # noqa: E402
 )
 from distributed_gpu_inference_torch.testing.harness import (  # noqa: E402
     DEFAULT_FLEET_ENGINE,
+    FleetWorker,
     LiveFleet,
 )
 from distributed_gpu_inference_tpu.sdk.client import (  # noqa: E402
@@ -242,28 +243,62 @@ def heal(fleet: LiveFleet) -> None:
 # ---------------------------------------------------------------------------
 
 
+# the module fleet's engine rounds sleep PACE["s"] first (0 outside the smoke)
+PACE = {"s": 0.0}
+
+
 @pytest.fixture(scope="module")
 def fleet():
-    with port_fleet(n=2) as f:
+    member = paced(FleetWorker, PACE)
+    with port_fleet(n=2, member_factory=lambda i, url, role: member(i, url, FLEET_ENGINE)) as f:
         yield f
 
 
 def test_fleet_smoke_kill_one_worker_under_load(fleet):
     """One hard kill + restart of a port worker while a small open-loop
-    workload runs: nothing lost, outputs byte-identical to the calm fleet,
-    the restarted member back on its own plane row."""
+    workload runs: the kill lands while the victim holds a running job
+    (rounds paced 0.3 s, so a 5-token job outlasts its detection), which
+    is requeued and completes on the other member; nothing lost, outputs
+    byte-identical to the calm fleet, the restarted member back on its own
+    plane row."""
     wid = fleet.members[0].worker_id
-    plan = FleetFaultPlan(0, n_workers=2, duration_s=2.0)
-    plan.events = [FleetEvent(0.3, "kill", 0), FleetEvent(1.5, "restart", 0)]
     prompts = suite_prompts(0, 5)
-    fleet.run_chaos(plan)
+    out: Dict[str, Any] = {}
+    errors: List[BaseException] = []
+
+    def traffic() -> None:
+        try:
+            out["records"] = drive_open_loop(fleet, prompts, seed=0, max_tokens=5, rate=3.0)
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errors.append(exc)
+
+    plan = FleetFaultPlan(0, n_workers=2, duration_s=2.0)
+    plan.events = [FleetEvent(0.0, "kill", 0), FleetEvent(1.2, "restart", 0)]
+    PACE["s"] = 0.3
+    t = threading.Thread(target=traffic, daemon=True)
+    t.start()
     try:
-        records = drive_open_loop(fleet, prompts, seed=0, max_tokens=5, rate=3.0)
+        held: List[str] = []
+        deadline = time.time() + 60.0
+        while not held:
+            assert time.time() < deadline, "member 0 never held a running job"
+            held = [r["id"] for r in fleet.plane.query(
+                "SELECT id FROM jobs WHERE status='running' AND worker_id=?", (wid,))]
+            time.sleep(0 if held else 0.02)
+        fleet.run_chaos(plan)
+        t.join(timeout=120.0)
     finally:
         fleet.wait_chaos()
         heal(fleet)
+        PACE["s"] = 0.0
+    if errors:
+        raise errors[0]
+    records = out["records"]
     assert [k for _, k, _ in plan.trace] == ["kill", "restart"]
     assert fleet.members[0].worker_id == wid
+    # the victim's running jobs were requeued and claimed again elsewhere
+    requeued = [j for j in held if fleet.plane.job(j)["assignment_epoch"] >= 2]
+    assert requeued, [fleet.plane.job(j) for j in held]
     await_quiet(fleet)
     assert_no_lost_or_duplicated_jobs(fleet)
     calm_reference(fleet, records, max_tokens=5)
@@ -405,14 +440,13 @@ def test_fake_members_complete_jobs_through_a_kill_and_restart():
         assert [k for _, k, _ in plan.trace] == ["kill", "restart"]
 
 
-def test_member_weights_hook_and_pd_data_plane(tmp_path):
+def test_member_weights_hook_and_pd_data_plane():
     """A member's weights come from a numpy tree (every restart converts it
-    again) or a checkpoint directory; a PD member serves its worker's KV
+    again); a PD member serves its worker's KV
     data plane on a free port and registers it; a killed member's client
     refuses every call, so nothing of the dead incarnation reaches the
     plane."""
     from distributed_gpu_inference_torch.models.convert import params_to_numpy
-    from distributed_gpu_inference_torch.testing.harness import FleetWorker
     from distributed_gpu_inference_torch.worker.api_client import APIError
 
     with LiveControlPlane() as cp:
@@ -439,5 +473,3 @@ def test_member_weights_hook_and_pd_data_plane(tmp_path):
             assert cp.worker(m.worker_id)["id"] == m.worker_id
         finally:
             m.stop()
-    assert FleetWorker(1, "http://x", weights=str(tmp_path))._engine_config()[
-        "checkpoint_path"] == str(tmp_path)

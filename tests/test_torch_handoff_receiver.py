@@ -1,7 +1,8 @@
 """The port's ``HandoffReceiver`` session machine (``runtime/kv_handoff.py``)
-on the JAX package's ``FakeKVEngine`` (real receiver code and block
-accounting, no model) fed the JAX package's streamed-handoff messages
-(``testing/fakes.make_stream_messages``, framed by the JAX writer): the
+on the port's ``testing/fakes.py`` ``FakeKVEngine`` (real receiver code
+and block accounting, no model) fed its streamed-handoff messages
+(``make_stream_messages``, whose bytes equal the JAX writer's:
+``tests/test_torch_fleet_plan.py``): the
 cases of ``tests/test_handoff_receiver_purge.py``, the purge policy of
 ``tests/test_kv_handoff_wire.py`` and the idempotency / purge-reason cases
 of ``tests/test_pd_chaos.py``. No tolerance: block ids, counters and
@@ -22,7 +23,7 @@ from distributed_gpu_inference_torch.utils.data_structures import (  # noqa: E40
     InferenceRequest,
     SamplingParams,
 )
-from distributed_gpu_inference_tpu.testing.fakes import (  # noqa: E402
+from distributed_gpu_inference_torch.testing.fakes import (  # noqa: E402
     FakeKVEngine,
     make_stream_messages,
 )
