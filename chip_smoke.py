@@ -288,10 +288,47 @@ The fleet harness:
     the start of the traffic, job latency from queue to completion, and
     the ms a token of the resumed jobs against the calm replay's.
 
+Mixtral MoE:
+
+19. mixtral-8x7b — the card is freed of every earlier engine; a bf16
+    mixtral-8x7b (93.4 GB) is refused at load with its size and nothing
+    allocated. ``TorchLLMEngine`` loads it at full width and depth (32
+    layers, 8 experts top-2, hidden 4096, intermediate 14336, vocab 32000)
+    with ``quantization: int8``, seed 0, the default bf16 pool,
+    ``max_batch_size`` 8 and a Mixtral-style tokenizer written to a temp
+    directory (:func:`write_mixtral_tokenizer`: byte-fallback BPE, vocab
+    32000, 2048 merges from README.md, ``<s>`` / ``</s>``): the streamed
+    init (``models/loader.py`` ``init_route``), its seconds, the tree's
+    bytes against ``param_bytes(1)``, and the load's peak device memory
+    within the int8 tree, one f32 ``[E, H, I]`` slice and 512 MiB. (a)
+    One layer's ``_moe_mlp`` at M = 8 and 256 through the kernels (qmm; the
+    library route above its row bound) against the plain route
+    (``qmm_plain`` for every expert): the router's top-k identical, the
+    outputs within MOE_ATOL, RTOL and VEC_REL, and row 0 with its first
+    routed expert's term dropped rejected. (b) The 8 serving prompts and
+    the prefix hit, 32 greedy tokens each, through ``BatcherServing``:
+    counters zeroed before and read after (all three kernels launched),
+    ids in vocabulary, text = the tokenizer's decode of the ids; the rows
+    each expert received (information). (c) ``compare_forward`` and a
+    teacher-forced re-score of every committed token under the near-tie
+    rule, with a planted runner-up rejected. A router decision flips where
+    two runs' rounding straddles a near-tie of router probabilities, and a
+    flipped expert moves a token's logits by a discrete step, so the
+    second run of each comparison routes every token as the first did
+    (:class:`RoutePins`; the plain pass as the kernel pass, the re-score
+    as the serving) and the flips its own router would have made are
+    printed. (d) Times (information): one MoE layer at M = 8 call by call
+    and as a CUDA graph against its byte bound and against the layer on
+    pre-dequantized bf16 experts; a full decode step at batch 8 (device
+    and host enqueue) and one 2,048-row prefill round; qmm at the three
+    expert shapes (``@moe-we_gate``, ``@moe-we_up``, ``@moe-we_down``
+    entries).
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
-entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15), the
-nvidia-smi line and ``{"ok": true, "device": {...}}``.
+entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15,
+``@moe-*`` entries for phase 19), the nvidia-smi line and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -722,10 +759,11 @@ def serving_prompts():
     return shared, lengths, prompts
 
 
-def serve(torch, pa, llm, prompts, shared):
+def serve(torch, pa, llm, prompts, shared, min_cached=128):
     """8 concurrent requests of 32 greedy tokens plus one prefix hit
     through ``TorchLLMEngine.inference``, with the launch counters zeroed
-    just before and read just after. → (tokens of the 8 requests by
+    just before and read just after; the hit must find ``min_cached``
+    tokens cached (128: one token a byte). → (tokens of the 8 requests by
     prompt, payloads, hit payload, wall seconds, launches, batcher
     stats)."""
     responses = {}
@@ -767,7 +805,7 @@ def serve(torch, pa, llm, prompts, shared):
             raise AssertionError(f"bad tokens in {r.request_id}: {r.token_ids}")
     if any(p is None or p["usage"]["completion_tokens"] != 32 for p in payloads):
         raise AssertionError(f"bad payloads: {payloads}")
-    if hit["usage"]["cached_tokens"] < 128:
+    if hit["usage"]["cached_tokens"] < min_cached:
         raise AssertionError(f"prefix cache missed: {hit['usage']}")
     hit_key = tuple(llm.tokenizer.encode(shared + "zz" * 40))
     tokens = {k: list(r.token_ids) for k, r in responses.items() if k != hit_key}
@@ -810,7 +848,8 @@ def plain_kernels():
 def compare_forward(torch, tag, cfg, params, kv_dtype, dev):
     """One full-width prefill and one decode step through the kernels and
     through the plain versions (fresh scratch pools, the served weights);
-    their logits must agree within LOGITS_REL_BOUND."""
+    their logits must agree within LOGITS_REL_BOUND. An MoE model's plain
+    pass routes every token as the kernel pass did (:class:`RoutePins`)."""
     from distributed_gpu_inference_torch.models import llama
 
     def run_forward():
@@ -826,10 +865,23 @@ def compare_forward(torch, tag, cfg, params, kv_dtype, dev):
                                    tables, lens + 1, block_size=BK).logits
         return pre.float(), step.float()
 
+    from distributed_gpu_inference_torch.models import llama as llama_mod
+
+    pins = RoutePins(torch, llama_mod)
     with torch.no_grad():
-        k_pre, k_step = run_forward()
-        with plain_kernels():
+        with pins.record() if cfg.num_experts else contextlib.nullcontext():
+            k_pre, k_step = run_forward()
+        with plain_kernels(), pins.order() if cfg.num_experts else contextlib.nullcontext():
             p_pre, p_step = run_forward()
+        if cfg.num_experts:
+            with plain_kernels():
+                free = torch.cat([t.flatten() for t in run_forward()])
+            kern = torch.cat([k_pre.flatten(), k_step.flatten()])
+            print(f"[{tag}] the plain pass routed as the kernel pass: {pins.pinned} "
+                  f"row-layers pinned, {pins.flips} of them its own router would have routed "
+                  f"otherwise; routed by its own router, its logits part from the kernels' by "
+                  f"rel L2 {float(((kern - free).norm() / free.norm()).item()):.3e} "
+                  f"(information)", flush=True)
     for name, a, b in (("prefill", k_pre, p_pre), ("decode step", k_step, p_step)):
         rel = float(((a - b).norm() / b.norm()).item())
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean().item())
@@ -3601,10 +3653,9 @@ def write_safetensors(path, entries, metadata=None):
 
 
 def learn_merges(text, n):
-    """Greedy byte-level BPE merges from ``text``: pre-tokenize with Llama
-    3's split regex, then merge the most frequent adjacent pair (the
-    largest pair among ties) ``n`` times, counts kept up to date word by
-    word. → [(a, b), ...] in rank order."""
+    """Greedy byte-level BPE merges from ``text``, pre-tokenized with Llama
+    3's split regex (:func:`learn_word_merges`). → [(a, b), ...] in rank
+    order."""
     import collections
     import re
 
@@ -3614,9 +3665,17 @@ def learn_merges(text, n):
     )
 
     table = _bytes_to_unicode()
-    words = collections.Counter(
+    return learn_word_merges(collections.Counter(
         "".join(table[b] for b in m.group(0).encode("utf-8"))
-        for m in re.finditer(translate_pattern(LLAMA3_SPLIT), text))
+        for m in re.finditer(translate_pattern(LLAMA3_SPLIT), text)), n)
+
+
+def learn_word_merges(words, n):
+    """Greedy BPE merges over ``words`` (a Counter of words): merge the most
+    frequent adjacent pair (the largest pair among ties) ``n`` times,
+    counts kept up to date word by word. → [(a, b), ...] in rank order."""
+    import collections
+
     syms = [list(w) for w in words]
     freq = list(words.values())
     pairs = collections.Counter()
@@ -3704,6 +3763,85 @@ def write_llama3_tokenizer(d, text, n_merges=CKPT_MERGES):
     config = {"bos_token": bos, "eos_token": "<|eot_id|>",
               "clean_up_tokenization_spaces": True, "model_max_length": 131072,
               "tokenizer_class": "PreTrainedTokenizerFast", "chat_template": LLAMA3_TEMPLATE}
+    d = pathlib.Path(d)
+    (d / "tokenizer.json").write_text(json.dumps(tok, ensure_ascii=False), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps(config, indent=2), encoding="utf-8")
+    return len(merges)
+
+
+MIXTRAL_MERGES = 2048        # phase 19's merges learned from the repo's own text
+MIXTRAL_VOCAB = 32000
+SP_SPACE = "\u2581"          # SentencePiece's space
+MIXTRAL_TEMPLATE = (
+    "{{ bos_token }}{% for message in messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate user/assistant/user/assistant/...') }}"
+    "{% endif %}"
+    "{% if message['role'] == 'user' %}{{ '[INST] ' + message['content'] + ' [/INST]' }}"
+    "{% elif message['role'] == 'assistant' %}{{ message['content'] + eos_token }}"
+    "{% else %}{{ raise_exception('Only user and assistant roles are supported!') }}"
+    "{% endif %}{% endfor %}")
+
+
+def write_mixtral_tokenizer(d, text, n_merges=MIXTRAL_MERGES, vocab_size=MIXTRAL_VOCAB):
+    """A Mixtral-style ``tokenizer.json`` + ``tokenizer_config.json`` in
+    ``d``: SentencePiece-style byte-fallback BPE as Mixtral's own file has
+    it (``<unk>``, ``<s>``, ``</s>`` at 0-2, the 256 ``<0xXX>`` pieces at
+    3-258, the characters of ``text``, ``n_merges`` merges learned from its
+    words cut before every SentencePiece space, unreachable fillers up to
+    ``vocab_size``), the ``Prepend`` / ``Replace`` normalizers and no
+    pre-tokenizer, the decoder chain ``Replace``, ``ByteFallback``,
+    ``Fuse``, ``Strip``, a ``<s>`` template and Mixtral's chat template.
+    → the number of merges."""
+    import collections
+    import pathlib
+
+    normalized = SP_SPACE + text.replace(" ", SP_SPACE)
+    cuts = [i for i, c in enumerate(normalized) if c == SP_SPACE and i > 0]
+    words = collections.Counter(normalized[a:b] for a, b in
+                                zip([0] + cuts, cuts + [len(normalized)]))
+    merges = learn_word_merges(words, n_merges)
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for c in sorted(set(normalized)):
+        vocab.setdefault(c, len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    while len(vocab) < vocab_size:
+        vocab[f"<unused_{len(vocab)}>"] = len(vocab)
+    tok = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, t in enumerate(specials)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": SP_SPACE},
+            {"type": "Replace", "pattern": {"String": " "}, "content": SP_SPACE}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": SP_SPACE}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [[a, b] for a, b in merges]},
+    }
+    config = {"tokenizer_class": "LlamaTokenizer", "bos_token": "<s>", "eos_token": "</s>",
+              "unk_token": "<unk>", "add_bos_token": True, "add_eos_token": False,
+              "legacy": True, "clean_up_tokenization_spaces": False,
+              "model_max_length": 32768, "chat_template": MIXTRAL_TEMPLATE}
     d = pathlib.Path(d)
     (d / "tokenizer.json").write_text(json.dumps(tok, ensure_ascii=False), encoding="utf-8")
     (d / "tokenizer_config.json").write_text(json.dumps(config, indent=2), encoding="utf-8")
@@ -4413,6 +4551,451 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
     return counts
 
 
+# ---------------------------------------------------------------- Mixtral MoE
+
+MOE_MODEL = "mixtral-8x7b"
+MOE_ROWS = (8, 256)          # one layer's MoE MLP: the decode batch and a prefill chunk
+MOE_PREFILL = 2048           # rows of the timed prefill round (8 rows x 256)
+# the MoE layer, kernel route vs plain route: each expert's chain rounds to
+# bf16 three times (gate and up, their product, the expert's output)
+# before the f32 sum, where one qmm rounds once (at M = 256 the library
+# route rounds each product before its scale too): errors of a few 1e-3
+# std on outputs of order 0.3. The row bound is phase 6's VEC_REL;
+# dropping one routed expert's term moves its row by ~0.5.
+MOE_ATOL = 2.0 ** -6
+INIT_SLACK = 512 << 20       # the init's peak above the int8 tree and one f32 slice
+
+
+def moe_layer(params, layer):
+    """One layer's MoE leaves as views (``forward_chunk``'s slicing)."""
+    from distributed_gpu_inference_torch.ops.quantization import is_quantized
+
+    return {name: ({"qw": leaf["qw"][layer], "scale": leaf["scale"][layer]}
+                   if is_quantized(leaf) else leaf[layer])
+            for name, leaf in params["layers"].items()
+            if name in ("w_router", "we_gate", "we_up", "we_down")}
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def moe_parity(torch, cfg, lp, rows, g, dev):
+    """Check (a) at ``rows`` rows: ``_moe_mlp`` through the kernels
+    against the plain route (``qmm_plain`` for every expert) on one input,
+    the router's top-k of both, and the negative control (row 0 with its
+    first routed expert's term dropped). → max abs err."""
+    from distributed_gpu_inference_torch.models import llama
+
+    x = torch.randn((1, rows, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+    xf = x.reshape(rows, -1)
+    k = cfg.num_experts_per_tok
+    with torch.no_grad():
+        topi_k = llama.route_experts(xf, lp["w_router"], k)[1]
+        got = llama._moe_mlp(x, lp, cfg)
+        with plain_kernels():
+            topi_p = llama.route_experts(xf, lp["w_router"], k)[1]
+            want = llama._moe_mlp(x, lp, cfg)
+            real = llama.route_experts
+
+            def drop_first(xf_, w, k_):
+                weights, topi = real(xf_, w, k_)
+                weights = weights.clone()
+                weights[0, topi[0, 0]] = 0.0
+                return weights, topi
+
+            with patched(llama, "route_experts", drop_first):
+                dropped = llama._moe_mlp(x, lp, cfg)
+    torch.cuda.synchronize()
+    same_topk = bool(torch.equal(topi_k, topi_p))
+    ok, max_abs, max_vec = errors(torch, got[0], want[0], MOE_ATOL)
+    drop_ok, _, drop_vec = errors(torch, dropped[0], want[0], MOE_ATOL)
+    print(f"[moe] (a) one layer's MoE MLP at M={rows}, kernel route vs plain: max_abs_err "
+          f"{max_abs:.3e} max_row_rel_err {max_vec:.3e} (bound atol {MOE_ATOL:.3e} rtol {RTOL}, "
+          f"row {VEC_REL}); router top-{k} identical: {same_topk}; row 0 with its first "
+          f"routed expert dropped: max_row_rel_err {drop_vec:.3e}, rejected: {not drop_ok}",
+          flush=True)
+    if drop_ok:
+        raise AssertionError("the MoE parity check accepts a dropped expert term")
+    if not (ok and same_topk):
+        raise AssertionError(f"the MoE layer disagrees with its plain route at M={rows}")
+    return max_abs
+
+
+class RoutePins:
+    """Expert choices pinned across two runs of one model. A discrete choice
+    flips where a token's k-th and next router probabilities lie closer
+    than two runs' rounding, and a flipped expert moves that token's
+    hidden by a step no rounding bound covers (phase 19 prints both
+    comparisons unpinned too, as information); so the second run routes
+    every token it can find as the first did, weighted by its own
+    probabilities, and the flips it would have made are counted.
+
+    ``record()`` keeps, for every forward call, the rows' positions and
+    block tables, each layer's choices and the block chain of each live
+    sequence (by prompt): a row belongs to the sequence whose chain holds
+    the block it writes, since a block with room is never shared.
+    ``order()`` replays the choices call by call (the same calls: kernels
+    vs plain); ``by_sequence(prompts)`` replays them by (prompt,
+    position), row i of each call being prompts[i]."""
+
+    def __init__(self, torch, llama, engine=None):
+        self.torch, self.llama, self.engine = torch, llama, engine
+        self.calls, self.flips, self.pinned = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, route_with, before_call):
+        llama = self.llama
+        inner_route, inner_forward = llama.route_experts, llama.forward_chunk
+
+        def forward(cfg, params, token_ids, positions, kv, tables, *a, **kw):
+            before_call(positions, tables)
+            return inner_forward(cfg, params, token_ids, positions, kv, tables, *a, **kw)
+
+        llama.route_experts = lambda xf, w, k: route_with(inner_route, xf, w, k)
+        llama.forward_chunk = forward
+        try:
+            yield self
+        finally:
+            llama.route_experts, llama.forward_chunk = inner_route, inner_forward
+
+    def record(self):
+        def before(positions, tables):
+            chains = {}
+            if self.engine is not None:
+                m = self.engine.manager
+                chains = {tuple(s.request.prompt_token_ids): list(m.seq_blocks[s.seq_id])
+                          for s in self.engine.slots
+                          if s is not None and s.seq_id in m.seq_blocks}
+            self.calls.append({"positions": positions.clone(), "tables": tables.clone(),
+                               "chains": chains, "topi": []})
+
+        def route(inner, xf, w, k):
+            weights, topi = inner(xf, w, k)
+            self.calls[-1]["topi"].append(topi.clone())
+            return weights, topi
+
+        return self._patched(route, before)
+
+    def _replay(self, pins_of_call):
+        torch, state = self.torch, {}
+
+        def before(positions, tables):
+            state["pins"], state["layer"] = pins_of_call(positions), 0
+
+        def route(inner, xf, w, k):
+            weights, own = inner(xf, w, k)
+            pins = state["pins"]
+            pin = pins[state["layer"]] if pins is not None and state["layer"] < len(pins) \
+                else None
+            state["layer"] += 1
+            if pin is None or pin.shape != own.shape:
+                return weights, own
+            has = pin[:, 0] >= 0
+            topi = torch.where(has[:, None], pin, own)
+            probs = torch.softmax(xf.float() @ w.float(), dim=-1)
+            topv = probs.gather(1, topi)
+            weights = torch.zeros_like(probs).scatter_(1, topi, topv / topv.sum(-1, keepdim=True))
+            differs = has & (topi.sort(-1).values != own.sort(-1).values).any(-1)
+            self.flips += int(differs.sum())
+            self.pinned += int(has.sum())
+            return weights, topi
+
+        return self._patched(route, before)
+
+    def order(self):
+        """Replay the recorded calls' choices in call order."""
+        it = iter(self.calls)
+
+        def pins(positions):
+            call = next(it, None)
+            return None if call is None else call["topi"]
+
+        return self._replay(pins)
+
+    def by_sequence(self, prompts):
+        """Replay the choices of each (prompt, position) the record holds."""
+        torch = self.torch
+        seen = {}
+        for call in self.calls:
+            if not call["topi"]:
+                continue
+            pos, tab = call["positions"].cpu().numpy(), call["tables"].cpu().numpy()
+            topi = torch.stack(call["topi"]).cpu().numpy()         # [L, rows, k]
+            owner = {}
+            for prompt, chain in call["chains"].items():
+                for li, blk in enumerate(chain):
+                    owner[(li, blk)] = prompt
+            width = pos.shape[1]
+            for b in range(pos.shape[0]):
+                live = pos[b][pos[b] >= 0]
+                if not live.size:
+                    continue
+                last = int(live.max())
+                prompt = owner.get((last // BK, int(tab[b, last // BK])))
+                if prompt is None:
+                    continue
+                for j in np.nonzero(pos[b] >= 0)[0]:
+                    seen[(prompt, int(pos[b, j]))] = topi[:, b * width + j]
+        prompts = [tuple(p) for p in prompts]
+
+        def pins(positions):
+            pos = positions.cpu().numpy()
+            layers = len(next(iter(seen.values()))) if seen else 0
+            k = next(iter(seen.values())).shape[-1] if seen else 1
+            out = np.full((layers, pos.size, k), -1, np.int64)
+            for i, j in zip(*np.nonzero(pos >= 0)):
+                hit = seen.get((prompts[i], int(pos[i, j]))) if i < len(prompts) else None
+                if hit is not None:
+                    out[:, i * pos.shape[1] + j] = hit
+            t = torch.from_numpy(out).to(positions.device)
+            return [t[layer] for layer in range(layers)]
+
+        return self._replay(pins)
+
+
+class ExpertTally:
+    """Rows each expert received, summed on the device as ``route_experts``
+    runs (pad rows included)."""
+
+    def __init__(self, torch, llama, n_experts, dev):
+        self.counts = torch.zeros(n_experts, dtype=torch.int64, device=dev)
+        self.llama, self.real = llama, llama.route_experts
+
+    def __enter__(self):
+        def counting(xf, w, k):
+            weights, topi = self.real(xf, w, k)
+            self.counts += topi.flatten().bincount(minlength=self.counts.numel())
+            return weights, topi
+
+        self.llama.route_experts = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.route_experts = self.real
+
+
+def moe_times(torch, cfg, params, lp, dev, flush, smi):
+    """Check (d), information: one MoE layer at M = 8 call by call and as a
+    CUDA graph against its byte bound and against the same layer on
+    pre-dequantized bf16 experts; a full decode step and a 2,048-row
+    prefill round of the model; qmm at the three expert shapes. → the
+    @moe timings by leaf."""
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.ops import qmm
+
+    h, inter, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn((1, SERVE_BATCH, h), generator=g, device=dev).to(torch.bfloat16)
+    layer = lambda: llama._moe_mlp(x, lp, cfg)  # noqa: E731
+    shapes = [(h, inter)] * (2 * e) + [(inter, h)] * e
+    nbytes, flops = qmm_cost(SERVE_BATCH, shapes)
+    nbytes += h * e * 2                          # the router
+    b_ms, b_by = bound(nbytes, flops)
+    k_ms = time_ms(torch, layer, flush, iters=20)
+    kg_ms = graph_ms(torch, layer, flush, iters=20)
+    deq = {n: (lp[n]["qw"].float() * lp[n]["scale"]).to(torch.bfloat16)
+           for n in ("we_gate", "we_up", "we_down")}
+    lib = dict(deq, w_router=lp["w_router"])
+    l_ms = time_ms(torch, lambda: llama._moe_mlp(x, lib, cfg), flush, iters=20)
+    lg_ms = graph_ms(torch, lambda: llama._moe_mlp(x, lib, cfg), flush, iters=20)
+    print(f"[moe] (d) on {smi}: one MoE layer at M={SERVE_BATCH} (router + {3 * e} expert "
+          f"products): "
+          f"{k_ms:.4f} ms call by call, {kg_ms:.4f} ms as a CUDA graph = {b_ms / kg_ms:.1%} of "
+          f"the bound {b_ms:.4f} ms ({b_by}: {nbytes} B); the same layer on pre-dequantized "
+          f"bf16 experts (torch.matmul): {l_ms:.4f} ms, as a CUDA graph {lg_ms:.4f} ms",
+          flush=True)
+    out = {}
+    for name, (kd, nd) in (("we_gate", (h, inter)), ("we_up", (h, inter)),
+                           ("we_down", (inter, h))):
+        qw, sc = lp[name]["qw"][0], lp[name]["scale"][0]
+        xi = torch.randn((SERVE_BATCH, kd), generator=g, device=dev).to(torch.bfloat16)
+        one = lambda: qmm.launch_kernel(xi, qw, sc)  # noqa: E731
+        want = qmm.qmm_plain(xi, qw, sc)
+        err = errors(torch, one(), want, QMM_ATOL)
+        if not err[0]:
+            raise AssertionError(f"qmm disagrees with its plain version at {name}'s shape")
+        t = {"ms": time_ms(torch, one, flush), "graph_ms": graph_ms(torch, one, flush),
+             "plain_ms": time_ms(torch, lambda: qmm.qmm_plain(xi, qw, sc), flush, iters=10),
+             "library_ms": time_ms(torch, lambda: torch.matmul(xi, deq[name][0]), flush)}
+        t["bound_ms"], t["bound_by"] = bound(*qmm_cost(SERVE_BATCH, [(kd, nd)]))
+        print(f"[moe] (d) qmm int8 {name} expert 0 K={kd} N={nd} M={SERVE_BATCH}: kernel "
+              f"{t['ms']:.4f} ms, as a CUDA graph {t['graph_ms']:.4f} ms = "
+              f"{t['bound_ms'] / t['graph_ms']:.1%} of the bound {t['bound_ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; torch.matmul on bf16 {t['library_ms']:.4f} ms; "
+              f"max_abs_err {err[1]:.3e}", flush=True)
+        out[name] = (t, err[1])
+    del deq, lib
+
+    # a decode step of the whole model at batch 8 and a 2,048-row prefill round
+    kv = llama.init_kv_pools(cfg, 1 + SERVE_BATCH * 17, BK, torch.bfloat16, dev)
+    tables = torch.arange(1, 1 + SERVE_BATCH * 17, device=dev,
+                          dtype=torch.int32).reshape(SERVE_BATCH, 17)
+    toks = torch.randint(0, 256, (SERVE_BATCH, 256), generator=g, device=dev,
+                         dtype=torch.int32)
+    pos = torch.arange(256, device=dev, dtype=torch.int32).repeat(SERVE_BATCH, 1)
+    lens = torch.full((SERVE_BATCH,), 256, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        prefill = lambda: llama.forward_chunk(cfg, params, toks, pos, kv, tables, lens,  # noqa
+                                              block_size=BK)
+        p_ms = time_ms(torch, prefill, flush, iters=3, warmup=1)
+        host = []
+
+        def step():
+            t0 = time.perf_counter()
+            llama.forward_chunk(cfg, params, toks[:, :1], lens[:, None], kv, tables, lens + 1,
+                                block_size=BK)
+            host.append((time.perf_counter() - t0) * 1e3)
+
+        d_ms = time_ms(torch, step, flush, iters=10, warmup=2)
+    print(f"[moe] (d) {cfg.name} int8, {cfg.num_layers} layers: one decode step at batch "
+          f"{SERVE_BATCH} "
+          f"(256 keys a row) {d_ms:.2f} ms device = {d_ms / SERVE_BATCH:.3f} ms a token "
+          f"(host enqueue {float(np.median(host)):.2f} ms a step); one prefill round of "
+          f"{SERVE_BATCH} x 256 = {MOE_PREFILL} rows {p_ms:.1f} ms", flush=True)
+    del kv
+    return out
+
+
+def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
+    """Phase 19 (see the module docstring): mixtral-8x7b at full width and
+    depth with int8 weights through the streamed init, its MoE layer held
+    to the plain route, served, re-scored and timed. → the @moe kernel
+    entries' timings and the serving launches."""
+    import gc
+    import pathlib
+    import tempfile
+
+    from distributed_gpu_inference_torch.models import llama, loader
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_model_config(model)
+    dev = torch.device(device)
+    base = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    slice_bytes = cfg.num_experts * cfg.hidden_size * cfg.intermediate_size * 4
+    print(f"[moe] before loading: {base / 2**30:.2f} GiB allocated, {free / 2**30:.1f} of "
+          f"{total / 2**30:.1f} GiB free; init route for int8: "
+          f"{loader.init_route(cfg, 'bfloat16', 'int8', dev)} (bf16 tree "
+          f"{cfg.param_bytes(2) / 1e9:.1f} GB)", flush=True)
+    if loader.init_route(cfg, "bfloat16", "int8", dev) != "streamed":
+        raise AssertionError(f"{model} int8 does not take the streamed init")
+    try:
+        TorchEngine(cfg, EngineConfig(max_batch_size=1, max_seq_len=64), device=device)
+        raise AssertionError(f"a bf16 {model} loaded on the card")
+    except ValueError as exc:
+        print(f"[moe] bf16 {model} refused at load: {exc}; allocated after the refusal "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if torch.cuda.memory_allocated() != base or "GB" not in str(exc):
+            raise AssertionError("the bf16 refusal allocated memory or named no size")
+
+    with tempfile.TemporaryDirectory(prefix="moe-tok-") as tok:
+        readme = (pathlib.Path(__file__).resolve().parent / "README.md").read_text(
+            encoding="utf-8")
+        n_merges = write_mixtral_tokenizer(tok, readme)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        llm = TorchLLMEngine({
+            "model": model, "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ,
+            "enable_prefix_cache": True, "dtype": "bfloat16", "device": device, "seed": 0,
+            "quantization": "int8", "tokenizer_id": tok})
+        llm.load_model()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    engine = llm.engine
+    params = engine.params
+    tree = tree_bytes(params)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[moe] {model} ({cfg.num_layers} layers, {cfg.num_experts} experts top-"
+          f"{cfg.num_experts_per_tok}, int8 weights through the streamed init, seed 0; a "
+          f"Mixtral-style tokenizer: byte-fallback BPE, {n_merges} merges from README.md, "
+          f"vocab {llm.tokenizer.vocab_size}) loaded in {init_s:.1f} s; tree "
+          f"{tree} B against param_bytes(1) {cfg.param_bytes(1)} B; peak device memory of "
+          f"the load {peak / 2**30:.2f} GiB against the int8 tree + one f32 slice "
+          f"{(tree + slice_bytes) / 2**30:.2f} GiB (+ {INIT_SLACK >> 20} MiB allowed)",
+          flush=True)
+    if peak > tree + slice_bytes + INIT_SLACK:
+        raise AssertionError("the streamed init's peak exceeds the tree and one f32 slice")
+
+    # (a) one layer's MoE MLP, kernel route against the plain route
+    g = torch.Generator(device=dev).manual_seed(190)
+    lp = moe_layer(params, 0)
+    moe_err = max(moe_parity(torch, cfg, lp, rows, g, dev) for rows in MOE_ROWS)
+
+    # (b) serving through BatcherServing
+    enc = llm.tokenizer.encode
+    pa_ids, hit_ids = enc(prompts[3]), enc(shared + "zz" * 40)
+    common = next((i for i, (a, b) in enumerate(zip(pa_ids, hit_ids)) if a != b),
+                  min(len(pa_ids), len(hit_ids)))
+    pins = RoutePins(torch, llama, engine)
+    with ExpertTally(torch, llama, cfg.num_experts, dev) as tally, pins.record():
+        tokens, payloads, hit, wall, launches, stats = serve(
+            torch, pa, llm, prompts, shared, min_cached=BK * ((common - 1) // BK))
+    print(f"[moe] (b) kernel launches on the main path: {launches}", flush=True)
+    check_counts("moe", launches, qmm=True)
+    report_serving("moe", [len(p) for p in prompts], payloads, hit, wall, stats)
+    for p, payload in zip(prompts, payloads):
+        ids = tokens[tuple(enc(p))]
+        if payload["text"] != llm.tokenizer.decode(ids):
+            raise AssertionError(f"[moe] text is not the decode of the ids: {payload['text']!r}")
+    counts = tally.counts.tolist()
+    print(f"[moe] (b) rows each expert received over all layers while serving (pad rows "
+          f"included; information): {counts}, {sum(counts) // cfg.num_experts_per_tok} "
+          f"routed rows", flush=True)
+
+    # (c) re-score: one prefill and decode step kernels vs plain, and every
+    # committed token under one teacher-forced pass routed as the serving
+    compare_forward(torch, "moe", cfg, params, torch.bfloat16, dev)
+    rows = [(enc(p), tokens[tuple(enc(p))]) for p in prompts]
+    with pins.by_sequence([r[0] for r in rows]):
+        scores = rescore(torch, engine, rows)
+    pinned, flips = pins.pinned, pins.flips
+    unpinned = greedy_misses(rows, rescore(torch, engine, rows))[0]
+    print(f"[moe] (c) information: re-scored with its own routing, {len(unpinned)} committed "
+          f"token(s) lie {NEAR_TIE} or more below the argmax", flush=True)
+    bad, ties = greedy_misses(rows, scores)
+    for r, j, tok_, first, short in ties + bad:
+        print(f"[moe] (c) request {r} token {j}: committed {tok_}, argmax {first}: its logit "
+              f"{short:.4f} below the argmax's (top-2 gap {scores[r][j][2]:.4f})", flush=True)
+    # the control: the runner-up planted where the top-2 gap is widest
+    r, j = max(((r, j) for r, sc in enumerate(scores) for j in range(len(sc))),
+               key=lambda rj: scores[rj[0]][rj[1]][2])
+    planted = list(rows[r][1])
+    planted[j] = scores[r][j][1]
+    with pins.by_sequence([rows[r][0]]):
+        caught, _ = greedy_misses([(rows[r][0], planted)],
+                                  rescore(torch, engine, [(rows[r][0], planted)]))
+    print(f"[moe] (c) {sum(len(t) for _, t in rows)} committed tokens re-scored, routed as "
+          f"served ({pinned} row-layers pinned; its own router would have routed "
+          f"{flips} otherwise): {len(ties)} near-tie(s) below {NEAR_TIE}, {len(bad)} "
+          f"beyond it; the runner-up planted at request {r} token {j} (gap "
+          f"{scores[r][j][2]:.4f}) rejected: {any(x[1] == j for x in caught)}", flush=True)
+    if bad:
+        raise AssertionError(f"[moe] committed tokens that are not the greedy choice: {bad}")
+    if scores[r][j][2] < NEAR_TIE or not any(x[1] == j for x in caught):
+        raise AssertionError("[moe] the greedy check accepts a planted flip")
+
+    # (d) times
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    timed = moe_times(torch, cfg, params, lp, dev, flush, smi)
+    del flush
+    llm.unload()
+    del llm, engine, params, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed, launches, moe_err
+
+
 def main() -> int:
     import torch
 
@@ -4882,6 +5465,12 @@ def main() -> int:
 
     # ---- 18. a fleet of two workers, killed, blacked out and restarted
     fleet_phase(torch, pa, smi, prompts)
+
+    # ---- 19. mixtral-8x7b: the MoE layer, the streamed init, serving, times
+    moe_timed, moe_launches, _ = moe_phase(torch, pa, smi, prompts, shared)
+    for name, (times, err) in moe_timed.items():
+        kernels.append(entry(f"qmm_w8a16[int8]@moe-{name}", "qmm_w8a16.cu", QPALLAS + ":88",
+                             moe_launches["qmm_w8a16"], err, times))
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -200,8 +200,7 @@ MODEL_REGISTRY: Dict[str, ModelConfig] = {
         tie_word_embeddings=True, activation="gelu", scale_embeddings=True,
         norm_offset=True,
     ),
-    # Mixtral family — sparse MoE MLP (top-2 of E experts); the port's
-    # forward raises NotImplementedError on MoE layers in this slice
+    # Mixtral family — sparse MoE MLP (top-2 of E experts)
     "mixtral-tiny": _llama(  # test-scale: 4 experts, top-2
         "mixtral-tiny", vocab_size=512, hidden_size=64, num_layers=2,
         num_heads=4, num_kv_heads=2, intermediate_size=128,

@@ -25,10 +25,10 @@ be bf16/f32, fp8 (e4m3, written with JAX's cast) or int8 with scale pools
 write before the ragged read, and the fused decode kernel quantizes the
 step's row itself.
 
-Dense-family switches covered: Qwen QKV bias, Mistral sliding window,
-Gemma ``(1 + w)`` norm, tanh-GeGLU, sqrt(H) embedding scale and final logit
-softcap, tied and untied heads. MoE layers are not ported in this slice
-and raise ``NotImplementedError``.
+Family switches covered: Qwen QKV bias, Mistral sliding window, Gemma
+``(1 + w)`` norm, tanh-GeGLU, sqrt(H) embedding scale and final logit
+softcap, tied and untied heads, and Mixtral's sparse expert MLP
+(:func:`_moe_mlp`, taken when a layer carries ``w_router``).
 """
 
 from __future__ import annotations
@@ -72,6 +72,21 @@ def torch_dtype(dtype: Any) -> torch.dtype:
             "float8_e4m3fn": torch.float8_e4m3fn}[str(dtype)]
 
 
+def normal_leaf(shape: Tuple[int, ...], fan_in: int, generator: torch.Generator,
+                dtype: torch.dtype, device: Any) -> torch.Tensor:
+    """Normal weights scaled by fan_in^-0.5, drawn in f32 from
+    ``generator`` a few leading rows at a time (the f32 draw stays <= 256
+    MB) and cast to ``dtype``."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, (1 << 26) // math.prod(shape[1:]))
+    for r0 in range(0, shape[0], step):
+        r1 = min(shape[0], r0 + step)
+        w[r0:r1] = (torch.randn((r1 - r0, *shape[1:]), generator=generator,
+                                device=device, dtype=torch.float32)
+                    * (fan_in ** -0.5)).to(dtype)
+    return w
+
+
 def init_params(
     cfg: ModelConfig,
     generator: torch.Generator,
@@ -84,8 +99,6 @@ def init_params(
     ``dtype``. The values differ from the JAX package's threefry draws;
     tests that compare the two packages build weights once and move them
     over with ``models/convert.py``."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     dtype = torch_dtype(dtype or cfg.dtype)
     device = torch.device(device) if device is not None else generator.device
     h, d = cfg.hidden_size, cfg.head_dim
@@ -93,15 +106,7 @@ def init_params(
     L, v = cfg.num_layers, cfg.vocab_size
 
     def _w(shape, fan_in):
-        w = torch.empty(shape, dtype=dtype, device=device)
-        # a few leading rows at a time: the f32 draw stays <= 256 MB
-        step = max(1, (1 << 26) // math.prod(shape[1:]))
-        for r0 in range(0, shape[0], step):
-            r1 = min(shape[0], r0 + step)
-            w[r0:r1] = (torch.randn((r1 - r0, *shape[1:]), generator=generator,
-                                    device=device, dtype=torch.float32)
-                        * (fan_in ** -0.5)).to(dtype)
-        return w
+        return normal_leaf(shape, fan_in, generator, dtype, device)
 
     # norm identity depends on the convention: plain RMSNorm scales by w
     # (identity = ones); Gemma's offset form scales by 1+w (identity = zeros)
@@ -113,10 +118,17 @@ def init_params(
         "wv": _w((L, h, nkv * d), h),
         "wo": _w((L, nh * d, h), nh * d),
         "mlp_norm": norm_init((L, h), dtype=dtype, device=device),
-        "w_gate": _w((L, h, i), h),
-        "w_up": _w((L, h, i), h),
-        "w_down": _w((L, i, h), i),
     }
+    if cfg.num_experts:  # Mixtral-style sparse MoE: stacked expert axis E
+        e = cfg.num_experts
+        layers["w_router"] = _w((L, h, e), h)
+        layers["we_gate"] = _w((L, e, h, i), h)
+        layers["we_up"] = _w((L, e, h, i), h)
+        layers["we_down"] = _w((L, e, i, h), i)
+    else:
+        layers["w_gate"] = _w((L, h, i), h)
+        layers["w_up"] = _w((L, h, i), h)
+        layers["w_down"] = _w((L, i, h), i)
     params: Params = {
         "embedding": _w((v, h), h),
         "layers": layers,
@@ -197,12 +209,68 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, lp: Dict[str, Any], activation: str) -> torch.Tensor:
+def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "silu":
-        gate = F.silu(matmul(x, lp["w_gate"]))
-    else:  # Gemma GeGLU (gelu_pytorch_tanh)
-        gate = F.gelu(matmul(x, lp["w_gate"]), approximate="tanh")
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")   # Gemma GeGLU (gelu_pytorch_tanh)
+
+
+def _mlp(x: torch.Tensor, lp: Dict[str, Any], activation: str) -> torch.Tensor:
+    gate = _act(matmul(x, lp["w_gate"]), activation)
     return matmul(gate * matmul(x, lp["w_up"]), lp["w_down"]).to(x.dtype)
+
+
+def route_experts(xf: torch.Tensor, w_router: torch.Tensor,
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF Mixtral's routing of tokens ``xf [T, H]``: the router product in
+    f32, softmax over every expert, the top ``k`` renormalized. → (dense
+    ``[T, E]`` f32 combine weights, zero off the top k; the top-k expert
+    ids ``[T, k]``). Ties resolve as ``lax.top_k`` resolves them, the lower
+    expert first: a stable descending sort (``torch.topk`` promises no
+    order among equals)."""
+    probs = torch.softmax(xf.float() @ w_router.float(), dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    return torch.zeros_like(probs).scatter_(1, topi, topv), topi
+
+
+def _moe_mlp(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+    """Mixtral-style sparse MoE MLP (JAX ``models/llama.py`` ``_moe_mlp``).
+
+    Every expert runs on every token and the dense ``[T, E]`` combine
+    weights (zero off each token's top k) mix their outputs, as the JAX
+    package does: the step stays free of host syncs (no ``.item()``, no
+    ``nonzero`` on the routing), so it can be captured in a CUDA graph.
+    The cost is E/k times the routed products. Each expert's products go
+    through :func:`ops.quantization.matmul` on views of its stack: a
+    quantized ``{"qw": [E, K, N], "scale": [E, 1, N]}`` as ``qw[e]`` (the
+    W8A16 kernel up to its row bound, the library route above it), a
+    plain ``[E, K, N]`` as ``w[e]``.
+
+    The sum over experts is taken in f32, ``weights[:, e] * per_expert``,
+    then rounded to x's dtype. With k = 2 a dispatch that skips the
+    unrouted experts gives the same f32 sum bit for bit, as long as every
+    expert output is finite: the zero terms add nothing and two terms
+    commute. That is the premise of a later grouped dispatch.
+
+    One arithmetic difference from the JAX package: its ``_deq`` rounds
+    ``code * scale`` to the activation dtype before the product, while the
+    kernel accumulates ``x @ codes`` in f32 and scales the sum once. In f32
+    the two agree to rounding; in bf16 they differ by the weight's
+    rounding."""
+    b, s, h = x.shape
+    xf = x.reshape(b * s, h)
+    weights, _ = route_experts(xf, lp["w_router"], cfg.num_experts_per_tok)
+    out = torch.zeros((b * s, h), dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        w = {n: ({"qw": lp[n]["qw"][e], "scale": lp[n]["scale"][e]}
+                 if is_quantized(lp[n]) else lp[n][e])
+             for n in ("we_gate", "we_up", "we_down")}
+        gate = _act(matmul(xf, w["we_gate"]), cfg.activation)
+        per_e = matmul(gate * matmul(xf, w["we_up"]), w["we_down"])
+        out += weights[:, e, None] * per_e.float()
+    return out.reshape(b, s, h).to(x.dtype)
 
 
 class ChunkOutput(NamedTuple):
@@ -289,6 +357,8 @@ def _layer_step(
 
     hidden = hidden + matmul(attn.reshape(b, s, nh * d), lp["wo"]).to(hidden.dtype)
     mlp_in = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+    if "w_router" in lp:
+        return hidden + _moe_mlp(mlp_in, lp, cfg)
     return hidden + _mlp(mlp_in, lp, cfg.activation)
 
 
@@ -316,7 +386,6 @@ def forward_chunk(
     only needs its KV side effects). ``collect_layers`` also returns
     ``ChunkOutput.features``, those layers' post-layer hiddens side by side
     (the EAGLE-3 draft features)."""
-    _check_dense(params)
     positions = positions.to(torch.int32)
     hidden, features = _run_layers(
         cfg, params, token_ids, positions, kv, block_tables, kv_lens,
@@ -337,12 +406,6 @@ def forward_chunk(
     return ChunkOutput(hidden=hidden, kv=kv,
                        logits=project_logits(cfg, params, logits_in),
                        features=features)
-
-
-def _check_dense(params: Params) -> None:
-    for name in ("w_router", "we_gate"):
-        if name in params["layers"]:
-            raise NotImplementedError("MoE layers are not ported yet")
 
 
 def _run_layers(
@@ -402,7 +465,6 @@ def forward_tree_chunk(
     sliding-window models. Logits for every node."""
     from distributed_gpu_inference_torch.ops.attention import paged_tree_attention
 
-    _check_dense(params)
     rope_positions = rope_positions.to(torch.int32)
     tables = block_tables.to(torch.int32)
 

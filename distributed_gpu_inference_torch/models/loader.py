@@ -25,14 +25,24 @@ Like the JAX loader, ``_validate`` checks the key set and the layer count
 only: a layer tensor missing from the checkpoint loads as zeros (codes 0
 and scale 1 when quantized, which is what quantizing zeros gives).
 
-Mixtral's expert names load into the tree (``w_router``, ``we_*``), but
-``TorchEngine`` does not serve MoE yet. Orbax checkpoints are JAX-only:
-:func:`load_or_init_params` refuses any other directory by name.
+Mixtral's expert names load into the tree (``w_router``, ``we_*``).
+Orbax checkpoints are JAX-only: :func:`load_or_init_params` refuses any
+other directory by name.
+
+A random init whose full-precision tree does not fit the device is drawn
+already quantized (:func:`init_quantized_streamed`, the port of the JAX
+loader's function of that name): one f32 layer slice at a time, quantized
+into preallocated codes and scales. :func:`init_route` is the rule that
+picks it, on the device's total memory (not its free memory, so a model
+draws the same weights whatever else is resident). A full-precision tree
+larger than the device is refused before anything is allocated.
 """
 
 from __future__ import annotations
 
+import logging
 import re
+import zlib
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
@@ -77,6 +87,12 @@ _MOE_EXPERT_RE = re.compile(r"^block_sparse_moe\.experts\.(\d+)\.(w[123])\.weigh
 _MOE_EXPERT_MAP = {"w1": "we_gate", "w3": "we_up", "w2": "we_down"}
 
 _EMBED = "model.embed_tokens.weight"
+
+# f32 elements of one quantize step of the streamed init: its temporaries
+# stay a few hundred MB beside the layer slice being quantized
+_QUANT_CHUNK = 1 << 24
+
+log = logging.getLogger(__name__)
 
 
 class _Tree:
@@ -233,6 +249,138 @@ def _validate(params: Dict[str, Any], cfg: ModelConfig, rng: BlockRange) -> None
         raise ValueError("last stage missing final_norm")
 
 
+def _quantize_into(w: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+                   mode: str) -> None:
+    """``quantize_weight(w, mode)`` written into ``qw`` / ``scale``, a
+    matrix and a block of its columns at a time: the scale reduces the
+    contraction axis only, so every column quantizes on its own and the
+    codes and scales are those of one call on the whole of ``w``."""
+    k, n = w.shape[-2:]
+    w3, q3, s3 = w.reshape(-1, k, n), qw.view(-1, k, n), scale.view(-1, 1, n)
+    cols = max(1, _QUANT_CHUNK // k)
+    for i in range(w3.shape[0]):
+        for c0 in range(0, n, cols):
+            q = quantize_weight(w3[i, :, c0:c0 + cols], mode)
+            q3[i, :, c0:c0 + cols] = q["qw"]
+            s3[i, :, c0:c0 + cols] = q["scale"]
+            del q
+
+
+def init_quantized_streamed(
+    cfg: ModelConfig,
+    mode: str,
+    dtype: Optional[Any] = None,
+    seed: int = 0,
+    device: Any = "cuda",
+) -> llama.Params:
+    """Random-init a model on ``device`` already quantized, one layer slice
+    at a time: the cold start of a model whose full-precision tree exceeds
+    the device (mixtral-8x7b in bf16 is 93.4 GB). The port of the JAX
+    loader's ``init_quantized_streamed``, with the same tree layout.
+
+    Each matmul leaf ``[L, ...]`` is drawn slice by slice in f32 on the
+    device from a ``torch.Generator`` keyed by ``seed`` and the leaf's name
+    (its crc32, as the JAX package keys it), quantized with
+    ``quantize_weight`` a block of columns at a time and written into
+    preallocated codes and scales. Norms, router, embedding and head are
+    drawn in the model dtype. The peak is the quantized tree plus one f32
+    layer slice (``[E, H, I]`` for an expert leaf: 1.88 GB for
+    mixtral-8x7b) and a few hundred MB of quantize temporaries. The values
+    differ from ``llama.init_params``'s, as they do in JAX: only
+    determinism in the seed matters."""
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quantization {mode!r}; use {QUANT_MODES}")
+    dtype = llama.torch_dtype(dtype or cfg.dtype)
+    device = torch.device(device)
+    h, d = cfg.hidden_size, cfg.head_dim
+    nh, nkv, i = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+    L, v = cfg.num_layers, cfg.vocab_size
+    code = torch.int8 if mode == "int8" else torch.float8_e4m3fn
+
+    def _gen(name: str) -> torch.Generator:
+        key = (seed << 31) + (zlib.crc32(name.encode()) & 0x7FFFFFFF)
+        return torch.Generator(device=device).manual_seed(key % (1 << 64))
+
+    def _q_leaf(name: str, shape: Tuple[int, ...], fan_in: int) -> Dict[str, torch.Tensor]:
+        g = _gen(name)
+        qw = torch.empty((L, *shape), dtype=code, device=device)
+        scale = torch.empty((L, *shape[:-2], 1, shape[-1]), dtype=torch.float32,
+                            device=device)
+        for layer in range(L):
+            # one f32 slice, scaled in place
+            w = torch.randn(shape, generator=g, device=device,
+                            dtype=torch.float32).mul_(fan_in ** -0.5)
+            _quantize_into(w, qw[layer], scale[layer], mode)
+            del w
+        return {"qw": qw, "scale": scale}
+
+    def _dense_leaf(name: str, shape: Tuple[int, ...], fan_in: int) -> torch.Tensor:
+        return llama.normal_leaf(shape, fan_in, _gen(name), dtype, device)
+
+    norm_init = torch.zeros if cfg.norm_offset else torch.ones
+    layers: Dict[str, Any] = {
+        "attn_norm": norm_init((L, h), dtype=dtype, device=device),
+        "mlp_norm": norm_init((L, h), dtype=dtype, device=device),
+    }
+    leaf_specs = {
+        "wq": ((h, nh * d), h),
+        "wk": ((h, nkv * d), h),
+        "wv": ((h, nkv * d), h),
+        "wo": ((nh * d, h), nh * d),
+    }
+    if cfg.num_experts:
+        e = cfg.num_experts
+        layers["w_router"] = _dense_leaf("w_router", (L, h, e), h)
+        leaf_specs.update({"we_gate": ((e, h, i), h), "we_up": ((e, h, i), h),
+                           "we_down": ((e, i, h), i)})
+    else:
+        leaf_specs.update({"w_gate": ((h, i), h), "w_up": ((h, i), h),
+                           "w_down": ((i, h), i)})
+    for name, (shape, fan_in) in leaf_specs.items():
+        layers[name] = _q_leaf(name, shape, fan_in)
+    if cfg.attention_bias:
+        layers["bq"] = _dense_leaf("bq", (L, nh * d), nh * d)
+        layers["bk"] = _dense_leaf("bk", (L, nkv * d), nkv * d)
+        layers["bv"] = _dense_leaf("bv", (L, nkv * d), nkv * d)
+    params: Dict[str, Any] = {
+        "embedding": _dense_leaf("embedding", (v, h), h),
+        "layers": layers,
+        "final_norm": norm_init((h,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = _dense_leaf("lm_head", (v, h), h)
+    return params
+
+
+def device_total_bytes(device: Any) -> Optional[int]:
+    """The device's total memory, or None where there is no bound to hold
+    a tree to (the CPU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def init_route(cfg: ModelConfig, dtype: Any, quantization: Optional[str],
+               device: Any) -> str:
+    """How a random init of ``cfg`` is built on ``device``: ``"full"`` (the
+    full-precision tree, then quantized leaf by leaf if asked) or
+    ``"streamed"`` (:func:`init_quantized_streamed`), taken for a
+    quantized init whose full-precision tree exceeds the device's total
+    memory. A full-precision tree that exceeds it with no quantization is
+    refused with its size."""
+    fp_bytes = cfg.param_bytes(llama.torch_dtype(dtype or cfg.dtype).itemsize)
+    total = device_total_bytes(device)
+    if total is None or fp_bytes <= total:
+        return "full"
+    if quantization is None:
+        raise ValueError(
+            f"{cfg.name}: its {llama.torch_dtype(dtype or cfg.dtype)} weights take "
+            f"{fp_bytes / 1e9:.1f} GB, more than the device's {total / 1e9:.1f} GB; "
+            f"load it quantized (quantization: int8 or fp8)")
+    return "streamed"
+
+
 def load_or_init_params(
     cfg: ModelConfig,
     checkpoint_path: Optional[str | Path] = None,
@@ -242,11 +390,16 @@ def load_or_init_params(
     quantization: Optional[str] = None,
 ) -> llama.Params:
     """The engine's one weight source: an HF safetensors directory, or a
-    random init from ``seed`` (``torch.Generator`` on ``device``; the
-    full-precision tree is quantized leaf by leaf as it is consumed). Any
-    other ``checkpoint_path`` is refused: the JAX package reads it as an
-    orbax checkpoint, which is JAX-only."""
+    random init from ``seed`` on ``device`` by :func:`init_route`'s rule
+    (the full-precision tree from a ``torch.Generator``, quantized leaf by
+    leaf as it is consumed, or the streamed quantized init). Any other
+    ``checkpoint_path`` is refused: the JAX package reads it as an orbax
+    checkpoint, which is JAX-only. A full-precision tree larger than the
+    device is refused before anything is allocated."""
     dtype = llama.torch_dtype(dtype or cfg.dtype)
+    if quantization is not None and quantization not in QUANT_MODES:
+        raise ValueError(f"unknown quantization {quantization!r}; use {QUANT_MODES}")
+    route = init_route(cfg, dtype, quantization, device)
     if checkpoint_path:
         p = Path(checkpoint_path)
         # the JAX package's test: config.json or *.safetensors
@@ -257,6 +410,9 @@ def load_or_init_params(
             f"checkpoint_path {str(p)!r} is not an HF checkpoint directory (no "
             "config.json or *.safetensors); orbax checkpoints are JAX-only and "
             "the PyTorch port does not load them")
+    log.info("%s: random init from seed %d, route %s", cfg.name, seed, route)
+    if route == "streamed":
+        return init_quantized_streamed(cfg, quantization, dtype, seed, device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return quantize_params(llama.init_params(cfg, gen, dtype, device), quantization,
                            consume=True)

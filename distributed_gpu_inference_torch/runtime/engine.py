@@ -379,15 +379,17 @@ class TorchEngine:
         ``EngineConfig.quantization`` the matmul weights are quantized on
         load: a checkpoint slice by slice as it is read (the full-precision
         leaf is never built), a random init leaf by leaf as it is consumed
-        (the peak is the full-precision tree plus one quantized leaf); a
-        caller's tree is left as it was."""
+        (the peak is the full-precision tree plus one quantized leaf), or,
+        where that tree exceeds the device, drawn quantized one layer slice
+        at a time (``models/loader.py`` ``init_route``); a caller's tree is
+        left as it was. A full-precision tree larger than the device is
+        refused before anything is allocated. MoE (Mixtral) layers serve on
+        every path; ``forward_chunk`` takes them."""
         self.device = resolve_device(device)
         self.model_cfg = (
             get_model_config(model_cfg) if isinstance(model_cfg, str) else model_cfg
         )
         self.cfg = engine_cfg or EngineConfig()
-        if self.model_cfg.num_experts:
-            raise NotImplementedError("MoE models are not ported yet")
         if self.cfg.speculative is not None:
             self.cfg.speculative.validate(self.cfg)
         self.dtype = llama.torch_dtype(self.cfg.dtype)

@@ -1,4 +1,4 @@
-"""Byte-level BPE tokenizers from a local directory (``tokenizer.json`` and
+"""BPE tokenizers from a local directory (``tokenizer.json`` and
 ``tokenizer_config.json``), with their chat templates.
 
 The port's stand-in for what the JAX package's worker gets from
@@ -6,30 +6,38 @@ The port's stand-in for what the JAX package's worker gets from
 (``distributed_gpu_inference_tpu/worker/engines/llm.py``
 ``_load_hf_tokenizer``). The card's machine has no ``tokenizers``,
 ``transformers`` or ``regex``, so the pipeline is read from the JSON and run
-here, for the byte-level BPE tokenizers of the families in
-``models/configs.py`` (Llama 3, Qwen 2.5) and GPT-2's:
+here, for the BPE tokenizers of the families in ``models/configs.py``: the
+byte-level ones (Llama 3, Qwen 2.5, GPT-2) and the SentencePiece-style ones
+(Mistral, Mixtral):
 
 - added tokens (``special``, ``lstrip``, ``rstrip``, ``single_word``,
   ``normalized``) are split out first, leftmost-longest, the unnormalized
   ones on the raw text and the normalized ones after the normalizer;
-- normalizer: none, a Unicode normal form (NFC, ...) or a ``Sequence`` of
-  them;
-- pre-tokenizer: ``Split`` on a regex with the ``Isolated`` behaviour,
-  ``ByteLevel`` (with or without GPT-2's split regex), or a ``Sequence``.
+- normalizer: none, a Unicode normal form (NFC, ...), ``Prepend``,
+  ``Replace`` or a ``Sequence`` of them;
+- pre-tokenizer: none, ``Split`` on a regex with the ``Isolated``
+  behaviour, ``ByteLevel`` (with or without GPT-2's split regex),
+  ``Metaspace`` (its ``prepend_scheme`` and ``split``), or a ``Sequence``.
   The patterns use Oniguruma's ``\\p{L}`` / ``\\p{N}`` classes, which
   Python's ``re`` lacks: they are rebuilt from ``unicodedata`` as ``re``
   ranges, and ``\\s`` is spelled out as Unicode's White_Space set (Python's
   ``\\s`` also takes U+001C-U+001F, Oniguruma's does not);
-- model: BPE over the byte-level alphabet, merges as ``"a b"`` strings or
-  ``[a, b]`` pairs, the lowest-ranked adjacent pair merged first (leftmost
-  among equals), and ``ignore_merges`` (a whole pre-token in the vocab is
-  one id);
+- model: BPE, merges as ``"a b"`` strings or ``[a, b]`` pairs, the
+  lowest-ranked adjacent pair merged first (leftmost among equals; a heap,
+  so a SentencePiece-style section with no pre-tokenizer, one long word,
+  merges in n log n), ``ignore_merges`` (a whole pre-token in the vocab is
+  one id), ``byte_fallback`` (a character outside the vocab becomes its
+  UTF-8 bytes' ``<0xXX>`` pieces) and ``unk_token`` with ``fuse_unk``;
 - post-processor: ``TemplateProcessing`` (the BOS of Llama 3),
   ``ByteLevel`` (ids unchanged) or a ``Sequence``;
-- decoder: ``ByteLevel``. Added tokens are emitted as their text, outside
+- decoder: ``ByteLevel``: added tokens are emitted as their text, outside
   the decoder, and each run of model tokens between them is decoded on its
   own, invalid UTF-8 becoming U+FFFD (the stream splicer holds a trailing
-  U+FFFD back); ``clean_up_tokenization_spaces`` applies transformers'
+  U+FFFD back). Or a chain of ``Replace``, ``ByteFallback`` (a run of
+  ``<0xXX>`` pieces decodes as UTF-8, an invalid run as one U+FFFD a
+  byte), ``Fuse``, ``Strip`` and ``Metaspace`` steps (a ``Sequence``), run
+  as the ``tokenizers`` library runs them over every token, added ones
+  included. ``clean_up_tokenization_spaces`` applies transformers'
   replacements.
 
 ``apply_chat_template`` renders the template as transformers does: a
@@ -41,15 +49,15 @@ read from ``chat_template.jinja``, else from ``tokenizer_config.json``
 a tokenizer with a template loads; without a template the call raises, as
 transformers does.
 
-Anything else (SentencePiece-style pieces: ``byte_fallback``,
-``Metaspace``, ``Prepend`` / ``Replace`` normalizers, Unigram or WordPiece
-models) is refused at load with :class:`TokenizerUnsupported` naming the
-component.
+Anything else (Unigram or WordPiece models, other normalizers,
+pre-tokenizers or decoders) is refused at load with
+:class:`TokenizerUnsupported` naming the component.
 """
 
 from __future__ import annotations
 
 import functools
+import heapq
 import json
 import re
 import unicodedata
@@ -194,19 +202,74 @@ def _isolated_split(rx: "re.Pattern[str]", piece: str) -> List[str]:
     return out
 
 
+def _replacer(spec: Dict[str, Any], what: str) -> Callable[[str], str]:
+    """A ``Replace`` step's pattern (a ``String`` or a ``Regex``) and its
+    ``content``, applied to every occurrence."""
+    pat, content = spec.get("pattern") or {}, spec.get("content", "")
+    if "String" in pat:
+        return lambda s: s.replace(pat["String"], content)
+    if "Regex" in pat:
+        rx = re.compile(translate_pattern(pat["Regex"]))
+        return lambda s: rx.sub(lambda m: content, s)
+    raise TokenizerUnsupported(f"{what} Replace pattern {pat!r}")
+
+
 def _normalizer(spec: Optional[Dict[str, Any]]) -> Callable[[str], str]:
     if spec is None:
         return lambda s: s
     kind = spec.get("type")
     if kind in ("NFC", "NFD", "NFKC", "NFKD"):
         return functools.partial(unicodedata.normalize, kind)
+    if kind == "Prepend":
+        prefix = spec.get("prepend", "")
+        return lambda s: prefix + s if s else s
+    if kind == "Replace":
+        return _replacer(spec, "normalizer")
     if kind == "Sequence":
         steps = [_normalizer(s) for s in spec.get("normalizers", [])]
         return functools.reduce(lambda f, g: (lambda s: g(f(s))), steps, lambda s: s)
     raise TokenizerUnsupported(f"normalizer {kind!r}")
 
 
-def _pre_tokenizer(spec: Optional[Dict[str, Any]]) -> List[Callable[[str], List[str]]]:
+# a pre-tokenizer step: (piece, whether the piece starts the original
+# text) → its pieces
+PreStep = Callable[[str, bool], List[str]]
+
+
+def _prepend_scheme(spec: Dict[str, Any]) -> str:
+    """A ``Metaspace`` step's ``prepend_scheme``; files older than the
+    field carry ``add_prefix_space`` instead (true: ``always``)."""
+    scheme = spec.get("prepend_scheme")
+    if scheme is None:
+        scheme = "always" if spec.get("add_prefix_space", True) else "never"
+    if scheme not in ("always", "first", "never"):
+        raise TokenizerUnsupported(f"Metaspace prepend_scheme {scheme!r}")
+    return scheme
+
+
+def _metaspace(spec: Dict[str, Any]) -> PreStep:
+    """``Metaspace``: spaces become the replacement; the replacement is
+    prepended to a piece that does not start with it (``always``), or only
+    to the piece that starts the text (``first``); with ``split`` the piece
+    is cut before every replacement."""
+    rep = spec.get("replacement", "\u2581")
+    scheme = _prepend_scheme(spec)
+    split = spec.get("split", True)
+
+    def step(piece: str, at_start: bool) -> List[str]:
+        piece = piece.replace(" ", rep)
+        if (scheme == "always" or (scheme == "first" and at_start)) \
+                and not piece.startswith(rep):
+            piece = rep + piece
+        if not split:
+            return [piece]
+        cuts = [i for i, c in enumerate(piece) if c == rep and i > 0]
+        return [piece[a:b] for a, b in zip([0] + cuts, cuts + [len(piece)])]
+
+    return step
+
+
+def _pre_tokenizer(spec: Optional[Dict[str, Any]]) -> List[PreStep]:
     """The pre-tokenizer as a list of steps, each mapping one piece to its
     pieces; ByteLevel's last step maps the bytes to the BPE alphabet."""
     if spec is None:
@@ -222,18 +285,105 @@ def _pre_tokenizer(spec: Optional[Dict[str, Any]]) -> List[Callable[[str], List[
         if "Regex" not in pat:
             raise TokenizerUnsupported(f"Split pattern {pat!r} (a Regex is read)")
         rx = re.compile(translate_pattern(pat["Regex"]))
-        return [functools.partial(_isolated_split, rx)]
+        return [lambda p, _: _isolated_split(rx, p)]
+    if kind == "Metaspace":
+        return [_metaspace(spec)]
     if kind == "ByteLevel":
-        steps: List[Callable[[str], List[str]]] = []
+        steps: List[PreStep] = []
         if spec.get("add_prefix_space"):
-            steps.append(lambda p: [p if p.startswith(" ") else " " + p])
+            steps.append(lambda p, _: [p if p.startswith(" ") else " " + p])
         if spec.get("use_regex", True):
             rx = re.compile(translate_pattern(_GPT2_PATTERN))
-            steps.append(functools.partial(_isolated_split, rx))
+            steps.append(lambda p, _: _isolated_split(rx, p))
         table = _bytes_to_unicode()
-        steps.append(lambda p: ["".join(table[b] for b in p.encode("utf-8"))])
+        steps.append(lambda p, _: ["".join(table[b] for b in p.encode("utf-8"))])
         return steps
     raise TokenizerUnsupported(f"pre-tokenizer {kind!r}")
+
+
+def _byte_piece(token: str) -> Optional[int]:
+    """The byte of a ``<0xXX>`` piece, else None."""
+    if len(token) == 6 and token.startswith("<0x") and token.endswith(">"):
+        try:
+            return int(token[3:5], 16)
+        except ValueError:
+            return None
+    return None
+
+
+def _byte_fallback(tokens: List[str]) -> List[str]:
+    """``ByteFallback``: each run of ``<0xXX>`` pieces becomes its UTF-8
+    text, or one U+FFFD a byte where the run is not valid UTF-8."""
+    out: List[str] = []
+    run = bytearray()
+
+    def flush() -> None:
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" for _ in run)
+            run.clear()
+
+    for t in tokens:
+        b = _byte_piece(t)
+        if b is None:
+            flush()
+            out.append(t)
+        else:
+            run.append(b)
+    flush()
+    return out
+
+
+def _strip(spec: Dict[str, Any]) -> Callable[[List[str]], List[str]]:
+    """``Strip``: up to ``start`` leading and ``stop`` trailing ``content``
+    characters off each token."""
+    c, start, stop = spec.get("content", " "), int(spec.get("start", 0)), int(spec.get("stop", 0))
+
+    def one(t: str) -> str:
+        a = 0
+        while a < min(start, len(t)) and t[a] == c:
+            a += 1
+        b, n = len(t), 0
+        while n < stop and b > a and t[b - 1] == c:
+            b -= 1
+            n += 1
+        return t[a:b]
+
+    return lambda tokens: [one(t) for t in tokens]
+
+
+def _metaspace_decode(spec: Dict[str, Any]) -> Callable[[List[str]], List[str]]:
+    """``Metaspace`` decoding: the replacement becomes a space, except in
+    the first token, where (unless the scheme is ``never``) every
+    replacement is dropped."""
+    rep = spec.get("replacement", "\u2581")
+    drop_first = _prepend_scheme(spec) != "never"
+    return lambda tokens: [t.replace(rep, "" if i == 0 and drop_first else " ")
+                           for i, t in enumerate(tokens)]
+
+
+def _decoder(spec: Dict[str, Any]) -> Callable[[List[str]], List[str]]:
+    """A chain of decoders over the token strings, as the ``tokenizers``
+    library's ``decode_chain``; ``ByteLevel`` is read only as the whole
+    decoder (``HFTokenizer._byte_level_decode``)."""
+    kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_decoder(s) for s in spec.get("decoders", [])]
+        return functools.reduce(lambda f, g: (lambda t: g(f(t))), steps, lambda t: t)
+    if kind == "Replace":
+        rep = _replacer(spec, "decoder")
+        return lambda tokens: [rep(t) for t in tokens]
+    if kind == "ByteFallback":
+        return _byte_fallback
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Strip":
+        return _strip(spec)
+    if kind == "Metaspace":
+        return _metaspace_decode(spec)
+    raise TokenizerUnsupported(f"decoder {kind!r}")
 
 
 def _post_processor(spec: Optional[Dict[str, Any]]) -> Callable[[List[int]], List[int]]:
@@ -287,7 +437,7 @@ def _is_word_char(c: str) -> bool:
 
 
 class HFTokenizer:
-    """A byte-level BPE tokenizer read from a local directory. The surface
+    """A BPE tokenizer read from a local directory. The surface
     the LLM engine calls: :meth:`encode` (the post-processor's special
     tokens added, as transformers' default), :meth:`decode` (special tokens
     kept), :meth:`apply_chat_template`, ``eos_token_id``, ``bos_token_id``
@@ -300,16 +450,15 @@ class HFTokenizer:
         model = tokenizer.get("model") or {}
         if model.get("type") != "BPE":
             raise TokenizerUnsupported(f"model {model.get('type')!r} (only BPE is read)")
-        if model.get("byte_fallback"):
-            raise TokenizerUnsupported("BPE byte_fallback (a SentencePiece-style vocab)")
         for key in ("continuing_subword_prefix", "end_of_word_suffix"):
             if model.get(key):
                 raise TokenizerUnsupported(f"BPE {key}={model[key]!r}")
         if model.get("dropout"):
             raise TokenizerUnsupported(f"BPE dropout={model['dropout']}")
         decoder = tokenizer.get("decoder") or {}
-        if decoder.get("type") != "ByteLevel":
-            raise TokenizerUnsupported(f"decoder {decoder.get('type')!r}")
+        # None: the ByteLevel decode; else the decoder chain
+        self._decode_chain = (None if decoder.get("type") == "ByteLevel"
+                              else _decoder(decoder))
 
         self.vocab: Dict[str, int] = dict(model.get("vocab", {}))
         self.id_to_token: Dict[int, str] = {i: t for t, i in self.vocab.items()}
@@ -321,6 +470,8 @@ class HFTokenizer:
                 raise ValueError(f"{name}: merge {a!r} {b!r} makes a token not in the vocab")
             self._ranks.setdefault((a, b), rank)
         self.ignore_merges = bool(model.get("ignore_merges", False))
+        self.byte_fallback = bool(model.get("byte_fallback", False))
+        self.fuse_unk = bool(model.get("fuse_unk", False))
         self._unk = model.get("unk_token")
         self._cache: Dict[str, List[int]] = {}
 
@@ -347,8 +498,10 @@ class HFTokenizer:
         self.normalize = _normalizer(tokenizer.get("normalizer"))
         pre = tokenizer.get("pre_tokenizer")
         # transformers resets a top-level add_prefix_space to the config's
-        # (default False) when they differ
-        if isinstance(pre, dict) and "add_prefix_space" in pre:
+        # (default False) when they differ (a Metaspace step's legacy field
+        # is not in the state it reads)
+        if isinstance(pre, dict) and "add_prefix_space" in pre \
+                and pre.get("type") != "Metaspace":
             pre = dict(pre, add_prefix_space=bool(config.get("add_prefix_space", False)))
         self._pre = _pre_tokenizer(pre)
         self._post = _post_processor(tokenizer.get("post_processor"))
@@ -441,49 +594,95 @@ class HFTokenizer:
             out.append((None, text[start_offset:]))
         return out
 
+    def _symbols(self, word: str) -> List[str]:
+        """The word's starting symbols: each character in the vocab; else
+        its bytes' ``<0xXX>`` pieces (``byte_fallback``, when all of them
+        are in the vocab); else the unknown token, one for a run of
+        unknown characters with ``fuse_unk``. As in the ``tokenizers``
+        library, an unknown token waits until the next character in the
+        vocab (or the word's end): byte pieces between pass it."""
+        syms: List[str] = []
+        unk = False           # an unknown token not yet placed
+        for c in word:
+            if c in self.vocab:
+                if unk:
+                    syms.append(self._unk)
+                    unk = False
+                syms.append(c)
+                continue
+            if self.byte_fallback:
+                pieces = [f"<0x{b:02X}>" for b in c.encode("utf-8")]
+                if all(p in self.vocab for p in pieces):
+                    syms.extend(pieces)
+                    continue
+            if self._unk is not None:
+                if unk and not self.fuse_unk:
+                    syms.append(self._unk)
+                unk = True
+        if unk:
+            syms.append(self._unk)
+        return syms
+
+    def _merge(self, syms: List[str]) -> List[str]:
+        """Merge the lowest-ranked adjacent pair, leftmost among equals,
+        until none is left: a heap of candidate pairs over a linked list
+        of symbols, stale candidates skipped as they surface (the
+        ``tokenizers`` library's order)."""
+        n = len(syms)
+        nxt = list(range(1, n)) + [-1]
+        prv = list(range(-1, n - 1))
+        heap = [(r, i) for i in range(n - 1)
+                if (r := self._ranks.get((syms[i], syms[i + 1]))) is not None]
+        heapq.heapify(heap)
+        while heap:
+            rank, i = heapq.heappop(heap)
+            j = nxt[i] if syms[i] is not None else -1
+            if j < 0 or self._ranks.get((syms[i], syms[j])) != rank:
+                continue
+            syms[i] += syms[j]
+            syms[j] = None
+            nxt[i] = nxt[j]
+            if nxt[j] >= 0:
+                prv[nxt[j]] = i
+            for a, b in ((prv[i], i), (i, nxt[i])):
+                if a >= 0 and b >= 0:
+                    r = self._ranks.get((syms[a], syms[b]))
+                    if r is not None:
+                        heapq.heappush(heap, (r, a))
+        return [s for s in syms if s is not None]
+
     def _bpe(self, word: str) -> List[int]:
         if self.ignore_merges and word in self.vocab:
             return [self.vocab[word]]
         hit = self._cache.get(word)
         if hit is not None:
             return hit
-        syms: List[str] = []
-        for c in word:
-            if c in self.vocab:
-                syms.append(c)
-            elif self._unk is not None:
-                syms.append(self._unk)
-        while len(syms) > 1:
-            best, at = None, -1
-            for i in range(len(syms) - 1):
-                r = self._ranks.get((syms[i], syms[i + 1]))
-                if r is not None and (best is None or r < best):
-                    best, at = r, i
-            if best is None:
-                break
-            syms[at:at + 2] = [syms[at] + syms[at + 1]]
-        ids = [self.vocab[s] for s in syms if s in self.vocab]
-        if len(self._cache) < 1 << 16:
+        ids = [self.vocab[s] for s in self._merge(self._symbols(word)) if s in self.vocab]
+        if len(self._cache) < 1 << 16 and len(word) < 256:
             self._cache[word] = ids
         return ids
 
-    def _encode_piece(self, text: str) -> List[int]:
-        pieces = [text]
+    def _encode_piece(self, text: str, at_start: bool) -> List[int]:
+        pieces = [(text, at_start)]
         for step in self._pre:
-            pieces = [q for p in pieces for q in step(p)]
-        return [i for p in pieces for i in self._bpe(p)]
+            pieces = [(q, first and j == 0) for p, first in pieces
+                      for j, q in enumerate(step(p, first))]
+        return [i for p, _ in pieces for i in self._bpe(p)]
 
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
         ids: List[int] = []
+        at = 0      # offset of the next raw piece in ``text``
         for tid, raw in self._split_added(text, normalized=False):
+            raw_at, at = at, at + len(raw)
             if tid is not None:
                 ids.append(tid)
                 continue
-            for nid, piece in self._split_added(self.normalize(raw), normalized=True):
+            for j, (nid, piece) in enumerate(self._split_added(self.normalize(raw),
+                                                               normalized=True)):
                 if nid is not None:
                     ids.append(nid)
                 elif piece:
-                    ids.extend(self._encode_piece(piece))
+                    ids.extend(self._encode_piece(piece, raw_at == 0 and j == 0))
         return self._post(ids) if add_special_tokens else ids
 
     # -- decode ---------------------------------------------------------------
@@ -500,6 +699,9 @@ class HFTokenizer:
         return data.decode("utf-8", errors="replace")
 
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        if self._decode_chain is not None:
+            return self._cleanup("".join(self._decode_chain(
+                self._tokens(ids, skip_special_tokens))))
         out: List[str] = []
         chunk: List[str] = []
         for i in ids:
@@ -513,7 +715,23 @@ class HFTokenizer:
             elif i in self.id_to_token:
                 chunk.append(self.id_to_token[i])
         out.append(self._byte_level_decode(chunk))
-        text = "".join(out)
+        return self._cleanup("".join(out))
+
+    def _tokens(self, ids: Sequence[int], skip_special_tokens: bool) -> List[str]:
+        """The ids' token strings, added tokens' as their text; ids past
+        the vocab, and special tokens if asked, left out."""
+        out: List[str] = []
+        for i in ids:
+            i = int(i)
+            added = self.added_by_id.get(i)
+            if added is not None:
+                if not (skip_special_tokens and added.special):
+                    out.append(added.content)
+            elif i in self.id_to_token:
+                out.append(self.id_to_token[i])
+        return out
+
+    def _cleanup(self, text: str) -> str:
         if self.clean_up_tokenization_spaces:
             for a, b in _CLEANUP:
                 text = text.replace(a, b)

@@ -276,7 +276,7 @@ def build_parser() -> argparse.ArgumentParser:
                            help="dotted config update, e.g. "
                            "load_control.acceptance_rate 0.5")
     p_set.add_argument("key")
-    p_set.add_argument("value")
+    p_set.add_argument("value", help="a value that starts with '-' follows '--'")
     sub.add_parser("show", parents=[after],
                    help="print config (secrets masked)")
     return ap

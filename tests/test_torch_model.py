@@ -92,24 +92,27 @@ def test_forward_chunk_matches_jax(name):
 
 
 def test_moe_and_quantized_weights_raise():
-    cfg = tget("mixtral-tiny", dtype="float32")
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(cfg, gen, torch.float32, "cpu")
-    # MoE still raises; a quantized weight leaf is served now and gives the
-    # forward of its dequantized weight (f32: the same products, exact
-    # code conversion; 1e-5 covers the summation order)
+    """MoE layers and quantized weight leaves are both served now: each
+    forward equals the forward of its dequantized weights (f32: the same
+    products, exact code conversion; 1e-5 covers the summation order)."""
     from distributed_gpu_inference_torch.ops.quantization import dequantize, quantize_weight
 
-    dense = tget("llama3-tiny", dtype="float32")
-    params = tllama.init_params(dense, gen, torch.float32, "cpu")
-    q = quantize_weight(params["layers"]["wq"], "int8")
-    deq = dict(params, layers=dict(params["layers"], wq=dequantize(q)))
-    params["layers"]["wq"] = q
-    z = torch.zeros((1, 1), dtype=torch.int32)
-    outs = [tllama.forward_chunk(dense, p, z, z,
-                                 tllama.init_kv_pools(dense, 5, BS, torch.float32, "cpu"),
-                                 torch.ones((1, 1), dtype=torch.int32),
-                                 torch.ones(1, dtype=torch.int32)).logits
-            for p in (params, deq)]
-    torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)
+    gen = torch.Generator().manual_seed(0)
+    for name, leaves in (("mixtral-tiny", ("wq", "we_gate", "we_down")),
+                         ("llama3-tiny", ("wq",))):
+        cfg = tget(name, dtype="float32")
+        params = tllama.init_params(cfg, gen, torch.float32, "cpu")
+        deq = dict(params, layers=dict(params["layers"]))
+        for leaf in leaves:
+            q = quantize_weight(params["layers"][leaf], "int8")
+            deq["layers"][leaf] = dequantize(q)
+            params["layers"][leaf] = q
+        toks = torch.tensor([[3, 9, 27]], dtype=torch.int32)
+        pos = torch.arange(3, dtype=torch.int32)[None]
+        outs = [tllama.forward_chunk(cfg, p, toks, pos,
+                                     tllama.init_kv_pools(cfg, 5, BS, torch.float32, "cpu"),
+                                     torch.ones((1, 1), dtype=torch.int32),
+                                     torch.full((1,), 3, dtype=torch.int32)).logits
+                for p in (params, deq)]
+        assert torch.isfinite(outs[0]).all()
+        torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=1e-5)

@@ -16,7 +16,19 @@ tokenizer is held to the library too. ``encode``, ``decode`` and
 ``\\x1c``-``\\x1f``, no-break spaces, combining marks, CJK, emoji, digit runs,
 upper-case contractions, the long s and the Kelvin sign and embedded special
 tokens; id lists with partial UTF-8, ids past the vocab and special ids.
-What the reader lacks (SentencePiece-style pieces) is refused by name."""
+
+Three SentencePiece-style byte-fallback BPE tokenizers (Mistral's and
+Mixtral's kind: ``<unk>``/``<s>``/``</s>``, the 256 ``<0xXX>`` pieces in the
+vocab, merges trained on the README, ``LlamaTokenizer`` as the class) are
+held to the library the same way, with leading, repeated and trailing
+spaces, CJK and emoji among the pieces: the legacy form (``Prepend`` /
+``Replace`` normalizers, no pre-tokenizer, the ``Replace`` /
+``ByteFallback`` / ``Fuse`` / ``Strip`` decoder, Mixtral's chat template),
+the form transformers converts to now (a ``Metaspace`` pre-tokenizer that
+prepends to the first piece only) and one with ``Metaspace`` as
+pre-tokenizer and decoder, plus ``chip_smoke.py``'s Mixtral tokenizer.
+What the reader lacks (Unigram and WordPiece models, other normalizers,
+pre-tokenizers and decoders) is refused by name."""
 
 import json
 
@@ -152,7 +164,56 @@ def build_gpt2(d):
                      {"name": "tool_use", "template": GPT2_TOOLS_TEMPLATE}])
 
 
-BUILDERS = {"llama3": build_llama3, "qwen": build_qwen, "gpt2": build_gpt2}
+SP = "\u2581"
+MIXTRAL_TEMPLATE = chip_smoke.MIXTRAL_TEMPLATE
+
+
+def build_sentencepiece(d, form):
+    """A Mistral-style byte-fallback BPE in ``form`` ("legacy", "first" or
+    "metaspace"). The library's trainer would make the ``<0xXX>`` pieces
+    added tokens, so the vocab is laid out by hand: the specials at 0-2,
+    the byte pieces at 3-258, then the trained pieces and their merges."""
+    trained = Tokenizer(models.BPE(unk_token="<unk>"))
+    trained.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme="always", split=True)
+    trained.train_from_iterator([open(README, encoding="utf-8").read()], trainers.BpeTrainer(
+        vocab_size=700, special_tokens=["<unk>", "<s>", "</s>"], show_progress=False))
+    spec = json.loads(trained.to_str())["model"]
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    for t, _ in sorted(spec["vocab"].items(), key=lambda kv: kv[1]):
+        vocab.setdefault(t, len(vocab))
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[tuple(m) for m in spec["merges"]],
+                               unk_token="<unk>", fuse_unk=True, byte_fallback=True))
+    tok.add_special_tokens(["<unk>", "<s>", "</s>"])
+    chain = decoders.Sequence([decoders.Replace(SP, " "), decoders.ByteFallback(),
+                               decoders.Fuse(), decoders.Strip(" ", 1, 0)])
+    if form == "legacy":
+        tok.normalizer = normalizers.Sequence([normalizers.Prepend(SP),
+                                               normalizers.Replace(" ", SP)])
+        tok.decoder = chain
+    elif form == "first":
+        tok.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme="first", split=False)
+        tok.decoder = chain
+    else:
+        tok.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme="always", split=True)
+        tok.decoder = decoders.Sequence([decoders.ByteFallback(), decoders.Metaspace(
+            prepend_scheme="always", split=True)])
+    tok.post_processor = processors.TemplateProcessing(
+        single="<s> $A", pair="<s> $A <s> $B", special_tokens=[("<s>", 1)])
+    d.mkdir(parents=True)
+    tok.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "LlamaTokenizer", "bos_token": "<s>", "eos_token": "</s>",
+        "unk_token": "<unk>", "add_bos_token": True, "add_eos_token": False,
+        "legacy": form == "legacy", "clean_up_tokenization_spaces": False,
+        "chat_template": MIXTRAL_TEMPLATE}))
+    return d
+
+
+BUILDERS = {"llama3": build_llama3, "qwen": build_qwen, "gpt2": build_gpt2,
+            "mistral": lambda d: build_sentencepiece(d, "legacy"),
+            "mistral-first": lambda d: build_sentencepiece(d, "first"),
+            "metaspace": lambda d: build_sentencepiece(d, "metaspace")}
 
 
 @pytest.fixture(scope="module")
@@ -170,10 +231,17 @@ def pairs(tmp_path_factory):
     smoke.mkdir()
     chip_smoke.write_llama3_tokenizer(smoke, open(README, encoding="utf-8").read(), 300)
     out["smoke"] = (AutoTokenizer.from_pretrained(str(smoke)), HFTokenizer.from_dir(smoke))
+    mixtral = root / "smoke-mixtral"
+    mixtral.mkdir()
+    chip_smoke.write_mixtral_tokenizer(mixtral, open(README, encoding="utf-8").read(), 300,
+                                       vocab_size=1000)
+    out["smoke-mixtral"] = (AutoTokenizer.from_pretrained(str(mixtral)),
+                            HFTokenizer.from_dir(mixtral))
     return out
 
 
-KINDS = ["llama3", "qwen", "gpt2", "smoke"]
+SP_KINDS = ["mistral", "mistral-first", "metaspace", "smoke-mixtral"]
+KINDS = ["llama3", "qwen", "gpt2", "smoke"] + SP_KINDS
 
 PIECES = ["\x1c", "\x1d", "\x1e", "\x1f", "\xa0", " ", "\u3000", "\u2009", "  ", "\t",
           "\n", "\r\n", "\n\n ", "\xe9", "e\u0301", "\u0308a", "\u4e2d", "\u6587\u5b57",
@@ -183,7 +251,8 @@ PIECES = ["\x1c", "\x1d", "\x1e", "\x1f", "\xa0", " ", "\u3000", "\u2009", "  ",
           "<|begin_of_text|>", "<|im_end|>", "<|endoftext|>", "<mask>", " <mask>", "[SEP]",
           "[SEP]  x", "hello world", "xhello world", "hello worldx", "_hello world", "Hello",
           "world", "\xc9COLE", "na\xefve", "caf\xe9", ",", " .", " ,", " !", " ?", " n't",
-          " 's", "' ", "...", "\u2014", "\xab\xbb", "#", "$", "\\", "_"]
+          " 's", "' ", "...", "\u2014", "\xab\xbb", "#", "$", "\\", "_", "<s>", "</s>",
+          "<unk>", " <s> ", "\u2581", "\u2581\u2581x", "<0x41>", "   "]
 
 texts = st.one_of(
     st.lists(st.sampled_from(PIECES), max_size=24).map("".join),
@@ -230,6 +299,71 @@ def test_round_trip_of_the_readme_and_the_attributes(pairs, kind):
     cjk = ours.encode("東京", add_special_tokens=False)
     for n in range(len(cjk) + 1):
         assert ours.decode(cjk[:n]) == hf.decode(cjk[:n])
+
+
+SP_TEXTS = ["Hello world", " Hello", "  Hello  world  ", "Hello ", "   ", " ", "",
+            "\u6771\u4eac\u3067 \U0001f600 and \U0001f44d\U0001f3fd", "na\xefve caf\xe9",
+            "<s>Hello</s> world", "a</s>b", "<s> <s>", "x <unk> y", "\u2581a\u2581 b",
+            "tab\tand\nnewline\n", "<0x41> literal"]
+
+
+@pytest.mark.parametrize("kind", SP_KINDS)
+def test_sentencepiece_pieces_equal_transformers(pairs, kind):
+    """Spaces (leading, repeated, trailing), byte-fallback pieces for CJK
+    and emoji, the post-processor's ``<s>``, literal specials and decode
+    with and without special tokens, on fixed texts and every README
+    line."""
+    hf, ours = pairs[kind]
+    lines = open(README, encoding="utf-8").read().splitlines()
+    for text in SP_TEXTS + lines:
+        ids = ours.encode(text)
+        assert ids == hf.encode(text), text
+        assert ids[0] == ours.bos_token_id == 1
+        plain = ours.encode(text, add_special_tokens=False)
+        assert plain == hf.encode(text, add_special_tokens=False) == ids[1:]
+        for skip in (False, True):
+            assert ours.decode(ids, skip_special_tokens=skip) == \
+                hf.decode(ids, skip_special_tokens=skip), (text, skip)
+    emoji = ours.encode("\U0001f600", add_special_tokens=False)
+    pieces = [ours.id_to_token[i] for i in emoji]
+    assert pieces[-4:] == ["<0xF0>", "<0x9F>", "<0x98>", "<0x80>"]
+    # a run of byte pieces cut short decodes to one U+FFFD a byte
+    for n in range(len(emoji) + 1):
+        assert ours.decode(emoji[:n]) == hf.decode(emoji[:n])
+
+
+@pytest.mark.parametrize("kind", SP_KINDS)
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(data=st.data())
+def test_sentencepiece_decode_without_specials_equals_transformers(pairs, kind, data):
+    hf, ours = pairs[kind]
+    ids = data.draw(st.lists(st.one_of(st.integers(0, 300), st.integers(0, len(hf) + 20),
+                                       st.sampled_from([0, 1, 2])), max_size=40))
+    assert ours.decode(ids, skip_special_tokens=True) == hf.decode(ids, skip_special_tokens=True)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_unknown_characters_without_byte_pieces_equal_transformers(fuse):
+    """A character outside the vocab whose bytes are not all ``<0xXX>``
+    pieces becomes ``<unk>``, one for a run of them with ``fuse_unk``, and
+    is placed after any byte pieces that follow it, as the library does."""
+    vocab = {"<unk>": 0, SP: 1, "a": 2, "b": 3, "<0xC3>": 4, "<0xA9>": 5, SP + "a": 6}
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[(SP, "a")], unk_token="<unk>",
+                               fuse_unk=fuse, byte_fallback=True))
+    tok.normalizer = normalizers.Sequence([normalizers.Prepend(SP),
+                                           normalizers.Replace(" ", SP)])
+    tok.decoder = decoders.ByteFallback()
+    ours = HFTokenizer(json.loads(tok.to_str()))
+    for text in ("a \u4e2d\u6587b", "\xe9x\xe9", "\xe9xx\xe9a", "ab", "zz a", "x"):
+        assert ours.encode(text) == tok.encode(text).ids, text
+
+
+def test_a_long_sentencepiece_section_merges_in_one_pass(pairs):
+    """With no pre-tokenizer a whole section is one BPE word: the README
+    as one line encodes as the library encodes it."""
+    hf, ours = pairs["mistral"]
+    text = " ".join(open(README, encoding="utf-8").read().split())
+    assert ours.encode(text) == hf.encode(text)
 
 
 MESSAGES = [
@@ -308,17 +442,18 @@ def test_the_gpt2_pattern_translates_whitespace_as_oniguruma():
 
 
 def _sentencepiece_like(kind):
-    """tokenizer.json specs the reader refuses, each naming its piece."""
+    """tokenizer.json specs the reader refuses, each naming its piece (the
+    SentencePiece-style pieces it reads beside them)."""
     base = Tokenizer(models.BPE(vocab={"a": 0, "b": 1, "ab": 2}, merges=[("a", "b")]))
     base.decoder = decoders.ByteLevel()
-    if kind == "byte_fallback":
-        base = Tokenizer(models.BPE(vocab={"<0x61>": 0, "b": 1}, merges=[], byte_fallback=True))
-        base.decoder = decoders.ByteFallback()
-    elif kind == "metaspace":
-        base.pre_tokenizer = pre_tokenizers.Metaspace()
-    elif kind == "prepend":
+    if kind == "lowercase":
         base.normalizer = normalizers.Sequence([normalizers.Prepend("▁"),
-                                                normalizers.Replace(" ", "▁")])
+                                                normalizers.Lowercase()])
+    elif kind == "whitespace":
+        base.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.Metaspace(),
+                                                      pre_tokenizers.Whitespace()])
+    elif kind == "ctc":
+        base.decoder = decoders.Sequence([decoders.ByteFallback(), decoders.CTC()])
     elif kind == "unigram":
         base = Tokenizer(models.Unigram([("a", -1.0), ("b", -2.0)], 0, byte_fallback=False))
         base.decoder = decoders.Metaspace()
@@ -329,9 +464,9 @@ def _sentencepiece_like(kind):
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("byte_fallback", "byte_fallback"),
-    ("metaspace", "pre-tokenizer 'Metaspace'"),
-    ("prepend", "normalizer 'Prepend'"),
+    ("lowercase", "normalizer 'Lowercase'"),
+    ("whitespace", "pre-tokenizer 'Whitespace'"),
+    ("ctc", "decoder 'CTC'"),
     ("unigram", "model 'Unigram'"),
     ("wordpiece", "model 'WordPiece'"),
 ])

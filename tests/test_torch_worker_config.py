@@ -243,13 +243,22 @@ def test_status_reads_the_real_plane(tmp_path, capsys):
         api = APIClient(cp.url)
         api.register({"name": "w", "region": "eu-west"})
         p = str(tmp_path / "port.json")
+        # "--" ends the options: the plane's auth token (token_urlsafe) starts
+        # with "-" one time in 64, and argparse would read it as an option
         for key, value in (("server.url", cp.url), ("server.worker_id", api.worker_id),
                            ("server.auth_token", api.auth_token)):
-            _run(tcli.main, ["--config", p, "set", key, value], capsys)
+            _run(tcli.main, ["--config", p, "set", key, "--", value], capsys)
         rc, out, _ = _run(tcli.main, ["--config", p, "status"], capsys)
     out = json.loads(out)
     assert rc == 0 and out["registered"] is True and out["server_status"] == "idle"
     assert "reliability_score" in out
+
+
+def test_set_takes_a_value_that_starts_with_a_dash(tmp_path, capsys):
+    p = str(tmp_path / "port.json")
+    rc, _, _ = _run(tcli.main, ["--config", p, "set", "server.auth_token", "--", "-pq_x"],
+                    capsys)
+    assert rc == 0 and tc.load_worker_config(p, environ={}).server.auth_token == "-pq_x"
 
 
 def test_setup_wizard_writes_a_config_the_jax_loader_reads(tmp_path, monkeypatch, capsys):
