@@ -4877,6 +4877,7 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
     from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
+    t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_model_config(model)
@@ -4993,6 +4994,7 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
     del llm, engine, params, lp
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"[moe] phase ran in {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
     return timed, launches, moe_err
 
 
