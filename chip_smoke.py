@@ -324,6 +324,45 @@ Mixtral MoE:
     expert shapes (``@moe-we_gate``, ``@moe-we_up``, ``@moe-we_down``
     entries).
 
+20. distillation and the non-LLM engines — after mixtral is freed. (a)
+    ``TorchLLMEngine`` llama3-8b, int8 weights and a bf16 pool, speculating
+    with K = 4 as phase 15, loads with ``spec_distill_steps: 400``: the
+    distillation's seconds and first and last losses (information); the
+    loss falls (mean of the last 10 steps under the first 10's); on the
+    first batch of its own streams the distilled head's feature MSE is
+    under 0.8x that of phase 15's random head, and on held-out random
+    streams it is printed (information: a head of 2H^2 + H^2 weights fit to
+    4,032 positions of a 128,256-token vocabulary does not carry to tokens
+    it never saw). The bound of the JAX test
+    ``test_distilled_draft_beats_random`` (held-out under 0.8x random) is
+    gated on ``llama3-mini`` (vocab 2,048), distilled the same way through
+    ``TorchLLMEngine`` on the card. The 8 prompts, 32 greedy tokens
+    each in one admission: phase 15's check (c) (verify rows through the
+    ragged kernel, qmm's kernel at M = 40, no fused decode, which a
+    speculating engine never runs), its accept rate and tokens per step
+    beside phase 15's random head (information), and phase 15's check (a)
+    against the same weights served without speculation (whose decode
+    steps launch the fused kernel, counted with (a)); then the 8 prompts
+    and the prefix hit through ``BatcherServing`` (counters zeroed before
+    and read after: ragged and qmm launched). (b) ``EmbeddingEngine``
+    llama3-8b in bf16 embeds the 8 prompts in one call (counters zeroed
+    before and read after: ragged launched); each row against the plain
+    versions' (``plain_kernels``) within EMBED_COS_BOUND of cosine 1, unit
+    norms, and one prompt alone against its row. (c) ``VisionEngine``
+    small-vit + llama3-1b (out_dim 2048 = hidden 2048), bf16 decoder: a
+    224x224 ``pixels`` request and a PNG written by ``utils/png.py``, 32
+    new tokens each (counters: ragged and fused decode launched), ids in
+    vocabulary, the prefill logits through the kernels against the plain
+    versions within LOGITS_REL_BOUND. (d) ``WhisperEngine`` small-whisper
+    on 30 s of seeded audio, as 16-bit WAV and as the same samples in
+    ``pcm_f32``: one transcript; the CTC logits on the card against the
+    same weights on the CPU within WHISPER_REL_BOUND relative L2. (e)
+    ``ImageGenEngine`` small-diffusion, 2 images, 20 steps, seed 0, twice:
+    byte-identical PNGs, each decoding (``utils/png.py``) to 64x64x3. The
+    milliseconds of a call of (b)-(e) are printed beside the card's name
+    and power limit. Phase 20's launches are added to the bf16 ragged,
+    fused decode and int8 qmm entries of the kernels line.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15,
@@ -2856,8 +2895,9 @@ def verify_kernel_entries(torch, pa, flush, ctx, launches, qmm_launches):
 
 def spec_phase(torch, pa, smi, prompts, lengths, model="llama3-8b", quantization="int8",
                device="cuda"):
-    """Phase 15 (see the module docstring). → the kernels-JSON entries of
-    the verify shapes."""
+    """Phase 15 (see the module docstring). → (the kernels-JSON entries of
+    the verify shapes, the bf16-pool engine's stats after check (a)'s
+    serving: its random head's accept rate, for phase 20)."""
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
     t_phase = time.perf_counter()
@@ -2884,6 +2924,7 @@ def spec_phase(torch, pa, smi, prompts, lengths, model="llama3-8b", quantization
                                           quantized=quantization is not None)
             launches["int8" if kv else "bf16"] = counts["ragged_paged_attention"]
             if kv is None:
+                random_head = dict(llm.engine.get_stats())
                 qmm_m = routes.kernel_m.get(SERVE_BATCH * (SPEC_K + 1), 0)
                 oracle_rates(torch, pa, llm, plain, prompts)
                 flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
@@ -2901,7 +2942,7 @@ def spec_phase(torch, pa, smi, prompts, lengths, model="llama3-8b", quantization
     del flush
     torch.cuda.empty_cache()
     print(f"[spec] phase ran in {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
-    return entries
+    return entries, random_head
 
 
 # ---------------------------------------------------------------- phases
@@ -4998,6 +5039,379 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
     return timed, launches, moe_err
 
 
+# ---------------------------------------------------------------- phase 20
+
+DISTILL_STEPS = 400
+DISTILL_MSE_RATIO = 0.8      # the bound of the JAX test test_distilled_draft_beats_random
+# (b): each embedding row through the kernels against the plain versions'
+# row, and a prompt alone against its row in the batch: bf16 through 32
+# layers moves a mean-pooled unit vector by well under 1e-3 of cosine
+EMBED_COS_BOUND = 1e-3
+VISION_TOKENS = 32
+# (d): f32 on both sides (TF32 off) and the same weights: only the
+# summation order differs, ~1e-6 relative over a 12-layer encoder
+WHISPER_REL_BOUND = 1e-4
+IMAGE_STEPS = 20
+PHASE20_REPEATS = 3          # timed calls of each of (b)-(e)
+
+
+class IdRecorder:
+    """Records the ids a tokenizer is asked to decode (an engine's
+    answers) while installed on its ``decode``."""
+
+    def __init__(self, tok):
+        self.ids, self._tok, self._real = [], tok, tok.decode
+
+        def decode(ids):
+            self.ids.append(list(ids))
+            return self._real(ids)
+
+        tok.decode = decode
+
+    def close(self):
+        self._tok.decode = self._real
+
+
+def feature_mse(torch, engine, head, toks):
+    """(the draft head's next-hidden regression error on the token streams
+    ``toks`` [B, S] (the JAX test's measure), the mean square of the
+    target hiddens: the error of predicting zero)."""
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.runtime.speculative import draft_apply
+
+    cfg, dev = engine.model_cfg, engine.device
+    b, s = toks.shape
+    m = -(-s // BK)
+    with torch.no_grad():
+        h = llama.forward_chunk(
+            cfg, engine.params, toks.to(torch.int32),
+            torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1),
+            llama.init_kv_pools(cfg, 1 + b * m, BK, engine.kv_dtype, dev),
+            torch.arange(1, 1 + b * m, dtype=torch.int32, device=dev).reshape(b, m),
+            torch.full((b,), s, dtype=torch.int32, device=dev), block_size=BK,
+            with_logits=False).hidden.float()
+        emb = llama.embed_tokens(engine.params, toks[:, 1:], cfg).float()
+        pred = draft_apply(cfg, {k: v.float() for k, v in head.items()}, h[:, :-1], emb)
+        return (float(torch.mean(torch.square(pred - h[:, 1:])).item()),
+                float(torch.mean(torch.square(h[:, 1:])).item()))
+
+
+def head_mse(torch, engine, streams):
+    """The distilled head's feature MSE against the engine's random head
+    (phase 15's: ``init_draft_params`` from ``draft_seed``) on each of
+    ``streams`` {name: tokens} → {name: (distilled, random, zero)}."""
+    from distributed_gpu_inference_torch.runtime.speculative import init_draft_params
+
+    rand = init_draft_params(engine.model_cfg, torch.Generator(device=engine.device).manual_seed(
+        engine.cfg.speculative.draft_seed), dtype=engine.dtype, device=engine.device)
+    out = {}
+    for name, toks in streams.items():
+        d, zero = feature_mse(torch, engine, engine._draft_params, toks)
+        out[name] = (d, feature_mse(torch, engine, rand, toks)[0], zero)
+    return out
+
+
+def random_streams(torch, engine, seed, b=4, s=64):
+    g = torch.Generator(device=engine.device).manual_seed(seed)
+    return torch.randint(0, engine.model_cfg.vocab_size, (b, s), generator=g,
+                         device=engine.device)
+
+
+def mini_distill(torch, smi, device, model="llama3-mini"):
+    """Phase 20 (a), the JAX test's bound where it can hold: the distilled
+    head's feature MSE on held-out random streams under 0.8x the random
+    head's, on a model small enough for 4,032 training positions to
+    cover its vocabulary."""
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    llm = TorchLLMEngine({"model": model, "max_batch_size": 2, "max_seq_len": 256,
+                          "dtype": "bfloat16", "device": device, "seed": 0,
+                          "speculative_decode": True, "spec_num_draft_tokens": SPEC_K,
+                          "spec_distill_steps": DISTILL_STEPS})
+    llm.load_model()
+    try:
+        d, r, zero = head_mse(torch, llm.engine,
+                              {"held-out": random_streams(torch, llm.engine, 77)})["held-out"]
+        losses = llm.distill_losses.numpy()
+        print(f"[distill] {model} (bf16, vocab {llm.engine.model_cfg.vocab_size}), "
+              f"spec_distill_steps={DISTILL_STEPS}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"held-out feature MSE: distilled {d:.4f}, random {r:.4f}, ratio {d / r:.4f} "
+              f"(bound {DISTILL_MSE_RATIO}), predicting zero {zero:.4f} ({smi})", flush=True)
+        if not d < DISTILL_MSE_RATIO * r:
+            raise AssertionError(f"[distill] {model}: the distilled head does not beat a "
+                                 f"random one on held-out streams")
+    finally:
+        llm.unload()
+
+
+def distill_serving(torch, pa, smi, prompts, shared, random_head, model, quantization, device):
+    """Phase 20 (a). → its launches: the distilled engine's serving, and
+    the fused decode launches of the comparison without speculation."""
+    from distributed_gpu_inference_torch.runtime import engine as eng_mod
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    tag = "distill"
+    base = {"model": model, "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ,
+            "enable_prefix_cache": True, "dtype": "bfloat16", "device": device, "seed": 0,
+            "quantization": quantization, "prefix_summary_top_n": 0}
+    secs = []
+    real = eng_mod.TorchEngine.distill_draft
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    with patched(eng_mod.TorchEngine, "distill_draft", timed):
+        llm = TorchLLMEngine({**base, "speculative_decode": True,
+                              "spec_num_draft_tokens": SPEC_K,
+                              "spec_distill_steps": DISTILL_STEPS})
+        llm.load_model()
+    losses = llm.distill_losses.numpy()
+    print(f"[{tag}] {model} ({quantization} weights, bf16 KV, K={SPEC_K}) loaded with "
+          f"spec_distill_steps={DISTILL_STEPS} in {time.perf_counter() - t0:.1f} s, of which "
+          f"the distillation {secs[0]:.2f} s ({smi}); loss first {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f}; mean of the first 10 steps {losses[:10].mean():.4f}, of the "
+          f"last 10 {losses[-10:].mean():.4f}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-10:].mean() < losses[:10].mean()):
+        raise AssertionError(f"[{tag}] the distillation loss did not fall: {losses}")
+    engine = llm.engine
+    # the first batch of the distillation's own streams (its generator,
+    # seeded with draft_seed, draws them first), and held-out streams
+    g = torch.Generator(device=engine.device).manual_seed(engine.cfg.speculative.draft_seed)
+    train = torch.randint(0, engine.model_cfg.vocab_size, (SERVE_BATCH, 64), generator=g,
+                          device=engine.device)
+    mse = head_mse(torch, engine, {"training": train,
+                                   "held-out": random_streams(torch, engine, 77)})
+    for name, (d, r, zero) in mse.items():
+        print(f"[{tag}] feature MSE on {name} streams: distilled head {d:.4f}, phase 15's "
+              f"random head {r:.4f} (ratio {d / r:.4f}), predicting zero {zero:.4f}",
+              flush=True)
+    d, r, _ = mse["training"]
+    if not d < DISTILL_MSE_RATIO * r:
+        raise AssertionError(f"[{tag}] the distilled head does not fit its streams: {mse}")
+    mini_distill(torch, smi, device)
+    plain = TorchLLMEngine({**base, "params": engine.params})
+    plain.load_model()
+    try:
+        rows, wall, counts, routes = spec_serve(torch, pa, llm, prompts, SPEC_TOKENS)
+        stats = engine.get_stats()
+        check_routes(tag, counts, routes, stats, quantized=quantization is not None)
+        n_tok = len(prompts) * SPEC_TOKENS
+        print(f"[{tag}] {len(prompts)} requests x {SPEC_TOKENS} greedy tokens with the "
+              f"distilled head: accept rate {stats['spec_accept_rate']:.4f}, tokens per step "
+              f"{stats['spec_tokens_per_step']:.3f}, {n_tok / wall:.1f} tok/s end to end; "
+              f"phase 15's random head on the same requests: accept rate "
+              f"{random_head['spec_accept_rate']:.4f}, tokens per step "
+              f"{random_head['spec_tokens_per_step']:.3f} (information)", flush=True)
+        prows, pwall, pcounts, _ = spec_serve(torch, pa, plain, prompts, SPEC_TOKENS)
+        print(f"[{tag}] the same weights without speculation: {n_tok / pwall:.1f} tok/s end to "
+              f"end; launches {pcounts}", flush=True)
+        if pcounts["paged_decode_attention_fused"] == 0:
+            raise AssertionError(f"[{tag}] plain decode launched no fused decode kernel")
+        check_greedy(torch, tag, engine, rows, prows)
+    finally:
+        plain.unload()
+        del plain
+    _, _, hit, wall, launches, _ = serve(torch, pa, llm, prompts, shared)
+    print(f"[{tag}] 8 concurrent requests and the prefix hit with the distilled head: "
+          f"{wall:.2f} s; prefix hit cached {hit['usage']['cached_tokens']} tokens; launches "
+          f"{launches} (a speculating engine runs no fused decode)", flush=True)
+    if not (launches["ragged_paged_attention"] > 0 and launches["qmm_w8a16"] > 0):
+        raise AssertionError(f"[{tag}] a kernel of the path never launched: {launches}")
+    llm.unload()
+    return {k: launches[k] + (pcounts[k] if k == "paged_decode_attention_fused" else 0)
+            for k in launches}
+
+
+def embedding_check(torch, pa, smi, prompts, model, device):
+    """Phase 20 (b). → its launches."""
+    from distributed_gpu_inference_torch.worker.engines.embedding import EmbeddingEngine
+
+    tag = "embedding"
+    t0 = time.perf_counter()
+    emb = EmbeddingEngine({"model": model, "device": device, "dtype": "bfloat16",
+                           "max_seq_len": MAX_SEQ, "seed": 0})
+    emb.load_model()
+    print(f"[{tag}] {model} bf16 loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        pa.reset_launch_counts()
+        out = emb.inference({"texts": prompts})
+        torch.cuda.synchronize()
+        launches = pa.launch_counts()
+        got = np.asarray(out["embeddings"], np.float64)
+        with plain_kernels():
+            want = np.asarray(emb.inference({"texts": prompts})["embeddings"], np.float64)
+        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+        norms = np.linalg.norm(got, axis=-1)
+        alone = np.asarray(emb.inference({"text": prompts[5]})["embeddings"][0], np.float64)
+        cos_alone = float(alone @ got[5] / (np.linalg.norm(alone) * norms[5]))
+        ms = timed_ms(torch, lambda: emb.inference({"texts": prompts}), PHASE20_REPEATS)
+        print(f"[{tag}] {len(prompts)} prompts ({out['usage']['prompt_tokens']} tokens) in one "
+              f"call, dim {out['dim']}: launches {launches}; 1 - cosine against the plain "
+              f"versions per row {[f'{1 - c:.2e}' for c in cos]} (bound {EMBED_COS_BOUND}); "
+              f"max |norm - 1| {np.abs(norms - 1).max():.2e}; prompt 5 alone against its row: "
+              f"1 - cosine {1 - cos_alone:.2e}; {ms:.2f} ms a call ({smi})", flush=True)
+        if launches["ragged_paged_attention"] == 0:
+            raise AssertionError(f"[{tag}] the ragged kernel never launched: {launches}")
+        if not ((1 - cos).max() < EMBED_COS_BOUND and 1 - cos_alone < EMBED_COS_BOUND
+                and np.abs(norms - 1).max() < 1e-5):
+            raise AssertionError(f"[{tag}] embeddings disagree: {cos}, {cos_alone}, {norms}")
+    finally:
+        emb.unload()
+    return launches
+
+
+def vision_check(torch, pa, smi, device, vit_model="small-vit", llm_model="llama3-1b"):
+    """Phase 20 (c). → the launches of its two requests."""
+    import base64
+
+    from distributed_gpu_inference_torch.utils.png import encode_png
+    from distributed_gpu_inference_torch.worker.engines.vision import VisionEngine
+
+    tag = "vision"
+    t0 = time.perf_counter()
+    vis = VisionEngine({"model": llm_model, "vit_model": vit_model, "device": device,
+                        "max_new_tokens": VISION_TOKENS, "seed": 0})
+    vis.load_model()
+    size = vis._vit_cfg.image_size
+    print(f"[{tag}] {vit_model} + {llm_model} (decoder {vis._dtype}) loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        rng = np.random.default_rng(20)
+        pix = rng.random((size, size, 3)).astype(np.float32)
+        png = (rng.random((size, size, 3)) * 255).astype(np.uint8)
+        reqs = [{"task": "caption", "pixels": pix.tolist()},
+                {"task": "image_qa", "question": "what is written here?",
+                 "image": base64.b64encode(encode_png(png)).decode("ascii")}]
+        rec = IdRecorder(vis._tokenizer)
+        pa.reset_launch_counts()
+        outs = [vis.inference(r) for r in reqs]
+        torch.cuda.synchronize()
+        launches = pa.launch_counts()
+        rec.close()
+        vocab = vis._llm_cfg.vocab_size
+        ok_ids = all(0 <= t < vocab for ids in rec.ids for t in ids)
+        toks = vis._tokenizer.encode("Describe the image: ")
+        with torch.no_grad():
+            k_logits = vis.prefill(pix, toks).float()
+            with plain_kernels():
+                p_logits = vis.prefill(pix, toks).float()
+        rel = float(((k_logits - p_logits).norm() / p_logits.norm()).item())
+        ms = timed_ms(torch, lambda: vis.inference(dict(reqs[1])), PHASE20_REPEATS)
+        print(f"[{tag}] 2 requests ({size}x{size} pixels; a PNG from utils/png.py): "
+              f"{[o['usage'] for o in outs]}; ids in vocabulary {ok_ids}; launches {launches}; "
+              f"prefill logits, kernels vs plain: rel L2 {rel:.3e} (bound {LOGITS_REL_BOUND}), "
+              f"argmax equal {bool(k_logits.argmax() == p_logits.argmax())}; {ms:.1f} ms a "
+              f"request ({smi})", flush=True)
+        if not (launches["ragged_paged_attention"] > 0
+                and launches["paged_decode_attention_fused"] > 0):
+            raise AssertionError(f"[{tag}] a kernel of the path never launched: {launches}")
+        if not (ok_ids and len(rec.ids) == 2 and rel <= LOGITS_REL_BOUND):
+            raise AssertionError(f"[{tag}] bad answer ids or logits: {rec.ids}, {rel}")
+    finally:
+        vis.unload()
+    return launches
+
+
+def whisper_check(torch, smi, device, model="small-whisper"):
+    """Phase 20 (d)."""
+    import base64
+    import io
+    import wave
+
+    from distributed_gpu_inference_torch.worker.engines.whisper import WhisperEngine
+
+    tag = "whisper"
+    asr = WhisperEngine({"model": model, "device": device, "seed": 0})
+    asr.load_model()
+    on_cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+              for k, v in asr._params.items()}
+    cpu = WhisperEngine({"model": model, "device": "cpu", "params": on_cpu})
+    cpu.load_model()
+    n, rate = asr._cfg.max_samples, asr._cfg.sample_rate
+    rng = np.random.default_rng(21)
+    t = np.arange(n, dtype=np.float32) / rate
+    audio = 0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(n)
+    pcm16 = np.clip(audio * 32767, -32768, 32767).astype(np.int16)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm16.tobytes())
+    # the samples the WAV decodes to, sent as raw f32
+    same = pcm16.astype(np.float32) / 32768.0
+    wav_req = {"audio": base64.b64encode(buf.getvalue()).decode("ascii")}
+    pcm_req = {"audio": base64.b64encode(same.tobytes()).decode("ascii"),
+               "audio_format": "pcm_f32"}
+    a, b = asr.inference(dict(wav_req)), asr.inference(dict(pcm_req))
+    ms = timed_ms(torch, lambda: asr.inference(dict(wav_req)), PHASE20_REPEATS)
+    k, c = asr.logits(same), cpu.logits(same)
+    rel = float(np.linalg.norm(k - c) / np.linalg.norm(c))
+    agree = float((k.argmax(-1) == c.argmax(-1)).mean())
+    print(f"[{tag}] {model}, {a['duration_seconds']:.1f} s of seeded audio as WAV and as "
+          f"pcm_f32: transcripts identical {a['text'] == b['text']} ({len(a['text'])} chars); "
+          f"CTC logits {list(k.shape)} on the card vs the CPU: rel L2 {rel:.3e} (bound "
+          f"{WHISPER_REL_BOUND}), frame argmax agreement {agree:.4f}; {ms:.1f} ms a request "
+          f"({smi})", flush=True)
+    if not (a["text"] == b["text"] and rel <= WHISPER_REL_BOUND and np.isfinite(k).all()):
+        raise AssertionError(f"[{tag}] transcripts or logits disagree: {rel}")
+    asr.unload()
+    cpu.unload()
+
+
+def image_check(torch, smi, device, model="small-diffusion"):
+    """Phase 20 (e)."""
+    import base64
+
+    from distributed_gpu_inference_torch.utils.png import decode_png
+    from distributed_gpu_inference_torch.worker.engines.image_gen import ImageGenEngine
+
+    tag = "image_gen"
+    gen = ImageGenEngine({"model": model, "device": device, "seed": 0})
+    gen.load_model()
+    size = gen._cfg.image_size
+    req = {"prompt": "a lighthouse at dusk", "num_inference_steps": IMAGE_STEPS,
+           "num_images": 2, "seed": 0}
+    first, second = gen.inference(dict(req)), gen.inference(dict(req))
+    ms = timed_ms(torch, lambda: gen.inference(dict(req)), PHASE20_REPEATS)
+    shapes = [decode_png(base64.b64decode(im)).shape for im in first["images"]]
+    same = first["images"] == second["images"]
+    print(f"[{tag}] {model}, 2 images, {IMAGE_STEPS} steps, seed 0, twice: PNGs "
+          f"byte-identical {same}; decoded shapes {shapes}; the two images differ "
+          f"{first['images'][0] != first['images'][1]}; {ms:.1f} ms a request ({smi})",
+          flush=True)
+    if not (same and shapes == [(size, size, 3)] * 2):
+        raise AssertionError(f"[{tag}] seeded images differ or are malformed: {shapes}")
+    gen.unload()
+
+
+def engines_phase(torch, pa, smi, prompts, shared, random_head, model="llama3-8b",
+                  quantization="int8", device="cuda",
+                  small=("small-vit", "llama3-1b", "small-whisper", "small-diffusion")):
+    """Phase 20 (see the module docstring). → its launches by kernel.
+    ``small``: the models of (c)-(e) (ViT, its decoder, ASR, DiT)."""
+    t_phase = time.perf_counter()
+    total = distill_serving(torch, pa, smi, prompts, shared, random_head, model, quantization,
+                            device)
+    torch.cuda.empty_cache()
+    for launches in (embedding_check(torch, pa, smi, prompts, model, device),
+                     vision_check(torch, pa, smi, device, *small[:2])):
+        total = {k: total[k] + launches[k] for k in total}
+    torch.cuda.empty_cache()
+    whisper_check(torch, smi, device, small[2])
+    image_check(torch, smi, device, small[3])
+    torch.cuda.empty_cache()
+    print(f"[engines] phase 20 launches {total}; ran in {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5460,7 +5874,8 @@ def main() -> int:
     flight_check(flight)
 
     # ---- 15. speculative decoding: integrated rounds and the tree decoder
-    kernels += spec_phase(torch, pa, smi, prompts, lengths)
+    spec_entries, random_head = spec_phase(torch, pa, smi, prompts, lengths)
+    kernels += spec_entries
 
     # ---- 17. weights and tokenizer from local files
     local_files_phase(torch, pa, smi)
@@ -5473,6 +5888,14 @@ def main() -> int:
     for name, (times, err) in moe_timed.items():
         kernels.append(entry(f"qmm_w8a16[int8]@moe-{name}", "qmm_w8a16.cu", QPALLAS + ":88",
                              moe_launches["qmm_w8a16"], err, times))
+
+    # ---- 20. draft distillation and the embedding, vision, whisper and image engines
+    p20 = engines_phase(torch, pa, smi, prompts, shared, random_head)
+    for e in kernels:
+        if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
+            e["launches"] += p20[e["name"]]
+        elif e["name"] == "qmm_w8a16[int8]":
+            e["launches"] += p20["qmm_w8a16"]
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,13 @@ so every weight is bit-identical on both sides. Quantized weights
 int8 codes as they are, ``float8_e4m3fn`` codes as raw bytes, f32 scales.
 
 The speculative draft head moves the same way
-(``draft_params_from_numpy`` / ``draft_params_to_numpy``).
+(``draft_params_from_numpy`` / ``draft_params_to_numpy``), and so do the
+encoder trees of the non-LLM engines: the JAX package's ViT
+(``models/vit.py``, with an HF import's bias keys), ASR and diffusion
+params, stacked ``[L, ...]`` leaves under ``layers``, go through
+:func:`params_from_numpy` as they are, into the layout the port's
+``models/{vit,asr,diffusion}.py`` read (the engines' port-only ``params``
+/ ``vit_params`` keys take the result).
 
 KV pools: ``kv_from_numpy`` takes the JAX pools ``{"k", "v"}`` and, for
 int8 pools, their scale pools ``{"k_scale", "v_scale"}`` ``[L, N, Bk, D]``

@@ -5,7 +5,9 @@ params layout (a dict of stacked ``[L, ...]`` layer leaves, a ``[V, H]``
 embedding, an optional untied ``lm_head``), the same paged KV pools
 ``[L, N, Hkv, Bk, D]`` with block 0 as the pad block, and one generic
 :func:`forward_chunk` for prefill (S = chunk), chunked prefill over a
-cached prefix, ragged rounds and decode (S = 1). The layer loop is a
+cached prefix, ragged rounds and decode (S = 1), and
+:func:`forward_hidden_chunk` for pre-embedded hidden states (the vision
+engine's image prefix; a pipeline stage's layers). The layer loop is a
 Python loop over the stacked weights; PyTorch runs eagerly, so nothing is
 traced or compiled.
 
@@ -387,8 +389,8 @@ def forward_chunk(
     ``ChunkOutput.features``, those layers' post-layer hiddens side by side
     (the EAGLE-3 draft features)."""
     positions = positions.to(torch.int32)
-    hidden, features = _run_layers(
-        cfg, params, token_ids, positions, kv, block_tables, kv_lens,
+    hidden, features = _run_hidden(
+        cfg, params, embed_tokens(params, token_ids, cfg), positions, kv, block_tables, kv_lens,
         block_size=block_size, fused_decode=allow_fused and token_ids.shape[1] == 1,
         collect_layers=collect_layers,
     )
@@ -408,22 +410,21 @@ def forward_chunk(
                        features=features)
 
 
-def _run_layers(
-    cfg: ModelConfig, params: Params, token_ids: torch.Tensor,
+def _run_hidden(
+    cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     rope_positions: torch.Tensor, kv: KVPools, block_tables: torch.Tensor,
     kv_lens: torch.Tensor, *, block_size: int, fused_decode: bool = False,
     collect_layers: Optional[Tuple[int, ...]] = None,
     write_positions: Optional[torch.Tensor] = None, attn_fn: Optional[Any] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Embed ``token_ids`` and run every layer → (final hidden, the
-    ``collect_layers`` features or None)."""
+    """Run every layer of ``params`` over pre-embedded ``hidden`` → (final
+    hidden, the ``collect_layers`` features or None)."""
     layers = params["layers"]
     kv_lens = kv_lens.to(torch.int32)
     block_tables = block_tables.to(torch.int32)
-    hidden = embed_tokens(params, token_ids, cfg)
     cos, sin = rope_angles(rope_positions.clamp(min=0), cfg.head_dim, cfg.rope_theta)
     collected = {}
-    for layer in range(cfg.num_layers):
+    for layer in range(kv["k"].shape[0]):
         # one layer's leaves as views; a quantized leaf slices both parts
         lp = {name: ({"qw": leaf["qw"][layer], "scale": leaf["scale"][layer]}
                      if is_quantized(leaf) else leaf[layer])
@@ -475,13 +476,47 @@ def forward_tree_chunk(
             k_scale=layer_ks, v_scale=layer_vs,
         )
 
-    hidden, features = _run_layers(
-        cfg, params, token_ids, rope_positions, kv, tables, prefix_lens,
+    hidden, features = _run_hidden(
+        cfg, params, embed_tokens(params, token_ids, cfg), rope_positions, kv, tables,
+        prefix_lens,
         block_size=block_size, collect_layers=collect_layers,
         write_positions=cache_positions.to(torch.int32), attn_fn=attn_fn,
     )
     return ChunkOutput(hidden=hidden, kv=kv, logits=project_logits(cfg, params, hidden),
                        features=features)
+
+
+def forward_hidden_chunk(
+    cfg: ModelConfig,
+    params: Params,
+    hidden: torch.Tensor,        # [B, S, H] pre-embedded activations
+    positions: torch.Tensor,     # [B, S] int32, -1 marks padding
+    kv: KVPools,
+    block_tables: torch.Tensor,  # [B, M]
+    kv_lens: torch.Tensor,       # [B] total valid context AFTER this chunk
+    *,
+    block_size: int = 16,
+) -> Tuple[torch.Tensor, KVPools]:
+    """Run pre-embedded hidden states through the layers of ``params``
+    (and of ``kv``, which hold the same layers) → (final hidden, the
+    pools, updated in place).
+
+    The entry of a pipeline stage that owns a range of layers, and of the
+    vision engine, whose image prefix enters as hidden states. A chunk
+    with S = 1 takes the fused decode op, any other the ragged kernel;
+    positions of -1 write no KV. int8 KV pools raise
+    ``NotImplementedError``, as in the JAX package (stage pools are
+    bf16/f32)."""
+    if "k_scale" in kv:
+        raise NotImplementedError(
+            "forward_hidden_chunk over int8 KV pools is not wired"
+        )
+    positions = positions.to(torch.int32)
+    hidden, _ = _run_hidden(
+        cfg, params, hidden, positions, kv, block_tables, kv_lens,
+        block_size=block_size, fused_decode=hidden.shape[1] == 1,
+    )
+    return hidden, kv
 
 
 def embed_tokens(params: Params, token_ids: torch.Tensor,

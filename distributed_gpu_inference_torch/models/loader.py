@@ -26,7 +26,8 @@ only: a layer tensor missing from the checkpoint loads as zeros (codes 0
 and scale 1 when quantized, which is what quantizing zeros gives).
 
 Mixtral's expert names load into the tree (``w_router``, ``we_*``).
-Orbax checkpoints are JAX-only: :func:`load_or_init_params` refuses any
+:func:`load_hf_vit` reads an HF ViT checkpoint into the vision engine's
+encoder tree. Orbax checkpoints are JAX-only: :func:`load_or_init_params` refuses any
 other directory by name.
 
 A random init whose full-precision tree does not fit the device is drawn
@@ -212,6 +213,126 @@ def load_hf_llama(
                     params["embedding"] = read(st, _EMBED)
                     break
     _validate(params, cfg, rng)
+    return params
+
+
+# HF ViT encoder-layer name → (our key, needs_transpose); q/k/v fuse
+# into ``wqkv``/``bqkv`` separately
+_HF_VIT_LAYER_MAP = {
+    "layernorm_before.weight": ("norm1", False),
+    "layernorm_before.bias": ("norm1_b", False),
+    "attention.output.dense.weight": ("wo", True),
+    "attention.output.dense.bias": ("bo", False),
+    "layernorm_after.weight": ("norm2", False),
+    "layernorm_after.bias": ("norm2_b", False),
+    "intermediate.dense.weight": ("w1", True),
+    "intermediate.dense.bias": ("b1", False),
+    "output.dense.weight": ("w2", True),
+    "output.dense.bias": ("b2", False),
+}
+_VIT_LAYER_RE = re.compile(r"^vit\.encoder\.layer\.(\d+)\.(.+)$")
+_VIT_QKV_RE = re.compile(r"^attention\.attention\.(query|key|value)\.(weight|bias)$")
+_VIT_QKV_IDX = {"query": 0, "key": 1, "value": 2}
+_VIT_PATCH = "vit.embeddings.patch_embeddings.projection."
+_VIT_TOP = {_VIT_PATCH + "bias": "patch_bias", "vit.layernorm.weight": "out_norm",
+            "vit.layernorm.bias": "out_norm_b"}
+
+
+def load_hf_vit(model_dir: str | Path, cfg: Any, dtype: Optional[Any] = None,
+                head_seed: int = 0, device: Any = "cuda") -> Dict[str, Any]:
+    """An HF ViT-class safetensors checkpoint (google/vit-* layout) → the
+    :mod:`models.vit` params tree on ``device`` (the port of the JAX
+    loader's ``load_hf_vit``, read through ``utils/safetensors.py``).
+
+    Imported exactly: the patch projection (the conv kernel ``[H, C, P,
+    P]`` laid out as patchify's ``[P·P·C, H]``), the position embeddings
+    without the CLS slot, every encoder layer with all its biases, and the
+    final LayerNorm. Not imported, by design: the CLS token and the
+    ``query_emb``/``out_proj`` resampler head, drawn fresh from a
+    ``torch.Generator`` seeded with ``head_seed`` (not JAX's threefry
+    draws). Every (tensor, layer) slot must be filled from the checkpoint;
+    the JAX loader's validation errors are raised here with its
+    messages."""
+    from distributed_gpu_inference_torch.models.encoder_common import fan_in_init
+
+    model_dir = Path(model_dir)
+    dtype = llama.torch_dtype(dtype or "float32")
+    L, h = cfg.num_layers, cfg.hidden_size
+    files = sorted(model_dir.glob("*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {model_dir}")
+
+    layers: Dict[str, torch.Tensor] = {}
+    qkv_w = torch.zeros((L, 3, h, h), dtype=torch.float32)
+    qkv_b = torch.zeros((L, 3, h), dtype=torch.float32)
+    params: Dict[str, Any] = {}
+    filled: set = set()
+    for f in files:
+        with SafetensorsFile(f) as st:
+            for name in st.keys():
+                m = _VIT_LAYER_RE.match(name)
+                if m:
+                    li, sub = int(m.group(1)), m.group(2)
+                    if li >= L:
+                        raise ValueError(
+                            f"checkpoint layer {li} exceeds config num_layers={L}")
+                    qm = _VIT_QKV_RE.match(sub)
+                    if qm:
+                        idx = _VIT_QKV_IDX[qm.group(1)]
+                        w = st.get_tensor(name).float()
+                        if qm.group(2) == "weight":
+                            qkv_w[li, idx] = w.t()      # HF stores [out, in]
+                        else:
+                            qkv_b[li, idx] = w
+                        filled.add((f"{qm.group(1)}.{qm.group(2)}", li))
+                        continue
+                    if sub not in _HF_VIT_LAYER_MAP:
+                        continue
+                    key, transpose = _HF_VIT_LAYER_MAP[sub]
+                    w = st.get_tensor(name)
+                    if transpose:
+                        w = w.t()
+                    if key not in layers:
+                        layers[key] = torch.zeros((L, *w.shape), dtype=dtype)
+                    layers[key][li] = w.to(dtype)
+                    filled.add((key, li))
+                elif name == _VIT_PATCH + "weight":
+                    # conv kernel [H, C, P, P] → patchify's (row, col,
+                    # channel) flattening → [P*P*C, H]
+                    w = st.get_tensor(name).permute(2, 3, 1, 0)
+                    params["patch_proj"] = w.reshape(-1, w.shape[-1]).to(dtype)
+                elif name == "vit.embeddings.position_embeddings":
+                    # [1, 1+N, H]: slot 0 is the CLS position, dropped
+                    params["pos_emb"] = st.get_tensor(name)[0, 1:].to(dtype)
+                elif name in _VIT_TOP:
+                    params[_VIT_TOP[name]] = st.get_tensor(name).to(dtype)
+
+    # wqkv columns in q | k | v order: [L, 3, in, out] → [L, in, 3·out]
+    layers["wqkv"] = qkv_w.permute(0, 2, 1, 3).reshape(L, h, 3 * h).to(dtype)
+    layers["bqkv"] = qkv_b.reshape(L, 3 * h).to(dtype)
+    missing = {"patch_proj", "pos_emb", "out_norm"} - set(params)
+    if missing:
+        raise ValueError(f"checkpoint is missing ViT tensors: {missing}")
+    expected = ({v[0] for v in _HF_VIT_LAYER_MAP.values()}
+                | {f"{q}.{t}" for q in _VIT_QKV_IDX for t in ("weight", "bias")})
+    gaps = sorted((k, li) for k in expected for li in range(L) if (k, li) not in filled)
+    if gaps:
+        raise ValueError(
+            f"checkpoint left {len(gaps)} encoder tensors unfilled "
+            f"(missing shard / shallower model?): first few {gaps[:4]}")
+    if params["pos_emb"].shape[0] != cfg.num_patches:
+        raise ValueError(
+            f"position embeddings cover {params['pos_emb'].shape[0]} "
+            f"patches, config expects {cfg.num_patches} "
+            f"(image {cfg.image_size} / patch {cfg.patch_size})")
+
+    device = torch.device(device)
+    params = {k: v.to(device) for k, v in params.items()}
+    params["layers"] = {k: v.to(device) for k, v in layers.items()}
+    # the resampler head: fresh (trained against the paired decoder)
+    gen = torch.Generator(device=device).manual_seed(head_seed)
+    params["query_emb"] = fan_in_init(gen, (cfg.num_prefix, h), h, dtype)
+    params["out_proj"] = fan_in_init(gen, (h, cfg.out_dim), h, dtype)
     return params
 
 

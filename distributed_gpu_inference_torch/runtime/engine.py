@@ -36,7 +36,8 @@ per-round record replayed on the host (``_spec_decode_rounds``);
 ``ragged_round`` co-dispatches verify rows with admission chunk rows
 (``_spec_ragged_round``). Drafts write their KV ahead into blocks reserved
 for the window; at each step boundary ``trim_reserved`` hands back the
-blocks acceptance never reached.
+blocks acceptance never reached. ``distill_draft`` fits the draft head
+against the engine's own weights before it serves.
 
 Failure semantics: the JAX engine's device calls were functional, so a
 failed call left the old pools intact. Here a round updates the pools in
@@ -83,6 +84,7 @@ from distributed_gpu_inference_torch.runtime.kv_cache import (
 from distributed_gpu_inference_torch.runtime.speculative import (
     SpecDecodeConfig,
     draft_apply,
+    distill_draft_params,
     init_draft_params,
     mask_emission,
     ordered_emission,
@@ -1632,6 +1634,23 @@ class TorchEngine:
                 self._spec_oracle_acc[i] -= f
                 out[r, i] = f
         return out
+
+    def distill_draft(self, steps: int = 400, **kw: Any) -> torch.Tensor:
+        """Distil the integrated draft head against this engine's own
+        target weights (``runtime.speculative.distill_draft_params``, from
+        a generator seeded with ``draft_seed``) and serve it from the next
+        round: acceptance goes from ~0 (a random head) to what the target
+        allows. Run it before the engine serves (no live slot), so that no
+        round reads a head half replaced. → the per-step losses."""
+        if self.cfg.speculative is None:
+            raise ValueError("engine has no speculative config to distill")
+        if any(s is not None for s in self.slots):
+            raise RuntimeError("distill_draft runs before the engine serves: a slot is live")
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.speculative.draft_seed)
+        head, losses = distill_draft_params(self.model_cfg, self.params, gen, steps=steps,
+                                            **kw)
+        self._draft_params = {k: v.to(self.dtype) for k, v in head.items()}
+        return losses
 
     def set_spec_oracle(self, rate: Optional[float]) -> None:
         """Set the oracle draft's forced acceptance rate on a live engine

@@ -29,8 +29,9 @@ and the host replay stops at the first of those). Draft weights drawn by
 :func:`init_draft_params` come from a ``torch.Generator`` and are not the
 JAX package's threefry draws; tests that compare the two packages carry
 one set of draft weights across with ``models/convert.py``
-``draft_params_from_numpy``. Draft distillation (JAX
-``distill_draft_params``) is training and is not ported.
+``draft_params_from_numpy``. :func:`distill_draft_params` fits the
+draft head against the frozen target with torch autograd and an Adam
+written to optax's rule (the JAX package trains it with optax).
 """
 
 from __future__ import annotations
@@ -337,6 +338,159 @@ def draft_apply(
     x = torch.cat([hidden.to(dt), tok_emb.to(dt)], dim=-1)
     x = _mm(F.silu(_mm(x, dp["w_fuse"])), dp["w_out"])
     return llama.rms_norm(x, dp["norm"], cfg.rms_norm_eps)
+
+
+def _sorted_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest, descending, equal
+    values lower index first (a stable sort; ``torch.topk`` promises no
+    order among equals)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw a row from ``softmax(logits)`` by the Gumbel-max trick (the
+    method of ``jax.random.categorical``, on torch's generator)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32).clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+
+
+def distill_draft_params(
+    cfg: ModelConfig,
+    params: llama.Params,
+    generator: Any = 0,
+    steps: int = 400,
+    batch: int = 8,
+    seq_len: int = 64,
+    num_batches: int = 8,
+    lr: float = 2e-3,
+    ce_weight: float = 0.2,
+    feature_layers: Optional[Tuple[int, ...]] = None,
+    on_policy: bool = False,
+    data_stream: Any = None,
+    init_draft: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """EAGLE-style draft-head distillation against the frozen target (the
+    port of the JAX function of this name; same arguments and recipe).
+
+    The teacher runs with no grad: ``forward_chunk`` over ``num_batches``
+    fixed streams of ``batch x seq_len`` tokens (through the ragged kernel
+    on the card), ``project_logits``, and the top-64 log-probs with their
+    indices, ordered as ``lax.top_k`` orders them. The student, in f32,
+    regresses ``draft(h_t, e(x_{t+1})) -> h_{t+1}`` (feature MSE) plus
+    ``ce_weight`` times the cross-entropy against the teacher's top-k
+    next-token distribution, for ``steps`` Adam updates on batch ``step %
+    num_batches``. Adam is optax's ``adam(lr)`` rule written out (b1 0.9,
+    b2 0.999, eps 1e-8, eps_root 0). The target's weights are never
+    trainable: only the prediction's gradient flows back through
+    ``project_logits``. The norm gain starts at the teacher hiddens' RMS.
+    Returns the head in the model's dtype and, unlike the JAX function
+    (which returns the head only), the ``[steps]`` f32 losses on the
+    host.
+
+    ``generator``: a ``torch.Generator`` on the params' device, or a seed;
+    it draws the streams, the rollouts and (without ``init_draft``) the
+    starting head. These are not the JAX package's ``jax.random`` draws,
+    so the default streams differ from JAX's. ``data_stream(generator,
+    batch, seq_len) -> [B, S]`` int tokens overrides the streams.
+    ``on_policy`` samples each stream from the target itself (decode steps
+    of S = 1, through the fused decode kernel on the card), one Gumbel-max
+    draw a token from the generator: it cannot reproduce
+    ``jax.random.categorical``'s draws. ``feature_layers`` distils on the
+    concatenated hiddens of those layers (adds ``w_feat``). ``init_draft``
+    (port-only) is the starting head, tensors on the device (e.g. the JAX
+    head through ``models.convert.draft_params_from_numpy``)."""
+    dev = params["embedding"].device
+    act_dtype = params["embedding"].dtype
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=dev).manual_seed(int(generator))
+    bs = 16
+    m = -(-seq_len // bs)
+    positions = torch.arange(seq_len, dtype=torch.int32, device=dev).repeat(batch, 1)
+    lens = torch.full((batch,), seq_len, dtype=torch.int32, device=dev)
+    tables = torch.arange(1, 1 + batch * m, dtype=torch.int32, device=dev).reshape(batch, m)
+    collect = tuple(feature_layers) if feature_layers else None
+
+    def pools():
+        return llama.init_kv_pools(cfg, 1 + batch * m, bs, act_dtype, dev)
+
+    def rollout() -> torch.Tensor:
+        tok = torch.randint(0, cfg.vocab_size, (batch,), generator=generator, device=dev)
+        kv, out = pools(), [tok]
+        for p in range(seq_len - 1):
+            pos = torch.full((batch, 1), p, dtype=torch.int32, device=dev)
+            logits = llama.forward_chunk(cfg, params, tok[:, None], pos, kv, tables,
+                                         lens.new_full((batch,), p + 1),
+                                         block_size=bs).logits[:, 0]
+            tok = _categorical(logits, generator)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    label_k = min(64, cfg.vocab_size)
+    hiddens, featss, top_lps, top_idxs, tokens_all = [], [], [], [], []
+    with torch.no_grad():
+        for _ in range(num_batches):
+            if data_stream is not None:
+                toks = torch.as_tensor(np.asarray(data_stream(generator, batch, seq_len)),
+                                       device=dev)
+            elif on_policy:
+                toks = rollout()
+            else:
+                toks = torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=generator,
+                                     device=dev)
+            toks = toks.to(torch.int32)
+            out = llama.forward_chunk(cfg, params, toks, positions, pools(), tables, lens,
+                                      block_size=bs, with_logits=False,
+                                      collect_layers=collect)
+            # the target's next-token distribution at every position
+            logp = torch.log_softmax(llama.project_logits(cfg, params, out.hidden), dim=-1)
+            top_lp, top_idx = _sorted_top_k(logp, label_k)
+            del logp
+            tokens_all.append(toks)
+            hiddens.append(out.hidden.float())
+            featss.append(out.features.float() if collect else hiddens[-1])
+            top_lps.append(top_lp)
+            top_idxs.append(top_idx)
+        teacher_rms = torch.sqrt(torch.mean(torch.square(torch.stack(hiddens))))
+
+    if init_draft is None:
+        init_draft = init_draft_params(cfg, generator,
+                                       num_feature_layers=len(collect) if collect else 1)
+    dp = {k: v.detach().to(device=dev, dtype=torch.float32).clone()
+          for k, v in init_draft.items()}
+    dp["norm"] = dp["norm"] * teacher_rms
+    # optax.adam(lr): scale_by_adam (b1, b2, eps, eps_root = 0), then -lr
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    mu = {k: torch.zeros_like(v) for k, v in dp.items()}
+    nu = {k: torch.zeros_like(v) for k, v in dp.items()}
+    names = sorted(dp)
+    losses = []
+    with torch.enable_grad():
+        for step in range(steps):
+            i = step % num_batches
+            leaves = [dp[k].requires_grad_(True) for k in names]
+            toks, hidden = tokens_all[i], hiddens[i]
+            emb_next = llama.embed_tokens(params, toks[:, 1:], cfg).float()
+            pred = draft_apply(cfg, dict(zip(names, leaves)), featss[i][:, :-1], emb_next)
+            mse = torch.mean(torch.square(pred - hidden[:, 1:]))
+            pred_logp = torch.log_softmax(llama.project_logits(cfg, params, pred), dim=-1)
+            sel = torch.gather(pred_logp, -1, top_idxs[i][:, 1:])
+            ce = -torch.mean(torch.sum(torch.exp(top_lps[i][:, 1:]) * sel, dim=-1))
+            loss = mse + ce_weight * ce
+            grads = torch.autograd.grad(loss, leaves)
+            losses.append(loss.detach())
+            count = step + 1
+            with torch.no_grad():
+                for k, g in zip(names, grads):
+                    mu[k] = (1 - b1) * g + b1 * mu[k]
+                    nu[k] = (1 - b2) * (g * g) + b2 * nu[k]
+                    mu_hat = mu[k] / (1 - b1 ** count)
+                    nu_hat = nu[k] / (1 - b2 ** count)
+                    dp[k] = dp[k].detach() + (-lr) * (mu_hat / (torch.sqrt(nu_hat) + eps))
+    out_dtype = llama.torch_dtype(cfg.dtype)
+    return ({k: v.detach().to(out_dtype) for k, v in dp.items()},
+            torch.stack(losses).cpu() if losses else torch.zeros(0))
 
 
 def init_medusa_params(

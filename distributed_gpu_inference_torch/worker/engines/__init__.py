@@ -2,10 +2,11 @@
 
 The port of ``distributed_gpu_inference_tpu/worker/engines/__init__.py``:
 the same ``ALIASES``, ``register_engine`` / ``_OVERRIDES`` hook and
-``create_engine``. Only ``llm`` maps to a class here (``TorchLLMEngine``,
-imported on first use); every other task type raises ``KeyError`` naming
-it, and ``Worker.load_engines`` drops that type as the JAX worker drops a
-type whose engine cannot load.
+``create_engine``, and the same five task types: ``llm``
+(``TorchLLMEngine``), ``embedding``, ``vision``, ``whisper`` and
+``image_gen``, each imported on first use. Any other task type raises
+``KeyError`` naming it, and ``Worker.load_engines`` drops that type as the
+JAX worker drops a type whose engine cannot load.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from .base import BaseEngine, EngineLoadError, GenerationConfig, GenerationResul
 # task type → module path : class name (imported on first use)
 ENGINE_REGISTRY: Dict[str, str] = {
     "llm": "distributed_gpu_inference_torch.worker.engines.llm:TorchLLMEngine",
+    "embedding": "distributed_gpu_inference_torch.worker.engines.embedding:EmbeddingEngine",
+    "image_gen": "distributed_gpu_inference_torch.worker.engines.image_gen:ImageGenEngine",
+    "vision": "distributed_gpu_inference_torch.worker.engines.vision:VisionEngine",
+    "whisper": "distributed_gpu_inference_torch.worker.engines.whisper:WhisperEngine",
 }
 
 ALIASES: Dict[str, str] = {

@@ -4,7 +4,9 @@ The port's own copy of the parts of
 ``distributed_gpu_inference_tpu/worker/engines/base.py`` the LLM engine
 uses: the load/inference/unload lifecycle with its async, batch and stream
 bridges, the per-request ``GenerationConfig``, the ``GenerationResult``
-payload and the error types the worker maps to job outcomes.
+payload and the error types the worker maps to job outcomes; and two
+load-time helpers of the non-LLM engines (:func:`engine_device`,
+:func:`refuse_orbax`).
 """
 
 from __future__ import annotations
@@ -42,6 +44,27 @@ class JobMigrated(Exception):
         self.checkpoint = checkpoint
         self.tokens = tokens
 
+
+
+def engine_device(config: Dict[str, Any]) -> Any:
+    """A non-LLM engine's device from its ``device`` key (default
+    ``cuda``). Without CUDA a CUDA device raises :class:`EngineLoadError`,
+    so the worker drops the task type instead of failing its start."""
+    from ...runtime.engine import resolve_device
+
+    try:
+        return resolve_device(config.get("device", "cuda"))
+    except RuntimeError as exc:
+        raise EngineLoadError(str(exc)) from exc
+
+
+def refuse_orbax(config: Dict[str, Any]) -> None:
+    """The JAX whisper and image_gen engines read ``checkpoint_path`` as an
+    orbax checkpoint, which is JAX-only: refused by name."""
+    if config.get("checkpoint_path"):
+        raise EngineLoadError(
+            f"checkpoint_path {config['checkpoint_path']!r}: this engine reads orbax "
+            "checkpoints, which are JAX-only; the PyTorch port does not load them")
 
 @dataclass
 class GenerationConfig:

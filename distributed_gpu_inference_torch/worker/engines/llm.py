@@ -50,9 +50,11 @@ Speculative decoding, in either of the JAX engine's two modes:
 
 The two are mutually exclusive. ``load_model`` refuses, with
 :class:`EngineLoadError` naming the key, what this port does not serve
-rather than ignoring it: ``spec_distill_steps`` (draft distillation is
-training), tensor parallelism and the per-step ``serving.mode: direct``
-stream loop.
+rather than ignoring it: tensor parallelism and the per-step ``serving.mode:
+direct`` stream loop. ``spec_distill_steps`` > 0 with ``speculative_decode``
+distils the draft head against the target at load, before the batcher
+starts (``TorchEngine.distill_draft``); the per-step losses are kept in
+``distill_losses``.
 
 Weights and tokenizer from local files: ``checkpoint_path`` names an HF
 safetensors directory that ``TorchEngine`` loads onto the card, quantized
@@ -424,6 +426,8 @@ class TorchLLMEngine(LLMBaseEngine):
     def __init__(self, config: Optional[Dict[str, Any]] = None) -> None:
         super().__init__(config)
         self.engine: Optional[TorchEngine] = None
+        # spec_distill_steps: the distillation's per-step losses (host f32)
+        self.distill_losses: Optional[Any] = None
         self.serving: Optional[BatcherServing] = None
         # the standalone tree decoder (engine: jax-speculative), else None
         self._spec: Optional[SpeculativeDecoder] = None
@@ -522,12 +526,6 @@ class TorchLLMEngine(LLMBaseEngine):
     def _refuse_unported(self, sv: Dict[str, Any]) -> None:
         """EngineLoadError naming each configured key whose path this port
         does not have: refused at load when set, never ignored."""
-        if int(self.config.get("spec_distill_steps") or 0) > 0:
-            raise EngineLoadError(
-                f"spec_distill_steps={self.config['spec_distill_steps']}: "
-                "speculative draft distillation (training, with optax) is not "
-                "in the PyTorch port; serve a random or given draft head"
-            )
         tp = int(self.config.get("tp_size")
                  or (self.config.get("extra") or {}).get("tp_size") or 1)
         if tp > 1:
@@ -620,6 +618,21 @@ class TorchLLMEngine(LLMBaseEngine):
             if isinstance(exc, (ValueError, KeyError, NotImplementedError, OSError)):
                 raise EngineLoadError(str(exc)) from exc
             raise
+        distill_steps = int(self.config.get("spec_distill_steps") or 0)
+        if eng_cfg.speculative is not None and distill_steps > 0:
+            # on-load draft distillation against the engine's own target
+            # weights, before the batcher exists: a random head is correct
+            # but accepts ~nothing, so a failure here drops the task type
+            try:
+                self.distill_losses = self.engine.distill_draft(steps=distill_steps)
+            except Exception as exc:  # noqa: BLE001 — OOM, bad weights, ...
+                self.engine = None
+                store = eng_cfg.spill_remote_store
+                if store is not None and hasattr(store, "close"):
+                    store.close()
+                raise EngineLoadError(
+                    f"speculative draft distillation failed: {exc}"
+                ) from exc
         if standalone:
             self._spec = self._standalone_decoder(model_name, eng_cfg)
         try:

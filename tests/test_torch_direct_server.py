@@ -242,8 +242,8 @@ def test_load_control_applies_to_direct_traffic():
 
 def test_unknown_task_type_404():
     with Server(FakeWorker()) as s:
-        assert s.call("POST", "/inference", {"type": "vision"})[0] == 404
-        assert s.call("POST", "/inference/stream", {"type": "vision"})[0] == 404
+        assert s.call("POST", "/inference", {"type": "tts"})[0] == 404
+        assert s.call("POST", "/inference/stream", {"type": "tts"})[0] == 404
         assert s.call("GET", "/nowhere")[0] == 404
 
 

@@ -132,6 +132,16 @@ def test_jinja2_is_imported_only_where_a_chat_template_is_compiled():
         == {"_jinja"}
 
 
+def test_pillow_is_imported_only_where_an_image_needs_it():
+    # the card has no Pillow: the port writes and reads its own PNGs, and
+    # only a vision request in another format (or one to resize) imports it
+    sites = {str(f.relative_to(ROOT)): _import_sites(f, "PIL") for f in _port_files()}
+    sites = {k: v for k, v in sites.items() if v}
+    assert list(sites) == ["distributed_gpu_inference_torch/worker/engines/vision.py"]
+    assert [fn for fn, _ in sites["distributed_gpu_inference_torch/worker/engines/vision.py"]] \
+        == ["_pillow"]
+
+
 def test_yaml_config_without_pyyaml_raises_naming_it(tmp_path, monkeypatch):
     import sys
 

@@ -248,7 +248,9 @@ def test_worker_engine_serves_both_modes_as_the_jax_worker(weights, monkeypatch,
 
 
 @pytest.mark.parametrize("config,match", [
-    (dict(speculative_decode=True, spec_distill_steps=50), "spec_distill_steps"),
+    # draft distillation is ported: this case loads, distils and serves
+    pytest.param(dict(speculative_decode=True, spec_distill_steps=50), None,
+                 id="config0-spec_distill_steps"),
     (dict(speculative_decode=True, engine="jax-speculative"), "mutually exclusive"),
     (dict(speculative_decode=True, spec_num_draft_tokens=0), "speculative_decode config"),
     (dict(engine="jax-speculative", spec_widths=[4, 0]), "spec_widths"),
@@ -257,6 +259,16 @@ def test_worker_engine_serves_both_modes_as_the_jax_worker(weights, monkeypatch,
 def test_worker_engine_refuses_at_load_by_name(config, match):
     w = TorchLLMEngine(dict(model=MODEL, max_batch_size=2, max_seq_len=64, dtype="float32",
                             device="cpu", **config))
+    if match is None:
+        w.load_model()
+        try:
+            assert w.distill_losses.shape == (50,) and w.serving is not None
+            out = w.inference({"prompt": "ab", "max_new_tokens": 5, "ignore_eos": True})
+            assert out["usage"]["completion_tokens"] == 5
+            assert w.engine.get_stats()["spec_slot_steps"] > 0
+        finally:
+            w.unload()
+        return
     with pytest.raises(EngineLoadError, match=match):
         w.load_model()
     assert w.engine is None or w.serving is None

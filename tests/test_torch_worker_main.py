@@ -234,15 +234,16 @@ def test_load_engines_drops_broken_type():
 
 
 def test_load_engines_drops_task_types_the_port_has_no_engine_for():
-    # only llm maps to an engine in the port; the others raise KeyError at
-    # create_engine and are dropped as the JAX worker drops a failed load
+    # a task type with no engine (and no engine config) raises KeyError at
+    # load and is dropped as the JAX worker drops a failed load; the five
+    # types of the registry all have engines now
     cfg = _config()
-    cfg.task_types = ["llm", "vision", "whisper"]
+    cfg.task_types = ["llm", "tts", "rerank"]
     w = Worker(cfg, api=FakeAPI(creds_valid=True), topology=CPU)
     w.load_engines()
     assert w.config.task_types == ["llm"]
     cfg2 = _config()
-    cfg2.task_types = ["vision"]
+    cfg2.task_types = ["tts"]
     with pytest.raises(EngineLoadError, match="no engine loaded"):
         Worker(cfg2, api=FakeAPI(creds_valid=True), topology=CPU).load_engines()
 
@@ -392,7 +393,7 @@ def test_process_job_unknown_type_fails_cleanly():
     w.load_engines()
     w.state = WorkerState.IDLE
     assert w.try_begin_job()
-    w.process_job({"id": "j3", "type": "vision", "params": {}})
+    w.process_job({"id": "j3", "type": "tts", "params": {}})
     assert api.completed[0]["success"] is False
 
 
@@ -669,14 +670,15 @@ def test_serving_config_push_reaches_the_batcher_and_refusals_are_logged(
 
 
 @pytest.mark.parametrize("config,names", [
-    # the speculative modes load since they were ported; what stays
-    # refused is both at once and draft distillation (ids kept)
+    # the speculative modes load since they were ported, and since draft
+    # distillation was ported spec_distill_steps loads, distils and serves
+    # (names None); what stays refused is both modes at once (ids kept)
     pytest.param({"engine": "jax-speculative", "speculative_decode": True},
                  "engine=jax-speculative", id="config0-jax-speculative"),
     pytest.param({"engine": "speculative", "speculative_decode": True}, "mutually exclusive",
                  id="config1-engine: speculative"),
     pytest.param({"speculative_decode": True, "spec_distill_steps": 100},
-                 "spec_distill_steps=100", id="config2-speculative_decode"),
+                 None, id="config2-speculative_decode"),
     ({"extra": {"tp_size": 2}}, "extra.tp_size=2"),
     ({"serving": {"mode": "direct"}}, "serving.mode"),
     # a local tokenizer directory loads; a hub id (not a local directory)
@@ -696,6 +698,15 @@ def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names, tmp_
         (tmp_path / "model_config.json").write_text("{}")
         config = {"checkpoint_path": str(tmp_path)}
     llm = TorchLLMEngine(dict({"model": "llama3-tiny", "device": "cpu"}, **config))
+    if names is None:
+        llm.load_model()
+        try:
+            assert llm.distill_losses.shape == (config["spec_distill_steps"],)
+            out = llm.inference({"prompt": "hi", "max_new_tokens": 4, "ignore_eos": True})
+            assert out["usage"]["completion_tokens"] == 4
+        finally:
+            llm.unload()
+        return
     with pytest.raises(EngineLoadError, match=names):
         llm.load_model()
     assert llm.engine is None
