@@ -331,11 +331,13 @@ Mixtral MoE:
     loss falls (mean of the last 10 steps under the first 10's); on the
     first batch of its own streams the distilled head's feature MSE is
     under 0.8x that of phase 15's random head, and on held-out random
-    streams it is printed (information: a head of 2H^2 + H^2 weights fit to
-    4,032 positions of a 128,256-token vocabulary does not carry to tokens
-    it never saw). The bound of the JAX test
+    streams it is printed (information: 4,032 training positions are fewer
+    than the head's fused input width 2H = 8,192, so the fit does not
+    carry to streams it never saw; ``tests/distill_witness.py`` shows the
+    JAX function and the port alike gaining nothing held-out at fewer
+    positions than 2H, at either vocabulary). The bound of the JAX test
     ``test_distilled_draft_beats_random`` (held-out under 0.8x random) is
-    gated on ``llama3-mini`` (vocab 2,048), distilled the same way through
+    gated on ``llama3-mini`` (2H = 512), distilled the same way through
     ``TorchLLMEngine`` on the card. The 8 prompts, 32 greedy tokens
     each in one admission: phase 15's check (c) (verify rows through the
     ragged kernel, qmm's kernel at M = 40, no fused decode, which a
@@ -346,9 +348,12 @@ Mixtral MoE:
     and the prefix hit through ``BatcherServing`` (counters zeroed before
     and read after: ragged and qmm launched). (b) ``EmbeddingEngine``
     llama3-8b in bf16 embeds the 8 prompts in one call (counters zeroed
-    before and read after: ragged launched); each row against the plain
+    before and read after: ragged launched; ``kv_lens`` zero as in the JAX
+    engine, so every query sees no key); each row against the plain
     versions' (``plain_kernels``) within EMBED_COS_BOUND of cosine 1, unit
-    norms, and one prompt alone against its row. (c) ``VisionEngine``
+    norms, and one prompt alone against its row; the negative control, the
+    plain versions with each row's tokens attending, must read more than
+    EMBED_COS_BOUND from the kernels' rows. (c) ``VisionEngine``
     small-vit + llama3-1b (out_dim 2048 = hidden 2048), bf16 decoder: a
     224x224 ``pixels`` request and a PNG written by ``utils/png.py``, 32
     new tokens each (counters: ragged and fused decode launched), ids in
@@ -5044,8 +5049,10 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
 DISTILL_STEPS = 400
 DISTILL_MSE_RATIO = 0.8      # the bound of the JAX test test_distilled_draft_beats_random
 # (b): each embedding row through the kernels against the plain versions'
-# row, and a prompt alone against its row in the batch: bf16 through 32
-# layers moves a mean-pooled unit vector by well under 1e-3 of cosine
+# row, and a prompt alone against its row in the batch: with kv_lens zero
+# both attentions give exact zeros, and the bf16 products of 32 layers at
+# another padding move a mean-pooled unit vector by well under 1e-3 of
+# cosine; rows whose tokens attend must read above it (the control)
 EMBED_COS_BOUND = 1e-3
 VISION_TOKENS = 32
 # (d): f32 on both sides (TF32 off) and the same weights: only the
@@ -5120,8 +5127,8 @@ def random_streams(torch, engine, seed, b=4, s=64):
 def mini_distill(torch, smi, device, model="llama3-mini"):
     """Phase 20 (a), the JAX test's bound where it can hold: the distilled
     head's feature MSE on held-out random streams under 0.8x the random
-    head's, on a model small enough for 4,032 training positions to
-    cover its vocabulary."""
+    head's, on a model narrow enough that the 4,032 training positions
+    exceed the head's fused input width 2H."""
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
     llm = TorchLLMEngine({"model": model, "max_batch_size": 2, "max_seq_len": 256,
@@ -5230,6 +5237,7 @@ def distill_serving(torch, pa, smi, prompts, shared, random_head, model, quantiz
 
 def embedding_check(torch, pa, smi, prompts, model, device):
     """Phase 20 (b). → its launches."""
+    from distributed_gpu_inference_torch.models import llama
     from distributed_gpu_inference_torch.worker.engines.embedding import EmbeddingEngine
 
     tag = "embedding"
@@ -5244,9 +5252,23 @@ def embedding_check(torch, pa, smi, prompts, model, device):
         torch.cuda.synchronize()
         launches = pa.launch_counts()
         got = np.asarray(out["embeddings"], np.float64)
+
+        def cosine(want):
+            return (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                           * np.linalg.norm(want, axis=-1))
+
         with plain_kernels():
-            want = np.asarray(emb.inference({"texts": prompts})["embeddings"], np.float64)
-        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+            cos = cosine(np.asarray(emb.inference({"texts": prompts})["embeddings"],
+                                    np.float64))
+            real = llama.forward_chunk
+
+            def attending(cfg, params, toks, positions, kv, tables, kv_lens, **kw):
+                return real(cfg, params, toks, positions, kv, tables,
+                            (positions >= 0).sum(1, dtype=torch.int32), **kw)
+
+            with patched(llama, "forward_chunk", attending):
+                control = cosine(np.asarray(emb.inference({"texts": prompts})["embeddings"],
+                                            np.float64))
         norms = np.linalg.norm(got, axis=-1)
         alone = np.asarray(emb.inference({"text": prompts[5]})["embeddings"][0], np.float64)
         cos_alone = float(alone @ got[5] / (np.linalg.norm(alone) * norms[5]))
@@ -5255,12 +5277,17 @@ def embedding_check(torch, pa, smi, prompts, model, device):
               f"call, dim {out['dim']}: launches {launches}; 1 - cosine against the plain "
               f"versions per row {[f'{1 - c:.2e}' for c in cos]} (bound {EMBED_COS_BOUND}); "
               f"max |norm - 1| {np.abs(norms - 1).max():.2e}; prompt 5 alone against its row: "
-              f"1 - cosine {1 - cos_alone:.2e}; {ms:.2f} ms a call ({smi})", flush=True)
+              f"1 - cosine {1 - cos_alone:.2e}; negative control (plain, tokens attending) "
+              f"per row {[f'{1 - c:.2e}' for c in control]} (must exceed the bound); "
+              f"{ms:.2f} ms a call ({smi})", flush=True)
         if launches["ragged_paged_attention"] == 0:
             raise AssertionError(f"[{tag}] the ragged kernel never launched: {launches}")
         if not ((1 - cos).max() < EMBED_COS_BOUND and 1 - cos_alone < EMBED_COS_BOUND
                 and np.abs(norms - 1).max() < 1e-5):
             raise AssertionError(f"[{tag}] embeddings disagree: {cos}, {cos_alone}, {norms}")
+        if not (1 - control).min() > EMBED_COS_BOUND:
+            raise AssertionError(f"[{tag}] the comparison cannot tell attending rows from "
+                                 f"the engine's: {control}")
     finally:
         emb.unload()
     return launches

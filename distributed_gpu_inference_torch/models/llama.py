@@ -222,17 +222,23 @@ def _mlp(x: torch.Tensor, lp: Dict[str, Any], activation: str) -> torch.Tensor:
     return matmul(gate * matmul(x, lp["w_up"]), lp["w_down"]).to(x.dtype)
 
 
+def sorted_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest, descending, equal
+    values lower index first (a stable sort; ``torch.topk`` promises no
+    order among equals)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def route_experts(xf: torch.Tensor, w_router: torch.Tensor,
                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """HF Mixtral's routing of tokens ``xf [T, H]``: the router product in
     f32, softmax over every expert, the top ``k`` renormalized. → (dense
     ``[T, E]`` f32 combine weights, zero off the top k; the top-k expert
     ids ``[T, k]``). Ties resolve as ``lax.top_k`` resolves them, the lower
-    expert first: a stable descending sort (``torch.topk`` promises no
-    order among equals)."""
+    expert first (``sorted_top_k``)."""
     probs = torch.softmax(xf.float() @ w_router.float(), dim=-1)
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]
+    topv, topi = sorted_top_k(probs, k)
     topv = topv / topv.sum(dim=-1, keepdim=True)
     return torch.zeros_like(probs).scatter_(1, topi, topv), topi
 

@@ -340,14 +340,6 @@ def draft_apply(
     return llama.rms_norm(x, dp["norm"], cfg.rms_norm_eps)
 
 
-def _sorted_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` over the last axis: the k largest, descending, equal
-    values lower index first (a stable sort; ``torch.topk`` promises no
-    order among equals)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """One draw a row from ``softmax(logits)`` by the Gumbel-max trick (the
     method of ``jax.random.categorical``, on torch's generator)."""
@@ -445,7 +437,7 @@ def distill_draft_params(
                                       collect_layers=collect)
             # the target's next-token distribution at every position
             logp = torch.log_softmax(llama.project_logits(cfg, params, out.hidden), dim=-1)
-            top_lp, top_idx = _sorted_top_k(logp, label_k)
+            top_lp, top_idx = llama.sorted_top_k(logp, label_k)
             del logp
             tokens_all.append(toks)
             hiddens.append(out.hidden.float())

@@ -8,11 +8,11 @@ hidden states, L2-normalised. Rows of a batch are padded at position -1 to
 the longest (at least 8), on KV pools and a table sized to the batch as
 in the JAX engine. On the card the pass runs the ragged attention kernel.
 
-One difference from the JAX engine, which this port does not mirror: the
-JAX engine passes ``kv_lens`` of zeros to ``forward_chunk``, so every
-query's context is empty, attention contributes nothing and a text embeds
-as its bag of tokens ("ab" and "ba" give one vector). Here ``kv_lens`` is
-each row's length, so every token attends to the tokens before it.
+``kv_lens`` is zeros, as in the JAX engine, so that one text gets one
+vector from either package: every query's context is empty, attention
+contributes exact zeros and a text embeds as its bag of tokens ("ab" and
+"ba" give one vector). This mirrors a fault of the reference (ROADMAP §3
+item 3); a fix belongs to both packages at once.
 """
 
 from __future__ import annotations
@@ -89,7 +89,8 @@ class EmbeddingEngine(BaseEngine):
         tables = (1 + torch.arange(b * m, dtype=torch.int32)).reshape(b, m)
         out = llama.forward_chunk(
             cfg, self._params, batch.to(dev), positions.to(dev), kv, tables.to(dev),
-            lengths.to(dev), block_size=BLOCK, with_logits=False,
+            torch.zeros((b,), dtype=torch.int32, device=dev), block_size=BLOCK,
+            with_logits=False,
         )
         hidden = llama.rms_norm(out.hidden, self._params["final_norm"], cfg.rms_norm_eps,
                                 cfg.norm_offset).float()

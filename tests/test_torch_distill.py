@@ -12,7 +12,11 @@ weights on both sides:
   ``HEAD_ATOL`` of JAX's, and each head's loss, computed by the port,
   within ``LOSS_RTOL``; with and without EAGLE-3 ``feature_layers``;
 - ``on_policy`` shapes and a falling loss, the model dtype on return, and
-  a speculating ``TorchLLMEngine`` that distils at load and serves.
+  a speculating ``TorchLLMEngine`` that distils at load and serves;
+- the held-out feature MSE ratio of ``tests/distill_witness.py``'s
+  cheapest cell (400 steps on fewer training positions than the head's
+  fused input width): the port's within RATIO_RTOL of JAX's, and both
+  above the JAX test's bound of 0.8.
 
 Tolerances: both sides run the same f32 arithmetic in another order
 (XLA's fused graph against eager torch), so the labels agree to ~1e-6
@@ -48,6 +52,7 @@ TCFG = t_config("llama3-tiny", dtype="float32")
 LABEL_ATOL = 1e-4
 HEAD_ATOL = 1e-4
 LOSS_RTOL = 1e-3
+RATIO_RTOL = 5e-3        # 400 steps of f32 in two orders: 4.6e-4 measured
 B, S, N = 2, 16, 2
 
 
@@ -80,7 +85,7 @@ def _port_loss(tparams, head, tokens, feature_layers=None):
                 torch.full((b,), s, dtype=torch.int32), with_logits=False,
                 collect_layers=feature_layers)
             logp = torch.log_softmax(tllama.project_logits(TCFG, tparams, out.hidden), -1)
-            top_lp, top_idx = tspec._sorted_top_k(logp, 64)
+            top_lp, top_idx = tllama.sorted_top_k(logp, 64)
             feats = out.features if feature_layers else out.hidden
             pred = tspec.draft_apply(TCFG, {k: v.float() for k, v in head.items()},
                                      feats[:, :-1], tllama.embed_tokens(tparams, toks[:, 1:],
@@ -120,7 +125,7 @@ def test_teacher_labels_match_jax(weights):
         torch.arange(1, 1 + B, dtype=torch.int32).reshape(B, 1),
         torch.full((B,), S, dtype=torch.int32), with_logits=False)
     logp = torch.log_softmax(tllama.project_logits(TCFG, tparams, out.hidden), -1)
-    tlp, tidx = tspec._sorted_top_k(logp, 64)
+    tlp, tidx = tllama.sorted_top_k(logp, 64)
     np.testing.assert_allclose(out.hidden.numpy(), jh, atol=LABEL_ATOL)
     np.testing.assert_allclose(tlp.numpy(), jlp, atol=LABEL_ATOL)
     assert np.array_equal(tidx.numpy(), jidx)
@@ -244,3 +249,14 @@ def test_engine_distill_needs_a_speculative_config(weights, monkeypatch):
     with pytest.raises(EngineLoadError, match="distillation failed: CUDA out of memory"):
         failing.load_model()
     assert failing.engine is None and failing.serving is None
+
+
+def test_held_out_ratio_matches_jax_when_positions_are_few():
+    import distill_witness
+
+    r = distill_witness.run_cell("v2048-252pos")
+    assert r["positions"] < r["fused_input_width"]
+    assert r["port"]["ratio"] == pytest.approx(r["jax"]["ratio"], rel=RATIO_RTOL)
+    # the head fits its 252 positions but gains nothing held-out, in both
+    assert r["port"]["loss_last"] < 0.2 * r["port"]["loss_first"]
+    assert min(r["jax"]["ratio"], r["port"]["ratio"]) > distill_witness.RATIO_BOUND
