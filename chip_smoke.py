@@ -276,12 +276,20 @@ The fleet harness:
     tokens; after the kill the card's memory falls back to one engine's
     level (+ 512 MiB) before the restart; the restarted member keeps its
     worker id and serves a direct request; where an output parts from a
-    calm replay of the 8 prompts, both tokens there lie less than 0.05
-    below the argmax of one teacher-forced re-score (its top-2 and both
-    deficits printed: the near-tie rule of phases 11, 13 and 15, since a
-    resume recomputes its checkpoint's tokens as a prefill chunk and the
-    batches differ); all three kernels launched (counters zeroed before
-    the phase, read after the calm replay and before the re-score).
+    calm replay of the 8 prompts (a resume recomputes its checkpoint's
+    tokens as a prefill chunk and the batches differ), it parts at a
+    near-tie: in the logits of at least one run that chose either token
+    there, as the engines sampled them, the other token lies less than
+    0.05 below the argmax (phase 16's "either run's own logits"; every
+    run's deficit is printed). One run's logits are a noisy judge: on an
+    H100 two runs at one fork put the same two tokens 0.0551 apart in one
+    and reversed in the other, and a teacher-forced re-score (other kernels
+    and chunks, printed as information with its error on the calm
+    replay) put a correct run's own tokens up to 0.0398 below its argmax.
+    Each token a run sampled is the argmax of the logits recorded for it,
+    and none is missing; all three
+    kernels launched (counters zeroed before the phase, read after the
+    calm replay and before the re-score).
     Information: kill → requeue seconds, requeue → first token on the
     member that resumed the job (member 1 once its stall ends, or the
     restarted member 0), the restart's cold start, the kill's offset from
@@ -384,6 +392,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -3003,49 +3012,80 @@ class ThreadSplit:
 
 class SampleTrace:
     """While installed on engines: the top-8 logits of every row each
-    sample takes, kept on the device and keyed afterwards by (the row's
-    request ``session_id``, the position sampled) — the PD key and
-    prompt_len + index of the token. The decode-time logits a greedy
-    stream was committed from (a re-score runs other kernels)."""
+    sample takes (with a ``prefix``, only samples with a row whose request
+    ``session_id`` starts with it), kept on the device with the slot that
+    took it. Read afterwards keyed by (session id, the position sampled) —
+    the PD key and prompt_len + index of the token — or slot by slot
+    (``runs``). The decode-time logits a greedy stream was committed from
+    (a re-score runs other kernels). ``tags.tag``, where given, labels each
+    slot when it is first seen."""
 
-    def __init__(self, torch, engines, prefix):
-        self.torch, self.engines, self.prefix, self.calls = torch, engines, prefix, []
+    def __init__(self, torch, engines, prefix=None, tags=None):
+        self.torch, self.engines, self.prefix, self.tags = torch, [], prefix, tags
+        self.calls, self.first = [], {}   # first: id(slot) -> (slot, own start, tag)
         for eng in engines:
-            real = eng._sample
+            self.install(eng)
 
-            def sample(logits, rows, positions, mode, _real=real, _eng=eng):
-                rows = list(rows)
-                keys = [(s.request.session_id if (s := _eng.slots[i]) is not None else None)
-                        for i in rows]
-                if any(k and k.startswith(self.prefix) for k in keys):
-                    top = logits.float().topk(8, dim=-1)
-                    pos = positions if isinstance(positions, self.torch.Tensor) else \
-                        self.torch.as_tensor(np.asarray(positions))
-                    self.calls.append((keys, pos.clone(), top.values, top.indices))
-                return _real(logits, rows, positions, mode)
+    def install(self, eng):
+        real = eng._sample
+        self.engines.append(weakref.ref(eng))   # a killed member's engine must go
 
-            eng._sample = sample
+        def sample(logits, rows, positions, mode):
+            slots = [eng.slots[i] for i in rows]
+            keys = [s.request.session_id if s is not None else None for s in slots]
+            if self.prefix is None or any(k and k.startswith(self.prefix) for k in keys):
+                for s in slots:
+                    # a slot's own samples start at its prompt (a resumed
+                    # slot's holds its checkpoint) plus what it had generated
+                    # when first seen: earlier positions are mid-prefill rows
+                    if s is not None and id(s) not in self.first:
+                        self.first[id(s)] = (s, len(s.request.prompt_token_ids)
+                                             + len(s.generated),
+                                             self.tags.tag if self.tags else None)
+                top = logits.float().topk(8, dim=-1)
+                pos = positions if isinstance(positions, self.torch.Tensor) else \
+                    self.torch.as_tensor(np.asarray(positions))
+                self.calls.append((slots, keys, pos.clone(), top.values, top.indices))
+            return real(logits, rows, positions, mode)
+
+        eng._sample = sample
 
     def close(self):
-        for eng in self.engines:
-            del eng._sample
-        self.table = {}
-        for keys, pos, vals, idx in self.calls:
+        for ref in self.engines:
+            if (eng := ref()) is not None:
+                del eng._sample
+        self.table, self.own = {}, {i: {} for i in self.first}
+        for slots, keys, pos, vals, idx in self.calls:
             pos, vals, idx = pos.tolist(), vals.tolist(), idx.tolist()
-            for r, k in enumerate(keys):
-                if k and k.startswith(self.prefix) and pos[r] > 0:
+            for r, (s, k) in enumerate(zip(slots, keys)):
+                if k and k.startswith(self.prefix or "") and pos[r] > 0:
                     self.table[(k, int(pos[r]))] = (vals[r], idx[r])
+                if s is not None and pos[r] >= self.first[id(s)][1]:
+                    self.own[id(s)][pos[r] - len(s.request.prompt_token_ids)] = (vals[r], idx[r])
         self.calls = []
 
     def deficit(self, key, pos, token):
         """(the sample's top-2 as text, how far ``token``'s logit lay below
         the argmax's there: a lower bound when it was not in the top 8)."""
-        vals, idx = self.table.get((key, pos), (None, None))
-        if vals is None:
-            return "not recorded", float("inf")
-        top = f"id {idx[0]} {vals[0]:.4f} / id {idx[1]} {vals[1]:.4f}"
-        return top, (vals[0] - vals[idx.index(token)] if token in idx
-                     else vals[0] - vals[-1])
+        return top_deficit(self.table.get((key, pos), (None, None)), token)
+
+    def runs(self):
+        """→ [(tag, prompt ids, generated ids, index of the first token the
+        slot sampled itself, {token index: (top logits, top ids)} of those
+        tokens)], after ``close``."""
+        return [(t, tuple(s.request.prompt_token_ids), list(s.generated),
+                 start - len(s.request.prompt_token_ids), self.own[i])
+                for i, (s, start, t) in self.first.items()]
+
+
+def top_deficit(top, token):
+    """(one sample's top-2 as text, how far ``token``'s logit lay below the
+    argmax's there: a lower bound when it was not in its top 8)."""
+    vals, idx = top
+    if vals is None:
+        return "not recorded", float("inf")
+    text = f"id {idx[0]} {vals[0]:.4f} / id {idx[1]} {vals[1]:.4f}"
+    return text, (vals[0] - vals[idx.index(token)] if token in idx else vals[0] - vals[-1])
 
 
 class CapturedRx:
@@ -4341,6 +4381,7 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
               "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ, "device": device,
               "seed": 0}
     records = FleetRecords()
+    trace = SampleTrace(torch, [], tags=records)
     mem = {"base": torch.cuda.memory_allocated()}
     log = {"cold_start_s": [], "kill_t": None, "after_kill": None}
 
@@ -4357,6 +4398,7 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
             log["cold_start_s"].append((self.index, time.perf_counter() - t0))
             self.worker.config.load_control.max_concurrent_jobs = SERVE_BATCH
             records.wrap(self.index, self.llm)
+            trace.install(self.llm.engine)
             mem.setdefault(f"loaded{self.index}", torch.cuda.memory_allocated())
             self.awake = threading.Event()
             self.awake.set()
@@ -4519,7 +4561,8 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
         if not (mem_ok and same_row and served):
             raise AssertionError("the killed member's memory or its restart is wrong")
 
-        # ---- calm replay: the near-tie rule where an output parts from it
+        # ---- calm replay: where an output parts from it, a near-tie in the
+        # logits of a run that chose either token there
         records.tag = "calm"
         calm_j = [plane.queue_job({"prompt": p, "max_new_tokens": FLEET_TOKENS,
                                    "temperature": 0.0, "ignore_eos": True}) for p in prompts]
@@ -4535,25 +4578,56 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
         outputs += [(tuple(tok.encode(p)), stream_ids[i], f"stream {i}") for i, p in streams]
         torch.cuda.synchronize()
         counts = pa.launch_counts()    # the fleet's own launches: not the re-score's
+        trace.close()
+        runs = trace.runs()
+        # the trace is aligned with the tokens: each one a run sampled is the
+        # argmax of the logits recorded for it, and none is missing
+        own = [(gen[j], top) for _, _, gen, start, o in runs for j, top in o.items()
+               if j < len(gen)]
+        aligned = all(t == ids[0] or vals[0] == vals[1] for t, (vals, ids) in own)
+        covered = sum(len(gen) - max(start, 0) for _, _, gen, start, _ in runs)
+        print(f"[fleet] {len(runs)} runs traced, {len(own)} of their {covered} sampled tokens "
+              f"recorded, each its run's argmax: {aligned}", flush=True)
+        if not aligned or len(own) != covered:
+            raise AssertionError("the sampled logits do not line up with the tokens")
+
+        def chose(prompt, ids, d):
+            """The recorded logits of every run that sampled ids[d] itself after
+            the prompt and ids[:d]."""
+            return [o[d] for _, p, gen, start, o in runs if p == prompt and start <= d
+                    and d in o and gen[:d + 1] == list(ids[:d + 1])]
+
         parted = []
         for prompt, ids, what in outputs:
             want = calm[prompt]
             d = next((k for k, (a, b) in enumerate(zip(ids, want)) if a != b), None)
             if d is not None:
                 parted.append((prompt, ids, want, d, what))
+        # information: a teacher-forced re-score runs other kernels and other
+        # chunks, so it judges each run's token with an error of its own
+        calm_rows = list(calm.items())
         scores = rescore(torch, m1.llm.engine, [(p, i) for p, i, _, _, _ in parted]
-                         + [(p, w) for p, _, w, _, _ in parted]) if parted else []
+                         + [(p, w) for p, _, w, _, _ in parted] + calm_rows)
+        judge = max(x[3] for sc in scores[len(scores) - len(calm_rows):] for x in sc)
         worst = 0.0
         for n, (prompt, ids, want, d, what) in enumerate(parted):
-            first, second, gap, mine = scores[n][d]
-            theirs = scores[n + len(parted)][d][3]
-            worst = max(worst, mine, theirs)
+            mine, theirs = chose(prompt, ids, d), chose(prompt, want, d)
+            if not (mine and theirs):
+                raise AssertionError(f"{what}: no traced run sampled token {d} "
+                                     f"({len(mine)} / {len(theirs)})")
+            # each run at the fork: how far the other token lay below its own
+            fork = sorted([top_deficit(t, want[d]) for t in mine]
+                          + [top_deficit(t, ids[d]) for t in theirs], key=lambda x: x[1])
+            worst = max(worst, fork[0][1])
             print(f"[fleet] {what} parts from the calm replay at token {d}: {ids[d]} vs "
-                  f"{want[d]}; the re-scored top-2 there: id {first} / id {second} (gap "
-                  f"{gap:.4f}); deficit of the fleet's token {mine:.4f}, of the calm run's "
-                  f"{theirs:.4f} (near-tie bound {NEAR_TIE})", flush=True)
+                  f"{want[d]}; {len(mine)} / {len(theirs)} run(s) chose them there, the other "
+                  f"token {fork[0][1]:.4f}-{fork[-1][1]:.4f} below their argmax (nearest top-2 "
+                  f"{fork[0][0]}; near-tie bound {NEAR_TIE}); a re-score's deficits "
+                  f"{scores[n][d][3]:.4f} / {scores[n + len(parted)][d][3]:.4f}", flush=True)
         print(f"[fleet] {len(outputs)} outputs against the calm replay: {len(outputs) - len(parted)}"
-              f" identical, {len(parted)} part at a near-tie", flush=True)
+              f" identical, {len(parted)} part at a near-tie (the nearest run's deficit up to "
+              f"{worst:.4f}); (information) a re-score puts the calm replay's own tokens up to "
+              f"{judge:.4f} below its argmax", flush=True)
         if worst >= NEAR_TIE:
             raise AssertionError("a fleet output parts from the calm replay beyond a near-tie")
 
