@@ -376,6 +376,38 @@ Mixtral MoE:
     and power limit. Phase 20's launches are added to the bf16 ragged,
     fused decode and int8 qmm entries of the kernels line.
 
+21. pipeline stages — after phase 20. (a) ``TorchEngine`` loads llama3-8b
+    at all 32 layers with int8 weights (one quantized tree, bf16 pools,
+    one request at a time, the prompt lengths as its prefill buckets so a
+    prompt prefills unpadded, as a stage does); ``uniform_stages(32, 2)``
+    splits it into (0, 16) and (16, 32); two ``PipelineStageWorker`` s and
+    a spare for (16, 32), bf16 pools of 64 blocks each, take
+    ``slice_stage_params`` views of the engine's tree, each behind its own
+    ``DataPlaneServer`` on 127.0.0.1: the allocated bytes before and after
+    the stages (no more than their pools, + 1 MiB) and every stage leaf a
+    view of the tree. (b) Four prompts of 40, 64, 88 and 120 seeded tokens,
+    32 greedy tokens each, through ``DistributedInferenceSession
+    .generate_greedy`` (counters zeroed just before) against the engine on
+    the same prompts: streams identical, or parted at a near-tie (the
+    other token less than NEAR_TIE below the argmax in the last stage's
+    logits or in the engine's sampled logits, each printed); the last
+    stage's prefill logits against the engine's (max abs err, printed).
+    (d) Prompts 1 and 3 at once from two threads through the same stages:
+    each stream equal to its solo run (the stage's device lock). (c) A
+    session of prompt 0 whose stage-1 plane stops after 8 decode steps:
+    the stream equal to (b)'s run token for token, one reroute to the
+    spare, the chunks recorded at the kill replayed (the replay's ms
+    printed); the launch counters are read here. (g) Information, with
+    the card's name and power limit: the pipeline's and the engine's
+    decode tokens/s, each hop's p50 / p95 ms split into the stage's
+    forward and framing + HTTP, and the bytes each way a hop. (e) Every
+    stage back to num_blocks - 1 free blocks after its sessions close (the
+    stopped stage's orphan session closed in process); after the stages,
+    planes and tree are freed, the allocated bytes back to their level
+    before the phase within PIPE_MEM_SLACK. (f) ragged, fused decode and
+    qmm launched in (b)-(d); the counts are added to the bf16 ragged,
+    fused decode and int8 qmm entries of the kernels line.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15,
@@ -5513,6 +5545,402 @@ def engines_phase(torch, pa, smi, prompts, shared, random_head, model="llama3-8b
     return total
 
 
+# ---------------------------------------------------------------- phase 21: pipeline stages
+
+PIPE_LENGTHS = (40, 64, 88, 120)   # prompt tokens of (b); each is a prefill bucket
+PIPE_TOKENS = 32                   # greedy tokens a session
+PIPE_SEQ = 256                     # max_seq_len of the engine = 16 blocks a table
+PIPE_BLOCKS = 64                   # blocks of each stage's pools
+PIPE_KILL_AFTER = 8                # decode steps of (c) before stage 1's plane stops
+PIPE_PROFILE_STEPS = 8             # decode forwards a stage profiled for its device time
+PIPE_MEM_SLACK = 1 << 20           # (e): allocated bytes back within this (qmm's scratch aside)
+PIPE_SESSION = dict(max_length=PIPE_SEQ, max_retries_per_hop=2, retry_backoff_s=0.05,
+                    timeout_s=120.0)
+
+
+def pipeline_prompts(vocab):
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, vocab, size=n).tolist() for n in PIPE_LENGTHS]
+
+
+class PipeClock:
+    """While installed: each stage's in-process forward seconds, each hop's
+    client-side seconds and its request and reply bytes (``WorkerSession``
+    calls, one per forward), and each session step's seconds and last-row
+    logits."""
+
+    def __init__(self, stages):
+        self.stage_s = {id(s): [] for s in stages}
+        for st in stages:
+            real = st.forward
+
+            def fwd(*a, _real=real, _key=id(st), **k):
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                self.stage_s[_key].append(time.perf_counter() - t0)
+                return out
+
+            st.forward = fwd
+        self.hops = []          # (base_url, seconds, request bytes, reply bytes)
+
+    def watch(self, ws):
+        real = ws._call
+
+        def call(path, body, *a, **k):
+            t0 = time.perf_counter()
+            resp = real(path, body, *a, **k)
+            if path == "/inference/forward":
+                self.hops.append((ws.base_url, time.perf_counter() - t0, len(body),
+                                  len(resp.content)))
+            return resp
+
+        ws._call = call
+        return ws
+
+    def trace(self, sess):
+        """→ a list that gets each step of ``sess``: its seconds and
+        logits[0, -1]."""
+        real, steps = sess.step, []
+
+        def step(*a, **k):
+            t0 = time.perf_counter()
+            logits = real(*a, **k)
+            steps.append((time.perf_counter() - t0, logits[0, -1].clone()))
+            return logits
+
+        sess.step = step
+        return steps
+
+
+class EngineRows:
+    """While installed on a ``TorchEngine``: each sample's f32 logits row
+    (row 0; the engine serves one request at a time here) and the time its
+    token was on the host."""
+
+    def __init__(self, eng):
+        self.eng, self.rows, self.times = eng, [], []
+        real = eng._sample
+
+        def sample(logits, rows, positions, mode):
+            out = real(logits, rows, positions, mode)
+            self.rows.append(logits[0].float().cpu())
+            self.times.append(time.perf_counter())
+            return out
+
+        eng._sample = sample
+
+    def take(self):
+        rows, times = self.rows, self.times
+        self.rows, self.times = [], []
+        return rows, times
+
+    def close(self):
+        del self.eng._sample
+
+
+def row_deficit(row, token):
+    """How far ``token``'s logit lies below the argmax's in ``row``, and the
+    row's top-2 as text."""
+    top = row.topk(2)
+    v, i = top.values.tolist(), top.indices.tolist()
+    return float(v[0] - row[token]), f"id {i[0]} {v[0]:.4f} / id {i[1]} {v[1]:.4f}"
+
+
+def stage_device_ms(torch, stages, prompt, tokens):
+    """Device time of a decode forward of each stage, from the CUDA
+    activity ``torch.profiler`` records: ``prompt`` prefilled in process
+    on a session of its own, then the first PIPE_PROFILE_STEPS decode
+    steps of ``tokens``, each stage profiled over its own forwards (stage
+    1 takes the hiddens stage 0 gave) → [ms a forward per stage]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sid, n = "device-time", len(prompt)
+    for st in stages:
+        st.create_session(sid)
+    x = stages[0].forward(sid, [prompt], [list(range(n))], n)["hidden"]
+    stages[1].forward(sid, x, [list(range(n))], n)
+    steps = [([[n + i]], n + i + 1) for i in range(PIPE_PROFILE_STEPS)]
+    xs, out = [[[t]] for t in tokens[:PIPE_PROFILE_STEPS]], []
+    for st in stages:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            xs = [st.forward(sid, x, pos, kv)["hidden"] for x, (pos, kv) in zip(xs, steps)]
+        out.append(sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+                   / 1e3 / len(steps))
+    for st in stages:
+        st.close_session(sid)
+    return out
+
+
+def settled_bytes(torch):
+    """Allocated device bytes once the device is idle, with cuBLAS's
+    per-handle workspaces released (torch's own leak check does the same):
+    every thread that multiplies holds one, and a data plane serves each
+    request on a thread of its own."""
+    torch.cuda.synchronize()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def qmm_scratch_bytes(qmm):
+    """Bytes the quantized matmul keeps per device for the process (its
+    split-K partials and arrival counters, grown and never shrunk)."""
+    return sum(t.numel() * t.element_size() for s in qmm._scratch_by_device.values()
+               for t in (s.ws, s.counters, *s.retired) if t is not None)
+
+
+def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", device="cuda"):
+    """Phase 21 (see the module docstring). → its launches by kernel."""
+    import gc
+
+    from distributed_gpu_inference_torch.ops import qmm
+
+    from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer
+    from distributed_gpu_inference_torch.comm.session import (
+        DistributedInferenceSession,
+        WorkerSession,
+    )
+    from distributed_gpu_inference_torch.comm.stage_worker import PipelineStageWorker
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.parallel.pipeline import (
+        create_shard_plan,
+        device_bytes,
+        slice_stage_params,
+        uniform_stages,
+    )
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
+    from distributed_gpu_inference_torch.utils.data_structures import (
+        BlockRange,
+        InferenceRequest,
+        SamplingParams,
+        SessionConfig,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(model)
+    mem_before, scratch_before = settled_bytes(torch), qmm_scratch_bytes(qmm)
+
+    # ---- (a) one int8 tree, two stages and a spare viewing it
+    t0 = time.perf_counter()
+    eng = TorchEngine(cfg, EngineConfig(
+        max_batch_size=1, max_seq_len=PIPE_SEQ, prefill_buckets=PIPE_LENGTHS,
+        enable_prefix_cache=False, quantization=quantization), seed=0, device=device)
+    torch.cuda.synchronize()
+    mem_tree = torch.cuda.memory_allocated()
+    plan = uniform_stages(cfg.num_layers, 2)
+    ranges = plan + [plan[1]]
+    stages = [PipelineStageWorker(cfg, rng, params=slice_stage_params(
+        eng.params, *rng, num_layers=cfg.num_layers), num_blocks=PIPE_BLOCKS,
+        max_blocks_per_seq=eng.cfg.max_blocks_per_seq, dtype="bfloat16", device=device)
+        for rng in ranges]
+    torch.cuda.synchronize()
+    mem_stages = torch.cuda.memory_allocated()
+    pools = sum(t.numel() * t.element_size() for st in stages for t in st.kv.values())
+
+    def storages(tree):
+        out = set()
+        for v in tree.values():
+            out |= storages(v) if isinstance(v, dict) else {v.untyped_storage().data_ptr()}
+        return out
+
+    views = all(storages(st.params) <= storages(eng.params) for st in stages)
+    # (e) checks that nothing holds these once the phase lets them go
+    held = [weakref.ref(x) for x in stages + [eng]]
+    planes = [DataPlaneServer(stage=st) for st in stages]
+    _ = [p.start() for p in planes]
+    shard_plan = create_shard_plan(cfg, [device_bytes(device)] * 2) \
+        if device != "cpu" else "not measured (no card)"
+    print(f"[pipeline] {model} ({cfg.num_layers} layers, {quantization} weights, seed 0) "
+          f"loaded once in {time.perf_counter() - t0:.2f} s; stages {plan} + a spare for "
+          f"{plan[1]}, each behind its own data plane ({', '.join(p.url for p in planes)}); "
+          f"allocated {mem_before / 2**30:.3f} GiB before the phase, {mem_tree / 2**30:.3f} "
+          f"GiB with the tree, {mem_stages / 2**30:.3f} GiB with the three stages (+"
+          f"{mem_stages - mem_tree} B; their bf16 pools {pools} B); every stage's leaves "
+          f"views of the one tree: {views}; create_shard_plan on two cards of this one's free "
+          f"memory (bf16 layer bytes, information): {shard_plan} ({smi})", flush=True)
+    if not views or mem_stages - mem_tree > pools + (1 << 20):
+        raise AssertionError("[pipeline] (a) the stages copied the weight tree")
+
+    clock = PipeClock(stages)
+
+    def session(urls, spare=None):
+        route = [clock.watch(WorkerSession(u, BlockRange(*r), timeout_s=PIPE_SESSION["timeout_s"]))
+                 for u, r in zip(urls, plan)]
+        spares = [clock.watch(WorkerSession(spare, BlockRange(*plan[1])))] if spare else None
+        return DistributedInferenceSession(route, SessionConfig(**PIPE_SESSION),
+                                           spare_workers=spares)
+
+    urls = [p.url for p in planes]
+    prompts = pipeline_prompts(cfg.vocab_size)
+
+    # ---- (b) the engine on the same tree, one prompt at a time
+    rec = EngineRows(eng)
+    eng_runs = []
+    try:
+        for ids in prompts:
+            out = eng.generate([InferenceRequest(
+                prompt_token_ids=ids,
+                sampling=SamplingParams(max_new_tokens=PIPE_TOKENS, temperature=0.0,
+                                        ignore_eos=True))])[0]
+            if out.error or len(out.token_ids) != PIPE_TOKENS:
+                raise AssertionError(f"[pipeline] the engine failed: {out.error}")
+            eng_runs.append((list(out.token_ids), *rec.take()))
+    finally:
+        rec.close()
+
+    # ---- (b) the pipeline: counters zeroed just before its sessions
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    pipe_runs = []
+    for ids in prompts:
+        sess = session(urls)
+        steps = clock.trace(sess)
+        toks = sess.generate_greedy(ids, max_new_tokens=PIPE_TOKENS)
+        sess.close()
+        pipe_runs.append((toks, steps))
+    worst, parts = 0.0, []
+    for r, ((etoks, erows, _), (ptoks, steps)) in enumerate(zip(eng_runs, pipe_runs)):
+        d = next((k for k, (a, b) in enumerate(zip(ptoks, etoks)) if a != b), None)
+        if d is None:
+            continue
+        # each run at the fork: how far the other's token lay below its own argmax
+        p_short, p_top = row_deficit(steps[d][1], etoks[d])
+        e_short, e_top = row_deficit(erows[d], ptoks[d])
+        worst = max(worst, min(p_short, e_short))
+        parts.append(f"prompt {r} token {d}: pipeline {ptoks[d]} vs engine {etoks[d]}; "
+                     f"pipeline top-2 {p_top}, the engine's token {p_short:.4f} below; engine "
+                     f"top-2 {e_top}, the pipeline's token {e_short:.4f} below")
+    prefill_err = max(float((steps[0][1] - erows[0]).abs().max())
+                      for (_, erows, _), (_, steps) in zip(eng_runs, pipe_runs))
+    same = sum(a == b for (e, *_), (p, _) in zip(eng_runs, pipe_runs) for a, b in zip(e, p))
+    print(f"[pipeline] (b) {len(prompts)} prompts of {list(PIPE_LENGTHS)} tokens, "
+          f"{PIPE_TOKENS} greedy tokens each, through two stages over HTTP: {same}/"
+          f"{len(prompts) * PIPE_TOKENS} tokens equal to TorchEngine's on the same tree, "
+          f"{len(prompts) - len(parts)} streams identical; where one parts: "
+          f"{'; '.join(parts) or 'nowhere'} (near-tie bound {NEAR_TIE}, judged in both runs' "
+          f"own logits); the last stage's prefill logits against the engine's: max abs "
+          f"err {prefill_err:.3e}", flush=True)
+    if worst >= NEAR_TIE:
+        raise AssertionError("[pipeline] (b) a stream parts from the engine's beyond a near-tie")
+
+    # ---- (d) two sessions at once from two threads through the same stages
+    conc, errs = {}, []
+
+    def run(i):
+        try:
+            s = session(urls)
+            conc[i] = s.generate_greedy(prompts[i], max_new_tokens=PIPE_TOKENS)
+            s.close()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errs.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (1, 3)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    conc_s = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"[pipeline] (d) a concurrent session failed: {errs}")
+    conc_ok = all(conc[i] == pipe_runs[i][0] for i in (1, 3))
+    print(f"[pipeline] (d) prompts 1 and 3 at once from two threads through the same stages "
+          f"in {conc_s:.2f} s: each stream equal to its solo run: {conc_ok}", flush=True)
+    if not conc_ok:
+        raise AssertionError("[pipeline] (d) concurrent sessions part from their solo runs")
+
+    # ---- (c) stage 1's plane stops mid-generation: reroute to the spare, replay
+    sess = session(urls, spare=urls[2])
+    replay_s = []
+    real_fail = sess._handle_hop_failure
+
+    def timed_failure(*a):
+        t0 = time.perf_counter()
+        real_fail(*a)
+        replay_s.append(time.perf_counter() - t0)
+
+    sess._handle_hop_failure = timed_failure
+    logits = sess.step(np.asarray([prompts[0]], np.int32))
+    tok, toks, at_kill = int(torch.argmax(logits[0, -1])), [], None
+    for k in range(PIPE_TOKENS):
+        toks.append(tok)
+        if k == PIPE_KILL_AFTER:
+            planes[1].stop()
+            at_kill = len(sess.history)
+        logits = sess.step(np.asarray([[tok]], np.int32))
+        tok = int(torch.argmax(logits[0, -1]))
+    sess.close()
+    st = sess.stats
+    rec_ok = (toks == pipe_runs[0][0] and st["reroutes"] == 1
+              and st["replayed_chunks"] == at_kill and sess.route[1].base_url == urls[2])
+    print(f"[pipeline] (c) stage 1's plane stopped after {PIPE_KILL_AFTER} decode steps "
+          f"({at_kill} chunks recorded): {st['retries']} retries, {st['reroutes']} reroute to "
+          f"the spare, {st['replayed_chunks']} chunks replayed through both hops in "
+          f"{sum(replay_s) * 1e3:.1f} ms; the stream equal to the undisturbed run token for "
+          f"token: {toks == pipe_runs[0][0]} ({smi})", flush=True)
+    if not rec_ok:
+        raise AssertionError(f"[pipeline] (c) recovery is wrong: {st}, {toks} vs "
+                             f"{pipe_runs[0][0]}")
+    torch.cuda.synchronize()
+    launches = pa.launch_counts()
+
+    # ---- (g) numbers (information)
+    dec = [t for _, steps in pipe_runs for t, _ in steps[1:]]
+    eng_dec = [(len(times) - 1) / (times[-1] - times[0]) for _, _, times in eng_runs]
+    n_b = len(prompts) * (PIPE_TOKENS + 1)     # (b)'s forwards a hop, made first
+    decode_idx = [i for i in range(n_b) if i % (PIPE_TOKENS + 1)]
+    device_ms = (stage_device_ms(torch, stages[:2], prompts[0], pipe_runs[0][0])
+                 if device != "cpu" else [float("nan")] * 2)
+    lines = []
+    for h in range(len(plan)):
+        calls = [c[1:] for c in clock.hops if c[0] == urls[h]][:n_b]
+        inside = clock.stage_s[id(stages[h])][:n_b]
+        tot = [calls[i][0] * 1e3 for i in decode_idx]
+        ins = [inside[i] * 1e3 for i in decode_idx]
+        rest = [a - b for a, b in zip(tot, ins)]
+        lines.append(f"hop {h} (stage {plan[h]}): {pctl(tot, 0.5):.2f} / {pctl(tot, 0.95):.2f} "
+                     f"ms, of it the stage's forward (launches, device work and the copy "
+                     f"back, synchronised) {pctl(ins, 0.5):.2f} / {pctl(ins, 0.95):.2f}, the "
+                     f"device busy {device_ms[h]:.2f} ms of it, and framing + HTTP "
+                     f"{pctl(rest, 0.5):.2f} / {pctl(rest, 0.95):.2f}; {calls[1][1]} B out, "
+                     f"{calls[1][2]} B back a decode step ({calls[0][1]} / {calls[0][2]} B at "
+                     f"prompt 0's prefill)")
+    print(f"[pipeline] (g) decode: the pipeline {len(dec) / sum(dec):.1f} tokens/s "
+          f"({1e3 * sum(dec) / len(dec):.2f} ms a step, one session, two stages over "
+          f"loopback HTTP), TorchEngine on the same tree {np.mean(eng_dec):.1f} tokens/s; "
+          f"per decode hop p50 / p95: {'; '.join(lines)} (device busy: torch.profiler's CUDA "
+          f"time over {PIPE_PROFILE_STEPS} decode forwards of prompt 0's stream a stage, "
+          f"in process; nan without a card) ({smi})", flush=True)
+
+    # ---- (e) blocks and memory returned
+    stages[1].close_session(sess.session_id)    # its plane is down: closed in process
+    free = [st.health()["free_blocks"] for st in stages]
+    active = [st.health()["active_sessions"] for st in stages]
+    _ = [p.stop() for p in planes]
+    del stages, planes, clock, sess, eng, eng_runs, pipe_runs, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_after = settled_bytes(torch)
+    grown = qmm_scratch_bytes(qmm) - scratch_before
+    alive = sum(r() is not None for r in held)
+    print(f"[pipeline] (e) free blocks after every session closed: {free} (each "
+          f"{PIPE_BLOCKS - 1} = num_blocks - 1), active sessions {active}; stages and engine "
+          f"still referenced: {alive}; allocated {mem_after / 2**30:.3f} GiB after the phase "
+          f"freed its stages, planes and tree ({mem_after - mem_before:+d} B against before "
+          f"the phase, of it {grown} B the quantized matmul's scratch grew, which it keeps for "
+          f"the process; the rest bound {PIPE_MEM_SLACK} B)", flush=True)
+    if free != [PIPE_BLOCKS - 1] * 3 or any(active) or alive or \
+            abs(mem_after - mem_before - grown) > PIPE_MEM_SLACK:
+        raise AssertionError("[pipeline] (e) blocks or card memory not returned")
+
+    # ---- (f) kernels
+    print(f"[pipeline] (f) kernel launches of the pipeline's sessions ((b)-(d), the engine's "
+          f"excluded): {launches}; phase 21 ran in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    check_counts("pipeline", launches, qmm=quantization is not None)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5992,11 +6420,13 @@ def main() -> int:
 
     # ---- 20. draft distillation and the embedding, vision, whisper and image engines
     p20 = engines_phase(torch, pa, smi, prompts, shared, random_head)
+    # ---- 21. pipeline stages: llama3-8b int8 in two stages and a spare
+    p21 = pipeline_phase(torch, pa, smi)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
-            e["launches"] += p20[e["name"]]
+            e["launches"] += p20[e["name"]] + p21[e["name"]]
         elif e["name"] == "qmm_w8a16[int8]":
-            e["launches"] += p20["qmm_w8a16"]
+            e["launches"] += p20["qmm_w8a16"] + p21["qmm_w8a16"]
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,9 @@ JAX package so each counterpart is easy to find:
                 continuous batcher
 - ``worker/``   the worker's LLM engine API (``TorchLLMEngine``) and its direct
                 HTTP server (``DirectServer``)
+- ``comm/``     the data plane (KV handoff routes, pipeline-stage
+                session routes), the stage worker and the pipeline session
+- ``parallel/`` pipeline-stage planning (layer ranges, a stage's weights)
 - ``utils/``    request/response dataclasses
 
 Subpackages are imported lazily — ``import distributed_gpu_inference_torch``
@@ -27,6 +30,8 @@ _SUBPACKAGES = (
     "ops",
     "runtime",
     "worker",
+    "comm",
+    "parallel",
 )
 
 

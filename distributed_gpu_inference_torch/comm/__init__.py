@@ -1,2 +1,27 @@
-"""Data-plane transport of the PyTorch port: the KV handoff and migration
-routes on the standard library (``data_plane.py``)."""
+"""Data plane of the PyTorch port, on the standard library: the KV handoff
+and migration routes and the pipeline stages' session routes
+(``data_plane.py``), the binary tensor message (``wire.py``), the stage
+worker that owns a range of layers (``stage_worker.py``) and the client
+session that walks a route of stages (``session.py``).
+
+The JAX package's gRPC plane (``comm/grpc_plane.py``, ``comm/pb.py``)
+needs ``grpcio``, which the card's machine lacks; it is not ported."""
+
+from .wire import pack_message, unpack_message
+from .stage_worker import PipelineStageWorker
+from .session import (
+    DistributedInferenceSession,
+    PipelineHopError,
+    SessionManager,
+    WorkerSession,
+)
+
+__all__ = [
+    "pack_message",
+    "unpack_message",
+    "PipelineStageWorker",
+    "DistributedInferenceSession",
+    "PipelineHopError",
+    "SessionManager",
+    "WorkerSession",
+]

@@ -1,10 +1,11 @@
-"""The KV data plane on the standard library: a threading ``http.server``
-for the prefill→decode handoff and cluster KV migration, and the
-``http.client`` calls that reach it.
+"""The data plane on the standard library: a threading ``http.server``
+for the prefill→decode KV handoff, cluster KV migration and, with a
+pipeline stage, the stage's session routes; and the ``http.client`` calls
+that reach it.
 
 The port of ``distributed_gpu_inference_tpu/comm/data_plane.py``
-``DataPlaneServer`` (aiohttp there; the card's machine has none) for the
-routes a PD worker serves, with the same answers:
+``DataPlaneServer`` (aiohttp there; the card's machine has none), with the
+same answers:
 
 - ``POST /kv/transfer`` → ``kv_receiver(body)``: a one-shot handoff blob or
   one streamed-handoff message (``runtime/kv_handoff.py``); 200 with the
@@ -13,15 +14,25 @@ routes a PD worker serves, with the same answers:
 - ``POST /kv/export`` → ``kv_exporter(body)``: a peer's prefix pull; 200
   with the framed prefix-only messages (empty = nothing cached), 400 for a
   ``ValueError`` (model, dtype or geometry mismatch), 500 otherwise;
-- ``GET /health`` → ``health()`` as JSON;
-- the pipeline-session routes (``/inference/create_session``,
-  ``/inference/close``, ``/inference/forward``) answer 404: a PD receiver
-  is not a pipeline stage.
+- ``GET /health`` → ``health()`` (a stage's ``health()`` by default) as
+  JSON;
+- with ``stage=`` (``comm/stage_worker.py`` ``PipelineStageWorker``), the
+  pipeline-session routes: ``POST /inference/create_session`` (JSON
+  ``{"session_id"}`` → the stage's answer; 400 without a session id),
+  ``POST /inference/close`` (JSON ``{"session_id"}`` → ``{"status":
+  "closed"}``) and ``POST /inference/forward`` (a ``comm/wire.py``
+  message with meta ``session_id`` / ``kv_len_after`` and tensors ``x`` /
+  ``positions`` → a message of the stage's outputs; 400 for a message
+  that does not unpack, 404 for an unknown session or a missing key, 507
+  when the stage's blocks run out, 500 for anything else). Without a
+  stage they answer 404: a PD receiver is not a pipeline stage.
 
 Bodies are read by ``Content-Length`` in full (a llama3-8b bf16 handoff of a
 600-token prompt is ~79 MB). ``port=0`` binds a free port (:attr:`port`).
 Handlers run on the server's threads; the worker's receiver routes engine
-work to the batcher's executor, so no handler thread touches the device.
+work to the batcher's executor, so no handler thread touches an engine's
+device state, and a stage serialises its device work itself
+(``comm/stage_worker.py`` ``device_lock``).
 """
 
 from __future__ import annotations
@@ -33,6 +44,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Mapping, Optional
 from urllib.parse import urlsplit
 
+from distributed_gpu_inference_torch.comm.stage_worker import (
+    PipelineStageWorker,
+    StageOutOfBlocksError,
+)
+from distributed_gpu_inference_torch.comm.wire import pack_message, unpack_message
 from distributed_gpu_inference_torch.worker.api_client import Response
 
 
@@ -52,17 +68,18 @@ class HTTPStatusError(Exception):
         self.response = response
 
 
-def post_bytes(url: str, body: bytes, timeout: float,
-               headers: Optional[Mapping[str, str]] = None) -> Response:
-    """POST ``body`` to ``url`` on a fresh ``http.client`` connection (the
-    socket timeout applies to each read and write) → the status and the
-    whole response body."""
+def post_bytes(url: str, body: Optional[bytes], timeout: float,
+               headers: Optional[Mapping[str, str]] = None,
+               method: str = "POST") -> Response:
+    """POST ``body`` to ``url`` (or send ``method`` with it) on a fresh
+    ``http.client`` connection (the socket timeout applies to each read and
+    write) → the status and the whole response body."""
     parts = urlsplit(url)
     cls = (http.client.HTTPSConnection if parts.scheme == "https"
            else http.client.HTTPConnection)
     conn = cls(parts.hostname, parts.port, timeout=timeout)
     try:
-        conn.request("POST", parts.path or "/", body=body, headers={
+        conn.request(method, parts.path or "/", body=body, headers={
             "Content-Type": "application/octet-stream", **(headers or {})})
         r = conn.getresponse()
         return Response(r.status, r.read())
@@ -81,15 +98,19 @@ class HTTPPoster:
 
 
 class DataPlaneServer:
-    """Threading HTTP front of one PD engine's KV routes."""
+    """Threading HTTP front of one PD engine's KV routes, or of one
+    pipeline stage (``stage=``)."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
+                 stage: Optional[PipelineStageWorker] = None,
                  health: Optional[Callable[[], Dict[str, Any]]] = None,
                  kv_receiver: Optional[Callable[[bytes], Dict[str, Any]]] = None,
                  kv_exporter: Optional[Callable[[bytes], bytes]] = None) -> None:
         self.host = host
         self._want_port = port
-        self.health = health or (lambda: {"status": "ok"})
+        self.stage = stage
+        self.health = health or (stage.health if stage is not None
+                                 else (lambda: {"status": "ok"}))
         self.kv_receiver = kv_receiver
         self.kv_exporter = kv_exporter
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -112,6 +133,8 @@ class DataPlaneServer:
         path = path.split("?")[0]
         if method == "GET" and path == "/health":
             return js(200, self.health())
+        if method == "POST" and path in _SESSION_ROUTES and self.stage is not None:
+            return self._session_route(path, body, js)
         if method != "POST" or path in _SESSION_ROUTES:
             return js(404, {"detail": "not found (a PD KV data plane, not a pipeline stage)"})
         if path == "/kv/transfer":
@@ -131,6 +154,35 @@ class DataPlaneServer:
             except Exception as exc:  # noqa: BLE001
                 return js(500, {"detail": str(exc)})
         return js(404, {"detail": "not found"})
+
+    def _session_route(self, path: str, body: bytes, js):
+        """The stage's three routes, answered as the JAX plane answers."""
+        if path != "/inference/forward":
+            try:
+                sid = json.loads(body).get("session_id")
+            except Exception as exc:  # noqa: BLE001 — an unreadable body is a 500 in JAX too
+                return js(500, {"detail": str(exc)})
+            if path == "/inference/close":
+                self.stage.close_session(sid or "")
+                return js(200, {"status": "closed"})
+            if not sid:
+                return js(400, {"detail": "session_id required"})
+            return js(200, self.stage.create_session(sid))
+        try:
+            meta, tensors = unpack_message(body)
+        except ValueError as exc:
+            return js(400, {"detail": str(exc)})
+        try:
+            out = self.stage.forward(meta["session_id"], tensors["x"], tensors["positions"],
+                                     int(meta["kv_len_after"]))
+        except KeyError as exc:
+            return js(404, {"detail": str(exc)})
+        except StageOutOfBlocksError as exc:
+            return js(507, {"detail": str(exc)})
+        except Exception as exc:  # noqa: BLE001 — answered as the JAX plane does
+            return js(500, {"detail": str(exc)})
+        return 200, "application/octet-stream", pack_message(
+            {"session_id": meta["session_id"]}, out)
 
     def start(self) -> None:
         plane = self

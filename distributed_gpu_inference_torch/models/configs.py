@@ -77,6 +77,19 @@ class ModelConfig:
     def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
         return 2 * self.num_layers * self.num_kv_heads * self.head_dim * dtype_bytes
 
+    def layer_param_bytes(self, dtype_bytes: int = 2) -> int:
+        """Per-layer weight bytes: the shard planner's unit of placement
+        (``parallel/pipeline.py`` ``create_shard_plan``)."""
+        h, i, d = self.hidden_size, self.intermediate_size, self.head_dim
+        attn = h * (self.num_heads * d) + 2 * h * (self.num_kv_heads * d) + (
+            self.num_heads * d
+        ) * h
+        if self.num_experts:
+            mlp = self.num_experts * 3 * h * i + h * self.num_experts
+        else:
+            mlp = 3 * h * i
+        return (attn + mlp + 2 * h) * dtype_bytes
+
 
 def _llama(name: str, **kw) -> ModelConfig:
     return ModelConfig(name=name, **kw)

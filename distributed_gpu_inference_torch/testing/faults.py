@@ -30,7 +30,8 @@ Sites in the port: ``worker.api.request`` (:func:`wrap_http`),
 ``io.spill.redis.get`` / ``.put`` (:func:`io_fault`), and on the KV
 handoff ``kv.receiver.message`` (:func:`mutate_bytes`),
 ``io.handoff.stage`` (:func:`io_bytes`), ``worker.pd.push`` and
-``worker.kv.pull`` (:func:`wrap_http`).
+``worker.kv.pull`` (:func:`wrap_http`), and on a pipeline session's hops
+``comm.session.forward`` (:func:`wrap_http`).
 
 =========  =======================================================
 kind       effect at a seam

@@ -3,9 +3,10 @@
 The port's own copy of the parts of
 ``distributed_gpu_inference_tpu/utils/data_structures.py`` that the engine,
 the block manager, the batcher and the worker read: the worker's lifecycle
-state and topology record, the layer range a checkpoint load takes,
-sampling controls, requests, responses, per-page block metadata and the
-prefix hash. Pure Python.
+state and topology record, the layer range a checkpoint load takes (and a
+pipeline stage owns), sampling controls, requests, responses, per-page
+block metadata, the prefix hash, and the pipeline's session and stage-plan
+records (:class:`SessionConfig`, :class:`ModelShardConfig`). Pure Python.
 """
 
 from __future__ import annotations
@@ -229,6 +230,77 @@ class InferenceResponse:
     @property
     def ok(self) -> bool:
         return self.error is None
+
+
+# ---------------------------------------------------------------------------
+# Session / shard configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SessionConfig:
+    """Configuration of a distributed pipeline session (``comm/session.py``),
+    with the JAX record's fields so one config means the same in both
+    packages. The session reads ``max_length``, ``max_retries_per_hop`` and
+    ``retry_backoff_s`` (a hop's timeout is its ``WorkerSession``'s), and
+    writes uncompressed frames whatever ``compress_dcn`` says."""
+
+    model_name: str = "llama3-8b"
+    max_length: int = 8192
+    dtype: str = "bfloat16"
+    timeout_s: float = 60.0
+    max_retries_per_hop: int = 3
+    retry_backoff_s: float = 0.5
+    compress_dcn: bool = True
+    use_ici_collectives: bool = True
+
+
+@dataclass
+class ModelShardConfig:
+    """Stage plan for layer-sharded pipeline serving: stage order is the
+    inference route's order (the embedding lives in stage 0, the final norm
+    and LM head in the last)."""
+
+    model_name: str
+    num_layers: int
+    stages: List[BlockRange] = field(default_factory=list)
+    stage_workers: List[str] = field(default_factory=list)  # worker_id per stage
+
+    def __post_init__(self) -> None:
+        if self.stages:
+            self.validate()
+
+    def validate(self) -> None:
+        if not self.stages:
+            raise ValueError("no stages")
+        if self.stages[0].start != 0:
+            raise ValueError("first stage must start at layer 0")
+        if self.stages[-1].end != self.num_layers:
+            raise ValueError(
+                f"last stage ends at {self.stages[-1].end}, expected {self.num_layers}"
+            )
+        for a, b in zip(self.stages, self.stages[1:]):
+            if a.end != b.start:
+                raise ValueError(f"gap/overlap between stages {a} and {b}")
+        if self.stage_workers and len(self.stage_workers) != len(self.stages):
+            raise ValueError("stage_workers length != stages length")
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stages)
+
+    def get_inference_route(self) -> List[Tuple[str, BlockRange]]:
+        """Ordered (worker_id, layer_range) hops for a full forward pass."""
+        self.validate()
+        if not self.stage_workers:
+            raise ValueError("no workers assigned to stages")
+        return list(zip(self.stage_workers, self.stages))
+
+    def stage_for_layer(self, layer: int) -> int:
+        for i, rng in enumerate(self.stages):
+            if layer in rng:
+                return i
+        raise ValueError(f"layer {layer} not in any stage")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
 package (nor aiohttp, httpx, pydantic, transformers, msgpack, ml_dtypes,
-redis, safetensors, tokenizers or regex, which the card's machine lacks;
+redis, safetensors, tokenizers, regex or grpc, which the card's machine lacks;
 PyYAML only lazily, behind an error naming it, jinja2 only where a chat
 template is compiled, and zstandard only to read a zstd spill frame),
 runs on CUDA unless asked for the CPU, its kernel wrappers never
@@ -22,7 +22,7 @@ from distributed_gpu_inference_torch.runtime.engine import TorchEngine  # noqa: 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu", "aiohttp", "httpx",
              "pydantic", "transformers", "msgpack", "ml_dtypes", "redis",
-             "safetensors", "tokenizers", "regex")
+             "safetensors", "tokenizers", "regex", "grpc")
 
 
 def _port_files():
@@ -49,7 +49,8 @@ def test_port_imports_nothing_of_jax():
             "prefix_summary.py", "io_guard.py", "faults.py", "flight.py", "redis_kv.py",
             "serialization.py", "kv_cache.py", "speculative.py", "engine.py", "batcher.py",
             "llama.py", "attention.py", "convert.py", "loader.py", "safetensors.py",
-            "hf_tokenizer.py"} <= {f.name for f in files}
+            "hf_tokenizer.py", "wire.py", "session.py", "stage_worker.py",
+            "pipeline.py"} <= {f.name for f in files}
     assert (ROOT / "distributed_gpu_inference_torch/runtime/speculative.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/testing/faults.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files
@@ -69,6 +70,20 @@ def test_pd_modules_import_nothing_of_jax():
     for f in pd + [ROOT / "chip_smoke.py"]:
         assert not set(_imported_roots(f)) & set(FORBIDDEN), f
     assert "pd_phase" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_pipeline_modules_import_nothing_of_jax():
+    # the wire, the stage worker, the session and the stage planner carry no
+    # JAX, no module of the JAX package, no aiohttp/httpx/grpc/msgpack (and
+    # zstandard only lazily, see below); chip_smoke.py's phase 21 drives
+    # the pipeline on the card
+    pipeline = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
+        "comm/wire.py", "comm/session.py", "comm/stage_worker.py",
+        "parallel/__init__.py", "parallel/pipeline.py")]
+    assert set(pipeline) <= set(_port_files())
+    for f in pipeline + [ROOT / "chip_smoke.py"]:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    assert "def pipeline_phase(" in (ROOT / "chip_smoke.py").read_text()
 
 
 def test_fleet_harness_imports_nothing_of_jax():
