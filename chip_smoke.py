@@ -286,6 +286,10 @@ The fleet harness:
     and reversed in the other, and a teacher-forced re-score (other kernels
     and chunks, printed as information with its error on the calm
     replay) put a correct run's own tokens up to 0.0398 below its argmax.
+    A stream resumed past its last pushed checkpoint splices two runs
+    where its new run re-generated a delivered token otherwise (ROADMAP §3
+    item 3): each stretch between resumes is then held to the calm replay
+    as the run that sampled it.
     Each token a run sampled is the argmax of the logits recorded for it,
     and none is missing; all three
     kernels launched (counters zeroed before the phase, read after the
@@ -393,7 +397,9 @@ Mixtral MoE:
     logits or in the engine's sampled logits, each printed); the last
     stage's prefill logits against the engine's (max abs err, printed).
     (d) Prompts 1 and 3 at once from two threads through the same stages:
-    each stream equal to its solo run (the stage's device lock). (c) A
+    each stream equal to its solo run; and ``qmm_streams_check``: two
+    threads on a CUDA stream each share the quantized matmul's scratch,
+    every result bitwise the call's alone (its cross-stream order). (c) A
     session of prompt 0 whose stage-1 plane stops after 8 decode steps:
     the stream equal to (b)'s run token for token, one reroute to the
     spare, the chunks recorded at the kill replayed (the replay's ms
@@ -4353,8 +4359,8 @@ def resumable_stream(first_port, other_port, body, sid, deadline_s=600.0):
     before the ``done`` event, it is resumed at the last offset on
     ``other_port`` (a ``resume {stream_id, offset, text_offset}`` body; a
     503 — busy, or the adoption not possible yet — is retried). → (events,
-    resumes)."""
-    events, resumes, port = [], 0, first_port
+    the offset of each resume)."""
+    events, resumes, port = [], [], first_port
     req = dict(body, stream_id=sid)
     deadline = time.time() + deadline_s
     while time.time() < deadline:
@@ -4382,15 +4388,46 @@ def resumable_stream(first_port, other_port, body, sid, deadline_s=600.0):
             pass              # the member died mid-stream
         finally:
             conn.close()
-        resumes += 1
-        if resumes > 8:
-            raise AssertionError(f"stream {sid}: more than 8 resumes")
         offset = events[-1]["offset"] if events else 0
+        resumes.append(offset)
+        if len(resumes) > 8:
+            raise AssertionError(f"stream {sid}: more than 8 resumes")
         text = "".join(e.get("text_delta") or "" for e in events)
         req = dict(body, stream_id=sid, resume={"stream_id": sid, "offset": offset,
                                                 "text_offset": len(text)})
         port = other_port
     raise AssertionError(f"stream {sid} did not finish in {deadline_s} s")
+
+
+def stream_stretches(runs, prompt, ids, cuts, what):
+    """Phase 18's outputs of one stream: (prompt, ids, what) to hold to the
+    calm replay. ``runs`` are ``SampleTrace.runs()``, ``cuts`` the offsets
+    the stream resumed at. Each stretch between resumes was sampled by one
+    run, which began at or before it; a resume past the stream's last
+    pushed checkpoint re-generates the delivered tokens after the
+    checkpoint unsent, and where one came out otherwise (a near-tie) the
+    stream splices two runs. Unspliced, the stream is one output; spliced,
+    each stretch is held to the calm replay as the run that sampled it
+    (that run's own tokens)."""
+    ids, found = list(ids), []
+    for a, b in zip([0] + cuts, cuts + [len(ids)]):
+        cands = [g for _, p, g, st, o in runs if p == prompt and st <= a
+                 and g[a:b] == ids[a:b] and all(j in o for j in range(a, b))]
+        gen = next((g for g in cands if g[:a] == ids[:a]), cands[0] if cands else None)
+        if gen is None:
+            raise AssertionError(f"{what}: no traced run sampled its tokens {a}-{b - 1}")
+        found.append((a, b, gen))
+    if all(g[:a] == ids[:a] for a, _, g in found):
+        return [(prompt, ids, what)]
+    out = []
+    for a, b, g in found:
+        k = next((j for j in range(a) if g[j] != ids[j]), None)
+        out.append((prompt, g[:b], f"{what} tokens {a}-{b - 1}" + (
+            "" if k is None else f" (a splice: their run re-generated token {k} as "
+            f"{g[k]}, the stream holds {ids[k]})")))
+    print(f"[fleet] {what} splices runs at its resumes {cuts}: " + "; ".join(
+        o[2] for o in out), flush=True)
+    return out
 
 
 def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
@@ -4543,12 +4580,13 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
         for _, jid, _, _ in plane.completed:
             completions[jid] = completions.get(jid, 0) + 1
         once = all(completions.get(j["id"]) == 1 for j in jobs.values())
-        stream_ids, resumed_streams = {}, 0
+        stream_ids, stream_cuts, resumed_streams = {}, {}, 0
         for i, (events, resumes) in out.items():
             _, final, ids, text = split_stream(events)
             if final["offset"] != FLEET_TOKENS or text != tok.decode(ids):
                 raise AssertionError(f"stream {i}: final {final}, text {text!r}")
-            stream_ids[i], resumed_streams = ids, resumed_streams + (resumes > 0)
+            stream_ids[i], resumed_streams = ids, resumed_streams + bool(resumes)
+            stream_cuts[i] = sorted({o for o in resumes if 0 < o < len(ids)})
         rows = records.of("fleet")
         resumed = [r for r in rows if r["ckpt"]]
         prefixed = all(r["ids"][:len(r["ckpt"])] == r["ckpt"] for r in resumed)
@@ -4607,7 +4645,6 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
         outputs = [(r["prompt"], r["ids"], f"member {r['member']} job"
                     + (f" resumed from {len(r['ckpt'])} tokens" if r["ckpt"] else ""))
                    for r in rows + records.of("restarted")]
-        outputs += [(tuple(tok.encode(p)), stream_ids[i], f"stream {i}") for i, p in streams]
         torch.cuda.synchronize()
         counts = pa.launch_counts()    # the fleet's own launches: not the re-score's
         trace.close()
@@ -4622,6 +4659,10 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
               f"recorded, each its run's argmax: {aligned}", flush=True)
         if not aligned or len(own) != covered:
             raise AssertionError("the sampled logits do not line up with the tokens")
+
+        for i, p in streams:
+            outputs += stream_stretches(runs, tuple(tok.encode(p)), stream_ids[i],
+                                        stream_cuts[i], f"stream {i}")
 
         def chose(prompt, ids, d):
             """The recorded logits of every run that sampled ids[d] itself after
@@ -5554,8 +5595,10 @@ PIPE_BLOCKS = 64                   # blocks of each stage's pools
 PIPE_KILL_AFTER = 8                # decode steps of (c) before stage 1's plane stops
 PIPE_PROFILE_STEPS = 8             # decode forwards a stage profiled for its device time
 PIPE_MEM_SLACK = 1 << 20           # (e): allocated bytes back within this (qmm's scratch aside)
-PIPE_SESSION = dict(max_length=PIPE_SEQ, max_retries_per_hop=2, retry_backoff_s=0.05,
-                    timeout_s=120.0)
+PIPE_SESSION = dict(max_length=PIPE_SEQ, max_retries_per_hop=2, retry_backoff_s=0.05)
+PIPE_HOP_TIMEOUT_S = 120.0         # each WorkerSession's socket timeout, spare included
+QMM_STREAM_ROUNDS = 64             # (d): quantized matmuls a thread, each on its own stream
+QMM_STREAM_HOLD_CYCLES = 50_000_000  # (d): ~25 ms of spinning before both streams start
 
 
 def pipeline_prompts(vocab):
@@ -5689,6 +5732,59 @@ def qmm_scratch_bytes(qmm):
                for t in (s.ws, s.counters, *s.retired) if t is not None)
 
 
+def qmm_streams_check(torch, dev, rounds=QMM_STREAM_ROUNDS):
+    """Two threads, each launching the quantized matmul on a CUDA stream of
+    its own at split-K decode shapes (M 1 and 8 through llama3-8b's K
+    projection: 128 blocks a launch, so two launches fit the card at
+    once), while the wrapper keeps one scratch for the device →
+    (results compared, results not bitwise equal to the same call made
+    alone on the current stream). Both streams first wait on one event
+    behind a spin of QMM_STREAM_HOLD_CYCLES, so that both hold all their
+    launches when they are let go: unordered, they would run at once. The
+    arrival counters must be back at zero after."""
+    from distributed_gpu_inference_torch.ops import qmm
+    from distributed_gpu_inference_torch.ops.quantization import quantize_weight
+
+    rng = np.random.default_rng(5)
+    k, n = 4096, 1024
+    w = torch.tensor(rng.standard_normal((1, k, n)) * k ** -0.5, dtype=torch.float32,
+                     device=dev)
+    q = quantize_weight(w, "int8")
+    del w
+    xs = [torch.tensor(rng.standard_normal((m, k)), dtype=torch.bfloat16, device=dev)
+          for m in (1, 8)]
+    if any(qmm.split_plan(x.shape[0], k, n)[0] < 2 for x in xs):
+        raise AssertionError("qmm_streams_check: a shape without a split-K plan")
+    alone = [qmm.qmm_w8a16(x, q["qw"], q["scale"]) for x in xs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    gate = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(QMM_STREAM_HOLD_CYCLES)
+    go = torch.cuda.Event()
+    go.record(gate)
+
+    def run(i):
+        side = torch.cuda.Stream(device=dev)
+        side.wait_event(go)
+        with torch.cuda.stream(side):
+            for _ in range(rounds):
+                outs[i].append(qmm.qmm_w8a16(xs[i], q["qw"], q["scale"]))
+        side.synchronize()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    bad = sum(not torch.equal(o.view(torch.int16), alone[i].view(torch.int16))
+              for i in (0, 1) for o in outs[i])
+    if int(qmm._scratch_by_device[xs[0].device.index].counters.abs().sum()):
+        raise AssertionError("qmm_streams_check: arrival counters left non-zero")
+    return sum(map(len, outs)), bad
+
+
 def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", device="cuda"):
     """Phase 21 (see the module docstring). → its launches by kernel."""
     import gc
@@ -5764,9 +5860,10 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
     clock = PipeClock(stages)
 
     def session(urls, spare=None):
-        route = [clock.watch(WorkerSession(u, BlockRange(*r), timeout_s=PIPE_SESSION["timeout_s"]))
+        route = [clock.watch(WorkerSession(u, BlockRange(*r), timeout_s=PIPE_HOP_TIMEOUT_S))
                  for u, r in zip(urls, plan)]
-        spares = [clock.watch(WorkerSession(spare, BlockRange(*plan[1])))] if spare else None
+        spares = [clock.watch(WorkerSession(spare, BlockRange(*plan[1]),
+                                            timeout_s=PIPE_HOP_TIMEOUT_S))] if spare else None
         return DistributedInferenceSession(route, SessionConfig(**PIPE_SESSION),
                                            spare_workers=spares)
 
@@ -5787,6 +5884,10 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
             eng_runs.append((list(out.token_ids), *rec.take()))
     finally:
         rec.close()
+
+    # (d)'s scratch check, made before the counters are zeroed: not the pipeline's launches
+    n_streams, bad_streams = (qmm_streams_check(torch, eng.device) if device != "cpu"
+                              else (0, 0))
 
     # ---- (b) the pipeline: counters zeroed just before its sessions
     torch.cuda.synchronize()
@@ -5845,9 +5946,12 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
         raise AssertionError(f"[pipeline] (d) a concurrent session failed: {errs}")
     conc_ok = all(conc[i] == pipe_runs[i][0] for i in (1, 3))
     print(f"[pipeline] (d) prompts 1 and 3 at once from two threads through the same stages "
-          f"in {conc_s:.2f} s: each stream equal to its solo run: {conc_ok}", flush=True)
-    if not conc_ok:
-        raise AssertionError("[pipeline] (d) concurrent sessions part from their solo runs")
+          f"in {conc_s:.2f} s: each stream equal to its solo run: {conc_ok}; the quantized "
+          f"matmul's one scratch shared by two threads on a CUDA stream each: {bad_streams} "
+          f"of {n_streams} results unlike the same call alone", flush=True)
+    if not conc_ok or bad_streams:
+        raise AssertionError("[pipeline] (d) concurrent sessions or streams part from their "
+                             "solo runs")
 
     # ---- (c) stage 1's plane stops mid-generation: reroute to the spare, replay
     sess = session(urls, spare=urls[2])

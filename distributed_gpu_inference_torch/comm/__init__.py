@@ -4,24 +4,30 @@ and migration routes and the pipeline stages' session routes
 worker that owns a range of layers (``stage_worker.py``) and the client
 session that walks a route of stages (``session.py``).
 
+The names below load their module on first use, so a PD-only user of the
+data plane does not load the stage worker and the model.
+
 The JAX package's gRPC plane (``comm/grpc_plane.py``, ``comm/pb.py``)
 needs ``grpcio``, which the card's machine lacks; it is not ported."""
 
-from .wire import pack_message, unpack_message
-from .stage_worker import PipelineStageWorker
-from .session import (
-    DistributedInferenceSession,
-    PipelineHopError,
-    SessionManager,
-    WorkerSession,
-)
+_EXPORTS = {
+    "pack_message": "wire",
+    "unpack_message": "wire",
+    "PipelineStageWorker": "stage_worker",
+    "DistributedInferenceSession": "session",
+    "PipelineHopError": "session",
+    "SessionManager": "session",
+    "WorkerSession": "session",
+}
 
-__all__ = [
-    "pack_message",
-    "unpack_message",
-    "PipelineStageWorker",
-    "DistributedInferenceSession",
-    "PipelineHopError",
-    "SessionManager",
-    "WorkerSession",
-]
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

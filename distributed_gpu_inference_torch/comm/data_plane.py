@@ -31,8 +31,9 @@ Bodies are read by ``Content-Length`` in full (a llama3-8b bf16 handoff of a
 600-token prompt is ~79 MB). ``port=0`` binds a free port (:attr:`port`).
 Handlers run on the server's threads; the worker's receiver routes engine
 work to the batcher's executor, so no handler thread touches an engine's
-device state, and a stage serialises its device work itself
-(``comm/stage_worker.py`` ``device_lock``).
+device state; a stage's forwards may run on several handler threads at
+once (``comm/stage_worker.py``). A plane without a stage loads neither
+the stage worker nor the tensor message.
 """
 
 from __future__ import annotations
@@ -44,11 +45,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Mapping, Optional
 from urllib.parse import urlsplit
 
-from distributed_gpu_inference_torch.comm.stage_worker import (
-    PipelineStageWorker,
-    StageOutOfBlocksError,
-)
-from distributed_gpu_inference_torch.comm.wire import pack_message, unpack_message
 from distributed_gpu_inference_torch.worker.api_client import Response
 
 
@@ -102,7 +98,7 @@ class DataPlaneServer:
     pipeline stage (``stage=``)."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
-                 stage: Optional[PipelineStageWorker] = None,
+                 stage: Any = None,
                  health: Optional[Callable[[], Dict[str, Any]]] = None,
                  kv_receiver: Optional[Callable[[bytes], Dict[str, Any]]] = None,
                  kv_exporter: Optional[Callable[[bytes], bytes]] = None) -> None:
@@ -156,7 +152,13 @@ class DataPlaneServer:
         return js(404, {"detail": "not found"})
 
     def _session_route(self, path: str, body: bytes, js):
-        """The stage's three routes, answered as the JAX plane answers."""
+        """The stage's three routes, answered as the JAX plane answers.
+        ``self.stage`` is a ``comm/stage_worker.py`` ``PipelineStageWorker``
+        or anything with its ``create_session`` / ``close_session`` /
+        ``forward``."""
+        from distributed_gpu_inference_torch.comm.stage_worker import StageOutOfBlocksError
+        from distributed_gpu_inference_torch.comm.wire import pack_message, unpack_message
+
         if path != "/inference/forward":
             try:
                 sid = json.loads(body).get("session_id")

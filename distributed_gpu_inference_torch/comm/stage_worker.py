@@ -19,12 +19,11 @@ kernel, and every projection of an int8 or fp8 tree the quantized matmul
 versions. Hidden leaves the stage as f32, as in the JAX package.
 
 Several stages may share one device, and the data plane serves each on
-several threads. The quantized matmul keeps one split-K scratch and one
-set of arrival counters per device (``ops/qmm.py`` ``_scratch``), so two
-forwards enqueued at once on the default stream from two threads could
-overwrite each other's partial sums. The device work of a forward (inputs
-to the device, the layers, outputs back to the host) runs under one lock
-per device (:func:`device_lock`), shared by every stage of the process.
+several threads. Their forwards enqueue on the device's current stream
+(the default stream, which every thread shares), where kernels run in
+order; the quantized matmul's one split-K scratch per device orders
+itself across streams (``ops/qmm.py`` ``_claim``), so a stage takes no
+lock around its device work.
 
 As in the JAX package, all B rows of a chunk get the session's one block
 list and one ``kv_lens``: the rows of a B > 1 session write into the same
@@ -45,17 +44,6 @@ import torch
 from distributed_gpu_inference_torch.models import llama
 from distributed_gpu_inference_torch.models.configs import ModelConfig, get_model_config
 from distributed_gpu_inference_torch.parallel.pipeline import slice_stage_params
-
-_device_locks: Dict[str, threading.Lock] = {}
-_device_locks_guard = threading.Lock()
-
-
-def device_lock(device: torch.device) -> threading.Lock:
-    """The one lock of ``device`` in this process: every stage on it holds
-    it around the device work of a forward."""
-    with _device_locks_guard:
-        return _device_locks.setdefault(str(device), threading.Lock())
-
 
 def _tensor(a: Any) -> torch.Tensor:
     """A tensor as it is, a numpy array (or list) as a CPU tensor copy."""
@@ -82,8 +70,8 @@ class PipelineStageWorker:
     ``params``: this stage's tree (``slice_stage_params`` of a whole one);
     else ``full_params`` (a whole tree, in the port's layout) is sliced as
     views; else a random init from ``seed`` (the engine's init) is made
-    and sliced. ``max_batch`` is the JAX signature's and bounds nothing:
-    a stage runs whatever B a chunk carries."""
+    and sliced. A stage runs whatever B a chunk carries (the JAX
+    signature's ``max_batch`` bounds nothing there and is left out)."""
 
     def __init__(
         self,
@@ -94,7 +82,6 @@ class PipelineStageWorker:
         full_params: Optional[llama.Params] = None,
         num_blocks: int = 256,
         block_size: int = 16,
-        max_batch: int = 8,
         max_blocks_per_seq: int = 64,
         dtype: str = "float32",
         seed: int = 0,
@@ -141,7 +128,6 @@ class PipelineStageWorker:
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))  # 0 reserved
         self._sessions: Dict[str, _StageSession] = {}
         self._lock = threading.Lock()
-        self._device_lock = device_lock(self.device)
         self.stats: Dict[str, Any] = {
             "forwards": 0, "sessions_created": 0, "sessions_closed": 0,
             "tokens_processed": 0,
@@ -200,23 +186,20 @@ class PipelineStageWorker:
             table[: len(sess.blocks)] = sess.blocks
         positions = _tensor(positions).to(torch.int32)
         x = _tensor(x)
-        b = positions.shape[0]
-        with self._device_lock:
-            dev = self.device
-            pos = positions.to(dev)
-            if self.is_first:
-                hidden = llama.embed_tokens(self.params, x.to(dev, torch.int32), self.cfg)
-            else:
-                hidden = x.to(dev, self.dtype)
-            hidden, _ = llama.forward_hidden_chunk(
-                self.cfg, self.params, hidden, pos, self.kv,
-                torch.from_numpy(np.tile(table, (b, 1))).to(dev),
-                torch.full((b,), kv_len_after, dtype=torch.int32, device=dev),
-                block_size=self.block_size,
-            )
-            out: Dict[str, torch.Tensor] = {"hidden": hidden.float().cpu()}
-            if self.is_last:
-                out["logits"] = llama.project_logits(self.cfg, self.params, hidden).cpu()
+        b, dev = positions.shape[0], self.device
+        if self.is_first:
+            hidden = llama.embed_tokens(self.params, x.to(dev, torch.int32), self.cfg)
+        else:
+            hidden = x.to(dev, self.dtype)
+        hidden, _ = llama.forward_hidden_chunk(
+            self.cfg, self.params, hidden, positions.to(dev), self.kv,
+            torch.from_numpy(np.tile(table, (b, 1))).to(dev),
+            torch.full((b,), kv_len_after, dtype=torch.int32, device=dev),
+            block_size=self.block_size,
+        )
+        out: Dict[str, torch.Tensor] = {"hidden": hidden.float().cpu()}
+        if self.is_last:
+            out["logits"] = llama.project_logits(self.cfg, self.params, hidden).cpu()
         with self._lock:
             # a replayed chunk never moves the session's clock back
             sess.kv_len = max(sess.kv_len, kv_len_after)

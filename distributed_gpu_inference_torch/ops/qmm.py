@@ -15,7 +15,11 @@ Dispatch by rows, on a CUDA tensor:
   blocks by :func:`split_plan`, and the split that finishes a tile last
   sums the tile's partials in split order. The partials and the per-tile
   arrival counters live in scratch that this module keeps per device and
-  grows only outside CUDA-graph capture (:func:`_scratch`).
+  grows only outside CUDA-graph capture (:func:`_scratch`). Every caller
+  of a device shares it, from any thread and on any stream: launches on
+  one stream run in order, and a launch on another stream than the last
+  one to use the scratch first waits for that stream's work
+  (:func:`_claim`).
 - above it: the codes are converted to x's dtype and ``torch.matmul``
   runs the product, with the scale applied to its result — the route the
   JAX package leaves to XLA for prefill (``quantization.matmul``). At
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -197,21 +202,26 @@ def launch_kernel(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
 class _Scratch:
     """One device's f32 partials and zeroed int32 arrival counters. Grown
     (never shrunk) outside capture; a buffer it outgrows stays alive,
-    since a captured CUDA graph may still address it."""
+    since a captured CUDA graph may still address it. ``lock`` is held
+    from the size check to the launch; ``stream`` is the raw handle of the
+    stream that last launched on it (``stream_obj`` its ``torch.cuda.Stream``)."""
 
     def __init__(self) -> None:
         self.ws: Optional[torch.Tensor] = None
         self.counters: Optional[torch.Tensor] = None
         self.retired: List[torch.Tensor] = []
+        self.lock = threading.Lock()
+        self.stream: Optional[int] = None
+        self.stream_obj: Optional[torch.cuda.Stream] = None
 
 
 _scratch_by_device: Dict[int, _Scratch] = {}
 
 
 def _scratch(device: torch.device, ws_elems: int, n_counters: int) -> _Scratch:
-    s = _scratch_by_device.get(device.index)
-    if s is None:
-        s = _scratch_by_device[device.index] = _Scratch()
+    """The device's scratch, grown to ``ws_elems`` partials and
+    ``n_counters`` counters; the caller holds its ``lock``."""
+    s = _scratch_by_device[device.index]
     small_ws = s.ws is None or s.ws.numel() < ws_elems
     small_ctr = s.counters is None or s.counters.numel() < n_counters
     if small_ws or small_ctr:
@@ -233,6 +243,20 @@ def _scratch(device: torch.device, ws_elems: int, n_counters: int) -> _Scratch:
     return s
 
 
+def _claim(s: _Scratch, device: torch.device, stream: int) -> None:
+    """Order this launch after the scratch's last user: two launches on one
+    stream run one after the other, but on two streams they could run at
+    once and mix their partials and counters. Under capture the wait is
+    left out: ``torch.cuda.graph`` synchronises the device before it
+    captures, so the earlier users are done."""
+    cur = torch.cuda.current_stream(device)
+    if s.stream_obj is not None and not torch.cuda.is_current_stream_capturing():
+        done = torch.cuda.Event()
+        done.record(s.stream_obj)
+        cur.wait_event(done)
+    s.stream, s.stream_obj = stream, cur
+
+
 _plans = functools.lru_cache(maxsize=4096)(split_plan)
 
 
@@ -245,15 +269,21 @@ def _launch(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, layer: int,
     splits, per = _plans(m, k, n, geometry)
     dev = x.device
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
-    ws = counters = None
-    if splits > 1:
-        s = _scratch(dev, splits * m * n, -(-n // geometry[2]) * -(-m // row_group(m)))
-        ws, counters = s.ws.data_ptr(), s.counters.data_ptr()
     # the raw handle of the current stream: torch.cuda.current_stream() builds a
     # Stream object, several microseconds of host time on every projection
-    err = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(), ws,
-             m, k, n, nl, layer, splits, per, counters,
-             torch._C._cuda_getCurrentRawStream(dev.index))
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    args = (x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr())
+    if splits == 1:
+        err = fn(*args, None, m, k, n, nl, layer, splits, per, None, stream)
+    else:
+        s = _scratch_by_device.get(dev.index) or \
+            _scratch_by_device.setdefault(dev.index, _Scratch())   # atomic
+        with s.lock:
+            _scratch(dev, splits * m * n, -(-n // geometry[2]) * -(-m // row_group(m)))
+            if s.stream != stream:
+                _claim(s, dev, stream)
+            err = fn(*args, s.ws.data_ptr(), m, k, n, nl, layer, splits, per,
+                     s.counters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"qmm_w8a16: CUDA kernel launch failed with error {err}")
     qmm_w8a16.launches += 1

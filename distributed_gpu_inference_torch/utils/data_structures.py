@@ -239,20 +239,16 @@ class InferenceResponse:
 
 @dataclass
 class SessionConfig:
-    """Configuration of a distributed pipeline session (``comm/session.py``),
-    with the JAX record's fields so one config means the same in both
-    packages. The session reads ``max_length``, ``max_retries_per_hop`` and
-    ``retry_backoff_s`` (a hop's timeout is its ``WorkerSession``'s), and
-    writes uncompressed frames whatever ``compress_dcn`` says."""
+    """Configuration of a distributed pipeline session (``comm/session.py``):
+    the fields of the JAX record that its session reads, with their
+    defaults. A hop's timeout is its ``WorkerSession``'s; the JAX record's
+    ``model_name``, ``dtype``, ``timeout_s``, ``compress_dcn`` and
+    ``use_ici_collectives`` are read by no session and left out (the port
+    writes uncompressed frames)."""
 
-    model_name: str = "llama3-8b"
     max_length: int = 8192
-    dtype: str = "bfloat16"
-    timeout_s: float = 60.0
     max_retries_per_hop: int = 3
     retry_backoff_s: float = 0.5
-    compress_dcn: bool = True
-    use_ici_collectives: bool = True
 
 
 @dataclass

@@ -10,6 +10,8 @@ that need the card carry the ``gpu`` marker and skip without one."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -84,6 +86,20 @@ def test_pipeline_modules_import_nothing_of_jax():
     for f in pipeline + [ROOT / "chip_smoke.py"]:
         assert not set(_imported_roots(f)) & set(FORBIDDEN), f
     assert "def pipeline_phase(" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_a_pd_data_plane_loads_no_stage_and_no_model():
+    # a PD-only user of the data plane reads its KV routes without the
+    # stage worker, the model or the tensor message (each loaded on a
+    # stage's first session request); the package's comm names stay lazy
+    code = ("import sys, distributed_gpu_inference_torch.comm.data_plane as dp; "
+            "assert dp.DataPlaneServer; "
+            "print(sorted(m for m in sys.modules if m.startswith("
+            "'distributed_gpu_inference_torch.') and m.split('.')[1] in ('comm', 'models')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True).stdout.strip()
+    assert out == "['distributed_gpu_inference_torch.comm', " \
+        "'distributed_gpu_inference_torch.comm.data_plane']", out
 
 
 def test_fleet_harness_imports_nothing_of_jax():
@@ -372,6 +388,17 @@ def test_qmm_one_deterministic_launch_a_call_on_the_card(cuda, mode):
     torch.testing.assert_close(got.float(), qmm.qmm_plain(x, q["qw"], q["scale"], 1).float(),
                                atol=2e-2, rtol=2e-2)
     assert qmm.qmm_w8a16.launches == before
+
+
+@pytest.mark.gpu
+def test_qmm_scratch_is_ordered_across_streams_on_the_card(cuda):
+    # two threads on a CUDA stream each share the device's one split-K
+    # scratch: every result bitwise the same call's alone, the counters
+    # back at zero (chip_smoke.py phase 21 (d) runs the same check)
+    import chip_smoke
+
+    n, bad = chip_smoke.qmm_streams_check(torch, cuda)
+    assert (n, bad) == (2 * chip_smoke.QMM_STREAM_ROUNDS, 0)
 
 
 @pytest.mark.gpu

@@ -196,7 +196,10 @@ def test_model_shard_config_matches_jax(case):
 
 
 def test_session_config_defaults_match_jax():
-    assert dataclasses.asdict(tds.SessionConfig()) == dataclasses.asdict(jds.SessionConfig())
+    # the port keeps the fields a session reads, each with JAX's default
+    port, jax = dataclasses.asdict(tds.SessionConfig()), dataclasses.asdict(jds.SessionConfig())
+    assert set(port) == {"max_length", "max_retries_per_hop", "retry_backoff_s"}
+    assert port == {k: jax[k] for k in port}
 
 
 def test_stage_worker_runs_on_cuda_unless_asked(weights):
