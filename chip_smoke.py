@@ -159,13 +159,16 @@ Speculative decoding:
     first with the bf16 KV pool, then with the int8 pool; each serves the 8
     serving prompts as greedy requests of 32 tokens in one
     ``batch_inference`` call, counters zeroed before and read after. (a)
-    Each finished stream is re-scored by one teacher-forced forward: every
-    committed token is the target's argmax except at a near-tie, where its
-    own logit lies less than 0.05 below the argmax's (so that position's
-    top-2 gap is below 0.05; each exception printed with both), a runner-up
-    planted at the widest gap is rejected, and where a
-    stream parts from the run without speculation the first divergence is
-    printed with its gap. (b) After the requests the allocator's free and
+    Both engines run under one :class:`SampleTrace`, which keeps the top-8
+    logits of every row each sample took: every token of the run without
+    speculation was recorded and is its argmax; where a speculating stream
+    parts from that run, the first parting token is judged in the logits a
+    run sampled there — the other token must lie less than 0.05 below the
+    argmax (a near-tie; each printed) — and a runner-up planted where a
+    recorded top-2 gap is widest must be rejected. (Until PR 16 this check
+    held the tokens to one teacher-forced re-score, which runs other
+    kernels and chunks and once put a correct token 0.0398 below its
+    argmax.) (b) After the requests the allocator's free and
     cached counts, radix nodes, refcounts and each sequence's cached prefix
     equal the never-speculated engine's. (c) The ragged kernel ran the
     verify rows (K+1 queries), the quantized matmul's kernel served M =
@@ -178,8 +181,9 @@ Speculative decoding:
     at batch 8 over the serving contexts: the draft chain, the verify pass,
     one plain decode step and ``project_logits`` alone. (g) ``engine:
     jax-speculative`` with widths (4, 2, 2): two short greedy prompts ride
-    one spec wave of the batcher; (a) on their streams, the decoder's
-    stats, and the plain tree verify timed. (h) The worker's
+    one spec wave of the batcher; (a) on their streams against the same
+    weights served without speculation, the decoder's stats, and the plain
+    tree verify timed. (h) The worker's
     ``_spec_engine_stats`` heartbeat block equals the engine's counters.
     Then the ragged kernel on the verify round (8 x 5 queries, bf16 and
     int8 pools) and the quantized matmul's seven projections at M = 40 are
@@ -321,9 +325,13 @@ Mixtral MoE:
     the prefix hit, 32 greedy tokens each, through ``BatcherServing``:
     counters zeroed before and read after (all three kernels launched),
     ids in vocabulary, text = the tokenizer's decode of the ids; the rows
-    each expert received (information). (c) ``compare_forward`` and a
-    teacher-forced re-score of every committed token under the near-tie
-    rule, with a planted runner-up rejected. A router decision flips where
+    each expert received (information). (c) ``compare_forward``, and every
+    committed token against a teacher-forced re-score routed as served:
+    wherever the re-score's argmax differs, the fork is judged as phase 18
+    judges one between two runs: the other token must lie less than 0.05
+    below the argmax in the served logits (recorded by :class:`SampleTrace`
+    while serving) or in the re-score's own, and a runner-up planted at the
+    widest recorded gap is rejected. A router decision flips where
     two runs' rounding straddles a near-tie of router probabilities, and a
     flipped expert moves a token's logits by a discrete step, so the
     second run of each comparison routes every token as the first did
@@ -413,6 +421,37 @@ Mixtral MoE:
     before the phase within PIPE_MEM_SLACK. (f) ragged, fused decode and
     qmm launched in (b)-(d); the counts are added to the bf16 ragged,
     fused decode and int8 qmm entries of the kernels line.
+
+Direct mode, sub-wave admission and the weight cache:
+
+22. after phase 21, llama3-8b at full width and depth with int8 weights
+    and int8 pools, random weights from seed 0, one tree shared by the
+    phase's engines. (a) A ``TorchLLMEngine`` with ``serving: {mode:
+    direct}`` (no batcher: the legacy ``generate`` path under the engine
+    lock) serves the 8 serving prompts through ``inference``, 32 greedy
+    tokens each, one at a time; a batcher-mode engine serves them as one
+    batch; the two judged in the sampled logits as phase 15 (a) judges
+    (both engines under one :class:`SampleTrace`). (b) Four direct-mode
+    streams through ``DirectServer`` (exclusive claims, one at a time):
+    client TTFT and inter-event p50 / p95 and a ``decode_step``'s ms; then
+    prompt 0's 64-token stream, cut by its client after 12 events, resumes
+    from its checkpoint on the batcher-mode engine's server, each stretch
+    judged by the run that sampled it (``stream_stretches``) against the
+    uncut stream. (c) A 64-token queued job on the direct engine,
+    interrupted after 2 decode rounds: ``JobMigrated``, its checkpoint
+    resumed by the batcher-mode engine, judged against an undisturbed run.
+    (d) Batcher-mode engines with ``serving.ragged: false`` (the legacy
+    wave admission through ``submit_batch``) at ``subwave`` 0, 2, and 2
+    with ``interleave: 2`` (while an earlier request is already decoding):
+    the 8 prompts as one wave, each request's TTFT and the wave's prefill
+    calls printed; streams judged against ``subwave: 0``; the earlier
+    request advanced during the interleaved admission. (e) ``TorchEngine``
+    loads llama3-8b int8 twice through ``EngineConfig.quant_cache_dir``
+    in a temporary directory: built and written, then read (both load
+    times, the file's bytes, the read's GB/s of a page-cache read plus the
+    copy to the card); the trees bitwise equal, 4 greedy streams identical;
+    the directory deleted. Each part's launches are counted (all three
+    kernels) and added to the int8 entries of the kernels line.
 
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
@@ -1040,15 +1079,17 @@ HTTP_TIMEOUT = 120.0        # socket timeout of every client call of phase 11
 
 class SmokeWorker:
     """The worker surface ``DirectServer`` reads: shared serving claims up
-    to ``cap`` and a checkpoint store fed by the engine's
-    ``checkpoint_sink``, read back by ``adopt_stream_checkpoint``."""
+    to ``cap`` (a batcher-backed engine) or one exclusive claim at a time
+    (``exclusive``: a ``serving.mode: direct`` engine), and a checkpoint
+    store fed by the engine's ``checkpoint_sink``, read back by
+    ``adopt_stream_checkpoint``."""
 
-    def __init__(self, engine, cap=8):
+    def __init__(self, engine, cap=8, exclusive=False):
         from distributed_gpu_inference_torch.utils.data_structures import WorkerState
 
         self.state = WorkerState.IDLE
         self.engines = {"llm": engine}
-        self.cap, self.active = cap, 0
+        self.cap, self.active, self.exclusive = cap, 0, exclusive
         self.lock = threading.Lock()
         self.checkpoints = {}        # the latest entry of each key
         self.history = {}            # every entry of each key, in order
@@ -1070,10 +1111,15 @@ class SmokeWorker:
             self.active -= 1
 
     def try_begin_job(self):
-        return False            # the batcher-backed engine takes shared claims
+        with self.lock:
+            if not self.exclusive or self.active:
+                return False    # a batcher-backed engine takes shared claims
+            self.active = 1
+            return True
 
     def end_job(self):
-        pass
+        with self.lock:
+            self.active = 0
 
     def get_status(self):
         return {"state": self.state.value, "active": self.active}
@@ -2621,45 +2667,108 @@ def greedy_misses(rows, scores):
     return bad, ties
 
 
-def check_greedy(torch, tag, engine, rows, plain_rows=None):
-    """Check (a) of phase 15: every committed token is the target's argmax
-    under one teacher-forced re-score, but for near-ties — a token whose
-    logit lies less than NEAR_TIE below the argmax's, which needs a top-2
-    gap below NEAR_TIE there (each printed with both numbers); a
-    runner-up planted at the widest-gap position must be
-    rejected; where a row parts from ``plain_rows`` (the same requests
-    without speculation) the first divergence is printed with its gap."""
-    scores = rescore(torch, engine, rows)
-    bad, ties = greedy_misses(rows, scores)
-    for r, j, tok, first, short in ties:
-        print(f"[{tag}] (a) near-tie exception: request {r} token {j}: committed {tok}, "
-              f"argmax {first}: its logit {short:.4f} below the argmax's (top-2 gap "
-              f"{scores[r][j][2]:.4f})", flush=True)
-    if bad:
-        raise AssertionError(f"[{tag}] committed tokens that are not the target's greedy "
-                             f"choice (row, index, token, argmax, logit deficit): {bad}")
-    r, j = max(((r, j) for r, sc in enumerate(scores) for j in range(len(sc))),
-               key=lambda rj: scores[rj[0]][rj[1]][2])
+def fork_deficits(rows, want_rows, runs, every=False, ref=None):
+    """Where each served row (prompt ids, tokens) parts from ``want_rows``
+    (the same prompts' tokens from another run; with ``every``, a reference
+    token at each position of the served context, as a re-score gives),
+    the fork judged in the logits the runs sampled (``SampleTrace.runs()``):
+    at the first parting index (every parting index with ``every``), each
+    traced run that sampled there after the prompt and the tokens before it
+    gives how far the other token lay below its argmax — the served token's
+    rival where the run chose the served token, else the served token.
+    ``ref``, where the reference is a teacher-forced pass, gives that
+    pass's own view: ``ref(rows)`` → per row and index how far the row's
+    token lay below the pass's argmax there (the pass chose the reference
+    token), counted as one more run. → [(row, index, served token,
+    reference token, the least deficit over those runs (inf when none
+    sampled there), its top-2 as text)]."""
+    out = []
+    views = ref(rows) if ref is not None else None
+    for r, ((prompt, ids), (_, want)) in enumerate(zip(rows, want_rows)):
+        for d, (a, b) in enumerate(zip(ids, want)):
+            if a == b:
+                continue
+            best = ("not recorded", float("inf"))
+            for _, p, gen, start, own in runs:
+                if p != tuple(prompt) or start > d or d not in own or d >= len(gen) \
+                        or list(gen[:d]) != list(ids[:d]):
+                    continue
+                other = b if gen[d] == a else a
+                best = min(best, top_deficit(own[d], other), key=lambda x: x[1])
+            if views is not None:
+                best = min(best, ("in the reference pass", views[r][d]), key=lambda x: x[1])
+            out.append((r, d, a, b, best[1], best[0]))
+            if not every:
+                break
+    return out
+
+
+def check_sampled(tag, rows, want_rows, runs, what, every=False, tie=NEAR_TIE, ref=None):
+    """Check (a) of phases 15, 19 and 20, judged in the logits each run
+    sampled: every fork of ``rows`` from ``want_rows`` (``what`` names the
+    reference) is a near-tie — the other token less than ``tie`` (NEAR_TIE)
+    below the argmax in a run's own logits there — each printed; a runner-up
+    planted where a recorded sample's top-2 gap is widest (before its row's
+    first fork) must be rejected. ``ref``: as :func:`fork_deficits`. → the
+    forks."""
+    forks = fork_deficits(rows, want_rows, runs, every, ref)
+    for r, d, a, b, deficit, top in forks:
+        print(f"[{tag}] (a) request {r} parts from {what} at token {d}: {a} vs {b}; the "
+              f"other token {deficit:.4f} below the argmax in the logits of a run that "
+              f"chose either (top-2 {top}; near-tie bound {tie})", flush=True)
+    first = {r: d for r, d, *_ in forks}
+    best = None
+    for r, (prompt, ids) in enumerate(rows):
+        for _, p, gen, start, own in runs:
+            if p != tuple(prompt):
+                continue
+            for j, (vals, idx) in own.items():
+                if j < first.get(r, len(ids)) and j < len(gen) \
+                        and list(gen[:j]) == list(ids[:j]) \
+                        and (best is None or vals[0] - vals[1] > best[0]):
+                    best = (vals[0] - vals[1], r, j, idx[1])
+    if best is None:
+        raise AssertionError(f"[{tag}] no sampled logits were recorded for the rows")
+    gap, r, j, runner = best
     planted = list(rows[r][1])
-    planted[j] = scores[r][j][1]
-    caught, _ = greedy_misses([(rows[r][0], planted)],
-                              rescore(torch, engine, [(rows[r][0], planted)]))
-    print(f"[{tag}] (a) {sum(len(t) for _, t in rows)} committed tokens re-scored: all the "
-          f"target's argmax but {len(ties)} near-tie(s) (gap < {NEAR_TIE}); the runner-up "
-          f"planted at request {r} token {j} (gap {scores[r][j][2]:.4f}) rejected: "
-          f"{any(x[1] == j for x in caught)}", flush=True)
-    if scores[r][j][2] < NEAR_TIE or not any(x[1] == j for x in caught):
-        raise AssertionError(f"[{tag}] the greedy check accepts a planted flip")
-    for i, ((_, toks), (_, want)) in enumerate(zip(rows, plain_rows or [])):
-        d = next((k for k, (a, b) in enumerate(zip(toks, want)) if a != b), None)
-        if d is not None:
-            print(f"[{tag}] (a) request {i} parts from the run without speculation at token "
-                  f"{d}: {toks[d]} vs {want[d]}, top-2 gap there {scores[i][d][2]:.4f}",
-                  flush=True)
-    if plain_rows is not None:
-        same = sum(a == b for (_, t1), (_, t2) in zip(rows, plain_rows) for a, b in zip(t1, t2))
-        print(f"[{tag}] (a) tokens equal to the run without speculation: {same}/"
-              f"{sum(len(t) for _, t in rows)}", flush=True)
+    planted[j] = runner
+    caught = fork_deficits([(rows[r][0], planted)], [want_rows[r]], runs, every, ref)
+    rejected = any(d == j and deficit >= tie for _, d, _, _, deficit, _ in caught)
+    n = sum(len(t) for _, t in rows)
+    worst = max((f[4] for f in forks), default=0.0)
+    print(f"[{tag}] (a) {n} served tokens against {what}: {len(forks)} fork(s), each judged "
+          f"in the sampled logits (the widest other-token deficit {worst:.4f}, bound "
+          f"{tie}); the runner-up planted at request {r} token {j} (top-2 gap "
+          f"{gap:.4f}) rejected: {rejected}", flush=True)
+    if worst >= tie:
+        raise AssertionError(f"[{tag}] served tokens part from {what} beyond a near-tie: "
+                             f"{[f for f in forks if f[4] >= tie]}")
+    if not rejected or gap < tie:
+        raise AssertionError(f"[{tag}] the sampled-logits judge accepts a planted flip")
+    return forks
+
+
+def check_aligned(tag, runs, tags=None):
+    """The trace lines up with the tokens: each token a run sampled and
+    recorded is the argmax of its recorded logits (or tied with it), and
+    every token of the runs tagged ``tags`` was recorded."""
+    own = [(gen[j], top) for _, _, gen, _, o in runs for j, top in o.items() if j < len(gen)]
+    aligned = all(t == ids[0] or vals[0] == vals[1] for t, (vals, ids) in own)
+    full = [(len(gen) - max(start, 0), sum(1 for j in o if j < len(gen)))
+            for t, _, gen, start, o in runs if tags is None or t in tags]
+    covered = all(a == b for a, b in full)
+    print(f"[{tag}] (a) {len(runs)} runs traced, {len(own)} sampled tokens recorded, each "
+          f"its run's argmax: {aligned}; every token of the {tags or 'all'} runs recorded: "
+          f"{covered}", flush=True)
+    if not (aligned and covered):
+        raise AssertionError(f"[{tag}] the sampled logits do not line up with the tokens")
+
+
+class Tag:
+    """The label ``SampleTrace`` gives each slot it first sees."""
+
+    def __init__(self, tag=None):
+        self.tag = tag
 
 
 def allocator_state(engine, rows):
@@ -2694,6 +2803,30 @@ def check_routes(tag, counts, routes, stats, quantized):
         raise AssertionError(f"[{tag}] a speculative round took the wrong route")
 
 
+def traced_spec_serving(torch, pa, tag, llm, plain, prompts, n):
+    """``prompts`` served by ``llm`` (speculating) and by ``plain`` (the same
+    weights without speculation), both engines under one
+    :class:`SampleTrace`; then check (a): the trace lines up with the plain
+    run's tokens, and every fork of the speculating rows from the plain ones
+    is a near-tie in the logits a run sampled there. → (rows, wall,
+    launches, routes, plain rows, plain wall, plain launches)."""
+    tags = Tag("spec")
+    trace = SampleTrace(torch, [llm.engine, plain.engine], tags=tags)
+    try:
+        rows, wall, counts, routes = spec_serve(torch, pa, llm, prompts, n)
+        tags.tag = "plain"
+        prows, pwall, pcounts, _ = spec_serve(torch, pa, plain, prompts, n)
+    finally:
+        trace.close()
+    runs = trace.runs()
+    check_aligned(tag, runs, tags=("plain",))
+    check_sampled(tag, rows, prows, runs, "the run without speculation")
+    same = sum(a == b for (_, t1), (_, t2) in zip(rows, prows) for a, b in zip(t1, t2))
+    print(f"[{tag}] (a) tokens equal to the run without speculation: {same}/"
+          f"{sum(len(t) for _, t in rows)}", flush=True)
+    return rows, wall, counts, routes, prows, pwall, pcounts
+
+
 def spec_pass(torch, pa, tag, llm, plain, prompts, quantized):
     """Checks (a)-(c) and (h) on a speculating ``TorchLLMEngine`` and the
     same engine without speculation (``plain``, the same weights). → (the
@@ -2702,16 +2835,15 @@ def spec_pass(torch, pa, tag, llm, plain, prompts, quantized):
 
     from distributed_gpu_inference_torch.worker import main as wmain
 
-    rows, wall, counts, routes = spec_serve(torch, pa, llm, prompts, SPEC_TOKENS)
+    rows, wall, counts, routes, prows, pwall, _ = traced_spec_serving(
+        torch, pa, tag, llm, plain, prompts, SPEC_TOKENS)
     stats = llm.engine.get_stats()
     n_tok = len(prompts) * SPEC_TOKENS
     print(f"[{tag}] {len(prompts)} requests x {SPEC_TOKENS} greedy tokens, K={SPEC_K}: "
           f"{wall:.2f} s = {n_tok / wall:.1f} tok/s end to end (information)", flush=True)
     check_routes(tag, counts, routes, stats, quantized)
-    prows, pwall, _, _ = spec_serve(torch, pa, plain, prompts, SPEC_TOKENS)
     print(f"[{tag}] without speculation: {pwall:.2f} s = {n_tok / pwall:.1f} tok/s end to "
           f"end (information)", flush=True)
-    check_greedy(torch, tag, llm.engine, rows, prows)
     got, want = allocator_state(llm.engine, rows), allocator_state(plain.engine, prows)
     print(f"[{tag}] (b) allocator after the requests: speculating {got}, never "
           f"speculated {want}", flush=True)
@@ -2800,8 +2932,9 @@ def round_times(torch, engine, flush, ctx):
 def tree_phase(torch, pa, smi, params, base, prompts):
     """Check (g): ``engine: jax-speculative`` with widths SPEC_WIDTHS; two
     short greedy prompts in one ``batch_inference`` call ride one spec
-    wave; check (a) on their streams, the decoder's stats, and the plain
-    tree verify (``forward_tree_chunk``) timed at that wave's shape."""
+    wave; check (a) on their streams against the same weights served
+    without speculation, the decoder's stats, and the plain tree verify
+    (``forward_tree_chunk``) timed at that wave's shape."""
     from distributed_gpu_inference_torch.models import llama
     from distributed_gpu_inference_torch.runtime.speculative import TreeTopology
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
@@ -2811,8 +2944,11 @@ def tree_phase(torch, pa, smi, params, base, prompts):
                           "spec_widths": list(SPEC_WIDTHS), "params": params,
                           "serving": {"max_wait_ms": 50.0}})
     llm.load_model()
+    plain = TorchLLMEngine({**base, "params": params})
+    plain.load_model()
     try:
-        rows, wall, counts, _ = spec_serve(torch, pa, llm, prompts, SPEC_TOKENS)
+        rows, wall, counts, _, _, _, _ = traced_spec_serving(
+            torch, pa, "spec tree", llm, plain, prompts, SPEC_TOKENS)
         stats = llm.serving.get_stats()
         print(f"[spec tree] widths {SPEC_WIDTHS}: {len(prompts)} requests x {SPEC_TOKENS} "
               f"greedy tokens in {wall:.2f} s; batcher spec_waves {stats['spec_waves']}, "
@@ -2820,7 +2956,6 @@ def tree_phase(torch, pa, smi, params, base, prompts):
               f"launches {counts}", flush=True)
         if stats["spec_waves"] < 1 or stats["spec_completed"] != len(prompts):
             raise AssertionError("the batcher did not route the greedy pair to a spec wave")
-        check_greedy(torch, "spec tree", llm.engine, rows)
         dec = llm._spec
         topo = TreeTopology(SPEC_WIDTHS)
         n = topo.num_nodes
@@ -2849,6 +2984,7 @@ def tree_phase(torch, pa, smi, params, base, prompts):
               f"{SPEC_SAMPLES}; {smi})", flush=True)
         del kv, flush
     finally:
+        plain.unload()
         llm.unload()
 
 
@@ -5132,9 +5268,13 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
     common = next((i for i, (a, b) in enumerate(zip(pa_ids, hit_ids)) if a != b),
                   min(len(pa_ids), len(hit_ids)))
     pins = RoutePins(torch, llama, engine)
-    with ExpertTally(torch, llama, cfg.num_experts, dev) as tally, pins.record():
-        tokens, payloads, hit, wall, launches, stats = serve(
-            torch, pa, llm, prompts, shared, min_cached=BK * ((common - 1) // BK))
+    trace = SampleTrace(torch, [engine])
+    try:
+        with ExpertTally(torch, llama, cfg.num_experts, dev) as tally, pins.record():
+            tokens, payloads, hit, wall, launches, stats = serve(
+                torch, pa, llm, prompts, shared, min_cached=BK * ((common - 1) // BK))
+    finally:
+        trace.close()
     print(f"[moe] (b) kernel launches on the main path: {launches}", flush=True)
     check_counts("moe", launches, qmm=True)
     report_serving("moe", [len(p) for p in prompts], payloads, hit, wall, stats)
@@ -5147,8 +5287,9 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
           f"included; information): {counts}, {sum(counts) // cfg.num_experts_per_tok} "
           f"routed rows", flush=True)
 
-    # (c) re-score: one prefill and decode step kernels vs plain, and every
-    # committed token under one teacher-forced pass routed as the serving
+    # (c) one prefill and decode step kernels vs plain, and every committed
+    # token against one teacher-forced pass routed as the serving, each
+    # parting judged in the logits the serving sampled
     compare_forward(torch, "moe", cfg, params, torch.bfloat16, dev)
     rows = [(enc(p), tokens[tuple(enc(p))]) for p in prompts]
     with pins.by_sequence([r[0] for r in rows]):
@@ -5156,28 +5297,26 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
     pinned, flips = pins.pinned, pins.flips
     unpinned = greedy_misses(rows, rescore(torch, engine, rows))[0]
     print(f"[moe] (c) information: re-scored with its own routing, {len(unpinned)} committed "
-          f"token(s) lie {NEAR_TIE} or more below the argmax", flush=True)
-    bad, ties = greedy_misses(rows, scores)
-    for r, j, tok_, first, short in ties + bad:
-        print(f"[moe] (c) request {r} token {j}: committed {tok_}, argmax {first}: its logit "
-              f"{short:.4f} below the argmax's (top-2 gap {scores[r][j][2]:.4f})", flush=True)
-    # the control: the runner-up planted where the top-2 gap is widest
-    r, j = max(((r, j) for r, sc in enumerate(scores) for j in range(len(sc))),
-               key=lambda rj: scores[rj[0]][rj[1]][2])
-    planted = list(rows[r][1])
-    planted[j] = scores[r][j][1]
-    with pins.by_sequence([rows[r][0]]):
-        caught, _ = greedy_misses([(rows[r][0], planted)],
-                                  rescore(torch, engine, [(rows[r][0], planted)]))
-    print(f"[moe] (c) {sum(len(t) for _, t in rows)} committed tokens re-scored, routed as "
-          f"served ({pinned} row-layers pinned; its own router would have routed "
-          f"{flips} otherwise): {len(ties)} near-tie(s) below {NEAR_TIE}, {len(bad)} "
-          f"beyond it; the runner-up planted at request {r} token {j} (gap "
-          f"{scores[r][j][2]:.4f}) rejected: {any(x[1] == j for x in caught)}", flush=True)
-    if bad:
-        raise AssertionError(f"[moe] committed tokens that are not the greedy choice: {bad}")
-    if scores[r][j][2] < NEAR_TIE or not any(x[1] == j for x in caught):
-        raise AssertionError("[moe] the greedy check accepts a planted flip")
+          f"token(s) lie {NEAR_TIE} or more below the re-score's argmax", flush=True)
+    runs = trace.runs()
+    check_aligned("moe", runs)
+    argmax = [(p, [sc[0] for sc in score]) for (p, _), score in zip(rows, scores)]
+
+    def rescored(rows_):
+        """The re-score's own view of each row's tokens, routed as served."""
+        if rows_ is rows:
+            return [[x[3] for x in sc] for sc in scores]
+        with pins.by_sequence([p for p, _ in rows_]):
+            return [[x[3] for x in sc] for sc in rescore(torch, engine, rows_)]
+
+    forks = check_sampled("moe", rows, argmax, runs,
+                          f"the re-score routed as served ({pinned} row-layers pinned; its "
+                          f"own router would have routed {flips} otherwise)", every=True,
+                          ref=rescored)
+    for r, d, *_ in forks:
+        print(f"[moe] (c) information: the re-score's top-2 gap at request {r} token {d} "
+              f"{scores[r][d][2]:.4f}, the served token {scores[r][d][3]:.4f} below its "
+              f"argmax there", flush=True)
 
     # (d) times
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -5352,7 +5491,8 @@ def distill_serving(torch, pa, smi, prompts, shared, random_head, model, quantiz
     plain = TorchLLMEngine({**base, "params": engine.params})
     plain.load_model()
     try:
-        rows, wall, counts, routes = spec_serve(torch, pa, llm, prompts, SPEC_TOKENS)
+        rows, wall, counts, routes, prows, pwall, pcounts = traced_spec_serving(
+            torch, pa, tag, llm, plain, prompts, SPEC_TOKENS)
         stats = engine.get_stats()
         check_routes(tag, counts, routes, stats, quantized=quantization is not None)
         n_tok = len(prompts) * SPEC_TOKENS
@@ -5362,12 +5502,10 @@ def distill_serving(torch, pa, smi, prompts, shared, random_head, model, quantiz
               f"phase 15's random head on the same requests: accept rate "
               f"{random_head['spec_accept_rate']:.4f}, tokens per step "
               f"{random_head['spec_tokens_per_step']:.3f} (information)", flush=True)
-        prows, pwall, pcounts, _ = spec_serve(torch, pa, plain, prompts, SPEC_TOKENS)
         print(f"[{tag}] the same weights without speculation: {n_tok / pwall:.1f} tok/s end to "
               f"end; launches {pcounts}", flush=True)
         if pcounts["paged_decode_attention_fused"] == 0:
             raise AssertionError(f"[{tag}] plain decode launched no fused decode kernel")
-        check_greedy(torch, tag, engine, rows, prows)
     finally:
         plain.unload()
         del plain
@@ -6045,6 +6183,476 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
     return launches
 
 
+# ---------------------------------------------------------------- phase 22: direct mode, sub-waves, the weight cache
+
+DIRECT_TOKENS = 32          # greedy tokens of each phase-22 request
+# phase 22 (d) holds sub-wave streams to the whole wave's: a narrow forward
+# of at most 128 rows runs the quantized matmul's kernel where the whole
+# wave's (10 rows x the bucket) runs its library route, whose bf16 dequant
+# rounds each weight first; prefill logits part by more than run-to-run
+# noise then (0.054 / 0.072 between PD's prefill paths, PERF.md §6, PR 10)
+ROUTE_TIE = 0.1
+DIRECT_STREAMS = 4          # direct-mode streams through DirectServer
+DIRECT_CUT = 12             # events the cut stream's client reads
+CACHE_TOKENS = 16           # greedy tokens of each quant-cache request
+
+
+def phase22_config(model, device, **over):
+    """Phase 22's engines: llama3-8b, int8 weights and int8 pools, seed 0."""
+    return dict({"model": model, "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ,
+                 "enable_prefix_cache": False, "dtype": "bfloat16", "device": device,
+                 "seed": 0, "quantization": "int8", "kv_cache_dtype": "int8",
+                 "prefix_summary_top_n": 0}, **over)
+
+
+def traced_rows(runs, tag, prompts_ids):
+    """The tokens each run tagged ``tag`` generated, in ``prompts_ids``
+    order (the first such run of each prompt)."""
+    by = {}
+    for t, p, gen, _, _ in runs:
+        if t == tag:
+            by.setdefault(p, list(gen))
+    missing = [i for i, p in enumerate(prompts_ids) if tuple(p) not in by]
+    if missing:
+        raise AssertionError(f"no {tag} run of prompts {missing} was traced")
+    return [(list(p), by[tuple(p)]) for p in prompts_ids]
+
+
+def add_counts(total, counts):
+    for k in ("ragged_paged_attention", "paged_decode_attention_fused", "qmm_w8a16"):
+        total[k] = total.get(k, 0) + counts[k]
+
+
+def direct_streams(torch, pa, direct, batcher, prompts, tags, smi):
+    """Phase 22 (b): DIRECT_STREAMS direct-mode streams through
+    ``DirectServer`` (exclusive claims: one at a time), then prompt 0's
+    stream cut after DIRECT_CUT events and resumed from its checkpoint by
+    the batcher-mode engine's server. → (launches, the outputs to judge
+    against the uncut streams, the uncut streams' tokens)."""
+    from distributed_gpu_inference_torch.worker.direct_server import DirectServer
+
+    tok, vocab = direct.tokenizer, direct.engine.model_cfg.vocab_size
+    w1, w2 = SmokeWorker(direct, exclusive=True), SmokeWorker(batcher)
+    w2.checkpoints, w2.history = w1.checkpoints, w1.history     # one plane's store
+    direct.checkpoint_sink = batcher.checkpoint_sink = w1.sink
+    s1, s2 = DirectServer(w1, host="127.0.0.1", port=0), DirectServer(w2, host="127.0.0.1",
+                                                                      port=0)
+    s1.start()
+    s2.start()
+    eng = direct.engine
+    step_ms = []
+    real_step = eng.decode_step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        out = real_step()         # reads its tokens on the host: synchronous
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.decode_step = timed_step
+
+    def params(i, n=DIRECT_TOKENS):
+        return {"prompt": prompts[i], "max_new_tokens": n, "temperature": 0.0,
+                "ignore_eos": True}
+
+    try:
+        pa.reset_launch_counts()
+        tags.tag = "direct stream"
+        ttft, gaps, calm = [], [], {}
+        for i in range(DIRECT_STREAMS):
+            # the exclusive claim is released once the server's handler has
+            # closed the engine's stream, a moment after the done event
+            if not wait_until(lambda: w1.active == 0):
+                raise AssertionError("[direct mode] a stream's claim was never released")
+            events, times, sent = stream_events(s1.port, {"type": "llm", "params": params(i),
+                                                          "stream_id": f"direct-{i}"})
+            body, final, ids, text = split_stream(events)
+            if len(ids) != DIRECT_TOKENS or not all(0 <= t < vocab for t in ids) \
+                    or text != tok.decode(ids) or final["offset"] != DIRECT_TOKENS:
+                raise AssertionError(f"[direct mode] stream {i}: bad stream {ids}")
+            calm[i] = ids
+            ttft.append((times[0] - sent) * 1e3)
+            gaps += [(b - a) * 1e3 for a, b in zip(times, times[1:len(body)])]
+        print(f"[direct mode] (b) {DIRECT_STREAMS} direct-mode streams of {DIRECT_TOKENS} "
+              f"greedy tokens through DirectServer (exclusive claims, one at a time): offsets "
+              f"contiguous, ids in vocabulary, text = decode(ids); as the client sees them: "
+              f"TTFT p50 {pctl(ttft, 0.5):.1f} ms p95 {pctl(ttft, 0.95):.1f} ms, inter-event "
+              f"p50 {pctl(gaps, 0.5):.2f} ms p95 {pctl(gaps, 0.95):.2f} ms; one decode_step "
+              f"(B = 1, the token read on the host) p50 {pctl(step_ms, 0.5):.2f} ms p95 "
+              f"{pctl(step_ms, 0.95):.2f} ms = {1e3 / pctl(step_ms, 0.5):.1f} tok/s ({smi})",
+              flush=True)
+        # prompt 0 again, cut by its client, resumed on the batcher-mode engine
+        n, sid = 2 * DIRECT_TOKENS, "direct-cut"
+        tags.tag = "cut"
+        wait_until(lambda: w1.active == 0)
+        head, _, _ = stream_events(s1.port, {"type": "llm", "params": params(0, n),
+                                             "stream_id": sid}, limit=DIRECT_CUT)
+        if not (wait_until(lambda: eng.num_active == 0 and w1.active == 0)
+                and wait_until(lambda: len(w1.checkpoints.get(sid, {"state": {
+                    "generated": []}})["state"]["generated"]) >= DIRECT_CUT - 4)):
+            raise AssertionError("[direct mode] the cut stream left no checkpoint past "
+                                 "its first tokens")
+        k = len(w1.checkpoints[sid]["state"]["generated"])
+        head_ids = [t for e in head for t in e["token_ids"]]
+        tags.tag = "resumed"
+        tail = stream_events(s2.port, {"type": "llm", "params": params(0, n), "resume": {
+            "stream_id": sid, "offset": len(head),
+            "text_offset": len("".join(e["text_delta"] for e in head))}})[0]
+        _, final, tail_ids, _ = split_stream(tail, first_offset=len(head) + 1)
+        ids = head_ids + tail_ids
+        if len(ids) != n or final["offset"] != n:
+            raise AssertionError(f"[direct mode] the resumed stream has {len(ids)} tokens")
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        print(f"[direct mode] (b) a {n}-token direct stream cut by its client after "
+              f"{len(head)} events (checkpoint of {k} tokens) and resumed at offset "
+              f"{len(head)} on the batcher-mode engine: offsets {len(head) + 1}..{n} "
+              f"contiguous; launches over (b) {counts}", flush=True)
+        check_counts("direct mode (b)", counts, qmm=True)
+    finally:
+        del eng.decode_step
+        s1.stop()
+        s2.stop()
+        direct.checkpoint_sink = batcher.checkpoint_sink = None
+    # the stretches of the stream: [0, offset) from the cut run; from a
+    # checkpoint past the offset, its tokens up to it from the cut run too
+    cuts = [len(head)] + ([k] if k > len(head) else [])
+    return counts, (tuple(tok.encode(prompts[0])), ids, cuts), calm
+
+
+def subwave_pass(torch, pa, params, prompts, sv, trace, earlier=None, model="llama3-8b",
+                 device="cuda"):
+    """One phase-22 (d) engine: batcher mode, ``serving.ragged: false`` and
+    ``sv``, under ``trace``; the prompts as one wave of DIRECT_TOKENS greedy
+    tokens each (with ``earlier``, a request already decoding when the wave
+    arrives).
+    → (payloads, prefill calls of the wave, launches, the earlier request's
+    tokens before and after the wave's admission, its tokens)."""
+    from distributed_gpu_inference_torch.worker.engines.base import GenerationConfig
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    llm = TorchLLMEngine(phase22_config(model, device, params=params,
+                                        max_batch_size=SERVE_BATCH + 2,
+                                        serving=dict({"ragged": False}, **sv)))
+    llm.load_model()
+    eng = llm.engine
+    trace.install(eng)
+    real_submit = eng.submit_batch
+    seen = {}
+
+    def submit_batch(requests, *a, **kw):
+        live = [i for i, x in enumerate(eng.slots) if x is not None]
+        before = {i: len(eng.slots[i].generated) for i in live}
+        calls = eng.stats["prefill_calls"]
+        out = real_submit(requests, *a, **kw)
+        seen.setdefault("waves", []).append(len(requests))
+        seen.setdefault("calls", []).append(eng.stats["prefill_calls"] - calls)
+        seen.setdefault("advanced", []).append(
+            {i: (n0, len(eng.slots[i].generated) if eng.slots[i] is not None else None)
+             for i, n0 in before.items()})
+        return out
+
+    eng.submit_batch = submit_batch
+    held = threading.Event()
+    real_decode = eng.decode_multi
+
+    def decode_multi(*a, **kw):
+        # while the wave is being submitted the earlier request's rounds
+        # wait, so the whole wave is queued at the next admission
+        held.wait(timeout=60)
+        return real_decode(*a, **kw)
+
+    try:
+        pa.reset_launch_counts()
+        fut = None
+        if earlier is not None:
+            eng.decode_multi = decode_multi
+            held.set()
+            fut = llm.serving.submit_async(llm._build_request(
+                earlier, GenerationConfig.from_params({"max_new_tokens": 4 * DIRECT_TOKENS,
+                                                       "temperature": 0.0,
+                                                       "ignore_eos": True})))
+            if not wait_until(lambda: any(x is not None and len(x.generated) >= 2
+                                          for x in eng.slots)):
+                raise AssertionError("[direct mode] the earlier request never decoded")
+            held.clear()
+            time.sleep(0.05)     # the batcher is now held in its next round
+        out = {}
+        th = threading.Thread(target=lambda: out.update(p=llm.batch_inference([
+            {"prompt": p, "max_new_tokens": DIRECT_TOKENS, "temperature": 0.0,
+             "ignore_eos": True} for p in prompts])))
+        th.start()
+        if earlier is not None:
+            wait_until(lambda: len(llm.serving.batcher._heap) >= len(prompts), timeout=10)
+            held.set()
+        th.join(timeout=600)
+        early = fut.result(timeout=600) if fut is not None else None
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+    finally:
+        held.set()
+        for name in ("submit_batch", "decode_multi"):
+            eng.__dict__.pop(name, None)
+        llm.unload()
+    payloads = out.get("p")
+    if payloads is None or any(p["usage"]["completion_tokens"] != DIRECT_TOKENS
+                               for p in payloads):
+        raise AssertionError(f"[direct mode] the wave did not complete: {payloads}")
+    wave = [i for i, w in enumerate(seen.get("waves", [])) if w == len(prompts)]
+    if not wave:
+        raise AssertionError(f"[direct mode] the {len(prompts)} requests were not one wave: "
+                             f"waves {seen.get('waves')}")
+    adv = seen["advanced"][wave[0]]
+    return payloads, seen["calls"][wave[0]], counts, adv, early
+
+
+def quant_cache_check(torch, pa, smi, prompts, model="llama3-8b", device="cuda"):
+    """Phase 22 (e): llama3-8b int8 loaded twice through
+    ``EngineConfig.quant_cache_dir`` in a temporary directory: built and
+    written, then read. → launches."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
+    from distributed_gpu_inference_torch.utils.data_structures import (
+        InferenceRequest,
+        SamplingParams,
+    )
+
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_qcache_"))
+    try:
+        cfg = EngineConfig(max_batch_size=SERVE_BATCH, max_seq_len=MAX_SEQ,
+                           quantization="int8", kv_cache_dtype="int8",
+                           enable_prefix_cache=False, quant_cache_dir=str(d))
+        engines, secs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engines.append(TorchEngine(model, cfg, seed=0, device=device))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        files = list(d.iterdir())
+        if len(files) != 1:
+            raise AssertionError(f"[quant cache] {len(files)} cache files: {files}")
+        nbytes = files[0].stat().st_size
+
+        def leaves(tree, prefix=""):
+            for k, v in sorted(tree.items()):
+                if isinstance(v, dict):
+                    yield from leaves(v, f"{prefix}{k}/")
+                else:
+                    yield f"{prefix}{k}", v
+
+        a, b = dict(leaves(engines[0].params)), dict(leaves(engines[1].params))
+        bitwise = a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            and torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8)) for k in a)
+        pa.reset_launch_counts()
+        streams = []
+        for eng in engines:
+            reqs = [InferenceRequest(prompt_token_ids=list(p.encode()),
+                                     sampling=SamplingParams(max_new_tokens=CACHE_TOKENS,
+                                                             ignore_eos=True))
+                    for p in prompts[:4]]
+            streams.append([r.token_ids for r in eng.generate(reqs, use_multi_step=True)])
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        print(f"[quant cache] {model} int8 loaded through quant_cache_dir: built and "
+              f"written in {secs[0]:.2f} s, read back in {secs[1]:.2f} s; the file "
+              f"{files[0].name} holds {nbytes} B, read and copied to the card at "
+              f"{nbytes / secs[1] / 1e9:.2f} GB/s (a page-cache read plus the host-to-card "
+              f"copy, the whole load: not a PCIe or disk rate); trees bitwise equal: "
+              f"{bitwise}; 4 requests x {CACHE_TOKENS} greedy tokens identical: "
+              f"{streams[0] == streams[1]}; launches {counts} ({smi})", flush=True)
+        if not (bitwise and streams[0] == streams[1]):
+            raise AssertionError("[quant cache] the cached tree or its streams differ")
+        check_counts("quant cache", counts, qmm=True)
+        del engines, a, b
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if d.exists():
+        raise AssertionError(f"[quant cache] {d} was not deleted")
+    return counts
+
+
+def direct_mode_phase(torch, pa, smi, prompts, model="llama3-8b", device="cuda"):
+    """Phase 22 (see the module docstring). → its launches."""
+    import gc
+
+    from distributed_gpu_inference_torch.worker.engines.base import JobMigrated
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    t_phase = time.perf_counter()
+    launches = {}
+    t0 = time.perf_counter()
+    direct = TorchLLMEngine(phase22_config(model, device, serving={"mode": "direct"}))
+    direct.load_model()
+    params = direct.engine.params
+    batcher = TorchLLMEngine(phase22_config(model, device, params=params))
+    batcher.load_model()
+    print(f"[direct mode] {model} (int8 weights, int8 pools, seed 0) in serving.mode: direct "
+          f"and a batcher-mode engine on the same tree loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    enc = direct.tokenizer.encode
+    ids_of = [enc(p) for p in prompts]
+    tags = Tag()
+    trace = SampleTrace(torch, [direct.engine, batcher.engine], tags=tags)
+    try:
+        # (a) blocking requests, direct against batcher
+        pa.reset_launch_counts()
+        tags.tag = "direct"
+        t0 = time.perf_counter()
+        outs = [direct.inference({"prompt": p, "max_new_tokens": DIRECT_TOKENS,
+                                  "temperature": 0.0, "ignore_eos": True}) for p in prompts]
+        dwall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        check_counts("direct mode (a)", counts, qmm=True)
+        add_counts(launches, counts)
+        tags.tag = "batcher"
+        t0 = time.perf_counter()
+        bouts = batcher.batch_inference([{"prompt": p, "max_new_tokens": DIRECT_TOKENS,
+                                          "temperature": 0.0, "ignore_eos": True}
+                                         for p in prompts])
+        bwall = time.perf_counter() - t0
+        if any(o["usage"]["completion_tokens"] != DIRECT_TOKENS for o in outs + bouts):
+            raise AssertionError("[direct mode] (a) a request returned the wrong count")
+        n_tok = len(prompts) * DIRECT_TOKENS
+        print(f"[direct mode] (a) {len(prompts)} requests x {DIRECT_TOKENS} greedy tokens "
+              f"through inference one at a time (the legacy generate path): {dwall:.2f} s = "
+              f"{n_tok / dwall:.1f} tok/s, TTFT p50 "
+              f"{pctl([o['ttft_ms'] for o in outs], 0.5):.1f} ms; the batcher-mode engine's "
+              f"batch of the same: {bwall:.2f} s = {n_tok / bwall:.1f} tok/s; launches "
+              f"(direct) {counts} ({smi})", flush=True)
+
+        # (b) direct streams, one cut and resumed on the batcher-mode engine
+        counts, cut, calm = direct_streams(torch, pa, direct, batcher, prompts, tags, smi)
+        add_counts(launches, counts)
+
+        # (c) a queued job interrupted at a step boundary, resumed by the
+        # batcher-mode engine
+        job = {"prompt": prompts[1], "max_new_tokens": 2 * DIRECT_TOKENS,
+               "temperature": 0.0, "ignore_eos": True}
+        tags.tag = "job calm"
+        pa.reset_launch_counts()
+        direct.inference(dict(job, _failover_ctx={"key": "job-calm", "epoch": 1}))
+        eng = direct.engine
+        real = eng.decode_multi
+        rounds = []
+
+        def interrupting(*a, **kw):
+            out = real(*a, **kw)
+            rounds.append(1)
+            if len(rounds) == 2:
+                direct.interrupt_live()
+            return out
+
+        eng.decode_multi = interrupting
+        tags.tag = "job"
+        try:
+            direct.inference(dict(job, _failover_ctx={"key": "job-22", "epoch": 1}))
+            raise AssertionError("[direct mode] (c) the interrupted job was not migrated")
+        except JobMigrated as mig:
+            ckpt, k = mig.checkpoint, mig.tokens
+        finally:
+            del eng.decode_multi
+            direct._interrupt.clear()
+        tags.tag = "job resumed"
+        out = batcher.inference(dict(job, _failover_ctx={"key": "job-22", "epoch": 2,
+                                                         "checkpoint": ckpt}))
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        add_counts(launches, counts)
+        if out["usage"]["completion_tokens"] != 2 * DIRECT_TOKENS or eng.num_active:
+            raise AssertionError(f"[direct mode] (c) the resumed job returned {out}")
+        print(f"[direct mode] (c) a {2 * DIRECT_TOKENS}-token queued job on the direct engine "
+              f"interrupted after 2 decode rounds: JobMigrated with {k} tokens, resumed by the "
+              f"batcher-mode engine to {out['usage']['completion_tokens']} tokens", flush=True)
+    finally:
+        trace.close()
+    runs = trace.runs()
+    check_aligned("direct mode", runs, tags=("direct", "batcher", "direct stream",
+                                             "job calm"))
+    check_sampled("direct mode", traced_rows(runs, "direct", ids_of),
+                  traced_rows(runs, "batcher", ids_of), runs, "the batcher-mode engine")
+    prompt, ids, cuts = cut
+    outputs = stream_stretches(runs, prompt, ids, cuts, "the resumed direct stream")
+    check_sampled("direct mode", [(list(p), o) for p, o, _ in outputs],
+                  [(list(prompt), calm[0])] * len(outputs), runs, "the uncut stream")
+    resumed = [(list(p), g) for t, p, g, _, _ in runs if t == "job resumed"]
+    check_sampled("direct mode", resumed[:1], traced_rows(runs, "job calm", [ids_of[1]]),
+                  runs, "the undisturbed job")
+    batcher.unload()
+    direct.unload()
+    del direct, batcher
+
+    # (d) sub-wave admission on the legacy path
+    rows, calls, payloads, adv = {}, {}, {}, None
+    tags = Tag()
+    for name, sv in (("subwave 0", {}), ("subwave 2", {"subwave": 2}),
+                     ("subwave 2 interleave 2", {"subwave": 2, "interleave": 2})):
+        tags.tag = name
+        trace = SampleTrace(torch, [], tags=tags)
+        try:
+            # a prompt of its own: rows are read by prompt
+            earlier = prompts[7][::-1] if "interleave" in name else None
+            payloads[name], calls[name], counts, advanced, early = subwave_pass(
+                torch, pa, params, prompts, sv, trace, earlier=earlier, model=model,
+                device=device)
+        finally:
+            trace.close()
+        add_counts(launches, counts)
+        check_counts(f"direct mode (d) {name}", counts, qmm=True)
+        runs = trace.runs()
+        rows[name] = traced_rows(runs, name, ids_of)
+        if early is not None:
+            adv = advanced
+            if early.error or len(early.token_ids) != 4 * DIRECT_TOKENS:
+                raise AssertionError(f"[direct mode] (d) the earlier request: {early}")
+        ttft = [round(p["ttft_ms"], 1) for p in payloads[name]]
+        print(f"[direct mode] (d) {name}: the 8 requests as one wave of the legacy path, "
+              f"prefill calls {calls[name]}, TTFT ms by request {ttft} (p50 "
+              f"{pctl(ttft, 0.5):.1f}); launches {counts}", flush=True)
+        if name != "subwave 0":
+            check_sampled("direct mode (d)", rows[name], rows["subwave 0"], runs + base_runs,
+                          "the whole-wave admission", tie=ROUTE_TIE)
+            firsts = {ids_of.index(list(p)): (own[0], base_own[p])
+                      for _, p, _, start, own in runs if start == 0 and 0 in own
+                      and p in base_own and list(p) in ids_of}
+            same = {i: max(abs(a - b) for a, b in zip(x[0], y[0]))
+                    for i, (x, y) in firsts.items() if x[1] == y[1]}
+            print(f"[direct mode] (d) {name}: each request's first-token top-8 logits against "
+                  f"the whole wave's: the same ids for requests {sorted(same)}, max abs "
+                  f"difference {max(same.values(), default=0.0):.4f}; other ids for "
+                  f"{sorted(set(firsts) - set(same))} (information: a narrow forward of at "
+                  f"most 128 rows runs qmm's kernel, the whole wave its library route)",
+                  flush=True)
+        else:
+            base_runs = runs
+            base_own = {p: own[0] for _, p, _, start, own in runs if start == 0 and 0 in own}
+    moved = [(a, b) for a, b in adv.values() if b is None or b > a]
+    print(f"[direct mode] (d) the earlier request (already decoding) over the interleaved "
+          f"admission: tokens before and after {list(adv.values())}", flush=True)
+    if not moved:
+        raise AssertionError("[direct mode] (d) the earlier request did not advance during "
+                             "the interleaved admission")
+    if not calls["subwave 2"] > calls["subwave 0"]:
+        raise AssertionError(f"[direct mode] (d) the sub-waves ran no narrow prefills: {calls}")
+
+    # (e) the quantized-weight cache
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_counts(launches, quant_cache_check(torch, pa, smi, prompts, model=model,
+                                           device=device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[direct mode] phase 22 launches {launches}; ran in "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6526,11 +7134,15 @@ def main() -> int:
     p20 = engines_phase(torch, pa, smi, prompts, shared, random_head)
     # ---- 21. pipeline stages: llama3-8b int8 in two stages and a spare
     p21 = pipeline_phase(torch, pa, smi)
+    # ---- 22. serving.mode: direct, sub-wave admission, the weight cache
+    p22 = direct_mode_phase(torch, pa, smi, prompts)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
             e["launches"] += p20[e["name"]] + p21[e["name"]]
+        elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
+            e["launches"] += p22[e["name"].split("[")[0]]
         elif e["name"] == "qmm_w8a16[int8]":
-            e["launches"] += p20["qmm_w8a16"] + p21["qmm_w8a16"]
+            e["launches"] += p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -37,10 +37,23 @@ into preallocated codes and scales. :func:`init_route` is the rule that
 picks it, on the device's total memory (not its free memory, so a model
 draws the same weights whatever else is resident). A full-precision tree
 larger than the device is refused before anything is allocated.
+
+The quantized-weight cache (``EngineConfig.quant_cache_dir``, the port's
+own format in place of the JAX engine's orbax directory): after a quantized
+build the tree is written as one safetensors file
+(:func:`save_quant_cache`: int8 / e4m3 codes as ``I8`` / ``F8_E4M3``, their
+scales, and the full-precision leaves, each under its path in the tree),
+named by :func:`quant_cache_path` as the JAX engine names its cache:
+``<model>-<quantization>-<dtype>-<source>-seed<seed>``, the source a
+signature over the checkpoint's files (name, size, ``mtime_ns``, walked
+recursively) or ``rand``. :func:`load_quant_cache` maps it and copies each
+tensor straight to the device with no quantization pass; a file it cannot
+read (truncated, corrupt, another tree) is logged and rebuilt.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import re
 import zlib
@@ -59,7 +72,10 @@ from distributed_gpu_inference_torch.ops.quantization import (
     quantize_weight,
 )
 from distributed_gpu_inference_torch.utils.data_structures import BlockRange
-from distributed_gpu_inference_torch.utils.safetensors import SafetensorsFile
+from distributed_gpu_inference_torch.utils.safetensors import (
+    SafetensorsFile,
+    write_safetensors,
+)
 
 # HF parameter name → (our key, needs_transpose); the layer index is
 # captured by _LAYER_RE and our layout stacks layers on a leading axis
@@ -537,3 +553,84 @@ def load_or_init_params(
     gen = torch.Generator(device=device).manual_seed(seed)
     return quantize_params(llama.init_params(cfg, gen, dtype, device), quantization,
                            consume=True)
+
+
+# ---------------------------------------------------------------- quantized-weight cache
+
+#: the cache file's ``__metadata__["format"]``
+QUANT_CACHE_FORMAT = "quantized-params/1"
+
+
+def quant_cache_path(cache_dir: str | Path, model_name: str, quantization: str,
+                     dtype: str, checkpoint_path: Optional[str | Path],
+                     seed: int) -> Path:
+    """The cache file of one quantized tree: ``<cache_dir>/<tag>.safetensors``
+    with the JAX engine's tag. The source part is a content signature of the
+    checkpoint directory, not its path, so a checkpoint rewritten in place
+    gets a new file instead of the previous model's tree."""
+    if checkpoint_path is None:
+        src = "rand"
+    else:
+        p = Path(checkpoint_path)
+        sig = hashlib.sha1()
+        for f in sorted(p.rglob("*")):
+            try:
+                st = f.stat()
+            except OSError:
+                continue
+            sig.update(f"{f.name}:{st.st_size}:{st.st_mtime_ns};".encode())
+        src = f"{p.name or 'ckpt'}-{sig.hexdigest()[:10]}"
+    return Path(cache_dir) / f"{model_name}-{quantization}-{dtype}-{src}-seed{seed}.safetensors"
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def save_quant_cache(path: str | Path, params: Dict[str, Any]) -> int:
+    """Write a quantized tree to its cache file (renamed into place). →
+    bytes written, 0 when it could not be written (logged: the cache is
+    best-effort and serving goes on with the tree it has)."""
+    path = Path(path)
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        return write_safetensors(path, _flatten(params), {"format": QUANT_CACHE_FORMAT})
+    except OSError as exc:
+        log.warning("cannot write the quantized-weight cache %s: %s", path, exc)
+        return 0
+
+
+def load_quant_cache(path: str | Path, cfg: ModelConfig, device: Any
+                     ) -> Optional[Dict[str, Any]]:
+    """The tree of a cache file, each tensor copied from the mapped file
+    straight to ``device``; None when there is no file, or when it cannot be
+    read or does not hold a tree of ``cfg`` (logged: the caller rebuilds
+    and rewrites it)."""
+    path = Path(path)
+    if not path.exists():
+        return None
+    try:
+        with SafetensorsFile(path) as f:
+            if (f.metadata() or {}).get("format") != QUANT_CACHE_FORMAT:
+                raise ValueError("not a quantized-params cache file")
+            tree: Dict[str, Any] = {}
+            for name in f.keys():
+                *parents, leaf = name.split("/")
+                node = tree
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = f.get_tensor(name).to(device)
+        layers = tree.get("layers") or {}
+        if not layers or any(int(t.shape[0]) != cfg.num_layers
+                             for t in _flatten(layers).values()):
+            raise ValueError(f"does not hold {cfg.num_layers} layers of {cfg.name}")
+        return tree
+    except (OSError, ValueError, KeyError, RuntimeError) as exc:
+        log.warning("quantized-weight cache %s is unreadable (%s): rebuilding it", path, exc)
+        return None

@@ -66,7 +66,12 @@ from distributed_gpu_inference_torch.models.configs import (
     ModelConfig,
     get_model_config,
 )
-from distributed_gpu_inference_torch.models.loader import load_or_init_params
+from distributed_gpu_inference_torch.models.loader import (
+    load_or_init_params,
+    load_quant_cache,
+    quant_cache_path,
+    save_quant_cache,
+)
 from distributed_gpu_inference_torch.ops.paged_attention import kernel_takes
 from distributed_gpu_inference_torch.ops.quantization import (
     QUANT_MODES,
@@ -158,6 +163,20 @@ class EngineConfig:
     # engine-integrated speculative decoding (chain drafts, one verify
     # pass a round); None = plain decode
     speculative: Optional[SpecDecodeConfig] = None
+    # sub-wave admission: ``submit_batch`` splits a wave into chunks of at
+    # most this many sequences, each prefilled by a narrow forward, so the
+    # first chunk samples its first tokens after one chunk's prefill
+    # instead of the whole wave's. 0 = the whole wave in one forward.
+    admission_subwave: int = 0
+    # decode steps run between sub-waves, so slots already generating
+    # advance instead of stalling for the whole admission. 0 = none (every
+    # narrow forward is enqueued back to back)
+    admission_interleave_steps: int = 0
+    # keep the quantized weight tree in this directory after its first
+    # build (one safetensors file a model, quantization, dtype and weight
+    # source: ``models/loader.py`` ``quant_cache_path``), and read it from
+    # there on later loads instead of quantizing again
+    quant_cache_dir: Optional[str] = None
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -379,7 +398,8 @@ class TorchEngine:
         is refused: it is JAX-only). With neither, a random init from
         ``seed``; giving both is an error. With
         ``EngineConfig.quantization`` the matmul weights are quantized on
-        load: a checkpoint slice by slice as it is read (the full-precision
+        load (or, with ``EngineConfig.quant_cache_dir``, read already
+        quantized from the cache file an earlier load wrote): a checkpoint slice by slice as it is read (the full-precision
         leaf is never built), a random init leaf by leaf as it is consumed
         (the peak is the full-precision tree plus one quantized leaf), or,
         where that tree exceeds the device, drawn quantized one layer slice
@@ -402,10 +422,18 @@ class TorchEngine:
         if mode is not None and mode not in QUANT_MODES:
             raise ValueError(f"unknown quantization {mode!r}; use {QUANT_MODES}")
         if params is None:
-            params = load_or_init_params(
-                self.model_cfg, checkpoint_path, dtype=self.dtype, seed=seed,
-                device=self.device, quantization=mode,
-            )
+            cache = (quant_cache_path(self.cfg.quant_cache_dir, self.model_cfg.name, mode,
+                                      self.cfg.dtype, checkpoint_path, seed)
+                     if self.cfg.quant_cache_dir and mode is not None else None)
+            params = (load_quant_cache(cache, self.model_cfg, self.device)
+                      if cache is not None else None)
+            if params is None:
+                params = load_or_init_params(
+                    self.model_cfg, checkpoint_path, dtype=self.dtype, seed=seed,
+                    device=self.device, quantization=mode,
+                )
+                if cache is not None:
+                    save_quant_cache(cache, params)
         elif checkpoint_path:
             raise ValueError("give params or checkpoint_path, not both")
         else:
@@ -884,6 +912,12 @@ class TorchEngine:
         """Admit several requests at once: same-bucket prefills run as ONE
         batched forward (full batch width, other rows masked with position
         -1); prompts longer than the largest bucket take the chunked path.
+        With ``EngineConfig.admission_subwave`` = sw > 0 each bucket group
+        is cut into chunks of at most sw sequences, each prefilled by a
+        narrow forward (:meth:`_prefill_subwave`); with
+        ``admission_interleave_steps`` = k > 0, ``decode_multi(k)`` runs
+        between chunks, else every narrow forward is enqueued back to back
+        and the first tokens are read chunk by chunk as each lands.
 
         ``partial``: when KV blocks run out mid-wave, admit the prefix of
         the wave that DID allocate and return only its slots (a pressure
@@ -907,6 +941,7 @@ class TorchEngine:
         }
         mgr_stats_snapshot = dict(self.manager.stats.__dict__)
         downloads_before = len(self.manager.pending.downloads)
+        interleaved_extra = 0   # decode tokens interleaving gave other slots
 
         def _rollback() -> None:
             for slot, seq_id in admitted:
@@ -953,7 +988,34 @@ class TorchEngine:
                 )
 
             b = len(self.slots)
-            for bucket, items in sorted(grouped.items()):
+            sw = self.cfg.admission_subwave
+            groups = sorted(grouped.items())
+            if sw > 0:
+                wave_slots = {sl for sl, _ in admitted}
+                chunks = [(bucket, items[i0:i0 + sw])
+                          for bucket, items in groups
+                          for i0 in range(0, len(items), sw)]
+                k = self.cfg.admission_interleave_steps
+                if k > 0:
+                    for ci, (bucket, chunk) in enumerate(chunks):
+                        self._commit_subwave(chunk, self._prefill_subwave(bucket, chunk))
+                        if ci < len(chunks) - 1:
+                            out = self.decode_multi(k)
+                            # only tokens _record_token counted: an emitted
+                            # stop token ends its slot uncounted
+                            for sl, toks in out.items():
+                                if sl in wave_slots:
+                                    continue
+                                s_ = self.slots[sl]
+                                stop = 1 if s_ is not None and s_.finish_reason == "stop" else 0
+                                interleaved_extra += len(toks) - stop
+                else:
+                    dispatched = [(chunk, self._prefill_subwave(bucket, chunk))
+                                  for bucket, chunk in chunks]
+                    for chunk, first in dispatched:
+                        self._commit_subwave(chunk, first)
+                groups = []
+            for bucket, items in groups:
                 self._apply_pending()
                 toks_pos = np.zeros((2, b, bucket), np.int32)
                 toks_pos[1] = -1
@@ -981,10 +1043,69 @@ class TorchEngine:
                     self._record_token(slot, int(first[slot]))
         except Exception as exc:
             _rollback()
+            # interleaved decode tokens that went to slots outside this wave
+            # really happened and survive the rollback
+            self.stats["generated_tokens"] += interleaved_extra
             if isinstance(exc, OutOfBlocksError):
                 self._signal_pressure("admission", requests=len(requests))
             raise
         return slots_out
+
+    def _prefill_subwave(self, bucket: int, chunk: list) -> Any:
+        """Bind and prefill at most ``admission_subwave`` sequences through
+        one narrow forward — its width the next power of two at or above the
+        chunk, capped at the slot count; row j carries slot ``chunk[j]``'s
+        table row, pad rows position -1 (no KV write) — and sample their
+        first tokens with their own slots' keys and sampling parameters at
+        their own lengths. → a handle :meth:`_commit_subwave` reads: on a
+        card the tokens' copy to the host runs behind an event, so enqueued
+        chunks land one by one."""
+        self._apply_pending()
+        w = 1
+        while w < len(chunk):
+            w *= 2
+        w = min(w, len(self.slots))
+        toks_pos = np.zeros((2, w, bucket), np.int32)
+        toks_pos[1] = -1
+        tables = np.zeros((w, self.cfg.max_blocks_per_seq), np.int32)
+        lens = np.zeros((w,), np.int32)
+        rows = []
+        for j, (request, slot, seq_id, token_ids, cached) in enumerate(chunk):
+            s = _Slot(request=request, seq_id=seq_id, prompt_len=len(token_ids),
+                      cached_tokens=cached)
+            self._bind_slot(slot, s, kv_len=len(token_ids))
+            fresh = token_ids[cached:]
+            n = len(fresh)
+            toks_pos[0, j, :n] = fresh
+            toks_pos[1, j, :n] = np.arange(cached, cached + n)
+            lens[j] = cached + n
+            tables[j] = self._block_tables[slot]
+            rows.append(slot)
+            self.stats["prefill_tokens"] += n
+        mode = "greedy" if all(it[0].sampling.temperature <= 0 for it in chunk) else "mixed"
+        n = len(chunk)
+        with self._device_work():
+            logits = self._forward(toks_pos, tables, lens)
+            first = self._sample(logits[:n], rows, lens[:n], mode)
+            if first.device.type == "cuda":
+                host = torch.empty(first.shape, dtype=first.dtype, pin_memory=True)
+                host.copy_(first, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+                first = (host, ready)
+        self.stats["prefill_calls"] += 1
+        return first
+
+    def _commit_subwave(self, chunk: list, first: Any) -> None:
+        """Read a sub-wave's first tokens (waiting for its forward to land)
+        and record them: the point each of its sequences' TTFT stops."""
+        if isinstance(first, tuple):
+            host, ready = first
+            ready.synchronize()
+            first = host
+        toks = first.cpu().numpy()
+        for j, (request, slot, seq_id, token_ids, cached) in enumerate(chunk):
+            self._record_token(slot, int(toks[j]))
 
     def _bind_slot(self, slot: int, s: "_Slot", kv_len: int) -> None:
         """Install slot state (block table, committed length, sampling,

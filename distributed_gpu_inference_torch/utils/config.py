@@ -50,13 +50,15 @@ ENV_PREFIX = "TPU_WORKER_"
 DEPRECATED_SERVING_KEYS: Dict[str, str] = {
     "subwave": (
         "the ragged serving path admits by appending chunk rows to the "
-        "next decode round — there are no admission sub-waves to shape; "
-        "only the legacy path (serving.ragged: false) reads this"
+        "next decode round — there are no admission sub-waves to shape "
+        "there; the legacy wave admission (serving.ragged: false, or "
+        "serving.mode: direct) still splits its waves by it"
     ),
     "interleave": (
         "prefill chunks co-dispatch WITH decode rows in a ragged round — "
-        "there are no separate dispatches left to interleave; only the "
-        "legacy path (serving.ragged: false) reads this"
+        "there are no separate dispatches left to interleave there; the "
+        "legacy wave admission (serving.ragged: false, or serving.mode: "
+        "direct) still runs this many decode steps between sub-waves"
     ),
     "max_horizon": (
         "still caps the pure-decode scan horizon, but it is no longer the "

@@ -1,4 +1,4 @@
-"""BPE tokenizers from a local directory (``tokenizer.json`` and
+"""Tokenizers from a local directory (``tokenizer.json`` and
 ``tokenizer_config.json``), with their chat templates.
 
 The port's stand-in for what the JAX package's worker gets from
@@ -8,16 +8,24 @@ The port's stand-in for what the JAX package's worker gets from
 ``transformers`` or ``regex``, so the pipeline is read from the JSON and run
 here, for the BPE tokenizers of the families in ``models/configs.py``: the
 byte-level ones (Llama 3, Qwen 2.5, GPT-2) and the SentencePiece-style ones
-(Mistral, Mixtral):
+(Mistral, Mixtral); and for WordPiece (BERT's kind) and Unigram
+(SentencePiece's unigram models, T5's kind) tokenizers:
 
 - added tokens (``special``, ``lstrip``, ``rstrip``, ``single_word``,
   ``normalized``) are split out first, leftmost-longest, the unnormalized
   ones on the raw text and the normalized ones after the normalizer;
 - normalizer: none, a Unicode normal form (NFC, ...), ``Prepend``,
-  ``Replace`` or a ``Sequence`` of them;
+  ``Replace``, ``Lowercase``, ``Strip``, ``Nmt``, ``BertNormalizer``
+  (``clean_text``, ``handle_chinese_chars``, ``strip_accents``,
+  ``lowercase``) or a ``Sequence`` of them. ``Precompiled`` (a
+  SentencePiece charsmap, what converted ``spiece.model`` files carry) is
+  refused by name: no file carrying one can be built offline to hold this
+  reader to the library;
 - pre-tokenizer: none, ``Split`` on a regex with the ``Isolated``
   behaviour, ``ByteLevel`` (with or without GPT-2's split regex),
-  ``Metaspace`` (its ``prepend_scheme`` and ``split``), or a ``Sequence``.
+  ``Metaspace`` (its ``prepend_scheme`` and ``split``), ``BertPreTokenizer``,
+  ``Whitespace`` (``\\w+|[^\\w\\s]+``), ``WhitespaceSplit``,
+  ``Punctuation`` (isolated or removed), or a ``Sequence``.
   The patterns use Oniguruma's ``\\p{L}`` / ``\\p{N}`` classes, which
   Python's ``re`` lacks: they are rebuilt from ``unicodedata`` as ``re``
   ranges, and ``\\s`` is spelled out as Unicode's White_Space set (Python's
@@ -28,14 +36,23 @@ byte-level ones (Llama 3, Qwen 2.5, GPT-2) and the SentencePiece-style ones
   merges in n log n), ``ignore_merges`` (a whole pre-token in the vocab is
   one id), ``byte_fallback`` (a character outside the vocab becomes its
   UTF-8 bytes' ``<0xXX>`` pieces) and ``unk_token`` with ``fuse_unk``;
+  WordPiece, greedy longest-match-first with ``continuing_subword_prefix``,
+  ``max_input_chars_per_word`` and ``unk_token`` (a word with a piece
+  outside the vocab is one unknown token); Unigram, the best path under
+  the piece scores (Viterbi over the characters, an unknown character
+  scored ``min - 10`` and runs of them fused), its unknown pieces as
+  ``<0xXX>`` bytes with ``byte_fallback``, else ``unk_id``;
 - post-processor: ``TemplateProcessing`` (the BOS of Llama 3),
-  ``ByteLevel`` (ids unchanged) or a ``Sequence``;
+  ``BertProcessing`` (``[CLS] $A [SEP]``), ``ByteLevel`` (ids unchanged) or
+  a ``Sequence``;
 - decoder: ``ByteLevel``: added tokens are emitted as their text, outside
   the decoder, and each run of model tokens between them is decoded on its
   own, invalid UTF-8 becoming U+FFFD (the stream splicer holds a trailing
   U+FFFD back). Or a chain of ``Replace``, ``ByteFallback`` (a run of
   ``<0xXX>`` pieces decodes as UTF-8, an invalid run as one U+FFFD a
-  byte), ``Fuse``, ``Strip`` and ``Metaspace`` steps (a ``Sequence``), run
+  byte), ``Fuse``, ``Strip``, ``Metaspace`` and ``WordPiece`` (the prefix
+  joined, a space before every other token, its ``cleanup``) steps (a
+  ``Sequence``), run
   as the ``tokenizers`` library runs them over every token, added ones
   included. ``clean_up_tokenization_spaces`` applies transformers'
   replacements.
@@ -49,8 +66,8 @@ read from ``chat_template.jinja``, else from ``tokenizer_config.json``
 a tokenizer with a template loads; without a template the call raises, as
 transformers does.
 
-Anything else (Unigram or WordPiece models, other normalizers,
-pre-tokenizers or decoders) is refused at load with
+Anything else (other models, normalizers, pre-tokenizers, post-processors
+or decoders, and the ``Precompiled`` normalizer) is refused at load with
 :class:`TokenizerUnsupported` naming the component.
 """
 
@@ -214,6 +231,86 @@ def _replacer(spec: Dict[str, Any], what: str) -> Callable[[str], str]:
     raise TokenizerUnsupported(f"{what} Replace pattern {pat!r}")
 
 
+def _lowercase(s: str) -> str:
+    """Each character's own lower case (no context rule: a final capital
+    sigma lowers to σ, as Rust's ``char::to_lowercase`` does)."""
+    return "".join(c.lower() for c in s)
+
+
+def _strip_accents(s: str) -> str:
+    """NFD, then the nonspacing marks (``Mn``) dropped."""
+    return "".join(c for c in unicodedata.normalize("NFD", s)
+                   if unicodedata.category(c) != "Mn")
+
+
+# the CJK blocks BERT spaces out (``tokenizers``' is_chinese_char)
+_CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+        (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def _is_cjk(c: str) -> bool:
+    cp = ord(c)
+    return any(lo <= cp <= hi for lo, hi in _CJK)
+
+
+# the categories BERT's clean_text drops
+_OTHER = frozenset(("Cc", "Cf", "Co", "Cs"))
+
+
+def _bert_normalizer(spec: Dict[str, Any]) -> Callable[[str], str]:
+    """``BertNormalizer``: ``clean_text`` drops NUL, U+FFFD and the
+    control, format, private-use and surrogate characters (tab, newline and
+    carriage return kept; unassigned code points kept, as the library keeps
+    them) and makes every White_Space character a
+    space; ``handle_chinese_chars`` puts a space on each side of a CJK
+    ideograph; ``strip_accents`` (default: as ``lowercase``) and
+    ``lowercase``, in that order."""
+    clean = spec.get("clean_text", True)
+    chinese = spec.get("handle_chinese_chars", True)
+    lower = spec.get("lowercase", True)
+    strip = spec.get("strip_accents")
+    strip = lower if strip is None else strip
+
+    def run(s: str) -> str:
+        if clean:
+            s = "".join(
+                " " if c in _WS else c for c in s
+                if not (c in ("\x00", "\ufffd")
+                        or (c not in "\t\n\r" and unicodedata.category(c) in _OTHER)))
+        if chinese:
+            s = "".join(f" {c} " if _is_cjk(c) else c for c in s)
+        if strip:
+            s = _strip_accents(s)
+        return _lowercase(s) if lower else s
+
+    return run
+
+
+# ``Nmt``: the control characters it drops, and the characters it makes a space
+_NMT_DROP = frozenset(chr(c) for c in (*range(0x01, 0x09), 0x0B, *range(0x0E, 0x20),
+                                       0x7F, 0x8F, 0x9F))
+_NMT_SPACE = frozenset(chr(c) for c in (0x09, 0x0A, 0x0C, 0x0D, 0x1680,
+                                        *range(0x200B, 0x2010), 0x2028, 0x2029,
+                                        0x2581, 0xFEFF, 0xFFFD))
+
+
+def _nmt(s: str) -> str:
+    return "".join(" " if c in _NMT_SPACE else c for c in s if c not in _NMT_DROP)
+
+
+def _strip_ws(spec: Dict[str, Any]) -> Callable[[str], str]:
+    """``Strip``: White_Space off the left and / or the right."""
+    left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+    ws = "".join(sorted(_WS))
+
+    def run(s: str) -> str:
+        if left:
+            s = s.lstrip(ws)
+        return s.rstrip(ws) if right else s
+
+    return run
+
+
 def _normalizer(spec: Optional[Dict[str, Any]]) -> Callable[[str], str]:
     if spec is None:
         return lambda s: s
@@ -225,9 +322,21 @@ def _normalizer(spec: Optional[Dict[str, Any]]) -> Callable[[str], str]:
         return lambda s: prefix + s if s else s
     if kind == "Replace":
         return _replacer(spec, "normalizer")
+    if kind == "Lowercase":
+        return _lowercase
+    if kind == "Strip":
+        return _strip_ws(spec)
+    if kind == "Nmt":
+        return _nmt
+    if kind == "BertNormalizer":
+        return _bert_normalizer(spec)
     if kind == "Sequence":
         steps = [_normalizer(s) for s in spec.get("normalizers", [])]
         return functools.reduce(lambda f, g: (lambda s: g(f(s))), steps, lambda s: s)
+    if kind == "Precompiled":
+        raise TokenizerUnsupported(
+            "normalizer 'Precompiled' (a SentencePiece charsmap): not read; no file "
+            "carrying one can be built offline to hold this reader to the library")
     raise TokenizerUnsupported(f"normalizer {kind!r}")
 
 
@@ -269,6 +378,61 @@ def _metaspace(spec: Dict[str, Any]) -> PreStep:
     return step
 
 
+def _is_punctuation(c: str) -> bool:
+    """BERT's punctuation: ASCII punctuation (symbols such as ``$`` and
+    ``+`` included) or a Unicode ``P*`` character."""
+    return (c.isascii() and not c.isalnum() and c.isprintable() and c != " ") \
+        or unicodedata.category(c)[0] == "P"
+
+
+def _split_ws(piece: str) -> List[str]:
+    """Split on White_Space, the whitespace removed."""
+    out, cur = [], []
+    for c in piece:
+        if c in _WS:
+            if cur:
+                out.append("".join(cur))
+                cur = []
+        else:
+            cur.append(c)
+    if cur:
+        out.append("".join(cur))
+    return out
+
+
+def _split_punct(piece: str, keep: bool = True) -> List[str]:
+    """Each punctuation character its own piece (``keep``), or dropped."""
+    out, cur = [], []
+    for c in piece:
+        if _is_punctuation(c):
+            if cur:
+                out.append("".join(cur))
+                cur = []
+            if keep:
+                out.append(c)
+        else:
+            cur.append(c)
+    if cur:
+        out.append("".join(cur))
+    return out
+
+
+# the So characters of Unicode's Other_Alphabetic (circled and squared
+# Latin letters) and the join controls: in Oniguruma's \w, not in a category
+_ALPHA_SYMBOLS = (r"\u200c\u200d\u24b6-\u24e9\U0001f130-\U0001f149\U0001f150-\U0001f169"
+                  r"\U0001f170-\U0001f189")
+
+
+@functools.cache
+def _whitespace_rx() -> "re.Pattern[str]":
+    """``Whitespace``'s ``\\w+|[^\\w\\s]+`` with Oniguruma's Unicode ``\\w``
+    (Alphabetic, marks, decimal digits, connector punctuation, the join
+    controls: here letters, marks, ``Nd``, ``Nl``, ``Pc``, U+200C-U+200D and
+    the circled / squared letters that are Alphabetic symbols) and ``\\s``."""
+    w = "".join(_category_class(c) for c in ("L", "M", "Nd", "Nl", "Pc")) + _ALPHA_SYMBOLS
+    return re.compile(f"[{w}]+|[^{w}{_WS_CLASS}]+")
+
+
 def _pre_tokenizer(spec: Optional[Dict[str, Any]]) -> List[PreStep]:
     """The pre-tokenizer as a list of steps, each mapping one piece to its
     pieces; ByteLevel's last step maps the bytes to the BPE alphabet."""
@@ -288,6 +452,18 @@ def _pre_tokenizer(spec: Optional[Dict[str, Any]]) -> List[PreStep]:
         return [lambda p, _: _isolated_split(rx, p)]
     if kind == "Metaspace":
         return [_metaspace(spec)]
+    if kind == "BertPreTokenizer":
+        return [lambda p, _: [q for w in _split_ws(p) for q in _split_punct(w)]]
+    if kind == "WhitespaceSplit":
+        return [lambda p, _: _split_ws(p)]
+    if kind == "Whitespace":
+        return [lambda p, _: _whitespace_rx().findall(p)]
+    if kind == "Punctuation":
+        behavior = spec.get("behavior", "Isolated")
+        if behavior not in ("Isolated", "Removed"):
+            raise TokenizerUnsupported(f"Punctuation behavior {behavior!r}")
+        keep = behavior == "Isolated"
+        return [lambda p, _: _split_punct(p, keep)]
     if kind == "ByteLevel":
         steps: List[PreStep] = []
         if spec.get("add_prefix_space"):
@@ -364,6 +540,28 @@ def _metaspace_decode(spec: Dict[str, Any]) -> Callable[[List[str]], List[str]]:
                            for i, t in enumerate(tokens)]
 
 
+# the WordPiece decoder's ``cleanup``, in its order
+_WORDPIECE_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                      (" n't", "n't"), (" 'm", "'m"), (" do not", " don't"),
+                      (" 's", "'s"), (" 've", "'ve"), (" 're", "'re"))
+
+
+def _wordpiece_decode(spec: Dict[str, Any]) -> Callable[[List[str]], List[str]]:
+    """``WordPiece`` decoding: every token but the first loses a leading
+    ``prefix`` or gains a leading space; ``cleanup`` then tidies each."""
+    prefix, cleanup = spec.get("prefix", "##"), spec.get("cleanup", True)
+
+    def one(i: int, t: str) -> str:
+        if i:
+            t = t.replace(prefix, "", 1) if t.startswith(prefix) else " " + t
+        if cleanup:
+            for a, b in _WORDPIECE_CLEANUP:
+                t = t.replace(a, b)
+        return t
+
+    return lambda tokens: [one(i, t) for i, t in enumerate(tokens)]
+
+
 def _decoder(spec: Dict[str, Any]) -> Callable[[List[str]], List[str]]:
     """A chain of decoders over the token strings, as the ``tokenizers``
     library's ``decode_chain``; ``ByteLevel`` is read only as the whole
@@ -383,6 +581,8 @@ def _decoder(spec: Dict[str, Any]) -> Callable[[List[str]], List[str]]:
         return _strip(spec)
     if kind == "Metaspace":
         return _metaspace_decode(spec)
+    if kind == "WordPiece":
+        return _wordpiece_decode(spec)
     raise TokenizerUnsupported(f"decoder {kind!r}")
 
 
@@ -396,6 +596,9 @@ def _post_processor(spec: Optional[Dict[str, Any]]) -> Callable[[List[int]], Lis
         steps = [_post_processor(s) for s in spec.get("processors", [])]
         return functools.reduce(lambda f, g: (lambda ids: g(f(ids))), steps,
                                 lambda ids: ids)
+    if kind == "BertProcessing":
+        cls_id, sep_id = int(spec["cls"][1]), int(spec["sep"][1])
+        return lambda ids: [cls_id] + list(ids) + [sep_id]
     if kind == "TemplateProcessing":
         specials = {k: list(v["ids"]) for k, v in spec.get("special_tokens", {}).items()}
         parts: List[Optional[List[int]]] = []
@@ -436,8 +639,13 @@ def _is_word_char(c: str) -> bool:
     return c.isalnum() or c == "_"
 
 
+# the score below the lowest piece's that an unknown character costs (the
+# ``tokenizers`` library's and SentencePiece's K_UNK_PENALTY)
+_UNK_PENALTY = 10.0
+
+
 class HFTokenizer:
-    """A BPE tokenizer read from a local directory. The surface
+    """A BPE, WordPiece or Unigram tokenizer read from a local directory. The surface
     the LLM engine calls: :meth:`encode` (the post-processor's special
     tokens added, as transformers' default), :meth:`decode` (special tokens
     kept), :meth:`apply_chat_template`, ``eos_token_id``, ``bos_token_id``
@@ -448,20 +656,36 @@ class HFTokenizer:
         config = dict(config or {})
         self.name = name
         model = tokenizer.get("model") or {}
-        if model.get("type") != "BPE":
-            raise TokenizerUnsupported(f"model {model.get('type')!r} (only BPE is read)")
-        for key in ("continuing_subword_prefix", "end_of_word_suffix"):
-            if model.get(key):
-                raise TokenizerUnsupported(f"BPE {key}={model[key]!r}")
-        if model.get("dropout"):
-            raise TokenizerUnsupported(f"BPE dropout={model['dropout']}")
+        self.model_type = model.get("type")
+        if self.model_type not in ("BPE", "WordPiece", "Unigram"):
+            raise TokenizerUnsupported(
+                f"model {self.model_type!r} (BPE, WordPiece and Unigram are read)")
+        if self.model_type == "BPE":
+            for key in ("continuing_subword_prefix", "end_of_word_suffix"):
+                if model.get(key):
+                    raise TokenizerUnsupported(f"BPE {key}={model[key]!r}")
+            if model.get("dropout"):
+                raise TokenizerUnsupported(f"BPE dropout={model['dropout']}")
         decoder = tokenizer.get("decoder") or {}
         # None: the ByteLevel decode; else the decoder chain
         self._decode_chain = (None if decoder.get("type") == "ByteLevel"
                               else _decoder(decoder))
 
-        self.vocab: Dict[str, int] = dict(model.get("vocab", {}))
-        self.id_to_token: Dict[int, str] = {i: t for t, i in self.vocab.items()}
+        if self.model_type == "Unigram":
+            # [piece, score] pairs; a repeated piece keeps its last id
+            pieces = [(str(t), float(sc)) for t, sc in model.get("vocab", [])]
+            self.vocab: Dict[str, int] = {t: i for i, (t, _) in enumerate(pieces)}
+            self.id_to_token: Dict[int, str] = {i: t for i, (t, _) in enumerate(pieces)}
+            self._scores = [sc for _, sc in pieces]
+            self._unk_score = min(self._scores, default=0.0) - _UNK_PENALTY
+            self._unk_id = model.get("unk_id")
+            self._max_piece = max((len(t) for t, _ in pieces), default=1)
+        else:
+            self.vocab = dict(model.get("vocab", {}))
+            self.id_to_token = {i: t for t, i in self.vocab.items()}
+        if self.model_type == "WordPiece":
+            self._prefix = model.get("continuing_subword_prefix", "##")
+            self._max_chars = int(model.get("max_input_chars_per_word", 100))
         self.vocab_size = len(self.vocab)
         self._ranks: Dict[Tuple[str, str], int] = {}
         for rank, merge in enumerate(model.get("merges", [])):
@@ -662,12 +886,108 @@ class HFTokenizer:
             self._cache[word] = ids
         return ids
 
+    def _wordpiece(self, word: str) -> List[int]:
+        """Greedy longest-match-first: the longest vocab piece at the start,
+        then the longest ``prefix`` + piece from where it ended; a word
+        longer than ``max_input_chars_per_word`` characters, or with a
+        stretch no piece covers, is the one unknown token."""
+        if not word:
+            return []
+        unk = [self.vocab[self._unk]] if self._unk in self.vocab else None
+        if len(word) > self._max_chars:
+            if unk is None:
+                raise ValueError(f"{self.name}: WordPiece unk_token {self._unk!r} "
+                                 "is not in the vocab")
+            return unk
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            while start < end:
+                piece = word[start:end] if start == 0 else self._prefix + word[start:end]
+                if piece in self.vocab:
+                    ids.append(self.vocab[piece])
+                    break
+                end -= 1
+            if start == end:
+                if unk is None:
+                    raise ValueError(f"{self.name}: WordPiece unk_token {self._unk!r} "
+                                     "is not in the vocab")
+                return unk
+            start = end
+        return ids
+
+    def _unigram(self, word: str) -> List[int]:
+        """The best-scoring segmentation (Viterbi over the characters, the
+        ``tokenizers`` library's order of candidates and its strict ``>``
+        for ties); a character no piece starts with costs the unknown
+        score, and adjacent unknown stretches are fused into one, which
+        becomes its bytes' ``<0xXX>`` pieces with ``byte_fallback`` (all
+        of them in the vocab), else ``unk_id``."""
+        if not word:
+            return []
+        hit = self._cache.get(word)
+        if hit is not None:
+            return hit
+        n = len(word)
+        score = [0.0] * (n + 1)
+        back: List[Optional[Tuple[int, Optional[int]]]] = [None] * (n + 1)
+        for a in range(n):
+            here = score[a]
+            single = False
+            for b in range(a + 1, min(n, a + self._max_piece) + 1):
+                tid = self.vocab.get(word[a:b])
+                if tid is None:
+                    continue
+                cand = self._scores[tid] + here
+                if back[b] is None or cand > score[b]:
+                    score[b], back[b] = cand, (a, tid)
+                single = single or b == a + 1
+            if not single:
+                cand = self._unk_score + here
+                if back[a + 1] is None or cand > score[a + 1]:
+                    score[a + 1], back[a + 1] = cand, (a, None)
+        pieces: List[Tuple[str, bool]] = []      # (text, unknown), last first
+        end = n
+        while end > 0:
+            a, tid = back[end]
+            unknown = tid is None or tid == self._unk_id
+            if unknown and pieces and pieces[-1][1]:
+                pieces[-1] = (word[a:end] + pieces[-1][0], True)
+            else:
+                pieces.append((word[a:end], unknown))
+            end = a
+        ids: List[int] = []
+        for text, _ in reversed(pieces):
+            tid = self.vocab.get(text)
+            if tid is None:
+                if self.byte_fallback:
+                    bytes_ = [self.vocab.get(f"<0x{b:02X}>") for b in text.encode("utf-8")]
+                    if all(t is not None for t in bytes_):
+                        ids.extend(bytes_)
+                        continue
+                if self._unk_id is None:
+                    raise ValueError(f"{self.name}: Unigram piece {text!r} is unknown and "
+                                     "the model has no unk_id")
+                tid = int(self._unk_id)
+            ids.append(tid)
+        if len(self._cache) < 1 << 16 and len(word) < 256:
+            self._cache[word] = ids
+        return ids
+
+    def _model(self, word: str) -> List[int]:
+        if self.model_type == "WordPiece":
+            return self._wordpiece(word)
+        if self.model_type == "Unigram":
+            return self._unigram(word)
+        return self._bpe(word)
+
     def _encode_piece(self, text: str, at_start: bool) -> List[int]:
         pieces = [(text, at_start)]
         for step in self._pre:
             pieces = [(q, first and j == 0) for p, first in pieces
                       for j, q in enumerate(step(p, first))]
-        return [i for p, _ in pieces for i in self._bpe(p)]
+        return [i for p, _ in pieces for i in self._model(p)]
 
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
         ids: List[int] = []

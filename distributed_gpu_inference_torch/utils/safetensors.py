@@ -23,6 +23,10 @@ A malformed file is refused with ``ValueError`` naming the file and, where
 there is one, the tensor: a header longer than the file, an entry whose
 offsets lie outside the data or overlap another's, a byte count that does
 not match the shape, an unknown dtype.
+
+:func:`write_safetensors` writes the same format (the quantized-weight
+cache's files): tensors one at a time from wherever they live, to a
+temporary name renamed into place, so a reader never sees half a file.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from __future__ import annotations
 import json
 import math
 import mmap
+import os
 import struct
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -156,3 +161,46 @@ class SafetensorsFile:
 
     def __exit__(self, *exc: Any) -> None:
         self.close()
+
+
+#: torch dtype → safetensors dtype name
+DTYPE_NAMES: Dict[torch.dtype, str] = {v: k for k, v in DTYPES.items()}
+
+
+def write_safetensors(path: str | Path, tensors: Dict[str, torch.Tensor],
+                      metadata: Optional[Dict[str, str]] = None) -> int:
+    """Write ``tensors`` (name → tensor, on any device) as one safetensors
+    file: the header (padded with spaces to 8 bytes) and each tensor's raw
+    bytes in name order, copied to the host one tensor at a time. Written to
+    ``<path>.tmp-<pid>`` and renamed over ``path``. → bytes written."""
+    path = Path(path)
+    names = sorted(tensors)
+    header: Dict[str, Any] = {}
+    off = 0
+    for name in names:
+        t = tensors[name]
+        if t.dtype not in DTYPE_NAMES:
+            raise ValueError(f"{name!r}: dtype {t.dtype} has no safetensors name")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    if metadata is not None:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    tmp = path.with_name(f"{path.name}.tmp-{os.getpid()}")
+    try:
+        with open(tmp, "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for name in names:
+                t = tensors[name].detach().contiguous().reshape(-1)
+                f.write(t.view(torch.uint8).cpu().numpy().data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    return 8 + len(raw) + off

@@ -84,6 +84,9 @@ class DirectServer:
         # sockets of the streams in flight: stop() cuts them, as the death
         # of the process would
         self._streams: set = set()
+        # set by stop(): a stream's handler that outlives it writes nothing
+        # more (it may have started after stop() collected the sockets)
+        self._stopped = False
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -95,6 +98,7 @@ class DirectServer:
         class Handler(_Handler):
             direct = server
 
+        self._stopped = False
         self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
         self._httpd.daemon_threads = True
         self.port = self._httpd.server_address[1]
@@ -107,7 +111,11 @@ class DirectServer:
     def stop(self) -> None:
         """Stop listening and cut every stream in flight: its client sees
         the connection drop with no terminating event and resumes from its
-        offset elsewhere."""
+        offset elsewhere. A stream whose handler registers after this, or
+        whose engine fails because the process is going down, writes no
+        further event either."""
+        with self._stats_lock:
+            self._stopped = True
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -381,7 +389,16 @@ class _Handler(BaseHTTPRequestHandler):
         claim is released only when the engine is idle."""
         self.close_connection = True
         with self.direct._stats_lock:
+            stopped = self.direct._stopped
             self.direct._streams.add(self.connection)
+        if stopped:
+            # the server stopped while this request was admitted: it dies
+            # with the process, as the streams stop() cut did
+            with self.direct._stats_lock:
+                self.direct._streams.discard(self.connection)
+            release(started)
+            self._hard_close()
+            return
         loop = asyncio.new_event_loop()
         agen = engine.stream_inference(params)
         try:
@@ -398,11 +415,11 @@ class _Handler(BaseHTTPRequestHandler):
                     chunk = loop.run_until_complete(agen.__anext__())
                 except StopAsyncIteration:
                     break
-                if _faults.stream_cut("worker.direct.stream",
-                                      stream_id=stream_id,
-                                      worker=self.direct._fault_tag()):
-                    # the worker "dies" mid-stream: an abrupt drop, no
-                    # terminating chunk
+                if self.direct._stopped or _faults.stream_cut(
+                        "worker.direct.stream", stream_id=stream_id,
+                        worker=self.direct._fault_tag()):
+                    # the worker "dies" mid-stream (stopped, or a fault
+                    # seam): an abrupt drop, no terminating chunk
                     self._hard_close()
                     return
                 evt = sse_event(chunk)

@@ -1,12 +1,23 @@
 """The worker's LLM engine on PyTorch: tokenizer + ``TorchEngine`` behind
-the continuous batcher.
+the continuous batcher, or driven directly.
 
 The port of ``distributed_gpu_inference_tpu/worker/engines/llm.py``
 ``TPULLMEngine`` for the paths the worker process and the direct server
-drive. ``load_model`` builds a :class:`TorchEngine` and a
-:class:`BatcherServing` front end; every request goes through the batcher,
-so concurrent callers share engine rounds through slot-level continuous
-batching:
+drive. ``load_model`` builds a :class:`TorchEngine` and, with
+``serving.mode: batcher`` (the default), a :class:`BatcherServing` front
+end through which every request goes, so concurrent callers share engine
+rounds through slot-level continuous batching. With ``serving.mode:
+direct`` there is no batcher (``self.serving is None``): every
+engine-touching path runs under ``_engine_lock`` and drives the engine
+itself, one request at a time, as the JAX worker's direct mode does — the
+blocking ``generate`` (``_generate``), the interruptible queued-job loop
+over ``decode_multi``, the per-step stream over ``decode_step`` (or
+``spec_decode_step``), ``batch_inference`` through ``generate`` and the PD
+decode loop over an adopted slot. ``serving.subwave`` /
+``serving.interleave`` (load-time) set the engine's sub-wave admission
+(``EngineConfig.admission_subwave`` / ``admission_interleave_steps``),
+which the legacy path's ``submit_batch`` runs (``serving.ragged: false``,
+or direct mode). In either mode:
 
 - ``inference(params)`` — the blocking result payload of the JAX engine;
   a server-minted ``_cancel_evt`` (hedged dispatch) aborts it at the next
@@ -50,8 +61,8 @@ Speculative decoding, in either of the JAX engine's two modes:
 
 The two are mutually exclusive. ``load_model`` refuses, with
 :class:`EngineLoadError` naming the key, what this port does not serve
-rather than ignoring it: tensor parallelism and the per-step ``serving.mode:
-direct`` stream loop. ``spec_distill_steps`` > 0 with ``speculative_decode``
+rather than ignoring it: tensor parallelism, and a ``serving.mode`` other
+than ``batcher`` or ``direct``. ``spec_distill_steps`` > 0 with ``speculative_decode``
 distils the draft head against the target at load, before the batcher
 starts (``TorchEngine.distill_draft``); the per-step losses are kept in
 ``distill_losses``.
@@ -92,7 +103,8 @@ Prefill/decode disaggregation and cluster KV migration
   ``handoff_sessions_purged`` feed the worker's heartbeat blocks.
 
 All engine work of these paths runs on the batcher's executor
-(``run_exclusive``): a data-plane thread never touches the device.
+(``run_exclusive``), or in direct mode under ``_engine_lock``: a data-plane
+thread never touches the device beside a running request.
 """
 
 from __future__ import annotations
@@ -124,6 +136,7 @@ from distributed_gpu_inference_torch.runtime.engine import (
     PreemptedSequence,
     TorchEngine,
 )
+from distributed_gpu_inference_torch.runtime.kv_cache import OutOfBlocksError
 from distributed_gpu_inference_torch.runtime.speculative import (
     SpecDecodeConfig,
     SpeculativeConfig,
@@ -204,6 +217,10 @@ SERVING_REMOTE_KEYS: Dict[str, str] = {
     "deadline_grace_s": "deadline_grace_s",
     "predictive_abandon": "predictive_abandon",
 }
+
+# ``serving.mode``: through the batcher, or the engine driven directly
+SERVING_MODES = ("batcher", "direct")
+
 
 def _truthy(value: Any) -> bool:
     """A pushed or configured flag: strings by content (bool("false") is
@@ -533,10 +550,10 @@ class TorchLLMEngine(LLMBaseEngine):
                 f"extra.tp_size={tp}: tensor parallelism is not in the "
                 "PyTorch port (one card)"
             )
-        if sv.get("mode") != "batcher":
+        if sv.get("mode") not in SERVING_MODES:
             raise EngineLoadError(
-                f"serving.mode: {sv.get('mode')!r}: the PyTorch port serves "
-                "through its batcher only (mode: batcher)"
+                f"serving.mode: {sv.get('mode')!r} is not a serving mode; use "
+                f"one of {list(SERVING_MODES)}"
             )
 
     def _local_file_key(self, key: str) -> Optional[str]:
@@ -572,6 +589,9 @@ class TorchLLMEngine(LLMBaseEngine):
             ),
             num_blocks=(int(self.config["num_blocks"])
                         if self.config.get("num_blocks") else None),
+            # sub-wave admission of the legacy path (load-time only)
+            admission_subwave=int(sv["subwave"]),
+            admission_interleave_steps=int(sv["interleave"]),
         )
         if self.config.get("prefill_buckets"):
             eng_cfg.prefill_buckets = tuple(
@@ -635,13 +655,14 @@ class TorchLLMEngine(LLMBaseEngine):
                 ) from exc
         if standalone:
             self._spec = self._standalone_decoder(model_name, eng_cfg)
-        try:
-            self.serving = BatcherServing(self.engine, self._batcher_config(sv),
-                                          spec=self._spec)
-        except (ValueError, RuntimeError) as exc:
-            raise EngineLoadError(
-                f"batcher serving config invalid: {exc}"
-            ) from exc
+        if sv["mode"] == "batcher":
+            try:
+                self.serving = BatcherServing(self.engine, self._batcher_config(sv),
+                                              spec=self._spec)
+            except (ValueError, RuntimeError) as exc:
+                raise EngineLoadError(
+                    f"batcher serving config invalid: {exc}"
+                ) from exc
         self.loaded = True
 
     def _standalone_decoder(self, model_name: str,
@@ -711,8 +732,9 @@ class TorchLLMEngine(LLMBaseEngine):
 
     def apply_serving_config(self, updates: Optional[Dict[str, Any]]) -> None:
         """Server-pushed SLO retune (remote config ``serving`` section),
-        applied to the LIVE batcher between rounds. Load-time knobs
-        (``mode``, ``subwave``, ``interleave``) are not remote keys."""
+        applied to the LIVE batcher between rounds; a no-op in direct mode.
+        Load-time knobs (``mode``, ``subwave``, ``interleave``) are not
+        remote keys."""
         if self.serving is None or not updates:
             return
         kw = {
@@ -725,7 +747,7 @@ class TorchLLMEngine(LLMBaseEngine):
 
     def serving_stats(self) -> Optional[Dict[str, Any]]:
         """Live batcher stats (occupancy, queue depth, counters) — ride the
-        worker heartbeat. None when no batcher is serving."""
+        worker heartbeat. None when no batcher is serving (direct mode)."""
         if self.serving is None or not self.serving.active:
             return None
         return self.serving.get_stats()
@@ -897,28 +919,94 @@ class TorchLLMEngine(LLMBaseEngine):
             req.params["speculative"] = False
         return req
 
+    @property
+    def _direct(self) -> bool:
+        """Loaded in ``serving.mode: direct``: no batcher, the engine is
+        driven under ``_engine_lock``."""
+        return self.loaded and self.engine is not None and self.serving is None
+
+    def _require_serving(self) -> None:
+        """Raise unless a batcher serves or the engine is loaded direct."""
+        if not self._direct and (self.serving is None or not self.serving.active):
+            raise EngineLoadError("engine not loaded")
+
     def inference(self, params: Dict[str, Any]) -> Dict[str, Any]:
         stage = params.get("pd_stage")
         if stage == "prefill":
             return self.pd_prefill(params)
-        if stage == "decode":
+        self._require_serving()
+        if stage == "decode" and not self._direct:
             return self.pd_decode(params)
-        if self.serving is None or not self.serving.active:
-            raise EngineLoadError("engine not loaded")
         # flight recorder: the request's Timeline is minted here and rides
         # params to the serving path that closes it
-        tl = self._flight_timeline(params)
+        tl = self._flight_timeline(params) if stage != "decode" else NULL_TIMELINE
         if tl.enabled:
             params["_flight_tl"] = tl
         if stage is None:
             # router-hinted KV migration: pull the hot prefix from the
-            # named peer before admission (never holding the PD lock: the
-            # peer's export serializes on ITS engine)
+            # named peer before admission (never holding the engine lock:
+            # the peer's export serializes on ITS engine)
             self._maybe_migrate_kv(params)
         ctx = params.get("_failover_ctx")
-        if isinstance(ctx, dict):
-            return self._job_inference(params, ctx)
-        return self._serving_inference(params)
+        if not self._direct:
+            if isinstance(ctx, dict):
+                return self._job_inference(params, ctx)
+            return self._serving_inference(params)
+        # direct mode: the lock covers every engine-touching path — the
+        # data plane's kv_receiver adopts handoffs from its own threads
+        with self._engine_lock:
+            if stage == "decode":
+                return self.pd_decode(params)
+            if isinstance(ctx, dict):
+                return self._job_inference(params, ctx)
+            tl = params.pop("_flight_tl", NULL_TIMELINE)
+            tl.note("worker.start", path="legacy")
+            out = self._legacy_inference(params)
+        tl.note("worker.done")
+        self._flight_finish(tl, out)
+        return out
+
+    def _legacy_inference(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The blocking legacy path of direct mode (the caller holds the
+        engine lock): :meth:`_generate` to its result payload."""
+        cfg = GenerationConfig.from_params(params)
+        prompt = params.get("messages") or params.get("prompt") or ""
+        return self._generate(prompt, cfg).to_result_payload()
+
+    def _generate(self, prompt_or_messages: Any,
+                  cfg: GenerationConfig) -> GenerationResult:
+        """One request generated to completion by the engine itself
+        (``generate`` with multi-step decode), or by the standalone tree
+        decoder for a greedy prompt within one prefill bucket (its prefill
+        is single-shot)."""
+        req = self._build_request(prompt_or_messages, cfg)
+        t0 = time.perf_counter()
+        use_spec = (
+            self._spec is not None
+            and cfg.temperature <= 0.0
+            and len(req.prompt_token_ids or []) <= self.engine.cfg.prefill_buckets[-1]
+        )
+        if use_spec:
+            resp = self._spec.generate([req])[0]
+        else:
+            resp = self.engine.generate([req], use_multi_step=True)[0]
+        e2e_ms = (time.perf_counter() - t0) * 1000.0
+        out_text = self.tokenizer.decode(resp.token_ids)
+        finish = resp.finish_reason or "stop"
+        for st in cfg.stop:   # the first configured stop string found wins
+            idx = out_text.find(st)
+            if idx >= 0:
+                out_text = out_text[:idx]
+                finish = "stop"
+                break
+        return GenerationResult(
+            text=out_text,
+            prompt_tokens=resp.prompt_tokens,
+            completion_tokens=resp.completion_tokens,
+            cached_tokens=resp.cached_tokens,
+            finish_reason=finish,
+            ttft_ms=resp.ttft_ms if resp.ttft_ms is not None else e2e_ms,
+        )
 
     def _serving_inference(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Blocking request through the batcher front end: concurrent
@@ -970,8 +1058,11 @@ class TorchLLMEngine(LLMBaseEngine):
     # -- prefill/decode disaggregation (the control plane's pd_flow drives these)
 
     def _exclusive(self, fn: Callable[[], Any]) -> Any:
-        """Run engine work on the batcher's executor thread, between rounds
-        (the port always serves through its batcher)."""
+        """Run engine work on the batcher's executor thread, between rounds;
+        in direct mode run it here (the caller holds ``_engine_lock``, the
+        only serialization there is)."""
+        if self._direct:
+            return fn()
         if self.engine is None or self.serving is None or not self.serving.active:
             raise EngineLoadError("engine not loaded")
         return self.serving.run_exclusive(fn)
@@ -1256,9 +1347,13 @@ class TorchLLMEngine(LLMBaseEngine):
 
     def pd_decode(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Decode stage: the adopted (or retained) slot joins the batcher's
-        shared rounds (``serving.adopt_slot``) and runs to completion. TTFT
-        and E2E stay end to end: the handoff carried the original times."""
-        if not self.loaded or self.engine is None or self.serving is None:
+        shared rounds (``serving.adopt_slot``) and runs to completion; in
+        direct mode (the caller holds the engine lock) this driver decodes
+        it alone with ``decode_multi``. TTFT and E2E stay end to end: the
+        handoff carried the original times."""
+        if not self.loaded or self.engine is None:
+            raise EngineLoadError("engine not loaded")
+        if self.serving is None and not self._direct:
             raise EngineLoadError("engine not loaded")
         key = params.get("kv_cache_key") or ""
         tl = self._flight_timeline(params)
@@ -1276,14 +1371,28 @@ class TorchLLMEngine(LLMBaseEngine):
             raise RuntimeError(
                 f"adopted KV for key {key!r} was reclaimed before the "
                 "decode stage claimed it")
-        try:
-            resp = self.serving.adopt_slot(slot, flight=tl if tl.enabled else None)
-        except Exception:
-            self._release_adopted_slot(eng, slot, seq)
-            raise
-        if resp.error is not None:
-            self._release_adopted_slot(eng, slot, seq)
-            _raise_serving(resp)
+        if self._direct:
+            try:
+                while eng.slots[slot] is not None and \
+                        eng.slots[slot].finish_reason is None:
+                    eng.decode_multi()
+                    self._raise_if_pressured(eng, slot)
+            except Exception:
+                # a failed job must release the adopted slot: leaked blocks
+                # would add to the very pressure that failed it
+                if eng.slots[slot] is not None:
+                    eng.finish_slot(slot, cache=False)
+                raise
+            resp = eng.finish_slot(slot)
+        else:
+            try:
+                resp = self.serving.adopt_slot(slot, flight=tl if tl.enabled else None)
+            except Exception:
+                self._release_adopted_slot(eng, slot, seq)
+                raise
+            if resp.error is not None:
+                self._release_adopted_slot(eng, slot, seq)
+                _raise_serving(resp)
         text = self.tokenizer.decode(resp.token_ids) if self.tokenizer else ""
         tl.note("pd.decode.done", tokens=resp.completion_tokens)
         out = {
@@ -1304,10 +1413,24 @@ class TorchLLMEngine(LLMBaseEngine):
         self._flight_finish(tl, out)
         return out
 
+    @staticmethod
+    def _raise_if_pressured(eng: TorchEngine, slot: int) -> None:
+        """A single-sequence driver of direct mode (PD decode, the stream)
+        has no scheduler above it to preempt for: when the engine froze
+        THIS slot at a pressure boundary, fail with OutOfBlocksError
+        instead of spinning on empty rounds."""
+        p = eng.take_pressure()
+        if p is not None and slot in p.slots:
+            raise OutOfBlocksError(
+                f"KV pool exhausted while decoding slot {slot} and no "
+                "scheduler is attached to preempt for it"
+            )
+
     def _release_adopted_slot(self, eng: Any, slot: int, seq: Any) -> None:
         """Free an adopted slot a failed or expired decode stage leaves
-        behind, on the executor; identity-guarded (the index may have been
-        recycled for another sequence, which is not ours to finish)."""
+        behind, on the executor (in direct mode under the caller's engine
+        lock); identity-guarded (the index may have been recycled for
+        another sequence, which is not ours to finish)."""
         def _free() -> None:
             if eng.slots[slot] is seq:
                 eng.finish_slot(slot, cache=False)
@@ -1494,7 +1617,9 @@ class TorchLLMEngine(LLMBaseEngine):
             # already warm here (the router hints until our summary says
             # so): skip when the local radix covers the full-block prefix
             n_full = len(token_ids) // bs
-            local = self._exclusive(lambda: len(eng.manager.radix.match_prefix(token_ids)))
+            with self._engine_lock:
+                local = self._exclusive(
+                    lambda: len(eng.manager.radix.match_prefix(token_ids)))
             if local >= max(1, n_full - 1):
                 stats["local_hits"] += 1
                 tl.note("kv_migrate.local_hit", blocks=local)
@@ -1650,13 +1775,167 @@ class TorchLLMEngine(LLMBaseEngine):
         ``{"text_delta", "token_ids", "offset"}``... then a final
         ``{"done": True, "finish_reason", "usage", "offset"}``; ``offset``
         (and ``stream_id``) only when the request carries a stream key.
-        ``cancel`` (an Event) aborts at the next step boundary."""
-        if self.serving is None or not self.serving.active:
-            raise EngineLoadError("engine not loaded")
+        ``cancel`` (an Event) aborts at the next step boundary. In direct
+        mode the per-step driver :meth:`_stream_direct` runs instead, under
+        the engine lock, with the same chunk contract."""
+        self._require_serving()
         tl = self._flight_timeline(params)
+        if not self._direct:
+            if tl.enabled:
+                params["_flight_tl"] = tl
+            return self._stream_serving(params, cancel=cancel)
         if tl.enabled:
-            params["_flight_tl"] = tl
-        return self._stream_serving(params, cancel=cancel)
+            return self._stream_direct_traced(tl, params, cancel)
+        return self._stream_direct(params, cancel=cancel)
+
+    def _stream_direct_traced(self, tl: Any, params: Dict[str, Any],
+                              cancel: Optional[Any] = None):
+        """The direct stream with a flight timeline: notes the stream's
+        boundaries and closes the timeline, attaching its wire to the final
+        chunk as the serving stream does (an abandoned stream's partial
+        timeline still reaches the heartbeat ring)."""
+        tl.note("worker.stream.start", path="direct")
+        done = False
+        try:
+            for chunk in self._stream_direct(params, cancel=cancel):
+                if isinstance(chunk, dict) and chunk.get("done"):
+                    done = True
+                    tl.note("worker.stream.done",
+                            finish_reason=chunk.get("finish_reason"))
+                    self._flight_finish(tl, chunk)
+                yield chunk
+        finally:
+            if not done:
+                tl.note("worker.stream.done", finish_reason="abandoned")
+                self._flight_finish(tl)
+
+    @staticmethod
+    def _stream_stamp(key: Optional[str]) -> Callable[[Dict[str, Any], int], Dict[str, Any]]:
+        """A stream's chunk stamper: ``stream_id`` and the token ``offset``
+        when the request carries a stream key."""
+        def stamp(chunk: Dict[str, Any], offset: int) -> Dict[str, Any]:
+            if key is not None:
+                chunk["stream_id"] = key
+                chunk["offset"] = offset
+            return chunk
+        return stamp
+
+    def _stream_checkpoint_tail(self, pre: PreemptedSequence, cfg: GenerationConfig,
+                                stamp: Callable, holdback: int, resume_from: int,
+                                resume_text: int):
+        """Serve the unconsumed tail of a checkpoint that holds the whole
+        generation (the donor died between its last decode and the final
+        event) straight from it, through the live loops' splice, stop and
+        holdback rules — both stream drivers end here."""
+        sp = _StreamSplicer(self.tokenizer, cfg, holdback, resume_from, resume_text)
+        gen = list(pre.generated)
+        chunk, _ = sp.advance(gen, finished=True)
+        if chunk is not None:
+            yield stamp(chunk, sp.sent_tokens)
+        yield stamp({
+            "done": True,
+            "finish_reason": sp.finish_override or "length",
+            "usage": {
+                "prompt_tokens": pre.prompt_len,
+                "completion_tokens": len(gen),
+                "total_tokens": pre.prompt_len + len(gen),
+                "cached_tokens": pre.cached_tokens,
+            },
+        }, sp.sent_tokens)
+
+    def _stream_direct(self, params: Dict[str, Any], cancel: Optional[Any] = None):
+        """The per-step stream driver of direct mode: one ``decode_step``
+        (``spec_decode_step`` when the engine speculates) a step under the
+        engine lock, each new token through :class:`_StreamSplicer`
+        (holdback, stop strings, resume splice), ``cancel`` checked at
+        step boundaries. With a stream key it registers for
+        ``checkpoint_live``, pushes a synchronous admission checkpoint and
+        one every ``checkpoint_interval_tokens``, and stamps offsets; a
+        resume context restores the sequence (``TorchEngine.resume``) and
+        splices, from a checkpoint either package or either mode wrote."""
+        cfg = GenerationConfig.from_params(params)
+        ctx = params.get("_failover_ctx")
+        ctx = ctx if isinstance(ctx, dict) else {}
+        key = str(ctx.get("key") or params.get("stream_id") or "") or None
+        epoch = int(ctx.get("epoch") or 0)
+        resume_from = int(ctx.get("offset") or 0)
+        resume_text = int(ctx.get("text_offset") or 0)
+        stamp = self._stream_stamp(key)
+        holdback = max(max((len(st) for st in cfg.stop), default=0) - 1, 0)
+        pre = self._ckpt_from_wire(ctx.get("checkpoint"))
+        if pre is not None and \
+                pre.request.sampling.max_new_tokens - len(pre.generated) <= 0:
+            yield from self._stream_checkpoint_tail(pre, cfg, stamp, holdback,
+                                                    resume_from, resume_text)
+            return
+        eng = self.engine
+        # engine work runs under the engine lock, one step at a time: the
+        # lock is never held across a yield (a consumer may stall or drop
+        # the generator)
+        with self._engine_lock:
+            if pre is not None:
+                slot = eng.resume(pre)
+                request_id = pre.request.request_id
+            else:
+                req = self._build_request(
+                    params.get("messages") or params.get("prompt") or "", cfg,
+                    token_ids=params.pop("_kvmig_token_ids", None),
+                )
+                slot = eng.submit(req)
+                request_id = req.request_id
+        live_info = {"kind": "stream", "epoch": epoch, "request_id": request_id}
+        last_ckpt = len(eng.slots[slot].generated)
+        if key is not None:
+            self._register_live(key, "stream", epoch, request_id)
+            # admission checkpoint (synchronous): a worker killed before
+            # its first heartbeat still leaves a resumable record
+            self._push_checkpoint(self._snapshot_live(key, live_info), sync=True)
+        sp = _StreamSplicer(self.tokenizer, cfg, holdback, resume_from, resume_text)
+        try:
+            while True:
+                s = eng.slots[slot]
+                finished = s.finish_reason is not None
+                chunk, stop_cut = sp.advance(list(s.generated), finished)
+                if chunk is not None:
+                    yield stamp(chunk, sp.sent_tokens)
+                if stop_cut:
+                    s.finish_reason = "stop"
+                    finished = True
+                if finished:
+                    break
+                if cancel is not None and cancel.is_set():
+                    s.finish_reason = s.finish_reason or "abort"
+                    break
+                with self._engine_lock:
+                    if eng.cfg.speculative is not None:
+                        # up to K+1 tokens a round reach the stream
+                        eng.spec_decode_step()
+                    else:
+                        eng.decode_step()
+                    self._raise_if_pressured(eng, slot)
+                if key is not None and self._ckpt_interval > 0:
+                    s2 = eng.slots[slot]
+                    n = len(s2.generated) if s2 is not None else last_ckpt
+                    if n - last_ckpt >= self._ckpt_interval:
+                        self._push_checkpoint(self._snapshot_live(key, live_info))
+                        last_ckpt = n
+        finally:
+            if key is not None:
+                self._unregister_live(key)
+            with self._engine_lock:
+                resp = eng.finish_slot(slot)
+        yield stamp({
+            "done": True,
+            "finish_reason": sp.finish_override or resp.finish_reason,
+            "usage": {
+                "prompt_tokens": resp.prompt_tokens,
+                "completion_tokens": resp.completion_tokens,
+                "total_tokens": resp.prompt_tokens + resp.completion_tokens,
+                "cached_tokens": resp.cached_tokens,
+            },
+        }, sp.sent_tokens)
+        # the server-held checkpoint is NOT retired on completion: the
+        # worker cannot know the final bytes reached the client
 
     def _stream_serving(self, params: Dict[str, Any],
                         cancel: Optional[Any] = None):
@@ -1678,13 +1957,7 @@ class TorchLLMEngine(LLMBaseEngine):
         # text WITHOUT advancing the token offset, so the token splice
         # alone could re-deliver (or withhold) the flushed tail
         resume_text = int(ctx.get("text_offset") or 0)
-
-        def stamp(chunk: Dict[str, Any], offset: int) -> Dict[str, Any]:
-            if key is not None:
-                chunk["stream_id"] = key
-                chunk["offset"] = offset
-            return chunk
-
+        stamp = self._stream_stamp(key)
         holdback = max((len(s) for s in cfg.stop), default=0)
         holdback = max(holdback - 1, 0)
         pre = self._ckpt_from_wire(ckpt)
@@ -1692,26 +1965,10 @@ class TorchLLMEngine(LLMBaseEngine):
             remaining = (pre.request.sampling.max_new_tokens
                          - len(pre.generated))
             if remaining <= 0:
-                # the checkpoint holds the whole generation (the donor died
-                # between its last decode and the final event): serve its
-                # unconsumed tail straight from it, through the live
-                # loop's splice, stop and holdback rules
-                sp = _StreamSplicer(self.tokenizer, cfg, holdback,
-                                    resume_from, resume_text)
-                gen = list(pre.generated)
-                chunk, _ = sp.advance(gen, finished=True)
-                if chunk is not None:
-                    yield stamp(chunk, sp.sent_tokens)
-                yield stamp({
-                    "done": True,
-                    "finish_reason": sp.finish_override or "length",
-                    "usage": {
-                        "prompt_tokens": pre.prompt_len,
-                        "completion_tokens": len(gen),
-                        "total_tokens": pre.prompt_len + len(gen),
-                        "cached_tokens": pre.cached_tokens,
-                    },
-                }, sp.sent_tokens)
+                # the checkpoint holds the whole generation: serve its
+                # unconsumed tail straight from it
+                yield from self._stream_checkpoint_tail(
+                    pre, cfg, stamp, holdback, resume_from, resume_text)
                 return
             req = pre.request
         else:
@@ -2038,6 +2295,8 @@ class TorchLLMEngine(LLMBaseEngine):
         cfg = GenerationConfig.from_params(params)
         key = str(ctx.get("key") or "")
         epoch = int(ctx.get("epoch") or 0)
+        if self._direct:
+            return self._job_inference_direct(params, cfg, key, epoch, ctx)
         if self.engine is None or self.serving is None \
                 or not self.serving.active:
             raise EngineLoadError("engine not loaded")
@@ -2092,13 +2351,107 @@ class TorchLLMEngine(LLMBaseEngine):
         self._flight_finish(tl, payload)
         return payload
 
+    def _job_inference_direct(self, params: Dict[str, Any], cfg: GenerationConfig,
+                              key: str, epoch: int,
+                              ctx: Dict[str, Any]) -> Dict[str, Any]:
+        """The queued-job driver of direct mode (the caller holds the engine
+        lock): submits, or resumes from the claim's checkpoint, registers
+        for ``checkpoint_live``, decodes in ``decode_multi`` rounds so a
+        drain interrupt lands at a step boundary — there it preempts the
+        slot and raises :class:`JobMigrated` with the frozen state — and
+        rides out KV pressure by preempt + resume. A fresh greedy job takes
+        the standalone tree decoder where one is attached (its waves are
+        neither interruptible nor checkpointable: a drain finishes it, a
+        crash replays it)."""
+        eng = self.engine
+        tl = params.pop("_flight_tl", NULL_TIMELINE)
+        tl.note("worker.start", path="job")
+        ckpt = ctx.get("checkpoint")
+        if not isinstance(ckpt, dict) and self._spec is not None \
+                and cfg.temperature <= 0.0:
+            return self._legacy_inference(params)
+        t0 = time.perf_counter()
+        pre = self._ckpt_from_wire(ckpt)
+        if pre is not None:
+            if pre.request.sampling.max_new_tokens - len(pre.generated) <= 0:
+                # the checkpoint already holds the whole generation:
+                # deliver without touching the engine
+                return self._finish_payload(
+                    list(pre.generated), pre.prompt_len,
+                    pre.cached_tokens, "length", cfg, None,
+                    time.perf_counter() - t0,
+                )
+            slot = eng.resume(pre)
+            request_id = pre.request.request_id
+        else:
+            req = self._build_request(
+                params.get("messages") or params.get("prompt") or "", cfg,
+                token_ids=params.pop("_kvmig_token_ids", None),
+            )
+            slot = eng.submit(req)
+            request_id = req.request_id
+        self._register_live(key, "job", epoch, request_id)
+        try:
+            while eng.slots[slot] is not None and \
+                    eng.slots[slot].finish_reason is None:
+                if self._interrupt.is_set():
+                    pre = eng.preempt_slot(slot)
+                    raise JobMigrated(pre.to_wire(), tokens=len(pre.generated))
+                eng.decode_multi()
+                slot = self._ride_out_pressure(eng, slot)
+        except JobMigrated:
+            raise
+        except Exception:
+            if eng.slots[slot] is not None:
+                eng.finish_slot(slot, cache=False)
+            raise
+        finally:
+            self._unregister_live(key)
+        resp = eng.finish_slot(slot)
+        if tl.enabled and resp.extra.get("t_first_token") is not None:
+            # the engine-observed instant, not the loop-observed one
+            tl.note_at("batcher.first_token", resp.extra["t_first_token"])
+        tl.note("worker.done")
+        payload = self._finish_payload(
+            list(resp.token_ids), resp.prompt_tokens, resp.cached_tokens,
+            resp.finish_reason or "stop", cfg, resp.ttft_ms,
+            time.perf_counter() - t0,
+        )
+        self._flight_finish(tl, payload)
+        return payload
+
+    def _ride_out_pressure(self, eng: TorchEngine, slot: int) -> int:
+        """KV pressure under the direct job driver, with no batcher above
+        it: when the engine froze THIS slot at a pressure boundary, preempt
+        it (its full blocks park in the prefix cache) and resume at once.
+        No wait loop — this runs under the engine lock, which the paths
+        that free pinned blocks (adoptions, retained PD slots) also take.
+        If the pool still cannot hold the sequence the job fails; a drain
+        interrupt turns the frozen state into :class:`JobMigrated`."""
+        p = eng.take_pressure()
+        if p is None or slot not in p.slots:
+            return slot
+        pre = eng.preempt_slot(slot)
+        if self._interrupt.is_set():
+            raise JobMigrated(pre.to_wire(), tokens=len(pre.generated))
+        try:
+            return eng.resume(pre)
+        except OutOfBlocksError:
+            raise OutOfBlocksError(
+                "KV pool cannot hold the queued job's sequence even after "
+                "preempt/evict — blocks are pinned by concurrent sessions"
+            ) from None
+
     # -- batch path ------------------------------------------------------------
 
     def batch_inference(self, batch: List[Dict[str, Any]]
                         ) -> List[Dict[str, Any]]:
         """Every request of the batch submitted at once to the batcher (the
         engine's one caller), so they share rounds; payloads in order, built
-        as the blocking path builds them."""
+        as the blocking path builds them. In direct mode one
+        ``generate`` over the batch, under the engine lock."""
+        if self._direct:
+            return self._batch_direct(batch)
         if self.serving is None or not self.serving.active:
             raise EngineLoadError("engine not loaded")
         cfgs = [GenerationConfig.from_params(p) for p in batch]
@@ -2116,6 +2469,42 @@ class TorchLLMEngine(LLMBaseEngine):
                 resp.finish_reason or "stop", cfg, resp.ttft_ms,
                 time.perf_counter() - t0,
             ))
+        return out
+
+    def _batch_direct(self, batch: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Direct mode's batch: the whole prompt of each (no truncation),
+        one ``TorchEngine.generate`` over the batch, payloads in order, each
+        text cut at the first configured stop string found (finish reason
+        unchanged) — the JAX worker's batch path. That path takes no engine
+        lock, so there it can race a handoff adoption; here the engine lock
+        is held."""
+        reqs, cfgs = [], []
+        for params in batch:
+            cfg = GenerationConfig.from_params(params)
+            cfgs.append(cfg)
+            text = self._to_prompt(params.get("messages") or params.get("prompt") or "")
+            reqs.append(InferenceRequest(
+                prompt_token_ids=list(self.tokenizer.encode(text)),
+                sampling=self._sampling_from(cfg),
+            ))
+        with self._engine_lock:
+            resps = self.engine.generate(reqs, use_multi_step=True)
+        out = []
+        for resp, cfg in zip(resps, cfgs):
+            text = self.tokenizer.decode(resp.token_ids)
+            for st in cfg.stop:
+                idx = text.find(st)
+                if idx >= 0:
+                    text = text[:idx]
+                    break
+            out.append(GenerationResult(
+                text=text,
+                prompt_tokens=resp.prompt_tokens,
+                completion_tokens=resp.completion_tokens,
+                cached_tokens=resp.cached_tokens,
+                finish_reason=resp.finish_reason or "stop",
+                ttft_ms=resp.ttft_ms,
+            ).to_result_payload())
         return out
 
     def health(self) -> Dict[str, Any]:

@@ -32,6 +32,7 @@ from distributed_gpu_inference_tpu.models import llama as jllama  # noqa: E402
 from distributed_gpu_inference_tpu.models.configs import get_model_config  # noqa: E402
 from distributed_gpu_inference_tpu.runtime import engine as jengine  # noqa: E402
 from distributed_gpu_inference_tpu.testing import harness as jharness  # noqa: E402
+from distributed_gpu_inference_tpu.worker import direct_server as jdirect  # noqa: E402
 from distributed_gpu_inference_tpu.worker.engines import llm as jllm  # noqa: E402
 from tests.test_torch_fleet_chaos import (  # noqa: E402
     FLEET_ENGINE,
@@ -49,7 +50,8 @@ from tests.test_torch_fleet_chaos import (  # noqa: E402
 MODEL = "llama3-tiny"
 # while chaos runs each engine round sleeps this long first, so a kill
 # lands while the victim holds a job mid-generation with a checkpoint on
-# the plane (the calm replay runs unpaced)
+# the plane (the calm replay runs unpaced); one dict a member, so the
+# victim alone can be held back while its kill lands
 PACE = {"s": 0.15}
 # a batch and a claim ceiling of 8: a request whose member dies finds
 # headroom on the survivor (the plane offers no failover worker without)
@@ -72,9 +74,23 @@ def mixed():
             return paced(jharness.FleetWorker, PACE, 8)(index, target, jax_engine)
         return paced(tharness.FleetWorker, PACE, 8)(index, target, ENGINE, weights=weights)
 
+    real_stop = jdirect.DirectServer.stop
+
+    def patient_stop(self):
+        # the JAX member's kill stops its server, then its engine; the
+        # server's shutdown lets the streams in flight run on (they end with
+        # done), but the kill waits for it only 5 s, after which the engine's
+        # stop fails a stream still running with an error event instead of a
+        # drop. Here the kill waits until its server is down, whatever the load
+        thread = self._thread
+        real_stop(self)
+        if thread is not None:
+            thread.join(timeout=120.0)
+
     with pytest.MonkeyPatch.context() as mp:
         # every (re)start of the JAX member builds its engine on the weights
         mp.setattr(jllm, "TPUEngine", f32_engine)
+        mp.setattr(jdirect.DirectServer, "stop", patient_stop)
         with port_fleet(n=2, member_factory=member) as fl:
             yield fl
 
@@ -87,9 +103,9 @@ def test_members_are_one_of_each_package(mixed):
 
 def _kill_while_busy(mixed, victim, seed):
     """Traffic of 6 requests (every third a stream); once the victim holds
-    a running job whose checkpoint reached the plane, it is killed, and
-    restarted after its jobs have gone to the other member. → (records,
-    the job ids this traffic created)."""
+    a running job whose checkpoint reached the plane, its next round is
+    held back and it is killed, and restarted once those jobs have gone to
+    the other member. → (records, the job ids this traffic created)."""
     prompts = suite_prompts(seed, 6)
     out, errors = {}, []
 
@@ -103,26 +119,63 @@ def _kill_while_busy(mixed, victim, seed):
     t = threading.Thread(target=traffic, daemon=True)
     t.start()
     vid = mixed.members[victim].worker_id
+    other = mixed.members[1 - victim].worker_id
+    held = []
 
     def holding():
         rows = mixed.plane.query(
             "SELECT id FROM jobs WHERE status='running' AND worker_id=?", (vid,))
-        return any((mixed.plane.job(r["id"]).get("checkpoint") or {}).get("generated")
-                   for r in rows)
+        held[:] = [r["id"] for r in rows
+                   if (mixed.plane.job(r["id"]).get("checkpoint") or {}).get("generated")]
+        return bool(held)
 
+    # a round of the victim that starts while it holds a checkpointed job
+    # waits at a gate, so under any load that job is still running when the
+    # kill lands; the gate opens once the plane gave the jobs to the other
+    # member (the dying incarnation's round then runs out, and its late
+    # completion is fenced)
+    gate = threading.Event()
+    eng = mixed.members[victim].llm.engine
+    for name in ("ragged_round", "decode_multi"):
+        def gated(*a, _real=getattr(eng, name), **kw):
+            if not gate.is_set() and holding():
+                gate.wait(timeout=120.0)
+            return _real(*a, **kw)
+
+        setattr(eng, name, gated)
     deadline = time.time() + 60.0
-    while not holding():
+    while not list(held):
         assert time.time() < deadline, "the victim never held a checkpointed job"
         time.sleep(0.02)
-    plan = FleetFaultPlan(seed, n_workers=2, duration_s=4.0)
-    plan.events = [FleetEvent(0.0, "kill", victim), FleetEvent(3.0, "restart", victim)]
+    plan = FleetFaultPlan(seed, n_workers=2, duration_s=1.0)
+    plan.events = [FleetEvent(0.0, "kill", victim)]
     mixed.run_chaos(plan)
+
+    def taken():
+        return all(mixed.plane.job(j)["worker_id"] == other
+                   and mixed.plane.job(j)["assignment_epoch"] >= 2 for j in held)
+
+    # restarted only once the other member took the jobs it held: a restart
+    # that beats the other member's claim would take them back itself
+    deadline = time.time() + 120.0
+    while not taken():
+        assert time.time() < deadline, (
+            "the killed member's jobs never went to the other member",
+            {j: {k: mixed.plane.job(j).get(k) for k in ("status", "worker_id",
+                                                         "assignment_epoch")}
+             for j in held})
+        time.sleep(0.05)
+    gate.set()
+    mixed.wait_chaos(timeout_s=180.0)
+    restart = FleetFaultPlan(seed, n_workers=2, duration_s=1.0)
+    restart.events = [FleetEvent(0.0, "restart", victim)]
+    mixed.run_chaos(restart)
     t.join(timeout=180.0)
     mixed.wait_chaos(timeout_s=180.0)
     heal(mixed)
     if errors:
         raise errors[0]
-    assert [k for _, k, _ in plan.trace] == ["kill", "restart"]
+    assert [k for _, k, _ in plan.trace + restart.trace] == ["kill", "restart"]
     return out["records"], {r["job_id"] for r in out["records"] if r["path"] == "queued"}
 
 

@@ -252,3 +252,132 @@ def test_matmul_dispatch_keeps_leading_axes():
                                np.asarray(jq.dequantize({"qw": j["qw"][0],
                                                          "scale": j["scale"][0]})),
                                rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------- quantized-weight cache
+# the port of ``tests/test_quantization.py::test_engine_quant_cache_roundtrip``
+# and the JAX engine's rules around it (``_quant_cache_path`` /
+# ``_load_quant_cache``), on the port's own format
+
+
+def _cache_engine(tmp_path, mode="int8", **kw):
+    from distributed_gpu_inference_torch.runtime import engine as tengine
+
+    cfg = tengine.EngineConfig(max_batch_size=2, max_seq_len=64, prefill_buckets=(16, 32),
+                               quantization=mode, quant_cache_dir=str(tmp_path / "qc"),
+                               dtype="float32")
+    return tengine.TorchEngine("llama3-tiny", cfg, device="cpu", **kw)
+
+
+def _greedy(eng):
+    from distributed_gpu_inference_torch.utils import data_structures as tds
+
+    return eng.generate([tds.InferenceRequest(
+        prompt_token_ids=list(range(10, 30)),
+        sampling=tds.SamplingParams(max_new_tokens=6, temperature=0.0))])[0].token_ids
+
+
+def _leaves(tree, prefix=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quant_cache_round_trips_the_tree_bitwise(tmp_path, mode):
+    from distributed_gpu_inference_torch.utils.safetensors import SafetensorsFile
+
+    e1 = _cache_engine(tmp_path, mode)
+    files = list((tmp_path / "qc").iterdir())
+    assert [f.name for f in files] == [f"llama3-tiny-{mode}-float32-rand-seed0.safetensors"]
+    with SafetensorsFile(files[0]) as f:
+        kinds = {f.get_tensor(k).dtype for k in f.keys() if k.endswith("/qw")}
+    assert kinds == {torch.int8 if mode == "int8" else torch.float8_e4m3fn}
+    e2 = _cache_engine(tmp_path, mode)
+    a, b = dict(_leaves(e1.params)), dict(_leaves(e2.params))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        assert np.array_equal(_bits(a[k]), _bits(b[k])), k
+    assert _greedy(e1) == _greedy(e2)
+
+
+def test_quant_cache_hit_skips_the_build(tmp_path, monkeypatch):
+    from distributed_gpu_inference_torch.runtime import engine as tengine
+
+    _cache_engine(tmp_path)
+
+    def no_build(*a, **kw):
+        raise AssertionError("a cache hit built the tree")
+
+    monkeypatch.setattr(tengine, "load_or_init_params", no_build)
+    _cache_engine(tmp_path)
+
+
+@pytest.mark.parametrize("damage", ["truncate", "garbage", "other tree"])
+def test_a_corrupt_quant_cache_is_rebuilt(tmp_path, caplog, damage):
+    from distributed_gpu_inference_torch.models.loader import save_quant_cache
+
+    e1 = _cache_engine(tmp_path)
+    (path,) = list((tmp_path / "qc").iterdir())
+    size = path.stat().st_size
+    if damage == "truncate":
+        with open(path, "r+b") as f:
+            f.truncate(size // 2)
+    elif damage == "garbage":
+        path.write_bytes(b"\x07" * 64)
+    else:
+        save_quant_cache(path, {"layers": {"wq": torch.zeros(1, 2)}})
+    with caplog.at_level("WARNING"):
+        e2 = _cache_engine(tmp_path)
+    assert "rebuilding" in caplog.text
+    assert path.stat().st_size == size            # written again, whole
+    for (ka, va), (kb, vb) in zip(_leaves(e1.params), _leaves(e2.params)):
+        assert ka == kb and np.array_equal(_bits(va), _bits(vb))
+    assert not [p for p in path.parent.iterdir() if ".tmp-" in p.name]
+
+
+def test_quant_cache_tag_is_the_jax_engines_and_follows_an_in_place_rewrite(tmp_path):
+    """The file is named by the JAX engine's tag; rewriting a checkpoint
+    file in place (same directory) changes it."""
+    import os
+    from types import SimpleNamespace
+
+    from distributed_gpu_inference_torch.models.loader import quant_cache_path
+    from distributed_gpu_inference_tpu.runtime import engine as jengine
+
+    ckpt = tmp_path / "ckpt"
+    (ckpt / "sub").mkdir(parents=True)
+    (ckpt / "config.json").write_text("{}")
+    (ckpt / "sub" / "w.bin").write_bytes(b"\x00" * 16)
+
+    def jax_tag(path, seed):
+        stub = SimpleNamespace(cfg=SimpleNamespace(quant_cache_dir=str(tmp_path / "qc"),
+                                                   quantization="int8", dtype="bfloat16"),
+                               mesh=None, model_cfg=SimpleNamespace(name="llama3-8b"))
+        return jengine.TPUEngine._quant_cache_path(stub, path, seed).name
+
+    def port_tag(path, seed):
+        p = quant_cache_path(tmp_path / "qc", "llama3-8b", "int8", "bfloat16", path, seed)
+        assert p.suffix == ".safetensors" and p.parent == tmp_path / "qc"
+        return p.stem
+
+    for path, seed in ((None, 0), (None, 3), (str(ckpt), 0)):
+        assert port_tag(path, seed) == jax_tag(path, seed)
+    before = port_tag(str(ckpt), 0)
+    st = (ckpt / "sub" / "w.bin").stat()
+    (ckpt / "sub" / "w.bin").write_bytes(b"\x01" * 16)
+    os.utime(ckpt / "sub" / "w.bin", ns=(st.st_atime_ns, st.st_mtime_ns + 1000))
+    assert port_tag(str(ckpt), 0) != before
+    assert port_tag(str(ckpt), 0) == jax_tag(str(ckpt), 0)
+
+
+def test_quant_cache_is_not_used_without_quantization(tmp_path):
+    from distributed_gpu_inference_torch.runtime import engine as tengine
+
+    cfg = tengine.EngineConfig(max_batch_size=2, max_seq_len=64, prefill_buckets=(16, 32),
+                               quant_cache_dir=str(tmp_path / "qc"), dtype="float32")
+    tengine.TorchEngine("llama3-tiny", cfg, device="cpu")
+    assert not (tmp_path / "qc").exists()

@@ -27,8 +27,21 @@ spaces, CJK and emoji among the pieces: the legacy form (``Prepend`` /
 the form transformers converts to now (a ``Metaspace`` pre-tokenizer that
 prepends to the first piece only) and one with ``Metaspace`` as
 pre-tokenizer and decoder, plus ``chip_smoke.py``'s Mixtral tokenizer.
-What the reader lacks (Unigram and WordPiece models, other normalizers,
-pre-tokenizers and decoders) is refused by name."""
+
+WordPiece and Unigram tokenizers, trained with the library on the README and
+a fixed multilingual corpus, are held to it on encode and decode: BERT's
+(``BertNormalizer``, ``BertPreTokenizer``, ``BertProcessing``, the
+``WordPiece`` decoder), a cased one over ``Whitespace`` + ``Punctuation``
+and ``TemplateProcessing``, T5's (``Nmt`` / ``NFKC`` / ``Replace`` /
+``Strip`` / ``Lowercase`` normalizers, ``Metaspace``, ``</s>`` appended) and
+a byte-fallback Unigram over ``WhitespaceSplit``. Their random strings are
+drawn from the code points Unicode 3.2 already assigned: BERT's punctuation
+and mark classes follow the running Python's Unicode tables, the library's
+are older, and one character assigned since shows the difference
+(``test_characters_newer_than_the_librarys_unicode_tables_part``).
+What the reader lacks (the ``Precompiled`` normalizer, other models,
+normalizers, pre-tokenizers, post-processors and decoders) is refused by
+name."""
 
 import json
 
@@ -443,32 +456,43 @@ def test_the_gpt2_pattern_translates_whitespace_as_oniguruma():
 
 def _sentencepiece_like(kind):
     """tokenizer.json specs the reader refuses, each naming its piece (the
-    SentencePiece-style pieces it reads beside them)."""
+    pieces it reads beside them)."""
     base = Tokenizer(models.BPE(vocab={"a": 0, "b": 1, "ab": 2}, merges=[("a", "b")]))
     base.decoder = decoders.ByteLevel()
     if kind == "lowercase":
         base.normalizer = normalizers.Sequence([normalizers.Prepend("▁"),
-                                                normalizers.Lowercase()])
+                                                normalizers.Lowercase(),
+                                                normalizers.StripAccents()])
     elif kind == "whitespace":
         base.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.Metaspace(),
-                                                      pre_tokenizers.Whitespace()])
+                                                      pre_tokenizers.Whitespace(),
+                                                      pre_tokenizers.Digits()])
     elif kind == "ctc":
         base.decoder = decoders.Sequence([decoders.ByteFallback(), decoders.CTC()])
     elif kind == "unigram":
+        # a converted spiece.model's charsmap; the library builds one only
+        # from a SentencePiece model file, so the spec is written by hand
         base = Tokenizer(models.Unigram([("a", -1.0), ("b", -2.0)], 0, byte_fallback=False))
         base.decoder = decoders.Metaspace()
+        spec = json.loads(base.to_str())
+        spec["normalizer"] = {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": "AAAA"},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
+        return spec
     elif kind == "wordpiece":
-        base = Tokenizer(models.WordPiece({"[UNK]": 0, "a": 1}, unk_token="[UNK]"))
+        base = Tokenizer(models.WordPiece({"[UNK]": 0, "a": 1, "<s>": 2, "</s>": 3},
+                                          unk_token="[UNK]"))
         base.decoder = decoders.WordPiece()
+        base.post_processor = processors.RobertaProcessing(("</s>", 3), ("<s>", 2))
     return json.loads(base.to_str())
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("lowercase", "normalizer 'Lowercase'"),
-    ("whitespace", "pre-tokenizer 'Whitespace'"),
+    ("lowercase", "normalizer 'StripAccents'"),
+    ("whitespace", "pre-tokenizer 'Digits'"),
     ("ctc", "decoder 'CTC'"),
-    ("unigram", "model 'Unigram'"),
-    ("wordpiece", "model 'WordPiece'"),
+    ("unigram", "normalizer 'Precompiled'"),
+    ("wordpiece", "post-processor 'RobertaProcessing'"),
 ])
 def test_sentencepiece_style_tokenizers_are_refused_naming_the_piece(tmp_path, kind, match):
     spec = _sentencepiece_like(kind)
@@ -505,3 +529,215 @@ def test_a_template_needs_jinja2_at_load(tmp_path, monkeypatch):
             llm.load_model()
     finally:
         hf_tokenizer._jinja.cache_clear()
+
+
+# ---------------------------------------------------------------- WordPiece and Unigram
+
+MULTILINGUAL = [
+    "The quick brown fox jumps over the lazy dog.", "Don't stop: it's 3.14, $5 (or 5%)!",
+    "Größe, Straße und naïve Façade — déjà vu.", "Ελληνικά: ΟΔΟΣ οδός ῥυθμός", "Привет, мир!",
+    "東京で日本語と中文字を書く。", "한국어 텍스트", "हिन्दी पाठ", "العربية نص", "עברית",
+    "ﬁne ﬂow ½ ² Ⅻ ｆｕｌｌ", "  leading and  double  spaces ", "tabs\tand\nnew\r\nlines",
+    "CamelCase snake_case kebab-case", "e\u0301 \u0308a", "\x00nul\x07bell\u200bzero\ufffd",
+    "emoji 😀👍🏽 🇺🇳", "[CLS] [MASK] [SEP] </s> <pad> <unk>", "UPPER lower MiXeD", "",
+]
+
+
+def _corpus():
+    return [open(README, encoding="utf-8").read()] + MULTILINGUAL * 3
+
+
+def build_bert(d, size=900):
+    tok = Tokenizer(models.WordPiece(unk_token="[UNK]", max_input_chars_per_word=24))
+    tok.normalizer = normalizers.BertNormalizer(lowercase=True)
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.train_from_iterator(_corpus(), trainers.WordPieceTrainer(
+        vocab_size=size, special_tokens=["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"],
+        show_progress=False))
+    tok.post_processor = processors.BertProcessing(("[SEP]", tok.token_to_id("[SEP]")),
+                                                   ("[CLS]", tok.token_to_id("[CLS]")))
+    tok.decoder = decoders.WordPiece()
+    return _save(tok, d, unk_token="[UNK]", sep_token="[SEP]", pad_token="[PAD]",
+                 cls_token="[CLS]", mask_token="[MASK]", clean_up_tokenization_spaces=True)
+
+
+def build_bert_cased(d):
+    tok = Tokenizer(models.WordPiece(unk_token="[UNK]"))
+    tok.normalizer = normalizers.BertNormalizer(lowercase=False, strip_accents=True,
+                                                handle_chinese_chars=False, clean_text=True)
+    tok.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.Whitespace(),
+                                                 pre_tokenizers.Punctuation()])
+    tok.train_from_iterator(_corpus(), trainers.WordPieceTrainer(
+        vocab_size=700, special_tokens=["[UNK]", "[CLS]", "[SEP]"], show_progress=False))
+    tok.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", pair="[CLS] $A [SEP] $B [SEP]",
+        special_tokens=[("[CLS]", 1), ("[SEP]", 2)])
+    tok.decoder = decoders.WordPiece(prefix="##", cleanup=False)
+    return _save(tok, d, unk_token="[UNK]", cls_token="[CLS]", sep_token="[SEP]",
+                 clean_up_tokenization_spaces=False)
+
+
+def build_t5(d):
+    tok = Tokenizer(models.Unigram())
+    tok.normalizer = normalizers.Sequence([
+        normalizers.Nmt(), normalizers.NFKC(), normalizers.Replace(Regex(" {2,}"), " "),
+        normalizers.Strip(left=False, right=True), normalizers.Lowercase()])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement=SP, prepend_scheme="always")
+    tok.train_from_iterator(_corpus(), trainers.UnigramTrainer(
+        vocab_size=700, special_tokens=["<pad>", "</s>", "<unk>"], unk_token="<unk>",
+        show_progress=False))
+    tok.post_processor = processors.TemplateProcessing(
+        single="$A </s>", pair="$A </s> $B </s>", special_tokens=[("</s>", 1)])
+    tok.decoder = decoders.Metaspace(replacement=SP, prepend_scheme="always")
+    return _save(tok, d, eos_token="</s>", unk_token="<unk>", pad_token="<pad>")
+
+
+def build_unigram_bytes(d):
+    """A byte-fallback Unigram: the trainer's pieces plus the 256
+    ``<0xXX>`` pieces, scored below every trained one."""
+    trained = Tokenizer(models.Unigram())
+    trained.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    trained.train_from_iterator(_corpus(), trainers.UnigramTrainer(
+        vocab_size=500, special_tokens=["<unk>", "<s>", "</s>"], unk_token="<unk>",
+        show_progress=False))
+    vocab = json.loads(trained.to_str())["model"]["vocab"]
+    low = min(sc for _, sc in vocab) - 1.0
+    have = {t for t, _ in vocab}
+    vocab += [[f"<0x{b:02X}>", low] for b in range(256) if f"<0x{b:02X}>" not in have]
+    tok = Tokenizer(models.Unigram([tuple(v) for v in vocab], 0, byte_fallback=True))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tok.decoder = decoders.Sequence([decoders.ByteFallback(), decoders.Fuse()])
+    tok.add_special_tokens(["<unk>", "<s>", "</s>"])
+    return _save(tok, d, unk_token="<unk>", bos_token="<s>", eos_token="</s>")
+
+
+MODEL_BUILDERS = {"bert": build_bert, "bert-cased": build_bert_cased, "t5": build_t5,
+                  "unigram-bytes": build_unigram_bytes}
+MODEL_KINDS = list(MODEL_BUILDERS)
+
+
+@pytest.fixture(scope="module")
+def model_pairs(tmp_path_factory):
+    from transformers import AutoTokenizer
+
+    root = tmp_path_factory.mktemp("models")
+    out = {}
+    for kind, build in MODEL_BUILDERS.items():
+        d = build(root / kind)
+        out[kind] = (AutoTokenizer.from_pretrained(str(d)), HFTokenizer.from_dir(d))
+    return out
+
+
+def _assigned_in_unicode_3_2(c):
+    import unicodedata
+
+    return unicodedata.ucd_3_2_0.category(c) != "Cn"
+
+
+OLD_PIECES = [p for p in PIECES + MULTILINGUAL if all(map(_assigned_in_unicode_3_2, p))]
+old_texts = st.one_of(
+    st.lists(st.sampled_from(OLD_PIECES), max_size=24).map("".join),
+    st.text(alphabet=st.characters(blacklist_categories=("Cs",), max_codepoint=0x1FFFF)
+            .filter(_assigned_in_unicode_3_2), max_size=40))
+
+
+@pytest.mark.parametrize("kind", MODEL_KINDS)
+def test_models_on_the_corpus_equal_transformers(model_pairs, kind):
+    """Each corpus line, the README line by line and whole, and 200 seeded
+    random strings: ids with and without the post-processor, and the
+    decode of every id list with and without special tokens."""
+    import random
+
+    hf, ours = model_pairs[kind]
+    rng = random.Random(16)
+    alphabet = [c for c in map(chr, range(0x20, 0x3000)) if _assigned_in_unicode_3_2(c)]
+    alphabet += [chr(c) for c in range(0x4E00, 0x4F00)] + ["😀", "👍", " ", "\t", "\n"]
+    randoms = ["".join(rng.choice(alphabet) for _ in range(rng.randint(0, 40)))
+               for _ in range(200)]
+    readme = open(README, encoding="utf-8").read()
+    for text in MULTILINGUAL + readme.splitlines() + [readme] + randoms:
+        ids = ours.encode(text)
+        assert ids == hf.encode(text), text
+        assert ours.encode(text, add_special_tokens=False) == \
+            hf.encode(text, add_special_tokens=False), text
+        for skip in (False, True):
+            assert ours.decode(ids, skip_special_tokens=skip) == \
+                hf.decode(ids, skip_special_tokens=skip), (text, skip)
+    assert (ours.eos_token_id, ours.bos_token_id, ours.vocab_size) == (
+        hf.eos_token_id, hf.bos_token_id, hf.vocab_size)
+
+
+@pytest.mark.parametrize("kind", MODEL_KINDS)
+@settings(max_examples=120, deadline=None, derandomize=True)
+@given(text=old_texts)
+def test_models_encode_equals_transformers(model_pairs, kind, text):
+    hf, ours = model_pairs[kind]
+    assert ours.encode(text) == hf.encode(text)
+
+
+@pytest.mark.parametrize("kind", MODEL_KINDS)
+@settings(max_examples=120, deadline=None, derandomize=True)
+@given(data=st.data())
+def test_models_decode_equals_transformers(model_pairs, kind, data):
+    hf, ours = model_pairs[kind]
+    specials = sorted(set(hf.all_special_ids) | set(ours.added_by_id))
+    ids = data.draw(st.lists(st.one_of(st.integers(0, len(hf) + 20),
+                                       st.sampled_from(specials)), max_size=40))
+    assert ours.decode(ids) == hf.decode(ids)
+    assert ours.decode(ids, skip_special_tokens=True) == hf.decode(ids, skip_special_tokens=True)
+
+
+def test_wordpiece_unknown_words_equal_transformers(model_pairs):
+    """A word longer than ``max_input_chars_per_word``, or with a stretch no
+    piece covers, is one ``[UNK]``; punctuation and CJK stand alone."""
+    hf, ours = model_pairs["bert"]
+    unk = ours.token_to_id("[UNK]")
+    for text in ("x" * 25, "x" * 24, "a☃b", "中文字 ok", "Hello,world!", "don't"):
+        assert ours.encode(text) == hf.encode(text), text
+    assert ours.encode("x" * 25, add_special_tokens=False) == [unk]
+
+
+def test_unigram_unknown_characters_fuse_or_fall_back_to_bytes(model_pairs):
+    """Adjacent characters no piece starts with are one unknown stretch:
+    ``<unk>`` in T5's kind, its bytes' ``<0xXX>`` pieces with
+    ``byte_fallback``."""
+    for kind in ("t5", "unigram-bytes"):
+        hf, ours = model_pairs[kind]
+        for text in ("☃☃ snow ☃", "🙂🙃x", "ab\u0378cd", "zzzz"):
+            assert ours.encode(text) == hf.encode(text), (kind, text)
+    hf, ours = model_pairs["unigram-bytes"]
+    pieces = [ours.id_to_token[i] for i in ours.encode("☃", add_special_tokens=False)]
+    assert pieces == ["<0xE2>", "<0x98>", "<0x83>"]
+
+
+def test_characters_newer_than_the_librarys_unicode_tables_part(model_pairs):
+    """U+0C77 (TELUGU SIGN SIDDHAM, punctuation since Unicode 12): the
+    running Python's tables make it BERT punctuation, a piece of its own;
+    the library's older tables keep it inside the word. Both give one
+    ``[UNK]`` for it, beside the word's own pieces here, the word's one
+    ``[UNK]`` there (ROADMAP §3)."""
+    hf, ours = model_pairs["bert"]
+    text = "the\u0c77"
+    assert ours.encode(text) != hf.encode(text)
+    assert ours.encode(text)[1:-1] == ours.encode("the ", add_special_tokens=False) \
+        + [ours.token_to_id("[UNK]")]
+    assert hf.encode(text)[1:-1] == [ours.token_to_id("[UNK]")]
+
+
+def test_a_wordpiece_engine_loads_and_serves(tmp_path):
+    """``TorchLLMEngine`` loads a WordPiece ``tokenizer_id`` and serves with
+    it: the prompt encodes as transformers encodes it."""
+    d = build_bert(tmp_path / "bert", size=480)       # within the tiny model's vocab
+    llm = TorchLLMEngine({"model": "llama3-tiny", "device": "cpu", "dtype": "float32",
+                          "tokenizer_id": str(d), "max_seq_len": 128,
+                          "prefill_buckets": [16, 32, 64], "serving": {"mode": "direct"}})
+    llm.load_model()
+    try:
+        from transformers import AutoTokenizer
+
+        hf = AutoTokenizer.from_pretrained(str(d))
+        assert llm.tokenizer.encode("Größe 東京!") == hf.encode("Größe 東京!")
+        out = llm.inference({"prompt": "Hello, world", "max_new_tokens": 4, "ignore_eos": True})
+        assert out["usage"]["completion_tokens"] == 4
+    finally:
+        llm.unload()

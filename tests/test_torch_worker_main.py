@@ -25,7 +25,6 @@ import jax.numpy as jnp  # noqa: E402
 from distributed_gpu_inference_torch.models.convert import params_from_numpy  # noqa: E402
 from distributed_gpu_inference_torch.utils.config import (  # noqa: E402
     EngineModelConfig,
-    ServingConfig,
     WorkerConfig,
 )
 from distributed_gpu_inference_torch.utils.data_structures import (  # noqa: E402
@@ -680,7 +679,11 @@ def test_serving_config_push_reaches_the_batcher_and_refusals_are_logged(
     pytest.param({"speculative_decode": True, "spec_distill_steps": 100},
                  None, id="config2-speculative_decode"),
     ({"extra": {"tp_size": 2}}, "extra.tp_size=2"),
-    ({"serving": {"mode": "direct"}}, "serving.mode"),
+    # serving.mode: direct loads and serves since it was ported (id kept);
+    # a mode that is neither batcher nor direct is refused by name
+    pytest.param({"serving": {"mode": "direct"}}, None, id="config4-serving.mode"),
+    pytest.param({"serving": {"mode": "pipeline"}}, "serving.mode: 'pipeline'",
+                 id="serving.mode-unknown"),
     # a local tokenizer directory loads; a hub id (not a local directory)
     # is refused, since the port downloads nothing
     ({"tokenizer_id": "meta-llama/Meta-Llama-3-8B"}, "tokenizer_id"),
@@ -701,7 +704,10 @@ def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names, tmp_
     if names is None:
         llm.load_model()
         try:
-            assert llm.distill_losses.shape == (config["spec_distill_steps"],)
+            if "spec_distill_steps" in config:
+                assert llm.distill_losses.shape == (config["spec_distill_steps"],)
+            else:                                   # direct mode: no batcher
+                assert llm.serving is None and llm.serving_stats() is None
             out = llm.inference({"prompt": "hi", "max_new_tokens": 4, "ignore_eos": True})
             assert out["usage"]["completion_tokens"] == 4
         finally:
@@ -747,8 +753,7 @@ def test_worker_drops_an_llm_engine_config_the_port_refuses(tiny_params):
     register_engine("llm", _tiny_factory(tiny_params))
     cfg = _config()
     cfg.engines["llm"] = EngineModelConfig(
-        engine="jax", model="llama3-tiny",
-        serving=ServingConfig(mode="direct"))
+        engine="jax", model="llama3-tiny", extra={"tp_size": 2})
     with pytest.raises(EngineLoadError, match="no engine loaded"):
         Worker(cfg, api=FakeAPI(creds_valid=True), topology=CPU).load_engines()
 
