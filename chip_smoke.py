@@ -331,7 +331,10 @@ Mixtral MoE:
     judges one between two runs: the other token must lie less than 0.05
     below the argmax in the served logits (recorded by :class:`SampleTrace`
     while serving) or in the re-score's own, and a runner-up planted at the
-    widest recorded gap is rejected. A router decision flips where
+    widest recorded gap is rejected; so is one more request served with the
+    keys of its first KV page written one position off from their values
+    in every layer (``served_with_kv_fault``): some fork from its own re-score lies 0.05
+    or more below in both views. A router decision flips where
     two runs' rounding straddles a near-tie of router probabilities, and a
     flipped expert moves a token's logits by a discrete step, so the
     second run of each comparison routes every token as the first did
@@ -444,7 +447,9 @@ Direct mode, sub-wave admission and the weight cache:
     wave admission through ``submit_batch``) at ``subwave`` 0, 2, and 2
     with ``interleave: 2`` (while an earlier request is already decoding):
     the 8 prompts as one wave, each request's TTFT and the wave's prefill
-    calls printed; streams judged against ``subwave: 0``; the earlier
+    calls printed; streams judged against ``subwave: 0`` with every
+    prefill forward of the three on qmm's library route (the kernel serves
+    up to the decode width, so decode steps still launch it); the earlier
     request advanced during the interleaved admission. (e) ``TorchEngine``
     loads llama3-8b int8 twice through ``EngineConfig.quant_cache_dir``
     in a temporary directory: built and written, then read (both load
@@ -5192,6 +5197,31 @@ def moe_times(torch, cfg, params, lp, dev, flush, smi):
     return out
 
 
+def served_with_kv_fault(engine, ids, n):
+    """One greedy request of ``n`` tokens driven on ``engine`` (on its
+    executor, between rounds) with a planted KV fault: after its prefill,
+    the first page of its sequence holds each token's key (and its scale)
+    one row off from its value in every layer, an off-by-one key write.
+    Its blocks are freed uncached. → its tokens."""
+    from distributed_gpu_inference_torch.utils.data_structures import (
+        InferenceRequest,
+        SamplingParams,
+    )
+
+    slot = engine.submit(InferenceRequest(
+        prompt_token_ids=list(ids),
+        sampling=SamplingParams(max_new_tokens=n, temperature=0.0, ignore_eos=True)))
+    bid = int(engine._block_tables[slot][0])
+    for name in ("k", "k_scale"):
+        if name in engine.kv:
+            # pages [L, N, Hkv, Bk, D], scales [L, N, Bk]: a page's token axis
+            page = engine.kv[name][:, bid]
+            page.copy_(page.roll(1, dims=page.dim() - 2 if name == "k" else 1))
+    while engine.slots[slot].finish_reason is None:
+        engine.decode_multi()
+    return list(engine.finish_slot(slot, cache=False).token_ids)
+
+
 def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
     """Phase 19 (see the module docstring): mixtral-8x7b at full width and
     depth with int8 weights through the streamed init, its MoE layer held
@@ -5317,6 +5347,30 @@ def moe_phase(torch, pa, smi, prompts, shared, model=MOE_MODEL, device="cuda"):
         print(f"[moe] (c) information: the re-score's top-2 gap at request {r} token {d} "
               f"{scores[r][d][2]:.4f}, the served token {scores[r][d][3]:.4f} below its "
               f"argmax there", flush=True)
+    # the judge counts the re-score as one more run: it must still reject a
+    # row served from a KV fault
+    fault_ids = enc("kv fault: " + prompts[0])
+    ftrace = SampleTrace(torch, [engine])
+    try:
+        with pins.record():
+            fault_gen = llm.serving.run_exclusive(
+                lambda: served_with_kv_fault(engine, fault_ids, len(rows[0][1])))
+    finally:
+        ftrace.close()
+    frow = [(fault_ids, fault_gen)]
+    with pins.by_sequence([fault_ids]):
+        fargmax = [(fault_ids, [sc[0] for sc in rescore(torch, engine, frow)[0]])]
+    fruns = ftrace.runs()
+    fforks = fork_deficits(frow, fargmax, fruns, every=True, ref=rescored)
+    served_only = fork_deficits(frow, fargmax, fruns, every=True)
+    worst = max((f[4] for f in fforks), default=0.0)
+    print(f"[moe] (c) a request served with the keys of its first KV page one position "
+          f"off from their values in every layer: {len(fforks)} fork(s) from its re-score, the widest "
+          f"{worst:.4f} in the judge (either view), "
+          f"{max((f[4] for f in served_only), default=0.0):.4f} in the served logits "
+          f"alone; rejected: {worst >= NEAR_TIE}", flush=True)
+    if worst < NEAR_TIE:
+        raise AssertionError("[moe] (c) the judge accepts a row served from a KV fault")
 
     # (d) times
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -6186,12 +6240,7 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
 # ---------------------------------------------------------------- phase 22: direct mode, sub-waves, the weight cache
 
 DIRECT_TOKENS = 32          # greedy tokens of each phase-22 request
-# phase 22 (d) holds sub-wave streams to the whole wave's: a narrow forward
-# of at most 128 rows runs the quantized matmul's kernel where the whole
-# wave's (10 rows x the bucket) runs its library route, whose bf16 dequant
-# rounds each weight first; prefill logits part by more than run-to-run
-# noise then (0.054 / 0.072 between PD's prefill paths, PERF.md §6, PR 10)
-ROUTE_TIE = 0.1
+SUBWAVE_WIDTH = SERVE_BATCH + 2     # phase 22 (d)'s slots: the wave and the earlier request
 DIRECT_STREAMS = 4          # direct-mode streams through DirectServer
 DIRECT_CUT = 12             # events the cut stream's client reads
 CACHE_TOKENS = 16           # greedy tokens of each quant-cache request
@@ -6332,7 +6381,7 @@ def subwave_pass(torch, pa, params, prompts, sv, trace, earlier=None, model="lla
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
     llm = TorchLLMEngine(phase22_config(model, device, params=params,
-                                        max_batch_size=SERVE_BATCH + 2,
+                                        max_batch_size=SUBWAVE_WIDTH,
                                         serving=dict({"ragged": False}, **sv)))
     llm.load_model()
     eng = llm.engine
@@ -6587,7 +6636,12 @@ def direct_mode_phase(torch, pa, smi, prompts, model="llama3-8b", device="cuda")
     direct.unload()
     del direct, batcher
 
-    # (d) sub-wave admission on the legacy path
+    # (d) sub-wave admission on the legacy path. Every prefill forward, whole
+    # wave or narrow, takes qmm's library route (the kernel serves up to the
+    # decode width here), so both admissions run the same products; decode
+    # steps still launch the kernel
+    from distributed_gpu_inference_torch.ops import qmm
+
     rows, calls, payloads, adv = {}, {}, {}, None
     tags = Tag()
     for name, sv in (("subwave 0", {}), ("subwave 2", {"subwave": 2}),
@@ -6597,9 +6651,10 @@ def direct_mode_phase(torch, pa, smi, prompts, model="llama3-8b", device="cuda")
         try:
             # a prompt of its own: rows are read by prompt
             earlier = prompts[7][::-1] if "interleave" in name else None
-            payloads[name], calls[name], counts, advanced, early = subwave_pass(
-                torch, pa, params, prompts, sv, trace, earlier=earlier, model=model,
-                device=device)
+            with patched(qmm, "MAX_KERNEL_ROWS", SUBWAVE_WIDTH):
+                payloads[name], calls[name], counts, advanced, early = subwave_pass(
+                    torch, pa, params, prompts, sv, trace, earlier=earlier, model=model,
+                    device=device)
         finally:
             trace.close()
         add_counts(launches, counts)
@@ -6616,7 +6671,7 @@ def direct_mode_phase(torch, pa, smi, prompts, model="llama3-8b", device="cuda")
               f"{pctl(ttft, 0.5):.1f}); launches {counts}", flush=True)
         if name != "subwave 0":
             check_sampled("direct mode (d)", rows[name], rows["subwave 0"], runs + base_runs,
-                          "the whole-wave admission", tie=ROUTE_TIE)
+                          "the whole-wave admission")
             firsts = {ids_of.index(list(p)): (own[0], base_own[p])
                       for _, p, _, start, own in runs if start == 0 and 0 in own
                       and p in base_own and list(p) in ids_of}
@@ -6625,9 +6680,8 @@ def direct_mode_phase(torch, pa, smi, prompts, model="llama3-8b", device="cuda")
             print(f"[direct mode] (d) {name}: each request's first-token top-8 logits against "
                   f"the whole wave's: the same ids for requests {sorted(same)}, max abs "
                   f"difference {max(same.values(), default=0.0):.4f}; other ids for "
-                  f"{sorted(set(firsts) - set(same))} (information: a narrow forward of at "
-                  f"most 128 rows runs qmm's kernel, the whole wave its library route)",
-                  flush=True)
+                  f"{sorted(set(firsts) - set(same))} (information; both on qmm's library "
+                  f"route)", flush=True)
         else:
             base_runs = runs
             base_own = {p: own[0] for _, p, _, start, own in runs if start == 0 and 0 in own}

@@ -916,8 +916,8 @@ class TorchEngine:
         is cut into chunks of at most sw sequences, each prefilled by a
         narrow forward (:meth:`_prefill_subwave`); with
         ``admission_interleave_steps`` = k > 0, ``decode_multi(k)`` runs
-        between chunks, else every narrow forward is enqueued back to back
-        and the first tokens are read chunk by chunk as each lands.
+        between chunks. Each chunk's first tokens are read as its forward
+        lands, before the next chunk is prefilled.
 
         ``partial``: when KV blocks run out mid-wave, admit the prefix of
         the wave that DID allocate and return only its slots (a pressure
@@ -996,48 +996,32 @@ class TorchEngine:
                           for bucket, items in groups
                           for i0 in range(0, len(items), sw)]
                 k = self.cfg.admission_interleave_steps
-                if k > 0:
-                    for ci, (bucket, chunk) in enumerate(chunks):
-                        self._commit_subwave(chunk, self._prefill_subwave(bucket, chunk))
-                        if ci < len(chunks) - 1:
-                            out = self.decode_multi(k)
-                            # only tokens _record_token counted: an emitted
-                            # stop token ends its slot uncounted
-                            for sl, toks in out.items():
-                                if sl in wave_slots:
-                                    continue
-                                s_ = self.slots[sl]
-                                stop = 1 if s_ is not None and s_.finish_reason == "stop" else 0
-                                interleaved_extra += len(toks) - stop
-                else:
-                    dispatched = [(chunk, self._prefill_subwave(bucket, chunk))
-                                  for bucket, chunk in chunks]
-                    for chunk, first in dispatched:
-                        self._commit_subwave(chunk, first)
+                for ci, (bucket, chunk) in enumerate(chunks):
+                    first = self._prefill_subwave(bucket, chunk)
+                    for j, item in enumerate(chunk):
+                        self._record_token(item[1], int(first[j]))
+                    if k and ci < len(chunks) - 1:
+                        out = self.decode_multi(k)
+                        # only tokens _record_token counted: an emitted
+                        # stop token ends its slot uncounted
+                        for sl, toks in out.items():
+                            if sl in wave_slots:
+                                continue
+                            s_ = self.slots[sl]
+                            stop = 1 if s_ is not None and s_.finish_reason == "stop" else 0
+                            interleaved_extra += len(toks) - stop
                 groups = []
             for bucket, items in groups:
                 self._apply_pending()
                 toks_pos = np.zeros((2, b, bucket), np.int32)
                 toks_pos[1] = -1
                 lens = np.zeros((b,), np.int32)
-                for request, slot, seq_id, token_ids, cached in items:
-                    s = _Slot(request=request, seq_id=seq_id,
-                              prompt_len=len(token_ids), cached_tokens=cached)
-                    self._bind_slot(slot, s, kv_len=len(token_ids))
-                    fresh = token_ids[cached:]
-                    n = len(fresh)
-                    toks_pos[0, slot, :n] = fresh
-                    toks_pos[1, slot, :n] = np.arange(cached, cached + n)
-                    lens[slot] = cached + n
-                    self.stats["prefill_tokens"] += n
-                mode = (
-                    "greedy"
-                    if all(it[0].sampling.temperature <= 0 for it in items)
-                    else "mixed"
-                )
+                for item in items:
+                    self._bind_prefill_row(item, item[1], toks_pos, lens)
                 with self._device_work():
                     logits = self._forward(toks_pos, self._block_tables, lens)
-                    first = self._sample(logits, range(b), lens, mode).cpu().numpy()
+                    first = self._sample(logits, range(b), lens,
+                                         self._wave_mode(items)).cpu().numpy()
                 self.stats["prefill_calls"] += 1
                 for request, slot, seq_id, token_ids, cached in items:
                     self._record_token(slot, int(first[slot]))
@@ -1051,15 +1035,37 @@ class TorchEngine:
             raise
         return slots_out
 
-    def _prefill_subwave(self, bucket: int, chunk: list) -> Any:
+    @staticmethod
+    def _wave_mode(items: list) -> str:
+        """``_sample``'s mode for a prefill wave: greedy when every request
+        of the wave is."""
+        return ("greedy" if all(it[0].sampling.temperature <= 0 for it in items)
+                else "mixed")
+
+    def _bind_prefill_row(self, item: tuple, row: int, toks_pos: np.ndarray,
+                          lens: np.ndarray) -> None:
+        """Bind an allocated wave item ``(request, slot, seq_id, token_ids,
+        cached)`` to its slot and write its fresh tokens, their positions
+        and its length into ``row`` of a prefill forward's inputs."""
+        request, slot, seq_id, token_ids, cached = item
+        s = _Slot(request=request, seq_id=seq_id, prompt_len=len(token_ids),
+                  cached_tokens=cached)
+        self._bind_slot(slot, s, kv_len=len(token_ids))
+        n = len(token_ids) - cached
+        toks_pos[0, row, :n] = token_ids[cached:]
+        toks_pos[1, row, :n] = np.arange(cached, cached + n)
+        lens[row] = cached + n
+        self.stats["prefill_tokens"] += n
+
+    def _prefill_subwave(self, bucket: int, chunk: list) -> np.ndarray:
         """Bind and prefill at most ``admission_subwave`` sequences through
         one narrow forward — its width the next power of two at or above the
         chunk, capped at the slot count; row j carries slot ``chunk[j]``'s
         table row, pad rows position -1 (no KV write) — and sample their
         first tokens with their own slots' keys and sampling parameters at
-        their own lengths. → a handle :meth:`_commit_subwave` reads: on a
-        card the tokens' copy to the host runs behind an event, so enqueued
-        chunks land one by one."""
+        their own lengths. → the first tokens on the host, read once the
+        chunk's forward lands: the point each of its sequences' TTFT
+        stops."""
         self._apply_pending()
         w = 1
         while w < len(chunk):
@@ -1069,43 +1075,16 @@ class TorchEngine:
         toks_pos[1] = -1
         tables = np.zeros((w, self.cfg.max_blocks_per_seq), np.int32)
         lens = np.zeros((w,), np.int32)
-        rows = []
-        for j, (request, slot, seq_id, token_ids, cached) in enumerate(chunk):
-            s = _Slot(request=request, seq_id=seq_id, prompt_len=len(token_ids),
-                      cached_tokens=cached)
-            self._bind_slot(slot, s, kv_len=len(token_ids))
-            fresh = token_ids[cached:]
-            n = len(fresh)
-            toks_pos[0, j, :n] = fresh
-            toks_pos[1, j, :n] = np.arange(cached, cached + n)
-            lens[j] = cached + n
-            tables[j] = self._block_tables[slot]
-            rows.append(slot)
-            self.stats["prefill_tokens"] += n
-        mode = "greedy" if all(it[0].sampling.temperature <= 0 for it in chunk) else "mixed"
+        for j, item in enumerate(chunk):
+            self._bind_prefill_row(item, j, toks_pos, lens)
+            tables[j] = self._block_tables[item[1]]
         n = len(chunk)
         with self._device_work():
             logits = self._forward(toks_pos, tables, lens)
-            first = self._sample(logits[:n], rows, lens[:n], mode)
-            if first.device.type == "cuda":
-                host = torch.empty(first.shape, dtype=first.dtype, pin_memory=True)
-                host.copy_(first, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record()
-                first = (host, ready)
+            first = self._sample(logits[:n], [it[1] for it in chunk], lens[:n],
+                                 self._wave_mode(chunk)).cpu().numpy()
         self.stats["prefill_calls"] += 1
         return first
-
-    def _commit_subwave(self, chunk: list, first: Any) -> None:
-        """Read a sub-wave's first tokens (waiting for its forward to land)
-        and record them: the point each of its sequences' TTFT stops."""
-        if isinstance(first, tuple):
-            host, ready = first
-            ready.synchronize()
-            first = host
-        toks = first.cpu().numpy()
-        for j, (request, slot, seq_id, token_ids, cached) in enumerate(chunk):
-            self._record_token(slot, int(toks[j]))
 
     def _bind_slot(self, slot: int, s: "_Slot", kv_len: int) -> None:
         """Install slot state (block table, committed length, sampling,
@@ -2192,7 +2171,18 @@ class TorchEngine:
         pressure preempts the most-recently-admitted sequence (resume
         continues it byte-identically), and a request preempted more than
         ``max_preemptions`` times finishes with a ``preempted_too_often``
-        error instead of livelocking the wave."""
+        error instead of livelocking the wave.
+
+        Only this call's own requests are driven to the end, preempted and
+        finished: a slot someone else holds (an adopted PD handoff waiting
+        for its decode stage, a stream between steps) shares the decode
+        rounds but stays bound for its owner."""
+        own = {r.request_id for r in requests}
+
+        def own_slots() -> List[int]:
+            return [i for i, s in enumerate(self.slots)
+                    if s is not None and s.request.request_id in own]
+
         pending = []
         responses: Dict[str, InferenceResponse] = {}
         for r in requests:
@@ -2212,7 +2202,7 @@ class TorchEngine:
         # after a preemption, resumes pause for one unpressured round so
         # the FROZEN slots reserve first
         hold_resume = False
-        while pending or preempted or self.num_active:
+        while pending or preempted or own_slots():
             progressed = False
             n_free = len(self.free_slots())
             while preempted and n_free > 0 and not hold_resume:
@@ -2234,7 +2224,7 @@ class TorchEngine:
                 for sl in slots:
                     admitted_at[sl] = next(stamp)
                 progressed = progressed or bool(slots)
-            if self.num_active:
+            if own_slots():
                 out = (
                     self.decode_multi() if use_multi_step
                     else self.decode_step()
@@ -2245,9 +2235,9 @@ class TorchEngine:
                 hold_resume = False
             elif pressure.source == "decode":
                 victims = [
-                    i for i, s in enumerate(self.slots)
-                    if s is not None and s.finish_reason is None
-                    and not s.prefilling
+                    i for i in own_slots()
+                    if self.slots[i].finish_reason is None
+                    and not self.slots[i].prefilling
                 ]
                 if victims:
                     victim = max(
@@ -2275,7 +2265,7 @@ class TorchEngine:
                     progressed = True
             if not progressed:
                 stalled += 1
-                if stalled > 8 and preempted and self.num_active == 0 \
+                if stalled > 8 and preempted and not own_slots() \
                         and not pending:
                     pre = preempted.pop(0)
                     rid = pre.request.request_id
@@ -2294,13 +2284,13 @@ class TorchEngine:
                     raise OutOfBlocksError(
                         "generate wedged under KV pressure: "
                         f"{len(pending)} pending, {len(preempted)} "
-                        f"preempted, {self.num_active} active — the pool "
+                        f"preempted, {len(own_slots())} active — the pool "
                         "cannot hold even one waiting sequence"
                     )
             else:
                 stalled = 0
-            for i, s in enumerate(list(self.slots)):
-                if s is not None and s.finish_reason is not None:
+            for i in own_slots():
+                if self.slots[i].finish_reason is not None:
                     resp = self.finish_slot(i)
                     responses[resp.request_id] = resp
         return [responses[r.request_id] for r in requests]

@@ -174,6 +174,7 @@ from distributed_gpu_inference_torch.utils.config import (
 )
 from distributed_gpu_inference_torch.utils.data_structures import (
     InferenceRequest,
+    InferenceResponse,
     SamplingParams,
 )
 from distributed_gpu_inference_torch.utils.hf_tokenizer import HFTokenizer
@@ -991,21 +992,32 @@ class TorchLLMEngine(LLMBaseEngine):
         else:
             resp = self.engine.generate([req], use_multi_step=True)[0]
         e2e_ms = (time.perf_counter() - t0) * 1000.0
-        out_text = self.tokenizer.decode(resp.token_ids)
+        return self._legacy_result(
+            resp, cfg, resp.ttft_ms if resp.ttft_ms is not None else e2e_ms,
+            stop_sets_finish=True)
+
+    def _legacy_result(self, resp: InferenceResponse, cfg: GenerationConfig,
+                       ttft_ms: Optional[float],
+                       stop_sets_finish: bool) -> GenerationResult:
+        """A legacy-path response as a result: the text cut at the first
+        configured stop string found (not the earliest); the blocking path
+        also reports such a cut as ``finish_reason="stop"``, the batch path
+        keeps the engine's reason."""
+        text = self.tokenizer.decode(resp.token_ids)
         finish = resp.finish_reason or "stop"
-        for st in cfg.stop:   # the first configured stop string found wins
-            idx = out_text.find(st)
+        for st in cfg.stop:
+            idx = text.find(st)
             if idx >= 0:
-                out_text = out_text[:idx]
-                finish = "stop"
+                text = text[:idx]
+                finish = "stop" if stop_sets_finish else finish
                 break
         return GenerationResult(
-            text=out_text,
+            text=text,
             prompt_tokens=resp.prompt_tokens,
             completion_tokens=resp.completion_tokens,
             cached_tokens=resp.cached_tokens,
             finish_reason=finish,
-            ttft_ms=resp.ttft_ms if resp.ttft_ms is not None else e2e_ms,
+            ttft_ms=ttft_ms,
         )
 
     def _serving_inference(self, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -2477,7 +2489,8 @@ class TorchLLMEngine(LLMBaseEngine):
         text cut at the first configured stop string found (finish reason
         unchanged) — the JAX worker's batch path. That path takes no engine
         lock, so there it can race a handoff adoption; here the engine lock
-        is held."""
+        is held, and ``generate`` leaves an adopted slot to its decode
+        stage."""
         reqs, cfgs = [], []
         for params in batch:
             cfg = GenerationConfig.from_params(params)
@@ -2489,23 +2502,9 @@ class TorchLLMEngine(LLMBaseEngine):
             ))
         with self._engine_lock:
             resps = self.engine.generate(reqs, use_multi_step=True)
-        out = []
-        for resp, cfg in zip(resps, cfgs):
-            text = self.tokenizer.decode(resp.token_ids)
-            for st in cfg.stop:
-                idx = text.find(st)
-                if idx >= 0:
-                    text = text[:idx]
-                    break
-            out.append(GenerationResult(
-                text=text,
-                prompt_tokens=resp.prompt_tokens,
-                completion_tokens=resp.completion_tokens,
-                cached_tokens=resp.cached_tokens,
-                finish_reason=resp.finish_reason or "stop",
-                ttft_ms=resp.ttft_ms,
-            ).to_result_payload())
-        return out
+        return [self._legacy_result(resp, cfg, resp.ttft_ms,
+                                    stop_sets_finish=False).to_result_payload()
+                for resp, cfg in zip(resps, cfgs)]
 
     def health(self) -> Dict[str, Any]:
         h = super().health()

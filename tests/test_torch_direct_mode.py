@@ -428,19 +428,9 @@ def test_a_pd_rerun_of_one_key_supersedes_the_earlier_adoption(weights):
     try:
         key = "pd-rerun-key"
 
-        def push_once() -> int:
-            req = tds.InferenceRequest(
-                prompt_token_ids=list(range(10, 26)),
-                sampling=tds.SamplingParams(max_new_tokens=4, temperature=0.0),
-                session_id=key)
-            slot = donor.engine.submit_batch([req])[0]
-            raw = tkv.serialize_handoff(tkv.export_slot_kv(donor.engine, slot))
-            donor.engine.finish_slot(slot, cache=False)
-            return rx.kv_receiver(raw)["slot"]
-
-        slot1 = push_once()
+        slot1 = _adopt(donor, rx, key, max_new_tokens=4)
         assert rx._pd_slots[key][0] == slot1
-        slot2 = push_once()
+        slot2 = _adopt(donor, rx, key, max_new_tokens=4)
         assert rx._pd_slots[key][0] == slot2
         assert rx.engine.num_active == 1
         assert rx.pd_stats["adopted_expired"] >= 1
@@ -450,6 +440,74 @@ def test_a_pd_rerun_of_one_key_supersedes_the_earlier_adoption(weights):
     finally:
         donor.unload()
         rx.unload()
+
+
+def _adopt(donor, rx, key, max_new_tokens=8):
+    """Prefill a fixed prompt on ``donor`` and push its handoff to ``rx``'s
+    ``kv_receiver`` under ``key`` → the adopted slot."""
+    req = tds.InferenceRequest(
+        prompt_token_ids=list(range(10, 26)),
+        sampling=tds.SamplingParams(max_new_tokens=max_new_tokens, temperature=0.0,
+                                    ignore_eos=True),
+        session_id=key)
+    slot = donor.engine.submit_batch([req])[0]
+    raw = tkv.serialize_handoff(tkv.export_slot_kv(donor.engine, slot))
+    donor.engine.finish_slot(slot, cache=False)
+    return rx.kv_receiver(raw)["slot"]
+
+
+def _pd_out(out):
+    return {k: v for k, v in out.items() if k not in ("ttft_ms", "e2e_ms")}
+
+
+@pytest.mark.parametrize("between", ["inference", "batch_inference", "stream"])
+def test_an_adopted_slot_outlives_a_direct_request_before_its_decode(weights, between):
+    """A handoff adopted on a direct engine waits for its decode stage while
+    other requests run there: they share its decode rounds but leave the
+    slot bound, and the decode stage then serves what an undisturbed one
+    serves. The request run between gives its solo result."""
+    _, tree = weights
+    donor, rx = _port_worker(tree, COMMON), _port_worker(tree, COMMON)
+    params = dict(CASES["long"], stream_id="s-between")
+    run = {"inference": lambda: rx.inference(dict(params)),
+           "batch_inference": lambda: rx.batch_inference([dict(params)]),
+           "stream": lambda: _stream(rx, params)}[between]
+    try:
+        _adopt(donor, rx, "pd-calm")
+        calm = rx.inference({"pd_stage": "decode", "kv_cache_key": "pd-calm"})
+        solo = run()
+        slot = _adopt(donor, rx, "pd-busy")
+        seq = rx.engine.slots[slot]
+        got = run()
+        assert rx.engine.slots[slot] is seq and seq.finish_reason is not None
+        out = rx.inference({"pd_stage": "decode", "kv_cache_key": "pd-busy"})
+        assert _pd_out(out) == _pd_out(calm) | {"kv_cache_key": "pd-busy"}
+        assert out["completion_tokens"] == 8 and rx.engine.num_active == 0
+        def timeless(x):
+            return [_payload(c) for c in x] if isinstance(x, list) else _payload(x)
+        assert timeless(got) == timeless(solo)
+    finally:
+        donor.unload()
+        rx.unload()
+
+
+def test_a_direct_stream_outlives_a_blocking_request_between_its_steps(pair):
+    """The direct stream holds the engine lock one step at a time: a
+    blocking request served between two of its steps shares the rounds but
+    leaves the stream's slot to it, and the stream delivers what it does
+    alone."""
+    _, tw = pair
+    params = dict(CASES["long"], stream_id="s-interleaved")
+    solo = _stream(tw, params)
+    blocking = tw.inference(dict(CASES["plain"]))
+    gen = tw.stream(dict(params))
+    got = [next(gen), next(gen)]
+    assert _payload(tw.inference(dict(CASES["plain"]))) == _payload(blocking)
+    got += list(gen)
+    # the rounds the blocking request ran reach the stream as one chunk
+    for key in ("token_ids", "text_delta"):
+        assert [x for c in got[:-1] for x in c[key]] == [x for c in solo[:-1] for x in c[key]]
+    assert got[-1] == solo[-1] and tw.engine.num_active == 0
 
 
 # ---------------------------------------------------------------- claims

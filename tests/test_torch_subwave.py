@@ -29,6 +29,8 @@ MODEL = "llama3-tiny"
 GEOM = dict(max_batch_size=6, max_seq_len=128, prefill_buckets=(16, 32, 64),
             multi_step=8, dtype="float32")
 PROMPTS = [list(range(7 + i, 27 + 2 * i)) for i in range(6)]
+# buckets 16, 64, 16, chunked (> 64), 16, 64, out of slot order
+MIXED = [list(range(5 + i, 5 + i + n)) for i, n in enumerate((10, 40, 14, 70, 12, 50))]
 
 
 @pytest.fixture(scope="module")
@@ -53,20 +55,34 @@ def _req(ds, prompt, max_new=8, **kw):
                                sampling=ds.SamplingParams(max_new_tokens=max_new, **kw))
 
 
-@pytest.mark.parametrize("sw", [1, 2, 4])
-def test_subwave_admission_matches_the_whole_wave_and_jax(weights, sw):
+def _subwave_parity(weights, sw, prompts):
+    """``generate`` over ``prompts`` with the whole-wave admission and with
+    sub-waves of ``sw`` on the port, and with sub-waves on the JAX engine:
+    the same greedy tokens and counters, and narrow prefills, as many as
+    the JAX engine ran."""
     wide, sub, jsub = _port(weights), _port(weights, admission_subwave=sw), \
         _jax(weights, admission_subwave=sw)
-    r_wide = wide.generate([_req(tds, p) for p in PROMPTS], use_multi_step=True)
-    r_sub = sub.generate([_req(tds, p) for p in PROMPTS], use_multi_step=True)
-    r_jax = jsub.generate([_req(jds, p) for p in PROMPTS], use_multi_step=True)
-    for a, b, c in zip(r_wide, r_sub, r_jax):
-        assert a.token_ids == b.token_ids == c.token_ids
-    # narrow prefills, as many as the JAX engine ran
+    r_wide = wide.generate([_req(tds, p) for p in prompts], use_multi_step=True)
+    r_sub = sub.generate([_req(tds, p) for p in prompts], use_multi_step=True)
+    r_jax = jsub.generate([_req(jds, p) for p in prompts], use_multi_step=True)
+    assert [r.token_ids for r in r_wide] == [r.token_ids for r in r_sub] \
+        == [r.token_ids for r in r_jax]
     assert sub.stats["prefill_calls"] == jsub.stats["prefill_calls"] \
         > wide.stats["prefill_calls"]
-    assert sub.stats["prefill_tokens"] == wide.stats["prefill_tokens"] \
-        == jsub.stats["prefill_tokens"]
+    for k in ("prefill_tokens", "generated_tokens", "requests"):
+        assert sub.stats[k] == wide.stats[k] == jsub.stats[k], k
+
+
+@pytest.mark.parametrize("sw", [1, 2, 4])
+def test_subwave_admission_matches_the_whole_wave_and_jax(weights, sw):
+    _subwave_parity(weights, sw, PROMPTS)
+
+
+@pytest.mark.parametrize("sw", [1, 2])
+def test_a_multi_bucket_subwave_wave_matches_the_whole_wave_and_jax(weights, sw):
+    """A wave across three buckets and the chunked path: each bucket group
+    is cut into its own sub-waves."""
+    _subwave_parity(weights, sw, MIXED)
 
 
 def test_subwave_widths_are_powers_of_two_capped_at_the_slot_count(weights, monkeypatch):
@@ -117,6 +133,8 @@ def test_a_mixed_temperature_wave_samples_as_the_wide_path(weights):
     for eng, ds in ((wide, tds), (sub, tds), (jsub, jds)):
         slots = eng.submit_batch(wave(ds))
         firsts.append([eng.slots[s].generated[0] for s in slots])
+        for s in slots:
+            eng.finish_slot(s)
     assert firsts[0] == firsts[1] == firsts[2]
     r_wide = wide.generate(wave(tds), use_multi_step=True)
     r_sub = sub.generate(wave(tds), use_multi_step=True)
@@ -193,9 +211,9 @@ def cuda():
 
 @pytest.mark.gpu
 def test_the_narrow_prefill_runs_the_kernels_on_the_card(cuda):
-    """Sub-wave admission at llama3-mini on the card: two narrow forwards of
-    4 rows launch the ragged kernel, each request's first-token logits
-    agree with the whole wave's (bf16 weights: both products are cuBLAS
+    """Sub-wave admission at llama3-mini on the card, over two buckets: three
+    narrow forwards (widths 4, 4 and 1) launch the ragged kernel, each
+    request's first-token logits agree with the whole wave's (bf16 weights: both products are cuBLAS
     matmuls; with int8 weights a narrow forward of at most 128 rows would
     run the quantized matmul's kernel where the whole wave runs its
     library route, which rounds otherwise), and the wave then decodes
@@ -211,7 +229,8 @@ def test_the_narrow_prefill_runs_the_kernels_on_the_card(cuda):
 
         def sample(logits, rows, positions, mode):
             for r, i in enumerate(rows):
-                if int(positions[r]) > 0:          # pad rows of the wide forward
+                # a wide forward's rows of the other bucket have length 0
+                if int(positions[r]) > 0:
                     seen.setdefault(name, {})[i] = logits[r].float().cpu()
             return real(logits, rows, positions, mode)
         eng._sample = sample
@@ -221,13 +240,14 @@ def test_the_narrow_prefill_runs_the_kernels_on_the_card(cuda):
                               params=wide.params, device=cuda)
     traced(wide, "wide")
     traced(sub, "sub")
-    prompts = [list(range(11 + 3 * i, 51 + 5 * i)) for i in range(8)]     # 40-75 tokens
-    wide.submit_batch([_req(tds, p[:60]) for p in prompts])
+    # 20-62 tokens: buckets 32 (3 prompts) and 64 (5 prompts)
+    prompts = [list(range(11 + 3 * i, 31 + 9 * i)) for i in range(8)]
+    wide.submit_batch([_req(tds, p) for p in prompts])
     pa.reset_launch_counts()
-    sub.submit_batch([_req(tds, p[:60]) for p in prompts])
+    sub.submit_batch([_req(tds, p) for p in prompts])
     torch.cuda.synchronize()
     assert pa.launch_counts()["ragged_paged_attention"] > 0
-    assert sub.stats["prefill_calls"] == 2 and wide.stats["prefill_calls"] == 1
+    assert sub.stats["prefill_calls"] == 3 and wide.stats["prefill_calls"] == 2
     assert set(seen["sub"]) == set(seen["wide"]) == set(range(8))
     for slot, want in seen["wide"].items():
         got = seen["sub"][slot]
