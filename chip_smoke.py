@@ -458,11 +458,45 @@ Direct mode, sub-wave admission and the weight cache:
     the directory deleted. Each part's launches are counted (all three
     kernels) and added to the int8 entries of the kernels line.
 
+Tensor and expert parallelism:
+
+23. after phase 22, on ``torch.distributed`` with two ranks on cuda:0 (the
+    engine-level ``rank_devices``; the worker's ``tp_size`` takes one card
+    a rank). A probe first: two processes on the card, where NCCL refuses
+    the shared device and gloo must all-reduce and broadcast CUDA tensors.
+    (a) llama3-8b at full width and depth, int8 weights and int8 pools,
+    seed 0: the tp 1 engine and then the tp 2 engine (rank 1 a spawned
+    process holding its shard) serve the 8 serving prompts, 32 greedy
+    tokens each, through ``BatcherServing``, both under one
+    :class:`SampleTrace`; the tp 2 streams judged against tp 1's as phase
+    15 (a) judges (each fork a near-tie below NEAR_TIE, a planted runner-up
+    rejected); both ranks' counters (zeroed before, gathered from rank 1
+    after) show ragged and qmm launched and the fused decode kernel not (an
+    int8 decode step under tensor parallelism writes through the
+    max-reduced quantize and reads through the ragged kernel); tok/s, a
+    decode step's ms at batch 8 and its all-reduces and broadcast (count
+    and ms, rank 0) beside tp 1's; then one wave of the 8 prompts on each
+    engine: both ranks' scale pools bitwise equal, layer 0's scales at
+    every prompt position bitwise equal to tp 1's, and deeper layers'
+    within TP_SCALE_ULP bf16 ulp of them (their share equal printed). (b) The same with bf16 pools: both ranks launch the
+    fused decode kernel. (c) mixtral-8x7b int8 at tp 2 (EP: 4 of the 8
+    experts a rank, and attention TP): at full depth both ranks' streamed
+    inits at once, the card's memory in use and each rank's peak; then at
+    TP_MOE_LAYERS layers, full width, bf16 pools, the 8 prompts through
+    ``generate`` with the routing recorded on rank 0, replayed by the tp 1
+    engine at the same depth (:class:`RoutePins`, the flips its own router
+    would have made printed), the streams judged as in (a); all three
+    kernels launched on both ranks. Then each kernel at one rank's shard
+    shapes (Nh 16, Hkv 4; the projections' halves) against its plain
+    version and timed as phases 5 and 9 time them (``@tp2`` entries). The
+    phase's launches (both ranks) are added to the kernels line's int8
+    and bf16 entries.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15,
-``@moe-*`` entries for phase 19), the nvidia-smi line and ``{"ok": true,
-"device": {...}}``.
+``@moe-*`` entries for phase 19, ``@tp2`` entries for phase 23), the
+nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -6707,6 +6741,493 @@ def direct_mode_phase(torch, pa, smi, prompts, model="llama3-8b", device="cuda")
     return launches
 
 
+# ---------------------------------------------------------------- phase 23
+
+TP_RANKS = 2                       # tensor-parallel ranks of phase 23, both on cuda:0
+TP_TOKENS = 32                     # greedy tokens of each phase-23 request
+TP_HS = (NH // TP_RANKS, HKV // TP_RANKS, D)   # one rank's heads of llama3-8b
+TP_MOE_LAYERS = 8                  # (c): mixtral-8x7b's depth, cut
+TP_STEP_PROMPT = 64                # tokens of each prompt of the timed decode steps
+TP_STEPS = 16                      # timed decode steps
+# (a): the widest gap, in bf16 ulp, allowed between a deeper layer's int8
+# scales and the tp 1 engine's. Sound runs part by at most 7 (each rank's
+# bf16 partial sum of wo / w_down is rounded before the all-reduce). A wo
+# sum left out (each rank keeping its own part, the ranks' scales still
+# equal) parts by 148 on llama3-tiny; a part off by 2% stays within 16
+TP_SCALE_ULP = 16
+# one rank's share of a llama3-8b layer's projections at tp 2: (name, K, N)
+TP_PROJ = tuple((n, k // TP_RANKS if n in ("wo", "w_down") else k,
+                 n_ if n in ("wo", "w_down") else n_ // TP_RANKS) for n, k, n_ in LAYER_PROJ)
+
+
+def _tp_probe_rank(rank, path, out):
+    """One of two processes on cuda:0: an NCCL group (refused on a shared
+    card, the error kept), then a gloo group given CUDA tensors."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    res = {}
+    timeout = datetime.timedelta(seconds=60)
+    try:
+        store = dist.FileStore(path, 2)
+        try:
+            torch.cuda.set_device(0)
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = timeout
+            pg = dist.ProcessGroupNCCL(dist.PrefixStore("nccl", store), rank, 2, opts)
+            t = torch.full((4,), float(rank + 1), device="cuda:0")
+            pg.allreduce([t]).wait()
+            torch.cuda.synchronize()
+            res["nccl"] = f"ran: {t.tolist()}"
+        except Exception as exc:   # noqa: BLE001 — the refusal is the finding
+            res["nccl"] = f"refused: {type(exc).__name__}: " + " ".join(
+                ln for ln in str(exc).splitlines() if "Duplicate" in ln or "error" in ln)[:300]
+        pg = dist.ProcessGroupGloo(dist.PrefixStore("gloo", store), rank, 2, timeout)
+        t = torch.full((4,), float(rank + 1), device="cuda:0", dtype=torch.bfloat16)
+        pg.allreduce([t]).wait()
+        b = torch.full((3,), float(rank + 7), device="cuda:0", dtype=torch.int32)
+        opts = dist.BroadcastOptions()
+        opts.rootRank = 0
+        pg.broadcast([b], opts).wait()
+        torch.cuda.synchronize()
+        res["gloo"] = {"all_reduce": t.float().tolist(), "broadcast": b.tolist()}
+    except Exception as exc:       # noqa: BLE001 — reported to the parent
+        res["error"] = f"{type(exc).__name__}: {exc}"
+    out.put((rank, res))
+
+
+def tp_backend_probe():
+    """Two processes on cuda:0: what NCCL and gloo do with two ranks on one
+    card. → the gloo result (it must hold the sum and rank 0's values)."""
+    import multiprocessing
+    import queue
+    import shutil
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    d = tempfile.mkdtemp(prefix="tp-probe-")
+    procs = [ctx.Process(target=_tp_probe_rank, args=(r, f"{d}/store", out), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, res = out.get(timeout=180)
+            got[rank] = res
+    except queue.Empty:
+        pass
+    for p in procs:
+        p.join(30)
+        if p.is_alive():
+            p.kill()
+    shutil.rmtree(d, ignore_errors=True)
+    for rank in range(2):
+        print(f"[tp] backend probe, rank {rank} of 2 on cuda:0: {got.get(rank)}", flush=True)
+    want = {"all_reduce": [3.0] * 4, "broadcast": [7] * 3}
+    if any(got.get(r, {}).get("gloo") != want for r in range(2)):
+        raise AssertionError(f"[tp] gloo with CUDA tensors on one card failed: {got}")
+    return got
+
+
+def tp_engine(torch, model_cfg, kv, tp, device="cuda"):
+    """Phase 23's engines: ``model_cfg`` with int8 weights, seed 0, pools
+    ``kv`` (None = bf16), the prefix cache off; ``tp`` ranks, all on
+    ``device`` (cuda:0)."""
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
+
+    cfg = EngineConfig(max_batch_size=SERVE_BATCH, max_seq_len=MAX_SEQ,
+                       enable_prefix_cache=False, quantization="int8", kv_cache_dtype=kv)
+    dev = "cuda:0" if device == "cuda" else device
+    t0 = time.perf_counter()
+    eng = TorchEngine(model_cfg, cfg, seed=0, device=device,
+                      rank_devices=[dev] * tp if tp > 1 else None)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def tp_requests(ids, n=TP_TOKENS):
+    from distributed_gpu_inference_torch.utils.data_structures import (
+        InferenceRequest,
+        SamplingParams,
+    )
+
+    return [InferenceRequest(prompt_token_ids=list(p), sampling=SamplingParams(
+        max_new_tokens=n, temperature=0.0, ignore_eos=True)) for p in ids]
+
+
+def tp_batcher_serve(torch, engine, ids):
+    """The requests of ``ids`` all at once through ``BatcherServing``
+    (``ContinuousBatcher`` on its own loop). → (the token ids by request,
+    wall seconds)."""
+    from distributed_gpu_inference_torch.runtime.batcher import BatcherServing
+
+    serving = BatcherServing(engine)
+    try:
+        t0 = time.perf_counter()
+        futs = [serving.submit_async(r) for r in tp_requests(ids)]
+        outs = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serving.stop(drain=False)
+    bad = [o for o in outs if o.error or len(o.token_ids) != TP_TOKENS]
+    if bad:
+        raise AssertionError(f"[tp] requests failed: {[(o.error, o.token_ids) for o in bad]}")
+    return [list(o.token_ids) for o in outs], wall
+
+
+def tp_step_ms(torch, engine, ids):
+    """Decode steps at batch 8 on short prompts: → (ms a step, each rank's
+    collectives over the steps)."""
+    reqs = tp_requests([p[:TP_STEP_PROMPT] for p in ids], n=TP_STEPS + 8)
+    slots = engine.submit_batch(reqs)
+    torch.cuda.synchronize()
+    if engine.tp > 1:
+        engine.rank_collective_stats(reset=True)
+    t0 = time.perf_counter()
+    engine.decode_multi(TP_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TP_STEPS
+    stats = engine.rank_collective_stats() if engine.tp > 1 else []
+    for s in slots:
+        engine.finish_slot(s, cache=False)
+    return ms, stats
+
+
+def tp_prompt_scales(torch, engine, ids):
+    """The 8 prompts prefilled in one wave (the block manager lays them out
+    alike in every engine): → (each rank's scale pools as bits, each
+    request's scales at its prompt positions [pool][L, n] from each rank's
+    pools)."""
+    slots = engine.submit_batch(tp_requests(ids, n=2))
+    pools = engine.rank_pools(("k_scale", "v_scale"))
+    per = []
+    for s, p in zip(slots, ids):
+        pos = np.arange(len(p))
+        pages = engine._block_tables[s][pos // BK]
+        per.append([{k: v[:, pages, pos % BK] for k, v in rank.items()} for rank in pools])
+    for s in slots:
+        engine.finish_slot(s, cache=False)
+    return pools, per
+
+
+def tp_counts_check(tag, counts, fused):
+    """Every rank launched ragged and qmm, and the fused decode kernel as
+    ``fused`` says (int8 pools under tensor parallelism decode through the
+    ragged kernel)."""
+    for r, c in enumerate(counts):
+        ok = c["ragged_paged_attention"] > 0 and c["qmm_w8a16"] > 0 and \
+            (c["paged_decode_attention_fused"] > 0) == fused
+        if not ok:
+            raise AssertionError(f"[{tag}] rank {r} launched {c}")
+
+
+def tp_serving_pass(torch, pa, smi, tag, kv, ids, llama, model="llama3-8b", device="cuda"):
+    """(a) / (b): llama3-8b at full width and depth, int8 weights, pools
+    ``kv``; the tp 1 engine and the tp 2 engine (two ranks on cuda:0)
+    serve the 8 prompts through the batcher under one SampleTrace; the
+    streams judged; counts, tok/s, a step's ms and collectives. → (the tp
+    2 ranks' summed launches, the scale-pool findings or None)."""
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+
+    cfg = get_model_config(model)
+    tags = Tag()
+    trace = SampleTrace(torch, [], tags=tags)
+    scales = None
+    one, t_one = tp_engine(torch, cfg, kv, 1, device)
+    try:
+        trace.install(one)
+        tags.tag = "tp1"
+        _, wall1 = tp_batcher_serve(torch, one, ids)
+        tags.tag = None         # the timed steps and the scale wave: other runs
+        step1, _ = tp_step_ms(torch, one, ids)
+        if kv == "int8":
+            _, one_scales = tp_prompt_scales(torch, one, ids)
+        two, t_two = tp_engine(torch, cfg, kv, TP_RANKS, device)
+        try:
+            free, total = torch.cuda.mem_get_info()
+            print(f"[tp] {tag}: tp 1 engine loaded in {t_one:.1f} s, tp {TP_RANKS} engine "
+                  f"(ranks on {two._ranks.spec.devices}, backend "
+                  f"{two.get_stats()['tp']['backend']}) in {t_two:.1f} s; the card's memory in "
+                  f"use with both {(total - free) / 2**30:.1f} GiB", flush=True)
+            trace.install(two)
+            tags.tag = "tp2"
+            two.reset_rank_launch_counts()
+            two.rank_collective_stats(reset=True)
+            _, wall2 = tp_batcher_serve(torch, two, ids)
+            counts = two.rank_launch_counts()
+            serve_stats = two.rank_collective_stats()
+            tp_counts_check(f"tp {tag}", counts, fused=kv != "int8")
+            tags.tag = None
+            step2, step_stats = tp_step_ms(torch, two, ids)
+            if kv == "int8":
+                pools, two_scales = tp_prompt_scales(torch, two, ids)
+                scales = (pools, two_scales, one_scales)
+        finally:
+            two.shutdown()
+    finally:
+        trace.close()
+    n_tok = len(ids) * TP_TOKENS
+    per_step = {k: v / TP_STEPS for k, v in step_stats[0].items()}
+    print(f"[tp] {tag}: {len(ids)} requests x {TP_TOKENS} greedy tokens through the batcher: "
+          f"tp 1 {wall1:.2f} s = {n_tok / wall1:.1f} tok/s, tp {TP_RANKS} {wall2:.2f} s = "
+          f"{n_tok / wall2:.1f} tok/s; a decode step at batch 8: tp 1 {step1:.2f} ms, tp "
+          f"{TP_RANKS} {step2:.2f} ms with {per_step['all_reduce']:.0f} all-reduces "
+          f"({per_step['all_reduce_s'] * 1e3:.2f} ms) and {per_step['broadcast']:.0f} "
+          f"broadcast ({per_step['broadcast_s'] * 1e3:.2f} ms) a step on rank 0; serving's "
+          f"collectives by rank {serve_stats}; launches by rank {counts} ({smi})", flush=True)
+    runs = trace.runs()
+    check_aligned(f"tp {tag}", runs, tags=("tp1", "tp2"))
+    check_sampled(f"tp {tag}", traced_rows(runs, "tp2", ids), traced_rows(runs, "tp1", ids),
+                  runs, "the tp 1 engine")
+    total = {}
+    for c in counts:
+        add_counts(total, c)
+    return total, scales
+
+
+def tp_scale_check(scales):
+    """(a)'s int8 scale pools: both ranks' bitwise equal, and each request's
+    prompt scales against the tp 1 engine's: layer 0's bitwise equal,
+    deeper layers' within TP_SCALE_ULP bf16 ulp (the share equal printed
+    by layer)."""
+    pools, two_scales, one_scales = scales
+    same_ranks = all(np.array_equal(pools[0][k], pools[r][k])
+                     for r in range(1, len(pools)) for k in pools[0])
+    by_layer = None
+    ulps = 0
+    for two_req, one_req in zip(two_scales, one_scales):
+        for k in ("k_scale", "v_scale"):
+            a, b = two_req[0][k], one_req[0][k]          # int16 bits [L, n]
+            eq = (a == b).mean(axis=1)
+            by_layer = eq if by_layer is None else np.minimum(by_layer, eq)
+            ulps = max(ulps, int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()))
+            same_ranks &= all(np.array_equal(two_req[0][k], r[k]) for r in two_req[1:])
+    print(f"[tp] (a) int8 scale pools: rank 0's and rank 1's bitwise equal: {same_ranks}; "
+          f"against the tp 1 engine at each request's prompt positions, the share equal by "
+          f"layer (least over requests) {[round(float(x), 4) for x in by_layer]}, the widest "
+          f"difference {ulps} bf16 ulp, at most {TP_SCALE_ULP} allowed (layer 0, whose K and V "
+          f"both engines compute from the same inputs, must be bitwise equal; deeper layers "
+          f"may part: under bf16 activations each rank's row-parallel partial sum is "
+          f"rounded before the all-reduce)", flush=True)
+    if not same_ranks:
+        raise AssertionError("[tp] (a) the ranks' replicated scale pools differ")
+    if by_layer[0] != 1.0:
+        raise AssertionError("[tp] (a) layer 0's scales differ from the tp 1 engine's")
+    if ulps > TP_SCALE_ULP:
+        raise AssertionError(f"[tp] (a) a deeper layer's scales are {ulps} bf16 ulp from the "
+                             f"tp 1 engine's, over {TP_SCALE_ULP}")
+    return by_layer
+
+
+def tp_moe_pass(torch, pa, smi, ids, llama, model=MOE_MODEL, device="cuda"):
+    """(c): mixtral-8x7b at full width, depth TP_MOE_LAYERS, int8 weights,
+    bf16 pools: tp 2 (EP over E = 8 and attention TP) serves the prompts
+    through ``generate`` with its routing recorded on rank 0 (both ranks
+    route alike: the router is replicated and the hidden states all-reduced);
+    the tp 1 engine at the same depth replays that routing (RoutePins) and
+    the streams are judged. → the tp 2 ranks' summed launches."""
+    import gc
+
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+
+    full = get_model_config(model)
+    torch.cuda.reset_peak_memory_stats()
+    whole, t_whole = tp_engine(torch, full, None, TP_RANKS, device)
+    free, total = torch.cuda.mem_get_info()
+    mem = whole.rank_memory()
+    whole.shutdown()
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = [m.get("peak", 0) for m in mem]
+    print(f"[tp] (c) {model} at full depth ({full.num_layers} layers, int8 weights), tp "
+          f"{TP_RANKS} on one card: both ranks' inits at once in {t_whole:.1f} s; the card's "
+          f"memory in use after them {(total - free) / 2**30:.2f} GiB of {total / 2**30:.2f}; "
+          f"each rank's peak {[round(p / 2**30, 2) for p in peaks]} GiB against the whole "
+          f"int8 tree's {full.param_bytes(1) / 2**30:.2f} GiB (a rank holds half the "
+          f"experts and heads, and the embedding, head and router whole; information: the "
+          f"depth served below is cut)", flush=True)
+    if device == "cuda" and sum(peaks) > total:
+        raise AssertionError("[tp] (c) the two ranks' inits exceed the card")
+    cfg = get_model_config(model, num_layers=min(TP_MOE_LAYERS, full.num_layers))
+    ids = [[t % cfg.vocab_size for t in p] for p in ids]
+    tags = Tag()
+    trace = SampleTrace(torch, [], tags=tags)
+    torch.cuda.reset_peak_memory_stats()
+    two, t_two = tp_engine(torch, cfg, None, TP_RANKS, device)
+    free, total = torch.cuda.mem_get_info()
+    try:
+        trace.install(two)
+        tags.tag = "tp2"
+        pins = RoutePins(torch, llama, engine=two)
+        two.reset_rank_launch_counts()
+        t0 = time.perf_counter()
+        with pins.record():
+            outs = two.generate(tp_requests(ids), use_multi_step=True)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        counts = two.rank_launch_counts()
+        tp_counts_check("tp (c)", counts, fused=True)
+        experts = two.params["layers"]["we_gate"]["qw"].shape[1]
+    finally:
+        two.shutdown()
+    del two
+    gc.collect()
+    torch.cuda.empty_cache()
+    one, t_one = tp_engine(torch, cfg, None, 1, device)
+    try:
+        trace.install(one)
+        tags.tag = "tp1"
+        t0 = time.perf_counter()
+        with pins.by_sequence(ids):
+            one.generate(tp_requests(ids), use_multi_step=True)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+    finally:
+        trace.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(o.error or len(o.token_ids) != TP_TOKENS for o in outs):
+        raise AssertionError(f"[tp] (c) requests failed: {[o.error for o in outs]}")
+    n_tok = len(ids) * TP_TOKENS
+    print(f"[tp] (c) {model} at {cfg.num_layers} of 32 layers (full width, int8 weights, "
+          f"bf16 pools), tp {TP_RANKS} = {experts} of {cfg.num_experts} experts and half the "
+          f"heads a rank: loaded in {t_two:.1f} s (card memory in use {(total - free) / 2**30:.1f}"
+          f" GiB with both ranks), {len(ids)} requests x {TP_TOKENS} tokens through generate "
+          f"in {wall2:.2f} s = {n_tok / wall2:.1f} tok/s; the tp 1 engine loaded in "
+          f"{t_one:.1f} s, replayed the tp {TP_RANKS} routing in {wall1:.2f} s "
+          f"({pins.pinned} routed rows pinned, {pins.flips} its own router would have "
+          f"flipped); launches by rank {counts} ({smi})", flush=True)
+    runs = trace.runs()
+    check_aligned("tp (c)", runs, tags=("tp1", "tp2"))
+    check_sampled("tp (c)", traced_rows(runs, "tp2", ids), traced_rows(runs, "tp1", ids), runs,
+                  "the tp 1 engine routed as tp 2")
+    total_counts = {}
+    for c in counts:
+        add_counts(total_counts, c)
+    return total_counts
+
+
+def tp_kernel_entries(torch, pa, flush, launches, dev):
+    """Each kernel at one rank's shard shapes of llama3-8b at tp 2 (Nh 16,
+    Hkv 4; the projections' halves), against its plain version, timed as
+    phases 5 and 9 time them: ``@tp2`` entries."""
+    from distributed_gpu_inference_torch.ops import qmm
+    from distributed_gpu_inference_torch.ops.attention import paged_attention_ref
+    from distributed_gpu_inference_torch.ops.quantization import quantize_weight
+
+    out = []
+    rcase = ragged_in(torch, ragged_round_case(torch, dev, hs=TP_HS), "int8")
+    q, kq, vq, ks, vs, tables, pos, lens, _ = rcase
+    got = pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
+    want = paged_attention_ref(q, kq, vq, tables, pos, lens, BK, k_scale=ks, v_scale=vs)
+    atol = RAGGED_ATOL + BF16_HALF_ULP * float(torch.maximum(
+        dequantized(torch, kq, ks).abs().max(), dequantized(torch, vq, vs).abs().max()).item())
+    ok, r_err, _ = errors(torch, got, want, atol)
+    r_times = ragged_times(torch, pa, paged_attention_ref, flush,
+                           f"[tp] ragged round 8x256 int8 pools at a rank's heads {TP_HS}",
+                           rcase, "int8", hs=TP_HS)
+    dcase = decode_in(torch, decode_case(torch, dev, hs=TP_HS), "bf16")
+    q, nk, nv, kp, vp, _, _, layer, tables, pos, lens, _ = dcase
+    kp2, vp2 = kp.clone(), vp.clone()
+    got, _, _ = pa.paged_decode_attention_fused(q, nk, nv, kp, vp, layer, tables, pos, lens, BK)
+    want, _, _ = pa.paged_decode_attention_fused_plain(q, nk, nv, kp2, vp2, layer, tables, pos,
+                                                       lens, BK)
+    ok_d, d_err, _ = errors(torch, got, want, FUSED_ATOL)
+    del kp2, vp2
+    d_times = decode_times(torch, pa, flush, f"[tp] fused decode 8 rows bf16 pools at a rank's "
+                           f"heads {TP_HS}", dcase, "bf16", hs=TP_HS)
+    g = torch.Generator(device=dev).manual_seed(23)
+    weights, deq, q_err = [], [], 0.0
+    xs = {k: torch.randn((SERVE_BATCH, k), generator=g, device=dev).to(torch.bfloat16)
+          for k in {k for _, k, _ in TP_PROJ}}
+    for _, kdim, ndim in TP_PROJ:
+        w = torch.randn((1, kdim, ndim), generator=g, device=dev) * kdim ** -0.5
+        qw = quantize_weight(w, "int8")
+        weights.append((qw["qw"], qw["scale"]))
+        deq.append((qw["qw"][0].float() * qw["scale"][0]).to(torch.bfloat16))
+        x = xs[kdim]
+        ok_q, err, _ = errors(torch, qmm.launch_kernel(x, qw["qw"], qw["scale"]),
+                              qmm.qmm_plain(x, qw["qw"], qw["scale"]), QMM_ATOL)
+        if not ok_q:
+            raise AssertionError(f"[tp] qmm at K={kdim} N={ndim} disagrees with its plain version")
+        q_err = max(q_err, err)
+    calls = lambda fn: lambda: [fn(xs[qw.shape[1]], qw, sc) for qw, sc in weights]  # noqa: E731
+    lib = lambda: [torch.matmul(xs[w.shape[0]], w) for w in deq]  # noqa: E731
+    q_bound, q_by = bound(*qmm_cost(SERVE_BATCH, [(k, n) for _, k, n in TP_PROJ]))
+    q_times = {"ms": time_ms(torch, calls(qmm.launch_kernel), flush),
+               "graph_ms": graph_ms(torch, calls(qmm.launch_kernel), flush),
+               "plain_ms": time_ms(torch, calls(qmm.qmm_plain), flush, iters=10),
+               "bound_ms": q_bound, "bound_by": q_by, "library_ms": time_ms(torch, lib, flush),
+               "library_graph_ms": graph_ms(torch, lib, flush)}
+    plans = {n: qmm.split_plan(SERVE_BATCH, k, n_) for n, k, n_ in TP_PROJ}
+    print(f"[tp] qmm int8, a rank's share of one layer's 7 projections at M={SERVE_BATCH} "
+          f"({[(n, k, n_) for n, k, n_ in TP_PROJ]}, plans {plans}): kernel "
+          f"{q_times['ms']:.4f} ms (graph {q_times['graph_ms']:.4f} ms = "
+          f"{q_bound / q_times['graph_ms']:.1%} of the bound {q_bound:.4f} ms, {q_by}), plain "
+          f"{q_times['plain_ms']:.4f} ms, torch.matmul on bf16 weights "
+          f"{q_times['library_ms']:.4f} ms (graph {q_times['library_graph_ms']:.4f} ms); max abs "
+          f"err {q_err:.3e}", flush=True)
+    if not (ok and ok_d):
+        raise AssertionError("[tp] an attention kernel disagrees with its plain version at a "
+                             "rank's heads")
+    out += [entry("ragged_paged_attention[int8]@tp2", "ragged_paged_attention.cu",
+                  PALLAS + ":932", launches["ragged_paged_attention"], r_err, r_times),
+            entry("paged_decode_attention_fused@tp2", "paged_decode_fused.cu", PALLAS + ":469",
+                  launches["paged_decode_attention_fused"], d_err, d_times),
+            entry("qmm_w8a16[int8]@tp2", "qmm_w8a16.cu", QPALLAS + ":88",
+                  launches["qmm_w8a16"], q_err, q_times)]
+    return out
+
+
+def tp_phase(torch, pa, smi, prompts, model="llama3-8b", moe_model=MOE_MODEL,
+             device="cuda"):
+    """Phase 23 (see the module docstring). → (its launches by pool:
+    {"int8": ..., "bf16": ...}, the ``@tp2`` kernel entries)."""
+    import gc
+
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.worker.engines.llm import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    tp_backend_probe()
+    ids = [ByteTokenizer().encode(p) for p in prompts]
+    a_counts, scales = tp_serving_pass(torch, pa, smi, "(a) int8 pools", "int8", ids, llama,
+                                       model, device)
+    tp_scale_check(scales)
+    del scales
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_counts, _ = tp_serving_pass(torch, pa, smi, "(b) bf16 pools", None, ids, llama, model,
+                                  device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_counts = tp_moe_pass(torch, pa, smi, ids, llama, moe_model, device)
+    dev = torch.device(device)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    total = {}
+    for c in (a_counts, b_counts, c_counts):
+        add_counts(total, c)
+    entries = tp_kernel_entries(torch, pa, flush, {
+        "ragged_paged_attention": a_counts["ragged_paged_attention"],
+        "paged_decode_attention_fused": b_counts["paged_decode_attention_fused"]
+        + c_counts["paged_decode_attention_fused"],
+        "qmm_w8a16": total["qmm_w8a16"]}, dev)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"[tp] phase 23 launches (both ranks): (a) {a_counts}, (b) {b_counts}, (c) "
+          f"{c_counts}; ran in {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    bf16 = dict(b_counts)
+    add_counts(bf16, c_counts)
+    return {"int8": a_counts, "bf16": bf16}, entries
+
+
 def main() -> int:
     import torch
 
@@ -7190,13 +7711,17 @@ def main() -> int:
     p21 = pipeline_phase(torch, pa, smi)
     # ---- 22. serving.mode: direct, sub-wave admission, the weight cache
     p22 = direct_mode_phase(torch, pa, smi, prompts)
+    # ---- 23. tensor and expert parallelism: two ranks on the card
+    p23, tp_entries = tp_phase(torch, pa, smi, prompts)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
-            e["launches"] += p20[e["name"]] + p21[e["name"]]
+            e["launches"] += p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
         elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
-            e["launches"] += p22[e["name"].split("[")[0]]
+            e["launches"] += p22[e["name"].split("[")[0]] + p23["int8"][e["name"].split("[")[0]]
         elif e["name"] == "qmm_w8a16[int8]":
-            e["launches"] += p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
+            e["launches"] += (p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
+                              + p23["int8"]["qmm_w8a16"] + p23["bf16"]["qmm_w8a16"])
+    kernels += tp_entries
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

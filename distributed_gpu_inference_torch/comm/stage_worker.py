@@ -117,6 +117,13 @@ class PipelineStageWorker:
             params = slice_stage_params(
                 full, self.start, self.end, num_layers=self.cfg.num_layers
             )
+        wq = params["layers"]["wq"]
+        width = (wq["qw"] if isinstance(wq, dict) else wq).shape[-1]
+        if width != self.cfg.num_heads * self.cfg.head_dim:
+            raise ValueError(
+                f"a pipeline stage takes whole layers; wq is {width} wide, not "
+                f"{self.cfg.num_heads * self.cfg.head_dim}: a tensor-parallel rank's shard "
+                "(stages of tensor-parallel groups are not supported)")
         self.params = params
 
         # per-stage KV pools cover ONLY the owned layers

@@ -23,6 +23,12 @@ params, stacked ``[L, ...]`` leaves under ``layers``, go through
 ``models/{vit,asr,diffusion}.py`` read (the engines' port-only ``params``
 / ``vit_params`` keys take the result).
 
+Tensor parallelism: :func:`shard_params_numpy` cuts a JAX-layout numpy
+tree for one rank of the ``model`` axis by the rules of
+``parallel/sharding.py`` (what ``TorchEngine(params=..., rank_devices=...)``
+does to a tree of tensors), so a test hands each rank the slice that the
+JAX package's ``param_shardings`` gives its device.
+
 KV pools: ``kv_from_numpy`` takes the JAX pools ``{"k", "v"}`` and, for
 int8 pools, their scale pools ``{"k_scale", "v_scale"}`` ``[L, N, Bk, D]``
 — the JAX package repeats each (page, token) scale over the D lanes. The
@@ -37,6 +43,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from distributed_gpu_inference_torch.parallel.sharding import shard_tree
 
 _PLAIN_DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -149,3 +157,10 @@ def kv_to_numpy(kv: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             out[name] = np.ascontiguousarray(
                 np.broadcast_to(words[..., None], (*words.shape, d)))
     return out
+
+
+def shard_params_numpy(tree: Mapping[str, Any], rank: int, tp: int) -> Dict[str, Any]:
+    """Rank ``rank``'s tensor-parallel part of a JAX-layout numpy params tree
+    (quantized ``{"qw", "scale"}`` leaves cut by their expanded rules),
+    still numpy: :func:`params_from_numpy` moves it."""
+    return shard_tree(dict(tree), rank, tp)

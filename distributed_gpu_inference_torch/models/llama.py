@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from distributed_gpu_inference_torch.models.configs import ModelConfig
 from distributed_gpu_inference_torch.ops.attention import (
+    token_amax,
     write_kv_pages,
     write_quantized_kv,
 )
@@ -50,7 +51,12 @@ from distributed_gpu_inference_torch.ops.paged_attention import (
     paged_decode_attention_fused,
     ragged_paged_attention,
 )
-from distributed_gpu_inference_torch.ops.quantization import is_quantized, matmul
+from distributed_gpu_inference_torch.ops.quantization import (
+    QUANT_KEYS,
+    is_quantized,
+    matmul,
+    quantize_stacked,
+)
 
 Params = Dict[str, Any]
 # {"k": [L,N,Hkv,Bk,D], "v": ...} plus, for int8 pools, {"k_scale":
@@ -75,18 +81,48 @@ def torch_dtype(dtype: Any) -> torch.dtype:
 
 
 def normal_leaf(shape: Tuple[int, ...], fan_in: int, generator: torch.Generator,
-                dtype: torch.dtype, device: Any) -> torch.Tensor:
+                dtype: torch.dtype, device: Any, name: str = "",
+                shard: Optional[Tuple[int, int]] = None,
+                quantization: Optional[str] = None) -> Any:
     """Normal weights scaled by fan_in^-0.5, drawn in f32 from
     ``generator`` a few leading rows at a time (the f32 draw stays <= 256
-    MB) and cast to ``dtype``."""
-    w = torch.empty(shape, dtype=dtype, device=device)
+    MB) and cast to ``dtype``.
+
+    ``shard=(rank, tp)``: only rank ``rank``'s part of the leaf ``name``
+    is kept, from the same draws: each chunk is rounded to ``dtype``,
+    quantized whole when ``quantization`` names a mode and the leaf is a
+    matmul weight (the per-column scale of a row-parallel weight reduces
+    its whole K), and only then cut (``parallel/sharding.py``); the whole
+    leaf never exists on the device, only one chunk of it."""
+    # parallel/__init__ imports the pipeline planner, which imports this
+    # module: the rules are imported where they are used
+    from distributed_gpu_inference_torch.parallel.sharding import (
+        cut,
+        cut_quantized,
+        leaf_axis,
+    )
+
+    rank, tp = shard or (0, 1)
+    quantize = quantization is not None and name in QUANT_KEYS
     step = max(1, (1 << 26) // math.prod(shape[1:]))
+    out: Any = None
     for r0 in range(0, shape[0], step):
         r1 = min(shape[0], r0 + step)
-        w[r0:r1] = (torch.randn((r1 - r0, *shape[1:]), generator=generator,
-                                device=device, dtype=torch.float32)
-                    * (fan_in ** -0.5)).to(dtype)
-    return w
+        w = (torch.randn((r1 - r0, *shape[1:]), generator=generator, device=device,
+                         dtype=torch.float32) * (fan_in ** -0.5)).to(dtype)
+        part = (cut_quantized(name, quantize_stacked(w, quantization), rank, tp)
+                if quantize else cut(w, leaf_axis(name), rank, tp))
+        del w
+        if out is None:
+            out = ({k: torch.empty((shape[0], *v.shape[1:]), dtype=v.dtype, device=device)
+                    for k, v in part.items()} if quantize else
+                   torch.empty((shape[0], *part.shape[1:]), dtype=part.dtype, device=device))
+        if quantize:
+            for k in out:
+                out[k][r0:r1] = part[k]
+        else:
+            out[r0:r1] = part
+    return out
 
 
 def init_params(
@@ -94,54 +130,64 @@ def init_params(
     generator: torch.Generator,
     dtype: Any = None,
     device: Any = None,
+    shard: Optional[Tuple[int, int]] = None,
+    quantization: Optional[str] = None,
 ) -> Params:
     """Random-init params in the JAX package's layout: normal weights
     scaled by fan_in^-0.5, drawn in f32 from ``generator`` (on the
     generator's device unless ``device`` says otherwise) and cast to
     ``dtype``. The values differ from the JAX package's threefry draws;
     tests that compare the two packages build weights once and move them
-    over with ``models/convert.py``."""
+    over with ``models/convert.py``.
+
+    ``quantization``: the matmul weights quantized to that mode as they
+    are drawn (:func:`normal_leaf`), a few layers at a time, so the whole
+    full-precision tree never exists; the values are those of
+    ``quantize_params`` of the unquantized tree. ``shard=(rank, tp)``: rank
+    ``rank``'s part of the same tree under the tensor-parallel rules, each
+    leaf drawn as the whole tree draws it, quantized whole, then cut."""
     dtype = torch_dtype(dtype or cfg.dtype)
     device = torch.device(device) if device is not None else generator.device
     h, d = cfg.hidden_size, cfg.head_dim
     nh, nkv, i = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
     L, v = cfg.num_layers, cfg.vocab_size
 
-    def _w(shape, fan_in):
-        return normal_leaf(shape, fan_in, generator, dtype, device)
+    def _w(name, shape, fan_in):
+        return normal_leaf(shape, fan_in, generator, dtype, device, name, shard,
+                           quantization)
 
     # norm identity depends on the convention: plain RMSNorm scales by w
     # (identity = ones); Gemma's offset form scales by 1+w (identity = zeros)
     norm_init = torch.zeros if cfg.norm_offset else torch.ones
-    layers: Dict[str, torch.Tensor] = {
+    layers: Dict[str, Any] = {
         "attn_norm": norm_init((L, h), dtype=dtype, device=device),
-        "wq": _w((L, h, nh * d), h),
-        "wk": _w((L, h, nkv * d), h),
-        "wv": _w((L, h, nkv * d), h),
-        "wo": _w((L, nh * d, h), nh * d),
+        "wq": _w("wq", (L, h, nh * d), h),
+        "wk": _w("wk", (L, h, nkv * d), h),
+        "wv": _w("wv", (L, h, nkv * d), h),
+        "wo": _w("wo", (L, nh * d, h), nh * d),
         "mlp_norm": norm_init((L, h), dtype=dtype, device=device),
     }
     if cfg.num_experts:  # Mixtral-style sparse MoE: stacked expert axis E
         e = cfg.num_experts
-        layers["w_router"] = _w((L, h, e), h)
-        layers["we_gate"] = _w((L, e, h, i), h)
-        layers["we_up"] = _w((L, e, h, i), h)
-        layers["we_down"] = _w((L, e, i, h), i)
+        layers["w_router"] = _w("w_router", (L, h, e), h)
+        layers["we_gate"] = _w("we_gate", (L, e, h, i), h)
+        layers["we_up"] = _w("we_up", (L, e, h, i), h)
+        layers["we_down"] = _w("we_down", (L, e, i, h), i)
     else:
-        layers["w_gate"] = _w((L, h, i), h)
-        layers["w_up"] = _w((L, h, i), h)
-        layers["w_down"] = _w((L, i, h), i)
+        layers["w_gate"] = _w("w_gate", (L, h, i), h)
+        layers["w_up"] = _w("w_up", (L, h, i), h)
+        layers["w_down"] = _w("w_down", (L, i, h), i)
     params: Params = {
-        "embedding": _w((v, h), h),
+        "embedding": _w("embedding", (v, h), h),
         "layers": layers,
         "final_norm": norm_init((h,), dtype=dtype, device=device),
     }
     if cfg.attention_bias:  # Qwen2-style QKV biases
-        layers["bq"] = _w((L, nh * d), nh * d)
-        layers["bk"] = _w((L, nkv * d), nkv * d)
-        layers["bv"] = _w((L, nkv * d), nkv * d)
+        layers["bq"] = _w("bq", (L, nh * d), nh * d)
+        layers["bk"] = _w("bk", (L, nkv * d), nkv * d)
+        layers["bv"] = _w("bv", (L, nkv * d), nkv * d)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = _w((v, h), h)
+        params["lm_head"] = _w("lm_head", (v, h), h)
     return params
 
 
@@ -151,10 +197,12 @@ def init_kv_pools(
     block_size: int = 16,
     dtype: Any = None,
     device: Any = "cuda",
+    tp: int = 1,
 ) -> KVPools:
     """Paged KV pools ``[L, N, Hkv, Bk, D]`` (head-major pages: a (page,
     head) slice is one contiguous [Bk, D] tile). Block 0 is the pad block:
-    pad table entries point at it and reads mask it out.
+    pad table entries point at it and reads mask it out. ``tp`` > 1: one
+    rank's pools, ``Hkv / tp`` heads (the scale pools stay whole).
 
     ``dtype=int8``: the dict also carries ``k_scale``/``v_scale`` ``[L, N,
     Bk]`` bf16, one scale per (page, token) shared by the KV heads (the
@@ -164,7 +212,7 @@ def init_kv_pools(
     if dtype not in (torch.bfloat16, torch.float32, torch.float16, torch.int8,
                      torch.float8_e4m3fn):
         raise ValueError(f"unsupported KV pool dtype {dtype}")
-    shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_size, cfg.head_dim)
+    shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads // tp, block_size, cfg.head_dim)
     pools = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
     if dtype == torch.int8:
@@ -217,9 +265,16 @@ def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")   # Gemma GeGLU (gelu_pytorch_tanh)
 
 
-def _mlp(x: torch.Tensor, lp: Dict[str, Any], activation: str) -> torch.Tensor:
+def _row_sum(y: torch.Tensor, tp: Optional[Any]) -> torch.Tensor:
+    """A row-parallel product's partial sum, summed over the ``model``
+    ranks (in place); the product itself without tensor parallelism."""
+    return y if tp is None else tp.all_reduce_sum(y)
+
+
+def _mlp(x: torch.Tensor, lp: Dict[str, Any], activation: str,
+         tp: Optional[Any] = None) -> torch.Tensor:
     gate = _act(matmul(x, lp["w_gate"]), activation)
-    return matmul(gate * matmul(x, lp["w_up"]), lp["w_down"]).to(x.dtype)
+    return _row_sum(matmul(gate * matmul(x, lp["w_up"]), lp["w_down"]), tp).to(x.dtype)
 
 
 def sorted_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -243,7 +298,8 @@ def route_experts(xf: torch.Tensor, w_router: torch.Tensor,
     return torch.zeros_like(probs).scatter_(1, topi, topv), topi
 
 
-def _moe_mlp(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
+             tp: Optional[Any] = None) -> torch.Tensor:
     """Mixtral-style sparse MoE MLP (JAX ``models/llama.py`` ``_moe_mlp``).
 
     Every expert runs on every token and the dense ``[T, E]`` combine
@@ -270,15 +326,18 @@ def _moe_mlp(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig) -> torch.Ten
     b, s, h = x.shape
     xf = x.reshape(b * s, h)
     weights, _ = route_experts(xf, lp["w_router"], cfg.num_experts_per_tok)
+    stack = lp["we_gate"]["qw"] if is_quantized(lp["we_gate"]) else lp["we_gate"]
+    n_local = stack.shape[0]
+    e0 = 0 if tp is None else tp.rank * n_local
     out = torch.zeros((b * s, h), dtype=torch.float32, device=x.device)
-    for e in range(cfg.num_experts):
+    for e in range(n_local):
         w = {n: ({"qw": lp[n]["qw"][e], "scale": lp[n]["scale"][e]}
                  if is_quantized(lp[n]) else lp[n][e])
              for n in ("we_gate", "we_up", "we_down")}
         gate = _act(matmul(xf, w["we_gate"]), cfg.activation)
         per_e = matmul(gate * matmul(xf, w["we_up"]), w["we_down"])
-        out += weights[:, e, None] * per_e.float()
-    return out.reshape(b, s, h).to(x.dtype)
+        out += weights[:, e0 + e, None] * per_e.float()
+    return _row_sum(out, tp).reshape(b, s, h).to(x.dtype)
 
 
 class ChunkOutput(NamedTuple):
@@ -307,6 +366,7 @@ def _layer_step(
     fused_decode: bool,
     write_positions: Optional[torch.Tensor] = None,
     attn_fn: Optional[Any] = None,
+    tp: Optional[Any] = None,
 ) -> torch.Tensor:
     """One transformer layer over paged KV. ``fused_decode`` routes the
     whole KV path of a one-query-per-row step through the fused
@@ -316,9 +376,17 @@ def _layer_step(
     The tree-verify pass writes its rows at ``write_positions`` (node
     slots; default ``positions``) and reads through ``attn_fn(q, k_pool,
     v_pool, k_scale, v_scale)`` (one layer's pools) instead of the ragged
-    kernel."""
+    kernel.
+
+    Tensor parallelism (``tp``): the layer's leaves are the rank's shard,
+    so the head counts come from the projections' widths (Nh/tp query
+    and Nkv/tp KV heads); the ``wo`` and MLP products are summed over the
+    ranks before they join ``hidden``; an int8 pool's per-token amax
+    (over every KV head, on every rank) is max-reduced over the ranks
+    before the rows are quantized, so scales and codes are those of the
+    one-rank engine's contract."""
     b, s, _ = hidden.shape
-    nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d = cfg.head_dim
     x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     q = matmul(x, lp["wq"])
     k = matmul(x, lp["wk"])
@@ -327,6 +395,7 @@ def _layer_step(
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
+    nh, nkv = q.shape[-1] // d, k.shape[-1] // d
     q = apply_rope(q.reshape(b, s, nh, d), cos, sin)
     k = apply_rope(k.reshape(b, s, nkv, d), cos, sin)
     v = v.reshape(b, s, nkv, d)
@@ -350,8 +419,15 @@ def _layer_step(
         ks = vs = None
         if k_scale is not None:
             ks, vs = k_scale[layer], v_scale[layer]
-            write_quantized_kv(k_pool[layer], ks, k, block_tables, wpos, block_size)
-            write_quantized_kv(v_pool[layer], vs, v, block_tables, wpos, block_size)
+            amax_k = amax_v = None
+            if tp is not None:
+                amax = tp.all_reduce_max(torch.stack([token_amax(k, (2, 3)),
+                                                      token_amax(v, (2, 3))]))
+                amax_k, amax_v = amax[0], amax[1]
+            write_quantized_kv(k_pool[layer], ks, k, block_tables, wpos, block_size,
+                               amax=amax_k)
+            write_quantized_kv(v_pool[layer], vs, v, block_tables, wpos, block_size,
+                               amax=amax_v)
         else:
             write_kv_pages(k_pool[layer], k, block_tables, wpos, block_size)
             write_kv_pages(v_pool[layer], v, block_tables, wpos, block_size)
@@ -363,11 +439,12 @@ def _layer_step(
                 block_size, window=cfg.sliding_window, k_scale=ks, v_scale=vs,
             )
 
-    hidden = hidden + matmul(attn.reshape(b, s, nh * d), lp["wo"]).to(hidden.dtype)
+    hidden = hidden + _row_sum(matmul(attn.reshape(b, s, nh * d), lp["wo"]),
+                               tp).to(hidden.dtype)
     mlp_in = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     if "w_router" in lp:
-        return hidden + _moe_mlp(mlp_in, lp, cfg)
-    return hidden + _mlp(mlp_in, lp, cfg.activation)
+        return hidden + _moe_mlp(mlp_in, lp, cfg, tp)
+    return hidden + _mlp(mlp_in, lp, cfg.activation, tp)
 
 
 def forward_chunk(
@@ -384,6 +461,7 @@ def forward_chunk(
     with_logits: bool = True,
     allow_fused: bool = True,
     collect_layers: Optional[Tuple[int, ...]] = None,
+    tp: Optional[Any] = None,
 ) -> ChunkOutput:
     """Run S tokens per sequence through all layers against the paged cache.
 
@@ -393,12 +471,21 @@ def forward_chunk(
     ``with_logits=False`` skips the LM head (an intermediate prefill chunk
     only needs its KV side effects). ``collect_layers`` also returns
     ``ChunkOutput.features``, those layers' post-layer hiddens side by side
-    (the EAGLE-3 draft features)."""
+    (the EAGLE-3 draft features).
+
+    ``tp`` (a ``parallel.mesh.TPGroup``): ``params`` and ``kv`` are this
+    rank's shards (``parallel/sharding.py``) and every rank of the group
+    runs the same call with the same inputs; the collectives are inside.
+    A decode step over int8 pools then writes through the max-reduced
+    quantize and reads through the ragged kernel (the fused kernel
+    quantizes over the rank's own heads only); bf16 and fp8 pools keep
+    the fused kernel on the rank's heads."""
     positions = positions.to(torch.int32)
+    fused = allow_fused and token_ids.shape[1] == 1 and not (tp is not None
+                                                              and "k_scale" in kv)
     hidden, features = _run_hidden(
         cfg, params, embed_tokens(params, token_ids, cfg), positions, kv, block_tables, kv_lens,
-        block_size=block_size, fused_decode=allow_fused and token_ids.shape[1] == 1,
-        collect_layers=collect_layers,
+        block_size=block_size, fused_decode=fused, collect_layers=collect_layers, tp=tp,
     )
     if not with_logits:
         return ChunkOutput(hidden=hidden, kv=kv, logits=None, features=features)
@@ -422,6 +509,7 @@ def _run_hidden(
     kv_lens: torch.Tensor, *, block_size: int, fused_decode: bool = False,
     collect_layers: Optional[Tuple[int, ...]] = None,
     write_positions: Optional[torch.Tensor] = None, attn_fn: Optional[Any] = None,
+    tp: Optional[Any] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run every layer of ``params`` over pre-embedded ``hidden`` → (final
     hidden, the ``collect_layers`` features or None)."""
@@ -439,7 +527,7 @@ def _run_hidden(
             cfg, block_size, hidden, kv, layer, lp,
             block_tables=block_tables, positions=rope_positions, kv_lens=kv_lens,
             cos=cos, sin=sin, fused_decode=fused_decode,
-            write_positions=write_positions, attn_fn=attn_fn,
+            write_positions=write_positions, attn_fn=attn_fn, tp=tp,
         )
         if collect_layers is not None and layer in collect_layers:
             collected[layer] = hidden

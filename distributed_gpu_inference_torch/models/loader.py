@@ -68,8 +68,14 @@ from distributed_gpu_inference_torch.ops.quantization import (
     QUANT_KEYS,
     QUANT_MODES,
     is_quantized,
-    quantize_params,
     quantize_weight,
+)
+from distributed_gpu_inference_torch.parallel.sharding import (
+    cut,
+    cut_quantized_at,
+    expert_range,
+    leaf_axis,
+    scale_axis,
 )
 from distributed_gpu_inference_torch.utils.data_structures import BlockRange
 from distributed_gpu_inference_torch.utils.safetensors import (
@@ -115,16 +121,23 @@ log = logging.getLogger(__name__)
 class _Tree:
     """The stacked layer leaves as they fill, on ``device``: plain tensors
     in ``dtype``, or ``{"qw", "scale"}`` for the matmul weights when
-    ``mode`` is set."""
+    ``mode`` is set. With ``shard=(rank, tp)`` only rank ``rank``'s part
+    of each leaf is allocated and filled (``parallel/sharding.py``): a
+    slice is quantized whole, then cut."""
 
     def __init__(self, num_layers: int, dtype: torch.dtype, device: torch.device,
-                 mode: Optional[str]) -> None:
+                 mode: Optional[str], shard: Optional[Tuple[int, int]] = None) -> None:
         self.L, self.dtype, self.device, self.mode = num_layers, dtype, device, mode
+        self.rank, self.tp = shard or (0, 1)
         self.layers: Dict[str, Any] = {}
 
     def _slot(self, key: str, shape: Tuple[int, ...]) -> Any:
         if key not in self.layers:
-            full = (self.L, *shape)
+            full = [self.L, *shape]
+            axis = leaf_axis(key)
+            if axis is not None:
+                full[axis] //= self.tp
+            full = tuple(full)
             if self.mode is not None and key in QUANT_KEYS:
                 code = torch.int8 if self.mode == "int8" else torch.float8_e4m3fn
                 self.layers[key] = {
@@ -139,15 +152,32 @@ class _Tree:
     def put(self, key: str, index: Tuple[int, ...], slot_shape: Tuple[int, ...],
             w: torch.Tensor, name: str) -> None:
         """Write one slice (already in ``dtype``, on the device) at
-        ``index``, quantizing it on the way for a quantized slot."""
+        ``index``, quantizing it on the way for a quantized slot, and
+        keeping the shard's part of it."""
         slot = self._slot(key, slot_shape)
+        axis = leaf_axis(key)
+        q = None
+        if axis is not None and self.tp > 1:
+            if axis < len(index):
+                # the cut axis is one of the index's (a MoE expert): the
+                # slice is the rank's or none of its business
+                lo, hi = expert_range(slot_shape[axis - 1], self.rank, self.tp)
+                if not lo <= index[axis] < hi:
+                    return
+                index = (*index[:axis], index[axis] - lo, *index[axis + 1:])
+            elif is_quantized(slot):
+                q = cut_quantized_at(quantize_weight(w, self.mode), axis - len(index),
+                                     self.rank, self.tp)
+            else:
+                w = cut(w, axis - len(index), self.rank, self.tp)
         dest = slot["qw"] if is_quantized(slot) else slot
         want = tuple(dest.shape[len(index):])
-        if tuple(w.shape) != want:
-            raise ValueError(f"{name}: shape {tuple(w.shape)} (after the transpose) does "
-                             f"not match {key}'s {want}")
+        got = tuple((q["qw"] if q is not None else w).shape)
+        if got != want:
+            raise ValueError(f"{name}: shape {got} (after the transpose and the cut) "
+                             f"does not match {key}'s {want}")
         if is_quantized(slot):
-            q = quantize_weight(w, self.mode)
+            q = q if q is not None else quantize_weight(w, self.mode)
             slot["qw"][index] = q["qw"]
             slot["scale"][index] = q["scale"]
         else:
@@ -161,13 +191,16 @@ def load_hf_llama(
     layer_range: Optional[BlockRange] = None,
     device: Any = "cuda",
     quantization: Optional[str] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> llama.Params:
     """Load a HF Llama-family checkpoint directory (safetensors shards) into
     the stacked params tree on ``device``. ``layer_range`` loads only
     layers ``[start, end)`` (a pipeline stage): the embedding only on the
     first stage, the final norm and the head only on the last (a tied head
     on a later stage still reads the embedding). ``quantization`` (int8 /
-    fp8) quantizes every matmul weight slice as it is read."""
+    fp8) quantizes every matmul weight slice as it is read. ``shard=(rank,
+    tp)`` keeps rank ``rank``'s tensor-parallel part of each slice (a slice
+    is quantized whole, then cut)."""
     if quantization is not None and quantization not in QUANT_MODES:
         raise ValueError(f"unknown quantization {quantization!r}; use {QUANT_MODES}")
     model_dir = Path(model_dir)
@@ -187,7 +220,7 @@ def load_hf_llama(
         w = st.get_tensor(name).to(device, copy=True)
         return (w.t() if transpose else w).to(dtype)
 
-    tree = _Tree(rng.num_layers, dtype, device, quantization)
+    tree = _Tree(rng.num_layers, dtype, device, quantization, shard)
     params: Dict[str, Any] = {"layers": tree.layers}
     for f in files:
         with SafetensorsFile(f) as st:
@@ -409,6 +442,7 @@ def init_quantized_streamed(
     dtype: Optional[Any] = None,
     seed: int = 0,
     device: Any = "cuda",
+    shard: Optional[Tuple[int, int]] = None,
 ) -> llama.Params:
     """Random-init a model on ``device`` already quantized, one layer slice
     at a time: the cold start of a model whose full-precision tree exceeds
@@ -424,7 +458,11 @@ def init_quantized_streamed(
     layer slice (``[E, H, I]`` for an expert leaf: 1.88 GB for
     mixtral-8x7b) and a few hundred MB of quantize temporaries. The values
     differ from ``llama.init_params``'s, as they do in JAX: only
-    determinism in the seed matters."""
+    determinism in the seed matters.
+
+    ``shard=(rank, tp)``: rank ``rank``'s tensor-parallel part, each slice
+    drawn and quantized whole as above, then cut (the dense leaves by
+    ``llama.normal_leaf``'s sharded draw)."""
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quantization {mode!r}; use {QUANT_MODES}")
     dtype = llama.torch_dtype(dtype or cfg.dtype)
@@ -433,6 +471,7 @@ def init_quantized_streamed(
     nh, nkv, i = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
     L, v = cfg.num_layers, cfg.vocab_size
     code = torch.int8 if mode == "int8" else torch.float8_e4m3fn
+    rank, tp = shard or (0, 1)
 
     def _gen(name: str) -> torch.Generator:
         key = (seed << 31) + (zlib.crc32(name.encode()) & 0x7FFFFFFF)
@@ -440,19 +479,27 @@ def init_quantized_streamed(
 
     def _q_leaf(name: str, shape: Tuple[int, ...], fan_in: int) -> Dict[str, torch.Tensor]:
         g = _gen(name)
-        qw = torch.empty((L, *shape), dtype=code, device=device)
-        scale = torch.empty((L, *shape[:-2], 1, shape[-1]), dtype=torch.float32,
-                            device=device)
+        # a whole slice's codes and scales, cut on the slice's axis (the
+        # leaf's, less the layer axis) once quantized
+        whole = {"qw": torch.empty(shape, dtype=code, device=device),
+                 "scale": torch.empty((*shape[:-2], 1, shape[-1]), dtype=torch.float32,
+                                      device=device)}
+        axis = leaf_axis(name) - 1
+        part = cut_quantized_at(whole, axis, rank, tp)
+        qw = torch.empty((L, *part["qw"].shape), dtype=code, device=device)
+        scale = torch.empty((L, *part["scale"].shape), dtype=torch.float32, device=device)
         for layer in range(L):
             # one f32 slice, scaled in place
             w = torch.randn(shape, generator=g, device=device,
                             dtype=torch.float32).mul_(fan_in ** -0.5)
-            _quantize_into(w, qw[layer], scale[layer], mode)
+            _quantize_into(w, whole["qw"], whole["scale"], mode)
             del w
+            part = cut_quantized_at(whole, axis, rank, tp)
+            qw[layer], scale[layer] = part["qw"], part["scale"]
         return {"qw": qw, "scale": scale}
 
     def _dense_leaf(name: str, shape: Tuple[int, ...], fan_in: int) -> torch.Tensor:
-        return llama.normal_leaf(shape, fan_in, _gen(name), dtype, device)
+        return llama.normal_leaf(shape, fan_in, _gen(name), dtype, device, name, shard)
 
     norm_init = torch.zeros if cfg.norm_offset else torch.ones
     layers: Dict[str, Any] = {
@@ -500,8 +547,9 @@ def device_total_bytes(device: Any) -> Optional[int]:
 
 def init_route(cfg: ModelConfig, dtype: Any, quantization: Optional[str],
                device: Any) -> str:
-    """How a random init of ``cfg`` is built on ``device``: ``"full"`` (the
-    full-precision tree, then quantized leaf by leaf if asked) or
+    """How a random init of ``cfg`` is built on ``device``: ``"full"``
+    (``llama.init_params``, each matmul weight quantized as it is drawn if
+    asked) or
     ``"streamed"`` (:func:`init_quantized_streamed`), taken for a
     quantized init whose full-precision tree exceeds the device's total
     memory. A full-precision tree that exceeds it with no quantization is
@@ -525,6 +573,7 @@ def load_or_init_params(
     seed: int = 0,
     device: Any = "cuda",
     quantization: Optional[str] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> llama.Params:
     """The engine's one weight source: an HF safetensors directory, or a
     random init from ``seed`` on ``device`` by :func:`init_route`'s rule
@@ -532,7 +581,13 @@ def load_or_init_params(
     leaf as it is consumed, or the streamed quantized init). Any other
     ``checkpoint_path`` is refused: the JAX package reads it as an orbax
     checkpoint, which is JAX-only. A full-precision tree larger than the
-    device is refused before anything is allocated."""
+    device is refused before anything is allocated.
+
+    ``shard=(rank, tp)``: only rank ``rank``'s tensor-parallel part lands
+    on ``device``, holding the values of the whole tree's, cut: the route
+    is chosen as for the whole tree, every leaf (or streamed slice) is
+    drawn as the whole tree draws it, and a weight is quantized whole
+    before the cut."""
     dtype = llama.torch_dtype(dtype or cfg.dtype)
     if quantization is not None and quantization not in QUANT_MODES:
         raise ValueError(f"unknown quantization {quantization!r}; use {QUANT_MODES}")
@@ -542,17 +597,17 @@ def load_or_init_params(
         # the JAX package's test: config.json or *.safetensors
         if (p / "config.json").exists() or any(p.glob("*.safetensors")):
             return load_hf_llama(p, cfg, dtype=dtype, device=device,
-                                 quantization=quantization)
+                                 quantization=quantization, shard=shard)
         raise ValueError(
             f"checkpoint_path {str(p)!r} is not an HF checkpoint directory (no "
             "config.json or *.safetensors); orbax checkpoints are JAX-only and "
             "the PyTorch port does not load them")
     log.info("%s: random init from seed %d, route %s", cfg.name, seed, route)
     if route == "streamed":
-        return init_quantized_streamed(cfg, quantization, dtype, seed, device)
+        return init_quantized_streamed(cfg, quantization, dtype, seed, device, shard)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return quantize_params(llama.init_params(cfg, gen, dtype, device), quantization,
-                           consume=True)
+    return llama.init_params(cfg, gen, dtype, device, shard=shard,
+                             quantization=quantization)
 
 
 # ---------------------------------------------------------------- quantized-weight cache
@@ -606,12 +661,23 @@ def save_quant_cache(path: str | Path, params: Dict[str, Any]) -> int:
         return 0
 
 
-def load_quant_cache(path: str | Path, cfg: ModelConfig, device: Any
+def _cut_cached(name: str, t: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
+    """A cache file's tensor ``name`` (its path in the tree) cut to rank
+    ``rank``'s part: a quantized leaf's ``qw`` by its weight's rule, its
+    ``scale`` by the same axis where the scale has it at full size."""
+    *_, parent, leaf = ["", *name.split("/")]
+    axis = leaf_axis(parent if leaf in ("qw", "scale") else leaf)
+    return cut(t, scale_axis(axis, t) if leaf == "scale" else axis, rank, tp)
+
+
+def load_quant_cache(path: str | Path, cfg: ModelConfig, device: Any,
+                     shard: Optional[Tuple[int, int]] = None
                      ) -> Optional[Dict[str, Any]]:
     """The tree of a cache file, each tensor copied from the mapped file
     straight to ``device``; None when there is no file, or when it cannot be
     read or does not hold a tree of ``cfg`` (logged: the caller rebuilds
-    and rewrites it)."""
+    and rewrites it). ``shard=(rank, tp)``: each tensor is cut to rank
+    ``rank``'s part in the mapped file, and only that part is copied."""
     path = Path(path)
     if not path.exists():
         return None
@@ -625,7 +691,10 @@ def load_quant_cache(path: str | Path, cfg: ModelConfig, device: Any
                 node = tree
                 for part in parents:
                     node = node.setdefault(part, {})
-                node[leaf] = f.get_tensor(name).to(device)
+                t = f.get_tensor(name)
+                if shard is not None:
+                    t = _cut_cached(name, t, *shard)
+                node[leaf] = t.to(device)
         layers = tree.get("layers") or {}
         if not layers or any(int(t.shape[0]) != cfg.num_layers
                              for t in _flatten(layers).values()):

@@ -47,7 +47,18 @@ _NEG_INF = -1e30
 _INV_127 = 1.0 / 127.0      # applied as a float32 constant
 
 
-def quantize_token_rows(x: torch.Tensor, dims: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+def token_amax(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """Each token's amax over ``dims`` in f32, ``dims`` kept as size-1
+    dims: what :func:`quantize_token_rows` scales by. Under tensor
+    parallelism a rank holds some KV heads of each token, so the engine
+    max-reduces this over the ranks and hands the result back as
+    ``amax``."""
+    return x.float().abs().amax(dim=tuple(dims), keepdim=True)
+
+
+def quantize_token_rows(x: torch.Tensor, dims: Sequence[int],
+                        amax: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """THE int8-KV quantization contract: one scale per token over every
     (head, channel) element — amax over ``dims`` floored at 1e-6, times
     1/127, ROUNDED TO bf16 BEFORE quantizing (the stored codes must match
@@ -55,9 +66,12 @@ def quantize_token_rows(x: torch.Tensor, dims: Sequence[int]) -> Tuple[torch.Ten
     ±127, real = code * scale. The JAX package writes ``amax / 127``; its
     compiled graphs (what its engine runs) multiply by the float32
     reciprocal instead, and so does this. Returns (int8 like x, f32 scale
-    with ``dims`` kept as size-1 dims)."""
+    with ``dims`` kept as size-1 dims). ``amax`` (:func:`token_amax`'s
+    shape) replaces x's own amax: the max over every rank's heads of a
+    tensor-parallel token."""
     x = x.float()
-    amax = x.abs().amax(dim=tuple(dims), keepdim=True)
+    if amax is None:
+        amax = token_amax(x, dims)
     scale = (torch.clamp_min(amax, 1e-6) * _INV_127).to(torch.bfloat16).float()
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -259,10 +273,12 @@ def write_quantized_kv(
     block_tables: torch.Tensor,
     positions: torch.Tensor,
     block_size: int,
+    amax: Optional[torch.Tensor] = None,
 ) -> None:
     """Quantize a chunk's K or V rows per token (:func:`quantize_token_rows`
-    over (Hkv, D)) and write codes and scales to their page slots."""
-    codes, scale = quantize_token_rows(new, (2, 3))
+    over (Hkv, D), or by the given ``amax`` ``[B, S, 1, 1]``) and write
+    codes and scales to their page slots."""
+    codes, scale = quantize_token_rows(new, (2, 3), amax)
     write_kv_pages(pool, codes, block_tables, positions, block_size)
     write_scale_pages(scale_pool, scale[:, :, 0, 0], block_tables, positions,
                       block_size)

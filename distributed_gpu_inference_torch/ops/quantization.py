@@ -90,7 +90,7 @@ def dequantize(w: Dict[str, torch.Tensor], dtype: Any = torch.float32) -> torch.
     return (w["qw"].float() * w["scale"]).to(dtype)
 
 
-def _quantize_stacked(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
+def quantize_stacked(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
     """Quantize a stacked ``[L, K, N]`` leaf one layer at a time: the scale
     reduces axis -2 only, so each layer slice quantizes on its own and the
     float32 temporaries stay one layer large (a whole llama3-8b ``w_gate``
@@ -102,7 +102,7 @@ def _quantize_stacked(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
     scale = torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32,
                         device=w.device)
     for i in range(w.shape[0]):
-        q = _quantize_stacked(w[i], mode)
+        q = quantize_stacked(w[i], mode)
         qw[i], scale[i] = q["qw"], q["scale"]
     return {"qw": qw, "scale": scale}
 
@@ -127,7 +127,7 @@ def quantize_params(
     for k in list(src.keys()):
         v = src.pop(k) if consume else src[k]
         if k in QUANT_KEYS and not is_quantized(v):
-            new_layers[k] = _quantize_stacked(v, mode)
+            new_layers[k] = quantize_stacked(v, mode)
             del v
         else:
             new_layers[k] = v

@@ -1,0 +1,185 @@
+"""Axis conventions, mesh plans, and the tensor-parallel process group.
+
+The port of ``distributed_gpu_inference_tpu/parallel/mesh.py``: the same
+axis names and :class:`MeshPlan` / :func:`infer_plan`, without JAX. The
+JAX package builds a ``jax.sharding.Mesh`` and lets XLA insert the
+collectives; the port runs one process per rank of the ``model`` axis,
+each holding its shard of the weights and KV pools on its own device, and
+calls the collectives itself through a :class:`TPGroup`.
+
+Axis names (fixed across the framework so sharding rules compose):
+
+- ``data``  — request-level data parallelism (replica groups)
+- ``model`` — tensor parallelism over attention heads / MLP width, and
+  expert parallelism over a MoE layer's experts
+- ``seq``   — sequence/context parallelism (ring attention)
+- ``stage`` — pipeline stages
+
+Backends (:func:`choose_backend`), chosen from the rank devices by name:
+NCCL when every rank has a card of its own; gloo when the ranks run on the
+CPU, or share one card. On an H100 80GB HBM3 (700 W, torch 2.11 + CUDA
+12.8, NCCL 2.28.9) NCCL refuses two ranks on one device ("Duplicate GPU
+detected : rank 0 and rank 1 both on CUDA device"), and gloo takes CUDA
+tensors (bf16 ``allreduce``, f32 ``broadcast``) by staging them through
+the host itself (``chip_smoke.py`` phase 23 probes both). The NCCL branch
+needs a card a rank and is not exercised on a one-card machine.
+Rendezvous goes through a ``FileStore`` in a temporary directory, not a
+TCP port, and every group has a timeout, so a rank that dies makes the
+others raise instead of hang.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+AXIS_DATA = "data"
+AXIS_MODEL = "model"
+AXIS_SEQ = "seq"
+AXIS_STAGE = "stage"
+
+ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """A named factorization of the device count into parallelism axes."""
+
+    data: int = 1
+    stage: int = 1
+    seq: int = 1
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.stage * self.seq * self.model
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return {
+            AXIS_DATA: self.data,
+            AXIS_STAGE: self.stage,
+            AXIS_SEQ: self.seq,
+            AXIS_MODEL: self.model,
+        }
+
+    def nontrivial_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a, s in self.axis_sizes().items() if s > 1)
+
+
+def infer_plan(num_devices: int, num_kv_heads: int, prefer: str = "model") -> MeshPlan:
+    """Pick a default factorization: TP up to the KV-head count, remainder DP."""
+    model = math.gcd(num_devices, num_kv_heads) if prefer == "model" else 1
+    return MeshPlan(data=num_devices // model, model=model)
+
+
+def choose_backend(devices: Sequence[torch.device]) -> str:
+    """``"nccl"`` when every rank has a CUDA device of its own, ``"gloo"``
+    when the ranks run on the CPU or share a card. Ranks on a mix of the
+    CPU and cards are refused."""
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return "gloo"
+    if kinds != {"cuda"}:
+        raise ValueError(f"tensor-parallel ranks must all be on the CPU or all on "
+                         f"CUDA devices, got {[str(d) for d in devices]}")
+    indices = [d.index if d.index is not None else 0 for d in devices]
+    return "nccl" if len(set(indices)) == len(indices) else "gloo"
+
+
+def _nccl_group(store: "dist.Store", rank: int, size: int,
+                timeout: datetime.timedelta) -> "dist.ProcessGroup":
+    opts = dist.ProcessGroupNCCL.Options()
+    opts._timeout = timeout
+    return dist.ProcessGroupNCCL(store, rank, size, opts)
+
+
+class TPGroup:
+    """One rank's view of the ``model`` axis: its rank, the group's size,
+    its ``torch.device``, the process group, and the collectives the
+    forward pass calls. Counts each collective and its host seconds
+    (``stats``). A gloo collective on CUDA tensors blocks the host until
+    its copy back has landed, so the device is synchronized before its
+    clock starts (its copy to the host would wait for that work anyway):
+    the seconds are the collective's own, waits for the other ranks
+    included. An NCCL collective is only enqueued; its seconds are the
+    enqueue's."""
+
+    def __init__(self, rank: int, devices: Sequence[torch.device], store_path: str,
+                 timeout_s: float = 120.0) -> None:
+        self.rank = rank
+        self.devices = [torch.device(d) for d in devices]
+        self.size = len(self.devices)
+        self.device = self.devices[rank]
+        self.backend = choose_backend(self.devices)
+        timeout = datetime.timedelta(seconds=timeout_s)
+        store = dist.FileStore(store_path, self.size)
+        if self.backend == "nccl":
+            torch.cuda.set_device(self.device)
+            self.group = _nccl_group(dist.PrefixStore("data", store), rank, self.size,
+                                     timeout)
+        else:
+            self.group = dist.ProcessGroupGloo(dist.PrefixStore("data", store), rank,
+                                               self.size, timeout)
+        self._sync = self.backend == "gloo" and self.device.type == "cuda"
+        self.stats: Dict[str, float] = {"all_reduce": 0, "all_reduce_s": 0.0,
+                                        "broadcast": 0, "broadcast_s": 0.0}
+
+    def _run(self, kind: str, t: torch.Tensor, call) -> torch.Tensor:
+        if self._sync:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        call(t).wait()
+        self.stats[kind] += 1
+        self.stats[kind + "_s"] += time.perf_counter() - t0
+        return t
+
+    def _reduce(self, t: torch.Tensor, op: "dist.ReduceOp") -> torch.Tensor:
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = op
+        return self._run("all_reduce", t, lambda x: self.group.allreduce([x], opts))
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; every rank gets the same
+        bits (each element is reduced once and copied to the others)."""
+        return self._reduce(t, dist.ReduceOp.SUM)
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``t`` over the ranks, in place."""
+        return self._reduce(t, dist.ReduceOp.MAX)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank, in place."""
+        opts = dist.BroadcastOptions()
+        opts.rootRank = src
+        return self._run("broadcast", t, lambda x: self.group.broadcast([x], opts))
+
+    def reset_stats(self) -> None:
+        for k in self.stats:
+            self.stats[k] = 0 if not k.endswith("_s") else 0.0
+
+    def close(self) -> None:
+        """Release the group (idempotent)."""
+        group, self.group = self.group, None
+        if group is not None and hasattr(group, "shutdown"):
+            try:
+                group.shutdown()
+            except RuntimeError:
+                pass
+
+
+def rank_devices(device: str, tp: int) -> Optional[list]:
+    """The devices of ``tp`` ranks for a worker's ``device`` setting, one
+    card each (the worker's rule: no more ranks than local cards), or None
+    when the machine does not have them."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [torch.device("cpu")] * tp
+    if not torch.cuda.is_available() or torch.cuda.device_count() < tp:
+        return None
+    return [torch.device("cuda", i) for i in range(tp)]

@@ -1,7 +1,7 @@
 """Slot-based serving engine over paged KV on one CUDA device.
 
 The port of ``distributed_gpu_inference_tpu/runtime/engine.py`` ``TPUEngine``
-(one device: no mesh, no sequence-sharded pools). Weights may be quantized
+(no sequence-sharded pools). Weights may be quantized
 on load
 (``EngineConfig.quantization`` int8 / fp8, ``ops/quantization.py``) and the
 KV pools stored as int8 with scale pools or as fp8
@@ -39,6 +39,15 @@ for the window; at each step boundary ``trim_reserved`` hands back the
 blocks acceptance never reached. ``distill_draft`` fits the draft head
 against the engine's own weights before it serves.
 
+Tensor and expert parallelism (``rank_devices`` with more than one
+device; the JAX engine's ``model``-axis mesh): this engine is rank 0 and
+keeps every piece of host state; ranks 1..tp-1 are processes of
+``runtime/tp.py`` holding their shards of the weights and pools, sent a
+command with the host arrays before each device call. What the slice does
+not take under tensor parallelism is refused by name: speculative
+decoding, the spill tiers, and the page transfers of KV handoff, PD and
+KV migration (:meth:`gather_pages` / :meth:`push_pages`).
+
 Failure semantics: the JAX engine's device calls were functional, so a
 failed call left the old pools intact. Here a round updates the pools in
 place, so a failure part-way leaves them half-written: the engine records
@@ -53,6 +62,7 @@ import itertools
 import json
 import time
 import uuid
+import weakref
 import zlib
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -72,7 +82,12 @@ from distributed_gpu_inference_torch.models.loader import (
     quant_cache_path,
     save_quant_cache,
 )
-from distributed_gpu_inference_torch.ops.paged_attention import kernel_takes
+from distributed_gpu_inference_torch.ops import _build
+from distributed_gpu_inference_torch.ops.paged_attention import (
+    kernel_takes,
+    launch_counts,
+    reset_launch_counts,
+)
 from distributed_gpu_inference_torch.ops.quantization import (
     QUANT_MODES,
     quantize_params,
@@ -85,6 +100,18 @@ from distributed_gpu_inference_torch.runtime.kv_cache import (
     HostKVStore,
     OutOfBlocksError,
     PagedKVCacheManager,
+)
+from distributed_gpu_inference_torch.parallel.mesh import TPGroup
+from distributed_gpu_inference_torch.parallel.sharding import shard_tree
+from distributed_gpu_inference_torch.runtime import tp as tp_ranks
+from distributed_gpu_inference_torch.runtime.tp import (
+    RankFailed,
+    RankSpec,
+    TPRanks,
+    decode_steps,
+    rendezvous_path,
+    tensor_bits,
+    tree_to,
 )
 from distributed_gpu_inference_torch.runtime.speculative import (
     SpecDecodeConfig,
@@ -378,8 +405,56 @@ def resolve_device(device: Any = "cuda") -> torch.device:
     return dev
 
 
+def engine_params(model_cfg: ModelConfig, cfg: EngineConfig,
+                  checkpoint_path: Optional[str], seed: int, device: torch.device,
+                  shard: Optional[Tuple[int, int]] = None) -> llama.Params:
+    """The engine's weights when the caller gives none: the quantized-weight
+    cache when ``EngineConfig.quant_cache_dir`` holds this tree, else a
+    checkpoint or a random init from ``seed`` (``models/loader.py``),
+    written to the cache after a quantized build. ``shard=(rank, tp)``:
+    rank ``rank``'s tensor-parallel part of the same tree; a sharded build
+    reads the cache but does not write it (no rank holds the whole tree)."""
+    mode = cfg.quantization
+    cache = (quant_cache_path(cfg.quant_cache_dir, model_cfg.name, mode, cfg.dtype,
+                              checkpoint_path, seed)
+             if cfg.quant_cache_dir and mode is not None else None)
+    params = (load_quant_cache(cache, model_cfg, device, shard)
+              if cache is not None else None)
+    if params is None:
+        params = load_or_init_params(
+            model_cfg, checkpoint_path, dtype=llama.torch_dtype(cfg.dtype), seed=seed,
+            device=device, quantization=mode, shard=shard,
+        )
+        if cache is not None and shard is None:
+            save_quant_cache(cache, params)
+    return params
+
+
+def check_tp(model_cfg: ModelConfig, cfg: EngineConfig, tp: int) -> None:
+    """Refuse a tensor-parallel configuration this engine cannot run, with
+    the JAX engine's reasons (KV heads and experts must divide over the
+    ranks; speculative decoding is single-device) and by name what this
+    slice does not take under tensor parallelism."""
+    if model_cfg.num_kv_heads % tp:
+        raise ValueError(f"num_kv_heads {model_cfg.num_kv_heads} not divisible by "
+                         f"model axis {tp}")
+    if model_cfg.num_experts and model_cfg.num_experts % tp:
+        raise ValueError(f"num_experts {model_cfg.num_experts} not divisible by "
+                         f"model axis {tp} (EP shards experts)")
+    if model_cfg.num_heads % tp or model_cfg.intermediate_size % tp:
+        raise ValueError(f"num_heads {model_cfg.num_heads} and intermediate_size "
+                         f"{model_cfg.intermediate_size} must divide over model axis {tp}")
+    if cfg.speculative is not None:
+        raise ValueError("speculative decode mode is single-chip: drop the mesh "
+                         "or EngineConfig.speculative")
+    if cfg.spill_host_blocks > 0 or cfg.spill_remote_store is not None:
+        raise ValueError("the KV spill tiers (spill_host_blocks, spill_remote_store) "
+                         "are not supported under tensor parallelism (tp > 1)")
+
+
 class TorchEngine:
-    """Paged-KV serving engine for one model on one device."""
+    """Paged-KV serving engine for one model on one device, or on the
+    devices of its tensor-parallel ranks."""
 
     def __init__(
         self,
@@ -390,6 +465,7 @@ class TorchEngine:
         eos_token_id: Optional[int] = None,
         device: Any = "cuda",
         checkpoint_path: Optional[str] = None,
+        rank_devices: Optional[Sequence[Any]] = None,
     ) -> None:
         """``params``: a params tree in the JAX package's layout, already
         on ``device`` (``models.convert.params_from_numpy`` builds one).
@@ -406,14 +482,26 @@ class TorchEngine:
         at a time (``models/loader.py`` ``init_route``); a caller's tree is
         left as it was. A full-precision tree larger than the device is
         refused before anything is allocated. MoE (Mixtral) layers serve on
-        every path; ``forward_chunk`` takes them."""
-        self.device = resolve_device(device)
+        every path; ``forward_chunk`` takes them.
+
+        ``rank_devices``: one device a tensor-parallel rank (the first is
+        this engine's, and ``device`` is ignored); with more than one, the
+        engine starts ranks 1..tp-1 as processes (``runtime/tp.py``), each
+        holding its shard, and every device call runs on all of them. A
+        device may repeat (two ranks on one card, over gloo). ``params``
+        are then quantized whole here and cut for each rank; without
+        ``params`` each rank builds its own shard of the same tree."""
+        devices = [resolve_device(d) for d in (rank_devices or [device])]
+        self.device = devices[0]
+        self.tp = len(devices)
         self.model_cfg = (
             get_model_config(model_cfg) if isinstance(model_cfg, str) else model_cfg
         )
         self.cfg = engine_cfg or EngineConfig()
         if self.cfg.speculative is not None:
             self.cfg.speculative.validate(self.cfg)
+        if self.tp > 1:
+            check_tp(self.model_cfg, self.cfg, self.tp)
         self.dtype = llama.torch_dtype(self.cfg.dtype)
         self.kv_dtype = _resolve_kv_dtype(self.cfg.kv_cache_dtype, self.dtype)
         if self.device.type == "cuda":
@@ -421,29 +509,38 @@ class TorchEngine:
         mode = self.cfg.quantization
         if mode is not None and mode not in QUANT_MODES:
             raise ValueError(f"unknown quantization {mode!r}; use {QUANT_MODES}")
-        if params is None:
-            cache = (quant_cache_path(self.cfg.quant_cache_dir, self.model_cfg.name, mode,
-                                      self.cfg.dtype, checkpoint_path, seed)
-                     if self.cfg.quant_cache_dir and mode is not None else None)
-            params = (load_quant_cache(cache, self.model_cfg, self.device)
-                      if cache is not None else None)
-            if params is None:
-                params = load_or_init_params(
-                    self.model_cfg, checkpoint_path, dtype=self.dtype, seed=seed,
-                    device=self.device, quantization=mode,
-                )
-                if cache is not None:
-                    save_quant_cache(cache, params)
-        elif checkpoint_path:
+        if params is not None and checkpoint_path:
             raise ValueError("give params or checkpoint_path, not both")
-        else:
+        self._ranks: Optional[TPRanks] = None
+        self._tp_group: Optional[TPGroup] = None
+        # the exception of a device round that failed mid-update (pools may
+        # be half-written); set once, never cleared
+        self._failed: Optional[BaseException] = None
+        shard = (0, self.tp) if self.tp > 1 else None
+        if params is not None:
             params = quantize_params(params, mode)
-        self.params = params
-        self.num_blocks = self.cfg.resolved_num_blocks()
-        self.kv = llama.init_kv_pools(
-            self.model_cfg, self.num_blocks, self.cfg.block_size, self.kv_dtype,
-            self.device,
-        )
+            if shard is not None:
+                shards = [None] + [tree_to(shard_tree(params, r, self.tp), "cpu")
+                                   for r in range(1, self.tp)]
+                params = shard_tree(params, 0, self.tp)
+        if self.tp > 1:
+            self._start_ranks(devices, seed, checkpoint_path,
+                              shards if params is not None else None)
+        try:
+            if params is None:
+                params = engine_params(self.model_cfg, self.cfg, checkpoint_path, seed,
+                                       self.device, shard)
+            self.params = params
+            self.num_blocks = self.cfg.resolved_num_blocks()
+            self.kv = llama.init_kv_pools(
+                self.model_cfg, self.num_blocks, self.cfg.block_size, self.kv_dtype,
+                self.device, tp=self.tp,
+            )
+            if self._ranks is not None:
+                self._ranks.wait_ready()
+        except BaseException:
+            self.shutdown()
+            raise
         host_store = (
             HostKVStore(self.cfg.spill_host_blocks)
             if self.cfg.spill_host_blocks > 0 else None
@@ -478,9 +575,6 @@ class TorchEngine:
         # pending KV-pressure signal (set at step boundaries, consumed by
         # the scheduler layer via take_pressure)
         self._pressure: Optional[KVPressure] = None
-        # the exception of a device round that failed mid-update (pools may
-        # be half-written); set once, never cleared
-        self._failed: Optional[BaseException] = None
         self.stats: Dict[str, Any] = {
             "requests": 0, "completed": 0, "generated_tokens": 0,
             "prefill_tokens": 0, "prefill_calls": 0, "decode_calls": 0,
@@ -515,13 +609,91 @@ class TorchEngine:
                 "spec_accepted": 0, "spec_emitted": 0,
             })
 
+    # ------------------------------------------------- tensor-parallel ranks
+
+    def _start_ranks(self, devices: Sequence[torch.device], seed: int,
+                     checkpoint_path: Optional[str], shards: Optional[list]) -> None:
+        """Start ranks 1..tp-1 and join their group as rank 0. The CUDA
+        kernels are built here first, once, so the ranks only load them."""
+        if self.device.type == "cuda":
+            _build.build()
+        spec = RankSpec(
+            model_cfg=self.model_cfg, engine_cfg=self.cfg,
+            devices=[str(d) for d in devices], store_path=rendezvous_path(),
+            timeout_s=tp_ranks.TIMEOUT_S, seed=seed,
+            checkpoint_path=checkpoint_path, num_threads=torch.get_num_threads(),
+        )
+        self._ranks = TPRanks(spec, shards)
+        self._tp_group = self._ranks.group
+        # a dropped engine still stops its ranks (at exit at the latest)
+        self._rank_finalizer = weakref.finalize(self, self._ranks.close)
+
+    def shutdown(self) -> None:
+        """Stop the tensor-parallel ranks (idempotent; nothing to do for a
+        one-device engine). Device work after it raises."""
+        if self._ranks is not None:
+            self._ranks.close()
+            if self._failed is None:
+                self._failed = EngineStateLost("the engine was shut down")
+
+    def refuse_under_tp(self, what: str) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"{what} is not supported under tensor parallelism (tp={self.tp}): "
+                "KV handoff, PD roles, KV migration and the spill tiers move whole "
+                "pages, which no rank holds")
+
+    def rank_launch_counts(self) -> List[Dict[str, int]]:
+        """Each rank's kernel launch counts (``ops.paged_attention
+        .launch_counts``), rank 0's first."""
+        counts = [launch_counts()]
+        if self._ranks is not None:
+            counts += self._ranks.query("counts")
+        return counts
+
+    def reset_rank_launch_counts(self) -> None:
+        reset_launch_counts()
+        if self._ranks is not None:
+            self._ranks.send("reset_counts")
+
+    def rank_pools(self, names: Sequence[str] = ("k_scale", "v_scale")
+                   ) -> List[Dict[str, np.ndarray]]:
+        """Each rank's pools ``names`` as raw bits on the host, rank 0's
+        first (a bitwise check that replicated scale pools agree)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        out = [{k: tensor_bits(self.kv[k]) for k in names}]
+        if self._ranks is not None:
+            out += self._ranks.query("pools", names=tuple(names))
+        return out
+
+    def rank_memory(self) -> List[Dict[str, int]]:
+        """Each rank's allocated and peak device bytes (empty on the CPU),
+        rank 0's first."""
+        own = {} if self.device.type != "cuda" else {
+            "allocated": torch.cuda.memory_allocated(self.device),
+            "peak": torch.cuda.max_memory_allocated(self.device)}
+        return [own] + (self._ranks.query("memory") if self._ranks is not None else [])
+
+    def rank_collective_stats(self, reset: bool = False) -> List[Dict[str, float]]:
+        """Each rank's collective counts and host seconds, rank 0's first."""
+        if self._tp_group is None:
+            return []
+        out = [dict(self._tp_group.stats)] + self._ranks.query("stats")
+        if reset:
+            self._tp_group.reset_stats()
+            self._ranks.send("reset_stats")
+        return out
+
     # ------------------------------------------------------- device helpers
 
     @contextlib.contextmanager
     def _device_work(self) -> Iterator[None]:
         """Every in-place pool update runs inside this guard: a failure
         marks the engine unusable (and is re-raised), and an unusable
-        engine refuses the next round loudly."""
+        engine refuses the next round loudly. Under tensor parallelism a
+        failure that a rank caused (it raised or exited) is raised as
+        :class:`EngineStateLost` naming the rank."""
         if self._failed is not None:
             raise EngineStateLost(
                 "engine state lost: an earlier device round failed while "
@@ -535,6 +707,12 @@ class TorchEngine:
             # the draft hidden is device state of the failed round too
             self._spec_h = None
             self._spec_h_zero.clear()
+            failed = exc if isinstance(exc, RankFailed) else (
+                self._ranks.failure() if self._ranks is not None else None)
+            if failed is not None:
+                self._failed = EngineStateLost(
+                    f"engine state lost: {failed}; rebuild the engine")
+                raise self._failed from exc
             raise
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
@@ -544,12 +722,17 @@ class TorchEngine:
                  lens: np.ndarray, *, with_logits: bool = True,
                  allow_fused: bool = True) -> Optional[torch.Tensor]:
         """One forward over host-built batch arrays → last-token logits
-        [B, V] (None when ``with_logits`` is False)."""
+        [B, V] (None when ``with_logits`` is False). Under tensor
+        parallelism every rank runs it on the same arrays."""
+        if self._ranks is not None:
+            self._ranks.send("forward", toks_pos=toks_pos, tables=tables, lens=lens,
+                             allow_fused=allow_fused)
         out = llama.forward_chunk(
             self.model_cfg, self.params, self._tensor(toks_pos[0]),
             self._tensor(toks_pos[1]), self.kv, self._tensor(tables),
             self._tensor(lens), block_size=self.cfg.block_size,
             last_only=True, with_logits=with_logits, allow_fused=allow_fused,
+            tp=self._tp_group,
         )
         return None if out.logits is None else out.logits[:, 0, :]
 
@@ -590,6 +773,9 @@ class TorchEngine:
                 for (_, key), (page, scale) in zip(ops.downloads, pages):
                     self.manager.store_spilled(key, page, scale)
             if ops.copies:
+                if self._ranks is not None:
+                    self._ranks.send("copy", src=np.array([s for s, _ in ops.copies]),
+                                     dst=np.array([d for _, d in ops.copies]))
                 src = torch.tensor([s for s, _ in ops.copies],
                                    dtype=torch.long, device=self.device)
                 dst = torch.tensor([d for _, d in ops.copies],
@@ -631,6 +817,7 @@ class TorchEngine:
         the engine's stream behind a CUDA event (:meth:`HostPages.wait`
         before reading); the default waits on that event only, not on the
         whole stream."""
+        self.refuse_under_tp("gather_pages")
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
 
         def to_host(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -666,6 +853,7 @@ class TorchEngine:
         """Write host pages (and int8 scales) into blocks ``bids`` of the
         pools: the pages stacked into pinned staging, one host-to-device
         copy, then one ``index_copy_`` per pool on the engine's stream."""
+        self.refuse_under_tp("push_pages")
         shape, pbytes, sshape, sbytes = self._page_layout()
         n = len(bids)
         host = self._staging(n, pbytes + sbytes)
@@ -1506,41 +1694,33 @@ class TorchEngine:
     def _decode_loop(self, active_mask: np.ndarray, budgets: np.ndarray,
                      num_steps: int, mode: str) -> np.ndarray:
         """Up to ``num_steps`` decode steps with the per-slot state on the
-        device: each not-done row feeds its pending token at position
-        ``lens`` (writing its KV) and advances; a row is done once it emits
-        a stop id or its budget. One host read at the end → emitted
-        [B, T] (-1 = masked-out step). Steps past the largest budget would
-        be all-masked, so the loop stops there."""
+        device (``runtime/tp.py`` ``decode_steps``): each not-done row
+        feeds its pending token at position ``lens`` (writing its KV) and
+        advances; a row is done once it emits a stop id or its budget. One
+        host read at the end → emitted [B, T] (-1 = masked-out step). Steps
+        past the largest budget would be all-masked, so the loop stops
+        there. Under tensor parallelism every rank runs the same steps and
+        this engine samples each step's tokens for all of them."""
         b = len(self.slots)
         steps = int(min(num_steps, int(budgets.max(initial=0))))
         emitted = np.full((b, num_steps), -1, np.int32)
         if steps <= 0:
             return emitted
         with self._device_work():
-            last = self._tensor(self._last_tokens)
-            lens = self._tensor(self._kv_lens)
-            done = self._tensor(~active_mask)
-            n_emit = torch.zeros_like(lens)
-            budgets_t = self._tensor(budgets.astype(np.int32))
-            stops = self._tensor(self._stop_ids)
-            tables = self._tensor(self._block_tables)
-            cols = []
-            for _ in range(steps):
-                cur = (lens + 1).masked_fill(done, 0)
-                positions = lens[:, None].masked_fill(done[:, None], -1)
-                logits = llama.forward_chunk(
-                    self.model_cfg, self.params, last[:, None], positions,
-                    self.kv, tables, cur, block_size=self.cfg.block_size,
-                    last_only=True,
-                ).logits[:, 0, :]
-                toks = self._sample(logits, range(b), cur, mode)
-                hit_stop = (toks[:, None] == stops).any(dim=1)
-                cols.append(toks.masked_fill(done, -1))
-                n_emit = n_emit + (~done).to(n_emit.dtype)
-                lens = lens + (~done).to(lens.dtype)
-                last = torch.where(done, last, toks)
-                done = done | hit_stop | (n_emit >= budgets_t)
-            emitted[:, :steps] = torch.stack(cols, dim=1).cpu().numpy()
+            if self._ranks is not None:
+                self._ranks.send("decode", last=self._last_tokens, lens=self._kv_lens,
+                                 active=active_mask, budgets=budgets.astype(np.int32),
+                                 stops=self._stop_ids, tables=self._block_tables,
+                                 steps=steps)
+            cols = decode_steps(
+                self.model_cfg, self.params, self.kv, self.cfg.block_size,
+                self._tensor(self._last_tokens), self._tensor(self._kv_lens),
+                self._tensor(~active_mask), self._tensor(budgets.astype(np.int32)),
+                self._tensor(self._stop_ids), self._tensor(self._block_tables), steps,
+                lambda logits, cur: self._sample(logits, range(b), cur, mode),
+                self._tp_group,
+            )
+            emitted[:, :steps] = cols.cpu().numpy()
         return emitted
 
     def decode_step(self) -> Dict[int, int]:
@@ -2299,6 +2479,9 @@ class TorchEngine:
         out = dict(self.stats)
         out["kv_cache"] = self.manager.get_stats()
         out["active_slots"] = self.num_active
+        if self._tp_group is not None:
+            out["tp"] = {"size": self.tp, "backend": self._tp_group.backend,
+                         **self._tp_group.stats}
         if self.cfg.speculative is not None:
             drafted = out.get("spec_drafted", 0)
             slot_steps = out.get("spec_slot_steps", 0)

@@ -418,7 +418,9 @@ def migrate_kv_device(src: "TorchEngine", dst: "TorchEngine", slot: int,
     with no host hop; only slot metadata rides the host. The donor slot
     stays live (the caller decides ``finish_slot``, as with
     :func:`export_slot_kv`). Engines on different devices raise: that is
-    the wire path's job."""
+    the wire path's job, and so are tensor-parallel engines (refused)."""
+    for eng in (src, dst):
+        eng.refuse_under_tp("migrate_kv_device")
     s = src.slots[slot]
     if s is None:
         raise ValueError(f"slot {slot} empty")

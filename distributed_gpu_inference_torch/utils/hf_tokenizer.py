@@ -73,6 +73,7 @@ or decoders, and the ``Precompiled`` normalizer) is refused at load with
 
 from __future__ import annotations
 
+import bisect
 import functools
 import heapq
 import json
@@ -81,6 +82,8 @@ import unicodedata
 from datetime import datetime
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from distributed_gpu_inference_torch.utils import bert_chars
 
 
 class TokenizerUnsupported(ValueError):
@@ -233,14 +236,47 @@ def _replacer(spec: Dict[str, Any], what: str) -> Callable[[str], str]:
 
 def _lowercase(s: str) -> str:
     """Each character's own lower case (no context rule: a final capital
-    sigma lowers to σ, as Rust's ``char::to_lowercase`` does)."""
-    return "".join(c.lower() for c in s)
+    sigma lowers to σ, as Rust's ``char::to_lowercase`` does), by the
+    library's tables where they differ from Python's
+    (``utils/bert_chars.py`` ``LOWER``)."""
+    return "".join(bert_chars.LOWER.get(ord(c)) or c.lower() for c in s)
+
+
+class _CodePoints:
+    """Membership in a table of inclusive code-point ranges."""
+
+    def __init__(self, ranges: Tuple[Tuple[int, int], ...]) -> None:
+        self._lo = [lo for lo, _ in ranges]
+        self._hi = [hi for _, hi in ranges]
+
+    def __contains__(self, c: str) -> bool:
+        i = bisect.bisect_right(self._lo, ord(c)) - 1
+        return i >= 0 and ord(c) <= self._hi[i]
+
+
+# the ``tokenizers`` library's BERT classes (its Unicode tables are older
+# than the running Python's: a character assigned since, such as U+0C77,
+# must stay inside a word as the library keeps it)
+_PUNCT = _CodePoints(bert_chars.PUNCT)
+_DROPPED = _CodePoints(bert_chars.DROPPED)
+_MARK = _CodePoints(bert_chars.MARK)
 
 
 def _strip_accents(s: str) -> str:
-    """NFD, then the nonspacing marks (``Mn``) dropped."""
-    return "".join(c for c in unicodedata.normalize("NFD", s)
-                   if unicodedata.category(c) != "Mn")
+    """NFD, then the nonspacing marks (``Mn`` of the library's tables)
+    dropped; a character whose decomposition the library's tables lack
+    (``utils/bert_chars.py`` ``STRIP``) becomes the library's result."""
+    out, start = [], 0
+    for i, c in enumerate(s):
+        if ord(c) in bert_chars.STRIP:
+            out += [_nfd_unmarked(s[start:i]), bert_chars.STRIP[ord(c)]]
+            start = i + 1
+    out.append(_nfd_unmarked(s[start:]))
+    return "".join(out)
+
+
+def _nfd_unmarked(s: str) -> str:
+    return "".join(c for c in unicodedata.normalize("NFD", s) if c not in _MARK)
 
 
 # the CJK blocks BERT spaces out (``tokenizers``' is_chinese_char)
@@ -253,15 +289,12 @@ def _is_cjk(c: str) -> bool:
     return any(lo <= cp <= hi for lo, hi in _CJK)
 
 
-# the categories BERT's clean_text drops
-_OTHER = frozenset(("Cc", "Cf", "Co", "Cs"))
-
-
 def _bert_normalizer(spec: Dict[str, Any]) -> Callable[[str], str]:
     """``BertNormalizer``: ``clean_text`` drops NUL, U+FFFD and the
-    control, format, private-use and surrogate characters (tab, newline and
-    carriage return kept; unassigned code points kept, as the library keeps
-    them) and makes every White_Space character a
+    control, format, private-use and surrogate characters of the library's
+    tables (``utils/bert_chars.py``; tab, newline and carriage return kept,
+    unassigned code points kept, as the library keeps them) and makes every
+    White_Space character a
     space; ``handle_chinese_chars`` puts a space on each side of a CJK
     ideograph; ``strip_accents`` (default: as ``lowercase``) and
     ``lowercase``, in that order."""
@@ -273,10 +306,7 @@ def _bert_normalizer(spec: Dict[str, Any]) -> Callable[[str], str]:
 
     def run(s: str) -> str:
         if clean:
-            s = "".join(
-                " " if c in _WS else c for c in s
-                if not (c in ("\x00", "\ufffd")
-                        or (c not in "\t\n\r" and unicodedata.category(c) in _OTHER)))
+            s = "".join(" " if c in _WS else c for c in s if c not in _DROPPED)
         if chinese:
             s = "".join(f" {c} " if _is_cjk(c) else c for c in s)
         if strip:
@@ -380,9 +410,9 @@ def _metaspace(spec: Dict[str, Any]) -> PreStep:
 
 def _is_punctuation(c: str) -> bool:
     """BERT's punctuation: ASCII punctuation (symbols such as ``$`` and
-    ``+`` included) or a Unicode ``P*`` character."""
-    return (c.isascii() and not c.isalnum() and c.isprintable() and c != " ") \
-        or unicodedata.category(c)[0] == "P"
+    ``+`` included) or a ``P*`` character of the library's Unicode tables
+    (``utils/bert_chars.py``)."""
+    return c in _PUNCT
 
 
 def _split_ws(piece: str) -> List[str]:

@@ -125,6 +125,7 @@ from distributed_gpu_inference_torch.comm.data_plane import (
     HTTPStatusError,
     post_bytes,
 )
+from distributed_gpu_inference_torch.parallel.mesh import rank_devices
 from distributed_gpu_inference_torch.runtime.batcher import (
     BatcherConfig,
     BatcherServing,
@@ -165,6 +166,7 @@ from distributed_gpu_inference_torch.runtime.prefix_summary import (
     PrefixHotSet,
 )
 from distributed_gpu_inference_torch.runtime.redis_kv import remote_store_from_url
+from distributed_gpu_inference_torch.runtime.tp import RankFailed
 from distributed_gpu_inference_torch.testing import faults as _faults
 from distributed_gpu_inference_torch.utils.backoff import full_jitter_delay
 from distributed_gpu_inference_torch.utils.config import (
@@ -544,18 +546,43 @@ class TorchLLMEngine(LLMBaseEngine):
     def _refuse_unported(self, sv: Dict[str, Any]) -> None:
         """EngineLoadError naming each configured key whose path this port
         does not have: refused at load when set, never ignored."""
-        tp = int(self.config.get("tp_size")
-                 or (self.config.get("extra") or {}).get("tp_size") or 1)
-        if tp > 1:
-            raise EngineLoadError(
-                f"extra.tp_size={tp}: tensor parallelism is not in the "
-                "PyTorch port (one card)"
-            )
         if sv.get("mode") not in SERVING_MODES:
             raise EngineLoadError(
                 f"serving.mode: {sv.get('mode')!r} is not a serving mode; use "
                 f"one of {list(SERVING_MODES)}"
             )
+
+    def _tp_devices(self) -> Optional[List[Any]]:
+        """``tp_size`` (top level or under ``extra``) > 1: the ranks'
+        devices, one local card each (the JAX worker's rule: no more ranks
+        than local devices; the CPU when ``device: cpu``), after refusing
+        by name what the tensor-parallel slice does not take. None for one
+        device."""
+        tp = int(self.config.get("tp_size")
+                 or (self.config.get("extra") or {}).get("tp_size") or 1)
+        if tp <= 1:
+            return None
+        devices = rank_devices(self.config.get("device", "cuda"), tp)
+        if devices is None:
+            import torch
+
+            have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            raise EngineLoadError(f"tp_size={tp} but only {have} local devices")
+        for key in ("speculative_decode", "kv_spill_host_blocks", "kv_remote_url"):
+            if self.config.get(key):
+                raise EngineLoadError(
+                    f"{key} is not supported under tensor parallelism (tp_size={tp})")
+        if self.config.get("engine") in ("jax-speculative", "speculative"):
+            raise EngineLoadError(
+                f"engine={self.config['engine']} is not supported under tensor "
+                f"parallelism (tp_size={tp}): speculative decoding is single-chip")
+        if self.config.get("kv_migrate"):
+            raise EngineLoadError(
+                f"kv_migrate is not supported under tensor parallelism (tp_size={tp}): "
+                "no rank holds a whole page")
+        # KV migration moves whole pages: off unless asked for (refused above)
+        self.kv_migrate_enabled = False
+        return devices
 
     def _local_file_key(self, key: str) -> Optional[str]:
         """``checkpoint_path`` / ``tokenizer_id``: a top-level key, or one
@@ -567,6 +594,7 @@ class TorchLLMEngine(LLMBaseEngine):
         model_name = self.config.get("model", "llama3-mini")
         sv = self._serving_config()
         self._refuse_unported(sv)
+        tp_devices = self._tp_devices()
         if self.tokenizer is None:
             tok_id = self._local_file_key("tokenizer_id")
             self.tokenizer = _load_hf_tokenizer(tok_id) if tok_id else ByteTokenizer()
@@ -631,12 +659,14 @@ class TorchLLMEngine(LLMBaseEngine):
                 seed=int(self.config.get("seed", 0)),
                 device=self.config.get("device", "cuda"),
                 checkpoint_path=self._local_file_key("checkpoint_path"),
+                rank_devices=tp_devices,
             )
         except BaseException as exc:
             store = eng_cfg.spill_remote_store
             if store is not None and hasattr(store, "close"):
                 store.close()      # its writer thread would outlive the load
-            if isinstance(exc, (ValueError, KeyError, NotImplementedError, OSError)):
+            if isinstance(exc, (ValueError, KeyError, NotImplementedError, OSError,
+                                RankFailed)):
                 raise EngineLoadError(str(exc)) from exc
             raise
         distill_steps = int(self.config.get("spec_distill_steps") or 0)
@@ -808,6 +838,8 @@ class TorchLLMEngine(LLMBaseEngine):
         if store is not None and hasattr(store, "close"):
             store.close()
         device = self.engine.device if self.engine is not None else None
+        if self.engine is not None:
+            self.engine.shutdown()      # stops the tensor-parallel ranks
         self.engine = None
         self._spec = None
         self._handoff_rx = None
@@ -1162,6 +1194,12 @@ class TorchLLMEngine(LLMBaseEngine):
         work, so two workers pushing to each other cannot deadlock."""
         if not self.loaded or self.engine is None:
             raise EngineLoadError("engine not loaded")
+        decode_url = params.get("decode_url")
+        local = not decode_url or params.get("decode_worker") in (
+            None, params.get("target_worker"))
+        if not local:
+            # refused before the prompt runs: the export reads whole pages
+            self.engine.refuse_under_tp("a KV handoff to another worker")
         cfg = GenerationConfig.from_params(params)
         req = self._pd_request(params, cfg)
         key = params.get("kv_cache_key") or f"pd-{req.request_id}"
@@ -1169,9 +1207,6 @@ class TorchLLMEngine(LLMBaseEngine):
         req.session_id = key
         tl = self._flight_timeline(params)
         tl.note("pd.prefill.start", key=key)
-        decode_url = params.get("decode_url")
-        local = not decode_url or params.get("decode_worker") in (
-            None, params.get("target_worker"))
         stream_ok = (
             not local
             and bool(params.get("pd_stream", self.config.get("pd_stream", True)))
@@ -1458,6 +1493,8 @@ class TorchLLMEngine(LLMBaseEngine):
         executor and index a bound slot by its kv_cache_key."""
         if not self.loaded or self.engine is None:
             raise EngineLoadError("engine not loaded")
+        # refused before the bytes are read: adopting them writes whole pages
+        self.engine.refuse_under_tp("a KV handoff from another worker")
         with self._engine_lock:
             if self._handoff_rx is None or self._handoff_rx.engine is not self.engine:
                 self._handoff_rx = HandoffReceiver(self.engine)

@@ -52,7 +52,8 @@ def test_port_imports_nothing_of_jax():
             "serialization.py", "kv_cache.py", "speculative.py", "engine.py", "batcher.py",
             "llama.py", "attention.py", "convert.py", "loader.py", "safetensors.py",
             "hf_tokenizer.py", "wire.py", "session.py", "stage_worker.py",
-            "pipeline.py"} <= {f.name for f in files}
+            "pipeline.py", "mesh.py", "sharding.py", "tp.py",
+            "bert_chars.py"} <= {f.name for f in files}
     assert (ROOT / "distributed_gpu_inference_torch/runtime/speculative.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/testing/faults.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files

@@ -35,9 +35,11 @@ a fixed multilingual corpus, are held to it on encode and decode: BERT's
 and ``TemplateProcessing``, T5's (``Nmt`` / ``NFKC`` / ``Replace`` /
 ``Strip`` / ``Lowercase`` normalizers, ``Metaspace``, ``</s>`` appended) and
 a byte-fallback Unigram over ``WhitespaceSplit``. Their random strings are
-drawn from the code points Unicode 3.2 already assigned: BERT's punctuation
-and mark classes follow the running Python's Unicode tables, the library's
-are older, and one character assigned since shows the difference
+drawn from the code points Unicode 3.2 already assigned; BERT's
+punctuation, mark, dropped and case classes are the library's
+(``utils/bert_chars.py``, written by ``scripts/gen_bert_char_classes.py``),
+held to it on one probe string of every code point, and one character
+assigned since Unicode 12 encodes as the library encodes it
 (``test_characters_newer_than_the_librarys_unicode_tables_part``).
 What the reader lacks (the ``Precompiled`` normalizer, other models,
 normalizers, pre-tokenizers, post-processors and decoders) is refused by
@@ -66,6 +68,7 @@ from tokenizers import (  # noqa: E402
 )
 
 import chip_smoke  # noqa: E402
+from distributed_gpu_inference_torch.utils import hf_tokenizer  # noqa: E402
 from distributed_gpu_inference_torch.utils.hf_tokenizer import (  # noqa: E402
     HFTokenizer,
     TokenizerUnsupported,
@@ -712,16 +715,51 @@ def test_unigram_unknown_characters_fuse_or_fall_back_to_bytes(model_pairs):
 
 def test_characters_newer_than_the_librarys_unicode_tables_part(model_pairs):
     """U+0C77 (TELUGU SIGN SIDDHAM, punctuation since Unicode 12): the
-    running Python's tables make it BERT punctuation, a piece of its own;
-    the library's older tables keep it inside the word. Both give one
-    ``[UNK]`` for it, beside the word's own pieces here, the word's one
-    ``[UNK]`` there (ROADMAP §3)."""
+    library's older tables keep it inside the word, one ``[UNK]`` for the
+    word; the port's committed copy of those tables (``utils/bert_chars.py``,
+    ROADMAP §3 item 8, repaired) keeps it there too, where the running
+    Python's tables would make it a piece of its own."""
     hf, ours = model_pairs["bert"]
     text = "the\u0c77"
-    assert ours.encode(text) != hf.encode(text)
-    assert ours.encode(text)[1:-1] == ours.encode("the ", add_special_tokens=False) \
-        + [ours.token_to_id("[UNK]")]
+    assert ours.encode(text) == hf.encode(text)
     assert hf.encode(text)[1:-1] == [ours.token_to_id("[UNK]")]
+
+
+def _every_code_point():
+    """One probe string: every code point but the surrogates, each between
+    two letters."""
+    return "a" + "".join(chr(cp) + "a" for cp in range(0x110000)
+                         if not 0xD800 <= cp < 0xE000)
+
+
+@pytest.mark.parametrize("spec", [{"type": "BertPreTokenizer"},
+                                  {"type": "Punctuation", "behavior": "Isolated"}],
+                         ids=["bert", "punctuation"])
+def test_bert_pre_tokenizers_equal_the_library_on_every_code_point(spec):
+    """The port's BERT and Punctuation pre-tokenizers split a probe holding
+    every code point as the library does: its punctuation class, read from
+    the committed table, is the library's, not the running Python's."""
+    lib = {"BertPreTokenizer": pre_tokenizers.BertPreTokenizer(),
+           "Punctuation": pre_tokenizers.Punctuation("isolated")}[spec["type"]]
+    probe = _every_code_point()
+    pieces = [probe]
+    for step in hf_tokenizer._pre_tokenizer(spec):
+        pieces = [q for p in pieces for q in step(p, None)]
+    assert pieces == [p for p, _ in lib.pre_tokenize_str(probe)]
+
+
+@pytest.mark.parametrize("clean,strip,lower", [(True, False, False), (False, True, False),
+                                               (False, False, True), (True, True, True)],
+                         ids=["clean_text", "strip_accents", "lowercase", "all"])
+def test_bert_normalizer_equals_the_library_on_every_code_point(clean, strip, lower):
+    """``BertNormalizer`` over the same probe: ``clean_text``'s dropped
+    classes, ``strip_accents``' nonspacing marks and decompositions and
+    ``lowercase`` give the library's string."""
+    probe = _every_code_point()
+    kw = dict(clean_text=clean, handle_chinese_chars=False, strip_accents=strip,
+              lowercase=lower)
+    ours = hf_tokenizer._normalizer({"type": "BertNormalizer", **kw})(probe)
+    assert ours == normalizers.BertNormalizer(**kw).normalize_str(probe)
 
 
 def test_a_wordpiece_engine_loads_and_serves(tmp_path):

@@ -678,7 +678,10 @@ def test_serving_config_push_reaches_the_batcher_and_refusals_are_logged(
                  id="config1-engine: speculative"),
     pytest.param({"speculative_decode": True, "spec_distill_steps": 100},
                  None, id="config2-speculative_decode"),
-    ({"extra": {"tp_size": 2}}, "extra.tp_size=2"),
+    # extra.tp_size: 2 loads and serves over two CPU ranks since tensor
+    # parallelism was ported (id kept); a mesh the model cannot take is
+    # refused with the JAX engine's reason (tp_size 4 below)
+    pytest.param({"extra": {"tp_size": 2}}, None, id="config3-extra.tp_size=2"),
     # serving.mode: direct loads and serves since it was ported (id kept);
     # a mode that is neither batcher nor direct is refused by name
     pytest.param({"serving": {"mode": "direct"}}, None, id="config4-serving.mode"),
@@ -687,7 +690,8 @@ def test_serving_config_push_reaches_the_batcher_and_refusals_are_logged(
     # a local tokenizer directory loads; a hub id (not a local directory)
     # is refused, since the port downloads nothing
     ({"tokenizer_id": "meta-llama/Meta-Llama-3-8B"}, "tokenizer_id"),
-    ({"tp_size": 4}, "extra.tp_size=4"),
+    pytest.param({"tp_size": 4}, "num_kv_heads 2 not divisible by model axis 4",
+                 id="config7-extra.tp_size=4"),
     # an HF directory loads; an orbax one is JAX-only
     pytest.param({"checkpoint_path": "<orbax>"}, "orbax checkpoints are JAX-only",
                  id="checkpoint_path-orbax"),
@@ -706,6 +710,8 @@ def test_engine_refuses_at_load_what_the_port_does_not_serve(config, names, tmp_
         try:
             if "spec_distill_steps" in config:
                 assert llm.distill_losses.shape == (config["spec_distill_steps"],)
+            elif "extra" in config:                 # two tensor-parallel ranks
+                assert llm.engine.tp == 2 and llm.serving is not None
             else:                                   # direct mode: no batcher
                 assert llm.serving is None and llm.serving_stats() is None
             out = llm.inference({"prompt": "hi", "max_new_tokens": 4, "ignore_eos": True})
@@ -752,8 +758,10 @@ def test_engine_loads_and_serves_the_lifted_keys(tiny_params, config):
 def test_worker_drops_an_llm_engine_config_the_port_refuses(tiny_params):
     register_engine("llm", _tiny_factory(tiny_params))
     cfg = _config()
+    # a mesh llama3-tiny's two KV heads cannot take (tp_size 2 loads since
+    # tensor parallelism was ported)
     cfg.engines["llm"] = EngineModelConfig(
-        engine="jax", model="llama3-tiny", extra={"tp_size": 2})
+        engine="jax", model="llama3-tiny", extra={"tp_size": 4})
     with pytest.raises(EngineLoadError, match="no engine loaded"):
         Worker(cfg, api=FakeAPI(creds_valid=True), topology=CPU).load_engines()
 
