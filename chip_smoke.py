@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --phase 24     # the build, then phase 24 alone
+
+``--phase`` takes the phases whose inputs are their own (17-19, 21-24;
+repeatable); the others run only in the whole script. A guard thread stops
+the run (exit 3) if the host's available memory falls below
+HOST_FLOOR_GIB.
 
 Phases (each prints its own lines; any failure raises and the exit code is
 non-zero):
@@ -392,11 +398,12 @@ Mixtral MoE:
     fused decode and int8 qmm entries of the kernels line.
 
 21. pipeline stages — after phase 20. (a) ``TorchEngine`` loads llama3-8b
-    at all 32 layers with int8 weights (one quantized tree, bf16 pools,
+    at full width, depth cut to PIPE_LAYERS (8 of 32, for the script's
+    time), with int8 weights (one quantized tree, bf16 pools,
     one request at a time, the prompt lengths as its prefill buckets so a
-    prompt prefills unpadded, as a stage does); ``uniform_stages(32, 2)``
-    splits it into (0, 16) and (16, 32); two ``PipelineStageWorker`` s and
-    a spare for (16, 32), bf16 pools of 64 blocks each, take
+    prompt prefills unpadded, as a stage does); ``uniform_stages(8, 2)``
+    splits it into (0, 4) and (4, 8); two ``PipelineStageWorker`` s and
+    a spare for (4, 8), bf16 pools of 64 blocks each, take
     ``slice_stage_params`` views of the engine's tree, each behind its own
     ``DataPlaneServer`` on 127.0.0.1: the allocated bytes before and after
     the stages (no more than their pools, + 1 MiB) and every stage leaf a
@@ -464,7 +471,8 @@ Tensor and expert parallelism:
     engine-level ``rank_devices``; the worker's ``tp_size`` takes one card
     a rank). A probe first: two processes on the card, where NCCL refuses
     the shared device and gloo must all-reduce and broadcast CUDA tensors.
-    (a) llama3-8b at full width and depth, int8 weights and int8 pools,
+    (a) llama3-8b at full width, depth cut to TP_LAYERS (8 of 32, for the
+    script's time), int8 weights and int8 pools,
     seed 0: the tp 1 engine and then the tp 2 engine (rank 1 a spawned
     process holding its shard) serve the 8 serving prompts, 32 greedy
     tokens each, through ``BatcherServing``, both under one
@@ -492,10 +500,50 @@ Tensor and expert parallelism:
     phase's launches (both ranks) are added to the kernels line's int8
     and bf16 entries.
 
+Sequence parallelism:
+
+24. after phase 23, on the ``seq`` axis with two ranks on cuda:0
+    (``TorchEngine(mesh=MeshPlan(seq=2))``, gloo). llama3-8b at full width
+    and depth, int8 weights and int8 pools, seed 0, ``max_seq_len`` 8192,
+    block 16; two long prompts of SEQ_LONG seeded ids (3x the 2048 prefill
+    bucket) and six short ones, 32 greedy tokens each through
+    ``generate``. The seq 1 engine serves them first (the reference), then
+    (a) ring and (b) Ulysses over replicated pools (each long prompt ONE
+    seq-parallel pass, rank 0 serving the rest alone) and (c)
+    ``kv_seq_sharded`` pools (each rank 1/2 of the blocks, every rank
+    running every forward, reads through the partial-softmax ops), which
+    also serves a prefix-cache hit continued over two prefill chunks and
+    one continued in one chunk (the seq 1 engine serves those prompts
+    too). (d) (c)'s engine streams the first long prompt into a tp 2
+    decode engine (``StreamedExport`` → ``HandoffReceiver``; the engine of
+    a ``tp_size: 2`` worker in direct mode), then a PD request: prefilled
+    on a ``tp_size: 2`` worker, pushed over a ``DataPlaneServer``, decoded
+    on the other; then that prefill worker's L2 spill and restore (the
+    restored pages gathered from both ranks bitwise equal to the spilled
+    ones, the stream equal to the L1-hit reference). Every stream of
+    (a)-(d) is judged against the seq 1 engine's in the logits each run
+    sampled, as phase 23 judges; each pass prints its tok/s, the
+    seq-parallel prefills' ms, TTFT, each rank's collectives (count and
+    ms), peak memory and pool bytes (c: 1/2 of seq 1's a rank), and each
+    rank's launches (checked: replicated pools launch all three kernels on
+    rank 0 and none on rank 1; block-sharded pools launch qmm on both ranks
+    and no attention kernel). Then the plain ring, Ulysses and
+    partial-softmax ops timed on two ranks at the path's shapes. Then the
+    three kernels at every shape the path gave them (:class:`PathShapes`
+    records them in this process while (a)-(d) run: the seq engines' 512-
+    wide tables, the tp 2 engines' heads) held to their plain versions on
+    seeded pools of the engines' size with the recorded tables, positions
+    and lengths; the seq engines' decode shape and the tp 2 decode
+    engine's ragged round timed as phase 10 times (``@seq`` entries). The
+    phase's launches (every rank) are added to the kernels line's int8
+    entries. (c)'s extra prompts and (d)'s requests take SEQ_SIDE_TOKENS
+    greedy tokens.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15,
-``@moe-*`` entries for phase 19, ``@tp2`` entries for phase 23), the
+``@moe-*`` entries for phase 19, ``@tp2`` entries for phase 23, ``@seq``
+entries for phase 24), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1084,7 +1132,18 @@ def long_parity(torch, pa, ref, kind, rcase, dcase):
           flush=True)
     if not (ok and same and pad_zero):
         raise AssertionError(f"ragged {kind} kernel disagrees at the long shape")
+    d_err = long_parity_fused(torch, pa, kind, dcase,
+                              f"[long] fused decode {kind} 8 rows at kv 4096 (M {LONG_M}, "
+                              f"split plan {pa.kv_split_plan(LONG_M, BK)})")
+    return r_err, d_err
 
+
+def long_parity_fused(torch, pa, kind, dcase, label):
+    """The fused decode kernel on ``decode_in``'s ``dcase`` against its
+    plain version (writing into copies of the pools), phase 10's checks:
+    the phase-3 tolerance, two calls bitwise equal, the code and scale
+    pools bit-identical to the plain write; one line led by ``label``. →
+    max abs err."""
     q, nk, nv, kq, vq, ks, vs, layer, tables, pos, lens, _ = dcase
     kq2, vq2 = kq.clone(), vq.clone()
     sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
@@ -1101,14 +1160,13 @@ def long_parity(torch, pa, ref, kind, rcase, dcase):
                        and torch.equal(raw(torch, vq), raw(torch, vq2)))
     scales_equal = ks is None or bool(torch.equal(raw(torch, ks), raw(torch, sc2["k_scale"]))
                                       and torch.equal(raw(torch, vs), raw(torch, sc2["v_scale"])))
-    print(f"[long] fused decode {kind} 8 rows at kv 4096 (M {LONG_M}, split plan "
-          f"{pa.kv_split_plan(LONG_M, BK)}): max_abs_err {d_err:.3e} max_vector_rel_err "
-          f"{d_vec:.3e} (bound atol {FUSED_ATOL} rtol {RTOL}, vector {VEC_REL}); two calls "
-          f"bitwise equal: {same}; code pools bit-identical after the write: {pools_equal}; "
-          f"scale pools bit-identical: {scales_equal}", flush=True)
+    print(f"{label}: max_abs_err {d_err:.3e} max_vector_rel_err {d_vec:.3e} (bound atol "
+          f"{FUSED_ATOL} rtol {RTOL}, vector {VEC_REL}); two calls bitwise equal: {same}; code "
+          f"pools bit-identical after the write: {pools_equal}; scale pools bit-identical: "
+          f"{scales_equal}", flush=True)
     if not (ok and same and pools_equal and scales_equal):
-        raise AssertionError(f"fused decode {kind} kernel disagrees at the long shape")
-    return r_err, d_err
+        raise AssertionError(f"fused decode {kind} kernel disagrees: {label}")
+    return d_err
 
 
 # ---------------------------------------------------------------- serving surface
@@ -5815,6 +5873,7 @@ def engines_phase(torch, pa, smi, prompts, shared, random_head, model="llama3-8b
 # ---------------------------------------------------------------- phase 21: pipeline stages
 
 PIPE_LENGTHS = (40, 64, 88, 120)   # prompt tokens of (b); each is a prefill bucket
+PIPE_LAYERS = 8                    # the model's depth (full width), two stages of 4
 PIPE_TOKENS = 32                   # greedy tokens a session
 PIPE_SEQ = 256                     # max_seq_len of the engine = 16 blocks a table
 PIPE_BLOCKS = 64                   # blocks of each stage's pools
@@ -6039,7 +6098,7 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
     )
 
     t_phase = time.perf_counter()
-    cfg = get_model_config(model)
+    cfg = get_model_config(model, num_layers=PIPE_LAYERS)
     mem_before, scratch_before = settled_bytes(torch), qmm_scratch_bytes(qmm)
 
     # ---- (a) one int8 tree, two stages and a spare viewing it
@@ -6747,6 +6806,7 @@ TP_RANKS = 2                       # tensor-parallel ranks of phase 23, both on 
 TP_TOKENS = 32                     # greedy tokens of each phase-23 request
 TP_HS = (NH // TP_RANKS, HKV // TP_RANKS, D)   # one rank's heads of llama3-8b
 TP_MOE_LAYERS = 8                  # (c): mixtral-8x7b's depth, cut
+TP_LAYERS = 8                      # (a), (b): llama3-8b's depth, cut
 TP_STEP_PROMPT = 64                # tokens of each prompt of the timed decode steps
 TP_STEPS = 16                      # timed decode steps
 # (a): the widest gap, in bf16 ulp, allowed between a deeper layer's int8
@@ -6927,14 +6987,15 @@ def tp_counts_check(tag, counts, fused):
 
 
 def tp_serving_pass(torch, pa, smi, tag, kv, ids, llama, model="llama3-8b", device="cuda"):
-    """(a) / (b): llama3-8b at full width and depth, int8 weights, pools
-    ``kv``; the tp 1 engine and the tp 2 engine (two ranks on cuda:0)
-    serve the 8 prompts through the batcher under one SampleTrace; the
-    streams judged; counts, tok/s, a step's ms and collectives. → (the tp
-    2 ranks' summed launches, the scale-pool findings or None)."""
+    """(a) / (b): llama3-8b at full width and TP_LAYERS deep, int8
+    weights, pools ``kv``; the tp 1 engine and the tp 2 engine (two ranks
+    on cuda:0) serve the 8 prompts through the batcher under one
+    SampleTrace; the streams judged; counts, tok/s, a step's ms and
+    collectives. → (the tp 2 ranks' summed launches, the scale-pool
+    findings or None)."""
     from distributed_gpu_inference_torch.models.configs import get_model_config
 
-    cfg = get_model_config(model)
+    cfg = get_model_config(model, num_layers=TP_LAYERS)
     tags = Tag()
     trace = SampleTrace(torch, [], tags=tags)
     scales = None
@@ -7114,13 +7175,65 @@ def tp_moe_pass(torch, pa, smi, ids, llama, model=MOE_MODEL, device="cuda"):
     return total_counts
 
 
+def qmm_layer_parity(torch, qmm, dev, proj, tag, m=SERVE_BATCH):
+    """The quantized matmul (int8) at each of ``proj`` [(name, K, N)] and
+    ``m`` rows against its plain version (seeded weights and inputs). →
+    (the weights [(codes, scale)], their bf16 dequantized copies, the
+    inputs by K, max abs err)."""
+    from distributed_gpu_inference_torch.ops.quantization import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    weights, deq, q_err = [], [], 0.0
+    xs = {k: torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+          for k in {k for _, k, _ in proj}}
+    for _, kdim, ndim in proj:
+        w = torch.randn((1, kdim, ndim), generator=g, device=dev) * kdim ** -0.5
+        qw = quantize_weight(w, "int8")
+        weights.append((qw["qw"], qw["scale"]))
+        deq.append((qw["qw"][0].float() * qw["scale"][0]).to(torch.bfloat16))
+        x = xs[kdim]
+        ok_q, err, _ = errors(torch, qmm.launch_kernel(x, qw["qw"], qw["scale"]),
+                              qmm.qmm_plain(x, qw["qw"], qw["scale"]), QMM_ATOL)
+        if not ok_q:
+            raise AssertionError(f"{tag} qmm at K={kdim} N={ndim} disagrees with its plain "
+                                 "version")
+        q_err = max(q_err, err)
+    return weights, deq, xs, q_err
+
+
+def qmm_layer_times(torch, qmm, flush, dev, proj, tag, what):
+    """The quantized matmul (int8) at ``proj`` [(name, K, N)] and M =
+    SERVE_BATCH: each projection against its plain version
+    (:func:`qmm_layer_parity`), then the set timed call by call and as a
+    CUDA graph, its plain version and ``torch.matmul`` on bf16 weights,
+    against the bound. → (max abs err,
+    the kernels-JSON timing keys)."""
+    weights, deq, xs, q_err = qmm_layer_parity(torch, qmm, dev, proj, tag)
+    calls = lambda fn: lambda: [fn(xs[qw.shape[1]], qw, sc) for qw, sc in weights]  # noqa: E731
+    lib = lambda: [torch.matmul(xs[w.shape[0]], w) for w in deq]  # noqa: E731
+    q_bound, q_by = bound(*qmm_cost(SERVE_BATCH, [(k, n) for _, k, n in proj]))
+    q_times = {"ms": time_ms(torch, calls(qmm.launch_kernel), flush),
+               "graph_ms": graph_ms(torch, calls(qmm.launch_kernel), flush),
+               "plain_ms": time_ms(torch, calls(qmm.qmm_plain), flush, iters=10),
+               "bound_ms": q_bound, "bound_by": q_by, "library_ms": time_ms(torch, lib, flush),
+               "library_graph_ms": graph_ms(torch, lib, flush)}
+    plans = {n: qmm.split_plan(SERVE_BATCH, k, n_) for n, k, n_ in proj}
+    print(f"{tag} qmm int8, {what} at M={SERVE_BATCH} "
+          f"({[(n, k, n_) for n, k, n_ in proj]}, plans {plans}): kernel "
+          f"{q_times['ms']:.4f} ms (graph {q_times['graph_ms']:.4f} ms = "
+          f"{q_bound / q_times['graph_ms']:.1%} of the bound {q_bound:.4f} ms, {q_by}), plain "
+          f"{q_times['plain_ms']:.4f} ms, torch.matmul on bf16 weights "
+          f"{q_times['library_ms']:.4f} ms (graph {q_times['library_graph_ms']:.4f} ms); max abs "
+          f"err {q_err:.3e}", flush=True)
+    return q_err, q_times
+
+
 def tp_kernel_entries(torch, pa, flush, launches, dev):
     """Each kernel at one rank's shard shapes of llama3-8b at tp 2 (Nh 16,
     Hkv 4; the projections' halves), against its plain version, timed as
     phases 5 and 9 time them: ``@tp2`` entries."""
     from distributed_gpu_inference_torch.ops import qmm
     from distributed_gpu_inference_torch.ops.attention import paged_attention_ref
-    from distributed_gpu_inference_torch.ops.quantization import quantize_weight
 
     out = []
     rcase = ragged_in(torch, ragged_round_case(torch, dev, hs=TP_HS), "int8")
@@ -7143,37 +7256,8 @@ def tp_kernel_entries(torch, pa, flush, launches, dev):
     del kp2, vp2
     d_times = decode_times(torch, pa, flush, f"[tp] fused decode 8 rows bf16 pools at a rank's "
                            f"heads {TP_HS}", dcase, "bf16", hs=TP_HS)
-    g = torch.Generator(device=dev).manual_seed(23)
-    weights, deq, q_err = [], [], 0.0
-    xs = {k: torch.randn((SERVE_BATCH, k), generator=g, device=dev).to(torch.bfloat16)
-          for k in {k for _, k, _ in TP_PROJ}}
-    for _, kdim, ndim in TP_PROJ:
-        w = torch.randn((1, kdim, ndim), generator=g, device=dev) * kdim ** -0.5
-        qw = quantize_weight(w, "int8")
-        weights.append((qw["qw"], qw["scale"]))
-        deq.append((qw["qw"][0].float() * qw["scale"][0]).to(torch.bfloat16))
-        x = xs[kdim]
-        ok_q, err, _ = errors(torch, qmm.launch_kernel(x, qw["qw"], qw["scale"]),
-                              qmm.qmm_plain(x, qw["qw"], qw["scale"]), QMM_ATOL)
-        if not ok_q:
-            raise AssertionError(f"[tp] qmm at K={kdim} N={ndim} disagrees with its plain version")
-        q_err = max(q_err, err)
-    calls = lambda fn: lambda: [fn(xs[qw.shape[1]], qw, sc) for qw, sc in weights]  # noqa: E731
-    lib = lambda: [torch.matmul(xs[w.shape[0]], w) for w in deq]  # noqa: E731
-    q_bound, q_by = bound(*qmm_cost(SERVE_BATCH, [(k, n) for _, k, n in TP_PROJ]))
-    q_times = {"ms": time_ms(torch, calls(qmm.launch_kernel), flush),
-               "graph_ms": graph_ms(torch, calls(qmm.launch_kernel), flush),
-               "plain_ms": time_ms(torch, calls(qmm.qmm_plain), flush, iters=10),
-               "bound_ms": q_bound, "bound_by": q_by, "library_ms": time_ms(torch, lib, flush),
-               "library_graph_ms": graph_ms(torch, lib, flush)}
-    plans = {n: qmm.split_plan(SERVE_BATCH, k, n_) for n, k, n_ in TP_PROJ}
-    print(f"[tp] qmm int8, a rank's share of one layer's 7 projections at M={SERVE_BATCH} "
-          f"({[(n, k, n_) for n, k, n_ in TP_PROJ]}, plans {plans}): kernel "
-          f"{q_times['ms']:.4f} ms (graph {q_times['graph_ms']:.4f} ms = "
-          f"{q_bound / q_times['graph_ms']:.1%} of the bound {q_bound:.4f} ms, {q_by}), plain "
-          f"{q_times['plain_ms']:.4f} ms, torch.matmul on bf16 weights "
-          f"{q_times['library_ms']:.4f} ms (graph {q_times['library_graph_ms']:.4f} ms); max abs "
-          f"err {q_err:.3e}", flush=True)
+    q_err, q_times = qmm_layer_times(torch, qmm, flush, dev, TP_PROJ, "[tp]",
+                                     "a rank's share of one layer's 7 projections")
     if not (ok and ok_d):
         raise AssertionError("[tp] an attention kernel disagrees with its plain version at a "
                              "rank's heads")
@@ -7228,13 +7312,739 @@ def tp_phase(torch, pa, smi, prompts, model="llama3-8b", moe_model=MOE_MODEL,
     return {"int8": a_counts, "bf16": bf16}, entries
 
 
-def main() -> int:
+# ---------------------------------------------------------------- phase 24
+
+SEQ_RANKS = 2                 # sequence-parallel ranks of phase 24, both on cuda:0
+SEQ_LONG = 6144               # tokens of each long prompt: 3x the 2048 prefill bucket
+SEQ_SHORT = (48, 130, 256, 400, 777, 1100)   # tokens of the six short prompts
+SEQ_TOKENS = 32               # greedy tokens of each phase-24 request
+SEQ_MAX_LEN = 8192
+SEQ_BLOCKS = 2048             # pool blocks of the phase's serving engines (16 tokens each)
+SEQ_HIT_PREFIX = 3000         # (c): tokens of the second long prompt a request reuses
+SEQ_FRESH = 2500              # (c): its fresh tokens after them (two prefill chunks)
+SEQ_HIT_SHORT = 200           # (c): fresh tokens after the fifth short prompt (one chunk)
+SEQ_PD_PROMPT = 3             # (d): the short prompt PD prefills (400 tokens)
+SEQ_SIDE_TOKENS = 8           # greedy tokens of (c)'s extra prompts and of (d)'s requests
+SEQ_SPILL_TOKENS = 4          # greedy tokens of each request of (d)'s spill check
+SEQ_OP_REPS = 3               # timed calls of each plain seq op (the median kept)
+ALL_KERNELS = {"ragged_paged_attention", "paged_decode_attention_fused", "qmm_w8a16"}
+
+
+def seq_prompt_ids(vocab):
+    """Phase 24's prompts, seeded token ids: two long, six short."""
+    rng = np.random.default_rng(24)
+    return ([[int(t) for t in rng.integers(0, vocab, SEQ_LONG)] for _ in range(2)]
+            + [[int(t) for t in rng.integers(0, vocab, n)] for n in SEQ_SHORT])
+
+
+def seq_hit_ids(ids):
+    """(c)'s two extra prompts: the second long prompt's first
+    SEQ_HIT_PREFIX tokens then SEQ_FRESH new ones (a prefix-cache hit whose
+    continuation spans two prefill chunks), and the fifth short prompt then
+    SEQ_HIT_SHORT new ones (a hit continued in one chunk)."""
+    return [ids[1][:SEQ_HIT_PREFIX] + ids[0][:SEQ_FRESH],
+            ids[6] + ids[0][SEQ_FRESH:SEQ_FRESH + SEQ_HIT_SHORT]]
+
+
+def sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def gib(n):
+    return f"{n / 2**30:.2f} GiB"
+
+
+def seq_engine(torch, model_cfg, device, seq=1, **over):
+    """Phase 24's engines: int8 weights and int8 pools, seed 0, the prefix
+    cache off unless ``over`` says otherwise; ``seq`` ranks, all on
+    ``device`` (cuda:0). → (the engine, its load seconds)."""
+    from distributed_gpu_inference_torch.parallel.mesh import MeshPlan
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
+
+    cfg = EngineConfig(**{**dict(max_batch_size=SERVE_BATCH, max_seq_len=SEQ_MAX_LEN,
+                                 num_blocks=SEQ_BLOCKS, enable_prefix_cache=False,
+                                 quantization="int8", kv_cache_dtype="int8"), **over})
+    dev = "cuda:0" if device == "cuda" else device
+    t0 = time.perf_counter()
+    eng = TorchEngine(model_cfg, cfg, seed=0, device=device,
+                      rank_devices=[dev] * seq if seq > 1 else None,
+                      mesh=MeshPlan(seq=seq) if seq > 1 else None)
+    sync(torch, device)
+    return eng, time.perf_counter() - t0
+
+
+def trace_on(trace, engine):
+    """Install ``trace`` on ``engine`` once."""
+    if "_sample" not in vars(engine):
+        trace.install(engine)
+
+
+def seq_pass(torch, tag, engine, ids, tags, trace, device, n=None):
+    """``ids`` through ``generate`` (multi-step decode, ``n`` greedy tokens
+    each, SEQ_TOKENS by default) under the trace, tagged ``tag``; the
+    launch counters and collectives zeroed just before and read just after.
+    → (responses, wall seconds, launches by rank, collectives by rank,
+    memory by rank)."""
+    n = n or SEQ_TOKENS
+    trace_on(trace, engine)
+    if engine._ranks is not None:
+        engine.rank_collective_stats(reset=True)
+    engine.reset_rank_launch_counts()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tags.tag = tag
+    t0 = time.perf_counter()
+    outs = engine.generate(tp_requests(ids, n), use_multi_step=True)
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    tags.tag = None
+    bad = [(o.error, len(o.token_ids)) for o in outs if o.error or len(o.token_ids) != n]
+    if bad:
+        raise AssertionError(f"[seq] {tag}: requests failed: {bad}")
+    counts = engine.rank_launch_counts()
+    coll = engine.rank_collective_stats() if engine._ranks is not None else []
+    return outs, wall, counts, coll, engine.rank_memory()
+
+
+def seq_report(what, engine, outs, wall, counts, coll, mem, n_long, smi):
+    """One line for a pass: tok/s, the seq-parallel prefills' ms, TTFT,
+    each rank's collectives (count and ms), peak memory, pool bytes and
+    launches."""
+    n_sp = engine.stats.get("seq_parallel_prefills", 0)
+    sp_ms = engine.stats.get("seq_parallel_prefill_s", 0.0) * 1e3 / max(n_sp, 1)
+    ttft = [round(o.ttft_ms, 1) for o in outs]
+    colls = [coll_text(c) for c in coll]
+    n_tok = sum(len(o.token_ids) for o in outs)
+    print(f"[seq] {what}: {len(outs)} requests x {len(outs[0].token_ids)} greedy tokens in "
+          f"{wall:.2f} s "
+          f"({n_tok / wall:.1f} tok/s); seq-parallel prefills so far {n_sp}, {sp_ms:.1f} ms "
+          f"each; TTFT ms of the long prompts {ttft[:n_long]}, of the others {ttft[n_long:]}; "
+          f"collectives by rank (count, ms) {colls}; peak memory by rank "
+          f"{[gib(m.get('peak', 0)) for m in mem]}, pools by rank "
+          f"{[gib(m['pool_bytes']) for m in mem]}; launches by rank {counts} ({smi})",
+          flush=True)
+
+
+def coll_text(stats):
+    """A rank's collective stats without the zeros, seconds as ms."""
+    return {k: (round(v * 1e3, 2) if k.endswith("_s") else int(v))
+            for k, v in stats.items() if v}
+
+
+def seq_counts_check(tag, counts, want):
+    """Rank r launched exactly the kernels ``want[r]`` names."""
+    for r, (c, names) in enumerate(zip(counts, want)):
+        for k in ("ragged_paged_attention", "paged_decode_attention_fused", "qmm_w8a16"):
+            if (c[k] > 0) != (k in names):
+                raise AssertionError(f"[seq] {tag}: rank {r} launched {c}, expected only "
+                                     f"{sorted(names)}")
+
+
+def release(torch, device, *engines):
+    import gc
+
+    for eng in engines:
+        if eng is not None:
+            eng.shutdown()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def seq_serving(torch, smi, cfg, ids, tags, trace, device, over):
+    """(a)-(c): the seq 1 engine, then ring and Ulysses over replicated
+    pools and block-sharded pools at seq 2, each serving ``ids``; the seq 1
+    engine and (c) also serve :func:`seq_hit_ids` (on (c) a prefix-cache
+    hit and a chunked continuation). → (launches summed over every rank,
+    the (c) engine, kept for (d))."""
+    hit = seq_hit_ids(ids)
+    total = {}
+    one, t_one = seq_engine(torch, cfg, device, **over)
+    try:
+        print(f"[seq] seq 1 engine loaded in {t_one:.1f} s", flush=True)
+        res = seq_pass(torch, "seq1", one, ids, tags, trace, device)
+        seq_report("seq 1", one, *res, 2, smi)
+        seq_counts_check("seq 1", res[2], [ALL_KERNELS])
+        pools_one = res[4][0]["pool_bytes"]
+        hres = seq_pass(torch, "seq1", one, hit, tags, trace, device, SEQ_SIDE_TOKENS)
+        seq_report("seq 1, (c)'s prompts", one, *hres, 0, smi)
+    finally:
+        release(torch, device, one)
+        del one
+    kept = None
+    for tag, extra in (("ring", {}), ("ulysses", {"seq_parallel_impl": "ulysses"}),
+                       ("sharded", {"kv_seq_sharded": True, "enable_prefix_cache": True})):
+        eng, t_load = seq_engine(torch, cfg, device, seq=SEQ_RANKS, **{**over, **extra})
+        try:
+            print(f"[seq] {tag}: seq {SEQ_RANKS} engine (ranks on {eng._ranks.spec.devices}, "
+                  f"backend {eng.get_stats()['seq']['backend']}) loaded in {t_load:.1f} s",
+                  flush=True)
+            res = seq_pass(torch, tag, eng, ids, tags, trace, device)
+            seq_report(tag, eng, *res, 2, smi)
+            n_long = sum(len(p) > eng.cfg.prefill_buckets[-1] for p in ids)
+            if eng.stats.get("seq_parallel_prefills") != n_long:
+                raise AssertionError(f"[seq] {tag}: {eng.stats.get('seq_parallel_prefills')} "
+                                     f"seq-parallel prefills, not {n_long}")
+            for c in res[2]:
+                add_counts(total, c)
+            if tag != "sharded":
+                # rank 0 serves alone outside the long prompts' prefill, and
+                # rank 1's prefill rows are above qmm's row bound
+                seq_counts_check(tag, res[2], [ALL_KERNELS, set()])
+                continue
+            # block-sharded: every rank runs every forward (qmm at decode);
+            # attention reads are the partial-softmax ops, no kernel
+            seq_counts_check(tag, res[2], [{"qmm_w8a16"}] * SEQ_RANKS)
+            ratio = [m["pool_bytes"] / pools_one for m in res[4]]
+            print(f"[seq] (c) pool bytes by rank {[gib(m['pool_bytes']) for m in res[4]]} "
+                  f"against seq 1's {gib(pools_one)}: {[round(r, 4) for r in ratio]}",
+                  flush=True)
+            if any(abs(r - 1 / SEQ_RANKS) > 1e-3 for r in ratio):
+                raise AssertionError(f"[seq] (c): the ranks hold {ratio} of the pool")
+            hres = seq_pass(torch, "sharded-hit", eng, hit, tags, trace, device,
+                            SEQ_SIDE_TOKENS)
+            seq_report("(c) a prefix-cache hit and a chunked continuation", eng, *hres, 0, smi)
+            cached = [o.cached_tokens for o in hres[0]]
+            want = [SEQ_HIT_PREFIX // BK * BK, len(ids[6]) // BK * BK]
+            print(f"[seq] (c) cached tokens {cached} (at least {want})", flush=True)
+            if any(c < w for c, w in zip(cached, want)):
+                raise AssertionError(f"[seq] (c): the prefix cache did not hit: {cached}")
+            seq_counts_check("sharded-hit", hres[2], [{"qmm_w8a16"}] * SEQ_RANKS)
+            for c in hres[2]:
+                add_counts(total, c)
+            kept, eng = eng, None
+        finally:
+            release(torch, device, eng)
+    return total, kept
+
+
+def seq_spill_check(torch, llm, tag):
+    """(d)'s spill: on a ``tp_size: 2`` worker with an L2 tier, prompt A
+    served twice (the L1-hit reference), fillers until A's restorable
+    blocks are all spilled, then A served from L2: the restored pages
+    (gathered across the ranks) bitwise equal to the spilled ones, and the
+    stream equal to the reference. → l2 hits."""
+    from distributed_gpu_inference_torch.utils.data_structures import compute_prefix_hash
+
+    eng, mgr = llm.engine, llm.engine.manager
+    text = spill_text(0)
+    keys = [compute_prefix_hash(llm.tokenizer.encode(text), (i + 1) * BK)
+            for i in range(SPILL_RESTORED)]
+    spilled, restored = {}, []
+    store, push = mgr.store_spilled, eng.push_pages
+
+    def record(key, page, scale=None):
+        spilled[key] = (page, scale)
+        store(key, page, scale)
+
+    def push_read(bids, pages, scales):
+        push(bids, pages, scales)
+        restored.append(eng.gather_pages(bids))
+
+    mgr.store_spilled, eng.push_pages = record, push_read
+    try:
+        serve_ids(llm, text, SEQ_SPILL_TOKENS)
+        ref, out = serve_ids(llm, text, SEQ_SPILL_TOKENS)
+        fillers = 0
+        while not set(keys) <= set(spilled) and fillers < SPILL_FILLERS:
+            serve_ids(llm, spill_text(100 + fillers), SEQ_SPILL_TOKENS)
+            fillers += 1
+        before = mgr.get_stats()["l2_hits"]
+        restored.clear()
+        ids, out = serve_ids(llm, text, SEQ_SPILL_TOKENS)
+        hits = mgr.get_stats()["l2_hits"] - before
+        block = restored[-1] if restored else None
+        same = block is not None and len(block.pages) == len(keys) and all(
+            same_bits(torch, block.pages[i], spilled[k][0])
+            and same_bits(torch, block.scales[i], spilled[k][1]) for i, k in enumerate(keys))
+    finally:
+        del mgr.store_spilled, eng.push_pages
+    print(f"[seq] (d) {tag}: A ({SPILL_PROMPT_TOKENS} tokens) served, {fillers} fillers "
+          f"spilled its {len(keys)} restorable blocks to L2 (spills "
+          f"{mgr.get_stats()['spills']}); served again: l2_hits +{hits}, the restored pages "
+          f"gathered from both ranks bitwise equal to the spilled ones: {same}; stream equal "
+          f"to the L1-hit reference: {ids == ref}", flush=True)
+    if hits != len(keys) or not same or ids != ref:
+        raise AssertionError(f"[seq] (d) {tag}: the L2 restore failed: hits {hits}, pages "
+                             f"{same}, stream {ids} vs {ref}")
+    return hits
+
+
+def seq_handoffs(torch, smi, model, ids, box, tags, trace, device, over):
+    """(d): the block-sharded seq 2 engine of (c) (``box["donor"]``, released
+    here once it has streamed) streams the first long prompt into a tp 2
+    decode engine (``StreamedExport`` → ``HandoffReceiver``); then one
+    request through ``pd_stage: prefill`` on a ``tp_size: 2`` worker and
+    ``pd_stage: decode`` on another (the decode one is the stream's
+    recipient), pushed over a ``DataPlaneServer``; then the prefill worker's
+    L2 spill and restore. → launches summed over every rank."""
+    from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer
+    from distributed_gpu_inference_torch.ops import paged_attention as pa
+    from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+    from distributed_gpu_inference_torch.worker.engines import llm as llm_mod
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+    base = {"model": model, "device": device, "seed": 0, "quantization": "int8",
+            "kv_cache_dtype": "int8", "max_batch_size": SERVE_BATCH, "tp_size": 2,
+            "prefix_summary_top_n": 0}
+    total, dec, pre, plane = {}, None, None, None
+    donor = box.pop("donor")
+
+    def worker(cfg):
+        # a worker takes one card a rank; here both ranks share cuda:0
+        with patched(llm_mod, "rank_devices", lambda d, tp: [dev] * tp):
+            t0 = time.perf_counter()
+            llm = llm_mod.TorchLLMEngine({**base, **cfg})
+            llm.load_model()
+        trace_on(trace, llm.engine)
+        return llm, time.perf_counter() - t0
+
+    try:
+        dec, t_dec = worker({"max_seq_len": SEQ_MAX_LEN, "num_blocks": SEQ_BLOCKS,
+                             "enable_prefix_cache": False, "serving": {"mode": "direct"},
+                             **over})
+        # rank 0 of every engine here is this process: one counter, zeroed once
+        for eng in (donor, dec.engine):
+            eng.reset_rank_launch_counts()
+            eng.rank_collective_stats(reset=True)
+        donor.manager.clear_cached()        # the stream starts from an empty radix
+        rx = kh.HandoffReceiver(dec.engine)
+        req = tp_requests([ids[0]], SEQ_SIDE_TOKENS)[0]
+        tags.tag = "d-donor"
+        t0 = time.perf_counter()
+        exp = kh.StreamedExport(donor, req, key="seq-stream", piece_blocks=PD_PIECE_BLOCKS)
+        result = None
+        for msg in exp.messages():
+            result = rx.handle(msg)
+        sync(torch, device)
+        t_stream = time.perf_counter() - t0
+        if result is None or result.get("state") != "committed":
+            raise AssertionError(f"[seq] (d) the stream did not commit: {result}")
+        tags.tag = "d-stream"
+        slot, eng = result["slot"], dec.engine
+        while eng.slots[slot].finish_reason is None:
+            eng.decode_multi()
+        got = eng.finish_slot(slot, cache=False)
+        tags.tag = None
+        donor_own = donor.rank_launch_counts()[1:]
+        print(f"[seq] (d) seq {SEQ_RANKS} block-sharded donor -> tp 2 recipient (a tp 2 "
+              f"worker, loaded in {t_dec:.1f} s): {len(ids[0])}-token prompt streamed in "
+              f"{t_stream:.2f} s ({exp.bytes_before_first_token} B before the first token), "
+              f"{len(got.token_ids)} tokens; collectives by rank (count, ms): donor "
+              f"{[coll_text(c) for c in donor.rank_collective_stats()]}, recipient "
+              f"{[coll_text(c) for c in dec.engine.rank_collective_stats()]} ({smi})",
+              flush=True)
+        if len(got.token_ids) != SEQ_SIDE_TOKENS:
+            raise AssertionError(f"[seq] (d) the streamed request gave {got.token_ids}")
+        exp = None                          # it holds the donor
+        release(torch, device, donor)       # its card memory before the next worker's
+        donor = None
+
+        pre, t_pre = worker({"max_seq_len": 512, "num_blocks": SPILL_POOL_BLOCKS,
+                             "kv_spill_host_blocks": SPILL_HOST_BLOCKS,
+                             **{k: v for k, v in over.items()
+                                if k in ("prefill_buckets", "dtype")}})
+        plane = DataPlaneServer(kv_receiver=dec.kv_receiver)
+        plane.start()
+        prompt = ids[2 + SEQ_PD_PROMPT]
+        tags.tag = "d-pd-prefill"
+        t0 = time.perf_counter()
+        pre_out = pre.inference(pd_params("", "seq-pd", plane.url, prompt_token_ids=prompt,
+                                          max_new_tokens=SEQ_SIDE_TOKENS))
+        tags.tag = "d-pd"
+        dec_out = dec.inference({"pd_stage": "decode", "kv_cache_key": "seq-pd"})
+        t_pd = time.perf_counter() - t0
+        tags.tag = None
+        print(f"[seq] (d) PD under tp 2: a {len(prompt)}-token prompt prefilled on a tp 2 "
+              f"worker (loaded in {t_pre:.1f} s), pushed over the data plane, decoded on the "
+              f"other in {t_pd:.2f} s (prefill {pre_out.get('usage')}, decode "
+              f"{dec_out.get('usage')})", flush=True)
+        if len(dec_out.get("token_ids", ())) != SEQ_SIDE_TOKENS:
+            raise AssertionError(f"[seq] (d) PD decode gave {dec_out}")
+        seq_spill_check(torch, pre, "L2 under tp 2")
+        own = [donor_own, dec.engine.rank_launch_counts()[1:],
+               pre.engine.rank_launch_counts()[1:]]
+        add_counts(total, pa.launch_counts())
+        for counts in own:
+            for c in counts:
+                add_counts(total, c)
+        print(f"[seq] (d) launches: rank 0 of the three engines (this process) "
+              f"{pa.launch_counts()}; rank 1 of the donor {own[0]}, of the decode worker "
+              f"{own[1]}, of the prefill worker {own[2]}", flush=True)
+        # int8 pools under tensor parallelism decode through the ragged kernel
+        tp_reads = {"ragged_paged_attention", "qmm_w8a16"}
+        seq_counts_check("(d) rank 0, the decode worker and the prefill worker",
+                         [pa.launch_counts()] + own[1] + own[2], [tp_reads] * 3)
+    finally:
+        tags.tag = None
+        if plane is not None:
+            plane.stop()
+        for llm in (pre, dec):
+            if llm is not None:
+                llm.unload()
+        release(torch, device, donor)
+    return total
+
+
+def _seq_ops_rank(group, dims, reps):
+    """One rank of the plain seq ops at the path's shapes (run by
+    ``runtime/tp.py`` ``run_group``, every rank on the same device): ring
+    and Ulysses over a long prompt's rows, the paged decode op over 8 rows
+    of a block-sharded int8 pool, and the chunk op of one prefill chunk
+    over a long context. → the median ms of each, and the collectives."""
     import torch
 
+    from distributed_gpu_inference_torch.parallel import ring_attention as ra
+
+    s, nh, hkv, d, ctx, chunk, rows = dims
+    dev = group.device
+    mine = torch.Generator(device=dev).manual_seed(24 + group.rank)
+    same = torch.Generator(device=dev).manual_seed(24)   # replicated inputs
+    per = s // group.size
+    q, k, v = (torch.randn((1, per, h, d), generator=mine, device=dev).to(torch.bfloat16)
+               for h in (nh, hkv, hkv))
+    lens = torch.tensor([s], device=dev)
+    m = -(-ctx // BK)
+    blocks = -(-rows * m // group.size) * group.size
+    nloc = blocks // group.size
+    kp = torch.randint(-127, 128, (nloc, hkv, BK, d), generator=mine, device=dev,
+                       dtype=torch.int8)
+    vp = torch.randint(-127, 128, (nloc, hkv, BK, d), generator=mine, device=dev,
+                       dtype=torch.int8)
+    ks = (torch.rand((nloc, BK), generator=mine, device=dev) * 0.02).to(torch.bfloat16)
+    vs = (torch.rand((nloc, BK), generator=mine, device=dev) * 0.02).to(torch.bfloat16)
+    tables = torch.randperm(blocks, generator=same, device=dev)[:rows * m].reshape(rows, m)
+    tables = tables.to(torch.int32)
+    qd = torch.randn((rows, 1, nh, d), generator=same, device=dev).to(torch.bfloat16)
+    kl = torch.full((rows,), ctx, dtype=torch.int32, device=dev)
+    qc = torch.randn((1, chunk, nh, d), generator=same, device=dev).to(torch.bfloat16)
+    pc = torch.arange(ctx - chunk, ctx, dtype=torch.int32, device=dev)[None]
+
+    def timed(fn):
+        out = []
+        for _ in range(reps + 1):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out[1:])) * 1e3
+
+    group.reset_stats()
+    times = {
+        "ring": timed(lambda: ra.ring_self_attention(q, k, v, lens, group)),
+        "ulysses": timed(lambda: ra.ulysses_self_attention(q, k, v, lens, group)),
+        "paged_decode": timed(lambda: ra.seq_parallel_paged_decode_attention(
+            qd, kp, vp, tables, kl[:, None] - 1, kl, group, BK, k_scale=ks, v_scale=vs)),
+        "paged_chunk": timed(lambda: ra.seq_parallel_paged_chunk_attention(
+            qc, kp, vp, tables[:1], pc, kl[:1], group, BK, k_scale=ks, v_scale=vs)),
+    }
+    times["collectives"] = coll_text(group.stats)
+    if dev.type == "cuda":
+        times["peak"] = torch.cuda.max_memory_allocated(dev)
+    return times
+
+
+def seq_op_times(torch, smi, device, dims):
+    """The plain ring, Ulysses and partial-softmax ops timed on two ranks
+    (their own processes, both on ``device``) at ``dims``; prints each
+    rank's median ms."""
+    from distributed_gpu_inference_torch.runtime import tp as tp_ranks
+
+    dev = "cuda:0" if device == "cuda" else device
+    t0 = time.perf_counter()
+    out = tp_ranks.run_group(_seq_ops_rank, [dev] * SEQ_RANKS, dims, SEQ_OP_REPS)
+    s, nh, hkv, d, ctx, chunk, rows = dims
+    for r, t in enumerate(out):
+        print(f"[seq] plain ops, rank {r} of {SEQ_RANKS} (median of {SEQ_OP_REPS}, host clock "
+              f"around a synchronized call): ring over {s} rows ({s // SEQ_RANKS} a rank, Nh "
+              f"{nh}, Hkv {hkv}, D {d}) {t['ring']:.2f} ms, Ulysses {t['ulysses']:.2f} ms; "
+              f"partial-softmax paged decode, {rows} rows at kv {ctx} over int8 pages "
+              f"{t['paged_decode']:.2f} ms; paged chunk of {chunk} queries at kv {ctx} "
+              f"{t['paged_chunk']:.2f} ms; collectives over all timed calls "
+              f"{t['collectives']}; peak {gib(t.get('peak', 0))} ({smi})", flush=True)
+    print(f"[seq] plain ops timed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+class PathShapes:
+    """What phase 24's main path gives the three kernels in this process
+    (rank 0 of every engine; the other ranks launch at the same shapes: a
+    tp rank at rank 0's, a block-sharded rank 1 qmm at rank 0's rows, a
+    replicated rank 1 nothing), recorded by wrapping the names that
+    ``models/llama.py`` calls: for each kernel and call shape, the tables,
+    positions and lengths of its latest call (a decode's longest context),
+    and qmm's (M, K, N) on its kernel route."""
+
+    def __init__(self):
+        self.ragged, self.fused, self.qmm = {}, {}, set()
+
+    @contextlib.contextmanager
+    def recording(self, llama, qmm):
+        ragged, fused, matmul = (llama.ragged_paged_attention,
+                                 llama.paged_decode_attention_fused, llama.matmul)
+
+        def rec_ragged(q, kp, vp, tables, pos, lens, *a, **kw):
+            key = (tuple(q.shape), tuple(kp.shape), kw.get("k_scale") is not None,
+                   kw.get("window"))
+            self.ragged[key] = (tables.clone(), pos.clone(), lens.clone())
+            return ragged(q, kp, vp, tables, pos, lens, *a, **kw)
+
+        def rec_fused(q, nk, nv, kp, vp, layer, tables, pos, lens, *a, **kw):
+            key = (tuple(q.shape), tuple(kp.shape), kw.get("k_scale") is not None,
+                   kw.get("window"))
+            self.fused[key] = (tables.clone(), pos.clone(), lens.clone())
+            return fused(q, nk, nv, kp, vp, layer, tables, pos, lens, *a, **kw)
+
+        def rec_matmul(x, w):
+            if isinstance(w, dict) and x.numel() // x.shape[-1] <= qmm.MAX_KERNEL_ROWS:
+                self.qmm.add((x.numel() // x.shape[-1], *w["qw"].shape[-2:]))
+            return matmul(x, w)
+
+        with patched(llama, "ragged_paged_attention", rec_ragged), \
+                patched(llama, "paged_decode_attention_fused", rec_fused), \
+                patched(llama, "matmul", rec_matmul):
+            yield self
+
+
+def path_pools(torch, g, shape, scaled, dev):
+    """Seeded pools of ``shape`` ([N, Hkv, Bk, D] or [L, N, Hkv, Bk, D]):
+    standard-normal bf16 K and V, quantized per token as the engine
+    quantizes (int8 codes with bf16 scales, phases 6 and 10's pools) when
+    ``scaled``. → (k, v, k_scale, v_scale)."""
+    kp, vp = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+              for _ in range(2))
+    return kv_pools(torch, kp, vp, "int8" if scaled else "bf16")
+
+
+def seq_kernel_parity(torch, pa, shapes, flush, dev):
+    """The three kernels at every shape :class:`PathShapes` recorded on
+    the path, on seeded pools of the engines' own size with the recorded
+    tables, positions and lengths, held to their plain versions with the
+    phase 3/6/10 tolerances (the ragged kernel's plain version row by
+    row, to bound its scores' memory); the fused kernel's pools bitwise
+    equal to the plain write's. Then the seq engines' decode shape and the
+    tp 2 decode engine's, each timed as phase 10 times: ``@seq`` entries
+    (launches filled in by the caller). → (max abs err by kernel, the
+    timed cases' timing keys by entry name)."""
+    from distributed_gpu_inference_torch.ops import qmm
+    from distributed_gpu_inference_torch.ops.attention import paged_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    worst = {"ragged_paged_attention": 0.0, "paged_decode_attention_fused": 0.0,
+             "qmm_w8a16": 0.0}
+    timed, bad = {}, []
+    for (qs, ps, scaled, window), (tables, pos, lens) in sorted(shapes.ragged.items(),
+                                                               key=lambda kv: str(kv[0])):
+        q = torch.randn(qs, generator=g, device=dev).to(torch.bfloat16)
+        kq, vq, ks, vs = path_pools(torch, g, ps, scaled, dev)
+        sc = dict(k_scale=ks, v_scale=vs, window=window)
+        got = pa.ragged_paged_attention(q, kq, vq, tables, pos, lens, BK, **sc)
+        atol = RAGGED_ATOL
+        if scaled:
+            atol += BF16_HALF_ULP * float(torch.maximum(
+                dequantized(torch, kq, ks).abs().max(),
+                dequantized(torch, vq, vs).abs().max()).item())
+        ok, err, vec, rows = True, 0.0, 0.0, 0
+        for i in range(qs[0]):
+            if not bool((pos[i] >= 0).any().item()):
+                continue
+            want = paged_attention_ref(q[i:i + 1], kq, vq, tables[i:i + 1], pos[i:i + 1],
+                                       lens[i:i + 1], BK, **sc)
+            r_ok, r_err, r_vec = errors(torch, got[i:i + 1], want, atol)
+            ok, err, vec, rows = ok and r_ok, max(err, r_err), max(vec, r_vec), rows + 1
+        pad_zero = bool((got[pos < 0] == 0).all().item())
+        print(f"[seq] path shape: ragged q {list(qs)}, pool {list(ps)}, M {tables.shape[1]}, "
+              f"kv lens {sorted(set(lens.tolist()))} ({rows} live rows): max_abs_err {err:.3e} "
+              f"max_vector_rel_err {vec:.3e} (bound atol {atol:.3e} rtol {RTOL}, vector "
+              f"{VEC_REL}); pad queries exact zero: {pad_zero}", flush=True)
+        if not (ok and pad_zero):
+            bad.append(f"ragged at {qs}, M {tables.shape[1]}")
+        worst["ragged_paged_attention"] = max(worst["ragged_paged_attention"], err)
+        if qs[1] == 1 and tables.shape[1] == SEQ_MAX_LEN // BK:
+            # a decode round (one query a row) at the long tables: the tp 2
+            # decode engine's, whose int8 pools decode through this kernel
+            hs, kind = (qs[2], ps[1], qs[3]), "int8" if scaled else "bf16"
+            case = (q, kq, vq, ks, vs, tables, pos, lens,
+                    (tables.cpu().numpy(), pos.cpu().numpy(), lens.cpu().numpy()))
+            name = f"ragged_paged_attention[{kind}]@seq" + ("-tp2" if qs[2] < NH else "")
+            timed[name] = (ragged_times(
+                torch, pa, paged_attention_ref, flush, f"[seq] ragged decode round, heads {hs}, "
+                f"M {tables.shape[1]}, kv lens {lens.tolist()}", case, kind, hs=hs), err)
+        del q, kq, vq, ks, vs, got
+    for (qs, ps, scaled, window), (tables, pos, lens) in sorted(shapes.fused.items(),
+                                                               key=lambda kv: str(kv[0])):
+        b, _, nh, d = qs
+        q = torch.randn(qs, generator=g, device=dev).to(torch.bfloat16)
+        nk, nv = (torch.randn((b, 1, ps[2], d), generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        kq, vq, ks, vs = path_pools(torch, g, ps, scaled, dev)
+        layer = ps[0] - 1
+        lens_np = lens.cpu().numpy()
+        case = (q, nk, nv, kq, vq, ks, vs, layer, tables, pos, lens, lens_np)
+        kind = "int8" if scaled else "bf16"
+        try:
+            err = long_parity_fused(torch, pa, kind, case,
+                                    f"[seq] path shape: fused decode q {list(qs)}, pools "
+                                    f"{list(ps)} (layer {layer}), M {tables.shape[1]} (plan "
+                                    f"{pa.kv_split_plan(tables.shape[1], BK)}), kv lens "
+                                    f"{lens_np.tolist()}")
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        worst["paged_decode_attention_fused"] = max(worst["paged_decode_attention_fused"], err)
+        timed[f"paged_decode_attention_fused[{kind}]@seq"] = (decode_times(
+            torch, pa, flush, f"[seq] fused decode of the seq engines, M {tables.shape[1]}, kv "
+            f"lens {lens_np.tolist()}", case, kind, hs=(nh, ps[2], d)), err)
+        del q, nk, nv, kq, vq, ks, vs, case
+    for m, k, n in sorted(shapes.qmm):
+        try:
+            *_, err = qmm_layer_parity(torch, qmm, dev, [("path", k, n)], "[seq]", m=m)
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        print(f"[seq] path shape: qmm int8 M={m} K={k} N={n} (plan "
+              f"{qmm.split_plan(m, k, n)}): max abs err {err:.3e} (bound atol {QMM_ATOL} "
+              f"rtol {RTOL}, row {VEC_REL})", flush=True)
+        worst["qmm_w8a16"] = max(worst["qmm_w8a16"], err)
+    torch.cuda.empty_cache()
+    print(f"[seq] the kernels at every shape the path gave them ({len(shapes.ragged)} ragged, "
+          f"{len(shapes.fused)} fused decode, {len(shapes.qmm)} qmm) against their plain "
+          f"versions: max abs err {worst}", flush=True)
+    if bad:
+        raise AssertionError(f"[seq] kernels disagree with their plain versions: {bad}")
+    return worst, timed
+
+
+def seq_phase(torch, pa, smi, model="llama3-8b", device="cuda", over=None):
+    """Phase 24 (see the module docstring). → (its launches summed over
+    every rank, its ``@seq`` kernel entries). ``over``: engine settings
+    for every engine of the phase."""
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.ops import qmm
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig
+
+    over = dict(over or {})
+    t_phase = time.perf_counter()
+    cfg = get_model_config(model)
+    ids = seq_prompt_ids(cfg.vocab_size)
+    tags = Tag()
+    trace = SampleTrace(torch, [], tags=tags)
+    shapes = PathShapes()
+    try:
+        with shapes.recording(llama, qmm):
+            total, donor = seq_serving(torch, smi, cfg, ids, tags, trace, device, over)
+            box = {"donor": donor}      # held only by (d), which releases it early
+            del donor
+            add_counts(total, seq_handoffs(torch, smi, model, ids, box, tags, trace, device,
+                                           over))
+    finally:
+        trace.close()
+    runs = trace.runs()
+    hit = seq_hit_ids(ids)
+    pd = [ids[2 + SEQ_PD_PROMPT]]
+    check_aligned("seq", runs, tags=("seq1", "ring", "ulysses", "sharded", "sharded-hit",
+                                     "d-stream", "d-pd"))
+    for tag, prompts in (("ring", ids), ("ulysses", ids), ("sharded", ids),
+                         ("sharded-hit", hit), ("d-stream", ids[:1]), ("d-pd", pd)):
+        check_sampled(f"seq {tag}", traced_rows(runs, tag, prompts),
+                      traced_rows(runs, "seq1", prompts), runs, "the seq 1 engine")
+    bucket = over.get("prefill_buckets", EngineConfig.prefill_buckets)[-1]
+    seq_op_times(torch, smi, device, (SEQ_LONG, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                      SEQ_LONG + SEQ_TOKENS, bucket, SERVE_BATCH))
+    entries = []
+    if device == "cuda":
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+        _, timed = seq_kernel_parity(torch, pa, shapes, flush, torch.device(device))
+        del flush
+        for name, (times, err) in timed.items():
+            base = name.split("[")[0]
+            source = ("ragged_paged_attention.cu" if base == "ragged_paged_attention"
+                      else "paged_decode_fused.cu")
+            line = ":932" if base == "ragged_paged_attention" else ":469"
+            entries.append(entry(name, source, PALLAS + line, total[base], err, times))
+    print(f"[seq] phase 24 launches (every rank): {total}; ran in "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    return total, entries
+
+
+HOST_FLOOR_GIB = 14.0       # the host memory a run leaves free, or it stops itself
+# phases whose inputs are their own, which ``--phase`` runs alone
+ALONE = (17, 18, 19, 21, 22, 23, 24)
+
+
+class HostGuard:
+    """A daemon thread that reads the host's available memory four times a
+    second: below HOST_FLOOR_GIB it kills this run's child processes and
+    exits the script with code 3, so a run that would exhaust the host
+    fails alone. ``low`` is the lowest reading (GiB)."""
+
+    def __init__(self):
+        self.low = float("inf")
+        threading.Thread(target=self._watch, daemon=True).start()
+
+    @staticmethod
+    def available_gib():
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2**20
+        return float("inf")
+
+    def _watch(self):
+        import multiprocessing
+        import os
+
+        while True:
+            self.low = min(self.low, self.available_gib())
+            if self.low < HOST_FLOOR_GIB:
+                print(f"[host] available memory {self.low:.1f} GiB < {HOST_FLOOR_GIB}: "
+                      "stopping the run", flush=True)
+                for child in multiprocessing.active_children():
+                    child.kill()
+                os._exit(3)
+            time.sleep(0.25)
+
+
+def run_alone(torch, pa, smi, phases):
+    """``--phase N`` (repeatable): the kernels built, then only phases N of
+    ALONE, in the order given."""
+    from distributed_gpu_inference_torch.ops import _build
+
+    print(f"[build] kernels built in {_build.build(list(_build.KERNEL_SOURCES)):.1f} s",
+          flush=True)
+    shared, _, prompts = serving_prompts()
+    run = {17: lambda: local_files_phase(torch, pa, smi),
+           18: lambda: fleet_phase(torch, pa, smi, prompts),
+           19: lambda: moe_phase(torch, pa, smi, prompts, shared),
+           21: lambda: pipeline_phase(torch, pa, smi),
+           22: lambda: direct_mode_phase(torch, pa, smi, prompts),
+           23: lambda: tp_phase(torch, pa, smi, prompts),
+           24: lambda: seq_phase(torch, pa, smi)}
+    for n in phases:
+        t0 = time.perf_counter()
+        run[n]()
+        print(f"[alone] phase {n} ran in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--phase", type=int, action="append", choices=ALONE,
+                    help="run only this phase after the build (repeatable)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
+    guard = HostGuard()
     from distributed_gpu_inference_torch.models import llama
     from distributed_gpu_inference_torch.models.configs import get_model_config
     from distributed_gpu_inference_torch.ops import _build
@@ -7257,6 +8067,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"nvidia-smi: {smi}", flush=True)
+    if args.phase:
+        run_alone(torch, pa, smi, args.phase)
+        print(f"[done] phases {args.phase} ran in {time.perf_counter() - t_start:.1f} s; the "
+              f"host's lowest available memory {guard.low:.1f} GiB", flush=True)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. build
     qmm_variants = [(("QMM_STAGES", st), ("QMM_BK", bk)) for st, bk in QMM_SWEEP
@@ -7713,17 +8531,22 @@ def main() -> int:
     p22 = direct_mode_phase(torch, pa, smi, prompts)
     # ---- 23. tensor and expert parallelism: two ranks on the card
     p23, tp_entries = tp_phase(torch, pa, smi, prompts)
+    # ---- 24. sequence parallelism: ring, Ulysses, block-sharded pools, handoffs
+    p24, seq_entries = seq_phase(torch, pa, smi)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
             e["launches"] += p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
         elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
-            e["launches"] += p22[e["name"].split("[")[0]] + p23["int8"][e["name"].split("[")[0]]
+            base = e["name"].split("[")[0]
+            e["launches"] += p22[base] + p23["int8"][base] + p24[base]
         elif e["name"] == "qmm_w8a16[int8]":
             e["launches"] += (p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
-                              + p23["int8"]["qmm_w8a16"] + p23["bf16"]["qmm_w8a16"])
-    kernels += tp_entries
+                              + p23["int8"]["qmm_w8a16"] + p23["bf16"]["qmm_w8a16"]
+                              + p24["qmm_w8a16"])
+    kernels += tp_entries + seq_entries
 
-    print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s; the host's "
+          f"lowest available memory {guard.low:.1f} GiB", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

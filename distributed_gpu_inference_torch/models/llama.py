@@ -43,6 +43,8 @@ import torch.nn.functional as F
 
 from distributed_gpu_inference_torch.models.configs import ModelConfig
 from distributed_gpu_inference_torch.ops.attention import (
+    dequantize_kv,
+    quantize_token_rows,
     token_amax,
     write_kv_pages,
     write_quantized_kv,
@@ -365,8 +367,11 @@ def _layer_step(
     sin: torch.Tensor,
     fused_decode: bool,
     write_positions: Optional[torch.Tensor] = None,
+    write_tables: Optional[torch.Tensor] = None,
     attn_fn: Optional[Any] = None,
     tp: Optional[Any] = None,
+    dense_attn_fn: Optional[Any] = None,
+    gather_rows: Optional[Any] = None,
 ) -> torch.Tensor:
     """One transformer layer over paged KV. ``fused_decode`` routes the
     whole KV path of a one-query-per-row step through the fused
@@ -384,7 +389,13 @@ def _layer_step(
     ranks before they join ``hidden``; an int8 pool's per-token amax
     (over every KV head, on every rank) is max-reduced over the ranks
     before the rows are quantized, so scales and codes are those of the
-    one-rank engine's contract."""
+    one-rank engine's contract.
+
+    The sequence axis (``forward_chunk``'s hooks): ``write_tables`` are
+    the tables the pages are written through (a block-sharded rank's
+    local ids), ``gather_rows`` gathers the K/V rows of every rank before
+    they are written, and ``dense_attn_fn`` attends over this chunk's own
+    K/V."""
     b, s, _ = hidden.shape
     d = cfg.head_dim
     x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
@@ -416,6 +427,8 @@ def _layer_step(
         )
     else:
         wpos = positions if write_positions is None else write_positions
+        wtab = block_tables if write_tables is None else write_tables
+        wk, wv = (k, v) if gather_rows is None else (gather_rows(k), gather_rows(v))
         ks = vs = None
         if k_scale is not None:
             ks, vs = k_scale[layer], v_scale[layer]
@@ -424,14 +437,20 @@ def _layer_step(
                 amax = tp.all_reduce_max(torch.stack([token_amax(k, (2, 3)),
                                                       token_amax(v, (2, 3))]))
                 amax_k, amax_v = amax[0], amax[1]
-            write_quantized_kv(k_pool[layer], ks, k, block_tables, wpos, block_size,
-                               amax=amax_k)
-            write_quantized_kv(v_pool[layer], vs, v, block_tables, wpos, block_size,
-                               amax=amax_v)
+            write_quantized_kv(k_pool[layer], ks, wk, wtab, wpos, block_size, amax=amax_k)
+            write_quantized_kv(v_pool[layer], vs, wv, wtab, wpos, block_size, amax=amax_v)
         else:
-            write_kv_pages(k_pool[layer], k, block_tables, wpos, block_size)
-            write_kv_pages(v_pool[layer], v, block_tables, wpos, block_size)
-        if attn_fn is not None:
+            write_kv_pages(k_pool[layer], wk, wtab, wpos, block_size)
+            write_kv_pages(v_pool[layer], wv, wtab, wpos, block_size)
+        if dense_attn_fn is not None:
+            # the chunk is the whole context: attend over its own K/V, an
+            # int8 pool's through the quantize-dequantize round trip its
+            # pages hold, so the read matches the one-device paged read
+            if k_scale is not None:
+                k = dequantize_kv(*quantize_token_rows(k, (2, 3)))
+                v = dequantize_kv(*quantize_token_rows(v, (2, 3)))
+            attn = dense_attn_fn(q, k, v)
+        elif attn_fn is not None:
             attn = attn_fn(q, k_pool[layer], v_pool[layer], ks, vs)
         else:
             attn = ragged_paged_attention(
@@ -462,6 +481,11 @@ def forward_chunk(
     allow_fused: bool = True,
     collect_layers: Optional[Tuple[int, ...]] = None,
     tp: Optional[Any] = None,
+    dense_attn_fn: Optional[Any] = None,
+    attn_fn: Optional[Any] = None,
+    pool_blocks: Optional[Tuple[int, int]] = None,
+    gather_rows: Optional[Any] = None,
+    write_positions: Optional[torch.Tensor] = None,
 ) -> ChunkOutput:
     """Run S tokens per sequence through all layers against the paged cache.
 
@@ -479,13 +503,32 @@ def forward_chunk(
     A decode step over int8 pools then writes through the max-reduced
     quantize and reads through the ragged kernel (the fused kernel
     quantizes over the rank's own heads only); bf16 and fp8 pools keep
-    the fused kernel on the rank's heads."""
+    the fused kernel on the rank's heads.
+
+    The sequence axis (JAX ``dense_attn_fn`` / ``attn_override``; the
+    closures are ``parallel/ring_attention.py``'s ops bound to a rank's
+    group, built by ``runtime/tp.py``): ``dense_attn_fn(q, k, v)`` attends
+    over this chunk's own K/V instead of the pools, valid when the chunk
+    is the whole context (ring or Ulysses attention of a seq-parallel
+    prefill, or a fresh prompt on block-sharded pools); ``attn_fn(q,
+    layer_k, layer_v, k_scale, v_scale)`` replaces the paged read (the
+    partial-softmax decode and chunk reads of block-sharded pools, bound
+    to this call's tables, positions and lengths). ``pool_blocks=(lo, hi)``: ``kv`` holds the global
+    blocks [lo, hi) only, at local ids 0..hi-lo; a K/V row is written only
+    where its block is held. ``gather_rows`` (with ``write_positions``, the
+    gathered rows' positions): the rows written to the pages are
+    ``gather_rows`` of this rank's rows, every rank's rows of a
+    seq-parallel prefill. Any hook turns the fused decode kernel off."""
     positions = positions.to(torch.int32)
-    fused = allow_fused and token_ids.shape[1] == 1 and not (tp is not None
-                                                              and "k_scale" in kv)
+    hooked = (dense_attn_fn is not None or attn_fn is not None
+              or pool_blocks is not None or gather_rows is not None)
+    fused = (allow_fused and token_ids.shape[1] == 1 and not hooked
+             and not (tp is not None and "k_scale" in kv))
     hidden, features = _run_hidden(
         cfg, params, embed_tokens(params, token_ids, cfg), positions, kv, block_tables, kv_lens,
         block_size=block_size, fused_decode=fused, collect_layers=collect_layers, tp=tp,
+        dense_attn_fn=dense_attn_fn, attn_fn=attn_fn, pool_blocks=pool_blocks,
+        gather_rows=gather_rows, write_positions=write_positions,
     )
     if not with_logits:
         return ChunkOutput(hidden=hidden, kv=kv, logits=None, features=features)
@@ -509,13 +552,19 @@ def _run_hidden(
     kv_lens: torch.Tensor, *, block_size: int, fused_decode: bool = False,
     collect_layers: Optional[Tuple[int, ...]] = None,
     write_positions: Optional[torch.Tensor] = None, attn_fn: Optional[Any] = None,
-    tp: Optional[Any] = None,
+    tp: Optional[Any] = None, dense_attn_fn: Optional[Any] = None,
+    pool_blocks: Optional[Tuple[int, int]] = None, gather_rows: Optional[Any] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run every layer of ``params`` over pre-embedded ``hidden`` → (final
     hidden, the ``collect_layers`` features or None)."""
     layers = params["layers"]
     kv_lens = kv_lens.to(torch.int32)
     block_tables = block_tables.to(torch.int32)
+    write_tables = None
+    if pool_blocks is not None:
+        wpos = rope_positions if write_positions is None else write_positions
+        write_tables, write_positions = held_writes(block_tables, wpos.to(torch.int32),
+                                                    block_size, *pool_blocks)
     cos, sin = rope_angles(rope_positions.clamp(min=0), cfg.head_dim, cfg.rope_theta)
     collected = {}
     for layer in range(kv["k"].shape[0]):
@@ -527,13 +576,25 @@ def _run_hidden(
             cfg, block_size, hidden, kv, layer, lp,
             block_tables=block_tables, positions=rope_positions, kv_lens=kv_lens,
             cos=cos, sin=sin, fused_decode=fused_decode,
-            write_positions=write_positions, attn_fn=attn_fn, tp=tp,
+            write_positions=write_positions, write_tables=write_tables, attn_fn=attn_fn,
+            tp=tp, dense_attn_fn=dense_attn_fn, gather_rows=gather_rows,
         )
         if collect_layers is not None and layer in collect_layers:
             collected[layer] = hidden
     features = (torch.cat([collected[i] for i in collect_layers], dim=-1)
                 if collect_layers is not None else None)
     return hidden, features
+
+
+def held_writes(block_tables: torch.Tensor, positions: torch.Tensor, block_size: int,
+                lo: int, hi: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The page writes a rank that holds the global blocks [lo, hi) makes:
+    (tables in its local ids, ``positions`` with -1 wherever the row's
+    block is not held, so the write drops the row)."""
+    logical = positions.clamp(min=0).long() // block_size
+    phys = torch.gather(block_tables.long(), 1, logical)
+    held = (positions >= 0) & (phys >= lo) & (phys < hi)
+    return block_tables - lo, torch.where(held, positions, torch.full_like(positions, -1))
 
 
 def forward_tree_chunk(

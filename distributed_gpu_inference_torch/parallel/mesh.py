@@ -5,7 +5,10 @@ axis names and :class:`MeshPlan` / :func:`infer_plan`, without JAX. The
 JAX package builds a ``jax.sharding.Mesh`` and lets XLA insert the
 collectives; the port runs one process per rank of the ``model`` axis,
 each holding its shard of the weights and KV pools on its own device, and
-calls the collectives itself through a :class:`TPGroup`.
+calls the collectives itself through a :class:`TPGroup`. The same group
+serves the ``seq`` axis (one process per rank of a sequence-parallel
+engine, params replicated): its ring hop, all-to-all and all-gather are
+what ring and Ulysses attention and the cross-rank page transfers call.
 
 Axis names (fixed across the framework so sharding rules compose):
 
@@ -21,7 +24,10 @@ CPU, or share one card. On an H100 80GB HBM3 (700 W, torch 2.11 + CUDA
 12.8, NCCL 2.28.9) NCCL refuses two ranks on one device ("Duplicate GPU
 detected : rank 0 and rank 1 both on CUDA device"), and gloo takes CUDA
 tensors (bf16 ``allreduce``, f32 ``broadcast``) by staging them through
-the host itself (``chip_smoke.py`` phase 23 probes both). The NCCL branch
+the host itself (``chip_smoke.py`` phase 23 probes both). The collectives
+of the ``seq`` axis (``ring_hop``, ``all_to_all``, ``all_gather``) stage
+CUDA tensors through pinned host buffers under gloo themselves: gloo's
+point-to-point and all-to-all take CPU tensors only. The NCCL branch
 needs a card a rank and is not exercised on a one-card machine.
 Rendezvous goes through a ``FileStore`` in a temporary directory, not a
 TCP port, and every group has a timeout, so a rank that dies makes the
@@ -45,6 +51,10 @@ AXIS_SEQ = "seq"
 AXIS_STAGE = "stage"
 
 ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
+
+#: the collectives a :class:`TPGroup` counts in ``stats`` (and their
+#: seconds under ``<name>_s``)
+COLLECTIVES = ("all_reduce", "broadcast", "ring_hop", "all_to_all", "all_gather")
 
 
 @dataclass(frozen=True)
@@ -70,6 +80,21 @@ class MeshPlan:
 
     def nontrivial_axes(self) -> Tuple[str, ...]:
         return tuple(a for a, s in self.axis_sizes().items() if s > 1)
+
+    def engine_axis(self) -> Tuple[str, int]:
+        """The one axis an engine's ranks run over, ``("model", n)`` or
+        ``("seq", n)`` (``("model", 1)`` for one device). A data or stage
+        axis is refused (data parallelism is request-level at the
+        scheduler; pipeline stages are processes of their own), and so is
+        a plan with both ``seq`` and ``model`` above 1: the JAX package
+        composes them (heads over ``model``, pool blocks over ``seq``),
+        the port does not yet."""
+        if self.data > 1 or self.stage > 1:
+            raise ValueError(f"an engine mesh takes no data or stage axis, got {self}")
+        if self.seq > 1 and self.model > 1:
+            raise ValueError(f"a mesh with both seq={self.seq} and model={self.model} "
+                             "above 1 is not supported: use one axis")
+        return (AXIS_SEQ, self.seq) if self.seq > 1 else (AXIS_MODEL, self.model)
 
 
 def infer_plan(num_devices: int, num_kv_heads: int, prefer: str = "model") -> MeshPlan:
@@ -100,10 +125,10 @@ def _nccl_group(store: "dist.Store", rank: int, size: int,
 
 
 class TPGroup:
-    """One rank's view of the ``model`` axis: its rank, the group's size,
-    its ``torch.device``, the process group, and the collectives the
-    forward pass calls. Counts each collective and its host seconds
-    (``stats``). A gloo collective on CUDA tensors blocks the host until
+    """One rank's view of the ``model`` or ``seq`` axis: its rank, the
+    group's size, its ``torch.device``, the process group, and the
+    collectives the forward pass calls. Counts each collective and its
+    host seconds (``stats``). A gloo collective on CUDA tensors blocks the host until
     its copy back has landed, so the device is synchronized before its
     clock starts (its copy to the host would wait for that work anyway):
     the seconds are the collective's own, waits for the other ranks
@@ -127,17 +152,81 @@ class TPGroup:
             self.group = dist.ProcessGroupGloo(dist.PrefixStore("data", store), rank,
                                                self.size, timeout)
         self._sync = self.backend == "gloo" and self.device.type == "cuda"
-        self.stats: Dict[str, float] = {"all_reduce": 0, "all_reduce_s": 0.0,
-                                        "broadcast": 0, "broadcast_s": 0.0}
+        self.stats: Dict[str, float] = {}
+        self.reset_stats()
 
     def _run(self, kind: str, t: torch.Tensor, call) -> torch.Tensor:
         if self._sync:
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         call(t).wait()
+        self._count(kind, t0)
+        return t
+
+    def _count(self, kind: str, t0: float) -> None:
         self.stats[kind] += 1
         self.stats[kind + "_s"] += time.perf_counter() - t0
-        return t
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where gloo can take it: a pinned host copy of a CUDA
+        tensor under gloo (the device synchronized first), else ``t``."""
+        if not self._sync:
+            return t.contiguous()
+        torch.cuda.synchronize(self.device)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        return host
+
+    def _back(self, host: torch.Tensor) -> torch.Tensor:
+        return host.to(self.device) if self._sync else host
+
+    def _empty(self, shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+        if self._sync:
+            return torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+        return torch.empty(tuple(shape), dtype=dtype, device=self.device)
+
+    def ring_hop(self, t: torch.Tensor) -> torch.Tensor:
+        """One hop of a ring: send ``t`` to rank+1, receive rank-1's
+        tensor of the same shape and dtype (a new tensor)."""
+        t0 = time.perf_counter()
+        src = self._host(t)
+        out = self._empty(src.shape, src.dtype)
+        recv = self.group.recv([out], (self.rank - 1) % self.size, 0)
+        send = self.group.send([src], (self.rank + 1) % self.size, 0)
+        send.wait()
+        recv.wait()
+        out = self._back(out)
+        self._count("ring_hop", t0)
+        return out
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """``lax.all_to_all(..., tiled=True)``: ``t`` cut into ``size``
+        equal parts along ``split_dim``, part j sent to rank j, and the
+        parts received concatenated along ``concat_dim`` in rank order (a
+        new tensor)."""
+        t0 = time.perf_counter()
+        n = self.size
+        if t.shape[split_dim] % n:
+            raise ValueError(f"dim {split_dim} of size {t.shape[split_dim]} does not "
+                             f"split over {n} ranks")
+        parts = torch.stack(torch.chunk(t, n, dim=split_dim))   # [n, ...]
+        src = self._host(parts)
+        out = self._empty(src.shape, src.dtype)
+        self.group.alltoall_base(out, src, [], [], dist.AllToAllOptions()).wait()
+        out = self._back(out)
+        self._count("all_to_all", t0)
+        return torch.cat(out.unbind(0), dim=concat_dim)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked in rank order: ``[size, *t.shape]``
+        (a new tensor)."""
+        t0 = time.perf_counter()
+        src = self._host(t)
+        outs = [self._empty(src.shape, src.dtype) for _ in range(self.size)]
+        self.group.allgather([outs], [src]).wait()
+        out = self._back(torch.stack(outs))
+        self._count("all_gather", t0)
+        return out
 
     def _reduce(self, t: torch.Tensor, op: "dist.ReduceOp") -> torch.Tensor:
         opts = dist.AllreduceOptions()
@@ -160,8 +249,9 @@ class TPGroup:
         return self._run("broadcast", t, lambda x: self.group.broadcast([x], opts))
 
     def reset_stats(self) -> None:
-        for k in self.stats:
-            self.stats[k] = 0 if not k.endswith("_s") else 0.0
+        for kind in COLLECTIVES:
+            self.stats[kind] = 0
+            self.stats[kind + "_s"] = 0.0
 
     def close(self) -> None:
         """Release the group (idempotent)."""

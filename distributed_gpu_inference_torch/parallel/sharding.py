@@ -36,6 +36,14 @@ other codes and scales than the one-rank engine.
 
 Every function here works on torch tensors and on numpy arrays alike
 (basic slicing), and returns contiguous copies.
+
+The ``seq`` axis (JAX ``kv_sharding_seq`` / ``kv_scale_sharding_seq``):
+params are replicated over it, and block-sharded pools
+(``EngineConfig.kv_seq_sharded``) cut the block axis N of every data and
+scale pool, rank r holding the global blocks ``[r·N/n, (r+1)·N/n)``
+(:func:`block_range`); block ids in the tables stay global. The engine
+rounds N up to a multiple of n (:func:`seq_num_blocks`) as the JAX engine
+does.
 """
 
 from __future__ import annotations
@@ -165,3 +173,32 @@ def expert_range(num_experts: int, rank: int, tp: int) -> Tuple[int, int]:
     per = num_experts // tp
     return rank * per, (rank + 1) * per
 
+
+
+# KV pools [L, N, ...] (data and scale pools alike) cut on N over ``seq``
+BLOCK_AXIS = 1
+
+
+def seq_num_blocks(num_blocks: int, seq: int) -> int:
+    """The pool's block count rounded up to a multiple of the ``seq`` axis,
+    so the block axis shards evenly."""
+    return -(-num_blocks // seq) * seq
+
+
+def block_range(num_blocks: int, rank: int, seq: int) -> Tuple[int, int]:
+    """[lo, hi): the global blocks rank ``rank`` holds of a pool of
+    ``num_blocks`` sharded over ``seq`` ranks; an uneven pool is refused."""
+    if num_blocks % seq:
+        raise ValueError(f"pool blocks {num_blocks} not divisible by seq axis {seq}")
+    per = num_blocks // seq
+    return rank * per, (rank + 1) * per
+
+
+def shard_kv_blocks(kv: Dict[str, Any], rank: int, seq: int) -> Dict[str, Any]:
+    """Rank ``rank``'s block-sharded pools: every data and scale pool cut
+    on the block axis (:func:`block_range`, which refuses an uneven pool)."""
+    out = {}
+    for k, v in kv.items():
+        lo, hi = block_range(v.shape[BLOCK_AXIS], rank, seq)
+        out[k] = _contiguous(v[:, lo:hi])
+    return out

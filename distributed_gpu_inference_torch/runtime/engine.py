@@ -1,7 +1,8 @@
-"""Slot-based serving engine over paged KV on one CUDA device.
+"""Slot-based serving engine over paged KV on one CUDA device, or on the
+devices of its tensor- or sequence-parallel ranks.
 
-The port of ``distributed_gpu_inference_tpu/runtime/engine.py`` ``TPUEngine``
-(no sequence-sharded pools). Weights may be quantized
+The port of ``distributed_gpu_inference_tpu/runtime/engine.py``
+``TPUEngine``. Weights may be quantized
 on load
 (``EngineConfig.quantization`` int8 / fp8, ``ops/quantization.py``) and the
 KV pools stored as int8 with scale pools or as fp8
@@ -43,10 +44,21 @@ Tensor and expert parallelism (``rank_devices`` with more than one
 device; the JAX engine's ``model``-axis mesh): this engine is rank 0 and
 keeps every piece of host state; ranks 1..tp-1 are processes of
 ``runtime/tp.py`` holding their shards of the weights and pools, sent a
-command with the host arrays before each device call. What the slice does
-not take under tensor parallelism is refused by name: speculative
-decoding, the spill tiers, and the page transfers of KV handoff, PD and
-KV migration (:meth:`gather_pages` / :meth:`push_pages`).
+command with the host arrays before each device call. Sequence
+parallelism (``mesh=MeshPlan(seq=n)``, the JAX ``seq`` axis) runs over the
+same ranks with the weights replicated: a fresh prompt longer than the
+largest prefill bucket takes ONE seq-parallel pass, ring or Ulysses
+attention over the ranks (``EngineConfig.seq_parallel_impl``), and its
+pages land in the pools decode reads. With replicated pools rank 0 holds
+every page and serves everything else alone; with
+``EngineConfig.kv_seq_sharded`` each rank holds 1/n of the blocks, every
+rank runs every forward, and reads merge partial softmaxes across the
+ranks (``parallel/ring_attention.py``). :meth:`gather_pages` and
+:meth:`push_pages` move each rank's heads or blocks of a page through the
+group, so KV handoff, PD roles and the spill tiers work on either axis.
+Refused by name on a mesh: speculative decoding (single-chip in the JAX
+engine too), ``migrate_kv_device`` (two engines' ranks are different
+processes) and a mesh with both axes above 1.
 
 Failure semantics: the JAX engine's device calls were functional, so a
 failed call left the old pools intact. Here a round updates the pools in
@@ -101,17 +113,34 @@ from distributed_gpu_inference_torch.runtime.kv_cache import (
     OutOfBlocksError,
     PagedKVCacheManager,
 )
-from distributed_gpu_inference_torch.parallel.mesh import TPGroup
-from distributed_gpu_inference_torch.parallel.sharding import shard_tree
+from distributed_gpu_inference_torch.parallel.mesh import (
+    AXIS_MODEL,
+    AXIS_SEQ,
+    MeshPlan,
+    TPGroup,
+)
+from distributed_gpu_inference_torch.parallel.sharding import (
+    block_range,
+    seq_num_blocks,
+    shard_tree,
+)
 from distributed_gpu_inference_torch.runtime import tp as tp_ranks
 from distributed_gpu_inference_torch.runtime.tp import (
     RankFailed,
     RankSpec,
+    SeqRank,
     TPRanks,
+    attention_kind,
+    copy_blocks,
     decode_steps,
+    gather_blocks,
+    page_bytes,
     rendezvous_path,
+    seq_prefill,
     tensor_bits,
     tree_to,
+    unpack_pages,
+    write_blocks,
 )
 from distributed_gpu_inference_torch.runtime.speculative import (
     SpecDecodeConfig,
@@ -204,6 +233,14 @@ class EngineConfig:
     # source: ``models/loader.py`` ``quant_cache_path``), and read it from
     # there on later loads instead of quantizing again
     quant_cache_dir: Optional[str] = None
+    # long-prompt prefill on a mesh with a ``seq`` axis: a fresh prompt
+    # longer than the largest prefill bucket runs ONE seq-parallel pass,
+    # ring or ulysses attention over the ranks (parallel/ring_attention.py)
+    seq_parallel_impl: str = "ring"   # ring | ulysses
+    # shard the KV pools' BLOCK axis over ``seq``: each rank holds 1/seq of
+    # the blocks and reads merge partial softmaxes across the ranks; the
+    # pool is rounded up to a multiple of the axis
+    kv_seq_sharded: bool = False
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -433,8 +470,7 @@ def engine_params(model_cfg: ModelConfig, cfg: EngineConfig,
 def check_tp(model_cfg: ModelConfig, cfg: EngineConfig, tp: int) -> None:
     """Refuse a tensor-parallel configuration this engine cannot run, with
     the JAX engine's reasons (KV heads and experts must divide over the
-    ranks; speculative decoding is single-device) and by name what this
-    slice does not take under tensor parallelism."""
+    ranks; speculative decoding is single-device)."""
     if model_cfg.num_kv_heads % tp:
         raise ValueError(f"num_kv_heads {model_cfg.num_kv_heads} not divisible by "
                          f"model axis {tp}")
@@ -447,9 +483,28 @@ def check_tp(model_cfg: ModelConfig, cfg: EngineConfig, tp: int) -> None:
     if cfg.speculative is not None:
         raise ValueError("speculative decode mode is single-chip: drop the mesh "
                          "or EngineConfig.speculative")
-    if cfg.spill_host_blocks > 0 or cfg.spill_remote_store is not None:
-        raise ValueError("the KV spill tiers (spill_host_blocks, spill_remote_store) "
-                         "are not supported under tensor parallelism (tp > 1)")
+
+
+def check_seq(model_cfg: ModelConfig, cfg: EngineConfig, seq: int) -> None:
+    """Refuse a sequence-parallel configuration with the JAX engine's
+    reasons: ``kv_seq_sharded`` needs a seq axis above 1 and no sliding
+    window, Ulysses needs the KV heads to divide over the axis, and
+    speculative decoding is single-chip."""
+    if cfg.seq_parallel_impl not in ("ring", "ulysses"):
+        raise ValueError(f"seq_parallel_impl {cfg.seq_parallel_impl!r}: use 'ring' or "
+                         "'ulysses'")
+    if cfg.kv_seq_sharded:
+        if seq <= 1:
+            raise ValueError("kv_seq_sharded needs a mesh with a seq axis > 1")
+        if model_cfg.sliding_window is not None:
+            raise ValueError("kv_seq_sharded does not support sliding-window models")
+    if seq > 1:
+        if cfg.seq_parallel_impl == "ulysses" and model_cfg.num_kv_heads % seq:
+            raise ValueError(f"ulysses needs num_kv_heads {model_cfg.num_kv_heads} "
+                             f"divisible by the seq axis {seq} (use ring otherwise)")
+        if cfg.speculative is not None:
+            raise ValueError("speculative decode mode is single-chip: drop the mesh "
+                             "or EngineConfig.speculative")
 
 
 class TorchEngine:
@@ -466,6 +521,7 @@ class TorchEngine:
         device: Any = "cuda",
         checkpoint_path: Optional[str] = None,
         rank_devices: Optional[Sequence[Any]] = None,
+        mesh: Optional[MeshPlan] = None,
     ) -> None:
         """``params``: a params tree in the JAX package's layout, already
         on ``device`` (``models.convert.params_from_numpy`` builds one).
@@ -490,10 +546,21 @@ class TorchEngine:
         holding its shard, and every device call runs on all of them. A
         device may repeat (two ranks on one card, over gloo). ``params``
         are then quantized whole here and cut for each rank; without
-        ``params`` each rank builds its own shard of the same tree."""
+        ``params`` each rank builds its own shard of the same tree.
+
+        ``mesh``: the axis the ranks run over, ``MeshPlan(model=n)`` (the
+        default for n ``rank_devices``) or ``MeshPlan(seq=n)``: the same
+        ranks with the whole tree each, the sequence axis of the JAX
+        engine's mesh (``EngineConfig.seq_parallel_impl``,
+        ``kv_seq_sharded``)."""
         devices = [resolve_device(d) for d in (rank_devices or [device])]
         self.device = devices[0]
-        self.tp = len(devices)
+        self.axis, n = (mesh or MeshPlan(model=len(devices))).engine_axis()
+        if n != len(devices):
+            raise ValueError(f"the mesh's {self.axis} axis of {n} needs {n} rank devices, "
+                             f"got {len(devices)}")
+        self.tp = n if self.axis == AXIS_MODEL else 1
+        self.seq = n if self.axis == AXIS_SEQ else 1
         self.model_cfg = (
             get_model_config(model_cfg) if isinstance(model_cfg, str) else model_cfg
         )
@@ -502,6 +569,11 @@ class TorchEngine:
             self.cfg.speculative.validate(self.cfg)
         if self.tp > 1:
             check_tp(self.model_cfg, self.cfg, self.tp)
+        check_seq(self.model_cfg, self.cfg, self.seq)
+        if self.cfg.kv_seq_sharded and self.cfg.resolved_num_blocks() % self.seq:
+            # round the pool UP so the block axis shards evenly
+            self.cfg = replace(self.cfg, num_blocks=seq_num_blocks(
+                self.cfg.resolved_num_blocks(), self.seq))
         self.dtype = llama.torch_dtype(self.cfg.dtype)
         self.kv_dtype = _resolve_kv_dtype(self.cfg.kv_cache_dtype, self.dtype)
         if self.device.type == "cuda":
@@ -513,6 +585,8 @@ class TorchEngine:
             raise ValueError("give params or checkpoint_path, not both")
         self._ranks: Optional[TPRanks] = None
         self._tp_group: Optional[TPGroup] = None
+        # rank 0 of the seq axis (None for model-axis and one-device engines)
+        self._seq: Optional[SeqRank] = None
         # the exception of a device round that failed mid-update (pools may
         # be half-written); set once, never cleared
         self._failed: Optional[BaseException] = None
@@ -523,7 +597,9 @@ class TorchEngine:
                 shards = [None] + [tree_to(shard_tree(params, r, self.tp), "cpu")
                                    for r in range(1, self.tp)]
                 params = shard_tree(params, 0, self.tp)
-        if self.tp > 1:
+            elif self.seq > 1:
+                shards = [None] + [tree_to(params, "cpu")] * (self.seq - 1)
+        if len(devices) > 1:
             self._start_ranks(devices, seed, checkpoint_path,
                               shards if params is not None else None)
         try:
@@ -532,8 +608,16 @@ class TorchEngine:
                                        self.device, shard)
             self.params = params
             self.num_blocks = self.cfg.resolved_num_blocks()
+            held = self.num_blocks
+            if self.seq > 1:
+                blocks = (block_range(self.num_blocks, 0, self.seq)
+                          if self.cfg.kv_seq_sharded else None)
+                self._seq = SeqRank(self._tp_group, blocks, self.cfg.block_size,
+                                    self.cfg.seq_parallel_impl)
+                if blocks is not None:
+                    held = blocks[1] - blocks[0]
             self.kv = llama.init_kv_pools(
-                self.model_cfg, self.num_blocks, self.cfg.block_size, self.kv_dtype,
+                self.model_cfg, held, self.cfg.block_size, self.kv_dtype,
                 self.device, tp=self.tp,
             )
             if self._ranks is not None:
@@ -546,7 +630,6 @@ class TorchEngine:
             if self.cfg.spill_host_blocks > 0 else None
         )
         spill = host_store is not None or self.cfg.spill_remote_store is not None
-        k = self.kv["k"]
         self.manager = PagedKVCacheManager(
             self.num_blocks,
             self.cfg.block_size,
@@ -555,7 +638,7 @@ class TorchEngine:
             remote_store=self.cfg.spill_remote_store,
             spill_on_evict=spill,
             kv_dtype=self.kv_dtype,
-            page_shape=(k.shape[0], 2, *k.shape[2:]),
+            page_shape=self._page_layout()[0],
         )
         self.eos_token_id = eos_token_id
 
@@ -613,7 +696,7 @@ class TorchEngine:
 
     def _start_ranks(self, devices: Sequence[torch.device], seed: int,
                      checkpoint_path: Optional[str], shards: Optional[list]) -> None:
-        """Start ranks 1..tp-1 and join their group as rank 0. The CUDA
+        """Start ranks 1..n-1 and join their group as rank 0. The CUDA
         kernels are built here first, once, so the ranks only load them."""
         if self.device.type == "cuda":
             _build.build()
@@ -622,6 +705,7 @@ class TorchEngine:
             devices=[str(d) for d in devices], store_path=rendezvous_path(),
             timeout_s=tp_ranks.TIMEOUT_S, seed=seed,
             checkpoint_path=checkpoint_path, num_threads=torch.get_num_threads(),
+            axis=self.axis,
         )
         self._ranks = TPRanks(spec, shards)
         self._tp_group = self._ranks.group
@@ -636,12 +720,22 @@ class TorchEngine:
             if self._failed is None:
                 self._failed = EngineStateLost("the engine was shut down")
 
+    @property
+    def _mirrored(self) -> bool:
+        """Whether the ranks run every device op with rank 0: the ``model``
+        axis and block-sharded pools. Replicated pools on a ``seq`` axis
+        keep every page on rank 0, which serves alone outside the
+        seq-parallel prefill."""
+        return self._ranks is not None and (self.tp > 1 or self.cfg.kv_seq_sharded)
+
     def refuse_under_tp(self, what: str) -> None:
-        if self.tp > 1:
+        """Refuse ``what`` on a mesh: a device-to-device page move between
+        two engines, whose ranks are different processes."""
+        if self._ranks is not None:
             raise NotImplementedError(
-                f"{what} is not supported under tensor parallelism (tp={self.tp}): "
-                "KV handoff, PD roles, KV migration and the spill tiers move whole "
-                "pages, which no rank holds")
+                f"{what} is not supported on a mesh (tp={self.tp}, seq={self.seq}): "
+                "the two engines' ranks are different processes; use the wire "
+                "path (export_slot_kv / StreamedExport)")
 
     def rank_launch_counts(self) -> List[Dict[str, int]]:
         """Each rank's kernel launch counts (``ops.paged_attention
@@ -668,11 +762,9 @@ class TorchEngine:
         return out
 
     def rank_memory(self) -> List[Dict[str, int]]:
-        """Each rank's allocated and peak device bytes (empty on the CPU),
-        rank 0's first."""
-        own = {} if self.device.type != "cuda" else {
-            "allocated": torch.cuda.memory_allocated(self.device),
-            "peak": torch.cuda.max_memory_allocated(self.device)}
+        """Each rank's pool bytes, and on a card its allocated and peak
+        device bytes, rank 0's first."""
+        own = tp_ranks.device_memory(self.device, self.kv)
         return [own] + (self._ranks.query("memory") if self._ranks is not None else [])
 
     def rank_collective_stats(self, reset: bool = False) -> List[Dict[str, float]]:
@@ -723,16 +815,21 @@ class TorchEngine:
                  allow_fused: bool = True) -> Optional[torch.Tensor]:
         """One forward over host-built batch arrays → last-token logits
         [B, V] (None when ``with_logits`` is False). Under tensor
-        parallelism every rank runs it on the same arrays."""
-        if self._ranks is not None:
+        parallelism and on block-sharded pools every rank runs it on the
+        same arrays; block-sharded pools read through the attention kind
+        the arrays call for (``runtime/tp.py`` :func:`attention_kind`)."""
+        if self._mirrored:
             self._ranks.send("forward", toks_pos=toks_pos, tables=tables, lens=lens,
                              allow_fused=allow_fused)
+        positions, tables_t, lens_t = (self._tensor(toks_pos[1]), self._tensor(tables),
+                                       self._tensor(lens))
+        hooks = (self._seq.hooks(attention_kind(toks_pos[1], lens), tables_t, positions,
+                                 lens_t) if self.cfg.kv_seq_sharded else {})
         out = llama.forward_chunk(
-            self.model_cfg, self.params, self._tensor(toks_pos[0]),
-            self._tensor(toks_pos[1]), self.kv, self._tensor(tables),
-            self._tensor(lens), block_size=self.cfg.block_size,
+            self.model_cfg, self.params, self._tensor(toks_pos[0]), positions, self.kv,
+            tables_t, lens_t, block_size=self.cfg.block_size,
             last_only=True, with_logits=with_logits, allow_fused=allow_fused,
-            tp=self._tp_group,
+            tp=self._tp_group if self.tp > 1 else None, **hooks,
         )
         return None if out.logits is None else out.logits[:, 0, :]
 
@@ -773,15 +870,15 @@ class TorchEngine:
                 for (_, key), (page, scale) in zip(ops.downloads, pages):
                     self.manager.store_spilled(key, page, scale)
             if ops.copies:
-                if self._ranks is not None:
+                if self._mirrored:
                     self._ranks.send("copy", src=np.array([s for s, _ in ops.copies]),
                                      dst=np.array([d for _, d in ops.copies]))
                 src = torch.tensor([s for s, _ in ops.copies],
                                    dtype=torch.long, device=self.device)
                 dst = torch.tensor([d for _, d in ops.copies],
                                    dtype=torch.long, device=self.device)
-                for pool in self.kv.values():
-                    pool[:, dst] = pool[:, src]
+                copy_blocks(self.kv, src, dst, self._tp_group, self.axis,
+                            self._pool_blocks)
             if ops.uploads:
                 scales = dict(ops.scale_uploads)
                 self.push_pages([b for b, _ in ops.uploads],
@@ -793,15 +890,14 @@ class TorchEngine:
     #    [n, page + scale bytes] buffer, pinned on the host side
 
     def _page_layout(self) -> Tuple[Tuple[int, ...], int, Optional[Tuple[int, ...]], int]:
-        """(page shape, page bytes, scale shape or None, scale bytes)."""
-        k = self.kv["k"]
-        shape = (k.shape[0], 2, *k.shape[2:])
-        pbytes = int(np.prod(shape)) * k.element_size()
-        if "k_scale" not in self.kv:
-            return shape, pbytes, None, 0
-        ks = self.kv["k_scale"]
-        sshape = (ks.shape[0], 2, ks.shape[2])
-        return shape, pbytes, sshape, int(np.prod(sshape)) * ks.element_size()
+        """(page shape, page bytes, scale shape or None, scale bytes) of a
+        whole page, every KV head, whatever rank 0 holds of it."""
+        return page_bytes(self.model_cfg, self.kv, self.cfg.block_size)
+
+    @property
+    def _pool_blocks(self) -> Optional[Tuple[int, int]]:
+        """The global blocks rank 0's pools hold; None: all of them."""
+        return None if self._seq is None else self._seq.pool_blocks
 
     def _staging(self, n: int, nbytes: int) -> torch.Tensor:
         """Host staging for n pages: pinned when the pools are on a card
@@ -816,22 +912,30 @@ class TorchEngine:
         into pinned staging. ``wait=False`` leaves the copies enqueued on
         the engine's stream behind a CUDA event (:meth:`HostPages.wait`
         before reading); the default waits on that event only, not on the
-        whole stream."""
-        self.refuse_under_tp("gather_pages")
+        whole stream.
+
+        On a mesh whose ranks hold parts of each page (the ``model`` axis:
+        their KV heads; block-sharded pools: their blocks) every rank is
+        sent the gather and the parts meet through the group
+        (``runtime/tp.py`` ``gather_blocks``): the host layout is the
+        single-device one."""
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
 
-        def to_host(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-            dev = torch.stack((a.index_select(1, idx), b.index_select(1, idx)),
-                              dim=2).movedim(1, 0).contiguous()
+        def to_host(dev: torch.Tensor) -> torch.Tensor:
             if self.device.type != "cuda":
                 return dev
             host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
             host.copy_(dev, non_blocking=True)
             return host
 
-        out = HostPages(to_host(self.kv["k"], self.kv["v"]),
-                        to_host(self.kv["k_scale"], self.kv["v_scale"])
-                        if "k_scale" in self.kv else None)
+        if self._mirrored:
+            with self._device_work():
+                self._ranks.send("gather", bids=np.asarray(list(bids), np.int64))
+                pages, scales = gather_blocks(self.kv, idx, self._tp_group, self.axis,
+                                              self._pool_blocks)
+        else:
+            pages, scales = tp_ranks.local_pages(self.kv, idx, None)
+        out = HostPages(to_host(pages), None if scales is None else to_host(scales))
         if self.device.type == "cuda":
             out.ready = torch.cuda.Event()
             out.ready.record(torch.cuda.current_stream(self.device))
@@ -852,9 +956,12 @@ class TorchEngine:
                    scales: Sequence[Optional[torch.Tensor]]) -> None:
         """Write host pages (and int8 scales) into blocks ``bids`` of the
         pools: the pages stacked into pinned staging, one host-to-device
-        copy, then one ``index_copy_`` per pool on the engine's stream."""
-        self.refuse_under_tp("push_pages")
-        shape, pbytes, sshape, sbytes = self._page_layout()
+        copy, then one ``index_copy_`` per pool on the engine's stream. On
+        a mesh whose ranks hold parts of each page the staged pages are
+        broadcast to every rank, and each writes its heads or its blocks
+        (``runtime/tp.py`` ``write_blocks``)."""
+        layout = self._page_layout()
+        shape, pbytes, sshape, sbytes = layout
         n = len(bids)
         host = self._staging(n, pbytes + sbytes)
         for i, page in enumerate(pages):
@@ -868,13 +975,11 @@ class TorchEngine:
                 host[i, pbytes:] = scales[i].contiguous().reshape(-1).view(torch.uint8)
         dev = host.to(self.device, non_blocking=True)
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
-        kv = dev[:, :pbytes].contiguous().view(self.kv["k"].dtype).reshape(n, *shape)
-        self.kv["k"].index_copy_(1, idx, kv[:, :, 0].movedim(0, 1))
-        self.kv["v"].index_copy_(1, idx, kv[:, :, 1].movedim(0, 1))
-        if sshape is not None:
-            sc = dev[:, pbytes:].contiguous().view(torch.bfloat16).reshape(n, *sshape)
-            self.kv["k_scale"].index_copy_(1, idx, sc[:, :, 0].movedim(0, 1))
-            self.kv["v_scale"].index_copy_(1, idx, sc[:, :, 1].movedim(0, 1))
+        if self._mirrored:
+            self._ranks.send("push", bids=np.asarray(list(bids), np.int64))
+            self._tp_group.broadcast(dev, src=0)
+        pages, scales = unpack_pages(dev, self.kv, layout)
+        write_blocks(self.kv, idx, pages, scales, 0, self.axis, self._pool_blocks)
 
     def _bucket_len(self, n: int) -> int:
         for b in self.cfg.prefill_buckets:
@@ -1167,7 +1272,12 @@ class TorchEngine:
                 admitted.append((slot, seq_id))
                 slots_out.append(slot)
                 n_fresh = len(token_ids) - cached
-                if n_fresh > max_bucket:
+                if n_fresh > max_bucket or (self.cfg.kv_seq_sharded and cached > 0):
+                    # the chunked path, per request. Block-sharded pools
+                    # also send CACHED prompts there: a batched prefill
+                    # attends over its own chunk only, which cannot see a
+                    # cached prefix, and the chunked path reads it through
+                    # the partial-softmax chunk op
                     self._submit_allocated(request, slot, seq_id, token_ids, cached)
                     continue
                 bucket = self._bucket_len(max(n_fresh, 1))
@@ -1324,6 +1434,10 @@ class TorchEngine:
         max_bucket = self.cfg.prefill_buckets[-1]
         off = cached
         mode = "greedy" if request.sampling.temperature <= 0 else "mixed"
+        if self.seq > 1 and cached == 0 and len(fresh) > max_bucket:
+            # one seq-parallel pass over the whole prompt
+            self._record_token(slot, self._prefill_seq_parallel(slot, fresh, mode))
+            return slot
         while True:
             piece = fresh[: max_bucket]
             fresh = fresh[max_bucket:]
@@ -1334,6 +1448,35 @@ class TorchEngine:
                 break
         self._record_token(slot, int(first))
         return slot
+
+    def _prefill_seq_parallel(self, slot: int, fresh: List[int], mode: str) -> int:
+        """Whole-prompt seq-parallel prefill (JAX
+        ``TPUEngine._prefill_seq_parallel``): every rank runs its 1/n of the
+        rows, attention ring or Ulysses over the ranks, and the pages land
+        in the pools decode reads (``runtime/tp.py`` :func:`seq_prefill`).
+        The prompt is padded to a multiple of n x max(block, 16). → the
+        first token."""
+        n = len(fresh)
+        step = self.seq * max(self.cfg.block_size, 16)
+        padded = -(-n // step) * step
+        toks_pos = np.zeros((2, 1, padded), np.int32)
+        toks_pos[1] = -1
+        toks_pos[0, 0, :n] = fresh
+        toks_pos[1, 0, :n] = np.arange(n)
+        table = self._block_tables[slot: slot + 1].copy()
+        t0 = time.perf_counter()
+        with self._device_work():
+            self._ranks.send("seq_prefill", toks_pos=toks_pos, table=table, n=n)
+            logits = seq_prefill(self.model_cfg, self.params, self.kv, self._seq, toks_pos,
+                                 table, n, with_logits=True)
+            first = int(self._sample(logits, [slot], np.asarray([n], np.int32), mode)[0])
+        # keys of their own only once used, as in the JAX engine
+        self.stats["seq_parallel_prefill_s"] = (
+            self.stats.get("seq_parallel_prefill_s", 0.0) + time.perf_counter() - t0)
+        self.stats["seq_parallel_prefills"] = self.stats.get("seq_parallel_prefills", 0) + 1
+        self.stats["prefill_tokens"] += n
+        self.stats["prefill_calls"] += 1
+        return first
 
     def _prefill_one_chunk(self, slot: int, piece: List[int], off: int,
                            is_last: bool, mode: str) -> Optional[int]:
@@ -1454,7 +1597,10 @@ class TorchEngine:
 
     @property
     def supports_ragged(self) -> bool:
-        return True
+        """False for block-sharded pools, as in the JAX engine: the batcher
+        keeps its split admission there (a ragged round still serves when
+        called, its rows read through the chunk op)."""
+        return not self.cfg.kv_seq_sharded
 
     def ragged_round(
         self, admissions: Sequence[ChunkedAdmission] = (),
@@ -1699,15 +1845,16 @@ class TorchEngine:
         advances; a row is done once it emits a stop id or its budget. One
         host read at the end → emitted [B, T] (-1 = masked-out step). Steps
         past the largest budget would be all-masked, so the loop stops
-        there. Under tensor parallelism every rank runs the same steps and
-        this engine samples each step's tokens for all of them."""
+        there. Under tensor parallelism and on block-sharded pools every
+        rank runs the same steps and this engine samples each step's tokens
+        for all of them."""
         b = len(self.slots)
         steps = int(min(num_steps, int(budgets.max(initial=0))))
         emitted = np.full((b, num_steps), -1, np.int32)
         if steps <= 0:
             return emitted
         with self._device_work():
-            if self._ranks is not None:
+            if self._mirrored:
                 self._ranks.send("decode", last=self._last_tokens, lens=self._kv_lens,
                                  active=active_mask, budgets=budgets.astype(np.int32),
                                  stops=self._stop_ids, tables=self._block_tables,
@@ -1718,7 +1865,8 @@ class TorchEngine:
                 self._tensor(~active_mask), self._tensor(budgets.astype(np.int32)),
                 self._tensor(self._stop_ids), self._tensor(self._block_tables), steps,
                 lambda logits, cur: self._sample(logits, range(b), cur, mode),
-                self._tp_group,
+                self._tp_group if self.tp > 1 else None,
+                self._seq if self.cfg.kv_seq_sharded else None,
             )
             emitted[:, :steps] = cols.cpu().numpy()
         return emitted
@@ -2480,8 +2628,9 @@ class TorchEngine:
         out["kv_cache"] = self.manager.get_stats()
         out["active_slots"] = self.num_active
         if self._tp_group is not None:
-            out["tp"] = {"size": self.tp, "backend": self._tp_group.backend,
-                         **self._tp_group.stats}
+            out["tp" if self.tp > 1 else "seq"] = {
+                "size": max(self.tp, self.seq), "backend": self._tp_group.backend,
+                **self._tp_group.stats}
         if self.cfg.speculative is not None:
             drafted = out.get("spec_drafted", 0)
             slot_steps = out.get("spec_slot_steps", 0)

@@ -1,4 +1,4 @@
-"""Tensor-parallel ranks of a :class:`runtime.engine.TorchEngine`.
+"""Tensor- and sequence-parallel ranks of a :class:`runtime.engine.TorchEngine`.
 
 The JAX engine takes a ``model``-axis mesh and XLA partitions every step.
 The port runs one process per rank: rank 0 is the engine the batcher and
@@ -13,6 +13,21 @@ block tables, lengths, budgets) — and the ranks run the same
 (``parallel/mesh.py`` ``TPGroup``). In a decode loop rank 0 alone samples
 and broadcasts each step's tokens (B int32); no other rank computes
 logits.
+
+The ``seq`` axis (``MeshPlan(seq=n)``) uses the same ranks and pipes
+with the params replicated. With replicated pools (JAX's default under a
+seq mesh) rank 0 holds every page and runs every op alone, and the other
+ranks join only the seq-parallel prefill of a long prompt
+(:func:`seq_prefill`): each rank runs its S/n rows through every layer,
+attention goes ring or Ulysses over the group, and the K/V rows of every
+rank are gathered and written into rank 0's pages. With block-sharded
+pools (``EngineConfig.kv_seq_sharded``) rank r holds the global blocks
+``[r·N/n, (r+1)·N/n)`` and every rank runs every op: page writes land on
+the rank that holds the block, and reads are the partial-softmax ops of
+``parallel/ring_attention.py`` (:class:`SeqRank` builds the hooks). Page
+transfers (:func:`gather_blocks`, :func:`write_blocks`) move each rank's
+heads or blocks of a page through the group, so KV handoff, PD and the
+spill tiers see the single-device page layout on either axis.
 
 Failures: a rank that raises sends its traceback up its pipe and exits,
 which breaks the group's collectives on rank 0 (or its timeout does);
@@ -29,14 +44,17 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from distributed_gpu_inference_torch.models import llama
 from distributed_gpu_inference_torch.ops import paged_attention
-from distributed_gpu_inference_torch.parallel.mesh import TPGroup
+from distributed_gpu_inference_torch.ops.attention import dense_causal_attention
+from distributed_gpu_inference_torch.parallel import ring_attention
+from distributed_gpu_inference_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ, TPGroup
+from distributed_gpu_inference_torch.parallel.sharding import block_range
 
 #: the ops whose result a rank sends back
 _QUERIES = ("counts", "pools", "stats", "memory")
@@ -68,6 +86,186 @@ class RankSpec:
     seed: int
     checkpoint_path: Optional[str]
     num_threads: int
+    axis: str = AXIS_MODEL
+
+
+def attention_kind(positions: np.ndarray, lens: np.ndarray) -> str:
+    """The read a forward over block-sharded pools takes, from its host
+    arrays ``positions`` [B, S] (-1 = pad) and ``lens`` [B]: "dense" when
+    every row's chunk is its whole context (its first live position 0 and
+    its length its live count; rows with none aside), "chunk" otherwise."""
+    live = positions >= 0
+    count = live.sum(axis=1)
+    first = np.where(live, positions, np.iinfo(np.int32).max).min(axis=1)
+    rows = count > 0
+    whole = (first[rows] == 0) & (np.asarray(lens)[rows] == count[rows])
+    return "dense" if bool(whole.all()) else "chunk"
+
+
+@dataclass
+class SeqRank:
+    """A rank of the ``seq`` axis: its group and the global blocks
+    ``[lo, hi)`` its pools hold (None: every block, rank 0 of replicated
+    pools). ``hooks`` are the ``forward_chunk`` keyword arguments of one
+    forward: ``kind`` "dense" attends over the chunk itself (a fresh
+    prompt), "chunk" and "decode" read the block-sharded pools through the
+    partial-softmax ops, bound to the call's ``tables``, ``positions`` and
+    ``kv_lens``."""
+
+    group: TPGroup
+    pool_blocks: Optional[Tuple[int, int]]
+    block_size: int
+    impl: str = "ring"
+
+    def hooks(self, kind: str, tables: torch.Tensor, positions: torch.Tensor,
+              kv_lens: torch.Tensor) -> Dict[str, Any]:
+        kw: Dict[str, Any] = {"pool_blocks": self.pool_blocks}
+        group, bs = self.group, self.block_size
+        reads = {"chunk": ring_attention.seq_parallel_paged_chunk_attention,
+                 "decode": ring_attention.seq_parallel_paged_decode_attention}
+        if kind == "dense":
+            kw["dense_attn_fn"] = lambda q, k, v: dense_causal_attention(q, k, v, kv_lens)
+        elif kind in reads:
+            op = reads[kind]
+            kw["attn_fn"] = lambda q, lk, lv, ks, vs: op(
+                q, lk, lv, tables, positions, kv_lens, group, bs, k_scale=ks, v_scale=vs)
+        else:
+            raise ValueError(f"unknown attention kind {kind!r}")
+        return kw
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` [B, S/n, ...] in rank order → [B, S, ...]."""
+        return torch.cat(self.group.all_gather(x).unbind(0), dim=1)
+
+
+def seq_prefill(model_cfg: Any, params: Any, kv: Dict[str, torch.Tensor], seq: SeqRank,
+                toks_pos: np.ndarray, table: np.ndarray, n_tokens: int,
+                with_logits: bool) -> Optional[torch.Tensor]:
+    """One rank's part of the seq-parallel prefill of one fresh prompt
+    (JAX ``TPUEngine._prefill_seq_parallel``): ``toks_pos`` [2, 1, P] the
+    whole prompt's tokens and positions padded to P (a multiple of the
+    rank count, position -1 past ``n_tokens``); rank r runs rows [r·P/n,
+    (r+1)·P/n) through every layer, attention ring or Ulysses over the
+    group, and the K/V rows of every rank are gathered before the page
+    writes, so each rank writes every page it holds. → the last prompt
+    token's logits [1, V] (``with_logits``), its hidden row broadcast from
+    the rank that computed it; None otherwise."""
+    device = seq.group.device
+    n = seq.group.size
+    per = toks_pos.shape[-1] // n
+    rows = slice(seq.group.rank * per, (seq.group.rank + 1) * per)
+    lens = torch.tensor([n_tokens], dtype=torch.int32, device=device)
+    attend = (ring_attention.ring_self_attention if seq.impl == "ring"
+              else ring_attention.ulysses_self_attention)
+    out = llama.forward_chunk(
+        model_cfg, params, torch.tensor(toks_pos[0][:, rows], device=device),
+        torch.tensor(toks_pos[1][:, rows], device=device), kv,
+        torch.tensor(table, device=device), lens, block_size=seq.block_size,
+        with_logits=False, pool_blocks=seq.pool_blocks, gather_rows=seq.gather_seq,
+        write_positions=torch.tensor(toks_pos[1], device=device),
+        dense_attn_fn=lambda q, k, v: attend(q, k, v, lens, seq.group))
+    owner, row = divmod(n_tokens - 1, per)
+    last = (out.hidden[:, row:row + 1].contiguous() if seq.group.rank == owner
+            else torch.empty((1, 1, out.hidden.shape[-1]), dtype=out.hidden.dtype,
+                             device=device))
+    seq.group.broadcast(last, src=owner)
+    if not with_logits:
+        return None
+    return llama.project_logits(model_cfg, params, last)[:, 0, :]
+
+
+def local_pages(kv: Dict[str, torch.Tensor], bids: torch.Tensor,
+                pool_blocks: Optional[Tuple[int, int]]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pages ``bids`` (global ids, long) of this rank's pools in the port's
+    page layout: ([n, L, 2, Hkv_rank, Bk, D], int8 scales [n, L, 2, Bk] or
+    None). A page whose block this rank does not hold is zeros."""
+    idx, held = bids, None
+    if pool_blocks is not None:
+        lo, hi = pool_blocks
+        held = (bids >= lo) & (bids < hi)
+        idx = torch.where(held, bids - lo, torch.zeros_like(bids))
+
+    def take(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        out = torch.stack((a.index_select(1, idx), b.index_select(1, idx)), dim=2)
+        out = out.movedim(1, 0).contiguous()
+        if held is not None:
+            out[~held] = 0
+        return out
+
+    scales = take(kv["k_scale"], kv["v_scale"]) if "k_scale" in kv else None
+    return take(kv["k"], kv["v"]), scales
+
+
+def gather_blocks(kv: Dict[str, torch.Tensor], bids: torch.Tensor, group: TPGroup,
+                  axis: str, pool_blocks: Optional[Tuple[int, int]]
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Whole pages ``bids`` on every rank, in the single-device page layout
+    ([n, L, 2, Hkv, Bk, D] and int8 scales [n, L, 2, Bk]): under ``model``
+    each rank's KV heads gathered side by side (scales are replicated);
+    under ``seq`` each page taken from the rank that holds its block.
+    Every rank of the group calls it with the same ``bids``."""
+    pages, scales = local_pages(kv, bids, pool_blocks)
+    if axis == AXIS_MODEL:
+        g = group.all_gather(pages)                     # [tp, n, L, 2, h, Bk, D]
+        tp, n, L, two, h, bk, d = g.shape
+        return g.permute(1, 2, 3, 0, 4, 5, 6).reshape(n, L, two, tp * h, bk, d), scales
+    per = pool_blocks[1] - pool_blocks[0]
+    owner = torch.div(bids, per, rounding_mode="floor")
+    rows = torch.arange(len(bids), device=bids.device)
+    pages = group.all_gather(pages)[owner, rows]
+    if scales is not None:
+        scales = group.all_gather(scales)[owner, rows]
+    return pages, scales
+
+
+def write_blocks(kv: Dict[str, torch.Tensor], bids: torch.Tensor, pages: torch.Tensor,
+                 scales: Optional[torch.Tensor], rank: int, axis: str,
+                 pool_blocks: Optional[Tuple[int, int]]) -> None:
+    """Write whole pages (the single-device layout) into blocks ``bids`` of
+    this rank's pools: under ``model`` its KV heads of each page (scales
+    whole), under ``seq`` the pages whose blocks it holds."""
+    if axis == AXIS_MODEL:
+        h = kv["k"].shape[2]
+        pages = pages[:, :, :, rank * h:(rank + 1) * h]
+    idx = bids
+    if pool_blocks is not None:
+        lo, hi = pool_blocks
+        held = (bids >= lo) & (bids < hi)
+        idx = bids[held] - lo
+        pages = pages[held]
+        scales = None if scales is None else scales[held]
+    kv["k"].index_copy_(1, idx, pages[:, :, 0].movedim(0, 1))
+    kv["v"].index_copy_(1, idx, pages[:, :, 1].movedim(0, 1))
+    if scales is not None:
+        kv["k_scale"].index_copy_(1, idx, scales[:, :, 0].movedim(0, 1))
+        kv["v_scale"].index_copy_(1, idx, scales[:, :, 1].movedim(0, 1))
+
+
+def page_bytes(model_cfg: Any, kv: Dict[str, torch.Tensor], block_size: int
+               ) -> Tuple[Tuple[int, ...], int, Optional[Tuple[int, ...]], int]:
+    """The single-device page layout whatever this rank holds: (page shape
+    [L, 2, Hkv, Bk, D], its bytes, scale shape [L, 2, Bk] or None, its
+    bytes)."""
+    k = kv["k"]
+    shape = (k.shape[0], 2, model_cfg.num_kv_heads, block_size, k.shape[-1])
+    pbytes = int(np.prod(shape)) * k.element_size()
+    if "k_scale" not in kv:
+        return shape, pbytes, None, 0
+    sshape = (k.shape[0], 2, block_size)
+    return shape, pbytes, sshape, int(np.prod(sshape)) * kv["k_scale"].element_size()
+
+
+def unpack_pages(buf: torch.Tensor, kv: Dict[str, torch.Tensor], layout: tuple
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A staging buffer [n, page bytes + scale bytes] (uint8) → (pages,
+    scales) in the single-device layout."""
+    shape, pbytes, sshape, _ = layout
+    n = buf.shape[0]
+    pages = buf[:, :pbytes].contiguous().view(kv["k"].dtype).reshape(n, *shape)
+    scales = (None if sshape is None else
+              buf[:, pbytes:].contiguous().view(torch.bfloat16).reshape(n, *sshape))
+    return pages, scales
 
 
 def decode_steps(model_cfg: Any, params: Any, kv: Dict[str, torch.Tensor], block_size: int,
@@ -75,29 +273,32 @@ def decode_steps(model_cfg: Any, params: Any, kv: Dict[str, torch.Tensor], block
                  budgets: torch.Tensor, stops: torch.Tensor, tables: torch.Tensor,
                  steps: int, sample: Optional[Callable[[torch.Tensor, torch.Tensor],
                                                        torch.Tensor]],
-                 tp: Optional[TPGroup] = None) -> torch.Tensor:
+                 tp: Optional[TPGroup] = None, seq: Optional[SeqRank] = None) -> torch.Tensor:
     """``steps`` decode steps with the per-slot state on the device: each
     not-done row feeds its pending token at position ``lens`` (writing its
     KV) and advances; a row is done once it emits a stop id or its budget.
     → emitted ``[B, steps]`` on the device (-1 = masked-out step).
 
     ``sample(logits, cur)`` picks each step's tokens on the rank that
-    samples; a rank without it (``sample`` None, tensor-parallel ranks
-    1..tp-1) computes no logits and receives the tokens from rank 0."""
+    samples; a rank without it (``sample`` None, ranks 1..n-1) computes no
+    logits and receives the tokens from rank 0. ``seq``: a rank of
+    block-sharded pools, reading through the partial-softmax decode op."""
     n_emit = torch.zeros_like(lens)
     cols = []
+    group = tp if seq is None else seq.group
     for _ in range(steps):
         cur = (lens + 1).masked_fill(done, 0)
         positions = lens[:, None].masked_fill(done[:, None], -1)
+        hooks = {} if seq is None else seq.hooks("decode", tables, positions, cur)
         out = llama.forward_chunk(model_cfg, params, last[:, None], positions, kv, tables,
                                   cur, block_size=block_size, last_only=True,
-                                  with_logits=sample is not None, tp=tp)
+                                  with_logits=sample is not None, tp=tp, **hooks)
         if sample is not None:
             toks = sample(out.logits[:, 0, :], cur).to(torch.int32)
         else:
             toks = torch.empty(lens.shape, dtype=torch.int32, device=lens.device)
-        if tp is not None:
-            tp.broadcast(toks, src=0)
+        if group is not None:
+            group.broadcast(toks, src=0)
         hit_stop = (toks[:, None] == stops).any(dim=1)
         cols.append(toks.masked_fill(done, -1))
         n_emit = n_emit + (~done).to(n_emit.dtype)
@@ -121,16 +322,29 @@ class _RankHalf:
         self.rank, self.spec, self.group = rank, spec, group
         self.device = group.device
         cfg = spec.engine_cfg
-        tp = group.size
+        n = group.size
+        seq_axis = spec.axis == AXIS_SEQ
         if params is not None:
             params = tree_to(params, self.device)
         else:
             params = engine_params(spec.model_cfg, cfg, spec.checkpoint_path, spec.seed,
-                                   self.device, shard=(rank, tp))
+                                   self.device, shard=None if seq_axis else (rank, n))
         self.params = params
         kv_dtype = _resolve_kv_dtype(cfg.kv_cache_dtype, llama.torch_dtype(cfg.dtype))
-        self.kv = llama.init_kv_pools(spec.model_cfg, cfg.resolved_num_blocks(),
-                                      cfg.block_size, kv_dtype, self.device, tp=tp)
+        self.tp: Optional[TPGroup] = None if seq_axis else group
+        self.seq: Optional[SeqRank] = None
+        self.pool_blocks: Optional[Tuple[int, int]] = None
+        num_blocks = cfg.resolved_num_blocks()
+        if seq_axis:
+            # block-sharded: this rank's range; replicated: rank 0 holds
+            # every page, so this rank holds none
+            self.pool_blocks = (block_range(num_blocks, rank, n) if cfg.kv_seq_sharded
+                                else (0, 0))
+            num_blocks = self.pool_blocks[1] - self.pool_blocks[0]
+            self.seq = SeqRank(group, self.pool_blocks, cfg.block_size,
+                               cfg.seq_parallel_impl)
+        self.kv = llama.init_kv_pools(spec.model_cfg, num_blocks, cfg.block_size, kv_dtype,
+                                      self.device, tp=1 if seq_axis else n)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)
@@ -138,21 +352,37 @@ class _RankHalf:
     def run(self, op: str, kw: Dict[str, Any]) -> Any:
         cfg = self.spec.engine_cfg
         if op == "forward":
+            positions, tables, lens = (self._t(kw["toks_pos"][1]), self._t(kw["tables"]),
+                                       self._t(kw["lens"]))
+            hooks = ({} if self.seq is None else self.seq.hooks(
+                attention_kind(kw["toks_pos"][1], kw["lens"]), tables, positions, lens))
             llama.forward_chunk(
-                self.spec.model_cfg, self.params, self._t(kw["toks_pos"][0]),
-                self._t(kw["toks_pos"][1]), self.kv, self._t(kw["tables"]),
-                self._t(kw["lens"]), block_size=cfg.block_size, with_logits=False,
-                allow_fused=kw["allow_fused"], tp=self.group)
+                self.spec.model_cfg, self.params, self._t(kw["toks_pos"][0]), positions,
+                self.kv, tables, lens, block_size=cfg.block_size, with_logits=False,
+                allow_fused=kw["allow_fused"], tp=self.tp, **hooks)
         elif op == "decode":
             decode_steps(
                 self.spec.model_cfg, self.params, self.kv, cfg.block_size,
                 self._t(kw["last"]), self._t(kw["lens"]), self._t(~kw["active"]),
                 self._t(kw["budgets"]), self._t(kw["stops"]), self._t(kw["tables"]),
-                kw["steps"], None, self.group)
+                kw["steps"], None, self.tp, self.seq)
+        elif op == "seq_prefill":
+            seq_prefill(self.spec.model_cfg, self.params, self.kv, self.seq, kw["toks_pos"],
+                        kw["table"], kw["n"], with_logits=False)
         elif op == "copy":
-            src, dst = self._t(kw["src"]).long(), self._t(kw["dst"]).long()
-            for pool in self.kv.values():
-                pool[:, dst] = pool[:, src]
+            copy_blocks(self.kv, self._t(kw["src"]).long(), self._t(kw["dst"]).long(),
+                        self.group, self.spec.axis, self.pool_blocks)
+        elif op == "gather":
+            gather_blocks(self.kv, self._t(kw["bids"]).long(), self.group, self.spec.axis,
+                          self.pool_blocks)
+        elif op == "push":
+            layout = page_bytes(self.spec.model_cfg, self.kv, cfg.block_size)
+            buf = torch.empty((len(kw["bids"]), layout[1] + layout[3]), dtype=torch.uint8,
+                              device=self.device)
+            self.group.broadcast(buf, src=0)
+            pages, scales = unpack_pages(buf, self.kv, layout)
+            write_blocks(self.kv, self._t(kw["bids"]).long(), pages, scales, self.rank,
+                         self.spec.axis, self.pool_blocks)
         elif op == "counts":
             return paged_attention.launch_counts()
         elif op == "reset_counts":
@@ -164,10 +394,7 @@ class _RankHalf:
         elif op == "stats":
             return dict(self.group.stats)
         elif op == "memory":
-            if self.device.type != "cuda":
-                return {}
-            return {"allocated": torch.cuda.memory_allocated(self.device),
-                    "peak": torch.cuda.max_memory_allocated(self.device)}
+            return device_memory(self.device, self.kv)
         elif op == "reset_stats":
             self.group.reset_stats()
         elif op == "raise":
@@ -175,6 +402,30 @@ class _RankHalf:
         else:
             raise ValueError(f"unknown rank op {op!r}")
         return None
+
+
+def copy_blocks(kv: Dict[str, torch.Tensor], src: torch.Tensor, dst: torch.Tensor,
+                group: Optional[TPGroup], axis: str,
+                pool_blocks: Optional[Tuple[int, int]]) -> None:
+    """The copy-on-write page copies ``src`` → ``dst`` (global ids) on one
+    rank: in place where the rank holds both (one device, the ``model``
+    axis: every rank its own heads); across ranks for block-sharded pools,
+    whose source and destination blocks may sit on different ranks."""
+    if axis == AXIS_SEQ and pool_blocks is not None:
+        pages, scales = gather_blocks(kv, src, group, axis, pool_blocks)
+        write_blocks(kv, dst, pages, scales, group.rank, axis, pool_blocks)
+        return
+    for pool in kv.values():
+        pool[:, dst] = pool[:, src]
+
+
+def device_memory(device: torch.device, kv: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """A rank's pool bytes, and on a card its allocated and peak bytes."""
+    out = {"pool_bytes": sum(t.numel() * t.element_size() for t in kv.values())}
+    if device.type == "cuda":
+        out.update(allocated=torch.cuda.memory_allocated(device),
+                   peak=torch.cuda.max_memory_allocated(device))
+    return out
 
 
 def tree_to(tree: Any, device: Any) -> Any:
@@ -343,6 +594,61 @@ class TPRanks:
 def _last_line(detail: Optional[str]) -> str:
     lines = [ln for ln in (detail or "").strip().splitlines() if ln.strip()]
     return lines[-1].strip() if lines else "no detail"
+
+
+def _group_main(rank: int, devices: List[str], store_path: str, timeout_s: float,
+                fn: Callable[..., Any], args: tuple, conn: Any) -> None:
+    group = None
+    try:
+        group = TPGroup(rank, devices, store_path, timeout_s)
+        conn.send(("ok", fn(group, *args)))
+    except BaseException:   # noqa: BLE001 — reported to the caller
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        if group is not None:
+            group.close()
+        conn.close()
+
+
+def run_group(fn: Callable[..., Any], devices: Sequence[Any], *args: Any,
+              timeout_s: Optional[float] = None) -> List[Any]:
+    """Run ``fn(group, *args)`` on one spawned process per device, the
+    processes joined in one :class:`TPGroup` → each rank's result, rank 0's
+    first. ``fn`` must be a module-level function and return host data
+    (numpy arrays, CPU tensors, numbers); a rank that raises fails the call
+    with its traceback's last line, and every process is stopped."""
+    timeout_s = TIMEOUT_S if timeout_s is None else timeout_s
+    ctx = multiprocessing.get_context("spawn")
+    store = rendezvous_path()
+    procs, conns = [], []
+    try:
+        for r in range(len(devices)):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_group_main, daemon=True, name=f"group-rank-{r}",
+                            args=(r, [str(d) for d in devices], store, timeout_s, fn,
+                                  args, child))
+            p.start()
+            child.close()
+            procs.append(p)
+            conns.append(parent)
+        out = []
+        for r, conn in enumerate(conns):
+            if not conn.poll(timeout_s + 60.0):
+                raise RankFailed(r, f"no answer in {timeout_s + 60.0:.0f} s")
+            kind, result = conn.recv()
+            if kind == "error":
+                raise RankFailed(r, _last_line(result))
+            out.append(result)
+        return out
+    finally:
+        for p in procs:
+            p.join(5.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(5.0)
+        for conn in conns:
+            conn.close()
+        shutil.rmtree(os.path.dirname(store), ignore_errors=True)
 
 
 def rendezvous_path() -> str:

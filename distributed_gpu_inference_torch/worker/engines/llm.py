@@ -61,9 +61,11 @@ Speculative decoding, in either of the JAX engine's two modes:
 
 The two are mutually exclusive. ``load_model`` refuses, with
 :class:`EngineLoadError` naming the key, what this port does not serve
-rather than ignoring it: tensor parallelism, and a ``serving.mode`` other
-than ``batcher`` or ``direct``. ``spec_distill_steps`` > 0 with ``speculative_decode``
-distils the draft head against the target at load, before the batcher
+rather than ignoring it: a ``serving.mode`` other than ``batcher`` or
+``direct``, and under ``tp_size`` > 1 speculative decoding and
+``kv_migrate`` (PD roles, KV handoff and the spill tiers serve there: the
+engine gathers and scatters each rank's heads of a page).
+``spec_distill_steps`` > 0 with ``speculative_decode`` distils the draft head against the target at load, before the batcher
 starts (``TorchEngine.distill_draft``); the per-step losses are kept in
 ``distill_losses``.
 
@@ -568,10 +570,10 @@ class TorchLLMEngine(LLMBaseEngine):
 
             have = torch.cuda.device_count() if torch.cuda.is_available() else 0
             raise EngineLoadError(f"tp_size={tp} but only {have} local devices")
-        for key in ("speculative_decode", "kv_spill_host_blocks", "kv_remote_url"):
-            if self.config.get(key):
-                raise EngineLoadError(
-                    f"{key} is not supported under tensor parallelism (tp_size={tp})")
+        if self.config.get("speculative_decode"):
+            raise EngineLoadError(
+                f"speculative_decode is not supported under tensor parallelism "
+                f"(tp_size={tp}): speculative decoding is single-chip")
         if self.config.get("engine") in ("jax-speculative", "speculative"):
             raise EngineLoadError(
                 f"engine={self.config['engine']} is not supported under tensor "
@@ -579,8 +581,9 @@ class TorchLLMEngine(LLMBaseEngine):
         if self.config.get("kv_migrate"):
             raise EngineLoadError(
                 f"kv_migrate is not supported under tensor parallelism (tp_size={tp}): "
-                "no rank holds a whole page")
-        # KV migration moves whole pages: off unless asked for (refused above)
+                "a device-side migration joins two engines whose ranks are "
+                "different processes")
+        # off unless asked for (refused above)
         self.kv_migrate_enabled = False
         return devices
 
@@ -1197,9 +1200,6 @@ class TorchLLMEngine(LLMBaseEngine):
         decode_url = params.get("decode_url")
         local = not decode_url or params.get("decode_worker") in (
             None, params.get("target_worker"))
-        if not local:
-            # refused before the prompt runs: the export reads whole pages
-            self.engine.refuse_under_tp("a KV handoff to another worker")
         cfg = GenerationConfig.from_params(params)
         req = self._pd_request(params, cfg)
         key = params.get("kv_cache_key") or f"pd-{req.request_id}"
@@ -1493,8 +1493,6 @@ class TorchLLMEngine(LLMBaseEngine):
         executor and index a bound slot by its kv_cache_key."""
         if not self.loaded or self.engine is None:
             raise EngineLoadError("engine not loaded")
-        # refused before the bytes are read: adopting them writes whole pages
-        self.engine.refuse_under_tp("a KV handoff from another worker")
         with self._engine_lock:
             if self._handoff_rx is None or self._handoff_rx.engine is not self.engine:
                 self._handoff_rx = HandoffReceiver(self.engine)

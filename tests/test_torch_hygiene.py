@@ -89,6 +89,30 @@ def test_pipeline_modules_import_nothing_of_jax():
     assert "def pipeline_phase(" in (ROOT / "chip_smoke.py").read_text()
 
 
+def test_seq_modules_import_nothing_of_jax():
+    # ring and Ulysses attention, the partial-softmax reads, the group's
+    # collectives, the block sharding and the ranks carry no JAX and no
+    # module of the JAX package; chip_smoke.py's phase 24 drives them
+    seq = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
+        "parallel/ring_attention.py", "parallel/mesh.py", "parallel/sharding.py",
+        "runtime/tp.py", "runtime/engine.py")]
+    assert set(seq) <= set(_port_files())
+    for f in seq + [ROOT / "chip_smoke.py"]:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    assert "def seq_phase(" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_a_seq_engine_runs_on_the_card_unless_asked(monkeypatch):
+    # ranks on the default device need CUDA, and a seq axis needs its ranks
+    from distributed_gpu_inference_torch.parallel.mesh import MeshPlan
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchEngine("llama3-tiny", rank_devices=["cuda", "cuda"], mesh=MeshPlan(seq=2))
+    with pytest.raises(ValueError, match="seq axis of 2 needs 2 rank devices"):
+        TorchEngine("llama3-tiny", device="cpu", mesh=MeshPlan(seq=2))
+
+
 def test_a_pd_data_plane_loads_no_stage_and_no_model():
     # a PD-only user of the data plane reads its KV routes without the
     # stage worker, the model or the tensor message (each loaded on a

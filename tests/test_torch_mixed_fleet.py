@@ -91,7 +91,12 @@ def mixed():
         # every (re)start of the JAX member builds its engine on the weights
         mp.setattr(jllm, "TPUEngine", f32_engine)
         mp.setattr(jdirect.DirectServer, "stop", patient_stop)
-        with port_fleet(n=2, member_factory=member) as fl:
+        # a member is declared dead after 3 s without a heartbeat (the
+        # harness's 0.9 s is under five of its 0.2 s beats): beside other
+        # test processes a live member's heartbeat thread can stall past
+        # 0.9 s, and the plane then requeues the jobs it is running, so the
+        # victim never holds one until its kill
+        with port_fleet(n=2, member_factory=member, heartbeat_timeout_s=3.0) as fl:
             yield fl
 
 
@@ -129,17 +134,36 @@ def _kill_while_busy(mixed, victim, seed):
                    if (mixed.plane.job(r["id"]).get("checkpoint") or {}).get("generated")]
         return bool(held)
 
+    llm = mixed.members[victim].llm
+
+    def generating():
+        # the victim's running jobs that have generated tokens: the next
+        # heartbeat carries their checkpoints (``checkpoint_live``)
+        live = {e["key"] for e in llm.checkpoint_live()
+                if e["kind"] == "job" and e["state"].get("generated")}
+        rows = mixed.plane.query(
+            "SELECT id FROM jobs WHERE status='running' AND worker_id=?", (vid,))
+        return [r["id"] for r in rows if r["id"] in live]
+
     # a round of the victim that starts while it holds a checkpointed job
     # waits at a gate, so under any load that job is still running when the
     # kill lands; the gate opens once the plane gave the jobs to the other
     # member (the dying incarnation's round then runs out, and its late
-    # completion is fenced)
+    # completion is fenced). Job checkpoints reach the plane on the
+    # heartbeat, not with the round: a round that starts while a job has
+    # generated tokens the plane has not seen yet first waits for the
+    # heartbeat that carries them, or a job that finishes within a few
+    # rounds under CPU contention is never held
     gate = threading.Event()
-    eng = mixed.members[victim].llm.engine
+    eng = llm.engine
     for name in ("ragged_round", "decode_multi"):
         def gated(*a, _real=getattr(eng, name), **kw):
-            if not gate.is_set() and holding():
-                gate.wait(timeout=120.0)
+            if not gate.is_set():
+                deadline = time.time() + 30.0
+                while not holding() and generating() and time.time() < deadline:
+                    time.sleep(0.02)
+                if held:
+                    gate.wait(timeout=120.0)
             return _real(*a, **kw)
 
         setattr(eng, name, gated)

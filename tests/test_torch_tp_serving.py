@@ -3,7 +3,9 @@ gloo rank: (v) a rank that raises, or dies, fails rank 0's call with
 ``EngineStateLost`` naming the rank, with no hang; (vi) each refusal by
 name, at the engine and at the worker; (vii) ``TorchLLMEngine`` with
 ``tp_size: 2, device: cpu`` serves in batcher and in direct mode as the
-one-rank engine does. Every group has a short timeout."""
+one-rank engine does, and hands KV to another worker. Every group has a
+short timeout. The page transfers themselves (handoff, PD, the spill
+tiers) are in ``test_torch_tp_handoff.py``."""
 
 import dataclasses
 
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer  # noqa: E402
 from distributed_gpu_inference_torch.comm.stage_worker import PipelineStageWorker  # noqa: E402
 from distributed_gpu_inference_torch.models.configs import (  # noqa: E402
     get_model_config as tget,
@@ -110,9 +113,6 @@ def test_refusals_by_name(weights):
     with pytest.raises(ValueError, match="speculative decode mode is single-chip"):
         tengine.TorchEngine(MODEL, tengine.EngineConfig(
             **GEOM, speculative=SpecDecodeConfig(num_draft_tokens=2)), rank_devices=CPU2)
-    with pytest.raises(ValueError, match="spill tiers"):
-        tengine.TorchEngine(MODEL, tengine.EngineConfig(**GEOM, spill_host_blocks=8),
-                            rank_devices=CPU2)
     # a pipeline stage takes whole layers, not a rank's shard
     with pytest.raises(ValueError, match="tensor-parallel rank's shard"):
         PipelineStageWorker(MODEL, (0, 2), params=params_from_numpy(
@@ -123,11 +123,10 @@ def test_refusals_by_name(weights):
                                 params=params_from_numpy(weights[1], "cpu"), device="cpu")
     try:
         slot = eng.submit(_req(tds, PROMPTS[1], 4))
-        for call in (lambda: eng.gather_pages([1]),
-                     lambda: eng.push_pages([1], [], []),
-                     lambda: migrate_kv_device(eng, other, slot)):
-            with pytest.raises(NotImplementedError, match="tensor parallelism"):
-                call()
+        # a device-side move between two engines: their ranks are different
+        # processes (the page gather and push themselves serve at tp 2)
+        with pytest.raises(NotImplementedError, match="on a mesh"):
+            migrate_kv_device(eng, other, slot)
     finally:
         eng.shutdown()
 
@@ -137,8 +136,6 @@ def test_refusals_by_name(weights):
     ({"tp_size": 4}, "num_kv_heads 2 not divisible by model axis 4"),
     ({"extra": {"tp_size": 2}, "speculative_decode": True}, "speculative_decode is not"),
     ({"tp_size": 2, "engine": "jax-speculative"}, "speculative decoding is single-chip"),
-    ({"tp_size": 2, "kv_spill_host_blocks": 16}, "kv_spill_host_blocks is not"),
-    ({"tp_size": 2, "kv_remote_url": "memory://"}, "kv_remote_url is not"),
     ({"tp_size": 2, "kv_migrate": True}, "kv_migrate is not"),
 ])
 def test_the_worker_refuses_by_name(config, match):
@@ -180,26 +177,39 @@ def test_llm_engine_serves_at_tp_size_2(weights, mode):
 
 
 def test_a_kv_handoff_between_workers_is_refused_before_any_device_work(weights):
-    llm = TorchLLMEngine({"model": MODEL, "device": "cpu", "dtype": "float32",
-                          "max_seq_len": 128, "prefill_buckets": [16, 32],
-                          "serving": {"mode": "direct"}, "extra": {"tp_size": 2},
-                          "params": params_from_numpy(weights[1], "cpu")})
-    llm.load_model()
+    """The name is the refusal this test once held; the handoff is served
+    now. At tp 2 a handoff to another worker streams (or sends one blob)
+    and the receiving worker adopts it, each end gathering or scattering
+    its ranks' heads of a page; what is still refused before any device
+    work is a malformed blob."""
+    def llm():
+        out = TorchLLMEngine({"model": MODEL, "device": "cpu", "dtype": "float32",
+                              "max_seq_len": 128, "prefill_buckets": [16, 32],
+                              "serving": {"mode": "direct"}, "extra": {"tp_size": 2},
+                              "params": params_from_numpy(weights[1], "cpu")})
+        out.load_model()
+        return out
+
+    src, dst = llm(), llm()
+    plane = DataPlaneServer(kv_receiver=dst.kv_receiver)
+    plane.start()
     try:
-        eng = llm.engine
-        before = eng.get_stats()["tp"]["all_reduce"]
-        remote = {"prompt": "hello there", "max_new_tokens": 4,
-                  "decode_url": "http://127.0.0.1:9", "decode_worker": "w2",
-                  "target_worker": "w1"}
+        job = {"prompt": "hello there", "max_new_tokens": 4, "ignore_eos": True}
+        want = src.inference(dict(job))["text"]
+        before = dst.engine.get_stats()["tp"]["broadcast"]
+        with pytest.raises(ValueError, match="malformed handoff frame"):
+            dst.kv_receiver(b"not a handoff")
+        assert dst.engine.get_stats()["tp"]["broadcast"] == before
+        assert dst.engine.num_active == 0
         for stream in (True, False):
-            with pytest.raises(NotImplementedError, match="KV handoff to another worker"):
-                llm.pd_prefill(dict(remote, pd_stream=stream))
-        # the refusal comes before the bytes are parsed
-        with pytest.raises(NotImplementedError, match="KV handoff from another worker"):
-            llm.kv_receiver(b"not a handoff")
-        assert eng.get_stats()["tp"]["all_reduce"] == before and eng.num_active == 0
-        # a handoff that stays on this worker moves no pages and is served
-        assert llm.pd_prefill(dict(remote, decode_worker="w1"))["local"]
-        assert eng.get_stats()["tp"]["all_reduce"] > before
+            key = f"w-{stream}"
+            out = src.pd_prefill(dict(job, decode_url=plane.url, decode_worker="w2",
+                                      target_worker="w1", kv_cache_key=key,
+                                      pd_stream=stream))
+            assert not out.get("local")
+            assert dst.pd_decode({"kv_cache_key": key})["text"] == want
+        assert dst.engine.get_stats()["tp"]["broadcast"] > before
     finally:
-        llm.unload()
+        plane.stop()
+        src.unload()
+        dst.unload()
