@@ -4,8 +4,9 @@
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --phase 24     # the build, then phase 24 alone
 
-``--phase`` takes the phases whose inputs are their own (17-19, 21-24;
-repeatable); the others run only in the whole script. A guard thread stops
+``--phase`` takes the phases whose inputs are their own (16-19, 21-25;
+repeatable; phase 16 alone loads phase 7's engine as its A); the others
+run only in the whole script. A guard thread stops
 the run (exit 3) if the host's available memory falls below
 HOST_FLOOR_GIB.
 
@@ -209,11 +210,11 @@ Prefill/decode disaggregation:
     prefill and decode). (b) A serves the 8 serving prompts itself (its
     hybrid run), then they go PD, streamed (pieces of 4 blocks) and
     one-shot: prefills one after another on A with no cached block, then
-    all 8 decode together on B; the one-shot streams and the streamed
-    ones past one chunk equal A's exactly (the same prefill arithmetic), a
-    streamed prompt within one chunk prefills as one single-row chunk,
-    so where it parts both runs' top-2 logits (the logits each committed
-    from) are printed with a re-score; pushes of prompts past one chunk
+    all 8 decode together on B; every PD stream equals A's exactly (the
+    same prefill arithmetic: a one-shot prefill of a prompt within one
+    chunk runs one row, as a streamed chunk does; where one parts, both
+    runs' top-2 logits are printed with a re-score, and the check fails
+    after the TTFT line); pushes of prompts past one chunk
     sent bytes before the first token. (c) ``migrate_kv_device`` A → B:
     pages and scales bit-identical, continued on B equal to A alone; a
     one-layer engine with another KV dtype, and one on the CPU, are
@@ -538,6 +539,38 @@ Sequence parallelism:
     phase's launches (every rank) are added to the kernels line's int8
     entries. (c)'s extra prompts and (d)'s requests take SEQ_SIDE_TOKENS
     greedy tokens.
+
+The whole deployment on the card's host:
+
+25. after phase 24, the card freed of earlier engines. The port's control
+    plane (``server/app.py``) runs as its own process, started through its
+    CLI with ``--port 0`` (the banner names the bound port), its sqlite DB
+    in a temp directory, a heartbeat timeout of DEPLOY_HB_TIMEOUT_S and a
+    background sweep every DEPLOY_SWEEP_S. Two workers start through
+    ``worker/cli.py`` ``cmd_start`` on threads, as phase 13's do (llama3-8b
+    at full width and depth, int8 weights, the default bf16 pool, the
+    direct server on port 0; each registers with a fingerprint of its own,
+    as two workers in one process share the machine's). The port's SDK
+    (``sdk/client.py``) submits 8 queued chats of 32 greedy tokens
+    (``create_job`` -> ``wait_for_job``), one ``/jobs/sync`` chat and one
+    ``stream_chat(use_direct=True)`` found through
+    ``/jobs/direct/nearest``: ids in vocabulary, text = decode(ids), usage
+    right. Then a 256-token job on worker A (B's polls held until A has
+    it): once a heartbeat checkpoint of 8 tokens stands on the plane, A is
+    hard-killed (its plane connections cut first, then its poll loop,
+    direct server and engine); the plane's own sweep requeues the job, and
+    B completes it with the checkpoint's tokens first. The store's rows
+    (read from the sqlite file): every job completed with one usage
+    record, the long job claimed twice (epoch 2), every other once. The
+    plane's records: a job's ``/api/v1/debug/requests/{id}/timeline`` has
+    the server's and the batcher's events; ``queue_stats`` and
+    ``/metrics`` (``inference_requests_total``) count the 10 jobs queued
+    and completed. Counters zeroed before the workers start and read after
+    B stops: all three kernels launched (added to the bf16 ragged, fused
+    decode and int8 qmm entries of the kernels line). Information, with
+    the card's name and power limit: job latency from queue to completion
+    p50 / p95, the heartbeat round trip p50 / p95, kill -> requeue and
+    kill -> first resumed token seconds, the phase's seconds.
 
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
@@ -3607,6 +3640,49 @@ def pd_worker_check(torch, a, text, smi, model, quantization):
         tmp.cleanup()
 
 
+def int8_serving_engine():
+    """Phase 7's engine (phase 16's A for the int8 pools): llama3-8b at
+    full width and depth, int8 weights and pools, seed 0, not loaded."""
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    return TorchLLMEngine({
+        "model": "llama3-8b", "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ,
+        "enable_prefix_cache": True, "dtype": "bfloat16", "device": "cuda",
+        "seed": 0, "quantization": "int8", "kv_cache_dtype": "int8",
+    })
+
+
+def pd_bf16_phase(torch, pa, smi, prompts, shared):
+    """Phase 16 with bf16 pools and the worker roles: A loads llama3-8b
+    with int8 weights, serves the 8 prompts, then :func:`pd_phase`."""
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    t0 = time.perf_counter()
+    llm = TorchLLMEngine(pd_engine_config("llama3-8b", "int8", None, "cuda"))
+    llm.load_model()
+    print(f"[pd] A for the bf16 pools (llama3-8b, int8 weights, seed 0) loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pd_tokens, pd_payloads, *_ = serve(torch, pa, llm, prompts, shared)
+    pd_phase(torch, pa, smi, llm, prompts, (pd_tokens, pd_payloads), None, worker=True)
+    llm.unload()
+    del llm
+    torch.cuda.empty_cache()
+
+
+def pd_alone(torch, pa, smi, prompts, shared):
+    """Phase 16 alone (``--phase 16``): phase 7's engine loaded and serving
+    the 8 prompts as A for the int8 pools (phases 7's other checks and 11
+    are not run), then the bf16 pools."""
+    llm = int8_serving_engine()
+    llm.load_model()
+    i8_tokens, payloads, *_ = serve(torch, pa, llm, prompts, shared)
+    pd_phase(torch, pa, smi, llm, prompts, (i8_tokens, payloads), "int8")
+    llm.unload()
+    del llm
+    torch.cuda.empty_cache()
+    pd_bf16_phase(torch, pa, smi, prompts, shared)
+
+
 def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
              quantization="int8", device="cuda", worker=False, mismatch=False):
     """Phase 16 for one KV pool on a loaded prefill-side engine A (see the
@@ -3692,7 +3768,7 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
             hyb_trace.close()
         if any(r is None for r in hyb_rows):
             raise AssertionError(f"[pd] {tag} (b): A's hybrid run did not finish")
-        ttft = {}
+        ttft, failed = {}, []
         for mode, stream in (("streamed", True), ("one-shot", False)):
             clear_cached(a)
             clear_cached(b)
@@ -3726,13 +3802,12 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
             rows = [(tok.encode(p), o[1]["token_ids"]) for p, o in zip(prompts, out)]
             ttft[mode] = [o[0]["ttft_ms"] for o in out]
             # A's hybrid run prefilled each prompt as a one-shot PD prefill
-            # does (one forward over the batch width when the prompt fits a
-            # chunk, single-row chunks beyond), so the one-shot PD streams
-            # and the streamed ones past one chunk must equal it exactly; a
-            # streamed prompt within one chunk prefills as one single-row
-            # chunk, which rounds otherwise: where it parts, both runs'
-            # top-2 are printed with the re-score's, and whether the two
-            # tokens lie within NEAR_TIE in either run's own logits
+            # does (one single-row forward when the prompt fits a chunk:
+            # runtime/engine.py submit_batch, a prompt alone in its bucket;
+            # single-row chunks beyond), and a streamed prompt prefills by
+            # single-row chunks too, so every PD stream must equal it
+            # exactly. Where one parts all the same, both runs' top-2 are
+            # printed with the re-score's
             multi = [len(ids) > PD_BUCKETS[-1] for ids, _ in rows]
             scores = rescore(torch, b.engine, rows) if mode == "streamed" else None
             parts, unequal = [], []
@@ -3741,8 +3816,8 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
                 d = next((k for k, (x, y) in enumerate(zip(toks_, want)) if x != y), None)
                 if d is None:
                     continue
+                unequal.append((r, d))
                 if mode == "one-shot" or multi[r]:
-                    unequal.append((r, d))
                     continue
                 top_b, short_b = trace.deficit(f"pd-b-{mode}-{r}", len(ids) + d, want[d])
                 top_a, short_a = hyb_trace.deficit(f"pd-h-{r}", len(ids) + d, toks_[d])
@@ -3761,7 +3836,7 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
                     + (f" (pieces of {PD_PIECE_BLOCKS} blocks)" if mode == "streamed" else "")
                     + f", decoding together on B (up to {peak[0]} slots a round): {same}/"
                     f"{sum(len(t) for _, t in rows)} tokens equal to A's hybrid run, "
-                    f"{sum(multi) if mode == 'streamed' else len(rows)} streams held equal: "
+                    f"{len(rows)} streams held equal: "
                     f"{not unequal} {unequal or ''}; {batched} tokens equal to the batched "
                     f"serving run (information)")
             if mode == "streamed":
@@ -3776,17 +3851,24 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
                     raise AssertionError(f"[pd] {tag} (b): no bytes before the first token")
             print(line, flush=True)
             if unequal or peak[0] < 2:
-                raise AssertionError(f"[pd] {tag} (b) {mode}: streams part from A's hybrid run "
-                                     f"{unequal}, peak {peak[0]}")
+                failed.append(f"[pd] {tag} (b) {mode}: streams part from A's hybrid run "
+                              f"{unequal}, peak {peak[0]}")
             vocab = a.engine.model_cfg.vocab_size
             if any(len(t) != PD_TOKENS or not all(0 <= x < vocab for x in t) for _, t in rows):
-                raise AssertionError(f"[pd] {tag} (b) {mode}: bad tokens {rows}")
+                failed.append(f"[pd] {tag} (b) {mode}: bad tokens {rows}")
         print(f"[pd] {tag} TTFT p50 of the 8 requests prefilled one after another "
               f"(information): PD "
               f"streamed {pctl(ttft['streamed'], 0.5):.1f} ms, PD one-shot "
               f"{pctl(ttft['one-shot'], 0.5):.1f} ms, A hybrid {pctl(hyb_ttft, 0.5):.1f} ms; "
               f"the batched serving run before the phase (all 8 admitted at once) "
               f"{pctl([p['ttft_ms'] for p in hyb_payloads], 0.5):.1f} ms ({smi})", flush=True)
+        one = [i for i, p in enumerate(prompts) if len(tok.encode(p)) <= PD_BUCKETS[-1]]
+        print(f"[pd] {tag} TTFT of the {len(one)} prompts within one chunk (information): "
+              + "; ".join(f"{name} {[round(t[i], 1) for i in one]} ms" for name, t in (
+                  ("PD streamed", ttft["streamed"]), ("PD one-shot", ttft["one-shot"]),
+                  ("A hybrid", hyb_ttft))), flush=True)
+        if failed:
+            raise AssertionError("; ".join(failed))
 
         # ---- (c) the device path
         clear_cached(a)
@@ -7972,9 +8054,369 @@ def seq_phase(torch, pa, smi, model="llama3-8b", device="cuda", over=None):
     return total, entries
 
 
+# ------------------------------------------------------- the whole deployment
+
+DEPLOY_TOKENS = 32            # greedy tokens of each phase-25 chat
+DEPLOY_LONG_TOKENS = 256      # the job whose worker is killed mid-run
+DEPLOY_CKPT_TOKENS = 8        # the heartbeat checkpoint it must hold first
+DEPLOY_HB_TIMEOUT_S = 5.0     # the plane's heartbeat timeout (its CLI flag)
+DEPLOY_SWEEP_S = 0.5          # the plane's background sweep interval
+DEPLOY_HB_S = 0.5             # each worker's heartbeat interval
+
+
+class PlaneProcess:
+    """The port's control plane as its own process, started through its
+    CLI (``python -m distributed_gpu_inference_torch.server.app --port
+    0``) with the sqlite DB in ``db``; the banner names the bound port. A
+    thread drains its output (kept in ``lines``)."""
+
+    def __init__(self, db):
+        import os
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.lines = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_gpu_inference_torch.server.app",
+             "--host", "127.0.0.1", "--port", "0", "--db", db,
+             "--heartbeat-timeout-s", str(DEPLOY_HB_TIMEOUT_S),
+             "--sweep-interval-s", str(DEPLOY_SWEEP_S)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        ready = threading.Event()
+        self.port = None
+
+        def drain():
+            import re
+
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip())
+                m = re.search(r"Running on http://127\.0\.0\.1:(\d+)", line)
+                if m and self.port is None:
+                    self.port = int(m.group(1))
+                    ready.set()
+            ready.set()
+
+        threading.Thread(target=drain, daemon=True).start()
+        if not ready.wait(120) or self.port is None:
+            self.stop()
+            raise AssertionError(f"the plane did not come up: {self.lines[-20:]}")
+        self.url = f"http://127.0.0.1:{self.port}"
+
+    def get(self, path):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=HTTP_TIMEOUT)
+        try:
+            conn.request("GET", path)
+            r = conn.getresponse()
+            body = r.read()
+            ctype = r.getheader("Content-Type") or ""
+            return r.status, (json.loads(body) if ctype.startswith("application/json")
+                              else body.decode())
+        finally:
+            conn.close()
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def hard_kill(worker, thread):
+    """Worker A dies as a crashed process would: its plane connections are
+    cut first (nothing of it reaches the plane again: no release, no
+    completion, no offline call), then its poll loop, direct server and
+    engine stop; the plane learns of it when the heartbeats stop."""
+    worker.api.close()
+    worker._shutdown.set()
+    if worker._direct is not None:
+        worker._direct.stop()
+    worker.engines["llm"].unload()
+    thread.join(timeout=300)
+    if thread.is_alive():
+        raise AssertionError("the killed worker's thread did not end")
+
+
+def metric_value(text, name, **labels):
+    """The value of one sample of a Prometheus text page (0.0 if absent)."""
+    want = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    key = name + ("{" + want + "}" if want else "")
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def deployment_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8"):
+    """Phase 25 (see the module docstring): the port's plane as a process,
+    two CLI workers on threads, the port's SDK as the client; raises on any
+    failed check. → the phase's launch counts."""
+    import sqlite3
+    import tempfile
+
+    from distributed_gpu_inference_torch.sdk.client import InferenceClient
+    from distributed_gpu_inference_torch.worker import main as wmain
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_")
+    plane = PlaneProcess(f"{tmp.name}/plane.sqlite")
+    workers = {}
+    client = InferenceClient(plane.url, backoff_s=0.05, timeout_s=HTTP_TIMEOUT)
+    try:
+        print(f"[deploy] the port's plane up as its own process (pid {plane.proc.pid}) on "
+              f"{plane.url}, heartbeat timeout {DEPLOY_HB_TIMEOUT_S} s, sweep every "
+              f"{DEPLOY_SWEEP_S} s", flush=True)
+        pa.reset_launch_counts()
+        rtt = {}
+        for name in ("A", "B"):
+            path = f"{tmp.name}/worker-{name}.json"
+            # a worker registers before its direct server binds, so the
+            # plane learns the URL only from the config: a free port, named
+            port = free_port()
+            with open(path, "w") as f:
+                json.dump({
+                    "name": f"deploy-{name}", "server": {"url": plane.url},
+                    "engines": {"llm": {"model": model, "quantization": quantization}},
+                    "direct": {"enabled": True, "host": "127.0.0.1", "port": port,
+                               "public_url": f"http://127.0.0.1:{port}"},
+                    "poll_interval_s": 0.05, "heartbeat_interval_s": DEPLOY_HB_S,
+                    "load_control": {"max_concurrent_jobs": 8},
+                }, f)
+
+            class OwnFingerprint:
+                """Two workers in one process share the machine's
+                fingerprint: each registers with one of its own."""
+
+                def __init__(self, *a, _fp=f"chip-smoke-deploy-{name}", **kw):
+                    self._fp = _fp
+
+                def get_or_create(self):
+                    return self._fp
+
+            with patched(wmain, "MachineFingerprint", OwnFingerprint):
+                th, w = start_cli_worker(path)
+            workers[name] = (th, w)
+            rtt[name] = []
+            beat = w._heartbeat_once
+
+            def timed_beat(_beat=beat, _w=w, _out=rtt[name]):
+                _beat()
+                if _w._hb_rtt_ms is not None:
+                    _out.append(_w._hb_rtt_ms)
+
+            w._heartbeat_once = timed_beat
+        (th_a, wa), (th_b, wb) = workers["A"], workers["B"]
+        if wa.api.worker_id == wb.api.worker_id:
+            raise AssertionError("both workers landed on one plane row")
+        tok = wa.engines["llm"].tokenizer
+        vocab = wa.engines["llm"].engine.model_cfg.vocab_size
+        recs = {n: RecordedIds(w.engines["llm"]) for n, (_, w) in workers.items()}
+        print(f"[deploy] workers A {wa.api.worker_id} and B {wb.api.worker_id} up through the "
+              f"CLI ({model}, {quantization} weights, bf16 pools)", flush=True)
+
+        # ---- one direct stream (first, while both workers have headroom for
+        # discovery), then 8 queued chats beside one /jobs/sync chat
+        params = {"max_new_tokens": DEPLOY_TOKENS, "temperature": 0.0, "ignore_eos": True}
+        jids, out, errors = [], {}, []
+        out["nearest"] = client._get_nearest_worker()
+        out["stream"] = list(client.stream_chat(prompt=prompts[1] + " stream",
+                                                timeout_s=600.0, **params))
+
+        def sync_chat():
+            try:
+                out["sync"] = client.chat(prompt=prompts[0] + " sync", sync=True,
+                                          timeout_s=600.0, **params)
+            except BaseException as exc:  # noqa: BLE001 — raised below
+                errors.append(exc)
+
+        side = threading.Thread(target=sync_chat)
+        side.start()
+        for i, p in enumerate(prompts):
+            jids.append(client.create_job("llm", {"prompt": p, "trace_id": f"deploy-{i}",
+                                                  **params}))
+        jobs = [client.wait_for_job(j, timeout_s=600.0, poll_s=0.05) for j in jids]
+        side.join(timeout=600)
+        if errors:
+            raise errors[0]
+        by_prompt = {}
+        for r in recs.values():
+            by_prompt.update(dict(r.ids))
+        answers = [(p, j["result"]) for p, j in zip(prompts, jobs)] + [
+            (prompts[0] + " sync", out["sync"])]
+        for p, res in answers:
+            ids = by_prompt.get(tuple(tok.encode(p)))
+            usage = res.get("usage") or {}
+            if ids is None or len(ids) != DEPLOY_TOKENS or not all(0 <= t < vocab for t in ids) \
+                    or (usage.get("prompt_tokens"), usage.get("completion_tokens")) != \
+                    (len(tok.encode(p)), DEPLOY_TOKENS) or res.get("text") != tok.decode(ids):
+                raise AssertionError(f"[deploy] answer to {p[:24]!r}: ids {ids} result {res}")
+        if any(j["status"] != "completed" for j in jobs):
+            raise AssertionError(f"[deploy] queued jobs: {[j['status'] for j in jobs]}")
+        chunks = out["stream"]
+        s_ids = [t for ch in chunks[:-1] for t in ch.get("token_ids") or []]
+        s_text = "".join(ch.get("text_delta") or "" for ch in chunks[:-1])
+        if not chunks[-1].get("done") or len(s_ids) != DEPLOY_TOKENS \
+                or not all(0 <= t < vocab for t in s_ids) or s_text != tok.decode(s_ids) \
+                or chunks[-1].get("usage", {}).get("completion_tokens") != DEPLOY_TOKENS \
+                or out["nearest"].get("direct_url") is None:
+            raise AssertionError(f"[deploy] direct stream: {chunks[-1]} {out['nearest']}")
+        served_by = sorted({j["worker_id"] for j in jobs})
+        latency = [(j["completed_at"] - j["created_at"]) * 1e3 for j in jobs]
+        # where a queued job's time went, by the flight recorder's phases
+        phases = {}
+        for j in jids:
+            for k, v in (plane.get(f"/api/v1/debug/requests/{j}/timeline")[1]
+                         .get("phases") or {}).items():
+                phases.setdefault(k, []).append(v * 1e3)
+        print(f"[deploy] 8 queued chats (create_job -> wait_for_job), one /jobs/sync chat and "
+              f"one stream_chat(use_direct=True) through {out['nearest']['worker_id']}: "
+              f"{DEPLOY_TOKENS} greedy tokens each, ids in vocabulary, text = decode(ids), usage "
+              f"right; queued jobs served by {len(served_by)} worker(s); queue-to-completion "
+              f"latency (information) p50 {pctl(latency, 0.5):.1f} ms p95 "
+              f"{pctl(latency, 0.95):.1f} ms; by the plane's timelines, p50 ms of "
+              + ", ".join(f"{k} {pctl(v, 0.5):.1f}" for k, v in sorted(phases.items()))
+              + f" ({smi})", flush=True)
+
+        # ---- worker loss: A killed mid-job, the plane's sweep requeues, B resumes
+        hold = threading.Event()
+        hold.set()
+        real_poll, held_polls = wb._poll_once, []
+
+        def held_poll():
+            if hold.is_set():
+                held_polls.append(1)
+                return False
+            return real_poll()
+
+        wb._poll_once = held_poll
+        # B's poll loop is sequential: once it calls the held poll twice,
+        # no poll it began before the hold is still in flight
+        if not wait_until(lambda: len(held_polls) >= 2, timeout=60):
+            raise AssertionError("[deploy] worker B's poll loop did not pause")
+        long_params = dict(params, max_new_tokens=DEPLOY_LONG_TOKENS, trace_id="deploy-long")
+        # a prompt of its own: the chats above ran prompts[2] already
+        long_prompt = prompts[2] + " long"
+        jl = client.create_job("llm", {"prompt": long_prompt, **long_params})
+        if not wait_until(lambda: len(((client.get_job(jl).get("checkpoint") or {})
+                                       .get("generated") or [])) >= DEPLOY_CKPT_TOKENS,
+                          timeout=300):
+            raise AssertionError(f"[deploy] no heartbeat checkpoint of {DEPLOY_CKPT_TOKENS} "
+                                 f"tokens: {client.get_job(jl)}")
+        if client.get_job(jl)["worker_id"] != wa.api.worker_id:
+            raise AssertionError("[deploy] the long job is not on worker A")
+        hold.clear()
+        t_kill = time.time()
+        hard_kill(wa, th_a)
+        ckpt = list(client.get_job(jl)["checkpoint"]["generated"])
+        requeued = None
+        while time.time() - t_kill < 120:
+            j = client.get_job(jl)
+            if j["worker_id"] != wa.api.worker_id:
+                requeued = time.time()
+                break
+            time.sleep(0.02)
+        if requeued is None:
+            raise AssertionError("[deploy] the plane never requeued the dead worker's job")
+        jlong = client.wait_for_job(jl, timeout_s=600.0, poll_s=0.05)
+        resumed = [ids for p, ids in recs["B"].ids if p == tuple(tok.encode(long_prompt))]
+        tl_status, tl = plane.get(f"/api/v1/debug/requests/{jl}/timeline")
+        # a resumed admission logs ``batcher.resumed``; its prefill's last
+        # chunk round samples the first new token
+        rounds = [e["ts"] for e in (tl.get("events") or []) if tl_status == 200
+                  and e.get("source") == wb.api.worker_id and e["ts"] > t_kill
+                  and e.get("event") in ("batcher.chunk_round", "batcher.first_token")]
+        first_tok = (max(rounds) - t_kill) if rounds else float("nan")
+        k = len(ckpt)
+        print(f"[deploy] worker loss: A hard-killed while its {k}-token heartbeat checkpoint "
+              f"stood on the plane; the plane's sweep requeued the job {requeued - t_kill:.2f} s "
+              f"after the kill (timeout {DEPLOY_HB_TIMEOUT_S} s); B completed it "
+              f"({jlong['status']}, {jlong['result']['usage']['completion_tokens']} tokens), its "
+              f"first {k} equal to the checkpoint's: {bool(resumed) and resumed[0][:k] == ckpt}; "
+              f"kill -> first resumed token (information) {first_tok:.2f} s ({smi})", flush=True)
+        if jlong["status"] != "completed" or jlong["worker_id"] != wb.api.worker_id \
+                or len(resumed) != 1 or resumed[0][:k] != ckpt or k < DEPLOY_CKPT_TOKENS \
+                or len(resumed[0]) != DEPLOY_LONG_TOKENS \
+                or not all(0 <= t < vocab for t in resumed[0]) \
+                or jlong["result"]["text"] != tok.decode(resumed[0]):
+            raise AssertionError(f"[deploy] the requeued job did not resume on B: {jlong}")
+        for r in recs.values():
+            r.close()
+
+        # ---- the store's rows: nothing lost, nothing run twice
+        con = sqlite3.connect(f"file:{tmp.name}/plane.sqlite?mode=ro", uri=True, timeout=30)
+        try:
+            rows = con.execute("SELECT id, status, worker_id, assignment_epoch, retry_count "
+                               "FROM jobs").fetchall()
+            usage_rows = dict(con.execute(
+                "SELECT job_id, COUNT(*) FROM usage_records GROUP BY job_id").fetchall())
+        finally:
+            con.close()
+        bad = [r for r in rows if r[1] != "completed"
+               or usage_rows.get(r[0]) != 1
+               or r[3] != (2 if r[0] == jl else 1)]
+        print(f"[deploy] the store: {len(rows)} jobs, every one completed with one usage "
+              f"record; claims: the long job twice (A, then B), every other once: "
+              f"{not bad}", flush=True)
+        if bad or len(rows) != len(prompts) + 2:
+            raise AssertionError(f"[deploy] store rows: {bad or rows}")
+
+        # ---- the plane's records: timeline, queue_stats, /metrics
+        _, t0 = plane.get(f"/api/v1/debug/requests/{jids[0]}/timeline")
+        stats = client.queue_stats()
+        _, metrics = plane.get("/metrics")
+        n_jobs = len(prompts) + 2
+        done_metric = metric_value(metrics, "inference_requests_total", job_type="llm",
+                                   status="completed")
+        # the plane counts a /jobs/sync submission at its completion only
+        queued_metric = metric_value(metrics, "inference_requests_total", job_type="llm",
+                                     status="queued")
+        names = {e.get("event") for e in t0.get("events") or []}
+        print(f"[deploy] the plane's records: job 0's timeline {len(t0.get('events') or [])} "
+              f"events ({sorted(names)[:6]}...); queue_stats completed "
+              f"{stats['jobs'].get('completed')}; /metrics inference_requests_total "
+              f"queued {queued_metric:.0f} (the sync job is not) completed "
+              f"{done_metric:.0f}", flush=True)
+        if "server.submitted" not in names or "batcher.first_token" not in names \
+                or stats["jobs"].get("completed") != n_jobs \
+                or done_metric != n_jobs or queued_metric != n_jobs - 1:
+            raise AssertionError(f"[deploy] the plane's records: {stats} {t0}")
+
+        wb.request_shutdown()
+        th_b.join(timeout=300)
+        if th_b.is_alive():
+            raise AssertionError("[deploy] worker B did not stop")
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        beats = rtt["A"] + rtt["B"]
+        print(f"[deploy] heartbeat round trip (information) p50 {pctl(beats, 0.5):.2f} ms p95 "
+              f"{pctl(beats, 0.95):.2f} ms over {len(beats)} beats ({smi})", flush=True)
+    finally:
+        client.close()
+        for th, w in workers.values():
+            if th.is_alive():
+                w.request_shutdown()
+                th.join(timeout=120)
+        plane.stop()
+        tmp.cleanup()
+    print(f"[deploy] kernel launches over the phase: {counts}; phase ran in "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    check_counts("deploy", counts, qmm=quantization is not None)
+    return counts
+
+
 HOST_FLOOR_GIB = 14.0       # the host memory a run leaves free, or it stops itself
 # phases whose inputs are their own, which ``--phase`` runs alone
-ALONE = (17, 18, 19, 21, 22, 23, 24)
+ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25)
 
 
 class HostGuard:
@@ -8018,13 +8460,15 @@ def run_alone(torch, pa, smi, phases):
     print(f"[build] kernels built in {_build.build(list(_build.KERNEL_SOURCES)):.1f} s",
           flush=True)
     shared, _, prompts = serving_prompts()
-    run = {17: lambda: local_files_phase(torch, pa, smi),
+    run = {16: lambda: pd_alone(torch, pa, smi, prompts, shared),
+           17: lambda: local_files_phase(torch, pa, smi),
            18: lambda: fleet_phase(torch, pa, smi, prompts),
            19: lambda: moe_phase(torch, pa, smi, prompts, shared),
            21: lambda: pipeline_phase(torch, pa, smi),
            22: lambda: direct_mode_phase(torch, pa, smi, prompts),
            23: lambda: tp_phase(torch, pa, smi, prompts),
-           24: lambda: seq_phase(torch, pa, smi)}
+           24: lambda: seq_phase(torch, pa, smi),
+           25: lambda: deployment_phase(torch, pa, smi, prompts)}
     for n in phases:
         t0 = time.perf_counter()
         run[n]()
@@ -8310,11 +8754,7 @@ def main(argv=None) -> int:
 
     # ---- 7. int8 serving at full width and depth
     t0 = time.perf_counter()
-    llm = TorchLLMEngine({
-        "model": "llama3-8b", "max_batch_size": SERVE_BATCH, "max_seq_len": MAX_SEQ,
-        "enable_prefix_cache": True, "dtype": "bfloat16", "device": "cuda",
-        "seed": 0, "quantization": "int8", "kv_cache_dtype": "int8",
-    })
+    llm = int8_serving_engine()
     llm.load_model()
     torch.cuda.synchronize()
     print(f"[int8 serving] llama3-8b (32 layers, int8 weights, int8 KV, random weights "
@@ -8341,16 +8781,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 16. PD disaggregation, bf16 pools (int8 weights), and the worker roles
-    t0 = time.perf_counter()
-    llm = TorchLLMEngine(pd_engine_config("llama3-8b", "int8", None, "cuda"))
-    llm.load_model()
-    print(f"[pd] A for the bf16 pools (llama3-8b, int8 weights, seed 0) loaded in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    pd_tokens, pd_payloads, *_ = serve(torch, pa, llm, prompts, shared)
-    pd_phase(torch, pa, smi, llm, prompts, (pd_tokens, pd_payloads), None, worker=True)
-    llm.unload()
-    del llm
-    torch.cuda.empty_cache()
+    pd_bf16_phase(torch, pa, smi, prompts, shared)
 
     # ---- 8. fp8 serving at llama3-8b width, 4 layers
     cfg4 = get_model_config("llama3-8b", num_layers=4)
@@ -8533,16 +8964,19 @@ def main(argv=None) -> int:
     p23, tp_entries = tp_phase(torch, pa, smi, prompts)
     # ---- 24. sequence parallelism: ring, Ulysses, block-sharded pools, handoffs
     p24, seq_entries = seq_phase(torch, pa, smi)
+    # ---- 25. the whole deployment: the port's plane, two CLI workers, the SDK
+    p25 = deployment_phase(torch, pa, smi, prompts)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
-            e["launches"] += p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
+            e["launches"] += (p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
+                              + p25[e["name"]])
         elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
             base = e["name"].split("[")[0]
             e["launches"] += p22[base] + p23["int8"][base] + p24[base]
         elif e["name"] == "qmm_w8a16[int8]":
             e["launches"] += (p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
                               + p23["int8"]["qmm_w8a16"] + p23["bf16"]["qmm_w8a16"]
-                              + p24["qmm_w8a16"])
+                              + p24["qmm_w8a16"] + p25["qmm_w8a16"])
     kernels += tp_entries + seq_entries
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s; the host's "

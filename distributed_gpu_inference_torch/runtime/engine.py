@@ -1204,7 +1204,8 @@ class TorchEngine:
                      partial: bool = False) -> List[int]:
         """Admit several requests at once: same-bucket prefills run as ONE
         batched forward (full batch width, other rows masked with position
-        -1); prompts longer than the largest bucket take the chunked path.
+        -1), a prompt alone in its bucket one row wide; prompts longer than
+        the largest bucket take the chunked path.
         With ``EngineConfig.admission_subwave`` = sw > 0 each bucket group
         is cut into chunks of at most sw sequences, each prefilled by a
         narrow forward (:meth:`_prefill_subwave`); with
@@ -1310,6 +1311,13 @@ class TorchEngine:
                             interleaved_extra += len(toks) - stop
                 groups = []
             for bucket, items in groups:
+                if len(items) == 1:
+                    # a lone prompt prefills one row wide, as a chunk of
+                    # submit_chunked_step does: on the card the row count
+                    # decides how the matmuls split their work, so both
+                    # entry points then write the same pages
+                    self._record_token(items[0][1], int(self._prefill_subwave(bucket, items)[0]))
+                    continue
                 self._apply_pending()
                 toks_pos = np.zeros((2, b, bucket), np.int32)
                 toks_pos[1] = -1
@@ -1356,8 +1364,9 @@ class TorchEngine:
         self.stats["prefill_tokens"] += n
 
     def _prefill_subwave(self, bucket: int, chunk: list) -> np.ndarray:
-        """Bind and prefill at most ``admission_subwave`` sequences through
-        one narrow forward — its width the next power of two at or above the
+        """Bind and prefill a sub-wave (at most ``admission_subwave``
+        sequences), or a prompt alone in its bucket, through one narrow
+        forward — its width the next power of two at or above the
         chunk, capped at the slot count; row j carries slot ``chunk[j]``'s
         table row, pad rows position -1 (no KV write) — and sample their
         first tokens with their own slots' keys and sampling parameters at

@@ -30,8 +30,11 @@ Sites in the port: ``worker.api.request`` (:func:`wrap_http`),
 ``io.spill.redis.get`` / ``.put`` (:func:`io_fault`), and on the KV
 handoff ``kv.receiver.message`` (:func:`mutate_bytes`),
 ``io.handoff.stage`` (:func:`io_bytes`), ``worker.pd.push`` and
-``worker.kv.pull`` (:func:`wrap_http`), and on a pipeline session's hops
-``comm.session.forward`` (:func:`wrap_http`).
+``worker.kv.pull`` (:func:`wrap_http`), on a pipeline session's hops
+``comm.session.forward`` (:func:`wrap_http`), and on the control plane's
+side ``server.store.execute`` and ``server.store.checkpoint``
+(:func:`store_fault`) and the SDK's
+``sdk.client.request`` (:func:`wrap_http`).
 
 =========  =======================================================
 kind       effect at a seam
@@ -39,9 +42,11 @@ kind       effect at a seam
 drop       HTTP: raise a transport error. ``where="response"``
            performs the call first (delivered, response lost).
            Stream: the stream dies here. IO: ``OSError``.
+           Store: silently skip the mutation (lost write).
 delay      sleep ``delay_s`` then proceed.
 error      HTTP: synthesize a ``status`` response without calling;
            server seam: answer ``status``. IO: ``OSError``.
+           Store: raise ``sqlite3.OperationalError``.
 truncate   byte seams: keep only the first ``cut`` bytes.
 corrupt    byte seams: flip one byte mid-payload.
 duplicate  HTTP: perform the call twice, return the second response.
@@ -293,6 +298,28 @@ def wrap_http(site: str, call: Callable[[], Any], **ctx: Any) -> Any:
         call()
         return call()
     raise ValueError(f"rule kind {rule.kind!r} unsupported at HTTP seam")
+
+
+def store_fault(site: str, **ctx: Any) -> bool:
+    """Store mutation seam. Returns True when the write must be SKIPPED
+    (injected lost write); raises ``sqlite3.OperationalError`` for injected
+    backend errors."""
+    plan = _ACTIVE
+    if plan is None:
+        return False
+    rule = plan.fire(site, **ctx)
+    if rule is None:
+        return False
+    if rule.kind == "delay":
+        time.sleep(rule.delay_s)
+        return False
+    if rule.kind == "drop":
+        return True
+    if rule.kind in ("error", "flap"):
+        import sqlite3
+
+        raise sqlite3.OperationalError(f"fault injected at {site}")
+    raise ValueError(f"rule kind {rule.kind!r} unsupported at store seam")
 
 
 def kv_pressure(site: str, num_free: int, **ctx: Any) -> bool:

@@ -1,38 +1,158 @@
-"""Fleet harness of the PyTorch port: N real port workers behind one control
-plane, and a chaos driver that runs a seeded :class:`FleetFaultPlan`
-against them while traffic runs.
+"""Harness of the PyTorch port: a live control plane on a loopback socket,
+N real port workers behind it, and a chaos runner that plays a seeded
+:class:`FleetFaultPlan` against them while traffic runs.
 
 The port's copy of ``distributed_gpu_inference_tpu/testing/harness.py``
-``FleetWorker`` / ``FakeFleetWorker`` / ``LiveFleet`` / ``FleetAutoscaler``.
-The port has no control plane of its own, so the caller builds the planes:
+``LiveControlPlane`` / ``FleetWorker`` / ``FakeFleetWorker`` /
+``LiveFleet`` / ``FleetAutoscaler``. :class:`LiveControlPlane` serves the
+port's own plane (``server/app.py``) on a background event loop.
 :class:`LiveFleet` takes a ``plane_factory`` (or a list of planes), each an
 object with ``__enter__`` / ``__exit__`` (cold start, hard stop), ``start``
 / ``kill`` (a restart on the same port), ``alive``, ``url``, ``port`` and
-``sweep()`` (one pass of the plane's guarantee sweeps). The JAX package's
-``LiveControlPlane`` is one; ``chip_smoke.py`` ``StandInPlane`` another.
+``sweep()`` (one pass of the plane's guarantee sweeps): the port's
+:class:`LiveControlPlane`, the JAX package's, or ``chip_smoke.py``
+``StandInPlane``.
 
-Two fault registries: the port's seams (workers, engines, the KV tiers)
-consult ``testing/faults.py`` here, while a plane from the JAX package
-fires its store seams (``server.*``) and the JAX SDK its client seam
-(``sdk.*``) on the JAX package's registry. The chaos driver installs a plan
-on each — the plane-side one from the ``plane_faults`` module the caller
-passes (anything with ``FaultPlan``, ``FaultRule`` and ``active``) — and
-arms every rule in the registry that owns its site (:func:`plane_side`).
-An event that needs a plane-side rule fails when no ``plane_faults`` was
-given, rather than arming a rule nothing would ever consult.
+Fault registries: the port's seams (workers, engines, the KV tiers, and a
+port plane's store and the port SDK) consult ``testing/faults.py`` here. A
+plane from the JAX package fires its store seams (``server.*``) and the JAX
+SDK its client seam (``sdk.*``) on the JAX package's registry, which the
+caller passes as ``plane_faults`` (anything with ``FaultPlan``,
+``FaultRule`` and ``active``). The chaos runner installs a plan on each
+registry and arms every rule in the one that owns its site
+(:func:`plane_side`). A port plane names its registry (``faults``, the
+port's own), so a fleet on port planes needs no ``plane_faults``: its
+plane-side rules go to the one port plan. An event that needs a plane-side
+rule fails when no registry is known, rather than arming a rule nothing
+would ever consult.
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
+import socket
 import threading
 import time
 import uuid
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Coroutine, Dict, List, Optional, Sequence, Tuple, Union
 
 from . import faults as _faults
 from .faults import FaultPlan, FaultRule, FleetFaultPlan
+
+
+class LiveControlPlane:
+    """Context manager: the port's control plane served on a loopback port
+    from a background event loop, plus direct access to its services.
+
+    :meth:`kill` hard-stops the server mid-traffic (in-flight requests die,
+    the store connection closes — the db FILE and its WAL survive for peer
+    planes), and :meth:`start` after a kill rebuilds the replica cold on
+    the SAME port, so endpoint lists held by workers and SDK clients keep
+    working. ``state_kw`` go to ``server/app.py`` ``ServerState``."""
+
+    def __init__(self, **state_kw: Any) -> None:
+        self._state_kw = state_kw
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._thread: Optional[threading.Thread] = None
+        self._server: Optional[Any] = None
+        self._app: Optional[Any] = None
+        self.state: Optional[Any] = None
+        self.port: int = 0
+        self.alive = False
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def __enter__(self) -> "LiveControlPlane":
+        self.start()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.kill()
+
+    def start(self) -> None:
+        """Cold start (or cold RESTART after :meth:`kill`): fresh loop,
+        fresh ServerState over the same ``db_path``."""
+        if self.alive:
+            return
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(
+            target=self._loop.run_forever, name="live-control-plane",
+            daemon=True,
+        )
+        self._thread.start()
+        self.call(self._start())
+        self.alive = True
+
+    def kill(self) -> None:
+        """Hard stop. Safe to call twice; :meth:`start` afterwards is a
+        restart on the same port."""
+        if self._loop is None:
+            return
+        self.alive = False
+        try:
+            self.call(self._stop(), timeout_s=15.0)
+        finally:
+            self._loop.call_soon_threadsafe(self._loop.stop)
+            self._thread.join(timeout=10.0)
+            self._loop.close()
+            self._loop = None
+            self._thread = None
+            self._server = None
+
+    async def _start(self) -> None:
+        from ..server.app import ServerState, create_app
+        from ..server.web import Server
+
+        # ServerState (its Store and asyncio primitives) is built on the
+        # server loop so nothing binds to the caller's thread
+        self.state = ServerState(**self._state_kw)
+        app = create_app(self.state, start_background=False)
+        sock = socket.socket()
+        # a restart must land on the port the first start drew
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind(("127.0.0.1", self.port))
+        self._server = Server(app)
+        await self._server.start(sock=sock)
+        self.port = self._server.port
+        self._app = app
+
+    async def _stop(self) -> None:
+        if self._server is not None:
+            await self._server.stop()
+            await self._app.cleanup()
+        if self.state is not None:
+            self.state.store.close()
+
+    # -- access --------------------------------------------------------------
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+    @property
+    def faults(self) -> Any:
+        """The fault registry this plane's seams consult (the port's)."""
+        return _faults
+
+    def call(self, coro: Coroutine, timeout_s: float = 30.0) -> Any:
+        """Run a coroutine on the server loop from the caller's thread."""
+        return asyncio.run_coroutine_threadsafe(
+            coro, self._loop
+        ).result(timeout=timeout_s)
+
+    def sweep(self, now: Optional[float] = None) -> Dict[str, List[str]]:
+        return self.call(self.state.guarantee.sweep(now=now))
+
+    def query(self, sql: str, params: tuple = ()) -> List[Dict[str, Any]]:
+        return self.call(self.state.store.query(sql, params))
+
+    def job(self, job_id: str) -> Optional[Dict[str, Any]]:
+        return self.call(self.state.store.get_job(job_id))
+
+    def worker(self, worker_id: str) -> Optional[Dict[str, Any]]:
+        return self.call(self.state.store.get_worker(worker_id))
 
 # engine geometry every fleet member shares unless overridden: tiny model,
 # per-token checkpoint cadence (a seeded kill point must always have a
@@ -345,7 +465,13 @@ class FakeFleetWorker:
     control-plane protocol (signing, epoch-fenced completion, plane
     failover) with no engine, no batcher, no direct server. Exposes the
     lifecycle subset the chaos driver touches (``alive`` / ``kill`` /
-    ``start`` / ``blackout``)."""
+    ``start`` / ``blackout``).
+
+    :attr:`completed` counts the jobs whose completion the plane
+    acknowledged. The plane marks a job completed before its answer
+    reaches the member, so a caller that saw the job completed could read
+    the count before the member did; a read therefore waits for a poll
+    iteration in flight (claim → complete → count) to finish first."""
 
     def __init__(self, index: int, plane_url: Any,
                  hb_interval_s: float = 0.2,
@@ -361,7 +487,9 @@ class FakeFleetWorker:
         self.alive = False
         self.api: Optional[Any] = None
         self.worker_id: Optional[str] = None
-        self.completed = 0          # jobs this member instantly served
+        self._completed = 0         # jobs this member instantly served
+        # held by the poll loop across claim → complete → count
+        self._serving = threading.Lock()
         self.heartbeats = 0         # beats that reached a plane
         self._hb_blocked = threading.Event()
         self._stop = threading.Event()
@@ -406,20 +534,26 @@ class FakeFleetWorker:
             except Exception:  # noqa: BLE001 — outage: next tick retries
                 pass
 
+    @property
+    def completed(self) -> int:
+        with self._serving:
+            return self._completed
+
     def _poll_loop(self) -> None:
         while not self._stop.wait(self.poll_interval_s):
-            try:
-                job = self.api.fetch_next_job()
-                if job is None:
-                    continue
-                self.api.complete_job(
-                    job["id"], True,
-                    result={"text": f"fake:{job['id']}"},
-                    assignment_epoch=job.get("assignment_epoch"),
-                )
-                self.completed += 1
-            except Exception:  # noqa: BLE001 — outage: next tick retries
-                pass
+            with self._serving:
+                try:
+                    job = self.api.fetch_next_job()
+                    if job is None:
+                        continue
+                    self.api.complete_job(
+                        job["id"], True,
+                        result={"text": f"fake:{job['id']}"},
+                        assignment_epoch=job.get("assignment_epoch"),
+                    )
+                    self._completed += 1
+                except Exception:  # noqa: BLE001 — outage: next tick retries
+                    pass
 
     def blackout(self, on: bool) -> None:
         if on:
@@ -501,6 +635,9 @@ class LiveFleet:
         if not self.planes:
             raise ValueError("a LiveFleet needs at least one plane")
         self.plane = self.planes[0]
+        if self.plane_faults is None:
+            # a port plane names its registry (the port's own)
+            self.plane_faults = getattr(self.plane, "faults", None)
         self.members: List[Member] = []
         self._sweep_stop = threading.Event()
         self._sweeper: Optional[threading.Thread] = None
@@ -676,6 +813,9 @@ class LiveFleet:
         with _faults.active(FaultPlan(seed)) as fp:
             if pf is None:
                 yield fp, None
+            elif pf is _faults:
+                # a port plane consults the port's registry: one plan
+                yield fp, fp
             else:
                 with pf.active(pf.FaultPlan(seed)) as pp:
                     yield fp, pp
@@ -842,8 +982,8 @@ class LiveFleet:
 
 
 class FleetAutoscaler:
-    """Ticker thread wiring a brownout autoscaler (the JAX package's
-    ``server/autoscaler.py`` ``BrownoutAutoscaler``, or anything with its
+    """Ticker thread wiring a brownout autoscaler (``server/autoscaler.py``
+    ``BrownoutAutoscaler`` of either package, or anything with its
     ``tick`` / ``note_scale_out_started`` / ``note_replica_serving``) to a
     :class:`LiveFleet`: every ``tick_s`` the controller sees the CURRENT
     alive replica count (chaos kills included) and a utilization estimate

@@ -6,7 +6,10 @@ the block manager, the batcher and the worker read: the worker's lifecycle
 state and topology record, the layer range a checkpoint load takes (and a
 pipeline stage owns), sampling controls, requests, responses, per-page
 block metadata, the prefix hash, and the pipeline's session and stage-plan
-records (:class:`SessionConfig`, :class:`ModelShardConfig`). Pure Python.
+records (:class:`SessionConfig`, :class:`ModelShardConfig`); and what the
+control plane (``server/``) reads besides: worker roles, the job lifecycle,
+topology records as registration stored them, and the KV size estimate the
+prefill/decode scheduler plans with. Pure Python.
 """
 
 from __future__ import annotations
@@ -17,6 +20,15 @@ import uuid
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+
+class WorkerRole(str, Enum):
+    """Role a worker plays in a disaggregated deployment."""
+
+    HYBRID = "hybrid"          # both prefill and decode (default)
+    PREFILL = "prefill"        # compute-bound pool
+    DECODE = "decode"          # bandwidth-bound pool
+    PIPELINE_STAGE = "pipeline_stage"  # owns a contiguous layer range
 
 
 class WorkerState(str, Enum):
@@ -36,6 +48,16 @@ class JobType(str, Enum):
     VISION = "vision"
     ASR = "asr"
     IMAGE_GEN = "image_gen"
+
+
+class JobStatus(str, Enum):
+    """Job lifecycle as the control plane stores it."""
+
+    QUEUED = "queued"
+    RUNNING = "running"
+    COMPLETED = "completed"
+    FAILED = "failed"
+    CANCELLED = "cancelled"
 
 
 @dataclass(frozen=True)
@@ -88,6 +110,17 @@ class TpuTopology:
             "dcn_bandwidth_gbps": self.dcn_bandwidth_gbps,
             "peak_bf16_tflops": self.peak_bf16_tflops,
         }
+
+    @property
+    def total_hbm_gb(self) -> float:
+        return self.num_chips * self.hbm_gb_per_chip
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TpuTopology":
+        d = dict(d)
+        d["mesh_shape"] = tuple(d.get("mesh_shape", (1,)))
+        d["mesh_axis_names"] = tuple(d.get("mesh_axis_names", ("data",)))
+        return cls(**d)
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +345,16 @@ def compute_prefix_hash(token_ids: Sequence[int], upto: Optional[int] = None) ->
     for t in ids:
         h.update(int(t).to_bytes(4, "little", signed=False))
     return h.hexdigest()
+
+
+def estimate_kv_cache_bytes(
+    num_layers: int,
+    num_kv_heads: int,
+    head_dim: int,
+    seq_len: int,
+    dtype_bytes: int = 2,
+    batch: int = 1,
+) -> int:
+    """Bytes of KV cache for a sequence: 2 (K and V) * layers * kv_heads *
+    head_dim * seq * dtype_bytes * batch."""
+    return 2 * num_layers * num_kv_heads * head_dim * seq_len * dtype_bytes * batch

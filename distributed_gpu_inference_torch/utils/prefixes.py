@@ -1,8 +1,8 @@
 """Prefix fingerprints — the shared currency of cache-aware routing.
 
-The port's own copy of the worker's half of
-``distributed_gpu_inference_tpu/utils/prefixes.py`` (canonical text and
-boundary fingerprints): both packages must give the same fingerprints for
+The port's own copy of ``distributed_gpu_inference_tpu/utils/prefixes.py``
+(canonical text, boundary fingerprints, and the control plane's screening
+and matching of them): both packages must give the same fingerprints for
 the same prompt text.
 
 Workers hold a radix prefix cache keyed by *token* blocks
@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import os
 
-from typing import Any, List
+from typing import Any, Dict, List, Optional, Sequence
 
 # one fingerprint boundary every this many canonical-text chars; both ends
 # of a comparison MUST use the same value (workers advertise theirs and
@@ -128,3 +128,48 @@ def prefix_fingerprints(text: str,
         if pos in bounds:
             out.append(f"{h:016x}")
     return out
+
+
+def fingerprints_for_params(params: Optional[Dict[str, Any]],
+                            block_chars: int = PREFIX_BLOCK_CHARS,
+                            max_blocks: int = MAX_PREFIX_BLOCKS
+                            ) -> List[str]:
+    """Request fingerprints from job params (server-side fallback when the
+    client sent none): messages win over prompt, mirroring the worker's
+    own input precedence (``TPULLMEngine.inference``)."""
+    if not isinstance(params, dict):
+        return []
+    source = params.get("messages") or params.get("prompt")
+    if not source:
+        return []
+    return prefix_fingerprints(
+        canonical_prompt_text(source), block_chars, max_blocks
+    )
+
+
+def sanitize_fingerprints(fps: Any,
+                          max_blocks: int = MAX_PREFIX_BLOCKS) -> List[str]:
+    """Screen client-supplied fingerprints: a bounded list of short hex
+    strings or nothing — the routing path must never choke on (or store
+    unbounded) hostile input."""
+    if not isinstance(fps, (list, tuple)):
+        return []
+    out: List[str] = []
+    for fp in fps[:max_blocks]:
+        if isinstance(fp, str) and 0 < len(fp) <= 32 and \
+                all(c in "0123456789abcdef" for c in fp):
+            out.append(fp)
+        else:
+            return []    # one malformed entry poisons the list: drop all
+    return out
+
+
+def deepest_match(request_fps: Sequence[str],
+                  advertised: Dict[str, Any]) -> int:
+    """Number of leading blocks of ``request_fps`` a worker's advertised
+    fingerprint set covers: the DEEPEST request boundary present wins
+    (boundary i implies boundaries 0..i-1 hashed the same prefix)."""
+    for i in range(len(request_fps) - 1, -1, -1):
+        if request_fps[i] in advertised:
+            return i + 1
+    return 0

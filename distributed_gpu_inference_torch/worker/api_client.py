@@ -11,7 +11,8 @@ and the same behaviour:
   ``GET /health``;
 - a bearer token, and HMAC-SHA256 signatures over
   ``METHOD:PATH:sha256(BODY):TIMESTAMP`` of exactly the path and body bytes
-  sent (:class:`RequestSigner`, the plane's canonicalization);
+  sent (``server/security.py`` ``RequestSigner``, the one canonicalization
+  the port's plane verifies with);
 - 204 from next-job means "no job";
 - the ``worker.api.request`` fault seam (``testing/faults.py``
   ``wrap_http``) around every exchange, probes included, with the JAX
@@ -26,8 +27,6 @@ configured socket timeout, and closes it.
 
 from __future__ import annotations
 
-import hashlib
-import hmac
 import http.client
 import json
 import random
@@ -35,6 +34,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 from urllib.parse import urlsplit
 
+from distributed_gpu_inference_torch.server.security import RequestSigner
 from distributed_gpu_inference_torch.testing import faults as _faults
 from distributed_gpu_inference_torch.utils.backoff import full_jitter_delay
 
@@ -49,29 +49,15 @@ class APIError(Exception):
         self.detail = detail
 
 
-class RequestSigner:
-    """HMAC-SHA256 request signatures over METHOD:PATH:BODY_HASH:TIMESTAMP
-    (a private copy of the control plane's canonicalization)."""
-
-    @staticmethod
-    def canonical(method: str, path: str, body: bytes, timestamp: str) -> str:
-        body_hash = hashlib.sha256(body or b"").hexdigest()
-        return f"{method.upper()}:{path}:{body_hash}:{timestamp}"
-
-    def sign(self, secret: str, method: str, path: str, body: bytes,
-             timestamp: Optional[str] = None) -> Dict[str, str]:
-        ts = timestamp or str(int(time.time()))
-        msg = self.canonical(method, path, body, ts)
-        sig = hmac.new(secret.encode(), msg.encode(), hashlib.sha256).hexdigest()
-        return {"X-Timestamp": ts, "X-Signature": sig}
-
-
 class Response:
-    """One answered request: status and body bytes."""
+    """One answered request: status, body bytes and headers (an
+    ``http.client`` header message, case-insensitive ``get``)."""
 
-    def __init__(self, status_code: int, content: bytes) -> None:
+    def __init__(self, status_code: int, content: bytes,
+                 headers: Optional[Any] = None) -> None:
         self.status_code = status_code
         self.content = content
+        self.headers = headers if headers is not None else {}
 
     @property
     def text(self) -> str:
@@ -155,7 +141,7 @@ class APIClient:
         try:
             conn.request(method, path, body=body or None, headers=headers)
             resp = conn.getresponse()
-            return Response(resp.status, resp.read())
+            return Response(resp.status, resp.read(), resp.headers)
         finally:
             conn.close()
 

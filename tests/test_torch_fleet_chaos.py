@@ -2,9 +2,11 @@
 ``tests/test_fleet_chaos.py`` run on a :class:`LiveFleet` of the PyTorch
 port (``distributed_gpu_inference_torch/testing/harness.py``) — real port
 ``Worker``s with ``TorchLLMEngine`` (``llama3-tiny``, f32, CPU), the
-port's ``DirectServer`` and heartbeat / poll threads — behind the JAX
-package's ``LiveControlPlane``, with the JAX SDK's ``InferenceClient`` as
-the client. The same seeds, token budgets and invariants as the JAX twins:
+port's ``DirectServer`` and heartbeat / poll threads — behind either
+plane: the JAX package's ``LiveControlPlane`` with the JAX SDK's
+``InferenceClient``, or the port's own ``LiveControlPlane`` with the port's
+SDK (the fleet fixture and the tier-1 cases run on both). The same seeds,
+token budgets and invariants as the JAX twins:
 
 - no lost or duplicated work (every job COMPLETED once, every stream ends
   with ``done`` and gapless, monotonic offsets);
@@ -33,18 +35,22 @@ from distributed_gpu_inference_torch.testing.faults import (  # noqa: E402
     FleetEvent,
     FleetFaultPlan,
 )
+from distributed_gpu_inference_torch.sdk import client as tsdk  # noqa: E402
 from distributed_gpu_inference_torch.testing.harness import (  # noqa: E402
     DEFAULT_FLEET_ENGINE,
     FleetWorker,
     LiveFleet,
 )
-from distributed_gpu_inference_tpu.sdk.client import (  # noqa: E402
-    InferenceClient,
-    InferenceClientError,
+from distributed_gpu_inference_torch.testing.harness import (  # noqa: E402
+    LiveControlPlane as PortControlPlane,
 )
+from distributed_gpu_inference_tpu.sdk import client as jsdk  # noqa: E402
 from distributed_gpu_inference_tpu.testing import faults as jfaults  # noqa: E402
 from distributed_gpu_inference_tpu.testing.harness import LiveControlPlane  # noqa: E402
 from distributed_gpu_inference_tpu.utils.data_structures import JobStatus  # noqa: E402
+
+# the two planes a port fleet runs behind, each with its own package's SDK
+PLANES = ("jax", "port")
 
 N_SEEDS = 25
 
@@ -60,25 +66,37 @@ FLEET_ENGINE = {
 
 def port_fleet(n: int = 2, engine_config: Optional[Dict[str, Any]] = None,
                heartbeat_timeout_s: float = 0.9, submit_queue_limit: int = 0,
-               plane_kw: Optional[Dict[str, Any]] = None, **kw: Any) -> LiveFleet:
-    """A port fleet behind a JAX ``LiveControlPlane`` (the JAX harness's
-    defaults), chaos events recorded in the plane's metrics, the plane-side
-    fault rules armed in the JAX registry."""
+               plane_kw: Optional[Dict[str, Any]] = None, plane: str = "jax",
+               **kw: Any) -> LiveFleet:
+    """A port fleet behind a ``LiveControlPlane`` (the JAX harness's
+    defaults) — the JAX package's (``plane="jax"``, plane-side fault rules
+    armed in the JAX registry) or the port's own (``plane="port"``, whose
+    seams are the port's) — chaos events recorded in the plane's metrics."""
     box: List[LiveFleet] = []
+    cls = LiveControlPlane if plane == "jax" else PortControlPlane
 
-    def plane() -> LiveControlPlane:
-        return LiveControlPlane(heartbeat_timeout_s=heartbeat_timeout_s,
-                                submit_queue_limit=submit_queue_limit,
-                                **(plane_kw or {}))
+    def make_plane() -> Any:
+        return cls(heartbeat_timeout_s=heartbeat_timeout_s,
+                   submit_queue_limit=submit_queue_limit, **(plane_kw or {}))
 
     fl = LiveFleet(
-        n=n, engine_config=engine_config or FLEET_ENGINE, plane_factory=plane,
-        plane_faults=jfaults,
+        n=n, engine_config=engine_config or FLEET_ENGINE, plane_factory=make_plane,
+        plane_faults=jfaults if plane == "jax" else None,
         on_event=lambda k: box[0].plane.state.metrics.record_chaos_event(k),
         **kw,
     )
     box.append(fl)
     return fl
+
+
+def sdk(fleet: LiveFleet) -> Any:
+    """The SDK module of the fleet's plane's package."""
+    return tsdk if isinstance(fleet.plane, PortControlPlane) else jsdk
+
+
+def client(fleet: LiveFleet, **kw: Any) -> Any:
+    """An ``InferenceClient`` of the fleet's plane's package on its URL."""
+    return sdk(fleet).InferenceClient(fleet.url, **kw)
 
 
 def paced(member_cls: Any, pace: Dict[str, float], capacity: Optional[int] = None,
@@ -142,7 +160,7 @@ def drive_open_loop(fleet: LiveFleet, prompts: List[str], seed: int,
     t0 = time.monotonic()
 
     def queued(i: int, prompt: str) -> None:
-        c = InferenceClient(fleet.url, backoff_s=0.05)
+        c = client(fleet, backoff_s=0.05)
         try:
             job_id = c.create_job("llm", {"prompt": prompt, "max_new_tokens": max_tokens})
             job = c.wait_for_job(job_id, timeout_s=90.0, poll_s=0.05)
@@ -153,7 +171,7 @@ def drive_open_loop(fleet: LiveFleet, prompts: List[str], seed: int,
             c.close()
 
     def streamed(i: int, prompt: str) -> None:
-        c = InferenceClient(fleet.url, backoff_s=0.05)
+        c = client(fleet, backoff_s=0.05)
         try:
             chunks = list(c.stream_chat(prompt=prompt, max_new_tokens=max_tokens,
                                         timeout_s=90.0, max_stream_resumes=6))
@@ -217,7 +235,7 @@ def calm_reference(fleet: LiveFleet, records: List[Dict[str, Any]],
                    max_tokens: int) -> None:
     """Replay every prompt on the healthy fleet WITHOUT chaos: greedy text
     byte-identical (resume, splice and preempt/resume compose)."""
-    c = InferenceClient(fleet.url, backoff_s=0.05)
+    c = client(fleet, backoff_s=0.05)
     try:
         for rec in records:
             job_id = c.create_job("llm", {"prompt": rec["prompt"],
@@ -247,10 +265,11 @@ def heal(fleet: LiveFleet) -> None:
 PACE = {"s": 0.0}
 
 
-@pytest.fixture(scope="module")
-def fleet():
+@pytest.fixture(scope="module", params=PLANES)
+def fleet(request):
     member = paced(FleetWorker, PACE)
-    with port_fleet(n=2, member_factory=lambda i, url, role: member(i, url, FLEET_ENGINE)) as f:
+    with port_fleet(n=2, plane=request.param,
+                    member_factory=lambda i, url, role: member(i, url, FLEET_ENGINE)) as f:
         yield f
 
 
@@ -260,8 +279,22 @@ def test_fleet_smoke_kill_one_worker_under_load(fleet):
     (rounds paced 0.3 s, so a 5-token job outlasts its detection), which
     is requeued and completes on the other member; nothing lost, outputs
     byte-identical to the calm fleet, the restarted member back on its own
-    plane row."""
+    plane row.
+
+    Member 1 claims nothing until member 0 holds a running job: the member
+    that polls first could otherwise take every queued job of the
+    workload, and member 0 would hold none to be killed with."""
     wid = fleet.members[0].worker_id
+    other = fleet.members[1].worker
+    hold, held_polls = threading.Event(), []
+    real_poll = other._poll_once
+
+    def held_poll() -> bool:
+        if hold.is_set():
+            held_polls.append(1)
+            return False
+        return real_poll()
+
     prompts = suite_prompts(0, 5)
     out: Dict[str, Any] = {}
     errors: List[BaseException] = []
@@ -276,8 +309,16 @@ def test_fleet_smoke_kill_one_worker_under_load(fleet):
     plan.events = [FleetEvent(0.0, "kill", 0), FleetEvent(1.2, "restart", 0)]
     PACE["s"] = 0.3
     t = threading.Thread(target=traffic, daemon=True)
-    t.start()
+    hold.set()
+    other._poll_once = held_poll
     try:
+        # the poll loop is sequential: once it has called the held poll
+        # twice, no poll it began before the hold is still in flight
+        deadline = time.time() + 30.0
+        while len(held_polls) < 2:
+            assert time.time() < deadline, "member 1's poll loop did not pause"
+            time.sleep(0.01)
+        t.start()
         held: List[str] = []
         deadline = time.time() + 60.0
         while not held:
@@ -285,9 +326,13 @@ def test_fleet_smoke_kill_one_worker_under_load(fleet):
             held = [r["id"] for r in fleet.plane.query(
                 "SELECT id FROM jobs WHERE status='running' AND worker_id=?", (wid,))]
             time.sleep(0 if held else 0.02)
+        hold.clear()
         fleet.run_chaos(plan)
-        t.join(timeout=120.0)
     finally:
+        hold.clear()
+        del other._poll_once
+        if t.is_alive():
+            t.join(timeout=120.0)
         fleet.wait_chaos()
         heal(fleet)
         PACE["s"] = 0.0
@@ -334,21 +379,23 @@ def test_fleet_chaos_seeded(fleet, seed):
 
 @pytest.mark.slow
 @pytest.mark.fleet_chaos
-def test_fleet_backpressure_engages_when_capacity_shrinks():
+@pytest.mark.parametrize("plane", PLANES)
+def test_fleet_backpressure_engages_when_capacity_shrinks(plane):
     """Kill one of two port replicas, flood the queue past
     submit_queue_limit: 429 + Retry-After; accepted jobs still complete and
     the restarted replica re-absorbs load."""
-    with port_fleet(n=2, submit_queue_limit=3) as fl:
+    with port_fleet(n=2, submit_queue_limit=3, plane=plane) as fl:
         fl.members[0].kill()
         fl.plane.state.metrics.record_chaos_event("kill")
-        c = InferenceClient(fl.url, backoff_s=0.0, max_retries=0)
+        client_error = sdk(fl).InferenceClientError
+        c = client(fl, backoff_s=0.0, max_retries=0)
         rejected, accepted = 0, []
         try:
             for i in range(14):
                 try:
                     accepted.append(c.create_job(
                         "llm", {"prompt": f"bp{i} abcdefgh", "max_new_tokens": 4}))
-                except InferenceClientError as exc:
+                except client_error as exc:
                     assert exc.status == 429
                     assert exc.retry_after_s is not None and exc.retry_after_s > 0
                     rejected += 1
@@ -368,15 +415,16 @@ def test_fleet_backpressure_engages_when_capacity_shrinks():
 
 @pytest.mark.slow
 @pytest.mark.fleet_chaos
-def test_partitioned_worker_loses_prefix_affinity_live():
+@pytest.mark.parametrize("plane", PLANES)
+def test_partitioned_worker_loses_prefix_affinity_live(plane):
     """Requests sharing a prefix warm one port worker's radix summary; a
     partition takes it out; discovery for the prefix lands on the other
     replica while the partition holds, and the invalidation is counted."""
     from distributed_gpu_inference_tpu.utils.prefixes import prefix_fingerprints
 
-    with port_fleet(n=2) as fl:
+    with port_fleet(n=2, plane=plane) as fl:
         shared = "shared prefix " + "q" * 120
-        c = InferenceClient(fl.url, backoff_s=0.05)
+        c = client(fl, backoff_s=0.05)
         try:
             fps = prefix_fingerprints(shared)
             assert fps
@@ -417,16 +465,17 @@ def test_partitioned_worker_loses_prefix_affinity_live():
 # ---------------------------------------------------------------------------
 
 
-def test_fake_members_complete_jobs_through_a_kill_and_restart():
+@pytest.mark.parametrize("plane", PLANES)
+def test_fake_members_complete_jobs_through_a_kill_and_restart(plane):
     """Engine-free members on the port's APIClient: every queued job
     completes once through a kill + restart, and the restart keeps its
     plane row."""
-    with port_fleet(n=2, fake_engines=True) as fl:
+    with port_fleet(n=2, fake_engines=True, plane=plane) as fl:
         wid = fl.members[0].worker_id
         plan = FleetFaultPlan(0, n_workers=2, duration_s=1.0)
         plan.events = [FleetEvent(0.1, "kill", 0), FleetEvent(0.6, "restart", 0)]
         fl.run_chaos(plan)
-        c = InferenceClient(fl.url, backoff_s=0.05)
+        c = client(fl, backoff_s=0.05)
         try:
             jids = [c.create_job("llm", {"prompt": f"fake {i}"}) for i in range(6)]
             fl.wait_chaos()
@@ -440,7 +489,8 @@ def test_fake_members_complete_jobs_through_a_kill_and_restart():
         assert [k for _, k, _ in plan.trace] == ["kill", "restart"]
 
 
-def test_member_weights_hook_and_pd_data_plane():
+@pytest.mark.parametrize("plane", PLANES)
+def test_member_weights_hook_and_pd_data_plane(plane):
     """A member's weights come from a numpy tree (every restart converts it
     again); a PD member serves its worker's KV
     data plane on a free port and registers it; a killed member's client
@@ -449,7 +499,7 @@ def test_member_weights_hook_and_pd_data_plane():
     from distributed_gpu_inference_torch.models.convert import params_to_numpy
     from distributed_gpu_inference_torch.worker.api_client import APIError
 
-    with LiveControlPlane() as cp:
+    with (LiveControlPlane if plane == "jax" else PortControlPlane)() as cp:
         m = FleetWorker(0, cp.url, FLEET_ENGINE, pd_data_plane=True, role="decode")
         m.start()
         try:

@@ -159,6 +159,63 @@ def _import_sites(path, root):
     return out
 
 
+def test_control_plane_and_sdk_import_nothing_of_jax():
+    # the port's plane, its HTTP layer, the SDK and the harness's live
+    # plane carry no JAX, no module of the JAX package, no aiohttp/httpx;
+    # chip_smoke.py's phase 25 runs them beside the card
+    plane = sorted((ROOT / "distributed_gpu_inference_torch" / "server").glob("*.py")) + \
+        sorted((ROOT / "distributed_gpu_inference_torch" / "sdk").glob("*.py"))
+    names = {f.name for f in plane}
+    assert {"app.py", "web.py", "store.py", "scheduler.py", "admission.py",
+            "prefix_routing.py", "health.py", "task_guarantee.py", "observability.py",
+            "plane_cluster.py", "pd_scheduler.py", "pd_flow.py", "privacy.py",
+            "prom_text.py", "client.py"} <= names
+    assert set(plane) <= set(_port_files())
+    for f in plane + [ROOT / "distributed_gpu_inference_torch/testing/harness.py",
+                      ROOT / "chip_smoke.py"]:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    assert "def deployment_phase(" in (ROOT / "chip_smoke.py").read_text()
+
+
+@pytest.mark.parametrize("root,module,functions", [
+    ("prometheus_client", None, None),
+    ("opentelemetry", "server/observability.py", {"_otel"}),
+    ("cryptography", "server/privacy.py", {"_load_crypto"}),
+])
+def test_optional_plane_packages_are_imported_only_lazily(root, module, functions):
+    # the card has none of them: each is imported inside the one function
+    # that turns its absence into a fallback or an error naming it.
+    # /metrics is always server/prom_text.py, so prometheus_client is
+    # imported nowhere
+    sites = {str(f.relative_to(ROOT)): _import_sites(f, root) for f in _port_files()}
+    sites = {k: v for k, v in sites.items() if v}
+    if module is None:
+        assert sites == {}
+        return
+    assert list(sites) == [f"distributed_gpu_inference_torch/{module}"]
+    assert {fn for fn, _ in sites[f"distributed_gpu_inference_torch/{module}"]} == functions
+
+
+def test_the_plane_imports_without_its_optional_packages():
+    code = ("import sys\n"
+            "for m in ('prometheus_client', 'opentelemetry', 'cryptography', 'aiohttp', "
+            "'httpx', 'jax'):\n"
+            "    sys.modules[m] = None\n"
+            "from distributed_gpu_inference_torch.server.app import ServerState, create_app\n"
+            "from distributed_gpu_inference_torch.sdk import InferenceClient\n"
+            "st = ServerState()\n"
+            "create_app(st, start_background=False)\n"
+            "st.metrics.record_request('llm', 'completed', 0.1)\n"
+            "text = st.metrics.render().decode()\n"
+            "assert 'inference_requests_total{job_type=\"llm\",status=\"completed\"} 1.0' "
+            "in text, text\n"
+            "assert not st.tracing.enabled\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
 def test_yaml_is_imported_only_lazily_behind_its_error():
     # PyYAML may be missing on the card: one import, inside the function
     # that turns its absence into an error naming it

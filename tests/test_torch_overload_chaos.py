@@ -2,8 +2,8 @@
 ``tests/test_overload_chaos.py`` on a port ``LiveFleet`` (``TorchLLMEngine``
 ``llama3-tiny``, f32, CPU) behind the JAX package's ``LiveControlPlane``
 with its admission ladder and tier queue fractions, the JAX SDK as the
-client and the JAX ``BrownoutAutoscaler`` driven through the port's
-``FleetAutoscaler``.
+client and the port's ``BrownoutAutoscaler`` (``server/autoscaler.py``)
+driven through the port's ``FleetAutoscaler``.
 
 A 10x free-tier burst with paced paid traffic and one paid stream, under
 seeded kill/restart chaos in the heavy suite: paid is never shed, every
@@ -32,7 +32,7 @@ from distributed_gpu_inference_tpu.sdk.client import (  # noqa: E402
     InferenceClient,
     InferenceClientError,
 )
-from distributed_gpu_inference_tpu.server.autoscaler import (  # noqa: E402
+from distributed_gpu_inference_torch.server.autoscaler import (  # noqa: E402
     AutoscalerConfig,
     BrownoutAutoscaler,
 )
