@@ -4,7 +4,7 @@
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --phase 24     # the build, then phase 24 alone
 
-``--phase`` takes the phases whose inputs are their own (16-19, 21-25;
+``--phase`` takes the phases whose inputs are their own (16-19, 21-26;
 repeatable; phase 16 alone loads phase 7's engine as its A); the others
 run only in the whole script. A guard thread stops
 the run (exit 3) if the host's available memory falls below
@@ -572,11 +572,56 @@ The whole deployment on the card's host:
     p50 / p95, the heartbeat round trip p50 / p95, kill -> requeue and
     kill -> first resumed token seconds, the phase's seconds.
 
+The native radix index, seq x model meshes, migration under TP and the
+in-mesh stage pipeline:
+
+26. after phase 25. llama3-8b at full width (hidden 4096, 32/8 heads,
+    vocab 128256), int8 weights, MESH_LAYERS of its 32 layers, seed 0;
+    every rank on cuda:0 over gloo. (a) The C++ radix index
+    (``native/src/radix_index.cpp``, built with the system g++ into
+    ``build/native/`` at first use): its library and source named; every
+    engine of the whole run holds it (:class:`NativeIndexCheck`, installed
+    before the first engine, fails the run on a Python fallback); a seeded
+    parity fuzz against the Python index at block sizes 16, 4 and 1 (the
+    interior-eviction refusal met); insert and match timed on phase 7's
+    prompts (host times, the host's CPU named). (b) seq 2 x model 2, four
+    ranks: a seq 1 x model 1 engine at the same depth serves a
+    MESH_LONG-token prompt then a wave of four short ones (MESH_TOKENS
+    greedy tokens each; prefill buckets up to 1024, so the long prompt
+    takes one ring pass on the mesh); then the 2-D engine with
+    ``kv_seq_sharded`` int8 pools (each rank 1/4 of each data pool and 1/2
+    of each scale pool; every rank launches qmm and no attention kernel)
+    and with replicated int8 pools (seq row 0 a tp 2 engine launching
+    ragged and qmm, row 1 joining only the ring prefill) serve the same;
+    their streams judged against the seq 1 x model 1 engine's with
+    ``check_sampled``; each pass prints tok/s, TTFT, the ring prefill's ms,
+    each rank's peak memory and pool bytes against seq 1 x model 1's, and
+    the collectives (count, ms) of the group over every rank and of each
+    rank's ``model`` and ``seq`` sub-groups. (c) bf16 pools: a tp 2 engine
+    exports a MIGRATE_PREFIX-token prefix (``export_prefix_frames``) to a
+    one-device engine's ``HandoffReceiver`` and the one-device engine
+    another back, pages bitwise equal on both sides; the pulled prompt's
+    TTFT against a recompute; ``migrate_kv_device`` between two tp 2
+    engines (through the ranks' gathers and pushes), pages bitwise equal
+    and the donor's and recipient's greedy continuations equal. (d)
+    ``pipelined_forward`` on PIPE_STAGES stage ranks (``run_group``):
+    PIPE_MICRO x PIPE_MB x PIPE_S then one decode tick against
+    ``forward_chunk`` on one rank, logits by the argmax and NEAR_TIE rules,
+    every stage's pools bitwise equal to its layers of the one-rank pools;
+    ms a tick. Then the kernels at every shape (b) and (c) gave them
+    (:class:`PathShapes`) held to their plain versions, the decode shapes
+    timed (``@mesh`` entries, each with the launches of its pool kind; a
+    shape whose kind launched nothing counted, the one-device reference's,
+    is timed and left out of the line). Launches (every rank) are added to
+    the kernels line's entries: (b)'s to the int8 ones, (c)'s and (d)'s to
+    the bf16 ragged and fused decode ones, qmm to the int8 qmm entry. NCCL is
+    not exercised: it refuses ranks that share one card.
+
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
 entries for phase 12, ``@verify`` / ``@m40`` entries for phase 15,
 ``@moe-*`` entries for phase 19, ``@tp2`` entries for phase 23, ``@seq``
-entries for phase 24), the
+entries for phase 24, ``@mesh`` entries for phase 26), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -7902,7 +7947,7 @@ def path_pools(torch, g, shape, scaled, dev):
     return kv_pools(torch, kp, vp, "int8" if scaled else "bf16")
 
 
-def seq_kernel_parity(torch, pa, shapes, flush, dev):
+def seq_kernel_parity(torch, pa, shapes, flush, dev, tag="seq", max_len=None):
     """The three kernels at every shape :class:`PathShapes` recorded on
     the path, on seeded pools of the engines' own size with the recorded
     tables, positions and lengths, held to their plain versions with the
@@ -7910,11 +7955,14 @@ def seq_kernel_parity(torch, pa, shapes, flush, dev):
     row, to bound its scores' memory); the fused kernel's pools bitwise
     equal to the plain write's. Then the seq engines' decode shape and the
     tp 2 decode engine's, each timed as phase 10 times: ``@seq`` entries
-    (launches filled in by the caller). → (max abs err by kernel, the
-    timed cases' timing keys by entry name)."""
+    (launches filled in by the caller). ``tag`` names the phase in its
+    lines and entries (``@<tag>``), ``max_len`` its engines' longest
+    tables (SEQ_MAX_LEN). → (max abs err by kernel, the timed cases'
+    timing keys by entry name)."""
     from distributed_gpu_inference_torch.ops import qmm
     from distributed_gpu_inference_torch.ops.attention import paged_attention_ref
 
+    max_len = max_len or SEQ_MAX_LEN
     g = torch.Generator(device=dev).manual_seed(24)
     worst = {"ragged_paged_attention": 0.0, "paged_decode_attention_fused": 0.0,
              "qmm_w8a16": 0.0}
@@ -7939,22 +7987,22 @@ def seq_kernel_parity(torch, pa, shapes, flush, dev):
             r_ok, r_err, r_vec = errors(torch, got[i:i + 1], want, atol)
             ok, err, vec, rows = ok and r_ok, max(err, r_err), max(vec, r_vec), rows + 1
         pad_zero = bool((got[pos < 0] == 0).all().item())
-        print(f"[seq] path shape: ragged q {list(qs)}, pool {list(ps)}, M {tables.shape[1]}, "
+        print(f"[{tag}] path shape: ragged q {list(qs)}, pool {list(ps)}, M {tables.shape[1]}, "
               f"kv lens {sorted(set(lens.tolist()))} ({rows} live rows): max_abs_err {err:.3e} "
               f"max_vector_rel_err {vec:.3e} (bound atol {atol:.3e} rtol {RTOL}, vector "
               f"{VEC_REL}); pad queries exact zero: {pad_zero}", flush=True)
         if not (ok and pad_zero):
             bad.append(f"ragged at {qs}, M {tables.shape[1]}")
         worst["ragged_paged_attention"] = max(worst["ragged_paged_attention"], err)
-        if qs[1] == 1 and tables.shape[1] == SEQ_MAX_LEN // BK:
+        if qs[1] == 1 and tables.shape[1] == max_len // BK:
             # a decode round (one query a row) at the long tables: the tp 2
             # decode engine's, whose int8 pools decode through this kernel
             hs, kind = (qs[2], ps[1], qs[3]), "int8" if scaled else "bf16"
             case = (q, kq, vq, ks, vs, tables, pos, lens,
                     (tables.cpu().numpy(), pos.cpu().numpy(), lens.cpu().numpy()))
-            name = f"ragged_paged_attention[{kind}]@seq" + ("-tp2" if qs[2] < NH else "")
+            name = f"ragged_paged_attention[{kind}]@{tag}" + ("-tp2" if qs[2] < NH else "")
             timed[name] = (ragged_times(
-                torch, pa, paged_attention_ref, flush, f"[seq] ragged decode round, heads {hs}, "
+                torch, pa, paged_attention_ref, flush, f"[{tag}] ragged decode round, heads {hs}, "
                 f"M {tables.shape[1]}, kv lens {lens.tolist()}", case, kind, hs=hs), err)
         del q, kq, vq, ks, vs, got
     for (qs, ps, scaled, window), (tables, pos, lens) in sorted(shapes.fused.items(),
@@ -7970,7 +8018,7 @@ def seq_kernel_parity(torch, pa, shapes, flush, dev):
         kind = "int8" if scaled else "bf16"
         try:
             err = long_parity_fused(torch, pa, kind, case,
-                                    f"[seq] path shape: fused decode q {list(qs)}, pools "
+                                    f"[{tag}] path shape: fused decode q {list(qs)}, pools "
                                     f"{list(ps)} (layer {layer}), M {tables.shape[1]} (plan "
                                     f"{pa.kv_split_plan(tables.shape[1], BK)}), kv lens "
                                     f"{lens_np.tolist()}")
@@ -7978,26 +8026,27 @@ def seq_kernel_parity(torch, pa, shapes, flush, dev):
             bad.append(str(e))
             continue
         worst["paged_decode_attention_fused"] = max(worst["paged_decode_attention_fused"], err)
-        timed[f"paged_decode_attention_fused[{kind}]@seq"] = (decode_times(
-            torch, pa, flush, f"[seq] fused decode of the seq engines, M {tables.shape[1]}, kv "
+        name = f"paged_decode_attention_fused[{kind}]@{tag}" + ("-tp2" if nh < NH else "")
+        timed[name] = (decode_times(
+            torch, pa, flush, f"[{tag}] fused decode of the seq engines, M {tables.shape[1]}, kv "
             f"lens {lens_np.tolist()}", case, kind, hs=(nh, ps[2], d)), err)
         del q, nk, nv, kq, vq, ks, vs, case
     for m, k, n in sorted(shapes.qmm):
         try:
-            *_, err = qmm_layer_parity(torch, qmm, dev, [("path", k, n)], "[seq]", m=m)
+            *_, err = qmm_layer_parity(torch, qmm, dev, [("path", k, n)], f"[{tag}]", m=m)
         except AssertionError as e:
             bad.append(str(e))
             continue
-        print(f"[seq] path shape: qmm int8 M={m} K={k} N={n} (plan "
+        print(f"[{tag}] path shape: qmm int8 M={m} K={k} N={n} (plan "
               f"{qmm.split_plan(m, k, n)}): max abs err {err:.3e} (bound atol {QMM_ATOL} "
               f"rtol {RTOL}, row {VEC_REL})", flush=True)
         worst["qmm_w8a16"] = max(worst["qmm_w8a16"], err)
     torch.cuda.empty_cache()
-    print(f"[seq] the kernels at every shape the path gave them ({len(shapes.ragged)} ragged, "
+    print(f"[{tag}] the kernels at every shape the path gave them ({len(shapes.ragged)} ragged, "
           f"{len(shapes.fused)} fused decode, {len(shapes.qmm)} qmm) against their plain "
           f"versions: max abs err {worst}", flush=True)
     if bad:
-        raise AssertionError(f"[seq] kernels disagree with their plain versions: {bad}")
+        raise AssertionError(f"[{tag}] kernels disagree with their plain versions: {bad}")
     return worst, timed
 
 
@@ -8414,9 +8463,584 @@ def deployment_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="i
     return counts
 
 
+# ------------------------------------- the native index, seq x model meshes,
+# migration under TP and the in-mesh stage pipeline
+
+MESH_LAYERS = 8               # llama3-8b's depth in phase 26, cut (full width)
+MESH_SEQ, MESH_MODEL = 2, 2   # (b): four ranks on cuda:0
+MESH_LONG = 2048              # (b): the long prompt, through the ring prefill
+MESH_WAVE = (40, 120, 300, 600)   # (b): the wave of four short prompts
+MESH_TOKENS = 16              # greedy tokens of each (b) request
+MESH_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)   # so the long prompt takes the ring
+MESH_MAX_LEN = 4096
+MESH_BLOCKS = 512             # pool blocks of (b)'s engines (16 tokens each)
+MIGRATE_PREFIX = 512          # (c): tokens of the migrated prefix
+MIGRATE_TAIL = 16             # (c): fresh tokens after it in the pulled prompt
+MIGRATE_TOKENS = 8            # (c): greedy tokens of each request
+PIPE_MICRO, PIPE_MB, PIPE_S = 4, 2, 256   # (d): n_micro x mb x S
+PIPE_STAGES = 2
+PIPE_BLOCKS = 1 + PIPE_MICRO * PIPE_MB * (PIPE_S // BK + 1)
+NATIVE_FUZZ_OPS = 4000        # (a): operations of the seeded parity fuzz
+NATIVE_TIMED_REPS = 200       # (a): timed rounds of match and insert
+
+
+class NativeIndexCheck:
+    """Every prefix index the script's engines build is the C++ one:
+    ``runtime/kv_cache.py`` ``make_radix_index`` wrapped so that a Python
+    fallback fails the run; ``built`` counts the indexes built."""
+
+    def __init__(self):
+        from distributed_gpu_inference_torch.runtime import kv_cache
+
+        self.built = 0
+        real = kv_cache.make_radix_index
+
+        def checked(block_size=16):
+            idx = real(block_size)
+            if not getattr(idx, "native", False):
+                raise AssertionError(f"an engine's block manager holds {type(idx).__name__}, "
+                                     "not the native radix index")
+            self.built += 1
+            return idx
+
+        kv_cache.make_radix_index = checked
+
+
+def host_name():
+    """The host's CPU as ``/proc/cpuinfo`` names it (its architecture where
+    it names none), and its core count."""
+    import os
+    import platform
+
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.split(":")[0].strip() in ("model name", "Model")), None)
+    except OSError:
+        pass
+    return f"{model or platform.machine() + ' CPU'}, {os.cpu_count()} cores"
+
+
+def native_fuzz(seed, bs, n_ops):
+    """The port's native index and its Python index through the same
+    seeded operations → (operations, interior refusals); raises where they
+    part."""
+    import random
+
+    from distributed_gpu_inference_torch.native.radix import NativeRadixPrefixIndex
+    from distributed_gpu_inference_torch.runtime.kv_cache import RadixPrefixIndex
+
+    rng = random.Random(seed)
+    cc, py = NativeRadixPrefixIndex(bs), RadixPrefixIndex(bs)
+    nxt, inserted, refused = 1, [], 0
+    for step in range(n_ops):
+        r = rng.random()
+        toks = [rng.randrange(0, 6) for _ in range(rng.randrange(0, 8 * bs))]
+        if r < 0.4:
+            got = [cc.match_prefix(toks), py.match_prefix(toks)]
+        elif r < 0.75:
+            blocks = list(range(nxt, nxt + len(toks) // bs + rng.randrange(0, 2)))
+            nxt += len(blocks)
+            inserted += blocks
+            got = [cc.insert(np.asarray(toks, np.int32), blocks), py.insert(toks, blocks)]
+        elif inserted:
+            bid = rng.choice(inserted)
+            got = []
+            for idx in (cc, py):
+                try:
+                    idx.remove_block(bid)
+                    got.append(("removed", idx.contains_block(bid), idx.is_leaf(bid)))
+                except ValueError:
+                    got.append(("refused", idx.contains_block(bid), idx.is_leaf(bid)))
+            refused += got[0][0] == "refused"
+        else:
+            continue
+        if got[0] != got[1] or len(cc) != len(py):
+            raise AssertionError(f"[mesh] (a) the native index parts from the Python one at "
+                                 f"operation {step}: {got}, sizes {len(cc)} vs {len(py)}")
+    return n_ops, refused
+
+
+def native_times(prompts):
+    """Match and insert on phase 7's prompts (one token a byte, block 16):
+    µs a call, native and Python, on the host's clock."""
+    from distributed_gpu_inference_torch.native.radix import NativeRadixPrefixIndex
+    from distributed_gpu_inference_torch.runtime.kv_cache import RadixPrefixIndex
+
+    ids = [list(p.encode()) for p in prompts]
+    out = {}
+    for name, make in (("native", NativeRadixPrefixIndex), ("python", RadixPrefixIndex)):
+        ins = mat = 0.0
+        for rep in range(NATIVE_TIMED_REPS):
+            idx = make(BK)
+            t0 = time.perf_counter()
+            for i, p in enumerate(ids):
+                idx.insert(np.asarray(p, np.int32), list(range(1 + 64 * i, 1 + 64 * i + 64)))
+            t1 = time.perf_counter()
+            for p in ids:
+                idx.match_prefix(p)
+            t2 = time.perf_counter()
+            ins, mat = ins + t1 - t0, mat + t2 - t1
+        calls = NATIVE_TIMED_REPS * len(ids)
+        out[name] = (ins / calls * 1e6, mat / calls * 1e6)
+    return out
+
+
+def native_check(smi, prompts, check):
+    """(a): the native index built from the checkout's source, held to the
+    Python index on seeded operations, and timed on phase 7's prompts."""
+    from distributed_gpu_inference_torch import native
+
+    if not native.native_available():
+        raise AssertionError("[mesh] (a) the native radix index did not build")
+    lib = native.library_path()
+    print(f"[mesh] (a) native radix index: {lib.relative_to(lib.parents[2])} built from "
+          f"{native.SRC.relative_to(native.SRC.parents[3])} ({lib.stat().st_size} B); "
+          f"{check.built} engine indexes built so far, every one native", flush=True)
+    fuzz = [native_fuzz(seed, bs, NATIVE_FUZZ_OPS) for seed, bs in ((26, BK), (27, 4), (28, 1))]
+    print(f"[mesh] (a) seeded parity fuzz against the Python index, block sizes 16 / 4 / 1: "
+          f"{[n for n, _ in fuzz]} operations, interior evictions refused "
+          f"{[r for _, r in fuzz]}, no difference", flush=True)
+    if not all(r > 0 for _, r in fuzz):
+        raise AssertionError("[mesh] (a) the fuzz never met an interior eviction")
+    t = native_times(prompts)
+    print(f"[mesh] (a) phase 7's 8 prompts (64-600 tokens, one a byte), host times on "
+          f"{host_name()}: insert native {t['native'][0]:.2f} µs a call, Python "
+          f"{t['python'][0]:.2f} µs; match native {t['native'][1]:.2f} µs, Python "
+          f"{t['python'][1]:.2f} µs ({smi})", flush=True)
+
+
+def mesh_engine(torch, cfg, device, plan=None, **over):
+    """Phase 26's engines: ``cfg`` with int8 weights, seed 0, the prefix
+    cache off unless ``over`` says otherwise, pools ``over`` gives (int8
+    by default); ``plan`` a (seq, model) mesh with every rank on ``device``
+    (cuda:0). → (the engine, its load seconds)."""
+    from distributed_gpu_inference_torch.parallel.mesh import MeshPlan
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, TorchEngine
+
+    base = dict(max_batch_size=len(MESH_WAVE), max_seq_len=MESH_MAX_LEN,
+                num_blocks=MESH_BLOCKS, enable_prefix_cache=False, quantization="int8",
+                kv_cache_dtype="int8", prefill_buckets=MESH_BUCKETS)
+    dev = "cuda:0" if device == "cuda" else device
+    n = plan[0] * plan[1] if plan else 1
+    t0 = time.perf_counter()
+    eng = TorchEngine(cfg, EngineConfig(**{**base, **over}), seed=0, device=device,
+                      rank_devices=[dev] * n if n > 1 else None,
+                      mesh=MeshPlan(seq=plan[0], model=plan[1]) if plan else None)
+    sync(torch, device)
+    return eng, time.perf_counter() - t0
+
+
+def mesh_ids(vocab):
+    """(b)'s prompts: the long one, then the wave."""
+    rng = np.random.default_rng(26)
+    return ([[int(t) for t in rng.integers(0, vocab, MESH_LONG)]]
+            + [[int(t) for t in rng.integers(0, vocab, n)] for n in MESH_WAVE])
+
+
+def mesh_serve(torch, tag, engine, ids, tags, trace, device):
+    """The long prompt alone, then the wave, through ``generate`` under
+    the trace (tag ``tag``): counters and collectives zeroed before, read
+    after. → (responses, wall s, launches by rank, collectives by rank and
+    axis, memory by rank)."""
+    trace_on(trace, engine)
+    mesh = engine._ranks is not None
+    if mesh:
+        engine.rank_collective_stats(reset=True)
+    engine.reset_rank_launch_counts()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tags.tag = tag
+    t0 = time.perf_counter()
+    outs = [o for batch in (ids[:1], ids[1:]) for o in
+            engine.generate(tp_requests(batch, MESH_TOKENS), use_multi_step=True)]
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    tags.tag = None
+    bad = [(o.error, len(o.token_ids)) for o in outs
+           if o.error or len(o.token_ids) != MESH_TOKENS]
+    if bad:
+        raise AssertionError(f"[mesh] {tag}: requests failed: {bad}")
+    coll = ({axis: engine.rank_collective_stats(axis=axis) for axis in (None, "model", "seq")}
+            if mesh else {})
+    return outs, wall, engine.rank_launch_counts(), coll, engine.rank_memory()
+
+
+def mesh_report(tag, engine, res, one_pools, smi):
+    outs, wall, counts, coll, mem = res
+    n_sp = engine.stats.get("seq_parallel_prefills", 0)
+    sp_ms = engine.stats.get("seq_parallel_prefill_s", 0.0) * 1e3 / max(n_sp, 1)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    line = (f"[mesh] {tag}: the {MESH_LONG}-token prompt then a wave of {len(MESH_WAVE)}, "
+            f"{MESH_TOKENS} greedy tokens each, in {wall:.2f} s ({n_tok / wall:.1f} tok/s); "
+            f"seq-parallel prefills {n_sp} ({sp_ms:.1f} ms each); TTFT ms "
+            f"{[round(o.ttft_ms, 1) for o in outs]}; peak memory by rank "
+            f"{[gib(m.get('peak', 0)) for m in mem]}, pools by rank "
+            f"{[gib(m['pool_bytes']) for m in mem]}")
+    if one_pools:
+        line += (f" = {[round(m['pool_bytes'] / one_pools, 4) for m in mem]} of seq 1 x "
+                 f"model 1's {gib(one_pools)}")
+    for axis, stats in coll.items():
+        name = "every rank" if axis is None else f"the {axis} sub-groups"
+        line += f"; collectives of {name} by rank (count, ms) {[coll_text(c) for c in stats]}"
+    print(line + f"; launches by rank {counts} ({smi})", flush=True)
+
+
+def mesh_serving(torch, smi, cfg, tags, trace, device):
+    """(b): the one-device engine, then the seq 2 x model 2 engines, block-
+    sharded and replicated, serving :func:`mesh_ids`. → launches summed
+    over every rank."""
+    ids = mesh_ids(cfg.vocab_size)
+    total = {}
+    one, t_one = mesh_engine(torch, cfg, device)
+    try:
+        print(f"[mesh] seq 1 x model 1 engine ({MESH_LAYERS} layers, int8 weights and pools) "
+              f"loaded in {t_one:.1f} s", flush=True)
+        res = mesh_serve(torch, "one", one, ids, tags, trace, device)
+        one_pools = res[4][0]["pool_bytes"]
+        mesh_report("seq 1 x model 1", one, res, None, smi)
+    finally:
+        release(torch, device, one)
+        del one
+    data_share = (1 / (MESH_SEQ * MESH_MODEL), 1 / MESH_SEQ)
+    for tag, over in (("sharded", {"kv_seq_sharded": True}), ("replicated", {})):
+        eng, t_load = mesh_engine(torch, cfg, device, (MESH_SEQ, MESH_MODEL), **over)
+        try:
+            st = eng.get_stats()["mesh"]
+            print(f"[mesh] {tag}: seq {st['seq']} x model {st['model']} engine (ranks on "
+                  f"{eng._ranks.spec.devices}, backend {st['backend']}) loaded in "
+                  f"{t_load:.1f} s", flush=True)
+            res = mesh_serve(torch, tag, eng, ids, tags, trace, device)
+            mesh_report(f"seq 2 x model 2, {tag} pools", eng, res, one_pools, smi)
+            if eng.stats.get("seq_parallel_prefills") != 1:
+                raise AssertionError(f"[mesh] {tag}: the long prompt did not take the ring")
+            counts = res[2]
+            for c in counts:
+                add_counts(total, c)
+            if tag == "sharded":
+                # every rank runs every forward: qmm; reads are the
+                # partial-softmax ops, no kernel
+                seq_counts_check(tag, counts, [{"qmm_w8a16"}] * 4)
+                # data pools: heads / model and blocks / seq; scales blocks / seq
+                whole = MESH_BLOCKS * MESH_LAYERS * BK
+                shares = (eng.kv["k"].numel() / (whole * cfg.num_kv_heads * cfg.head_dim),
+                          eng.kv["k_scale"].numel() / whole)
+                print(f"[mesh] sharded: rank 0 holds {shares[0]:.4f} of each data pool and "
+                      f"{shares[1]:.4f} of each scale pool", flush=True)
+                if any(abs(a - b) > 1e-9 for a, b in zip(shares, data_share)):
+                    raise AssertionError(f"[mesh] sharded: rank 0 holds {shares}")
+            else:
+                # seq row 0 serves as a tp 2 engine: int8 pools decode through
+                # ragged; row 1 joins only the ring prefill (no kernel: its
+                # rows are above qmm's row bound)
+                seq_counts_check(tag, counts, [{"ragged_paged_attention", "qmm_w8a16"}] * 2
+                                 + [set()] * 2)
+        finally:
+            release(torch, device, eng)
+            del eng
+    return total, ids
+
+
+def migrate_pages_equal(torch, a, a_blocks, b, b_blocks):
+    pa_, pb = a.gather_pages(a_blocks), b.gather_pages(b_blocks)
+    return bool(torch.equal(raw(torch, pa_.pages), raw(torch, pb.pages)))
+
+
+def prefix_export(kh, src, dst, prompt, key):
+    """``src`` serves ``prompt`` (its radix then holds the prefix), then
+    exports the prefix's frames to ``dst``'s receiver. → (blocks, bytes,
+    ms of export + adopt, src blocks, dst blocks)."""
+    src.generate(tp_requests([prompt], 1))
+    t0 = time.perf_counter()
+    frames, info = kh.export_prefix_frames(src, prompt, key)
+    rx = kh.HandoffReceiver(dst)
+    last = [rx.handle(f) for f in frames][-1]
+    ms = (time.perf_counter() - t0) * 1e3
+    if last.get("state") != "committed" or info["dev_blocks"] != MIGRATE_PREFIX // BK:
+        raise AssertionError(f"[mesh] (c) the prefix did not migrate: {last}, {info}")
+    n = MIGRATE_PREFIX // BK
+    return (n, sum(len(f) for f in frames), ms, src.manager.radix.match_prefix(prompt)[:n],
+            dst.manager.radix.match_prefix(prompt)[:n])
+
+
+def mesh_migration(torch, smi, cfg, device):
+    """(c), bf16 pools: a tp 2 engine's 512-token prefix to a one-device
+    engine and another back, bitwise; the pulled prompt's TTFT against a
+    recompute; ``migrate_kv_device`` between two tp 2 engines. → launches
+    summed over every rank."""
+    from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+
+    rng = np.random.default_rng(260)
+    p_out, p_back = ([int(t) for t in rng.integers(0, cfg.vocab_size, MIGRATE_PREFIX)]
+                     for _ in range(2))
+    tail = [int(t) for t in rng.integers(0, cfg.vocab_size, MIGRATE_TAIL)]
+    total = {}
+    over = dict(kv_cache_dtype=None, enable_prefix_cache=True)
+    tp_a = one = tp_b = None
+    try:
+        tp_a, t_a = mesh_engine(torch, cfg, device, (1, 2), **over)
+        one, t_one = mesh_engine(torch, cfg, device, **over)
+        print(f"[mesh] (c) tp 2 and one-device engines (bf16 pools) loaded in {t_a:.1f} s and "
+              f"{t_one:.1f} s", flush=True)
+        for eng in (tp_a, one):
+            eng.reset_rank_launch_counts()
+        n, nbytes, ms, a_blocks, o_blocks = prefix_export(kh, tp_a, one, p_out, "tp-out")
+        out_eq = migrate_pages_equal(torch, tp_a, a_blocks, one, o_blocks)
+        n2, nbytes2, ms2, o_blocks2, a_blocks2 = prefix_export(kh, one, tp_a, p_back, "tp-back")
+        back_eq = migrate_pages_equal(torch, one, o_blocks2, tp_a, a_blocks2)
+        print(f"[mesh] (c) prefix frames: tp 2 → one device {n} blocks, {nbytes} B in "
+              f"{ms:.1f} ms (pages bitwise equal: {out_eq}); one device → tp 2 {n2} blocks, "
+              f"{nbytes2} B in {ms2:.1f} ms (bitwise equal: {back_eq}) ({smi})", flush=True)
+        if not (out_eq and back_eq):
+            raise AssertionError("[mesh] (c) migrated pages are not bitwise equal")
+        pulled = one.generate(tp_requests([p_out + tail], MIGRATE_TOKENS))[0]
+        one.manager.clear_cached()
+        recomputed = one.generate(tp_requests([p_out + tail], MIGRATE_TOKENS))[0]
+        sync(torch, device)
+        print(f"[mesh] (c) the pulled prompt ({MIGRATE_PREFIX} + {MIGRATE_TAIL} tokens): TTFT "
+              f"{pulled.ttft_ms:.1f} ms with the {pulled.cached_tokens} migrated tokens cached, "
+              f"{recomputed.ttft_ms:.1f} ms recomputed ({recomputed.cached_tokens} cached); "
+              f"greedy ids equal: {list(pulled.token_ids) == list(recomputed.token_ids)} "
+              f"(information) ({smi})", flush=True)
+        if pulled.cached_tokens < MIGRATE_PREFIX:
+            raise AssertionError(f"[mesh] (c) the pulled prompt found {pulled.cached_tokens} "
+                                 "tokens cached")
+        for c in tp_a.rank_launch_counts()[1:] + [launch_counts_now()]:
+            add_counts(total, c)
+        release(torch, device, one)
+        one = None
+        tp_b, t_b = mesh_engine(torch, cfg, device, (1, 2), **over)
+        for eng in (tp_a, tp_b):
+            eng.reset_rank_launch_counts()
+            eng.rank_collective_stats(reset=True)
+        prompt = p_back[:200]
+        slot = tp_a.submit(tp_requests([prompt], 3 * MIGRATE_TOKENS)[0])
+        tp_a.decode_multi(MIGRATE_TOKENS)
+        blocks = list(tp_a.manager.seq_blocks[tp_a.slots[slot].seq_id])
+        sync(torch, device)
+        t0 = time.perf_counter()
+        dslot = kh.migrate_kv_device(tp_a, tp_b, slot)
+        sync(torch, device)
+        mv_ms = (time.perf_counter() - t0) * 1e3
+        moved = list(tp_b.manager.seq_blocks[tp_b.slots[dslot].seq_id])
+        mv_eq = migrate_pages_equal(torch, tp_a, blocks, tp_b, moved)
+        page_b = tp_a._page_layout()[1]
+        cont = []
+        for eng, s in ((tp_a, slot), (tp_b, dslot)):
+            while eng.slots[s].finish_reason is None:
+                eng.decode_multi()
+            cont.append(list(eng.finish_slot(s).token_ids))
+        print(f"[mesh] (c) migrate_kv_device between two tp 2 engines on cuda:0: {len(blocks)} "
+              f"blocks ({len(blocks) * page_b} B of pages) through the donor ranks' gather "
+              f"and the recipient ranks' push (pinned host staging, gloo) in {mv_ms:.1f} ms; "
+              f"pages bitwise equal: {mv_eq}; the donor's and the recipient's greedy "
+              f"continuations equal: {cont[0] == cont[1]} ({smi})", flush=True)
+        if not (mv_eq and cont[0] == cont[1]):
+            raise AssertionError("[mesh] (c) migrate_kv_device between tp 2 engines parted")
+        for c in tp_a.rank_launch_counts()[1:] + tp_b.rank_launch_counts()[1:] \
+                + [launch_counts_now()]:
+            add_counts(total, c)
+    finally:
+        release(torch, device, tp_a, one, tp_b)
+    return total
+
+
+def launch_counts_now():
+    from distributed_gpu_inference_torch.ops import paged_attention as pa
+
+    return pa.launch_counts()
+
+
+def _mesh_pipe_rank(group, model, layers, inputs, seed):
+    """(d) on one stage rank: the whole seeded tree built on the card, this
+    stage's cut kept (its own copy), then the prefill and the decode tick
+    through ``pipelined_forward``. → (logits of both calls, this stage's
+    pools as bits, launches, ms a tick of each call)."""
+    import torch
+
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.ops import paged_attention as pa
+    from distributed_gpu_inference_torch.parallel import pipeline
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, engine_params
+    from distributed_gpu_inference_torch.runtime.tp import tensor_bits
+
+    dev = group.device
+    cfg = get_model_config(model, num_layers=layers)
+    whole = engine_params(cfg, EngineConfig(quantization="int8"), None, seed, dev)
+    n, s = group.size, group.rank
+
+    def own(tree):
+        return ({k: own(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.clone())
+
+    params = own(pipeline.shard_params_stages(whole, s, n))
+    del whole
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    kv = pipeline.shard_kv_stages(llama.init_kv_pools(cfg, PIPE_BLOCKS, BK, torch.bfloat16,
+                                                      dev), s, n)
+    kv = {k: v.clone() for k, v in kv.items()}
+    pa.reset_launch_counts()
+    logits, ms = [], []
+    for toks, pos, tables, lens in inputs:
+        args = [torch.tensor(a, device=dev) for a in (toks, pos, tables, lens)]
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, kv = pipeline.pipelined_forward(cfg, params, args[0], args[1], kv, args[2],
+                                             args[3], group, block_size=BK)
+        if cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / (toks.shape[0] + n - 1))
+        logits.append(out.cpu().numpy() if s == 0 else None)
+    return logits, {k: tensor_bits(v) for k, v in kv.items()}, pa.launch_counts(), ms
+
+
+def pipe_inputs(vocab):
+    """(d)'s prefill (n_micro x mb x S, row 1 of each microbatch 40 tokens
+    short) and decode tick, with each row's own blocks."""
+    rng = np.random.default_rng(261)
+    m, b, s = PIPE_MICRO, PIPE_MB, PIPE_S
+    toks = rng.integers(0, vocab, (m, b, s)).astype(np.int32)
+    pos = np.tile(np.arange(s, dtype=np.int32), (m, b, 1))
+    pos[:, 1, s - 40:] = -1
+    lens = (pos >= 0).sum(-1).astype(np.int32)
+    per = s // BK + 1
+    tables = (1 + per * np.arange(m * b, dtype=np.int32)[:, None]
+              + np.arange(per, dtype=np.int32)[None, :]).reshape(m, b, per)
+    dec = (rng.integers(0, vocab, (m, b, 1)).astype(np.int32), lens[..., None].copy(),
+           tables, lens + 1)
+    return [(toks, pos, tables, lens), dec]
+
+
+def mesh_pipeline(torch, smi, model, device):
+    """(d): ``pipelined_forward`` on two stage ranks of cuda:0 against
+    ``forward_chunk`` on one rank here, microbatch by microbatch: logits by
+    the argmax and NEAR_TIE rules, and the pools. → launches of the stage
+    ranks."""
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.runtime import tp as tp_ranks
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, engine_params
+
+    dev = "cuda:0" if device == "cuda" else device
+    cfg = get_model_config(model, num_layers=MESH_LAYERS)
+    inputs = pipe_inputs(cfg.vocab_size)
+    t0 = time.perf_counter()
+    outs = tp_ranks.run_group(_mesh_pipe_rank, [dev] * PIPE_STAGES, model, MESH_LAYERS,
+                              inputs, 0)
+    t_ranks = time.perf_counter() - t0
+    params = engine_params(cfg, EngineConfig(quantization="int8"), None, 0, torch.device(dev))
+    kv = llama.init_kv_pools(cfg, PIPE_BLOCKS, BK, torch.bfloat16, dev)
+    ref = []
+    for toks, pos, tables, lens in inputs:
+        step = []
+        for i in range(PIPE_MICRO):
+            out = llama.forward_chunk(cfg, params, *(torch.tensor(a[i], device=dev) for a in
+                                                     (toks, pos)), kv,
+                                      torch.tensor(tables[i], device=dev),
+                                      torch.tensor(lens[i], device=dev), block_size=BK)
+            step.append(out.logits[:, 0].float().cpu().numpy())
+        ref.append(np.stack(step))
+    worst, flips, exact = 0.0, [], True
+    for call, (got, want) in enumerate(zip(outs[0][0], ref)):
+        worst = max(worst, float(np.abs(got - want).max()))
+        exact &= bool(np.array_equal(got, want))
+        for i in range(PIPE_MICRO):
+            for r in range(PIPE_MB):
+                a, b = int(got[i, r].argmax()), int(want[i, r].argmax())
+                if a != b:
+                    flips.append((call, i, r, float(want[i, r, b] - want[i, r, a])))
+    per = MESH_LAYERS // PIPE_STAGES
+    pools_eq = all(np.array_equal(bits[k], tp_ranks.tensor_bits(kv[k][s * per:(s + 1) * per]))
+                   for s, (_, bits, _, _) in enumerate(outs) for k in ("k", "v"))
+    counts = {}
+    for _, _, c, _ in outs:
+        add_counts(counts, c)
+    ms = outs[0][3]
+    print(f"[mesh] (d) pipelined_forward, {PIPE_STAGES} stages of {per} layers on cuda:0 "
+          f"(gloo), {PIPE_MICRO} x {PIPE_MB} x {PIPE_S} prefill then one decode tick: "
+          f"{ms[0]:.1f} ms a prefill tick, {ms[1]:.1f} ms a decode tick "
+          f"({PIPE_MICRO + PIPE_STAGES - 1} ticks each; the ranks ran in {t_ranks:.1f} s "
+          f"with their start and weights); logits against forward_chunk on one rank: max abs "
+          f"diff {worst:.3e}, bitwise equal {exact}, argmax flips {flips} (near-tie bound "
+          f"{NEAR_TIE}); every stage's pools bitwise equal to its layers of the one-rank "
+          f"pools: {pools_eq}; launches of the stage ranks {counts} ({smi})", flush=True)
+    if any(d >= NEAR_TIE for *_, d in flips) or not pools_eq:
+        raise AssertionError("[mesh] (d) the pipelined forward parts from forward_chunk")
+    check_counts("mesh (d)", counts, qmm=True)
+    del params, kv
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_phase(torch, pa, smi, check, guard=None, model="llama3-8b", device="cuda"):
+    """Phase 26 (see the module docstring). → (its launches summed over
+    every rank by the pools they ran on, "int8" and "bf16"; its ``@mesh``
+    kernel entries)."""
+    from distributed_gpu_inference_torch.models import llama
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.ops import qmm
+
+    t_phase = time.perf_counter()
+    _, _, prompts = serving_prompts()
+    native_check(smi, prompts, check)
+    cfg = get_model_config(model, num_layers=MESH_LAYERS)
+    tags = Tag()
+    trace = SampleTrace(torch, [], tags=tags)
+    shapes = PathShapes()
+    by_kind = {"int8": {}, "bf16": {}}
+    try:
+        with shapes.recording(llama, qmm):
+            counts, ids = mesh_serving(torch, smi, cfg, tags, trace, device)
+            add_counts(by_kind["int8"], counts)
+            add_counts(by_kind["bf16"], mesh_migration(torch, smi, cfg, device))
+    finally:
+        trace.close()
+    runs = trace.runs()
+    check_aligned("mesh", runs, tags=("one", "sharded", "replicated"))
+    for tag in ("sharded", "replicated"):
+        check_sampled(f"mesh {tag}", traced_rows(runs, tag, ids), traced_rows(runs, "one", ids),
+                      runs, "the one-device engine")
+    add_counts(by_kind["bf16"], mesh_pipeline(torch, smi, model, device))
+    total = {}
+    for counts in by_kind.values():
+        add_counts(total, counts)
+    entries = []
+    if device == "cuda":
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+        _, timed = seq_kernel_parity(torch, pa, shapes, flush, torch.device(device),
+                                     tag="mesh", max_len=MESH_MAX_LEN)
+        del flush
+        for name, (times, err) in timed.items():
+            base, kind = name.split("[")[0], name.split("[")[1].split("]")[0]
+            launches = by_kind[kind].get(base, 0)
+            if not launches:
+                # a shape of an uncounted reference engine (the one-device
+                # engine of (b)): its pool kind launched nothing counted
+                print(f"[mesh] {name} timed but not listed: {kind} pools launched no "
+                      f"{base} on the counted path", flush=True)
+                continue
+            source = ("ragged_paged_attention.cu" if base == "ragged_paged_attention"
+                      else "paged_decode_fused.cu")
+            line = ":932" if base == "ragged_paged_attention" else ":469"
+            entries.append(entry(name, source, PALLAS + line, launches, err, times))
+    check_counts("mesh", total, qmm=True)
+    print(f"[mesh] phase 26 launches (every rank): {total} (int8 pools {by_kind['int8']}, "
+          f"bf16 pools {by_kind['bf16']}); {check.built} engine indexes "
+          f"built, every one native; the host's lowest available memory "
+          f"{'not read' if guard is None else f'{guard.low:.1f} GiB'}; ran in "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    return by_kind, entries
+
+
 HOST_FLOOR_GIB = 14.0       # the host memory a run leaves free, or it stops itself
 # phases whose inputs are their own, which ``--phase`` runs alone
-ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25)
+ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25, 26)
 
 
 class HostGuard:
@@ -8452,7 +9076,7 @@ class HostGuard:
             time.sleep(0.25)
 
 
-def run_alone(torch, pa, smi, phases):
+def run_alone(torch, pa, smi, phases, check, guard):
     """``--phase N`` (repeatable): the kernels built, then only phases N of
     ALONE, in the order given."""
     from distributed_gpu_inference_torch.ops import _build
@@ -8468,7 +9092,8 @@ def run_alone(torch, pa, smi, phases):
            22: lambda: direct_mode_phase(torch, pa, smi, prompts),
            23: lambda: tp_phase(torch, pa, smi, prompts),
            24: lambda: seq_phase(torch, pa, smi),
-           25: lambda: deployment_phase(torch, pa, smi, prompts)}
+           25: lambda: deployment_phase(torch, pa, smi, prompts),
+           26: lambda: mesh_phase(torch, pa, smi, check, guard)}
     for n in phases:
         t0 = time.perf_counter()
         run[n]()
@@ -8482,13 +9107,16 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--phase", type=int, action="append", choices=ALONE,
-                    help="run only this phase after the build (repeatable)")
+                    help="run only this phase after the build (repeatable): one of "
+                    f"{', '.join(map(str, ALONE))}")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     guard = HostGuard()
+    # every engine of the run must hold the C++ prefix index
+    check = NativeIndexCheck()
     from distributed_gpu_inference_torch.models import llama
     from distributed_gpu_inference_torch.models.configs import get_model_config
     from distributed_gpu_inference_torch.ops import _build
@@ -8512,7 +9140,7 @@ def main(argv=None) -> int:
     print(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"nvidia-smi: {smi}", flush=True)
     if args.phase:
-        run_alone(torch, pa, smi, args.phase)
+        run_alone(torch, pa, smi, args.phase, check, guard)
         print(f"[done] phases {args.phase} ran in {time.perf_counter() - t_start:.1f} s; the "
               f"host's lowest available memory {guard.low:.1f} GiB", flush=True)
         print(smi)
@@ -8966,18 +9594,21 @@ def main(argv=None) -> int:
     p24, seq_entries = seq_phase(torch, pa, smi)
     # ---- 25. the whole deployment: the port's plane, two CLI workers, the SDK
     p25 = deployment_phase(torch, pa, smi, prompts)
+    # ---- 26. the native index, seq x model meshes, migration under TP, stages
+    p26, mesh_entries = mesh_phase(torch, pa, smi, check, guard)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
             e["launches"] += (p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
-                              + p25[e["name"]])
+                              + p25[e["name"]] + p26["bf16"][e["name"]])
         elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
             base = e["name"].split("[")[0]
-            e["launches"] += p22[base] + p23["int8"][base] + p24[base]
+            e["launches"] += p22[base] + p23["int8"][base] + p24[base] + p26["int8"][base]
         elif e["name"] == "qmm_w8a16[int8]":
             e["launches"] += (p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
                               + p23["int8"]["qmm_w8a16"] + p23["bf16"]["qmm_w8a16"]
-                              + p24["qmm_w8a16"] + p25["qmm_w8a16"])
-    kernels += tp_entries + seq_entries
+                              + p24["qmm_w8a16"] + p25["qmm_w8a16"]
+                              + p26["int8"]["qmm_w8a16"] + p26["bf16"]["qmm_w8a16"])
+    kernels += tp_entries + seq_entries + mesh_entries
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s; the host's "
           f"lowest available memory {guard.low:.1f} GiB", flush=True)

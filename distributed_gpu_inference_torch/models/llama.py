@@ -430,15 +430,20 @@ def _layer_step(
         wtab = block_tables if write_tables is None else write_tables
         wk, wv = (k, v) if gather_rows is None else (gather_rows(k), gather_rows(v))
         ks = vs = None
+        amax_k = amax_v = None
         if k_scale is not None:
             ks, vs = k_scale[layer], v_scale[layer]
-            amax_k = amax_v = None
+            wamax_k = wamax_v = None
             if tp is not None:
                 amax = tp.all_reduce_max(torch.stack([token_amax(k, (2, 3)),
                                                       token_amax(v, (2, 3))]))
                 amax_k, amax_v = amax[0], amax[1]
-            write_quantized_kv(k_pool[layer], ks, wk, wtab, wpos, block_size, amax=amax_k)
-            write_quantized_kv(v_pool[layer], vs, wv, wtab, wpos, block_size, amax=amax_v)
+                wamax_k, wamax_v = amax_k, amax_v
+                if gather_rows is not None:
+                    # every seq rank's rows are written: their amaxes too
+                    wamax_k, wamax_v = gather_rows(torch.cat([amax_k, amax_v], -1)).split(1, -1)
+            write_quantized_kv(k_pool[layer], ks, wk, wtab, wpos, block_size, amax=wamax_k)
+            write_quantized_kv(v_pool[layer], vs, wv, wtab, wpos, block_size, amax=wamax_v)
         else:
             write_kv_pages(k_pool[layer], wk, wtab, wpos, block_size)
             write_kv_pages(v_pool[layer], wv, wtab, wpos, block_size)
@@ -447,8 +452,8 @@ def _layer_step(
             # int8 pool's through the quantize-dequantize round trip its
             # pages hold, so the read matches the one-device paged read
             if k_scale is not None:
-                k = dequantize_kv(*quantize_token_rows(k, (2, 3)))
-                v = dequantize_kv(*quantize_token_rows(v, (2, 3)))
+                k = dequantize_kv(*quantize_token_rows(k, (2, 3), amax_k))
+                v = dequantize_kv(*quantize_token_rows(v, (2, 3), amax_v))
             attn = dense_attn_fn(q, k, v)
         elif attn_fn is not None:
             attn = attn_fn(q, k_pool[layer], v_pool[layer], ks, vs)

@@ -9,6 +9,14 @@ calls the collectives itself through a :class:`TPGroup`. The same group
 serves the ``seq`` axis (one process per rank of a sequence-parallel
 engine, params replicated): its ring hop, all-to-all and all-gather are
 what ring and Ulysses attention and the cross-rank page transfers call.
+An engine on both axes (``MeshPlan(seq=s, model=m)``, JAX's seq x model
+mesh) runs s*m ranks, rank ``i*m + j`` at row i of ``seq`` and column j
+of ``model``: its group spans every rank and holds two sub-groups
+(:meth:`TPGroup.axis_group`), the ``model`` peers of its seq row (the
+row-parallel sums, the int8 amax reduce) and the ``seq`` peers of its
+model column (the ring hops, the partial-softmax merges), each a process
+group of its own over the same rendezvous that counts its own
+collectives.
 
 Axis names (fixed across the framework so sharding rules compose):
 
@@ -54,7 +62,8 @@ ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
 
 #: the collectives a :class:`TPGroup` counts in ``stats`` (and their
 #: seconds under ``<name>_s``)
-COLLECTIVES = ("all_reduce", "broadcast", "ring_hop", "all_to_all", "all_gather")
+COLLECTIVES = ("all_reduce", "broadcast", "ring_hop", "shift", "all_to_all",
+               "all_gather")
 
 
 @dataclass(frozen=True)
@@ -81,20 +90,16 @@ class MeshPlan:
     def nontrivial_axes(self) -> Tuple[str, ...]:
         return tuple(a for a, s in self.axis_sizes().items() if s > 1)
 
-    def engine_axis(self) -> Tuple[str, int]:
-        """The one axis an engine's ranks run over, ``("model", n)`` or
-        ``("seq", n)`` (``("model", 1)`` for one device). A data or stage
-        axis is refused (data parallelism is request-level at the
-        scheduler; pipeline stages are processes of their own), and so is
-        a plan with both ``seq`` and ``model`` above 1: the JAX package
-        composes them (heads over ``model``, pool blocks over ``seq``),
-        the port does not yet."""
+    def engine_axis(self) -> Tuple[int, int]:
+        """The engine's 2-D plan ``(seq, model)``: its ranks run over the
+        ``seq`` and ``model`` axes, either or both above 1 (``(1, 1)`` for
+        one device). A data or stage axis is refused, as the JAX engine
+        refuses a data axis (data parallelism is request-level at the
+        scheduler; pipeline stages are processes of their own or
+        ``parallel/pipeline.py``'s stage ranks)."""
         if self.data > 1 or self.stage > 1:
             raise ValueError(f"an engine mesh takes no data or stage axis, got {self}")
-        if self.seq > 1 and self.model > 1:
-            raise ValueError(f"a mesh with both seq={self.seq} and model={self.model} "
-                             "above 1 is not supported: use one axis")
-        return (AXIS_SEQ, self.seq) if self.seq > 1 else (AXIS_MODEL, self.model)
+        return self.seq, self.model
 
 
 def infer_plan(num_devices: int, num_kv_heads: int, prefer: str = "model") -> MeshPlan:
@@ -125,35 +130,77 @@ def _nccl_group(store: "dist.Store", rank: int, size: int,
 
 
 class TPGroup:
-    """One rank's view of the ``model`` or ``seq`` axis: its rank, the
-    group's size, its ``torch.device``, the process group, and the
-    collectives the forward pass calls. Counts each collective and its
-    host seconds (``stats``). A gloo collective on CUDA tensors blocks the host until
-    its copy back has landed, so the device is synchronized before its
-    clock starts (its copy to the host would wait for that work anyway):
-    the seconds are the collective's own, waits for the other ranks
-    included. An NCCL collective is only enqueued; its seconds are the
-    enqueue's."""
+    """One rank's view of the ``model`` or ``seq`` axis, or of a seq x
+    model mesh: its rank, the group's size, its ``torch.device``, the
+    process group, and the collectives the forward pass calls. Counts each
+    collective and its host seconds (``stats``). A gloo collective on CUDA
+    tensors blocks the host until its copy back has landed, so the device
+    is synchronized before its clock starts (its copy to the host would
+    wait for that work anyway): the seconds are the collective's own,
+    waits for the other ranks included. An NCCL collective is only
+    enqueued; its seconds are the enqueue's.
+
+    ``shape=(seq, model)`` (default ``(1, size)``, the ``model`` axis): a
+    group with both above 1 builds the rank's two sub-groups
+    (:meth:`axis_group`); a one-axis group is its own sub-group on that
+    axis."""
 
     def __init__(self, rank: int, devices: Sequence[torch.device], store_path: str,
-                 timeout_s: float = 120.0) -> None:
+                 timeout_s: float = 120.0, shape: Optional[Tuple[int, int]] = None) -> None:
+        store = dist.FileStore(store_path, len(devices))
+        self._join(rank, devices, store, "data", timeout_s)
+        seq, model = shape or (1, self.size)
+        if seq * model != self.size:
+            raise ValueError(f"a {seq} x {model} mesh needs {seq * model} ranks, "
+                             f"got {self.size}")
+        self.shape = (seq, model)
+        self._axes: Dict[str, "TPGroup"] = {}
+        if seq > 1 and model > 1:
+            i, j = divmod(rank, model)
+            # every rank joins its model row first, then its seq column: a
+            # row's members all join it before any of them waits on a column
+            self._axes[AXIS_MODEL] = TPGroup._sub(
+                store, f"model{i}", j, [self.devices[i * model + c] for c in range(model)],
+                timeout_s)
+            self._axes[AXIS_SEQ] = TPGroup._sub(
+                store, f"seq{j}", i, [self.devices[r * model + j] for r in range(seq)],
+                timeout_s)
+        elif self.size > 1:
+            self._axes[AXIS_SEQ if seq > 1 else AXIS_MODEL] = self
+
+    @classmethod
+    def _sub(cls, store: "dist.Store", prefix: str, rank: int,
+             devices: Sequence[torch.device], timeout_s: float) -> "TPGroup":
+        sub = cls.__new__(cls)
+        sub._join(rank, devices, store, prefix, timeout_s)
+        sub.shape = (1, sub.size)
+        sub._axes = {}
+        return sub
+
+    def _join(self, rank: int, devices: Sequence[torch.device], store: "dist.Store",
+              prefix: str, timeout_s: float) -> None:
         self.rank = rank
         self.devices = [torch.device(d) for d in devices]
         self.size = len(self.devices)
         self.device = self.devices[rank]
         self.backend = choose_backend(self.devices)
         timeout = datetime.timedelta(seconds=timeout_s)
-        store = dist.FileStore(store_path, self.size)
         if self.backend == "nccl":
             torch.cuda.set_device(self.device)
-            self.group = _nccl_group(dist.PrefixStore("data", store), rank, self.size,
+            self.group = _nccl_group(dist.PrefixStore(prefix, store), rank, self.size,
                                      timeout)
         else:
-            self.group = dist.ProcessGroupGloo(dist.PrefixStore("data", store), rank,
+            self.group = dist.ProcessGroupGloo(dist.PrefixStore(prefix, store), rank,
                                                self.size, timeout)
         self._sync = self.backend == "gloo" and self.device.type == "cuda"
         self.stats: Dict[str, float] = {}
         self.reset_stats()
+
+    def axis_group(self, axis: str) -> Optional["TPGroup"]:
+        """This rank's group over ``axis`` (``"model"`` or ``"seq"``): the
+        sub-group of a seq x model mesh, this group on a one-axis mesh, None
+        where the axis has one rank."""
+        return self._axes.get(axis)
 
     def _run(self, kind: str, t: torch.Tensor, call) -> torch.Tensor:
         if self._sync:
@@ -197,6 +244,25 @@ class TPGroup:
         recv.wait()
         out = self._back(out)
         self._count("ring_hop", t0)
+        return out
+
+    def shift(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """One one-way hop with no wrap (a pipeline's activations): send
+        ``t`` to rank+1 (the last rank sends nothing), receive rank-1's
+        tensor of the same shape and dtype (a new tensor; None on rank 0)."""
+        t0 = time.perf_counter()
+        src = self._host(t)
+        out, waits = None, []
+        if self.rank > 0:
+            out = self._empty(src.shape, src.dtype)
+            waits.append(self.group.recv([out], self.rank - 1, 1))
+        if self.rank < self.size - 1:
+            waits.append(self.group.send([src], self.rank + 1, 1))
+        for w in waits:
+            w.wait()
+        if out is not None:
+            out = self._back(out)
+        self._count("shift", t0)
         return out
 
     def all_to_all(self, t: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
@@ -249,12 +315,19 @@ class TPGroup:
         return self._run("broadcast", t, lambda x: self.group.broadcast([x], opts))
 
     def reset_stats(self) -> None:
+        """Zero the counts of this group and of its sub-groups."""
         for kind in COLLECTIVES:
             self.stats[kind] = 0
             self.stats[kind + "_s"] = 0.0
+        for sub in getattr(self, "_axes", {}).values():
+            if sub is not self:
+                sub.reset_stats()
 
     def close(self) -> None:
-        """Release the group (idempotent)."""
+        """Release the group and its sub-groups (idempotent)."""
+        for sub in self._axes.values():
+            if sub is not self:
+                sub.close()
         group, self.group = self.group, None
         if group is not None and hasattr(group, "shutdown"):
             try:

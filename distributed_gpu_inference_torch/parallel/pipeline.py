@@ -13,18 +13,31 @@ pipeline (``comm/stage_worker.py``, ``comm/session.py``) runs on:
 - :func:`slice_stage_params` cuts one stage's tree out of a whole one as
   VIEWS of it: stages on one device share the weights' memory.
 
-The JAX file's other half, the in-mesh SPMD pipeline
-(``pipelined_forward`` with ``shard_map`` over a ``stage`` mesh axis and
-``ppermute`` hops), needs a device mesh: it waits for a
-``torch.distributed`` slice with tensor parallelism (ROADMAP §1 item 7).
+The JAX file's other half is the in-mesh SPMD pipeline, here on stage
+ranks (one process each, ``runtime/tp.py`` ``run_group``) joined in a
+``parallel.mesh.TPGroup``:
+
+- :func:`shard_params_stages` / :func:`shard_kv_stages` give rank s the
+  layers ``[s·L/n, (s+1)·L/n)`` of the stacked weights and of the pools
+  (the embedding, final norm and LM head on every rank, as JAX's stage
+  shardings replicate them);
+- :func:`pipelined_forward` runs the GPipe diagonal: on tick t rank s
+  works on microbatch t − s through ``models.llama.forward_hidden_chunk``
+  (the ragged kernel, the fused decode kernel at S = 1, and qmm on int8
+  weights), and its activations hop one way to rank s + 1
+  (``TPGroup.shift``, JAX's ``ppermute`` with no wrap). Ticks outside a
+  rank's diagonal run with every position −1, so they write no KV, as in
+  JAX. The last rank projects each microbatch's last valid token and
+  broadcasts the logits ``[n_micro, mb, V]`` to every rank.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from distributed_gpu_inference_torch.models import llama
 from distributed_gpu_inference_torch.models.configs import ModelConfig
 from distributed_gpu_inference_torch.models.llama import Params, torch_dtype
 
@@ -111,3 +124,104 @@ def slice_stage_params(
         elif start != 0:
             out["embedding"] = params["embedding"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# The in-mesh stage pipeline (JAX's shard_map over the stage axis)
+# ---------------------------------------------------------------------------
+
+
+def _check_even(num_layers: int, n_stages: int) -> None:
+    if num_layers % n_stages:
+        raise ValueError(
+            f"{num_layers} layers not divisible by {n_stages} stages; "
+            "use the cross-host planner (create_shard_plan) for uneven splits"
+        )
+
+
+def stage_layers(num_layers: int, stage: int, n_stages: int) -> Tuple[int, int]:
+    """[start, end): the layers stage ``stage`` of ``n_stages`` holds (an
+    even split, refused otherwise)."""
+    _check_even(num_layers, n_stages)
+    per = num_layers // n_stages
+    return stage * per, (stage + 1) * per
+
+
+def shard_params_stages(params: Params, stage: int, n_stages: int) -> Params:
+    """Stage ``stage``'s params (JAX ``stage_param_shardings``): its layers
+    of every stacked leaf (a quantized leaf's both parts), as views, and the
+    embedding, final norm and LM head whole."""
+    lo, hi = stage_layers(_num_layers(params), stage, n_stages)
+    out: Params = {"layers": {
+        k: ({kk: vv[lo:hi] for kk, vv in v.items()} if isinstance(v, dict) else v[lo:hi])
+        for k, v in params["layers"].items()}}
+    for name in ("embedding", "final_norm", "lm_head"):
+        if name in params:
+            out[name] = params[name]
+    return out
+
+
+def shard_kv_stages(kv: Dict[str, torch.Tensor], stage: int,
+                    n_stages: int) -> Dict[str, torch.Tensor]:
+    """Stage ``stage``'s pools (JAX ``stage_kv_sharding``): the layer axis
+    follows the stage, as views."""
+    lo, hi = stage_layers(kv["k"].shape[0], stage, n_stages)
+    return {k: v[lo:hi] for k, v in kv.items()}
+
+
+def _num_layers(params: Params) -> int:
+    leaf = params["layers"]["attn_norm"]
+    return leaf.shape[0]
+
+
+def pipelined_forward(
+    cfg: ModelConfig,
+    params: Params,                # stage-local (shard_params_stages)
+    tokens: torch.Tensor,          # [n_micro, mb, S] int
+    positions: torch.Tensor,       # [n_micro, mb, S] int32, -1 = pad
+    kv: Dict[str, torch.Tensor],   # stage-local [L/n, N, Hkv, Bk, D], IN PLACE
+    block_tables: torch.Tensor,    # [n_micro, mb, M]
+    kv_lens: torch.Tensor,         # [n_micro, mb]
+    group: Optional[Any],
+    *,
+    block_size: int = 16,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Microbatched pipeline forward on one stage rank → (logits ``[n_micro,
+    mb, V]`` f32 of the last stage, on every rank; the pools, updated in
+    place). Every rank of ``group`` (the stage axis; None: one stage) calls
+    it with the same inputs. Prefill (S = chunk) and decode (S = 1) alike.
+    A model whose layers do not split evenly over the stages is refused."""
+    n_stages, stage = (1, 0) if group is None else (group.size, group.rank)
+    _check_even(cfg.num_layers, n_stages)
+    n_micro, mb, s_len = tokens.shape
+    device = tokens.device
+    # the activation dtype follows the weights (a tree loaded in float32 on
+    # the CPU runs in float32)
+    act = torch.zeros((mb, s_len, cfg.hidden_size), dtype=params["embedding"].dtype,
+                      device=device)
+    out = torch.zeros((n_micro, mb, cfg.vocab_size), dtype=torch.float32, device=device)
+    positions = positions.to(torch.int32)
+    last = stage == n_stages - 1
+    for t in range(n_micro + n_stages - 1):
+        my_mb = t - stage
+        valid = 0 <= my_mb < n_micro
+        idx = min(max(my_mb, 0), n_micro - 1)
+        pos = positions[idx]
+        act_in = llama.embed_tokens(params, tokens[idx], cfg) if stage == 0 else act
+        write_pos = pos if valid else torch.full_like(pos, -1)
+        hidden, _ = llama.forward_hidden_chunk(cfg, params, act_in, write_pos, kv,
+                                               block_tables[idx], kv_lens[idx],
+                                               block_size=block_size)
+        if last and valid:
+            n_valid = (pos >= 0).sum(dim=1)
+            last_idx = torch.clamp(n_valid - 1, min=0)
+            h_last = torch.gather(hidden, 1,
+                                  last_idx[:, None, None].expand(-1, 1, hidden.shape[-1]))
+            out[idx] = llama.project_logits(cfg, params, h_last)[:, 0, :]
+        if group is not None and t < n_micro + n_stages - 2:
+            got = group.shift(hidden)
+            if got is not None:
+                act = got
+    if group is not None and n_stages > 1:
+        group.broadcast(out, src=n_stages - 1)
+    return out, kv

@@ -17,7 +17,9 @@ device (an axis of size 1).
 - **Ulysses** (:func:`ulysses_self_attention`): two all-to-alls swap the
   sequence slice for a head slice, each rank runs full-sequence attention
   over its Nh/n heads, and a third swaps back. Needs ``num_kv_heads % n ==
-  0``, refused by name otherwise.
+  0``, refused by name otherwise; on a seq x model mesh the rank's
+  model-local heads are gathered over ``model`` first where they alone do
+  not divide.
 - **Partial-softmax reads**: decode (:func:`seq_parallel_decode_attention`
   over contiguous context slices, :func:`seq_parallel_paged_decode_attention`
   over a paged pool whose block axis is sharded) and chunk
@@ -30,6 +32,9 @@ device (an axis of size 1).
 All match ``ops.attention.dense_causal_attention`` (ring, Ulysses) and
 ``ops.attention.paged_attention_ref`` (the paged reads) on the unsharded
 inputs: causal GQA with per-sequence valid lengths, f32 scores and sums.
+On a seq x model mesh every op runs on the rank's model-local heads and
+its collectives go over the rank's ``seq`` sub-group.
+
 Plain PyTorch on every device: the JAX package computes these with XLA,
 not Pallas, so no kernel is written for them until a chip run shows one
 on the main path.
@@ -132,15 +137,38 @@ def _ulysses_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def ulysses_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lengths: torch.Tensor, group: Optional[Any] = None) -> torch.Tensor:
+                           lengths: torch.Tensor, group: Optional[Any] = None,
+                           model_group: Optional[Any] = None) -> torch.Tensor:
     """Causal GQA self-attention, seq-sharded, Ulysses all-to-all strategy.
     Same contract as :func:`ring_self_attention`; refuses a KV head count
-    that does not divide over the axis."""
+    that does not divide over the axis.
+
+    On a seq x model mesh (``model_group``, the rank's ``model`` peers) q,
+    k and v hold the rank's model-local heads. Where those KV heads divide
+    over the seq axis the all-to-alls split them as they are; where they
+    do not (llama3-tiny's 2 KV heads on seq 2 x model 2: one a rank) the
+    heads are first gathered over ``model``, as the JAX op sees every head
+    inside its ``shard_map``, and the rank keeps its own heads of the
+    result."""
     _, n = _axis(group)
-    if k.shape[2] % n:
-        raise ValueError(f"ulysses needs num_kv_heads {k.shape[2]} divisible by the seq "
-                         f"axis {n} (use ring_self_attention otherwise)")
-    return _ulysses_local(q, k, v, lengths, group)
+    if k.shape[2] % n == 0:
+        return _ulysses_local(q, k, v, lengths, group)
+    if model_group is not None and model_group.size > 1:
+        j, m = model_group.rank, model_group.size
+
+        def gather_heads(t: torch.Tensor) -> torch.Tensor:
+            return torch.cat(model_group.all_gather(t).unbind(0), dim=2)
+
+        k_all = gather_heads(k)
+        if k_all.shape[2] % n == 0:
+            out = _ulysses_local(gather_heads(q), k_all, gather_heads(v), lengths, group)
+            nh = q.shape[2]
+            return out[:, :, j * nh:(j + 1) * nh]
+        hkv = k_all.shape[2]
+    else:
+        hkv = k.shape[2]
+    raise ValueError(f"ulysses needs num_kv_heads {hkv} divisible by the seq "
+                     f"axis {n} (use ring_self_attention otherwise)")
 
 
 def _merge(m_loc: torch.Tensor, l_loc: torch.Tensor, acc_loc: torch.Tensor,

@@ -44,6 +44,12 @@ scale pool, rank r holding the global blocks ``[r·N/n, (r+1)·N/n)``
 (:func:`block_range`); block ids in the tables stay global. The engine
 rounds N up to a multiple of n (:func:`seq_num_blocks`) as the JAX engine
 does.
+
+Both axes (a ``MeshPlan(seq=s, model=m)`` engine, JAX ``kv_sharding_seq``
+with ``model`` above 1): rank ``i*m + j`` holds the weights cut j of m
+over ``model`` (replicated over ``seq``), the data pools cut on Hkv over
+``model`` and, block-sharded, on N over ``seq``, and the int8 scale pools
+cut on N over ``seq`` only (:func:`shard_kv_mesh`).
 """
 
 from __future__ import annotations
@@ -202,3 +208,19 @@ def shard_kv_blocks(kv: Dict[str, Any], rank: int, seq: int) -> Dict[str, Any]:
         lo, hi = block_range(v.shape[BLOCK_AXIS], rank, seq)
         out[k] = _contiguous(v[:, lo:hi])
     return out
+
+
+def mesh_coords(rank: int, model: int) -> Tuple[int, int]:
+    """(seq row i, model column j) of rank ``rank`` of a seq x model mesh:
+    rank ``i*model + j``."""
+    return divmod(rank, model)
+
+
+def shard_kv_mesh(kv: Dict[str, Any], rank: int, seq: int, model: int,
+                  seq_sharded: bool) -> Dict[str, Any]:
+    """Rank ``rank``'s pools of a seq x model mesh out of whole ones: data
+    pools cut on Hkv over ``model`` (scale pools whole over it), then,
+    block-sharded, every pool cut on N over ``seq``."""
+    i, j = mesh_coords(rank, model)
+    out = shard_kv(kv, j, model)
+    return shard_kv_blocks(out, i, seq) if seq_sharded else out

@@ -56,9 +56,14 @@ rank runs every forward, and reads merge partial softmaxes across the
 ranks (``parallel/ring_attention.py``). :meth:`gather_pages` and
 :meth:`push_pages` move each rank's heads or blocks of a page through the
 group, so KV handoff, PD roles and the spill tiers work on either axis.
-Refused by name on a mesh: speculative decoding (single-chip in the JAX
-engine too), ``migrate_kv_device`` (two engines' ranks are different
-processes) and a mesh with both axes above 1.
+Both axes at once (``mesh=MeshPlan(seq=s, model=m)``, s*m ranks, JAX's
+seq x model mesh): heads and weights cut over ``model``, pool blocks over
+``seq`` when block-sharded (``runtime/tp.py`` :class:`RankLayout`); the
+row-parallel sums run over each rank's ``model`` sub-group and the seq
+ops over its ``seq`` sub-group. ``migrate_kv_device`` between a mesh
+engine and another on the same devices moves pages through the ranks'
+own gathers and pushes. Refused by name on a mesh: speculative decoding
+(single-chip in the JAX engine too) and a data or stage axis.
 
 Failure semantics: the JAX engine's device calls were functional, so a
 failed call left the old pools intact. Here a round updates the pools in
@@ -120,13 +125,14 @@ from distributed_gpu_inference_torch.parallel.mesh import (
     TPGroup,
 )
 from distributed_gpu_inference_torch.parallel.sharding import (
-    block_range,
     seq_num_blocks,
     shard_tree,
 )
 from distributed_gpu_inference_torch.runtime import tp as tp_ranks
 from distributed_gpu_inference_torch.runtime.tp import (
     RankFailed,
+    RankLayout,
+    RankRoles,
     RankSpec,
     SeqRank,
     TPRanks,
@@ -548,19 +554,23 @@ class TorchEngine:
         are then quantized whole here and cut for each rank; without
         ``params`` each rank builds its own shard of the same tree.
 
-        ``mesh``: the axis the ranks run over, ``MeshPlan(model=n)`` (the
-        default for n ``rank_devices``) or ``MeshPlan(seq=n)``: the same
+        ``mesh``: the axes the ranks run over, ``MeshPlan(model=n)`` (the
+        default for n ``rank_devices``), ``MeshPlan(seq=n)``: the same
         ranks with the whole tree each, the sequence axis of the JAX
         engine's mesh (``EngineConfig.seq_parallel_impl``,
-        ``kv_seq_sharded``)."""
+        ``kv_seq_sharded``), or ``MeshPlan(seq=s, model=m)`` on s*m
+        ``rank_devices``, rank ``i*m + j`` at seq row i, model column j."""
         devices = [resolve_device(d) for d in (rank_devices or [device])]
         self.device = devices[0]
-        self.axis, n = (mesh or MeshPlan(model=len(devices))).engine_axis()
+        self.rank_devices = devices
+        # the JAX engine's mesh validations in its order: no data axis, then
+        # the model axis (KV heads, experts), then the seq axis
+        self.seq, self.tp = (mesh or MeshPlan(model=len(devices))).engine_axis()
+        n = self.seq * self.tp
         if n != len(devices):
-            raise ValueError(f"the mesh's {self.axis} axis of {n} needs {n} rank devices, "
-                             f"got {len(devices)}")
-        self.tp = n if self.axis == AXIS_MODEL else 1
-        self.seq = n if self.axis == AXIS_SEQ else 1
+            axes = (f"seq x model axes of {self.seq} x {self.tp} need" if min(self.seq, self.tp) > 1
+                    else f"{AXIS_SEQ if self.seq > 1 else AXIS_MODEL} axis of {n} needs")
+            raise ValueError(f"the mesh's {axes} {n} rank devices, got {len(devices)}")
         self.model_cfg = (
             get_model_config(model_cfg) if isinstance(model_cfg, str) else model_cfg
         )
@@ -585,20 +595,24 @@ class TorchEngine:
             raise ValueError("give params or checkpoint_path, not both")
         self._ranks: Optional[TPRanks] = None
         self._tp_group: Optional[TPGroup] = None
-        # rank 0 of the seq axis (None for model-axis and one-device engines)
-        self._seq: Optional[SeqRank] = None
+        # rank 0's place on the mesh, and its groups and pools
+        self._layout = RankLayout(0, self.seq, self.tp, self.cfg.kv_seq_sharded)
+        self._roles = RankRoles(self._layout, None, None, None, None)
         # the exception of a device round that failed mid-update (pools may
         # be half-written); set once, never cleared
         self._failed: Optional[BaseException] = None
         shard = (0, self.tp) if self.tp > 1 else None
         if params is not None:
             params = quantize_params(params, mode)
-            if shard is not None:
-                shards = [None] + [tree_to(shard_tree(params, r, self.tp), "cpu")
-                                   for r in range(1, self.tp)]
-                params = shard_tree(params, 0, self.tp)
-            elif self.seq > 1:
-                shards = [None] + [tree_to(params, "cpu")] * (self.seq - 1)
+            if n > 1:
+                # weights cut over model, replicated over seq: rank i*m + j
+                # holds cut j
+                cuts = ([tree_to(shard_tree(params, j, self.tp), "cpu")
+                         for j in range(self.tp)] if shard is not None
+                        else [tree_to(params, "cpu")])
+                shards = [None] + [cuts[r % self.tp] for r in range(1, n)]
+                if shard is not None:
+                    params = shard_tree(params, 0, self.tp)
         if len(devices) > 1:
             self._start_ranks(devices, seed, checkpoint_path,
                               shards if params is not None else None)
@@ -608,14 +622,10 @@ class TorchEngine:
                                        self.device, shard)
             self.params = params
             self.num_blocks = self.cfg.resolved_num_blocks()
-            held = self.num_blocks
-            if self.seq > 1:
-                blocks = (block_range(self.num_blocks, 0, self.seq)
-                          if self.cfg.kv_seq_sharded else None)
-                self._seq = SeqRank(self._tp_group, blocks, self.cfg.block_size,
-                                    self.cfg.seq_parallel_impl)
-                if blocks is not None:
-                    held = blocks[1] - blocks[0]
+            self._roles = RankRoles.build(self._layout, self._tp_group, self.cfg,
+                                          self.num_blocks)
+            held = self._roles.held_blocks
+            held = self.num_blocks if held is None else held
             self.kv = llama.init_kv_pools(
                 self.model_cfg, held, self.cfg.block_size, self.kv_dtype,
                 self.device, tp=self.tp,
@@ -705,7 +715,7 @@ class TorchEngine:
             devices=[str(d) for d in devices], store_path=rendezvous_path(),
             timeout_s=tp_ranks.TIMEOUT_S, seed=seed,
             checkpoint_path=checkpoint_path, num_threads=torch.get_num_threads(),
-            axis=self.axis,
+            shape=(self.seq, self.tp),
         )
         self._ranks = TPRanks(spec, shards)
         self._tp_group = self._ranks.group
@@ -721,21 +731,35 @@ class TorchEngine:
                 self._failed = EngineStateLost("the engine was shut down")
 
     @property
-    def _mirrored(self) -> bool:
-        """Whether the ranks run every device op with rank 0: the ``model``
-        axis and block-sharded pools. Replicated pools on a ``seq`` axis
-        keep every page on rank 0, which serves alone outside the
-        seq-parallel prefill."""
-        return self._ranks is not None and (self.tp > 1 or self.cfg.kv_seq_sharded)
+    def _mirror(self) -> List[int]:
+        """The ranks that run every device op with rank 0: every rank on
+        the ``model`` axis and with block-sharded pools; with replicated
+        pools on a ``seq`` axis only seq row 0's ``model`` peers (the rows
+        hold no pages and join only the seq-parallel prefill)."""
+        return [] if self._ranks is None else self._layout.mirrors()
 
-    def refuse_under_tp(self, what: str) -> None:
-        """Refuse ``what`` on a mesh: a device-to-device page move between
-        two engines, whose ranks are different processes."""
-        if self._ranks is not None:
+    @property
+    def _seq(self) -> Optional[SeqRank]:
+        """Rank 0 of the seq axis (None at seq 1)."""
+        return self._roles.seq
+
+    @property
+    def _model_group(self) -> Optional[TPGroup]:
+        """Rank 0's ``model`` group (None at model 1)."""
+        return self._roles.tp
+
+    def refuse_other_devices(self, what: str, other: "TorchEngine") -> None:
+        """Refuse ``what`` between this engine and ``other`` when they do
+        not sit on the same devices (the JAX engine's condition for a
+        device-side page move): a mesh engine's ranks on devices the other
+        engine's ranks do not share."""
+        mine = {str(d) for d in self.rank_devices}
+        theirs = {str(d) for d in other.rank_devices}
+        if self._ranks is not None and mine != theirs:
             raise NotImplementedError(
-                f"{what} is not supported on a mesh (tp={self.tp}, seq={self.seq}): "
-                "the two engines' ranks are different processes; use the wire "
-                "path (export_slot_kv / StreamedExport)")
+                f"{what} is not supported between engines on different devices "
+                f"(tp={self.tp}, seq={self.seq}: {sorted(mine)} and {sorted(theirs)}); "
+                "use the wire path (export_slot_kv / StreamedExport)")
 
     def rank_launch_counts(self) -> List[Dict[str, int]]:
         """Each rank's kernel launch counts (``ops.paged_attention
@@ -767,11 +791,16 @@ class TorchEngine:
         own = tp_ranks.device_memory(self.device, self.kv)
         return [own] + (self._ranks.query("memory") if self._ranks is not None else [])
 
-    def rank_collective_stats(self, reset: bool = False) -> List[Dict[str, float]]:
-        """Each rank's collective counts and host seconds, rank 0's first."""
+    def rank_collective_stats(self, reset: bool = False,
+                              axis: Optional[str] = None) -> List[Dict[str, float]]:
+        """Each rank's collective counts and host seconds, rank 0's first:
+        of the group over every rank, or with ``axis`` (``"model"`` /
+        ``"seq"``) of each rank's sub-group on that axis."""
         if self._tp_group is None:
             return []
-        out = [dict(self._tp_group.stats)] + self._ranks.query("stats")
+        group = self._tp_group if axis is None else self._tp_group.axis_group(axis)
+        out = [None if group is None else dict(group.stats)] + \
+            self._ranks.query("stats", axis=axis)
         if reset:
             self._tp_group.reset_stats()
             self._ranks.send("reset_stats")
@@ -818,18 +847,19 @@ class TorchEngine:
         parallelism and on block-sharded pools every rank runs it on the
         same arrays; block-sharded pools read through the attention kind
         the arrays call for (``runtime/tp.py`` :func:`attention_kind`)."""
-        if self._mirrored:
-            self._ranks.send("forward", toks_pos=toks_pos, tables=tables, lens=lens,
-                             allow_fused=allow_fused)
+        if self._mirror:
+            self._ranks.send("forward", to=self._mirror, toks_pos=toks_pos, tables=tables,
+                             lens=lens, allow_fused=allow_fused)
         positions, tables_t, lens_t = (self._tensor(toks_pos[1]), self._tensor(tables),
                                        self._tensor(lens))
-        hooks = (self._seq.hooks(attention_kind(toks_pos[1], lens), tables_t, positions,
-                                 lens_t) if self.cfg.kv_seq_sharded else {})
+        reads = self._roles.read_hooks
+        hooks = ({} if reads is None else
+                 reads.hooks(attention_kind(toks_pos[1], lens), tables_t, positions, lens_t))
         out = llama.forward_chunk(
             self.model_cfg, self.params, self._tensor(toks_pos[0]), positions, self.kv,
             tables_t, lens_t, block_size=self.cfg.block_size,
             last_only=True, with_logits=with_logits, allow_fused=allow_fused,
-            tp=self._tp_group if self.tp > 1 else None, **hooks,
+            tp=self._model_group, **hooks,
         )
         return None if out.logits is None else out.logits[:, 0, :]
 
@@ -870,15 +900,16 @@ class TorchEngine:
                 for (_, key), (page, scale) in zip(ops.downloads, pages):
                     self.manager.store_spilled(key, page, scale)
             if ops.copies:
-                if self._mirrored:
-                    self._ranks.send("copy", src=np.array([s for s, _ in ops.copies]),
+                if self._mirror:
+                    self._ranks.send("copy", to=self._mirror,
+                                     src=np.array([s for s, _ in ops.copies]),
                                      dst=np.array([d for _, d in ops.copies]))
                 src = torch.tensor([s for s, _ in ops.copies],
                                    dtype=torch.long, device=self.device)
                 dst = torch.tensor([d for _, d in ops.copies],
                                    dtype=torch.long, device=self.device)
-                copy_blocks(self.kv, src, dst, self._tp_group, self.axis,
-                            self._pool_blocks)
+                copy_blocks(self.kv, src, dst, self._roles.ops,
+                            self._layout.serving_shape, 0, self._pool_blocks)
             if ops.uploads:
                 scales = dict(ops.scale_uploads)
                 self.push_pages([b for b, _ in ops.uploads],
@@ -897,7 +928,7 @@ class TorchEngine:
     @property
     def _pool_blocks(self) -> Optional[Tuple[int, int]]:
         """The global blocks rank 0's pools hold; None: all of them."""
-        return None if self._seq is None else self._seq.pool_blocks
+        return self._roles.pool_blocks
 
     def _staging(self, n: int, nbytes: int) -> torch.Tensor:
         """Host staging for n pages: pinned when the pools are on a card
@@ -928,11 +959,12 @@ class TorchEngine:
             host.copy_(dev, non_blocking=True)
             return host
 
-        if self._mirrored:
+        if self._mirror:
             with self._device_work():
-                self._ranks.send("gather", bids=np.asarray(list(bids), np.int64))
-                pages, scales = gather_blocks(self.kv, idx, self._tp_group, self.axis,
-                                              self._pool_blocks)
+                self._ranks.send("gather", to=self._mirror,
+                                 bids=np.asarray(list(bids), np.int64))
+                pages, scales = gather_blocks(self.kv, idx, self._roles.ops,
+                                              self._layout.serving_shape, self._pool_blocks)
         else:
             pages, scales = tp_ranks.local_pages(self.kv, idx, None)
         out = HostPages(to_host(pages), None if scales is None else to_host(scales))
@@ -975,11 +1007,11 @@ class TorchEngine:
                 host[i, pbytes:] = scales[i].contiguous().reshape(-1).view(torch.uint8)
         dev = host.to(self.device, non_blocking=True)
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
-        if self._mirrored:
-            self._ranks.send("push", bids=np.asarray(list(bids), np.int64))
-            self._tp_group.broadcast(dev, src=0)
+        if self._mirror:
+            self._ranks.send("push", to=self._mirror, bids=np.asarray(list(bids), np.int64))
+            self._roles.ops.broadcast(dev, src=0)
         pages, scales = unpack_pages(dev, self.kv, layout)
-        write_blocks(self.kv, idx, pages, scales, 0, self.axis, self._pool_blocks)
+        write_blocks(self.kv, idx, pages, scales, 0, self._pool_blocks)
 
     def _bucket_len(self, n: int) -> int:
         for b in self.cfg.prefill_buckets:
@@ -1863,8 +1895,9 @@ class TorchEngine:
         if steps <= 0:
             return emitted
         with self._device_work():
-            if self._mirrored:
-                self._ranks.send("decode", last=self._last_tokens, lens=self._kv_lens,
+            if self._mirror:
+                self._ranks.send("decode", to=self._mirror, last=self._last_tokens,
+                                 lens=self._kv_lens,
                                  active=active_mask, budgets=budgets.astype(np.int32),
                                  stops=self._stop_ids, tables=self._block_tables,
                                  steps=steps)
@@ -1874,8 +1907,7 @@ class TorchEngine:
                 self._tensor(~active_mask), self._tensor(budgets.astype(np.int32)),
                 self._tensor(self._stop_ids), self._tensor(self._block_tables), steps,
                 lambda logits, cur: self._sample(logits, range(b), cur, mode),
-                self._tp_group if self.tp > 1 else None,
-                self._seq if self.cfg.kv_seq_sharded else None,
+                self._model_group, self._roles.read_hooks, self._roles.ops,
             )
             emitted[:, :steps] = cols.cpu().numpy()
         return emitted
@@ -2637,9 +2669,18 @@ class TorchEngine:
         out["kv_cache"] = self.manager.get_stats()
         out["active_slots"] = self.num_active
         if self._tp_group is not None:
-            out["tp" if self.tp > 1 else "seq"] = {
-                "size": max(self.tp, self.seq), "backend": self._tp_group.backend,
-                **self._tp_group.stats}
+            if self.tp > 1 and self.seq > 1:
+                # the group over every rank, and each axis's sub-group
+                out["mesh"] = {"seq": self.seq, "model": self.tp,
+                               "backend": self._tp_group.backend, **self._tp_group.stats}
+                for key, axis, size in (("tp", AXIS_MODEL, self.tp),
+                                        ("seq", AXIS_SEQ, self.seq)):
+                    out[key] = {"size": size, "backend": self._tp_group.backend,
+                                **self._tp_group.axis_group(axis).stats}
+            else:
+                out["tp" if self.tp > 1 else "seq"] = {
+                    "size": max(self.tp, self.seq), "backend": self._tp_group.backend,
+                    **self._tp_group.stats}
         if self.cfg.speculative is not None:
             drafted = out.get("spec_drafted", 0)
             slot_steps = out.get("spec_slot_steps", 0)

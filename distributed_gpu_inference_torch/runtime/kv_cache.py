@@ -242,6 +242,25 @@ class RadixPrefixIndex:
         return len(self._nodes_by_block)
 
 
+def make_radix_index(block_size: int = KV_BLOCK_TOKENS):
+    """The prefix index: the C++ one (``native/src/radix_index.cpp``, built
+    at first use) when it builds and loads, else the exact-semantics Python
+    :class:`RadixPrefixIndex` with a logged warning."""
+    try:
+        from distributed_gpu_inference_torch import native
+
+        if native.native_available():
+            from distributed_gpu_inference_torch.native.radix import NativeRadixPrefixIndex
+
+            return NativeRadixPrefixIndex(block_size)
+        logging.getLogger("torch_native").warning(
+            "native radix index unavailable, using the Python fallback")
+    except Exception as exc:  # noqa: BLE001 — any native fault: the fallback, said
+        logging.getLogger("torch_native").warning(
+            "native radix index unavailable, using the Python fallback: %s", exc)
+    return RadixPrefixIndex(block_size)
+
+
 @dataclass
 class KVCacheStats:
     """Hit-rate and pool statistics."""
@@ -416,7 +435,7 @@ class PagedKVCacheManager:
         self.metas: Dict[int, KVBlockMeta] = {}
         self.free_list: List[int] = list(range(num_blocks - 1, 0, -1))  # pop() → 1..
         self.cached_lru: "OrderedDict[int, None]" = OrderedDict()  # ref==0, indexed
-        self.radix = RadixPrefixIndex(block_size)
+        self.radix = make_radix_index(block_size)
         self.seq_blocks: Dict[str, List[int]] = {}
         self.seq_tokens: Dict[str, List[int]] = {}
         self.seq_shared_count: Dict[str, int] = {}

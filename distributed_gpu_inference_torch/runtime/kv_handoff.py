@@ -412,15 +412,23 @@ def deserialize_handoff(data: bytes) -> KVHandoff:
 
 def migrate_kv_device(src: "TorchEngine", dst: "TorchEngine", slot: int,
                       dst_slot: Optional[int] = None) -> int:
-    """Move a live sequence between two engines whose pools live on one
-    device: the pages move pool→pool as one ``index_select`` +
-    ``index_copy_`` per pool (scale pools included) on the current stream,
-    with no host hop; only slot metadata rides the host. The donor slot
-    stays live (the caller decides ``finish_slot``, as with
-    :func:`export_slot_kv`). Engines on different devices raise: that is
-    the wire path's job, and so are tensor-parallel engines (refused)."""
-    for eng in (src, dst):
-        eng.refuse_under_tp("migrate_kv_device")
+    """Move a live sequence between two engines whose pools share devices:
+    the pages move pool→pool as one ``index_select`` + ``index_copy_``
+    per pool (scale pools included) on the current stream, with no host
+    hop; only slot metadata rides the host. The donor slot stays live (the
+    caller decides ``finish_slot``, as with :func:`export_slot_kv`).
+    Engines on different devices raise: that is the wire path's job.
+
+    Engines on a mesh (tensor, sequence or both axes) whose ranks sit on
+    the same devices as the other engine's (JAX's condition: the two
+    engines share devices): each engine's ranks are processes of their
+    own, so the pages go through the ranks' own page transfers, the
+    donor's :meth:`TorchEngine.gather_pages` (every rank's heads and
+    blocks of each page met in its group, into pinned host staging) and
+    the recipient's :meth:`TorchEngine.push_pages` (broadcast to its ranks,
+    each writing its heads and blocks). Pages and scales arrive bitwise."""
+    src.refuse_other_devices("migrate_kv_device", dst)
+    dst.refuse_other_devices("migrate_kv_device", src)
     s = src.slots[slot]
     if s is None:
         raise ValueError(f"slot {slot} empty")
@@ -430,7 +438,8 @@ def migrate_kv_device(src: "TorchEngine", dst: "TorchEngine", slot: int,
         raise ValueError("block_size mismatch between engines")
     if src.kv_dtype != dst.kv_dtype:
         raise ValueError("kv_cache_dtype mismatch between engines")
-    if src.device != dst.device:
+    on_mesh = src._ranks is not None or dst._ranks is not None
+    if src.device != dst.device and not on_mesh:
         raise ValueError(
             f"migrate_kv_device needs engines on one device (got {src.device} "
             f"and {dst.device}); use the wire path (export_slot_kv / "
@@ -463,13 +472,22 @@ def migrate_kv_device(src: "TorchEngine", dst: "TorchEngine", slot: int,
             # the recipient's own pending ops (copy-on-write from the
             # allocation) land before the pages are overwritten
             dst._apply_pending()
-            with dst._device_work():
-                src_idx = torch.tensor([a for a, _ in pairs], dtype=torch.long,
-                                       device=dst.device)
-                dst_idx = torch.tensor([b for _, b in pairs], dtype=torch.long,
-                                       device=dst.device)
-                for key in sorted(src.kv):
-                    dst.kv[key].index_copy_(1, dst_idx, src.kv[key].index_select(1, src_idx))
+            if on_mesh:
+                host = src.gather_pages([a for a, _ in pairs])
+                n = len(pairs)
+                with dst._device_work():
+                    dst.push_pages([b for _, b in pairs], list(host.pages.unbind(0)),
+                                   [None] * n if host.scales is None
+                                   else list(host.scales.unbind(0)))
+            else:
+                with dst._device_work():
+                    src_idx = torch.tensor([a for a, _ in pairs], dtype=torch.long,
+                                           device=dst.device)
+                    dst_idx = torch.tensor([b for _, b in pairs], dtype=torch.long,
+                                           device=dst.device)
+                    for key in sorted(src.kv):
+                        dst.kv[key].index_copy_(1, dst_idx,
+                                                src.kv[key].index_select(1, src_idx))
         if window_front > 0:
             dst.manager.seed_window_front(seq_id, window_front)
         _bind_migrated(

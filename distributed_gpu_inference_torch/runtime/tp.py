@@ -29,6 +29,16 @@ transfers (:func:`gather_blocks`, :func:`write_blocks`) move each rank's
 heads or blocks of a page through the group, so KV handoff, PD and the
 spill tiers see the single-device page layout on either axis.
 
+Both axes (``MeshPlan(seq=s, model=m)``, JAX's seq x model mesh): s*m
+ranks, rank ``i*m + j`` at seq row i and model column j
+(:class:`RankLayout`), each holding the weights cut j of m and its
+model-local KV heads. The row-parallel sums and the int8 amax reduce run
+over the rank's ``model`` sub-group, the ring hops, all-to-alls and
+partial-softmax merges over its ``seq`` sub-group. Replicated pools: seq
+row 0 holds every block (its heads) and serves as a tensor-parallel
+engine of m ranks; the other rows join only the seq-parallel prefill.
+Block-sharded pools: every rank runs every op on its blocks and heads.
+
 Failures: a rank that raises sends its traceback up its pipe and exits,
 which breaks the group's collectives on rank 0 (or its timeout does);
 rank 0 then names the rank in ``EngineStateLost``. :meth:`TPRanks.close`
@@ -54,7 +64,7 @@ from distributed_gpu_inference_torch.ops import paged_attention
 from distributed_gpu_inference_torch.ops.attention import dense_causal_attention
 from distributed_gpu_inference_torch.parallel import ring_attention
 from distributed_gpu_inference_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ, TPGroup
-from distributed_gpu_inference_torch.parallel.sharding import block_range
+from distributed_gpu_inference_torch.parallel.sharding import block_range, mesh_coords
 
 #: the ops whose result a rank sends back
 _QUERIES = ("counts", "pools", "stats", "memory")
@@ -86,7 +96,56 @@ class RankSpec:
     seed: int
     checkpoint_path: Optional[str]
     num_threads: int
-    axis: str = AXIS_MODEL
+    #: the engine's (seq, model) plan
+    shape: Tuple[int, int] = (1, 1)
+
+
+@dataclass(frozen=True)
+class RankLayout:
+    """Where rank ``rank`` of a (seq, model) engine sits and what it holds:
+    its seq row and model column, its pool blocks, and whether it runs
+    every op (the ranks that hold pages) or only the seq-parallel
+    prefill."""
+
+    rank: int
+    seq: int
+    model: int
+    seq_sharded: bool
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        return mesh_coords(self.rank, self.model)
+
+    def pool_blocks(self, num_blocks: int) -> Optional[Tuple[int, int]]:
+        """[lo, hi) of the global blocks this rank's pools hold; None: every
+        block. Replicated pools on a seq axis: row 0 holds every block, the
+        other rows none."""
+        i, _ = self.coords
+        if self.seq == 1:
+            return None
+        if self.seq_sharded:
+            return block_range(num_blocks, i, self.seq)
+        return None if i == 0 else (0, 0)
+
+    @property
+    def serving_shape(self) -> Tuple[int, int]:
+        """(seq, model) of the ranks that run every op: the whole mesh for
+        block-sharded pools, seq row 0 otherwise."""
+        return (self.seq if self.seq_sharded else 1), self.model
+
+    def mirrors(self) -> List[int]:
+        """The ranks other than 0 that run every op."""
+        s, m = self.serving_shape
+        return list(range(1, s * m))
+
+    def ops_group(self, group: Optional[TPGroup]) -> Optional[TPGroup]:
+        """The group spanning the ranks that run every op (token broadcasts
+        and page transfers meet there): the whole group, or seq row 0's
+        ``model`` sub-group; None when rank 0 serves alone."""
+        s, m = self.serving_shape
+        if group is None or s * m == 1:
+            return None
+        return group if s * m == group.size else group.axis_group(AXIS_MODEL)
 
 
 def attention_kind(positions: np.ndarray, lens: np.ndarray) -> str:
@@ -116,6 +175,8 @@ class SeqRank:
     pool_blocks: Optional[Tuple[int, int]]
     block_size: int
     impl: str = "ring"
+    #: the rank's ``model`` peers on a seq x model mesh (None on one axis)
+    model_group: Optional[TPGroup] = None
 
     def hooks(self, kind: str, tables: torch.Tensor, positions: torch.Tensor,
               kv_lens: torch.Tensor) -> Dict[str, Any]:
@@ -147,23 +208,29 @@ def seq_prefill(model_cfg: Any, params: Any, kv: Dict[str, torch.Tensor], seq: S
     rank count, position -1 past ``n_tokens``); rank r runs rows [r·P/n,
     (r+1)·P/n) through every layer, attention ring or Ulysses over the
     group, and the K/V rows of every rank are gathered before the page
-    writes, so each rank writes every page it holds. → the last prompt
-    token's logits [1, V] (``with_logits``), its hidden row broadcast from
-    the rank that computed it; None otherwise."""
+    writes, so each rank writes every page it holds. On a seq x model mesh
+    the rank runs its model-local heads and sums over ``seq.model_group``.
+    → the last prompt token's logits [1, V] (``with_logits``), its hidden
+    row broadcast from the seq rank that computed it; None otherwise."""
     device = seq.group.device
     n = seq.group.size
     per = toks_pos.shape[-1] // n
     rows = slice(seq.group.rank * per, (seq.group.rank + 1) * per)
     lens = torch.tensor([n_tokens], dtype=torch.int32, device=device)
-    attend = (ring_attention.ring_self_attention if seq.impl == "ring"
-              else ring_attention.ulysses_self_attention)
+    if seq.impl == "ring":
+        def attend(q, k, v):
+            return ring_attention.ring_self_attention(q, k, v, lens, seq.group)
+    else:
+        def attend(q, k, v):
+            return ring_attention.ulysses_self_attention(q, k, v, lens, seq.group,
+                                                         seq.model_group)
     out = llama.forward_chunk(
         model_cfg, params, torch.tensor(toks_pos[0][:, rows], device=device),
         torch.tensor(toks_pos[1][:, rows], device=device), kv,
         torch.tensor(table, device=device), lens, block_size=seq.block_size,
         with_logits=False, pool_blocks=seq.pool_blocks, gather_rows=seq.gather_seq,
         write_positions=torch.tensor(toks_pos[1], device=device),
-        dense_attn_fn=lambda q, k, v: attend(q, k, v, lens, seq.group))
+        dense_attn_fn=attend, tp=seq.model_group)
     owner, row = divmod(n_tokens - 1, per)
     last = (out.hidden[:, row:row + 1].contiguous() if seq.group.rank == owner
             else torch.empty((1, 1, out.hidden.shape[-1]), dtype=out.hidden.dtype,
@@ -198,36 +265,40 @@ def local_pages(kv: Dict[str, torch.Tensor], bids: torch.Tensor,
 
 
 def gather_blocks(kv: Dict[str, torch.Tensor], bids: torch.Tensor, group: TPGroup,
-                  axis: str, pool_blocks: Optional[Tuple[int, int]]
+                  shape: Tuple[int, int], pool_blocks: Optional[Tuple[int, int]]
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Whole pages ``bids`` on every rank, in the single-device page layout
-    ([n, L, 2, Hkv, Bk, D] and int8 scales [n, L, 2, Bk]): under ``model``
-    each rank's KV heads gathered side by side (scales are replicated);
-    under ``seq`` each page taken from the rank that holds its block.
-    Every rank of the group calls it with the same ``bids``."""
+    """Whole pages ``bids`` on every rank of ``group``, in the single-device
+    page layout ([n, L, 2, Hkv, Bk, D] and int8 scales [n, L, 2, Bk]).
+    ``group`` spans the ranks that hold pages, ``shape`` their (seq,
+    model) plan: each rank's KV heads are laid side by side over
+    ``model`` (scales are whole there), and over a block-sharded ``seq``
+    each page is taken from the row that holds its block. Every rank of
+    the group calls it with the same ``bids``."""
+    s, m = shape
     pages, scales = local_pages(kv, bids, pool_blocks)
-    if axis == AXIS_MODEL:
-        g = group.all_gather(pages)                     # [tp, n, L, 2, h, Bk, D]
-        tp, n, L, two, h, bk, d = g.shape
-        return g.permute(1, 2, 3, 0, 4, 5, 6).reshape(n, L, two, tp * h, bk, d), scales
-    per = pool_blocks[1] - pool_blocks[0]
-    owner = torch.div(bids, per, rounding_mode="floor")
-    rows = torch.arange(len(bids), device=bids.device)
-    pages = group.all_gather(pages)[owner, rows]
-    if scales is not None:
-        scales = group.all_gather(scales)[owner, rows]
-    return pages, scales
+    n, L, two, h, bk, d = pages.shape
+    g = group.all_gather(pages).reshape(s, m, n, L, two, h, bk, d)
+    rows = torch.arange(n, device=bids.device)
+    if s > 1:
+        owner = torch.div(bids, pool_blocks[1] - pool_blocks[0], rounding_mode="floor")
+        g = g[owner, :, rows]                           # [n, m, L, 2, h, Bk, D]
+        if scales is not None:
+            scales = group.all_gather(scales).reshape(s, m, *scales.shape)[owner, 0, rows]
+    else:
+        g = g[0].movedim(0, 1)
+    return g.permute(0, 2, 3, 1, 4, 5, 6).reshape(n, L, two, m * h, bk, d), scales
 
 
 def write_blocks(kv: Dict[str, torch.Tensor], bids: torch.Tensor, pages: torch.Tensor,
-                 scales: Optional[torch.Tensor], rank: int, axis: str,
+                 scales: Optional[torch.Tensor], model_rank: int,
                  pool_blocks: Optional[Tuple[int, int]]) -> None:
     """Write whole pages (the single-device layout) into blocks ``bids`` of
-    this rank's pools: under ``model`` its KV heads of each page (scales
-    whole), under ``seq`` the pages whose blocks it holds."""
-    if axis == AXIS_MODEL:
-        h = kv["k"].shape[2]
-        pages = pages[:, :, :, rank * h:(rank + 1) * h]
+    this rank's pools: its KV heads of each page (the heads at
+    ``model_rank`` of the pools' width; scales whole), and only the pages
+    whose blocks it holds (``pool_blocks``)."""
+    h = kv["k"].shape[2]
+    if h != pages.shape[3]:
+        pages = pages[:, :, :, model_rank * h:(model_rank + 1) * h]
     idx = bids
     if pool_blocks is not None:
         lo, hi = pool_blocks
@@ -273,7 +344,8 @@ def decode_steps(model_cfg: Any, params: Any, kv: Dict[str, torch.Tensor], block
                  budgets: torch.Tensor, stops: torch.Tensor, tables: torch.Tensor,
                  steps: int, sample: Optional[Callable[[torch.Tensor, torch.Tensor],
                                                        torch.Tensor]],
-                 tp: Optional[TPGroup] = None, seq: Optional[SeqRank] = None) -> torch.Tensor:
+                 tp: Optional[TPGroup] = None, seq: Optional[SeqRank] = None,
+                 group: Optional[TPGroup] = None) -> torch.Tensor:
     """``steps`` decode steps with the per-slot state on the device: each
     not-done row feeds its pending token at position ``lens`` (writing its
     KV) and advances; a row is done once it emits a stop id or its budget.
@@ -281,11 +353,12 @@ def decode_steps(model_cfg: Any, params: Any, kv: Dict[str, torch.Tensor], block
 
     ``sample(logits, cur)`` picks each step's tokens on the rank that
     samples; a rank without it (``sample`` None, ranks 1..n-1) computes no
-    logits and receives the tokens from rank 0. ``seq``: a rank of
-    block-sharded pools, reading through the partial-softmax decode op."""
+    logits and receives the tokens from rank 0 over ``group`` (the ranks
+    that run the steps). ``tp``: the rank's ``model`` group; ``seq``: a
+    rank of block-sharded pools, reading through the partial-softmax
+    decode op."""
     n_emit = torch.zeros_like(lens)
     cols = []
-    group = tp if seq is None else seq.group
     for _ in range(steps):
         cur = (lens + 1).masked_fill(done, 0)
         positions = lens[:, None].masked_fill(done[:, None], -1)
@@ -308,6 +381,44 @@ def decode_steps(model_cfg: Any, params: Any, kv: Dict[str, torch.Tensor], block
     return torch.stack(cols, dim=1)
 
 
+@dataclass
+class RankRoles:
+    """The groups and pools one rank of a (seq, model) engine works with
+    (rank 0 and the spawned ranks alike): ``tp`` its ``model`` sub-group
+    (None at model 1), ``seq`` its seq rank (None at seq 1; its hooks only
+    for block-sharded pools), ``ops`` the group of the ranks that run
+    every op (:meth:`RankLayout.ops_group`), and ``pool_blocks`` the
+    global blocks its pools hold."""
+
+    layout: RankLayout
+    tp: Optional[TPGroup]
+    seq: Optional[SeqRank]
+    ops: Optional[TPGroup]
+    pool_blocks: Optional[Tuple[int, int]]
+
+    @classmethod
+    def build(cls, layout: RankLayout, group: Optional[TPGroup], cfg: Any,
+              num_blocks: int) -> "RankRoles":
+        pool_blocks = layout.pool_blocks(num_blocks)
+        tp = None if group is None or layout.model == 1 else group.axis_group(AXIS_MODEL)
+        seq = None
+        if layout.seq > 1:
+            seq = SeqRank(group.axis_group(AXIS_SEQ), pool_blocks, cfg.block_size,
+                          cfg.seq_parallel_impl, model_group=tp)
+        return cls(layout, tp, seq, layout.ops_group(group), pool_blocks)
+
+    @property
+    def held_blocks(self) -> Optional[int]:
+        """The block count of this rank's pools (None: the whole pool)."""
+        return None if self.pool_blocks is None else self.pool_blocks[1] - self.pool_blocks[0]
+
+    @property
+    def read_hooks(self) -> Optional[SeqRank]:
+        """The seq rank whose partial-softmax reads serve this rank's ops
+        (block-sharded pools only)."""
+        return self.seq if self.layout.seq_sharded else None
+
+
 class _RankHalf:
     """A rank's shard of the weights and pools, and the ops rank 0 sends."""
 
@@ -322,67 +433,60 @@ class _RankHalf:
         self.rank, self.spec, self.group = rank, spec, group
         self.device = group.device
         cfg = spec.engine_cfg
-        n = group.size
-        seq_axis = spec.axis == AXIS_SEQ
+        seq, model = spec.shape
+        self.layout = RankLayout(rank, seq, model, cfg.kv_seq_sharded)
+        j = self.layout.coords[1]
         if params is not None:
             params = tree_to(params, self.device)
         else:
             params = engine_params(spec.model_cfg, cfg, spec.checkpoint_path, spec.seed,
-                                   self.device, shard=None if seq_axis else (rank, n))
+                                   self.device, shard=(j, model) if model > 1 else None)
         self.params = params
         kv_dtype = _resolve_kv_dtype(cfg.kv_cache_dtype, llama.torch_dtype(cfg.dtype))
-        self.tp: Optional[TPGroup] = None if seq_axis else group
-        self.seq: Optional[SeqRank] = None
-        self.pool_blocks: Optional[Tuple[int, int]] = None
         num_blocks = cfg.resolved_num_blocks()
-        if seq_axis:
-            # block-sharded: this rank's range; replicated: rank 0 holds
-            # every page, so this rank holds none
-            self.pool_blocks = (block_range(num_blocks, rank, n) if cfg.kv_seq_sharded
-                                else (0, 0))
-            num_blocks = self.pool_blocks[1] - self.pool_blocks[0]
-            self.seq = SeqRank(group, self.pool_blocks, cfg.block_size,
-                               cfg.seq_parallel_impl)
-        self.kv = llama.init_kv_pools(spec.model_cfg, num_blocks, cfg.block_size, kv_dtype,
-                                      self.device, tp=1 if seq_axis else n)
+        self.roles = RankRoles.build(self.layout, group, cfg, num_blocks)
+        held = self.roles.held_blocks
+        self.kv = llama.init_kv_pools(spec.model_cfg, num_blocks if held is None else held,
+                                      cfg.block_size, kv_dtype, self.device, tp=model)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)
 
     def run(self, op: str, kw: Dict[str, Any]) -> Any:
         cfg = self.spec.engine_cfg
+        roles, j = self.roles, self.layout.coords[1]
         if op == "forward":
             positions, tables, lens = (self._t(kw["toks_pos"][1]), self._t(kw["tables"]),
                                        self._t(kw["lens"]))
-            hooks = ({} if self.seq is None else self.seq.hooks(
+            hooks = ({} if roles.read_hooks is None else roles.read_hooks.hooks(
                 attention_kind(kw["toks_pos"][1], kw["lens"]), tables, positions, lens))
             llama.forward_chunk(
                 self.spec.model_cfg, self.params, self._t(kw["toks_pos"][0]), positions,
                 self.kv, tables, lens, block_size=cfg.block_size, with_logits=False,
-                allow_fused=kw["allow_fused"], tp=self.tp, **hooks)
+                allow_fused=kw["allow_fused"], tp=roles.tp, **hooks)
         elif op == "decode":
             decode_steps(
                 self.spec.model_cfg, self.params, self.kv, cfg.block_size,
                 self._t(kw["last"]), self._t(kw["lens"]), self._t(~kw["active"]),
                 self._t(kw["budgets"]), self._t(kw["stops"]), self._t(kw["tables"]),
-                kw["steps"], None, self.tp, self.seq)
+                kw["steps"], None, roles.tp, roles.read_hooks, roles.ops)
         elif op == "seq_prefill":
-            seq_prefill(self.spec.model_cfg, self.params, self.kv, self.seq, kw["toks_pos"],
+            seq_prefill(self.spec.model_cfg, self.params, self.kv, roles.seq, kw["toks_pos"],
                         kw["table"], kw["n"], with_logits=False)
         elif op == "copy":
             copy_blocks(self.kv, self._t(kw["src"]).long(), self._t(kw["dst"]).long(),
-                        self.group, self.spec.axis, self.pool_blocks)
+                        roles.ops, self.layout.serving_shape, j, roles.pool_blocks)
         elif op == "gather":
-            gather_blocks(self.kv, self._t(kw["bids"]).long(), self.group, self.spec.axis,
-                          self.pool_blocks)
+            gather_blocks(self.kv, self._t(kw["bids"]).long(), roles.ops,
+                          self.layout.serving_shape, roles.pool_blocks)
         elif op == "push":
             layout = page_bytes(self.spec.model_cfg, self.kv, cfg.block_size)
             buf = torch.empty((len(kw["bids"]), layout[1] + layout[3]), dtype=torch.uint8,
                               device=self.device)
-            self.group.broadcast(buf, src=0)
+            roles.ops.broadcast(buf, src=0)
             pages, scales = unpack_pages(buf, self.kv, layout)
-            write_blocks(self.kv, self._t(kw["bids"]).long(), pages, scales, self.rank,
-                         self.spec.axis, self.pool_blocks)
+            write_blocks(self.kv, self._t(kw["bids"]).long(), pages, scales, j,
+                         roles.pool_blocks)
         elif op == "counts":
             return paged_attention.launch_counts()
         elif op == "reset_counts":
@@ -392,7 +496,8 @@ class _RankHalf:
                 torch.cuda.synchronize(self.device)
             return {k: tensor_bits(self.kv[k]) for k in kw["names"]}
         elif op == "stats":
-            return dict(self.group.stats)
+            group = self.group if kw.get("axis") is None else self.group.axis_group(kw["axis"])
+            return None if group is None else dict(group.stats)
         elif op == "memory":
             return device_memory(self.device, self.kv)
         elif op == "reset_stats":
@@ -405,15 +510,16 @@ class _RankHalf:
 
 
 def copy_blocks(kv: Dict[str, torch.Tensor], src: torch.Tensor, dst: torch.Tensor,
-                group: Optional[TPGroup], axis: str,
+                group: Optional[TPGroup], shape: Tuple[int, int], model_rank: int,
                 pool_blocks: Optional[Tuple[int, int]]) -> None:
     """The copy-on-write page copies ``src`` → ``dst`` (global ids) on one
     rank: in place where the rank holds both (one device, the ``model``
     axis: every rank its own heads); across ranks for block-sharded pools,
-    whose source and destination blocks may sit on different ranks."""
-    if axis == AXIS_SEQ and pool_blocks is not None:
-        pages, scales = gather_blocks(kv, src, group, axis, pool_blocks)
-        write_blocks(kv, dst, pages, scales, group.rank, axis, pool_blocks)
+    whose source and destination blocks may sit on different ranks
+    (``group`` and ``shape`` as for :func:`gather_blocks`)."""
+    if shape[0] > 1:
+        pages, scales = gather_blocks(kv, src, group, shape, pool_blocks)
+        write_blocks(kv, dst, pages, scales, model_rank, pool_blocks)
         return
     for pool in kv.values():
         pool[:, dst] = pool[:, src]
@@ -452,7 +558,7 @@ def _rank_main(rank: int, spec: RankSpec, conn: Any, params: Optional[Dict[str, 
     torch.set_num_threads(spec.num_threads)
     group = None
     try:
-        group = TPGroup(rank, spec.devices, spec.store_path, spec.timeout_s)
+        group = TPGroup(rank, spec.devices, spec.store_path, spec.timeout_s, spec.shape)
         half = _RankHalf(rank, spec, group, params)
         del params
         conn.send(("ready", rank, None))
@@ -499,7 +605,8 @@ class TPRanks:
                 child.close()
                 self._procs.append(p)
                 self._conns.append(parent)
-            self.group = TPGroup(0, spec.devices, spec.store_path, spec.timeout_s)
+            self.group = TPGroup(0, spec.devices, spec.store_path, spec.timeout_s,
+                                 spec.shape)
         except BaseException:
             self.close()
             raise
@@ -551,10 +658,13 @@ class TPRanks:
                 return None
             time.sleep(0.05)
 
-    def send(self, op: str, **kw: Any) -> None:
-        """Send every rank the command ``op`` with its arguments."""
+    def send(self, op: str, to: Optional[Sequence[int]] = None, **kw: Any) -> None:
+        """Send the command ``op`` with its arguments to the ranks ``to``
+        (default: every rank)."""
         self.check()
         for r, conn in enumerate(self._conns, start=1):
+            if to is not None and r not in to:
+                continue
             try:
                 conn.send((op, kw))
             except OSError as exc:

@@ -62,9 +62,11 @@ Speculative decoding, in either of the JAX engine's two modes:
 The two are mutually exclusive. ``load_model`` refuses, with
 :class:`EngineLoadError` naming the key, what this port does not serve
 rather than ignoring it: a ``serving.mode`` other than ``batcher`` or
-``direct``, and under ``tp_size`` > 1 speculative decoding and
-``kv_migrate`` (PD roles, KV handoff and the spill tiers serve there: the
-engine gathers and scatters each rank's heads of a page).
+``direct``, and under ``tp_size`` > 1 speculative decoding. PD roles,
+KV handoff, the spill tiers and ``kv_migrate`` (on by default, as in the
+JAX worker) serve under ``tp_size`` > 1: the engine gathers and scatters
+each rank's heads of a page (``TorchEngine.gather_pages`` /
+``push_pages``).
 ``spec_distill_steps`` > 0 with ``speculative_decode`` distils the draft head against the target at load, before the batcher
 starts (``TorchEngine.distill_draft``); the per-step losses are kept in
 ``distill_losses``.
@@ -578,13 +580,6 @@ class TorchLLMEngine(LLMBaseEngine):
             raise EngineLoadError(
                 f"engine={self.config['engine']} is not supported under tensor "
                 f"parallelism (tp_size={tp}): speculative decoding is single-chip")
-        if self.config.get("kv_migrate"):
-            raise EngineLoadError(
-                f"kv_migrate is not supported under tensor parallelism (tp_size={tp}): "
-                "a device-side migration joins two engines whose ranks are "
-                "different processes")
-        # off unless asked for (refused above)
-        self.kv_migrate_enabled = False
         return devices
 
     def _local_file_key(self, key: str) -> Optional[str]:

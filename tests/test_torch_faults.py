@@ -284,6 +284,12 @@ def _post(port, path, body):
         conn.close()
 
 
+def _wait_idle(w, timeout_s=10.0):
+    deadline = time.time() + timeout_s
+    while w.state != WorkerState.IDLE and time.time() < deadline:
+        time.sleep(0.01)
+
+
 def test_direct_seams_reject_cut_and_kill_streams():
     w = Worker()
     ds = DirectServer(w, host="127.0.0.1", port=0)
@@ -313,6 +319,10 @@ def test_direct_seams_reject_cut_and_kill_streams():
                     cut.value.partial.decode().splitlines() if line.startswith("data: ")]
             assert [d["offset"] for d in data] == [1, 2]
             assert not any(d.get("done") for d in data)
+        # the cut stream's handler releases its claim only after it closed the
+        # generator, which may land after the client saw the cut: the next
+        # stream waits for it, or it meets a busy worker (503)
+        _wait_idle(w)
         # no plan: the whole stream and its final chunk
         conn = http.client.HTTPConnection("127.0.0.1", ds.port, timeout=10)
         conn.request("POST", "/inference/stream", body=json.dumps({"params": {}}).encode())
@@ -321,9 +331,7 @@ def test_direct_seams_reject_cut_and_kill_streams():
         assert text.count("data: ") == 6 and '"done": true' in text
         assert ds.stats["rejected"] == 1
         # every claim released (the handler releases after its last write)
-        deadline = time.time() + 10
-        while w.state != WorkerState.IDLE and time.time() < deadline:
-            time.sleep(0.01)
+        _wait_idle(w)
         assert w.state == WorkerState.IDLE
     finally:
         ds.stop()

@@ -53,7 +53,7 @@ def test_port_imports_nothing_of_jax():
             "llama.py", "attention.py", "convert.py", "loader.py", "safetensors.py",
             "hf_tokenizer.py", "wire.py", "session.py", "stage_worker.py",
             "pipeline.py", "mesh.py", "sharding.py", "tp.py",
-            "bert_chars.py"} <= {f.name for f in files}
+            "bert_chars.py", "radix.py"} <= {f.name for f in files}
     assert (ROOT / "distributed_gpu_inference_torch/runtime/speculative.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/testing/faults.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files
@@ -100,6 +100,25 @@ def test_seq_modules_import_nothing_of_jax():
     for f in seq + [ROOT / "chip_smoke.py"]:
         assert not set(_imported_roots(f)) & set(FORBIDDEN), f
     assert "def seq_phase(" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_native_mesh_and_stage_pipeline_modules_import_nothing_of_jax():
+    # the C++ radix index's loader and wrapper (ctypes, the standard
+    # library's, is theirs), the seq x model mesh and the in-mesh stage
+    # pipeline carry no JAX and no module of the JAX package (not even its
+    # native/, which imports no JAX); chip_smoke.py's phase 26 drives them
+    native = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
+        "native/__init__.py", "native/radix.py")]
+    mesh = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
+        "parallel/mesh.py", "parallel/sharding.py", "parallel/ring_attention.py",
+        "parallel/pipeline.py", "runtime/tp.py", "runtime/engine.py",
+        "runtime/kv_cache.py", "runtime/kv_handoff.py", "worker/engines/llm.py")]
+    assert set(native + mesh) <= set(_port_files())
+    for f in native + mesh + [ROOT / "chip_smoke.py"]:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    assert all("ctypes" in set(_imported_roots(f)) for f in native)
+    assert (ROOT / "distributed_gpu_inference_torch/native/src/radix_index.cpp").is_file()
+    assert "def mesh_phase(" in (ROOT / "chip_smoke.py").read_text()
 
 
 def test_a_seq_engine_runs_on_the_card_unless_asked(monkeypatch):

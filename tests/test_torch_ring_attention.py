@@ -264,11 +264,11 @@ def test_refusals_by_name():
     with pytest.raises(ValueError, match="pool blocks 9 not divisible by seq axis 2"):
         shard_kv_blocks({"k": torch.zeros((1, 9, 1, 16, 8))}, 0, 2)
     assert seq_num_blocks(9, 2) == 10 and block_range(10, 1, 2) == (5, 10)
-    with pytest.raises(ValueError, match="both seq=2 and model=2"):
-        TMeshPlan(seq=2, model=2).engine_axis()
+    # a seq x model plan is an engine's 2-D plan (tests/test_torch_mesh_2d.py)
+    assert TMeshPlan(seq=2, model=2).engine_axis() == (2, 2)
     with pytest.raises(ValueError, match="no data or stage axis"):
         TMeshPlan(data=2).engine_axis()
-    assert TMeshPlan(seq=2).engine_axis() == ("seq", 2)
+    assert TMeshPlan(seq=2).engine_axis() == (2, 1)
     geom = dict(max_batch_size=2, max_seq_len=96, block_size=16, prefill_buckets=(16, 32),
                 dtype="float32")
     with pytest.raises(ValueError, match="kv_seq_sharded needs a mesh with a seq axis > 1"):

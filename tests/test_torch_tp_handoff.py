@@ -16,8 +16,9 @@ seq 2 give the single-device page layout, so
 - PD (prefill → decode over a ``DataPlaneServer``) and the spill tiers
   (L2 and L3, through the engine and through the worker's keys) serve
   under ``tp_size: 2``;
-- ``migrate_kv_device`` and ``kv_migrate`` stay refused on a mesh, before
-  any device work."""
+- ``migrate_kv_device`` between a mesh engine and an engine on other
+  devices stays refused, before any device work; ``kv_migrate`` loads at
+  tp 2."""
 
 import numpy as np
 import pytest
@@ -38,7 +39,6 @@ from distributed_gpu_inference_torch.runtime import kv_cache as tkv  # noqa: E40
 from distributed_gpu_inference_torch.runtime import kv_handoff as tkh  # noqa: E402
 from distributed_gpu_inference_torch.runtime import tp as tp_ranks  # noqa: E402
 from distributed_gpu_inference_torch.utils import data_structures as tds  # noqa: E402
-from distributed_gpu_inference_torch.worker.engines.base import EngineLoadError  # noqa: E402
 from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine  # noqa: E402
 from distributed_gpu_inference_tpu.models import llama as jllama  # noqa: E402
 from distributed_gpu_inference_tpu.models.configs import get_model_config  # noqa: E402
@@ -298,21 +298,28 @@ def test_pd_prefill_to_decode_under_tp_size_2(weights, stream):
 
 
 def test_device_migration_and_kv_migrate_stay_refused_on_a_mesh(weights):
+    """Since the mesh engines' device moves and the worker's ``kv_migrate``
+    serve under TP (``tests/test_torch_tp_migrate.py``), what stays refused
+    is a device move between a mesh engine and an engine on other devices,
+    before any device work; ``kv_migrate: true`` now loads at tp 2."""
     eng = _port(weights, rank_devices=CPU2)
     seq = _port(weights, rank_devices=CPU2, mesh=MeshPlan(seq=2))
     other = _port(weights)
+    other.rank_devices = [torch.device("cuda", 1)]      # an engine on another card
     try:
         slot = eng.submit(_req(tds, LONG[:20], 4))
         before = eng.get_stats()["tp"]["all_gather"]
         for src, dst in ((eng, other), (other, seq)):
             s = slot if src is eng else other.submit(_req(tds, LONG[:20], 4))
-            with pytest.raises(NotImplementedError, match="on a mesh"):
+            with pytest.raises(NotImplementedError, match="on different devices"):
                 tkh.migrate_kv_device(src, dst, s)
         assert eng.get_stats()["tp"]["all_gather"] == before
     finally:
         eng.shutdown()
         seq.shutdown()
     llm = TorchLLMEngine({"model": MODEL, "device": "cpu", "tp_size": 2, "kv_migrate": True})
-    with pytest.raises(EngineLoadError, match="kv_migrate is not supported"):
+    try:
         llm.load_model()
-    assert llm.engine is None
+        assert llm.kv_migrate_enabled and llm.engine.tp == 2
+    finally:
+        llm.unload()

@@ -123,9 +123,11 @@ def test_refusals_by_name(weights):
                                 params=params_from_numpy(weights[1], "cpu"), device="cpu")
     try:
         slot = eng.submit(_req(tds, PROMPTS[1], 4))
-        # a device-side move between two engines: their ranks are different
-        # processes (the page gather and push themselves serve at tp 2)
-        with pytest.raises(NotImplementedError, match="on a mesh"):
+        # a device-side move between a mesh engine and an engine on other
+        # devices (here one that claims a second card) is the wire path's
+        # job; on the same devices it moves (tests/test_torch_tp_migrate.py)
+        other.rank_devices = [torch.device("cuda", 1)]
+        with pytest.raises(NotImplementedError, match="on different devices"):
             migrate_kv_device(eng, other, slot)
     finally:
         eng.shutdown()
@@ -136,7 +138,7 @@ def test_refusals_by_name(weights):
     ({"tp_size": 4}, "num_kv_heads 2 not divisible by model axis 4"),
     ({"extra": {"tp_size": 2}, "speculative_decode": True}, "speculative_decode is not"),
     ({"tp_size": 2, "engine": "jax-speculative"}, "speculative decoding is single-chip"),
-    ({"tp_size": 2, "kv_migrate": True}, "kv_migrate is not"),
+    ({"tp_size": 3}, "num_kv_heads 2 not divisible by model axis 3"),
 ])
 def test_the_worker_refuses_by_name(config, match):
     if config.get("device") == "cuda" and torch.cuda.is_available() \
@@ -163,7 +165,7 @@ def test_llm_engine_serves_at_tp_size_2(weights, mode):
         ranks = llm.engine._ranks
         try:
             assert llm.engine.tp == tp and (llm.serving is None) == (mode == "direct")
-            assert llm.kv_migrate_enabled == (tp == 1)
+            assert llm.kv_migrate_enabled      # on at every tp_size, as in JAX
             outs.append([llm.inference({"prompt": p, "max_new_tokens": 6,
                                         "ignore_eos": True})["text"]
                          for p in ("hello there", "tensor parallel ranks")])
