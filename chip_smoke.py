@@ -4,7 +4,7 @@
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --phase 24     # the build, then phase 24 alone
 
-``--phase`` takes the phases whose inputs are their own (16-19, 21-26;
+``--phase`` takes the phases whose inputs are their own (16-19, 21-27;
 repeatable; phase 16 alone loads phase 7's engine as its A); the others
 run only in the whole script. A guard thread stops
 the run (exit 3) if the host's available memory falls below
@@ -213,8 +213,10 @@ Prefill/decode disaggregation:
     all 8 decode together on B; every PD stream equals A's exactly (the
     same prefill arithmetic: a one-shot prefill of a prompt within one
     chunk runs one row, as a streamed chunk does; where one parts, both
-    runs' top-2 logits are printed with a re-score, and the check fails
-    after the TTFT line); pushes of prompts past one chunk
+    runs' top-2 logits are printed, and the check fails after the TTFT
+    line); the streamed run is also judged in the logits each run sampled
+    (``check_sampled``: a fork a near-tie there, a runner-up planted in a
+    stream rejected); pushes of prompts past one chunk
     sent bytes before the first token. (c) ``migrate_kv_device`` A → B:
     pages and scales bit-identical, continued on B equal to A alone; a
     one-layer engine with another KV dtype, and one on the CPU, are
@@ -295,8 +297,8 @@ The fleet harness:
     run's deficit is printed). One run's logits are a noisy judge: on an
     H100 two runs at one fork put the same two tokens 0.0551 apart in one
     and reversed in the other, and a teacher-forced re-score (other kernels
-    and chunks, printed as information with its error on the calm
-    replay) put a correct run's own tokens up to 0.0398 below its argmax.
+    and chunks) put a correct run's own tokens up to 0.0398 below its
+    argmax, so none is run.
     A stream resumed past its last pushed checkpoint splices two runs
     where its new run re-generated a delivered token otherwise (ROADMAP §3
     item 3): each stretch between resumes is then held to the calm replay
@@ -304,7 +306,7 @@ The fleet harness:
     Each token a run sampled is the argmax of the logits recorded for it,
     and none is missing; all three
     kernels launched (counters zeroed before the phase, read after the
-    calm replay and before the re-score).
+    calm replay).
     Information: kill → requeue seconds, requeue → first token on the
     member that resumed the job (member 1 once its stall ends, or the
     restarted member 0), the restart's cold start, the kill's offset from
@@ -616,6 +618,30 @@ in-mesh stage pipeline:
     the kernels line's entries: (b)'s to the int8 ones, (c)'s and (d)'s to
     the bf16 ragged and fused decode ones, qmm to the int8 qmm entry. NCCL is
     not exercised: it refuses ranks that share one card.
+
+Images without Pillow:
+
+27. after phase 26. The host image path (``utils/jpeg.py``,
+    ``utils/png.py``, ``utils/resize.py``; C++ in
+    ``native/src/image_codec.cpp``, built with g++ at first use) on the
+    seeded fixtures of ``tests/fixtures/images`` (a 4032 x 3024 baseline
+    4:2:0 JPEG, a 1920 x 1080 progressive one, 4:4:4 with restart markers,
+    4:2:2 at an odd size, grey, an Adam7 RGBA PNG and a 16-bit RGB PNG):
+    each native decode and each native resize to 224 x 224 has the
+    SHA-256 of Pillow's answer in the fixtures' manifest (Pillow is not on
+    the card's machine); native and plain versions agree on the two
+    smallest. ``VisionEngine`` (small-vit + llama3-1b, decoder bf16, as
+    phase 20 (c)) answers one base64 ``image`` request for each fixture:
+    counters zeroed before and read after, both attention kernels launched
+    (added to the bf16 ragged and fused decode entries of the kernels
+    line); no plain host version taken (``native.PLAIN_TAKEN``); ids in
+    vocabulary; the kernels' prefill logits on the 12 MP photo's prefix
+    within LOGITS_REL_BOUND of the plain versions'. Printed for each
+    fixture, host times with the host CPU's name: decode ms and MP/s,
+    resize ms; the request's ms, and, from a second run of each request
+    with every stage timed to its end (``stage_clock``), its split into
+    decode, resize, ViT, decoder prefill and decode steps, with the card's
+    name and power limit.
 
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
@@ -3852,9 +3878,8 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
             # single-row chunks beyond), and a streamed prompt prefills by
             # single-row chunks too, so every PD stream must equal it
             # exactly. Where one parts all the same, both runs' top-2 are
-            # printed with the re-score's
+            # printed
             multi = [len(ids) > PD_BUCKETS[-1] for ids, _ in rows]
-            scores = rescore(torch, b.engine, rows) if mode == "streamed" else None
             parts, unequal = [], []
             for r, (ids, toks_) in enumerate(rows):
                 want = hyb_rows[r]
@@ -3869,9 +3894,7 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
                 parts.append(f"request {r} token {d}: PD {toks_[d]} vs hybrid {want[d]}; "
                              f"PD top-2 {top_b}, the hybrid token {short_b:.4f} below; "
                              f"hybrid top-2 {top_a}, the PD token {short_a:.4f} below; "
-                             f"within {NEAR_TIE}: {min(short_a, short_b) < NEAR_TIE} "
-                             f"(re-score: top-2 {scores[r][d][0]} / {scores[r][d][1]}, "
-                             f"gap {scores[r][d][2]:.4f})")
+                             f"within {NEAR_TIE}: {min(short_a, short_b) < NEAR_TIE}")
             same = sum(x == y for (_, t), h in zip(rows, hyb_rows) for x, y in zip(t, h))
             # information: the serving run before this phase admitted the
             # same prompts together in ragged rounds (other prefill shapes)
@@ -3885,16 +3908,21 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
                     f"{not unequal} {unequal or ''}; {batched} tokens equal to the batched "
                     f"serving run (information)")
             if mode == "streamed":
-                bad, ties = greedy_misses(rows, scores)
                 early = [o[0]["bytes_before_first_token"]
                          for o, m in zip(out, multi) if m]
-                line += (f"; where a one-chunk prompt parts: {parts or 'nowhere'}; re-scored "
-                         f"(information): {len(bad)} tokens not the argmax by {NEAR_TIE} or "
-                         f"more, {len(ties)} near-tie(s); bytes before the first token of the "
-                         f"{len(early)} prompts past one {PD_BUCKETS[-1]}-token chunk: {early}")
+                line += (f"; where a one-chunk prompt parts: {parts or 'nowhere'}; bytes "
+                         f"before the first token of the {len(early)} prompts past one "
+                         f"{PD_BUCKETS[-1]}-token chunk: {early}")
                 if not early or not all(x > 0 for x in early):
                     raise AssertionError(f"[pd] {tag} (b): no bytes before the first token")
             print(line, flush=True)
+            if mode == "streamed":
+                # judged in the logits each run sampled (B's streams and A's
+                # hybrid run, both traced): a fork is a near-tie there, and a
+                # runner-up planted in a stream is rejected
+                check_sampled(f"pd {tag} (b) streamed", rows,
+                              [(ids, h) for (ids, _), h in zip(rows, hyb_rows)],
+                              trace.runs() + hyb_trace.runs(), "A's hybrid run")
             if unequal or peak[0] < 2:
                 failed.append(f"[pd] {tag} (b) {mode}: streams part from A's hybrid run "
                               f"{unequal}, peak {peak[0]}")
@@ -5006,7 +5034,7 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
                     + (f" resumed from {len(r['ckpt'])} tokens" if r["ckpt"] else ""))
                    for r in rows + records.of("restarted")]
         torch.cuda.synchronize()
-        counts = pa.launch_counts()    # the fleet's own launches: not the re-score's
+        counts = pa.launch_counts()    # the fleet's own launches
         trace.close()
         runs = trace.runs()
         # the trace is aligned with the tokens: each one a run sampled is the
@@ -5036,14 +5064,8 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
             d = next((k for k, (a, b) in enumerate(zip(ids, want)) if a != b), None)
             if d is not None:
                 parted.append((prompt, ids, want, d, what))
-        # information: a teacher-forced re-score runs other kernels and other
-        # chunks, so it judges each run's token with an error of its own
-        calm_rows = list(calm.items())
-        scores = rescore(torch, m1.llm.engine, [(p, i) for p, i, _, _, _ in parted]
-                         + [(p, w) for p, _, w, _, _ in parted] + calm_rows)
-        judge = max(x[3] for sc in scores[len(scores) - len(calm_rows):] for x in sc)
         worst = 0.0
-        for n, (prompt, ids, want, d, what) in enumerate(parted):
+        for prompt, ids, want, d, what in parted:
             mine, theirs = chose(prompt, ids, d), chose(prompt, want, d)
             if not (mine and theirs):
                 raise AssertionError(f"{what}: no traced run sampled token {d} "
@@ -5055,12 +5077,10 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
             print(f"[fleet] {what} parts from the calm replay at token {d}: {ids[d]} vs "
                   f"{want[d]}; {len(mine)} / {len(theirs)} run(s) chose them there, the other "
                   f"token {fork[0][1]:.4f}-{fork[-1][1]:.4f} below their argmax (nearest top-2 "
-                  f"{fork[0][0]}; near-tie bound {NEAR_TIE}); a re-score's deficits "
-                  f"{scores[n][d][3]:.4f} / {scores[n + len(parted)][d][3]:.4f}", flush=True)
+                  f"{fork[0][0]}; near-tie bound {NEAR_TIE})", flush=True)
         print(f"[fleet] {len(outputs)} outputs against the calm replay: {len(outputs) - len(parted)}"
               f" identical, {len(parted)} part at a near-tie (the nearest run's deficit up to "
-              f"{worst:.4f}); (information) a re-score puts the calm replay's own tokens up to "
-              f"{judge:.4f} below its argmax", flush=True)
+              f"{worst:.4f})", flush=True)
         if worst >= NEAR_TIE:
             raise AssertionError("a fleet output parts from the calm replay beyond a near-tie")
 
@@ -5098,7 +5118,7 @@ def fleet_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8",
             raise AssertionError("member 0's running jobs were never requeued")
     plane.stop()
     print(f"[fleet] kernel launches of the fleet (its traffic, the restarted member's request "
-          f"and the calm replay; not the re-score): {counts}; phase ran in "
+          f"and the calm replay): {counts}; phase ran in "
           f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
     check_counts("fleet", counts, qmm=quantization is not None)
     return counts
@@ -9040,7 +9060,7 @@ def mesh_phase(torch, pa, smi, check, guard=None, model="llama3-8b", device="cud
 
 HOST_FLOOR_GIB = 14.0       # the host memory a run leaves free, or it stops itself
 # phases whose inputs are their own, which ``--phase`` runs alone
-ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25, 26)
+ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25, 26, 27)
 
 
 class HostGuard:
@@ -9076,6 +9096,201 @@ class HostGuard:
             time.sleep(0.25)
 
 
+# ------------------------------------------------------ images without Pillow
+
+FIXTURE_DIR = "tests/fixtures/images"
+PHOTO_TOKENS = 8              # greedy tokens of each photo request
+PHOTO_REPEATS = 3             # host-timed decodes and resizes of each fixture
+
+
+def host_cpu_name():
+    """``lscpu``'s "Model name"; where lscpu says nothing or "unknown",
+    ``/proc/cpuinfo``'s "model name" (and the vendor id) beside it."""
+    name = "unknown"
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        name = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                     if line.startswith("Model name:")), name)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if name.lower() not in ("", "unknown", "-"):
+        return name
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    return (f"lscpu: {name}; /proc/cpuinfo: {info.get('model name', 'unknown')} "
+            f"({info.get('vendor_id', 'vendor unknown')}, family {info.get('cpu family', '?')} "
+            f"model {info.get('model', '?')})")
+
+
+@contextlib.contextmanager
+def stage_clock(torch, vis, ms):
+    """Inside the block, the vision request's stages (image decode, resize,
+    ViT, decoder prefill with the ViT in it, decode steps) each add their
+    ms to ``ms``, timed to their end on the card (a synchronize after
+    each); the engine and the modules are as they were outside it."""
+    from distributed_gpu_inference_torch.models import vit
+    from distributed_gpu_inference_torch.utils import jpeg, png, resize
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms[stage] = ms.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    seams = [(jpeg, "decode_jpeg", "decode"), (png, "decode_png", "decode"),
+             (resize, "resize_bicubic", "resize"), (vit, "encode_image", "vit"),
+             (vis, "prefill", "prefill"), (vis, "decode", "steps")]
+    missing = object()
+    saved = [(obj, name, vars(obj).get(name, missing)) for obj, name, _ in seams]
+    for obj, name, stage in seams:
+        setattr(obj, name, timed(stage, getattr(obj, name)))
+    try:
+        yield ms
+    finally:
+        for obj, name, fn in saved:
+            if fn is missing:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+
+
+def photo_phase(torch, pa, smi, vit_model="small-vit", llm_model="llama3-1b", device="cuda"):
+    """Phase 27 (see the module docstring). → the launches of its requests."""
+    import base64
+    import hashlib
+    import os
+
+    from distributed_gpu_inference_torch import native
+    from distributed_gpu_inference_torch.utils.jpeg import decode_jpeg, decode_jpeg_plain, is_jpeg
+    from distributed_gpu_inference_torch.utils.png import decode_png, decode_png_plain
+    from distributed_gpu_inference_torch.utils.resize import resize_bicubic, resize_bicubic_plain
+    from distributed_gpu_inference_torch.worker.engines.vision import VisionEngine, _decode_image
+
+    tag = "photo"
+    t_phase = time.perf_counter()
+    cpu = host_cpu_name()
+    if not native.native_available(native.IMAGE_SRC):
+        raise AssertionError(f"[{tag}] the native image codec did not build")
+    native.PLAIN_TAKEN.clear()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE_DIR)
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    side = manifest["resize"]
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    files, host = {}, {}
+    for e in manifest["images"]:
+        with open(os.path.join(root, e["file"]), "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != e["file_sha256"]:
+            raise AssertionError(f"[{tag}] {e['file']} is not the committed fixture")
+        dec = decode_jpeg if is_jpeg(data) else decode_png
+        d_ms, r_ms = [], []
+        for _ in range(PHOTO_REPEATS):
+            t0 = time.perf_counter()
+            rgb = dec(data)
+            t1 = time.perf_counter()
+            small = resize_bicubic(rgb, (side, side))
+            d_ms.append((t1 - t0) * 1e3)
+            r_ms.append((time.perf_counter() - t1) * 1e3)
+        same = sha(rgb) == e["decoded_sha256"] and sha(small) == e[f"resized_{side}_sha256"]
+        mp = e["width"] * e["height"] / 1e6
+        host[e["file"]] = (pctl(d_ms, 0.5), mp / pctl(d_ms, 0.5) * 1e3, pctl(r_ms, 0.5))
+        print(f"[{tag}] {e['file']} ({e['width']}x{e['height']}, {e['bytes']} B): native "
+              f"decode and {side}x{side} resize equal to Pillow {manifest['pillow']}'s by "
+              f"SHA-256: {same}; decode {host[e['file']][0]:.2f} ms = {host[e['file']][1]:.1f} "
+              f"MP/s, resize {host[e['file']][2]:.2f} ms (median of {PHOTO_REPEATS}; host "
+              f"CPU {cpu})", flush=True)
+        if not same or rgb.shape != (e["height"], e["width"], 3):
+            raise AssertionError(f"[{tag}] {e['file']}: decode or resize differs from Pillow's")
+        files[e["file"]] = (data, rgb)
+    smallest = sorted(files, key=lambda n: files[n][1].size)[:2]
+    for name in smallest:
+        data, rgb = files[name]
+        plain = decode_jpeg_plain(data) if is_jpeg(data) else decode_png_plain(data)
+        agree = np.array_equal(plain, rgb) and np.array_equal(
+            resize_bicubic_plain(rgb, (side, side)), resize_bicubic(rgb, (side, side)))
+        print(f"[{tag}] {name}: native and plain decode and resize bit-identical: {agree}",
+              flush=True)
+        if not agree:
+            raise AssertionError(f"[{tag}] {name}: native and plain versions disagree")
+
+    t0 = time.perf_counter()
+    vis = VisionEngine({"model": llm_model, "vit_model": vit_model, "device": device,
+                        "max_new_tokens": PHOTO_TOKENS, "seed": 0})
+    vis.load_model()
+    size = vis._vit_cfg.image_size
+    print(f"[{tag}] {vit_model} + {llm_model} (decoder {vis._dtype}) loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        reqs = {name: {"task": "image_qa", "question": "what is in the photo?",
+                       "image": base64.b64encode(data).decode("ascii")}
+                for name, (data, _) in files.items()}
+        vis.inference(dict(reqs[smallest[0]]))        # warm-up: cuBLAS, the kernels' loads
+        torch.cuda.synchronize()
+        rec = IdRecorder(vis._tokenizer)
+        native.PLAIN_TAKEN.clear()
+        pa.reset_launch_counts()
+        request_ms = {}
+        for name, req in reqs.items():
+            t0 = time.perf_counter()
+            out = vis.inference(dict(req))
+            torch.cuda.synchronize()
+            request_ms[name] = ((time.perf_counter() - t0) * 1e3,
+                                out["usage"]["completion_tokens"])
+        launches = pa.launch_counts()
+        rec.close()
+        plain_taken = dict(native.PLAIN_TAKEN)
+        vocab = vis._llm_cfg.vocab_size
+        ok_ids = len(rec.ids) == len(reqs) and all(0 <= t < vocab for ids in rec.ids
+                                                   for t in ids)
+        for name, req in reqs.items():
+            with stage_clock(torch, vis, {}) as t:
+                t0 = time.perf_counter()
+                vis.inference(dict(req))
+                clocked = (time.perf_counter() - t0) * 1e3
+            ms, n_tok = request_ms[name]
+            print(f"[{tag}] request {name}: {ms:.1f} ms; timed by stage, {clocked:.1f} ms = "
+                  f"decode {t['decode']:.1f} + resize {t.get('resize', 0.0):.1f} (host CPU "
+                  f"{cpu}) + ViT {t['vit']:.1f} + prefill {t['prefill'] - t['vit']:.1f} + "
+                  f"{n_tok} decode steps {t.get('steps', 0.0):.1f} ms ({smi})", flush=True)
+        big = max(files, key=lambda n: files[n][1].size)
+        image = _decode_image(reqs[big], size)
+        toks = vis._tokenizer.encode("Answer the question about the image: what is in the photo?")
+        with torch.no_grad():
+            k_logits = vis.prefill(image, toks).float()
+            with plain_kernels():
+                p_logits = vis.prefill(image, toks).float()
+        rel = float(((k_logits - p_logits).norm() / p_logits.norm()).item())
+        print(f"[{tag}] {len(reqs)} photo requests: launches {launches}; plain host versions "
+              f"taken {plain_taken or 'none'}; ids in vocabulary {ok_ids}; prefill logits on "
+              f"{big}'s prefix, kernels vs plain: rel L2 {rel:.3e} (bound {LOGITS_REL_BOUND}), "
+              f"argmax equal {bool(k_logits.argmax() == p_logits.argmax())}", flush=True)
+        if not (launches["ragged_paged_attention"] > 0
+                and launches["paged_decode_attention_fused"] > 0):
+            raise AssertionError(f"[{tag}] a kernel of the path never launched: {launches}")
+        if plain_taken:
+            raise AssertionError(f"[{tag}] a plain host version was taken: {plain_taken}")
+        if not (ok_ids and rel <= LOGITS_REL_BOUND and bool(torch.isfinite(k_logits).all())):
+            raise AssertionError(f"[{tag}] bad answer ids or logits: {rec.ids}, {rel}")
+    finally:
+        vis.unload()
+        torch.cuda.empty_cache()
+    print(f"[{tag}] phase 27 ran in {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    return launches
+
+
 def run_alone(torch, pa, smi, phases, check, guard):
     """``--phase N`` (repeatable): the kernels built, then only phases N of
     ALONE, in the order given."""
@@ -9093,7 +9308,8 @@ def run_alone(torch, pa, smi, phases, check, guard):
            23: lambda: tp_phase(torch, pa, smi, prompts),
            24: lambda: seq_phase(torch, pa, smi),
            25: lambda: deployment_phase(torch, pa, smi, prompts),
-           26: lambda: mesh_phase(torch, pa, smi, check, guard)}
+           26: lambda: mesh_phase(torch, pa, smi, check, guard),
+           27: lambda: photo_phase(torch, pa, smi)}
     for n in phases:
         t0 = time.perf_counter()
         run[n]()
@@ -9596,10 +9812,12 @@ def main(argv=None) -> int:
     p25 = deployment_phase(torch, pa, smi, prompts)
     # ---- 26. the native index, seq x model meshes, migration under TP, stages
     p26, mesh_entries = mesh_phase(torch, pa, smi, check, guard)
+    # ---- 27. images without Pillow: the fixtures' photos through the vision engine
+    p27 = photo_phase(torch, pa, smi)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
             e["launches"] += (p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
-                              + p25[e["name"]] + p26["bf16"][e["name"]])
+                              + p25[e["name"]] + p26["bf16"][e["name"]] + p27[e["name"]])
         elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
             base = e["name"].split("[")[0]
             e["launches"] += p22[base] + p23["int8"][base] + p24[base] + p26["int8"][base]

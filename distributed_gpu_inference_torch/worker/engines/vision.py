@@ -17,10 +17,19 @@ float32`` there is refused at load; on the CPU the decoder is f32 as in
 JAX. On the card the prefill runs the ragged kernel and each decode step
 the fused decode kernel.
 
-Images. A PNG is read by the port's own reader (``utils/png.py``); any
-other format, and a resize to the model's geometry, go through Pillow,
-imported on first use as in the JAX engine. Where Pillow is missing such
-a request fails with a ``ValueError`` that says so; the engine stays up.
+Images. The JAX engine reads every image through Pillow
+(``Image.open(f).convert("RGB")``, then ``Image.resize`` to the ViT's
+geometry); the card's machine has no Pillow, so the port does both
+itself, bit for bit as Pillow 12.1.0 does: a PNG (told by its signature)
+through ``utils/png.py``, a JPEG through ``utils/jpeg.py``, and every
+resize through ``utils/resize.py`` (Pillow's bicubic). These run in C++
+on the host (``native/src/image_codec.cpp``), or in their plain numpy
+versions with a logged warning where no compiler exists. Pillow is never a
+fallback for a PNG or a JPEG: a JPEG the reader refuses fails the request
+with the words of ``utils/jpeg.py``'s ``JPEGUnsupported``. Only other formats
+(GIF, BMP, WebP, TIFF) go through Pillow, imported on first use; where
+Pillow is missing such a request fails with a ``ValueError`` that says
+so. Either way the engine stays up.
 """
 
 from __future__ import annotations
@@ -47,33 +56,42 @@ def _pillow():
         from PIL import Image
     except ImportError as exc:
         raise ValueError(
-            "this image needs Pillow (a format other than 8-bit PNG, or a resize to the "
-            "model's geometry), and Pillow is not installed") from exc
+            "this image format needs Pillow (the port reads PNG and JPEG itself), and "
+            "Pillow is not installed") from exc
     return Image
 
 
 def _decode_image(params: Dict[str, Any], size: int) -> np.ndarray:
     """base64 ``image`` or nested-list ``pixels`` → [H, W, 3] float32 in
     [0, 1], resized to the model geometry."""
-    from ...utils.png import PNGUnsupported, decode_png
+    from ...utils.jpeg import decode_jpeg, is_jpeg
+    from ...utils.png import SIGNATURE, decode_png
+    from ...utils.resize import resize_bicubic
 
+    u8 = None
     if "pixels" in params:
         arr = np.asarray(params["pixels"], np.float32)
         if arr.ndim != 3 or arr.shape[-1] != 3:
             raise ValueError("pixels must be [H, W, 3]")
     elif "image" in params:
         raw = base64.b64decode(params["image"])
-        try:
+        if raw.startswith(SIGNATURE):
             u8 = decode_png(raw)
-        except PNGUnsupported:
+        elif is_jpeg(raw):
+            u8 = decode_jpeg(raw)
+        else:
             u8 = np.asarray(_pillow().open(io.BytesIO(raw)).convert("RGB"))
-        arr = u8.astype(np.float32) / 255.0
     else:
         raise ValueError("provide 'image' (base64) or 'pixels'")
-    if arr.shape[0] != size or arr.shape[1] != size:
-        img = _pillow().fromarray(
-            np.asarray(np.clip(arr * 255, 0, 255), np.uint8)).resize((size, size))
-        arr = np.asarray(img, np.float32) / 255.0
+    if u8 is None and (arr.shape[0] != size or arr.shape[1] != size):
+        # as the JAX engine: to uint8, resize, back to [0, 1]
+        u8 = np.asarray(np.clip(arr * 255, 0, 255), np.uint8)
+    if u8 is not None:
+        # a decoded image resizes as it is: the JAX engine's trip through
+        # float32 [0, 1] and back gives every uint8 value back exactly
+        if u8.shape[0] != size or u8.shape[1] != size:
+            u8 = resize_bicubic(u8, (size, size))
+        arr = u8.astype(np.float32) / 255.0
     return np.clip(arr, 0.0, 1.0)
 
 

@@ -22,6 +22,7 @@ What is held, and how closely:
 
 import base64
 import io
+import pathlib
 import wave
 
 import numpy as np
@@ -208,7 +209,7 @@ def test_vision_resizes_arbitrary_images(vision):
     j, t = vision
     img = (np.random.default_rng(2).random((48, 20, 3)) * 255).astype(np.uint8)
     _same_answer(j, t, {"task": "caption", "image": _png_b64(img)})
-    # a JPEG goes through Pillow as in JAX
+    # a JPEG: the port's own decoder and resize, JAX's Pillow
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, format="JPEG")
     _same_answer(j, t, {"task": "caption", "image": base64.b64encode(buf.getvalue()).decode(),
@@ -218,10 +219,9 @@ def test_vision_resizes_arbitrary_images(vision):
                         "image": base64.b64encode(encode_png(img[:32, :20])).decode()})
 
 
-def test_vision_without_pillow_fails_the_request_not_the_engine(vision, monkeypatch):
+def _block_pillow(monkeypatch):
     import builtins
 
-    _, t = vision
     real = builtins.__import__
 
     def no_pil(name, *a, **kw):
@@ -230,14 +230,45 @@ def test_vision_without_pillow_fails_the_request_not_the_engine(vision, monkeypa
         return real(name, *a, **kw)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
+
+
+def test_vision_without_pillow_fails_the_request_not_the_engine(vision, monkeypatch):
+    _, t = vision
     img = (np.random.default_rng(4).random((32, 32, 3)) * 255).astype(np.uint8)
-    buf = io.BytesIO()
-    Image.fromarray(img).save(buf, format="JPEG")
-    with pytest.raises(ValueError, match="Pillow is not installed"):
-        t.inference({"task": "caption", "image": base64.b64encode(buf.getvalue()).decode()})
-    # a 32x32 PNG needs no Pillow
+    written = {}
+    for fmt in ("GIF", "BMP", "JPEG"):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format=fmt)
+        written[fmt] = base64.b64encode(buf.getvalue()).decode()
+    _block_pillow(monkeypatch)
+    # a format the port does not read itself needs Pillow: the request fails by name
+    for fmt in ("GIF", "BMP"):
+        with pytest.raises(ValueError, match="Pillow is not installed"):
+            t.inference({"task": "caption", "image": written[fmt]})
+    # a JPEG and a 32x32 PNG need no Pillow, and the engine is still up
+    assert t.inference({"task": "caption", "image": written["JPEG"]})["task"] == "caption"
     out = t.inference({"task": "caption", "image": base64.b64encode(encode_png(img)).decode()})
     assert out["task"] == "caption"
+
+
+@pytest.mark.parametrize("fixture", ["photo_1000x750_444_rst64.jpg",
+                                     "photo_4032x3024_420_q85.jpg",
+                                     "adam7_rgba_800x600.png"])
+def test_vision_photo_without_pillow_matches_the_jax_engine(vision, monkeypatch, fixture):
+    """A photo (a 4:4:4 and a 4:2:0 JPEG, an interlaced RGBA PNG): the JAX
+    engine reads it and resizes it with Pillow, the port with its own
+    decoder and resize while Pillow is blocked; the greedy ids agree."""
+    j, t = vision
+    raw = (pathlib.Path(__file__).parent / "fixtures" / "images" / fixture).read_bytes()
+    req = {"task": "image_qa", "image": base64.b64encode(raw).decode(),
+           "question": "what is in the photo?"}
+    jl = IdLog(j._tokenizer)
+    jo = j.inference(dict(req))
+    _block_pillow(monkeypatch)
+    tl = IdLog(t._tokenizer)
+    to = t.inference(dict(req))
+    assert tl.ids == jl.ids and len(tl.ids) == 1
+    assert (to["text"], to["usage"]) == (jo["text"], jo["usage"])
 
 
 def test_vision_deterministic_and_rejects(vision):

@@ -265,13 +265,44 @@ def test_jinja2_is_imported_only_where_a_chat_template_is_compiled():
 
 
 def test_pillow_is_imported_only_where_an_image_needs_it():
-    # the card has no Pillow: the port writes and reads its own PNGs, and
-    # only a vision request in another format (or one to resize) imports it
+    # the card has no Pillow: the port writes and reads its own PNGs, reads
+    # its own JPEGs and resizes itself; only a vision request in another
+    # format (GIF, BMP, WebP, TIFF) imports it
     sites = {str(f.relative_to(ROOT)): _import_sites(f, "PIL") for f in _port_files()}
     sites = {k: v for k, v in sites.items() if v}
     assert list(sites) == ["distributed_gpu_inference_torch/worker/engines/vision.py"]
     assert [fn for fn, _ in sites["distributed_gpu_inference_torch/worker/engines/vision.py"]] \
         == ["_pillow"]
+
+
+def test_image_modules_import_nothing_of_jax_or_pillow():
+    # the JPEG decoder, the resize, the PNG reader and the native loader
+    # (ctypes, the standard library's) carry no JAX, no module of the JAX
+    # package and no Pillow; chip_smoke.py's phase 27 drives them on the card
+    image = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
+        "utils/jpeg.py", "utils/resize.py", "utils/png.py", "native/__init__.py")]
+    assert set(image) <= set(_port_files())
+    for f in image + [ROOT / "chip_smoke.py"]:
+        roots = set(_imported_roots(f))
+        assert not roots & set(FORBIDDEN + ("PIL",)), f
+    assert "ctypes" in set(_imported_roots(image[0]))
+    assert (ROOT / "distributed_gpu_inference_torch/native/src/image_codec.cpp").is_file()
+    assert "def photo_phase(" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_the_package_ships_its_kernel_and_native_sources():
+    # an installed port builds its CUDA kernels and its host library from
+    # the sources its package data carries
+    import tomllib
+
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]["distributed_gpu_inference_torch"]
+    pkg = ROOT / "distributed_gpu_inference_torch"
+    shipped = {p for g in globs for p in pkg.glob(g)}
+    sources = {p for sub, pattern in (("csrc", "*.cu"), ("csrc", "*.cuh"),
+                                      ("native/src", "*.cpp")) for p in (pkg / sub).glob(pattern)}
+    assert {"radix_index.cpp", "image_codec.cpp"} <= {p.name for p in sources}
+    assert sources <= shipped, sorted(str(p) for p in sources - shipped)
 
 
 def test_yaml_config_without_pyyaml_raises_naming_it(tmp_path, monkeypatch):

@@ -116,6 +116,28 @@ def test_slow_server_trips_latency_backoff(server):
         st.close()
 
 
+def test_slow_but_successful_reply_keeps_the_hit_and_backs_off(server):
+    """The branch of ``runtime/redis_kv.py`` ``get`` after the reply: every
+    chunk beats the per-recv deadline, the whole reply does not. The hit is
+    kept, ``slow_trips`` is 1, and the backoff holds on a live connection.
+    The margins are wide for a loaded machine: chunks 0.4 s apart against a
+    1.0 s deadline, four chunks so the reply takes at least 1.2 s."""
+    st = _store(server, probe_timeout_s=1.0, timeout_s=5.0, reconnect_backoff_s=30.0)
+    try:
+        st.put("k", b"v")
+        assert st.flush()
+        server.dribble_s = 0.4
+        assert st.get("k") == b"v"           # the hit survives
+        assert st.stats["slow_trips"] == 1 and st.stats["hits"] == 1
+        assert st._conn is not None          # the connection stays up
+        n_cmds = len(server.commands)
+        assert st.get("k") is None           # inside the backoff: socket untouched
+        assert len(server.commands) == n_cmds
+        assert st.stats["slow_trips"] == 1
+    finally:
+        st.close()
+
+
 def test_redis_seams_take_the_outage_path(server):
     st = _store(server, reconnect_backoff_s=0.05)
     try:
