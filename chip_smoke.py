@@ -4,7 +4,7 @@
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --phase 24     # the build, then phase 24 alone
 
-``--phase`` takes the phases whose inputs are their own (16-19, 21-27;
+``--phase`` takes the phases whose inputs are their own (16-19, 21-28;
 repeatable; phase 16 alone loads phase 7's engine as its A); the others
 run only in the whole script. A guard thread stops
 the run (exit 3) if the host's available memory falls below
@@ -642,6 +642,42 @@ Images without Pillow:
     with every stage timed to its end (``stage_clock``), its split into
     decode, resize, ViT, decoder prefill and decode steps, with the card's
     name and power limit.
+
+The gRPC stage plane on the standard library:
+
+28. after phase 27. ``comm/grpc_plane.py`` (HTTP/2, HPACK and the proto3
+    codec of ``comm/{h2,hpack,pb}.py``; no grpcio). (a) llama3-8b at full
+    width and GRPC_LAYERS of its 32 layers (cut for the script's time
+    limit; a reply's size does not depend on the depth), int8 weights (one
+    tree, seed 0), bf16 pools: two ``PipelineStageWorker`` s (``uniform_stages``,
+    ``slice_stage_params`` views), each behind a ``GrpcDataPlane`` and a
+    ``DataPlaneServer`` on 127.0.0.1. Phase 21's four prompts
+    (PIPE_LENGTHS), GRPC_TOKENS greedy tokens each, prefill in chunks of
+    GRPC_CHUNK tokens: over one ``StreamForward`` stream a stage (counters
+    zeroed just before, read just after: ragged, fused decode and qmm all
+    launched, added to the kernels line's bf16 ragged and fused decode and
+    int8 qmm entries), over unary ``Forward`` and over the HTTP
+    ``WorkerSession.forward``: every step's logits bitwise equal across
+    the three routes, streams identical; against ``forward_chunk`` on one
+    device on the same tree and chunks, streams identical or parted at a
+    near-tie (NEAR_TIE, judged in both runs' logits as phase 21 judges).
+    An 8-token prefill chunk fails at the last stage's reply with
+    ``RESOURCE_EXHAUSTED`` (``CLIENT: Received message larger than max``:
+    grpcio's 4 MiB receive limit, which the JAX plane has too). (b) Two
+    ``TorchLLMEngine`` s (llama3-8b, int8 weights and int8 pools, as phase
+    16 sets them up): A exports phase 16's prompt streamed in pieces of
+    GRPC_PIECE_BLOCKS blocks; the frames are pushed one by one through
+    ``TransferKVCache`` to B's ``kv_receiver`` behind a ``GrpcDataPlane``
+    (the commit answers B's slot), and the same frames over HTTP
+    ``/kv/transfer`` to a second adoption on B: both decode to the same
+    GRPC_TOKENS tokens. A piece of 4 blocks fails with
+    ``RESOURCE_EXHAUSTED`` (``SERVER: ...``) and its session is aborted.
+    Counters zeroed before A's export and read after B's decodes: added to
+    the int8 entries. (c) Information, with the card's name and power
+    limit: decode tok/s over StreamForward, unary Forward and HTTP on the
+    same stages; each hop's p50 / p95 ms split into the stage's forward and
+    framing + transport; message bytes each way a hop; the handoff's MB/s
+    over gRPC and over HTTP.
 
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
@@ -6642,6 +6678,21 @@ def subwave_pass(torch, pa, params, prompts, sv, trace, earlier=None, model="lla
         return out
 
     eng.submit_batch = submit_batch
+    batcher = llm.serving.batcher
+    real_admit = batcher._admit
+    gathering = threading.Event()
+
+    async def admit():
+        # while the wave is being submitted (one request at a time from one
+        # thread, which may outlast the admission latch on a loaded host),
+        # nothing is admitted: the whole wave is queued at the next admission
+        if gathering.is_set():
+            if len(batcher._heap) < len(prompts):
+                return None
+            gathering.clear()
+        return await real_admit()
+
+    batcher._admit = admit
     held = threading.Event()
     real_decode = eng.decode_multi
 
@@ -6667,6 +6718,7 @@ def subwave_pass(torch, pa, params, prompts, sv, trace, earlier=None, model="lla
             held.clear()
             time.sleep(0.05)     # the batcher is now held in its next round
         out = {}
+        gathering.set()
         th = threading.Thread(target=lambda: out.update(p=llm.batch_inference([
             {"prompt": p, "max_new_tokens": DIRECT_TOKENS, "temperature": 0.0,
              "ignore_eos": True} for p in prompts])))
@@ -6680,8 +6732,10 @@ def subwave_pass(torch, pa, params, prompts, sv, trace, earlier=None, model="lla
         counts = pa.launch_counts()
     finally:
         held.set()
+        gathering.clear()
         for name in ("submit_batch", "decode_multi"):
             eng.__dict__.pop(name, None)
+        batcher.__dict__.pop("_admit", None)
         llm.unload()
     payloads = out.get("p")
     if payloads is None or any(p["usage"]["completion_tokens"] != DIRECT_TOKENS
@@ -9060,7 +9114,7 @@ def mesh_phase(torch, pa, smi, check, guard=None, model="llama3-8b", device="cud
 
 HOST_FLOOR_GIB = 14.0       # the host memory a run leaves free, or it stops itself
 # phases whose inputs are their own, which ``--phase`` runs alone
-ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25, 26, 27)
+ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25, 26, 27, 28)
 
 
 class HostGuard:
@@ -9291,6 +9345,439 @@ def photo_phase(torch, pa, smi, vit_model="small-vit", llm_model="llama3-1b", de
     return launches
 
 
+# ---------------------------------------------------------------- phase 28: the gRPC stage plane
+
+GRPC_CHUNK = 7              # prefill tokens a chunk: a last-stage reply of 8 passes 4 MiB
+GRPC_TOKENS = 32            # greedy tokens a session
+GRPC_LAYERS = PIPE_LAYERS   # (a)'s depth, cut (full width): at 32 the whole script
+                            # took 1,175.5 s of its 1,200 on a slow host
+GRPC_BLOCKS = 64            # blocks of each stage's pools
+GRPC_PIECE_BLOCKS = 3       # (b): 4 int8 blocks of 32 layers (4 MiB of codes) pass 4 MiB
+GRPC_HOP_TIMEOUT_S = 120.0  # each client's timeout a call
+GRPC_ROUTES = ("StreamForward", "Forward", "HTTP")
+
+
+class StageClock:
+    """While installed on stages: each forward's in-process seconds, by
+    stage, in the order the forwards ran (``take`` empties them)."""
+
+    def __init__(self, stages):
+        self.s = [[] for _ in stages]
+        for i, st in enumerate(stages):
+            real = st.forward
+
+            def fwd(*a, _real=real, _i=i, **k):
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                self.s[_i].append(time.perf_counter() - t0)
+                return out
+
+            st.forward = fwd
+
+    def take(self):
+        out, self.s = self.s, [[] for _ in self.s]
+        return out
+
+
+def chunked_greedy(hop, prompt, sid, n_tokens=GRPC_TOKENS, chunk=GRPC_CHUNK):
+    """``prompt`` in chunks of ``chunk`` tokens, then greedy decode steps,
+    each through ``hop(stage, sid, x, positions, kv_len_after)`` for the two
+    stages in turn → (tokens, [(seconds, [each hop's seconds], digest of
+    the step's logits, logits[0, -1])] a step)."""
+    import hashlib
+
+    import torch
+
+    steps = []
+
+    def step(ids, start):
+        x = np.asarray([ids], np.int32)
+        pos = np.asarray([list(range(start, start + len(ids)))], np.int32)
+        t0, hops = time.perf_counter(), []
+        for i in range(2):
+            t1 = time.perf_counter()
+            out = hop(i, sid, x, pos, start + len(ids))
+            hops.append(time.perf_counter() - t1)
+            x = out["hidden"]
+        logits = out["logits"]
+        steps.append((time.perf_counter() - t0, hops,
+                      hashlib.sha256(logits.contiguous().numpy().tobytes()).hexdigest(),
+                      logits[0, -1].clone()))
+        return int(torch.argmax(logits[0, -1]))
+
+    for c in range(0, len(prompt), chunk):
+        tok = step(prompt[c:c + chunk], c)
+    toks, n = [tok], len(prompt)
+    while len(toks) < n_tokens:
+        toks.append(step([toks[-1]], n))
+        n += 1
+    return toks, steps
+
+
+def one_device_greedy(torch, cfg, params, prompt, dev, n_tokens=GRPC_TOKENS, chunk=GRPC_CHUNK):
+    """The same chunks and steps through ``forward_chunk`` on one device →
+    (tokens, [logits[0, -1] a step])."""
+    from distributed_gpu_inference_torch.models import llama
+
+    kv = llama.init_kv_pools(cfg, GRPC_BLOCKS, BK, torch.bfloat16, dev)
+    table = torch.arange(1, 1 + PIPE_SEQ // BK, dtype=torch.int32, device=dev)[None]
+    rows = []
+
+    def step(ids, start):
+        out = llama.forward_chunk(
+            cfg, params, torch.tensor([ids], dtype=torch.int32, device=dev),
+            torch.arange(start, start + len(ids), dtype=torch.int32, device=dev)[None], kv,
+            table, torch.tensor([start + len(ids)], dtype=torch.int32, device=dev),
+            block_size=BK)
+        rows.append(out.logits[0, -1].float().cpu())
+        return int(torch.argmax(rows[-1]))
+
+    for c in range(0, len(prompt), chunk):
+        tok = step(prompt[c:c + chunk], c)
+    toks, n = [tok], len(prompt)
+    while len(toks) < n_tokens:
+        toks.append(step([toks[-1]], n))
+        n += 1
+    del kv
+    return toks, rows
+
+
+def grpc_hop_bytes(torch, cfg):
+    """Message bytes of a decode step's hops (each with its 5-byte gRPC
+    prefix; HTTP: the ``comm/wire.py`` bodies) → {route: [(out, back) a
+    stage]}."""
+    from distributed_gpu_inference_torch.comm import grpc_plane as gp
+    from distributed_gpu_inference_torch.comm import pb
+    from distributed_gpu_inference_torch.comm.wire import pack_message
+
+    tok = torch.zeros((1, 1), dtype=torch.int32)
+    hid = torch.zeros((1, 1, cfg.hidden_size), dtype=torch.float32)
+    logits = torch.zeros((1, 1, cfg.vocab_size), dtype=torch.float32)
+    sid, kv = "0123456789abcdef0123456789abcdef", 200
+    outs = [{"hidden": hid}, {"hidden": hid, "logits": logits}]
+    grpc_b = [(5 + len(pb.encode(pb.FORWARD_REQUEST, {
+        "session_id": sid, "kv_len_after": kv, "x": gp._tensor_msg(x),
+        "positions": gp._tensor_msg(tok)})),
+        5 + len(pb.encode(pb.FORWARD_RESPONSE, {"session_id": sid, **{
+            k: gp._tensor_msg(v) for k, v in o.items()}})))
+        for x, o in zip((tok, hid), outs)]
+    http_b = [(len(pack_message({"session_id": sid, "kv_len_after": kv},
+                                {"x": x, "positions": tok})),
+               len(pack_message({"session_id": sid}, o))) for x, o in zip((tok, hid), outs)]
+    return {"StreamForward": grpc_b, "Forward": grpc_b, "HTTP": http_b}
+
+
+def grpc_pipeline(torch, pa, smi, model, device, layers):
+    """Phase 28 (a) and (c)'s pipeline numbers → the StreamForward route's
+    launches."""
+    import gc
+
+    from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer
+    from distributed_gpu_inference_torch.comm import grpc_plane as gp
+    from distributed_gpu_inference_torch.comm.grpc_plane import (
+        GrpcDataPlane,
+        GrpcStageClient,
+        RpcError,
+        StatusCode,
+    )
+    from distributed_gpu_inference_torch.comm.session import WorkerSession
+    from distributed_gpu_inference_torch.comm.stage_worker import PipelineStageWorker
+    from distributed_gpu_inference_torch.models.configs import get_model_config
+    from distributed_gpu_inference_torch.parallel.pipeline import (
+        slice_stage_params,
+        uniform_stages,
+    )
+    from distributed_gpu_inference_torch.runtime.engine import EngineConfig, engine_params
+    from distributed_gpu_inference_torch.utils.data_structures import BlockRange
+
+    cfg = get_model_config(model) if layers is None else get_model_config(
+        model, num_layers=layers)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    params = engine_params(cfg, EngineConfig(quantization="int8"), None, 0, dev)
+    plan = uniform_stages(cfg.num_layers, 2)
+    stages = [PipelineStageWorker(cfg, r, params=slice_stage_params(
+        params, *r, num_layers=cfg.num_layers), num_blocks=GRPC_BLOCKS,
+        max_blocks_per_seq=PIPE_SEQ // BK, dtype="bfloat16", device=device) for r in plan]
+    clock = StageClock(stages)
+    grpcs = [GrpcDataPlane(st, host="127.0.0.1", port=0) for st in stages]
+    https = [DataPlaneServer(stage=st) for st in stages]
+    for p in grpcs + https:
+        p.start()
+    clients = [GrpcStageClient(f"127.0.0.1:{g.port}", timeout_s=GRPC_HOP_TIMEOUT_S)
+               for g in grpcs]
+    sessions = [WorkerSession(h.url, BlockRange(*r), timeout_s=GRPC_HOP_TIMEOUT_S)
+                for h, r in zip(https, plan)]
+    health = [c.health() for c in clients]
+    print(f"[grpc] (a) {model} ({cfg.num_layers} layers, int8 weights, seed 0, bf16 pools) "
+          f"in stages {plan} built in {time.perf_counter() - t0:.2f} s, each behind a "
+          f"GrpcDataPlane (ports {[g.port for g in grpcs]}) and a DataPlaneServer; HealthCheck "
+          f"answers layer_start / layer_end {[(h['layer_start'], h['layer_end']) for h in health]}"
+          f" (the stage answers layer_range: 0, as the JAX plane answers; ROADMAP §3 item 4), "
+          f"is_first / is_last {[(h['is_first'], h['is_last']) for h in health]}", flush=True)
+    if [(h["is_first"], h["is_last"]) for h in health] != [(True, False), (False, True)]:
+        raise AssertionError(f"[grpc] (a) the stages' health is wrong: {health}")
+    prompts = pipeline_prompts(cfg.vocab_size)
+    runs = {route: [] for route in GRPC_ROUTES}
+    inside = {route: [] for route in GRPC_ROUTES}
+    counts = None
+    try:
+        for route in GRPC_ROUTES:
+            if route == "StreamForward":
+                torch.cuda.synchronize()
+                pa.reset_launch_counts()
+            clock.take()
+            for r, ids in enumerate(prompts):
+                sid = f"grpc-{route}-{r}"
+                if route == "HTTP":
+                    for ws in sessions:
+                        ws.create(sid)
+                    runs[route].append(chunked_greedy(
+                        lambda i, *a: sessions[i].forward(*a), ids, sid))
+                    for ws in sessions:
+                        ws.close(sid)
+                    continue
+                for c in clients:
+                    c.create_session(sid)
+                if route == "Forward":
+                    runs[route].append(chunked_greedy(
+                        lambda i, *a: clients[i].forward(*a), ids, sid))
+                else:
+                    streams = [c.open_stream() for c in clients]
+                    try:
+                        runs[route].append(chunked_greedy(
+                            lambda i, *a: streams[i].step(*a), ids, sid))
+                    finally:
+                        for s in streams:
+                            s.close()
+                for c in clients:
+                    c.close_session(sid)
+            inside[route] = clock.take()
+            if route == "StreamForward":
+                torch.cuda.synchronize()
+                counts = pa.launch_counts()
+        # an 8-token chunk: the last stage's reply passes grpcio's 4 MiB limit
+        sid = "grpc-limit"
+        for c in clients:
+            c.create_session(sid)
+        x8, pos8 = np.asarray([prompts[0][:8]], np.int32), np.arange(8, dtype=np.int32)[None]
+        hidden = clients[0].forward(sid, x8, pos8, 8)["hidden"]
+        try:
+            clients[1].forward(sid, hidden, pos8, 8)
+            limit = None
+        except RpcError as exc:
+            limit = (exc.code(), exc.details())
+        for c in clients:
+            c.close_session(sid)
+        ref = [one_device_greedy(torch, cfg, params, ids, dev) for ids in prompts]
+    finally:
+        for c in clients:
+            c.close()
+        for p in grpcs:
+            p.stop(0)
+        for p in https:
+            p.stop()
+    limit_ok = limit is not None and limit[0] == StatusCode.RESOURCE_EXHAUSTED and \
+        limit[1].startswith("CLIENT: Received message larger than max (") and \
+        limit[1].endswith(f" vs. {gp.MAX_MESSAGE_BYTES})")
+    print(f"[grpc] (a) an 8-token prefill chunk through both stages: the last stage's reply "
+          f"refused at the client with {limit[0].name if limit else None}: {limit and limit[1]!r}"
+          f" (grpcio's default receive limit, {gp.MAX_MESSAGE_BYTES} bytes, in the JAX plane too)",
+          flush=True)
+    if not limit_ok:
+        raise AssertionError(f"[grpc] (a) the 8-token reply was not refused: {limit}")
+
+    # ---- (a) checks: the routes bitwise, the one-device run within a near-tie
+    base = runs["StreamForward"]
+    same = {route: all(t == bt and [s[2] for s in st] == [s[2] for s in bs]
+                       for (t, st), (bt, bs) in zip(runs[route], base))
+            for route in GRPC_ROUTES[1:]}
+    n_steps = sum(len(st) for _, st in base)
+    worst, parts = 0.0, []
+    for r, ((ptoks, steps), (etoks, erows), ids) in enumerate(zip(base, ref, prompts)):
+        d = next((k for k, (a, b) in enumerate(zip(ptoks, etoks)) if a != b), None)
+        if d is None:
+            continue
+        first = -(-len(ids) // GRPC_CHUNK) - 1      # the step that gave token 0
+        p_short, p_top = row_deficit(steps[first + d][3], etoks[d])
+        e_short, e_top = row_deficit(erows[first + d], ptoks[d])
+        worst = max(worst, min(p_short, e_short))
+        parts.append(f"prompt {r} token {d}: gRPC {ptoks[d]} vs one device {etoks[d]}; gRPC "
+                     f"top-2 {p_top}, the other token {p_short:.4f} below; one device top-2 "
+                     f"{e_top}, the other token {e_short:.4f} below")
+    prefill_err = max(float((st[-(GRPC_TOKENS)][3] - er[-(GRPC_TOKENS)]).abs().max())
+                      for (_, st), (_, er) in zip(base, ref))
+    print(f"[grpc] (a) {len(prompts)} prompts of {list(PIPE_LENGTHS)} tokens in chunks of "
+          f"{GRPC_CHUNK}, {GRPC_TOKENS} greedy tokens each ({n_steps} steps a route): every "
+          f"step's logits bitwise equal to StreamForward's over unary Forward: "
+          f"{same['Forward']}, over HTTP: {same['HTTP']}; against forward_chunk on one device "
+          f"on the same tree and chunks: {len(prompts) - len(parts)} streams identical; where "
+          f"one parts: {'; '.join(parts) or 'nowhere'} (near-tie bound {NEAR_TIE}); the last "
+          f"prefill step's logits max abs diff {prefill_err:.3e}; kernel launches of the "
+          f"StreamForward route: {counts}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"[grpc] (a) the routes' logits differ: {same}")
+    if worst >= NEAR_TIE:
+        raise AssertionError("[grpc] (a) a stream parts from the one-device run beyond a "
+                             "near-tie")
+    check_counts("grpc (a)", counts, qmm=True)
+
+    # ---- (c) numbers (information)
+    nbytes = grpc_hop_bytes(torch, cfg)
+    lines = []
+    for route in GRPC_ROUTES:
+        dec = [(s[0], s[1]) for toks, st in runs[route] for s in st[-(GRPC_TOKENS - 1):]]
+        fwd = [[], []]
+        for h in range(2):
+            k = 0
+            for _, st in runs[route]:
+                k += len(st) - (GRPC_TOKENS - 1)      # the prefill steps
+                fwd[h] += inside[route][h][k:k + GRPC_TOKENS - 1]
+                k += GRPC_TOKENS - 1
+        hops = []
+        for h in range(2):
+            tot = [hs[h] * 1e3 for _, hs in dec]
+            ins = [x * 1e3 for x in fwd[h]]
+            rest = [a - b for a, b in zip(tot, ins)]
+            hops.append(f"hop {h} {pctl(tot, 0.5):.2f} / {pctl(tot, 0.95):.2f} ms = stage "
+                        f"{pctl(ins, 0.5):.2f} / {pctl(ins, 0.95):.2f} + framing and "
+                        f"transport {pctl(rest, 0.5):.2f} / {pctl(rest, 0.95):.2f}, "
+                        f"{nbytes[route][h][0]} B out, {nbytes[route][h][1]} B back")
+        lines.append(f"{route}: {len(dec) / sum(t for t, _ in dec):.2f} tok/s; "
+                     + "; ".join(hops))
+    print(f"[grpc] (c) decode of one session over two stages on loopback (p50 / p95 of the "
+          f"{len(prompts) * (GRPC_TOKENS - 1)} decode steps; message bytes a decode step): "
+          + " | ".join(lines) + f" ({smi})", flush=True)
+    del stages, grpcs, https, clients, sessions, params, clock, runs, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def grpc_handoff(torch, pa, smi, model, device):
+    """Phase 28 (b) → its launches."""
+    from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer, post_bytes
+    from distributed_gpu_inference_torch.comm.grpc_plane import (
+        GrpcDataPlane,
+        GrpcStageClient,
+        RpcError,
+        StatusCode,
+    )
+    from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    text = serving_prompts()[2][-1]
+    t0 = time.perf_counter()
+    a = TorchLLMEngine(pd_engine_config(model, "int8", "int8", device))
+    b = TorchLLMEngine(pd_engine_config(model, "int8", "int8", device))
+    a.load_model()
+    b.load_model()
+    frames = []
+
+    def record(raw):
+        frames.append(raw)
+        return {"recorded": len(raw)}
+
+    recorder = DataPlaneServer(kv_receiver=record)
+    g = GrpcDataPlane(None, host="127.0.0.1", port=0, kv_receiver=b.kv_receiver)
+    h = DataPlaneServer(kv_receiver=b.kv_receiver)
+    for p in (recorder, g, h):
+        p.start()
+    cli = GrpcStageClient(f"127.0.0.1:{g.port}", timeout_s=GRPC_HOP_TIMEOUT_S)
+    try:
+        print(f"[grpc] (b) A and B ({model}, int8 weights and int8 pools, seed 0) loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        key = "grpc-pd"
+        clear_cached(a)
+        pre = a.inference(pd_params(text, key, recorder.url, pd_stream=True,
+                                    pd_stream_piece_blocks=GRPC_PIECE_BLOCKS))
+        sent = list(frames)
+        kinds = [kh.message_kind(f) for f in sent]
+        clear_cached(b)
+        t0 = time.perf_counter()
+        answers = [cli.transfer_kv(raw) for raw in sent]
+        t_grpc = time.perf_counter() - t0
+        slot = b._pd_slots.get(key, (None,))[0]
+        dec_grpc = b.inference({"pd_stage": "decode", "kv_cache_key": key})["token_ids"]
+        clear_cached(b)
+        t0 = time.perf_counter()
+        statuses = [post_bytes(h.url + "/kv/transfer", raw, GRPC_HOP_TIMEOUT_S).status_code
+                    for raw in sent]
+        t_http = time.perf_counter() - t0
+        dec_http = b.inference({"pd_stage": "decode", "kv_cache_key": key})["token_ids"]
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+        total = sum(map(len, sent))
+        big = max(map(len, sent))
+        answers_ok = (answers[-1]["slot"] == slot and slot is not None and slot >= 0
+                      and all(x["slot"] == -1 for x in answers[:-1])
+                      and [x["bytes_received"] for x in answers] == [len(f) for f in sent])
+        print(f"[grpc] (b) phase 16's prompt exported streamed in pieces of {GRPC_PIECE_BLOCKS} "
+              f"blocks: {len(sent)} frames ({kinds.count('piece')} pieces, the largest {big} B), "
+              f"{total} B; pushed one by one through "
+              f"TransferKVCache: the commit answered slot {answers[-1]['slot']} (B's slot {slot}"
+              f"), the others -1, bytes_received each frame's: {answers_ok}; the same frames "
+              f"over HTTP /kv/transfer: statuses {sorted(set(statuses))}; the two adoptions "
+              f"decode to the same {len(dec_grpc)} tokens: {dec_grpc == dec_http}; the first "
+              f"token {pre['first_token']} leads both: "
+              f"{dec_grpc[:1] == [pre['first_token']]}; kernel launches of (b): {counts}",
+              flush=True)
+        if not answers_ok or set(statuses) != {200} or dec_grpc != dec_http or \
+                len(dec_grpc) != PD_TOKENS:
+            raise AssertionError(f"[grpc] (b) the adoptions differ: {answers}, {statuses}, "
+                                 f"{dec_grpc} vs {dec_http}")
+        check_counts("grpc (b)", counts, qmm=True)
+
+        # a piece of 4 blocks passes the limit at B's plane
+        frames.clear()
+        key4 = "grpc-pd-4"
+        clear_cached(a)
+        a.inference(pd_params(text, key4, recorder.url, pd_stream=True,
+                              pd_stream_piece_blocks=4))
+        refused = None
+        for raw in list(frames):
+            try:
+                cli.transfer_kv(raw)
+            except RpcError as exc:
+                refused = (kh.message_kind(raw), len(raw), exc.code(), exc.details())
+                break
+        aborted = cli.transfer_kv(kh.abort_message(key4))
+        live = key4 in b._handoff_rx._sessions
+        print(f"[grpc] (b) pieces of 4 blocks: the first {refused and refused[0]} of "
+              f"{refused and refused[1]} B refused with {refused and refused[2].name}: "
+              f"{refused and refused[3]!r}; the session aborted over gRPC ({aborted}), none "
+              f"left on B: {not live}", flush=True)
+        if refused is None or refused[2] != StatusCode.RESOURCE_EXHAUSTED or \
+                not refused[3].startswith("SERVER: Received message larger than max") or live:
+            raise AssertionError(f"[grpc] (b) a 4-block piece was not refused: {refused}")
+        print(f"[grpc] (c) the handoff of {total} B: {total / t_grpc / 1e6:.1f} MB/s over gRPC "
+              f"({len(sent)} unary calls, {t_grpc * 1e3:.1f} ms), {total / t_http / 1e6:.1f} "
+              f"MB/s over HTTP ({t_http * 1e3:.1f} ms), each with B's adoption (loopback; "
+              f"{smi})", flush=True)
+    finally:
+        cli.close()
+        g.stop(0)
+        for p in (recorder, h):
+            p.stop()
+        a.unload()
+        b.unload()
+    del a, b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def grpc_phase(torch, pa, smi, model="llama3-8b", device="cuda", layers=GRPC_LAYERS):
+    """Phase 28 (see the module docstring) → {"bf16": (a)'s launches,
+    "int8": (b)'s}."""
+    t_phase = time.perf_counter()
+    bf16 = grpc_pipeline(torch, pa, smi, model, device, layers)
+    int8 = grpc_handoff(torch, pa, smi, model, device)
+    print(f"[grpc] phase 28 ran in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"bf16": bf16, "int8": int8}
+
+
 def run_alone(torch, pa, smi, phases, check, guard):
     """``--phase N`` (repeatable): the kernels built, then only phases N of
     ALONE, in the order given."""
@@ -9309,7 +9796,8 @@ def run_alone(torch, pa, smi, phases, check, guard):
            24: lambda: seq_phase(torch, pa, smi),
            25: lambda: deployment_phase(torch, pa, smi, prompts),
            26: lambda: mesh_phase(torch, pa, smi, check, guard),
-           27: lambda: photo_phase(torch, pa, smi)}
+           27: lambda: photo_phase(torch, pa, smi),
+           28: lambda: grpc_phase(torch, pa, smi)}
     for n in phases:
         t0 = time.perf_counter()
         run[n]()
@@ -9814,18 +10302,23 @@ def main(argv=None) -> int:
     p26, mesh_entries = mesh_phase(torch, pa, smi, check, guard)
     # ---- 27. images without Pillow: the fixtures' photos through the vision engine
     p27 = photo_phase(torch, pa, smi)
+    # ---- 28. the gRPC stage plane: a pipeline over StreamForward, a streamed handoff
+    p28 = grpc_phase(torch, pa, smi)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
             e["launches"] += (p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
-                              + p25[e["name"]] + p26["bf16"][e["name"]] + p27[e["name"]])
+                              + p25[e["name"]] + p26["bf16"][e["name"]] + p27[e["name"]]
+                              + p28["bf16"][e["name"]])
         elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
             base = e["name"].split("[")[0]
-            e["launches"] += p22[base] + p23["int8"][base] + p24[base] + p26["int8"][base]
+            e["launches"] += (p22[base] + p23["int8"][base] + p24[base] + p26["int8"][base]
+                              + p28["int8"][base])
         elif e["name"] == "qmm_w8a16[int8]":
             e["launches"] += (p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
                               + p23["int8"]["qmm_w8a16"] + p23["bf16"]["qmm_w8a16"]
                               + p24["qmm_w8a16"] + p25["qmm_w8a16"]
-                              + p26["int8"]["qmm_w8a16"] + p26["bf16"]["qmm_w8a16"])
+                              + p26["int8"]["qmm_w8a16"] + p26["bf16"]["qmm_w8a16"]
+                              + p28["bf16"]["qmm_w8a16"] + p28["int8"]["qmm_w8a16"])
     kernels += tp_entries + seq_entries + mesh_entries
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s; the host's "

@@ -1,14 +1,13 @@
 """Data plane of the PyTorch port, on the standard library: the KV handoff
 and migration routes and the pipeline stages' session routes
 (``data_plane.py``), the binary tensor message (``wire.py``), the stage
-worker that owns a range of layers (``stage_worker.py``) and the client
-session that walks a route of stages (``session.py``).
+worker that owns a range of layers (``stage_worker.py``), the client
+session that walks a route of stages (``session.py``), and the gRPC plane
+(``grpc_plane.py``: the proto3 codec of ``pb.py`` over gRPC's HTTP/2
+protocol, ``h2.py`` and ``hpack.py``, interoperable with grpcio).
 
 The names below load their module on first use, so a PD-only user of the
-data plane does not load the stage worker and the model.
-
-The JAX package's gRPC plane (``comm/grpc_plane.py``, ``comm/pb.py``)
-needs ``grpcio``, which the card's machine lacks; it is not ported."""
+data plane does not load the stage worker and the model."""
 
 _EXPORTS = {
     "pack_message": "wire",
@@ -18,6 +17,11 @@ _EXPORTS = {
     "PipelineHopError": "session",
     "SessionManager": "session",
     "WorkerSession": "session",
+    "GrpcDataPlane": "grpc_plane",
+    "GrpcStageClient": "grpc_plane",
+    "ForwardStream": "grpc_plane",
+    "RpcError": "grpc_plane",
+    "StatusCode": "grpc_plane",
 }
 
 __all__ = list(_EXPORTS)

@@ -31,7 +31,9 @@ Sites in the port: ``worker.api.request`` (:func:`wrap_http`),
 handoff ``kv.receiver.message`` (:func:`mutate_bytes`),
 ``io.handoff.stage`` (:func:`io_bytes`), ``worker.pd.push`` and
 ``worker.kv.pull`` (:func:`wrap_http`), on a pipeline session's hops
-``comm.session.forward`` (:func:`wrap_http`), and on the control plane's
+``comm.session.forward`` (:func:`wrap_http`), on the gRPC plane's client
+``comm.grpc.forward`` and ``comm.grpc.transfer_kv`` (:func:`wrap_rpc`),
+and on the control plane's
 side ``server.store.execute`` and ``server.store.checkpoint``
 (:func:`store_fault`) and the SDK's
 ``sdk.client.request`` (:func:`wrap_http`).
@@ -298,6 +300,30 @@ def wrap_http(site: str, call: Callable[[], Any], **ctx: Any) -> Any:
         call()
         return call()
     raise ValueError(f"rule kind {rule.kind!r} unsupported at HTTP seam")
+
+
+def wrap_rpc(site: str, call: Callable[[], Any], **ctx: Any) -> Any:
+    """Generic RPC seam (the gRPC data plane's client): drops, flaps and
+    errors surface as :class:`FaultInjected` (a ``ConnectionError``), after
+    the call when ``where="response"``; a duplicate makes the call twice and
+    returns the second answer."""
+    plan = _ACTIVE
+    if plan is None:
+        return call()
+    rule = plan.fire(site, **ctx)
+    if rule is None:
+        return call()
+    if rule.kind == "delay":
+        time.sleep(rule.delay_s)
+        return call()
+    if rule.kind in ("drop", "flap", "error"):
+        if rule.where == "response":
+            call()
+        raise FaultInjected(f"fault injected: {rule.kind} at {site}")
+    if rule.kind == "duplicate":
+        call()
+        return call()
+    raise ValueError(f"rule kind {rule.kind!r} unsupported at RPC seam")
 
 
 def store_fault(site: str, **ctx: Any) -> bool:

@@ -1,6 +1,7 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
 package (nor aiohttp, httpx, pydantic, transformers, msgpack, ml_dtypes,
-redis, safetensors, tokenizers, regex or grpc, which the card's machine lacks;
+redis, safetensors, tokenizers, regex, grpc, h2, hpack or hyperframe, which the
+card's machine lacks;
 PyYAML only lazily, behind an error naming it, jinja2 only where a chat
 template is compiled, and zstandard only to read a zstd spill frame),
 runs on CUDA unless asked for the CPU, its kernel wrappers never
@@ -24,7 +25,7 @@ from distributed_gpu_inference_torch.runtime.engine import TorchEngine  # noqa: 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu", "aiohttp", "httpx",
              "pydantic", "transformers", "msgpack", "ml_dtypes", "redis",
-             "safetensors", "tokenizers", "regex", "grpc")
+             "safetensors", "tokenizers", "regex", "grpc", "h2", "hpack", "hyperframe")
 
 
 def _port_files():
@@ -53,7 +54,8 @@ def test_port_imports_nothing_of_jax():
             "llama.py", "attention.py", "convert.py", "loader.py", "safetensors.py",
             "hf_tokenizer.py", "wire.py", "session.py", "stage_worker.py",
             "pipeline.py", "mesh.py", "sharding.py", "tp.py",
-            "bert_chars.py", "radix.py"} <= {f.name for f in files}
+            "bert_chars.py", "radix.py", "pb.py", "hpack.py", "h2.py",
+            "grpc_plane.py"} <= {f.name for f in files}
     assert (ROOT / "distributed_gpu_inference_torch/runtime/speculative.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/testing/faults.py") in files
     assert (ROOT / "distributed_gpu_inference_torch/worker/engines/__init__.py") in files
@@ -119,6 +121,19 @@ def test_native_mesh_and_stage_pipeline_modules_import_nothing_of_jax():
     assert all("ctypes" in set(_imported_roots(f)) for f in native)
     assert (ROOT / "distributed_gpu_inference_torch/native/src/radix_index.cpp").is_file()
     assert "def mesh_phase(" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_grpc_modules_import_nothing_of_jax_or_grpc():
+    # the proto3 codec, HPACK, HTTP/2 and the gRPC plane are the standard
+    # library's: no grpcio, h2, hpack or hyperframe, no JAX and no module
+    # of the JAX package (not even its comm/pb.py, which imports no JAX);
+    # chip_smoke.py's phase 28 drives them
+    grpc_files = [ROOT / "distributed_gpu_inference_torch" / "comm" / name for name in (
+        "pb.py", "hpack.py", "h2.py", "grpc_plane.py", "__init__.py")]
+    assert set(grpc_files) <= set(_port_files())
+    for f in grpc_files + [ROOT / "chip_smoke.py"]:
+        assert not set(_imported_roots(f)) & set(FORBIDDEN), f
+    assert "def grpc_phase(" in (ROOT / "chip_smoke.py").read_text()
 
 
 def test_a_seq_engine_runs_on_the_card_unless_asked(monkeypatch):
