@@ -109,12 +109,14 @@ The serving surface (the worker's direct mode):
 The worker process:
 
 13. worker — ``worker/cli.py`` ``cmd_start`` on a thread starts worker A
-    from a JSON config in a temp dir (``engines.llm``: llama3-8b with int8
+    from a ``config.yaml`` in a temp dir, the JAX worker's YAML, written by
+    the port's ``save_worker_config`` (``engines.llm``: llama3-8b with int8
     weights and the default bf16 KV pool; the direct server on port 0;
     polls every 0.05 s, heartbeats every 0.5 s; 8 concurrent jobs) against
     :class:`StandInPlane`, the plane's worker routes on ``http.server``
     (HMAC-checked, epoch-fenced). It registers with a topology naming the
-    card; one direct ``POST /inference/stream`` and the 8 serving prompts
+    card, and the credentials it writes back to the YAML file read back
+    equal to its own; one direct ``POST /inference/stream`` and the 8 serving prompts
     as polled jobs of 32 greedy tokens complete (ids in vocabulary, text =
     decode(ids), usage right); a ``serving.target_step_ms`` pushed through
     the plane's config reaches the live batcher; a 256-token job is
@@ -661,9 +663,13 @@ The gRPC stage plane on the standard library:
     the three routes, streams identical; against ``forward_chunk`` on one
     device on the same tree and chunks, streams identical or parted at a
     near-tie (NEAR_TIE, judged in both runs' logits as phase 21 judges).
-    An 8-token prefill chunk fails at the last stage's reply with
-    ``RESOURCE_EXHAUSTED`` (``CLIENT: Received message larger than max``:
-    grpcio's 4 MiB receive limit, which the JAX plane has too). (b) Two
+    Tensors ride zstd-compressed (level 3 from 4,096 B, as the JAX plane
+    writes them), so grpcio's 4 MiB receive limit, which the JAX plane has
+    too, falls on the compressed message: prefill chunks from GRPC_CHUNK +
+    1 tokens up pass at the last stage's reply until one fails with
+    ``RESOURCE_EXHAUSTED`` (``CLIENT: Received message larger than max (N
+    vs. 4194304)``, N > 4 MiB), the last that passed uncompressed above the
+    limit; a decode step after it gives (c) and phase 29 their tensors. (b) Two
     ``TorchLLMEngine`` s (llama3-8b, int8 weights and int8 pools, as phase
     16 sets them up): A exports phase 16's prompt streamed in pieces of
     GRPC_PIECE_BLOCKS blocks; the frames are pushed one by one through
@@ -671,13 +677,44 @@ The gRPC stage plane on the standard library:
     (the commit answers B's slot), and the same frames over HTTP
     ``/kv/transfer`` to a second adoption on B: both decode to the same
     GRPC_TOKENS tokens. A piece of 4 blocks fails with
-    ``RESOURCE_EXHAUSTED`` (``SERVER: ...``) and its session is aborted.
+    ``RESOURCE_EXHAUSTED`` (``SERVER: ...``) and its session is aborted;
+    its frames are uncompressed (streamed pieces are, by the JAX default),
+    and what zstd would make of its int8 codes is printed.
     Counters zeroed before A's export and read after B's decodes: added to
     the int8 entries. (c) Information, with the card's name and power
     limit: decode tok/s over StreamForward, unary Forward and HTTP on the
     same stages; each hop's p50 / p95 ms split into the stage's forward and
-    framing + transport; message bytes each way a hop; the handoff's MB/s
-    over gRPC and over HTTP.
+    framing + transport; message bytes each way a hop, compressed and
+    uncompressed, on a real decode step's tensors; the handoff's MB/s over
+    gRPC and over HTTP.
+
+zstd frames and YAML configs on the standard library:
+
+29. after phase 28. ``utils/zstd.py`` over ``native/src/zstd_codec.cpp``
+    (built with g++ at first use) and ``utils/yaml_config.py``; the card's
+    machine has neither ``zstandard`` nor PyYAML. (a) Each libzstd fixture
+    of ``tests/fixtures/zstd`` decodes natively to its manifest's SHA-256,
+    and through the plain decoder too where it holds up to
+    ZSTD_PLAIN_BYTES; the frames libzstd refuses (no content size, a
+    dictionary, a skippable frame, truncated, two flipped bits) are
+    refused, each in a child process, by both decoders. (b) Two
+    ``TorchLLMEngine`` s (llama3-8b, int8 weights and int8 pools, as phase
+    16 sets them up): A exports phase 16's prompt in one blob,
+    ``serialize_handoff(compress=True)`` (the default), which holds zstd
+    frames; B adopts it and decodes PD_TOKENS greedy tokens, then the same
+    handoff re-framed uncompressed, and both decode the same tokens.
+    Counters zeroed before A's export, read after B's decodes: all three
+    kernels launched, added to the kernels line's int8 entries. (c) The
+    JAX worker's ``tests/fixtures/config/config.yaml`` reads equal to its
+    JSON twin, builds the same ``WorkerConfig``, and the port's
+    ``safe_dump`` of the twin is the file byte for byte. (d) Information,
+    with the card's name and power limit and the host CPU's name: the
+    native codec's encode and decode MB/s and wire bytes on the handoff's
+    pages and scales, on phase 28's decode-step hidden and logits and a
+    prefill chunk's logits, and on a logits row B sampled; phases 21 and
+    28's message bytes a decode hop, compressed and uncompressed. After
+    every phase the run asserts that no host function took its plain
+    version (``native.PLAIN_TAKEN``).
 
 The last four lines are the script's seconds, the kernels JSON (every entry
 with ``ms`` and ``graph_ms``; ``@long`` entries for phase 10, ``@d32``
@@ -692,6 +729,7 @@ from __future__ import annotations
 import contextlib
 import http.client
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -2153,20 +2191,24 @@ def worker_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8"
     → the phase's information (job latencies, heartbeat round trips)."""
     import tempfile
 
+    from distributed_gpu_inference_torch.utils import config as wconfig
+
     t_phase = time.perf_counter()
     plane = StandInPlane()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_worker_")
     workers = []
     try:
-        path = f"{tmp.name}/worker.json"
-        with open(path, "w") as f:
-            json.dump({
-                "name": "chip-smoke", "server": {"url": plane.url},
-                "engines": {"llm": {"model": model, "quantization": quantization}},
-                "direct": {"enabled": True, "host": "127.0.0.1", "port": 0},
-                "poll_interval_s": 0.05, "heartbeat_interval_s": 0.5,
-                "load_control": {"max_concurrent_jobs": 8},
-            }, f)
+        # the JAX worker's file: YAML, written as save_worker_config writes it
+        path = f"{tmp.name}/config.yaml"
+        wconfig.save_worker_config(wconfig.build(wconfig.WorkerConfig, {
+            "name": "chip-smoke", "server": {"url": plane.url},
+            "engines": {"llm": {"model": model, "quantization": quantization}},
+            "direct": {"enabled": True, "host": "127.0.0.1", "port": 0},
+            "poll_interval_s": 0.05, "heartbeat_interval_s": 0.5,
+            "load_control": {"max_concurrent_jobs": 8},
+        }), path)
+        with open(path) as f:
+            first = f.readline().rstrip("\n")
         pa.reset_launch_counts()
         mem0 = torch.cuda.memory_allocated()
         th_a, wa = start_cli_worker(path)
@@ -2176,10 +2218,25 @@ def worker_phase(torch, pa, smi, prompts, model="llama3-8b", quantization="int8"
         tok = llm.tokenizer
         reg = plane.registrations[-1]
         card = torch.cuda.get_device_name(0)
-        print(f"[worker] worker A up through the CLI ({model}, {quantization} weights): "
-              f"registered as {wa.api.worker_id}, topology {reg['topology']}", flush=True)
+        print(f"[worker] worker A up through the CLI ({model}, {quantization} weights) from "
+              f"the YAML config.yaml the port's save_worker_config wrote (its first line "
+              f"{first!r}): registered as {wa.api.worker_id}, topology {reg['topology']}",
+              flush=True)
         if reg["topology"]["chip_type"] != card:
             raise AssertionError(f"registered topology does not name the card {card}")
+        # the credentials the registration wrote back read back equal, in YAML
+        back = wconfig.load_worker_config(path, environ={}).server
+        with open(path) as f:
+            text = f.read()
+        creds_ok = (back.worker_id, back.auth_token, back.refresh_token,
+                    back.signing_secret) == (wa.api.worker_id, wa.api.auth_token,
+                                             wa.api.refresh_token, wa.api.signing_secret)
+        print(f"[worker] after registration config.yaml holds the issued credentials "
+              f"(YAML, {len(text)} B, not JSON: {not text.lstrip().startswith('{')}); read "
+              f"back equal to worker A's: {creds_ok}", flush=True)
+        if not creds_ok or text.lstrip().startswith("{") or back.auth_token is None:
+            raise AssertionError("the registered credentials did not read back from "
+                                 "config.yaml")
 
         # ---- 8 polled jobs and one direct stream
         rec = RecordedIds(llm)
@@ -3875,7 +3932,7 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
             hyb_trace.close()
         if any(r is None for r in hyb_rows):
             raise AssertionError(f"[pd] {tag} (b): A's hybrid run did not finish")
-        ttft, failed = {}, []
+        ttft, mig, failed = {}, {}, []
         for mode, stream in (("streamed", True), ("one-shot", False)):
             clear_cached(a)
             clear_cached(b)
@@ -3908,6 +3965,7 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
                 raise AssertionError(f"[pd] {tag} (b) {mode}: a request did not finish")
             rows = [(tok.encode(p), o[1]["token_ids"]) for p, o in zip(prompts, out)]
             ttft[mode] = [o[0]["ttft_ms"] for o in out]
+            mig[mode] = [o[0]["migration_ms"] for o in out]
             # A's hybrid run prefilled each prompt as a one-shot PD prefill
             # does (one single-row forward when the prompt fits a chunk:
             # runtime/engine.py submit_batch, a prompt alone in its bucket;
@@ -3970,7 +4028,10 @@ def pd_phase(torch, pa, smi, a, prompts, hybrid, kv, model="llama3-8b",
               f"streamed {pctl(ttft['streamed'], 0.5):.1f} ms, PD one-shot "
               f"{pctl(ttft['one-shot'], 0.5):.1f} ms, A hybrid {pctl(hyb_ttft, 0.5):.1f} ms; "
               f"the batched serving run before the phase (all 8 admitted at once) "
-              f"{pctl([p['ttft_ms'] for p in hyb_payloads], 0.5):.1f} ms ({smi})", flush=True)
+              f"{pctl([p['ttft_ms'] for p in hyb_payloads], 0.5):.1f} ms; migration_ms p50 / "
+              f"max: PD streamed {pctl(mig['streamed'], 0.5):.1f} / {max(mig['streamed']):.1f} "
+              f"ms, PD one-shot {pctl(mig['one-shot'], 0.5):.1f} / {max(mig['one-shot']):.1f} "
+              f"ms ({smi})", flush=True)
         one = [i for i, p in enumerate(prompts) if len(tok.encode(p)) <= PD_BUCKETS[-1]]
         print(f"[pd] {tag} TTFT of the {len(one)} prompts within one chunk (information): "
               + "; ".join(f"{name} {[round(t[i], 1) for i in one]} ms" for name, t in (
@@ -6093,6 +6154,7 @@ class PipeClock:
 
             st.forward = fwd
         self.hops = []          # (base_url, seconds, request bytes, reply bytes)
+        self.bodies = {}        # base_url -> the first two (request, reply) bodies
 
     def watch(self, ws):
         real = ws._call
@@ -6103,6 +6165,9 @@ class PipeClock:
             if path == "/inference/forward":
                 self.hops.append((ws.base_url, time.perf_counter() - t0, len(body),
                                   len(resp.content)))
+                kept = self.bodies.setdefault(ws.base_url, [])
+                if len(kept) < 2:
+                    kept.append((bytes(body), bytes(resp.content)))
             return resp
 
         ws._call = call
@@ -6265,6 +6330,7 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
         WorkerSession,
     )
     from distributed_gpu_inference_torch.comm.stage_worker import PipelineStageWorker
+    from distributed_gpu_inference_torch.comm.wire import pack_message, unpack_message
     from distributed_gpu_inference_torch.models.configs import get_model_config
     from distributed_gpu_inference_torch.parallel.pipeline import (
         create_shard_plan,
@@ -6463,20 +6529,27 @@ def pipeline_phase(torch, pa, smi, model="llama3-8b", quantization="int8", devic
     decode_idx = [i for i in range(n_b) if i % (PIPE_TOKENS + 1)]
     device_ms = (stage_device_ms(torch, stages[:2], prompts[0], pipe_runs[0][0])
                  if device != "cpu" else [float("nan")] * 2)
-    lines = []
+    lines, hop_bytes = [], []
     for h in range(len(plan)):
         calls = [c[1:] for c in clock.hops if c[0] == urls[h]][:n_b]
         inside = clock.stage_s[id(stages[h])][:n_b]
         tot = [calls[i][0] * 1e3 for i in decode_idx]
         ins = [inside[i] * 1e3 for i in decode_idx]
         rest = [a - b for a, b in zip(tot, ins)]
+        # the decode step's bodies as they crossed (zstd frames, as the JAX
+        # session writes them) and as they would without compression
+        raw_sizes = [len(pack_message(*unpack_message(b), compress=False))
+                     for b in clock.bodies[urls[h]][1]]
+        hop_bytes.append(((calls[1][1], calls[1][2]), tuple(raw_sizes)))
         lines.append(f"hop {h} (stage {plan[h]}): {pctl(tot, 0.5):.2f} / {pctl(tot, 0.95):.2f} "
                      f"ms, of it the stage's forward (launches, device work and the copy "
                      f"back, synchronised) {pctl(ins, 0.5):.2f} / {pctl(ins, 0.95):.2f}, the "
-                     f"device busy {device_ms[h]:.2f} ms of it, and framing + HTTP "
-                     f"{pctl(rest, 0.5):.2f} / {pctl(rest, 0.95):.2f}; {calls[1][1]} B out, "
-                     f"{calls[1][2]} B back a decode step ({calls[0][1]} / {calls[0][2]} B at "
-                     f"prompt 0's prefill)")
+                     f"device busy {device_ms[h]:.2f} ms of it, and framing + HTTP (zstd "
+                     f"frames encoded and decoded included) {pctl(rest, 0.5):.2f} / "
+                     f"{pctl(rest, 0.95):.2f}; {calls[1][1]} B out, {calls[1][2]} B back a "
+                     f"decode step, {raw_sizes[0]} / {raw_sizes[1]} B uncompressed "
+                     f"({calls[0][1]} / {calls[0][2]} B at prompt 0's prefill)")
+    HOP_BYTES["phase 21 HTTP"] = hop_bytes
     print(f"[pipeline] (g) decode: the pipeline {len(dec) / sum(dec):.1f} tokens/s "
           f"({1e3 * sum(dec) / len(dec):.2f} ms a step, one session, two stages over "
           f"loopback HTTP), TorchEngine on the same tree {np.mean(eng_dec):.1f} tokens/s; "
@@ -9114,7 +9187,7 @@ def mesh_phase(torch, pa, smi, check, guard=None, model="llama3-8b", device="cud
 
 HOST_FLOOR_GIB = 14.0       # the host memory a run leaves free, or it stops itself
 # phases whose inputs are their own, which ``--phase`` runs alone
-ALONE = (16, 17, 18, 19, 21, 22, 23, 24, 25, 26, 27, 28)
+ALONE = (13, 16, 17, 18, 19, 21, 22, 23, 24, 25, 26, 27, 28, 29)
 
 
 class HostGuard:
@@ -9347,7 +9420,8 @@ def photo_phase(torch, pa, smi, vit_model="small-vit", llm_model="llama3-1b", de
 
 # ---------------------------------------------------------------- phase 28: the gRPC stage plane
 
-GRPC_CHUNK = 7              # prefill tokens a chunk: a last-stage reply of 8 passes 4 MiB
+GRPC_CHUNK = 7              # prefill tokens a chunk
+GRPC_LIMIT_MAX = 16         # (a)'s receive-limit probe: chunks of GRPC_CHUNK + 1 up to this
 GRPC_TOKENS = 32            # greedy tokens a session
 GRPC_LAYERS = PIPE_LAYERS   # (a)'s depth, cut (full width): at 32 the whole script
                             # took 1,175.5 s of its 1,200 on a slow host
@@ -9442,28 +9516,31 @@ def one_device_greedy(torch, cfg, params, prompt, dev, n_tokens=GRPC_TOKENS, chu
     return toks, rows
 
 
-def grpc_hop_bytes(torch, cfg):
+def grpc_hop_bytes(torch, hid, out, compress=True):
     """Message bytes of a decode step's hops (each with its 5-byte gRPC
-    prefix; HTTP: the ``comm/wire.py`` bodies) → {route: [(out, back) a
-    stage]}."""
-    from distributed_gpu_inference_torch.comm import grpc_plane as gp
+    prefix; HTTP: the ``comm/wire.py`` bodies), ``hid`` the first stage's
+    hidden state and ``out`` the last stage's answer, TPUT frames
+    zstd-compressed as both planes write them (or not) → {route: [(out,
+    back) a stage]}."""
     from distributed_gpu_inference_torch.comm import pb
     from distributed_gpu_inference_torch.comm.wire import pack_message
+    from distributed_gpu_inference_torch.utils.serialization import serialize
+
+    def msg(t):
+        return {"frame": serialize(t, compress=compress)}
 
     tok = torch.zeros((1, 1), dtype=torch.int32)
-    hid = torch.zeros((1, 1, cfg.hidden_size), dtype=torch.float32)
-    logits = torch.zeros((1, 1, cfg.vocab_size), dtype=torch.float32)
     sid, kv = "0123456789abcdef0123456789abcdef", 200
-    outs = [{"hidden": hid}, {"hidden": hid, "logits": logits}]
+    outs = [{"hidden": hid}, out]
     grpc_b = [(5 + len(pb.encode(pb.FORWARD_REQUEST, {
-        "session_id": sid, "kv_len_after": kv, "x": gp._tensor_msg(x),
-        "positions": gp._tensor_msg(tok)})),
+        "session_id": sid, "kv_len_after": kv, "x": msg(x), "positions": msg(tok)})),
         5 + len(pb.encode(pb.FORWARD_RESPONSE, {"session_id": sid, **{
-            k: gp._tensor_msg(v) for k, v in o.items()}})))
+            k: msg(v) for k, v in o.items()}})))
         for x, o in zip((tok, hid), outs)]
     http_b = [(len(pack_message({"session_id": sid, "kv_len_after": kv},
-                                {"x": x, "positions": tok})),
-               len(pack_message({"session_id": sid}, o))) for x, o in zip((tok, hid), outs)]
+                                {"x": x, "positions": tok}, compress=compress)),
+               len(pack_message({"session_id": sid}, o, compress=compress)))
+              for x, o in zip((tok, hid), outs)]
     return {"StreamForward": grpc_b, "Forward": grpc_b, "HTTP": http_b}
 
 
@@ -9556,19 +9633,32 @@ def grpc_pipeline(torch, pa, smi, model, device, layers):
             if route == "StreamForward":
                 torch.cuda.synchronize()
                 counts = pa.launch_counts()
-        # an 8-token chunk: the last stage's reply passes grpcio's 4 MiB limit
-        sid = "grpc-limit"
-        for c in clients:
-            c.create_session(sid)
-        x8, pos8 = np.asarray([prompts[0][:8]], np.int32), np.arange(8, dtype=np.int32)[None]
-        hidden = clients[0].forward(sid, x8, pos8, 8)["hidden"]
-        try:
-            clients[1].forward(sid, hidden, pos8, 8)
-            limit = None
-        except RpcError as exc:
-            limit = (exc.code(), exc.details())
-        for c in clients:
-            c.close_session(sid)
+        # the receive limit: prefill chunks of GRPC_CHUNK + 1 tokens and up
+        # until the last stage's reply, zstd-compressed as the JAX plane
+        # compresses it, passes grpcio's 4 MiB no more; then one decode step
+        # after the last chunk that passed, whose tensors (d) and phase 29
+        # measure
+        limit, passed = None, {}
+        for n in range(GRPC_CHUNK + 1, GRPC_LIMIT_MAX + 1):
+            sid = f"grpc-limit-{n}"
+            for c in clients:
+                c.create_session(sid)
+            x, pos = (np.asarray([prompts[0][:n]], np.int32),
+                      np.arange(n, dtype=np.int32)[None])
+            hidden = clients[0].forward(sid, x, pos, n)["hidden"]
+            try:
+                out = clients[1].forward(sid, hidden, pos, n)
+                passed[n] = out
+                tok = np.asarray([[int(torch.argmax(out["logits"][0, -1]))]], np.int32)
+                step_hid = clients[0].forward(sid, tok, np.asarray([[n]], np.int32), n + 1)[
+                    "hidden"]
+                step_out = clients[1].forward(sid, step_hid, np.asarray([[n]], np.int32), n + 1)
+            except RpcError as exc:
+                limit = (n, exc.code(), exc.details())
+            for c in clients:
+                c.close_session(sid)
+            if limit is not None:
+                break
         ref = [one_device_greedy(torch, cfg, params, ids, dev) for ids in prompts]
     finally:
         for c in clients:
@@ -9577,16 +9667,30 @@ def grpc_pipeline(torch, pa, smi, model, device, layers):
             p.stop(0)
         for p in https:
             p.stop()
-    limit_ok = limit is not None and limit[0] == StatusCode.RESOURCE_EXHAUSTED and \
-        limit[1].startswith("CLIENT: Received message larger than max (") and \
-        limit[1].endswith(f" vs. {gp.MAX_MESSAGE_BYTES})")
-    print(f"[grpc] (a) an 8-token prefill chunk through both stages: the last stage's reply "
-          f"refused at the client with {limit[0].name if limit else None}: {limit and limit[1]!r}"
-          f" (grpcio's default receive limit, {gp.MAX_MESSAGE_BYTES} bytes, in the JAX plane too)",
-          flush=True)
+    refused_bytes = None
+    if limit is not None:
+        m = re.match(r"CLIENT: Received message larger than max \((\d+) vs\. (\d+)\)$",
+                     limit[2])
+        refused_bytes = int(m.group(1)) if m and int(m.group(2)) == gp.MAX_MESSAGE_BYTES \
+            else None
+    last = max(passed) if passed else None
+    sizes = {n: (grpc_hop_bytes(torch, o["hidden"], o)["Forward"][1][1],
+                 grpc_hop_bytes(torch, o["hidden"], o, compress=False)["Forward"][1][1])
+             for n, o in passed.items()}
+    limit_ok = (limit is not None and limit[1] == StatusCode.RESOURCE_EXHAUSTED
+                and refused_bytes is not None and refused_bytes > gp.MAX_MESSAGE_BYTES
+                and last == limit[0] - 1
+                and all(z <= gp.MAX_MESSAGE_BYTES for z, _ in sizes.values())
+                and sizes[last][1] > gp.MAX_MESSAGE_BYTES)
+    print(f"[grpc] (a) the receive limit ({gp.MAX_MESSAGE_BYTES} B, grpcio's default, in the "
+          f"JAX plane too) on zstd-compressed replies: prefill chunks of "
+          f"{', '.join(f'{n} tokens passed at {z} B ({r} B uncompressed)' for n, (z, r) in sizes.items())}"
+          f"; {limit[0] if limit else None} tokens refused at the client with "
+          f"{limit[1].name if limit else None}: {limit and limit[2]!r}", flush=True)
     if not limit_ok:
-        raise AssertionError(f"[grpc] (a) the 8-token reply was not refused: {limit}")
-
+        raise AssertionError(f"[grpc] (a) the receive limit is not where compression puts it: "
+                             f"{limit}, {sizes}")
+    HOP_TENSORS.update(hidden=step_hid, out=step_out, chunk=passed[last], chunk_tokens=last)
     # ---- (a) checks: the routes bitwise, the one-device run within a near-tie
     base = runs["StreamForward"]
     same = {route: all(t == bt and [s[2] for s in st] == [s[2] for s in bs]
@@ -9623,7 +9727,10 @@ def grpc_pipeline(torch, pa, smi, model, device, layers):
     check_counts("grpc (a)", counts, qmm=True)
 
     # ---- (c) numbers (information)
-    nbytes = grpc_hop_bytes(torch, cfg)
+    nbytes = grpc_hop_bytes(torch, step_hid, step_out)
+    raw_bytes = grpc_hop_bytes(torch, step_hid, step_out, compress=False)
+    for route in ("StreamForward", "HTTP"):
+        HOP_BYTES[f"phase 28 {route}"] = list(zip(nbytes[route], raw_bytes[route]))
     lines = []
     for route in GRPC_ROUTES:
         dec = [(s[0], s[1]) for toks, st in runs[route] for s in st[-(GRPC_TOKENS - 1):]]
@@ -9642,7 +9749,9 @@ def grpc_pipeline(torch, pa, smi, model, device, layers):
             hops.append(f"hop {h} {pctl(tot, 0.5):.2f} / {pctl(tot, 0.95):.2f} ms = stage "
                         f"{pctl(ins, 0.5):.2f} / {pctl(ins, 0.95):.2f} + framing and "
                         f"transport {pctl(rest, 0.5):.2f} / {pctl(rest, 0.95):.2f}, "
-                        f"{nbytes[route][h][0]} B out, {nbytes[route][h][1]} B back")
+                        f"{nbytes[route][h][0]} B out, {nbytes[route][h][1]} B back "
+                        f"({raw_bytes[route][h][0]} / {raw_bytes[route][h][1]} B "
+                        f"uncompressed)")
         lines.append(f"{route}: {len(dec) / sum(t for t, _ in dec):.2f} tok/s; "
                      + "; ".join(hops))
     print(f"[grpc] (c) decode of one session over two stages on loopback (p50 / p95 of the "
@@ -9664,6 +9773,7 @@ def grpc_handoff(torch, pa, smi, model, device):
         StatusCode,
     )
     from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+    from distributed_gpu_inference_torch.utils import serialization
     from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
 
     text = serving_prompts()[2][-1]
@@ -9743,14 +9853,25 @@ def grpc_handoff(torch, pa, smi, model, device):
             except RpcError as exc:
                 refused = (kh.message_kind(raw), len(raw), exc.code(), exc.details())
                 break
+        # the piece's frames are raw, as the JAX StreamedExport writes them by
+        # default (compress=False), so compression does not move this limit;
+        # and its int8 codes would barely shrink under zstd
+        _, meta, payload = kh._unpack_stream(raw)
+        blobs = kh._read_blobs(payload, 2) if meta.get("has_scales") else [payload]
+        piece_flags = [blob[5] & 1 for blob in blobs]
+        codes = kh._read_pages(*(blobs + [None])[:2])[0]
+        packed = len(serialization.serialize(codes, compress=True))
         aborted = cli.transfer_kv(kh.abort_message(key4))
         live = key4 in b._handoff_rx._sessions
         print(f"[grpc] (b) pieces of 4 blocks: the first {refused and refused[0]} of "
               f"{refused and refused[1]} B refused with {refused and refused[2].name}: "
               f"{refused and refused[3]!r}; the session aborted over gRPC ({aborted}), none "
-              f"left on B: {not live}", flush=True)
+              f"left on B: {not live}; its TPUT frames' zstd flags {piece_flags} (streamed "
+              f"pieces go uncompressed, the JAX default); its int8 codes would zstd to "
+              f"{packed} B of {codes.numel()}", flush=True)
         if refused is None or refused[2] != StatusCode.RESOURCE_EXHAUSTED or \
-                not refused[3].startswith("SERVER: Received message larger than max") or live:
+                not refused[3].startswith("SERVER: Received message larger than max") or live \
+                or any(piece_flags):
             raise AssertionError(f"[grpc] (b) a 4-block piece was not refused: {refused}")
         print(f"[grpc] (c) the handoff of {total} B: {total / t_grpc / 1e6:.1f} MB/s over gRPC "
               f"({len(sent)} unary calls, {t_grpc * 1e3:.1f} ms), {total / t_http / 1e6:.1f} "
@@ -9778,6 +9899,236 @@ def grpc_phase(torch, pa, smi, model="llama3-8b", device="cuda", layers=GRPC_LAY
     return {"bf16": bf16, "int8": int8}
 
 
+# ------------------------------------------ phase 29: zstd frames and YAML configs
+
+ZSTD_FIXTURES = "tests/fixtures/zstd"
+CONFIG_FIXTURES = "tests/fixtures/config"
+ZSTD_PLAIN_BYTES = 70_000     # (a) fixtures whose content the plain decoder reads too
+ZSTD_REPEATS = 5              # (d) timed encodes and decodes of each payload (median kept)
+HOP_TENSORS = {}              # phase 28 (a): a decode step's hidden and answer, a chunk's
+HOP_BYTES = {}                # route -> [((bytes out, back), (uncompressed out, back)) a hop]
+
+ZSTD_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+from distributed_gpu_inference_torch import native
+from distributed_gpu_inference_torch.utils import zstd
+data = open({path!r}, "rb").read()
+said = {{}}
+for name, fn in (("native", zstd.decompress), ("plain", zstd.decompress_plain)):
+    try:
+        said[name] = "read %d bytes" % len(fn(data))
+    except zstd.CodecUnavailable as exc:
+        said[name] = "CodecUnavailable: %s" % exc
+    except ValueError as exc:
+        said[name] = "ValueError: %s" % exc
+print(json.dumps({{"said": said, "plain_taken": native.PLAIN_TAKEN}}))
+"""
+
+
+def no_plain_taken(tag):
+    """No host function of the run took its plain version (``native.PLAIN_TAKEN``):
+    the native radix index, image codec and zstd codec all built and loaded."""
+    from distributed_gpu_inference_torch import native
+
+    if native.PLAIN_TAKEN:
+        raise AssertionError(f"[{tag}] a plain host version was taken: {native.PLAIN_TAKEN}")
+
+
+def zstd_fixtures_check(tag):
+    """(a): every libzstd fixture decoded natively to its manifest's
+    SHA-256, the plain decoder on the smallest, the refused ones each in a
+    child process → (frames read, frames refused)."""
+    import hashlib
+    import os
+
+    from distributed_gpu_inference_torch import native
+    from distributed_gpu_inference_torch.utils import zstd
+
+    manifest = json.load(open(f"{ZSTD_FIXTURES}/manifest.json"))
+    if not native.native_available(native.ZSTD_SRC):
+        raise AssertionError(f"[{tag}] the native zstd codec did not build")
+    read, refused, children = [], [], []
+    for e in manifest["frames"]:
+        path = f"{ZSTD_FIXTURES}/{e['file']}"
+        data = open(path, "rb").read()
+        if hashlib.sha256(data).hexdigest() != e["file_sha256"]:
+            raise AssertionError(f"[{tag}] {e['file']} is not the committed fixture")
+        if "refused" in e:
+            children.append((e, subprocess.Popen(
+                [sys.executable, "-c", ZSTD_CHILD.format(root=os.getcwd(), path=path)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            continue
+        out = zstd.decompress(data)
+        ok = hashlib.sha256(out).hexdigest() == e["content_sha256"]
+        if e["content_bytes"] <= ZSTD_PLAIN_BYTES:
+            ok = ok and zstd.decompress_plain(data) == out
+        read.append(e["file"])
+        if not ok:
+            raise AssertionError(f"[{tag}] {e['file']} decodes to other bytes than libzstd's")
+    for e, proc in children:
+        out, err = proc.communicate(timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"[{tag}] {e['file']}: the decoding child failed "
+                                 f"({proc.returncode}): {err[-2000:]}")
+        said = json.loads(out.strip().splitlines()[-1])
+        want = "CodecUnavailable" if e["refused"] == "dictionary" else "ValueError"
+        if said["plain_taken"] or not all(v.startswith(want) for v in said["said"].values()):
+            raise AssertionError(f"[{tag}] {e['file']} ({e['refused']}): {said}")
+        refused.append(f"{e['file']} ({said['said']['native']})")
+    print(f"[{tag}] (a) the {len(read)} libzstd {manifest['libzstd']} fixtures of "
+          f"{ZSTD_FIXTURES} (levels -5 to 19, checksum, multi-block, bf16 / f32 / zero / "
+          f"incompressible int8 pages, two frames back to back, raw and RLE blocks past the "
+          f"block maximum) decode natively to their "
+          f"manifest's SHA-256, the plain decoder too where they hold up to {ZSTD_PLAIN_BYTES} B; "
+          f"refused, each in a child process, native and plain alike: {'; '.join(refused)}",
+          flush=True)
+    return read, refused
+
+
+def zstd_handoff(torch, pa, smi, model, device):
+    """(b) → (its launches, the handoff's pages and scales wire tensors, a
+    logits row B sampled)."""
+    from distributed_gpu_inference_torch.comm.data_plane import DataPlaneServer
+    from distributed_gpu_inference_torch.runtime import kv_handoff as kh
+    from distributed_gpu_inference_torch.worker.engines.llm import TorchLLMEngine
+
+    text = serving_prompts()[2][-1]
+    t0 = time.perf_counter()
+    a = TorchLLMEngine(pd_engine_config(model, "int8", "int8", device))
+    b = TorchLLMEngine(pd_engine_config(model, "int8", "int8", device))
+    a.load_model()
+    b.load_model()
+    blobs, rows = [], []
+    recorder = DataPlaneServer(kv_receiver=lambda raw: blobs.append(raw) or {"ok": 1})
+    recorder.start()
+    sample = b.engine._sample
+
+    def first_row(logits, *args):
+        if not rows:
+            rows.append(logits[0].float().cpu())
+        return sample(logits, *args)
+
+    b.engine._sample = first_row
+    try:
+        print(f"[zstd] (b) A and B ({model}, int8 weights and int8 pools, seed 0) loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        key = "zstd-pd"
+        clear_cached(a)
+        pre = a.inference(pd_params(text, key, recorder.url, pd_stream=False))
+        blob = blobs[-1]
+        h = kh.deserialize_handoff(blob)
+        raw = kh.serialize_handoff(h, compress=False)
+        frames = kh._read_blobs(blob, 3 if h.scale_pages is not None else 2)[1:]
+        flags = [f[5] & 1 for f in frames]
+        decoded = {}
+        for name, wire in (("zstd", blob), ("uncompressed", raw)):
+            clear_cached(b)
+            b.kv_receiver(wire)
+            decoded[name] = b.inference({"pd_stage": "decode", "kv_cache_key": key})["token_ids"]
+        torch.cuda.synchronize()
+        counts = pa.launch_counts()
+    finally:
+        del b.engine._sample
+        recorder.stop()
+        a.unload()
+        b.unload()
+    same = decoded["zstd"] == decoded["uncompressed"]
+    print(f"[zstd] (b) phase 16's prompt ({len(h.token_ids)} tokens, {h.num_blocks} blocks) "
+          f"exported by A in one blob, serialize_handoff(compress=True): {len(blob)} B against "
+          f"{len(raw)} B uncompressed ({len(blob) / len(raw):.4f}), pages / scales frames zstd: "
+          f"{flags}; B adopted it and decoded {len(decoded['zstd'])} greedy tokens, the same as "
+          f"from the uncompressed wire: {same}; the first token {pre['first_token']} leads "
+          f"both: {decoded['zstd'][:1] == [pre['first_token']]}; kernel launches of (b): "
+          f"{counts} ({smi})", flush=True)
+    if not same or len(decoded["zstd"]) != PD_TOKENS or not any(flags) \
+            or decoded["zstd"][:1] != [pre["first_token"]] or len(blob) >= len(raw):
+        raise AssertionError(f"[zstd] (b) the compressed handoff did not decode as the "
+                             f"uncompressed one: {decoded}, flags {flags}")
+    check_counts("zstd (b)", counts, qmm=True)
+    wire = {"handoff pages (int8 codes)": h.pages}
+    if h.scale_pages is not None:
+        wire["handoff scales (bf16, over D lanes)"] = kh.expand_scales(
+            h.scale_pages, h.pages.shape[-1]).contiguous()
+    del a, b
+    torch.cuda.empty_cache()
+    return counts, wire, rows[0]
+
+
+def config_fixture_check(tag):
+    """(c): the JAX worker's committed ``config.yaml`` reads equal to its
+    JSON twin, builds the same ``WorkerConfig``, and the port's dump of the
+    twin is the file byte for byte."""
+    from distributed_gpu_inference_torch.utils import config as wconfig
+    from distributed_gpu_inference_torch.utils import yaml_config
+
+    text = open(f"{CONFIG_FIXTURES}/config.yaml").read()
+    twin = json.load(open(f"{CONFIG_FIXTURES}/config.json"))
+    loaded = yaml_config.safe_load(text) == twin
+    built = wconfig.config_dict(wconfig.load_worker_config(
+        f"{CONFIG_FIXTURES}/config.yaml", environ={})) == twin
+    dumped = yaml_config.safe_dump(twin) == text
+    print(f"[{tag}] (c) {CONFIG_FIXTURES}/config.yaml ({len(text)} B, the JAX worker's "
+          f"save_worker_config): reads equal to its JSON twin {loaded}, builds the same "
+          f"WorkerConfig {built}, the port's safe_dump of the twin is the file byte for byte "
+          f"{dumped}", flush=True)
+    if not (loaded and built and dumped):
+        raise AssertionError(f"[{tag}] (c) the JAX worker's config.yaml reads otherwise")
+
+
+def codec_rates(torch, tag, payloads, smi):
+    """(d): the native codec's encode and decode MB/s and wire bytes on
+    each payload (information)."""
+    from distributed_gpu_inference_torch.utils import zstd
+
+    cpu = host_cpu_name()
+    lines = []
+    for name, t in payloads.items():
+        data = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+        enc, dec = [], []
+        for _ in range(ZSTD_REPEATS):
+            t0 = time.perf_counter()
+            frame = zstd.compress(data)
+            t1 = time.perf_counter()
+            out = zstd.decompress(frame, expected_size=data.size)
+            dec.append(time.perf_counter() - t1)
+            enc.append(t1 - t0)
+        if bytes(out) != data.tobytes():
+            raise AssertionError(f"[{tag}] (d) {name}: the codec does not round-trip")
+        mb = data.size / 1e6
+        lines.append(f"{name} {tuple(t.shape)} {t.dtype}: {data.size} -> {len(frame)} B "
+                     f"({len(frame) / data.size:.4f}), encode {mb / pctl(enc, 0.5):.1f} MB/s, "
+                     f"decode {mb / pctl(dec, 0.5):.1f} MB/s")
+    print(f"[{tag}] (d) the native codec (median of {ZSTD_REPEATS}; host CPU {cpu}; {smi}): "
+          + "; ".join(lines), flush=True)
+    hops = [f"{route}: " + ", ".join(f"hop {h} {o} / {b} B ({ro} / {rb} B uncompressed)"
+                                     for h, ((o, b), (ro, rb)) in enumerate(v))
+            for route, v in HOP_BYTES.items()]
+    print(f"[{tag}] (d) a decode step's message bytes out / back a hop, as phases 21 and 28 "
+          f"sent them in this run: {'; '.join(hops) or 'neither ran'}", flush=True)
+
+
+def zstd_phase(torch, pa, smi, model="llama3-8b", device="cuda"):
+    """Phase 29 (see the module docstring) → (b)'s launches."""
+    t_phase = time.perf_counter()
+    zstd_fixtures_check("zstd")
+    counts, wire, row = zstd_handoff(torch, pa, smi, model, device)
+    config_fixture_check("zstd")
+    payloads = dict(wire)
+    if HOP_TENSORS:
+        payloads["a decode step's hidden (phase 28)"] = HOP_TENSORS["hidden"]
+        payloads["a decode step's logits (phase 28)"] = HOP_TENSORS["out"]["logits"]
+        payloads[f"a {HOP_TENSORS['chunk_tokens']}-token chunk's logits (phase 28)"] = \
+            HOP_TENSORS["chunk"]["logits"]
+    payloads["a decode logits row B sampled (b)"] = row
+    codec_rates(torch, "zstd", payloads, smi)
+    no_plain_taken("zstd")
+    print(f"[zstd] phase 29 ran in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def run_alone(torch, pa, smi, phases, check, guard):
     """``--phase N`` (repeatable): the kernels built, then only phases N of
     ALONE, in the order given."""
@@ -9786,7 +10137,8 @@ def run_alone(torch, pa, smi, phases, check, guard):
     print(f"[build] kernels built in {_build.build(list(_build.KERNEL_SOURCES)):.1f} s",
           flush=True)
     shared, _, prompts = serving_prompts()
-    run = {16: lambda: pd_alone(torch, pa, smi, prompts, shared),
+    run = {13: lambda: worker_phase(torch, pa, smi, prompts),
+           16: lambda: pd_alone(torch, pa, smi, prompts, shared),
            17: lambda: local_files_phase(torch, pa, smi),
            18: lambda: fleet_phase(torch, pa, smi, prompts),
            19: lambda: moe_phase(torch, pa, smi, prompts, shared),
@@ -9797,10 +10149,12 @@ def run_alone(torch, pa, smi, phases, check, guard):
            25: lambda: deployment_phase(torch, pa, smi, prompts),
            26: lambda: mesh_phase(torch, pa, smi, check, guard),
            27: lambda: photo_phase(torch, pa, smi),
-           28: lambda: grpc_phase(torch, pa, smi)}
+           28: lambda: grpc_phase(torch, pa, smi),
+           29: lambda: zstd_phase(torch, pa, smi)}
     for n in phases:
         t0 = time.perf_counter()
         run[n]()
+        no_plain_taken(f"phase {n}")
         print(f"[alone] phase {n} ran in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -10105,15 +10459,18 @@ def main(argv=None) -> int:
 
     # ---- 11. the direct server on the int8 engine
     direct_server_phase(torch, pa, llm, prompts, smi)
+    no_plain_taken("phase 11")
 
     # ---- 16. PD disaggregation, int8 pools: phase 7's engine is A
     pd_phase(torch, pa, smi, llm, prompts, (i8_tokens, payloads), "int8")
+    no_plain_taken("phase 16")
     llm.unload()
     del llm
     torch.cuda.empty_cache()
 
     # ---- 16. PD disaggregation, bf16 pools (int8 weights), and the worker roles
     pd_bf16_phase(torch, pa, smi, prompts, shared)
+    no_plain_taken("phase 16")
 
     # ---- 8. fp8 serving at llama3-8b width, 4 layers
     cfg4 = get_model_config("llama3-8b", num_layers=4)
@@ -10260,6 +10617,7 @@ def main(argv=None) -> int:
 
     # ---- 13. the worker process against a stand-in control plane
     *_, flight = worker_phase(torch, pa, smi, prompts)
+    no_plain_taken("phase 13")
 
     # ---- 14. serving under pressure: spill tiers, fault seams, deadlines, flight
     resp = RespStandIn()
@@ -10269,41 +10627,57 @@ def main(argv=None) -> int:
     finally:
         resp.stop()
     flight_check(flight)
+    no_plain_taken("phase 14")
 
     # ---- 15. speculative decoding: integrated rounds and the tree decoder
     spec_entries, random_head = spec_phase(torch, pa, smi, prompts, lengths)
+    no_plain_taken("phase 15")
     kernels += spec_entries
 
     # ---- 17. weights and tokenizer from local files
     local_files_phase(torch, pa, smi)
+    no_plain_taken("phase 17")
 
     # ---- 18. a fleet of two workers, killed, blacked out and restarted
     fleet_phase(torch, pa, smi, prompts)
+    no_plain_taken("phase 18")
 
     # ---- 19. mixtral-8x7b: the MoE layer, the streamed init, serving, times
     moe_timed, moe_launches, _ = moe_phase(torch, pa, smi, prompts, shared)
+    no_plain_taken("phase 19")
     for name, (times, err) in moe_timed.items():
         kernels.append(entry(f"qmm_w8a16[int8]@moe-{name}", "qmm_w8a16.cu", QPALLAS + ":88",
                              moe_launches["qmm_w8a16"], err, times))
 
     # ---- 20. draft distillation and the embedding, vision, whisper and image engines
     p20 = engines_phase(torch, pa, smi, prompts, shared, random_head)
+    no_plain_taken("phase 20")
     # ---- 21. pipeline stages: llama3-8b int8 in two stages and a spare
     p21 = pipeline_phase(torch, pa, smi)
+    no_plain_taken("phase 21")
     # ---- 22. serving.mode: direct, sub-wave admission, the weight cache
     p22 = direct_mode_phase(torch, pa, smi, prompts)
+    no_plain_taken("phase 22")
     # ---- 23. tensor and expert parallelism: two ranks on the card
     p23, tp_entries = tp_phase(torch, pa, smi, prompts)
+    no_plain_taken("phase 23")
     # ---- 24. sequence parallelism: ring, Ulysses, block-sharded pools, handoffs
     p24, seq_entries = seq_phase(torch, pa, smi)
+    no_plain_taken("phase 24")
     # ---- 25. the whole deployment: the port's plane, two CLI workers, the SDK
     p25 = deployment_phase(torch, pa, smi, prompts)
+    no_plain_taken("phase 25")
     # ---- 26. the native index, seq x model meshes, migration under TP, stages
     p26, mesh_entries = mesh_phase(torch, pa, smi, check, guard)
+    no_plain_taken("phase 26")
     # ---- 27. images without Pillow: the fixtures' photos through the vision engine
     p27 = photo_phase(torch, pa, smi)
+    no_plain_taken("phase 27")
     # ---- 28. the gRPC stage plane: a pipeline over StreamForward, a streamed handoff
     p28 = grpc_phase(torch, pa, smi)
+    no_plain_taken("phase 28")
+    # ---- 29. zstd frames and YAML configs on the standard library
+    p29 = zstd_phase(torch, pa, smi)
     for e in kernels:
         if e["name"] in ("ragged_paged_attention", "paged_decode_attention_fused"):
             e["launches"] += (p20[e["name"]] + p21[e["name"]] + p23["bf16"][e["name"]]
@@ -10312,13 +10686,14 @@ def main(argv=None) -> int:
         elif e["name"] in ("ragged_paged_attention[int8]", "paged_decode_attention_fused[int8]"):
             base = e["name"].split("[")[0]
             e["launches"] += (p22[base] + p23["int8"][base] + p24[base] + p26["int8"][base]
-                              + p28["int8"][base])
+                              + p28["int8"][base] + p29[base])
         elif e["name"] == "qmm_w8a16[int8]":
             e["launches"] += (p20["qmm_w8a16"] + p21["qmm_w8a16"] + p22["qmm_w8a16"]
                               + p23["int8"]["qmm_w8a16"] + p23["bf16"]["qmm_w8a16"]
                               + p24["qmm_w8a16"] + p25["qmm_w8a16"]
                               + p26["int8"]["qmm_w8a16"] + p26["bf16"]["qmm_w8a16"]
-                              + p28["bf16"]["qmm_w8a16"] + p28["int8"]["qmm_w8a16"])
+                              + p28["bf16"]["qmm_w8a16"] + p28["int8"]["qmm_w8a16"]
+                              + p29["qmm_w8a16"])
     kernels += tp_entries + seq_entries + mesh_entries
 
     print(f"[done] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s; the host's "

@@ -26,8 +26,9 @@ a grpcio peer cannot tell it from the JAX plane:
 have the JAX names and behaviour, faults included: the health answer reads
 ``layer_start`` / ``layer_end``, which a stage's ``health()`` does not
 return, so both planes answer 0 for them (ROADMAP §3 item 4). Tensors ride
-as ``utils/serialization.py`` TPUT frames, written uncompressed; a JAX
-peer's zstd frames are read where ``zstandard`` imports. The client's
+as ``utils/serialization.py`` TPUT frames, zstd-compressed as the JAX
+plane's are (level 3 for payloads of 4,096 bytes or more, where smaller),
+so the 4 MiB receive limit falls on the compressed message. The client's
 forward and transfer go through the fault seams ``comm.grpc.forward`` and
 ``comm.grpc.transfer_kv`` (``testing/faults.py`` ``wrap_rpc``).
 """
@@ -225,7 +226,7 @@ def _transport_error(stream: h2.Stream, exc: BaseException) -> RpcError:
 
 def _tensor_msg(a: Any) -> Dict[str, bytes]:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, order="C"))
-    return {"frame": serialize(t)}
+    return {"frame": serialize(t, compress=True)}
 
 
 def _tensor_arr(msg: Optional[Dict[str, Any]]) -> Optional[torch.Tensor]:

@@ -10,10 +10,12 @@ One message is a msgpack header and one ``TPUT`` tensor frame per tensor
     bytes   msgpack header {"meta": {...}, "tensors": [name, ...]}
     repeat per tensor: u64 frame length + TPUT frame
 
-The port writes uncompressed frames, so its bytes equal the JAX package's
-``pack_message(..., compress=False)`` byte for byte; it reads a JAX
-message with zstd frames wherever ``zstandard`` imports (a
-``CodecUnavailable`` otherwise). Tensors come back as CPU tensors.
+Frames are compressed as the JAX package's are (``compress=True``: zstd
+level 3 for a payload of 4,096 bytes or more, where smaller, through
+``utils/zstd.py``). With ``compress=False`` the bytes equal the JAX
+package's ``pack_message(..., compress=False)`` byte for byte; either
+package reads the other's compressed messages. Tensors come back as CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ _VERSION = 1
 
 
 def pack_message(meta: Dict[str, Any],
-                 tensors: Optional[Mapping[str, Any]] = None) -> bytes:
+                 tensors: Optional[Mapping[str, Any]] = None,
+                 compress: bool = True) -> bytes:
     """``meta`` (msgpack-able) and named tensors (torch tensors or numpy
     arrays) → one message."""
     tensors = tensors or {}
@@ -45,7 +48,7 @@ def pack_message(meta: Dict[str, Any],
     for t in tensors.values():
         # a numpy array is copied: it may be read-only, which torch refuses
         frame = serialize(t if isinstance(t, torch.Tensor)
-                          else torch.from_numpy(np.array(t, order="C")))
+                          else torch.from_numpy(np.array(t, order="C")), compress=compress)
         parts.append(struct.pack("<Q", len(frame)))
         parts.append(frame)
     return b"".join(parts)

@@ -25,6 +25,10 @@ Components:
   (``utils/resize.py``) and the PNG row unfilter (``utils/png.py``). Each
   has a plain numpy version, taken through :func:`host_lib` with a logged
   warning that names it and counted in :data:`PLAIN_TAKEN`.
+- ``zstd_codec.cpp``: the zstd decoder and encoder of the TPUT tensor wire
+  (``utils/zstd.py``). The decoder's plain version is in Python; the
+  encoder's is an uncompressed frame. Both are taken through
+  :func:`host_lib` as the image codec's are.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ log = logging.getLogger("torch_native")
 
 SRC = Path(__file__).resolve().parent / "src" / "radix_index.cpp"
 IMAGE_SRC = SRC.parent / "image_codec.cpp"
+ZSTD_SRC = SRC.parent / "zstd_codec.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
@@ -139,7 +144,16 @@ def _bind_image_codec(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
-_BIND = {SRC.stem: _bind_radix, IMAGE_SRC.stem: _bind_image_codec}
+def _bind_zstd(lib: ctypes.CDLL) -> None:
+    u8p, err, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, ctypes.c_int64
+    lib.zstd_decompress.argtypes = [u8p, i64, u8p, i64, err, ctypes.c_int]
+    lib.zstd_compress.argtypes = [u8p, i64, u8p, i64, err, ctypes.c_int]
+    lib.zstd_compress_bound.argtypes = [i64]
+    for fn in (lib.zstd_decompress, lib.zstd_compress, lib.zstd_compress_bound):
+        fn.restype = i64
+
+
+_BIND = {SRC.stem: _bind_radix, IMAGE_SRC.stem: _bind_image_codec, ZSTD_SRC.stem: _bind_zstd}
 
 
 def _load_locked(src: Path) -> Optional[ctypes.CDLL]:
@@ -169,11 +183,12 @@ def get_lib() -> Optional[ctypes.CDLL]:
     return _load(SRC)
 
 
-def host_lib(function: str, plain: str) -> Optional[ctypes.CDLL]:
-    """The image codec's library for the host function ``function``, or
-    None, and then ``plain`` (its plain version) runs: counted in
-    :data:`PLAIN_TAKEN`, and said in a warning the first time."""
-    lib = _load(IMAGE_SRC)
+def host_lib(function: str, plain: str, src: Path = IMAGE_SRC) -> Optional[ctypes.CDLL]:
+    """The library of ``src`` (by default the image codec's) for the host
+    function ``function``, or None, and then ``plain`` (its plain version)
+    runs: counted in :data:`PLAIN_TAKEN`, and said in a warning the first
+    time."""
+    lib = _load(src)
     if lib is not None:
         return lib
     PLAIN_TAKEN[function] = PLAIN_TAKEN.get(function, 0) + 1

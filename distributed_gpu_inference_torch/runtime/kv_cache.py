@@ -70,12 +70,14 @@ def _pack_spill(page: torch.Tensor, scale_page: Optional[torch.Tensor]) -> bytes
     """Remote wire form of a spilled block: magic + CRC32, then the
     length-prefixed page frame and the optional scale frame (expanded over
     the D lanes to the JAX layout ``[L, 2, Bk, D]``). One entry per block:
-    page and scales are atomic by construction. Frames are uncompressed
-    ``TPUT`` frames (``utils/serialization.py``)."""
-    pb = serialization.serialize(page)
+    page and scales are atomic by construction. Frames are ``TPUT``
+    frames (``utils/serialization.py``) with the JAX serializer's default:
+    zstd level 3 for a payload of 4,096 bytes or more, where smaller."""
+    pb = serialization.serialize(page, compress=True)
     body = len(pb).to_bytes(8, "little") + pb
     if scale_page is not None:
-        body += serialization.serialize(expand_scales(scale_page, page.shape[-1]))
+        body += serialization.serialize(expand_scales(scale_page, page.shape[-1]),
+                                        compress=True)
     return _SPILL_MAGIC + zlib.crc32(body).to_bytes(4, "little") + body
 
 
@@ -428,8 +430,8 @@ class PagedKVCacheManager:
             "breaker_skips": 0,
         }
         # remote entries this process could not decode (a zstd frame
-        # without zstandard): a miss, the entry left in place for peers
-        # that can read it
+        # made with a dictionary): a miss, the entry left in place for
+        # peers that can read it
         self.codec_misses = 0
 
         self.metas: Dict[int, KVBlockMeta] = {}

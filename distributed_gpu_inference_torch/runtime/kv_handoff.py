@@ -28,9 +28,12 @@ module's adopt in a JAX engine):
   ``/kv/export`` pull with prefix-only frames of the same protocol, sourced
   from the device radix and the spill tiers.
 
-Wire rules: frames are uncompressed ``TPUT`` tensors (``utils/
-serialization.py``; the card's machine has no ``zstandard``); a JAX zstd
-frame is read when ``zstandard`` imports. An int8 pool's compact scales
+Wire rules: frames are ``TPUT`` tensors (``utils/serialization.py``),
+zstd-compressed where the JAX package compresses them by default (the
+one-shot handoff), through the port's own codec (``utils/zstd.py``);
+streamed pieces and prefix exports go uncompressed, as JAX writes them by
+default, and a compressed piece from a JAX peer is read all the same. An
+int8 pool's compact scales
 ``[L, 2, Bk]`` travel expanded to the JAX layout ``[n, L, 2, Bk, D]`` and
 come back after the every-lane check. Every metadata map is the hand-written
 msgpack of ``utils/serialization.py``, byte-identical to the JAX package's.
@@ -344,8 +347,8 @@ def _read_blobs(data: bytes, count: int) -> List[bytes]:
     return out
 
 
-def _wire_scales(scales: torch.Tensor, d: int) -> bytes:
-    return serialization.serialize(expand_scales(scales, d))
+def _wire_scales(scales: torch.Tensor, d: int, compress: bool = False) -> bytes:
+    return serialization.serialize(expand_scales(scales, d), compress=compress)
 
 
 def _read_pages(pages_blob: bytes, scales_blob: Optional[bytes]
@@ -356,12 +359,13 @@ def _read_pages(pages_blob: bytes, scales_blob: Optional[bytes]
     return pages, scales
 
 
-def serialize_handoff(h: KVHandoff) -> bytes:
+def serialize_handoff(h: KVHandoff, compress: bool = True) -> bytes:
     """Frame a handoff for a network hop: msgpack metadata, the pages as
-    one uncompressed ``TPUT`` tensor and, for int8 pools, the scales in the
-    JAX layout — byte-identical to the JAX package's
-    ``serialize_handoff(h, compress=False)`` of the same state. Pickle-free:
-    a peer cannot smuggle executable payloads."""
+    one ``TPUT`` tensor and, for int8 pools, the scales in the JAX layout,
+    zstd-compressed where ``compress`` (the JAX default). With
+    ``compress=False`` the bytes equal the JAX package's
+    ``serialize_handoff(h, compress=False)`` of the same state.
+    Pickle-free: a peer cannot smuggle executable payloads."""
     meta = {
         "request": _request_meta(h.request),
         "model_name": h.model_name,
@@ -378,9 +382,9 @@ def serialize_handoff(h: KVHandoff) -> bytes:
         "finish_reason": h.finish_reason,
         "has_scales": h.scale_pages is not None,
     }
-    blobs = [serialization.packb(meta), serialization.serialize(h.pages)]
+    blobs = [serialization.packb(meta), serialization.serialize(h.pages, compress=compress)]
     if h.scale_pages is not None:
-        blobs.append(_wire_scales(h.scale_pages, h.pages.shape[-1]))
+        blobs.append(_wire_scales(h.scale_pages, h.pages.shape[-1], compress))
     return _frame_blobs(*blobs)
 
 

@@ -704,9 +704,7 @@ class InProcessKVTransport:
 
         def _move() -> Tuple[int, int]:
             handoff = export_slot_kv(src_engine, slot)
-            # the port frames uncompressed (TPUT, no zstandard on the card);
-            # ``compress`` is kept for the JAX transport's signature
-            wire = serialize_handoff(handoff)
+            wire = serialize_handoff(handoff, compress=self.compress)
             new_slot = adopt_kv(dst_engine, deserialize_handoff(wire))
             src_engine.finish_slot(slot, cache=False)
             return len(wire), new_slot

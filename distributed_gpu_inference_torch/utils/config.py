@@ -20,10 +20,14 @@ pydantic's lax rules:
 - it rejects a value it cannot coerce with :class:`ConfigError`, naming
   the dotted key.
 
-The file format is JSON (a JSON file is also valid YAML, so the JAX loader
-reads the same file). A ``.yaml``/``.yml`` file that is not JSON is read
-through PyYAML when the Python running the worker has it; otherwise
-reading it raises :class:`ConfigError` naming the missing package.
+A ``.json`` file is read as JSON; any other file, the default
+``config.yaml`` among them, as YAML through ``utils/yaml_config.py`` (the
+JAX worker reads every config file with ``yaml.safe_load``, and PyYAML is
+not on the card's machine). :func:`save_worker_config` writes a
+``.yaml``/``.yml`` path byte for byte as the JAX worker's
+``yaml.safe_dump(..., sort_keys=False)`` does, and JSON elsewhere, so
+either package's worker starts from the file the other wrote back after
+registering.
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from distributed_gpu_inference_torch.runtime.io_guard import atomic_write_text
+from distributed_gpu_inference_torch.utils import yaml_config
 from distributed_gpu_inference_torch.utils.data_structures import KV_BLOCK_TOKENS
+from distributed_gpu_inference_torch.utils.yaml_config import ConfigError
 
 log = logging.getLogger(__name__)
 
@@ -80,10 +86,6 @@ def warn_deprecated_serving_key(key: str, source: str) -> None:
         "serving.%s (%s) is deprecated since the ragged serving round: %s",
         key, source, DEPRECATED_SERVING_KEYS[key],
     )
-
-
-class ConfigError(ValueError):
-    """A config value that cannot be coerced to its field's type."""
 
 
 @dataclass
@@ -360,29 +362,13 @@ def _deep_update(base: Dict[str, Any], upd: Dict[str, Any]) -> Dict[str, Any]:
     return base
 
 
-def _yaml():
-    """PyYAML, or ConfigError naming it when this Python lacks it."""
-    try:
-        import yaml
-    except ImportError as exc:
-        raise ConfigError(
-            "reading a YAML config needs the PyYAML package, which this "
-            "Python does not have; write the config as JSON (a JSON file is "
-            "valid YAML, so both packages' workers read it)"
-        ) from exc
-    return yaml
-
-
 def _parse_composite(raw: str) -> Any:
-    """An env value that looks like a list or mapping: JSON, else YAML when
-    PyYAML is there, else the string as it is (its field then rejects it)."""
+    """An env value that looks like a list or mapping, read as the JAX
+    loader reads it: YAML, else the string as it is (its field then
+    rejects it)."""
     try:
-        return json.loads(raw)
-    except ValueError:
-        pass
-    try:
-        return _yaml().safe_load(raw)
-    except Exception:  # noqa: BLE001 — no PyYAML, or not YAML either
+        return yaml_config.safe_load(raw)
+    except Exception:  # noqa: BLE001 — not YAML this loader takes
         return raw
 
 
@@ -409,16 +395,17 @@ def _env_overrides(environ: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
 
 
 def _read_config_file(path: str | Path) -> Dict[str, Any]:
-    """One config file's mapping: JSON, or YAML through PyYAML for a
-    ``.yaml``/``.yml`` file that is not JSON."""
+    """One config file's mapping: JSON for a ``.json`` file, YAML
+    otherwise."""
     p = Path(path)
     text = p.read_text()
-    try:
-        data = json.loads(text) if text.strip() else {}
-    except ValueError:
-        if p.suffix.lower() not in (".yaml", ".yml"):
+    if p.suffix.lower() == ".json":
+        try:
+            data = json.loads(text) if text.strip() else {}
+        except ValueError:
             raise ConfigError(f"config file {path} is not valid JSON") from None
-        data = _yaml().safe_load(text) or {}
+    else:
+        data = yaml_config.safe_load(text) or {}
     if not isinstance(data, dict):
         raise ConfigError(f"config file {path} must contain a mapping")
     return data
@@ -449,13 +436,18 @@ def load_worker_config(
 
 
 def save_worker_config(cfg: WorkerConfig, path: str | Path) -> None:
-    """Persist the config as JSON (the worker writes issued credentials
-    back after registration), atomically: a crash mid-save must leave the
-    previous file intact, never a truncated one that locks the worker out
-    on restart."""
+    """Persist the config (the worker writes issued credentials back after
+    registration): YAML for a ``.yaml``/``.yml`` path, byte-identical to
+    the JAX worker's ``yaml.safe_dump(..., sort_keys=False)``, JSON
+    elsewhere. Atomically: a crash mid-save must leave the previous file
+    intact, never a truncated one that locks the worker out on restart."""
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
-    atomic_write_text(p, json.dumps(config_dict(cfg), indent=2) + "\n")
+    data = config_dict(cfg)
+    if p.suffix.lower() in (".yaml", ".yml"):
+        atomic_write_text(p, yaml_config.safe_dump(data))
+    else:
+        atomic_write_text(p, json.dumps(data, indent=2) + "\n")
 
 
 def set_dotted(cfg: WorkerConfig, dotted_key: str, value: Any) -> WorkerConfig:

@@ -276,8 +276,9 @@ class SessionConfig:
     the fields of the JAX record that its session reads, with their
     defaults. A hop's timeout is its ``WorkerSession``'s; the JAX record's
     ``model_name``, ``dtype``, ``timeout_s``, ``compress_dcn`` and
-    ``use_ici_collectives`` are read by no session and left out (the port
-    writes uncompressed frames)."""
+    ``use_ici_collectives`` are read by no session and left out (a hop's
+    frames are compressed as the JAX session's are, whatever
+    ``compress_dcn`` says)."""
 
     max_length: int = 8192
     max_retries_per_hop: int = 3

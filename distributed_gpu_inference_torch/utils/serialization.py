@@ -26,9 +26,16 @@ The card's machine has no ``msgpack``, ``ml_dtypes`` or ``zstandard``, so:
   ``runtime/kv_handoff.py``;
 - ``bfloat16`` and ``float8_e4m3fn`` payloads are the raw bits of the torch
   tensor (numpy has neither dtype without ``ml_dtypes``);
-- frames are written uncompressed (flag 0), which the JAX reader accepts.
-  A zstd frame is read when ``zstandard`` imports; without it
-  :class:`CodecUnavailable` says so and the caller counts a miss.
+- zstd payloads go through the port's own codec (``utils/zstd.py``).
+  :func:`serialize` follows the JAX ``TensorSerializer``'s rule: with
+  ``compress=True`` a payload of ``min_compress_bytes`` (4,096) or more is
+  compressed as libzstd's level 3 would be (the JAX default, and the only
+  level it writes) and the frame keeps the smaller of the two
+  (flag 1 where it is the zstd frame). Uncompressed frames equal the JAX
+  package's ``compress=False`` frames byte for byte; compressed ones are
+  not libzstd's bytes but decode to the same payload in either package.
+  :func:`deserialize` reads either, and raises :class:`CodecUnavailable`
+  only for a zstd frame made with a dictionary, which no writer makes.
 
 Tensors come back on the CPU, in the frame's dtype and shape.
 """
@@ -40,6 +47,9 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from . import zstd
+from .zstd import CodecUnavailable  # noqa: F401 — callers catch serialization.CodecUnavailable
 
 _MAGIC = b"TPUT"
 _VERSION = 1
@@ -57,11 +67,6 @@ _TORCH_BY_NAME: Dict[str, torch.dtype] = {
     "int64": torch.int64,
 }
 _NAME_BY_TORCH = {v: k for k, v in _TORCH_BY_NAME.items()}
-
-
-class CodecUnavailable(RuntimeError):
-    """A frame needs a codec this process cannot import (a zstd payload
-    without ``zstandard``)."""
 
 
 def wire_dtype_name(dtype: torch.dtype) -> str:
@@ -267,13 +272,24 @@ def unpack_header(data: bytes) -> Tuple[str, List[int]]:
 
 # ---------------------------------------------------------------- frames
 
-def serialize(tensor: torch.Tensor) -> bytes:
-    """One tensor → an uncompressed ``TPUT`` frame of its raw bytes."""
+def serialize(tensor: torch.Tensor, compress: bool = False,
+              min_compress_bytes: int = 4096) -> bytes:
+    """One tensor → a ``TPUT`` frame of its bytes: zstd-compressed where
+    ``compress`` is set, the payload has at least ``min_compress_bytes``
+    and the zstd frame is smaller (the JAX ``TensorSerializer``'s rule),
+    raw otherwise."""
     t = tensor.detach().to("cpu").contiguous()
     name = wire_dtype_name(t.dtype)
-    payload = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+    raw = t.reshape(-1).view(torch.uint8).numpy() if t.numel() else np.empty(0, np.uint8)
+    payload, flags = None, 0
+    if compress and raw.size >= min_compress_bytes:
+        packed = zstd.compress(raw)
+        if packed is not None and len(packed) < raw.size:
+            payload, flags = packed, _FLAG_ZSTD
+    if payload is None:
+        payload = raw.tobytes()
     header = pack_header(name, tuple(t.shape))
-    return b"".join([_MAGIC, struct.pack("<BB", _VERSION, 0),
+    return b"".join([_MAGIC, struct.pack("<BB", _VERSION, flags),
                      struct.pack("<I", len(header)), header, payload])
 
 
@@ -287,24 +303,24 @@ def _check_prefix(data: bytes) -> int:
 
 
 def deserialize(data: bytes) -> torch.Tensor:
-    """A ``TPUT`` frame → a CPU tensor of its dtype and shape. Raises
-    :class:`CodecUnavailable` for a zstd frame without ``zstandard`` and
-    ``ValueError`` for a malformed one."""
+    """A ``TPUT`` frame → a CPU tensor of its dtype and shape. A zstd
+    payload must declare the size the dtype and shape give, or it is
+    refused before it is inflated. Raises :class:`CodecUnavailable` for a
+    zstd frame made with a dictionary and ``ValueError`` for a malformed
+    frame."""
     flags = _check_prefix(data)
     (hdr_len,) = struct.unpack_from("<I", data, 6)
     name, shape = unpack_header(data[10:10 + hdr_len])
-    payload = data[10 + hdr_len:]
-    if flags & _FLAG_ZSTD:
-        try:
-            import zstandard
-        except ImportError:
-            raise CodecUnavailable(
-                "zstd-compressed TPUT frame and no zstandard module") from None
-        payload = zstandard.ZstdDecompressor().decompress(payload)
     dtype = dtype_from_name(name)
     count = int(np.prod(shape)) if shape else 1
-    if len(payload) != count * dtype.itemsize:
-        raise ValueError(f"TPUT payload of {len(payload)} bytes for {name} {shape}")
-    raw = torch.frombuffer(bytearray(payload), dtype=torch.uint8) if payload \
+    size = count * dtype.itemsize
+    payload = memoryview(data)[10 + hdr_len:]
+    if flags & _FLAG_ZSTD:
+        buf = zstd.decompress(payload, expected_size=size)
+    else:
+        if len(payload) != size:
+            raise ValueError(f"TPUT payload of {len(payload)} bytes for {name} {shape}")
+        buf = bytearray(payload)
+    raw = torch.frombuffer(buf, dtype=torch.uint8) if size \
         else torch.empty(0, dtype=torch.uint8)
     return raw.view(dtype).reshape(shape)

@@ -1,13 +1,14 @@
 """Worker CLI: setup wizard + start/status/set/show commands.
 
 The port of ``distributed_gpu_inference_tpu/worker/cli.py`` on the
-standard library: the config is a JSON file (``--config``, default
-``config.json``; a JSON file is valid YAML, so a JAX worker reads it too)
-and ``status`` makes its server round trip on ``http.client``. ``start``
-persists the credentials the plane issues, so a restarted worker verifies
-them and keeps its worker id.
+standard library: the config is the JAX worker's YAML file (``--config``,
+default ``config.yaml``, read and written through ``utils/yaml_config.py``;
+a ``.json`` path is read and written as JSON) and ``status`` makes its
+server round trip on ``http.client``. ``start`` persists the credentials
+the plane issues, so a restarted worker verifies them and keeps its worker
+id.
 
-    python -m distributed_gpu_inference_torch.worker.cli start --config worker.json
+    python -m distributed_gpu_inference_torch.worker.cli start --config worker.yaml
 
 Every wizard prompt has a default, so ``yes "" | torch-worker setup``
 writes a valid config.
@@ -33,7 +34,7 @@ from distributed_gpu_inference_torch.utils.config import (
     set_dotted,
 )
 
-DEFAULT_CONFIG_PATH = "config.json"
+DEFAULT_CONFIG_PATH = "config.yaml"
 REGIONS = ("us-west", "us-east", "eu-west", "eu-central", "asia-east",
            "asia-southeast")
 TASK_TYPES = ("llm",)

@@ -1188,8 +1188,10 @@ class TorchLLMEngine(LLMBaseEngine):
         (``decode_url`` + ``/kv/transfer``) — streamed by default, one
         blob for sliding-window models or ``pd_stream: false``. When this
         worker is the decode target (KV affinity) the slot is retained
-        under the key: no bytes move. The push runs outside any engine
-        work, so two workers pushing to each other cannot deadlock."""
+        under the key: no bytes move. The framing (zstd, as JAX's default)
+        and the push run outside any engine work, so the batcher's rounds
+        do not wait on them and two workers pushing to each other cannot
+        deadlock; a one-shot ``migration_ms`` counts both."""
         if not self.loaded or self.engine is None:
             raise EngineLoadError("engine not loaded")
         decode_url = params.get("decode_url")
@@ -1232,15 +1234,14 @@ class TorchLLMEngine(LLMBaseEngine):
                 self._pd_slots[key] = (slot, s, time.monotonic())
                 return slot, first_token, ttft_ms, s.prompt_len, None
             try:
-                return slot, first_token, ttft_ms, s.prompt_len, \
-                    serialize_handoff(export_slot_kv(eng, slot))
+                return slot, first_token, ttft_ms, s.prompt_len, export_slot_kv(eng, slot)
             finally:
-                # the donor is done once the bytes are serialized: a failed
+                # the donor is done once its pages are on the host: a failed
                 # or slow push cannot leak the slot
                 eng.finish_slot(slot)
 
         with self._engine_lock:
-            slot, first_token, ttft_ms, prompt_tokens, raw = \
+            slot, first_token, ttft_ms, prompt_tokens, handoff = \
                 self._exclusive(_prefill_and_export)
         tl.note("pd.prefill.done", ttft_ms=ttft_ms)
         usage = {"prompt_tokens": prompt_tokens, "completion_tokens": 0,
@@ -1254,7 +1255,11 @@ class TorchLLMEngine(LLMBaseEngine):
                    "decode_slot": slot, "local": True, "usage": usage}
             self._flight_finish(tl, out)
             return out
+        # framed (and zstd-compressed) on this thread, after the engine is
+        # released: the batcher's rounds do not wait on the encoder
         t0 = time.perf_counter()
+        raw = serialize_handoff(handoff)
+        del handoff
         tl.note("handoff.begin", bytes=len(raw))
         try:
             resp = self._pd_push(HTTPPoster(), decode_url.rstrip("/") + "/kv/transfer", raw)

@@ -293,6 +293,7 @@ class _Fake:
 
     def __init__(self, status="ok", gate=None):
         self.status, self.gate, self.seen = status, gate, []
+        self.reply = None           # a forward's answer, in place of the small hidden
 
     def create_session(self, sid):
         return {"session_id": sid, "existing": False}
@@ -308,7 +309,7 @@ class _Fake:
         if self.gate is not None:
             self.gate.wait(timeout=10.0)
             raise KeyError(sid)
-        return {"hidden": np.zeros((1, 1, 4), np.float32)}
+        return self.reply or {"hidden": np.zeros((1, 1, 4), np.float32)}
 
 
 @pytest.mark.parametrize("server", SERVERS)
@@ -447,7 +448,10 @@ def test_transfer_kv_receiver(server, client_kind):
 @pytest.mark.parametrize("client_kind", CLIENTS)
 def test_receive_limit_both_ways(server, client_kind):
     """4,194,304 bytes of message pass and 4,194,305 fail with grpcio's code
-    and words: requests at the server, replies at the client."""
+    and words: requests at the server, replies at the client. Tensors ride
+    zstd-compressed in both planes, so the limit falls on the compressed
+    message: f32 activations whose raw frame is past 4 MiB pass where they
+    compress below it, and fail both ways where they do not."""
     fake = _Fake()
     srv = _server(server, fake, kv_receiver=lambda raw: {"slot": 1})
     c = _client(client_kind, srv.port)
@@ -471,6 +475,24 @@ def test_receive_limit_both_ways(server, client_kind):
         # the connection still serves
         fake.status = "ok"
         assert c.health()["status"] == "ok"
+        # f32 normals compress to ~0.93 of raw: 34 rows of 32,000 are 4.35 MB
+        # raw and ~4.03 MB compressed; 37 rows compress to ~4.39 MB
+        rng = np.random.default_rng(5)
+        rows = {n: rng.standard_normal((1, n, 32_000)).astype(np.float32) for n in (34, 37)}
+        assert rows[34].nbytes > LIMIT
+        pos = np.arange(34, dtype=np.int32)[None]
+        assert c.forward("s", rows[34], pos, 34)["hidden"].shape == (1, 1, 4)
+        code, details = _failure(lambda: c.forward("s", rows[37], pos, 37))
+        assert code == "RESOURCE_EXHAUSTED" and details.startswith(
+            "SERVER: Received message larger than max (") and details.endswith(f" vs. {LIMIT})")
+        fake.reply = {"logits": rows[34]}
+        got = c.forward("s", np.zeros((1, 1, 4), np.float32), pos[:, :1], 1)["logits"]
+        assert np.array_equal(np.asarray(got), rows[34])
+        fake.reply = {"logits": rows[37]}
+        code, details = _failure(lambda: c.forward("s", np.zeros((1, 1, 4), np.float32),
+                                                   pos[:, :1], 1))
+        assert code == "RESOURCE_EXHAUSTED" and details.startswith(
+            "CLIENT: Received message larger than max (") and details.endswith(f" vs. {LIMIT})")
     finally:
         c.close()
         srv.stop(0)

@@ -1,9 +1,8 @@
 """Hygiene of the PyTorch port: it imports nothing of JAX or of the JAX
 package (nor aiohttp, httpx, pydantic, transformers, msgpack, ml_dtypes,
-redis, safetensors, tokenizers, regex, grpc, h2, hpack or hyperframe, which the
-card's machine lacks;
-PyYAML only lazily, behind an error naming it, jinja2 only where a chat
-template is compiled, and zstandard only to read a zstd spill frame),
+redis, safetensors, tokenizers, regex, grpc, h2, hpack, hyperframe,
+zstandard or PyYAML, which the card's machine lacks; jinja2 only where a
+chat template is compiled),
 runs on CUDA unless asked for the CPU, its kernel wrappers never
 fall back to the plain version for a tensor that is not on the CPU, and
 the engine refuses on the card a model the kernels do not take. Tests
@@ -25,7 +24,8 @@ from distributed_gpu_inference_torch.runtime.engine import TorchEngine  # noqa: 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "distributed_gpu_inference_tpu", "aiohttp", "httpx",
              "pydantic", "transformers", "msgpack", "ml_dtypes", "redis",
-             "safetensors", "tokenizers", "regex", "grpc", "h2", "hpack", "hyperframe")
+             "safetensors", "tokenizers", "regex", "grpc", "h2", "hpack", "hyperframe",
+             "zstandard", "yaml")
 
 
 def _port_files():
@@ -80,7 +80,7 @@ def test_pd_modules_import_nothing_of_jax():
 def test_pipeline_modules_import_nothing_of_jax():
     # the wire, the stage worker, the session and the stage planner carry no
     # JAX, no module of the JAX package, no aiohttp/httpx/grpc/msgpack (and
-    # zstandard only lazily, see below); chip_smoke.py's phase 21 drives
+    # zstandard: frames go through utils/zstd.py); chip_smoke.py's phase 21 drives
     # the pipeline on the card
     pipeline = [ROOT / "distributed_gpu_inference_torch" / rel for rel in (
         "comm/wire.py", "comm/session.py", "comm/stage_worker.py",
@@ -251,23 +251,21 @@ def test_the_plane_imports_without_its_optional_packages():
 
 
 def test_yaml_is_imported_only_lazily_behind_its_error():
-    # PyYAML may be missing on the card: one import, inside the function
-    # that turns its absence into an error naming it
+    # the card has no PyYAML: the port reads and writes YAML configs itself
+    # (utils/yaml_config.py), so no module imports it, lazily or not
     sites = {str(f.relative_to(ROOT)): _import_sites(f, "yaml") for f in _port_files()}
-    sites = {k: v for k, v in sites.items() if v}
-    assert list(sites) == ["distributed_gpu_inference_torch/utils/config.py"]
-    assert [fn for fn, _ in sites["distributed_gpu_inference_torch/utils/config.py"]] == [
-        "_yaml"]
+    assert not {k: v for k, v in sites.items() if v}
+    assert (ROOT / "distributed_gpu_inference_torch/utils/yaml_config.py").is_file()
 
 
 def test_zstandard_is_imported_only_where_a_zstd_frame_is_read():
-    # the card has no zstandard: the spill wire writes uncompressed frames,
-    # and only reading a JAX writer's zstd frame imports it, lazily
+    # the card has no zstandard: the port reads and writes zstd frames with
+    # its own codec (utils/zstd.py over native/src/zstd_codec.cpp), so no
+    # module imports it
     sites = {str(f.relative_to(ROOT)): _import_sites(f, "zstandard") for f in _port_files()}
-    sites = {k: v for k, v in sites.items() if v}
-    assert list(sites) == ["distributed_gpu_inference_torch/utils/serialization.py"]
-    assert [fn for fn, _ in sites["distributed_gpu_inference_torch/utils/serialization.py"]] \
-        == ["deserialize"]
+    assert not {k: v for k, v in sites.items() if v}
+    ser = (ROOT / "distributed_gpu_inference_torch/utils/serialization.py").read_text()
+    assert "from . import zstd" in ser
 
 
 def test_jinja2_is_imported_only_where_a_chat_template_is_compiled():
@@ -316,11 +314,13 @@ def test_the_package_ships_its_kernel_and_native_sources():
     shipped = {p for g in globs for p in pkg.glob(g)}
     sources = {p for sub, pattern in (("csrc", "*.cu"), ("csrc", "*.cuh"),
                                       ("native/src", "*.cpp")) for p in (pkg / sub).glob(pattern)}
-    assert {"radix_index.cpp", "image_codec.cpp"} <= {p.name for p in sources}
+    assert {"radix_index.cpp", "image_codec.cpp", "zstd_codec.cpp"} <= {p.name for p in sources}
     assert sources <= shipped, sorted(str(p) for p in sources - shipped)
 
 
 def test_yaml_config_without_pyyaml_raises_naming_it(tmp_path, monkeypatch):
+    # without PyYAML a YAML config loads; what the port's reader does not
+    # take raises ConfigError naming the construct and its line
     import sys
 
     from distributed_gpu_inference_torch.utils.config import ConfigError, load_worker_config
@@ -328,9 +328,11 @@ def test_yaml_config_without_pyyaml_raises_naming_it(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "yaml", None)       # import yaml → ImportError
     p = tmp_path / "config.yaml"
     p.write_text("region: eu-west\n")
-    with pytest.raises(ConfigError, match="PyYAML"):
+    assert load_worker_config(p, environ={}).region == "eu-west"
+    p.write_text("region: &r eu-west\nname: *r\n")
+    with pytest.raises(ConfigError, match=r"line 1: an anchor"):
         load_worker_config(p, environ={})
-    # a JSON file needs no PyYAML, whatever its suffix
+    # JSON content is YAML too, whatever the suffix
     p.write_text('{"region": "eu-west"}')
     assert load_worker_config(p, environ={}).region == "eu-west"
 

@@ -172,7 +172,7 @@ def test_jax_export_adopts_in_the_port(engines, reference, kv, k):
     j.finish_slot(slot, cache=False)
     raw = jkh.serialize_handoff(jh, compress=False)
     th = tkh.deserialize_handoff(raw)
-    assert tkh.serialize_handoff(th) == raw            # byte-identical re-encode
+    assert tkh.serialize_handoff(th, compress=False) == raw   # byte-identical re-encode
     assert (th.scale_pages is not None) == (kv == "int8")
     t.manager.clear_cached()
     before = t.manager.num_free
@@ -191,7 +191,7 @@ def test_port_export_adopts_in_jax(engines, reference, kv, k):
     _steps(t, slot, k)
     th = tkh.export_slot_kv(t, slot)
     t.finish_slot(slot, cache=False)
-    raw = tkh.serialize_handoff(th)
+    raw = tkh.serialize_handoff(th, compress=False)
     jh = jkh.deserialize_handoff(raw)
     assert jkh.serialize_handoff(jh, compress=False) == raw
     if kv == "int8":

@@ -4,8 +4,10 @@
   header written by hand) and ``SPL2`` spill entries (``_pack_spill`` /
   ``_unpack_spill``) cross between the packages both ways for bf16, int8
   with its scales (compact ``[L, 2, Bk]`` in the port, ``[L, 2, Bk, D]`` on
-  the wire) and fp8 pages; the JAX serializer's zstd frames are read when
-  ``zstandard`` imports, and without it they are a counted miss.
+  the wire) and fp8 pages, zstd-compressed as the JAX serializer writes
+  them or not; the port reads the JAX writer's zstd frames with
+  ``zstandard`` blocked (its own codec, ``utils/zstd.py``), and a frame it
+  cannot decode (one made with a dictionary) is a counted miss.
 - Manager: the JAX ``PagedKVCacheManager`` and the port's, driven through
   the same allocations, frees and evictions, stage the same downloads and
   uploads and report the same ``get_stats()`` and ``spill_wire_stats()``,
@@ -96,9 +98,9 @@ def test_tput_frames_cross_both_ways(name, compress):
     got = tser.deserialize(frame)
     assert got.dtype == _to_torch(arr).dtype and tuple(got.shape) == arr.shape
     assert np.array_equal(_bits(got), _bits(arr))
-    # the port writes uncompressed frames, read by the JAX serializer
-    mine = tser.serialize(_to_torch(arr))
-    assert mine[5] == 0
+    # the port writes by the same rule, and the JAX serializer reads it
+    mine = tser.serialize(_to_torch(arr), compress=compress, min_compress_bytes=64)
+    assert bool(mine[5] & 1) == compress
     back = TensorSerializer().deserialize(mine)
     assert back.dtype == arr.dtype and np.array_equal(_bits(back), _bits(arr))
     if not compress:
@@ -142,18 +144,41 @@ def _manager(**kw):
 
 
 def test_zstd_entry_without_zstandard_is_a_counted_miss(monkeypatch):
+    # read without zstandard: the JAX writer's zstd entry is a hit
+    rng = np.random.default_rng(3)
     page = np.zeros((4, 2, 2, 16, 32), ml_dtypes.bfloat16)     # compresses
+    page[:, :, :, :4] = rng.standard_normal((4, 2, 2, 4, 32)).astype(ml_dtypes.bfloat16)
     raw = jkv._pack_spill(page, None)
     assert raw[8 + 8 + 5] & 1                   # the JAX writer's zstd flag
-    assert tkv._unpack_spill(raw)[0].dtype == torch.bfloat16   # zstandard here
     store = tkv.RemoteKVStore()
     store.put("k", raw)
     mgr = _manager(remote_store=store, kv_dtype=torch.bfloat16)
     monkeypatch.setitem(sys.modules, "zstandard", None)        # import → ImportError
+    got = mgr._probe_spill("k")
+    assert got is not None and np.array_equal(_bits(got[0]), _bits(page))
+    assert mgr.codec_misses == 0 and mgr.stats.l3_hits == 1
+
+
+def test_zstd_entry_made_with_a_dictionary_is_a_counted_miss():
+    # the one zstd frame the port cannot decode: a counted miss, the entry
+    # left in place for peers that can read it
+    page = np.zeros((4, 2, 2, 16, 32), ml_dtypes.bfloat16)
+    frame = TensorSerializer(min_compress_bytes=64).serialize(page)
+    header_end = 10 + int.from_bytes(frame[6:10], "little")
+    packed = frame[header_end:]
+    assert frame[5] & 1 and packed[4] & 0x20      # zstd, a single-segment frame
+    # the same frame, its header naming dictionary 7
+    packed = packed[:4] + bytes([packed[4] | 1, 7]) + packed[5:]
+    frame = frame[:header_end] + packed
+    body = len(frame).to_bytes(8, "little") + frame
+    raw = b"SPL2" + __import__("zlib").crc32(body).to_bytes(4, "little") + body
+    store = tkv.RemoteKVStore()
+    store.put("k", raw)
+    mgr = _manager(remote_store=store, kv_dtype=torch.bfloat16)
     assert mgr._probe_spill("k") is None
     assert mgr.codec_misses == 1
     assert mgr.spill_io["remote_quarantined_corrupt"] == 0
-    assert "k" in store._store                  # left for peers that can read it
+    assert "k" in store._store
 
 
 def test_corrupt_and_mistyped_entries_degrade_to_misses():

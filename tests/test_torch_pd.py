@@ -297,6 +297,49 @@ def test_local_affinity_retains_the_slot(weights, oracle):
         llm.unload()
 
 
+def test_one_shot_handoff_is_framed_after_the_engine_is_released(weights, oracle,
+                                                                  monkeypatch):
+    """The one-shot blob is zstd-framed on the caller's thread once the
+    batcher's exclusive section has returned (its rounds never wait on the
+    encoder), and a decode worker adopting it decodes the oracle."""
+    from distributed_gpu_inference_torch.runtime import kv_handoff as tkh
+    from distributed_gpu_inference_torch.worker.engines import llm as tllm
+
+    pre, dec = _port_llm(weights), _port_llm(weights)
+    try:
+        executor = pre.serving.run_exclusive(threading.get_ident)
+        framed, pushed = [], []
+        real = tllm.serialize_handoff
+
+        def serialize(h, *args, **kw):
+            framed.append((threading.get_ident(), pre._engine_lock.locked(),
+                           pre.engine.num_active))
+            return real(h, *args, **kw)
+
+        def push(client, url, raw):
+            pushed.append(raw)
+            return Response(200, b'{"slot": 0}')
+
+        monkeypatch.setattr(tllm, "serialize_handoff", serialize)
+        monkeypatch.setattr(pre, "_pd_push", push)
+        out = pre.inference(dict(PD_PARAMS, pd_stage="prefill", kv_cache_key="one-shot",
+                                 decode_url="http://decode.invalid", pd_stream=False,
+                                 target_worker="w1", decode_worker="w2"))
+        # on this thread, the engine lock free, the donor's slot already freed
+        assert framed == [(threading.get_ident(), False, 0)]
+        assert threading.get_ident() != executor
+        assert out["local"] is False and out["migration_bytes"] == len(pushed[0]) > 0
+        assert out["migration_ms"] > 0
+        # the JAX default: the pages go compressed where zstd shrinks them
+        assert pushed[0] == real(tkh.deserialize_handoff(pushed[0]))
+        dec.kv_receiver(pushed[0])
+        got = dec.inference({"pd_stage": "decode", "kv_cache_key": "one-shot"})
+        assert got["token_ids"] == oracle
+    finally:
+        pre.unload()
+        dec.unload()
+
+
 # -- the push retry ladder (tests/test_pd_chaos.py, with port fault plans)
 
 
